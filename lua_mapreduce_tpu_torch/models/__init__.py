@@ -1,1 +1,1 @@
-"""Models of the port (the digits MLP in this slice)."""
+"""Models of the port: the digits MLP and the LM serving subset."""

@@ -21,7 +21,8 @@ from typing import Dict
 
 import torch
 
-KERNELS = ("matmul_f32", "matmul_bf16", "rowwise_softmax")
+KERNELS = ("matmul_f32", "matmul_bf16", "rowwise_softmax", "flash_fwd",
+           "decode", "q8")
 
 _launches: Dict[str, int] = {k: 0 for k in KERNELS}
 _launch_lock = threading.Lock()
@@ -61,6 +62,11 @@ def device_kind(*tensors: torch.Tensor) -> str:
 
 from lua_mapreduce_tpu_torch.ops.matmul import matmul  # noqa: E402
 from lua_mapreduce_tpu_torch.ops.softmax import log_softmax, softmax  # noqa: E402
+from lua_mapreduce_tpu_torch.ops.attention import flash_attention  # noqa: E402
+from lua_mapreduce_tpu_torch.ops.decode import (decode_attention,  # noqa: E402
+                                                quantize_kv)
+from lua_mapreduce_tpu_torch.ops.q8 import q8_matmul, quantize_q8  # noqa: E402
 
 __all__ = ["KERNELS", "launch_counts", "reset_launch_counts", "device_kind",
-           "matmul", "log_softmax", "softmax"]
+           "matmul", "log_softmax", "softmax", "flash_attention",
+           "decode_attention", "quantize_kv", "q8_matmul", "quantize_q8"]

@@ -26,7 +26,8 @@ from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = {"matmul": "matmul.cu", "softmax": "softmax.cu"}
+SOURCES = {"matmul": "matmul.cu", "softmax": "softmax.cu",
+           "flash": "flash.cu", "decode": "decode.cu", "q8": "q8.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -38,6 +39,11 @@ _SIGNATURES = {
     "matmul": {"lmr_matmul": [_P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _I,
                               _I, _P]},
     "softmax": {"lmr_rowwise_softmax": [_P, _P, _L, _I, _I, _I, _P]},
+    "flash": {"lmr_flash_fwd": [_P] * 5 + [_I] * 5 + [_L] * 9 + [_I] * 5
+              + [_P]},
+    "decode": {"lmr_decode": [_P] * 6 + [_I] * 6 + [_L] * 3 + [_I, _P]},
+    "q8": {"lmr_q8_matmul": [_P] * 5 + [_I] * 4 + [_P],
+           "lmr_q8_splits": [_I] * 3},
 }
 
 _lock = threading.Lock()
@@ -123,8 +129,8 @@ def build_all() -> Dict[str, object]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library ``name`` (``"matmul"`` or ``"softmax"``),
-    building all kernels on first use."""
+    """The loaded library ``name`` (a key of ``SOURCES``), building all
+    kernels on first use."""
     lib: Optional[ctypes.CDLL] = _libs.get(name)
     if lib is None:
         build_all()

@@ -128,7 +128,8 @@ def test_cuda_tensors_launch_kernels_and_count(cuda):
     ops.log_softmax(_randn(cuda, 4, 4))
     ops.softmax(_randn(cuda, 4, 4))
     assert ops.launch_counts() == {"matmul_f32": 1, "matmul_bf16": 1,
-                                   "rowwise_softmax": 2}
+                                   "rowwise_softmax": 2, "flash_fwd": 0,
+                                   "decode": 0, "q8": 0}
 
 
 def test_kernel_rejects_unsupported_dtype(cuda):
@@ -154,3 +155,157 @@ def test_mlp_on_the_card_matches_the_cpu(cuda):
     torch.testing.assert_close(lg.detach().cpu(), lc.detach(), **F32)
     for k in p_cpu:
         torch.testing.assert_close(p_gpu[k].grad.cpu(), p_cpu[k].grad, **F32)
+
+
+# ------------------------------------------------- serving-path kernels
+
+from lua_mapreduce_tpu_torch.ops.attention import (  # noqa: E402
+    flash_attention_cuda, flash_attention_plain)
+from lua_mapreduce_tpu_torch.ops.decode import (  # noqa: E402
+    decode_attention_cuda, decode_attention_plain)
+from lua_mapreduce_tpu_torch.ops.q8 import (  # noqa: E402
+    q8_matmul_cuda, q8_matmul_plain)
+
+# tests/test_attention_op.py, test_decode_op.py and test_q8.py tolerances
+FLASH_F32 = dict(rtol=2e-5, atol=2e-5)
+DECODE_INT8 = dict(rtol=5e-3, atol=5e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal,window,hkv,l", [
+    (False, 0, 4, 96), (True, 0, 4, 96), (True, 0, 4, 200),
+    (True, 0, 1, 130), (True, 37, 2, 300)])
+def test_flash_kernel_matches_plain(cuda, dtype, d, causal, window, hkv, l):
+    q = _randn(cuda, 2, l, 4, d, dtype=dtype, scale=0.5)
+    k = _randn(cuda, 2, l, hkv, d, dtype=dtype, scale=0.5)
+    v = _randn(cuda, 2, l, hkv, d, dtype=dtype, scale=0.5)
+    scale = d ** -0.5
+    tol = FLASH_F32 if dtype == torch.float32 else BF16
+    got = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    want = flash_attention_plain(q, k, v, causal, scale, window=window)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    go, gl = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                  with_lse=True)
+    wo, wl = flash_attention_plain(q, k, v, causal, scale, with_lse=True,
+                                   window=window)
+    assert go.dtype == torch.float32
+    torch.testing.assert_close(go, wo, **tol)
+    torch.testing.assert_close(gl, wl, rtol=1e-5, atol=1e-4)
+
+
+def test_flash_kernel_strided_fused_qkv_views(cuda):
+    """The model hands the kernel strided views of the fused qkv
+    projection; they read as their contiguous copies do."""
+    qkv = _randn(cuda, 2, 70, 3 * 4 * 64, dtype=torch.bfloat16)
+    q, k, v = (qkv[..., i * 256:(i + 1) * 256].reshape(2, 70, 4, 64)
+               for i in range(3))
+    got = flash_attention_cuda(q, k, v, causal=True)
+    want = flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                v.contiguous(), causal=True)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_flash_kernel_all_masked_rows_zero(cuda):
+    q, k, v = (_randn(cuda, 1, 40, 2, 64) for _ in range(3))
+    out, lse = flash_attention_cuda(q, k, v, causal=True, window=8,
+                                    q_offset=44, with_lse=True)
+    assert bool((out[:, 3:] == 0).all()) and bool((lse[:, 3:] < -1e29).all())
+    wo, _ = flash_attention_plain(q, k, v, True, 0.125, with_lse=True,
+                                  window=8, q_offset=44)
+    torch.testing.assert_close(out, wo, **FLASH_F32)
+
+
+def test_flash_gradient_raises_on_the_card(cuda):
+    q, k, v = (_randn(cuda, 1, 16, 2, 64).requires_grad_(True)
+               for _ in range(3))
+    out = ops.flash_attention(q, k, v, causal=True)
+    with pytest.raises(NotImplementedError, match="B5"):
+        out.sum().backward()
+
+
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("g,d,s_len", [(1, 64, 256), (4, 64, 384),
+                                       (8, 128, 512), (2, 64, 300),
+                                       (1, 128, 1000)])
+def test_decode_kernel_matches_plain(cuda, kind, g, d, s_len):
+    dtype = torch.bfloat16 if kind != "float32" else torch.float32
+    q = _randn(cuda, 2, 2, g, d, dtype=dtype)
+    k = _randn(cuda, 2, 2, s_len, d, dtype=dtype)
+    v = _randn(cuda, 2, 2, s_len, d, dtype=dtype)
+    scales = {}
+    if kind == "int8":
+        k, ks = ops.quantize_kv(k)
+        v, vs = ops.quantize_kv(v)
+        scales = dict(k_scale=ks, v_scale=vs)
+    tol = {"float32": FLASH_F32, "bfloat16": BF16, "int8": DECODE_INT8}[kind]
+    for t in (0, 5, s_len // 2, s_len - 1, s_len + 40):
+        for roll in (False, True):
+            got = decode_attention_cuda(q, k, v, t, roll, **scales)
+            want = decode_attention_plain(q, k, v, t, roll, **scales)
+            torch.testing.assert_close(got, want, **tol,
+                                       msg=f"t={t} roll={roll}")
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(1, 256, 128), (4, 1024, 3072),
+                                   (4, 4096, 1024), (3, 1100, 200),
+                                   (8, 300, 501), (9, 128, 200),
+                                   (33, 1024, 1024), (256, 512, 384)])
+def test_q8_kernel_matches_plain(cuda, xdtype, m, k, n):
+    w = _randn(cuda, k, n)
+    q, s = ops.quantize_q8(w)
+    # the kernel rounds x to bf16: hold it against the plain version on
+    # the same bf16 values (test_q8.py's precision-matched comparison)
+    x = _randn(cuda, m, k).to(torch.bfloat16).to(xdtype)
+    got = q8_matmul_cuda(x, q, s.reshape(-1))
+    assert got.dtype == xdtype and got.shape == (m, n)
+    torch.testing.assert_close(got.float(),
+                               q8_matmul_plain(x, q, s).float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_q8_split_policy_lives_in_the_kernel_source(cuda):
+    """csrc/q8.cu decides the K split; the wrapper only sizes scratch
+    and refuses what the kernel refuses."""
+    from lua_mapreduce_tpu_torch.ops import _build
+    lib = _build.library("q8")
+    assert lib.lmr_q8_splits(4, 4096, 1024) > 1       # narrow N: split K
+    assert lib.lmr_q8_splits(4, 256, 128) == 1        # K too short to split
+    assert lib.lmr_q8_splits(9, 4096, 1024) == 1      # tensor-core path
+    assert lib.lmr_q8_splits(65535 * 128 + 1, 8, 8) == 0
+    q, s = ops.quantize_q8(_randn(cuda, 1, 1))
+    with pytest.raises(ValueError, match="grid limit"):
+        q8_matmul_cuda(torch.zeros((65535 * 128 + 1, 1), device="cuda"), q,
+                       s.reshape(-1))
+
+
+def test_serving_kernels_launch_and_count(cuda):
+    ops.reset_launch_counts()
+    x = _randn(cuda, 1, 8, 2, 64)
+    ops.flash_attention(x, x, x, causal=True)
+    c = _randn(cuda, 1, 2, 16, 64)
+    ops.decode_attention(_randn(cuda, 1, 2, 1, 64), c, c, 3)
+    q, s = ops.quantize_q8(_randn(cuda, 64, 32))
+    ops.q8_matmul(_randn(cuda, 4, 64), q, s)
+    counts = ops.launch_counts()
+    assert {k: counts[k] for k in ("flash_fwd", "decode", "q8")} == \
+        {"flash_fwd": 1, "decode": 1, "q8": 1}
+
+
+def test_lm_on_the_card_matches_the_cpu(cuda):
+    """Greedy tokens through the kernels equal the CPU run through the
+    plain versions (f32, head dim 64), prefill and scan alike."""
+    from lua_mapreduce_tpu_torch.models import transformer as tt
+    cfg = tt.TransformerConfig(vocab=256, d_model=128, n_heads=2,
+                               n_layers=2, d_ff=256, max_seq=64)
+    p_cpu = tt.init_transformer(0, cfg, device="cpu")
+    p_gpu = {k: v.cuda() for k, v in p_cpu.items()}
+    prompt = torch.randint(0, 256, (2, 20),
+                           generator=torch.Generator().manual_seed(1))
+    want = tt.greedy_decode(p_cpu, prompt, 12, cfg=cfg, use_prefill=True)
+    for use_prefill in (True, False):
+        got = tt.greedy_decode(p_gpu, prompt.cuda(), 12, cfg=cfg,
+                               use_prefill=use_prefill)
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
