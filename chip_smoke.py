@@ -13,9 +13,12 @@ Phases, each a hard failure on any mismatch:
              kernel, the plain version, one library call (yardstick
              only) and the H100 bound for the same work; bf16 and
              int8 serving rows are also held normwise, and each
-             attention row shows its check refuses a wrong output;
+             attention row shows its check refuses a wrong output; the
+             conv paths' pool calls (max rows held at zero error) and
+             every product of their conv steps (forward, dA, dB), each
+             conv also timed once through cuDNN as its yardstick;
 3. grads   — autograd through the kernels against autograd through the
-             plain versions;
+             plain versions: the digits MLP and LeNet-5, f32 and bf16;
 4. digits  — the six-function MapReduce DP-SGD trainer (256-128-10,
              4 shards × 128, a few loop iterations) through the port's
              LocalExecutor on ``mem:``, held against the same run on the
@@ -35,9 +38,22 @@ Phases, each a hard failure on any mismatch:
              through the plain versions, prefill equals the position
              scan on the card, the int8 dict's prefill logits agree
              with the CPU's, and its greedy run with an int8 KV cache
-             is held step by step on the head's logits.
+             is held step by step on the head's logits;
+8. conv    — the single-device trainer at the repo's conv benchmarks'
+             full width (``benchmarks/kernel_bench.py`` configs
+             lenet5_cifar b1024 and resnet18_imagenet b32, 224x224,
+             1000 classes), bf16, random weights and inputs from a seed:
+             ms/step, images/s and model TFLOP/s, and from a profiled
+             repeat where a step's device time goes;
+9. conv check — LeNet-5 b64 and the ResNet-18 ImageNet topology at
+             64x64 b4, f32, three trainer steps on the card against the
+             same steps on the CPU (LeNet free-running, ResNet from the
+             CPU run's parameters at each step): losses within 1e-4
+             relative, gradients and parameter updates normwise within
+             each model's limits, overall and in the worst parameter
+             (ResNet's wider for ReLU kinks, see CONV_CHECKS).
 
-Launch counts are zeroed just before each run of phases 4, 5 and 6 and
+Launch counts are zeroed just before each run of phases 4, 5, 6 and 8 and
 read just after, and must equal the counts worked out from the code; a
 kernel of the paths with no launch there fails the run. The
 card's name and power limit, then one JSON line of per-kernel numbers,
@@ -55,6 +71,7 @@ import subprocess
 import sys
 import time
 
+
 # H100 SXM data-sheet peaks (dense), for the bound of each kernel call
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12       # FP32 FMA outside the tensor cores
@@ -70,6 +87,7 @@ KERNEL_META = {
     "flash_fwd": (CSRC + "flash.cu", "lua_mapreduce_tpu/ops/attention.py:188"),
     "decode": (CSRC + "decode.cu", "lua_mapreduce_tpu/ops/decode.py:108"),
     "q8": (CSRC + "q8.cu", "lua_mapreduce_tpu/ops/q8.py:59"),
+    "pool": (CSRC + "pool.cu", "lua_mapreduce_tpu/ops/pool.py:24"),
 }
 TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}   # (rtol, atol)
 # the JAX package's op tolerances for the serving kernels
@@ -97,6 +115,25 @@ INT8_LOGIT_TOL = 2e-2
 SERVE = dict(vocab=32768, d_model=1024, n_heads=16, n_layers=8, d_ff=4096,
              max_seq=4096)
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 3968, 128
+# bench_conv_train's configurations (benchmarks/kernel_bench.py:457-530,
+# :788-793): model, batch, timed steps
+CONV_RUNS = (("lenet5_cifar", 1024, 10), ("resnet18_imagenet", 32, 5))
+# the f32 card-vs-CPU conv check: each step's loss agrees within
+# CONV_CHECK_RTOL (relative); its gradient and its parameter update (SGD
+# with momentum) agree normwise within the model's limits, over all
+# parameters together and in the worst single parameter. LeNet (tanh,
+# no ReLU) runs free for its three steps. A ReLU network's gradient
+# jumps at activation kinks: at the ResNet check's images a 1e-6
+# relative change of the input moves the JAX package's own gradient by
+# 0.65% normwise (1.4% in s3b0_n1_be), and the card and the CPU part
+# there (a free second step's loss then differs by 6e-4), while a wrong
+# kernel moves a gradient by O(1). So ResNet's card parameters are set
+# to the CPU run's before each step, and its limits are wider.
+CONV_CHECK_RTOL = 1e-4
+# model: (batch, input shape, free-running, normwise limit over all
+# parameters, normwise limit in the worst parameter)
+CONV_CHECKS = {"lenet5_cifar": (64, None, True, 1e-4, 1e-4),
+               "resnet18_imagenet": (4, (64, 64, 3), False, 2e-2, 5e-2)}
 
 
 def log(msg):
@@ -231,16 +268,26 @@ def phase_kernels(torch, ops, gen):
             "library_ms": time_ms(lambda: torch.matmul(a, b), torch),
             "bound_ms": bms, "bound_by": by})
         del a, b, got
-    for shape, dt in (((128, 10), "float32"), ((200, 10), "float32"),
-                      ((8192, 8192), "bfloat16")):
+    # the digits step and validation, the wide step, and the logits of
+    # the LeNet b1024 and ResNet-18 b32 steps (log_softmax only there:
+    # the one-warp path at n = 10 and the 16-warp path at n = 1000)
+    for shape, dt, modes in (((128, 10), "float32", (0, 1)),
+                             ((200, 10), "float32", (0, 1)),
+                             ((8192, 8192), "bfloat16", (0, 1)),
+                             ((1024, 10), "bfloat16", (0,)),
+                             ((32, 1000), "bfloat16", (0,))):
         dtype = getattr(torch, dt)
         x = (torch.randn(shape, device="cuda", generator=gen) * 3).to(dtype)
+        ntol = NORM_TOL if dt == "bfloat16" else None
         for mode, name, plain, lib in (
                 (0, "log_softmax", log_softmax_plain, torch.log_softmax),
                 (1, "softmax", softmax_plain, torch.softmax)):
+            if mode not in modes:
+                continue
             got = rowwise_softmax_cuda(x, mode)
             torch.cuda.synchronize()
-            err = check_close(f"{name} {shape}", got, plain(x), dt)
+            err = check_close(f"{name} {shape}", got, plain(x), dt,
+                              norm_tol=ntol)
             if mode == 0:
                 assert bool(torch.isfinite(got).all())
             item = 2 if dtype == torch.bfloat16 else 4
@@ -250,6 +297,7 @@ def phase_kernels(torch, ops, gen):
             rows.append({
                 "kernel": "rowwise_softmax",
                 "case": f"{name} {shape} {dt}", "max_abs_err": err,
+                "norm_err": norm_err(got, plain(x)) if ntol else None,
                 "ms": time_ms(lambda: rowwise_softmax_cuda(x, mode), torch),
                 "plain_ms": time_ms(lambda: plain(x), torch),
                 "library_ms": time_ms(lambda: lib(x, dim=-1), torch),
@@ -510,6 +558,7 @@ def phase_grads(torch, ops, gen):
         out[dt] = err
         log(f"[grads] {dt} sizes={sizes} batch={batch}: loss kernel="
             f"{float(lk):.6f} plain={float(lp):.6f} max_abs_err={err:.3e}")
+    out.update(lenet_grads(torch, gen))
     return out
 
 
@@ -626,25 +675,34 @@ def serve_counts(n_layers, n_new, quantized):
     each of the n_new - 1 steps after it; under quantize_lm four q8
     projections per layer (qkv, out, ff1, ff2) and the head, in prefill
     and in every step."""
-    return {"matmul_f32": 0, "matmul_bf16": 0, "rowwise_softmax": 0,
+    from lua_mapreduce_tpu_torch.ops import KERNELS
+    return {**dict.fromkeys(KERNELS, 0),
             "flash_fwd": n_layers, "decode": n_layers * (n_new - 1),
             "q8": (4 * n_layers + 1) * n_new if quantized else 0}
 
 
 def kernel_profile(torch, fn):
-    """Run ``fn`` under torch.profiler; device time (ms) and launches by
-    kernel name, largest first. Operator rows are left out: they repeat
-    their kernels' device time."""
+    """Device time (ms) and launches by kernel name of one call of
+    ``fn`` under torch.profiler, largest first. The profiler warms up on
+    a first call and records the second: a window's first kernels can go
+    missing from the trace. Operator rows and the step's own annotation
+    (``ProfilerStep*``) are left out: they repeat their kernels' device
+    time."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
     return sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+                   and e.self_device_time_total > 0
+                   and not e.key.startswith("ProfilerStep")),
+                  key=lambda r: -r[1])
 
 
 def phase_serving(torch, ops, seed=0):
@@ -860,6 +918,389 @@ def head_logits(tt, sink, round_x):
         tt._head, tt.q8_matmul = head, q8_matmul
 
 
+# ------------------------------------------------- conv paths (phases 2, 3, 8, 9)
+
+def conv_model(name, dtype, device, input_shape=None, seed=0):
+    """(loss_fn, params, input shape, classes, model FLOPs per example,
+    kernel launches per trainer step) of one conv configuration.
+
+    Launches per step, from the code: every conv runs one forward
+    product and, in the backward, dB = patchesᵀ·g and dA = g·Wᵀ — all
+    but the first conv, whose input needs no gradient; every
+    ``maxpool2d`` launches the pool kernel once (its backward is plain
+    autograd); the output runs one log_softmax."""
+    import torch
+    from lua_mapreduce_tpu_torch.models import lenet, resnet
+    mm = "matmul_f32" if dtype == torch.float32 else "matmul_bf16"
+    if name == "lenet5_cifar":
+        shape = tuple(input_shape or lenet.CIFAR_SHAPE)
+        params = lenet.init_lenet(seed, shape, dtype, device)
+        n_conv, n_pool = len(lenet._CONVS), len(lenet._CONVS)
+        return (lenet.nll_loss, params, shape, lenet.N_CLASSES,
+                lenet.flops_per_example(shape),
+                {mm: 3 * n_conv - 1, "pool": n_pool, "rowwise_softmax": 1})
+    cfg = resnet.ResNetConfig.imagenet18()
+    if input_shape:
+        cfg = resnet.ResNetConfig(input_shape=tuple(input_shape))
+    params = resnet.init_resnet(seed, cfg, dtype, device)
+    n_conv = 1 + sum(2 + needs_proj
+                     for _p, _s, needs_proj, _i, _o in resnet._block_plan(cfg))
+    return (resnet.make_loss(cfg), params, cfg.input_shape, cfg.n_classes,
+            resnet.flops_per_example(cfg),
+            {mm: 3 * n_conv - 1, "pool": int(cfg.imagenet_stem),
+             "rowwise_softmax": 1})
+
+
+def conv_cases():
+    """Every conv of the two conv configurations, as (label, batch, h, w,
+    c_in, c_out, k, stride, padding, needs dA), identical shapes merged
+    (the label counts them)."""
+    from lua_mapreduce_tpu_torch.models import lenet, resnet
+    (_, lb, _), (_, rb, _) = CONV_RUNS
+    cases = {}
+
+    def add(label, *shape):
+        key = shape
+        if key in cases:
+            cases[key][1] += 1
+        else:
+            cases[key] = [label, 1]
+    h, c_in = lenet.CIFAR_SHAPE[0], lenet.CIFAR_SHAPE[2]
+    for i, (name, k, c_out) in enumerate(lenet._CONVS):
+        add(f"lenet {name}", lb, h, h, c_in, c_out, k, 1, "VALID", i > 0)
+        h, c_in = (h - k + 1) // 2, c_out
+    cfg = resnet.ResNetConfig.imagenet18()
+    h = cfg.input_shape[0]
+    add("resnet stem", rb, h, h, cfg.input_shape[2], cfg.widths[0], 7, 2,
+        "SAME", False)
+    h = -(-h // 4)                          # 7x7/2 conv, 3x3/2 pool
+    for p, stride, needs_proj, c_in, c_out in resnet._block_plan(cfg):
+        ho = -(-h // stride)
+        add(f"resnet {p} conv1", rb, h, h, c_in, c_out, 3, stride, "SAME",
+            True)
+        add(f"resnet {p} conv2", rb, ho, ho, c_out, c_out, 3, 1, "SAME",
+            True)
+        if needs_proj:
+            add(f"resnet {p} proj", rb, h, h, c_in, c_out, 1, stride,
+                "SAME", True)
+        h = ho
+    return [(label if n == 1 else f"{label} (x{n})", *shape)
+            for shape, (label, n) in cases.items()]
+
+
+def phase_conv_kernels(torch, gen):
+    """The pool kernel at the conv paths' calls, and the matmul kernel
+    at every product of their conv steps, bf16, against the plain
+    versions; each conv also once through cuDNN (``F.conv2d``, a
+    yardstick only: the port never calls it)."""
+    import torch.nn.functional as F
+    from lua_mapreduce_tpu_torch import ops
+    from lua_mapreduce_tpu_torch.ops.conv import _norm_padding, _pad_hw
+    from lua_mapreduce_tpu_torch.ops.matmul import matmul_cuda, matmul_plain
+    from lua_mapreduce_tpu_torch.ops.pool import _pool_plain, pool_cuda
+    rows = []
+    bf16 = torch.bfloat16
+
+    # ---- pool: LeNet's two 2x2 max pools, the stem's -inf bordered 3x3/2
+    # max pool, and one 2x2 avg row (no caller on the main path)
+    for label, shape, window, mode, border in (
+            ("lenet pool1", (1024, 28, 28, 6), 2, "max", False),
+            ("lenet pool2", (1024, 10, 10, 16), 2, "max", False),
+            ("resnet stem pool, -inf border", (32, 112, 112, 64), 3, "max",
+             True),
+            ("avg (no main-path caller)", (32, 56, 56, 64), 2, "avg",
+             False)):
+        x = torch.randn(shape, device="cuda", generator=gen).to(bf16)
+        if border:          # relu output padded with -inf, as _stem does
+            x = _pad_hw(torch.relu(x), (1, 1), (1, 1), value=-math.inf)
+        win, st = (window, window), (2, 2)
+
+        def run(x=x, win=win, st=st, mode=mode):
+            return pool_cuda(x, win, st, mode)
+
+        def plain(x=x, win=win, st=st, mode=mode):
+            return _pool_plain(x, win, st, mode)
+        xl = x.permute(0, 3, 1, 2)          # NCHW view, channels-last
+
+        def lib(xl=xl, win=win, st=st, mode=mode):
+            fn = F.max_pool2d if mode == "max" else F.avg_pool2d
+            return fn(xl, win, st)
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"pool {label}: non-finite output")
+        if mode == "max":
+            err = check_close(f"pool {label}", got, want, "bfloat16", (0, 0))
+        else:
+            err = check_close(f"pool {label}", got, want, "bfloat16",
+                              norm_tol=NORM_TOL)
+        rel = norm_err(got, want)
+        n_out = got.numel()
+        del got, want
+        nbytes = (x.numel() + n_out) * x.element_size()
+        flops = n_out * win[0] * win[1]
+        rows.append(serving_row(torch, "pool", f"pool {label} "
+                                f"{tuple(x.shape)} {win[0]}x{win[1]}/2 "
+                                f"{mode} bfloat16", err, run, plain, lib,
+                                flops, nbytes, PEAK_F32_FLOPS, rel))
+        del x, xl
+    torch.cuda.empty_cache()
+
+    # ---- matmul: forward, dA = g·Wᵀ and dB = patchesᵀ·g of every conv,
+    # with the strided views the autograd Function passes
+    for label, n, h, w, c_in, c_out, k, s, padding, with_da in conv_cases():
+        ph, pw = _norm_padding(padding, k, k, h, w, s, s)
+        ho = (h + sum(ph) - k) // s + 1
+        wo = (w + sum(pw) - k) // s + 1
+        m, kk = n * ho * wo, k * k * c_in
+        scale = kk ** -0.25
+        a = (torch.randn((m, kk), device="cuda", generator=gen)
+             * scale).to(bf16)
+        wt = (torch.randn((kk, c_out), device="cuda", generator=gen)
+              * scale).to(bf16)
+        g = (torch.randn((m, c_out), device="cuda", generator=gen)
+             * m ** -0.25).to(bf16)
+        prods = [("fwd", a, wt)]
+        if with_da:
+            prods.append(("dA", g, wt.t()))
+        prods.append(("dB", a.t(), g))
+        # the conv itself through cuDNN, on channels-last NCHW views
+        xc = torch.randn((n, h, w, c_in), device="cuda",
+                         generator=gen).to(bf16)
+        w4 = wt.reshape(k, k, c_in, c_out)
+        xl = _pad_hw(xc, ph, pw).permute(0, 3, 1, 2)
+        wl = w4.permute(3, 2, 0, 1)
+        conv_ms = time_ms(lambda: F.conv2d(xl, wl, stride=s), torch)
+        # the yardstick computes the op that the products make up
+        check_close(f"conv {label} (port vs cuDNN)",
+                    ops.conv2d(xc, w4, stride=s, padding=padding),
+                    F.conv2d(xl, wl, stride=s).permute(0, 2, 3, 1),
+                    "bfloat16", norm_tol=NORM_TOL)
+        del xc, xl, wl, w4
+        for part, pa, pb in prods:
+            mm_, kk_ = pa.shape
+            nn_ = pb.shape[1]
+            got = matmul_cuda(pa, pb, bf16)
+            want = matmul_plain(pa, pb, bf16)
+            torch.cuda.synchronize()
+            err = check_close(f"matmul {label} {part}", got, want,
+                              "bfloat16", norm_tol=NORM_TOL)
+            rel = norm_err(got, want)
+            del got, want
+            bms, by = bound(2 * mm_ * nn_ * kk_,
+                            (mm_ * kk_ + kk_ * nn_ + mm_ * nn_) * 2,
+                            PEAK_BF16_FLOPS)
+            row = {"kernel": "matmul_bf16",
+                   "case": f"matmul conv {label} {part} ({mm_},{kk_})x"
+                           f"({kk_},{nn_}) bfloat16",
+                   "max_abs_err": err, "norm_err": rel,
+                   "ms": time_ms(lambda: matmul_cuda(pa, pb, bf16), torch),
+                   "plain_ms": time_ms(lambda: matmul_plain(pa, pb, bf16),
+                                       torch),
+                   "library_ms": time_ms(lambda: torch.matmul(pa, pb),
+                                         torch),
+                   "bound_ms": bms, "bound_by": by}
+            if part == "fwd":
+                row["cudnn_conv_ms"] = conv_ms
+            rows.append(row)
+        del a, wt, g, prods
+        torch.cuda.empty_cache()
+    return rows
+
+
+def lenet_grads(torch, gen, batch=256):
+    """LeNet-5 loss and parameter gradients through the kernels against
+    the same model on CPU copies of the inputs and parameters (the plain
+    versions), f32 and bf16 (bf16 also normwise)."""
+    from lua_mapreduce_tpu_torch.models.lenet import init_lenet, nll_loss
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        x = torch.rand((batch, 32, 32, 3), device="cuda",
+                       generator=gen).to(dtype)
+        y = torch.randint(0, 10, (batch,), device="cuda", generator=gen)
+        p0 = init_lenet(1, dtype=dtype, device="cuda")
+        grads = []
+        for dev in ("cuda", "cpu"):
+            p = {k: v.to(dev).requires_grad_(True) for k, v in p0.items()}
+            loss = nll_loss(p, x.to(dev), y.to(dev))
+            grads.append((loss.detach().cpu(), {
+                k: g.cpu() for k, g in zip(p, torch.autograd.grad(
+                    loss, list(p.values())))}))
+        (lk, gk), (lp, gp) = grads
+        ntol = NORM_TOL if dt == "bfloat16" else None
+        err = check_close(f"lenet loss {dt}", lk.reshape(1), lp.reshape(1),
+                          dt)
+        rel = 0.0
+        for k in gk:
+            err = max(err, check_close(f"lenet grad {k} {dt}", gk[k], gp[k],
+                                       dt, norm_tol=ntol))
+            rel = max(rel, norm_err(gk[k], gp[k]))
+        out[f"lenet {dt}"] = {"max_abs_err": err, "max_norm_err": rel}
+        log(f"[grads] lenet {dt} batch={batch}: loss kernel={float(lk):.6f} "
+            f"plain={float(lp):.6f} max_abs_err={err:.3e} "
+            f"max normwise {rel:.3e}")
+    return out
+
+
+def phase_conv(torch, ops, gen):
+    """bench_conv_train's two configurations through
+    ``DataParallelTrainer.run_steps``, bf16: counts zeroed just before
+    the timed run_steps and read just after; a profiled one-step repeat
+    gives each step's device time by kernel."""
+    from lua_mapreduce_tpu_torch.train.harness import (DataParallelTrainer,
+                                                       TrainConfig)
+    out = {}
+    for name, batch, steps in CONV_RUNS:
+        loss_fn, params, shape, n_cls, per_ex, per_step = conv_model(
+            name, torch.bfloat16, "cuda")
+        x = torch.randn((batch, *shape), device="cuda", generator=gen).to(
+            torch.bfloat16)
+        y = torch.randint(0, n_cls, (batch,), device="cuda", generator=gen)
+        tr = DataParallelTrainer(loss_fn, params,
+                                 TrainConfig(batch_size=batch), device="cuda")
+        del params
+        first = tr.step(x, y)                   # warm-up step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = tr.run_steps(x, y, steps)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        want = {**dict.fromkeys(ops.KERNELS, 0),
+                **{k: steps * v for k, v in per_step.items()}}
+        if counts != want:
+            raise AssertionError(f"{name} launches {counts}, expected {want}")
+        losses = [first] + [float(v) for v in losses]
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{name} loss not finite: {losses}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        kernels = kernel_profile(torch, lambda: tr.run_steps(x, y, 1))
+        dev_ms = sum(k[1] for k in kernels)
+        tags = (("matmul_bf16", "matmul_bf16_kernel"), ("pool", "pool_kernel"),
+                ("rowwise_softmax", "rowwise_softmax_kernel"))
+        port_ms = {k: sum(r[1] for r in kernels if tag in r[0])
+                   for k, tag in tags}
+        # the trace is whole if it lists every launch the step makes
+        seen = {k: sum(r[2] for r in kernels if tag in r[0])
+                for k, tag in tags}
+        complete = seen == per_step
+        step_ms = dt * 1e3 / steps
+        imgs = batch * steps / dt
+        tflops = imgs * per_ex / 1e12
+        r = {"batch": batch, "steps": steps, "step_ms": step_ms,
+             "images_per_s": imgs, "model_tflops": tflops,
+             "peak_fraction": tflops * 1e12 / PEAK_BF16_FLOPS,
+             "losses": losses, "launches": counts, "peak_mem_gib": peak,
+             "profiled_step_device_ms": dev_ms,
+             "profiled_step_kernel_ms": port_ms,
+             "profiled_step_launches": seen, "profile_complete": complete,
+             "device_idle_share": 1 - dev_ms / step_ms,
+             "top_kernels": kernels[:12]}
+        log(f"[conv] {name} b{batch} bf16: {steps} timed steps, "
+            f"{step_ms:.3f} ms/step, {imgs:.1f} images/s, {tflops:.4f} "
+            f"model TFLOP/s ({100 * r['peak_fraction']:.4f}% of the 989 "
+            f"TFLOP/s bf16 dense peak); losses {losses}; launches {counts}")
+        log(f"[conv] {name}: profiled step {dev_ms:.3f} ms on the device "
+            f"(matmul kernel {port_ms['matmul_bf16']:.3f}, pool "
+            f"{port_ms['pool']:.3f}, log_softmax "
+            f"{port_ms['rowwise_softmax']:.3f}); idle "
+            f"{'' if complete else 'at most '}"
+            f"{100 * r['device_idle_share']:.1f}% of the timed step; "
+            f"port launches in the trace {seen}"
+            f"{'' if complete else f' of {per_step}: the trace is partial'}"
+            f"; peak {peak:.2f} GiB")
+        for kname, ms, cnt in kernels[:12]:
+            log(f"[conv] {name}   {ms:10.3f} ms {cnt:6d}x  {kname[:90]}")
+        out[name] = r
+        del tr, x, y
+        torch.cuda.empty_cache()
+    return out
+
+
+def leafwise_err(got, want):
+    """Normwise ‖got − want‖ / ‖want‖ of two dicts of tensors: over all
+    leaves together, and the worst leaf with its name."""
+    num = {k: float((got[k].cpu() - w).norm()) ** 2 for k, w in want.items()}
+    den = {k: float(w.norm()) ** 2 for k, w in want.items()}
+    worst = max(want, key=lambda k: num[k] / max(den[k], 1e-60))
+    return ((sum(num.values()) / sum(den.values())) ** 0.5,
+            (num[worst] / max(den[worst], 1e-60)) ** 0.5, worst)
+
+
+def phase_conv_check(torch, ops, seed=4):
+    """Three f32 trainer steps of LeNet-5 b64 and of the ResNet-18
+    ImageNet topology at 64x64 b4 on the card (kernels) and on the CPU
+    (plain versions), from the same parameters and images. Each step's
+    loss agrees within CONV_CHECK_RTOL; its gradient and its parameter
+    update (after − before, on each side) within the model's
+    CONV_CHECKS limits, over all parameters and in the worst one. LeNet
+    runs free; ResNet's card parameters are set to the CPU run's before
+    each step: a ReLU gradient jumps where an activation crosses zero,
+    and rounding differences flip such near-ties (PERF.md §6)."""
+    from lua_mapreduce_tpu_torch.train.data import make_images
+    from lua_mapreduce_tpu_torch.train.harness import (DataParallelTrainer,
+                                                       TrainConfig)
+    out = {}
+    for name, (batch, shape, free, lim_all, lim_leaf) in CONV_CHECKS.items():
+        loss_fn, params, shape, n_cls, _, per_step = conv_model(
+            name, torch.float32, "cpu", shape, seed)
+        x, y, _, _ = make_images(seed, n_train=batch, n_val=1, shape=shape,
+                                 n_classes=n_cls)
+        cfg = TrainConfig(batch_size=batch)
+        cpu = DataParallelTrainer(loss_fn, params, cfg, device="cpu")
+        card = DataParallelTrainer(loss_fn, params, cfg, device="cuda")
+        counts = dict.fromkeys(ops.KERNELS, 0)
+        losses, gerrs, uerrs = [], [], []
+        for _ in range(3):
+            if not free:
+                with torch.no_grad():
+                    for k, v in card.params.items():
+                        v.copy_(cpu.params[k])
+            before = [{k: v.detach().to("cpu", copy=True)
+                       for k, v in t.params.items()} for t in (cpu, card)]
+            lc = cpu.step(x, y)
+            ops.reset_launch_counts()
+            lg = card.step(x, y)
+            for k, v in ops.launch_counts().items():
+                counts[k] += v
+            losses.append((lg, lc))
+            gerrs.append(leafwise_err(
+                {k: v.grad for k, v in card.params.items()},
+                {k: v.grad for k, v in cpu.params.items()}))
+            uerrs.append(leafwise_err(
+                {k: v.detach().cpu() - before[1][k]
+                 for k, v in card.params.items()},
+                {k: v.detach() - before[0][k]
+                 for k, v in cpu.params.items()}))
+        want = {**dict.fromkeys(ops.KERNELS, 0),
+                **{k: 3 * v for k, v in per_step.items()}}
+        if counts != want:
+            raise AssertionError(f"conv check {name} launches {counts}, "
+                                 f"expected {want}")
+        rel = max(abs(g - c) / abs(c) for g, c in losses)
+        fmt = " ".join(f"{a:.3e} (worst {w:.3e} in {k})"
+                       for a, w, k in gerrs)
+        ufmt = " ".join(f"{a:.3e} (worst {w:.3e} in {k})"
+                        for a, w, k in uerrs)
+        msg = (f"{name} b{batch} {shape} f32, 3 steps"
+               f"{', free-running' if free else ', each from the CPU params'}"
+               f": (card, CPU) losses {losses}, max relative difference "
+               f"{rel:.3e} (limit {CONV_CHECK_RTOL}); gradient normwise {fmt}"
+               f"; update normwise {ufmt} (limits {lim_all} over all "
+               f"parameters, {lim_leaf} in the worst)")
+        if rel > CONV_CHECK_RTOL or any(
+                a > lim_all or w > lim_leaf for a, w, _ in gerrs + uerrs):
+            raise AssertionError(f"conv check {msg}")
+        log(f"[conv check] {msg}")
+        out[name] = {"free_running": free, "losses_card_cpu": losses,
+                     "max_rel_diff": rel, "grad_norm_err": gerrs,
+                     "update_norm_err": uerrs}
+    return out
+
+
 # ------------------------------------------------------------ main
 
 def gpu_line():
@@ -893,7 +1334,8 @@ def main():
                 log(f"[build] {name}: {line.strip()}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = phase_kernels(torch, ops, gen) + phase_serving_kernels(torch, gen)
+    rows = (phase_kernels(torch, ops, gen) + phase_serving_kernels(torch, gen)
+            + phase_conv_kernels(torch, gen))
     for r in rows:
         lib = ("n/a" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
@@ -903,6 +1345,8 @@ def main():
         if r.get("control_norm_err") is not None:
             extra += (f" (scale 5% off: {r['control_norm_err']:.3e}, "
                       f"refused)")
+        if r.get("cudnn_conv_ms") is not None:
+            extra += f"; the whole conv through cuDNN {r['cudnn_conv_ms']:.4f} ms"
         log(f"[kernel] {r['case']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {lib}, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
@@ -912,8 +1356,11 @@ def main():
     wide_counts, wide = phase_wide(torch, ops, gen)
     serving = phase_serving(torch, ops)
     check = phase_serving_check(torch, ops)
-    runs = [digits_counts, wide_counts] + [serving[t]["launches"]
-                                           for t in serving]
+    conv = phase_conv(torch, ops, gen)
+    conv_check = phase_conv_check(torch, ops)
+    runs = ([digits_counts, wide_counts]
+            + [serving[t]["launches"] for t in serving]
+            + [conv[m]["launches"] for m in conv])
     launches = {k: sum(c[k] for c in runs) for k in ops.KERNELS}
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
@@ -942,7 +1389,8 @@ def main():
         "cases": rows, "grads_max_abs_err": grads,
         "digits": {"val_loss": val, "launches": digits_counts},
         "wide": {**wide, "launches": wide_counts}, "serving": serving,
-        "serving_check": check, "kernels": kernels,
+        "serving_check": check, "conv": conv, "conv_check": conv_check,
+        "kernels": kernels,
         "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -22,7 +22,7 @@ from typing import Dict
 import torch
 
 KERNELS = ("matmul_f32", "matmul_bf16", "rowwise_softmax", "flash_fwd",
-           "decode", "q8")
+           "decode", "q8", "pool")
 
 _launches: Dict[str, int] = {k: 0 for k in KERNELS}
 _launch_lock = threading.Lock()
@@ -66,7 +66,10 @@ from lua_mapreduce_tpu_torch.ops.attention import flash_attention  # noqa: E402
 from lua_mapreduce_tpu_torch.ops.decode import (decode_attention,  # noqa: E402
                                                 quantize_kv)
 from lua_mapreduce_tpu_torch.ops.q8 import q8_matmul, quantize_q8  # noqa: E402
+from lua_mapreduce_tpu_torch.ops.conv import conv2d  # noqa: E402
+from lua_mapreduce_tpu_torch.ops.pool import avgpool2d, maxpool2d  # noqa: E402
 
 __all__ = ["KERNELS", "launch_counts", "reset_launch_counts", "device_kind",
            "matmul", "log_softmax", "softmax", "flash_attention",
-           "decode_attention", "quantize_kv", "q8_matmul", "quantize_q8"]
+           "decode_attention", "quantize_kv", "q8_matmul", "quantize_q8",
+           "conv2d", "maxpool2d", "avgpool2d"]

@@ -27,7 +27,8 @@ from typing import Dict, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = {"matmul": "matmul.cu", "softmax": "softmax.cu",
-           "flash": "flash.cu", "decode": "decode.cu", "q8": "q8.cu"}
+           "flash": "flash.cu", "decode": "decode.cu", "q8": "q8.cu",
+           "pool": "pool.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -44,6 +45,7 @@ _SIGNATURES = {
     "decode": {"lmr_decode": [_P] * 6 + [_I] * 6 + [_L] * 3 + [_I, _P]},
     "q8": {"lmr_q8_matmul": [_P] * 5 + [_I] * 4 + [_P],
            "lmr_q8_splits": [_I] * 3},
+    "pool": {"lmr_pool": [_P, _P] + [_I] * 10 + [_P]},
 }
 
 _lock = threading.Lock()

@@ -1,7 +1,8 @@
-"""Digits dataset (numpy).
+"""Digits and image datasets (numpy).
 
-Copy of the digits half of the JAX package's ``train/data.py``, so both
-packages draw the same arrays from the same seed. The reference slices
+Copy of the digits and image halves of the JAX package's
+``train/data.py``, so both packages draw the same arrays from the same
+seed. The reference slices
 misc/digits.png into 16x16 grayscale patterns, 10 classes, 800 train /
 200 validation (examples/APRIL-ANN/init.lua:80-123): ``make_digits``
 generates a dataset with that shape and split from a seed,
@@ -30,6 +31,36 @@ def make_digits(seed: int = 0, n_train: int = N_TRAIN, n_val: int = N_VAL,
     def sample(n):
         y = rng.randint(0, N_CLASSES, size=n)
         x = prototypes[y] + noise * rng.randn(n, dim).astype(np.float32)
+        return np.clip(x, 0.0, 1.0).astype(np.float32), y.astype(np.int32)
+
+    x_tr, y_tr = sample(n_train)
+    x_va, y_va = sample(n_val)
+    return x_tr, y_tr, x_va, y_va
+
+
+def make_images(seed: int = 0, n_train: int = 2048, n_val: int = 512,
+                shape: Tuple[int, int, int] = (32, 32, 3),
+                n_classes: int = N_CLASSES, noise: float = 0.3
+                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Synthetic CIFAR/ImageNet-shaped image classification data (the
+    LeNet-5 / ResNet-18 configurations): NHWC images in [0, 1], class
+    prototypes of low-frequency sinusoids per channel plus per-sample
+    noise; deterministic in the seed, with the JAX package's RNG call
+    order."""
+    h, w, c = shape
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    protos = np.empty((n_classes, h, w, c), np.float32)
+    for cls in range(n_classes):
+        for ch in range(c):
+            fy, fx = rng.uniform(0.5, 3.0, size=2)
+            phase = rng.uniform(0, 2 * np.pi)
+            protos[cls, :, :, ch] = 0.5 + 0.5 * np.sin(
+                2 * np.pi * (fy * yy / h + fx * xx / w) + phase)
+
+    def sample(n):
+        y = rng.randint(0, n_classes, size=n)
+        x = protos[y] + noise * rng.randn(n, h, w, c).astype(np.float32)
         return np.clip(x, 0.0, 1.0).astype(np.float32), y.astype(np.int32)
 
     x_tr, y_tr = sample(n_train)

@@ -129,7 +129,7 @@ def test_cuda_tensors_launch_kernels_and_count(cuda):
     ops.softmax(_randn(cuda, 4, 4))
     assert ops.launch_counts() == {"matmul_f32": 1, "matmul_bf16": 1,
                                    "rowwise_softmax": 2, "flash_fwd": 0,
-                                   "decode": 0, "q8": 0}
+                                   "decode": 0, "q8": 0, "pool": 0}
 
 
 def test_kernel_rejects_unsupported_dtype(cuda):
@@ -309,3 +309,142 @@ def test_lm_on_the_card_matches_the_cpu(cuda):
         got = tt.greedy_decode(p_gpu, prompt.cuda(), 12, cfg=cfg,
                                use_prefill=use_prefill)
         torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+# ----------------------------------------------------- conv-path kernels
+
+from lua_mapreduce_tpu_torch.ops.conv import _pad_hw  # noqa: E402
+from lua_mapreduce_tpu_torch.ops.pool import _pool_plain, pool_cuda  # noqa: E402
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["max", "avg"])
+@pytest.mark.parametrize("shape,window,stride", [
+    ((4, 28, 28, 6), (2, 2), (2, 2)), ((3, 10, 10, 16), (2, 2), (2, 2)),
+    ((2, 23, 23, 64), (3, 3), (2, 2)), ((2, 9, 7, 5), (3, 2), (1, 2))])
+def test_pool_kernel_matches_plain(cuda, dtype, mode, shape, window, stride):
+    x = _randn(cuda, *shape, dtype=dtype)
+    got = pool_cuda(x, window, stride, mode)
+    want = _pool_plain(x, window, stride, mode)
+    assert got.dtype == dtype and got.shape == want.shape
+    if mode == "max":
+        torch.testing.assert_close(got, want, rtol=0, atol=0)   # exact
+    elif dtype == torch.float32:
+        # same sum order; the kernel divides by KH·KW, torch multiplies
+        # by its reciprocal (one rounding apart for 3x3)
+        torch.testing.assert_close(got, want, **F32)
+    else:
+        # the kernel sums in f32, the plain version in bf16
+        torch.testing.assert_close(got.float(),
+                                   _pool_plain(x.float(), window, stride,
+                                               mode), **BF16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool_kernel_neg_inf_border_and_ties(cuda, dtype):
+    """The stem's -inf border gives no -inf or NaN where a window holds a
+    finite value, and -inf where it holds none; on a tie-heavy input the
+    gradient through the kernel's Function equals plain autograd."""
+    x = torch.relu(_randn(cuda, 2, 16, 16, 8)).to(dtype)   # zero ties
+    xp = _pad_hw(x, (1, 1), (1, 1), value=-float("inf"))
+    got = ops.maxpool2d(xp, 3, 2)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, _pool_plain(xp, (3, 3), (2, 2), "max"),
+                               rtol=0, atol=0)
+    ninf = torch.full((1, 4, 4, 3), -float("inf"), device="cuda",
+                      dtype=dtype)
+    assert bool((pool_cuda(ninf, (2, 2), (2, 2), "max") ==
+                 -float("inf")).all())
+    ties = torch.randint(0, 3, (2, 9, 9, 4), device="cuda",
+                         generator=cuda).to(dtype)
+    for window, stride in (((2, 2), (2, 2)), ((3, 3), (2, 2))):
+        (got,) = _grads(lambda t: (ops.maxpool2d(t, window, stride).float()
+                                   ** 2).sum(), ties)
+        (want,) = _grads(lambda t: (_pool_plain(t, window, stride, "max")
+                                    .float() ** 2).sum(), ties)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lenet_grads_through_kernels_match_plain(cuda, dtype):
+    """LeNet's loss and gradients through the kernels against the same
+    model on CPU copies of the inputs and parameters (plain versions)."""
+    from lua_mapreduce_tpu_torch.models.lenet import init_lenet, nll_loss
+    x = torch.rand((64, 32, 32, 3), device="cuda", generator=cuda).to(dtype)
+    y = torch.randint(0, 10, (64,), device="cuda", generator=cuda)
+    p0 = init_lenet(1, dtype=dtype, device="cuda")
+    grads = []
+    for dev in ("cuda", "cpu"):
+        p = {k: v.to(dev).requires_grad_(True) for k, v in p0.items()}
+        loss = nll_loss(p, x.to(dev), y.to(dev))
+        grads.append((loss.cpu(), {k: g.cpu() for k, g in zip(
+            p, torch.autograd.grad(loss, list(p.values())))}))
+    (lk, gk), (lp, gp) = grads
+    tol = F32 if dtype == torch.float32 else BF16
+    torch.testing.assert_close(lk.float(), lp.float(), **tol)
+    for k in gk:
+        torch.testing.assert_close(gk[k].float(), gp[k].float(), **tol,
+                                   msg=k)
+        rel = (gk[k].float() - gp[k].float()).norm() / gp[k].float().norm()
+        assert float(rel) <= (1e-4 if dtype == torch.float32 else 1e-2), k
+
+
+def test_conv_models_launch_the_kernels(cuda):
+    """One LeNet and one ImageNet-stem ResNet step launch exactly the
+    counts worked out from the code."""
+    from lua_mapreduce_tpu_torch.models import lenet, resnet
+    p = {k: v.requires_grad_(True)
+         for k, v in lenet.init_lenet(0, device="cuda").items()}
+    x = torch.rand((8, 32, 32, 3), device="cuda", generator=cuda)
+    y = torch.randint(0, 10, (8,), device="cuda", generator=cuda)
+    ops.reset_launch_counts()
+    lenet.nll_loss(p, x, y).backward()
+    assert ops.launch_counts() == {**dict.fromkeys(ops.KERNELS, 0),
+                                   "matmul_f32": 5, "pool": 2,
+                                   "rowwise_softmax": 1}
+    cfg = resnet.ResNetConfig(input_shape=(64, 64, 3), n_classes=1000)
+    p = {k: v.requires_grad_(True)
+         for k, v in resnet.init_resnet(0, cfg, device="cuda").items()}
+    x = torch.rand((2, 64, 64, 3), device="cuda", generator=cuda)
+    ops.reset_launch_counts()
+    resnet.make_loss(cfg)(p, x, torch.tensor([1, 2], device="cuda")
+                          ).backward()
+    assert ops.launch_counts() == {**dict.fromkeys(ops.KERNELS, 0),
+                                   "matmul_f32": 59, "pool": 1,
+                                   "rowwise_softmax": 1}
+
+
+def test_resnet_on_the_card_matches_the_cpu(cuda):
+    from lua_mapreduce_tpu_torch.models import resnet
+    cfg = resnet.ResNetConfig(input_shape=(64, 64, 3), n_classes=1000)
+    p_cpu = resnet.init_resnet(2, cfg, device="cpu")
+    x = torch.rand((2, 64, 64, 3), generator=torch.Generator().manual_seed(3))
+    y = torch.tensor([5, 700])
+    losses = []
+    for dev in ("cpu", "cuda"):
+        p = {k: v.to(dev).requires_grad_(True) for k, v in p_cpu.items()}
+        loss = resnet.make_loss(cfg)(p, x.to(dev), y.to(dev))
+        g = torch.autograd.grad(loss, list(p.values()))
+        losses.append((float(loss), {k: v.cpu() for k, v in zip(p, g)}))
+    (lc, gc), (lg, gg) = losses
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    for k in gc:
+        torch.testing.assert_close(gg[k], gc[k], **F32, msg=k)
+    # normwise too (small gradients pass any atol); 2e-2 admits a ReLU
+    # kink flipped by rounding, as chip_smoke's conv check does
+    diff = sum(float((gg[k] - gc[k]).norm()) ** 2 for k in gc) ** 0.5
+    assert diff <= 2e-2 * sum(float(v.norm()) ** 2 for v in gc.values()) ** 0.5
+
+
+def test_pool_kernel_rejects_what_it_does_not_take(cuda):
+    with pytest.raises(TypeError):
+        pool_cuda(torch.zeros(1, 4, 4, 2, device="cuda",
+                              dtype=torch.float16), (2, 2), (2, 2), "max")
+    with pytest.raises(ValueError, match="mode"):
+        pool_cuda(torch.zeros(1, 4, 4, 2, device="cuda"), (2, 2), (2, 2),
+                  "min")
+    # a non-contiguous input is read through one contiguous copy
+    x = _randn(cuda, 2, 8, 8, 6)[..., ::2]
+    torch.testing.assert_close(pool_cuda(x, (2, 2), (2, 2), "max"),
+                               _pool_plain(x, (2, 2), (2, 2), "max"),
+                               rtol=0, atol=0)
