@@ -51,9 +51,24 @@ Phases, each a hard failure on any mismatch:
              CPU run's parameters at each step): losses within 1e-4
              relative, gradients and parameter updates normwise within
              each model's limits, overall and in the worst parameter
-             (ResNet's wider for ReLU kinks, see CONV_CHECKS).
+             (ResNet's wider for ReLU kinks, see CONV_CHECKS);
+10. lm train — ``make_train_step`` at the full width of the repo's LM
+             training benchmark (``bench_transformer_step``: d_model 1024,
+             16 heads, 8 layers, d_ff 4096, vocab 32768, seq 2048, batch
+             8, bf16, SGD with momentum, ring attention on one device),
+             MHA and its llama-style GQA 4:1 form: ms/step, tokens/s,
+             model TFLOP/s, peak memory, and from a profiled repeat a
+             step's device time by kernel; phase 2 holds the dq and dkv
+             backward kernels against the plain backward at its shapes;
+11. lm train check — the same widths at 2 layers in f32 (seq 256, batch
+             2): three free-running steps on the card against the CPU
+             (losses within 1e-4 relative, gradients and parameter
+             updates normwise within 1e-4), and a remat + grad_accum=2
+             step equal to the plain step;
+12. train_lm — the port's trainer script at the LM widths with ``--bf16``
+             for 20 steps on its synthetic task: the loss falls.
 
-Launch counts are zeroed just before each run of phases 4, 5, 6 and 8 and
+Launch counts are zeroed just before each run of phases 4, 5, 6, 8 and 10 and
 read just after, and must equal the counts worked out from the code; a
 kernel of the paths with no launch there fails the run. The
 card's name and power limit, then one JSON line of per-kernel numbers,
@@ -85,6 +100,10 @@ KERNEL_META = {
     "rowwise_softmax": (CSRC + "softmax.cu",
                         "lua_mapreduce_tpu/ops/softmax.py:24"),
     "flash_fwd": (CSRC + "flash.cu", "lua_mapreduce_tpu/ops/attention.py:188"),
+    "flash_bwd_dq": (CSRC + "flash_bwd.cu",
+                     "lua_mapreduce_tpu/ops/attention.py:419"),
+    "flash_bwd_dkv": (CSRC + "flash_bwd.cu",
+                      "lua_mapreduce_tpu/ops/attention.py:452"),
     "decode": (CSRC + "decode.cu", "lua_mapreduce_tpu/ops/decode.py:108"),
     "q8": (CSRC + "q8.cu", "lua_mapreduce_tpu/ops/q8.py:59"),
     "pool": (CSRC + "pool.cu", "lua_mapreduce_tpu/ops/pool.py:24"),
@@ -115,6 +134,26 @@ INT8_LOGIT_TOL = 2e-2
 SERVE = dict(vocab=32768, d_model=1024, n_heads=16, n_layers=8, d_ff=4096,
              max_seq=4096)
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 3968, 128
+# bench_transformer_step's configuration (benchmarks/kernel_bench.py:380-
+# 418): d1024 h16 L8 ff4096 v32768, seq 2048, batch 8, bf16,
+# optax.sgd(1e-3, momentum=0.9), attn="ring" on one device; its modern
+# variant is llama_style with 4:1 GQA
+LM = dict(vocab=32768, d_model=1024, n_heads=16, n_layers=8, d_ff=4096,
+          max_seq=2048)
+LM_BATCH, LM_SEQ, LM_STEPS = 8, 2048, 10
+LM_MODERN = dict(rope=True, norm="rms", ffn="swiglu", n_kv_heads=4)
+# the f32 card-vs-CPU LM check: 2 layers, seq 256, batch 2, three free-
+# running steps; losses within LM_CHECK_RTOL relative, gradients and
+# parameter updates normwise within LM_CHECK_NORM over all parameters and
+# in the worst one (GELU/SwiGLU are smooth: no ReLU kinks, LeNet's limits)
+LM_CHECK_RTOL, LM_CHECK_NORM = 1e-4, 1e-4
+# the check's SGD rate (the JAX parity tests'). Its parameter update is
+# the one the optimizer applies, −lr·b from the momentum buffer b: read
+# as after − before in f32 instead, an update carries the last-bit
+# rounding of p − lr·b on each side, which alone parted the two sides by
+# 5e-5 normwise at lr 1e-3 (7e-5 in a norm gain at lr 0.1) while the
+# gradients agreed to 2e-6
+LM_CHECK_LR = 0.1
 # bench_conv_train's configurations (benchmarks/kernel_bench.py:457-530,
 # :788-793): model, batch, timed steps
 CONV_RUNS = (("lenet5_cifar", 1024, 10), ("resnet18_imagenet", 32, 5))
@@ -358,6 +397,10 @@ def phase_serving_kernels(torch, gen):
             ("prefill causal, lse mode", 4, 3968, 16, 16, 64, "bfloat16", 0,
              True),
             ("GQA 4:1 causal", 4, 3968, 16, 4, 64, "bfloat16", 0, False),
+            ("LM training causal, lse mode", 8, 2048, 16, 16, 64,
+             "bfloat16", 0, True),
+            ("LM training GQA 4:1 causal, lse mode", 8, 2048, 16, 4, 64,
+             "bfloat16", 0, True),
             ("window 512", 4, 3968, 16, 16, 64, "bfloat16", 512, False),
             ("check-run prefill causal", 4, 256, 16, 16, 64, "float32", 0,
              False)):
@@ -391,7 +434,10 @@ def phase_serving_kernels(torch, gen):
                                  tol, ntol)
         del got, want, out_got, out_want, wrong
         lib = None
-        if not lse:         # SDPA returns no lse: no one-call yardstick
+        if lse and hkv == h:
+            # the flash SDPA op returns the logsumexp too (equal kv heads)
+            lib = sdpa_flash_fwd(torch, q, k, v)
+        elif not lse:
             mask = None
             if window:
                 i = torch.arange(l, device="cuda")
@@ -1301,6 +1347,384 @@ def phase_conv_check(torch, ops, seed=4):
     return out
 
 
+# ------------------------------------ LM training path (phases 2, 10-12)
+
+def sdpa_flash_fwd(torch, q, k, v):
+    """A callable timing ``aten._scaled_dot_product_flash_attention``
+    (causal; it returns the logsumexp, as the lse-mode kernel does) on
+    (B, H, L, D) copies of q, k, v — a yardstick only."""
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    op = torch.ops.aten._scaled_dot_product_flash_attention
+    return lambda: op(qt, kt, vt, 0.0, True, False)
+
+
+def sdpa_flash_bwd(torch, q, k, v, do):
+    """(callable, its (dq, dk, dv) in the (B, L, H, D) layout) of
+    ``aten._scaled_dot_product_flash_attention_backward`` — dq, dk and
+    dv in one call from a saved out and logsumexp (causal, equal q and
+    kv heads, bf16; it takes no lse cotangent) — a yardstick only."""
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous().to(q.dtype)
+                       for x in (q, k, v, do))
+    fwd = torch.ops.aten._scaled_dot_product_flash_attention(
+        qt, kt, vt, 0.0, True, False)
+    out, lse, cq, ck, mq, mk, seed, offset = fwd[:8]
+    op = torch.ops.aten._scaled_dot_product_flash_attention_backward
+
+    def run():
+        return op(dot, qt, kt, vt, out, lse, cq, ck, mq, mk, 0.0, True,
+                  seed, offset)
+    return run, tuple(g.transpose(1, 2) for g in run())
+
+
+def flash_bwd_cases():
+    """(label, B, L, H, H_kv, D, dtype, window, g_lse) of the backward
+    rows: the LM training shape and its modern GQA 4:1 form (random lse
+    cotangent, as the ring's merge passes one), bench_flash_grad_error's
+    shape with its 0.1·sum(lse) loss (g_lse = 0.1), a window, and f32
+    rows (the check run's shape and a ragged L) held at 1e-4."""
+    return [("LM training causal", 8, 2048, 16, 16, 64, "bfloat16", 0,
+             "random"),
+            ("LM training GQA 4:1 causal", 8, 2048, 16, 4, 64, "bfloat16",
+             0, "random"),
+            ("grad-error bench causal, lse", 2, 2048, 8, 8, 128, "bfloat16",
+             0, "0.1"),
+            ("window 512", 8, 2048, 16, 16, 64, "bfloat16", 512, "random"),
+            ("check-run causal", 2, 256, 16, 16, 64, "float32", 0, "random"),
+            ("ragged L, GQA 4:1", 2, 1000, 8, 2, 128, "float32", 0,
+             "random")]
+
+
+def phase_flash_bwd_kernels(torch, gen):
+    """The dq and dkv kernels against the plain backward
+    (``flash_attention_bwd_plain``) on the same inputs: o and lse from
+    the lse-mode forward kernel, a random do, an lse cotangent. f32 at
+    1e-4; bf16 at the serving flash tolerance and normwise ≤ 1e-2, and
+    the plain backward with the softmax scale 5% off must fail the same
+    check. Bound by operations: dq 3 products (s, dp, dq), dkv 4 (s, dp,
+    dv, dk), 2 FLOP per multiply-add over the visible pairs of every q
+    head. The library column is SDPA's flash backward for the pair."""
+    from lua_mapreduce_tpu_torch.ops.attention import (
+        flash_attention_bwd_plain, flash_attention_cuda, flash_bwd_dkv_cuda,
+        flash_bwd_dq_cuda)
+    rows = []
+    for label, b, l, h, hkv, d, dt, window, gl in flash_bwd_cases():
+        dtype = getattr(torch, dt)
+
+        def randn(*shape, scale=1.0, dtype=dtype):
+            return (torch.randn(shape, device="cuda", generator=gen)
+                    * scale).to(dtype)
+        q = randn(b, l, h, d, scale=Q_SCALE)
+        k, v = randn(b, l, hkv, d), randn(b, l, hkv, d)
+        do = randn(b, l, h, d, dtype=torch.float32)
+        g_lse = (randn(b, l, h, dtype=torch.float32) if gl == "random"
+                 else torch.full((b, l, h), 0.1, device="cuda"))
+        o, lse = flash_attention_cuda(q, k, v, causal=True, window=window,
+                                      with_lse=True)
+        delta = ((do * o).sum(-1) - g_lse).contiguous()
+        dob = do.to(dtype)
+        kw = dict(causal=True, window=window)
+
+        def run_dq(q=q, k=k, v=v, dob=dob, lse=lse, delta=delta, kw=kw):
+            return flash_bwd_dq_cuda(q, k, v, dob, lse, delta, **kw)
+
+        def run_dkv(q=q, k=k, v=v, dob=dob, lse=lse, delta=delta, kw=kw):
+            return flash_bwd_dkv_cuda(q, k, v, dob, lse, delta, **kw)
+
+        def plain(q=q, k=k, v=v, o=o, lse=lse, do=do, g_lse=g_lse,
+                  window=window, scale=None):
+            return flash_attention_bwd_plain(q, k, v, o, lse, do, True,
+                                             window=window, g_lse=g_lse,
+                                             scale=scale)
+        dq, (dk, dv) = run_dq(), run_dkv()
+        want = plain()
+        torch.cuda.synchronize()
+        tol = SERVE_TOL[f"flash {dt}"] if dt == "bfloat16" else (1e-4, 1e-4)
+        ntol = NORM_TOL if dt == "bfloat16" else None
+        wrong = plain(scale=d ** -0.5 * WRONG_SCALE)
+        lib, lib_note = None, None
+        if dt != "bfloat16":
+            lib_note = "n/a: SDPA's flash backward takes fp16/bf16 only"
+        elif window:
+            lib_note = "n/a: SDPA's flash backward has no sliding window"
+        elif hkv != h:
+            lib_note = ("n/a: SDPA's flash backward takes equal q and kv "
+                        "heads")
+        else:
+            lib, lib_grads = sdpa_flash_bwd(torch, q, k, v, do)
+            if gl == "0.1":
+                # its own out and lse, no lse cotangent: the same function
+                # as the kernels' only where g_lse is 0 — held loosely
+                lib_note = ("takes no lse cotangent; held against the "
+                            "kernels at g_lse = 0")
+                z = ((do * o).sum(-1)).contiguous()
+                ref = (flash_bwd_dq_cuda(q, k, v, dob, lse, z, **kw),
+                       *flash_bwd_dkv_cuda(q, k, v, dob, lse, z, **kw))
+                lib_rel = max(norm_err(a, r) for a, r in zip(lib_grads, ref))
+                if lib_rel > 5e-2:
+                    raise AssertionError(f"flash bwd {label}: SDPA's "
+                                         f"backward parts from the "
+                                         f"kernels' by {lib_rel:.3e}")
+                lib_note += f" (normwise {lib_rel:.3e})"
+                del ref
+            else:
+                lib_note = "takes no lse cotangent"
+            del lib_grads
+        item = q.element_size()
+        pairs = visible_pairs(l, True, window)
+        in_bytes = (2 * b * l * h * d + 2 * b * l * hkv * d) * item \
+            + 2 * b * l * h * 4
+        peak = PEAK_BF16_FLOPS if dt == "bfloat16" else PEAK_F32_FLOPS
+        for kernel, parts, fn, n_prod, out_bytes in (
+                ("flash_bwd_dq", (("dq", dq, want[0]),), run_dq, 3,
+                 b * l * h * d * item),
+                ("flash_bwd_dkv", (("dk", dk, want[1]), ("dv", dv, want[2])),
+                 run_dkv, 4, 2 * b * l * hkv * d * item)):
+            err, rel, control = 0.0, 0.0, 0.0
+            for name, got, w in parts:
+                err = max(err, check_close(f"{kernel} {label} {name}", got,
+                                           w, dt, tol, ntol))
+                rel = max(rel, norm_err(got, w))
+                bad = wrong[("dq", "dk", "dv").index(name)]
+                control = max(control, assert_rejects(
+                    f"{kernel} {label} {name} (scale 5% off)", bad, w, dt,
+                    tol, ntol))
+            row = serving_row(
+                torch, kernel, f"{kernel} {label} ({b},{l},{h}/{hkv},{d}) "
+                f"{dt}", err, fn, plain, lib, 2 * n_prod * b * h * pairs * d,
+                in_bytes + out_bytes, peak, rel, control)
+            row["library_note"] = lib_note
+            rows.append(row)
+        del q, k, v, do, o, lse, delta, dob, dq, dk, dv, want, wrong, lib
+        torch.cuda.empty_cache()
+    return rows
+
+
+def train_counts(n_layers, steps, remat=False, accum=1):
+    """Launches of ``steps`` LM train steps, from the code: per
+    microbatch one lse-mode flash forward per layer (twice under remat,
+    which reruns each block's forward in the backward) and one dq and
+    one dkv launch per layer in the backward; nothing else of the port
+    (projections, the head and the loss's log_softmax are torch)."""
+    from lua_mapreduce_tpu_torch.ops import KERNELS
+    per = steps * accum * n_layers
+    return {**dict.fromkeys(KERNELS, 0),
+            "flash_fwd": per * (2 if remat else 1),
+            "flash_bwd_dq": per, "flash_bwd_dkv": per}
+
+
+def lm_tokens(torch, vocab, batch, seq, seed):
+    import numpy as np
+    s = np.random.RandomState(seed).randint(0, vocab, (batch, seq + 1))
+    return torch.from_numpy(s[:, :-1]), torch.from_numpy(s[:, 1:])
+
+
+def phase_lm_train(torch, ops, seed=0):
+    """bench_transformer_step's MHA and modern configurations through
+    ``make_train_step`` at full width, bf16, SGD with momentum: a warm-up
+    step, then counts zeroed, LM_STEPS timed steps, counts read; a
+    profiled repeat gives a step's device time by kernel."""
+    from lua_mapreduce_tpu_torch.models import transformer as tt
+    from lua_mapreduce_tpu_torch.train import optim
+    out = {}
+    for tag, extra in (("mha", {}), ("modern", LM_MODERN)):
+        cfg = tt.TransformerConfig(**LM, **extra)
+        params = {k: v.requires_grad_(True) for k, v in tt.init_transformer(
+            seed, cfg, dtype=torch.bfloat16, device="cuda").items()}
+        # optax.sgd(1e-3, momentum=0.9) (train/optim.py says how)
+        step = tt.make_train_step(cfg, optim.sgd(params.values(), 1e-3,
+                                                 momentum=0.9))
+        tok, tgt = (x.cuda() for x in lm_tokens(torch, cfg.vocab, LM_BATCH,
+                                                LM_SEQ, seed))
+        first = float(step(params, tok, tgt))              # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = [step(params, tok, tgt) for _ in range(LM_STEPS)]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        want = train_counts(cfg.n_layers, LM_STEPS)
+        if counts != want:
+            raise AssertionError(f"lm train {tag} launches {counts}, "
+                                 f"expected {want}")
+        losses = [first] + [float(x) for x in losses]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"lm train {tag} loss not finite: {losses}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        kernels = kernel_profile(torch, lambda: step(params, tok, tgt))
+        dev_ms = sum(kk[1] for kk in kernels)
+        tags = (("flash_fwd", "flash_bf16_kernel"),
+                ("flash_bwd_dq", "bfk::dq_kernel"),
+                ("flash_bwd_dkv", "bfk::dkv_kernel"))
+        port_ms = {kk: sum(r[1] for r in kernels if t in r[0])
+                   for kk, t in tags}
+        seen = {kk: sum(r[2] for r in kernels if t in r[0]) for kk, t in tags}
+        per_step = {kk: v for kk, v in train_counts(cfg.n_layers, 1).items()
+                    if v}
+        # the step's device time by kind: the port's kernels, cuBLAS
+        # products (the projections and the head), everything else
+        # (norms, activations, residual adds, the loss, the optimizer)
+        by_kind = {"port": sum(port_ms.values()),
+                   "cublas": sum(r[1] for r in kernels
+                                 if "nvjet" in r[0] or "gemm" in r[0])}
+        by_kind["other"] = dev_ms - by_kind["port"] - by_kind["cublas"]
+        step_ms = dt * 1e3 / LM_STEPS
+        tok_s = LM_BATCH * LM_SEQ * LM_STEPS / dt
+        tflops = tok_s * tt.flops_per_token(cfg, LM_SEQ) / 1e12
+        r = {"config": f"d{cfg.d_model} h{cfg.n_heads}/{tt.kv_heads(cfg)} "
+                       f"L{cfg.n_layers} ff{cfg.d_ff} v{cfg.vocab} "
+                       f"seq{LM_SEQ} b{LM_BATCH} bf16"
+                       + (" llama-style" if extra else ""),
+             "steps": LM_STEPS, "step_ms": step_ms, "tokens_per_s": tok_s,
+             "model_tflops": tflops,
+             "peak_fraction": tflops * 1e12 / PEAK_BF16_FLOPS,
+             "losses": losses, "launches": counts, "peak_mem_gib": peak,
+             "profiled_step_device_ms": dev_ms,
+             "profiled_step_kernel_ms": port_ms,
+             "profiled_step_launches": seen,
+             "profiled_step_ms_by_kind": by_kind,
+             "profile_complete": seen == per_step,
+             "device_idle_share": 1 - dev_ms / step_ms,
+             "top_kernels": kernels[:14]}
+        log(f"[lm train] {tag} {r['config']}: {LM_STEPS} timed steps, "
+            f"{step_ms:.3f} ms/step, {tok_s:.1f} tokens/s, {tflops:.3f} "
+            f"model TFLOP/s ({100 * r['peak_fraction']:.3f}% of the 989 "
+            f"TFLOP/s bf16 dense peak), peak {peak:.2f} GiB; losses "
+            f"{losses[0]:.4f} .. {losses[-1]:.4f}; launches {counts}")
+        log(f"[lm train] {tag}: profiled step {dev_ms:.3f} ms on the device "
+            f"(flash fwd {port_ms['flash_fwd']:.3f}, dq "
+            f"{port_ms['flash_bwd_dq']:.3f}, dkv "
+            f"{port_ms['flash_bwd_dkv']:.3f}; cuBLAS "
+            f"{by_kind['cublas']:.3f}, other {by_kind['other']:.3f}); idle "
+            f"{100 * r['device_idle_share']:.1f}% of the timed step; port "
+            f"launches in the trace {seen}"
+            f"{'' if r['profile_complete'] else ' (partial trace)'}")
+        for name, ms, n in kernels[:14]:
+            log(f"[lm train] {tag}   {ms:10.3f} ms {n:6d}x  {name[:90]}")
+        out[tag] = r
+        del params, step, tok, tgt
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm_check(torch, ops, seed=5):
+    """The LM widths at 2 layers in f32 (seq 256, batch 2), MHA and
+    modern: three free-running train steps on the card (kernels) and on
+    the CPU (plain versions) from the same parameters and tokens, SGD
+    with momentum at LM_CHECK_LR. Each step's loss agrees within
+    LM_CHECK_RTOL; its gradient and its parameter update (−lr·b, as the
+    optimizer applies it) normwise within LM_CHECK_NORM, over all
+    parameters and in the worst one. Then one
+    step with remat and grad_accum=2 on the card equals the plain step
+    from the same parameters, and launches flash_fwd 2·2·L times."""
+    import dataclasses
+
+    from lua_mapreduce_tpu_torch.models import transformer as tt
+    from lua_mapreduce_tpu_torch.train import optim
+    out = {}
+    for tag, extra in (("mha", {}), ("modern", LM_MODERN)):
+        cfg = tt.TransformerConfig(**{**LM, "n_layers": 2, "max_seq": 256},
+                                   **extra)
+        p0 = tt.init_transformer(seed, cfg, device="cpu")
+        tok, tgt = lm_tokens(torch, cfg.vocab, 2, 256, seed)
+        sides = {}
+        for dev in ("cpu", "cuda"):
+            p = {k: v.detach().clone().to(dev).requires_grad_(True)
+                 for k, v in p0.items()}
+            opt = optim.sgd(p.values(), LM_CHECK_LR, momentum=0.9)
+            sides[dev] = (p, tt.make_train_step(cfg, opt), opt)
+        losses, gerrs, uerrs = [], [], []
+        counts = dict.fromkeys(ops.KERNELS, 0)
+        for _ in range(3):
+            lc = float(sides["cpu"][1](sides["cpu"][0], tok, tgt))
+            ops.reset_launch_counts()
+            lg = float(sides["cuda"][1](sides["cuda"][0], tok, tgt))
+            for k, v in ops.launch_counts().items():
+                counts[k] += v
+            losses.append((lg, lc))
+            pc, pg = sides["cpu"][0], sides["cuda"][0]
+            gerrs.append(leafwise_err({k: v.grad for k, v in pg.items()},
+                                      {k: v.grad for k, v in pc.items()}))
+            uerrs.append(leafwise_err(*(
+                {k: -LM_CHECK_LR * sides[d][2].state[v]["momentum_buffer"]
+                 for k, v in sides[d][0].items()} for d in ("cuda", "cpu"))))
+        if counts != train_counts(2, 3):
+            raise AssertionError(f"lm check {tag} launches {counts}")
+        rel = max(abs(g - c) / abs(c) for g, c in losses)
+        fmt = " ".join(f"{a:.3e} (worst {w:.3e} in {k})" for a, w, k in gerrs)
+        ufmt = " ".join(f"{a:.3e} (worst {w:.3e} in {k})"
+                        for a, w, k in uerrs)
+        msg = (f"{tag} 2 layers f32 seq 256 b2, 3 free-running steps: "
+               f"(card, CPU) losses {losses}, max relative difference "
+               f"{rel:.3e} (limit {LM_CHECK_RTOL}); gradient normwise {fmt}; "
+               f"update normwise {ufmt} (limit {LM_CHECK_NORM})")
+        if rel > LM_CHECK_RTOL or any(a > LM_CHECK_NORM or w > LM_CHECK_NORM
+                                      for a, w, _ in gerrs + uerrs):
+            raise AssertionError(f"lm check {msg}")
+        log(f"[lm check] {msg}")
+        # remat + grad_accum=2 against the plain step, on the card
+        steps = {}
+        for name, c, accum in (("plain", cfg, 1),
+                               ("remat+accum2",
+                                dataclasses.replace(cfg, remat=True), 2)):
+            p = {k: v.detach().clone().cuda().requires_grad_(True)
+                 for k, v in p0.items()}
+            st = tt.make_train_step(c, optim.sgd(p.values(), LM_CHECK_LR,
+                                                 momentum=0.9),
+                                    grad_accum=accum)
+            ops.reset_launch_counts()
+            loss = float(st(p, tok, tgt))
+            steps[name] = (loss, {k: v.grad.cpu() for k, v in p.items()},
+                           ops.launch_counts())
+        (l1, g1, _), (l2, g2, c2) = steps["plain"], steps["remat+accum2"]
+        want = train_counts(2, 1, remat=True, accum=2)
+        if c2 != want:
+            raise AssertionError(f"lm check {tag} remat+accum launches "
+                                 f"{c2}, expected {want}")
+        a, w, k = leafwise_err(g2, g1)
+        if abs(l2 - l1) > LM_CHECK_RTOL * abs(l1) or a > LM_CHECK_NORM \
+                or w > LM_CHECK_NORM:
+            raise AssertionError(f"lm check {tag}: remat+accum2 step "
+                                 f"loss {l2} vs {l1}, gradient normwise "
+                                 f"{a:.3e} (worst {w:.3e} in {k})")
+        log(f"[lm check] {tag}: remat + grad_accum=2 step equals the plain "
+            f"step on the card (loss {l2:.6f} vs {l1:.6f}, gradient "
+            f"normwise {a:.3e}, worst {w:.3e} in {k}); launches {c2}")
+        out[tag] = {"losses_card_cpu": losses, "max_rel_diff": rel,
+                    "grad_norm_err": gerrs, "update_norm_err": uerrs,
+                    "remat_accum": {"loss": l2, "plain_loss": l1,
+                                    "grad_norm_err": [a, w, k],
+                                    "launches": c2}}
+    return out
+
+
+def phase_train_lm(torch, ops, steps=20):
+    """The port's ``train_lm`` script at the LM widths with ``--bf16``
+    (f32 masters under Adam), seq 2048, batch 8, on its synthetic stride
+    task: it runs, and its last logged loss is below its first."""
+    from lua_mapreduce_tpu_torch.examples.lm import train_lm
+    args = train_lm.build_parser().parse_args(
+        ["--steps", str(steps), "--bf16", "--seq", str(LM_SEQ), "--batch",
+         str(LM_BATCH), "--d-model", str(LM["d_model"]), "--n-heads",
+         str(LM["n_heads"]), "--n-layers", str(LM["n_layers"]), "--d-ff",
+         str(LM["d_ff"])])
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = train_lm.run(args)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    losses = summary["losses"]
+    if summary["steps"] != steps or not losses[-1][1] < losses[0][1]:
+        raise AssertionError(f"train_lm: losses did not fall: {losses}")
+    log(f"[train_lm] --bf16 d{LM['d_model']} L{LM['n_layers']} "
+        f"seq {LM_SEQ} b{LM_BATCH}, {steps} steps in {wall:.2f} s "
+        f"({summary['tokens_per_sec']:.1f} tokens/s after the first step): "
+        f"losses {losses}; sample {summary['sample']}; launches {counts}")
+    return {"losses": losses, "wall_s": wall,
+            "tokens_per_s": summary["tokens_per_sec"], "launches": counts}
+
+
 # ------------------------------------------------------------ main
 
 def gpu_line():
@@ -1335,6 +1759,7 @@ def main():
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = (phase_kernels(torch, ops, gen) + phase_serving_kernels(torch, gen)
+            + phase_flash_bwd_kernels(torch, gen)
             + phase_conv_kernels(torch, gen))
     for r in rows:
         lib = ("n/a" if r["library_ms"] is None
@@ -1347,6 +1772,8 @@ def main():
                       f"refused)")
         if r.get("cudnn_conv_ms") is not None:
             extra += f"; the whole conv through cuDNN {r['cudnn_conv_ms']:.4f} ms"
+        if r.get("library_note"):
+            extra += f"; library {r['library_note']}"
         log(f"[kernel] {r['case']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {lib}, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
@@ -1358,9 +1785,13 @@ def main():
     check = phase_serving_check(torch, ops)
     conv = phase_conv(torch, ops, gen)
     conv_check = phase_conv_check(torch, ops)
+    lm = phase_lm_train(torch, ops)
+    lm_check = phase_lm_check(torch, ops)
+    train_lm = phase_train_lm(torch, ops)
     runs = ([digits_counts, wide_counts]
             + [serving[t]["launches"] for t in serving]
-            + [conv[m]["launches"] for m in conv])
+            + [conv[m]["launches"] for m in conv]
+            + [lm[t]["launches"] for t in lm])
     launches = {k: sum(c[k] for c in runs) for k in ops.KERNELS}
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
@@ -1390,6 +1821,7 @@ def main():
         "digits": {"val_loss": val, "launches": digits_counts},
         "wide": {**wide, "launches": wide_counts}, "serving": serving,
         "serving_check": check, "conv": conv, "conv_check": conv_check,
+        "lm_train": lm, "lm_check": lm_check, "train_lm": train_lm,
         "kernels": kernels,
         "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)

@@ -3,12 +3,13 @@
 A second package beside the JAX one, written for one NVIDIA H100. It
 carries its own copy of the host plane it needs (core/, store/, engine/:
 the barrier LocalExecutor on ``mem:`` and ``shared:`` storage), and
-ports the digits DP-SGD path, the LM serving path and the conv-family
-training path on top of it:
+ports the digits DP-SGD path, the LM serving path, the conv-family
+training path and single-device LM training on top of it:
 
 - ``ops``: hand-written Hopper kernels (CUDA C++, sm_90a) — matmul,
-  row log_softmax/softmax, flash attention forward, decode attention,
-  the weight-only int8 matmul and max/avg pooling — each beside a plain
+  row log_softmax/softmax, flash attention forward and its
+  FlashAttention-2 backward (dq, dkv), decode attention, the
+  weight-only int8 matmul and max/avg pooling — each beside a plain
   PyTorch version of the same function. A CPU tensor takes the plain
   version; a CUDA tensor launches the kernel or raises. ``conv2d`` is
   im2col over the matmul kernel.
@@ -17,7 +18,9 @@ training path on top of it:
 - ``train.harness``: the single-device ``DataParallelTrainer``.
 - ``models.transformer``: ``prefill`` and KV-cached ``greedy_decode``
   (GQA, rolling window, int8 weights via ``quantize_lm`` and an int8
-  KV cache).
+  KV cache), and ``make_train_step`` (ring attention on one shard,
+  remat, gradient accumulation) with ``train.{accum,precision,optim}``
+  and the trainer script ``examples.lm.train_lm``.
 - ``models.lenet`` / ``models.resnet``: LeNet-5 and ResNet-18 (NHWC,
   HWIO, GroupNorm) over ``conv2d``, ``maxpool2d`` and ``log_softmax``.
 

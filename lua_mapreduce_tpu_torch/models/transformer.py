@@ -1,18 +1,21 @@
-"""Decoder-only transformer LM — the single-device serving subset.
+"""Decoder-only transformer LM — single-device serving and training.
 
-Port of ``lua_mapreduce_tpu/models/transformer.py``, trimmed to what
-serving runs: :func:`init_transformer`, the oracle
-:func:`transformer_apply`, :func:`prefill`, KV-cached
-:func:`greedy_decode` (prefill or position-scan ingestion, GQA, sliding
-window with a rolling cache, int8 KV cache) and the int8 serving copy
-:func:`quantize_lm`. On a card the attention runs the port's flash
-kernel (prefill) and decode kernel (every step), and the projections of
-a quantized dict run the q8 kernel; plain dense projections ``y @ W``
-and the unquantized head stay ``torch.matmul``, as the JAX package
-leaves them to XLA.
+Port of ``lua_mapreduce_tpu/models/transformer.py`` for one device:
+:func:`init_transformer`, the oracle :func:`transformer_apply`,
+:func:`prefill`, KV-cached :func:`greedy_decode` (prefill or
+position-scan ingestion, GQA, sliding window with a rolling cache, int8
+KV cache), the int8 serving copy :func:`quantize_lm`, and the LM
+trainer: :func:`lm_loss_local` and :func:`make_train_step` (ring
+attention on one shard, ``cfg.remat``, gradient accumulation). On a
+card the attention runs the port's flash kernels (forward; dq and dkv
+in the backward) and decode kernel, and the projections of a quantized
+dict run the q8 kernel; plain dense projections ``y @ W``, the
+unquantized head and the loss's log_softmax stay torch, as the JAX
+package leaves them to XLA.
 
-Not in this slice, and raising: MoE blocks, sampling (``temperature >
-0``), sequence-parallel prefill (``mesh=``), ``remat`` and training.
+Not in the port yet, and raising: MoE blocks, sampling (``temperature >
+0``), sequence parallelism (``mesh=`` beyond one device, zigzag,
+Ulysses) and ZeRO-1.
 
 Params are a flat name→tensor dict with the JAX package's names and
 layouts (carry JAX params across with ``convert.params_from_jax``).
@@ -27,13 +30,15 @@ from typing import Dict, Optional, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from lua_mapreduce_tpu_torch.device import resolve_device
 from lua_mapreduce_tpu_torch.ops.attention import flash_attention
 from lua_mapreduce_tpu_torch.ops.decode import decode_attention, quantize_kv
 from lua_mapreduce_tpu_torch.ops.q8 import q8_matmul, quantize_q8
-from lua_mapreduce_tpu_torch.parallel.ring_attention import \
-    attention_reference
+from lua_mapreduce_tpu_torch.parallel.ring_attention import (
+    _ring_shard, attention_reference)
+from lua_mapreduce_tpu_torch.train.accum import accum_value_and_grad
 
 Params = Dict[str, torch.Tensor]
 
@@ -62,7 +67,7 @@ class TransformerConfig:
     moe_capacity: int = 0
     moe_aux_weight: float = 0.01
     moe_top_k: int = 1
-    # rematerialization, a training option (not in the port yet: raises)
+    # rematerialization: recompute each block's forward in the backward
     remat: bool = False
 
     @staticmethod
@@ -329,18 +334,22 @@ def _check_seq(global_len: int, cfg: TransformerConfig) -> None:
 def _forward(params: Params, tokens, pos, cfg: TransformerConfig, attn_fn,
              block=None):
     """Shared body: tokens (B, L), pos (L,) global positions. Returns
-    (logits, moe aux 0.0)."""
-    if cfg.remat:
-        raise NotImplementedError(
-            "remat is a training option; transformer training is not in "
-            "the port yet (ROADMAP A7)")
+    (logits, moe aux 0.0). With ``cfg.remat`` each block runs under
+    ``torch.utils.checkpoint`` (the counterpart of ``jax.checkpoint``):
+    its activations are dropped after the forward and recomputed in the
+    backward, so the block's forward — its flash kernel included — runs
+    twice in a training step."""
     block = block or _block
     x = params["tok_emb"][tokens]
     if not cfg.rope:
         x = x + params["pos_emb"][pos]
     aux_total = 0.0
     for i in range(cfg.n_layers):
-        x, aux = block(params, i, x, cfg, attn_fn, pos)
+        if cfg.remat:
+            x, aux = checkpoint(block, params, i, x, cfg, attn_fn, pos,
+                                use_reentrant=False)
+        else:
+            x, aux = block(params, i, x, cfg, attn_fn, pos)
         aux_total = aux_total + aux
     x = _norm(params, "lnf", x, cfg)
     return _head(params, x), aux_total
@@ -549,3 +558,126 @@ def transformer_apply(params: Params, tokens, *,
                          functools.partial(attention_reference, causal=True,
                                            window=cfg.window))
     return logits
+
+
+# ------------------------------------------------------------ training
+
+
+def _attn_shard_fn(attn: str, n_sp: int, cfg: TransformerConfig):
+    """The attention body of the train step, resolved strictly at
+    factory time: ``"ring"`` is the ring body on ``n_sp`` shards (one,
+    in the port); ``"zigzag"`` and ``"ulysses"`` are the
+    sequence-parallel slice and raise."""
+    if cfg.window and attn != "ring":
+        raise ValueError(
+            "sliding-window attention (cfg.window > 0) runs "
+            "sequence-parallel as the BANDED contiguous ring "
+            "(attn='ring'); zigzag balances full-causal work a window "
+            "already bounds, and ulysses materializes full-sequence "
+            "heads per device")
+    if attn == "ring":
+        return functools.partial(_ring_shard, n_shards=n_sp, causal=True,
+                                 window=cfg.window)
+    if attn in ("zigzag", "ulysses"):
+        raise NotImplementedError(
+            f"attn={attn!r} is a sequence-parallel schedule, not in the "
+            f"port yet (ROADMAP A7); use attn='ring' on one device")
+    raise ValueError(f"unknown attn {attn!r} "
+                     f"(want 'ring', 'zigzag' or 'ulysses')")
+
+
+def _mean_nll(logits, targets):
+    """Mean next-token NLL — the loss tail of every execution form."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, targets[..., None].long())[..., 0].mean()
+
+
+def lm_loss_local(params: Params, tokens, targets, cfg: TransformerConfig,
+                  attn_fn, pos, block=None):
+    """Mean next-token NLL (+ weighted MoE aux loss, 0 for dense blocks)
+    of (B, L) tokens against targets the caller shifted."""
+    logits, aux = _forward(params, tokens, pos, cfg, attn_fn, block=block)
+    return _mean_nll(logits, targets) + cfg.moe_aux_weight * aux
+
+
+def _single_device(mesh) -> None:
+    """``mesh`` is None or a mesh of one device: anything whose
+    ``shape`` (or the object itself) maps axis names to sizes of 1."""
+    if mesh is None:
+        return
+    sizes = dict(getattr(mesh, "shape", mesh))
+    if any(int(n) != 1 for n in sizes.values()):
+        raise NotImplementedError(
+            f"a {sizes} mesh is data/sequence parallel, not in the port "
+            f"yet (ROADMAP A4/A7); pass mesh=None for one device")
+
+
+def make_train_step(cfg: TransformerConfig, optimizer, *, mesh=None,
+                    attn: str = "ring", grad_accum: int = 1,
+                    zero1: bool = False):
+    """The single-device LM train step, ``step(params, tokens, targets)
+    -> loss``.
+
+    The JAX package's ``make_train_step(cfg, mesh, optimizer)`` returns
+    a pure ``step(params, opt_state, tokens, targets) -> (params,
+    opt_state, loss)`` jitted with donated buffers. Here the step is
+    stateful: ``optimizer`` is a ``torch.optim`` optimizer (or
+    :class:`~lua_mapreduce_tpu_torch.train.precision.F32Master`) built
+    over the tensors of ``params``, and holds what ``opt_state`` holds;
+    the step computes the mean next-token NLL and its gradient (through
+    ``accum_value_and_grad`` over ``grad_accum`` microbatches when > 1),
+    writes each gradient to its parameter's ``.grad``, steps the
+    optimizer — the parameters update in place — and returns the loss,
+    a detached 0-d tensor. ``tokens``/``targets`` are (B, L) integer
+    tensors or arrays, moved to the parameters' device.
+
+    Attention is ``attn="ring"`` on one shard (``_ring_shard``: the flash
+    op's lse form merged into the ring accumulator, so its backward
+    takes the lse cotangent too). ``mesh`` beyond one device, zigzag,
+    Ulysses, ``zero1`` and MoE configs raise NotImplementedError;
+    ``grad_accum > 1`` with MoE keeps the JAX package's ValueError."""
+    if zero1:
+        raise NotImplementedError(
+            "zero1 shards optimizer state over a data-parallel axis, not "
+            "in the port yet (ROADMAP A4)")
+    _single_device(mesh)
+    _check_arch(cfg)
+    if cfg.moe_experts:
+        if grad_accum > 1:
+            raise ValueError(
+                "grad_accum > 1 with moe_experts > 0 would silently "
+                "change the numbers: MoE capacity and the aux loss are "
+                "defined per device tile, so quarter-size microbatches "
+                "drop/route tokens differently than the whole tile")
+        _check_moe(cfg, 1)
+    _no_moe(cfg)
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    attn_fn = _attn_shard_fn(attn, 1, cfg)
+
+    def step(params: Params, tokens, targets):
+        dev = params["tok_emb"].device
+        tokens = torch.as_tensor(tokens, device=dev).long()
+        targets = torch.as_tensor(targets, device=dev).long()
+        _check_seq(tokens.shape[1], cfg)
+        pos = torch.arange(tokens.shape[1], device=dev)
+
+        def loss_fn(p, tok, tgt):
+            return lm_loss_local(p, tok, tgt, cfg, attn_fn, pos)
+
+        if grad_accum == 1:
+            loss = loss_fn(params, tokens, targets)
+            grads = torch.autograd.grad(loss, list(params.values()),
+                                        allow_unused=True)
+            grads = dict(zip(params, grads))
+            loss = loss.detach()
+        else:
+            loss, grads = accum_value_and_grad(
+                loss_fn, params, (tokens, targets), grad_accum)
+        for k, p in params.items():
+            g = grads[k]
+            p.grad = torch.zeros_like(p) if g is None else g
+        optimizer.step()
+        return loss
+
+    return step

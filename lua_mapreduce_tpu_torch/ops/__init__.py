@@ -22,7 +22,7 @@ from typing import Dict
 import torch
 
 KERNELS = ("matmul_f32", "matmul_bf16", "rowwise_softmax", "flash_fwd",
-           "decode", "q8", "pool")
+           "flash_bwd_dq", "flash_bwd_dkv", "decode", "q8", "pool")
 
 _launches: Dict[str, int] = {k: 0 for k in KERNELS}
 _launch_lock = threading.Lock()

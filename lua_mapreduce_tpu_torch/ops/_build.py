@@ -27,8 +27,8 @@ from typing import Dict, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = {"matmul": "matmul.cu", "softmax": "softmax.cu",
-           "flash": "flash.cu", "decode": "decode.cu", "q8": "q8.cu",
-           "pool": "pool.cu"}
+           "flash": "flash.cu", "flash_bwd": "flash_bwd.cu",
+           "decode": "decode.cu", "q8": "q8.cu", "pool": "pool.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -42,6 +42,8 @@ _SIGNATURES = {
     "softmax": {"lmr_rowwise_softmax": [_P, _P, _L, _I, _I, _I, _P]},
     "flash": {"lmr_flash_fwd": [_P] * 5 + [_I] * 5 + [_L] * 9 + [_I] * 5
               + [_P]},
+    "flash_bwd": {fn: [_P] * 8 + [_I] * 5 + [_L] * 12 + [_I] * 4 + [_P]
+                  for fn in ("lmr_flash_bwd_dq", "lmr_flash_bwd_dkv")},
     "decode": {"lmr_decode": [_P] * 6 + [_I] * 6 + [_L] * 3 + [_I, _P]},
     "q8": {"lmr_q8_matmul": [_P] * 5 + [_I] * 4 + [_P],
            "lmr_q8_splits": [_I] * 3},

@@ -1,17 +1,24 @@
-"""Flash attention forward — the kernel and its plain version.
+"""Flash attention — the forward and backward kernels and their plain
+versions.
 
-Port of the forward half of ``lua_mapreduce_tpu/ops/attention.py``: the
-Pallas ``_flash_kernel_nolse`` and ``_flash_kernel`` become one CUDA
-kernel with an lse flag (``csrc/flash.cu``; its source note says what
-bounds it and what the design does about it). Layout is the JAX op's
-public one, (B, L, H, D), read through strides by the kernel.
+Port of ``lua_mapreduce_tpu/ops/attention.py``: the Pallas
+``_flash_kernel_nolse`` and ``_flash_kernel`` become one CUDA kernel
+with an lse flag (``csrc/flash.cu``), and the FlashAttention-2 backward
+``_flash_bwd_dq_kernel`` / ``_flash_bwd_dkv_kernel`` become two CUDA
+kernels (``csrc/flash_bwd.cu``); each source's note says what bounds it
+and what the design does about it. Layout is the JAX op's public one,
+(B, L, H, D), read through strides by the kernels.
 
-The backward (the FlashAttention-2 dq/dkv kernels) is not ported yet
-(ROADMAP B5): :class:`_FlashForward`'s backward raises, so no gradient
-ever flows through the plain version in its place.
+The autograd Function runs the forward with the lse kernel whenever a
+gradient will be needed, keeping the f32 out and the lse as residuals,
+and its backward takes a cotangent for both outputs, as the JAX op's
+two ``custom_vjp`` pairs do. CPU tensors take the plain versions, CUDA
+tensors the kernels.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -66,6 +73,67 @@ def flash_attention_plain(q, k, v, causal: bool, scale: float,
     return out32, lse.permute(0, 2, 1)                  # (B, L, H)
 
 
+def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool,
+                              window: int = 0, q_offset: int = 0,
+                              g_lse=None, scale: Optional[float] = None):
+    """The plain backward (the FA2 formulas of ``_bwd_tile`` in torch):
+    Δ = rowsum(do∘o) − g_lse in f32 from the f32 out, p = exp(s − lse)
+    where visible, ds = p∘(do·vᵀ − Δ)·scale, dq = ds·k, dk = dsᵀ·q,
+    dv = pᵀ·do, summed over each kv head's group of q heads. ``do`` is
+    cast to q's dtype before the products, and p and ds are rounded to
+    it as product operands, as the TPU kernels do. ``lse`` and ``g_lse``
+    are (B, L, H). Returns (dq, dk, dv) in q/k/v's dtypes. ``scale``
+    (default 1/√d) exists for the smoke script's negative control."""
+    b, l, h, d = q.shape
+    hkv = k.shape[2]
+    group = h // hkv
+    scale = d ** -0.5 if scale is None else scale
+    delta = (do.float() * o.float()).sum(-1)            # (B, L, H)
+    if g_lse is not None:
+        delta = delta - g_lse.float()
+    do_c = do.to(q.dtype).float()
+    kr = k.repeat_interleave(group, dim=2).float()
+    vr = v.repeat_interleave(group, dim=2).float()
+    s = torch.einsum("blhd,bmhd->bhlm", q.float(), kr) * scale
+    rows = torch.arange(l, device=q.device)[:, None]
+    cols = torch.arange(l, device=q.device)[None, :]
+    mask = _tile_mask(rows, cols, causal, window, l, q_offset)
+    lse_t = lse.float().permute(0, 2, 1)[..., None]     # (B, H, L, 1)
+    p = torch.where(mask, torch.exp(torch.where(mask, s - lse_t, 0.0)),
+                    0.0)
+    del s
+    dp = torch.einsum("blhd,bmhd->bhlm", do_c, vr)
+    ds = p * (dp - delta.permute(0, 2, 1)[..., None]) * scale
+    del dp
+    ds_c = ds.to(q.dtype).float()
+    del ds
+    dq = torch.einsum("bhlm,bmhd->blhd", ds_c, kr)
+    dk = torch.einsum("bhlm,blhd->bmhd", ds_c, q.float())
+    del ds_c
+    dv = torch.einsum("bhlm,blhd->bmhd", p.to(q.dtype).float(), do_c)
+    dk = dk.reshape(b, l, hkv, group, d).sum(3)
+    dv = dv.reshape(b, l, hkv, group, d).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_kernel_operands(q, k, v, what: str) -> None:
+    """What the forward and backward kernels take: f32 or bf16 operands
+    of one dtype, head dims 64 or 128, batch·heads within the grid."""
+    b, _, h, d = q.shape
+    if q.dtype not in _CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{what} takes float32/bfloat16 q/k/v of one "
+                        f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"{what} takes head dims {_HEAD_DIMS}, got {d}")
+    if b * h > _MAX_GRID_Y:
+        raise ValueError(f"{what}: batch·heads = {b * h} exceeds its grid "
+                         f"limit {_MAX_GRID_Y}")
+
+
+def _unit_stride(*xs):
+    return tuple(x if x.stride(-1) == 1 else x.contiguous() for x in xs)
+
+
 def flash_attention_cuda(q, k, v, *, causal: bool, window: int = 0,
                          q_offset: int = 0, with_lse: bool = False):
     """Launch ``csrc/flash.cu`` on CUDA tensors q (B, L, H, D) and k/v
@@ -74,16 +142,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool, window: int = 0,
     ``with_lse``, with the (B, L, H) f32 lse — else in the input dtype."""
     b, l, h, d = q.shape
     hkv = k.shape[2]
-    if q.dtype not in _CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash kernel takes float32/bfloat16 q/k/v of one "
-                        f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"flash kernel takes head dims {_HEAD_DIMS}, "
-                         f"got {d}")
-    if b * h > _MAX_GRID_Y:
-        raise ValueError(f"flash kernel: batch·heads = {b * h} exceeds "
-                         f"its grid limit {_MAX_GRID_Y}")
-    q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
+    _check_kernel_operands(q, k, v, "flash kernel")
+    q, k, v = _unit_stride(q, k, v)
     out = torch.empty((b, l, h, d), device=q.device,
                       dtype=torch.float32 if with_lse else q.dtype)
     lse = (torch.empty((b, l, h), device=q.device, dtype=torch.float32)
@@ -103,25 +163,126 @@ def flash_attention_cuda(q, k, v, *, causal: bool, window: int = 0,
     return (out, lse) if with_lse else out
 
 
+def _bwd_launch(entry: str, kernel: str, q, k, v, do, lse, delta, outs,
+                causal, window, q_offset):
+    """One backward kernel of ``csrc/flash_bwd.cu``: q/k/v/do through
+    their strides, lse and Δ contiguous (B, L, H) f32, ``outs``
+    contiguous in q's dtype."""
+    b, l, h, d = q.shape
+    _check_kernel_operands(q, k, v, f"{kernel} kernel")
+    if do.dtype != q.dtype or do.shape != q.shape:
+        raise TypeError(f"{kernel} kernel: do must be {q.dtype} "
+                        f"{tuple(q.shape)}, got {do.dtype} "
+                        f"{tuple(do.shape)}")
+    for name, x in (("lse", lse), ("delta", delta)):
+        if x.dtype != torch.float32 or x.shape != (b, l, h) or \
+                not x.is_contiguous():
+            raise TypeError(f"{kernel} kernel: {name} must be a contiguous "
+                            f"(B, L, H) float32 tensor")
+    q, k, v, do = _unit_stride(q, k, v, do)
+    if outs[0].numel() == 0:
+        return
+    lib = _build.library("flash_bwd")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(),
+            *(x.data_ptr() for x in outs), *((None,) * (2 - len(outs))),
+            b, l, h, k.shape[2], d, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], *do.stride()[:3], int(causal), window,
+            q_offset, _CODES[q.dtype], stream)
+    _build.check(lib, rc, f"{kernel} kernel launch")
+    count_launch(kernel)
+
+
+def flash_bwd_dq_cuda(q, k, v, do, lse, delta, *, causal: bool,
+                      window: int = 0, q_offset: int = 0):
+    """dq through the dq kernel: ``do`` in q's dtype, ``lse`` and Δ
+    (with the lse cotangent already folded in) contiguous (B, L, H) f32.
+    Returns a contiguous (B, L, H, D) dq in q's dtype."""
+    dq = torch.empty(q.shape, device=q.device, dtype=q.dtype)
+    _bwd_launch("lmr_flash_bwd_dq", "flash_bwd_dq", q, k, v, do, lse, delta,
+                (dq,), causal, window, q_offset)
+    return dq
+
+
+def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool,
+                       window: int = 0, q_offset: int = 0):
+    """(dk, dv) through the dkv kernel, operands as
+    :func:`flash_bwd_dq_cuda`'s. Returns contiguous (B, L, H_kv, D)
+    tensors in k's dtype."""
+    dk = torch.empty(k.shape, device=k.device, dtype=k.dtype)
+    dv = torch.empty(v.shape, device=v.device, dtype=v.dtype)
+    _bwd_launch("lmr_flash_bwd_dkv", "flash_bwd_dkv", q, k, v, do, lse,
+                delta, (dk, dv), causal, window, q_offset)
+    return dk, dv
+
+
+def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool,
+                             window: int = 0, q_offset: int = 0,
+                             g_lse=None):
+    """The backward on the card: Δ = rowsum(do∘o) − g_lse in f32 from
+    the f32 out (one elementwise pass in torch, O(L·d), as the JAX
+    package leaves it to XLA), ``do`` cast to q's dtype, then the dq and
+    the dkv kernels. Returns (dq, dk, dv)."""
+    delta = (do.float() * o.float()).sum(-1)
+    if g_lse is not None:
+        delta = delta - g_lse.float()
+    delta = delta.contiguous()
+    lse = lse.float().contiguous()
+    do = do.to(q.dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)
+    return dq, dk, dv
+
+
 class _FlashForward(torch.autograd.Function):
-    """The forward through the kernel (CUDA) or the plain version (CPU);
-    the backward is ROADMAP B5 and raises."""
+    """The forward through the kernel (CUDA) or the plain version (CPU).
+
+    With ``needs_grad`` the forward runs the lse form and keeps the f32
+    out and the lse as residuals (JAX ``_flash_fwd`` / ``_flash_lse_fwd``);
+    without it, one launch of the form asked for. The backward takes a
+    cotangent for out and, with ``with_lse``, for lse — either may be
+    None — and runs the dq/dkv kernels (CUDA) or the plain backward
+    (CPU)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, q_offset, with_lse):
-        if device_kind(q, k, v) == "cpu":
-            scale = 1.0 / float(q.shape[-1]) ** 0.5
-            return flash_attention_plain(q, k, v, causal, scale,
-                                         with_lse=with_lse, window=window,
-                                         q_offset=q_offset)
-        return flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                    q_offset=q_offset, with_lse=with_lse)
+    def forward(ctx, q, k, v, causal, window, q_offset, with_lse,
+                needs_grad):
+        cpu = device_kind(q, k, v) == "cpu"
+
+        def fwd(lse_form):
+            if cpu:
+                return flash_attention_plain(
+                    q, k, v, causal, 1.0 / float(q.shape[-1]) ** 0.5,
+                    with_lse=lse_form, window=window, q_offset=q_offset)
+            return flash_attention_cuda(q, k, v, causal=causal,
+                                        window=window, q_offset=q_offset,
+                                        with_lse=lse_form)
+        if not needs_grad:
+            return fwd(with_lse)
+        out32, lse = fwd(True)
+        ctx.save_for_backward(q, k, v, out32, lse)
+        ctx.set_materialize_grads(False)
+        ctx.cfg = (causal, window, q_offset, with_lse, cpu)
+        if with_lse:
+            return out32, lse
+        return out32.to(q.dtype)
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "flash_attention has no backward in the port yet: the "
-            "FlashAttention-2 dq/dkv kernels are ROADMAP B5")
+    def backward(ctx, g_out, g_lse=None):
+        causal, window, q_offset, with_lse, cpu = ctx.cfg
+        q, k, v, out32, lse = ctx.saved_tensors
+        if g_out is None and g_lse is None:
+            return (None,) * 8
+        if g_out is None:
+            g_out = torch.zeros_like(out32)
+        bwd = flash_attention_bwd_plain if cpu else flash_attention_bwd_cuda
+        dq, dk, dv = bwd(q, k, v, out32, lse, g_out, causal, window=window,
+                         q_offset=q_offset, g_lse=g_lse)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = False, window: int = 0,
@@ -134,8 +295,10 @@ def flash_attention(q, k, v, *, causal: bool = False, window: int = 0,
     only) shifts the query rows after the keys. ``return_lse=True`` also
     returns the per-row logsumexp (B, L, H) f32, and the out is then f32.
 
-    CPU tensors take the plain version, CUDA tensors the kernel.
-    Forward only: a backward through it raises (ROADMAP B5)."""
+    Differentiable through both outputs. CPU tensors take the plain
+    versions, CUDA tensors the kernels (forward; dq and dkv in the
+    backward); a gradient is prepared for when grad mode is on and q, k
+    or v requires one."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"flash_attention takes (B, L, H, D) operands, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -166,5 +329,7 @@ def flash_attention(q, k, v, *, causal: bool = False, window: int = 0,
             f"vs {k.shape[2]}")
     dt = torch.promote_types(q.dtype, torch.promote_types(k.dtype, v.dtype))
     q, k, v = q.to(dt), k.to(dt), v.to(dt)
+    needs_grad = torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
     return _FlashForward.apply(q, k, v, bool(causal), int(window),
-                               int(q_offset), bool(return_lse))
+                               int(q_offset), bool(return_lse), needs_grad)

@@ -1,2 +1,3 @@
-"""Parallel layer of the port (the attention oracle in this slice; the
-ring itself is a later slice)."""
+"""Parallel layer of the port: the single-device attention oracle and
+the ring body on one shard (the multi-shard ring, zigzag and Ulysses
+are the sequence-parallel slice)."""

@@ -1,1 +1,3 @@
-"""Training: digits data, checkpoints, the single-device harness."""
+"""Training: digits data, checkpoints (sync and async), the single-device
+harness, gradient accumulation, f32 master weights and the LM
+trainer's optimizers."""

@@ -19,10 +19,14 @@ from __future__ import annotations
 import base64
 import io
 import json
-from typing import Any, List, Tuple
+import logging
+import threading
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+_log = logging.getLogger(__name__)
 
 
 def _flatten(tree: Any, leaves: List[Any]) -> str:
@@ -92,16 +96,67 @@ def _npy_bytes(leaf: Any) -> bytes:
     return buf.getvalue()
 
 
+def _save_flat(store, name: str, leaves: List[Any], dtypes: List[str],
+               structure: str) -> None:
+    """The one checkpoint writer (sync and async paths). ``leaves`` is
+    consumed: each slot is released once its bytes are written."""
+    with store.builder() as b:
+        b.write(json.dumps({"v": 2, "n": len(leaves), "dtypes": dtypes,
+                            "treedef": structure}) + "\n")
+        for i in range(len(leaves)):
+            leaf, leaves[i] = leaves[i], None
+            b.write(base64.b64encode(_npy_bytes(leaf)).decode() + "\n")
+        b.build(name)
+
+
 def save_pytree(store, name: str, tree: Any) -> None:
     """Atomically publish ``tree`` as checkpoint file ``name``."""
     leaves, structure = tree_flatten(tree)
-    with store.builder() as b:
-        b.write(json.dumps({"v": 2, "n": len(leaves),
-                            "dtypes": [_dtype_name(x) for x in leaves],
-                            "treedef": structure}) + "\n")
-        for leaf in leaves:
-            b.write(base64.b64encode(_npy_bytes(leaf)).decode() + "\n")
-        b.build(name)
+    _save_flat(store, name, leaves, [_dtype_name(x) for x in leaves],
+               structure)
+
+
+class AsyncCheckpoint:
+    """Background checkpoint writer (the JAX package's
+    ``AsyncCheckpoint``): ``submit(store, name, tree)`` copies every
+    tensor leaf to host memory synchronously — consistent with the step
+    that submits, and safe against the optimizer's in-place updates —
+    then serializes and publishes on a worker thread. At most one write
+    is in flight: a submit waits for the previous write. ``wait()``
+    blocks until the last write is durable and re-raises a background
+    failure."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def submit(self, store, name: str, tree: Any) -> None:
+        self.wait()                       # one in-flight write max
+        leaves, structure = tree_flatten(tree)
+        dtypes = [_dtype_name(x) for x in leaves]
+        host = [x.detach().to("cpu", copy=True)
+                if isinstance(x, torch.Tensor) else x for x in leaves]
+
+        def write():
+            try:
+                _save_flat(store, name, host, dtypes, structure)
+            except BaseException as e:    # re-raised by wait()
+                _log.warning("async checkpoint write of %r failed "
+                             "(re-raised at wait()): %r", name, e)
+                self._error = e
+
+        self._thread = threading.Thread(target=write, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        with self._lock:
+            t, self._thread = self._thread, None
+        if t is not None:
+            t.join()
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError("async checkpoint write failed") from err
 
 
 def _to_tensor(arr: np.ndarray, recorded: Any, where: str) -> torch.Tensor:
@@ -158,3 +213,6 @@ def load_pytree(store, name: str, like: Any, *,
         out.append(leaf)
     return tree_unflatten(like, out)
 
+
+def exists(store, name: str) -> bool:
+    return store.exists(name)

@@ -125,12 +125,26 @@ def test_validation_matches_jax():
 
 
 def test_backward_raises_not_implemented():
-    """The flash backward is ROADMAP B5: no gradient slips through the
-    plain version in its place."""
-    q, k, v = (torch.from_numpy(x).requires_grad_(True) for x in _qkv(10))
-    out = ops.flash_attention(q, k, v, causal=True)
-    with pytest.raises(NotImplementedError, match="B5"):
-        out.sum().backward()
+    """The backward no longer raises NotImplementedError: on the CPU it
+    runs the plain FlashAttention-2 backward, and its gradients equal
+    ``jax.grad`` of the JAX package's Pallas backward (interpret mode)
+    at the f32 gradient tolerance."""
+    import jax
+    q, k, v = _qkv(10)
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    out = ops.flash_attention(qt, kt, vt, causal=True)
+    w = np.arange(out.numel()).reshape(out.shape) % 7
+    (out * torch.from_numpy(w.astype(np.float32))).sum().backward()
+
+    def loss(q, k, v):
+        o = jflash(q, k, v, causal=True, backend="pallas_interpret",
+                   block_q=32, block_k=128)
+        return jnp.sum(o * jnp.asarray(w, jnp.float32))
+    want = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(x)
+                                              for x in (q, k, v)))
+    for x, g in zip((qt, kt, vt), want):
+        np.testing.assert_allclose(x.grad.numpy(), np.asarray(g), rtol=1e-4,
+                                   atol=1e-4)
 
 
 def test_tile_mask_matches_jax():
