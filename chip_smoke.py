@@ -16,7 +16,11 @@ Phases, each a hard failure on any mismatch:
              attention row shows its check refuses a wrong output; the
              conv paths' pool calls (max rows held at zero error) and
              every product of their conv steps (forward, dA, dB), each
-             conv also timed once through cuDNN as its yardstick;
+             conv also timed once through cuDNN as its yardstick; every
+             matmul and q8 row names the K split its kernel picks, the
+             conv products are held bit-for-bit equal over two calls, and
+             each conv configuration's products are summed over one step
+             (kernel against ``torch.matmul``);
 3. grads   — autograd through the kernels against autograd through the
              plain versions: the digits MLP and LeNet-5, f32 and bf16;
 4. digits  — the six-function MapReduce DP-SGD trainer (256-128-10,
@@ -44,7 +48,8 @@ Phases, each a hard failure on any mismatch:
              lenet5_cifar b1024 and resnet18_imagenet b32, 224x224,
              1000 classes), bf16, random weights and inputs from a seed:
              ms/step, images/s and model TFLOP/s, and from a profiled
-             repeat where a step's device time goes;
+             repeat where a step's device time goes (the matmul kernels'
+             launches per step, the split-K reduce's among them);
 9. conv check — LeNet-5 b64 and the ResNet-18 ImageNet topology at
              64x64 b4, f32, three trainer steps on the card against the
              same steps on the CPU (LeNet free-running, ResNet from the
@@ -301,6 +306,7 @@ def phase_kernels(torch, ops, gen):
         rows.append({
             "kernel": "matmul_f32" if dt == "float32" else "matmul_bf16",
             "case": f"matmul {label} ({m},{k})x({k},{n}) {dt}",
+            "splits": tensor_splits(a, b),
             "max_abs_err": err,
             "ms": time_ms(lambda: matmul_cuda(a, b, dtype), torch),
             "plain_ms": time_ms(lambda: matmul_plain(a, b, dtype), torch),
@@ -384,7 +390,9 @@ def phase_serving_kernels(torch, gen):
                                                        flash_attention_plain)
     from lua_mapreduce_tpu_torch.ops.decode import (decode_attention_cuda,
                                                     decode_attention_plain)
+    from lua_mapreduce_tpu_torch.ops import _build
     from lua_mapreduce_tpu_torch.ops.q8 import q8_matmul_cuda, q8_matmul_plain
+    q8_lib = _build.library("q8")
     rows = []
 
     def randn(*shape, dtype=torch.bfloat16, scale=1.0):
@@ -560,9 +568,10 @@ def phase_serving_kernels(torch, gen):
         del got, want
         item = x.element_size()
         nbytes = m * k_dim * item + k_dim * n + n * 4 + m * n * item
-        rows.append(serving_row(
+        rows.append({**serving_row(
             torch, "q8", f"q8 {label} ({m},{k_dim})x({k_dim},{n}) x {dt}", err, run,
-            plain, lib, 2 * m * k_dim * n, nbytes, PEAK_BF16_FLOPS, rel))
+            plain, lib, 2 * m * k_dim * n, nbytes, PEAK_BF16_FLOPS, rel),
+            "splits": int(q8_lib.lmr_q8_splits(m, k_dim, n))})
         del w, qw, x, wd, xb
         torch.cuda.empty_cache()
     return rows
@@ -1030,8 +1039,47 @@ def conv_cases():
             add(f"resnet {p} proj", rb, h, h, c_in, c_out, 1, stride,
                 "SAME", True)
         h = ho
-    return [(label if n == 1 else f"{label} (x{n})", *shape)
-            for shape, (label, n) in cases.items()]
+    return [(label, n, *shape) for shape, (label, n) in cases.items()]
+
+
+def conv_products(config):
+    """The matmul products of one trainer step of a conv configuration
+    ("lenet" or "resnet"), as (M, K, N, times per step, A's strides, B's
+    strides): every conv's forward patches·W, dA = g·Wᵀ (all but the
+    first conv) and dB = patchesᵀ·g, with the strides of the views the
+    autograd Function passes (patches, g and W are contiguous)."""
+    from lua_mapreduce_tpu_torch.ops.conv import _norm_padding
+    out = []
+    for label, mult, n, h, w, c_in, c_out, k, s, padding, with_da in \
+            conv_cases():
+        if not label.startswith(config):
+            continue
+        ph, pw = _norm_padding(padding, k, k, h, w, s, s)
+        m = n * ((h + sum(ph) - k) // s + 1) * ((w + sum(pw) - k) // s + 1)
+        kk = k * k * c_in
+        out.append((m, kk, c_out, mult, (kk, 1), (c_out, 1)))
+        if with_da:
+            out.append((m, c_out, kk, mult, (c_out, 1), (1, c_out)))
+        out.append((kk, m, c_out, mult, (1, kk), (c_out, 1)))
+    return out
+
+
+def matmul_splits(m, k, n, dtype_name, a_strides, b_strides,
+                  a_ptr=256, b_ptr=256):
+    """The K split csrc/matmul.cu picks for an (m, k)·(k, n) product of
+    operands with these (row, col) strides (16-byte aligned unless the
+    pointers say otherwise)."""
+    from lua_mapreduce_tpu_torch.ops import _build
+    return int(_build.library("matmul").lmr_matmul_splits(
+        a_ptr, b_ptr, m, n, k, *a_strides, *b_strides,
+        0 if dtype_name == "float32" else 1))
+
+
+def tensor_splits(a, b):
+    """matmul_splits for the operands themselves."""
+    return matmul_splits(a.shape[0], a.shape[1], b.shape[1],
+                         str(a.dtype).replace("torch.", ""), a.stride(),
+                         b.stride(), a.data_ptr(), b.data_ptr())
 
 
 def phase_conv_kernels(torch, gen):
@@ -1094,7 +1142,10 @@ def phase_conv_kernels(torch, gen):
 
     # ---- matmul: forward, dA = g·Wᵀ and dB = patchesᵀ·g of every conv,
     # with the strided views the autograd Function passes
-    for label, n, h, w, c_in, c_out, k, s, padding, with_da in conv_cases():
+    for label, mult, n, h, w, c_in, c_out, k, s, padding, with_da in \
+            conv_cases():
+        if mult > 1:
+            label = f"{label} (x{mult})"
         ph, pw = _norm_padding(padding, k, k, h, w, s, s)
         ho = (h + sum(ph) - k) // s + 1
         wo = (w + sum(pw) - k) // s + 1
@@ -1127,18 +1178,26 @@ def phase_conv_kernels(torch, gen):
             mm_, kk_ = pa.shape
             nn_ = pb.shape[1]
             got = matmul_cuda(pa, pb, bf16)
+            again = matmul_cuda(pa, pb, bf16)
             want = matmul_plain(pa, pb, bf16)
             torch.cuda.synchronize()
             err = check_close(f"matmul {label} {part}", got, want,
                               "bfloat16", norm_tol=NORM_TOL)
             rel = norm_err(got, want)
-            del got, want
+            # split or not, the sum order is fixed: two calls agree bit
+            # for bit
+            if not torch.equal(got, again):
+                raise AssertionError(f"matmul {label} {part}: two calls "
+                                     f"differ")
+            del got, want, again
             bms, by = bound(2 * mm_ * nn_ * kk_,
                             (mm_ * kk_ + kk_ * nn_ + mm_ * nn_) * 2,
                             PEAK_BF16_FLOPS)
             row = {"kernel": "matmul_bf16",
                    "case": f"matmul conv {label} {part} ({mm_},{kk_})x"
                            f"({kk_},{nn_}) bfloat16",
+                   "conv_config": label.split()[0], "per_step": mult,
+                   "splits": tensor_splits(pa, pb),
                    "max_abs_err": err, "norm_err": rel,
                    "ms": time_ms(lambda: matmul_cuda(pa, pb, bf16), torch),
                    "plain_ms": time_ms(lambda: matmul_plain(pa, pb, bf16),
@@ -1206,7 +1265,8 @@ def phase_conv(torch, ops, gen):
         tr = DataParallelTrainer(loss_fn, params,
                                  TrainConfig(batch_size=batch), device="cuda")
         del params
-        first = tr.step(x, y)                   # warm-up step
+        first = tr.step(x, y)                   # warm-up steps: the host's
+        tr.run_steps(x, y, 3)                   # first calls run slower
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
@@ -1225,14 +1285,23 @@ def phase_conv(torch, ops, gen):
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         kernels = kernel_profile(torch, lambda: tr.run_steps(x, y, 1))
         dev_ms = sum(k[1] for k in kernels)
-        tags = (("matmul_bf16", "matmul_bf16_kernel"), ("pool", "pool_kernel"),
-                ("rowwise_softmax", "rowwise_softmax_kernel"))
-        port_ms = {k: sum(r[1] for r in kernels if tag in r[0])
+        # a matmul_bf16 call launches the general kernel or the wgmma
+        # one, and a split product also the split-K reduce
+        tags = (("matmul_bf16", ("bf16k::matmul_bf16_kernel",
+                                 "wgmma_gemm_kernel")),
+                ("matmul_splitk_reduce", ("splitk_reduce_kernel",)),
+                ("pool", ("pool_kernel",)),
+                ("rowwise_softmax", ("rowwise_softmax_kernel",)))
+        port_ms = {k: sum(r[1] for r in kernels if any(t in r[0] for t in tag))
                    for k, tag in tags}
         # the trace is whole if it lists every launch the step makes
-        seen = {k: sum(r[2] for r in kernels if tag in r[0])
+        seen = {k: sum(r[2] for r in kernels if any(t in r[0] for t in tag))
                 for k, tag in tags}
-        complete = seen == per_step
+        want_seen = {**per_step, "matmul_splitk_reduce": sum(
+            mult for m_, k_, n_, mult, sa, sb in conv_products(
+                name.split("_")[0].rstrip("0123456789"))
+            if matmul_splits(m_, k_, n_, "bfloat16", sa, sb) > 1)}
+        complete = seen == want_seen
         step_ms = dt * 1e3 / steps
         imgs = batch * steps / dt
         tflops = imgs * per_ex / 1e12
@@ -1250,13 +1319,14 @@ def phase_conv(torch, ops, gen):
             f"model TFLOP/s ({100 * r['peak_fraction']:.4f}% of the 989 "
             f"TFLOP/s bf16 dense peak); losses {losses}; launches {counts}")
         log(f"[conv] {name}: profiled step {dev_ms:.3f} ms on the device "
-            f"(matmul kernel {port_ms['matmul_bf16']:.3f}, pool "
+            f"(matmul kernels {port_ms['matmul_bf16']:.3f}, split-K reduce "
+            f"{port_ms['matmul_splitk_reduce']:.3f}, pool "
             f"{port_ms['pool']:.3f}, log_softmax "
             f"{port_ms['rowwise_softmax']:.3f}); idle "
             f"{'' if complete else 'at most '}"
             f"{100 * r['device_idle_share']:.1f}% of the timed step; "
             f"port launches in the trace {seen}"
-            f"{'' if complete else f' of {per_step}: the trace is partial'}"
+            f"{'' if complete else f' of {want_seen}: the trace is partial'}"
             f"; peak {peak:.2f} GiB")
         for kname, ms, cnt in kernels[:12]:
             log(f"[conv] {name}   {ms:10.3f} ms {cnt:6d}x  {kname[:90]}")
@@ -1770,6 +1840,8 @@ def main():
         if r.get("control_norm_err") is not None:
             extra += (f" (scale 5% off: {r['control_norm_err']:.3e}, "
                       f"refused)")
+        if r.get("splits") is not None:
+            extra += f", splits {r['splits']}"
         if r.get("cudnn_conv_ms") is not None:
             extra += f"; the whole conv through cuDNN {r['cudnn_conv_ms']:.4f} ms"
         if r.get("library_note"):
@@ -1778,6 +1850,17 @@ def main():
             f"{r['plain_ms']:.4f} ms, library {lib}, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
             f"max_abs_err {r['max_abs_err']:.3e}{extra}")
+    conv_totals = {}
+    for cfg in ("lenet", "resnet"):
+        mine = [r for r in rows if r.get("conv_config") == cfg]
+        tot = {key: sum(r[key] * r["per_step"] for r in mine)
+               for key in ("ms", "library_ms")}
+        conv_totals[cfg] = tot
+        log(f"[kernel] {cfg} conv step's products (x per-step counts): "
+            f"kernel {tot['ms']:.4f} ms")
+        log(f"[kernel] {cfg} conv step's products (x per-step counts): "
+            f"torch.matmul {tot['library_ms']:.4f} ms "
+            f"({tot['ms'] / tot['library_ms']:.2f}x)")
     grads = phase_grads(torch, ops, gen)
     digits_counts, val, _ = phase_digits(torch, ops)
     wide_counts, wide = phase_wide(torch, ops, gen)
@@ -1817,7 +1900,8 @@ def main():
     report = {"gpu": gpu, "device": device, "build": {
         "built": rep["built"], "seconds": rep["seconds"],
         "ptxas": rep["ptxas"]},
-        "cases": rows, "grads_max_abs_err": grads,
+        "cases": rows, "conv_product_totals": conv_totals,
+        "grads_max_abs_err": grads,
         "digits": {"val_loss": val, "launches": digits_counts},
         "wide": {**wide, "launches": wide_counts}, "serving": serving,
         "serving_check": check, "conv": conv, "conv_check": conv_check,

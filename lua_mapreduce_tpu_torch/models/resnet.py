@@ -19,6 +19,7 @@ import math
 from typing import Dict, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from lua_mapreduce_tpu_torch import ops
 from lua_mapreduce_tpu_torch.device import resolve_device
@@ -134,14 +135,12 @@ def init_resnet(seed: Union[int, torch.Generator] = 0,
 def _group_norm(params: Params, name: str, x: torch.Tensor,
                 groups: int) -> torch.Tensor:
     """Mean and biased variance over (H, W, C/G), eps 1e-5, then the
-    per-channel scale and bias."""
-    n, h, w, c = x.shape
-    xg = x.reshape(n, h, w, groups, c // groups)
-    mean = xg.mean(dim=(1, 2, 4), keepdim=True)
-    var = xg.var(dim=(1, 2, 4), keepdim=True, correction=0)
-    xg = (xg - mean) * torch.rsqrt(var + 1e-5)
-    return xg.reshape(n, h, w, c) * params[f"{name}_g"] \
-        + params[f"{name}_be"]
+    per-channel scale and bias: ``F.group_norm`` on the NCHW view (one
+    fused op each way, statistics in f32, where reductions and
+    elementwise ops would take some twenty launches per norm)."""
+    y = F.group_norm(x.permute(0, 3, 1, 2).contiguous(), groups,
+                     params[f"{name}_g"], params[f"{name}_be"], 1e-5)
+    return y.permute(0, 2, 3, 1).contiguous()
 
 
 def _stem(params: Params, x: torch.Tensor, cfg: ResNetConfig

@@ -5,7 +5,8 @@ own shared library with a plain C interface, loaded with ``ctypes``. The
 build runs at first use, from the sources in this checkout and nothing
 else, into ``<repo>/build/kernels/`` (listed in ``.gitignore``). Library
 names carry a hash of the source and the flags, so an edited source
-rebuilds and an unchanged one loads at once. The first call builds every
+rebuilds and an unchanged one loads at once; the hash also covers the
+shared headers (``csrc/*.cuh``). The first call builds every
 source, one ``nvcc`` process each, all started together.
 
 Nothing here runs at import: the CPU tests import every module, and the
@@ -37,8 +38,11 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C signatures of every entry point, by library
 _SIGNATURES = {
-    "matmul": {"lmr_matmul": [_P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _I,
-                              _I, _P]},
+    "matmul": {"lmr_matmul": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L,
+                              _I, _I, _P],
+               "lmr_matmul_splits": [_P, _P, _I, _I, _I, _L, _L, _L, _L,
+                                     _I],
+               "lmr_matmul_tma_available": []},
     "softmax": {"lmr_rowwise_softmax": [_P, _P, _L, _I, _I, _I, _P]},
     "flash": {"lmr_flash_fwd": [_P] * 5 + [_I] * 5 + [_L] * 9 + [_I] * 5
               + [_P]},
@@ -69,9 +73,15 @@ def _nvcc() -> str:
                        "built on this machine")
 
 
-def _target(name: str) -> Path:
+def _target(name: str, csrc: Path = CSRC) -> Path:
+    """The library path of source ``name``: its hash covers the source,
+    every shared header in ``csrc`` (an edited header rebuilds what
+    includes it) and the flags."""
     h = hashlib.sha256()
-    h.update((CSRC / SOURCES[name]).read_bytes())
+    h.update((csrc / SOURCES[name]).read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lmr_{name}-{h.hexdigest()[:16]}.so"
 

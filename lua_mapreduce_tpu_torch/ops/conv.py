@@ -1,9 +1,10 @@
 """conv2d — im2col + the matmul kernel.
 
 Port of ``lua_mapreduce_tpu/ops/conv.py``. A convolution is a matmul in
-disguise: the (KH·KW·Cin) patch matrix is cut out with KH·KW strided
-slices and one ``torch.cat`` (plain data movement, as XLA does it
-outside any Pallas kernel in the JAX package), and every FLOP goes
+disguise: the (KH·KW·Cin) patch matrix is copied out of a strided view
+of the input's windows (plain data movement, as XLA does it outside any
+Pallas kernel in the JAX package; its backward sums the windows'
+gradients back with ``F.fold``, :class:`_Im2col`), and every FLOP goes
 through ``ops.matmul`` — on a CUDA tensor the hand-written matmul kernel
 (``csrc/matmul.cu``) with its custom backward, on a CPU tensor its plain
 version. conv2d has no kernel of its own, in either package.
@@ -64,18 +65,61 @@ def _pad_hw(x: torch.Tensor, ph, pw, value: float = 0.0) -> torch.Tensor:
     return F.pad(x, (0, 0, pw[0], pw[1], ph[0], ph[1]), value=value)
 
 
+def _windows(x: torch.Tensor, kh: int, kw: int, sh: int, sw: int,
+             ho: int, wo: int) -> torch.Tensor:
+    """The (N, Ho, Wo, KH, KW, C) view of an NHWC tensor's windows."""
+    n, _, _, c = x.shape
+    s_n, s_h, s_w, s_c = x.stride()
+    return x.as_strided((n, ho, wo, kh, kw, c),
+                        (s_n, sh * s_h, sw * s_w, s_h, s_w, s_c),
+                        x.storage_offset())
+
+
+def _sum_windows(g: torch.Tensor, shape, sh: int, sw: int) -> torch.Tensor:
+    """The adjoint of ``_windows``: each window's (N, Ho, Wo, KH, KW, C)
+    gradient summed back into an NHWC tensor of ``shape`` with
+    ``F.fold`` (col2im, one gather per input element)."""
+    n, ho, wo, kh, kw, c = g.shape
+    cols = g.permute(0, 5, 3, 4, 1, 2).reshape(n, c * kh * kw, ho * wo)
+    return F.fold(cols, tuple(shape[1:3]), (kh, kw),
+                  stride=(sh, sw)).permute(0, 2, 3, 1)
+
+
+class _Im2col(torch.autograd.Function):
+    """The patch tensor and its gradient, each in one copy: the forward
+    reads x through a strided (N, Ho, Wo, KH, KW, C) view of its windows
+    and copies it once; the backward sums each window's gradient back
+    into place with ``F.fold`` (col2im, one gather per input element),
+    where KH·KW slices, a concatenation and their autograd would take
+    some 4·KH·KW launches each way (196 at the ResNet stem)."""
+
+    @staticmethod
+    def forward(ctx, x, kh, kw, sh, sw, ho, wo):
+        ctx.geom = (x.shape, kh, kw, sh, sw, ho, wo)
+        return _windows(x, kh, kw, sh, sw, ho, wo).reshape(
+            x.shape[0], ho, wo, kh * kw * x.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        shape, kh, kw, sh, sw, ho, wo = ctx.geom
+        g = g.reshape(shape[0], ho, wo, kh, kw, shape[-1])
+        return (_sum_windows(g, shape, sh, sw), None, None, None, None,
+                None, None)
+
+
 def _im2col(x: torch.Tensor, kh: int, kw: int, sh: int, sw: int):
-    """(N,H,W,C) → (N,Ho,Wo,KH·KW·C) patch tensor via KH·KW strided
-    slices; patch order (kh, kw, c) matches the HWIO weight reshape."""
+    """(N,H,W,C) → (N,Ho,Wo,KH·KW·C) patch tensor; patch order
+    (kh, kw, c) matches the HWIO weight reshape. A 1×1 window at stride
+    1 is x itself."""
     n, h, w, c = x.shape
     ho = (h - kh) // sh + 1
     wo = (w - kw) // sw + 1
     if ho <= 0 or wo <= 0:
         raise ValueError(f"window {kh}x{kw} larger than the padded input "
                          f"{h}x{w}")
-    cols = [x[:, i:i + (ho - 1) * sh + 1:sh, j:j + (wo - 1) * sw + 1:sw, :]
-            for i in range(kh) for j in range(kw)]
-    return torch.cat(cols, dim=-1), ho, wo
+    if kh == kw == sh == sw == 1:
+        return x, ho, wo
+    return _Im2col.apply(x, kh, kw, sh, sw, ho, wo), ho, wo
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,

@@ -26,20 +26,28 @@
 //    the f32 partials in split order. Slices reduce by warp shuffles and
 //    then across warps through shared memory, in a fixed order, so the
 //    result does not change from run to run.
-//  * M > 8, mma_kernel: a 128×128×32 shared-memory tiled GEMM on the
-//    tensor cores (WMMA bf16 16×16×16 fragments, f32 accumulators). x
-//    tiles are converted to bf16 and int8 tiles widened to bf16 (exact)
-//    as they are written to shared memory, so device memory only ever
-//    moves the int8 weight bytes. The epilogue multiplies each column by
-//    its scale once and casts.
-//  * Ragged edges are masked in the loads and the stores; nothing is
-//    padded. Left for later work: cp.async / TMA pipelining and wgmma for
-//    the tensor-core path, an int8 × int8 path with activation scales.
+//  * M > 8, the prefill: the pipelined wgmma mainloop of gemm_sm90.cuh,
+//    shared with matmul.cu, persistent over 128 × 128 tiles. TMA brings
+//    x (bf16) and the int8 weight tile; seven warps (three of the
+//    producer warpgroup and a fourth warpgroup) widen each int8 tile to
+//    bf16 (exact) in shared memory, in the swizzled layout wgmma reads,
+//    beside the consumers' tensor-core
+//    work, so device memory moves only the int8 weight bytes; the
+//    epilogue multiplies each column by its scale once, casts, and hands
+//    the tile to a TMA store. x in f32, K % 8 != 0, N % 16 != 0 or an
+//    unaligned pointer (layouts TMA cannot read) take mma_kernel: a
+//    128×128×32 shared-memory tiled GEMM on WMMA bf16 16×16×16 fragments, x
+//    converted to bf16 and int8 widened as the tiles are written.
+//  * Ragged edges are masked in the loads (or come back as zeros from
+//    TMA) and at the stores; nothing is padded. Left for later work: an
+//    int8 × int8 path with activation scales.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "gemm_sm90.cuh"
 
 using bf16 = __nv_bfloat16;
 
@@ -247,9 +255,7 @@ mma_kernel(const XT* __restrict__ X, const int8_t* __restrict__ W,
 }
 }  // namespace mk
 
-static bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
+using sm90::aligned16;
 
 // How many ways the M <= 8 GEMV splits K: enough blocks for two per SM of
 // the current device when N is narrow, each split at least MIN_SPLIT_K
@@ -304,6 +310,18 @@ static int launch(const void* x, const void* w, const float* s, void* out,
     else if (M == 2) launch_gemv<XT, OT, 2>(X, W, s, O, part, M, K, N, splits, st);
     else if (M <= 4) launch_gemv<XT, OT, 4>(X, W, s, O, part, M, K, N, splits, st);
     else launch_gemv<XT, OT, 8>(X, W, s, O, part, M, K, N, splits, st);
+  } else if (sizeof(XT) == 2 && K % 8 == 0 && N % 16 == 0 &&
+             aligned16(x) && aligned16(w) && aligned16(out)) {
+    // bf16 x, int8 W and the bf16 out, all of which TMA can read and
+    // write: the wgmma mainloop on 128 × 128 tiles
+    CUtensorMap tx, tw, to;
+    if (!sm90::make_map(&tx, x, true, K, M, K, 64, 128) ||
+        !sm90::make_map(&tw, w, false, N, K, N, 128, 64) ||
+        !sm90::make_map(&to, out, true, N, M, N, 64, 64))
+      return cudaErrorInvalidValue;
+    const int kt = (K + sm90::BK - 1) / sm90::BK;
+    return sm90::launch_wgmma<128, false, true, true>(
+        tx, tw, to, out, false, nullptr, s, M, N, K, 1, kt, st);
   } else {
     const bool xvec = K % 8 == 0;
     const bool wvec = N % 16 == 0 && aligned16(w);

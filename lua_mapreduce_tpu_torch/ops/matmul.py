@@ -2,8 +2,10 @@
 version.
 
 Port of ``lua_mapreduce_tpu/ops/matmul.py``: the Pallas ``_matmul_kernel``
-becomes ``csrc/matmul.cu`` (a tiled Hopper GEMM; its source note says
-what bounds it and what the design does about it), and the custom VJP
+becomes ``csrc/matmul.cu`` (a split-K scheduler over a pipelined
+TMA + wgmma mainloop shared with q8, ``csrc/gemm_sm90.cuh``, and a
+general kernel for layouts TMA cannot read; its source note says what
+bounds it and what the design does about it), and the custom VJP
 ``_mm_bwd`` becomes :class:`_MatMul`, whose backward runs dA = g·Bᵀ and
 dB = Aᵀ·g through the same kernel. The transposes are stride views, not
 copies: the kernel reads its operands through (row, col) strides.
@@ -23,9 +25,9 @@ import torch
 from lua_mapreduce_tpu_torch.ops import _build, count_launch, device_kind
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
-_F32_TILE_M = 64        # csrc/matmul.cu f32k::BM
-_BF16_TILE_M = 128      # csrc/matmul.cu bf16k::BM
+_TILE_M = {torch.float32: 64, torch.bfloat16: 128}   # csrc/matmul.cu BM
 _MAX_GRID_Y = 65535
+_SPLITS = {}    # lmr_matmul_splits' answers, by device, product and layout
 
 
 def matmul_plain(a: torch.Tensor, b: torch.Tensor,
@@ -48,20 +50,41 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor,
                         f"outputs, got {a.dtype} -> {out_dtype}")
     m, k = a.shape
     n = b.shape[1]
-    tile_m = _F32_TILE_M if a.dtype == torch.float32 else _BF16_TILE_M
-    if -(-m // tile_m) > _MAX_GRID_Y:
+    if -(-m // _TILE_M[a.dtype]) > _MAX_GRID_Y:
         raise ValueError(f"matmul kernel: M={m} exceeds its grid limit "
-                         f"({_MAX_GRID_Y * tile_m} rows)")
+                         f"({_MAX_GRID_Y * _TILE_M[a.dtype]} rows)")
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if m == 0 or n == 0:
         return c
     lib = _build.library("matmul")
+    code = _CODES[a.dtype]
+    strides = (*a.stride(), *b.stride())
     with torch.cuda.device(a.device):
+        # the K-split policy lives in csrc/matmul.cu (the layout picks the
+        # kernel, the kernel the split); it says how much f32 scratch the
+        # split needs. Its answer depends on the device, the shape, the
+        # strides, the dtype and whether each operand is 16-byte aligned,
+        # and is remembered here: a training step asks for the same few
+        # dozen products again and again.
+        key = (a.device.index, m, n, k, strides, a.data_ptr() % 16 == 0,
+               b.data_ptr() % 16 == 0, code)
+        splits = _SPLITS.get(key)
+        if splits is None:
+            splits = lib.lmr_matmul_splits(a.data_ptr(), b.data_ptr(), m, n,
+                                           k, *strides, code)
+            if splits < 1:
+                raise RuntimeError("matmul kernel: the device could not be "
+                                   "queried for its split policy")
+            if len(_SPLITS) >= 4096:
+                _SPLITS.clear()
+            _SPLITS[key] = splits
+        part = (torch.empty((splits, m, n), dtype=torch.float32,
+                            device=a.device) if splits > 1 else None)
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.lmr_matmul(a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                            m, n, k, a.stride(0), a.stride(1),
-                            b.stride(0), b.stride(1), _CODES[a.dtype],
-                            _CODES[out_dtype], stream)
+                            part.data_ptr() if part is not None else None,
+                            m, n, k, *strides, code, _CODES[out_dtype],
+                            stream)
     _build.check(lib, rc, "matmul kernel launch")
     count_launch("matmul_f32" if a.dtype == torch.float32
                  else "matmul_bf16")

@@ -8,11 +8,12 @@ is ``_pool_xla`` line for line: KH·KW strided slices combined with
 ``torch.maximum`` or ``+`` in the same order (i outer, j inner); avg
 sums in the input dtype, then divides.
 
-The backward is the autograd of ``_pool_plain`` on the saved input, on
+The backward is the gradient of ``_pool_plain`` on the saved input, on
 either device, as ``_pool_p_bwd`` differentiates ``_pool_xla`` outside
-any Pallas kernel. ``F.max_pool2d``'s backward would differ: it routes a
-tied window's whole gradient to one element, where ``torch.maximum``
-(like ``lax.max``) splits it equally between the tied operands.
+any Pallas kernel; ``_pool_grad`` writes it out in closed form.
+``F.max_pool2d``'s backward would differ: it routes a tied window's
+whole gradient to one element, where ``torch.maximum`` (like ``lax.max``)
+splits it equally between the tied operands.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ from __future__ import annotations
 import torch
 
 from lua_mapreduce_tpu_torch.ops import _build, count_launch, device_kind
-from lua_mapreduce_tpu_torch.ops.conv import _norm_stride
+from lua_mapreduce_tpu_torch.ops.conv import (_norm_stride, _sum_windows,
+                                              _windows)
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MODES = {"max": 0, "avg": 1}
@@ -79,10 +81,44 @@ def pool_cuda(x: torch.Tensor, window, stride, mode: str) -> torch.Tensor:
     return y
 
 
+def _pool_grad(x: torch.Tensor, g: torch.Tensor, window, stride,
+               mode: str) -> torch.Tensor:
+    """The gradient of ``_pool_plain`` at x for the output gradient g,
+    without differentiating it op by op. avg: every window element gets
+    g / (KH·KW). max: ``_pool_plain`` folds the window with pairwise
+    maximums m_j = max(m_{j-1}, s_j), and ``torch.maximum`` (like
+    ``lax.max``) sends a tied pair half the gradient each, so element j
+    gets g times its share of step j (1 if it won, 1/2 on a tie, 0 if it
+    lost; element 0 enters at step 1) times the shares the running
+    maximum kept at every later step. The shares are powers of two, so
+    the products are exact and equal the op-by-op autograd's. Windows
+    are then summed back with ``F.fold``."""
+    kh, kw = window
+    sh, sw = stride
+    ho, wo = _out_hw(x, window, stride)
+    n, c = x.shape[0], x.shape[-1]
+    if mode == "avg":
+        gs = (g / (kh * kw))[:, :, :, None, None, :].expand(
+            n, ho, wo, kh, kw, c)
+        return _sum_windows(gs, x.shape, sh, sw)
+    s = _windows(x, kh, kw, sh, sw, ho, wo).reshape(n, ho, wo, kh * kw, c)
+    run = torch.cummax(s, dim=3).values[:, :, :, :-1]   # m_0 .. m_{K-2}
+    nxt = s[:, :, :, 1:]                                # s_1 .. s_{K-1}
+    tie = run == nxt
+    won = torch.where(tie, 0.5, (nxt > run).to(g.dtype))      # s_j's share
+    kept = torch.where(tie, 0.5, (run > nxt).to(g.dtype))     # m_{j-1}'s
+    # the share the running maximum keeps from step j + 1 to the end
+    later = torch.cat([kept.flip(3).cumprod(3).flip(3),
+                       torch.ones_like(kept[:, :, :, :1])], dim=3)
+    share = torch.cat([later[:, :, :, :1], won * later[:, :, :, 1:]], dim=3)
+    gs = (g[:, :, :, None, :] * share).reshape(n, ho, wo, kh, kw, c)
+    return _sum_windows(gs, x.shape, sh, sw)
+
+
 class _Pool(torch.autograd.Function):
     """Forward: the kernel (CUDA) or the plain version (CPU). Backward:
-    the autograd of ``_pool_plain`` (``_pool_p_fwd``/``_pool_p_bwd`` of
-    the JAX op)."""
+    ``_pool_grad``, the gradient of ``_pool_plain`` (``_pool_p_fwd``/
+    ``_pool_p_bwd`` of the JAX op)."""
 
     @staticmethod
     def forward(ctx, x, window, stride, mode):
@@ -95,11 +131,7 @@ class _Pool(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
-        with torch.enable_grad():
-            xd = x.detach().requires_grad_(True)
-            y = _pool_plain(xd, *ctx.cfg)
-        (dx,) = torch.autograd.grad(y, xd, g)
-        return dx, None, None, None
+        return _pool_grad(x, g, *ctx.cfg), None, None, None
 
 
 def _pool(x, window, stride, mode):

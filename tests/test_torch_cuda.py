@@ -42,7 +42,12 @@ def _randn(gen, *shape, dtype=torch.float32, scale=1.0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,k,n", [(1, 256, 10), (100, 70, 50),
                                    (128, 256, 128), (200, 128, 10),
-                                   (257, 129, 131), (512, 1024, 384)])
+                                   (257, 129, 131), (512, 1024, 384),
+                                   # split-K: the conv weight gradients
+                                   # (ta: patchesᵀ, a.t() of a contiguous
+                                   # (K, M)) and K not a multiple of a chunk
+                                   (75, 802816, 6), (147, 40000, 64),
+                                   (64, 100003, 64)])
 @pytest.mark.parametrize("ta,tb", [(False, False), (True, False),
                                    (False, True)])
 def test_matmul_kernel_matches_plain(cuda, dtype, m, k, n, ta, tb):
@@ -130,6 +135,62 @@ def test_cuda_tensors_launch_kernels_and_count(cuda):
     assert ops.launch_counts() == {**dict.fromkeys(ops.KERNELS, 0),
                                    "matmul_f32": 1, "matmul_bf16": 1,
                                    "rowwise_softmax": 2}
+
+
+def test_matmul_split_policy_lives_in_the_kernel_source(cuda):
+    """csrc/matmul.cu decides the K split; the wrapper only sizes the
+    scratch."""
+    from lua_mapreduce_tpu_torch.ops import _build
+    lib = _build.library("matmul")
+    assert lib.lmr_matmul_tma_available() == 1
+
+    def splits(m, k, n, dtype, ta=False):
+        # contiguous B (k, n); A (m, k) contiguous or, with ta, the .t()
+        # view of a contiguous (k, m) (patchesᵀ); 16-byte aligned
+        sa = (1, m) if ta else (k, 1)
+        return lib.lmr_matmul_splits(256, 256, m, n, k, *sa, n, 1, dtype)
+    for dtype in (0, 1):                            # f32, bf16
+        assert splits(75, 802816, 6, dtype, ta=True) > 1
+        assert splits(576, 100352, 64, dtype, ta=True) > 1
+        assert splits(4096, 4096, 4096, dtype) == 1
+        assert splits(8, 8, 8, dtype) == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(75, 802816, 6), (576, 100352, 64),
+                                   (200, 256, 128)])
+def test_matmul_split_is_bitwise_repeatable(cuda, dtype, m, k, n):
+    a = _randn(cuda, k, m, dtype=dtype, scale=k ** -0.25).t()
+    b = _randn(cuda, k, n, dtype=dtype, scale=k ** -0.25)
+    first = matmul_cuda(a, b, dtype)
+    for _ in range(2):
+        assert torch.equal(matmul_cuda(a, b, dtype), first)
+
+
+@pytest.mark.parametrize("m,k,n", [(256, 192, 128), (300, 200, 300),
+                                   (1000, 4096, 96)])
+@pytest.mark.parametrize("ta,tb", [(False, False), (True, False),
+                                   (False, True), (True, True)])
+def test_matmul_tma_and_general_paths_agree(cuda, m, k, n, ta, tb):
+    """The same values through an aligned tensor (the TMA + wgmma path)
+    and through a [1:, 1:] view of a padded copy (unaligned: the general
+    kernel)."""
+    def both(*shape):
+        big = _randn(cuda, shape[0] + 1, shape[1] + 1, dtype=torch.bfloat16,
+                     scale=k ** -0.25)
+        return big[1:, 1:].contiguous(), big[1:, 1:]
+    a_al, a_un = both(*((k, m) if ta else (m, k)))
+    b_al, b_un = both(*((n, k) if tb else (k, n)))
+    if ta:
+        a_al, a_un = a_al.t(), a_un.t()
+    if tb:
+        b_al, b_un = b_al.t(), b_un.t()
+    want = matmul_plain(a_al, b_al, torch.float32)
+    fast = matmul_cuda(a_al, b_al, torch.float32)
+    general = matmul_cuda(a_un, b_un, torch.float32)
+    torch.testing.assert_close(fast, want, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(general, want, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(fast, general, rtol=1e-3, atol=1e-3)
 
 
 def test_kernel_rejects_unsupported_dtype(cuda):
@@ -360,7 +421,10 @@ def test_decode_kernel_matches_plain(cuda, kind, g, d, s_len):
 @pytest.mark.parametrize("m,k,n", [(1, 256, 128), (4, 1024, 3072),
                                    (4, 4096, 1024), (3, 1100, 200),
                                    (8, 300, 501), (9, 128, 200),
-                                   (33, 1024, 1024), (256, 512, 384)])
+                                   (33, 1024, 1024), (256, 512, 384),
+                                   # M > 8 at ragged N and K % 8 != 0
+                                   (40, 1100, 200), (129, 1024, 272),
+                                   (300, 1030, 520)])
 def test_q8_kernel_matches_plain(cuda, xdtype, m, k, n):
     w = _randn(cuda, k, n)
     q, s = ops.quantize_q8(w)
