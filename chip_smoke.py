@@ -17,7 +17,13 @@ Phases, each a hard failure on any mismatch:
              conv paths' pool calls (max rows held at zero error) and
              every product of their conv steps (forward, dA, dB), each
              conv also timed once through cuDNN as its yardstick; every
-             matmul and q8 row names the K split its kernel picks, the
+             matmul and q8 row names the K split its kernel picks, every
+             flash row the kernel it took (the main paths' bf16 rows
+             must take the TMA + wgmma kernel; one row drives the
+             general kernel at the prefill shape through a misaligned
+             view), every decode row its split count, held bit-for-bit
+             equal over two calls, with decode's combine held alone
+             against its plain version; the
              conv products are held bit-for-bit equal over two calls, and
              each conv configuration's products are summed over one step
              (kernel against ``torch.matmul``);
@@ -36,7 +42,8 @@ Phases, each a hard failure on any mismatch:
              bf16, then with int8 weights (``quantize_lm``) and an int8
              KV cache — prefill ms, decode-tail and end-to-end tokens/s,
              and from a profiled repeat the kernel time and the kernel
-             launches per decode step;
+             launches per decode step (each decode call is a split
+             kernel and, with more than one split, a combine);
 7. serving check — the same widths at 2 layers in f32 (prompt 256, 32
              new tokens): greedy tokens on the card equal the CPU run
              through the plain versions, prefill equals the position
@@ -387,9 +394,14 @@ def phase_serving_kernels(torch, gen):
     import torch.nn.functional as F
     from lua_mapreduce_tpu_torch import ops
     from lua_mapreduce_tpu_torch.ops.attention import (flash_attention_cuda,
-                                                       flash_attention_plain)
-    from lua_mapreduce_tpu_torch.ops.decode import (decode_attention_cuda,
-                                                    decode_attention_plain)
+                                                       flash_attention_plain,
+                                                       flash_kernel_path)
+    from lua_mapreduce_tpu_torch.ops.decode import (_KINDS, _KIND_BF16_INT8,
+                                                    _merge_splits_plain,
+                                                    decode_attention_cuda,
+                                                    decode_attention_plain,
+                                                    decode_splits,
+                                                    merge_splits_cuda)
     from lua_mapreduce_tpu_torch.ops import _build
     from lua_mapreduce_tpu_torch.ops.q8 import q8_matmul_cuda, q8_matmul_plain
     q8_lib = _build.library("q8")
@@ -399,23 +411,43 @@ def phase_serving_kernels(torch, gen):
         return (torch.randn(shape, device="cuda", generator=gen)
                 * scale).to(dtype)
 
-    # ---- flash: prefill (B, L, H, D), causal, one call per layer
-    for label, b, l, h, hkv, d, dt, window, lse in (
-            ("prefill causal", 4, 3968, 16, 16, 64, "bfloat16", 0, False),
+    def misaligned(*shape, dtype, scale=1.0):
+        """A [..., 1:] view of a tensor one element wider: its base and
+        head stride are off 16 bytes, so only the general kernel reads
+        it."""
+        return randn(*shape[:-1], shape[-1] + 1, dtype=dtype,
+                     scale=scale)[..., 1:]
+
+    # ---- flash: prefill (B, L, H, D), causal, one call per layer; the
+    # main paths' bf16 rows must take the TMA + wgmma kernel, and one row
+    # drives the general kernel at the prefill shape through a
+    # misaligned view
+    for label, b, l, h, hkv, d, dt, window, lse, want_path in (
+            ("prefill causal", 4, 3968, 16, 16, 64, "bfloat16", 0, False,
+             "tma"),
             ("prefill causal, lse mode", 4, 3968, 16, 16, 64, "bfloat16", 0,
-             True),
-            ("GQA 4:1 causal", 4, 3968, 16, 4, 64, "bfloat16", 0, False),
+             True, "tma"),
+            ("GQA 4:1 causal", 4, 3968, 16, 4, 64, "bfloat16", 0, False,
+             "tma"),
             ("LM training causal, lse mode", 8, 2048, 16, 16, 64,
-             "bfloat16", 0, True),
+             "bfloat16", 0, True, "tma"),
             ("LM training GQA 4:1 causal, lse mode", 8, 2048, 16, 4, 64,
-             "bfloat16", 0, True),
-            ("window 512", 4, 3968, 16, 16, 64, "bfloat16", 512, False),
+             "bfloat16", 0, True, "tma"),
+            ("window 512", 4, 3968, 16, 16, 64, "bfloat16", 512, False,
+             "tma"),
+            ("prefill causal, misaligned view", 4, 3968, 16, 16, 64,
+             "bfloat16", 0, False, "general"),
             ("check-run prefill causal", 4, 256, 16, 16, 64, "float32", 0,
-             False)):
+             False, "f32")):
         dtype = getattr(torch, dt)
-        q = randn(b, l, h, d, dtype=dtype, scale=Q_SCALE)
-        k = randn(b, l, hkv, d, dtype=dtype)
-        v = randn(b, l, hkv, d, dtype=dtype)
+        make = misaligned if want_path == "general" else randn
+        q = make(b, l, h, d, dtype=dtype, scale=Q_SCALE)
+        k = make(b, l, hkv, d, dtype=dtype)
+        v = make(b, l, hkv, d, dtype=dtype)
+        path = flash_kernel_path(q, k, v)
+        if path != want_path:
+            raise AssertionError(f"flash {label}: took the {path} kernel, "
+                                 f"expected {want_path}")
         scale = d ** -0.5
         tol = SERVE_TOL[f"flash {dt}"]
         ntol = NORM_TOL if dt == "bfloat16" else None
@@ -442,7 +474,9 @@ def phase_serving_kernels(torch, gen):
                                  tol, ntol)
         del got, want, out_got, out_want, wrong
         lib = None
-        if lse and hkv == h:
+        if want_path == "general":
+            pass                 # SDPA's yardstick is the aligned row's
+        elif lse and hkv == h:
             # the flash SDPA op returns the logsumexp too (equal kv heads)
             lib = sdpa_flash_fwd(torch, q, k, v)
         elif not lse:
@@ -462,11 +496,11 @@ def phase_serving_kernels(torch, gen):
         if lse:
             nbytes += b * l * h * d * (4 - item) + b * l * h * 4
         flops = 4 * b * h * d * visible_pairs(l, True, window)
-        rows.append(serving_row(
+        rows.append({**serving_row(
             torch, "flash_fwd", f"flash {label} ({b},{l},{h}/{hkv},{d}) {dt}", err,
             run, plain, lib, flops, nbytes,
             PEAK_BF16_FLOPS if dt == "bfloat16" else PEAK_F32_FLOPS,
-            rel, control))
+            rel, control), "path": path})
         del q, k, v
         torch.cuda.empty_cache()
 
@@ -498,6 +532,11 @@ def phase_serving_kernels(torch, gen):
             return decode_attention_plain(q, k, v, t, roll, **scales)
         got, want = run(), plain()
         torch.cuda.synchronize()
+        # the split grid and a fixed-order combine: two calls bit-equal
+        if not torch.equal(run(), got):
+            raise AssertionError(f"decode {label}: two calls differ")
+        n_split = decode_splits(b * hkv, s_len, d, g,
+                                _KIND_BF16_INT8 if scales else _KINDS[dtype])
         tol = SERVE_TOL[f"decode {kind}"]
         ntol = NORM_TOL if kind != "float32" else None
         err = check_close(f"decode {label}", got, want, kind, tol, ntol)
@@ -521,13 +560,39 @@ def phase_serving_kernels(torch, gen):
                   * q.element_size() + b * hkv * g * d * 4)
         if scales:
             nbytes += 2 * b * hkv * n_live * 4
-        rows.append(serving_row(
+        rows.append({**serving_row(
             torch, "decode", f"decode {label} q ({b},{hkv},{g},{d}) cache S={s_len} "
             f"{kind}", err, run, plain, lib, 4 * b * hkv * g * n_live * d,
             nbytes, PEAK_F32_FLOPS if kind == "float32" else PEAK_BF16_FLOPS,
-            rel, control))
+            rel, control), "n_split": n_split, "bit_equal": True})
         del q, k, v, kd, vd
         torch.cuda.empty_cache()
+
+    # ---- decode's combine alone, on split states at the serving shape
+    # (64 rows, the serving n_split), one split of one row empty
+    r_, n_, g_, d_ = 64, decode_splits(64, 4096, 64, 1, _KINDS[torch.bfloat16]), 1, 64
+    pm = torch.randn((r_, n_, g_), device="cuda", generator=gen) * 3
+    pl = torch.rand((r_, n_, g_), device="cuda", generator=gen) + 0.5
+    pacc = torch.randn((r_, n_, g_, d_), device="cuda", generator=gen)
+    pm[3, n_ - 1], pl[3, n_ - 1], pacc[3, n_ - 1] = -1e30, 0.0, 0.0
+
+    def run(pm=pm, pl=pl, pacc=pacc):
+        return merge_splits_cuda(pm, pl, pacc)
+
+    def plain(pm=pm, pl=pl, pacc=pacc):
+        return _merge_splits_plain(pm, pl, pacc)
+    got, want = run(), plain()
+    if not torch.equal(run(), got):
+        raise AssertionError("decode combine: two calls differ")
+    err = check_close("decode combine", got, want, "float32",
+                      SERVE_TOL["decode float32"])
+    nbytes = (pm.numel() + pl.numel() + pacc.numel() + got.numel()) * 4
+    rows.append({**serving_row(
+        torch, "decode", f"decode combine ({r_} rows, {n_} splits, G {g_}, "
+        f"D {d_}) f32", err, run, plain, None, 4 * pacc.numel(), nbytes,
+        PEAK_F32_FLOPS, norm_err(got, want)), "n_split": n_,
+        "bit_equal": True})
+    del pm, pl, pacc, got, want
 
     # ---- q8: every projection and the head under quantize_lm
     for label, m, k_dim, n, dt in (
@@ -1624,12 +1689,14 @@ def phase_lm_train(torch, ops, seed=0):
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         kernels = kernel_profile(torch, lambda: step(params, tok, tgt))
         dev_ms = sum(kk[1] for kk in kernels)
-        tags = (("flash_fwd", "flash_bf16_kernel"),
-                ("flash_bwd_dq", "bfk::dq_kernel"),
-                ("flash_bwd_dkv", "bfk::dkv_kernel"))
-        port_ms = {kk: sum(r[1] for r in kernels if t in r[0])
+        # the forward's TMA + wgmma kernel, or its general kernel
+        tags = (("flash_fwd", ("wsk::flash_wgmma_kernel", "flash_bf16_kernel")),
+                ("flash_bwd_dq", ("bfk::dq_kernel",)),
+                ("flash_bwd_dkv", ("bfk::dkv_kernel",)))
+        port_ms = {kk: sum(r[1] for r in kernels if any(n in r[0] for n in t))
                    for kk, t in tags}
-        seen = {kk: sum(r[2] for r in kernels if t in r[0]) for kk, t in tags}
+        seen = {kk: sum(r[2] for r in kernels if any(n in r[0] for n in t))
+                for kk, t in tags}
         per_step = {kk: v for kk, v in train_counts(cfg.n_layers, 1).items()
                     if v}
         # the step's device time by kind: the port's kernels, cuBLAS
@@ -1842,6 +1909,10 @@ def main():
                       f"refused)")
         if r.get("splits") is not None:
             extra += f", splits {r['splits']}"
+        if r.get("path") is not None:
+            extra += f", {r['path']} kernel"
+        if r.get("n_split") is not None:
+            extra += (f", n_split {r['n_split']}, two calls bit-equal")
         if r.get("cudnn_conv_ms") is not None:
             extra += f"; the whole conv through cuDNN {r['cudnn_conv_ms']:.4f} ms"
         if r.get("library_note"):

@@ -45,10 +45,13 @@ _SIGNATURES = {
                "lmr_matmul_tma_available": []},
     "softmax": {"lmr_rowwise_softmax": [_P, _P, _L, _I, _I, _I, _P]},
     "flash": {"lmr_flash_fwd": [_P] * 5 + [_I] * 5 + [_L] * 9 + [_I] * 5
-              + [_P]},
+              + [_P],
+              "lmr_flash_path": [_P] * 3 + [_I] * 5 + [_L] * 9 + [_I]},
     "flash_bwd": {fn: [_P] * 8 + [_I] * 5 + [_L] * 12 + [_I] * 4 + [_P]
                   for fn in ("lmr_flash_bwd_dq", "lmr_flash_bwd_dkv")},
-    "decode": {"lmr_decode": [_P] * 6 + [_I] * 6 + [_L] * 3 + [_I, _P]},
+    "decode": {"lmr_decode": [_P] * 9 + [_I] * 6 + [_L] * 3 + [_I, _P],
+               "lmr_decode_splits": [_I] * 5,
+               "lmr_decode_combine": [_P] * 4 + [_I] * 4 + [_P]},
     "q8": {"lmr_q8_matmul": [_P] * 5 + [_I] * 4 + [_P],
            "lmr_q8_splits": [_I] * 3},
     "pool": {"lmr_pool": [_P, _P] + [_I] * 10 + [_P]},

@@ -2,11 +2,13 @@
 versions.
 
 Port of ``lua_mapreduce_tpu/ops/attention.py``: the Pallas
-``_flash_kernel_nolse`` and ``_flash_kernel`` become one CUDA kernel
-with an lse flag (``csrc/flash.cu``), and the FlashAttention-2 backward
-``_flash_bwd_dq_kernel`` / ``_flash_bwd_dkv_kernel`` become two CUDA
-kernels (``csrc/flash_bwd.cu``); each source's note says what bounds it
-and what the design does about it. Layout is the JAX op's public one,
+``_flash_kernel_nolse`` and ``_flash_kernel`` become ``csrc/flash.cu``
+with an lse flag (a TMA + wgmma kernel for the layouts TMA can read, a
+general kernel for the rest: :func:`flash_kernel_path`), and the
+FlashAttention-2 backward ``_flash_bwd_dq_kernel`` /
+``_flash_bwd_dkv_kernel`` become two CUDA kernels
+(``csrc/flash_bwd.cu``); each source's note says what bounds it and
+what the design does about it. Layout is the JAX op's public one,
 (B, L, H, D), read through strides by the kernels.
 
 The autograd Function runs the forward with the lse kernel whenever a
@@ -132,6 +134,24 @@ def _check_kernel_operands(q, k, v, what: str) -> None:
 
 def _unit_stride(*xs):
     return tuple(x if x.stride(-1) == 1 else x.contiguous() for x in xs)
+
+
+_PATHS = {0: "general", 1: "tma", 2: "f32"}
+
+
+def flash_kernel_path(q, k, v) -> str:
+    """Which kernel of ``csrc/flash.cu`` :func:`flash_attention_cuda`
+    runs for these CUDA operands (``lmr_flash_path``, a predicate on
+    their layout): ``"tma"`` (the TMA + wgmma kernel: bf16, 16-byte
+    aligned bases, strides multiples of 8 elements), ``"general"`` (the
+    mma.sync kernel: other bf16 layouts) or ``"f32"``."""
+    _check_kernel_operands(q, k, v, "flash kernel")
+    q, k, v = _unit_stride(q, k, v)
+    b, l, h, d = q.shape
+    path = _build.library("flash").lmr_flash_path(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), b, l, h, k.shape[2], d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], _CODES[q.dtype])
+    return _PATHS[path]
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool, window: int = 0,

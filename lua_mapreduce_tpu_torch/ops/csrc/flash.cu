@@ -8,43 +8,57 @@
 //
 // What bounds it on the H100: at the serving prefill shape (B=4,
 // L=3968, H=16, d=64, causal, bf16) the tensor-core rate — about
-// 4·B·H·L²·d/2 = 64.5 GFLOP against 4·B·L·H·d·2 = 32.5 MB of q/k/v/out —
-// far above the ~295 operations per byte where bf16 products stop being
-// limited by the 3.35 TB/s of device memory.
+// 4·B·H·d·L(L+1)/2 = 129 GFLOP against 2·4·B·L·H·d = 65 MB of q/k/v/out
+// — far above the ~295 operations per byte where bf16 products stop
+// being limited by the 3.35 TB/s of device memory.
 //
-// What this simple design does about it:
-//  * The TPU grid walks kv blocks as a sequential axis carrying the
-//    running (max, denominator, output) in VMEM scratch. GPU blocks run
-//    in no order, so each block owns one (batch·head, q-tile) and loops
-//    over the kv tiles itself, keeping that state in registers.
-//  * bf16 inputs: 4 warps, each owning 16 query rows of a 64-row q tile.
-//    Q·Kᵀ and P·V run on the tensor cores as mma.sync m16n8k16 bf16
-//    products with f32 accumulators. The score fragment's register
-//    layout is the P operand's layout, so P never leaves registers: it
-//    is rounded to bf16 there, after its row sums were taken in f32
-//    (the TPU kernel's "p in the value dtype, denominator in f32").
-//    The running output lives in mma accumulator fragments and is
-//    rescaled in place.
-//  * f32 inputs: full-precision FP32 FMAs (no TF32), 4 threads per
-//    query row, each owning a quarter of the head dim; the dot products
-//    are finished by quad shuffles.
-//  * q/k/v are read through their (batch, seq, head) strides in the
-//    public (B, L, H, D) layout — no transposed (B·H, L, D) copy, no
-//    padding. Rows past L are zero-filled in shared memory and masked
-//    by the loop bounds and the column test.
-//  * Dead kv tiles are never loaded: the loop runs only over the tiles
-//    that _tile_live / _kv_clamp call live (above the causal diagonal
-//    and behind the window are skipped).
-//  * GQA: q head h reads kv head h / (H / H_kv); k/v tiles are re-read
-//    per group member (from L2), as the TPU kernel re-fetches them.
-//  * A row with no visible key ends with l = max(l, 1e-30) and writes 0.
-//  * Left for later work: cp.async / TMA double buffering, wgmma, a
-//    larger q tile per block, ldmatrix for the V operand.
+// Three kernels; which one runs is a predicate on the operands' layout
+// alone (lmr_flash_path):
+//  * bf16 operands TMA can describe (16-byte aligned bases, every stride
+//    of a dimension longer than one a multiple of 8 elements — the
+//    contiguous tensors and the model's fused-qkv views) take the
+//    warp-specialised kernel (wsk): a 128-row q tile per block, three
+//    warpgroups. One producer thread loads Q once and streams K and V
+//    tiles of 128 keys through a ring of shared-memory stages with TMA
+//    (full/empty mbarriers, as gemm_sm90.cuh's mainloop), the tensor maps
+//    describing the public (B, L, H, D) layout as it lies: 4-D {D, H, L,
+//    B}, boxes of {64, 1, 128, 1} with the 128-byte swizzle (D = 128 is
+//    two boxes), the kv head picked by its coordinate (GQA), rows past L
+//    zero-filled. Two consumer warpgroups own 64 q rows each: S = Q·Kᵀ
+//    is one wgmma m64n128k16 chain from shared memory (K stored (keys, D)
+//    is K-major); the online softmax stays in f32 registers with exp2
+//    and scale·log2(e) folded into one FMA; P is rounded to bf16 in
+//    registers after its row sums were taken in f32 (the TPU kernel's
+//    rounding point) and is wgmma's A operand from registers, V (keys,
+//    D) an N-major B operand through the descriptor. The column test
+//    runs only on tiles that cross the causal diagonal, the window edge
+//    or L (TMA's zero rows past L would otherwise score 0). The two
+//    consumers take turns at the tensor cores (two named barriers): one
+//    issues P·V of its tile and S of its next tile while the other runs
+//    its softmax, the exp2 work (at d = 64 the SFU's exp2 rate is about
+//    the tensor cores' rate for the same tile) hidden behind the other's
+//    products. Under causal masking the heaviest q tiles start first
+//    (the tile index is reversed, batch·head is the fast grid axis), so
+//    no heavy tile is left for the tail. setmaxnreg hands the producer's
+//    registers to the consumers.
+//  * Other bf16 layouts take the general kernel (bfk): 4 warps, a 64-row
+//    q tile, mma.sync m16n8k16 bf16 products with f32 accumulators and
+//    the same rounding points, K/V tiles read with 16-byte loads where
+//    aligned, else element by element.
+//  * f32 inputs take full-precision FP32 FMAs (f32k; no TF32), 4 threads
+//    per query row, each owning a quarter of the head dim.
+// In all three: no transposed (B·H, L, D) copy and no padding; dead kv
+// tiles (above the causal diagonal, behind the window) are never loaded
+// — the loops run over _tile_live / _kv_clamp's live range only; q head
+// h reads kv head h / (H / H_kv); a row with no visible key ends with
+// l = max(l, 1e-30) and writes 0 (its lse below -1e29).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "sm90_common.cuh"
 
 using bf16 = __nv_bfloat16;
 
@@ -279,6 +293,254 @@ flash_bf16_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
 }
 }  // namespace bfk
 
+// ------------------------------------------- bf16, TMA + wgmma (Hopper)
+
+namespace wsk {
+constexpr int BQ = 128, BK = 128, NT = 384;
+constexpr int BOX = 128 * 128;     // one {64 d, 128 rows} box: 16 KB
+constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
+
+// Shared memory: the q tile, then STAGES stages of {K tile, V tile},
+// each tile D / 64 boxes; 1 KB of slack to align the swizzle atoms, all
+// within the 227 KB a block may have (less 256 bytes for the barriers).
+// A stage is held from its S until its P·V retires, one tile later, so
+// D = 128 takes a third stage to keep a load in flight.
+template <int D>
+struct Layout {
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;
+  static constexpr int STAGE = 2 * KV_BYTES;
+  static constexpr int FIT = (232448 - 1024 - 256 - Q_BYTES) / STAGE;
+  static constexpr int STAGES = FIT > 4 ? 4 : FIT;
+  static constexpr int DYN = Q_BYTES + STAGES * STAGE + 1024;
+};
+
+// Does the warpgroup's 64-row slab [row0, row0 + 64) (offset rows) need
+// the column test on the kv tile at k0: does the tile cross L, the
+// causal diagonal or the window's edge?
+__device__ __forceinline__ bool edge_tile(const Geom& g, int row0, int k0) {
+  return k0 + BK > g.L || (g.causal && k0 + BK - 1 > row0) ||
+         (g.window && row0 + 63 - k0 >= g.window);
+}
+
+template <int D, bool LSE>
+__global__ void __launch_bounds__(NT, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, void* __restrict__ O,
+                   float* __restrict__ LSEo, Geom g) {
+  using Lay = Layout<D>;
+  constexpr int S = Lay::STAGES, DC = D / 64, NO = D / 2;
+  extern __shared__ uint8_t smem_raw[];
+  // qbar: the q tile has landed; full: a stage's K and V have landed;
+  // empty: both consumers are done with a stage
+  __shared__ __align__(8) uint64_t qbar, full[S], empty[S];
+  const uint32_t base = (sm90::smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sq = base, skv = base + Lay::Q_BYTES;
+  const int bh = blockIdx.x, b = bh / g.H, h = bh % g.H;
+  const int hk = h / (g.H / g.Hkv);
+  // causal: the heaviest q tiles (largest index) start first
+  const int qt = g.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * BQ;
+  int lo, hi;
+  live_range(g, q0 + g.q_offset, BQ, BK, lo, hi);
+  const int n = hi >= lo ? hi - lo + 1 : 0;   // kv tiles hi, hi-1, ..., lo
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(sm90::smem_u32(&qbar), 1);
+    for (int s = 0; s < S; ++s) {
+      sm90::mbar_init(sm90::smem_u32(&full[s]), 1);
+      sm90::mbar_init(sm90::smem_u32(&empty[s]), 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (t == 0) {
+      asm volatile("prefetch.tensormap [%0];" ::"l"(
+                       reinterpret_cast<uint64_t>(&tk)) : "memory");
+      asm volatile("prefetch.tensormap [%0];" ::"l"(
+                       reinterpret_cast<uint64_t>(&tv)) : "memory");
+      const uint32_t qb = sm90::smem_u32(&qbar);
+      sm90::mbar_expect_tx(qb, Lay::Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < DC; ++c)
+        sm90::tma_load_4d(sq + c * BOX, &tq, qb, 64 * c, h, q0, b);
+      for (int i = 0; i < n; ++i) {
+        const int s = i % S, k0 = (hi - i) * BK;
+        sm90::mbar_wait(sm90::smem_u32(&empty[s]), ((i / S) & 1) ^ 1);
+        const uint32_t fb = sm90::smem_u32(&full[s]);
+        sm90::mbar_expect_tx(fb, Lay::STAGE);
+        const uint32_t sk = skv + s * Lay::STAGE, sv = sk + Lay::KV_BYTES;
+#pragma unroll
+        for (int c = 0; c < DC; ++c) {
+          sm90::tma_load_4d(sk + c * BOX, &tk, fb, 64 * c, hk, k0, b);
+          sm90::tma_load_4d(sv + c * BOX, &tv, fb, 64 * c, hk, k0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+  const int w4 = t / 32, lane = t % 32;
+  const float c = g.scale * LOG2E;            // scores to the log2 domain
+  // accumulator fragment: register 4j + 2r + {0,1} of warp w4, lane l
+  // holds row 16·w4 + l/4 + 8r, columns 8j + 2(l%4) + {0,1}
+  const int slab = q0 + g.q_offset + wg * 64;   // first offset row
+  const int row_a = slab + w4 * 16 + lane / 4, row_b = row_a + 8;
+  float o[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+  float m2[2] = {NEG_BIG, NEG_BIG};   // running max, log2 domain
+  float l[2] = {0.f, 0.f};            // this thread's share of the sums
+  float sc[64];                       // the scores of the current tile
+  uint32_t pa[BK / 16][4];            // its P, the A operand of P·V
+
+  // S = Q·Kᵀ of the tile in stage s into sc (issued, not waited for)
+  auto issue_s = [&](int s) {
+#pragma unroll
+    for (int j = 0; j < 64; ++j) sc[j] = 0.f;
+    sm90::wgmma_fence();
+    const uint32_t sk = skv + s * Lay::STAGE;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      // K-major, 16 d = 32 bytes along a swizzled row; the next 64 d in
+      // the next box; SBO: the next 8 rows (1 KB)
+      const uint32_t off = (kk / 4) * BOX + (kk % 4) * 32;
+      sm90::wgmma_128<0, 0>(sc, sm90::desc_sw128(sq + wg * 8192 + off, 16, 1024),
+                            sm90::desc_sw128(sk + off, 16, 1024));
+    }
+    sm90::wgmma_commit();
+  };
+
+  // the softmax of tile i in place in sc (P, unrounded), this thread's
+  // row sums added to l, the rescale of the running rows in alpha
+  auto softmax = [&](int i, float (&alpha)[2]) {
+    const int k0 = (hi - i) * BK;
+    if (edge_tile(g, slab, k0)) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + j * 8 + 2 * (lane % 4) + (e & 1);
+          if (!visible(g, e < 2 ? row_a : row_b, col)) sc[4 * j + e] = -INFINITY;
+        }
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 64; ++j) mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], sc[j]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float mn = fmaxf(m2[r], mx[r] * c);
+      alpha[r] = exp2f(m2[r] - mn);
+      m2[r] = mn;
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 64; ++j) {
+      const int r = (j >> 1) & 1;
+      const float p = exp2f(fmaf(sc[j], c, -m2[r]));
+      sc[j] = p;
+      rs[r] += p;
+    }
+    l[0] = l[0] * alpha[0] + rs[0];
+    l[1] = l[1] * alpha[1] + rs[1];
+  };
+  // O rescaled, and P rounded to bf16 into pa (the score fragment of 16
+  // keys is the A fragment of the next product, registers 8kk..8kk+7)
+  auto rescale_and_pack = [&](const float (&alpha)[2]) {
+#pragma unroll
+    for (int j = 0; j < NO; ++j) o[j] *= alpha[(j >> 1) & 1];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        pa[kk][q] = sm90::pack_bf16(sc[8 * kk + 2 * q], sc[8 * kk + 2 * q + 1]);
+  };
+  // O += P·V of tile i (issued, not waited for)
+  auto issue_pv = [&](int i) {
+    sm90::wgmma_fence();
+    const uint32_t sv = skv + (i % S) * Lay::STAGE + Lay::KV_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      // N-major V: 16 keys = two 8-row swizzle atoms (2 KB); LBO: the
+      // next 64 d (the next box); SBO: the next 8 keys (1 KB)
+      const uint64_t db = sm90::desc_sw128(sv + kk * 2048, BOX, 1024);
+      if constexpr (D == 64) sm90::wgmma_rs_64(o, pa[kk], db);
+      else sm90::wgmma_rs_128(o, pa[kk], db);
+    }
+    sm90::wgmma_commit();
+  };
+  // The two warpgroups take turns at the tensor cores (named barriers 1
+  // and 2, both warpgroups' 256 threads): one issues its products while
+  // the other runs its softmax. Warpgroup 0 goes first.
+  auto my_turn = [&] { sm90::named_sync(1 + wg, 256); };
+  auto their_turn = [&] {
+    asm volatile("bar.arrive %0, 256;" ::"r"(2 - wg) : "memory");
+  };
+  if (wg == 1) asm volatile("bar.arrive 1, 256;" ::: "memory");
+
+  sm90::mbar_wait(sm90::smem_u32(&qbar), 0);
+  if (n > 0) {
+    sm90::mbar_wait(sm90::smem_u32(&full[0]), 0);
+    my_turn();
+    issue_s(0);
+    their_turn();
+    sm90::wgmma_wait<0>();
+    sm90::fence_acc(sc);
+  }
+  // Tile i: its softmax, then in one turn P·V of tile i and S of tile
+  // i + 1, both waited for; the stage of tile i is then free.
+  for (int i = 0; i < n; ++i) {
+    float alpha[2];
+    softmax(i, alpha);
+    rescale_and_pack(alpha);
+    const bool more = i + 1 < n;
+    if (more)
+      sm90::mbar_wait(sm90::smem_u32(&full[(i + 1) % S]), ((i + 1) / S) & 1);
+    my_turn();
+    issue_pv(i);
+    if (more) issue_s((i + 1) % S);
+    their_turn();
+    sm90::wgmma_wait<0>();
+    sm90::fence_acc(o);
+    sm90::fence_acc(sc);
+    if (t == 0) sm90::mbar_arrive(sm90::smem_u32(&empty[i % S]));
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = q0 + wg * 64 + w4 * 16 + lane / 4 + 8 * r;
+    if (row >= g.L) continue;
+    const float lf = fmaxf(l[r], 1e-30f), inv = 1.f / lf;
+    const long long base_o = ((long long)(b * g.L + row) * g.H + h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const float x0 = o[4 * j + 2 * r] * inv, x1 = o[4 * j + 2 * r + 1] * inv;
+      const int d = j * 8 + 2 * (lane % 4);
+      if (LSE)
+        *reinterpret_cast<float2*>(static_cast<float*>(O) + base_o + d) =
+            make_float2(x0, x1);
+      else
+        *reinterpret_cast<uint32_t*>(static_cast<bf16*>(O) + base_o + d) =
+            sm90::pack_bf16(x0, x1);
+    }
+    if (LSE && lane % 4 == 0)
+      LSEo[(long long)(b * g.L + row) * g.H + h] = (m2[r] + log2f(lf)) * LN2;
+  }
+}
+}  // namespace wsk
+
 // ------------------------------------------------------------- f32 path
 
 namespace f32k {
@@ -379,8 +641,87 @@ flash_f32_kernel(const float* __restrict__ Q, const float* __restrict__ K,
 }
 }  // namespace f32k
 
-static bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+using sm90::aligned16;
+
+enum { PATH_GENERAL = 0, PATH_TMA = 1, PATH_F32 = 2 };
+
+// Can TMA describe a (B, L, H, D) operand with unit stride along D: a
+// 16-byte aligned base, and every dimension longer than one with a
+// positive stride that is a multiple of 8 elements (16 bytes)?
+static bool tma_layout(const void* p, int B, int L, int H, long long sb,
+                       long long sl, long long sh) {
+  auto ok = [](int n, long long st) {
+    return n == 1 || (st > 0 && st % 8 == 0 && st * 2 < (1ll << 40));
+  };
+  return aligned16(p) && ok(B, sb) && ok(L, sl) && ok(H, sh);
+}
+
+// The 4-D tensor map {D, H, L, B} of a (B, L, H, D) bf16 operand, boxes
+// of {64, 1, 128, 1} with the 128-byte swizzle; rows past L read as zero.
+// A dimension of extent one gets the stride of a packed layout (TMA
+// wants a multiple of 16 bytes even where it never steps).
+static bool make_map4(CUtensorMap* map, const void* ptr, int B, int L,
+                      int H, int D, long long sb, long long sl,
+                      long long sh) {
+  sm90::EncodeTiledFn fn = sm90::encode_fn();
+  if (fn == nullptr) return false;
+  if (H == 1) sh = D;
+  if (L == 1) sl = sh * H;
+  if (B == 1) sb = sl * L;
+  cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)L,
+                        (cuuint64_t)B};
+  cuuint64_t strides[3] = {(cuuint64_t)(sh * 2), (cuuint64_t)(sl * 2),
+                           (cuuint64_t)(sb * 2)};
+  cuuint32_t box[4] = {64, 1, 128, 1};
+  cuuint32_t estr[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+static int flash_path(const void* q, const void* k, const void* v, int B,
+                      int L, int H, int Hkv, int D, const Geom& g,
+                      int dtype) {
+  if (dtype == DT_F32) return PATH_F32;
+  if ((D == 64 || D == 128) && tma_layout(q, B, L, H, g.sqb, g.sql, g.sqh) &&
+      tma_layout(k, B, L, Hkv, g.skb, g.skl, g.skh) &&
+      tma_layout(v, B, L, Hkv, g.svb, g.svl, g.svh))
+    return PATH_TMA;
+  return PATH_GENERAL;
+}
+
+template <int D, bool LSE>
+static int launch_tma_lse(const CUtensorMap& tq, const CUtensorMap& tk,
+                          const CUtensorMap& tv, void* o, float* lse,
+                          const Geom& g, int BH, cudaStream_t s) {
+  using Lay = wsk::Layout<D>;
+  auto kern = wsk::flash_wgmma_kernel<D, LSE>;
+  static bool attr = false;   // once per instantiation
+  if (!attr) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Lay::DYN);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr = true;
+  }
+  dim3 grid(BH, (g.L + wsk::BQ - 1) / wsk::BQ);
+  kern<<<grid, wsk::NT, Lay::DYN, s>>>(tq, tk, tv, o, lse, g);
+  return cudaSuccess;
+}
+
+// An operand that passed tma_layout but whose map does not encode is a
+// launch error, never a switch to the general kernel.
+template <int D>
+static int launch_tma(const void* q, const void* k, const void* v, void* o,
+                      float* lse, const Geom& g, int B, int BH, bool with_lse,
+                      cudaStream_t s) {
+  CUtensorMap tq, tk, tv;
+  if (!make_map4(&tq, q, B, g.L, g.H, D, g.sqb, g.sql, g.sqh) ||
+      !make_map4(&tk, k, B, g.L, g.Hkv, D, g.skb, g.skl, g.skh) ||
+      !make_map4(&tv, v, B, g.L, g.Hkv, D, g.svb, g.svl, g.svh))
+    return cudaErrorInvalidValue;
+  return with_lse ? launch_tma_lse<D, true>(tq, tk, tv, o, lse, g, BH, s)
+                  : launch_tma_lse<D, false>(tq, tk, tv, o, lse, g, BH, s);
 }
 
 template <int D>
@@ -425,6 +766,19 @@ static void launch_f32(const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
+// Which kernel lmr_flash_fwd runs for these operands: 1 the TMA + wgmma
+// kernel, 0 the general bf16 kernel, 2 the f32 kernel, -1 none (an
+// unsupported dtype or head dim). Arguments as lmr_flash_fwd's.
+int lmr_flash_path(const void* q, const void* k, const void* v, int B,
+                   int L, int H, int Hkv, int D, long long sqb, long long sql,
+                   long long sqh, long long skb, long long skl, long long skh,
+                   long long svb, long long svl, long long svh, int dtype) {
+  if ((dtype != DT_F32 && dtype != DT_BF16) || (D != 64 && D != 128))
+    return -1;
+  Geom g{L, H, Hkv, sqb, sql, sqh, skb, skl, skh, svb, svl, svh, 0, 0, 0, 0.f};
+  return flash_path(q, k, v, B, L, H, Hkv, D, g, dtype);
+}
+
 // q (B, L, H, D), k/v (B, L, Hkv, D): element strides for batch, seq and
 // head, head dim contiguous. o: contiguous (B, L, H, D), f32 when
 // with_lse else the input dtype; lse: contiguous (B, L, H) f32 or null.
@@ -436,7 +790,8 @@ int lmr_flash_fwd(const void* q, const void* k, const void* v, void* o,
                   long long svh, int causal, int window, int q_offset,
                   int dtype, int with_lse, void* stream) {
   if (B <= 0 || L <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 ||
-      (long long)B * H > 65535 || (with_lse && lse == nullptr))
+      (long long)B * H > 65535 || (with_lse && lse == nullptr) ||
+      (D != 64 && D != 128) || (dtype != DT_F32 && dtype != DT_BF16))
     return cudaErrorInvalidValue;
   Geom g{L, H, Hkv, sqb, sql, sqh, skb, skl, skh, svb, svl, svh,
          causal, window, q_offset, (float)(1.0 / sqrt((double)D))};
@@ -444,17 +799,21 @@ int lmr_flash_fwd(const void* q, const void* k, const void* v, void* o,
   float* LSE = static_cast<float*>(lse);
   const int BH = B * H;
   const bool wl = with_lse != 0;
-  if (dtype == DT_BF16) {
-    if (D == 64) launch_bf16<64>(q, k, v, o, LSE, g, BH, wl, s);
-    else if (D == 128) launch_bf16<128>(q, k, v, o, LSE, g, BH, wl, s);
-    else return cudaErrorInvalidValue;
-  } else if (dtype == DT_F32) {
-    if (D == 64) launch_f32<64>(q, k, v, o, LSE, g, BH, wl, s);
-    else if (D == 128) launch_f32<128>(q, k, v, o, LSE, g, BH, wl, s);
-    else return cudaErrorInvalidValue;
-  } else {
-    return cudaErrorInvalidValue;
+  int rc = cudaSuccess;
+  switch (flash_path(q, k, v, B, L, H, Hkv, D, g, dtype)) {
+    case PATH_TMA:
+      rc = D == 64 ? launch_tma<64>(q, k, v, o, LSE, g, B, BH, wl, s)
+                   : launch_tma<128>(q, k, v, o, LSE, g, B, BH, wl, s);
+      break;
+    case PATH_GENERAL:
+      if (D == 64) launch_bf16<64>(q, k, v, o, LSE, g, BH, wl, s);
+      else launch_bf16<128>(q, k, v, o, LSE, g, BH, wl, s);
+      break;
+    default:
+      if (D == 64) launch_f32<64>(q, k, v, o, LSE, g, BH, wl, s);
+      else launch_f32<128>(q, k, v, o, LSE, g, BH, wl, s);
   }
+  if (rc != cudaSuccess) return rc;
   return static_cast<int>(cudaGetLastError());
 }
 

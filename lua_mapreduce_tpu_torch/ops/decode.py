@@ -2,8 +2,9 @@
 kernel and its plain version.
 
 Port of ``lua_mapreduce_tpu/ops/decode.py``: the Pallas
-``_decode_kernel`` becomes ``csrc/decode.cu`` (its source note says what
-bounds it and what the design does about it). Caches are held as
+``_decode_kernel`` becomes ``csrc/decode.cu``, a split-S kernel and a
+combine that merges the splits in a fixed order (its source note says
+what bounds it and what the design does about it). Caches are held as
 (B, H_kv, S, D), per-(batch, head) rows contiguous — the layout
 ``models/transformer.py``'s ``greedy_decode`` owns. The current
 position ``t`` is a Python int here (the port's decode loop is a Python
@@ -24,6 +25,7 @@ _KINDS = {torch.float32: 0, torch.bfloat16: 1}      # csrc/decode.cu kinds
 _KIND_BF16_INT8 = 2
 _HEAD_DIMS = (64, 128)
 _GROUPS = (1, 2, 4, 8)
+_SPLITS = {}    # lmr_decode_splits' answers, by device and shape
 
 
 def quantize_kv(x):
@@ -64,6 +66,47 @@ def decode_attention_plain(q, k, v, t: int, roll: bool, k_scale=None,
     w = (w * v_scale[:, :, None, :]).to(torch.bfloat16)
     return torch.einsum("bkgm,bkmd->bkgd", w.float(),
                         v.to(torch.bfloat16).float())
+
+
+def _decode_partial_plain(q, k, v, lo: int, hi: int, k_scale=None,
+                          v_scale=None):
+    """One split's state over the visible positions [lo, hi), as the
+    split kernel forms it: f32 scores (scaled as ``decode_attention_
+    plain`` scales them), m their max, p = exp(s − m) unnormalised, l =
+    Σ p in f32, acc = Σ p·v with p rounded as the plain version rounds
+    its weights. Returns m, l (B, H_kv, G) and acc (B, H_kv, G, D); an
+    empty range gives the empty state (−1e30, 0, 0)."""
+    b, hkv, g, d = q.shape
+    if hi <= lo:
+        return (torch.full((b, hkv, g), _NEG_INF, device=q.device),
+                torch.zeros((b, hkv, g), device=q.device),
+                torch.zeros((b, hkv, g, d), device=q.device))
+    k, v = k[:, :, lo:hi], v[:, :, lo:hi]
+    if k_scale is None:
+        s = torch.einsum("bkgd,bkmd->bkgm", q.float(), k.float())
+    else:
+        s = torch.einsum("bkgd,bkmd->bkgm", q.to(torch.bfloat16).float(),
+                         k.to(torch.bfloat16).float())
+        s = s * k_scale[:, :, None, lo:hi]
+    s = s / torch.sqrt(torch.tensor(float(d)))
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    if v_scale is None:
+        w, vv = p.to(v.dtype).float(), v.float()
+    else:
+        w = (p * v_scale[:, :, None, lo:hi]).to(torch.bfloat16).float()
+        vv = v.to(torch.bfloat16).float()
+    return m, p.sum(-1), torch.einsum("bkgm,bkmd->bkgd", w, vv)
+
+
+def _merge_splits_plain(m, l, acc):
+    """The plain version of the combine: splits' states m, l (R, n, G)
+    and acc (R, n, G, D) merged as M = max mₛ, L = Σ lₛ·e^(mₛ−M), O =
+    Σ accₛ·e^(mₛ−M) / max(L, 1e-30). Returns f32 (R, G, D)."""
+    m, l, acc = m.float(), l.float(), acc.float()
+    f = torch.exp(m - m.amax(1, keepdim=True))
+    return (acc * f[..., None]).sum(1) / (l * f).sum(1).clamp_min(
+        1e-30)[..., None]
 
 
 def _aligned(x):
@@ -112,14 +155,64 @@ def decode_attention_cuda(q, k, v, t: int, roll: bool, k_scale=None,
         return out
     lib = _build.library("decode")
     with torch.cuda.device(q.device):
+        # the split policy lives in csrc/decode.cu, from the capacity
+        # s_len (never t); the wrapper only sizes the splits' scratch
+        n_split = decode_splits(b * hkv, s_len, d, g, kind)
+        scratch = [None] * 3
+        if n_split > 1:
+            rows = b * hkv
+            scratch = [torch.empty((rows, n_split, g), dtype=torch.float32,
+                                   device=q.device) for _ in range(2)]
+            scratch.append(torch.empty((rows, n_split, g, d),
+                                       dtype=torch.float32, device=q.device))
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.lmr_decode(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             k_scale.data_ptr() if k_scale is not None else None,
             v_scale.data_ptr() if v_scale is not None else None,
-            out.data_ptr(), b, hkv, g, d, s_len, n_live, *q.stride()[:3],
-            kind, stream)
+            out.data_ptr(),
+            *(x.data_ptr() if x is not None else None for x in scratch),
+            b, hkv, g, d, s_len, n_live, *q.stride()[:3], kind, stream)
     _build.check(lib, rc, "decode kernel launch")
+    count_launch("decode")
+    return out
+
+
+def decode_splits(rows: int, s_len: int, d: int, g: int, kind: int) -> int:
+    """How many splits ``csrc/decode.cu`` cuts each (batch, kv-head)
+    row's cache into on the current device (``lmr_decode_splits``), for
+    ``rows`` = B·H_kv, capacity ``s_len``, head dim ``d``, ``g`` query
+    heads per kv head and the cache kind. Remembered per device."""
+    key = (torch.cuda.current_device(), rows, s_len, d, g, kind)
+    n = _SPLITS.get(key)
+    if n is None:
+        n = _build.library("decode").lmr_decode_splits(rows, s_len, d, g,
+                                                       kind)
+        if n < 1:
+            raise RuntimeError(f"decode kernel: no split policy for rows "
+                               f"{rows}, S {s_len}, d {d}, G {g}, kind "
+                               f"{kind} on this device")
+        _SPLITS[key] = n
+    return n
+
+
+def merge_splits_cuda(m, l, acc):
+    """The combine kernel of ``csrc/decode.cu`` alone, on CUDA split
+    states laid out as the decode kernel writes them: m, l (R, n, G) and
+    acc (R, n, G, D) f32. Returns f32 (R, G, D)."""
+    rows, n_split, g, d = acc.shape
+    if m.shape != (rows, n_split, g) or l.shape != m.shape:
+        raise ValueError(f"split states (R, n, G) and (R, n, G, D) "
+                         f"expected, got {tuple(m.shape)}, "
+                         f"{tuple(l.shape)}, {tuple(acc.shape)}")
+    m, l, acc = (x.float().contiguous() for x in (m, l, acc))
+    out = torch.empty((rows, g, d), dtype=torch.float32, device=acc.device)
+    lib = _build.library("decode")
+    with torch.cuda.device(acc.device):
+        rc = lib.lmr_decode_combine(
+            m.data_ptr(), l.data_ptr(), acc.data_ptr(), out.data_ptr(), rows,
+            n_split, g, d, torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, rc, "decode combine kernel launch")
     count_launch("decode")
     return out
 

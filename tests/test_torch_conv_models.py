@@ -139,6 +139,34 @@ def test_resnet_imagenet_stem_matches_jax():
                                rtol=RTOL, atol=ATOL)
 
 
+def test_resnet_tiny_bf16_apply_and_loss_match_jax():
+    """bf16 parameters and inputs, as the card benchmark trains: the
+    port's GroupNorm takes f32 statistics and rounds once, the
+    reference rounds at each bf16 step. Held at the JAX suite's bf16
+    tolerance (2e-2, tests/test_precision.py): one bf16 ulp of a
+    log-probability near -4 is 0.03125, within 2e-2 + 2e-2·4."""
+    jcfg, pcfg, _, x, y = _resnet_case(
+        dataclass_kw(jax_resnet.ResNetConfig.tiny()), 4, 1)
+    npp = _np(jax_resnet.init_resnet(jax.random.PRNGKey(1), jcfg,
+                                     dtype=jnp.bfloat16))
+    xb = jnp.asarray(x, jnp.bfloat16)
+    want_logp = np.asarray(jax.jit(
+        lambda p, x: jax_resnet.resnet_apply(p, x, cfg=jcfg))(npp, xb),
+        np.float32)
+    want_loss = float(jax.jit(jax_resnet.make_loss(jcfg))(
+        npp, xb, jnp.asarray(y)))
+    params = params_from_jax(npp, device="cpu")
+    assert {v.dtype for v in params.values()} == {torch.bfloat16}
+    tx = torch.from_numpy(np.asarray(xb, np.float32)).to(torch.bfloat16)
+    logp = resnet.resnet_apply(params, tx, cfg=pcfg)
+    assert logp.dtype == torch.bfloat16
+    np.testing.assert_allclose(logp.float().numpy(), want_logp, rtol=2e-2,
+                               atol=2e-2)
+    loss = float(resnet.make_loss(pcfg)(params, tx,
+                                        torch.from_numpy(y).long()))
+    assert loss == pytest.approx(want_loss, rel=2e-2, abs=2e-2)
+
+
 @pytest.mark.heavy
 def test_resnet_imagenet_topology_64_matches_jax():
     """Full ResNet-18 wiring at 64x64 (tests/test_models.py:70-81): the

@@ -222,9 +222,10 @@ def test_mlp_on_the_card_matches_the_cpu(cuda):
 
 from lua_mapreduce_tpu_torch.ops.attention import (  # noqa: E402
     flash_attention_bwd_cuda, flash_attention_bwd_plain, flash_attention_cuda,
-    flash_attention_plain)
+    flash_attention_plain, flash_kernel_path)
 from lua_mapreduce_tpu_torch.ops.decode import (  # noqa: E402
-    decode_attention_cuda, decode_attention_plain)
+    _merge_splits_plain, decode_attention_cuda, decode_attention_plain,
+    decode_splits, merge_splits_cuda)
 from lua_mapreduce_tpu_torch.ops.q8 import (  # noqa: E402
     q8_matmul_cuda, q8_matmul_plain)
 
@@ -277,6 +278,67 @@ def test_flash_kernel_all_masked_rows_zero(cuda):
     wo, _ = flash_attention_plain(q, k, v, True, 0.125, with_lse=True,
                                   window=8, q_offset=44)
     torch.testing.assert_close(out, wo, **FLASH_F32)
+
+
+def _aligned_and_misaligned(gen, *shape, scale=1.0):
+    """The same bf16 values as a contiguous tensor (16-byte aligned: the
+    TMA + wgmma kernel) and as a [..., 1:] view of a tensor one element
+    wider (base and head stride off 16 bytes: the general kernel)."""
+    big = _randn(gen, *shape[:-1], shape[-1] + 1, dtype=torch.bfloat16,
+                 scale=scale)
+    view = big[..., 1:]
+    return view.contiguous(), view
+
+
+# (causal, window, q_offset, q heads, kv heads); L = 300 is not a
+# multiple of the 128-row tiles
+PATH_CASES = [(False, 0, 0, 4, 4), (True, 0, 0, 4, 4), (True, 37, 0, 4, 4),
+              (True, 37, 20, 4, 4), (True, 0, 0, 8, 2), (True, 0, 0, 8, 1)]
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", PATH_CASES)
+def test_flash_tma_and_general_paths_agree(cuda, d, case):
+    causal, window, q_offset, h, hkv = case
+    l = 300
+    qa, qu = _aligned_and_misaligned(cuda, 2, l, h, d, scale=2.0)  # peaked
+    ka, ku = _aligned_and_misaligned(cuda, 2, l, hkv, d)
+    va, vu = _aligned_and_misaligned(cuda, 2, l, hkv, d)
+    assert flash_kernel_path(qa, ka, va) == "tma"
+    assert flash_kernel_path(qu, ku, vu) == "general"
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    for lse in (False, True):
+        fast = flash_attention_cuda(qa, ka, va, with_lse=lse, **kw)
+        general = flash_attention_cuda(qu, ku, vu, with_lse=lse, **kw)
+        want = flash_attention_plain(qa, ka, va, causal, d ** -0.5,
+                                     with_lse=lse, window=window,
+                                     q_offset=q_offset)
+        if lse:
+            torch.testing.assert_close(fast[1], want[1], rtol=1e-5,
+                                       atol=1e-4)
+            torch.testing.assert_close(general[1], want[1], rtol=1e-5,
+                                       atol=1e-4)
+            fast, general, want = fast[0], general[0], want[0]
+        for got in (fast, general):
+            torch.testing.assert_close(got.float(), want.float(), **BF16)
+        torch.testing.assert_close(fast.float(), general.float(), **BF16)
+
+
+def test_flash_path_follows_the_layout(cuda):
+    """lmr_flash_path: contiguous operands and the model's fused-qkv
+    views take the TMA + wgmma kernel; a view whose row stride breaks
+    16-byte alignment takes the general kernel; f32 its own."""
+    x = _randn(cuda, 2, 70, 4, 64, dtype=torch.bfloat16)
+    assert flash_kernel_path(x, x, x) == "tma"
+    qkv = _randn(cuda, 2, 70, 3 * 4 * 64, dtype=torch.bfloat16)
+    q, k, v = (qkv[..., i * 256:(i + 1) * 256].reshape(2, 70, 4, 64)
+               for i in range(3))
+    assert flash_kernel_path(q, k, v) == "tma"
+    odd = _randn(cuda, 2, 70, 4 * 64 + 4, dtype=torch.bfloat16)
+    q_odd = odd[..., :256].reshape(2, 70, 4, 64)   # row stride 260
+    assert flash_kernel_path(q_odd, k, v) == "general"
+    x32 = x.float()
+    assert flash_kernel_path(x32, x32, x32) == "f32"
 
 
 def test_flash_gradient_raises_on_the_card(cuda):
@@ -415,6 +477,76 @@ def test_decode_kernel_matches_plain(cuda, kind, g, d, s_len):
             want = decode_attention_plain(q, k, v, t, roll, **scales)
             torch.testing.assert_close(got, want, **tol,
                                        msg=f"t={t} roll={roll}")
+
+
+def test_decode_split_policy_lives_in_the_kernel_source(cuda):
+    """csrc/decode.cu picks n_split from the capacity S (its arguments
+    hold no t): more than one split at the serving shape (64 rows) and
+    under GQA 4:1 (16 rows), one for a short cache."""
+    from lua_mapreduce_tpu_torch.ops import _build
+    lib = _build.library("decode")
+    assert lib.lmr_decode_splits(64, 4096, 64, 1, 1) > 1
+    assert lib.lmr_decode_splits(16, 4096, 64, 4, 1) > 1
+    assert lib.lmr_decode_splits(64, 4096, 64, 1, 2) > 1
+    assert lib.lmr_decode_splits(64, 288, 64, 1, 0) == 1
+    assert lib.lmr_decode_splits(64, 4096, 96, 1, 1) == 0
+    assert decode_splits(64, 4096, 64, 1, 1) == \
+        lib.lmr_decode_splits(64, 4096, 64, 1, 1)
+
+
+@pytest.mark.parametrize("hkv,g", [(16, 1), (4, 4)])
+def test_decode_two_calls_bit_equal(cuda, hkv, g):
+    q = _randn(cuda, 4, hkv, g, 64, dtype=torch.bfloat16, scale=2.0)
+    k = _randn(cuda, 4, hkv, 4096, 64, dtype=torch.bfloat16)
+    v = _randn(cuda, 4, hkv, 4096, 64, dtype=torch.bfloat16)
+    first = decode_attention_cuda(q, k, v, 4094, False)
+    for _ in range(2):
+        assert torch.equal(decode_attention_cuda(q, k, v, 4094, False), first)
+
+
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("d", [64, 128])
+def test_decode_split_edges_match_plain(cuda, kind, g, d):
+    """t at 0, inside the first split only, on a split boundary (its
+    last and the next split's first position), at S - 1, and rolled past
+    S, with the splits of a 4096-slot cache."""
+    dtype = torch.bfloat16 if kind != "float32" else torch.float32
+    s_len = 4096
+    q = _randn(cuda, 2, 2, g, d, dtype=dtype, scale=2.0)
+    k = _randn(cuda, 2, 2, s_len, d, dtype=dtype)
+    v = _randn(cuda, 2, 2, s_len, d, dtype=dtype)
+    scales = {}
+    if kind == "int8":
+        k, ks = ops.quantize_kv(k)
+        v, vs = ops.quantize_kv(v)
+        scales = dict(k_scale=ks, v_scale=vs)
+    code = {"float32": 0, "bfloat16": 1, "int8": 2}[kind]
+    n_split = decode_splits(4, s_len, d, g, code)
+    assert n_split > 1
+    split_len = -(-s_len // n_split)
+    tol = {"float32": FLASH_F32, "bfloat16": BF16, "int8": DECODE_INT8}[kind]
+    for t, roll in ((0, False), (split_len // 3, False),
+                    (split_len - 1, False), (split_len, False),
+                    (s_len - 1, False), (s_len + 40, True)):
+        got = decode_attention_cuda(q, k, v, t, roll, **scales)
+        want = decode_attention_plain(q, k, v, t, roll, **scales)
+        torch.testing.assert_close(got, want, **tol,
+                                   msg=f"t={t} roll={roll}")
+
+
+def test_decode_combine_matches_plain(cuda):
+    """The combine kernel alone against _merge_splits_plain, one split
+    of one row left empty (m = -1e30, l = 0, acc = 0)."""
+    rows, n_split, g, d = 16, 9, 4, 64
+    m = _randn(cuda, rows, n_split, g, scale=3.0)
+    l = torch.rand((rows, n_split, g), device="cuda", generator=cuda) + 0.5
+    acc = _randn(cuda, rows, n_split, g, d)
+    m[3, 5], l[3, 5], acc[3, 5] = -1e30, 0.0, 0.0
+    got = merge_splits_cuda(m, l, acc)
+    torch.testing.assert_close(got, _merge_splits_plain(m, l, acc),
+                               rtol=1e-5, atol=1e-5)
+    assert torch.equal(merge_splits_cuda(m, l, acc), got)
 
 
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])

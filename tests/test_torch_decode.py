@@ -10,10 +10,14 @@ import numpy as np
 import pytest
 import torch
 
+from lua_mapreduce_tpu.ops.decode import _decode_xla
 from lua_mapreduce_tpu.ops.decode import decode_attention as jdecode
 from lua_mapreduce_tpu.ops.decode import quantize_kv as jquantize_kv
 from lua_mapreduce_tpu_torch import ops
 from lua_mapreduce_tpu_torch.convert import array_to_tensor
+from lua_mapreduce_tpu_torch.ops.decode import (_decode_partial_plain,
+                                                _merge_splits_plain,
+                                                decode_attention_plain)
 
 SHAPES = [(2, 4, 1, 64, 256),       # MHA g=1
           (2, 2, 4, 64, 384),       # GQA
@@ -115,3 +119,60 @@ def test_shape_validation():
         ops.decode_attention(q[..., :32], k, v, 0)
     with pytest.raises(ValueError):
         ops.decode_attention(q, k, v[:, :, :64], 0)
+
+
+# The split kernel's algebra: each split's state over its clamped range,
+# merged in split order, is the whole softmax. (shape, n_split, t, roll);
+# splits are ceil(S / n_split) long, as csrc/decode.cu cuts them; t
+# leaves later splits empty, sits inside the first, on a boundary, at
+# S - 1, or rolls past S.
+SPLIT_CASES = [((2, 2, 1, 64, 256), 1, 255, False),
+               ((2, 2, 4, 64, 384), 3, 10, False),       # inside split 0
+               ((2, 2, 4, 64, 384), 3, 127, False),      # split 0 ends
+               ((2, 2, 4, 64, 384), 3, 128, False),      # split 1 starts
+               ((1, 1, 8, 128, 512), 7, 511, False),     # ragged last split
+               ((2, 2, 2, 64, 300), 4, 200, False),      # split 3 empty
+               ((2, 2, 2, 64, 300), 4, 700, True)]       # rolled: all live
+
+
+@pytest.mark.parametrize("kind", ["float32", "int8"])
+@pytest.mark.parametrize("shape,n_split,t,roll", SPLIT_CASES)
+def test_split_states_merge_to_plain_and_jax(kind, shape, n_split, t, roll):
+    q, k, v = _args(*shape, seed=11)
+    b, hkv, g, d, s_len = shape
+    n_live = s_len if (roll and t >= s_len) else min(t + 1, s_len)
+    split_len = -(-s_len // n_split)
+    if kind == "int8":
+        jq = jnp.asarray(q).astype(jnp.bfloat16)
+        kq, ks = jquantize_kv(jnp.asarray(k))
+        vq, vs = jquantize_kv(jnp.asarray(v))
+        want_jax = _decode_xla(jq, kq, vq, jnp.int32(t), roll, ks, vs)
+        tq, tk, tv, tks, tvs = (array_to_tensor(np.asarray(x))
+                                for x in (jq, kq, vq, ks, vs))
+        scales = dict(k_scale=tks, v_scale=tvs)
+        tol = dict(rtol=5e-3, atol=5e-3)
+    else:
+        want_jax = _decode_xla(*(jnp.asarray(x) for x in (q, k, v)),
+                               jnp.int32(t), roll)
+        tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+        scales = {}
+        tol = dict(rtol=2e-5, atol=2e-5)
+    states = [_decode_partial_plain(tq, tk, tv, z * split_len,
+                                    min((z + 1) * split_len, n_live),
+                                    **scales) for z in range(n_split)]
+    empty = [z for z in range(n_split) if z * split_len >= n_live]
+    for z in empty:
+        assert bool((states[z][0] == -1e30).all())
+        assert bool((states[z][1] == 0).all())
+        assert bool((states[z][2] == 0).all())
+    if shape[-1] == 300 and not roll:
+        assert empty == [3]
+    m, l, acc = (torch.stack([st[i] for st in states], dim=2)
+                 for i in range(3))
+    got = _merge_splits_plain(m.reshape(b * hkv, n_split, g),
+                              l.reshape(b * hkv, n_split, g),
+                              acc.reshape(b * hkv, n_split, g, d))
+    got = got.reshape(b, hkv, g, d)
+    want = decode_attention_plain(tq, tk, tv, t, roll, **scales)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **tol)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_jax), **tol)
