@@ -18,10 +18,12 @@ Phases, each a hard failure on any mismatch:
              every product of their conv steps (forward, dA, dB), each
              conv also timed once through cuDNN as its yardstick; every
              matmul and q8 row names the K split its kernel picks, every
-             flash row the kernel it took (the main paths' bf16 rows
-             must take the TMA + wgmma kernel; one row drives the
-             general kernel at the prefill shape through a misaligned
-             view), every decode row its split count, held bit-for-bit
+             flash row (forward, and the backward's dq and dkv) the
+             kernel it took (the main paths' bf16 rows must take the
+             TMA + wgmma kernels; one forward row at the prefill shape
+             and one backward row at the LM training shape drive the
+             general kernels through misaligned views), every decode
+             row its split count, held bit-for-bit
              equal over two calls, with decode's combine held alone
              against its plain version; the
              conv products are held bit-for-bit equal over two calls, and
@@ -1512,21 +1514,28 @@ def sdpa_flash_bwd(torch, q, k, v, do):
 
 
 def flash_bwd_cases():
-    """(label, B, L, H, H_kv, D, dtype, window, g_lse) of the backward
-    rows: the LM training shape and its modern GQA 4:1 form (random lse
-    cotangent, as the ring's merge passes one), bench_flash_grad_error's
-    shape with its 0.1·sum(lse) loss (g_lse = 0.1), a window, and f32
-    rows (the check run's shape and a ragged L) held at 1e-4."""
+    """(label, B, L, H, H_kv, D, dtype, window, g_lse, kernel path) of
+    the backward rows: the LM training shape and its modern GQA 4:1 form
+    (random lse cotangent, as the ring's merge passes one),
+    bench_flash_grad_error's shape with its 0.1·sum(lse) loss (g_lse =
+    0.1), a window, the LM shape through misaligned views (the general
+    kernels), and f32 rows (the check run's shape and a ragged L) held at
+    1e-4. The bf16 rows of the main paths must take the TMA + wgmma
+    kernels."""
     return [("LM training causal", 8, 2048, 16, 16, 64, "bfloat16", 0,
-             "random"),
+             "random", "tma"),
             ("LM training GQA 4:1 causal", 8, 2048, 16, 4, 64, "bfloat16",
-             0, "random"),
+             0, "random", "tma"),
             ("grad-error bench causal, lse", 2, 2048, 8, 8, 128, "bfloat16",
-             0, "0.1"),
-            ("window 512", 8, 2048, 16, 16, 64, "bfloat16", 512, "random"),
-            ("check-run causal", 2, 256, 16, 16, 64, "float32", 0, "random"),
+             0, "0.1", "tma"),
+            ("window 512", 8, 2048, 16, 16, 64, "bfloat16", 512, "random",
+             "tma"),
+            ("LM training causal, misaligned view", 8, 2048, 16, 16, 64,
+             "bfloat16", 0, "random", "general"),
+            ("check-run causal", 2, 256, 16, 16, 64, "float32", 0, "random",
+             "f32"),
             ("ragged L, GQA 4:1", 2, 1000, 8, 2, 128, "float32", 0,
-             "random")]
+             "random", "f32")]
 
 
 def phase_flash_bwd_kernels(torch, gen):
@@ -1537,17 +1546,24 @@ def phase_flash_bwd_kernels(torch, gen):
     the plain backward with the softmax scale 5% off must fail the same
     check. Bound by operations: dq 3 products (s, dp, dq), dkv 4 (s, dp,
     dv, dk), 2 FLOP per multiply-add over the visible pairs of every q
-    head. The library column is SDPA's flash backward for the pair."""
+    head. The library column is SDPA's flash backward for the pair. Each
+    row names the kernels it took (``flash_bwd_kernel_path``)."""
     from lua_mapreduce_tpu_torch.ops.attention import (
         flash_attention_bwd_plain, flash_attention_cuda, flash_bwd_dkv_cuda,
-        flash_bwd_dq_cuda)
+        flash_bwd_dq_cuda, flash_bwd_kernel_path)
     rows = []
-    for label, b, l, h, hkv, d, dt, window, gl in flash_bwd_cases():
+    for label, b, l, h, hkv, d, dt, window, gl, want_path in \
+            flash_bwd_cases():
         dtype = getattr(torch, dt)
 
         def randn(*shape, scale=1.0, dtype=dtype):
-            return (torch.randn(shape, device="cuda", generator=gen)
-                    * scale).to(dtype)
+            """A [..., 1:] view of a tensor one element wider on the
+            misaligned row (base and head stride off 16 bytes: only the
+            general kernels read it)."""
+            wide = want_path == "general" and dtype == torch.bfloat16
+            x = (torch.randn((*shape[:-1], shape[-1] + wide), device="cuda",
+                             generator=gen) * scale).to(dtype)
+            return x[..., 1:] if wide else x
         q = randn(b, l, h, d, scale=Q_SCALE)
         k, v = randn(b, l, hkv, d), randn(b, l, hkv, d)
         do = randn(b, l, h, d, dtype=torch.float32)
@@ -1557,6 +1573,13 @@ def phase_flash_bwd_kernels(torch, gen):
                                       with_lse=True)
         delta = ((do * o).sum(-1) - g_lse).contiguous()
         dob = do.to(dtype)
+        if want_path == "general":       # the same values, misaligned
+            dob = torch.empty((b, l, h, d + 1), device="cuda",
+                              dtype=dtype)[..., 1:].copy_(dob)
+        path = flash_bwd_kernel_path(q, k, v, dob)
+        if path != want_path:
+            raise AssertionError(f"flash bwd {label}: took the {path} "
+                                 f"kernels, expected {want_path}")
         kw = dict(causal=True, window=window)
 
         def run_dq(q=q, k=k, v=v, dob=dob, lse=lse, delta=delta, kw=kw):
@@ -1577,7 +1600,9 @@ def phase_flash_bwd_kernels(torch, gen):
         ntol = NORM_TOL if dt == "bfloat16" else None
         wrong = plain(scale=d ** -0.5 * WRONG_SCALE)
         lib, lib_note = None, None
-        if dt != "bfloat16":
+        if want_path == "general":
+            lib_note = "n/a: SDPA's yardstick is the aligned row's"
+        elif dt != "bfloat16":
             lib_note = "n/a: SDPA's flash backward takes fp16/bf16 only"
         elif window:
             lib_note = "n/a: SDPA's flash backward has no sliding window"
@@ -1628,6 +1653,7 @@ def phase_flash_bwd_kernels(torch, gen):
                 f"{dt}", err, fn, plain, lib, 2 * n_prod * b * h * pairs * d,
                 in_bytes + out_bytes, peak, rel, control)
             row["library_note"] = lib_note
+            row["path"] = path
             rows.append(row)
         del q, k, v, do, o, lse, delta, dob, dq, dk, dv, want, wrong, lib
         torch.cuda.empty_cache()
@@ -1689,10 +1715,11 @@ def phase_lm_train(torch, ops, seed=0):
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         kernels = kernel_profile(torch, lambda: step(params, tok, tgt))
         dev_ms = sum(kk[1] for kk in kernels)
-        # the forward's TMA + wgmma kernel, or its general kernel
+        # each kernel's TMA + wgmma form, or its general form
         tags = (("flash_fwd", ("wsk::flash_wgmma_kernel", "flash_bf16_kernel")),
-                ("flash_bwd_dq", ("bfk::dq_kernel",)),
-                ("flash_bwd_dkv", ("bfk::dkv_kernel",)))
+                ("flash_bwd_dq", ("wsk::dq_wgmma_kernel", "bfk::dq_kernel")),
+                ("flash_bwd_dkv", ("wsk::dkv_wgmma_kernel",
+                                   "bfk::dkv_kernel")))
         port_ms = {kk: sum(r[1] for r in kernels if any(n in r[0] for n in t))
                    for kk, t in tags}
         seen = {kk: sum(r[2] for r in kernels if any(n in r[0] for n in t))

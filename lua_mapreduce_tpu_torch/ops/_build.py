@@ -47,8 +47,10 @@ _SIGNATURES = {
     "flash": {"lmr_flash_fwd": [_P] * 5 + [_I] * 5 + [_L] * 9 + [_I] * 5
               + [_P],
               "lmr_flash_path": [_P] * 3 + [_I] * 5 + [_L] * 9 + [_I]},
-    "flash_bwd": {fn: [_P] * 8 + [_I] * 5 + [_L] * 12 + [_I] * 4 + [_P]
-                  for fn in ("lmr_flash_bwd_dq", "lmr_flash_bwd_dkv")},
+    "flash_bwd": {**{fn: [_P] * 8 + [_I] * 5 + [_L] * 12 + [_I] * 4 + [_P]
+                     for fn in ("lmr_flash_bwd_dq", "lmr_flash_bwd_dkv")},
+                  "lmr_flash_bwd_path": [_P] * 4 + [_I] * 5 + [_L] * 12
+                  + [_I]},
     "decode": {"lmr_decode": [_P] * 9 + [_I] * 6 + [_L] * 3 + [_I, _P],
                "lmr_decode_splits": [_I] * 5,
                "lmr_decode_combine": [_P] * 4 + [_I] * 4 + [_P]},

@@ -7,9 +7,11 @@ with an lse flag (a TMA + wgmma kernel for the layouts TMA can read, a
 general kernel for the rest: :func:`flash_kernel_path`), and the
 FlashAttention-2 backward ``_flash_bwd_dq_kernel`` /
 ``_flash_bwd_dkv_kernel`` become two CUDA kernels
-(``csrc/flash_bwd.cu``); each source's note says what bounds it and
-what the design does about it. Layout is the JAX op's public one,
-(B, L, H, D), read through strides by the kernels.
+(``csrc/flash_bwd.cu``: TMA + wgmma kernels for the layouts TMA can
+read, general kernels for the rest: :func:`flash_bwd_kernel_path`);
+each source's note says what bounds it and what the design does about
+it. Layout is the JAX op's public one, (B, L, H, D), read through
+strides by the kernels.
 
 The autograd Function runs the forward with the lse kernel whenever a
 gradient will be needed, keeping the f32 out and the lse as residuals,
@@ -183,17 +185,38 @@ def flash_attention_cuda(q, k, v, *, causal: bool, window: int = 0,
     return (out, lse) if with_lse else out
 
 
+def _check_bwd_operands(q, k, v, do, what: str) -> None:
+    """The forward's operand checks, and ``do`` in q's dtype and shape."""
+    _check_kernel_operands(q, k, v, what)
+    if do.dtype != q.dtype or do.shape != q.shape:
+        raise TypeError(f"{what}: do must be {q.dtype} {tuple(q.shape)}, "
+                        f"got {do.dtype} {tuple(do.shape)}")
+
+
+def flash_bwd_kernel_path(q, k, v, do) -> str:
+    """Which kernels of ``csrc/flash_bwd.cu`` the dq and dkv launches
+    run for these CUDA operands (``lmr_flash_bwd_path``, a predicate on
+    their layout, as :func:`flash_kernel_path` is the forward's):
+    ``"tma"`` (the TMA + wgmma kernels: bf16 q/k/v/do, 16-byte aligned
+    bases, strides multiples of 8 elements), ``"general"`` (the mma.sync
+    kernels: other bf16 layouts) or ``"f32"``."""
+    _check_bwd_operands(q, k, v, do, "flash backward kernel")
+    q, k, v, do = _unit_stride(q, k, v, do)
+    b, l, h, d = q.shape
+    path = _build.library("flash_bwd").lmr_flash_bwd_path(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), b, l, h,
+        k.shape[2], d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *do.stride()[:3], _CODES[q.dtype])
+    return _PATHS[path]
+
+
 def _bwd_launch(entry: str, kernel: str, q, k, v, do, lse, delta, outs,
                 causal, window, q_offset):
     """One backward kernel of ``csrc/flash_bwd.cu``: q/k/v/do through
     their strides, lse and Δ contiguous (B, L, H) f32, ``outs``
     contiguous in q's dtype."""
     b, l, h, d = q.shape
-    _check_kernel_operands(q, k, v, f"{kernel} kernel")
-    if do.dtype != q.dtype or do.shape != q.shape:
-        raise TypeError(f"{kernel} kernel: do must be {q.dtype} "
-                        f"{tuple(q.shape)}, got {do.dtype} "
-                        f"{tuple(do.shape)}")
+    _check_bwd_operands(q, k, v, do, f"{kernel} kernel")
     for name, x in (("lse", lse), ("delta", delta)):
         if x.dtype != torch.float32 or x.shape != (b, l, h) or \
                 not x.is_contiguous():

@@ -642,43 +642,10 @@ flash_f32_kernel(const float* __restrict__ Q, const float* __restrict__ K,
 }  // namespace f32k
 
 using sm90::aligned16;
+using sm90::make_map4;
+using sm90::tma_layout;
 
 enum { PATH_GENERAL = 0, PATH_TMA = 1, PATH_F32 = 2 };
-
-// Can TMA describe a (B, L, H, D) operand with unit stride along D: a
-// 16-byte aligned base, and every dimension longer than one with a
-// positive stride that is a multiple of 8 elements (16 bytes)?
-static bool tma_layout(const void* p, int B, int L, int H, long long sb,
-                       long long sl, long long sh) {
-  auto ok = [](int n, long long st) {
-    return n == 1 || (st > 0 && st % 8 == 0 && st * 2 < (1ll << 40));
-  };
-  return aligned16(p) && ok(B, sb) && ok(L, sl) && ok(H, sh);
-}
-
-// The 4-D tensor map {D, H, L, B} of a (B, L, H, D) bf16 operand, boxes
-// of {64, 1, 128, 1} with the 128-byte swizzle; rows past L read as zero.
-// A dimension of extent one gets the stride of a packed layout (TMA
-// wants a multiple of 16 bytes even where it never steps).
-static bool make_map4(CUtensorMap* map, const void* ptr, int B, int L,
-                      int H, int D, long long sb, long long sl,
-                      long long sh) {
-  sm90::EncodeTiledFn fn = sm90::encode_fn();
-  if (fn == nullptr) return false;
-  if (H == 1) sh = D;
-  if (L == 1) sl = sh * H;
-  if (B == 1) sb = sl * L;
-  cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)L,
-                        (cuuint64_t)B};
-  cuuint64_t strides[3] = {(cuuint64_t)(sh * 2), (cuuint64_t)(sl * 2),
-                           (cuuint64_t)(sb * 2)};
-  cuuint32_t box[4] = {64, 1, 128, 1};
-  cuuint32_t estr[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 static int flash_path(const void* q, const void* k, const void* v, int B,
                       int L, int H, int Hkv, int D, const Geom& g,
@@ -716,9 +683,9 @@ static int launch_tma(const void* q, const void* k, const void* v, void* o,
                       float* lse, const Geom& g, int B, int BH, bool with_lse,
                       cudaStream_t s) {
   CUtensorMap tq, tk, tv;
-  if (!make_map4(&tq, q, B, g.L, g.H, D, g.sqb, g.sql, g.sqh) ||
-      !make_map4(&tk, k, B, g.L, g.Hkv, D, g.skb, g.skl, g.skh) ||
-      !make_map4(&tv, v, B, g.L, g.Hkv, D, g.svb, g.svl, g.svh))
+  if (!make_map4(&tq, q, B, g.L, g.H, D, g.sqb, g.sql, g.sqh, wsk::BQ) ||
+      !make_map4(&tk, k, B, g.L, g.Hkv, D, g.skb, g.skl, g.skh, wsk::BK) ||
+      !make_map4(&tv, v, B, g.L, g.Hkv, D, g.svb, g.svl, g.svh, wsk::BK))
     return cudaErrorInvalidValue;
   return with_lse ? launch_tma_lse<D, true>(tq, tk, tv, o, lse, g, BH, s)
                   : launch_tma_lse<D, false>(tq, tk, tv, o, lse, g, BH, s);

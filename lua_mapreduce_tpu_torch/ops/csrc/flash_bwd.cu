@@ -4,8 +4,11 @@
 // p = exp(s − lse) one tile at a time from the forward's saved lse.
 //
 // Replaces: lua_mapreduce_tpu/ops/attention.py::_flash_bwd_dq_kernel
-// (the dq kernel here) and ::_flash_bwd_dkv_kernel (the dkv kernel),
+// (the dq kernels here) and ::_flash_bwd_dkv_kernel (the dkv kernels),
 // both driven by _flash_bwd_pallas, with _bwd_tile's arithmetic in each.
+// Two kernels, one launch each per backward, as the TPU splits them; no
+// atomics: GQA's sum over a kv head's group stays in the dkv block's own
+// accumulators, and two calls give the same bits.
 //
 // Inputs: q, do (B, L, H, D) and k, v (B, L, Hkv, D) through their
 // (batch, seq, head) strides, head dim contiguous; lse and
@@ -21,47 +24,80 @@
 // ~50 MB of operands, far above the ~295 operations per byte where bf16
 // products stop being limited by the 3.35 TB/s of device memory.
 //
-// What this simple design does about it:
-//  * The TPU grids walk their innermost axis (kv for dq; the group's
-//    (q head × q block) pairs for dk/dv) sequentially, carrying the
-//    accumulators in VMEM scratch. GPU blocks run in no order, so each
-//    block owns one output tile and loops over its live partner tiles
-//    itself, keeping the accumulators in registers. GQA's sum over the
-//    group happens in the dkv block's own accumulators: no atomics, and
-//    the result is deterministic.
-//  * bf16 inputs: 4 warps, mma.sync m16n8k16 with f32 accumulators.
-//    dq kernel: a 64-row q tile, each warp owning 16 rows; per 64-key kv
-//    tile it forms s = q·kᵀ and dp = do·vᵀ, then p and ds in the
-//    accumulator fragments, and ds (rounded to bf16 as the A operand,
-//    as the TPU kernel rounds it) times k into dq.
-//    dkv kernel: a 64-key kv tile, each warp owning 16 keys; it forms
-//    the TRANSPOSED tiles sᵀ = k·qᵀ and dpᵀ = v·doᵀ directly (16 keys ×
-//    32 q rows), so pᵀ and dsᵀ land in the accumulator layout that is
-//    also the A-operand layout of dv += pᵀ·do and dk += dsᵀ·q: no
-//    fragment transposition, no shared-memory round trip.
-//    The tiles live in dynamic shared memory (above 48 KB at d = 128).
-//  * f32 inputs: full-precision FP32 FMAs (no TF32), 4 threads per row
-//    (q row for dq, key row for dkv), each owning a quarter of the head
-//    dim; dot products are finished by quad shuffles.
-//  * Dead tiles are never visited: the dq loop runs over _kv_clamp's
-//    live kv range, the dkv loop over _q_clamp's live q range (causal
-//    gives its lower bound, the window its upper bound, which is
-//    negative for a kv tile wholly behind the window: no iteration,
-//    dk = dv = 0).
-//  * p is computed only where the score is visible, so a fully masked
-//    row (lse ≈ −1e30) never reaches exp. Rows past L are zero-filled
-//    in shared memory, masked, and never written.
-//  * Left for later work: cp.async / TMA double buffering, wgmma, a
-//    single-kernel FA2 backward with atomics, ldmatrix.
+// Three kernel families; which one runs is a predicate on the operands'
+// layout alone (lmr_flash_bwd_path, the forward's lmr_flash_path with do
+// added):
+//  * bf16 q/k/v/do that TMA can describe (head dim 64 or 128, 16-byte
+//    aligned bases, every stride of a dimension longer than one a
+//    multiple of 8 elements: contiguous tensors, the model's fused-qkv
+//    views, do[:, :, ::2]) take the warp-specialised kernels (wsk): 384
+//    threads, one producer thread issuing TMA through a 4-stage
+//    full/empty mbarrier ring and two consumer warpgroups running wgmma,
+//    the tensor maps the forward's ({D, H, L, B}, 64-d boxes with the
+//    128-byte swizzle, the head a coordinate, rows past L zero-filled:
+//    sm90_common.cuh's make_map4). A map that fails to encode is a launch
+//    error, never a switch to the general kernels.
+//    dq: a block per (batch·head, 128-row q tile), heaviest causal tiles
+//    first with batch·head the fast grid axis; q and do land once; 64-key
+//    K/V tiles stream through the ring (kv head hk = h / group). Each
+//    consumer owns 64 q rows: S = Q·Kᵀ and dP = dO·Vᵀ are SS wgmma chains
+//    (m64n64k16, K-major), p = exp2(s·scale·log2e − lse·log2e) and
+//    ds = p∘(dp − Δ)·scale stay in f32 registers, ds is rounded to bf16
+//    (the TPU kernel's rounding point) in the accumulator layout, which
+//    is wgmma's register A layout, and dQ += dS·K reads the same K stage
+//    N-major (the forward's P·V with K in V's place).
+//    dkv: a block per (batch·kv head, 128-key tile), key tile 0 (under
+//    causal masking the heaviest: it sees every q row) first; K and V
+//    land once; 64-row q/do tiles of the group's q heads (h = hk·group +
+//    g) × _q_clamp's live q tiles stream through the ring. lse and Δ are
+//    strided by H and a 1-float TMA box is not allowed, so the producer
+//    warp's 32 lanes read the tile's rows with ordinary loads (issued
+//    before the wait for a free stage), store lse·log2e and Δ beside the
+//    stage and each arrive on its full barrier (33 arrivals: TMA's and
+//    theirs). Each consumer owns 64 keys: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ are
+//    SS chains, Pᵀ and dSᵀ land in the accumulator layout, the A operand
+//    of dV += Pᵀ·dO and dK += dSᵀ·Q (dO and Q read N-major), and dk, dv
+//    stay in registers across the whole group.
+//    The column test runs only on tiles that cross L, the causal
+//    diagonal or the window's edge; q rows past L (lse 0 after TMA's
+//    zero rows) and fully masked rows (lse ≈ −1e30) are masked by it,
+//    never through exp. The loops run over _kv_clamp's / _q_clamp's live
+//    tiles only.
+//    Measured on the H100 (PERF.md §6): ptxas gives the 384
+//    threads 168 registers each whatever setmaxnreg hands the consumers
+//    at run time, so the partner tiles are 64 wide (128-key dq tiles
+//    spilled and ran slower); the register operands are fenced around
+//    wgmma's fence, commit and wait (CUTLASS's operand fences), without
+//    which ptxas injected its own arrives and serialised the products;
+//    the forward's turn-taking between the warpgroups, and splitting a
+//    tile's waits so that exp overlaps dP, both came out slower.
+//  * Other bf16 layouts take the general kernels (bfk), the first design:
+//    4 warps, mma.sync m16n8k16 from padded shared memory; the dq kernel
+//    a 64-row q tile over 64-key kv tiles, the dkv kernel a 64-key tile
+//    forming sᵀ = k·qᵀ and dpᵀ = v·doᵀ directly (16 keys × 32 q rows a
+//    warp) so that pᵀ and dsᵀ are the A fragments of the next products.
+//  * f32 inputs: full-precision FP32 FMAs (f32k; no TF32), 4 threads per
+//    row (q row for dq, key row for dkv), each owning a quarter of the
+//    head dim; dot products are finished by quad shuffles.
+// In all three, dead tiles are never visited (the dkv loop's window
+// bound is negative for a kv tile wholly behind the window: no
+// iteration, dk = dv = 0), and rows past L are never written.
+// Left for later work: a single-kernel backward with dq accumulated by
+// atomics (FA3's form; calls would no longer be bit-equal), more than
+// 168 registers for the D = 128 dkv consumers (dk and dv alone hold 128
+// a thread; it spills), ldmatrix in the general kernels.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90_common.cuh"
+
 using bf16 = __nv_bfloat16;
 
 enum { DT_F32 = 0, DT_BF16 = 1 };
+enum { PATH_GENERAL = 0, PATH_TMA = 1, PATH_F32 = 2 };
 
 struct Geom {
   int L, H, Hkv;
@@ -403,6 +439,443 @@ dkv_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
 }
 }  // namespace bfk
 
+// ------------------------------------------- bf16, TMA + wgmma (Hopper)
+
+namespace wsk {
+constexpr int NT = 384;      // two consumer warpgroups and the producer's
+constexpr int ROWS = 128;    // a dq block's q rows, a dkv block's keys
+constexpr float LOG2E = 1.4426950408889634f;
+
+// The partner tiles each block streams: kv tiles of 64 keys for dq, q
+// tiles of 64 rows for dkv. ptxas allocates 168 registers to each of the
+// 384 threads, whatever setmaxnreg hands the consumers at run time:
+// 64-wide tiles keep dq's live registers (its accumulator, S, dP) within
+// them; 128-key tiles spilled at D = 64 and ran slower.
+constexpr int TILE = 64;
+
+// Over the q rows [q_lo, q_hi] (unshifted) × keys [k_lo, k_hi]: is every
+// pair visible (no column test needed), or none (no work at all)?
+__device__ __forceinline__ bool all_visible(const Geom& g, int q_lo, int q_hi,
+                                            int k_lo, int k_hi) {
+  return q_hi < g.L && k_hi < g.L &&
+         (!g.causal || q_lo + g.q_offset >= k_hi) &&
+         (!g.window || q_hi + g.q_offset - k_lo < g.window);
+}
+__device__ __forceinline__ bool none_visible(const Geom& g, int q_lo, int q_hi,
+                                             int k_lo, int k_hi) {
+  return q_lo >= g.L || k_lo >= g.L ||
+         (g.causal && q_hi + g.q_offset < k_lo) ||
+         (g.window && q_lo + g.q_offset - k_hi >= g.window);
+}
+
+// A K-major operand (rows × D, in boxes of 64 d of `box` bytes): rows
+// from r0, the 16-wide slice kk of the head dim; SBO the next 8 rows.
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int box, int r0,
+                                           int kk) {
+  return sm90::desc_sw128(tile + (kk / 4) * box + (kk % 4) * 32 + r0 * 128,
+                          16, 1024);
+}
+// The same tile read N-major (its rows the product's depth, D its width):
+// rows 16·kk .. 16·kk + 15 are two swizzle atoms (2 KB); LBO the next 64 d.
+__device__ __forceinline__ uint64_t nmajor(uint32_t tile, int box, int kk) {
+  return sm90::desc_sw128(tile + kk * 2048, box, 1024);
+}
+
+// acc (64 × D) += A (64 × 16, bf16 registers) · B (N-major)
+template <int D>
+__device__ __forceinline__ void mma_rs(float (&d)[D / 2],
+                                       const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (D == 64) sm90::wgmma_rs_64(d, a, db);
+  else sm90::wgmma_rs_128(d, a, db);
+}
+
+// a 64 × N f32 accumulator rounded to bf16 A fragments: the fragment of
+// its columns 16·kk .. 16·kk + 15 is registers 8kk .. 8kk + 7
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[N / 16][4],
+                                       const float (&x)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      a[kk][q] = sm90::pack_bf16(x[8 * kk + 2 * q], x[8 * kk + 2 * q + 1]);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = 0.f;
+}
+
+// Accumulator fragment of m64nN: register j of warp w4 (of the
+// warpgroup), lane l holds row 16·w4 + l/4 + 8·((j >> 1) & 1), column
+// 8·(j >> 2) + 2·(l % 4) + (j & 1).
+__device__ __forceinline__ int frag_col(int j, int lane) {
+  return 8 * (j >> 2) + 2 * (lane % 4) + (j & 1);
+}
+
+// Shared memory of the dq kernel: the q and do tiles (128 rows), then
+// STAGES stages of {K tile, V tile}; each tile D / 64 boxes of 64 d; 1 KB
+// of slack to align the swizzle atoms.
+template <int D>
+struct DqLayout {
+  static constexpr int BK = TILE;
+  static constexpr int QBOX = ROWS * 128, KBOX = BK * 128;
+  static constexpr int Q_BYTES = ROWS * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;
+  static constexpr int STAGE = 2 * KV_BYTES;
+  static constexpr int FIT = (232448 - 1024 - 256 - 2 * Q_BYTES) / STAGE;
+  static constexpr int STAGES = FIT > 4 ? 4 : FIT;
+  static constexpr int DYN = 2 * Q_BYTES + STAGES * STAGE + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                const __grid_constant__ CUtensorMap tdo,
+                const float* __restrict__ LSE, const float* __restrict__ DELTA,
+                bf16* __restrict__ DQ, Geom g) {
+  using Lay = DqLayout<D>;
+  constexpr int S = Lay::STAGES, DC = D / 64, BK = Lay::BK;
+  extern __shared__ uint8_t smem_raw[];
+  // qbar: q and do have landed; full: a stage's K and V have landed;
+  // empty: both consumers are done with a stage
+  __shared__ __align__(8) uint64_t qbar, full[S], empty[S];
+  const uint32_t base = (sm90::smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sq = base, sdo = base + Lay::Q_BYTES;
+  const uint32_t skv = base + 2 * Lay::Q_BYTES;
+  const int bh = blockIdx.x, b = bh / g.H, h = bh % g.H;
+  const int hk = h / (g.H / g.Hkv);
+  // causal: the heaviest q tiles (largest index) start first
+  const int q0 = (g.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * ROWS;
+  int lo, hi;
+  kv_range(g, q0 + g.q_offset, ROWS, BK, lo, hi);
+  const int n = hi >= lo ? hi - lo + 1 : 0;
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(sm90::smem_u32(&qbar), 1);
+    for (int s = 0; s < S; ++s) {
+      sm90::mbar_init(sm90::smem_u32(&full[s]), 1);
+      sm90::mbar_init(sm90::smem_u32(&empty[s]), 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (t == 0) {
+      asm volatile("prefetch.tensormap [%0];" ::"l"(
+                       reinterpret_cast<uint64_t>(&tk)) : "memory");
+      asm volatile("prefetch.tensormap [%0];" ::"l"(
+                       reinterpret_cast<uint64_t>(&tv)) : "memory");
+      const uint32_t qb = sm90::smem_u32(&qbar);
+      sm90::mbar_expect_tx(qb, 2 * Lay::Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        sm90::tma_load_4d(sq + c * Lay::QBOX, &tq, qb, 64 * c, h, q0, b);
+        sm90::tma_load_4d(sdo + c * Lay::QBOX, &tdo, qb, 64 * c, h, q0, b);
+      }
+      for (int i = 0; i < n; ++i) {
+        const int s = i % S, k0 = (lo + i) * BK;
+        sm90::mbar_wait(sm90::smem_u32(&empty[s]), ((i / S) & 1) ^ 1);
+        const uint32_t fb = sm90::smem_u32(&full[s]);
+        sm90::mbar_expect_tx(fb, Lay::STAGE);
+        const uint32_t sk = skv + s * Lay::STAGE, sv = sk + Lay::KV_BYTES;
+#pragma unroll
+        for (int c = 0; c < DC; ++c) {
+          sm90::tma_load_4d(sk + c * Lay::KBOX, &tk, fb, 64 * c, hk, k0, b);
+          sm90::tma_load_4d(sv + c * Lay::KBOX, &tv, fb, 64 * c, hk, k0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+  const int w4 = t / 32, lane = t % 32;
+  const float c = g.scale * LOG2E;          // scores to the log2 domain
+  const int qs = q0 + wg * 64;              // this warpgroup's first q row
+  const int row_a = qs + w4 * 16 + lane / 4;   // its rows: row_a, row_a + 8
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a + 8 * r;
+    const long long i = (long long)(b * g.L + row) * g.H + h;
+    lse2[r] = row < g.L ? LSE[i] * LOG2E : 0.f;
+    dlt[r] = row < g.L ? DELTA[i] : 0.f;
+  }
+  float dq[D / 2], sc[BK / 2], dp[BK / 2];
+  uint32_t da[BK / 16][4];
+  zero(dq);
+  sm90::mbar_wait(sm90::smem_u32(&qbar), 0);
+  for (int i = 0; i < n; ++i) {
+    const int s = i % S, k0 = (lo + i) * BK;
+    sm90::mbar_wait(sm90::smem_u32(&full[s]), (i / S) & 1);
+    const uint32_t sk = skv + s * Lay::STAGE, sv = sk + Lay::KV_BYTES;
+    // a warpgroup whose 64 rows see none of the tile skips it (though
+    // that saves one tile in ~17 under causal masking, the kernel came
+    // out faster with the skip on the H100; dkv's came out slower)
+    if (!none_visible(g, qs, qs + 63, k0, k0 + BK - 1)) {
+      // S = Q·Kᵀ and dP = dO·Vᵀ
+      zero(sc);
+      zero(dp);
+      sm90::fence_acc(sc);
+      sm90::fence_acc(dp);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm90::wgmma_64<0, 0>(sc, kmajor(sq, Lay::QBOX, wg * 64, kk),
+                             kmajor(sk, Lay::KBOX, 0, kk));
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm90::wgmma_64<0, 0>(dp, kmajor(sdo, Lay::QBOX, wg * 64, kk),
+                             kmajor(sv, Lay::KBOX, 0, kk));
+      sm90::wgmma_commit();
+      sm90::fence_acc(sc);
+      sm90::fence_acc(dp);
+      sm90::wgmma_wait<0>();
+      sm90::fence_acc(sc);
+      sm90::fence_acc(dp);
+      // ds = p∘(dp − Δ)·scale with p = exp(s·scale − lse), rounded to
+      // bf16 into da; the column test only where the tile crosses L, the
+      // diagonal or the window's edge
+      const bool all = all_visible(g, qs, qs + 63, k0, k0 + BK - 1);
+#pragma unroll
+      for (int j = 0; j < BK / 2; ++j) {
+        const int r = (j >> 1) & 1;
+        float p = exp2f(fmaf(sc[j], c, -lse2[r]));
+        if (!all && !visible(g, row_a + 8 * r, k0 + frag_col(j, lane)))
+          p = 0.f;
+        sc[j] = p * (dp[j] - dlt[r]) * g.scale;
+      }
+      pack_a<BK>(da, sc);
+      // dQ += dS·K, K read N-major from the same stage
+      sm90::fence_frag(da);
+      sm90::fence_acc(dq);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        mma_rs<D>(dq, da[kk], nmajor(sk, Lay::KBOX, kk));
+      sm90::wgmma_commit();
+      sm90::fence_acc(dq);
+      sm90::wgmma_wait<0>();
+      sm90::fence_acc(dq);
+    }
+    if (t == 0) sm90::mbar_arrive(sm90::smem_u32(&empty[s]));
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a + 8 * r;
+    if (row >= g.L) continue;
+    bf16* out = DQ + ((long long)(b * g.L + row) * g.H + h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(out + 8 * j + 2 * (lane % 4)) =
+          sm90::pack_bf16(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
+  }
+}
+
+// Shared memory of the dkv kernel: the K and V tiles (128 keys), then
+// STAGES stages of {q tile, do tile}; their lse and Δ rows in static
+// shared memory beside.
+template <int D>
+struct DkvLayout {
+  static constexpr int BQ = TILE;
+  static constexpr int KBOX = ROWS * 128, QBOX = BQ * 128;
+  static constexpr int K_BYTES = ROWS * D * 2;
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int STAGE = 2 * Q_BYTES;
+  static constexpr int FIT =
+      (232448 - 1024 - 256 - 2 * K_BYTES) / (STAGE + 2 * BQ * 4);
+  static constexpr int STAGES = FIT > 4 ? 4 : FIT;
+  static constexpr int DYN = 2 * K_BYTES + STAGES * STAGE + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const __grid_constant__ CUtensorMap tdo,
+                 const float* __restrict__ LSE,
+                 const float* __restrict__ DELTA, bf16* __restrict__ DK,
+                 bf16* __restrict__ DV, Geom g) {
+  using Lay = DkvLayout<D>;
+  constexpr int S = Lay::STAGES, DC = D / 64, BQ = Lay::BQ;
+  extern __shared__ uint8_t smem_raw[];
+  // kbar: K and V have landed; full: a stage's q and do (TMA) and its
+  // lse and Δ rows (the producer warp's 32 lanes, each arriving after
+  // its stores) have landed; empty: both consumers are done with it
+  __shared__ __align__(8) uint64_t kbar, full[S], empty[S];
+  __shared__ float s_lse[S][BQ], s_dlt[S][BQ];   // lse·log2(e), Δ
+  const uint32_t base = (sm90::smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sk = base, sv = base + Lay::K_BYTES;
+  const uint32_t sqd = base + 2 * Lay::K_BYTES;
+  const int bhk = blockIdx.x, b = bhk / g.Hkv, hk = bhk % g.Hkv;
+  const int group = g.H / g.Hkv;
+  // causal: key tile 0 sees every q row; the heaviest tiles come first
+  const int k0 = blockIdx.y * ROWS;
+  int lo, hi;
+  q_range(g, k0, ROWS, BQ, lo, hi);
+  const int nq = hi >= lo ? hi - lo + 1 : 0;
+  const int n = group * nq;        // (q head, q tile): head-major
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(sm90::smem_u32(&kbar), 1);
+    for (int s = 0; s < S; ++s) {
+      sm90::mbar_init(sm90::smem_u32(&full[s]), 1 + 32);
+      sm90::mbar_init(sm90::smem_u32(&empty[s]), 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (t >= 32) return;         // one warp: TMA from lane 0, lse/Δ rows
+    if (t == 0) {
+      asm volatile("prefetch.tensormap [%0];" ::"l"(
+                       reinterpret_cast<uint64_t>(&tq)) : "memory");
+      asm volatile("prefetch.tensormap [%0];" ::"l"(
+                       reinterpret_cast<uint64_t>(&tdo)) : "memory");
+      const uint32_t kb = sm90::smem_u32(&kbar);
+      sm90::mbar_expect_tx(kb, 2 * Lay::K_BYTES);
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        sm90::tma_load_4d(sk + c * Lay::KBOX, &tk, kb, 64 * c, hk, k0, b);
+        sm90::tma_load_4d(sv + c * Lay::KBOX, &tv, kb, 64 * c, hk, k0, b);
+      }
+    }
+    for (int i = 0; i < n; ++i) {
+      const int s = i % S, h = hk * group + i / nq;
+      const int q0 = (lo + i % nq) * BQ;
+      // the tile's lse and Δ rows are read before the wait for a free
+      // stage, so that their latency passes while the producer waits
+      float rl[BQ / 32], rd[BQ / 32];
+#pragma unroll
+      for (int u = 0; u < BQ / 32; ++u) {
+        const int row = q0 + t + 32 * u;
+        const long long x = (long long)(b * g.L + row) * g.H + h;
+        rl[u] = row < g.L ? LSE[x] * LOG2E : 0.f;
+        rd[u] = row < g.L ? DELTA[x] : 0.f;
+      }
+      sm90::mbar_wait(sm90::smem_u32(&empty[s]), ((i / S) & 1) ^ 1);
+      const uint32_t fb = sm90::smem_u32(&full[s]);
+      if (t == 0) {
+        sm90::mbar_expect_tx(fb, Lay::STAGE);
+        const uint32_t sq = sqd + s * Lay::STAGE, sdo = sq + Lay::Q_BYTES;
+#pragma unroll
+        for (int c = 0; c < DC; ++c) {
+          sm90::tma_load_4d(sq + c * Lay::QBOX, &tq, fb, 64 * c, h, q0, b);
+          sm90::tma_load_4d(sdo + c * Lay::QBOX, &tdo, fb, 64 * c, h, q0,
+                            b);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < BQ / 32; ++u) {
+        s_lse[s][t + 32 * u] = rl[u];
+        s_dlt[s][t + 32 * u] = rd[u];
+      }
+      sm90::mbar_arrive(fb);
+    }
+    return;
+  }
+
+  // -------------------------------------------------------- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+  const int w4 = t / 32, lane = t % 32;
+  const float c = g.scale * LOG2E;
+  const int ks = k0 + wg * 64;               // this warpgroup's first key
+  const int key_a = ks + w4 * 16 + lane / 4;    // its keys: key_a, key_a + 8
+  float dk[D / 2], dv[D / 2], st[BQ / 2], dpt[BQ / 2];
+  uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+  zero(dk);
+  zero(dv);
+  sm90::mbar_wait(sm90::smem_u32(&kbar), 0);
+  for (int i = 0; i < n; ++i) {
+    const int s = i % S, q0 = (lo + i % nq) * BQ;
+    sm90::mbar_wait(sm90::smem_u32(&full[s]), (i / S) & 1);
+    const uint32_t sq = sqd + s * Lay::STAGE, sdo = sq + Lay::Q_BYTES;
+    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: keys × q rows
+    zero(st);
+    zero(dpt);
+    sm90::fence_acc(st);
+    sm90::fence_acc(dpt);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      sm90::wgmma_64<0, 0>(st, kmajor(sk, Lay::KBOX, wg * 64, kk),
+                           kmajor(sq, Lay::QBOX, 0, kk));
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      sm90::wgmma_64<0, 0>(dpt, kmajor(sv, Lay::KBOX, wg * 64, kk),
+                           kmajor(sdo, Lay::QBOX, 0, kk));
+    sm90::wgmma_commit();
+    sm90::fence_acc(st);
+    sm90::fence_acc(dpt);
+    sm90::wgmma_wait<0>();
+    sm90::fence_acc(st);
+    sm90::fence_acc(dpt);
+    // pᵀ and dsᵀ, rounded to bf16 into pa and da; q rows past L (lse
+    // 0, zero rows) fall to the column test of the edge tile, never to
+    // exp
+    const bool all = all_visible(g, q0, q0 + BQ - 1, ks, ks + 63);
+#pragma unroll
+    for (int j = 0; j < BQ / 2; ++j) {
+      const int col = frag_col(j, lane), r = (j >> 1) & 1;
+      float p = exp2f(fmaf(st[j], c, -s_lse[s][col]));
+      if (!all && !visible(g, q0 + col, key_a + 8 * r)) p = 0.f;
+      st[j] = p;
+      dpt[j] = p * (dpt[j] - s_dlt[s][col]) * g.scale;
+    }
+    pack_a<BQ>(pa, st);
+    pack_a<BQ>(da, dpt);
+    // dV += Pᵀ·dO and dK += dSᵀ·Q, dO and Q read N-major
+    sm90::fence_frag(pa);
+    sm90::fence_frag(da);
+    sm90::fence_acc(dv);
+    sm90::fence_acc(dk);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      mma_rs<D>(dv, pa[kk], nmajor(sdo, Lay::QBOX, kk));
+      mma_rs<D>(dk, da[kk], nmajor(sq, Lay::QBOX, kk));
+    }
+    sm90::wgmma_commit();
+    sm90::fence_acc(dv);
+    sm90::fence_acc(dk);
+    sm90::wgmma_wait<0>();
+    sm90::fence_acc(dv);
+    sm90::fence_acc(dk);
+    if (t == 0) sm90::mbar_arrive(sm90::smem_u32(&empty[s]));
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key_a + 8 * r;
+    if (key >= g.L) continue;
+    const long long o = ((long long)(b * g.L + key) * g.Hkv + hk) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int d = 8 * j + 2 * (lane % 4);
+      *reinterpret_cast<uint32_t*>(DK + o + d) =
+          sm90::pack_bf16(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
+      *reinterpret_cast<uint32_t*>(DV + o + d) =
+          sm90::pack_bf16(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+    }
+  }
+}
+}  // namespace wsk
+
 // ------------------------------------------------------------- f32 path
 
 namespace f32k {
@@ -583,9 +1056,9 @@ dkv_kernel(const float* __restrict__ Q, const float* __restrict__ K,
 }
 }  // namespace f32k
 
-static bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
+using sm90::aligned16;
+using sm90::make_map4;
+using sm90::tma_layout;
 
 static bool vec_ok(const void* p, long long a, long long b, long long c,
                    int elems) {
@@ -637,6 +1110,56 @@ static cudaError_t launch_bf16(bool dq, const void* q, const void* k,
   return cudaGetLastError();
 }
 
+// Which kernels lmr_flash_bwd_dq / _dkv run: the TMA + wgmma kernels
+// for bf16 operands TMA can describe (head dims 64 and 128), the general
+// bf16 kernels for other bf16 layouts, the f32 kernels for f32.
+static int bwd_path(const void* q, const void* k, const void* v,
+                    const void* d, int B, int D, const Geom& g, int dtype) {
+  if (dtype == DT_F32) return PATH_F32;
+  if ((D == 64 || D == 128) &&
+      tma_layout(q, B, g.L, g.H, g.sqb, g.sql, g.sqh) &&
+      tma_layout(k, B, g.L, g.Hkv, g.skb, g.skl, g.skh) &&
+      tma_layout(v, B, g.L, g.Hkv, g.svb, g.svl, g.svh) &&
+      tma_layout(d, B, g.L, g.H, g.sdb, g.sdl, g.sdh))
+    return PATH_TMA;
+  return PATH_GENERAL;
+}
+
+// An operand that passed tma_layout but whose map does not encode is a
+// launch error, never a switch to the general kernels.
+template <int D>
+static cudaError_t launch_tma(bool dq, const void* q, const void* k,
+                              const void* v, const void* d, const float* lse,
+                              const float* delta, void* o0, void* o1,
+                              const Geom& g, int B, cudaStream_t s) {
+  const int qrows = dq ? wsk::ROWS : wsk::TILE;
+  const int krows = dq ? wsk::TILE : wsk::ROWS;
+  CUtensorMap tq, tk, tv, td;
+  if (!make_map4(&tq, q, B, g.L, g.H, D, g.sqb, g.sql, g.sqh, qrows) ||
+      !make_map4(&tk, k, B, g.L, g.Hkv, D, g.skb, g.skl, g.skh, krows) ||
+      !make_map4(&tv, v, B, g.L, g.Hkv, D, g.svb, g.svl, g.svh, krows) ||
+      !make_map4(&td, d, B, g.L, g.H, D, g.sdb, g.sdl, g.sdh, qrows))
+    return cudaErrorInvalidValue;
+  const int tiles = (g.L + wsk::ROWS - 1) / wsk::ROWS;
+  if (dq) {
+    static bool done = false;
+    constexpr int smem = wsk::DqLayout<D>::DYN;
+    cudaError_t e = allow_smem(wsk::dq_wgmma_kernel<D>, smem, done);
+    if (e != cudaSuccess) return e;
+    wsk::dq_wgmma_kernel<D><<<dim3(B * g.H, tiles), wsk::NT, smem, s>>>(
+        tq, tk, tv, td, lse, delta, static_cast<bf16*>(o0), g);
+  } else {
+    static bool done = false;
+    constexpr int smem = wsk::DkvLayout<D>::DYN;
+    cudaError_t e = allow_smem(wsk::dkv_wgmma_kernel<D>, smem, done);
+    if (e != cudaSuccess) return e;
+    wsk::dkv_wgmma_kernel<D><<<dim3(B * g.Hkv, tiles), wsk::NT, smem, s>>>(
+        tq, tk, tv, td, lse, delta, static_cast<bf16*>(o0),
+        static_cast<bf16*>(o1), g);
+  }
+  return cudaGetLastError();
+}
+
 template <int D>
 static cudaError_t launch_f32(bool dq, const void* q, const void* k,
                               const void* v, const void* d, const float* lse,
@@ -670,7 +1193,8 @@ static int launch(bool dq, const void* q, const void* k, const void* v,
                   int causal, int window, int q_offset, int dtype,
                   void* stream) {
   if (B <= 0 || L <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 ||
-      (long long)B * H > 65535 || o0 == nullptr || (!dq && o1 == nullptr))
+      (long long)B * H > 65535 || o0 == nullptr || (!dq && o1 == nullptr) ||
+      (D != 64 && D != 128) || (dtype != DT_F32 && dtype != DT_BF16))
     return cudaErrorInvalidValue;
   Geom g{L, H, Hkv, sqb, sql, sqh, skb, skl, skh, svb, svl, svh,
          sdb, sdl, sdh, causal, window, q_offset,
@@ -678,22 +1202,43 @@ static int launch(bool dq, const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* LSE = static_cast<const float*>(lse);
   const float* DELTA = static_cast<const float*>(delta);
+  const bool d64 = D == 64;
   cudaError_t e;
-  if (dtype == DT_BF16) {
-    if (D == 64) e = launch_bf16<64>(dq, q, k, v, d, LSE, DELTA, o0, o1, g, B, s);
-    else if (D == 128) e = launch_bf16<128>(dq, q, k, v, d, LSE, DELTA, o0, o1, g, B, s);
-    else return cudaErrorInvalidValue;
-  } else if (dtype == DT_F32) {
-    if (D == 64) e = launch_f32<64>(dq, q, k, v, d, LSE, DELTA, o0, o1, g, B, s);
-    else if (D == 128) e = launch_f32<128>(dq, q, k, v, d, LSE, DELTA, o0, o1, g, B, s);
-    else return cudaErrorInvalidValue;
-  } else {
-    return cudaErrorInvalidValue;
+  switch (bwd_path(q, k, v, d, B, D, g, dtype)) {
+    case PATH_TMA:
+      e = d64 ? launch_tma<64>(dq, q, k, v, d, LSE, DELTA, o0, o1, g, B, s)
+              : launch_tma<128>(dq, q, k, v, d, LSE, DELTA, o0, o1, g, B, s);
+      break;
+    case PATH_GENERAL:
+      e = d64 ? launch_bf16<64>(dq, q, k, v, d, LSE, DELTA, o0, o1, g, B, s)
+              : launch_bf16<128>(dq, q, k, v, d, LSE, DELTA, o0, o1, g, B, s);
+      break;
+    default:
+      e = d64 ? launch_f32<64>(dq, q, k, v, d, LSE, DELTA, o0, o1, g, B, s)
+              : launch_f32<128>(dq, q, k, v, d, LSE, DELTA, o0, o1, g, B, s);
   }
   return static_cast<int>(e);
 }
 
 extern "C" {
+
+// Which kernels lmr_flash_bwd_dq / _dkv run for these operands: 1 the TMA
+// + wgmma kernels, 0 the general bf16 kernels, 2 the f32 kernels, -1 none
+// (an unsupported dtype or head dim). Arguments as theirs, without the
+// lse, Δ, outputs, mask and stream.
+int lmr_flash_bwd_path(const void* q, const void* k, const void* v,
+                       const void* d, int B, int L, int H, int Hkv, int D,
+                       long long sqb, long long sql, long long sqh,
+                       long long skb, long long skl, long long skh,
+                       long long svb, long long svl, long long svh,
+                       long long sdb, long long sdl, long long sdh,
+                       int dtype) {
+  if ((dtype != DT_F32 && dtype != DT_BF16) || (D != 64 && D != 128))
+    return -1;
+  Geom g{L, H, Hkv, sqb, sql, sqh, skb, skl, skh, svb, svl, svh,
+         sdb, sdl, sdh, 0, 0, 0, 0.f};
+  return bwd_path(q, k, v, d, B, D, g, dtype);
+}
 
 // Both entry points: q, k, v, do, lse, delta, the outputs (dq and an
 // unused null for the dq kernel; dk, dv for the dkv kernel), the sizes,

@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: shared-
 // memory addresses, mbarriers (whose waits trap instead of hanging the
 // card), TMA loads and stores, wgmma descriptors, fences and products,
-// and the host side of TMA (the driver's tensor-map encoder) and the SM
-// count. gemm_sm90.cuh (B1, B7) and flash.cu (B4) build their pipelines
-// from these; decode.cu (B6) takes the SM count.
+// and the host side of TMA (the driver's tensor-map encoder, the layout
+// predicate and 4-D maps of the attention kernels' (B, L, H, D) operands)
+// and the SM count. gemm_sm90.cuh (B1, B7), flash.cu (B4) and
+// flash_bwd.cu (B5) build their pipelines from these; decode.cu (B6)
+// takes the SM count.
 
 #pragma once
 
@@ -104,11 +106,20 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
 // keeps the compiler from moving reads of wgmma accumulators (or
-// writes to its register operands) across a wgmma wait
+// writes to its register operands) across a wgmma fence or wait
 template <int N>
 __device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// the same for bf16 A fragments held in registers
+template <int N>
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) asm volatile("" : "+r"(a[i][q])::"memory");
 }
 
 // d (64 × 128, f32) += A (64 × 16) · B (16 × 128); TA / TB: the operand
@@ -138,6 +149,28 @@ __device__ __forceinline__ void wgmma_128(float (&d)[64], uint64_t da,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// d (64 × 64, f32) += A (64 × 16) · B (16 × 64), both from shared memory;
+// TA / TB as wgmma_128's
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_64(float (&d)[32], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
@@ -222,6 +255,41 @@ static EncodeTiledFn encode_fn() {
 
 static inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// Can TMA describe a (B, L, H, D) operand with unit stride along D: a
+// 16-byte aligned base, and every dimension longer than one with a
+// positive stride that is a multiple of 8 elements (16 bytes)?
+static bool tma_layout(const void* p, int B, int L, int H, long long sb,
+                       long long sl, long long sh) {
+  auto ok = [](int n, long long st) {
+    return n == 1 || (st > 0 && st % 8 == 0 && st * 2 < (1ll << 40));
+  };
+  return aligned16(p) && ok(B, sb) && ok(L, sl) && ok(H, sh);
+}
+
+// The 4-D tensor map {D, H, L, B} of a (B, L, H, D) bf16 operand, boxes
+// of {64, 1, rows, 1} with the 128-byte swizzle; rows past L read as
+// zero. A dimension of extent one gets the stride of a packed layout
+// (TMA wants a multiple of 16 bytes even where it never steps).
+static bool make_map4(CUtensorMap* map, const void* ptr, int B, int L,
+                      int H, int D, long long sb, long long sl,
+                      long long sh, int rows) {
+  EncodeTiledFn fn = encode_fn();
+  if (fn == nullptr) return false;
+  if (H == 1) sh = D;
+  if (L == 1) sl = sh * H;
+  if (B == 1) sb = sl * L;
+  cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)L,
+                        (cuuint64_t)B};
+  cuuint64_t strides[3] = {(cuuint64_t)(sh * 2), (cuuint64_t)(sl * 2),
+                           (cuuint64_t)(sb * 2)};
+  cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  cuuint32_t estr[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // the current device's SM count, remembered per device

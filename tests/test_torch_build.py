@@ -3,6 +3,7 @@ its source, every shared header in ``csrc`` and the nvcc flags, so an
 edited header rebuilds the libraries. No ``nvcc`` is needed: the test
 reads target names only."""
 
+import re
 import shutil
 
 import pytest
@@ -52,3 +53,16 @@ def test_edited_source_changes_only_its_target(csrc_copy):
     assert after["pool"] != before["pool"]
     assert {n: t for n, t in after.items() if n != "pool"} == \
         {n: t for n, t in before.items() if n != "pool"}
+
+
+@pytest.mark.parametrize("name", sorted(_build.SOURCES))
+def test_every_entry_point_has_a_signature(name):
+    """Each function of a source's ``extern "C"`` block is bound with its
+    argument types (``lmr_error_string``, common to all, is bound by
+    ``_load`` itself): ctypes would pass an unbound pointer argument as a
+    32-bit int."""
+    text = (_build.CSRC / _build.SOURCES[name]).read_text()
+    block = text[text.index('extern "C" {'):]
+    entries = set(re.findall(r"^\w[\w\s\*]*?\b(lmr_\w+)\(", block, re.M))
+    assert "lmr_error_string" in entries
+    assert entries - {"lmr_error_string"} == set(_build._SIGNATURES[name])

@@ -222,7 +222,8 @@ def test_mlp_on_the_card_matches_the_cpu(cuda):
 
 from lua_mapreduce_tpu_torch.ops.attention import (  # noqa: E402
     flash_attention_bwd_cuda, flash_attention_bwd_plain, flash_attention_cuda,
-    flash_attention_plain, flash_kernel_path)
+    flash_attention_plain, flash_bwd_dkv_cuda, flash_bwd_dq_cuda,
+    flash_bwd_kernel_path, flash_kernel_path)
 from lua_mapreduce_tpu_torch.ops.decode import (  # noqa: E402
     _merge_splits_plain, decode_attention_cuda, decode_attention_plain,
     decode_splits, merge_splits_cuda)
@@ -379,12 +380,15 @@ BWD_CASES = [(False, 0, 0, 4, 4, 96), (True, 0, 0, 4, 4, 200),
 def test_flash_bwd_kernels_match_plain(cuda, dtype, d, case):
     """dq from the dq kernel and (dk, dv) from the dkv kernel against
     the plain backward on the same inputs, with an lse cotangent: f32
-    at 1e-4, bf16 at 2e-2 and normwise within 1e-2."""
+    at 1e-4, bf16 at 2e-2 and normwise within 1e-2. bf16 takes the TMA
+    + wgmma kernels."""
     causal, window, q_offset, h, hkv, l = case
     q = _randn(cuda, 2, l, h, d, dtype=dtype, scale=0.5)
     k = _randn(cuda, 2, l, hkv, d, dtype=dtype, scale=0.5)
     v = _randn(cuda, 2, l, hkv, d, dtype=dtype, scale=0.5)
     do = _randn(cuda, 2, l, h, d)
+    assert flash_bwd_kernel_path(q, k, v, do.to(dtype)) == (
+        "f32" if dtype == torch.float32 else "tma")
     g_lse = _randn(cuda, 2, l, h)
     kw = dict(window=window, q_offset=q_offset)
     o, lse = flash_attention_cuda(q, k, v, causal=causal, with_lse=True,
@@ -417,6 +421,75 @@ def test_flash_bwd_kernels_strided_views(cuda):
                                     True)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", PATH_CASES)
+def test_flash_bwd_tma_and_general_paths_agree(cuda, d, case):
+    """One input as contiguous tensors (the TMA + wgmma kernels) and as
+    misaligned views (the general kernels): dq, dk and dv agree with each
+    other and with the plain backward at the bf16 tolerance; L = 300 is
+    not a multiple of any tile."""
+    causal, window, q_offset, h, hkv = case
+    l = 300
+    qa, qu = _aligned_and_misaligned(cuda, 2, l, h, d, scale=2.0)
+    ka, ku = _aligned_and_misaligned(cuda, 2, l, hkv, d)
+    va, vu = _aligned_and_misaligned(cuda, 2, l, hkv, d)
+    da, du = _aligned_and_misaligned(cuda, 2, l, h, d)
+    assert flash_bwd_kernel_path(qa, ka, va, da) == "tma"
+    assert flash_bwd_kernel_path(qu, ku, vu, du) == "general"
+    g_lse = _randn(cuda, 2, l, h)
+    kw = dict(window=window, q_offset=q_offset, g_lse=g_lse)
+    o, lse = flash_attention_cuda(qa, ka, va, causal=causal, with_lse=True,
+                                  window=window, q_offset=q_offset)
+    fast = flash_attention_bwd_cuda(qa, ka, va, o, lse, da, causal, **kw)
+    general = flash_attention_bwd_cuda(qu, ku, vu, o, lse, du, causal, **kw)
+    want = flash_attention_bwd_plain(qa, ka, va, o, lse, da, causal, **kw)
+    for name, f, g, w in zip(("dq", "dk", "dv"), fast, general, want):
+        for got in (f, g):
+            torch.testing.assert_close(got.float(), w.float(), **BF16,
+                                       msg=name)
+        torch.testing.assert_close(f.float(), g.float(), **BF16, msg=name)
+
+
+def test_flash_bwd_path_follows_the_layout(cuda):
+    """lmr_flash_bwd_path: contiguous operands, the model's fused-qkv
+    views and a strided do take the TMA + wgmma kernels; a view whose
+    row stride breaks 16-byte alignment the general kernels; f32 its
+    own."""
+    x = _randn(cuda, 2, 70, 4, 64, dtype=torch.bfloat16)
+    assert flash_bwd_kernel_path(x, x, x, x) == "tma"
+    qkv = _randn(cuda, 2, 70, 3 * 4 * 64, dtype=torch.bfloat16)
+    q, k, v = (qkv[..., i * 256:(i + 1) * 256].reshape(2, 70, 4, 64)
+               for i in range(3))
+    do = _randn(cuda, 2, 70, 8, 64, dtype=torch.bfloat16)[:, :, ::2]
+    assert flash_bwd_kernel_path(q, k, v, do) == "tma"
+    odd = _randn(cuda, 2, 70, 4 * 64 + 4, dtype=torch.bfloat16)
+    q_odd = odd[..., :256].reshape(2, 70, 4, 64)   # row stride 260
+    assert flash_bwd_kernel_path(q_odd, k, v, do) == "general"
+    assert flash_bwd_kernel_path(q, k, v, q_odd) == "general"
+    x32 = x.float()
+    assert flash_bwd_kernel_path(x32, x32, x32, x32) == "f32"
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+def test_flash_bwd_two_calls_bit_equal(cuda, group):
+    """No atomics: two calls of each backward kernel give the same bits,
+    GQA's sum over the group included."""
+    h, l, d = 8, 300, 64
+    q = _randn(cuda, 2, l, h, d, dtype=torch.bfloat16, scale=2.0)
+    k, v = (_randn(cuda, 2, l, h // group, d, dtype=torch.bfloat16)
+            for _ in range(2))
+    do = _randn(cuda, 2, l, h, d, dtype=torch.bfloat16)
+    o, lse = flash_attention_cuda(q, k, v, causal=True, with_lse=True)
+    delta = (do.float() * o).sum(-1).contiguous()
+    assert flash_bwd_kernel_path(q, k, v, do) == "tma"
+    dq = [flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal=True)
+          for _ in range(2)]
+    dkv = [flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=True)
+           for _ in range(2)]
+    assert torch.equal(dq[0], dq[1])
+    assert all(torch.equal(a, b) for a, b in zip(*dkv))
 
 
 def test_lm_train_step_on_the_card_matches_the_cpu(cuda):
