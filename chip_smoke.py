@@ -14,8 +14,13 @@ Phases, each a hard failure on any mismatch:
              only) and the H100 bound for the same work; bf16 and
              int8 serving rows are also held normwise, and each
              attention row shows its check refuses a wrong output; the
-             conv paths' pool calls (max rows held at zero error) and
-             every product of their conv steps (forward, dA, dB), each
+             softmax rows (the wide step's, a vocab-wide (1024, 32768)
+             row) and the conv paths' pool calls (the stem's at its real
+             (32, 114, 114, 64) input; max rows held at zero error)
+             each name the branch of their kernel they took (asserted:
+             the main path's wide rows take the 16-byte branches) and
+             are held bit-equal over two calls; every product of the
+             conv steps (forward, dA, dB), each
              conv also timed once through cuDNN as its yardstick; every
              matmul and q8 row names the K split its kernel picks, every
              flash row (forward, and the backward's dq and dkv) the
@@ -294,6 +299,7 @@ def phase_kernels(torch, ops, gen):
     from lua_mapreduce_tpu_torch.ops.matmul import matmul_cuda, matmul_plain
     from lua_mapreduce_tpu_torch.ops.softmax import (log_softmax_plain,
                                                      rowwise_softmax_cuda,
+                                                     softmax_kernel_plan,
                                                      softmax_plain)
     rows = []
     for label, m, k, n, dt, ta, tb in matmul_cases():
@@ -322,17 +328,24 @@ def phase_kernels(torch, ops, gen):
             "library_ms": time_ms(lambda: torch.matmul(a, b), torch),
             "bound_ms": bms, "bound_by": by})
         del a, b, got
-    # the digits step and validation, the wide step, and the logits of
-    # the LeNet b1024 and ResNet-18 b32 steps (log_softmax only there:
-    # the one-warp path at n = 10 and the 16-warp path at n = 1000)
-    for shape, dt, modes in (((128, 10), "float32", (0, 1)),
-                             ((200, 10), "float32", (0, 1)),
-                             ((8192, 8192), "bfloat16", (0, 1)),
-                             ((1024, 10), "bfloat16", (0,)),
-                             ((32, 1000), "bfloat16", (0,))):
+    # the digits step and validation, the wide step, the logits of the
+    # LeNet b1024 and ResNet-18 b32 steps (log_softmax only there), and a
+    # vocab-wide row (the LM's 32768 classes, 128 MiB); each with the
+    # branch of csrc/softmax.cu it must take
+    for shape, dt, modes, branch in (
+            ((128, 10), "float32", (0, 1), "warp/scalar"),
+            ((200, 10), "float32", (0, 1), "warp/scalar"),
+            ((8192, 8192), "bfloat16", (0, 1), "regs/v16"),
+            ((1024, 10), "bfloat16", (0,), "warp/scalar"),
+            ((32, 1000), "bfloat16", (0,), "warp/v16"),
+            ((1024, 32768), "bfloat16", (0,), "stream/v16")):
         dtype = getattr(torch, dt)
         x = (torch.randn(shape, device="cuda", generator=gen) * 3).to(dtype)
         ntol = NORM_TOL if dt == "bfloat16" else None
+        took = softmax_kernel_plan(x).name
+        if took != branch:
+            raise AssertionError(f"softmax {shape} {dt} took the {took} "
+                                 f"branch, expected {branch}")
         for mode, name, plain, lib in (
                 (0, "log_softmax", log_softmax_plain, torch.log_softmax),
                 (1, "softmax", softmax_plain, torch.softmax)):
@@ -344,12 +357,14 @@ def phase_kernels(torch, ops, gen):
                               norm_tol=ntol)
             if mode == 0:
                 assert bool(torch.isfinite(got).all())
+            if not torch.equal(rowwise_softmax_cuda(x, mode), got):
+                raise AssertionError(f"{name} {shape}: two calls differ")
             item = 2 if dtype == torch.bfloat16 else 4
             numel = shape[0] * shape[1]
             # ~5 f32 operations per element: max, sub, exp, add, sub/mul
             bms, by = bound(5 * numel, 2 * numel * item, PEAK_F32_FLOPS)
             rows.append({
-                "kernel": "rowwise_softmax",
+                "kernel": "rowwise_softmax", "branch": took,
                 "case": f"{name} {shape} {dt}", "max_abs_err": err,
                 "norm_err": norm_err(got, plain(x)) if ntol else None,
                 "ms": time_ms(lambda: rowwise_softmax_cuda(x, mode), torch),
@@ -1158,23 +1173,32 @@ def phase_conv_kernels(torch, gen):
     from lua_mapreduce_tpu_torch import ops
     from lua_mapreduce_tpu_torch.ops.conv import _norm_padding, _pad_hw
     from lua_mapreduce_tpu_torch.ops.matmul import matmul_cuda, matmul_plain
-    from lua_mapreduce_tpu_torch.ops.pool import _pool_plain, pool_cuda
+    from lua_mapreduce_tpu_torch.ops.pool import (_pool_plain, pool_cuda,
+                                                  pool_kernel_plan)
     rows = []
     bf16 = torch.bfloat16
 
-    # ---- pool: LeNet's two 2x2 max pools, the stem's -inf bordered 3x3/2
-    # max pool, and one 2x2 avg row (no caller on the main path)
-    for label, shape, window, mode, border in (
-            ("lenet pool1", (1024, 28, 28, 6), 2, "max", False),
-            ("lenet pool2", (1024, 10, 10, 16), 2, "max", False),
+    # ---- pool: LeNet's two 2x2 max pools, the stem's 3x3/2 max pool at
+    # its real input (the (32, 112, 112, 64) relu output with its -inf
+    # border, 114 x 114), and one 2x2 avg row (no caller on the main
+    # path); each with the branch of csrc/pool.cu it must take
+    for label, shape, window, mode, border, branch in (
+            ("lenet pool1", (1024, 28, 28, 6), 2, "max", False,
+             "general/w2"),
+            ("lenet pool2", (1024, 10, 10, 16), 2, "max", False,
+             "vector/w8"),
             ("resnet stem pool, -inf border", (32, 112, 112, 64), 3, "max",
-             True),
+             True, "vector/w8"),
             ("avg (no main-path caller)", (32, 56, 56, 64), 2, "avg",
-             False)):
+             False, "vector/w8")):
         x = torch.randn(shape, device="cuda", generator=gen).to(bf16)
         if border:          # relu output padded with -inf, as _stem does
             x = _pad_hw(torch.relu(x), (1, 1), (1, 1), value=-math.inf)
         win, st = (window, window), (2, 2)
+        took = pool_kernel_plan(x, win, st).name
+        if took != branch:
+            raise AssertionError(f"pool {label} took the {took} branch, "
+                                 f"expected {branch}")
 
         def run(x=x, win=win, st=st, mode=mode):
             return pool_cuda(x, win, st, mode)
@@ -1190,6 +1214,8 @@ def phase_conv_kernels(torch, gen):
         torch.cuda.synchronize()
         if not bool(torch.isfinite(got).all()):
             raise AssertionError(f"pool {label}: non-finite output")
+        if not torch.equal(run(), got):
+            raise AssertionError(f"pool {label}: two calls differ")
         if mode == "max":
             err = check_close(f"pool {label}", got, want, "bfloat16", (0, 0))
         else:
@@ -1200,10 +1226,11 @@ def phase_conv_kernels(torch, gen):
         del got, want
         nbytes = (x.numel() + n_out) * x.element_size()
         flops = n_out * win[0] * win[1]
-        rows.append(serving_row(torch, "pool", f"pool {label} "
-                                f"{tuple(x.shape)} {win[0]}x{win[1]}/2 "
-                                f"{mode} bfloat16", err, run, plain, lib,
-                                flops, nbytes, PEAK_F32_FLOPS, rel))
+        rows.append({**serving_row(torch, "pool", f"pool {label} "
+                                   f"{tuple(x.shape)} {win[0]}x{win[1]}/2 "
+                                   f"{mode} bfloat16", err, run, plain, lib,
+                                   flops, nbytes, PEAK_F32_FLOPS, rel),
+                     "branch": took})
         del x, xl
     torch.cuda.empty_cache()
 
@@ -1358,7 +1385,9 @@ def phase_conv(torch, ops, gen):
                                  "wgmma_gemm_kernel")),
                 ("matmul_splitk_reduce", ("splitk_reduce_kernel",)),
                 ("pool", ("pool_kernel",)),
-                ("rowwise_softmax", ("rowwise_softmax_kernel",)))
+                ("rowwise_softmax", ("softmax_warp_kernel",
+                                     "softmax_regs_kernel",
+                                     "softmax_stream_kernel")))
         port_ms = {k: sum(r[1] for r in kernels if any(t in r[0] for t in tag))
                    for k, tag in tags}
         # the trace is whole if it lists every launch the step makes
@@ -1938,6 +1967,8 @@ def main():
             extra += f", splits {r['splits']}"
         if r.get("path") is not None:
             extra += f", {r['path']} kernel"
+        if r.get("branch") is not None:
+            extra += f", {r['branch']} branch, two calls bit-equal"
         if r.get("n_split") is not None:
             extra += (f", n_split {r['n_split']}, two calls bit-equal")
         if r.get("cudnn_conv_ms") is not None:

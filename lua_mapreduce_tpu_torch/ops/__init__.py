@@ -47,6 +47,17 @@ def reset_launch_counts() -> None:
             _launches[k] = 0
 
 
+def alignment(*byte_values: int) -> int:
+    """The largest power of two up to 16 that divides every value (an
+    address or a pitch in bytes): what a kernel's plan reads to choose
+    16-byte accesses."""
+    a = 16
+    for v in byte_values:
+        while v % a:
+            a //= 2
+    return a
+
+
 def device_kind(*tensors: torch.Tensor) -> str:
     """``"cpu"`` or ``"cuda"``: where an op on ``tensors`` runs. Mixed
     or other devices raise."""

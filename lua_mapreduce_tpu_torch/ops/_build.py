@@ -43,7 +43,8 @@ _SIGNATURES = {
                "lmr_matmul_splits": [_P, _P, _I, _I, _I, _L, _L, _L, _L,
                                      _I],
                "lmr_matmul_tma_available": []},
-    "softmax": {"lmr_rowwise_softmax": [_P, _P, _L, _I, _I, _I, _P]},
+    "softmax": {"lmr_softmax": [_P, _P, _L, _I, _L] + [_I] * 7
+                + [_L, _P]},
     "flash": {"lmr_flash_fwd": [_P] * 5 + [_I] * 5 + [_L] * 9 + [_I] * 5
               + [_P],
               "lmr_flash_path": [_P] * 3 + [_I] * 5 + [_L] * 9 + [_I]},
@@ -56,7 +57,7 @@ _SIGNATURES = {
                "lmr_decode_combine": [_P] * 4 + [_I] * 4 + [_P]},
     "q8": {"lmr_q8_matmul": [_P] * 5 + [_I] * 4 + [_P],
            "lmr_q8_splits": [_I] * 3},
-    "pool": {"lmr_pool": [_P, _P] + [_I] * 10 + [_P]},
+    "pool": {"lmr_pool": [_P, _P] + [_I] * 18 + [_P]},
 }
 
 _lock = threading.Lock()

@@ -16,8 +16,10 @@ import torch
 
 from lua_mapreduce_tpu_torch import ops
 from lua_mapreduce_tpu_torch.ops.matmul import matmul_cuda, matmul_plain
-from lua_mapreduce_tpu_torch.ops.softmax import (log_softmax_plain,
+from lua_mapreduce_tpu_torch.ops.softmax import (REGS_MAX_N,
+                                                 log_softmax_plain,
                                                  rowwise_softmax_cuda,
+                                                 softmax_kernel_plan,
                                                  softmax_plain)
 
 pytestmark = pytest.mark.cuda
@@ -96,6 +98,109 @@ def test_rowwise_kernel_extreme_and_noncontiguous(cuda):
     torch.testing.assert_close(got, log_softmax_plain(x), **F32)
     y = _randn(cuda, 40, 30).t()        # non-contiguous rows
     torch.testing.assert_close(ops.softmax(y), softmax_plain(y), **F32)
+
+
+def _layout(gen, rows, n, dtype, how, scale=5.0):
+    """(rows, n) values in one of three layouts: "contiguous"; "offset",
+    contiguous but one element past a 16-byte boundary (every access
+    misaligned); "view", the [:, 1:] view of a (rows, n + 1) tensor (row
+    pitch n + 1, read in place)."""
+    if how == "contiguous":
+        return _randn(gen, rows, n, dtype=dtype, scale=scale)
+    if how == "offset":
+        flat = _randn(gen, rows * n + 1, dtype=dtype, scale=scale)
+        return flat[1:].view(rows, n)
+    return _randn(gen, rows, n + 1, dtype=dtype, scale=scale)[:, 1:]
+
+
+# every branch of csrc/softmax.cu at and one past its boundaries, an odd
+# width in each, as (n, branch when aligned)
+SOFTMAX_EDGES = [(1, "warp"), (10, "warp"), (999, "warp"), (1024, "warp"),
+                 (1025, "regs"), (4096, "regs"), (4097, "regs"),
+                 (8192, "regs"), (REGS_MAX_N, "regs"),
+                 (REGS_MAX_N + 1, "stream"), (32768, "stream"),
+                 (70001, "stream")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,branch", SOFTMAX_EDGES)
+@pytest.mark.parametrize("how", ["contiguous", "offset", "view"])
+def test_softmax_branches_match_plain(cuda, dtype, n, branch, how):
+    x = _layout(cuda, 5, n, dtype, how)
+    plan = softmax_kernel_plan(x)
+    item = x.element_size()
+    assert plan.branch == branch
+    assert plan.vector == (how == "contiguous" and n * item % 16 == 0)
+    tol = F32 if dtype == torch.float32 else BF16
+    for mode, plain in ((0, log_softmax_plain), (1, softmax_plain)):
+        got = rowwise_softmax_cuda(x, mode)
+        want = plain(x)
+        assert got.dtype == dtype and got.shape == x.shape
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        if dtype == torch.bfloat16:     # (n = 1: log_softmax is all 0)
+            rel = ((got.float() - want.float()).norm()
+                   / want.float().norm().clamp_min(1e-30))
+            assert float(rel) <= 1e-2
+        assert torch.equal(rowwise_softmax_cuda(x, mode), got)
+
+
+def test_softmax_main_path_shapes_take_the_vector_branches(cuda):
+    bf = torch.bfloat16
+    for shape, name in (((8192, 8192), "regs/v16"),
+                        ((1024, 32768), "stream/v16"),
+                        ((32, 1000), "warp/v16"),
+                        ((1024, 10), "warp/scalar"),
+                        ((128, 10), "warp/scalar")):
+        x = torch.empty(shape, device="cuda", dtype=bf)
+        assert softmax_kernel_plan(x).name == name, shape
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [12, 2048, REGS_MAX_N + 8])
+def test_softmax_nonfinite_rows_match_plain(cuda, dtype, n):
+    """Per branch: a row with -inf entries stays finite where the plain
+    version is, and rows that are all -inf or hold +inf or NaN give NaN
+    as the plain version does (a late NaN after -inf too)."""
+    x = _randn(cuda, 6, n, scale=3.0)
+    x[0, ::3] = -float("inf")
+    x[1] = -float("inf")
+    x[2, n // 2] = float("inf")
+    x[3, n - 1] = float("nan")
+    x[4, : n - 1] = -float("inf")
+    x[4, n - 1] = float("nan")
+    x[5, :4] = torch.tensor([1e4, -1e4, 0.0, 5.0])
+    x = x.to(dtype)
+    tol = F32 if dtype == torch.float32 else BF16
+    for mode, plain in ((0, log_softmax_plain), (1, softmax_plain)):
+        got, want = rowwise_softmax_cuda(x, mode), plain(x)
+        torch.testing.assert_close(got.float(), want.float(), **tol,
+                                   equal_nan=True)
+        assert bool(torch.isfinite(got[5]).all()) == bool(
+            torch.isfinite(want[5]).all())
+
+
+def test_softmax_kernel_refuses_a_plan_it_cannot_run(cuda):
+    from lua_mapreduce_tpu_torch.ops import _build
+    from lua_mapreduce_tpu_torch.ops.softmax import BRANCHES, softmax_plan
+    lib = _build.library("softmax")
+    x = _randn(cuda, 4, 2048, dtype=torch.bfloat16)
+    y = torch.empty_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
+    good = softmax_plan(4, 2048, torch.bfloat16, 16)
+
+    def rc(plan, xp=x.data_ptr(), n=2048):
+        return lib.lmr_softmax(xp, y.data_ptr(), 4, n, n, 1, 0,
+                               BRANCHES.index(plan.branch),
+                               int(plan.vector), plan.per_thread,
+                               plan.threads, plan.rows_per_block,
+                               plan.blocks, stream)
+    assert rc(good) == 0
+    for bad in (good._replace(threads=good.threads // 2),   # short rows
+                good._replace(per_thread=8),                # no such E
+                good._replace(branch="warp"),               # n > 1024
+                good._replace(blocks=3)):
+        assert rc(bad) != 0, bad
+    assert rc(good, xp=x.data_ptr() + 2, n=2047) != 0       # misaligned
 
 
 def _grads(fn, *xs):
@@ -691,7 +796,8 @@ def test_lm_on_the_card_matches_the_cpu(cuda):
 # ----------------------------------------------------- conv-path kernels
 
 from lua_mapreduce_tpu_torch.ops.conv import _pad_hw  # noqa: E402
-from lua_mapreduce_tpu_torch.ops.pool import _pool_plain, pool_cuda  # noqa: E402
+from lua_mapreduce_tpu_torch.ops.pool import (_pool_plain,  # noqa: E402
+                                              pool_cuda, pool_kernel_plan)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -825,3 +931,98 @@ def test_pool_kernel_rejects_what_it_does_not_take(cuda):
     torch.testing.assert_close(pool_cuda(x, (2, 2), (2, 2), "max"),
                                _pool_plain(x, (2, 2), (2, 2), "max"),
                                rtol=0, atol=0)
+
+
+def _pool_input(gen, shape, dtype, offset):
+    """An NHWC input; with ``offset`` elements of a flat buffer before
+    it, so its accesses are misaligned by that many elements."""
+    numel = shape[0] * shape[1] * shape[2] * shape[3]
+    flat = _randn(gen, numel + offset, dtype=dtype)
+    return flat[offset:].view(shape)
+
+
+# (C, dtype, offset, branch/width): 16-byte chunks where C·itemsize is a
+# multiple of 16 on an aligned pointer, else bf16 pairs or elements
+POOL_CASES = [(c, dt, off) for c in (5, 6, 8, 16, 64)
+              for dt in (torch.float32, torch.bfloat16) for off in (0, 1, 2)]
+
+
+def _pool_expect(c, dtype, offset):
+    item = 4 if dtype == torch.float32 else 2
+    if offset == 0 and c * item % 16 == 0:
+        return "vector", 16 // item
+    if item == 2 and c % 2 == 0 and offset * item % 4 == 0:
+        return "general", 2
+    return "general", 1
+
+
+@pytest.mark.parametrize("c,dtype,offset", POOL_CASES)
+@pytest.mark.parametrize("mode", ["max", "avg"])
+@pytest.mark.parametrize("hw,window,stride", [
+    (28, (2, 2), (2, 2)), (23, (3, 3), (2, 2)), (9, (3, 2), (1, 2))])
+def test_pool_branches_match_plain(cuda, c, dtype, offset, mode, hw, window,
+                                   stride):
+    x = _pool_input(cuda, (3, hw, hw, c), dtype, offset)
+    plan = pool_kernel_plan(x, window, stride)
+    assert (plan.branch, plan.width) == _pool_expect(c, dtype, offset)
+    got = pool_cuda(x, window, stride, mode)
+    want = _pool_plain(x, window, stride, mode)
+    if mode == "max":
+        torch.testing.assert_close(got, want, rtol=0, atol=0)   # exact
+    elif dtype == torch.float32:
+        torch.testing.assert_close(got, want, **F32)
+    else:
+        torch.testing.assert_close(got.float(),
+                                   _pool_plain(x.float(), window, stride,
+                                               mode), **BF16)
+    assert torch.equal(pool_cuda(x, window, stride, mode), got)
+
+
+def test_pool_main_path_shapes_take_the_vector_branch(cuda):
+    bf = torch.bfloat16
+    for shape, window, name in (((32, 114, 114, 64), 3, "vector/w8"),
+                                ((1024, 10, 10, 16), 2, "vector/w8"),
+                                ((1024, 28, 28, 6), 2, "general/w2")):
+        x = torch.empty(shape, device="cuda", dtype=bf)
+        got = pool_kernel_plan(x, (window, window), (2, 2)).name
+        assert got == name, shape
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [6, 64])
+def test_pool_nan_and_neg_inf_windows(cuda, dtype, c):
+    """NaN wins its window and stays; an all -inf window gives -inf; a
+    window with -inf and a finite value gives the value."""
+    x = torch.relu(_randn(cuda, 2, 9, 9, c))
+    x[:, :3, :3] = -float("inf")
+    x[0, 4, 4, : c // 2] = float("nan")
+    x[1, 6, 0] = -float("inf")
+    x = x.to(dtype)
+    for window in ((2, 2), (3, 3)):
+        got = pool_cuda(x, window, (2, 2), "max")
+        want = _pool_plain(x, window, (2, 2), "max")
+        torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                   equal_nan=True)
+        assert bool(got.isnan().any()) and bool((got == -float("inf")).any())
+
+
+def test_pool_kernel_refuses_a_plan_it_cannot_run(cuda):
+    from lua_mapreduce_tpu_torch.ops import _build
+    from lua_mapreduce_tpu_torch.ops.pool import BRANCHES, pool_plan
+    lib = _build.library("pool")
+    x = _randn(cuda, 2, 8, 8, 16, dtype=torch.bfloat16)
+    y = torch.empty(2, 4, 4, 16, device="cuda", dtype=torch.bfloat16)
+    stream = torch.cuda.current_stream().cuda_stream
+    good = pool_plan(2, 8, 8, 16, (2, 2), (2, 2), torch.bfloat16, 16)
+
+    def rc(plan, xp=x.data_ptr()):
+        return lib.lmr_pool(xp, y.data_ptr(), 2, 8, 8, 16, 2, 2, 2, 2, 1,
+                            0, BRANCHES.index(plan.branch), plan.width,
+                            *plan.block, *plan.grid, stream)
+    assert rc(good) == 0
+    for bad in (good._replace(block=(2, 2, 2)),           # rows uncovered
+                good._replace(width=2),                   # branch mismatch
+                good._replace(block=(8, 8, 8)),           # > 256 threads
+                good._replace(grid=(1, 1, 3))):           # more images
+        assert rc(bad) != 0, bad
+    assert rc(good, xp=x.data_ptr() + 2) != 0             # misaligned
