@@ -36,13 +36,20 @@ _build.build_all()
 gen = torch.Generator(device="cuda").manual_seed(0)
 m = {}
 m["digits wall s"] = cs.phase_digits(torch, ops)[2]
-m["wide ms/step"] = cs.phase_wide(torch, ops, gen)[1]["step_ms"]
+wide = cs.phase_wide(torch, ops, gen)[1]
+for key in ("step_ms", "eager_step_ms"):
+    if key in wide:
+        m[f"wide {key}"] = wide[key]
 for tag, r in cs.phase_serving(torch, ops).items():
-    for key in ("prefill_ms", "decode_step_ms", "step_kernel_ms"):
-        m[f"serving {tag} {key}"] = r[key]
+    for key in ("prefill_ms", "decode_step_ms", "step_kernel_ms",
+                "capture_ms", "decode_step_ms_without_capture",
+                "eager_decode_step_ms"):
+        if key in r:
+            m[f"serving {tag} {key}"] = r[key]
 for name, r in cs.phase_conv(torch, ops, gen).items():
-    for key in ("step_ms", "profiled_step_device_ms"):
-        m[f"conv {name} {key}"] = r[key]
+    for key in ("step_ms", "eager_step_ms", "profiled_step_device_ms"):
+        if key in r:
+            m[f"conv {name} {key}"] = r[key]
 for tag, r in cs.phase_lm_train(torch, ops).items():
     for key in ("step_ms", "profiled_step_device_ms"):
         m[f"lm {tag} {key}"] = r[key]
@@ -79,8 +86,10 @@ def main(argv):
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(f"{gpu}; A = {roots[0]}, B = {roots[1]}; runs A, B, B, A")
-    for key in runs[0][1]:
-        vals = "  ".join(f"{tag} {m[key]:10.4f}" for tag, m in runs)
+    keys = list(dict.fromkeys(k for _, m in runs for k in m))
+    for key in keys:
+        vals = "  ".join(f"{tag} {m[key]:10.4f}" if key in m
+                         else f"{tag} {'-':>10s}" for tag, m in runs)
         print(f"{key:48s} {vals}")
     out = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "chiprun_out")

@@ -41,29 +41,44 @@ Phases, each a hard failure on any mismatch:
              LocalExecutor on ``mem:``, held against the same run on the
              CPU;
 5. wide    — the single-device trainer on a (8192,)×4 bf16 MLP at batch
-             8192, a few steps: images/s and model TFLOP/s;
+             8192, a few steps, each a replay of the captured CUDA graph
+             of the step: images/s and model TFLOP/s, beside an eager
+             loop written here from the same loss and a fresh SGD (ms
+             and peak memory of both; losses and parameters bit-equal);
 6. serving — the LM serving path at the full width of the repo's decode
              benchmark (d_model 1024, 16 heads, 8 layers, d_ff 4096,
              vocab 32768; batch 4, prompt 3968, 128 new tokens), random
              weights from a seed: ``greedy_decode(use_prefill=True)`` in
              bf16, then with int8 weights (``quantize_lm``) and an int8
-             KV cache — prefill ms, decode-tail and end-to-end tokens/s,
-             and from a profiled repeat the kernel time and the kernel
-             launches per decode step (each decode call is a split
-             kernel and, with more than one split, a combine);
+             KV cache, its decode steps replays of one captured step —
+             prefill ms, the step's capture ms, decode-tail and
+             end-to-end tokens/s, beside the same loop run eagerly
+             (same tokens), and from a profiled repeat the kernel time
+             and the kernel launches per decode step (each decode call
+             is a split kernel and, with more than one split, a
+             combine); the port kernels the profiled repeat lists must
+             equal the launches credited per replay (a trace that lost
+             records is taken again, at most three times);
 7. serving check — the same widths at 2 layers in f32 (prompt 256, 32
              new tokens): greedy tokens on the card equal the CPU run
              through the plain versions, prefill equals the position
-             scan on the card, the int8 dict's prefill logits agree
-             with the CPU's, and its greedy run with an int8 KV cache
-             is held step by step on the head's logits;
+             scan on the card; a sampled row (temperature 0.8, top_k
+             40, a fixed key): captured tokens equal the eager loop's,
+             each in the top 40 of its step's logits, top_k=1 is
+             greedy; the int8 dict's prefill logits agree with the
+             CPU's, and its greedy run with an int8 KV cache is held
+             step by step on the head's logits (read from an eager run
+             on the card, whose tokens equal the captured run's);
 8. conv    — the single-device trainer at the repo's conv benchmarks'
              full width (``benchmarks/kernel_bench.py`` configs
              lenet5_cifar b1024 and resnet18_imagenet b32, 224x224,
              1000 classes), bf16, random weights and inputs from a seed:
-             ms/step, images/s and model TFLOP/s, and from a profiled
-             repeat where a step's device time goes (the matmul kernels'
-             launches per step, the split-K reduce's among them);
+             captured ms/step beside the eager loop's (losses and
+             parameters bit-equal), images/s, model TFLOP/s, peak memory
+             of both, and
+             from a profiled repeat where a step's device time goes
+             (the matmul kernels' launches per step, the split-K
+             reduce's among them);
 9. conv check — LeNet-5 b64 and the ResNet-18 ImageNet topology at
              64x64 b4, f32, three trainer steps on the card against the
              same steps on the CPU (LeNet free-running, ResNet from the
@@ -85,7 +100,13 @@ Phases, each a hard failure on any mismatch:
              updates normwise within 1e-4), and a remat + grad_accum=2
              step equal to the plain step;
 12. train_lm — the port's trainer script at the LM widths with ``--bf16``
-             for 20 steps on its synthetic task: the loss falls.
+             for 20 steps on its synthetic task: the loss falls;
+13. digits e2e — ``examples/digits/e2e.py``: the digits sheet through the
+             captured harness and the MapReduce loop, both at least 0.95
+             validation accuracy and within 0.05 of each other;
+14. resume — ``fit(conf=)`` with a file-backed persistent table: 3
+             epochs, then a fresh trainer resumes to 5 (epochs [4, 5],
+             parameters equal to a never-stopped run's).
 
 Launch counts are zeroed just before each run of phases 4, 5, 6, 8 and 10 and
 read just after, and must equal the counts worked out from the code; a
@@ -542,10 +563,14 @@ def phase_serving_kernels(torch, gen):
             kd = (k.float() * ks[..., None]).to(torch.bfloat16)
             vd = (v.float() * vs[..., None]).to(torch.bfloat16)
 
-        def run(q=q, k=k, v=v, t=t, roll=roll, scales=scales):
+        # the position as the captured decode loop passes it: a device
+        # scalar the kernel reads
+        t_dev = torch.full((), t, dtype=torch.int64, device="cuda")
+
+        def run(q=q, k=k, v=v, t=t_dev, roll=roll, scales=scales):
             return decode_attention_cuda(q, k, v, t, roll, **scales)
 
-        def plain(q=q, k=k, v=v, t=t, roll=roll, scales=scales):
+        def plain(q=q, k=k, v=v, t=t_dev, roll=roll, scales=scales):
             return decode_attention_plain(q, k, v, t, roll, **scales)
         got, want = run(), plain()
         torch.cuda.synchronize()
@@ -764,7 +789,85 @@ def phase_digits(torch, ops, n_iter=6):
 
 # ------------------------------------------------------------ phase 5
 
+class EagerGraph:
+    """Stands in for ``graphs.CapturedGraph`` in a module that captures a
+    loop (``eager_graphs``): every replay calls the step, so the same
+    loop runs eagerly on the card."""
+
+    def __init__(self, fn, tag="graph"):
+        self.fn, self.output = fn, None
+
+    def replay(self):
+        self.output = self.fn()
+        return self.output
+
+
+@contextlib.contextmanager
+def eager_graphs(module):
+    """Within the block, ``module``'s captured loop runs its step
+    eagerly at every position: the eager loop on the card that the
+    captured one is held to and timed against."""
+    saved = module.CapturedGraph
+    module.CapturedGraph = EagerGraph
+    try:
+        yield
+    finally:
+        module.CapturedGraph = saved
+
+
+def eager_train(torch, loss_fn, params, cfg, x, y, warm, steps):
+    """The eager loop a captured training step is held to, written here
+    from the same ``loss_fn``: copies of ``params``, a fresh
+    ``torch.optim.SGD`` at the config's rates, and per step zero_grad,
+    loss, backward, step. ``warm`` untimed steps, then ``steps`` timed.
+    Returns (losses, params, ms per timed step, peak GiB above the
+    memory in use before the copies)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    p = {k: v.detach().clone().requires_grad_(True)
+         for k, v in params.items()}
+    opt = torch.optim.SGD(list(p.values()), lr=cfg.learning_rate,
+                          momentum=cfg.momentum,
+                          weight_decay=cfg.weight_decay)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(p, x, y)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+    losses = [step() for _ in range(warm)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(steps)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    opt.zero_grad(set_to_none=True)
+    return torch.stack(losses).float().cpu(), p, ms, peak
+
+
+def hold_captured(name, torch, got_losses, want_losses, got_params,
+                  want_params):
+    """Captured steps against the eager loop from equal parameters: every
+    loss and every final parameter bit for bit (each model's step is
+    deterministic: split-K partials summed in a fixed order, col2im and
+    the pool backward as gathers)."""
+    got_losses = torch.as_tensor(got_losses).float().cpu()
+    if not (torch.equal(got_losses, want_losses) and all(
+            torch.equal(got_params[k].detach(), want_params[k].detach())
+            for k in want_params)):
+        raise AssertionError(f"{name}: captured steps differ from the "
+                             f"eager loop (losses {got_losses.tolist()} vs "
+                             f"{want_losses.tolist()})")
+    return True
+
+
 def phase_wide(torch, ops, gen, steps=5, width=8192, batch=8192):
+    """The trainer's captured steps on the (8192,)×4 bf16 MLP, beside
+    the eager loop from the same parameters (bit-equal losses and
+    parameters); launches counted over the captured run."""
     from lua_mapreduce_tpu_torch.models.mlp import (flops_per_example,
                                                     init_mlp, nll_loss)
     from lua_mapreduce_tpu_torch.train.harness import (DataParallelTrainer,
@@ -774,26 +877,36 @@ def phase_wide(torch, ops, gen, steps=5, width=8192, batch=8192):
     x = torch.randn((batch, width), device="cuda", generator=gen).to(
         torch.bfloat16)
     y = torch.randint(0, width, (batch,), device="cuda", generator=gen)
+    cfg = TrainConfig(batch_size=batch)
+    e_losses, e_params, e_ms, e_peak = eager_train(
+        torch, nll_loss, params, cfg, x, y, 1, steps - 1)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    tr = DataParallelTrainer(nll_loss, params, TrainConfig(batch_size=batch),
-                             device="cuda")
+    tr = DataParallelTrainer(nll_loss, params, cfg, device="cuda")
     del params
-    first = tr.step(x, y)                       # warm-up step
+    first = tr.step(x, y)           # the eager warm-up step, the capture
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     losses = tr.run_steps(x, y, steps - 1)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = ops.launch_counts()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
     losses = [first] + [float(v) for v in losses]
+    equal = hold_captured("wide", torch, losses, e_losses, tr.params,
+                          e_params)
     imgs = (steps - 1) * batch / dt
     tflops = imgs * flops_per_example(sizes) / 1e12
     log(f"[wide] mlp {'x'.join(map(str, sizes))} bf16 batch={batch}: "
-        f"losses {losses}")
-    log(f"[wide] {steps - 1} timed steps in {dt * 1e3:.3f} ms: "
-        f"{imgs:.1f} images/s, {tflops:.3f} model TFLOP/s "
+        f"losses {losses}, equal to the eager loop's bit for bit")
+    log(f"[wide] {steps - 1} timed captured steps in {dt * 1e3:.3f} ms "
+        f"({dt * 1e3 / (steps - 1):.3f} ms/step; eager loop {e_ms:.3f} "
+        f"ms/step): {imgs:.1f} images/s, {tflops:.3f} model TFLOP/s "
         f"({100 * tflops * 1e12 / PEAK_BF16_FLOPS:.2f}% of the 989 TFLOP/s "
-        f"bf16 dense peak); launches {counts}")
+        f"bf16 dense peak); peak {peak:.2f} GiB (eager {e_peak:.2f}); "
+        f"launches {counts}")
     want = {**dict.fromkeys(ops.KERNELS, 0), "matmul_bf16": steps * 8,
             "rowwise_softmax": steps}
     if counts != want:
@@ -801,7 +914,10 @@ def phase_wide(torch, ops, gen, steps=5, width=8192, batch=8192):
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"wide trainer loss not finite: {losses}")
     return counts, {"images_per_s": imgs, "model_tflops": tflops,
-                    "step_ms": dt * 1e3 / (steps - 1), "losses": losses}
+                    "step_ms": dt * 1e3 / (steps - 1),
+                    "eager_step_ms": e_ms, "peak_mem_gib": peak,
+                    "eager_peak_mem_gib": e_peak, "captures": tr.traces,
+                    "equal_to_eager": equal, "losses": losses}
 
 
 # ------------------------------------------------------------ phase 6
@@ -821,16 +937,22 @@ def serve_counts(n_layers, n_new, quantized):
 def kernel_profile(torch, fn):
     """Device time (ms) and launches by kernel name of one call of
     ``fn`` under torch.profiler, largest first. The profiler warms up on
-    a first call and records the second: a window's first kernels can go
-    missing from the trace. Operator rows and the step's own annotation
-    (``ProfilerStep*``) are left out: they repeat their kernels' device
-    time."""
+    a first call and records the second. A window's first kernels can go
+    missing from the trace, so each call is preceded by 50 ms on the
+    host and a spin of about 50 ms on the card, waited for, that is left
+    out of the rows: what goes missing is the spin, and the window holds
+    the whole call. Kernels replayed from a CUDA graph are listed one by
+    one. Operator rows and the step's own annotation (``ProfilerStep*``)
+    are left out: they repeat their kernels' device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1,
                                    repeat=1)) as prof:
         for _ in range(2):
+            time.sleep(0.05)
+            torch.cuda._sleep(100_000_000)
+            torch.cuda.synchronize()
             fn()
             torch.cuda.synchronize()
             prof.step()
@@ -838,15 +960,56 @@ def kernel_profile(torch, fn):
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA
                    and e.self_device_time_total > 0
-                   and not e.key.startswith("ProfilerStep")),
+                   and not e.key.startswith("ProfilerStep")
+                   and "spin_kernel" not in e.key),
                   key=lambda r: -r[1])
+
+
+def whole_profile(torch, fn, launches_of, want, what, attempts=3):
+    """``kernel_profile`` of ``fn`` whose trace lists the port launches
+    ``want`` (``launches_of`` reads them from the rows). A trace can
+    still lose records: identical calls of the serving path list a few
+    kernels more or fewer, and one trace lost the first three layers of
+    a prefill. A lost record is a fault of the trace, a launch credited
+    that did not run is one of the code, and only the first goes away
+    on a new trace: the call is profiled again, at most ``attempts``
+    times, and it fails if no trace lists ``want``. Returns the rows and
+    the number of traces taken."""
+    seen_all = []
+    for i in range(attempts):
+        kernels = kernel_profile(torch, fn)
+        seen = launches_of(kernels)
+        if seen == want:
+            return kernels, i + 1
+        seen_all.append(seen)
+        log(f"[profile] {what}: trace {i + 1} lists port launches {seen} "
+            f"of {sum(r[2] for r in kernels)} kernels, not {want}")
+    raise AssertionError(f"{what}: no trace of {attempts} lists the port "
+                         f"launches {want}: {seen_all}")
+
+
+def port_launches_seen(kernels):
+    """Launches of the serving path's port kernels in a ``kernel_profile``
+    listing, by ``ops`` count name: the kernel each wrapper call launches
+    (a decode call's combine and a q8 call's split reduce left out)."""
+    names = {"flash_fwd": ("flash_wgmma_kernel", "flash_bf16_kernel",
+                           "flash_f32_kernel"),
+             "decode": ("decode_split_kernel",),
+             "q8": ("gv::gemv_kernel", "mk::mma_kernel",
+                    "wgmma_gemm_kernel")}
+    return {k: sum(r[2] for r in kernels if any(t in r[0] for t in tags))
+            for k, tags in names.items()}
 
 
 def phase_serving(torch, ops, seed=0):
     """The serving path at bench_decode's full width, bf16 then int8
-    weights + int8 KV cache. Counts are zeroed just before each timed
-    greedy_decode and read just after. A second, profiled run of each
-    gives the kernel time and the kernel launches per decode step."""
+    weights + int8 KV cache, through greedy_decode's captured loop.
+    Counts are zeroed just before each timed greedy_decode and read just
+    after (replays credited). The decode tail on the host clock is given
+    with and without the step's capture, beside the same loop run
+    eagerly on the card (``eager_graphs``; same tokens). A profiled
+    repeat gives the kernel time and the kernel launches per step."""
+    from lua_mapreduce_tpu_torch import graphs
     from lua_mapreduce_tpu_torch.models import transformer as tt
     cfg = tt.TransformerConfig(**SERVE)
     params = tt.init_transformer(seed, cfg, dtype=torch.bfloat16,
@@ -859,19 +1022,36 @@ def phase_serving(torch, ops, seed=0):
     for tag, quantized in (("bf16", False), ("int8", True)):
         p = tt.quantize_lm(params) if quantized else params
         kw = dict(cfg=cfg, use_prefill=True, kv_q8=quantized)
-        tt.greedy_decode(p, prompt, 2, **kw)               # warm-up
+        tt.greedy_decode(p, prompt, 3, **kw)               # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
+        graphs.reset_captures()
         t0 = time.perf_counter()
         toks = tt.greedy_decode(p, prompt, n_new, **kw)
         torch.cuda.synchronize()
         e2e = time.perf_counter() - t0
         counts = ops.launch_counts()
+        n_captures, last = graphs.captures()
+        if n_captures != 1:
+            raise AssertionError(f"serving {tag}: {n_captures} captures, "
+                                 f"expected one")
+        capture_ms = last[1]
         want = serve_counts(cfg.n_layers, n_new, quantized)
         if counts != want:
             raise AssertionError(f"serving {tag} launches {counts}, "
                                  f"expected {want}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with eager_graphs(tt):
+            tt.greedy_decode(p, prompt, 3, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eager = tt.greedy_decode(p, prompt, n_new, **kw)
+            torch.cuda.synchronize()
+            e2e_eager = time.perf_counter() - t0
+        if not torch.equal(eager, toks):
+            raise AssertionError(f"serving {tag}: captured tokens differ "
+                                 f"from the eager loop's")
         pre = []
         for _ in range(3):
             torch.cuda.synchronize()
@@ -886,36 +1066,60 @@ def phase_serving(torch, ops, seed=0):
                 not torch.equal(toks[:, :p_len], prompt.cpu().int()) or \
                 int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab:
             raise AssertionError(f"serving {tag}: bad output {toks.shape}")
-        kernels = kernel_profile(
-            torch, lambda: tt.greedy_decode(p, prompt, n_new, **kw))
-        pre_kernels = kernel_profile(
+        # the launches credited per replay against the port kernels the
+        # trace lists (one per wrapper call, a combine or reduce aside)
+        want_seen = {k: want[k] for k in port_launches_seen([])}
+        want_pre = {k: serve_counts(cfg.n_layers, 1, quantized)[k]
+                    for k in want_seen}
+        kernels, tries = whole_profile(
+            torch, lambda: tt.greedy_decode(p, prompt, n_new, **kw),
+            port_launches_seen, want_seen, f"serving {tag}")
+        pre_kernels, pre_tries = whole_profile(
             torch, lambda: tt.prefill(p, prompt, cfg=cfg,
-                                      total=p_len + n_new))
+                                      total=p_len + n_new),
+            port_launches_seen, want_pre, f"serving {tag} prefill")
+        seen = want_seen
         step_ms = (sum(k[1] for k in kernels)
                    - sum(k[1] for k in pre_kernels)) / (n_new - 1)
         step_launches = (sum(k[2] for k in kernels)
                          - sum(k[2] for k in pre_kernels)) / (n_new - 1)
+        replay_ms = (tail * 1e3 - capture_ms) / (n_new - 1)
+        eager_ms = (e2e_eager - prefill_s) * 1e3 / (n_new - 1)
         r = {"prefill_ms": prefill_s * 1e3, "e2e_ms": e2e * 1e3,
              "decode_tail_ms": tail * 1e3,
              "decode_step_ms": tail * 1e3 / (n_new - 1),
+             "capture_ms": capture_ms,
+             "decode_step_ms_without_capture": replay_ms,
+             "eager_decode_step_ms": eager_ms,
              "decode_tail_tokens_per_s": b * (n_new - 1) / tail,
+             "decode_tokens_per_s_without_capture": b / replay_ms * 1e3,
+             "eager_decode_tokens_per_s": b / eager_ms * 1e3,
              "e2e_tokens_per_s": b * n_new / e2e,
              "prefill_tokens_per_s": b * p_len / prefill_s,
-             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+             "peak_mem_gib": peak,
              "step_kernel_ms": step_ms, "step_kernel_launches": step_launches,
-             "device_idle_share": 1 - step_ms / (tail * 1e3 / (n_new - 1)),
+             "device_idle_share": 1 - step_ms / replay_ms,
+             "eager_device_idle_share": 1 - step_ms / eager_ms,
+             "traced_port_launches": seen,
+             "profile_traces": {"call": tries, "prefill": pre_tries},
+             "profiled_kernels": sum(k[2] for k in kernels),
              "top_kernels": kernels[:12],
              "launches": counts, "first_tokens": toks[0, p_len:p_len + 8]
              .tolist()}
         log(f"[serving] {tag}: prefill {r['prefill_ms']:.3f} ms "
             f"({r['prefill_tokens_per_s']:.1f} prompt tokens/s), decode "
             f"tail {r['decode_tail_ms']:.3f} ms = {r['decode_step_ms']:.4f} "
-            f"ms/step ({r['decode_tail_tokens_per_s']:.1f} tokens/s), "
+            f"ms/step ({r['decode_tail_tokens_per_s']:.1f} tokens/s) with "
+            f"the step's capture ({capture_ms:.3f} ms), {replay_ms:.4f} "
+            f"ms/step ({r['decode_tokens_per_s_without_capture']:.1f} "
+            f"tokens/s) without it; the eager loop {eager_ms:.4f} ms/step "
+            f"({r['eager_decode_tokens_per_s']:.1f} tokens/s, same tokens); "
             f"end to end {r['e2e_ms']:.3f} ms ({r['e2e_tokens_per_s']:.1f} "
             f"tokens/s); launches {counts}")
         log(f"[serving] {tag}: per decode step {step_ms:.4f} ms of kernels "
             f"over {step_launches:.1f} kernel launches; device idle "
-            f"{100 * r['device_idle_share']:.1f}% of the decode tail")
+            f"{100 * r['device_idle_share']:.1f}% of a captured step, "
+            f"{100 * r['eager_device_idle_share']:.1f}% of an eager one")
         for name, ms, n in kernels[:12]:
             log(f"[serving] {tag}   {ms:10.3f} ms {n:6d}x  {name[:90]}")
         out[tag] = r
@@ -959,7 +1163,12 @@ def phase_serving_check(torch, ops, seed=3):
     log(f"[check] f32 2 layers, prompt {p_len}, {n_new} new: card tokens "
         f"== CPU tokens, prefill == scan on the card")
 
+    sampled = sampled_check(torch, tt, p_gpu, prompt.cuda(), n_new, cfg,
+                            got)
+
     # int8 weights + int8 KV cache, with the head's logits at every step
+    # (read on the host, so the card's loop runs eagerly here; its tokens
+    # are then held to the captured loop's)
     q_cpu = tt.quantize_lm(p_cpu)
     q_gpu = {k: v.cuda() for k, v in q_cpu.items()}
     runs = {}
@@ -967,12 +1176,17 @@ def phase_serving_check(torch, ops, seed=3):
                                  ("plain", q_cpu, False),
                                  ("bf16-x", q_cpu, True)):
         sink = []
-        with head_logits(tt, sink, round_x):
+        with head_logits(tt, sink, round_x), eager_graphs(tt):
             toks = tt.greedy_decode(params, prompt.to(params["tok_emb"]
                                                       .device), n_new,
                                     cfg=cfg, use_prefill=True, kv_q8=True)
         runs[tag] = (toks.cpu()[:, p_len:], torch.stack(sink, 1))
     (tg, lg), (tp, lp) = runs["card"], runs["plain"]
+    captured = tt.greedy_decode(q_gpu, prompt.cuda(), n_new, cfg=cfg,
+                                use_prefill=True, kv_q8=True).cpu()
+    if not torch.equal(captured[:, p_len:], tg):
+        raise AssertionError("serving check: the captured int8 loop's "
+                             "tokens differ from the eager loop's")
     # prefill's last-position logits (the first head call) against the
     # plain versions, at the q8 op tolerance
     err = check_close("int8 prefill last logits", lg[:, 0], lp[:, 0],
@@ -995,7 +1209,44 @@ def phase_serving_check(torch, ops, seed=3):
                else ""))
     return {"tokens_equal": True, "prefill_equals_scan": True,
             "int8_logits_max_abs_err": err, "int8_token_agreement": agree,
-            "int8_sequences": seqs}
+            "int8_sequences": seqs, "int8_captured_equals_eager": True,
+            "sampled": sampled}
+
+
+def sampled_check(torch, tt, params, prompt, n_new, cfg, greedy):
+    """The sampled row (temperature 0.8, top_k 40, a fixed key) on the
+    card: the captured loop's tokens equal the eager loop's for the same
+    key, by prefill and by the position scan; every sampled token lies
+    in the top 40 of the eager loop's logits at its step; top_k=1 gives
+    the greedy tokens."""
+    p_len = prompt.shape[1]
+    kw = dict(cfg=cfg, temperature=0.8, top_k=40, key=2024)
+    got = tt.greedy_decode(params, prompt, n_new, use_prefill=True,
+                           **kw).cpu()
+    scan = tt.greedy_decode(params, prompt, n_new, **kw).cpu()
+    sink = []
+    with head_logits(tt, sink, False), eager_graphs(tt):
+        eager = tt.greedy_decode(params, prompt, n_new, use_prefill=True,
+                                 **kw).cpu()
+    logits = torch.stack(sink, 1)              # (B, n_new, vocab)
+    if not (torch.equal(got, eager) and torch.equal(scan, eager)):
+        raise AssertionError("sampled check: captured and eager tokens "
+                             "differ for one key")
+    kth = torch.topk(logits.float(), 40, dim=-1).values[..., -1]
+    chosen = logits.gather(-1, eager[:, p_len:, None].long())[..., 0]
+    if not bool((chosen >= kth).all()):
+        raise AssertionError("sampled check: a token outside the top 40")
+    one = tt.greedy_decode(params, prompt, n_new, use_prefill=True,
+                           cfg=cfg, temperature=0.8, top_k=1, key=2024)
+    if not torch.equal(one.cpu(), greedy):
+        raise AssertionError("sampled check: top_k=1 is not greedy")
+    moved = float((eager[:, p_len:] != greedy[:, p_len:]).float().mean())
+    log(f"[check] sampled (temperature 0.8, top_k 40, key 2024): captured "
+        f"== eager tokens on the card, prefill == scan, every token in the "
+        f"top 40 of its step's logits; {100 * moved:.1f}% of tokens differ "
+        f"from greedy; top_k=1 == greedy")
+    return {"captured_equals_eager": True, "in_top_k": True,
+            "top_k_1_is_greedy": True, "share_not_greedy": moved}
 
 
 def int8_divergence(tg, lg, tr, lr):
@@ -1343,10 +1594,12 @@ def lenet_grads(torch, gen, batch=256):
 
 
 def phase_conv(torch, ops, gen):
-    """bench_conv_train's two configurations through
-    ``DataParallelTrainer.run_steps``, bf16: counts zeroed just before
-    the timed run_steps and read just after; a profiled one-step repeat
-    gives each step's device time by kernel."""
+    """bench_conv_train's two configurations through the trainer's
+    captured ``run_steps``, bf16, beside the eager loop from the same
+    parameters (LeNet bit for bit, ResNet within the conv check's
+    limits): counts zeroed just before the timed run_steps and read just
+    after; a profiled one-step repeat gives each step's device time by
+    kernel."""
     from lua_mapreduce_tpu_torch.train.harness import (DataParallelTrainer,
                                                        TrainConfig)
     out = {}
@@ -1356,13 +1609,17 @@ def phase_conv(torch, ops, gen):
         x = torch.randn((batch, *shape), device="cuda", generator=gen).to(
             torch.bfloat16)
         y = torch.randint(0, n_cls, (batch,), device="cuda", generator=gen)
-        tr = DataParallelTrainer(loss_fn, params,
-                                 TrainConfig(batch_size=batch), device="cuda")
-        del params
-        first = tr.step(x, y)                   # warm-up steps: the host's
-        tr.run_steps(x, y, 3)                   # first calls run slower
+        cfg = TrainConfig(batch_size=batch)
+        e_losses, e_params, e_ms, e_peak = eager_train(
+            torch, loss_fn, params, cfg, x, y, 4, steps)
         torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
+        tr = DataParallelTrainer(loss_fn, params, cfg, device="cuda")
+        del params
+        first = tr.step(x, y)           # the eager warm-up step, the capture
+        warm = tr.run_steps(x, y, 3)    # the host's first calls run slower
+        torch.cuda.synchronize()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         losses = tr.run_steps(x, y, steps)
@@ -1373,12 +1630,13 @@ def phase_conv(torch, ops, gen):
                 **{k: steps * v for k, v in per_step.items()}}
         if counts != want:
             raise AssertionError(f"{name} launches {counts}, expected {want}")
-        losses = [first] + [float(v) for v in losses]
+        losses = [first] + [float(v) for v in torch.cat([warm, losses])]
         if not all(math.isfinite(v) for v in losses):
             raise AssertionError(f"{name} loss not finite: {losses}")
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        kernels = kernel_profile(torch, lambda: tr.run_steps(x, y, 1))
-        dev_ms = sum(k[1] for k in kernels)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        equal = hold_captured(name, torch, losses, e_losses, tr.params,
+                              e_params)
+        del e_params
         # a matmul_bf16 call launches the general kernel or the wgmma
         # one, and a split product also the split-K reduce
         tags = (("matmul_bf16", ("bf16k::matmul_bf16_kernel",
@@ -1388,16 +1646,21 @@ def phase_conv(torch, ops, gen):
                 ("rowwise_softmax", ("softmax_warp_kernel",
                                      "softmax_regs_kernel",
                                      "softmax_stream_kernel")))
-        port_ms = {k: sum(r[1] for r in kernels if any(t in r[0] for t in tag))
-                   for k, tag in tags}
         # the trace is whole if it lists every launch the step makes
-        seen = {k: sum(r[2] for r in kernels if any(t in r[0] for t in tag))
-                for k, tag in tags}
         want_seen = {**per_step, "matmul_splitk_reduce": sum(
             mult for m_, k_, n_, mult, sa, sb in conv_products(
                 name.split("_")[0].rstrip("0123456789"))
             if matmul_splits(m_, k_, n_, "bfloat16", sa, sb) > 1)}
-        complete = seen == want_seen
+        kernels, tries = whole_profile(
+            torch, lambda: tr.run_steps(x, y, 1),
+            lambda ks: {k: sum(r[2] for r in ks
+                               if any(t in r[0] for t in tag))
+                        for k, tag in tags},
+            want_seen, f"{name} step")
+        seen, complete = want_seen, True
+        dev_ms = sum(k[1] for k in kernels)
+        port_ms = {k: sum(r[1] for r in kernels if any(t in r[0] for t in tag))
+                   for k, tag in tags}
         step_ms = dt * 1e3 / steps
         imgs = batch * steps / dt
         tflops = imgs * per_ex / 1e12
@@ -1405,15 +1668,22 @@ def phase_conv(torch, ops, gen):
              "images_per_s": imgs, "model_tflops": tflops,
              "peak_fraction": tflops * 1e12 / PEAK_BF16_FLOPS,
              "losses": losses, "launches": counts, "peak_mem_gib": peak,
+             "eager_step_ms": e_ms, "eager_peak_mem_gib": e_peak,
+             "equal_to_eager": equal,
+             "captures": tr.traces,
              "profiled_step_device_ms": dev_ms,
              "profiled_step_kernel_ms": port_ms,
              "profiled_step_launches": seen, "profile_complete": complete,
+             "profile_traces": tries,
              "device_idle_share": 1 - dev_ms / step_ms,
              "top_kernels": kernels[:12]}
-        log(f"[conv] {name} b{batch} bf16: {steps} timed steps, "
-            f"{step_ms:.3f} ms/step, {imgs:.1f} images/s, {tflops:.4f} "
-            f"model TFLOP/s ({100 * r['peak_fraction']:.4f}% of the 989 "
-            f"TFLOP/s bf16 dense peak); losses {losses}; launches {counts}")
+        log(f"[conv] {name} b{batch} bf16: {steps} timed captured steps, "
+            f"{step_ms:.3f} ms/step (the eager loop {e_ms:.3f}), {imgs:.1f} "
+            f"images/s, {tflops:.4f} model TFLOP/s "
+            f"({100 * r['peak_fraction']:.4f}% of the 989 TFLOP/s bf16 dense "
+            f"peak); losses {losses}, equal to the eager loop's bit for "
+            f"bit; peak {peak:.2f} GiB (eager {e_peak:.2f}); launches "
+            f"{counts}")
         log(f"[conv] {name}: profiled step {dev_ms:.3f} ms on the device "
             f"(matmul kernels {port_ms['matmul_bf16']:.3f}, split-K reduce "
             f"{port_ms['matmul_splitk_reduce']:.3f}, pool "
@@ -1918,6 +2188,89 @@ def phase_train_lm(torch, ops, steps=20):
             "tokens_per_s": summary["tokens_per_sec"], "launches": counts}
 
 
+# -------------------------------------------- phases 13-14: e2e, resume
+
+def phase_digits_e2e(torch):
+    """``examples/digits/e2e.py`` on the card: the digits sheet through
+    the captured harness (300 steps at b512) and the six-function
+    MapReduce loop (up to 60 steps, patience 10); both validation
+    accuracies at least 0.95 and within 0.05 of each other."""
+    from lua_mapreduce_tpu_torch.examples.digits import e2e
+    t0 = time.perf_counter()
+    out = e2e.run("cuda")
+    wall = time.perf_counter() - t0
+    h, m = out["harness_path"], out["mapreduce_path"]
+    log(f"[digits e2e] harness {h['val_accuracy']} ({h['steps']} captured "
+        f"steps at b{h['batch']}, {h['captures']} capture), MapReduce "
+        f"{m['val_accuracy']} ({m['steps']} steps, val loss "
+        f"{m['val_loss']}); the JAX package on the CPU: "
+        f"{out['jax_package']['harness_path']} / "
+        f"{out['jax_package']['mapreduce_path']} (target "
+        f"{out['target_accuracy']}); {wall:.1f} s")
+    if not out["both_reach_target"] or out["agree_within"] > 0.05:
+        raise AssertionError(f"digits e2e: {out}")
+    return {**out, "wall_s": wall}
+
+
+def phase_resume(torch, epochs=(3, 5)):
+    """``fit(conf=)`` on the card with a FileJobStore-backed persistent
+    table and a shared: checkpoint store: 3 epochs, then a fresh trainer
+    — whose step was captured before the load — resumes to 5. Its
+    epochs are [4, 5] and its parameters equal those of one run that
+    never stopped, bit for bit."""
+    import shutil
+
+    from lua_mapreduce_tpu_torch.coord.filestore import FileJobStore
+    from lua_mapreduce_tpu_torch.coord.persistent_table import (
+        PersistentTable)
+    from lua_mapreduce_tpu_torch.models.mlp import init_mlp, nll_loss
+    from lua_mapreduce_tpu_torch.store.router import get_storage_from
+    from lua_mapreduce_tpu_torch.train.data import make_digits
+    from lua_mapreduce_tpu_torch.train.harness import (DataParallelTrainer,
+                                                       TrainConfig)
+    root = os.path.join(REPO, "build", "smoke-resume")
+    shutil.rmtree(root, ignore_errors=True)
+    data = make_digits(seed=0)
+
+    def trainer(seed, n):
+        return DataParallelTrainer(
+            nll_loss, init_mlp(seed, device="cuda"),
+            TrainConfig(max_epochs=n, patience=10), device="cuda")
+
+    def fit(tr, tag):
+        store = get_storage_from(f"shared:{os.path.join(root, tag, 'ckpt')}")
+        conf = PersistentTable("conf", FileJobStore(os.path.join(
+            root, tag, "coord")))
+        return tr.fit(*data, checkpoint_store=store, conf=conf)
+
+    t0 = time.perf_counter()
+    fit(trainer(0, epochs[0]), "stopped")
+    resumed = trainer(7, epochs[1])
+    resumed.run_steps(data[0][:128], data[1][:128], 2)  # captured first
+    out = fit(resumed, "stopped")
+    whole = trainer(0, epochs[1])
+    ref = fit(whole, "whole")
+    wall = time.perf_counter() - t0
+    hist = [h["epoch"] for h in out["history"]]
+    same = all(torch.equal(resumed.params[k], whole.params[k])
+               for k in whole.params)
+    log(f"[resume] {epochs[0]} epochs, then a fresh trainer (its step "
+        f"captured before the load, {resumed.traces} capture) resumed "
+        f"epochs {hist}; parameters "
+        f"{'equal' if same else 'DIFFER from'} the never-stopped "
+        f"{epochs[1]}-epoch run's; {wall:.1f} s")
+    if hist != list(range(epochs[0] + 1, epochs[1] + 1)) or not same \
+            or resumed.traces != 1:
+        raise AssertionError(f"resume: epochs {hist}, parameters equal "
+                             f"{same}, captures {resumed.traces}")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"resumed_epochs": hist, "params_equal": same,
+            "val_loss": [h["val_loss"] for h in out["history"]],
+            "never_stopped_val_loss": [h["val_loss"]
+                                       for h in ref["history"]][epochs[0]:],
+            "wall_s": wall}
+
+
 # ------------------------------------------------------------ main
 
 def gpu_line():
@@ -2000,6 +2353,8 @@ def main():
     lm = phase_lm_train(torch, ops)
     lm_check = phase_lm_check(torch, ops)
     train_lm = phase_train_lm(torch, ops)
+    digits_e2e = phase_digits_e2e(torch)
+    resume = phase_resume(torch)
     runs = ([digits_counts, wide_counts]
             + [serving[t]["launches"] for t in serving]
             + [conv[m]["launches"] for m in conv]
@@ -2035,7 +2390,7 @@ def main():
         "wide": {**wide, "launches": wide_counts}, "serving": serving,
         "serving_check": check, "conv": conv, "conv_check": conv_check,
         "lm_train": lm, "lm_check": lm_check, "train_lm": train_lm,
-        "kernels": kernels,
+        "digits_e2e": digits_e2e, "resume": resume, "kernels": kernels,
         "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -21,13 +21,15 @@ Differences from the JAX script: ``--device`` (default ``"cuda"``);
 ``--attn`` defaults to ``ring``, where the JAX script defaults to
 ``zigzag``: on one device zigzag splits every layer's attention into
 three quadrant calls, and its sequence-parallel form is a later slice.
-``--dp``/``--sp`` other than 1, ``--zero1``, ``--profile`` and the
-zigzag/Ulysses schedules raise NotImplementedError.
+``--profile DIR`` writes a ``torch.profiler`` trace of the run into DIR
+(``utils/profiling.device_trace``). ``--dp``/``--sp`` other than 1,
+``--zero1`` and the zigzag/Ulysses schedules raise NotImplementedError.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import time
 
@@ -150,7 +152,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--out-json", default=None,
                     help="write the run summary to this path")
     ap.add_argument("--profile", default=None, metavar="DIR",
-                    help="device trace (not in the port)")
+                    help="wrap the run in a torch.profiler trace written "
+                         "to DIR (Chrome trace JSON)")
     return ap
 
 
@@ -173,26 +176,32 @@ def _check_unported(args) -> None:
     if args.dp not in (0, 1) or args.sp not in (0, 1):
         raise NotImplementedError(
             f"dp={args.dp} x sp={args.sp} is a multi-device mesh, not in "
-            f"the port yet (ROADMAP A4/A7); the port trains on one device")
+            f"the port yet (ROADMAP A3/A5); the port trains on one device")
     if args.zero1:
         raise NotImplementedError("--zero1 is not in the port yet "
-                                  "(ROADMAP A4)")
-    if args.profile:
-        raise NotImplementedError("--profile is not in the port yet "
-                                  "(ROADMAP A9: a torch.profiler bridge)")
+                                  "(ROADMAP A5)")
 
 
 def run(args) -> dict:
     """Train as the flags of :func:`build_parser` say; returns the run
     summary (loss curve, validation losses, tokens/s, config, a greedy
-    sample)."""
+    sample). With ``--profile`` the whole run is traced."""
+    from lua_mapreduce_tpu_torch.utils.profiling import device_trace
+
+    _check_unported(args)
+    with contextlib.ExitStack() as stack:
+        if getattr(args, "profile", None):
+            stack.enter_context(device_trace(args.profile))
+        return _run(args)
+
+
+def _run(args) -> dict:
     from lua_mapreduce_tpu_torch.device import resolve_device
     from lua_mapreduce_tpu_torch.store.router import get_storage_from
     from lua_mapreduce_tpu_torch.train import checkpoint as ckpt
     from lua_mapreduce_tpu_torch.train import optim
     from lua_mapreduce_tpu_torch.train.precision import with_f32_master
 
-    _check_unported(args)
     args.dp, args.sp = 1, 1
     dev = resolve_device(args.device)
     tok = args.tok

@@ -4,18 +4,18 @@ Port of ``lua_mapreduce_tpu/models/transformer.py`` for one device:
 :func:`init_transformer`, the oracle :func:`transformer_apply`,
 :func:`prefill`, KV-cached :func:`greedy_decode` (prefill or
 position-scan ingestion, GQA, sliding window with a rolling cache, int8
-KV cache), the int8 serving copy :func:`quantize_lm`, and the LM
-trainer: :func:`lm_loss_local` and :func:`make_train_step` (ring
-attention on one shard, ``cfg.remat``, gradient accumulation). On a
-card the attention runs the port's flash kernels (forward; dq and dkv
-in the backward) and decode kernel, and the projections of a quantized
-dict run the q8 kernel; plain dense projections ``y @ W``, the
-unquantized head and the loss's log_softmax stay torch, as the JAX
-package leaves them to XLA.
+KV cache, greedy or sampled tokens; on a card one step captured in a
+CUDA graph and replayed per position), the int8 serving copy
+:func:`quantize_lm`, and the LM trainer: :func:`lm_loss_local` and
+:func:`make_train_step` (ring attention on one shard, ``cfg.remat``,
+gradient accumulation). On a card the attention runs the port's flash
+kernels (forward; dq and dkv in the backward) and decode kernel, and
+the projections of a quantized dict run the q8 kernel; plain dense
+projections ``y @ W``, the unquantized head and the loss's log_softmax
+stay torch, as the JAX package leaves them to XLA.
 
-Not in the port yet, and raising: MoE blocks, sampling (``temperature >
-0``), sequence parallelism (``mesh=`` beyond one device, zigzag,
-Ulysses) and ZeRO-1.
+Not in the port yet, and raising: MoE blocks, sequence parallelism
+(``mesh=`` beyond one device, zigzag, Ulysses) and ZeRO-1.
 
 Params are a flat name→tensor dict with the JAX package's names and
 layouts (carry JAX params across with ``convert.params_from_jax``).
@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from lua_mapreduce_tpu_torch.device import resolve_device
+from lua_mapreduce_tpu_torch.graphs import CapturedGraph, on_side_stream
 from lua_mapreduce_tpu_torch.ops.attention import flash_attention
 from lua_mapreduce_tpu_torch.ops.decode import decode_attention, quantize_kv
 from lua_mapreduce_tpu_torch.ops.q8 import q8_matmul, quantize_q8
@@ -41,6 +42,8 @@ from lua_mapreduce_tpu_torch.parallel.ring_attention import (
 from lua_mapreduce_tpu_torch.train.accum import accum_value_and_grad
 
 Params = Dict[str, torch.Tensor]
+
+_NEG_INF = -1e30      # top-k's mask fill, as the JAX package's
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,7 +152,7 @@ def _check_moe(cfg: TransformerConfig, n_ep: Optional[int] = None) -> None:
 def _no_moe(cfg: TransformerConfig) -> None:
     if cfg.moe_experts:
         raise NotImplementedError(
-            "MoE blocks are not in the port yet (ROADMAP A7: "
+            "MoE blocks are not in the port yet (ROADMAP A5: "
             "parallel/moe.py); serve a dense config")
 
 
@@ -359,7 +362,7 @@ def _no_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "sequence-parallel prefill (mesh=) is not in the port yet "
-            "(ROADMAP A7: parallel/ring_attention.py)")
+            "(ROADMAP A5: parallel/ring_attention.py)")
 
 
 def prefill(params: Params, prompt, *,
@@ -402,19 +405,83 @@ def prefill(params: Params, prompt, *,
     return caches, logits[:, -1].float()
 
 
+# sampling's counter-based generator: the murmur3 finalizer and three odd
+# 32-bit multipliers (golden ratio, murmur3's) that spread the counters
+_M32 = 0xFFFFFFFF
+_MIX = (0x85EBCA6B, 0xC2B2AE35)
+_SPREAD = (0x9E3779B1, 0x85EBCA77, 0xC2B2AE3D)
+
+
+def _mul32(x, c: int):
+    """(x · c) mod 2³² for int64 tensors x in [0, 2³²) and a constant c
+    < 2³², in 16-bit halves so no product leaves int64's range."""
+    lo, hi = x & 0xFFFF, x >> 16
+    return (lo * c + (((hi * c) & 0xFFFF) << 16)) & _M32
+
+
+def _fmix32(h):
+    """murmur3's 32-bit finalizer on int64 tensors in [0, 2³²)."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, _MIX[0])
+    h = h ^ (h >> 13)
+    h = _mul32(h, _MIX[1])
+    return h ^ (h >> 16)
+
+
+def _gumbel(key: int, t, rows: int, cols: int, device):
+    """Gumbel noise (rows, cols) f64, a pure function of (key, t, row,
+    column): the counters are hashed, never drawn from a stateful
+    generator, so a captured decode step draws fresh noise at every
+    replay's t, and every path that samples position t draws the same."""
+    key = int(key) & ((1 << 64) - 1)
+    if not isinstance(t, torch.Tensor):
+        t = torch.full((), t, dtype=torch.int64, device=device)
+    t = t.long() & _M32
+    h = _fmix32(_mul32(t, _SPREAD[0]) ^ (key & _M32))
+    h = _fmix32(h ^ (key >> 32))
+    r = torch.arange(rows, dtype=torch.int64, device=device)[:, None]
+    c = torch.arange(cols, dtype=torch.int64, device=device)[None, :]
+    h = _fmix32(h ^ _mul32(r, _SPREAD[1]))
+    h = _fmix32(h ^ _mul32(c, _SPREAD[2]))
+    u = (h.double() + 0.5) / 2.0 ** 32                  # (0, 1)
+    return -torch.log(-torch.log(u))
+
+
+def select_token(logits, t, *, temperature: float = 0.0,
+                 top_k: Optional[int] = None, key=None):
+    """The next token from (B, vocab) logits at position ``t`` (an int or
+    a 0-d integer tensor) — the JAX ``greedy_decode``'s ``select``:
+    argmax at temperature 0; else logits/temperature in f32, everything
+    below the k-th largest set to −1e30 under ``top_k``, and a
+    categorical draw by Gumbel-max with noise from ``key`` (an int) and
+    (t, row, vocab index). The bits differ from ``jax.random``'s; the
+    distribution is the same. Returns int64 (B,)."""
+    if temperature == 0.0:
+        return torch.argmax(logits, dim=-1)
+    lg = logits.float() / temperature
+    if top_k is not None and top_k < lg.shape[-1]:
+        kth = torch.topk(lg, top_k, dim=-1).values[:, -1:]
+        lg = torch.where(lg >= kth, lg, _NEG_INF)
+    g = _gumbel(key, t, lg.shape[0], lg.shape[1], lg.device)
+    return torch.argmax(lg.double() + g, dim=-1)
+
+
 def greedy_decode(params: Params, prompt, n_new: int, *,
                   cfg: TransformerConfig = TransformerConfig(),
                   temperature: float = 0.0, top_k: Optional[int] = None,
                   key=None, use_prefill: bool = False, mesh=None,
                   kv_q8: bool = False):
-    """KV-cached greedy decoding: (B, P) prompt → (B, P+n_new) int32.
+    """KV-cached decoding: (B, P) prompt → (B, P+n_new) int32.
 
     Per-layer caches are (B, H_kv, S, D) (H_kv < H under GQA), written
     in place one row per position; each step attends its one query
     against the cache through ``decode_attention``. Inside the prompt
-    the next input is the given token; after it, the argmax. A sliding
-    window smaller than the sequence makes each cache a rolling buffer
-    of ``window`` slots (position p in slot p mod window).
+    the next input is the given token; after it, the chosen one:
+    argmax, or with ``temperature > 0`` a sample (``top_k`` keeps the k
+    largest logits; ``key``, an int, seeds the counter-based noise, so
+    the same key gives the same tokens on either ingestion path). A
+    sliding window smaller than the sequence makes each cache a rolling
+    buffer of ``window`` slots (position p in slot p mod window).
 
     ``kv_q8=True`` stores the caches int8 with per-row f32 scales
     (``quantize_kv``); rows quantize as they are written, prefill caches
@@ -422,7 +489,12 @@ def greedy_decode(params: Params, prompt, n_new: int, *,
     :func:`prefill` and steps only the generation positions; otherwise
     every position steps through the decode loop.
 
-    ``temperature > 0`` (sampling), MoE configs and ``mesh`` raise
+    The loop is the JAX ``lax.scan``'s counterpart: the step keeps the
+    position, the cache slot and the tokens in device tensors. On a card
+    the first step runs eagerly and the step is then captured once in a
+    CUDA graph (``graphs.CapturedGraph``) and replayed for the other
+    positions, with no host round trip until the result; on the CPU the
+    same step runs eagerly. MoE configs and ``mesh`` raise
     NotImplementedError: not in the port yet."""
     _check_arch(cfg)
     if cfg.moe_experts:
@@ -433,10 +505,6 @@ def greedy_decode(params: Params, prompt, n_new: int, *,
         raise ValueError("sampling (temperature > 0) needs a PRNG key")
     if top_k is not None and top_k < 1:
         raise ValueError(f"top_k must be >= 1, got {top_k}")
-    if temperature > 0:
-        raise NotImplementedError(
-            "sampling (temperature > 0) is not in the port yet (ROADMAP "
-            "A8); the JAX package draws its bits from jax.random")
     _no_moe(cfg)
     _no_mesh(mesh)
     b, p_len = prompt.shape
@@ -448,44 +516,53 @@ def greedy_decode(params: Params, prompt, n_new: int, *,
     _check_seq(total, cfg)
     dev = params["tok_emb"].device
     prompt = prompt.to(dev).long()
+    if n_new == 0:
+        return prompt.to(torch.int32)
     h, hd = cfg.n_heads, cfg.d_model // cfg.n_heads
     hkv = kv_heads(cfg)
     g = h // hkv
     roll = bool(cfg.window) and cfg.window < total
     cache_len = cfg.window if roll else total
-    positions = torch.arange(total, device=dev)
+    select = functools.partial(select_token, temperature=temperature,
+                               top_k=top_k, key=key)
+    # the loop's device state: the output tokens (the prompt, then each
+    # step's token at t + 1) and the position t
+    out = torch.zeros((b, total), dtype=torch.long, device=dev)
+    out[:, :p_len] = prompt
+    t = torch.zeros((), dtype=torch.long, device=dev)
 
-    def step(caches, tok, t: int):
-        """One position through every layer; returns the argmax token.
-        The port writes each new cache row in place (the JAX scan
-        carries updated copies through dynamic_update_slice)."""
-        x = params["tok_emb"][tok]                      # (B, D)
+    def step():
+        """Position t through every layer: its cache rows written in
+        place (the JAX scan carries updated copies through
+        dynamic_update_slice), its token written at t + 1 (inside the
+        prompt the given one stays), t advanced."""
+        pos = t.view(1)
+        x = params["tok_emb"][out.index_select(1, pos)[:, 0]]   # (B, D)
         if not cfg.rope:
-            x = x + params["pos_emb"][t]
+            x = x + params["pos_emb"].index_select(0, pos)
         x = x[:, None, :]                               # (B, 1, D)
-        slot = t % cache_len if roll else t
+        slot = pos % cache_len if roll else pos
         for i in range(cfg.n_layers):
             pfx = f"L{i}"
             y = _norm(params, f"{pfx}_ln1", x, cfg)
             q, k, v = _split_qkv(_mm(params, f"{pfx}_qkv_W", y), cfg)
             if cfg.rope:
-                pos = positions[t:t + 1]
                 q = _rope(q, pos, cfg.rope_base)
                 k = _rope(k, pos, cfg.rope_base)
-            # (B, 1, H_kv, D) → (B, H_kv, D) cache rows; q grouped
+            # (B, 1, H_kv, D) → (B, H_kv, 1, D) cache rows; q grouped
             # kv-head major, the (B, H_kv, G, D) decode_attention takes
-            k, v = k[:, 0], v[:, 0]
+            k, v = k.transpose(1, 2), v.transpose(1, 2)
             q = q.reshape(b, hkv, g, hd)
             scales = {}
             if kv_q8:
                 k, ks_row = quantize_kv(k)
                 v, vs_row = quantize_kv(v)
-                caches[f"{pfx}_ks"][:, :, slot] = ks_row
-                caches[f"{pfx}_vs"][:, :, slot] = vs_row
+                caches[f"{pfx}_ks"].index_copy_(2, slot, ks_row)
+                caches[f"{pfx}_vs"].index_copy_(2, slot, vs_row)
                 scales = {"k_scale": caches[f"{pfx}_ks"],
                           "v_scale": caches[f"{pfx}_vs"]}
-            caches[f"{pfx}_k"][:, :, slot] = k
-            caches[f"{pfx}_v"][:, :, slot] = v
+            caches[f"{pfx}_k"].index_copy_(2, slot, k)
+            caches[f"{pfx}_v"].index_copy_(2, slot, v)
             a = decode_attention(q, caches[f"{pfx}_k"], caches[f"{pfx}_v"],
                                  t, roll=roll, **scales)
             a = a.to(x.dtype).reshape(b, 1, cfg.d_model)
@@ -494,11 +571,13 @@ def greedy_decode(params: Params, prompt, n_new: int, *,
             ff, _ = _ffn(params, pfx, y, cfg)
             x = x + ff
         x = _norm(params, "lnf", x, cfg)
-        return torch.argmax(_head(params, x)[:, 0], dim=-1)
+        nxt = select(_head(params, x)[:, 0], t)
+        given = out.index_select(1, pos + 1)[:, 0]
+        out.index_copy_(1, pos + 1,
+                        torch.where(pos + 1 < p_len, given, nxt)[:, None])
+        t.add_(1)
 
     if use_prefill:
-        if n_new == 0:
-            return prompt.to(torch.int32)
         caches, last_logits = prefill(params, prompt, cfg=cfg, total=total)
         # prefill's public contract is (B, S, H_kv, D); the decode loop
         # holds (B, H_kv, S, D) — one transpose at the boundary
@@ -520,32 +599,32 @@ def greedy_decode(params: Params, prompt, n_new: int, *,
             else:
                 caches = {n: c[:, :, :cache_len].contiguous()
                           for n, c in caches.items()}
-        cur = torch.argmax(last_logits, dim=-1)
-        emitted = [cur]
-        for t in range(p_len, total - 1):
-            cur = step(caches, cur, t)
-            emitted.append(cur)
-        gen = torch.stack(emitted, dim=1)
-        return torch.cat([prompt, gen], dim=1).to(torch.int32)
-
-    cache_dtype = torch.int8 if kv_q8 else params["tok_emb"].dtype
-    caches = {f"L{i}_{kv}": torch.zeros((b, hkv, cache_len, hd),
-                                        dtype=cache_dtype, device=dev)
-              for i in range(cfg.n_layers) for kv in ("k", "v")}
-    if kv_q8:
-        caches.update({f"L{i}_{kv}s": torch.zeros((b, hkv, cache_len),
-                                                  dtype=torch.float32,
-                                                  device=dev)
-                       for i in range(cfg.n_layers) for kv in ("k", "v")})
-    cur = prompt[:, 0]
-    emitted = []
-    for t in range(total):
-        tok = prompt[:, t] if t < p_len else cur
-        cur = step(caches, tok, t)
-        emitted.append(cur)
-    # emitted[t] is the prediction after seeing position t
-    gen = torch.stack(emitted, dim=1)[:, p_len - 1:total - 1]
-    return torch.cat([prompt, gen], dim=1).to(torch.int32)
+        out[:, p_len] = select(last_logits, p_len - 1)
+        t.fill_(p_len)
+    else:
+        cache_dtype = torch.int8 if kv_q8 else params["tok_emb"].dtype
+        caches = {f"L{i}_{kv}": torch.zeros((b, hkv, cache_len, hd),
+                                            dtype=cache_dtype, device=dev)
+                  for i in range(cfg.n_layers) for kv in ("k", "v")}
+        if kv_q8:
+            caches.update({f"L{i}_{kv}s": torch.zeros(
+                (b, hkv, cache_len), dtype=torch.float32, device=dev)
+                for i in range(cfg.n_layers) for kv in ("k", "v")})
+    # positions t .. total - 2 step (the last position's prediction
+    # would fall past the output)
+    n_steps = total - 1 - (p_len if use_prefill else 0)
+    if n_steps > 0 and dev.type == "cuda":
+        # the first step runs eagerly and writes real state; the capture
+        # runs no kernel, so it does not step a position twice
+        on_side_stream(step)
+        if n_steps > 1:
+            graph = CapturedGraph(step, tag="decode step")
+            for _ in range(n_steps - 1):
+                graph.replay()
+    else:
+        for _ in range(n_steps):
+            step()
+    return out.to(torch.int32)
 
 
 def transformer_apply(params: Params, tokens, *,
@@ -581,7 +660,7 @@ def _attn_shard_fn(attn: str, n_sp: int, cfg: TransformerConfig):
     if attn in ("zigzag", "ulysses"):
         raise NotImplementedError(
             f"attn={attn!r} is a sequence-parallel schedule, not in the "
-            f"port yet (ROADMAP A7); use attn='ring' on one device")
+            f"port yet (ROADMAP A5); use attn='ring' on one device")
     raise ValueError(f"unknown attn {attn!r} "
                      f"(want 'ring', 'zigzag' or 'ulysses')")
 
@@ -609,7 +688,7 @@ def _single_device(mesh) -> None:
     if any(int(n) != 1 for n in sizes.values()):
         raise NotImplementedError(
             f"a {sizes} mesh is data/sequence parallel, not in the port "
-            f"yet (ROADMAP A4/A7); pass mesh=None for one device")
+            f"yet (ROADMAP A3/A5); pass mesh=None for one device")
 
 
 def make_train_step(cfg: TransformerConfig, optimizer, *, mesh=None,
@@ -639,7 +718,7 @@ def make_train_step(cfg: TransformerConfig, optimizer, *, mesh=None,
     if zero1:
         raise NotImplementedError(
             "zero1 shards optimizer state over a data-parallel axis, not "
-            "in the port yet (ROADMAP A4)")
+            "in the port yet (ROADMAP A5)")
     _single_device(mesh)
     _check_arch(cfg)
     if cfg.moe_experts:

@@ -11,13 +11,18 @@ compositions beside them (``ops/__init__.py:70-101`` picks one per
   the kernel to the plain version.
 
 Each launch adds one to its kernel's count (:func:`launch_counts`), so
-a run can show that its main path went through the kernels.
+a run can show that its main path went through the kernels. A CUDA graph
+replays kernels without running the wrappers, so the launches a capture
+passes through are recorded, not counted (:func:`recording_launches`),
+and credited once per replay (:func:`credit_launches`): the counts keep
+meaning "kernels that ran".
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
-from typing import Dict
+from typing import Dict, Iterator
 
 import torch
 
@@ -45,6 +50,34 @@ def reset_launch_counts() -> None:
     with _launch_lock:
         for k in _launches:
             _launches[k] = 0
+
+
+@contextlib.contextmanager
+def recording_launches() -> Iterator[Dict[str, int]]:
+    """Within the block, launches are recorded instead of counted: the
+    yielded dict holds, on exit, the launches per kernel the block passed
+    through, and the counts are as they were before it. Wrap a CUDA graph
+    capture in it — captured kernels do not run — and credit the dict at
+    every replay."""
+    with _launch_lock:
+        before = dict(_launches)
+    tally: Dict[str, int] = {}
+    try:
+        yield tally
+    finally:
+        with _launch_lock:
+            for k, n in before.items():
+                if _launches[k] != n:
+                    tally[k] = _launches[k] - n
+                _launches[k] = n
+
+
+def credit_launches(tally: Dict[str, int]) -> None:
+    """Count the launches of ``tally`` (from :func:`recording_launches`)
+    once: what one replay of a captured graph ran."""
+    with _launch_lock:
+        for k, n in tally.items():
+            _launches[k] += n
 
 
 def alignment(*byte_values: int) -> int:
@@ -80,7 +113,8 @@ from lua_mapreduce_tpu_torch.ops.q8 import q8_matmul, quantize_q8  # noqa: E402
 from lua_mapreduce_tpu_torch.ops.conv import conv2d  # noqa: E402
 from lua_mapreduce_tpu_torch.ops.pool import avgpool2d, maxpool2d  # noqa: E402
 
-__all__ = ["KERNELS", "launch_counts", "reset_launch_counts", "device_kind",
+__all__ = ["KERNELS", "launch_counts", "reset_launch_counts",
+           "recording_launches", "credit_launches", "device_kind",
            "matmul", "log_softmax", "softmax", "flash_attention",
            "decode_attention", "quantize_kv", "q8_matmul", "quantize_q8",
            "conv2d", "maxpool2d", "avgpool2d"]

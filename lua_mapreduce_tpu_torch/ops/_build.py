@@ -52,7 +52,7 @@ _SIGNATURES = {
                      for fn in ("lmr_flash_bwd_dq", "lmr_flash_bwd_dkv")},
                   "lmr_flash_bwd_path": [_P] * 4 + [_I] * 5 + [_L] * 12
                   + [_I]},
-    "decode": {"lmr_decode": [_P] * 9 + [_I] * 6 + [_L] * 3 + [_I, _P],
+    "decode": {"lmr_decode": [_P] * 10 + [_I] * 6 + [_L] * 3 + [_I, _P],
                "lmr_decode_splits": [_I] * 5,
                "lmr_decode_combine": [_P] * 4 + [_I] * 4 + [_P]},
     "q8": {"lmr_q8_matmul": [_P] * 5 + [_I] * 4 + [_P],

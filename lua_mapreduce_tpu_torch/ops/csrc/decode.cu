@@ -18,10 +18,14 @@
 //    (64 at the serving shape, 16 under GQA 4:1) would leave most SMs
 //    idle. lmr_decode_splits picks n_split from the cache capacity S, the
 //    row count and the SM count — never from t — so the grid of a decode
-//    step does not change as t grows (a CUDA graph can hold it). Each
-//    split clamps its range to the live positions [0, n_live) and a
-//    split with nothing live writes the empty state (m = -1e30, l = 0,
-//    acc = 0): dead positions are never read, the cache never padded.
+//    step does not change as t grows. The position t itself is read from
+//    device memory (an int64 the caller's decode loop advances on the
+//    card), so one captured CUDA graph of a decode step serves every t.
+//    Each split computes the live positions [0, n_live) from t — S once a
+//    rolling cache is full, else min(t + 1, S) — clamps its range to them,
+//    and a split with nothing live writes the empty state (m = -1e30,
+//    l = 0, acc = 0): dead positions are never read, the cache never
+//    padded.
 //  * Loads: a row's cache is contiguous over S, so a split is one span
 //    of memory. Each lane reads 16 bytes (4 f32, 8 bf16 or 16 int8) of a
 //    cache row, D / (16 bytes) lanes a row, so one warp instruction covers
@@ -104,6 +108,13 @@ struct Row<int8_t> {
   }
 };
 
+// The visible cache slots at position t: all S once a rolling cache has
+// wrapped, else slots [0, t + 1) (the plain version's mask).
+__device__ __forceinline__ int live_positions(long long t, int S, int roll) {
+  if (roll && t >= S) return S;
+  return t < 0 ? 0 : (t + 1 < S ? static_cast<int>(t + 1) : S);
+}
+
 // One split of one (batch, kv-head) row. Pm/Pl (rows, n_split, G) and
 // Pacc (rows, n_split, G, D) receive the split's state (m in natural-log
 // units); with one split, O (rows, G, D) receives the output instead.
@@ -113,7 +124,8 @@ decode_split_kernel(const QT* __restrict__ Q, const KV* __restrict__ K,
                     const KV* __restrict__ V, const float* __restrict__ KS,
                     const float* __restrict__ VS, float* __restrict__ O,
                     float* __restrict__ Pm, float* __restrict__ Pl,
-                    float* __restrict__ Pacc, int Hkv, int S, int n_live,
+                    float* __restrict__ Pacc, int Hkv, int S,
+                    const long long* __restrict__ T, int roll,
                     int split_len, long long sqb, long long sqh,
                     long long sqg, float c) {
   using R = Row<KV>;
@@ -123,6 +135,7 @@ decode_split_kernel(const QT* __restrict__ Q, const KV* __restrict__ K,
   __shared__ float sacc[NW][G][D];
   const int z = blockIdx.x, n_split = gridDim.x, row = blockIdx.y;
   const int b = row / Hkv, kh = row % Hkv;
+  const int n_live = live_positions(*T, S, roll);
   const int p0 = z * split_len;
   const int p1 = min(p0 + split_len, n_live);
   const long long slot = (long long)row * n_split + z;
@@ -318,7 +331,8 @@ struct Args {
   const void *q, *k, *v;
   const float *ks, *vs;
   float *o, *pm, *pl, *pacc;
-  int rows, Hkv, S, n_live, split_len, n_split;
+  const long long* t;
+  int rows, Hkv, S, roll, split_len, n_split;
   long long sqb, sqh, sqg;
   float c;
 };
@@ -331,7 +345,7 @@ static int launch_g(int G, const Args& a, cudaStream_t s) {
   const dim3 grid(a.n_split, a.rows);
 #define LMR_DECODE_G(GG)                                                     \
   decode_split_kernel<QT, KV, D, GG><<<grid, NT, 0, s>>>(                    \
-      Q, K, V, a.ks, a.vs, a.o, a.pm, a.pl, a.pacc, a.Hkv, a.S, a.n_live,    \
+      Q, K, V, a.ks, a.vs, a.o, a.pm, a.pl, a.pacc, a.Hkv, a.S, a.t, a.roll, \
       a.split_len, a.sqb, a.sqh, a.sqg, a.c)
   switch (G) {
     case 1: LMR_DECODE_G(1); break;
@@ -379,15 +393,18 @@ int lmr_decode_splits(int rows, int S, int D, int G, int kind) {
 // contiguous (B, Hkv, S) f32 (KIND_BF16_INT8 only, else null); o:
 // contiguous (B, Hkv, G, D) f32; pm/pl (B·Hkv, n_split, G) and pacc
 // (B·Hkv, n_split, G, D) f32 scratch when lmr_decode_splits gives
-// n_split > 1, else null. Positions [0, n_live) are visible. Launches the
-// split kernel and, with more than one split, the combine. Returns
-// cudaGetLastError() after the launches (0 = launched).
+// n_split > 1, else null; t: a device int64, the current position (slots
+// [0, t] visible, every slot once roll is set and t >= S), read by the
+// kernel, so a captured launch serves every t. Launches the split kernel
+// and, with more than one split, the combine. Returns cudaGetLastError()
+// after the launches (0 = launched).
 int lmr_decode(const void* q, const void* k, const void* v, const void* ks,
-               const void* vs, void* o, void* pm, void* pl, void* pacc, int B,
-               int Hkv, int G, int D, int S, int n_live, long long sqb,
-               long long sqh, long long sqg, int kind, void* stream) {
+               const void* vs, void* o, void* pm, void* pl, void* pacc,
+               const void* t, int roll, int B, int Hkv, int G, int D, int S,
+               long long sqb, long long sqh, long long sqg, int kind,
+               void* stream) {
   const long long rows = (long long)B * Hkv;
-  if (!valid(rows, S, D, G, kind) || n_live < 0 || n_live > S ||
+  if (!valid(rows, S, D, G, kind) || t == nullptr ||
       (kind == KIND_BF16_INT8 && (ks == nullptr || vs == nullptr)))
     return cudaErrorInvalidValue;
   const int n_split = lmr_decode_splits(static_cast<int>(rows), S, D, G, kind);
@@ -398,8 +415,8 @@ int lmr_decode(const void* q, const void* k, const void* v, const void* ks,
   Args a{q, k, v, static_cast<const float*>(ks), static_cast<const float*>(vs),
          static_cast<float*>(o), static_cast<float*>(pm),
          static_cast<float*>(pl), static_cast<float*>(pacc),
-         static_cast<int>(rows), Hkv, S, n_live, (S + n_split - 1) / n_split,
-         n_split, sqb, sqh, sqg,
+         static_cast<const long long*>(t), static_cast<int>(rows), Hkv, S,
+         roll ? 1 : 0, (S + n_split - 1) / n_split, n_split, sqb, sqh, sqg,
          (float)(LOG2E / sqrt((double)D))};
   int rc;
   if (kind == KIND_F32) rc = launch_d<float, float>(D, G, a, s);

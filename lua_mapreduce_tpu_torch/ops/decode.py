@@ -7,8 +7,11 @@ combine that merges the splits in a fixed order (its source note says
 what bounds it and what the design does about it). Caches are held as
 (B, H_kv, S, D), per-(batch, head) rows contiguous — the layout
 ``models/transformer.py``'s ``greedy_decode`` owns. The current
-position ``t`` is a Python int here (the port's decode loop is a Python
-loop): it reaches the kernel as an argument, with no device→host sync.
+position ``t`` is a Python int or a 0-d integer tensor on the operands'
+device; the kernel reads it from device memory (an int becomes a device
+scalar by one fill kernel, never a host→device copy), so a decode step
+captured in a CUDA graph is replayed at every position with no host
+round trip.
 """
 
 from __future__ import annotations
@@ -37,12 +40,13 @@ def quantize_kv(x):
     return q.to(torch.int8), scale
 
 
-def decode_attention_plain(q, k, v, t: int, roll: bool, k_scale=None,
+def decode_attention_plain(q, k, v, t, roll: bool, k_scale=None,
                            v_scale=None):
     """The plain version (the JAX op's ``_decode_xla``): f32 scores over
     the visible slots, softmax, p rounded to the value dtype (bf16 when
     the cache is int8, after the v scale folds in) before an f32 value
-    product. Returns f32 (B, H_kv, G, D)."""
+    product. ``t`` is an int or a 0-d integer tensor. Returns f32
+    (B, H_kv, G, D)."""
     d = q.shape[-1]
     s_len = k.shape[2]
     if k_scale is None:
@@ -117,11 +121,21 @@ def _aligned(x):
     return x.clone(memory_format=torch.contiguous_format)
 
 
-def decode_attention_cuda(q, k, v, t: int, roll: bool, k_scale=None,
+def _device_position(t, device) -> torch.Tensor:
+    """``t`` as the 0-d int64 tensor on ``device`` the kernel reads: an
+    int through one fill kernel (no host→device copy, so it can be
+    captured), a tensor as it is (converted only if its dtype differs)."""
+    if isinstance(t, torch.Tensor):
+        return t if t.dtype == torch.int64 else t.to(torch.int64)
+    return torch.full((), t, dtype=torch.int64, device=device)
+
+
+def decode_attention_cuda(q, k, v, t, roll: bool, k_scale=None,
                           v_scale=None):
     """Launch ``csrc/decode.cu`` on CUDA tensors. q (B, H_kv, G, D) any
     strides with a contiguous head dim; k/v (B, H_kv, S, D) f32/bf16, or
-    int8 with f32 (B, H_kv, S) scales. Returns f32 (B, H_kv, G, D)."""
+    int8 with f32 (B, H_kv, S) scales; ``t`` an int or a 0-d integer
+    tensor on the card. Returns f32 (B, H_kv, G, D)."""
     b, hkv, g, d = q.shape
     s_len = k.shape[2]
     if k_scale is not None:
@@ -149,7 +163,7 @@ def decode_attention_cuda(q, k, v, t: int, roll: bool, k_scale=None,
     if q.stride(-1) != 1:
         q = q.contiguous()
     k, v = _aligned(k), _aligned(v)
-    n_live = s_len if (roll and t >= s_len) else max(0, min(t + 1, s_len))
+    t = _device_position(t, q.device)
     out = torch.empty((b, hkv, g, d), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out
@@ -172,7 +186,8 @@ def decode_attention_cuda(q, k, v, t: int, roll: bool, k_scale=None,
             v_scale.data_ptr() if v_scale is not None else None,
             out.data_ptr(),
             *(x.data_ptr() if x is not None else None for x in scratch),
-            b, hkv, g, d, s_len, n_live, *q.stride()[:3], kind, stream)
+            t.data_ptr(), int(roll), b, hkv, g, d, s_len, *q.stride()[:3],
+            kind, stream)
     _build.check(lib, rc, "decode kernel launch")
     count_launch("decode")
     return out
@@ -217,19 +232,30 @@ def merge_splits_cuda(m, l, acc):
     return out
 
 
-def decode_attention(q, k, v, t: int, *, roll: bool = False, k_scale=None,
+def decode_attention(q, k, v, t, *, roll: bool = False, k_scale=None,
                      v_scale=None):
     """One decode position's attention against the KV cache.
 
     q: (B, H_kv, G, D) — the G query heads grouped under each kv head;
-    k, v: (B, H_kv, S, D) caches; ``t``: the current position (a Python
-    int). Slots with index > t are invisible unless ``roll`` and the
-    rolling cache is full. For an int8 cache pass ``k_scale``/``v_scale``
+    k, v: (B, H_kv, S, D) caches; ``t``: the current position, a Python
+    int or a 0-d integer tensor on the operands' device (what a captured
+    decode step passes). Slots with index > t are invisible unless
+    ``roll`` and the rolling cache is full. For an int8 cache pass ``k_scale``/``v_scale``
     (B, H_kv, S) f32 from :func:`quantize_kv`. Returns f32 (B, H_kv, G,
     D). CPU tensors take the plain version, CUDA tensors the kernel."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError("k_scale and v_scale must be passed together")
-    t = operator.index(t)
+    if isinstance(t, torch.Tensor):
+        if t.dim() != 0 or t.dtype.is_floating_point \
+                or t.dtype.is_complex or t.dtype == torch.bool:
+            raise ValueError(f"t must be an int or a 0-d integer tensor, "
+                             f"got a {t.dtype} tensor of shape "
+                             f"{tuple(t.shape)}")
+        if t.device != q.device:
+            raise ValueError(f"t lies on {t.device}, the operands on "
+                             f"{q.device}")
+    else:
+        t = operator.index(t)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"decode_attention takes q (B, H_kv, G, D) and "
                          f"k/v (B, H_kv, S, D), got {tuple(q.shape)}, "

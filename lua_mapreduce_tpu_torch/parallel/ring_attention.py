@@ -73,7 +73,7 @@ def _ring_shard(q, k, v, *, n_shards: int, causal: bool, window: int = 0):
     if n_shards != 1:
         raise NotImplementedError(
             f"ring attention over {n_shards} shards is the sequence-"
-            f"parallel slice, not in the port yet (ROADMAP A7); run one "
+            f"parallel slice, not in the port yet (ROADMAP A5); run one "
             f"shard")
     o, lse = _ring_init(q)
     if causal and window:

@@ -2,27 +2,38 @@
 
 Port of ``lua_mapreduce_tpu/train/harness.py`` for one device: the same
 dataflow as the reference example (grad on a batch → optimizer step →
-loop, early stopping on a holdout set, checkpoints through a Store),
-with ``torch.optim.SGD(lr, momentum, weight_decay)`` as the optimizer —
-the same update as the JAX default ``optax.chain(add_decayed_weights,
+loop, early stopping on a holdout set, checkpoints through a Store,
+progress in a ``PersistentTable`` for resume), with
+``torch.optim.SGD(lr, momentum, weight_decay)`` as the optimizer — the
+same update as the JAX default ``optax.chain(add_decayed_weights,
 sgd(momentum))``: g ← g + wd·p; buf ← momentum·buf + g; p ← p − lr·buf.
 
-The JAX harness's multi-device pieces — the dp mesh and its all-reduce,
-ZeRO-1, gradient accumulation, the ``lax.scan`` epoch — are later
-slices. Steps run eagerly, one Python iteration each.
+The JAX harness runs an epoch, and ``run_steps``, as one ``lax.scan``
+under ``jit``. Here one training step — forward, backward (over
+``grad_accum`` microbatches when > 1) and the optimizer's update — is
+captured once per batch shape in a CUDA graph over static batch buffers
+and replayed for every step: a replay makes no host round trip. The
+first step at a shape runs eagerly (the capture's warm-up, a real
+step). On the CPU the same step function runs eagerly. The dp mesh and
+its all-reduce, and ZeRO-1, are later slices (ROADMAP A3).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
-from typing import Any, Callable, Dict, Optional, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from lua_mapreduce_tpu_torch.device import resolve_device
+from lua_mapreduce_tpu_torch.graphs import CapturedGraph, on_side_stream
 from lua_mapreduce_tpu_torch.train import checkpoint as ckpt
+from lua_mapreduce_tpu_torch.train.accum import accum_value_and_grad
+from lua_mapreduce_tpu_torch.train.optim import _materialize
+from lua_mapreduce_tpu_torch.utils.profiling import device_trace
 
 
 @dataclasses.dataclass
@@ -37,6 +48,25 @@ class TrainConfig:
     max_epochs: int = 40            # init.lua max epochs
     patience: int = 10              # train_holdout_validation analog
     seed: int = 1234
+    # gradient accumulation: > 1 splits each batch into this many
+    # microbatches folded before ONE optimizer update (train/accum.py) —
+    # the same numbers as the whole batch, activation memory ÷ grad_accum
+    grad_accum: int = 1
+    # ZeRO-1 shards the optimizer state over a dp axis: not in the port
+    # yet (ROADMAP A3), so True raises
+    zero1: bool = False
+    # when set, the SECOND run_epoch call (the first captures its step)
+    # is traced with utils/profiling.device_trace into this directory
+    profile_dir: Optional[str] = None
+
+
+@dataclasses.dataclass
+class _StepGraph:
+    """A captured training step: its static batch buffers and the graph
+    whose output is the step's loss."""
+    x: torch.Tensor
+    y: torch.Tensor
+    graph: CapturedGraph
 
 
 class DataParallelTrainer:
@@ -44,67 +74,178 @@ class DataParallelTrainer:
 
     ``params`` is a dict of tensors (or arrays); the trainer keeps its
     own copies on ``device`` (default ``"cuda"``) as leaf tensors that
-    require grad, and steps them in place with the optimizer.
+    require grad, and steps them in place with the optimizer. On a card
+    every step is a replay of a captured CUDA graph; :attr:`traces`
+    counts the captures (one per batch shape and dtype), as the JAX
+    harness counts its traces. Each captured step keeps its graph and
+    the graph's private memory pool for the trainer's lifetime, so every
+    new batch shape pins one step's activations and gradients on the
+    device.
     """
 
     def __init__(self, loss_fn: Callable, params: Dict[str, Any],
                  config: Optional[TrainConfig] = None,
                  device: Optional[Union[str, torch.device]] = None):
         self.loss_fn = loss_fn
-        self.config = config or TrainConfig()
+        self.config = c = config or TrainConfig()
+        if c.zero1:
+            raise NotImplementedError(
+                "zero1 shards the optimizer state over a data-parallel "
+                "axis: not in the port yet (ROADMAP A3)")
+        if c.grad_accum < 1:
+            raise ValueError(f"grad_accum must be >= 1, got {c.grad_accum}")
         self.device = resolve_device(device)
         self.params = {k: torch.as_tensor(v).detach().to(self.device)
                        .clone().requires_grad_(True)
                        for k, v in params.items()}
-        c = self.config
-        self.optimizer = torch.optim.SGD(
+        # the momentum buffers exist from the start (zeros: the first
+        # step's 0·momentum + g is g), so a captured step updates them in
+        # place and a resume can load into them
+        self.optimizer = _materialize(torch.optim.SGD(
             list(self.params.values()), lr=c.learning_rate,
-            momentum=c.momentum, weight_decay=c.weight_decay)
+            momentum=c.momentum, weight_decay=c.weight_decay))
+        self._graphs: Dict[tuple, _StepGraph] = {}
+        self.traces = 0
+        self._epoch_calls = 0
 
     def _to_device(self, x, y):
         return (torch.as_tensor(x).to(self.device),
                 torch.as_tensor(y).to(self.device))
 
-    def _step(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        self.optimizer.zero_grad(set_to_none=True)
-        loss = self.loss_fn(self.params, x, y)
-        loss.backward()
+    def _check_batch(self, x: torch.Tensor) -> None:
+        rows = x.shape[0]
+        if rows % self.config.grad_accum:
+            raise ValueError(f"batch of {rows} does not split over "
+                             f"grad_accum={self.config.grad_accum}")
+
+    def _grad_step(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """One step: the loss and its gradient (the microbatch fold when
+        grad_accum > 1), each gradient set as its parameter's ``.grad``
+        (zeros where the loss does not reach it, as under ``jax.grad``),
+        and the optimizer's update. The captured function: no host
+        round trip. Returns the detached loss."""
+        leaves = list(self.params.values())
+        if self.config.grad_accum == 1:
+            loss = self.loss_fn(self.params, x, y)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            loss = loss.detach()
+        else:
+            loss, gd = accum_value_and_grad(self.loss_fn, self.params,
+                                            (x, y), self.config.grad_accum)
+            grads = [gd[k] for k in self.params]
+        for p, g in zip(leaves, grads):
+            p.grad = torch.zeros_like(p) if g is None else g
         self.optimizer.step()
-        return loss.detach()
+        return loss
+
+    def _capture(self, x: torch.Tensor, y: torch.Tensor
+                 ) -> Tuple[_StepGraph, torch.Tensor]:
+        """Copy the batch into new static buffers, take one eager step
+        on them (the warm-up; it is a real step) and capture the step.
+        Returns the captured step and the eager step's loss."""
+        sx, sy = x.clone(), y.clone()
+        loss = on_side_stream(lambda: self._grad_step(sx, sy))
+        # grads set to None: the capture makes them in the graph's pool,
+        # where every replay rewrites them; until the first replay they
+        # hold the eager step's
+        eager = [p.grad for p in self.params.values()]
+        for p in self.params.values():
+            p.grad = None
+        graph = CapturedGraph(lambda: self._grad_step(sx, sy),
+                              tag="train step")
+        with torch.no_grad():
+            for p, g in zip(self.params.values(), eager):
+                p.grad.copy_(g)
+        self.traces += 1
+        return _StepGraph(sx, sy, graph), loss
+
+    def _run(self, batch: Callable[[int], Tuple[torch.Tensor, torch.Tensor]],
+             n: int) -> torch.Tensor:
+        """``n`` optimizer steps, step i on ``batch(i)``; returns the
+        per-step losses (a device tensor). On a card each step replays
+        the captured step of its batch's shape after one device-to-
+        device copy of the batch into the static buffers (none when the
+        step's batch is the previous step's)."""
+        if n <= 0:
+            return torch.empty(0, device=self.device)
+        self._check_batch(batch(0)[0])
+        if self.device.type != "cuda":
+            return torch.stack([self._grad_step(*batch(i))
+                                for i in range(n)])
+        x, y = batch(0)
+        key = (tuple(x.shape), x.dtype, tuple(y.shape), y.dtype,
+               self.config.grad_accum)
+        step = self._graphs.get(key)
+        first, held = 0, None
+        if step is None:
+            step, loss = self._capture(x, y)
+            self._graphs[key] = step
+            losses = torch.empty(n, dtype=loss.dtype, device=self.device)
+            losses[0] = loss
+            first, held = 1, (x, y)
+        else:
+            losses = torch.empty(n, dtype=step.graph.output.dtype,
+                                 device=self.device)
+        for i in range(first, n):
+            x, y = batch(i)
+            if held is None or held[0] is not x or held[1] is not y:
+                step.x.copy_(x)
+                step.y.copy_(y)
+                held = (x, y)
+            losses[i] = step.graph.replay()
+        return losses
 
     def step(self, x, y) -> float:
         """One optimizer step on one batch; returns its loss."""
         x, y = self._to_device(x, y)
-        return float(self._step(x, y))
+        return float(self._run(lambda i: (x, y), 1)[0])
 
     def run_steps(self, x, y, n_steps: int) -> torch.Tensor:
         """``n_steps`` optimizer steps on ONE fixed batch kept on the
-        device — the compute hot loop, with no host sync between steps.
-        Returns the per-step losses (a device tensor)."""
+        device — the compute hot loop: the batch is copied in once and
+        the captured step replayed ``n_steps`` times, with no host sync
+        between steps. Returns the per-step losses (a device tensor)."""
         x, y = self._to_device(x, y)
-        return torch.stack([self._step(x, y) for _ in range(n_steps)])
+        return self._run(lambda i: (x, y), n_steps)
 
     def run_epoch(self, x: np.ndarray, y: np.ndarray,
                   rng: np.random.RandomState) -> float:
         """Shuffle, batch, and run one full epoch; returns the mean
         batch loss. Uses ``rng`` exactly as the JAX harness does, so the
-        same seed gives the same batches."""
+        same seed gives the same batches. The shuffled epoch goes to the
+        device in one copy; each step reads its batch as a view of it."""
         c = self.config
         n = (len(x) // c.batch_size) * c.batch_size
         order = rng.permutation(len(x))[:n]
         xs, ys = self._to_device(x[order], y[order])
-        losses = [self._step(xs[i:i + c.batch_size], ys[i:i + c.batch_size])
-                  for i in range(0, n, c.batch_size)]
-        return float(torch.stack(losses).float().mean())
+        bs = c.batch_size
+        self._epoch_calls += 1
+        trace = (device_trace(c.profile_dir)
+                 if c.profile_dir is not None and self._epoch_calls == 2
+                 else contextlib.nullcontext())
+        with trace:
+            losses = self._run(
+                lambda i: (xs[i * bs:(i + 1) * bs], ys[i * bs:(i + 1) * bs]),
+                n // bs)
+            return float(losses.float().mean())   # forced inside the trace
 
     def fit(self, x_train, y_train, x_val, y_val,
             eval_fn: Optional[Callable] = None,
             checkpoint_store=None, checkpoint_name: str = "model.ckpt",
-            log: Optional[Callable[[str], None]] = None) -> Dict[str, Any]:
+            conf=None, log: Optional[Callable[[str], None]] = None
+            ) -> Dict[str, Any]:
         """Train with holdout early stopping (the finalfn role,
         common.lua:144-202). ``checkpoint_store`` receives the best
         params as ``<name>`` and last-epoch params plus momentum buffers
-        as ``<name>.resume``."""
+        as ``<name>.resume``. ``conf`` (a ``coord.persistent_table.
+        PersistentTable``) records ``epoch``, ``best_val`` and
+        ``best_epoch`` after every epoch; when it holds an epoch and the
+        store a resume file, training resumes after that epoch, with the
+        parameters and momentum buffers loaded in place (a captured step
+        reads them where it captured them). The resumed run first replays
+        the finished epochs' shuffles, so it takes the batches a run that
+        never stopped takes; the JAX harness restarts its shuffling rng
+        at the seed there, a fault of the reference (ROADMAP C)."""
         c = self.config
         rng = np.random.RandomState(c.seed)
         xv, yv = self._to_device(x_val, y_val)
@@ -117,7 +258,20 @@ class DataParallelTrainer:
         best_val, best_epoch = float("inf"), 0
         history = []
         t0 = time.time()
-        for epoch in range(1, c.max_epochs + 1):
+        # two checkpoints: "<name>" holds the best-validation params (the
+        # deliverable), "<name>.resume" last-epoch params AND momentum
+        resume_name = checkpoint_name + ".resume"
+        start_epoch = 1
+        if conf is not None and "epoch" in conf \
+                and checkpoint_store is not None \
+                and ckpt.exists(checkpoint_store, resume_name):
+            self._load_resume(checkpoint_store, resume_name)
+            start_epoch = int(conf["epoch"]) + 1
+            best_val = float(conf.get("best_val", best_val))
+            best_epoch = int(conf.get("best_epoch", 0))
+            for _ in range(1, start_epoch):
+                rng.permutation(len(x_train))
+        for epoch in range(start_epoch, c.max_epochs + 1):
             train_loss = self.run_epoch(x_train, y_train, rng)
             val_loss = eval_fn(self.params, xv, yv)
             history.append({"epoch": epoch, "train_loss": train_loss,
@@ -131,18 +285,34 @@ class DataParallelTrainer:
                     ckpt.save_pytree(checkpoint_store, checkpoint_name,
                                      self.params)
             if checkpoint_store is not None:
-                ckpt.save_pytree(checkpoint_store,
-                                 checkpoint_name + ".resume",
+                ckpt.save_pytree(checkpoint_store, resume_name,
                                  (self.params, self.momentum_buffers()))
+            if conf is not None:
+                conf.set({"epoch": epoch, "best_val": best_val,
+                          "best_epoch": best_epoch})
+                conf.update()
             if epoch - best_epoch >= c.patience:
                 break       # early stopping: no "loop"
-        return {"epochs": len(history), "best_val": best_val,
-                "best_epoch": best_epoch, "history": history,
-                "wall_time": time.time() - t0}
+        return {"epochs": len(history) + start_epoch - 1,
+                "best_val": best_val, "best_epoch": best_epoch,
+                "history": history, "wall_time": time.time() - t0}
+
+    @torch.no_grad()
+    def _load_resume(self, store, name: str) -> None:
+        """Copy the resume checkpoint's params and momentum buffers into
+        the live tensors (``copy_``: their storage stays the one a
+        captured step reads)."""
+        bufs = self.momentum_buffers()
+        params, saved = ckpt.load_pytree(store, name, (self.params, bufs),
+                                         check_shapes=True,
+                                         check_dtypes=True)
+        for k, p in self.params.items():
+            p.copy_(params[k])
+            bufs[k].copy_(saved[k])
 
     def momentum_buffers(self) -> Dict[str, torch.Tensor]:
         """The optimizer's momentum buffer per parameter (zeros before
-        the first step)."""
+        the first step; with momentum 0, zeros standing in for none)."""
         out = {}
         for k, p in self.params.items():
             buf = self.optimizer.state.get(p, {}).get("momentum_buffer")

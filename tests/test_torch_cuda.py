@@ -1026,3 +1026,162 @@ def test_pool_kernel_refuses_a_plan_it_cannot_run(cuda):
                 good._replace(grid=(1, 1, 3))):           # more images
         assert rc(bad) != 0, bad
     assert rc(good, xp=x.data_ptr() + 2) != 0             # misaligned
+
+
+# ------------------------------------------ captured loops (CUDA graphs)
+
+class _EagerGraph:
+    """Stands in for ``graphs.CapturedGraph``: calls the step at every
+    replay, so a test can run the same loop eagerly on the card."""
+
+    def __init__(self, fn, tag="graph"):
+        self.fn = fn
+        self.output = None
+
+    def replay(self):
+        self.output = self.fn()
+        return self.output
+
+
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("g", [1, 4])
+def test_decode_device_t_at_split_edges_matches_plain(cuda, kind, g):
+    """The kernel reads t from device memory: at every t around each
+    split's edges (rolled past S too), one device tensor advanced in
+    place, it equals the plain version at that t and the int-t call."""
+    dtype = torch.bfloat16 if kind != "float32" else torch.float32
+    s_len, d = 2048, 64
+    q = _randn(cuda, 2, 2, g, d, dtype=dtype, scale=2.0)
+    k = _randn(cuda, 2, 2, s_len, d, dtype=dtype)
+    v = _randn(cuda, 2, 2, s_len, d, dtype=dtype)
+    scales = {}
+    if kind == "int8":
+        k, ks = ops.quantize_kv(k)
+        v, vs = ops.quantize_kv(v)
+        scales = dict(k_scale=ks, v_scale=vs)
+    code = {"float32": 0, "bfloat16": 1, "int8": 2}[kind]
+    n_split = decode_splits(4, s_len, d, g, code)
+    split_len = -(-s_len // n_split)
+    edges = sorted({e + o for z in range(n_split + 1)
+                    for e in [z * split_len] for o in (-1, 0, 1)
+                    if 0 <= e + o < s_len + 3})
+    tol = {"float32": FLASH_F32, "bfloat16": BF16, "int8": DECODE_INT8}[kind]
+    t_dev = torch.zeros((), dtype=torch.int64, device="cuda")
+    for roll in (False, True):
+        for t in edges:
+            t_dev.fill_(t)
+            got = decode_attention_cuda(q, k, v, t_dev, roll, **scales)
+            want = decode_attention_plain(q, k, v, t, roll, **scales)
+            torch.testing.assert_close(got, want, **tol,
+                                       msg=f"t={t} roll={roll}")
+            assert torch.equal(
+                got, decode_attention_cuda(q, k, v, t, roll, **scales))
+
+
+def _serving_cfg(name):
+    from lua_mapreduce_tpu_torch.models import transformer as tt
+    base = dict(vocab=512, d_model=256, n_heads=4, n_layers=2, d_ff=512,
+                max_seq=128)
+    if name == "window":
+        base["window"] = 24
+    if name == "gqa":
+        base.update(n_heads=8, n_kv_heads=2, d_model=512)
+    return tt.TransformerConfig(**base)
+
+
+@pytest.mark.parametrize("name,dtype,kv_q8", [
+    ("mha", torch.bfloat16, False), ("mha", torch.bfloat16, True),
+    ("window", torch.bfloat16, False), ("gqa", torch.bfloat16, False)])
+@pytest.mark.parametrize("use_prefill", [True, False])
+def test_captured_decode_equals_eager(cuda, monkeypatch, name, dtype, kv_q8,
+                                      use_prefill):
+    """greedy_decode's replayed graph gives the tokens the same step
+    gives run eagerly on the card: bf16, int8 weights and KV, a rolling
+    window, GQA 4:1; greedy and sampled; the launch counts credited per
+    replay equal the eager loop's."""
+    from lua_mapreduce_tpu_torch import graphs
+    from lua_mapreduce_tpu_torch.models import transformer as tt
+    cfg = _serving_cfg(name)
+    p = tt.init_transformer(0, cfg, dtype=dtype, device="cuda")
+    if kv_q8:
+        p = tt.quantize_lm(p)
+    prompt = torch.randint(0, cfg.vocab, (2, 40),
+                           generator=torch.Generator().manual_seed(1))
+    for sample in ({}, dict(temperature=0.8, top_k=40, key=7)):
+        kw = dict(cfg=cfg, use_prefill=use_prefill, kv_q8=kv_q8, **sample)
+        ops.reset_launch_counts()
+        graphs.reset_captures()
+        got = tt.greedy_decode(p, prompt.cuda(), 20, **kw).cpu()
+        counts = ops.launch_counts()
+        n, (tag, _) = graphs.captures()
+        assert (n, tag) == (1, "decode step")
+        with monkeypatch.context() as m:
+            m.setattr(tt, "CapturedGraph", _EagerGraph)
+            ops.reset_launch_counts()
+            want = tt.greedy_decode(p, prompt.cuda(), 20, **kw).cpu()
+            assert ops.launch_counts() == counts
+        assert torch.equal(got, want), sample
+
+
+def _train_pair(model):
+    from lua_mapreduce_tpu_torch.models import lenet, mlp
+    gen = torch.Generator().manual_seed(5)
+    if model == "digits":
+        params = mlp.init_mlp(0, device="cpu")
+        x = torch.rand(128, 256, generator=gen)
+        y = torch.randint(0, 10, (128,), generator=gen)
+        return mlp.nll_loss, params, x, y
+    params = lenet.init_lenet(0, device="cpu")
+    x = torch.rand(64, 32, 32, 3, generator=gen)
+    y = torch.randint(0, 10, (64,), generator=gen)
+    return lenet.nll_loss, params, x, y
+
+
+@pytest.mark.parametrize("model", ["digits", "lenet"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_captured_train_steps_equal_eager(cuda, model, dtype):
+    """run_steps' replays equal an eager loop over the same loss_fn with
+    a fresh torch SGD, bit for bit: losses, then parameters; a second
+    run_steps at the shape does not capture again."""
+    from lua_mapreduce_tpu_torch.train.harness import (DataParallelTrainer,
+                                                       TrainConfig)
+    loss_fn, params, x, y = _train_pair(model)
+    params = {k: v.to(dtype) for k, v in params.items()}
+    x = x.to(dtype).cuda()
+    y = y.cuda()
+    c = TrainConfig(batch_size=len(x))
+    tr = DataParallelTrainer(loss_fn, params, c, device="cuda")
+    got = tr.run_steps(x, y, 4).cpu()
+    assert tr.traces == 1
+    got = torch.cat([got, tr.run_steps(x, y, 3).cpu()])
+    assert tr.traces == 1
+    ref = {k: v.detach().cuda().clone().requires_grad_(True)
+           for k, v in params.items()}
+    opt = torch.optim.SGD(list(ref.values()), lr=c.learning_rate,
+                          momentum=c.momentum, weight_decay=c.weight_decay)
+    want = []
+    for _ in range(7):
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(ref, x, y)
+        loss.backward()
+        opt.step()
+        want.append(loss.detach())
+    assert torch.equal(got, torch.stack(want).cpu())
+    for k in ref:
+        assert torch.equal(tr.params[k].detach(), ref[k].detach()), k
+
+
+def test_captured_step_launches_credited_per_replay(cuda):
+    """Launch counts after captured steps equal the kernels that ran:
+    one eager step plus one credit per replay, nothing for the capture."""
+    from lua_mapreduce_tpu_torch.train.harness import (DataParallelTrainer,
+                                                       TrainConfig)
+    loss_fn, params, x, y = _train_pair("digits")
+    tr = DataParallelTrainer(loss_fn, params, TrainConfig(batch_size=128),
+                             device="cuda")
+    ops.reset_launch_counts()
+    tr.run_steps(x.cuda(), y.cuda(), 5)
+    torch.cuda.synchronize()
+    # per step: 2 forward + 3 backward products, 1 log_softmax
+    assert ops.launch_counts() == {**dict.fromkeys(ops.KERNELS, 0),
+                                   "matmul_f32": 25, "rowwise_softmax": 5}

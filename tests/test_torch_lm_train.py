@@ -344,9 +344,9 @@ def test_unported_options_raise():
     step = tt.make_train_step(tc, opt, grad_accum=3)
     with pytest.raises(ValueError, match="grad_accum=3"):
         step(tp, *_batch(4, 8))
+    # --profile is ported (tests/test_torch_harness.py runs it)
     for kw, match in (({"dp": 2}, "mesh"), ({"sp": 2}, "mesh"),
-                      ({"zero1": True}, "zero1"),
-                      ({"profile": "/tmp/x"}, "profile")):
+                      ({"zero1": True}, "zero1")):
         with pytest.raises(NotImplementedError, match=match):
             train_lm.run(_port_args(steps=1, **kw))
     with pytest.raises(NotImplementedError, match="sequence-parallel"):

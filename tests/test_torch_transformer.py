@@ -170,8 +170,9 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="mesh"):
         tt.greedy_decode(tp, toks, 2, cfg=tc, use_prefill=True,
                          mesh=object())
-    with pytest.raises(NotImplementedError, match="sampling"):
-        tt.greedy_decode(tp, toks, 2, cfg=tc, temperature=0.7, key=0)
+    # sampling is ported (tests/test_torch_sampling.py): it runs
+    out = tt.greedy_decode(tp, toks, 2, cfg=tc, temperature=0.7, key=0)
+    assert tuple(out.shape) == (1, 6) and out.dtype == torch.int32
     with pytest.raises(ValueError, match="PRNG key"):
         tt.greedy_decode(tp, toks, 2, cfg=tc, temperature=0.7)
     import dataclasses
