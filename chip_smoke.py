@@ -106,9 +106,33 @@ Phases, each a hard failure on any mismatch:
              validation accuracy and within 0.05 of each other;
 14. resume — ``fit(conf=)`` with a file-backed persistent table: 3
              epochs, then a fresh trainer resumes to 5 (epochs [4, 5],
-             parameters equal to a never-stopped run's).
+             parameters equal to a never-stopped run's);
+15. kmeans — ``kmeans_fit`` over a world-size-1 NCCL mesh at SIFT1M's
+             shape (1,000,000 × 128 f32 synthetic blobs from the seed,
+             k = 1024, 20 Lloyd iterations): the iteration captured with
+             its all-reduces and replayed, against the same loop run
+             eagerly (bit for bit), ms/iteration, idle share, peak
+             memory and the inertia history; the fit's first two
+             iterations held to a float64 CPU reference at full size
+             (every assignment that differs lies within f32 rounding of
+             a tie; the updated centroids within 1e-4, history[0..1]
+             rtol 1e-3); at 65,536 × 128, k = 64 the card equals the
+             CPU within 1e-4;
+16. als    — ``als_fit`` over the mesh at MovieLens-1M's shape (6,040 ×
+             3,706, 4.47% observed, a low-rank-plus-noise matrix from the
+             seed, rank 64, reg 0.1, 10 rounds): captured against eager
+             (bit for bit), ms/round, the RMSE history; at 600 × 300 the
+             card equals the CPU within 1e-4;
+17. dp     — the trainer over the mesh, replicated and ZeRO-1, on the
+             digits MLP (b128 f32) and LeNet-5 b1024 bf16: captured steps
+             with the collectives inside equal the no-mesh trainer's
+             losses, parameters and momentum bit for bit; ms/step of each;
+18. executor — ``TpuExecutor`` on the card: ``run_keyed`` of the digits
+             gradient, ``run_bucketed`` of a 16-partition histogram and
+             ``run_loop`` with an all-reduce inside, each against the CPU.
 
-Launch counts are zeroed just before each run of phases 4, 5, 6, 8 and 10 and
+Launch counts are zeroed just before each run of phases 4, 5, 6, 8, 10 and
+15-18 and
 read just after, and must equal the counts worked out from the code; a
 kernel of the paths with no launch there fails the run. The
 card's name and power limit, then one JSON line of per-kernel numbers,
@@ -213,6 +237,17 @@ CONV_CHECK_RTOL = 1e-4
 # parameters, normwise limit in the worst parameter)
 CONV_CHECKS = {"lenet5_cifar": (64, None, True, 1e-4, 1e-4),
                "resnet18_imagenet": (4, (64, 64, 3), False, 2e-2, 5e-2)}
+# the data-parallel plane's configurations (PR 10): k-means at SIFT1M's
+# shape (1,000,000 points of 128 f32, k = 1024; synthetic blobs from the
+# seed, not the dataset), 20 Lloyd iterations; ALS at MovieLens-1M's
+# shape (6,040 users × 3,706 items, 4.47% observed; a low-rank-plus-
+# noise matrix from the seed), rank 64, reg 0.1, 10 rounds; the DP
+# trainer's timed captured steps per model (a digits step is ~0.1 ms:
+# 200 of them keep the host clock's noise out of the figure)
+KMEANS_N, KMEANS_K, KMEANS_DIM, KMEANS_ITERS = 1_000_000, 1024, 128, 20
+ALS_USERS, ALS_ITEMS, ALS_DENSITY, ALS_RANK, ALS_ITERS, ALS_REG = (
+    6040, 3706, 0.0447, 64, 10, 0.1)
+DP_STEPS = {"digits": 200, "lenet5_cifar": 20}
 
 
 def log(msg):
@@ -300,7 +335,8 @@ def matmul_cases():
     """(label, M, K, N, dtype, a transposed?, b transposed?) at the main
     path's shapes: the digits step's forward products, its backward
     products (transposed views, as the autograd Function passes them),
-    the validation products, and the wide trainer's 8192³ products."""
+    the validation products, the data-parallel plane's k-means and ALS
+    products (PR 10), and the wide trainer's 8192³ products."""
     f32 = [("digits fwd x·W0", 128, 256, 128, False, False),
            ("digits fwd h·W1", 128, 128, 10, False, False),
            ("digits bwd g·W1ᵀ", 128, 10, 128, False, True),
@@ -308,6 +344,17 @@ def matmul_cases():
            ("digits bwd xᵀ·g", 256, 128, 128, True, False),
            ("digits val x·W0", 200, 256, 128, False, False),
            ("digits val h·W1", 200, 128, 10, False, False)]
+    # k-means at SIFT1M's shape: x·cᵀ (c read through its .t() view) and
+    # one_hotᵀ·x (K = 10⁶, split-K, one_hot through its .t() view); ALS at
+    # ML-1M's: W·(V⊗V), Wᵀ·(U⊗U) and U·Vᵀ
+    f32 += [("kmeans x·cᵀ", KMEANS_N, KMEANS_DIM, KMEANS_K, False, True),
+            ("kmeans one_hotᵀ·x", KMEANS_K, KMEANS_N, KMEANS_DIM, True,
+             False),
+            ("als W·(V⊗V)", ALS_USERS, ALS_ITEMS, ALS_RANK ** 2, False,
+             False),
+            ("als Wᵀ·(U⊗U)", ALS_ITEMS, ALS_USERS, ALS_RANK ** 2, True,
+             False),
+            ("als U·Vᵀ", ALS_USERS, ALS_RANK, ALS_ITEMS, False, True)]
     bf16 = [("4096³", 4096, 4096, 4096, False, False),
             ("wide fwd 8192³", 8192, 8192, 8192, False, False),
             ("wide bwd g·Wᵀ", 8192, 8192, 8192, False, True),
@@ -2271,6 +2318,446 @@ def phase_resume(torch, epochs=(3, 5)):
             "wall_s": wall}
 
 
+# ------------------------- phases 15-18: the data-parallel plane (PR 10)
+
+def card_mesh(torch):
+    """The world-size-1 mesh on the card: NCCL, or the run fails."""
+    import torch.distributed as dist
+
+    from lua_mapreduce_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(device="cuda")
+    if "nccl" not in dist.get_backend():
+        raise AssertionError(f"the card's mesh runs {dist.get_backend()}, "
+                             f"not NCCL")
+    return mesh
+
+
+@contextlib.contextmanager
+def timed_replays(torch, module):
+    """Within the block, ``module``'s captured loops record a CUDA event
+    before their first replay and after each one: the yielded dict gives
+    the device-timeline ms from the first replay's start to the last
+    one's end and the number of replays — the steady loop, without the
+    eager warm-up step and the capture (whose host time includes
+    ``torch.cuda.graph``'s own synchronize and garbage collection)."""
+    real = module.CapturedGraph
+    rec = {"replays": 0}
+
+    class Timed(real):
+        def replay(self):
+            if "start" not in rec:
+                rec["start"] = torch.cuda.Event(enable_timing=True)
+                rec["start"].record()
+            out = super().replay()
+            rec["end"] = torch.cuda.Event(enable_timing=True)
+            rec["end"].record()
+            rec["replays"] += 1
+            return out
+
+    module.CapturedGraph = Timed
+    try:
+        yield rec
+    finally:
+        module.CapturedGraph = real
+    rec["end"].synchronize()
+    rec["ms"] = rec["start"].elapsed_time(rec["end"])
+
+
+def timed(torch, ops, fn):
+    """``fn()`` on the card: its result, host ms of the call (ending in a
+    synchronize), peak GiB above the memory in use before it, and the
+    launches counted over it (zeroed just before)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = ops.launch_counts()
+    return out, ms, (torch.cuda.max_memory_allocated() - base) / 2 ** 30, \
+        counts
+
+
+def captured_vs_eager(torch, ops, name, run, n, want_counts):
+    """A captured loop (``graphs.scan``; ``run(n_iters)`` runs it)
+    against the same loop run eagerly on the card: outputs bit for bit,
+    the launches of the captured run as the code counts them, both timed
+    (host clock; the replays also on the device timeline), and the
+    device idle share of a replayed iteration: an iteration's kernel
+    time is the profiled kernel time of a 2n-iteration call less that of
+    an n-iteration one, over n (what runs once per call — the set-up,
+    the work after the loop — cancels)."""
+    from lua_mapreduce_tpu_torch import graphs
+    run(n)                                 # warm-up: allocator, libraries
+    with timed_replays(torch, graphs) as replays:
+        res, ms, peak, counts = timed(torch, ops, lambda: run(n))
+    replay_ms = replays["ms"] / replays["replays"]
+    if counts != want_counts:
+        raise AssertionError(f"{name} launches {counts}, expected "
+                             f"{want_counts}")
+    capture_ms = graphs.captures()[1][1]
+    with eager_graphs(graphs):
+        eres, e_ms, e_peak, _ = timed(torch, ops, lambda: run(n))
+    equal = all(torch.equal(a, b) for a, b in zip(res, eres))
+    if not equal:
+        raise AssertionError(f"{name}: the captured loop differs from the "
+                             f"eager loop")
+    kernels = kernel_profile(torch, lambda: run(n))
+    dev_ms = sum(k[1] for k in kernels)
+    dev2_ms = sum(k[1] for k in kernel_profile(torch, lambda: run(2 * n)))
+    iter_ms = (dev2_ms - dev_ms) / n
+    return res, {"ms": ms, "ms_per_iter": ms / n, "capture_ms": capture_ms,
+                 "replay_ms_per_iter": replay_ms,
+                 "eager_ms": e_ms, "eager_ms_per_iter": e_ms / n,
+                 "peak_mem_gib": peak, "eager_peak_mem_gib": e_peak,
+                 "equal_to_eager": equal, "launches": counts,
+                 "profiled_device_ms": dev_ms,
+                 "kernel_ms_per_iter": iter_ms,
+                 "device_idle_share": 1 - iter_ms / replay_ms,
+                 "top_kernels": kernels[:8]}
+
+
+def hold_to_cpu(name, torch, got, want, rtol=1e-4, atol=1e-4):
+    err = max(float((g.cpu() - w).abs().max()) for g, w in zip(got, want))
+    for g, w in zip(got, want):
+        if not torch.allclose(g.cpu(), w, rtol=rtol, atol=atol):
+            raise AssertionError(f"{name}: the card's result differs from "
+                                 f"the CPU's (max abs err {err:.3e})")
+    return err
+
+
+def phase_kmeans(torch, ops, seed=0):
+    """``kmeans_fit`` over the card's mesh: at a size the CPU runs
+    (65,536 × 128, k = 64, 10 iterations) the card's centroids equal the
+    port's CPU run within 1e-4 (inertia rtol 1e-3); at SIFT1M's shape,
+    20 Lloyd iterations captured (one eager warm-up iteration and 19
+    replays) against the same loop run eagerly, bit for bit, and the
+    first two of them against a float64 reference on the CPU
+    (:func:`kmeans_reference_check`)."""
+    from lua_mapreduce_tpu_torch.models import kmeans
+    from lua_mapreduce_tpu_torch.train.data import make_blobs
+    mesh = card_mesh(torch)
+    # from x[:64], as the JAX suite's mesh test starts from x[:8]: from
+    # randomly drawn centroids this data's 10-iteration fit turns on the
+    # summation order (assignments near a tie flip, and the flips
+    # compound): a CPU run on the rows permuted parts from the unpermuted
+    # one by more than 1e-2; from x[:64] by less than 1e-6 (tests/test_
+    # torch_kmeans_als.py::test_kmeans_card_check_start_avoids_
+    # assignment_ties). The full-size fit is held below to a reference
+    # that accounts for each flip.
+    xs, _, _ = make_blobs(seed=1, n=65536, k=64, dim=KMEANS_DIM)
+    c0s = xs[:64]
+    card = kmeans.kmeans_fit(xs, c0s, n_iters=10, mesh=mesh)
+    cpu = kmeans.kmeans_fit(xs, c0s, n_iters=10, device="cpu")
+    err = hold_to_cpu("kmeans 65536x128 k64", torch, card[:1], cpu[:1])
+    hold_to_cpu("kmeans 65536x128 k64 history", torch, card[2:], cpu[2:],
+                rtol=1e-3, atol=0.0)
+    t0 = time.perf_counter()
+    x, _, _ = make_blobs(seed=seed, n=KMEANS_N, k=KMEANS_K, dim=KMEANS_DIM)
+    c0 = kmeans.init_centroids(seed, x, KMEANS_K, method="random")
+    xd = torch.from_numpy(x).cuda()
+    setup_s = time.perf_counter() - t0
+    want = {**dict.fromkeys(ops.KERNELS, 0), "matmul_f32": 2 * KMEANS_ITERS}
+    res, r = captured_vs_eager(
+        torch, ops, "kmeans",
+        lambda n: kmeans.kmeans_fit(xd, c0, n_iters=n, mesh=mesh),
+        KMEANS_ITERS, want)
+    hist = res.history.cpu().tolist()
+    if not all(math.isfinite(h) for h in hist) or any(
+            b > a * (1 + 1e-6) for a, b in zip(hist, hist[1:])):
+        raise AssertionError(f"kmeans inertia not finite and falling: {hist}")
+    t0 = time.perf_counter()
+    full = kmeans_reference_check(torch, kmeans, x, xd, c0, mesh, hist)
+    full["seconds"] = time.perf_counter() - t0
+    r.update(history=hist, cpu_check_max_abs_err=err, setup_s=setup_s,
+             full_size_check=full)
+    log(f"[kmeans] {KMEANS_N}x{KMEANS_DIM} f32, k={KMEANS_K}, "
+        f"{KMEANS_ITERS} iterations on a dp=1 NCCL mesh: a replayed "
+        f"iteration {r['replay_ms_per_iter']:.3f} ms on the device "
+        f"({r['kernel_ms_per_iter']:.3f} ms of kernels: idle "
+        f"{100 * r['device_idle_share']:.1f}%); the captured call "
+        f"{r['ms_per_iter']:.3f} ms/iteration ({r['ms']:.1f} ms, capture "
+        f"{r['capture_ms']:.1f} ms of host time), the eager loop "
+        f"{r['eager_ms_per_iter']:.3f}; equal bit for bit; peak "
+        f"{r['peak_mem_gib']:.2f} GiB above the data (eager "
+        f"{r['eager_peak_mem_gib']:.2f}); launches {r['launches']}")
+    log(f"[kmeans] inertia history {hist}")
+    log(f"[kmeans] 65536x128 k=64: card equals the CPU run within 1e-4 "
+        f"(max abs err {err:.3e}); data set-up {setup_s:.1f} s")
+    log(f"[kmeans] full size against float64 on the CPU: "
+        f"{full['label_mismatches']} of {KMEANS_N} assignments differ, the "
+        f"largest gap {full['max_mismatch_gap']:.3e} within its f32 bound "
+        f"(largest bound share {full['max_gap_share']:.3f}); centroids "
+        f"after the first update within {full['centroid_max_abs_err']:.3e}; "
+        f"history[0..1] relative errors {full['history_rel_err']}; "
+        f"{full['seconds']:.1f} s")
+    for kname, ms, cnt in r["top_kernels"]:
+        log(f"[kmeans]   {ms:10.3f} ms {cnt:6d}x  {kname[:90]}")
+    del x, xd
+    torch.cuda.empty_cache()
+    return r["launches"], r
+
+
+def _nearest_f64(torch, x64, c64, rows=65536):
+    """Each row's nearest centroid and its squared distance, in float64
+    on the CPU, a block of rows at a time."""
+    labels, dmin = [], []
+    cc = (c64 * c64).sum(1)
+    for s in range(0, len(x64), rows):
+        xb = x64[s:s + rows]
+        d = (xb * xb).sum(1, keepdim=True) + cc[None, :] - 2.0 * xb @ c64.t()
+        m, i = d.min(1)
+        labels.append(i)
+        dmin.append(m)
+    return torch.cat(labels), torch.cat(dmin)
+
+
+def kmeans_reference_check(torch, kmeans, x, xd, c0, mesh, hist):
+    """The full-size fit's first two iterations against a float64
+    reference written with plain torch ops on the CPU.
+
+    Assignments: the card's labels (``kmeans.assign``, the fit's own
+    formula and kernel) may differ from the reference's only where the
+    two candidates' true distances lie within the worst-case f32
+    rounding of the card's computed ones — 2·γ_K·(‖c‖² + 2‖x‖‖c‖) per
+    candidate, γ_K = K·u/(1 − K·u), u = 2⁻²⁴, K the width — so a flip
+    at a near tie passes and any other fails. The centroids after the
+    first update (``kmeans_fit`` with one iteration) equal the float64
+    mean over the card's labels within 1e-4 (empty clusters keep their
+    centroid); history[0] and history[1] equal the reference inertia
+    against the start and against those centroids, rtol 1e-3."""
+    x64 = torch.from_numpy(x).double()
+    c64 = c0.double()
+    k, dim = c64.shape
+    ref_labels, d0 = _nearest_f64(torch, x64, c64)
+    card_labels = kmeans.assign(xd, c0.cuda()).cpu()
+    mis = torch.nonzero(card_labels != ref_labels).flatten()
+    xm = x64[mis]
+    gap = (((xm - c64[card_labels[mis]]) ** 2).sum(1)
+           - ((xm - c64[ref_labels[mis]]) ** 2).sum(1))
+    u = 2.0 ** -24
+    gamma = dim * u / (1 - dim * u)
+    cn = c64.norm(dim=1)
+    xn = xm.norm(dim=1)
+    bound = sum(2 * gamma * (cn[lab] ** 2 + 2 * xn * cn[lab])
+                for lab in (card_labels[mis], ref_labels[mis]))
+    share = (gap / bound).max().item() if len(mis) else 0.0
+    if len(mis) and share > 1.0:
+        raise AssertionError(f"kmeans: {int((gap > bound).sum())} of "
+                             f"{len(mis)} differing assignments are not "
+                             f"near ties (largest gap {gap.max():.3e})")
+    c1 = kmeans.kmeans_fit(xd, c0, n_iters=1, mesh=mesh).centroids.cpu()
+    sums = torch.zeros_like(c64).index_add_(0, card_labels, x64)
+    counts = torch.bincount(card_labels, minlength=k).double()
+    want = torch.where(counts[:, None] > 0,
+                       sums / counts.clamp_min(1)[:, None], c64)
+    c_err = hold_to_cpu("kmeans full-size first update", torch, [c1],
+                        [want.float()])
+    _, d1 = _nearest_f64(torch, x64, c1.double())
+    ref_hist = [d0.sum().item(), d1.sum().item()]
+    rel = [abs(h - w) / w for h, w in zip(hist[:2], ref_hist)]
+    if max(rel) > 1e-3:
+        raise AssertionError(f"kmeans history {hist[:2]} against the "
+                             f"float64 reference {ref_hist}: relative "
+                             f"errors {rel}")
+    return {"label_mismatches": len(mis),
+            "max_mismatch_gap": gap.max().item() if len(mis) else 0.0,
+            "max_gap_share": share, "centroid_max_abs_err": c_err,
+            "history_ref": ref_hist, "history_rel_err": rel}
+
+
+def phase_als(torch, ops, seed=0):
+    """``als_fit`` over the card's mesh: at 600 × 300, rank 16, 20%
+    observed, the card equals the CPU run within 1e-4; at MovieLens-1M's
+    shape, 10 rounds captured against the same loop run eagerly, bit for
+    bit."""
+    from lua_mapreduce_tpu_torch.models import als
+    from lua_mapreduce_tpu_torch.train.data import make_ratings
+    mesh = card_mesh(torch)
+    # 20% observed: at ML-1M's 4.47% a user of this small check would
+    # have ~13 ratings for 16 unknowns, systems held up by reg alone
+    rs, ws = make_ratings(seed=2, n_users=600, n_items=300, rank=16,
+                          density=0.2, noise=0.1)
+    v0s = als.init_item_factors(2, 300, 16)
+    card = als.als_fit(rs, ws, v0s, n_iters=4, reg=ALS_REG, mesh=mesh)
+    cpu = als.als_fit(rs, ws, v0s, n_iters=4, reg=ALS_REG, device="cpu")
+    err = hold_to_cpu("als 600x300 rank 16", torch, card, cpu)
+    r, w = make_ratings(seed=seed, n_users=ALS_USERS, n_items=ALS_ITEMS,
+                        rank=ALS_RANK, density=ALS_DENSITY, noise=0.1)
+    observed = float(w.mean())
+    v0 = als.init_item_factors(seed, ALS_ITEMS, ALS_RANK)
+    rd, wd = torch.from_numpy(r).cuda(), torch.from_numpy(w).cuda()
+    # per round: the users' two products, the items' two, the RMSE's one;
+    # then the final users' two
+    want = {**dict.fromkeys(ops.KERNELS, 0),
+            "matmul_f32": 5 * ALS_ITERS + 2}
+    res, rep = captured_vs_eager(
+        torch, ops, "als",
+        lambda n: als.als_fit(rd, wd, v0, n_iters=n, reg=ALS_REG,
+                              mesh=mesh), ALS_ITERS, want)
+    hist = res.history.cpu().tolist()
+    if not all(math.isfinite(h) for h in hist) or hist[-1] >= hist[0]:
+        raise AssertionError(f"als RMSE not finite and falling: {hist}")
+    rep.update(history=hist, observed_share=observed,
+               cpu_check_max_abs_err=err)
+    log(f"[als] {ALS_USERS}x{ALS_ITEMS}, {100 * observed:.2f}% observed, "
+        f"rank {ALS_RANK}, reg {ALS_REG}, {ALS_ITERS} rounds on a dp=1 NCCL "
+        f"mesh: a replayed round {rep['replay_ms_per_iter']:.3f} ms on the "
+        f"device ({rep['kernel_ms_per_iter']:.3f} ms of kernels: idle "
+        f"{100 * rep['device_idle_share']:.1f}%); the captured call "
+        f"{rep['ms_per_iter']:.3f} ms/round ({rep['ms']:.1f} ms, capture "
+        f"{rep['capture_ms']:.1f} ms of host time), the eager loop "
+        f"{rep['eager_ms_per_iter']:.3f}; equal bit for bit; peak "
+        f"{rep['peak_mem_gib']:.2f} GiB (eager "
+        f"{rep['eager_peak_mem_gib']:.2f}); launches {rep['launches']}")
+    log(f"[als] RMSE history {hist}; 600x300 rank 16: card equals the CPU "
+        f"run within 1e-4 (max abs err {err:.3e})")
+    for kname, ms, cnt in rep["top_kernels"]:
+        log(f"[als]   {ms:10.3f} ms {cnt:6d}x  {kname[:90]}")
+    return rep["launches"], rep
+
+
+def phase_dp_train(torch, ops, gen):
+    """The trainer over the card's mesh (dp = 1, NCCL) on the digits MLP
+    (b128 f32) and LeNet-5 b1024 bf16, replicated and with ZeRO-1: its
+    captured steps, with the collectives inside the graph, give the
+    no-mesh trainer's losses and parameters bit for bit; ms/step of
+    each beside the no-mesh step's. Counts are zeroed before each timed
+    run and read after it."""
+    from lua_mapreduce_tpu_torch.models.mlp import init_mlp, nll_loss
+    from lua_mapreduce_tpu_torch.train.data import make_digits
+    from lua_mapreduce_tpu_torch.train.harness import (DataParallelTrainer,
+                                                       TrainConfig)
+    mesh = card_mesh(torch)
+    xd, yd, _, _ = make_digits(seed=0)
+    models = {"digits": (nll_loss, init_mlp(0, device="cuda"),
+                         torch.from_numpy(xd[:128]).cuda(),
+                         torch.from_numpy(yd[:128]).long().cuda(),
+                         {"matmul_f32": 5, "rowwise_softmax": 1})}
+    loss_fn, params, shape, n_cls, _, per_step = conv_model(
+        "lenet5_cifar", torch.bfloat16, "cuda")
+    x = torch.randn((1024, *shape), device="cuda", generator=gen).to(
+        torch.bfloat16)
+    y = torch.randint(0, n_cls, (1024,), device="cuda", generator=gen)
+    models["lenet5_cifar"] = (loss_fn, params, x, y, per_step)
+    out, runs = {}, []
+    for name, (loss_fn, params, x, y, per_step) in models.items():
+        rows, steps = {}, DP_STEPS[name]
+        for tag in ("no mesh", "mesh", "mesh zero1"):
+            cfg = TrainConfig(batch_size=len(x), zero1=tag == "mesh zero1")
+            kw = {"device": "cuda"} if tag == "no mesh" else {"mesh": mesh}
+            tr = DataParallelTrainer(loss_fn, params, cfg, **kw)
+            first = tr.step(x, y)           # the eager warm-up, the capture
+            warm = tr.run_steps(x, y, 3)
+            losses, ms, _, counts = timed(
+                torch, ops, lambda: tr.run_steps(x, y, steps))
+            want = {**dict.fromkeys(ops.KERNELS, 0),
+                    **{k: steps * v for k, v in per_step.items()}}
+            if counts != want:
+                raise AssertionError(f"dp {name} {tag} launches {counts}, "
+                                     f"expected {want}")
+            rows[tag] = {"step_ms": ms / steps, "launches": counts,
+                         "losses": [first] + [float(v) for v in torch.cat(
+                             [warm, losses])],
+                         "params": {k: v.detach().clone()
+                                    for k, v in tr.params.items()},
+                         "buffers": tr.momentum_buffers(),
+                         "captures": tr.traces}
+            runs.append(counts)
+            del tr
+        ref = rows["no mesh"]
+        for tag in ("mesh", "mesh zero1"):
+            got = rows[tag]
+            same = (got["losses"] == ref["losses"] and all(
+                torch.equal(got[key][k], ref[key][k])
+                for key in ("params", "buffers") for k in ref["params"]))
+            if not same:
+                raise AssertionError(f"dp {name} {tag}: losses, parameters "
+                                     f"or momentum differ from the no-mesh "
+                                     f"trainer's")
+            got["equal_to_no_mesh"] = same
+        for r in rows.values():
+            del r["params"], r["buffers"]
+        log(f"[dp] {name} b{len(x)}: captured ms/step no mesh "
+            f"{rows['no mesh']['step_ms']:.4f}, mesh "
+            f"{rows['mesh']['step_ms']:.4f}, mesh + ZeRO-1 "
+            f"{rows['mesh zero1']['step_ms']:.4f}; losses, parameters and "
+            f"momentum of both mesh runs equal the no-mesh run's bit for bit "
+            f"(an NCCL sum over one rank copies); launches per run "
+            f"{rows['mesh']['launches']}")
+        out[name] = rows
+    return runs, out
+
+
+def phase_executor(torch, ops):
+    """TpuExecutor over the card's mesh against the CPU: ``run_keyed`` of
+    the digits gradient (1e-4), ``run_bucketed`` of a 16-partition
+    histogram of 2²⁰ ids (exact) and ``run_loop`` of a step with an
+    all-reduce inside (1e-6)."""
+    from lua_mapreduce_tpu_torch.models.mlp import init_mlp, nll_loss
+    from lua_mapreduce_tpu_torch.parallel import ArrayTaskSpec, TpuExecutor
+    from lua_mapreduce_tpu_torch.parallel import collectives as C
+    from lua_mapreduce_tpu_torch.train.data import make_digits
+    mesh = card_mesh(torch)
+    xd, yd, _, _ = make_digits(seed=1)
+    params = init_mlp(3, device="cpu")
+
+    def grad_map(device):
+        p = {k: v.to(device).requires_grad_(True) for k, v in params.items()}
+
+        def mapfn(shard):
+            g = torch.autograd.grad(nll_loss(p, *shard), list(p.values()))
+            return dict(zip(p, g))
+        return mapfn
+
+    batch = (xd[:512], yd[:512].astype("int64"))
+    ops.reset_launch_counts()
+    got = TpuExecutor(ArrayTaskSpec(mapfn=grad_map("cuda"),
+                                    reduce_op="mean"), mesh).run_keyed(batch)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want = {**dict.fromkeys(ops.KERNELS, 0), "matmul_f32": 5,
+            "rowwise_softmax": 1}
+    if counts != want:
+        raise AssertionError(f"executor launches {counts}, expected {want}")
+    ref = grad_map("cpu")((torch.from_numpy(batch[0]),
+                           torch.from_numpy(batch[1])))
+    k_err = hold_to_cpu("run_keyed digits gradient", torch,
+                        [got[k] for k in params], [ref[k] for k in params])
+    ids = torch.randint(0, 1024, (1 << 20,),
+                        generator=torch.Generator().manual_seed(4))
+    spec = ArrayTaskSpec(
+        mapfn=lambda s: torch.zeros(1024, dtype=torch.int32,
+                                    device=s.device).index_add_(
+            0, s, torch.ones_like(s, dtype=torch.int32)),
+        partitionfn=lambda c: c.reshape(16, 64), num_partitions=16)
+    hist = TpuExecutor(spec, mesh).run_bucketed(ids)
+    if not torch.equal(hist.cpu().reshape(-1),
+                       torch.bincount(ids, minlength=1024).int()):
+        raise AssertionError("run_bucketed histogram differs from the CPU's")
+    # the loop's reference on the CPU: a sum over one rank is the value
+    s0 = torch.linspace(-1, 1, 4096)
+
+    def step(s):
+        t = C.psum(s * 0.9, mesh, "dp")
+        return torch.tanh(t) + 0.1, t.sum()
+
+    card = TpuExecutor(spec, mesh).run_loop(s0, step, n_steps=50)
+    state, trace = s0, []
+    for _ in range(50):
+        trace.append((state * 0.9).sum())
+        state = torch.tanh(state * 0.9) + 0.1
+    l_err = hold_to_cpu("run_loop", torch, card,
+                        [state, torch.stack(trace)], rtol=1e-6, atol=1e-5)
+    log(f"[executor] run_keyed digits gradient (b512, dp=1 NCCL mesh) "
+        f"within {k_err:.3e} of the CPU, launches {counts}; run_bucketed "
+        f"16-partition histogram of 2^20 ids equals the CPU's; run_loop "
+        f"(50 steps with an all-reduce, captured) within {l_err:.3e}")
+    return counts, {"keyed_max_abs_err": k_err, "loop_max_abs_err": l_err}
+
+
 # ------------------------------------------------------------ main
 
 def gpu_line():
@@ -2355,10 +2842,15 @@ def main():
     train_lm = phase_train_lm(torch, ops)
     digits_e2e = phase_digits_e2e(torch)
     resume = phase_resume(torch)
+    kmeans_counts, kmeans = phase_kmeans(torch, ops)
+    als_counts, als = phase_als(torch, ops)
+    dp_counts, dp = phase_dp_train(torch, ops, gen)
+    executor_counts, executor = phase_executor(torch, ops)
     runs = ([digits_counts, wide_counts]
             + [serving[t]["launches"] for t in serving]
             + [conv[m]["launches"] for m in conv]
-            + [lm[t]["launches"] for t in lm])
+            + [lm[t]["launches"] for t in lm]
+            + [kmeans_counts, als_counts, executor_counts] + dp_counts)
     launches = {k: sum(c[k] for c in runs) for k in ops.KERNELS}
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
@@ -2390,7 +2882,8 @@ def main():
         "wide": {**wide, "launches": wide_counts}, "serving": serving,
         "serving_check": check, "conv": conv, "conv_check": conv_check,
         "lm_train": lm, "lm_check": lm_check, "train_lm": train_lm,
-        "digits_e2e": digits_e2e, "resume": resume, "kernels": kernels,
+        "digits_e2e": digits_e2e, "resume": resume, "kmeans": kmeans,
+        "als": als, "dp_train": dp, "executor": executor, "kernels": kernels,
         "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -23,6 +23,10 @@ training path and single-device LM training on top of it:
   and the trainer script ``examples.lm.train_lm``.
 - ``models.lenet`` / ``models.resnet``: LeNet-5 and ResNet-18 (NHWC,
   HWIO, GroupNorm) over ``conv2d``, ``maxpool2d`` and ``log_softmax``.
+- ``parallel``: the data-parallel plane over ``torch.distributed``
+  (NCCL on the card, gloo on the CPU): the mesh and ``spawn``, the
+  collectives, ``TpuExecutor``, ``differentiable_keyed``, ZeRO-1; the
+  trainer over a mesh, and ``models.kmeans`` / ``models.als``.
 
 It imports ``torch`` and numpy, never ``jax`` and nothing of
 ``lua_mapreduce_tpu``. Entry points run on ``"cuda"`` unless the

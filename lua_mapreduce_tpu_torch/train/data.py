@@ -1,8 +1,7 @@
-"""Digits and image datasets (numpy).
+"""Digits, image, blob and ratings datasets (numpy).
 
-Copy of the digits and image halves of the JAX package's
-``train/data.py``, so both packages draw the same arrays from the same
-seed. The reference slices
+Copy of the JAX package's ``train/data.py``, so both packages draw the
+same arrays from the same seed. The reference slices
 misc/digits.png into 16x16 grayscale patterns, 10 classes, 800 train /
 200 validation (examples/APRIL-ANN/init.lua:80-123): ``make_digits``
 generates a dataset with that shape and split from a seed,
@@ -36,6 +35,33 @@ def make_digits(seed: int = 0, n_train: int = N_TRAIN, n_val: int = N_VAL,
     x_tr, y_tr = sample(n_train)
     x_va, y_va = sample(n_val)
     return x_tr, y_tr, x_va, y_va
+
+
+def make_blobs(seed: int = 0, n: int = 2048, k: int = 8, dim: int = 16,
+               spread: float = 0.15
+               ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Gaussian blobs for the k-means workload (BASELINE.json config 5):
+    (points (n, dim), labels (n,), true centers (k, dim)), deterministic
+    in the seed."""
+    rng = np.random.RandomState(seed)
+    centers = rng.rand(k, dim).astype(np.float32)
+    y = rng.randint(0, k, n)
+    x = centers[y] + spread * rng.randn(n, dim).astype(np.float32)
+    return x.astype(np.float32), y.astype(np.int32), centers
+
+
+def make_ratings(seed: int = 0, n_users: int = 256, n_items: int = 64,
+                 rank: int = 4, density: float = 0.3, noise: float = 0.01
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """Low-rank ratings matrix + observation mask for the ALS workload
+    (BASELINE.json config 5). R = U Vᵀ + noise is exactly rank-``rank``
+    up to the noise, so ALS at that rank drives masked RMSE → noise."""
+    rng = np.random.RandomState(seed)
+    u = rng.randn(n_users, rank).astype(np.float32)
+    v = rng.randn(n_items, rank).astype(np.float32)
+    r = u @ v.T + noise * rng.randn(n_users, n_items).astype(np.float32)
+    w = (rng.rand(n_users, n_items) < density).astype(np.float32)
+    return r.astype(np.float32), w
 
 
 def make_images(seed: int = 0, n_train: int = 2048, n_val: int = 512,

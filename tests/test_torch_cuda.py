@@ -1185,3 +1185,133 @@ def test_captured_step_launches_credited_per_replay(cuda):
     # per step: 2 forward + 3 backward products, 1 log_softmax
     assert ops.launch_counts() == {**dict.fromkeys(ops.KERNELS, 0),
                                    "matmul_f32": 25, "rowwise_softmax": 5}
+
+
+# ------------------------------------------- the data-parallel plane (PR 10)
+
+def _card_mesh():
+    from lua_mapreduce_tpu_torch.parallel import make_mesh
+    return make_mesh(device="cuda")
+
+
+def test_world_size_one_nccl_mesh(cuda):
+    """A CUDA mesh with no world running starts a one-rank NCCL world
+    (never gloo) and sits on the current card."""
+    import torch.distributed as dist
+    mesh = _card_mesh()
+    assert "nccl" in dist.get_backend()
+    assert dict(mesh.shape) == {"dp": 1, "mp": 1}
+    assert mesh.device.type == "cuda"
+    assert _card_mesh() is mesh
+
+
+def test_captured_all_reduce_equals_eager(cuda, monkeypatch):
+    """A step with an NCCL all-reduce inside, captured once and replayed
+    (graphs.scan), equals the same loop run eagerly, bit for bit."""
+    from lua_mapreduce_tpu_torch import graphs
+    from lua_mapreduce_tpu_torch.parallel import collectives as C
+    mesh = _card_mesh()
+    s0 = _randn(cuda, 1000)
+
+    def step(s):
+        t = C.psum(s * 0.5, mesh, "dp") + C.pmean(s.square(), mesh, "dp")
+        return t.tanh(), C.psum(t.sum(), mesh, "dp")
+
+    graphs.reset_captures()
+    got = graphs.scan(step, s0, 6)
+    assert graphs.captures()[0] == 1
+    monkeypatch.setattr(graphs, "CapturedGraph", _EagerGraph)
+    want = graphs.scan(step, s0, 6)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_kmeans_and_als_on_the_card_match_the_cpu(cuda, monkeypatch):
+    """kmeans_fit and als_fit over the card's mesh, captured, against the
+    same fits on the CPU (1e-4; inertia rtol 1e-3) and against their
+    eager loops on the card (bit for bit)."""
+    from lua_mapreduce_tpu_torch import graphs
+    from lua_mapreduce_tpu_torch.models import als, kmeans
+    from lua_mapreduce_tpu_torch.train.data import make_blobs, make_ratings
+    mesh = _card_mesh()
+    x, _, _ = make_blobs(seed=1, n=8192, k=16, dim=32)
+    r, w = make_ratings(seed=2, n_users=300, n_items=120, rank=8,
+                        density=0.3)
+    v0 = als.init_item_factors(0, 120, 8)
+    km = kmeans.kmeans_fit(x, x[:16], n_iters=6, mesh=mesh)
+    al = als.als_fit(r, w, v0, n_iters=4, mesh=mesh)
+    km_cpu = kmeans.kmeans_fit(x, x[:16], n_iters=6, device="cpu")
+    al_cpu = als.als_fit(r, w, v0, n_iters=4, device="cpu")
+    torch.testing.assert_close(km.centroids.cpu(), km_cpu.centroids, **F32)
+    torch.testing.assert_close(km.history.cpu(), km_cpu.history,
+                               rtol=1e-3, atol=0)
+    for a, b in zip(al, al_cpu):
+        torch.testing.assert_close(a.cpu(), b, **F32)
+    monkeypatch.setattr(graphs, "CapturedGraph", _EagerGraph)
+    km_e = kmeans.kmeans_fit(x, x[:16], n_iters=6, mesh=mesh)
+    al_e = als.als_fit(r, w, v0, n_iters=4, mesh=mesh)
+    assert all(torch.equal(a, b) for a, b in zip(km, km_e))
+    assert all(torch.equal(a, b) for a, b in zip(al, al_e))
+
+
+@pytest.mark.parametrize("model", ["digits", "lenet"])
+@pytest.mark.parametrize("zero1", [False, True], ids=["replicated", "zero1"])
+def test_mesh_trainer_equals_the_no_mesh_trainer(cuda, model, zero1):
+    """At world size 1 the mesh trainer's captured steps (an NCCL sum
+    over one rank, or ZeRO-1's reduce-scatter and all-gather, inside the
+    graph) give the no-mesh trainer's losses, parameters and momentum
+    buffers bit for bit."""
+    from lua_mapreduce_tpu_torch.train.harness import (DataParallelTrainer,
+                                                       TrainConfig)
+    loss_fn, params, x, y = _train_pair(model)
+    c = TrainConfig(batch_size=len(x))
+    x, y = x.cuda(), y.cuda()
+    ref = DataParallelTrainer(loss_fn, params, c, device="cuda")
+    tr = DataParallelTrainer(loss_fn, params, TrainConfig(
+        batch_size=len(x), zero1=zero1), mesh=_card_mesh())
+    want = ref.run_steps(x, y, 5)
+    got = tr.run_steps(x, y, 5)
+    assert tr.traces == 1
+    assert torch.equal(got, want)
+    for k in params:
+        assert torch.equal(tr.params[k], ref.params[k]), k
+    mine, theirs = tr.momentum_buffers(), ref.momentum_buffers()
+    assert all(torch.equal(mine[k], theirs[k]) for k in params)
+
+
+def test_tpu_executor_on_the_card_matches_the_cpu(cuda):
+    """run_keyed on a digits gradient, run_bucketed on a 16-partition
+    histogram and run_loop, on the card's mesh, against the CPU."""
+    from lua_mapreduce_tpu_torch.models import mlp
+    from lua_mapreduce_tpu_torch.parallel import ArrayTaskSpec, TpuExecutor
+    mesh = _card_mesh()
+    params = mlp.init_mlp(0, device="cpu")
+    loss_fn, _, x, y = _train_pair("digits")
+
+    def grads(device):
+        p = {k: v.to(device).requires_grad_(True) for k, v in params.items()}
+
+        def mapfn(shard):
+            xs, ys = shard
+            g = torch.autograd.grad(loss_fn(p, xs, ys), list(p.values()))
+            return dict(zip(p, g))
+        return mapfn
+
+    got = TpuExecutor(ArrayTaskSpec(mapfn=grads("cuda"), reduce_op="mean"),
+                      mesh).run_keyed((x, y))
+    want = grads("cpu")((x, y))
+    for k in want:
+        torch.testing.assert_close(got[k].cpu(), want[k], **F32)
+    ids = torch.randint(0, 64, (4096,),
+                        generator=torch.Generator().manual_seed(3))
+    spec = ArrayTaskSpec(
+        mapfn=lambda s: torch.zeros(64, dtype=torch.int32,
+                                    device=s.device).index_add_(
+            0, s, torch.ones_like(s, dtype=torch.int32)),
+        partitionfn=lambda c: c.reshape(16, 4), num_partitions=16)
+    hist = TpuExecutor(spec, mesh).run_bucketed(ids)
+    assert torch.equal(hist.cpu().reshape(-1),
+                       torch.bincount(ids, minlength=64).int())
+    final, trace = TpuExecutor(spec, mesh).run_loop(
+        torch.zeros(()), lambda s: (s + 1.0, s * 2.0), n_steps=5)
+    assert float(final) == 5.0
+    assert trace.cpu().tolist() == [0.0, 2.0, 4.0, 6.0, 8.0]

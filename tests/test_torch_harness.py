@@ -1,7 +1,9 @@
 """The port's training harness against the JAX package's, on the CPU:
 gradient accumulation, ``fit(conf=)`` resume through a persistent table,
-``profile_dir``, ``zero1``; the launch crediting of captured graphs (pure
-Python); the digits-sheet end-to-end example.
+``profile_dir``, ``zero1``'s need of a mesh; the data-parallel step over
+a mesh (an n-rank gloo world, n = 2 and 4, per-rank bodies in
+``tests/torch_parallel_ranks.py``) and its resume; the launch crediting
+of captured graphs (pure Python); the digits-sheet end-to-end example.
 
 The captured CUDA-graph step itself runs only on a card
 (``tests/test_torch_cuda.py``); on the CPU the same step function runs
@@ -28,6 +30,7 @@ from lua_mapreduce_tpu_torch.coord.filestore import FileJobStore
 from lua_mapreduce_tpu_torch.coord.jobstore import MemJobStore
 from lua_mapreduce_tpu_torch.coord.persistent_table import PersistentTable
 from lua_mapreduce_tpu_torch.models import mlp
+from lua_mapreduce_tpu_torch.parallel import spawn
 from lua_mapreduce_tpu_torch.store.memfs import MemStore
 from lua_mapreduce_tpu_torch.store.sharedfs import SharedStore
 from lua_mapreduce_tpu_torch.train import checkpoint as ckpt
@@ -109,7 +112,7 @@ def test_grad_accum_epoch_matches_jax(digits):
 
 
 def test_zero1_and_bad_grad_accum_raise():
-    with pytest.raises(NotImplementedError, match="A3"):
+    with pytest.raises(ValueError, match="mesh"):
         _trainer(_jax_params(), zero1=True)
     with pytest.raises(ValueError, match="grad_accum"):
         _trainer(_jax_params(), grad_accum=0)
@@ -123,6 +126,72 @@ def test_cpu_steps_run_eagerly_and_capture_nothing(digits):
     tr.step(x, y)
     assert tr.traces == 0 and graphs.captures() == (0, None)
     assert torch.isfinite(tr.run_steps(x, y, 2)).all()
+
+
+# ----------------------------------------------------- data-parallel
+
+@pytest.mark.parametrize("n", [2, 4], ids=["dp2", "dp4"])
+def test_dp_step_equals_single_device_step(digits, n):
+    """The mean of the ranks' gradients is the whole batch's: one step of
+    the trainer over an n-rank mesh equals one plain full-batch step
+    (torch SGD with the config's momentum and weight decay) and the JAX
+    DP trainer's step on ``host_mesh(n)`` (tests/test_training.py:56-78:
+    rtol 2e-5, atol 2e-6); a whole epoch at grad_accum=2 gives the JAX
+    harness's loss and parameters (1e-4)."""
+    from torch_parallel_ranks import dp_step_cases
+    x, y = digits[0][:128], digits[1][:128]
+    npp = _jax_params(42)
+    out = spawn(dp_step_cases, n, {"params": npp, "x": x, "y": y},
+                device="cpu", timeout_s=240)
+    c = TrainConfig()
+    p = {k: torch.from_numpy(v.copy()).requires_grad_(True)
+         for k, v in npp.items()}
+    opt = torch.optim.SGD(list(p.values()), lr=c.learning_rate,
+                          momentum=c.momentum, weight_decay=c.weight_decay)
+    loss = mlp.nll_loss(p, torch.from_numpy(x), torch.from_numpy(y))
+    loss.backward()
+    opt.step()
+    jtr = JaxTrainer(jax_mlp.nll_loss, npp, host_mesh(n), JaxConfig())
+    jloss = jtr.step(x, y)
+    jep = JaxTrainer(jax_mlp.nll_loss, npp, host_mesh(n),
+                     JaxConfig(batch_size=32, grad_accum=2))
+    jep_loss = jep.run_epoch(x, y, np.random.RandomState(5))
+    for o in out:
+        assert abs(o["loss"] - loss.item()) < 1e-6
+        assert abs(o["loss"] - jloss) < 1e-5
+        for k in npp:
+            np.testing.assert_allclose(o["params"][k], p[k].detach().numpy(),
+                                       rtol=2e-5, atol=2e-6, err_msg=k)
+            np.testing.assert_allclose(o["params"][k],
+                                       np.asarray(jtr.params[k]),
+                                       rtol=2e-5, atol=2e-6, err_msg=k)
+            np.testing.assert_allclose(o["epoch_params"][k],
+                                       np.asarray(jep.params[k]),
+                                       rtol=1e-4, atol=1e-4, err_msg=k)
+        assert abs(o["epoch_loss"] - jep_loss) < 1e-4
+
+
+@pytest.mark.parametrize("zero1", [False, True], ids=["replicated", "zero1"])
+def test_fit_resume_over_a_mesh(tmp_path, zero1):
+    """fit(conf=) over a 2-rank mesh on shared stores: rank 0 writes the
+    checkpoints and the table, every rank loads them after a barrier. 2
+    epochs, then a fresh trainer (other initial parameters) resumes and
+    runs epoch 3 only, ending on the never-stopped 3-epoch run's
+    parameters (1e-6) on every rank; under ZeRO-1 the momentum chunks
+    are gathered into the checkpoint and re-chunked on load."""
+    from torch_parallel_ranks import fit_resume_cases
+    d = {"params": _jax_params(4), "other": _jax_params(8),
+         "data": make_digits(seed=0, n_train=256, n_val=64, dim=SIZES[0])}
+    out = spawn(fit_resume_cases, 2, d, str(tmp_path), zero1, device="cpu",
+                timeout_s=240)
+    for o in out:
+        assert o["epochs"] == [3]
+        for k in o["whole"]:
+            np.testing.assert_allclose(o["resumed"][k], o["whole"][k],
+                                       rtol=1e-6, atol=1e-6, err_msg=k)
+            np.testing.assert_array_equal(o["resumed"][k],
+                                          out[0]["resumed"][k])
+        np.testing.assert_allclose(o["val"], o["ref_val"], atol=1e-6)
 
 
 # ------------------------------------------------------------ resume
