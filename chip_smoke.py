@@ -129,10 +129,29 @@ Phases, each a hard failure on any mismatch:
              losses, parameters and momentum bit for bit; ms/step of each;
 18. executor — ``TpuExecutor`` on the card: ``run_keyed`` of the digits
              gradient, ``run_bucketed`` of a 16-partition histogram and
-             ``run_loop`` with an all-reduce inside, each against the CPU.
+             ``run_loop`` with an all-reduce inside, each against the CPU;
+19. ingraph — the six-function examples under ``engine="ingraph"`` (the
+             hard mode: a lowering failure raises), each iteration a
+             replay of one capture: ``mr_sgd`` at the flagship width
+             (256-128-10, 4 shards × 128, 20 iterations; the collective
+             tier, one build) against the store plane on the card and
+             the CPU in-graph run (rtol 1e-4, atol 1e-5); ``mr_kmeans``
+             at SIFT1M's shape (k = 1024, 8 shards, 3 iterations) against
+             the store plane (rtol 1e-4) and ``kmeans_fit`` from the same
+             start (assignments differ only at near ties; first updates
+             within 1e-4 of their float64 means); ``mr_als`` at
+             MovieLens-100K's shape (rank 32, 5 rounds) against
+             ``als_fit`` (item factors normwise 1e-4, max abs 2e-3);
+             ms/iteration of both engines, peak memory;
+20. hybrid, cache — a forced-hybrid int-sum task of wordcount's shape,
+             both legs compiled, byte-identical to the store plane; then
+             ``kmeans_fit`` at phase 15's shape called twice: one capture
+             across both (``graphs.scan``'s cache), equal to each other
+             and to the eager loop bit for bit; the second call's
+             ms/iteration beside the eager loop's.
 
 Launch counts are zeroed just before each run of phases 4, 5, 6, 8, 10 and
-15-18 and
+15-20 and
 read just after, and must equal the counts worked out from the code; a
 kernel of the paths with no launch there fails the run. The
 card's name and power limit, then one JSON line of per-kernel numbers,
@@ -248,6 +267,59 @@ KMEANS_N, KMEANS_K, KMEANS_DIM, KMEANS_ITERS = 1_000_000, 1024, 128, 20
 ALS_USERS, ALS_ITEMS, ALS_DENSITY, ALS_RANK, ALS_ITERS, ALS_REG = (
     6040, 3706, 0.0447, 64, 10, 0.1)
 DP_STEPS = {"digits": 200, "lenet5_cifar": 20}
+# the compiled MapReduce tiers' configurations (PR 11): mr_sgd at the
+# flagship width (BASELINE's digits run: 256-128-10, 4 shards × bunch
+# 128), 20 loop iterations; mr_kmeans at SIFT1M's shape (phase 15's
+# blobs), 8 shards, 3 iterations; mr_als at MovieLens-100K's shape (943
+# users × 1,682 items, 6.3% observed; a low-rank-plus-noise matrix from
+# the seed), rank 32, reg 0.1, 4 shards, 5 rounds
+SGD_ARGS = {"dim": 256, "hidden": 128, "n_shards": 4, "bunch": 128,
+            "max_steps": 20, "seed": 0}
+MRKM_SHARDS, MRKM_ITERS = 8, 3
+MRALS_ARGS = {"n_users": 943, "n_items": 1682, "rank": 32,
+              "density": 0.063, "reg": 0.1, "n_shards": 4,
+              "max_iters": 5, "seed": 0, "coord": "mem"}
+# mr_als solves the item step in float64 on the host, als_fit in f32 by
+# Cholesky on the card: after 5 rounds their item factors agree within
+# these, normwise and in the largest element (a CPU run at this shape:
+# 1.6e-5 and 3.4e-4)
+MRALS_NORM_TOL, MRALS_ABS_TOL = 1e-4, 2e-3
+# phase 20's int-sum task of wordcount's shape: 8 map jobs of 2,048
+# token ids over 48 words (Zipf-distributed from the seed; 48 keeps the
+# reduce fold's proof cache, one proof per word, under its 64), counts
+# summed by an accumulator loop, 4 partitions
+WORDIDS_TASK = """
+import torch
+
+def taskfn(emit):
+    import numpy as np
+    rng = np.random.RandomState(0)
+    for j in range(8):
+        ids = np.minimum(rng.zipf(1.3, 2048) - 1, 47)
+        emit(j, {"ids": ids.tolist()})
+
+def mapfn(key, value, emit):
+    ids = torch.as_tensor(value["ids"], dtype=torch.int32)
+    counts = torch.sum(ids[:, None] == torch.arange(48, device=ids.device),
+                       dim=0)
+    for w in range(48):
+        emit(w, counts[w])
+
+def partitionfn(key):
+    return int(key) % 4
+
+def reducefn(key, values):
+    acc = values[0]
+    for i in range(1, len(values)):
+        acc = acc + values[i]
+    return acc
+
+reducefn.associative_reducer = True
+reducefn.commutative_reducer = True
+
+def finalfn(pairs):
+    return False        # one iteration; the results stay
+"""
 
 
 def log(msg):
@@ -855,11 +927,14 @@ def eager_graphs(module):
     eagerly at every position: the eager loop on the card that the
     captured one is held to and timed against."""
     saved = module.CapturedGraph
+    clear = getattr(module, "clear_cache", lambda: None)
+    clear()                # no cached graph may replay in an eager loop
     module.CapturedGraph = EagerGraph
     try:
         yield
     finally:
         module.CapturedGraph = saved
+        clear()
 
 
 def eager_train(torch, loss_fn, params, cfg, x, y, warm, steps):
@@ -2354,11 +2429,15 @@ def timed_replays(torch, module):
             rec["replays"] += 1
             return out
 
+    # a cached graph (graphs.scan's cache) was captured by the real
+    # class: start and end the block with an empty cache
+    module.clear_cache()
     module.CapturedGraph = Timed
     try:
         yield rec
     finally:
         module.CapturedGraph = real
+        module.clear_cache()
     rec["end"].synchronize()
     rec["ms"] = rec["start"].elapsed_time(rec["end"])
 
@@ -2758,6 +2837,356 @@ def phase_executor(torch, ops):
     return counts, {"keyed_max_abs_err": k_err, "loop_max_abs_err": l_err}
 
 
+# --------------------- phases 19-20: the compiled MapReduce tiers (PR 11)
+
+def run_task(torch, ops, module, engine, args, tag, finalfn=None):
+    """A six-function example under the port's LocalExecutor with the
+    given engine: the executor, and the run's host ms, peak GiB above
+    the memory in use before it and launches (``timed``)."""
+    from lua_mapreduce_tpu_torch.engine import LocalExecutor, TaskSpec
+    spec = TaskSpec(taskfn=module, mapfn=module, partitionfn=module,
+                    reducefn=module, finalfn=finalfn or module,
+                    init_args=args, storage=f"mem:smoke-{tag}")
+    ex = LocalExecutor(spec, engine=engine, max_iterations=100)
+    _, ms, peak, counts = timed(torch, ops, ex.run)
+    return ex, ms, peak, counts
+
+
+def iteration_ms(ex):
+    """(the first iteration's ms — the in-graph build, with its capture
+    — and the mean ms of the later ones), host clock."""
+    walls = [1e3 * it.wall_time for it in ex.stats.iterations]
+    return walls[0], sum(walls[1:]) / max(1, len(walls) - 1)
+
+
+def hold_compiled(name, ex, n_iter, counts, want):
+    """The in-graph run's own checks: one build, every iteration
+    compiled, no fallback, the launches the code counts."""
+    engine = ex._ingraph.engine
+    its = ex.stats.iterations
+    if engine is None or engine.traces != 1 \
+            or sum(it.ingraph_iterations for it in its) != n_iter \
+            or sum(it.ingraph_fallbacks for it in its) != 0:
+        raise AssertionError(
+            f"{name}: in-graph builds {getattr(engine, 'traces', None)}, "
+            f"compiled iterations "
+            f"{sum(it.ingraph_iterations for it in its)} of {n_iter}, "
+            f"fallbacks {sum(it.ingraph_fallbacks for it in its)}")
+    if counts != want:
+        raise AssertionError(f"{name} launches {counts}, expected {want}")
+
+
+def _near_tie_share(torch, xm, c64, lab_a, lab_b):
+    """Rows ``xm`` (float64) that two f32 computations assigned to
+    centroids ``lab_a`` and ``lab_b``: the largest share, over them, of
+    the float64 gap between the two candidates' squared distances over
+    the f32 rounding bound of computing them (≤ 1: a near tie). The
+    bound, 2·γ_K·(‖x‖ + ‖c‖)² per candidate (γ_K = K·u/(1 − K·u),
+    u = 2⁻²⁴), covers both formulas (with and without ‖x‖²)."""
+    if not len(xm):
+        return 0.0
+    dim = c64.shape[1]
+    u = 2.0 ** -24
+    gamma = dim * u / (1 - dim * u)
+    gap = (((xm - c64[lab_a]) ** 2).sum(1)
+           - ((xm - c64[lab_b]) ** 2).sum(1)).abs()
+    xn = xm.norm(dim=1)
+    bound = sum(2 * gamma * (xn + c64.norm(dim=1)[lab]) ** 2
+                for lab in (lab_a, lab_b))
+    return (gap / bound).max().item()
+
+
+def _f64_means(torch, xd, labels, c_prev):
+    """Float64 cluster means of the points ``xd`` (on the card) over
+    ``labels``; empty clusters keep ``c_prev``."""
+    k = c_prev.shape[0]
+    sums = torch.zeros((k, xd.shape[1]), dtype=torch.float64,
+                       device=xd.device).index_add_(0, labels, xd.double())
+    counts = torch.bincount(labels, minlength=k).double()[:, None]
+    return torch.where(counts > 0, sums / counts.clamp_min(1),
+                       c_prev.double().to(xd.device)).cpu()
+
+
+def phase_ingraph(torch, ops):
+    """The six-function examples on the in-graph engine, forced
+    (``engine="ingraph"``: a lowering failure raises), against the store
+    plane on the card, the CPU and the native fits; launches counted
+    over each run and equal to the code's (a replay credits its
+    capture's)."""
+    import numpy as np
+
+    from lua_mapreduce_tpu_torch.examples.als import mr_als
+    from lua_mapreduce_tpu_torch.examples.digits import mr_sgd
+    from lua_mapreduce_tpu_torch.examples.kmeans import mr_kmeans
+    from lua_mapreduce_tpu_torch.models import als, kmeans
+    from lua_mapreduce_tpu_torch.train.data import make_ratings
+    zero = dict.fromkeys(ops.KERNELS, 0)
+    card_counts, rep = [], {}
+
+    # mr_sgd: 5 products and a log-softmax a map job, 4 jobs an iteration
+    n = SGD_ARGS["max_steps"]
+    want = {**zero, "matmul_f32": 20 * n, "rowwise_softmax": 4 * n}
+    sgd = {}
+    for engine, device in (("ingraph", "cuda"), ("store", "cuda"),
+                           ("ingraph", "cpu")):
+        ex, ms, peak, counts = run_task(
+            torch, ops, "lua_mapreduce_tpu_torch.examples.digits.mr_sgd",
+            engine, {**SGD_ARGS, "device": device},
+            f"sgd-{engine}-{device}")
+        st = mr_sgd.read_state()
+        sgd[engine, device] = (ex, ms, peak, counts,
+                               {k: v.copy() for k, v in st["params"].items()},
+                               st["val_loss"])
+    ex, ms, peak, counts, params, val = sgd["ingraph", "cuda"]
+    hold_compiled("mr_sgd", ex, n, counts, want)
+    if ex._ingraph.engine.mode != "shard_map":
+        raise AssertionError(f"mr_sgd ran on the {ex._ingraph.engine.mode} "
+                             f"tier, not the collective one")
+    s_ex, s_ms, _, s_counts, s_params, s_val = sgd["store", "cuda"]
+    if s_counts != want:
+        raise AssertionError(f"mr_sgd store launches {s_counts}, expected "
+                             f"{want}")
+    errs = {}
+    for other in (("store", "cuda"), ("ingraph", "cpu")):
+        o_params, o_val = sgd[other][4], sgd[other][5]
+        for k in params:
+            np.testing.assert_allclose(params[k], o_params[k], rtol=1e-4,
+                                       atol=1e-5, err_msg=f"mr_sgd {k} "
+                                       f"against {other}")
+        np.testing.assert_allclose(val, o_val, rtol=1e-4)
+        errs["/".join(other)] = max(float(np.abs(params[k] - o_params[k])
+                                          .max()) for k in params)
+    card_counts += [counts, s_counts]
+    first, steady = iteration_ms(ex)
+    s_first, s_steady = iteration_ms(s_ex)
+    rep["mr_sgd"] = {"iterations": n, "mode": ex._ingraph.engine.mode,
+                     "traces": ex._ingraph.engine.traces,
+                     "folds": sorted(set(
+                         ex._ingraph.engine._plan.folds.values())),
+                     "ms": ms, "first_iteration_ms": first,
+                     "ms_per_iteration": steady, "store_ms": s_ms,
+                     "store_ms_per_iteration": s_steady,
+                     "peak_mem_gib": peak, "val_loss": val,
+                     "max_abs_err": errs, "launches": counts}
+    log(f"[ingraph] mr_sgd 256-128-10, 4x128, {n} iterations: mode "
+        f"{ex._ingraph.engine.mode} ({'/'.join(rep['mr_sgd']['folds'])}), "
+        f"1 build; {steady:.2f} ms/iteration after the first ({first:.1f} "
+        f"ms: build + capture), the store plane on the card "
+        f"{s_steady:.2f} ms/iteration ({s_steady / steady:.1f}x); "
+        f"parameters within {errs} of the store plane / the CPU in-graph "
+        f"run; val loss {val:.6f}; launches {counts}")
+
+    # mr_kmeans at SIFT1M's shape: 2 products a map job, 8 jobs
+    args = {"k": KMEANS_K, "n": KMEANS_N, "dim": KMEANS_DIM,
+            "n_shards": MRKM_SHARDS, "max_iters": MRKM_ITERS, "tol": 0.0,
+            "seed": 0, "coord": "mem", "device": "cuda"}
+    want = {**zero, "matmul_f32": 2 * MRKM_SHARDS * MRKM_ITERS}
+    first_update, km = {}, {}
+
+    def recording(engine):
+        def finalfn(pairs):
+            verdict = mr_kmeans.finalfn(pairs)
+            first_update.setdefault(engine, np.asarray(
+                mr_kmeans.read_state("mem")["centroids"], np.float32))
+            return verdict
+        return {"finalfn": finalfn}
+
+    for engine in ("ingraph", "store"):
+        ex, ms, peak, counts = run_task(
+            torch, ops, "lua_mapreduce_tpu_torch.examples.kmeans.mr_kmeans",
+            engine, args, f"km-{engine}", finalfn=recording(engine))
+        if counts != want:
+            raise AssertionError(f"mr_kmeans {engine} launches {counts}, "
+                                 f"expected {want}")
+        km[engine] = (ex, ms, peak, counts, mr_kmeans.read_state("mem"))
+    ex, ms, peak, counts, st = km["ingraph"]
+    hold_compiled("mr_kmeans", ex, MRKM_ITERS, counts, want)
+    s_ex, s_ms, _, s_counts, s_st = km["store"]
+    np.testing.assert_allclose(st["centroids"], s_st["centroids"],
+                               rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(st["sse"], s_st["sse"], rtol=1e-4)
+    card_counts += [counts, s_counts]
+    # against kmeans_fit from the same start (the table's x[:k]): the
+    # two formulas' assignments may differ only at near ties, and each
+    # side's first update equals the float64 mean over its own labels
+    xd = mr_kmeans._x
+    c0 = xd[:KMEANS_K].clone()
+    fit_labels = kmeans.assign(xd, c0)
+    mr_labels = torch.empty_like(fit_labels)
+    for s_ in range(MRKM_SHARDS):
+        mr_labels[s_::MRKM_SHARDS] = mr_kmeans._assign(
+            xd[s_::MRKM_SHARDS], c0)[1]
+    mis = torch.nonzero(fit_labels != mr_labels).flatten()
+    c64 = c0.double().cpu()
+    share = _near_tie_share(torch, xd[mis].double().cpu(), c64,
+                            fit_labels[mis].cpu(), mr_labels[mis].cpu())
+    if share > 1.0:
+        raise AssertionError(f"mr_kmeans: assignments differ from "
+                             f"kmeans_fit's away from a tie (share "
+                             f"{share:.3f})")
+    c1_fit = kmeans.kmeans_fit(xd, c0, n_iters=1,
+                               device="cuda").centroids.cpu()
+    c_err = max(
+        hold_to_cpu("mr_kmeans first update", torch,
+                    [torch.from_numpy(first_update["ingraph"])],
+                    [_f64_means(torch, xd, mr_labels, c0).float()]),
+        hold_to_cpu("kmeans_fit first update", torch, [c1_fit],
+                    [_f64_means(torch, xd, fit_labels, c0).float()]))
+    first, steady = iteration_ms(ex)
+    s_first, s_steady = iteration_ms(s_ex)
+    rep["mr_kmeans"] = {"iterations": MRKM_ITERS,
+                        "mode": ex._ingraph.engine.mode,
+                        "traces": ex._ingraph.engine.traces, "ms": ms,
+                        "first_iteration_ms": first,
+                        "ms_per_iteration": steady, "store_ms": s_ms,
+                        "store_first_iteration_ms": s_first,
+                        "store_ms_per_iteration": s_steady,
+                        "peak_mem_gib": peak, "sse": st["sse"],
+                        "assignments_differing_from_fit": len(mis),
+                        "max_tie_share": share,
+                        "first_update_max_abs_err": c_err,
+                        "launches": counts}
+    log(f"[ingraph] mr_kmeans {KMEANS_N}x{KMEANS_DIM}, k={KMEANS_K}, "
+        f"{MRKM_SHARDS} shards, {MRKM_ITERS} iterations: mode "
+        f"{ex._ingraph.engine.mode}, 1 build; {steady:.1f} ms/iteration "
+        f"after the first ({first:.1f} ms), the store plane on the card "
+        f"{s_steady:.1f} ms/iteration (first {s_first:.1f}); peak "
+        f"{peak:.2f} GiB; centroids and SSE equal the store plane's "
+        f"within rtol 1e-4; against kmeans_fit: {len(mis)} assignments "
+        f"differ, all at near ties (largest share {share:.3f}), first "
+        f"updates within {c_err:.3e} of their float64 means; launches "
+        f"{counts}")
+
+    # mr_als at MovieLens-100K's shape: 5 products a map job, 4 jobs
+    want = {**zero, "matmul_f32": 5 * MRALS_ARGS["n_shards"]
+            * MRALS_ARGS["max_iters"]}
+    ex, ms, peak, counts = run_task(
+        torch, ops, "lua_mapreduce_tpu_torch.examples.als.mr_als",
+        "ingraph", {**MRALS_ARGS, "device": "cuda"}, "als-ingraph")
+    hold_compiled("mr_als", ex, MRALS_ARGS["max_iters"], counts, want)
+    card_counts.append(counts)
+    st = mr_als.read_state("mem")
+    a = MRALS_ARGS
+    r, w = make_ratings(seed=a["seed"], n_users=a["n_users"],
+                        n_items=a["n_items"], rank=a["rank"],
+                        density=a["density"])
+    v0 = 0.1 * np.random.RandomState(a["seed"]).randn(a["n_items"],
+                                                       a["rank"])
+    fit = als.als_fit(r, w, v0, n_iters=a["max_iters"], reg=a["reg"],
+                      device="cuda")
+    got = torch.tensor(st["item_factors"])
+    wantv = fit.item_factors.cpu()
+    a_norm, a_abs = norm_err(got, wantv), float((got - wantv).abs().max())
+    if a_norm > MRALS_NORM_TOL or a_abs > MRALS_ABS_TOL:
+        raise AssertionError(f"mr_als item factors against als_fit: "
+                             f"normwise {a_norm:.3e}, max abs {a_abs:.3e}")
+    first, steady = iteration_ms(ex)
+    rep["mr_als"] = {"rounds": a["max_iters"],
+                     "mode": ex._ingraph.engine.mode,
+                     "traces": ex._ingraph.engine.traces, "ms": ms,
+                     "first_round_ms": first, "ms_per_round": steady,
+                     "peak_mem_gib": peak, "observed_share": float(w.mean()),
+                     "rmse": st["rmse"], "fit_history":
+                         fit.history.cpu().tolist(),
+                     "item_factors_norm_err": a_norm,
+                     "item_factors_max_abs_err": a_abs,
+                     "launches": counts}
+    log(f"[ingraph] mr_als {a['n_users']}x{a['n_items']}, "
+        f"{100 * float(w.mean()):.2f}% observed, rank {a['rank']}, "
+        f"{a['max_iters']} rounds: mode {ex._ingraph.engine.mode}, 1 build; "
+        f"{steady:.1f} ms/round after the first ({first:.1f} ms); item "
+        f"factors against als_fit normwise {a_norm:.3e} (<= "
+        f"{MRALS_NORM_TOL}), max abs {a_abs:.3e} (<= {MRALS_ABS_TOL}); "
+        f"launches {counts}")
+    return card_counts, rep
+
+
+def phase_hybrid_cache(torch, ops):
+    """A forced-hybrid (``engine="hybrid"``) int-sum task of wordcount's
+    shape on the card, byte-identical to the store plane with both legs
+    compiled and no fallback; then ``kmeans_fit`` at phase 15's shape
+    called twice — one capture across both (``graphs.scan``'s cache) —
+    against the eager loop."""
+    import re
+
+    from lua_mapreduce_tpu_torch import graphs
+    from lua_mapreduce_tpu_torch.models import kmeans
+    from lua_mapreduce_tpu_torch.train.data import make_blobs
+    root = os.path.join(REPO, "build", "smoke-tasks")
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "smoke_wordids.py"), "w") as f:
+        f.write(WORDIDS_TASK)
+    sys.path.insert(0, root)
+    pat = re.compile(r"^result\.P(\d+)$")
+    out = {}
+    try:
+        for engine in ("store", "hybrid"):
+            ex, ms, _, counts = run_task(
+                torch, ops, "smoke_wordids", engine, {"device": "cuda"},
+                f"wordids-{engine}")
+            out[engine] = (ex, ms, {n: "".join(ex.result_store.lines(n))
+                                    for n in ex.result_store.list(
+                                        "result.P*") if pat.match(n)})
+    finally:
+        sys.path.remove(root)
+    h_ex, h_ms, got = out["hybrid"]
+    _, s_ms, want_bytes = out["store"]
+    it = h_ex.stats.iterations[-1]
+    if not got or got != want_bytes or it.hybrid_map_legs < 1 \
+            or it.hybrid_reduce_legs < 1 or it.hybrid_fallbacks:
+        raise AssertionError(
+            f"forced hybrid: bytes equal {got == want_bytes}, map legs "
+            f"{it.hybrid_map_legs}, reduce legs {it.hybrid_reduce_legs}, "
+            f"fallbacks {it.hybrid_fallbacks}")
+    hy = {"map_legs": it.hybrid_map_legs,
+          "reduce_legs": it.hybrid_reduce_legs,
+          "folded_groups": h_ex._hybrid.fold.folded_groups,
+          "map_mode": h_ex._hybrid.map_engine.mode, "ms": h_ms,
+          "store_ms": s_ms, "result_files": len(got)}
+    log(f"[hybrid] int-sum task (8 jobs x 2048 token ids, 48 words, 4 "
+        f"partitions), engine=hybrid: bytes equal the store plane's; map "
+        f"leg {hy['map_mode']} ({it.hybrid_map_legs}), {it.hybrid_reduce_legs}"
+        f" reduce jobs folded ({hy['folded_groups']} groups), 0 fallbacks; "
+        f"{h_ms:.1f} ms against the store plane's {s_ms:.1f}")
+
+    mesh = card_mesh(torch)
+    x, _, _ = make_blobs(seed=0, n=KMEANS_N, k=KMEANS_K, dim=KMEANS_DIM)
+    c0 = kmeans.init_centroids(0, x, KMEANS_K, method="random")
+    xd = torch.from_numpy(x).cuda()
+    del x
+
+    def fit():
+        return kmeans.kmeans_fit(xd, c0, n_iters=KMEANS_ITERS, mesh=mesh)
+
+    want = {**dict.fromkeys(ops.KERNELS, 0), "matmul_f32": 2 * KMEANS_ITERS}
+    graphs.clear_cache()
+    graphs.reset_captures()
+    r1, ms1, _, counts1 = timed(torch, ops, fit)
+    r2, ms2, peak2, counts2 = timed(torch, ops, fit)
+    captures = graphs.captures()[0]
+    with eager_graphs(graphs):
+        re_, ms_e, _, _ = timed(torch, ops, fit)
+    same = all(torch.equal(a, b) for a, b in zip(r1, r2)) and \
+        all(torch.equal(a, b) for a, b in zip(r2, re_))
+    if captures != 1 or not same or counts1 != want or counts2 != want:
+        raise AssertionError(f"kmeans_fit twice: {captures} captures, "
+                             f"equal to each other and the eager loop "
+                             f"{same}, launches {counts1} / {counts2}")
+    cache = {"captures": captures, "first_ms_per_iter": ms1 / KMEANS_ITERS,
+             "second_ms_per_iter": ms2 / KMEANS_ITERS,
+             "eager_ms_per_iter": ms_e / KMEANS_ITERS,
+             "second_peak_mem_gib": peak2, "launches": counts2}
+    log(f"[cache] kmeans_fit {KMEANS_N}x{KMEANS_DIM} k={KMEANS_K}, "
+        f"{KMEANS_ITERS} iterations, called twice: {captures} capture; "
+        f"the second call {cache['second_ms_per_iter']:.3f} ms/iteration "
+        f"(the first, capturing, {cache['first_ms_per_iter']:.3f}), the "
+        f"eager loop {cache['eager_ms_per_iter']:.3f}; all three equal "
+        f"bit for bit")
+    del xd
+    torch.cuda.empty_cache()
+    return [counts1, counts2], {"hybrid": hy, "cache": cache}
+
+
 # ------------------------------------------------------------ main
 
 def gpu_line():
@@ -2846,11 +3275,14 @@ def main():
     als_counts, als = phase_als(torch, ops)
     dp_counts, dp = phase_dp_train(torch, ops, gen)
     executor_counts, executor = phase_executor(torch, ops)
+    ingraph_counts, ingraph = phase_ingraph(torch, ops)
+    hybrid_counts, hybrid_cache = phase_hybrid_cache(torch, ops)
     runs = ([digits_counts, wide_counts]
             + [serving[t]["launches"] for t in serving]
             + [conv[m]["launches"] for m in conv]
             + [lm[t]["launches"] for t in lm]
-            + [kmeans_counts, als_counts, executor_counts] + dp_counts)
+            + [kmeans_counts, als_counts, executor_counts] + dp_counts
+            + ingraph_counts + hybrid_counts)
     launches = {k: sum(c[k] for c in runs) for k in ops.KERNELS}
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
@@ -2883,7 +3315,8 @@ def main():
         "serving_check": check, "conv": conv, "conv_check": conv_check,
         "lm_train": lm, "lm_check": lm_check, "train_lm": train_lm,
         "digits_e2e": digits_e2e, "resume": resume, "kmeans": kmeans,
-        "als": als, "dp_train": dp, "executor": executor, "kernels": kernels,
+        "als": als, "dp_train": dp, "executor": executor,
+        "ingraph": ingraph, "hybrid_cache": hybrid_cache, "kernels": kernels,
         "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -166,6 +166,36 @@ class TaskSpec:
         (job.lua:264-275)."""
         return self.associative and self.commutative and self.idempotent
 
+    @property
+    def combiner_for_map(self) -> Optional[Callable]:
+        """The map-side pre-reduction function. Only an explicit combinerfn
+        combines map-side — reducer flags alone enable the merge fast path
+        but do not implicitly combine (the reference's test matrix runs
+        no-combiner+flagged-reducer as a distinct config, test.sh:8-73)."""
+        return self.combinerfn
+
+    def describe(self) -> dict:
+        """Importable-module description (only str specs survive a process
+        boundary — same restriction as the reference, where workers
+        ``require`` module names from the task doc, task.lua:27-58). The
+        lowerability oracle reads each slot's module name from it."""
+        import types
+        desc = {}
+        for name, loaded in self._loaded.items():
+            mod = loaded.module
+            if not isinstance(mod, types.ModuleType):
+                raise TypeError(
+                    f"{name} must be an importable module path to run on "
+                    f"out-of-process workers (got {type(mod).__name__})")
+            desc[name] = mod.__name__
+        return {
+            "functions": desc,
+            "init_args": self.init_args,
+            "storage": self.storage,
+            "result_storage": self.result_storage,
+            "result_ns": self.result_ns,
+        }
+
     def _run_inits(self) -> None:
         seen = set()
         for name in FN_NAMES:

@@ -2,8 +2,10 @@
 
 Copy of the JAX package's ``engine/job.py`` (reference mapreduce/job.lua)
 on its v1-text, unreplicated, staged path: no push shuffle, no native
-map/merge/reduce kernels, no compiled reduce fold. Result bytes are
-identical to the JAX package's on the same inputs.
+map/merge/reduce kernels. The hybrid plane's compiled map leg and
+reduce fold plug in through :func:`publish_map_groups` and
+``run_reduce_job(reduce_fold=)``. Result bytes are identical to the JAX
+package's on the same inputs.
 """
 
 from __future__ import annotations
@@ -81,17 +83,33 @@ def run_map_job(spec: TaskSpec, store: Store, job_id: str,
     """Execute one map job and write per-partition sorted run files.
 
     Mirrors job.lua:154-228: run the user mapfn with the grouping emit,
-    sort keys, apply the combiner per key, route keys through
-    partitionfn, write one atomic (overwriting) file per non-empty
-    partition.
+    then publish the grouping through :func:`publish_map_groups`.
     """
     times = JobTimes(started=time.time())
     cpu0 = time.process_time()
     result: Dict[Any, List[Any]] = {}
-    combiner = spec.combinerfn
-    spec.mapfn(map_key, map_value, make_map_emit(result, combiner))
+    spec.mapfn(map_key, map_value,
+               make_map_emit(result, spec.combiner_for_map))
     times.finished = time.time()
+    publish_map_groups(spec, store, job_id, result)
+    times.cpu = time.process_time() - cpu0
+    times.written = time.time()
+    return times
 
+
+def publish_map_groups(spec: TaskSpec, store: Store, job_id: str,
+                       result: Dict[Any, List[Any]]) -> None:
+    """Publish one map job's grouped emissions — the one publish tail
+    every map producer shares: the interpreted path (run_map_job above)
+    and the compiled hybrid map leg (engine/hybrid.py) both land here,
+    so combiner folding, serializability validation and partition
+    routing are byte-identical by construction across the planes.
+
+    Sort keys, apply the combiner per key, route keys through
+    partitionfn, write one atomic (overwriting) file per non-empty
+    partition (job.lua:154-228).
+    """
+    combiner = spec.combiner_for_map
     writers: Dict[int, Any] = {}
     try:
         for key in sorted_keys(result.keys()):
@@ -114,20 +132,24 @@ def run_map_job(spec: TaskSpec, store: Store, job_id: str,
         for w in writers.values():
             w.close()
 
-    times.cpu = time.process_time() - cpu0
-    times.written = time.time()
-    return times
-
 
 def run_reduce_job(spec: TaskSpec, store: Store, result_store: Store,
                    part_key: str, run_files: List[str],
-                   result_file: str) -> JobTimes:
+                   result_file: str, reduce_fold=None) -> JobTimes:
     """Execute one reduce job: k-way merge a partition's runs, fold with
     reducefn, publish the partition result (job.lua:230-296).
 
     Flagged (assoc ∧ commut ∧ idempotent) reducers skip reducefn on
     singleton groups (264-275); results land in the *result* store
     (249-251, 287); consumed run files are deleted after success (293).
+
+    ``reduce_fold`` is the hybrid plane's compiled-reduce hook
+    (engine/hybrid.py): a callable ``(key, values) -> plain-or-None``
+    tried where the interpreted reducefn would run. ``None`` means "this
+    group is outside what the fold compiled for" and falls through to
+    the interpreted reducefn, group by group — so a retired or partial
+    fold can change speed, never results. The singleton fast path stays
+    ahead of it.
     """
     times = JobTimes(started=time.time())
     cpu0 = time.process_time()
@@ -139,7 +161,11 @@ def run_reduce_job(spec: TaskSpec, store: Store, result_store: Store,
             if fast and len(values) == 1:
                 reduced = values[0]
             else:
-                reduced = to_plain(reducefn(key, values))
+                reduced = None
+                if reduce_fold is not None:
+                    reduced = reduce_fold(key, values)
+                if reduced is None:
+                    reduced = to_plain(reducefn(key, values))
             assert_serializable(reduced, f"reduce value for key {key!r}")
             builder.write(dump_record(key, [reduced]) + "\n")
         times.finished = time.time()

@@ -6,16 +6,26 @@ in one process with no coordinator. Map and reduce jobs run through
 engine/job.py, so result files are byte-identical to the JAX package's
 LocalExecutor on the same task.
 
+The ``engine`` knob (None = ``LMR_ENGINE``, else ``"auto"``) picks the
+execution engine as the JAX executor does: ``"auto"`` consults the
+static lowerability oracle at task load and runs an in-graph-verdicted
+task's data plane as one captured program (engine/ingraph.py), or the
+qualifying legs of a partly numeric task compiled (engine/hybrid.py),
+else the store plane; ``"ingraph"`` and ``"hybrid"`` force a rung;
+``"store"`` opts out. The compiled engines run on ``device`` (default:
+the task's ``init_args["device"]``, else ``"cuda"``).
+
 The JAX executor's other planes (pipelined shuffle, push shuffle,
-replication and erasure coding, the in-graph and hybrid engines, the
-autotune controller, v2 segments) are later slices. Their options are
-accepted only at the value that means "off"; any other value raises, so
-a caller never gets a silently different run.
+replication and erasure coding, the autotune controller, v2 segments)
+are later slices. Their options are accepted only at the value that
+means "off"; any other value raises, so a caller never gets a silently
+different run.
 """
 
 from __future__ import annotations
 
 import re
+import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Iterator, List, Tuple
@@ -26,6 +36,7 @@ from lua_mapreduce_tpu_torch.core.serialize import (load_record,
 from lua_mapreduce_tpu_torch.engine.contract import TaskSpec
 from lua_mapreduce_tpu_torch.engine.job import (JobTimes, run_map_job,
                                                 run_reduce_job)
+from lua_mapreduce_tpu_torch.faults.retry import COUNTERS
 from lua_mapreduce_tpu_torch.store.router import get_storage_from
 from lua_mapreduce_tpu_torch.utils.stats import IterationStats, TaskStats
 
@@ -38,7 +49,6 @@ _OFF_VALUES = {
     "replication": (None, 1),
     "coding": (None,),
     "autotune": (None, False),
-    "engine": (None, "store"),
     "segment_format": ("v1",),
 }
 
@@ -112,11 +122,13 @@ class LocalExecutor:
 
     ``map_parallelism`` > 1 runs map and reduce jobs on a thread pool —
     the in-process analog of N workers. ``max_iterations`` bounds the
-    ``"loop"`` protocol.
+    ``"loop"`` protocol. ``engine`` and ``device`` choose the execution
+    engine and its device (module docstring).
     """
 
     def __init__(self, spec: TaskSpec, map_parallelism: int = 1,
-                 max_iterations: int = 1000, **options):
+                 max_iterations: int = 1000, engine=None, device=None,
+                 **options):
         for name, value in options.items():
             off = _OFF_VALUES.get(name)
             if off is None:
@@ -132,8 +144,33 @@ class LocalExecutor:
         self.store = get_storage_from(spec.storage)
         self.result_store = (get_storage_from(spec.result_storage)
                              if spec.result_storage else self.store)
+        from lua_mapreduce_tpu_torch.engine.hybrid import HybridRunner
+        from lua_mapreduce_tpu_torch.engine.ingraph import (IngraphRunner,
+                                                            select_engine)
+        self.engine_decision = select_engine(spec, engine)
+        self.engine = self.engine_decision.chosen
+        device = device if device is not None \
+            else spec.init_args.get("device")
+
+        def log(msg):
+            print(f"[local] {msg}", file=sys.stderr)
+
+        self._ingraph = IngraphRunner(spec, self.engine_decision,
+                                      device=device, log=log)
+        self._hybrid = HybridRunner(spec, self.engine_decision,
+                                    device=device, log=log)
         self.stats = TaskStats()
         self.finished_value: Any = None
+
+    def _reduce_one(self, p, files) -> JobTimes:
+        """One reduce job with the hybrid compiled fold plugged in (its
+        None-means-interpret contract keeps the bytes) and its per-job
+        counter hook."""
+        t = run_reduce_job(self.spec, self.store, self.result_store, str(p),
+                           files, result_file_name(self.spec.result_ns, p),
+                           reduce_fold=self._hybrid.reduce_fold())
+        self._hybrid.note_reduce_job()
+        return t
 
     def _run_jobs(self, fns) -> List[JobTimes]:
         if self.map_parallelism == 1 or len(fns) <= 1:
@@ -150,24 +187,42 @@ class LocalExecutor:
         # no data must not leak last iteration's results
         # (server.lua:331-345)
         delete_results(self.result_store, spec.result_ns)
+        faults0 = COUNTERS.snapshot()
 
-        jobs = collect_task_jobs(spec)
-        it_stats.map.fold(self._run_jobs([
-            (lambda k=k, v=v, i=i: run_map_job(spec, self.store, str(i), k,
-                                               v))
-            for i, (k, v) in enumerate(jobs)]))
-
-        parts = discover_partitions(self.store, spec.result_ns)
-        it_stats.reduce.fold(self._run_jobs([
-            (lambda p=p, files=files: run_reduce_job(
-                spec, self.store, self.result_store, str(p), files,
-                result_file_name(spec.result_ns, p)))
-            for p, files in sorted(parts.items())]))
+        # in-graph engine: the whole data plane — map, shuffle, reduce —
+        # runs as one program and the result files land directly;
+        # taskfn/finalfn stay host-side. A build-time failure under
+        # engine=auto degrades to the store plane for the rest of the
+        # task (counted ingraph_fallbacks, logged) and THIS iteration
+        # re-runs through the store path right here.
+        ran_ingraph = self._ingraph.active and \
+            self._ingraph.run_iteration(self.result_store, iteration)
+        # zero-leg forced hybrid leaves its once-per-task evidence here,
+        # inside the iteration's counter window
+        self._hybrid.ensure_evidence()
+        if not ran_ingraph:
+            jobs = collect_task_jobs(spec)
+            # hybrid compiled map+combine leg: the whole iteration's map
+            # jobs as ONE program, published through the same tail
+            # run_map_job uses — a failure degrades right here and the
+            # interpreted loop below runs instead
+            if not self._hybrid.run_map_leg(jobs, self.store,
+                                            iteration=iteration):
+                it_stats.map.fold(self._run_jobs([
+                    (lambda k=k, v=v, i=i: run_map_job(
+                        spec, self.store, str(i), k, v))
+                    for i, (k, v) in enumerate(jobs)]))
+            parts = discover_partitions(self.store, spec.result_ns)
+            it_stats.reduce.fold(self._run_jobs([
+                (lambda p=p, files=files: self._reduce_one(p, files))
+                for p, files in sorted(parts.items())]))
 
         verdict: Any = None
         if spec.finalfn is not None:
             verdict = spec.finalfn(iter_results(self.result_store,
                                                 spec.result_ns))
+        it_stats.fold_fault_counters(
+            COUNTERS.delta(faults0, COUNTERS.snapshot()))
         it_stats.wall_time = time.time() - t0
         self.stats.iterations.append(it_stats)
         return verdict

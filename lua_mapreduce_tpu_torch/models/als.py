@@ -10,7 +10,7 @@ normal equations; the "reduce" sums those (k×k, k) partials across
 shards (an all-reduce with a mesh); the "final" solves every item's
 system and loops. Users stay split over ``dp`` for the whole fit, and on
 a card a round is captured once in a CUDA graph and replayed
-(``graphs.scan``).
+(``graphs.scan``, cached across fits at the same shapes).
 
 The JAX module writes the normal equations as a ``vmap`` of per-row
 products and a three-operand ``einsum``; contracted in pairs at
@@ -113,21 +113,25 @@ def als_fit(ratings, mask, item_factors0, *, n_iters: int = 10,
         r = torch.as_tensor(ratings).to(dev, torch.float32)
         w = torch.as_tensor(mask).to(dev, torch.float32)
     v0 = torch.as_tensor(item_factors0).to(dev, torch.float32)
-
-    def one_iter(v):
-        u = _solve_users(r, w, v, reg)                  # map: user shard
-        a, b = _item_partials(r, w, u)                  # combine
-        if mesh is not None:
-            a, b = C.psum_tree((a, b), mesh, axis)      # reduce
-        v_new = _spd_solve(a, b, reg)
-        err = w * (ops.matmul(u, v_new.t()) - r)
-        sq, cnt = (err ** 2).sum(), w.sum()
-        if mesh is not None:
-            sq, cnt = C.psum_tree((sq, cnt), mesh, axis)
-        return v_new, torch.sqrt(sq / cnt.clamp_min(1.0))
-
-    v, hist = graphs.scan(one_iter, v0, n_iters, tag="als round")
+    v, hist = graphs.scan(_als_round, v0, n_iters, r, w, reg, mesh, axis,
+                          tag="als round")
     u = _solve_users(r, w, v, reg)
     if mesh is not None:
         u = C.all_gather(u, mesh, axis)
     return ALSResult(u, v, hist[-1], hist)
+
+
+def _als_round(v, r, w, reg, mesh, axis):
+    """One ALS round: the captured step of :func:`als_fit`, a
+    module-level function so that every fit at the same shapes, ``reg``
+    and mesh finds the same cached graph."""
+    u = _solve_users(r, w, v, reg)                  # map: user shard
+    a, b = _item_partials(r, w, u)                  # combine
+    if mesh is not None:
+        a, b = C.psum_tree((a, b), mesh, axis)      # reduce
+    v_new = _spd_solve(a, b, reg)
+    err = w * (ops.matmul(u, v_new.t()) - r)
+    sq, cnt = (err ** 2).sum(), w.sum()
+    if mesh is not None:
+        sq, cnt = C.psum_tree((sq, cnt), mesh, axis)
+    return v_new, torch.sqrt(sq / cnt.clamp_min(1.0))

@@ -11,7 +11,9 @@ over the ``dp`` axis for the whole fit (each rank holds its rows), the
 reduce is an all-reduce, and on a card the iteration is captured once
 in a CUDA graph and replayed ``n_iters`` times (``graphs.scan``, the
 JAX module's ``lax.scan``): no host round trip between iterations,
-``history`` stays on the device. The two products of an iteration,
+``history`` stays on the device; the captured iteration is cached, so
+a second fit at the same shapes replays it without capturing. The two
+products of an iteration,
 x·cᵀ and one_hotᵀ·x, go through the port's matmul kernel (``ops.
 matmul``, f32), as the JAX module's ``@`` goes to the MXU.
 """
@@ -120,16 +122,20 @@ def kmeans_fit(x, centroids0, *, n_iters: int = 20, mesh=None,
         dev = resolve_device(device)
         x = torch.as_tensor(x).to(dev).float()
     c0 = torch.as_tensor(centroids0).to(dev).float()
-
-    def one_iter(centroids):
-        sums, counts, inertia = _assign_fold(x, centroids)
-        if mesh is not None:
-            sums, counts, inertia = C.psum_tree((sums, counts, inertia),
-                                                mesh, axis)
-        return _update(centroids, sums, counts), inertia
-
-    c, hist = graphs.scan(one_iter, c0, n_iters, tag="kmeans iteration")
+    c, hist = graphs.scan(_lloyd_step, c0, n_iters, x, mesh, axis,
+                          tag="kmeans iteration")
     return KMeansResult(c, hist[-1], hist)
+
+
+def _lloyd_step(centroids, x, mesh, axis):
+    """One Lloyd iteration: the captured step of :func:`kmeans_fit`,
+    a module-level function so that every fit at the same shapes finds
+    the same cached graph."""
+    sums, counts, inertia = _assign_fold(x, centroids)
+    if mesh is not None:
+        sums, counts, inertia = C.psum_tree((sums, counts, inertia),
+                                            mesh, axis)
+    return _update(centroids, sums, counts), inertia
 
 
 def assign(x, centroids) -> torch.Tensor:

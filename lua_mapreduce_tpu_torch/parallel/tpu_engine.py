@@ -145,11 +145,15 @@ class TpuExecutor:
         zero-round-trip hot loop: on a card the step is captured once in
         a CUDA graph (collectives included) and replayed — the
         counterpart of the JAX executor's ``lax.scan`` under ``jit``.
-        ``step_fn`` calls this executor's collectives through closures,
+        The graph is cached on (``step_fn``, the state's shapes, the
+        mesh): a second loop of the same step replays it without
+        capturing, so ``step_fn`` must read nothing but its state and
+        this executor's mesh. ``step_fn`` calls this executor's collectives through closures,
         as the JAX one does."""
         state = tree_map(lambda x: torch.as_tensor(x).to(self.mesh.device),
                          init_state)
-        return graphs.scan(step_fn, state, n_steps, tag="run_loop")
+        return graphs.scan(step_fn, state, n_steps, mesh=self.mesh,
+                           tag="run_loop")
 
 
 class _Replicated(torch.autograd.Function):

@@ -2,13 +2,14 @@
 
 Copy of the JAX package's ``utils/stats.py`` (reference job.lua:117-152,
 server.lua:155-183), trimmed to the fields the barrier LocalExecutor
-fills: per-phase sums and cluster time = max(written) − min(started).
+fills: per-phase sums, cluster time = max(written) − min(started), and
+the compiled engines' counters (``COUNTER_FOLD``'s engine entries).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import Dict, List
 
 from lua_mapreduce_tpu_torch.engine.job import JobTimes
 
@@ -31,6 +32,26 @@ class PhaseStats:
         return self
 
 
+# the counter-key → IterationStats-field fold (fold_fault_counters
+# below), trimmed to the compiled engines' counters:
+#   ingraph_iterations — iterations whose whole data plane ran as one
+#                        compiled program (engine/ingraph.py)
+#   ingraph_fallbacks  — runtime degrades to the store plane under
+#                        engine="auto" (logged, never a crash)
+#   hybrid_map_legs    — map-job batches run as one compiled program
+#                        (engine/hybrid.py)
+#   hybrid_reduce_legs — reduce jobs whose per-group fold ran compiled
+#   hybrid_fallbacks   — compiled legs that degraded back to the
+#                        interpreted plane (logged)
+COUNTER_FOLD = {
+    "ingraph_iterations": ("ingraph_iterations",),
+    "ingraph_fallbacks": ("ingraph_fallbacks",),
+    "hybrid_map_legs": ("hybrid_map_legs",),
+    "hybrid_reduce_legs": ("hybrid_reduce_legs",),
+    "hybrid_fallbacks": ("hybrid_fallbacks",),
+}
+
+
 @dataclasses.dataclass
 class IterationStats:
     """Stats for one map→reduce iteration (server.lua:536-601)."""
@@ -38,6 +59,25 @@ class IterationStats:
     map: PhaseStats = dataclasses.field(default_factory=PhaseStats)
     reduce: PhaseStats = dataclasses.field(default_factory=PhaseStats)
     wall_time: float = 0.0
+    ingraph_iterations: int = 0
+    ingraph_fallbacks: int = 0
+    hybrid_map_legs: int = 0
+    hybrid_reduce_legs: int = 0
+    hybrid_fallbacks: int = 0
+
+    def fold_fault_counters(self, delta: Dict[str, int]
+                            ) -> "IterationStats":
+        """Fold a FaultCounters delta (``faults/retry.COUNTERS.delta`` of
+        per-iteration snapshots) into the counter fields — the one place
+        the counter-key → stats-field mapping lives."""
+        for field, keys in COUNTER_FOLD.items():
+            setattr(self, field, int(sum(delta.get(k, 0) for k in keys)))
+        return self
+
+    def as_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["cluster_time"] = self.cluster_time
+        return d
 
     @property
     def cluster_time(self) -> float:

@@ -1218,8 +1218,10 @@ def test_captured_all_reduce_equals_eager(cuda, monkeypatch):
         return t.tanh(), C.psum(t.sum(), mesh, "dp")
 
     graphs.reset_captures()
+    graphs.clear_cache()
     got = graphs.scan(step, s0, 6)
     assert graphs.captures()[0] == 1
+    graphs.clear_cache()        # the eager loop must not replay the graph
     monkeypatch.setattr(graphs, "CapturedGraph", _EagerGraph)
     want = graphs.scan(step, s0, 6)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
@@ -1246,11 +1248,13 @@ def test_kmeans_and_als_on_the_card_match_the_cpu(cuda, monkeypatch):
                                rtol=1e-3, atol=0)
     for a, b in zip(al, al_cpu):
         torch.testing.assert_close(a.cpu(), b, **F32)
+    graphs.clear_cache()        # the eager loops must not replay a graph
     monkeypatch.setattr(graphs, "CapturedGraph", _EagerGraph)
     km_e = kmeans.kmeans_fit(x, x[:16], n_iters=6, mesh=mesh)
     al_e = als.als_fit(r, w, v0, n_iters=4, mesh=mesh)
     assert all(torch.equal(a, b) for a, b in zip(km, km_e))
     assert all(torch.equal(a, b) for a, b in zip(al, al_e))
+    graphs.clear_cache()
 
 
 @pytest.mark.parametrize("model", ["digits", "lenet"])
@@ -1315,3 +1319,175 @@ def test_tpu_executor_on_the_card_matches_the_cpu(cuda):
         torch.zeros(()), lambda s: (s + 1.0, s * 2.0), n_steps=5)
     assert float(final) == 5.0
     assert trace.cpu().tolist() == [0.0, 2.0, 4.0, 6.0, 8.0]
+
+
+# ------------------------------- the compiled MapReduce tiers (engine/)
+
+def test_scan_cache_two_fits_capture_once(cuda, monkeypatch):
+    """Two kmeans_fit calls (and two als_fit calls) at the same shapes
+    capture one graph between them; the second call replays it from its
+    own start state and equals the first, and both equal the eager loop,
+    bit for bit."""
+    from lua_mapreduce_tpu_torch import graphs
+    from lua_mapreduce_tpu_torch.models import als, kmeans
+    from lua_mapreduce_tpu_torch.train.data import make_blobs, make_ratings
+    x, _, _ = make_blobs(seed=1, n=8192, k=16, dim=32)
+    xd = torch.from_numpy(x).cuda()
+    r, w = make_ratings(seed=2, n_users=300, n_items=120, rank=8,
+                        density=0.3)
+    v0 = als.init_item_factors(0, 120, 8)
+    graphs.clear_cache()
+    graphs.reset_captures()
+    first = kmeans.kmeans_fit(xd, x[:16], n_iters=6)
+    second = kmeans.kmeans_fit(xd, x[:16], n_iters=6)
+    longer = kmeans.kmeans_fit(xd, x[16:32], n_iters=9)
+    assert graphs.captures()[0] == 1
+    a1 = als.als_fit(r, w, v0, n_iters=4, device="cuda")
+    a2 = als.als_fit(r, w, v0, n_iters=4, device="cuda")
+    assert graphs.captures()[0] == 2
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert all(torch.equal(a, b) for a, b in zip(a1, a2))
+    # another rate is another graph (a captured round bakes it in)
+    als.als_fit(r, w, v0, n_iters=4, reg=0.2, device="cuda")
+    assert graphs.captures()[0] == 3
+    graphs.clear_cache()
+    monkeypatch.setattr(graphs, "CapturedGraph", _EagerGraph)
+    eager = kmeans.kmeans_fit(xd, x[:16], n_iters=6)
+    eager_longer = kmeans.kmeans_fit(xd, x[16:32], n_iters=9)
+    a_e = als.als_fit(r, w, v0, n_iters=4, device="cuda")
+    graphs.clear_cache()
+    assert all(torch.equal(a, b) for a, b in zip(first, eager))
+    assert all(torch.equal(a, b) for a, b in zip(longer, eager_longer))
+    assert all(torch.equal(a, b) for a, b in zip(a1, a2))
+    assert all(torch.equal(a, b) for a, b in zip(a1, a_e))
+
+
+_IG_CARD = """
+import torch
+from lua_mapreduce_tpu_torch import ops
+
+SEEN = []
+
+def taskfn(emit):
+    for j in range(4):
+        emit(j, {"v": [float(j + i) / 16 for i in range(16)]})
+
+def mapfn(key, value, emit):
+    v = value["v"]
+    m = ops.matmul(v[:, None], v[None, :])
+    emit(0, {"s": torch.sum(m, dim=0)})
+    emit(1, {"s": ops.log_softmax(m)[0]})
+
+def partitionfn(key):
+    return int(key) % 2
+
+def reducefn(key, values):
+    acc = values[0]["s"]
+    for i in range(1, len(values)):
+        acc = acc + values[i]["s"]
+    return {"s": acc}
+
+reducefn.associative_reducer = True
+reducefn.commutative_reducer = True
+
+def finalfn(pairs):
+    SEEN.append(list(pairs))
+    return "loop" if len(SEEN) < 3 else False
+"""
+
+_HY_CARD = """
+import torch
+
+def taskfn(emit):
+    for j in range(6):
+        emit(j, {"v": [(j * 7 + i) % 23 for i in range(8)]})
+
+def mapfn(key, value, emit):
+    v = torch.as_tensor(value["v"], dtype=torch.int32)
+    emit(0, torch.sum(v))
+    emit(1, v[0] * 2)
+
+def partitionfn(key):
+    return int(key) % 2
+
+def reducefn(key, values):
+    acc = values[0]
+    for i in range(1, len(values)):
+        acc = acc + values[i]
+    return acc
+
+reducefn.associative_reducer = True
+reducefn.commutative_reducer = True
+"""
+
+
+def _task_module(tmp_path, monkeypatch, name, src):
+    import sys
+    (tmp_path / f"{name}.py").write_text(src)
+    monkeypatch.syspath_prepend(str(tmp_path))
+    monkeypatch.delitem(sys.modules, name, raising=False)
+    return name
+
+
+def test_ingraph_replays_equal_the_eager_build_run(cuda, tmp_path,
+                                                   monkeypatch):
+    """The in-graph program on the card: iteration 1 is the build run
+    (eager, on a side stream), iterations 2 and 3 replay its capture on
+    the same job values — their published results equal iteration 1's
+    bit for bit; one build; the matmul and log_softmax kernels' launches
+    credited at every replay."""
+    import importlib
+
+    from lua_mapreduce_tpu_torch.engine import LocalExecutor, TaskSpec
+    mod = _task_module(tmp_path, monkeypatch, "ig_card_task", _IG_CARD)
+    spec = TaskSpec(taskfn=mod, mapfn=mod, partitionfn=mod, reducefn=mod,
+                    finalfn=mod, storage="mem:ig-card")
+    ex = LocalExecutor(spec, engine="ingraph", device="cuda")
+    ops.reset_launch_counts()
+    ex.run()
+    torch.cuda.synchronize()
+    seen = importlib.import_module(mod).SEEN
+    assert len(seen) == 3 and seen[0] and seen[1] == seen[0] == seen[2]
+    engine = ex._ingraph.engine
+    assert engine.traces == 1 and engine.mode == "shard_map"
+    assert set(engine._plan.folds.values()) == {"psum"}
+    counts = ops.launch_counts()
+    assert counts["matmul_f32"] == 3 * 4 and counts["rowwise_softmax"] == 12
+    # the same task on the CPU gives the same results within 1e-4
+    cpu = LocalExecutor(TaskSpec(taskfn=mod, mapfn=mod, partitionfn=mod,
+                                 reducefn=mod, finalfn=mod,
+                                 storage="mem:ig-card-cpu"),
+                        engine="ingraph", device="cpu")
+    cpu.run()
+    want = seen[-1]
+    for (k, [g]), (k2, [w]) in zip(seen[0], want):
+        assert k == k2
+        torch.testing.assert_close(torch.tensor(g["s"]),
+                                   torch.tensor(w["s"]), **F32)
+
+
+def test_forced_hybrid_int_task_byte_identical_on_the_card(cuda, tmp_path,
+                                                           monkeypatch):
+    """engine="hybrid" on the card: the map leg one captured program,
+    the reduce fold device sums — both legs ran, no fallback, and the
+    result bytes equal the store plane's."""
+    import re
+
+    from lua_mapreduce_tpu_torch.engine import LocalExecutor, TaskSpec
+    mod = _task_module(tmp_path, monkeypatch, "hy_card_task", _HY_CARD)
+    out = {}
+    for engine in ("store", "hybrid"):
+        spec = TaskSpec(taskfn=mod, mapfn=mod, partitionfn=mod,
+                        reducefn=mod, storage=f"mem:hy-card-{engine}")
+        ex = LocalExecutor(spec, engine=engine, device="cuda")
+        ex.run()
+        pat = re.compile(r"^result\.P(\d+)$")
+        out[engine] = ({n: "".join(ex.result_store.lines(n))
+                        for n in ex.result_store.list("result.P*")
+                        if pat.match(n)}, ex)
+    (got, ex), (want, _) = out["hybrid"], out["store"]
+    assert got and got == want
+    it = ex.stats.iterations[-1]
+    assert it.hybrid_map_legs == 1 and it.hybrid_reduce_legs >= 1
+    assert it.hybrid_fallbacks == 0
+    assert ex._hybrid.map_engine.traces == 1

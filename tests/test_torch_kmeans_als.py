@@ -10,8 +10,12 @@ across). Tolerances are that file's: 1e-4 for centroids and (tighter
 than its own 1e-3 mesh-against-single bound) ALS factors, rtol 1e-3 for
 inertia and RMSE histories. The two packages solve the ALS normal
 equations differently (LU there, Cholesky here); they agree to ~1e-5.
-The six-function packaging tests (``TestMapReducePackaging``) wait for
-the in-graph slice.
+``TestMapReducePackaging`` holds the port's six-function examples
+(``examples/{kmeans/mr_kmeans,als/mr_als}.py`` in the port package) to
+the port's native fits and to the JAX package's examples from the same
+seeds; ``test_scan_cache_key`` holds the key of ``graphs.scan``'s
+capture cache (the cache itself needs a card: ``tests/test_torch_cuda.
+py``).
 """
 
 import numpy as np
@@ -175,3 +179,123 @@ def test_kmeans_card_check_start_avoids_assignment_ties():
         b = kmeans.kmeans_fit(x[perm], c0, n_iters=10, device="cpu")
         gaps.append(float((a.centroids - b.centroids).abs().max()))
     assert gaps[0] > 1e-2 and gaps[1] < 1e-6, gaps
+
+
+def _run_example(module, args, iterations, engine=None, jax=False):
+    """The six-function example under an executor (map jobs on 4
+    threads, as the JAX suite runs them); the port's on the CPU."""
+    if jax:
+        from lua_mapreduce_tpu.engine.contract import TaskSpec as JSpec
+        from lua_mapreduce_tpu.engine.local import LocalExecutor as JEx
+        spec = JSpec(taskfn=module, mapfn=module, partitionfn=module,
+                     reducefn=module, finalfn=module, init_args=args,
+                     storage="mem:kmals-jax")
+        return JEx(spec, map_parallelism=4, engine="store",
+                   max_iterations=iterations + 1).run()
+    from lua_mapreduce_tpu_torch.engine import LocalExecutor, TaskSpec
+    spec = TaskSpec(taskfn=module, mapfn=module, partitionfn=module,
+                    reducefn=module, finalfn=module,
+                    init_args={**args, "device": "cpu"},
+                    storage="mem:kmals-port")
+    ex = LocalExecutor(spec, map_parallelism=4, engine=engine,
+                       max_iterations=iterations + 1)
+    ex.run()
+    return ex
+
+
+class TestMapReducePackaging:
+    @pytest.mark.parametrize("engine", ["store", "auto"])
+    def test_kmeans_example_matches_native(self, engine):
+        """Six-function k-means (persistent_table state) ≡ the native
+        kmeans_fit from the same seed centroids ≡ the JAX example."""
+        from examples.kmeans import mr_kmeans as jax_mr
+        from lua_mapreduce_tpu_torch.examples.kmeans import mr_kmeans
+        args = {"k": 8, "n": 1024, "dim": 8, "n_shards": 4,
+                "max_iters": 5, "tol": 0.0, "seed": 5, "coord": "mem"}
+        ex = _run_example("lua_mapreduce_tpu_torch.examples.kmeans."
+                          "mr_kmeans", args, iterations=5, engine=engine)
+        assert ex.engine == ("ingraph" if engine == "auto" else "store")
+        state = mr_kmeans.read_state("mem")
+        assert state["iter"] == 5 and state["finished"]
+
+        x, _, _ = make_blobs(seed=5, n=1024, k=8, dim=8)
+        native = kmeans.kmeans_fit(x, x[:8], n_iters=5, device="cpu")
+        np.testing.assert_allclose(np.asarray(state["centroids"]),
+                                   native.centroids.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+        _run_example("examples.kmeans.mr_kmeans", args, 5, jax=True)
+        np.testing.assert_allclose(
+            np.asarray(state["centroids"]),
+            np.asarray(jax_mr.read_state("mem")["centroids"]), rtol=1e-4,
+            atol=1e-4)
+
+    def test_kmeans_example_converges_by_tol(self):
+        from lua_mapreduce_tpu_torch.examples.kmeans import mr_kmeans
+        args = {"k": 4, "n": 512, "dim": 8, "n_shards": 4,
+                "max_iters": 30, "tol": 1e-3, "seed": 6, "coord": "mem"}
+        _run_example("lua_mapreduce_tpu_torch.examples.kmeans.mr_kmeans",
+                     args, iterations=30)
+        state = mr_kmeans.read_state("mem")
+        assert state["finished"] and state["iter"] < 30, state["iter"]
+        assert state["shift"] < 1e-3
+
+    @pytest.mark.parametrize("engine", ["store", "auto"])
+    def test_als_example_matches_native(self, engine):
+        from examples.als import mr_als as jax_mr
+        from lua_mapreduce_tpu_torch.examples.als import mr_als
+        args = {"n_users": 128, "n_items": 32, "rank": 4, "density": 0.4,
+                "reg": 0.1, "n_shards": 4, "max_iters": 6, "seed": 7,
+                "coord": "mem"}
+        _run_example("lua_mapreduce_tpu_torch.examples.als.mr_als", args,
+                     iterations=6, engine=engine)
+        state = mr_als.read_state("mem")
+        assert state["iter"] == 6 and state["finished"]
+        # mr rmse is the pre-update measurement (one round behind native)
+        assert state["rmse"] < 0.5
+
+        r, w = make_ratings(seed=7, n_users=128, n_items=32, rank=4,
+                            density=0.4)
+        v0 = 0.1 * np.random.RandomState(7).randn(32, 4)
+        native = als.als_fit(r, w, v0, n_iters=6, reg=0.1, device="cpu")
+        np.testing.assert_allclose(np.asarray(state["item_factors"]),
+                                   native.item_factors.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+        _run_example("examples.als.mr_als", args, 6, jax=True)
+        np.testing.assert_allclose(
+            np.asarray(state["item_factors"]),
+            np.asarray(jax_mr.read_state("mem")["item_factors"]), rtol=1e-4,
+            atol=1e-4)
+
+
+def test_scan_cache_key():
+    """``graphs.scan``'s cache is keyed on the step, the mesh, the
+    non-tensor args and the state's and tensor args' structure, shapes,
+    dtypes and devices — never on their values — so two
+    ``kmeans_fit`` calls at the same shapes share one captured
+    iteration, and a call at another shape, rate or mesh does not."""
+    import torch
+
+    from lua_mapreduce_tpu_torch import graphs
+    key = graphs._cache_key
+    step = kmeans._lloyd_step
+    c, x = torch.zeros(8, 16), torch.zeros(1024, 16)
+    base = key(step, c, (x, None, "dp"), None)
+    assert key(step, torch.ones(8, 16), (torch.randn(1024, 16), None, "dp"),
+               None) == base
+    hash(base)
+    mesh = object()
+    for other in (key(step, torch.zeros(8, 32), (x, None, "dp"), None),
+                  key(step, c.double(), (x, None, "dp"), None),
+                  key(step, c, (torch.zeros(2048, 16), None, "dp"), None),
+                  key(step, c, (x, None, "mp"), None),
+                  key(step, c, (x, mesh, "dp"), mesh),
+                  key(als._als_round, c, (x, None, "dp"), None),
+                  key(step, [c], (x, None, "dp"), None)):
+        assert other != base
+    # ALS's rate is part of the key: a captured round bakes it in
+    r = torch.zeros(64, 32)
+    assert key(als._als_round, c, (r, r, 0.1, None, "dp"), None) != \
+        key(als._als_round, c, (r, r, 0.2, None, "dp"), None)
+    graphs._cache[base] = None
+    graphs.clear_cache()
+    assert not graphs._cache

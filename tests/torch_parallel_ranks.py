@@ -270,3 +270,62 @@ def fit_resume_cases(mesh, d, root, zero1):
             "whole": {k: _np(v) for k, v in whole.params.items()},
             "val": [h["val_loss"] for h in out["history"]],
             "ref_val": [h["val_loss"] for h in ref["history"]][2:]}
+
+
+# ------------------------------------------------------------ in-graph
+
+def ingraph_sgd(mesh, args):
+    """The six-function digits SGD (``examples/digits/mr_sgd.py``) under
+    ``engine="ingraph"`` on this rank of the world: the collective tier
+    deals the map jobs over the ranks and all-reduces the gradient sums;
+    taskfn and finalfn run on every rank (the SPMD control plane)."""
+    import re
+
+    from lua_mapreduce_tpu_torch.engine import LocalExecutor, TaskSpec
+    from lua_mapreduce_tpu_torch.examples.digits import mr_sgd
+    mod = "lua_mapreduce_tpu_torch.examples.digits.mr_sgd"
+    spec = TaskSpec(taskfn=mod, mapfn=mod, partitionfn=mod, reducefn=mod,
+                    finalfn=mod, init_args={**args, "device": "cpu"},
+                    storage="mem:tig-dp")
+    ex = LocalExecutor(spec, engine="ingraph", max_iterations=50)
+    ex.run()
+    engine = ex._ingraph.engine
+    pat = re.compile(r"^result\.P(\d+)$")
+    st = mr_sgd.read_state()
+    return {"ranks": engine._ranks()[0], "mode": engine.mode,
+            "traces": engine.traces,
+            "folds": sorted(set(engine._plan.folds.values())),
+            "params": {k: v.copy() for k, v in st["params"].items()},
+            "val_loss": st["val_loss"],
+            "bytes": {n: "".join(ex.result_store.lines(n))
+                      for n in ex.result_store.list("result.P*")
+                      if pat.match(n)}}
+
+
+def compiled_tasks(mesh, root, cases):
+    """Each ``name -> (module, engine)`` case under the port's
+    LocalExecutor on this rank (the task modules live in ``root``): the
+    published result bytes, the tier, the folds, the ranks the engine
+    dealt its jobs over and the iteration's engine counters."""
+    import re
+    import sys
+
+    from lua_mapreduce_tpu_torch.engine import LocalExecutor, TaskSpec
+    sys.path.insert(0, root)
+    pat = re.compile(r"^result\.P(\d+)$")
+    out = {}
+    for name, (mod, engine) in cases.items():
+        spec = TaskSpec(taskfn=mod, mapfn=mod, partitionfn=mod,
+                        reducefn=mod, storage=f"mem:tcx-{name}")
+        ex = LocalExecutor(spec, engine=engine, device="cpu")
+        ex.run()
+        eng = ex._ingraph.engine or ex._hybrid.map_engine
+        out[name] = {
+            "bytes": {n: "".join(ex.result_store.lines(n))
+                      for n in ex.result_store.list("result.P*")
+                      if pat.match(n)},
+            "mode": eng.mode, "ranks": eng._ranks()[0],
+            "folds": sorted(set(eng._plan.folds.values()))
+            if hasattr(eng._plan, "folds") else None,
+            "stats": ex.stats.iterations[-1].as_dict()}
+    return out
