@@ -148,10 +148,23 @@ Phases, each a hard failure on any mismatch:
              ``kmeans_fit`` at phase 15's shape called twice: one capture
              across both (``graphs.scan``'s cache), equal to each other
              and to the eager loop bit for bit; the second call's
-             ms/iteration beside the eager loop's.
+             ms/iteration beside the eager loop's;
+21. pool   — the distributed Server and Worker: phase 4's digits task
+             (6 iterations, ``shared:`` stores) through ``Server`` over a
+             ``FileJobStore`` and two ``cli.execute_worker`` processes —
+             result files, ``model.ckpt`` and ``model.meta`` byte-equal to
+             a LocalExecutor run on the card, launches summed over the
+             processes (each worker's ``--report``) equal to the code's;
+             ms/iteration of both (the first apart), the workers' boot and
+             task-load seconds, claim and commit rounds, the poll knobs
+             beside them; word count (BASELINE config 1) through the
+             example's ``execute_example_server.sh --inline-workers 2``,
+             equal to a naive count; ``Server(engine="ingraph")`` running
+             ``mr_sgd`` (20 iterations, no job inserted), its parameters
+             bit-equal to phase 19's LocalExecutor run.
 
 Launch counts are zeroed just before each run of phases 4, 5, 6, 8, 10 and
-15-20 and
+15-21 (phase 21's worker processes start at zero) and
 read just after, and must equal the counts worked out from the code; a
 kernel of the paths with no launch there fails the run. The
 card's name and power limit, then one JSON line of per-kernel numbers,
@@ -3098,7 +3111,7 @@ def phase_ingraph(torch, ops):
         f"factors against als_fit normwise {a_norm:.3e} (<= "
         f"{MRALS_NORM_TOL}), max abs {a_abs:.3e} (<= {MRALS_ABS_TOL}); "
         f"launches {counts}")
-    return card_counts, rep
+    return card_counts, rep, sgd["ingraph", "cuda"][4]
 
 
 def phase_hybrid_cache(torch, ops):
@@ -3185,6 +3198,276 @@ def phase_hybrid_cache(torch, ops):
     del xd
     torch.cuda.empty_cache()
     return [counts1, counts2], {"hybrid": hy, "cache": cache}
+
+
+# ------------------------------------------------------------ phase 21
+
+# the pool's task: phase 4's digits trainer (256-128-10, 4 shards × 128,
+# f32) for POOL_ITERS loop iterations with its spill and model stores on
+# ``shared:`` storage, through a Server polling every POOL_POLL_S and two
+# worker processes whose idle back-off is capped at POOL_MAX_SLEEP_S
+POOL_ARGS = {"sizes": [256, 128, 10], "n_shards": 4, "bunch": 128,
+             "max_steps": 6, "patience": 10_000, "seed": 0}
+POOL_ITERS, POOL_WORKERS = 6, 2
+POOL_POLL_S, POOL_MAX_SLEEP_S = 0.02, 0.05
+DIGITS = "lua_mapreduce_tpu_torch.examples.digits.mr_train"
+WORDCOUNT_SERVER = ("lua_mapreduce_tpu_torch/examples/wordcount/"
+                    "execute_example_server.sh")
+
+
+def digits_pool_spec(root):
+    from lua_mapreduce_tpu_torch.engine import TaskSpec
+    return TaskSpec(taskfn=DIGITS, mapfn=DIGITS, partitionfn=DIGITS,
+                    reducefn=DIGITS, finalfn=DIGITS,
+                    init_args={**POOL_ARGS,
+                               "model_store": f"shared:{root}/model"},
+                    storage=f"shared:{root}/spill")
+
+
+def task_bytes(root):
+    """A finished task's output files by name: the partition results and
+    the model checkpoint with its meta."""
+    import re
+
+    from lua_mapreduce_tpu_torch.store.router import get_storage_from
+    pat = re.compile(r"^(result\.P\d+|model\.ckpt|model\.meta)$")
+    out = {}
+    for sub in ("spill", "model"):
+        st = get_storage_from(f"shared:{root}/{sub}")
+        for name in st.list("*"):
+            if pat.match(name):
+                out[f"{sub}/{name}"] = st.read_range(name, 0, st.size(name))
+    return out
+
+
+def subprocess_env():
+    path = os.environ.get("PYTHONPATH")
+    return dict(os.environ,
+                PYTHONPATH=REPO + (os.pathsep + path if path else ""))
+
+
+def start_workers(coord, reports):
+    """``execute_worker`` processes on ``coord``, one report file each."""
+    return [subprocess.Popen(
+        [sys.executable, "-m", "lua_mapreduce_tpu_torch.cli.execute_worker",
+         coord, "--name", f"pool-w{i}", "--max-iter", "4000",
+         "--max-sleep", str(POOL_MAX_SLEEP_S), "--report", path],
+        cwd=REPO, env=subprocess_env()) for i, path in enumerate(reports)]
+
+
+def stop_workers(procs, timeout):
+    """Wait up to ``timeout`` s for each worker to leave, then kill it;
+    the exit codes (a killed worker's is negative)."""
+    for p in procs:
+        try:
+            p.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+    return [p.returncode for p in procs]
+
+
+def naive_wordcount(paths):
+    counts = {}
+    for path in paths:
+        with open(path) as f:
+            for word in f.read().split():
+                counts[word] = counts.get(word, 0) + 1
+    return counts
+
+
+def phase_pool(torch, ops, sgd_params):
+    """The distributed Server and Worker on the card: (a) the digits
+    trainer through a Server over a FileJobStore and two worker processes
+    — result files and the final checkpoint byte-equal to the port's
+    LocalExecutor on the card, launches summed over the processes equal
+    to the code's count; (b) word count (BASELINE config 1) through the
+    example's server script with two inline workers, equal to a naive
+    count; (c) ``Server(engine="ingraph")`` running ``mr_sgd`` with no
+    job inserted, its parameters bit-equal to phase 19's LocalExecutor
+    in-graph run."""
+    import glob
+    import shutil
+
+    import numpy as np
+
+    from lua_mapreduce_tpu_torch.coord.filestore import FileJobStore
+    from lua_mapreduce_tpu_torch.coord.jobstore import MemJobStore
+    from lua_mapreduce_tpu_torch.core.constants import MAP_NS, RED_NS
+    from lua_mapreduce_tpu_torch.core.serialize import load_record
+    from lua_mapreduce_tpu_torch.engine import (LocalExecutor, Server,
+                                                TaskSpec)
+    from lua_mapreduce_tpu_torch.examples.digits import mr_sgd
+    from lua_mapreduce_tpu_torch.store.router import get_storage_from
+    base = os.path.join(REPO, "build", "smoke-pool")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    zero = dict.fromkeys(ops.KERNELS, 0)
+    coord = os.path.join(base, "coord")
+    reports = [os.path.join(base, f"worker{i}.json")
+               for i in range(POOL_WORKERS)]
+    rep = {}
+
+    # (a) the workers start first: their boot overlaps the reference run
+    t_spawn = time.time()
+    procs = start_workers(coord, reports)
+    try:
+        local = LocalExecutor(digits_pool_spec(os.path.join(base, "local")),
+                              max_iterations=POOL_ITERS + 1)
+        local.run()
+        want_bytes = task_bytes(os.path.join(base, "local"))
+        store = FileJobStore(coord)
+        server = Server(store, poll_interval=POOL_POLL_S).configure(
+            digits_pool_spec(os.path.join(base, "pool")))
+        first_job = {}
+
+        def progress(phase, frac):
+            # iteration 1's map jobs, once all are in: when each worker
+            # began its first job
+            if phase == "map" and frac >= 1 and not first_job:
+                for d in store.jobs(MAP_NS):
+                    t = (d.get("times") or {}).get("started")
+                    if t:
+                        w = d["worker"]
+                        first_job[w] = min(t, first_job.get(w, t))
+
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        stats = server.loop(progress=progress)
+        torch.cuda.synchronize()
+        server_counts = ops.launch_counts()
+        codes = stop_workers(procs, 60)
+    except BaseException:
+        stop_workers(procs, 0)
+        raise
+    if codes != [0] * POOL_WORKERS:
+        raise AssertionError(f"worker processes exited {codes}")
+    got_bytes = task_bytes(os.path.join(base, "pool"))
+    n_results = sum(n.startswith("spill/") for n in want_bytes)
+    if not n_results or got_bytes != want_bytes:
+        differ = sorted(n for n in set(want_bytes) | set(got_bytes)
+                        if want_bytes.get(n) != got_bytes.get(n))
+        raise AssertionError(f"digits pool files differ from the "
+                             f"LocalExecutor's: {differ}")
+    if local.engine != "store" or server._ingraph.decision.chosen != "store":
+        raise AssertionError(f"digits ran on {local.engine} / "
+                             f"{server._ingraph.decision.chosen}, not the "
+                             f"store plane")
+    wreps = [json.load(open(p)) for p in reports]
+    worker_counts = {k: sum(r["launches"][k] for r in wreps)
+                     for k in ops.KERNELS}
+    # per iteration: 4 map jobs × (2 forward + 3 backward products, 1
+    # log_softmax) in the workers; the validation loss (2 products, 1
+    # log_softmax) in the server's finalfn
+    want_w = {**zero, "matmul_f32": POOL_ITERS * 4 * 5,
+              "rowwise_softmax": POOL_ITERS * 4}
+    want_s = {**zero, "matmul_f32": POOL_ITERS * 2,
+              "rowwise_softmax": POOL_ITERS}
+    if worker_counts != want_w or server_counts != want_s:
+        raise AssertionError(f"pool launches: workers {worker_counts} "
+                             f"(expected {want_w}), server {server_counts} "
+                             f"(expected {want_s})")
+    doc_started = store.get_task()["started"]
+    its = stats.iterations
+    walls = [1e3 * it.wall_time for it in its]
+    lwalls = [1e3 * it.wall_time for it in local.stats.iterations]
+    workers = {}
+    for r in wreps:
+        w = r["worker"]
+        workers[w] = {"boot_s": r["ready"] - t_spawn, "jobs": r["jobs"],
+                      "rounds": r["rounds"]}
+        if w in first_job:
+            workers[w]["task_load_s"] = \
+                first_job[w] - max(doc_started, r["ready"])
+    rep["digits"] = {
+        "iterations": len(its), "poll_interval_s": POOL_POLL_S,
+        "worker_max_sleep_s": POOL_MAX_SLEEP_S, "workers": workers,
+        "first_iteration_ms": walls[0],
+        "ms_per_iteration": sum(walls[1:]) / (len(walls) - 1),
+        "local_first_iteration_ms": lwalls[0],
+        "local_ms_per_iteration": sum(lwalls[1:]) / (len(lwalls) - 1),
+        "server_claim_rounds": sum(it.claim_rounds for it in its),
+        "server_commit_rounds": sum(it.commit_rounds for it in its),
+        "worker_claim_rounds": sum(r["rounds"]["claim"] for r in wreps),
+        "worker_commit_rounds": sum(r["rounds"]["commit"] for r in wreps),
+        "files_equal": sorted(want_bytes), "launches_workers": worker_counts,
+        "launches_server": server_counts}
+    d = rep["digits"]
+    log(f"[pool] digits 256-128-10, 4x128, {len(its)} iterations, Server "
+        f"(poll {POOL_POLL_S} s) + {POOL_WORKERS} worker processes "
+        f"(max-sleep {POOL_MAX_SLEEP_S} s): {d['ms_per_iteration']:.1f} "
+        f"ms/iteration after the first ({d['first_iteration_ms']:.1f} ms); "
+        f"LocalExecutor {d['local_ms_per_iteration']:.1f} ms/iteration "
+        f"({d['local_first_iteration_ms']:.1f} ms first); "
+        f"{len(want_bytes)} files byte-equal ({n_results} results, "
+        f"model.ckpt, model.meta)")
+    log(f"[pool] rounds: server claim/commit {d['server_claim_rounds']}/"
+        f"{d['server_commit_rounds']}, workers {d['worker_claim_rounds']}/"
+        f"{d['worker_commit_rounds']}; workers "
+        + "; ".join(f"{w}: boot {v['boot_s']:.2f} s, task load "
+                    f"{v.get('task_load_s', float('nan')):.2f} s, "
+                    f"{v['jobs']} jobs" for w, v in sorted(workers.items()))
+        + f"; launches workers {worker_counts}, server {server_counts}")
+
+    # (b) BASELINE config 1: word count through the example's server
+    # script (the unchanged user modules of examples/wordcount) with two
+    # inline workers, on the card
+    wc = os.path.join(base, "wordcount")
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        ["sh", WORDCOUNT_SERVER, wc, "--inline-workers", "2", "--poll",
+         str(POOL_POLL_S), "--quiet"], cwd=REPO, env=subprocess_env(),
+        capture_output=True, text=True, timeout=600)
+    wc_s = time.perf_counter() - t0
+    if out.returncode:
+        raise AssertionError(f"wordcount server exited {out.returncode}:\n"
+                             f"{out.stderr[-3000:]}")
+    spill = get_storage_from(f"shared:{wc}/spill")
+    got = {}
+    for name in spill.list("result.P*"):
+        for line in spill.lines(name):
+            if line.strip():
+                k, v = load_record(line.strip())
+                got[k] = v[0]
+    corpus = sorted(glob.glob(os.path.join(REPO, "examples", "wordcount",
+                                           "*.py")))
+    if got != naive_wordcount(corpus):
+        raise AssertionError("CLI word count differs from the naive count")
+    rep["wordcount"] = {"files": len(corpus), "words": len(got),
+                        "seconds": wc_s}
+    log(f"[pool] word count ({len(corpus)} files, {len(got)} words) "
+        f"through {WORDCOUNT_SERVER} --inline-workers 2: equal to the "
+        f"naive count, {wc_s:.2f} s with the process start")
+
+    # (c) the in-graph engine on the Server: no job is inserted
+    n = SGD_ARGS["max_steps"]
+    want_c = {**zero, "matmul_f32": 20 * n, "rowwise_softmax": 4 * n}
+    mod = "lua_mapreduce_tpu_torch.examples.digits.mr_sgd"
+    spec = TaskSpec(taskfn=mod, mapfn=mod, partitionfn=mod, reducefn=mod,
+                    finalfn=mod, init_args={**SGD_ARGS, "device": "cuda"},
+                    storage="mem:smoke-sgd-server")
+    mem = MemJobStore()
+    server = Server(mem, poll_interval=POOL_POLL_S,
+                    engine="ingraph").configure(spec)
+    stats, ms, _, counts_c = timed(torch, ops, server.loop)
+    params = mr_sgd.read_state()["params"]
+    inserted = sum(sum(mem.counts(ns).values()) for ns in (MAP_NS, RED_NS))
+    equal = all(np.array_equal(params[k], sgd_params[k]) for k in params)
+    compiled = sum(it.ingraph_iterations for it in stats.iterations)
+    if not equal or inserted or mem.round_counts()["claim"] \
+            or compiled != n or counts_c != want_c:
+        raise AssertionError(
+            f"Server in-graph mr_sgd: parameters bit-equal to phase 19 "
+            f"{equal}, jobs inserted {inserted}, compiled iterations "
+            f"{compiled} of {n}, launches {counts_c} (expected {want_c})")
+    rep["ingraph_server"] = {"iterations": n, "ms": ms,
+                             "ms_per_iteration": ms / n,
+                             "traces": server._ingraph.engine.traces,
+                             "launches": counts_c}
+    log(f"[pool] Server(engine='ingraph') mr_sgd, {n} iterations, no job "
+        f"inserted: parameters bit-equal to phase 19's LocalExecutor run; "
+        f"{ms / n:.2f} ms/iteration with the build; launches {counts_c}")
+    return [server_counts, worker_counts, counts_c], rep
 
 
 # ------------------------------------------------------------ main
@@ -3275,14 +3558,15 @@ def main():
     als_counts, als = phase_als(torch, ops)
     dp_counts, dp = phase_dp_train(torch, ops, gen)
     executor_counts, executor = phase_executor(torch, ops)
-    ingraph_counts, ingraph = phase_ingraph(torch, ops)
+    ingraph_counts, ingraph, sgd_params = phase_ingraph(torch, ops)
     hybrid_counts, hybrid_cache = phase_hybrid_cache(torch, ops)
+    pool_counts, pool = phase_pool(torch, ops, sgd_params)
     runs = ([digits_counts, wide_counts]
             + [serving[t]["launches"] for t in serving]
             + [conv[m]["launches"] for m in conv]
             + [lm[t]["launches"] for t in lm]
             + [kmeans_counts, als_counts, executor_counts] + dp_counts
-            + ingraph_counts + hybrid_counts)
+            + ingraph_counts + hybrid_counts + pool_counts)
     launches = {k: sum(c[k] for c in runs) for k in ops.KERNELS}
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
@@ -3316,7 +3600,8 @@ def main():
         "lm_train": lm, "lm_check": lm_check, "train_lm": train_lm,
         "digits_e2e": digits_e2e, "resume": resume, "kmeans": kmeans,
         "als": als, "dp_train": dp, "executor": executor,
-        "ingraph": ingraph, "hybrid_cache": hybrid_cache, "kernels": kernels,
+        "ingraph": ingraph, "hybrid_cache": hybrid_cache, "pool": pool,
+        "kernels": kernels,
         "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:

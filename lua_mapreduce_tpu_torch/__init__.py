@@ -33,6 +33,11 @@ It imports ``torch`` and numpy, never ``jax`` and nothing of
 caller passes ``device="cpu"``; with no CUDA device they raise.
 """
 
+from lua_mapreduce_tpu_torch.coord.filestore import FileJobStore
+from lua_mapreduce_tpu_torch.coord.jobstore import MemJobStore
 from lua_mapreduce_tpu_torch.device import resolve_device
+from lua_mapreduce_tpu_torch.engine import (LocalExecutor, PhaseFailed,
+                                            Server, TaskSpec, Worker)
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "Server", "Worker", "MemJobStore",
+           "FileJobStore", "TaskSpec", "LocalExecutor", "PhaseFailed"]

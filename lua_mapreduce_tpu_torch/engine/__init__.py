@@ -1,7 +1,10 @@
-"""The six-function engine: contract, job runners and the barrier
-LocalExecutor (copies of the JAX package's store-plane engine)."""
+"""The six-function engine: contract, job runners, the barrier
+LocalExecutor, and the distributed Server / Worker pair over a job store
+(copies of the JAX package's store-plane engine)."""
 
 from lua_mapreduce_tpu_torch.engine.contract import TaskSpec
 from lua_mapreduce_tpu_torch.engine.local import LocalExecutor
+from lua_mapreduce_tpu_torch.engine.server import PhaseFailed, Server
+from lua_mapreduce_tpu_torch.engine.worker import Worker
 
-__all__ = ["TaskSpec", "LocalExecutor"]
+__all__ = ["TaskSpec", "LocalExecutor", "Server", "Worker", "PhaseFailed"]

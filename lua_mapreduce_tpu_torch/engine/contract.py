@@ -174,6 +174,29 @@ class TaskSpec:
         no-combiner+flagged-reducer as a distinct config, test.sh:8-73)."""
         return self.combinerfn
 
+    @property
+    def state_hooks(self):
+        """The optional loop-state hooks ``(save_state, restore_state)``
+        of the user program, or ``(None, None)``.
+
+        A module running the ``"loop"`` protocol may carry state that
+        threads BETWEEN iterations outside the store. A module that
+        defines module-level ``save_state() -> obj`` (any
+        JSON-serializable value) and ``restore_state(obj)`` opts into the
+        Server's ``_state.<iteration>`` checkpoint: the Server publishes
+        ``save_state()`` before every loop flip, and a resuming Server
+        calls ``restore_state`` so iteration N+1 sees exactly the state N
+        produced. Both hooks must be on ONE module (finalfn's first)."""
+        for name in ("finalfn", "taskfn") + FN_NAMES:
+            loaded = self._loaded.get(name)
+            if loaded is None:
+                continue
+            save = getattr(loaded.module, "save_state", None)
+            restore = getattr(loaded.module, "restore_state", None)
+            if callable(save) and callable(restore):
+                return save, restore
+        return None, None
+
     def describe(self) -> dict:
         """Importable-module description (only str specs survive a process
         boundary — same restriction as the reference, where workers
@@ -195,6 +218,17 @@ class TaskSpec:
             "result_storage": self.result_storage,
             "result_ns": self.result_ns,
         }
+
+    @classmethod
+    def from_description(cls, desc: dict) -> "TaskSpec":
+        """The TaskSpec a :meth:`describe` dict names — how a worker in
+        another process loads the task from the task document
+        (task.lua:27-58)."""
+        return cls(init_args=desc.get("init_args"),
+                   storage=desc.get("storage", "mem"),
+                   result_storage=desc.get("result_storage"),
+                   result_ns=desc.get("result_ns", "result"),
+                   **desc["functions"])
 
     def _run_inits(self) -> None:
         seen = set()

@@ -44,8 +44,8 @@ from lua_mapreduce_tpu_torch.core.serialize import to_plain
 from lua_mapreduce_tpu_torch.device import resolve_device
 from lua_mapreduce_tpu_torch.engine.contract import TaskSpec
 from lua_mapreduce_tpu_torch.engine.ingraph import (
-    EngineDecision, LoweringUnsupported, _Compiled, _flatten_out,
-    _gather_coalesced, _group_signature, _rebuild, _run_map,
+    COMPILE_LOCK, EngineDecision, LoweringUnsupported, _Compiled,
+    _flatten_out, _gather_coalesced, _group_signature, _rebuild, _run_map,
     _singleton_passthrough, _stack_slots, _sum_fold, _unflatten_out,
     _value_leaves)
 
@@ -270,7 +270,7 @@ class HybridReduceFold:
         token = key if isinstance(key, (int, float, str)) \
             and type(key) is not bool else repr(key)
         sig = (token, len(prepped), struct)
-        with self._lock:
+        with self._lock, COMPILE_LOCK:
             proven = self._proofs.get(sig)
             if proven is None:
                 if len(self._proofs) >= self.MAX_PROBES:
@@ -299,10 +299,13 @@ class HybridReduceFold:
         if self._device is None:
             self._device = resolve_device(self._device_arg)
         sums = []
-        for li in range(len(prepped[0][0])):
-            rows = torch.from_numpy(np.stack([p[0][li] for p in prepped]))
-            wide = torch.int64 if rows.dtype == torch.int32 else rows.dtype
-            sums.append(rows.to(self._device).sum(0, dtype=wide).cpu())
+        with COMPILE_LOCK:
+            for li in range(len(prepped[0][0])):
+                rows = torch.from_numpy(np.stack([p[0][li]
+                                                  for p in prepped]))
+                wide = (torch.int64 if rows.dtype == torch.int32
+                        else rows.dtype)
+                sums.append(rows.to(self._device).sum(0, dtype=wide).cpu())
         rebuilt = _rebuild(prepped[0][1], sums)
         # the proven-identity singleton pass restores the user's own
         # output structure (dict insertion order, dtype converts) so

@@ -61,6 +61,7 @@ import collections
 import contextlib
 import dataclasses
 import sys
+import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -76,6 +77,17 @@ from lua_mapreduce_tpu_torch.device import resolve_device
 from lua_mapreduce_tpu_torch.engine.contract import TaskSpec
 
 ENGINES = ("auto", "ingraph", "hybrid", "store")
+
+# One process-wide lock over the compiled planes' work — a program's
+# build (its eager run with host syncs made errors, then its capture),
+# every replay and fetch, and the fold proofs. In-process worker pools
+# run compiled legs on several threads, and two pieces of that work are
+# process-wide state: torch.fx's symbolic tracing (the proofs) and
+# torch.cuda.set_sync_debug_mode (a build would turn another thread's
+# fetch into an error). Captures themselves use "thread_local" mode
+# (graphs.CapturedGraph), so other threads' unrelated CUDA calls neither
+# break a capture nor are refused by it.
+COMPILE_LOCK = threading.RLock()
 
 # the data-plane slots the oracle folds into the task verdict
 # (analysis/contracts.py keeps taskfn/finalfn control-plane by
@@ -769,17 +781,19 @@ class _Program:
     def __init__(self, device: torch.device, arrays: list,
                  body: Callable[[list], tuple], tag: str):
         self.device = device
-        self._inputs = _StaticInputs(arrays, device)
         self._body = body
         self._layout: list = []
         self._graph = None
-        if device.type == "cuda":
-            with _host_syncs_raise(device):
-                packed = graphs.on_side_stream(self._packed_body)
-            self._graph = graphs.CapturedGraph(self._packed_body, tag=tag)
-        else:
-            packed = self._packed_body()
-        self.first = self._unpack(packed)
+        with COMPILE_LOCK:
+            self._inputs = _StaticInputs(arrays, device)
+            if device.type == "cuda":
+                with _host_syncs_raise(device):
+                    packed = graphs.on_side_stream(self._packed_body)
+                self._graph = graphs.CapturedGraph(self._packed_body,
+                                                   tag=tag)
+            else:
+                packed = self._packed_body()
+            self.first = self._unpack(packed)
 
     def _packed_body(self) -> torch.Tensor:
         leaves = self._body(self._inputs.tensors)
@@ -814,10 +828,11 @@ class _Program:
         return [m[1] if m[0] == "const" else next(it) for m in self._layout]
 
     def run(self, arrays: list) -> list:
-        self._inputs.load(arrays)
-        if self._graph is None:
-            return self._unpack(self._packed_body())
-        return self._unpack(self._graph.replay())
+        with COMPILE_LOCK:
+            self._inputs.load(arrays)
+            if self._graph is None:
+                return self._unpack(self._packed_body())
+            return self._unpack(self._graph.replay())
 
 
 # --------------------------------------------------------------------------

@@ -66,13 +66,22 @@ class CapturedGraph:
     static inputs and outputs) and make no host round trip; its return
     value (tensors in the graph's memory pool, rewritten by every replay)
     is kept as :attr:`output`. The kernel launches the capture passes
-    through are kept as :attr:`launches` and credited at every replay."""
+    through are kept as :attr:`launches` and credited at every replay.
+
+    The capture runs in ``"thread_local"`` mode: only the capturing
+    thread is barred from the calls a capture cannot record, so another
+    thread of the process (an in-process worker pool) launching its own
+    kernels or syncing on its own stream neither breaks the capture nor
+    is refused. Work that must not interleave with a capture on another
+    thread (the compiled MapReduce planes') takes
+    ``engine.ingraph.COMPILE_LOCK``."""
 
     def __init__(self, fn: Callable[[], Any], tag: str = "graph"):
         self.graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         with ops.recording_launches() as self.launches:
-            with torch.cuda.graph(self.graph):
+            with torch.cuda.graph(self.graph,
+                                  capture_error_mode="thread_local"):
                 self.output = fn()
         self.capture_ms = (time.perf_counter() - t0) * 1e3
         global _count, _last

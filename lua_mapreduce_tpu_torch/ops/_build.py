@@ -7,7 +7,10 @@ else, into ``<repo>/build/kernels/`` (listed in ``.gitignore``). Library
 names carry a hash of the source and the flags, so an edited source
 rebuilds and an unchanged one loads at once; the hash also covers the
 shared headers (``csrc/*.cuh``). The first call builds every
-source, one ``nvcc`` process each, all started together.
+source, one ``nvcc`` process each, all started together. The build holds
+an ``flock`` on ``BUILD_DIR/.build.lock``: processes that start cold
+together (a server and its worker processes) run ``nvcc`` once between
+them — the others wait, then find the libraries built.
 
 Nothing here runs at import: the CPU tests import every module, and the
 CPU machine has no ``nvcc``.
@@ -16,6 +19,7 @@ CPU machine has no ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -93,16 +97,29 @@ def _target(name: str, csrc: Path = CSRC) -> Path:
 
 
 def _build_missing() -> Dict[str, Path]:
-    """Compile every source whose library is missing, in parallel."""
+    """Compile every source whose library is missing, in parallel, under
+    the cross-process build lock."""
     targets = {n: _target(n) for n in SOURCES}
-    todo = {n: t for n, t in targets.items() if not t.exists()}
     BUILD_REPORT.clear()
-    BUILD_REPORT.update({"built": sorted(todo), "seconds": 0.0,
-                         "ptxas": {}})
-    if not todo:
+    BUILD_REPORT.update({"built": [], "seconds": 0.0, "ptxas": {}})
+    if all(t.exists() for t in targets.values()):
         return targets
-    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd = os.open(BUILD_DIR / ".build.lock", os.O_RDWR | os.O_CREAT, 0o666)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        # another process may have built them while this one waited
+        _compile({n: t for n, t in targets.items() if not t.exists()})
+    finally:
+        os.close(fd)
+    return targets
+
+
+def _compile(todo: Dict[str, Path]) -> None:
+    BUILD_REPORT["built"] = sorted(todo)
+    if not todo:
+        return
+    nvcc = _nvcc()
     t0 = time.perf_counter()
     procs = {}
     for name, target in todo.items():
@@ -123,7 +140,6 @@ def _build_missing() -> Dict[str, Path]:
     BUILD_REPORT["seconds"] = time.perf_counter() - t0
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return targets
 
 
 def _load(path: Path, name: str) -> ctypes.CDLL:

@@ -1,9 +1,10 @@
 """Storage backend interface.
 
 Copy of the JAX package's ``store/base.py`` (reference fs.lua:185-208,
-255-257) without the raw-bytes surface the v2 segments need: a
-:class:`Store` hands out atomic ``builder()``s and streaming ``lines()``,
-plus list/remove/exists.
+255-257): a :class:`Store` hands out atomic ``builder()``s and streaming
+``lines()``, plus list/remove/exists, and the byte surface the Server's
+loop-state checkpoint needs (``FileBuilder.write_bytes``,
+``Store.read_range`` and ``Store.size``).
 """
 
 from __future__ import annotations
@@ -27,6 +28,10 @@ class FileBuilder(abc.ABC):
     @abc.abstractmethod
     def build(self, name: str) -> None:
         """Atomically publish the accumulated content as ``name``."""
+
+    @abc.abstractmethod
+    def write_bytes(self, data: bytes) -> None:
+        """Append raw bytes (a CRC-framed checkpoint)."""
 
     def close(self) -> None:
         """Release resources of an UNBUILT builder (failed producer).
@@ -62,6 +67,14 @@ class Store(abc.ABC):
     @abc.abstractmethod
     def remove(self, name: str) -> None:
         """Delete ``name`` if present (idempotent)."""
+
+    @abc.abstractmethod
+    def read_range(self, name: str, offset: int, length: int) -> bytes:
+        """``length`` bytes of ``name`` from ``offset`` (short at EOF)."""
+
+    @abc.abstractmethod
+    def size(self, name: str) -> int:
+        """Total byte size of ``name``."""
 
     @staticmethod
     def _match(names, pattern: str) -> List[str]:

@@ -16,7 +16,7 @@ from __future__ import annotations
 import glob as _glob
 import os
 import tempfile
-from typing import Iterator, List
+from typing import Iterator, List, Union
 
 from lua_mapreduce_tpu_torch.store.base import FileBuilder, Store
 
@@ -34,16 +34,21 @@ def _decode(fname: str) -> str:
 class _DirBuilder(FileBuilder):
     def __init__(self, store: "SharedStore"):
         self._store = store
-        self._chunks: List[str] = []
+        self._chunks: List[Union[str, bytes]] = []
 
     def write(self, data: str) -> None:
         self._chunks.append(data)
+
+    def write_bytes(self, data: bytes) -> None:
+        self._chunks.append(bytes(data))
 
     def build(self, name: str) -> None:
         fd, tmp = tempfile.mkstemp(dir=self._store.path, prefix=".tmp.")
         try:
             with os.fdopen(fd, "wb") as f:
-                f.write("".join(self._chunks).encode("utf-8"))
+                f.write(b"".join(c if isinstance(c, bytes)
+                                 else c.encode("utf-8")
+                                 for c in self._chunks))
                 f.flush()
                 os.fsync(f.fileno())
             os.replace(tmp, os.path.join(self._store.path, _encode(name)))
@@ -77,6 +82,14 @@ class SharedStore(Store):
                 continue
             names.append(_decode(base))
         return self._match(names, pattern)
+
+    def read_range(self, name: str, offset: int, length: int) -> bytes:
+        with open(os.path.join(self.path, _encode(name)), "rb") as f:
+            f.seek(offset)
+            return f.read(length)
+
+    def size(self, name: str) -> int:
+        return os.path.getsize(os.path.join(self.path, _encode(name)))
 
     def exists(self, name: str) -> bool:
         return os.path.exists(os.path.join(self.path, _encode(name)))

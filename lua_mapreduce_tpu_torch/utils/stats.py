@@ -2,14 +2,15 @@
 
 Copy of the JAX package's ``utils/stats.py`` (reference job.lua:117-152,
 server.lua:155-183), trimmed to the fields the barrier LocalExecutor
-fills: per-phase sums, cluster time = max(written) − min(started), and
-the compiled engines' counters (``COUNTER_FOLD``'s engine entries).
+and the Server fill: per-phase sums and FAILED counts, cluster time =
+max(written) − min(started), the Server's control-plane round trips,
+and the counters of ``COUNTER_FOLD``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 from lua_mapreduce_tpu_torch.engine.job import JobTimes
 
@@ -18,12 +19,14 @@ from lua_mapreduce_tpu_torch.engine.job import JobTimes
 class PhaseStats:
     """One phase's aggregate (reference stats schema task.lua:44-56)."""
     count: int = 0
+    failed: int = 0
     sum_cpu_time: float = 0.0
     sum_real_time: float = 0.0
     cluster_time: float = 0.0   # max(written) - min(started)
 
-    def fold(self, times: List[JobTimes]) -> "PhaseStats":
+    def fold(self, times: List[JobTimes], failed: int = 0) -> "PhaseStats":
         self.count = len(times)
+        self.failed = failed
         if times:
             self.sum_cpu_time = sum(t.cpu for t in times)
             self.sum_real_time = sum(t.real for t in times)
@@ -33,7 +36,10 @@ class PhaseStats:
 
 
 # the counter-key → IterationStats-field fold (fold_fault_counters
-# below), trimmed to the compiled engines' counters:
+# below), trimmed to the counters the port bumps:
+#   infra_releases     — jobs a Worker released back to WAITING on a
+#                        classified transient store fault (no
+#                        repetition charged)
 #   ingraph_iterations — iterations whose whole data plane ran as one
 #                        compiled program (engine/ingraph.py)
 #   ingraph_fallbacks  — runtime degrades to the store plane under
@@ -44,6 +50,7 @@ class PhaseStats:
 #   hybrid_fallbacks   — compiled legs that degraded back to the
 #                        interpreted plane (logged)
 COUNTER_FOLD = {
+    "infra_releases": ("infra_releases",),
     "ingraph_iterations": ("ingraph_iterations",),
     "ingraph_fallbacks": ("ingraph_fallbacks",),
     "hybrid_map_legs": ("hybrid_map_legs",),
@@ -59,6 +66,13 @@ class IterationStats:
     map: PhaseStats = dataclasses.field(default_factory=PhaseStats)
     reduce: PhaseStats = dataclasses.field(default_factory=PhaseStats)
     wall_time: float = 0.0
+    # control-plane round trips seen through the Server's job-store
+    # instance this iteration (JobStore.round_counts deltas): the whole
+    # pool's when it shares the instance in-process, the server's own
+    # share in a multi-process pool
+    claim_rounds: int = 0
+    commit_rounds: int = 0
+    infra_releases: int = 0
     ingraph_iterations: int = 0
     ingraph_fallbacks: int = 0
     hybrid_map_legs: int = 0
@@ -90,3 +104,11 @@ class TaskStats:
     """Whole-task stats across iterations."""
     iterations: List[IterationStats] = dataclasses.field(default_factory=list)
     wall_time: float = 0.0
+
+    @property
+    def last(self) -> Optional[IterationStats]:
+        return self.iterations[-1] if self.iterations else None
+
+    def as_dict(self) -> dict:
+        return {"iterations": [s.as_dict() for s in self.iterations],
+                "wall_time": self.wall_time}

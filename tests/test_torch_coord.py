@@ -207,11 +207,17 @@ def test_file_store_shares_the_jax_package_format(tmp_path):
 
 
 def test_the_store_is_only_its_persistent_half():
-    """The trimmed port: the job store's abstract surface is the three
-    persistent-document operations, and the JAX store's queue, task and
-    errors methods are absent, not stubbed."""
-    assert JobStore.__abstractmethods__ == {"pt_get", "pt_cas", "pt_delete"}
+    """The job store's abstract surface is the JAX package's — the
+    persistent half (PR 9) and the claim half (PR 12) — and the one part
+    not ported, speculative duplicate leases, raises instead of being
+    absent or stubbed silently. (The name is kept from when the port
+    had only the persistent half.)"""
+    from lua_mapreduce_tpu.coord.jobstore import JobStore as JaxJobStore
+    assert JobStore.__abstractmethods__ == JaxJobStore.__abstractmethods__
+    assert {"pt_get", "pt_cas", "pt_delete"} <= JobStore.__abstractmethods__
     for name in ("insert_jobs", "claim", "get_task", "insert_error",
                  "drain_errors"):
-        assert not hasattr(MemJobStore(), name)
-        assert not hasattr(FileJobStore, name)
+        assert callable(getattr(MemJobStore(), name))
+        assert callable(getattr(FileJobStore, name))
+    with pytest.raises(NotImplementedError, match="A6b"):
+        MemJobStore().speculate("map_jobs", 0)

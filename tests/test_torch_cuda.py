@@ -1491,3 +1491,138 @@ def test_forced_hybrid_int_task_byte_identical_on_the_card(cuda, tmp_path,
     assert it.hybrid_map_legs == 1 and it.hybrid_reduce_legs >= 1
     assert it.hybrid_fallbacks == 0
     assert ex._hybrid.map_engine.traces == 1
+
+
+# ---------------------------------------------------------------------------
+# the distributed Server / Worker on the card (PR 12)
+# ---------------------------------------------------------------------------
+
+_DIGITS = "lua_mapreduce_tpu_torch.examples.digits.mr_train"
+
+
+def _digits_spec(root, n_iter):
+    from lua_mapreduce_tpu_torch.engine import TaskSpec
+    return TaskSpec(taskfn=_DIGITS, mapfn=_DIGITS, partitionfn=_DIGITS,
+                    reducefn=_DIGITS, finalfn=_DIGITS,
+                    init_args={"sizes": [256, 128, 10], "n_shards": 4,
+                               "bunch": 128, "max_steps": n_iter,
+                               "patience": 10_000, "seed": 0,
+                               "model_store": f"shared:{root}/model"},
+                    storage=f"shared:{root}/spill")
+
+
+def _task_files(root):
+    out = {}
+    for sub in ("spill", "model"):
+        d = root / sub
+        for p in sorted(d.iterdir()):
+            if not p.name.startswith(".tmp."):
+                out[f"{sub}/{p.name}"] = p.read_bytes()
+    return out
+
+
+def _pool(store, spec, n_workers, **server_kw):
+    import threading
+
+    from lua_mapreduce_tpu_torch.engine import Server, Worker
+    server = Server(store, poll_interval=0.02, **server_kw).configure(spec)
+    workers = [Worker(store).configure(max_iter=400, max_sleep=0.05)
+               for _ in range(n_workers)]
+    threads = [threading.Thread(target=w.execute, daemon=True)
+               for w in workers]
+    for t in threads:
+        t.start()
+    stats = server.loop()
+    for t in threads:
+        t.join(timeout=60)
+    return server, workers, stats
+
+
+def test_digits_pool_on_the_card_equals_local_executor(cuda, tmp_path):
+    """The digits trainer at the flagship width through a Server and two
+    Worker threads on the card: its result files and final checkpoint
+    equal the LocalExecutor's on the card byte for byte (B1 reduces
+    split-K in split order and B2 is deterministic, so the bytes do not
+    depend on which worker ran which job); the launches are the code's."""
+    from lua_mapreduce_tpu_torch.coord.jobstore import MemJobStore
+    from lua_mapreduce_tpu_torch.engine import LocalExecutor
+    n = 3
+    LocalExecutor(_digits_spec(tmp_path / "local", n),
+                  max_iterations=n + 1).run()
+    ops.reset_launch_counts()
+    _, workers, stats = _pool(MemJobStore(), _digits_spec(tmp_path / "pool",
+                                                          n), 2)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert len(stats.iterations) == n
+    want = _task_files(tmp_path / "local")
+    assert any(k.startswith("spill/result.P") for k in want)
+    assert _task_files(tmp_path / "pool") == want
+    assert counts["matmul_f32"] == n * (4 * 5 + 2)
+    assert counts["rowwise_softmax"] == n * (4 + 1)
+    assert all(w.device == torch.device("cuda") for w in workers)
+
+
+_HY_POOL = """
+import torch
+
+SEEN = []
+
+def taskfn(emit):
+    for j in range(8):
+        emit(j, {"v": [(j * 7 + i + len(SEEN)) % 23 for i in range(8)]})
+
+def mapfn(key, value, emit):
+    v = torch.as_tensor(value["v"], dtype=torch.int32)
+    emit(0, torch.sum(v))
+    emit(1, v[0] * 2)
+
+def partitionfn(key):
+    return int(key) % 2
+
+def reducefn(key, values):
+    acc = values[0]
+    for i in range(1, len(values)):
+        acc = acc + values[i]
+    return acc
+
+reducefn.associative_reducer = True
+reducefn.commutative_reducer = True
+
+def finalfn(pairs):
+    SEEN.append([(k, v) for k, v in pairs])
+    return "loop" if len(SEEN) % 3 else False
+"""
+
+
+def test_two_inline_workers_run_hybrid_legs(cuda, tmp_path, monkeypatch):
+    """Two Worker threads of one process, each with its own compiled map
+    leg, build (eager run with host syncs made errors, then a capture)
+    and replay at the same time: the captures run in "thread_local" mode
+    and the compiled work takes one process-wide lock
+    (``engine.ingraph.COMPILE_LOCK``), so neither thread breaks the
+    other's capture. Three loop iterations; every iteration's results
+    equal the store plane's; legs ran on both phases, no fallback."""
+    import importlib
+
+    from lua_mapreduce_tpu_torch.coord.jobstore import MemJobStore
+    from lua_mapreduce_tpu_torch.engine import LocalExecutor, TaskSpec
+    mod = _task_module(tmp_path, monkeypatch, "hy_pool_task", _HY_POOL)
+    seen = importlib.import_module(mod).SEEN
+
+    def spec(tag):
+        return TaskSpec(taskfn=mod, mapfn=mod, partitionfn=mod,
+                        reducefn=mod, finalfn=mod, storage=f"mem:{tag}")
+
+    LocalExecutor(spec("hy-pool-store"), engine="store",
+                  device="cuda").run()
+    want = list(seen)
+    seen.clear()
+    _, workers, stats = _pool(MemJobStore(), spec("hy-pool"), 2,
+                              engine="hybrid")
+    assert seen == want and len(seen) == 3
+    legs = sum(it.hybrid_map_legs for it in stats.iterations)
+    folds = sum(it.hybrid_reduce_legs for it in stats.iterations)
+    assert legs >= 3 and folds >= 1
+    assert sum(it.hybrid_fallbacks for it in stats.iterations) == 0
+    assert sum(w.jobs_executed for w in workers) == 3 * (8 + 2)

@@ -395,9 +395,11 @@ def test_graph_replay_credits_its_capture(monkeypatch):
         def replay(self):
             pass
 
+    modes = []
+
     class StubContext:
-        def __init__(self, graph):
-            pass
+        def __init__(self, graph, capture_error_mode="global"):
+            modes.append(capture_error_mode)
 
         def __enter__(self):
             return self
@@ -419,6 +421,9 @@ def test_graph_replay_credits_its_capture(monkeypatch):
     assert ops.launch_counts()["matmul_bf16"] == 0
     n, (tag, ms) = graphs.captures()
     assert g.output == "out" and (n, tag) == (1, "t") and ms >= 0
+    # other threads of the process (an in-process worker pool) neither
+    # break the capture nor are refused by it
+    assert modes == ["thread_local"]
     for _ in range(4):
         assert g.replay() == "out"
     counts = ops.launch_counts()

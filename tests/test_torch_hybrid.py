@@ -10,8 +10,9 @@ tier choices: on jax 0.9.0 the JAX proofs never hold (ROADMAP C1: their
 catch-all turns a missing ``jax.core.Literal`` into "not provable"), so
 the JAX fold never folds; the port's does, and
 ``test_fold_accepts_accumulator_loop_and_restores_bytes`` passes here.
-The server-, CLI- and span-backed tests of ``tests/test_hybrid.py`` wait
-for the port's Server/Worker/CLI and tracer.
+The Server- and CLI-backed tests of ``tests/test_hybrid.py`` have their
+counterparts at the end of this file; the span-backed ones wait for the
+port's tracer.
 """
 
 import pytest
@@ -397,3 +398,71 @@ def test_resolve_engine_accepts_hybrid(monkeypatch):
     assert resolve_engine(None) == "hybrid"
     with pytest.raises(ValueError):
         resolve_engine("stagewise")
+
+
+# ---------------------------------------------------------------------------
+# the Server/Worker plane: doc negotiation, sticky resume, the CLI knob
+# (the counterparts of tests/test_hybrid.py:326, 341, 424)
+# ---------------------------------------------------------------------------
+
+def _srv_spec(mod, tag):
+    return TaskSpec(taskfn=mod, mapfn=mod, partitionfn=mod, reducefn=mod,
+                    init_args={"device": "cpu"}, storage=f"mem:thysrv-{tag}")
+
+
+def test_server_hybrid_negotiates_doc_and_matches_store(igmod):  # noqa: F811
+    from lua_mapreduce_tpu_torch.store.router import get_storage_from
+    from tests.test_torch_ingraph import _server_pool
+    mod = igmod("thy_partial_srv", HY_PARTIAL)
+    _, stats_h, store_h = _server_pool(_srv_spec(mod, "h"), engine="auto")
+    _, stats_s, _ = _server_pool(_srv_spec(mod, "s"), engine="store")
+    assert _result_bytes(get_storage_from("mem:thysrv-h")) == \
+        _result_bytes(get_storage_from("mem:thysrv-s"))
+    assert store_h.get_task()["hybrid_stages"] == {"map": True,
+                                                   "reduce": True}
+    it = stats_h.iterations[-1]
+    assert it.hybrid_map_legs >= 1 and it.hybrid_reduce_legs >= 1
+    assert it.hybrid_fallbacks == 0
+    # the store fleet negotiated NO split
+    assert stats_s.iterations[-1].hybrid_map_legs == 0
+
+
+def test_server_resume_keeps_doc_stage_split(igmod):  # noqa: F811
+    """Resume stickiness: a doc whose negotiated split disables the map
+    leg wins over the oracle's fresh recompute — the fleet keeps running
+    the legs the crashed run's workers were running."""
+    from lua_mapreduce_tpu_torch.coord.jobstore import MemJobStore
+    from lua_mapreduce_tpu_torch.core.constants import TaskStatus
+    from lua_mapreduce_tpu_torch.engine.ingraph import select_engine
+    from lua_mapreduce_tpu_torch.store.router import get_storage_from
+    from tests.test_torch_ingraph import _server_pool
+    mod = igmod("thy_partial_resume", HY_PARTIAL)
+    spec = _srv_spec(mod, "resume")
+    assert select_engine(spec, "auto").stages == {"map": True,
+                                                  "reduce": True}
+    store = MemJobStore()
+    store.put_task({"_id": "unique", "status": TaskStatus.WAIT.value,
+                    "iteration": 1, "spec": spec.describe(),
+                    "engine": "auto",
+                    "hybrid_stages": {"map": False, "reduce": True}})
+    _, stats, store = _server_pool(spec, engine="auto", store=store)
+    assert store.get_task()["hybrid_stages"] == {"map": False,
+                                                 "reduce": True}
+    it = stats.iterations[-1]
+    assert it.hybrid_map_legs == 0
+    assert it.hybrid_reduce_legs >= 1
+    ex_s = _local(mod, "store", "resume-twin")
+    assert _result_bytes(get_storage_from("mem:thysrv-resume")) == \
+        _result_bytes(ex_s.result_store)
+
+
+def test_cli_hybrid_engine_choice():
+    from lua_mapreduce_tpu_torch.cli.execute_server import \
+        build_parser as server_parser
+    from lua_mapreduce_tpu_torch.cli.execute_worker import \
+        build_parser as worker_parser
+    args = server_parser().parse_args(
+        ["mem", "t", "m", "p", "r", "--engine", "hybrid"])
+    assert args.engine == "hybrid"
+    assert worker_parser().parse_args(
+        ["mem", "--engine", "hybrid"]).engine == "hybrid"

@@ -10,9 +10,9 @@ data gives the same answers across packages): ints byte-identical,
 floats rtol/atol 1e-4 (digits parameters atol 1e-5), the tolerances of
 ``tests/test_ingraph.py``. On the CPU the program's body runs eagerly
 every iteration (a card captures it once); the build counter ``traces``
-means the same on both. The server-, CLI- and span-backed tests of
-``tests/test_ingraph.py`` wait for the port's Server/Worker/CLI and
-tracer.
+means the same on both. The Server- and CLI-backed tests of
+``tests/test_ingraph.py`` have their counterparts at the end of this
+file; the span-backed ones wait for the port's tracer.
 """
 
 import re
@@ -653,3 +653,133 @@ def test_counter_schema():
     assert "ingraph_fallbacks" in COUNTER_FOLD
     d = IterationStats(iteration=1).as_dict()
     assert d["ingraph_iterations"] == 0 and d["ingraph_fallbacks"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the Server: the in-graph plane on the server, the degrade to the pool,
+# the CLI knob (the counterparts of tests/test_ingraph.py:291, 316, 359,
+# 463, which waited on the port's Server/Worker/CLI)
+# ---------------------------------------------------------------------------
+
+CPU = {"device": "cpu"}
+
+
+def _server_pool(spec, n_workers=2, store=None, **kw):
+    import threading
+
+    from lua_mapreduce_tpu_torch.coord.jobstore import MemJobStore
+    from lua_mapreduce_tpu_torch.engine import Server, Worker
+    store = store or MemJobStore()
+    server = Server(store, poll_interval=0.02, **kw).configure(spec)
+    threads = [threading.Thread(target=Worker(store).configure(
+        max_iter=400, max_sleep=0.05).execute, daemon=True)
+        for _ in range(n_workers)]
+    for t in threads:
+        t.start()
+    stats = server.loop()
+    for t in threads:
+        t.join(timeout=30)
+    return server, stats, store
+
+
+def test_server_int_sum_byte_identical(igmod):
+    """engine="ingraph" on the Server: the server computes the data plane
+    itself with NO workers and no job inserted; the bytes equal a store
+    pool's; the engine is deployed on the task document."""
+    from lua_mapreduce_tpu_torch.coord.jobstore import MemJobStore
+    from lua_mapreduce_tpu_torch.core.constants import MAP_NS, RED_NS
+    from lua_mapreduce_tpu_torch.engine import Server
+    from lua_mapreduce_tpu_torch.store.router import get_storage_from
+    mod = igmod("tig_sum_srv", IG_SUM)
+
+    def spec(tag):
+        return TaskSpec(taskfn=mod, mapfn=mod, partitionfn=mod,
+                        reducefn="examples.wordcount.reducefn",
+                        init_args=CPU, storage=f"mem:tigsrv-{tag}")
+
+    store = MemJobStore()
+    server = Server(store, poll_interval=0.02,
+                    engine="ingraph").configure(spec("i"))
+    stats_i = server.loop()
+    assert server._ingraph.engine.traces == 1
+    assert stats_i.iterations[-1].ingraph_iterations == 1
+    assert store.get_task()["engine"] == "ingraph"
+    assert sum(store.counts(MAP_NS).values()) == 0
+    assert sum(store.counts(RED_NS).values()) == 0
+
+    _, stats_s, _ = _server_pool(spec("s"), engine="store")
+    assert _result_bytes(get_storage_from("mem:tigsrv-i")) == \
+        _result_bytes(get_storage_from("mem:tigsrv-s"))
+    assert stats_s.iterations[-1].ingraph_iterations == 0
+
+
+def test_server_kmeans_loop_matches_local_store():
+    """Server-compiled kmeans ≡ LocalExecutor-interpreted kmeans
+    (allclose), the multi-iteration loop building once."""
+    from lua_mapreduce_tpu_torch.coord.jobstore import MemJobStore
+    from lua_mapreduce_tpu_torch.engine import Server
+    from lua_mapreduce_tpu_torch.examples.kmeans import mr_kmeans
+    args = {"k": 4, "n": 256, "dim": 4, "n_shards": 4, "max_iters": 3,
+            "tol": 0.0, "seed": 13, "coord": "mem"}
+    _example(KMEANS, "store", args, "km-srv-twin")
+    local = np.array(mr_kmeans.read_state("mem")["centroids"])
+
+    spec = TaskSpec(taskfn=KMEANS, mapfn=KMEANS, partitionfn=KMEANS,
+                    reducefn=KMEANS, finalfn=KMEANS,
+                    init_args={**args, **CPU}, storage="mem:tigkmsrv")
+    server = Server(MemJobStore(), poll_interval=0.02,
+                    engine="auto").configure(spec)
+    stats = server.loop()
+    st = mr_kmeans.read_state("mem")
+    assert st["iter"] == 3
+    np.testing.assert_allclose(st["centroids"], local, rtol=1e-4,
+                               atol=1e-4)
+    assert server._ingraph.engine.traces == 1
+    assert sum(it.ingraph_iterations for it in stats.iterations) == 3
+
+
+def test_auto_fallback_server_degrades_to_store_plane(igmod):
+    """The server-side degrade: the workers carry the re-run store
+    phases, the task doc records engine=store (sticky for a resume), and
+    the bytes are the store plane's."""
+    from lua_mapreduce_tpu_torch.store.router import get_storage_from
+    mod = igmod("tig_traced_key_srv", IG_TRACED_KEY)
+    spec = TaskSpec(taskfn=mod, mapfn=mod, partitionfn=mod, reducefn=mod,
+                    init_args=CPU, storage="mem:tigfbsrv")
+    _, stats, store = _server_pool(spec, engine="auto")
+    it = stats.iterations[-1]
+    assert it.ingraph_fallbacks == 1 and it.ingraph_iterations == 0
+    assert store.get_task()["engine"] == "store"
+    ex_s = _local(mod, "store", "fbsrv-twin")
+    assert _result_bytes(get_storage_from("mem:tigfbsrv")) == \
+        _result_bytes(ex_s.result_store)
+
+
+def test_server_hard_mode_raises(igmod):
+    """engine="ingraph" on the Server raises on a lowering failure, as
+    the LocalExecutor's hard mode does: no store-plane run in its place."""
+    from lua_mapreduce_tpu_torch.coord.jobstore import MemJobStore
+    from lua_mapreduce_tpu_torch.engine import Server
+    mod = igmod("tig_traced_key_srv_hard", IG_TRACED_KEY)
+    spec = TaskSpec(taskfn=mod, mapfn=mod, partitionfn=mod, reducefn=mod,
+                    init_args=CPU, storage="mem:tigsrv-hard")
+    with pytest.raises(LoweringError):
+        Server(MemJobStore(), poll_interval=0.02,
+               engine="ingraph").configure(spec).loop()
+
+
+def test_cli_engine_flags():
+    from lua_mapreduce_tpu_torch.cli.execute_server import \
+        build_parser as server_parser
+    from lua_mapreduce_tpu_torch.cli.execute_worker import \
+        build_parser as worker_parser
+    args = server_parser().parse_args(
+        ["mem", "t", "m", "p", "r", "--engine", "ingraph"])
+    assert args.engine == "ingraph"
+    assert server_parser().parse_args(["mem", "t", "m", "p", "r"]).engine \
+        is None                       # None → LMR_ENGINE env → "auto"
+    assert worker_parser().parse_args(
+        ["mem", "--engine", "store"]).engine == "store"
+    with pytest.raises(SystemExit):
+        server_parser().parse_args(
+            ["mem", "t", "m", "p", "r", "--engine", "gpu"])
