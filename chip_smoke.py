@@ -162,9 +162,21 @@ Phases, each a hard failure on any mismatch:
              equal to a naive count; ``Server(engine="ingraph")`` running
              ``mr_sgd`` (20 iterations, no job inserted), its parameters
              bit-equal to phase 19's LocalExecutor run.
+22. moe    — mixture of experts and the (dp, sp) step: the
+             ``transformer_step_moe8`` configuration (the LM widths, 8
+             experts, top-1, capacity 4096) trained through
+             ``make_train_step(mesh=)`` over a dp = sp = 1 NCCL mesh,
+             bf16, ring attention: ms/step, tokens/s, the expert
+             products' TFLOP/s and a profiled step's device ms by
+             kernel; MoE serving at the serving cell's widths (8
+             experts), bf16 and int8 + int8 KV: prefill ms, captured
+             decode ms/step, launches; then f32 at 2 layers, card
+             against the CPU: MoE step losses and gradients, MoE greedy
+             tokens, the mesh step bit-equal to the no-mesh step (ring),
+             zigzag and Ulysses within 2e-4, ZeRO-1 within 1e-4.
 
 Launch counts are zeroed just before each run of phases 4, 5, 6, 8, 10 and
-15-21 (phase 21's worker processes start at zero) and
+15-22 (phase 21's worker processes start at zero) and
 read just after, and must equal the counts worked out from the code; a
 kernel of the paths with no launch there fails the run. The
 card's name and power limit, then one JSON line of per-kernel numbers,
@@ -2444,13 +2456,14 @@ def timed_replays(torch, module):
 
     # a cached graph (graphs.scan's cache) was captured by the real
     # class: start and end the block with an empty cache
-    module.clear_cache()
+    clear = getattr(module, "clear_cache", lambda: None)
+    clear()
     module.CapturedGraph = Timed
     try:
         yield rec
     finally:
         module.CapturedGraph = real
-        module.clear_cache()
+        clear()
     rec["end"].synchronize()
     rec["ms"] = rec["start"].elapsed_time(rec["end"])
 
@@ -3472,6 +3485,342 @@ def phase_pool(torch, ops, sgd_params):
 
 # ------------------------------------------------------------ main
 
+# ------------------------------------------------------------ phase 22
+#
+# transformer_step_moe8 (benchmarks/kernel_bench.py:380-418, :765): the LM
+# widths with 8 switch experts, top-1, capacity 2·B·L/E per routing group
+MOE = dict(moe_experts=8, moe_capacity=2 * LM_BATCH * LM_SEQ // 8)
+# the serving cell's widths with the same 8-expert FFN; prefill routes
+# the whole (B, P) prompt as one group, at the same capacity factor 2
+MOE_SERVE = dict(moe_experts=8,
+                 moe_capacity=2 * SERVE_BATCH * SERVE_PROMPT // 8)
+# the mesh step's zigzag and Ulysses forms against the ring's, f32
+MESH_FORMS_TOL = 2e-4
+
+
+def lm_mesh(torch):
+    """The world-size-1 (dp, sp) mesh on the card: NCCL, or the run
+    fails."""
+    import torch.distributed as dist
+
+    from lua_mapreduce_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(dp=1, mp=1, device="cuda", axis_names=("dp", "sp"))
+    if "nccl" not in dist.get_backend():
+        raise AssertionError(f"the card's mesh runs {dist.get_backend()}")
+    return mesh
+
+
+def moe_expert_flop(cfg, steps=1):
+    """The expert FFN's f32 products of ``steps`` train steps: per layer
+    and routing group two (E·C, d)·(d, d_ff)-sized products forward,
+    three times that with the backward."""
+    per = 2 * 2 * cfg.moe_experts * cfg.moe_capacity * cfg.d_model * cfg.d_ff
+    return 3 * per * cfg.n_layers * steps
+
+
+def phase_moe_train(torch, ops, mesh, seed=0):
+    """transformer_step_moe8 through ``make_train_step(mesh=)`` over the
+    dp = sp = 1 NCCL mesh at full width, bf16, SGD(1e-3, momentum 0.9),
+    ring attention: a warm-up step, counts zeroed, LM_STEPS timed steps,
+    counts read; a profiled repeat gives a step's device time by kernel."""
+    from lua_mapreduce_tpu_torch.models import transformer as tt
+    from lua_mapreduce_tpu_torch.train import optim
+    cfg = tt.TransformerConfig(**LM, **MOE)
+    params = {k: v.requires_grad_(True) for k, v in tt.shard_params_moe(
+        tt.init_transformer(seed, cfg, dtype=torch.bfloat16, device="cuda"),
+        mesh).items()}
+    step = tt.make_train_step(cfg, optim.sgd(params.values(), 1e-3,
+                                             momentum=0.9), mesh=mesh,
+                              attn="ring")
+    tok, tgt = tt.shard_batch(mesh, *lm_tokens(torch, cfg.vocab, LM_BATCH,
+                                               LM_SEQ, seed))
+    first = float(step(params, tok, tgt))                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [step(params, tok, tgt) for _ in range(LM_STEPS)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want = train_counts(cfg.n_layers, LM_STEPS)
+    if counts != want:
+        raise AssertionError(f"moe train launches {counts}, expected {want}")
+    losses = [first] + [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"moe train loss not finite: {losses}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the optimizer's annotation row repeats its kernels' device time
+    kernels = [r for r in kernel_profile(torch, lambda: step(params, tok,
+                                                             tgt))
+               if not r[0].startswith("Optimizer.")]
+    dev_ms = sum(k[1] for k in kernels)
+    tags = (("flash_fwd", ("wsk::flash_wgmma_kernel", "flash_bf16_kernel")),
+            ("flash_bwd_dq", ("wsk::dq_wgmma_kernel", "bfk::dq_kernel")),
+            ("flash_bwd_dkv", ("wsk::dkv_wgmma_kernel", "bfk::dkv_kernel")))
+    port_ms = {k: sum(r[1] for r in kernels if any(n in r[0] for n in t))
+               for k, t in tags}
+    seen = {k: sum(r[2] for r in kernels if any(n in r[0] for n in t))
+            for k, t in tags}
+    gemm = [r for r in kernels if "gemm" in r[0] or "nvjet" in r[0]]
+    by_kind = {"port": sum(port_ms.values()),
+               "gemm": sum(r[1] for r in gemm)}
+    by_kind["other"] = dev_ms - by_kind["port"] - by_kind["gemm"]
+    step_ms = dt * 1e3 / LM_STEPS
+    tok_s = LM_BATCH * LM_SEQ * LM_STEPS / dt
+    expert_tflop = moe_expert_flop(cfg) / 1e12
+    r = {"config": f"d{cfg.d_model} h{cfg.n_heads} L{cfg.n_layers} "
+                   f"ff{cfg.d_ff} v{cfg.vocab} E{cfg.moe_experts} "
+                   f"C{cfg.moe_capacity} top-{cfg.moe_top_k} seq{LM_SEQ} "
+                   f"b{LM_BATCH} bf16, ring over a dp = sp = 1 NCCL mesh",
+         "steps": LM_STEPS, "step_ms": step_ms, "tokens_per_s": tok_s,
+         "expert_tflop_per_step": expert_tflop,
+         "expert_tflops": expert_tflop / (step_ms / 1e3),
+         "losses": losses, "launches": counts, "peak_mem_gib": peak,
+         "profiled_step_device_ms": dev_ms,
+         "profiled_step_kernel_ms": port_ms,
+         "profiled_step_launches": seen,
+         "profiled_step_ms_by_kind": by_kind,
+         "profile_complete": seen == {k: v for k, v in
+                                      train_counts(cfg.n_layers, 1).items()
+                                      if v},
+         "device_idle_share": 1 - dev_ms / step_ms,
+         "top_kernels": kernels[:16]}
+    log(f"[moe train] {r['config']}: {LM_STEPS} timed steps, "
+        f"{step_ms:.3f} ms/step, {tok_s:.1f} tokens/s, the expert products "
+        f"{expert_tflop:.3f} TFLOP a step ({r['expert_tflops']:.3f} "
+        f"TFLOP/s), peak {peak:.2f} GiB; losses {losses[0]:.4f} .. "
+        f"{losses[-1]:.4f}; launches {counts}")
+    log(f"[moe train] profiled step {dev_ms:.3f} ms on the device (flash "
+        f"fwd {port_ms['flash_fwd']:.3f}, dq {port_ms['flash_bwd_dq']:.3f}, "
+        f"dkv {port_ms['flash_bwd_dkv']:.3f}; GEMMs {by_kind['gemm']:.3f}, "
+        f"other {by_kind['other']:.3f}); idle "
+        f"{100 * r['device_idle_share']:.1f}% of the timed step; port "
+        f"launches in the trace {seen}")
+    for name, ms, n in kernels[:16]:
+        log(f"[moe train]   {ms:10.3f} ms {n:6d}x  {name[:90]}")
+    del params, step
+    torch.cuda.empty_cache()
+    return r
+
+
+def moe_serve_counts(n_layers, n_new, quantized):
+    """Launches of one MoE greedy_decode(use_prefill=True): serve_counts
+    less the FFN's two q8 projections a layer (the expert stacks stay
+    full precision under quantize_lm)."""
+    want = serve_counts(n_layers, n_new, False)
+    if quantized:
+        want["q8"] = (2 * n_layers + 1) * n_new
+    return want
+
+
+def phase_moe_serve(torch, ops, seed=0):
+    """The serving cell's widths with 8 experts: greedy_decode(
+    use_prefill=True) in bf16, then after quantize_lm with an int8 KV
+    cache; prefill ms (best of 3), the captured decode tail per step,
+    launches (counts zeroed just before the timed call), tokens equal to
+    the eager loop's, and from a profiled repeat the kernel time of a
+    decode step and its top kernels. The decode step's time is the
+    device timeline from the first replay's start to the last one's end,
+    over the replays (``timed_replays``)."""
+    from lua_mapreduce_tpu_torch import graphs
+    from lua_mapreduce_tpu_torch.models import transformer as tt
+    cfg = tt.TransformerConfig(**SERVE, **MOE_SERVE)
+    params = tt.init_transformer(seed, cfg, dtype=torch.bfloat16,
+                                 device="cuda")
+    prompt = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
+                           generator=torch.Generator().manual_seed(seed + 1)
+                           ).cuda()
+    b, p_len, n_new = SERVE_BATCH, SERVE_PROMPT, SERVE_NEW
+    out = {}
+    for tag, quantized in (("bf16", False), ("int8", True)):
+        p = tt.quantize_lm(params) if quantized else params
+        kw = dict(cfg=cfg, use_prefill=True, kv_q8=quantized)
+        tt.greedy_decode(p, prompt, 3, **kw)                # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        graphs.reset_captures()
+        with timed_replays(torch, tt) as replays:
+            t0 = time.perf_counter()
+            toks = tt.greedy_decode(p, prompt, n_new, **kw)
+            torch.cuda.synchronize()
+            e2e = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        n_captures, last = graphs.captures()
+        replay_ms = replays["ms"] / replays["replays"]
+        want = moe_serve_counts(cfg.n_layers, n_new, quantized)
+        if n_captures != 1 or counts != want:
+            raise AssertionError(f"moe serving {tag}: {n_captures} captures,"
+                                 f" launches {counts}, expected {want}")
+        with eager_graphs(tt):
+            eager = tt.greedy_decode(p, prompt, n_new, **kw)
+        if not torch.equal(eager, toks):
+            raise AssertionError(f"moe serving {tag}: captured tokens "
+                                 f"differ from the eager loop's")
+        toks = toks.cpu()
+        if toks.shape != (b, p_len + n_new) or \
+                int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab:
+            raise AssertionError(f"moe serving {tag}: bad output")
+        pre = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tt.prefill(p, prompt, cfg=cfg, total=p_len + n_new)
+            torch.cuda.synchronize()
+            pre.append(time.perf_counter() - t0)
+        prefill_s = min(pre)
+        kernels = kernel_profile(
+            torch, lambda: tt.greedy_decode(p, prompt, n_new, **kw))
+        pre_kernels = kernel_profile(
+            torch, lambda: tt.prefill(p, prompt, cfg=cfg,
+                                      total=p_len + n_new))
+        step_ms = (sum(k[1] for k in kernels)
+                   - sum(k[1] for k in pre_kernels)) / (n_new - 1)
+        pre_names = {k[0]: k for k in pre_kernels}
+        step_rows = sorted(((k[0], (k[1] - pre_names.get(k[0], (0, 0, 0))[1])
+                             / (n_new - 1),
+                             (k[2] - pre_names.get(k[0], (0, 0, 0))[2])
+                             / (n_new - 1)) for k in kernels),
+                           key=lambda r: -r[1])
+        r = {"prefill_ms": prefill_s * 1e3, "e2e_ms": e2e * 1e3,
+             "capture_ms": last[1], "decode_step_ms": replay_ms,
+             "decode_tokens_per_s": b / replay_ms * 1e3,
+             "step_kernel_ms": step_ms,
+             "device_idle_share": 1 - step_ms / replay_ms,
+             "launches": counts, "step_top_kernels": step_rows[:8],
+             "first_tokens": toks[0, p_len:p_len + 8].tolist()}
+        log(f"[moe serving] {tag}: prefill {r['prefill_ms']:.3f} ms, "
+            f"captured decode {replay_ms:.4f} ms/step "
+            f"({r['decode_tokens_per_s']:.1f} tokens/s; capture "
+            f"{last[1]:.3f} ms), {step_ms:.4f} ms of kernels a step "
+            f"(idle {100 * r['device_idle_share']:.1f}%); end to end "
+            f"{r['e2e_ms']:.3f} ms; same tokens as the eager loop; launches "
+            f"{counts}")
+        for name, ms, n in step_rows[:8]:
+            log(f"[moe serving] {tag} a step: {ms:8.4f} ms {n:6.1f}x  "
+                f"{name[:80]}")
+        out[tag] = r
+        del p
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe_check(torch, ops, mesh, seed=5):
+    """f32, 2 layers at the LM widths, card against the CPU: three
+    free-running MoE train steps (losses within LM_CHECK_RTOL, gradients
+    normwise within LM_CHECK_NORM); MoE greedy tokens equal with a
+    capacity nothing overflows (the card's captured loop); the mesh step
+    at dp = sp = 1 bit-equal to the no-mesh step (ring), zigzag and
+    Ulysses within MESH_FORMS_TOL; ZeRO-1 (dense) within LM_CHECK_NORM.
+    Launches equal the code's counts."""
+    import dataclasses
+
+    from lua_mapreduce_tpu_torch.models import transformer as tt
+    from lua_mapreduce_tpu_torch.parallel import zero1 as z1
+    from lua_mapreduce_tpu_torch.train import optim
+    cfg = tt.TransformerConfig(**{**LM, "n_layers": 2, "max_seq": 256},
+                               moe_experts=8, moe_capacity=2 * 2 * 256 // 8)
+    p0 = tt.init_transformer(seed, cfg, device="cpu")
+    tok, tgt = lm_tokens(torch, cfg.vocab, 2, 256, seed)
+    out = {}
+    sides = {}
+    for dev in ("cpu", "cuda"):
+        p = {k: v.detach().clone().to(dev).requires_grad_(True)
+             for k, v in p0.items()}
+        sides[dev] = (p, tt.make_train_step(cfg, optim.sgd(
+            p.values(), LM_CHECK_LR, momentum=0.9)))
+    losses, gerrs = [], []
+    counts = dict.fromkeys(ops.KERNELS, 0)
+    for _ in range(3):
+        lc = float(sides["cpu"][1](sides["cpu"][0], tok, tgt))
+        ops.reset_launch_counts()
+        lg = float(sides["cuda"][1](sides["cuda"][0], tok, tgt))
+        for k, v in ops.launch_counts().items():
+            counts[k] += v
+        losses.append((lg, lc))
+        gerrs.append(leafwise_err(
+            {k: v.grad for k, v in sides["cuda"][0].items()},
+            {k: v.grad for k, v in sides["cpu"][0].items()}))
+    rel = max(abs(g - c) / abs(c) for g, c in losses)
+    msg = (f"MoE E8 2 layers f32 seq 256 b2, 3 free-running steps: (card, "
+           f"CPU) losses {losses}, max relative difference {rel:.3e} "
+           f"(limit {LM_CHECK_RTOL}); gradient normwise "
+           + " ".join(f"{a:.3e} (worst {w:.3e} in {k})" for a, w, k in gerrs)
+           + f" (limit {LM_CHECK_NORM}); launches {counts}")
+    if counts != train_counts(2, 3) or rel > LM_CHECK_RTOL or any(
+            a > LM_CHECK_NORM or w > LM_CHECK_NORM for a, w, _ in gerrs):
+        raise AssertionError(f"moe check {msg}")
+    log(f"[moe check] {msg}")
+    out["train"] = {"losses_card_cpu": losses, "max_rel_diff": rel,
+                    "grad_norm_err": gerrs, "launches": counts}
+    # greedy tokens: card (captured loop) against the CPU, no overflow
+    dcfg = dataclasses.replace(cfg, moe_capacity=2 * (64 + 16))
+    prompt = torch.randint(0, cfg.vocab, (2, 64),
+                           generator=torch.Generator().manual_seed(seed))
+    want = tt.greedy_decode(p0, prompt, 16, cfg=dcfg, use_prefill=True)
+    ops.reset_launch_counts()
+    got = tt.greedy_decode({k: v.cuda() for k, v in p0.items()},
+                           prompt.cuda(), 16, cfg=dcfg,
+                           use_prefill=True).cpu()
+    dcounts = ops.launch_counts()
+    if not torch.equal(got, want) or dcounts != moe_serve_counts(2, 16,
+                                                                  False):
+        raise AssertionError(f"moe check: greedy tokens {got[:, 64:]} vs "
+                             f"the CPU's {want[:, 64:]}; launches {dcounts}")
+    log(f"[moe check] greedy decode (capacity {dcfg.moe_capacity}, no "
+        f"overflow), prompt 2 x 64 + 16 new: card tokens equal the CPU's; "
+        f"launches {dcounts}")
+    out["decode_equal"] = True
+    # the mesh step against the no-mesh step, on the card
+    mesh_runs = {}
+    variants = [("none", cfg, None, "ring", False),
+                ("ring", cfg, mesh, "ring", False),
+                ("zigzag", cfg, mesh, "zigzag", False),
+                ("ulysses", cfg, mesh, "ulysses", False)]
+    dense = dataclasses.replace(cfg, moe_experts=0, moe_capacity=0)
+    pd0 = tt.init_transformer(seed, dense, device="cpu")
+    variants += [("dense", dense, mesh, "ring", False),
+                 ("zero1", dense, mesh, "ring", True)]
+    td = tt.shard_batch(mesh, tok, tgt)
+    for name, c, m, attn, z in variants:
+        src = pd0 if c is dense else p0
+        p = {k: v.detach().clone().cuda().requires_grad_(True)
+             for k, v in src.items()}
+
+        def mk(leaves):
+            return optim.sgd(leaves, LM_CHECK_LR, momentum=0.9)
+        opt = z1.init_state(mk, p, mesh) if z else mk(p.values())
+        step = tt.make_train_step(c, opt, mesh=m, attn=attn, zero1=z)
+        ls = [float(step(p, *td)) for _ in range(2)]
+        mesh_runs[name] = (ls, {k: v.detach().cpu() for k, v in p.items()})
+    base_l, base_p = mesh_runs["none"]
+    bit = (mesh_runs["ring"][0] == base_l and all(
+        torch.equal(mesh_runs["ring"][1][k], base_p[k]) for k in base_p))
+    if not bit:
+        raise AssertionError("moe check: the dp = sp = 1 mesh ring step is "
+                             "not bit-equal to the no-mesh step")
+    forms = {}
+    for name, ref, tol in (("zigzag", "none", MESH_FORMS_TOL),
+                           ("ulysses", "none", MESH_FORMS_TOL),
+                           ("zero1", "dense", LM_CHECK_NORM)):
+        (lz, pz), (lr, pr) = mesh_runs[name], mesh_runs[ref]
+        a, w, k = leafwise_err(pz, pr)
+        dl = max(abs(x - y) / abs(y) for x, y in zip(lz, lr))
+        forms[name] = {"loss_rel": dl, "param_norm_err": [a, w, k]}
+        if dl > tol or a > tol or w > tol:
+            raise AssertionError(f"moe check: {name} parts from {ref}: loss "
+                                 f"{dl:.3e}, params {a:.3e} (worst {w:.3e} "
+                                 f"in {k}), limit {tol}")
+    log(f"[moe check] mesh steps at dp = sp = 1 (NCCL): ring bit-equal to "
+        f"the no-mesh step (2 steps, losses and parameters); "
+        + "; ".join(f"{n} loss {v['loss_rel']:.3e}, params "
+                    f"{v['param_norm_err'][0]:.3e}" for n, v in forms.items())
+        + f" (limits {MESH_FORMS_TOL}, ZeRO-1 {LM_CHECK_NORM})")
+    out["mesh"] = {"ring_bit_equal": bit, "forms": forms}
+    return out
+
+
 def gpu_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3561,12 +3910,18 @@ def main():
     ingraph_counts, ingraph, sgd_params = phase_ingraph(torch, ops)
     hybrid_counts, hybrid_cache = phase_hybrid_cache(torch, ops)
     pool_counts, pool = phase_pool(torch, ops, sgd_params)
+    mesh = lm_mesh(torch)
+    moe_train = phase_moe_train(torch, ops, mesh)
+    moe_serve = phase_moe_serve(torch, ops)
+    moe_check = phase_moe_check(torch, ops, mesh)
     runs = ([digits_counts, wide_counts]
             + [serving[t]["launches"] for t in serving]
             + [conv[m]["launches"] for m in conv]
             + [lm[t]["launches"] for t in lm]
             + [kmeans_counts, als_counts, executor_counts] + dp_counts
-            + ingraph_counts + hybrid_counts + pool_counts)
+            + ingraph_counts + hybrid_counts + pool_counts
+            + [moe_train["launches"]]
+            + [moe_serve[t]["launches"] for t in moe_serve])
     launches = {k: sum(c[k] for c in runs) for k in ops.KERNELS}
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
@@ -3601,6 +3956,8 @@ def main():
         "digits_e2e": digits_e2e, "resume": resume, "kmeans": kmeans,
         "als": als, "dp_train": dp, "executor": executor,
         "ingraph": ingraph, "hybrid_cache": hybrid_cache, "pool": pool,
+        "moe_train": moe_train, "moe_serving": moe_serve,
+        "moe_check": moe_check,
         "kernels": kernels,
         "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)

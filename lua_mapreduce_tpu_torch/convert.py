@@ -41,15 +41,35 @@ def tensor_to_array(t: torch.Tensor) -> np.ndarray:
 
 
 def params_from_jax(np_params: Mapping[str, object],
-                    device: Optional[Union[str, torch.device]] = None
+                    device: Optional[Union[str, torch.device]] = None, *,
+                    mesh=None, ep_axis: str = "dp"
                     ) -> Dict[str, torch.Tensor]:
     """A dict of JAX-package arrays as tensors on ``device`` (default
-    ``"cuda"``), dtypes kept."""
-    dev = resolve_device(device)
-    return {k: array_to_tensor(v).to(dev) for k, v in np_params.items()}
+    ``"cuda"``; the mesh's device when ``mesh`` is given), dtypes kept.
+    With ``mesh`` each MoE expert stack is cut to this rank's E/ep
+    experts along ``ep_axis`` (``models.transformer.shard_params_moe``),
+    so every rank starts from the JAX dict's numbers."""
+    dev = mesh.device if mesh is not None and device is None \
+        else resolve_device(device)
+    out = {k: array_to_tensor(v) for k, v in np_params.items()}
+    if mesh is not None:
+        from lua_mapreduce_tpu_torch.models.transformer import \
+            shard_params_moe
+        out = shard_params_moe(out, mesh, ep_axis=ep_axis)
+    return {k: v.to(dev) for k, v in out.items()}
 
 
-def params_to_numpy(params: Mapping[str, torch.Tensor]
-                    ) -> Dict[str, np.ndarray]:
-    """A dict of tensors as numpy arrays for the JAX package."""
+def params_to_numpy(params: Mapping[str, torch.Tensor], *, mesh=None,
+                    ep_axis: str = "dp") -> Dict[str, np.ndarray]:
+    """A dict of tensors as numpy arrays for the JAX package. With
+    ``mesh`` the expert stacks are this rank's slices and are gathered
+    over ``ep_axis`` into the whole stacks (every rank calls it)."""
+    if mesh is not None:
+        from lua_mapreduce_tpu_torch.models.transformer import (
+            _spec_for, param_specs_moe)
+        from lua_mapreduce_tpu_torch.parallel import collectives as C
+        specs = param_specs_moe(ep_axis)
+        params = {k: (v if _spec_for(k, specs) is None
+                      else C.all_gather(v, mesh, ep_axis))
+                  for k, v in params.items()}
     return {k: tensor_to_array(v) for k, v in params.items()}

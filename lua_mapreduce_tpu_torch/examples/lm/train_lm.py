@@ -1,7 +1,10 @@
-"""LM training on one device, from the command line — the port of
+"""LM training from the command line — the port of
 ``examples/lm/train_lm.py``.
 
-A decoder-only transformer trained through ``make_train_step`` with
+A decoder-only transformer trained through ``make_train_step`` over a
+(dp, sp) mesh (``--dp``, ``--sp``: batch over dp, sequence over sp,
+``--attn`` ring / zigzag / ulysses over sp; ``--zero1`` shards the
+optimizer state over dp), with
 block rematerialization (``cfg.remat``, always on, as in the JAX
 script), gradient accumulation (``--grad-accum``), optional bf16
 parameters with f32 master weights (``--bf16``), atomic asynchronous
@@ -16,14 +19,24 @@ docs) with a char or word tokenizer, a held-out tail for validation
 
     python -m lua_mapreduce_tpu_torch.examples.lm.train_lm --steps 30
     python -m lua_mapreduce_tpu_torch.examples.lm.train_lm --device cpu
+    torchrun --nproc-per-node 4 -m lua_mapreduce_tpu_torch.examples.lm.\
+train_lm --dp 2 --sp 2 --attn zigzag --zero1
+
+The mesh needs a world of dp·sp ranks, one process each: started by
+``torchrun`` (NCCL, rank r on card r), by ``parallel.mesh.spawn``, or —
+for dp = sp = 1 — by the script itself (a world of one rank, NCCL on a
+card, gloo with ``--device cpu``). ``--dp``/``--sp`` 0 factor the world
+as the JAX script factors its devices. Every rank draws the same global
+batch and trains on its tile (``shard_batch``; zigzag batches are
+permuted there). Rank 0 prints and writes the checkpoint; under
+``--zero1`` with dp > 1 each dp rank's optimizer chunks go to
+``lm.dp{i}.ckpt`` beside it.
 
 Differences from the JAX script: ``--device`` (default ``"cuda"``);
 ``--attn`` defaults to ``ring``, where the JAX script defaults to
-``zigzag``: on one device zigzag splits every layer's attention into
-three quadrant calls, and its sequence-parallel form is a later slice.
-``--profile DIR`` writes a ``torch.profiler`` trace of the run into DIR
-(``utils/profiling.device_trace``). ``--dp``/``--sp`` other than 1,
-``--zero1`` and the zigzag/Ulysses schedules raise NotImplementedError.
+``zigzag``: on one shard zigzag splits every layer's attention into
+three quadrant calls. ``--profile DIR`` writes a ``torch.profiler``
+trace of the run into DIR (``utils/profiling.device_trace``).
 """
 
 from __future__ import annotations
@@ -103,9 +116,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
     ap.add_argument("--dp", type=int, default=0,
-                    help="data-parallel axis: 0 or 1 (one device)")
+                    help="data-parallel mesh axis (0 = auto: factor the "
+                         "world's ranks as dp x sp)")
     ap.add_argument("--sp", type=int, default=0,
-                    help="sequence-parallel axis: 0 or 1 (one device)")
+                    help="sequence-parallel mesh axis (0 = auto)")
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--steps", type=int, default=30)
@@ -120,7 +134,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--window", type=int, default=0,
                     help="sliding-window attention")
     ap.add_argument("--zero1", action="store_true",
-                    help="shard optimizer state over dp (not in the port)")
+                    help="shard optimizer state over dp (ZeRO-1)")
     ap.add_argument("--bf16", action="store_true",
                     help="bf16 params with f32 master weights")
     ap.add_argument("--ckpt", default=None,
@@ -172,14 +186,48 @@ def main() -> None:
             f"{args.steps} steps (final {final})")
 
 
-def _check_unported(args) -> None:
-    if args.dp not in (0, 1) or args.sp not in (0, 1):
-        raise NotImplementedError(
-            f"dp={args.dp} x sp={args.sp} is a multi-device mesh, not in "
-            f"the port yet (ROADMAP A3/A5); the port trains on one device")
-    if args.zero1:
-        raise NotImplementedError("--zero1 is not in the port yet "
-                                  "(ROADMAP A5)")
+def _join_world(device: str) -> None:
+    """Under a launcher that sets ``WORLD_SIZE`` > 1 (torchrun), join its
+    world (``env://``: NCCL with rank r on card ``LOCAL_RANK`` for
+    ``cuda``, gloo for ``cpu``); a world already running is kept."""
+    import torch.distributed as dist
+    if dist.is_initialized() or int(os.environ.get("WORLD_SIZE", "1")) < 2:
+        return
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        dist.init_process_group("nccl")
+    else:
+        dist.init_process_group("gloo")
+
+
+def _mesh_shape(args) -> None:
+    """Fill ``args.dp``/``args.sp`` from the running world's size as the
+    JAX script fills them from its devices: both 0 → sp 2 when the size
+    is even, dp the largest the batch and grad_accum split into; one 0 →
+    the world over the other."""
+    import torch.distributed as dist
+    nv = dist.get_world_size() if dist.is_initialized() else 1
+    if not args.dp and not args.sp:
+        args.sp = 2 if nv % 2 == 0 else 1
+        ga = max(args.grad_accum, 1)
+        args.dp = next((d for d in range(nv // args.sp, 0, -1)
+                        if args.batch % d == 0
+                        and (args.batch // d) % ga == 0), None)
+        if args.dp is None:
+            raise SystemExit(
+                f"no feasible dp: batch={args.batch} must split as "
+                f"batch % dp == 0 with (batch // dp) % grad_accum == 0 "
+                f"for some dp <= {nv // args.sp} (grad_accum={ga})")
+    elif not args.dp or not args.sp:
+        free = nv // max(args.dp, args.sp, 1)
+        args.dp = args.dp or free
+        args.sp = args.sp or free
+    if args.dp * args.sp != nv:
+        raise SystemExit(
+            f"dp={args.dp} x sp={args.sp} needs a world of "
+            f"{args.dp * args.sp} ranks, this one has {nv}: start it with "
+            f"torchrun --nproc-per-node {args.dp * args.sp} (or "
+            f"lua_mapreduce_tpu_torch.parallel.mesh.spawn)")
 
 
 def run(args) -> dict:
@@ -188,7 +236,8 @@ def run(args) -> dict:
     sample). With ``--profile`` the whole run is traced."""
     from lua_mapreduce_tpu_torch.utils.profiling import device_trace
 
-    _check_unported(args)
+    _join_world(args.device)
+    _mesh_shape(args)
     with contextlib.ExitStack() as stack:
         if getattr(args, "profile", None):
             stack.enter_context(device_trace(args.profile))
@@ -196,14 +245,28 @@ def run(args) -> dict:
 
 
 def _run(args) -> dict:
-    from lua_mapreduce_tpu_torch.device import resolve_device
+    import torch.distributed as dist
+
+    from lua_mapreduce_tpu_torch.parallel import zero1 as z1
+    from lua_mapreduce_tpu_torch.parallel.mesh import make_mesh
     from lua_mapreduce_tpu_torch.store.router import get_storage_from
     from lua_mapreduce_tpu_torch.train import checkpoint as ckpt
     from lua_mapreduce_tpu_torch.train import optim
     from lua_mapreduce_tpu_torch.train.precision import with_f32_master
 
-    args.dp, args.sp = 1, 1
-    dev = resolve_device(args.device)
+    mesh = make_mesh(dp=args.dp, mp=args.sp, device=args.device,
+                     axis_names=("dp", "sp"))
+    dev = mesh.device
+    lead = dist.get_rank() == 0
+    dp_i, sp_i = mesh.axis_index("dp"), mesh.axis_index("sp")
+
+    def say(msg: str) -> None:
+        if lead:
+            print(msg, flush=True)
+
+    if args.batch % args.dp or args.seq % args.sp:
+        raise SystemExit(f"batch {args.batch} x seq {args.seq} does not "
+                         f"tile over dp={args.dp} x sp={args.sp}")
     tok = args.tok
     if tok != "char" and not args.data:
         raise SystemExit(f"--tok {tok} builds its vocab FROM the corpus;"
@@ -224,16 +287,32 @@ def _run(args) -> dict:
     if args.bf16:
         params = {k: v.to(torch.bfloat16) for k, v in params.items()}
     params = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+
     # optax.adam(3e-3), as the JAX script (train/optim.py says how)
-    if args.bf16:
-        opt = with_f32_master(params.values(),
-                              lambda ms: optim.adam(ms, 3e-3))
+    def make_opt(leaves):
+        if args.bf16:
+            return with_f32_master(leaves, lambda ms: optim.adam(ms, 3e-3))
+        return optim.adam(leaves, 3e-3)
+
+    if args.zero1:
+        opt_state = z1.init_state(make_opt, params, mesh)
+        opt = opt_state[1]
     else:
-        opt = optim.adam(params.values(), 3e-3)
-    step = tt.make_train_step(cfg, opt, attn=args.attn,
-                              grad_accum=args.grad_accum)
+        opt = opt_state = make_opt(params.values())
+    # zigzag batches are permuted when they are cut into tiles
+    # (shard_batch), so the step never gathers a sequence
+    zz = args.attn == "zigzag"
+    step = tt.make_train_step(cfg, opt_state, mesh=mesh, attn=args.attn,
+                              grad_accum=args.grad_accum, zigzag_layout=zz,
+                              zero1=args.zero1)
+    schedule = "zigzag" if zz else "contiguous"
 
     store = get_storage_from(args.ckpt) if args.ckpt else None
+    # replicated state is written by rank 0; ZeRO-1 chunks by the first
+    # sp rank of each dp index, to a file of their own when dp > 1
+    sharded_state = args.zero1 and args.dp > 1
+    ckpt_name = f"lm.dp{dp_i}.ckpt" if sharded_state else "lm.ckpt"
+    writer = sp_i == 0 and (dp_i == 0 or sharded_state)
     target = args.target_loss
     val_frac = args.val_frac if data is not None else 0.0
     eval_every = max(1, args.eval_every)
@@ -265,16 +344,16 @@ def _run(args) -> dict:
                 "step": torch.zeros((), dtype=torch.int32)}
 
     start_step = 0
-    if store is not None and args.resume and ckpt.exists(store, "lm.ckpt"):
+    if store is not None and args.resume and ckpt.exists(store, ckpt_name):
         # strict load: a checkpoint of another configuration fails here
-        loaded = ckpt.load_pytree(store, "lm.ckpt", state(),
+        loaded = ckpt.load_pytree(store, ckpt_name, state(),
                                   check_shapes=True, check_dtypes=True)
         with torch.no_grad():
             for k, p in params.items():
                 p.copy_(loaded["params"][k])
         optim.load_state_tree(opt, loaded["opt"])
         start_step = int(loaded["step"])
-        print(f"resumed from checkpoint at step {start_step}", flush=True)
+        say(f"resumed from checkpoint at step {start_step}")
 
     losses, val_losses = [], []
     best_val, best_step, stopped_early = None, start_step, False
@@ -295,7 +374,8 @@ def _run(args) -> dict:
             else:
                 toks, tgts = synthetic_batch(rng, cfg.vocab, args.batch,
                                              args.seq)
-            loss = step(params, toks, tgts)
+            loss = step(params, *tt.shard_batch(mesh, toks, tgts,
+                                                schedule=schedule))
             if i == start_step + 1:
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
@@ -304,12 +384,11 @@ def _run(args) -> dict:
             if i == start_step + 1 or i % 5 == 0 or i == args.steps:
                 lf = float(loss)
                 losses.append((i, round(lf, 4)))
-                print(f"step {i:4d}  loss {lf:.4f}  "
-                      f"({time.time() - t0:.1f}s)", flush=True)
+                say(f"step {i:4d}  loss {lf:.4f}  "
+                    f"({time.time() - t0:.1f}s)")
                 if target is not None and lf < target:
                     reached = True
-                    print(f"target loss {target} reached at step {i}",
-                          flush=True)
+                    say(f"target loss {target} reached at step {i}")
                     break
             if val_batch is not None and i % eval_every == 0:
                 vl = val_loss_fn()
@@ -319,19 +398,18 @@ def _run(args) -> dict:
                     if patience:
                         best_params = {k: v.detach().clone()
                                        for k, v in params.items()}
-                print(f"  val  {i:4d}  loss {vl:.4f}"
-                      + ("  (best)" if best_step == i else ""), flush=True)
+                say(f"  val  {i:4d}  loss {vl:.4f}"
+                    + ("  (best)" if best_step == i else ""))
                 if patience and (i - best_step) >= patience * eval_every:
                     stopped_early = True
-                    print(f"early stop at step {i}: no val improvement "
-                          f"since step {best_step} "
-                          f"({patience} evals)", flush=True)
+                    say(f"early stop at step {i}: no val improvement "
+                        f"since step {best_step} ({patience} evals)")
                     break
-            if store is not None and i % args.ckpt_every == 0:
+            if store is not None and writer and i % args.ckpt_every == 0:
                 st = state()
                 st["step"] = torch.tensor(i, dtype=torch.int32)
-                saver.submit(store, "lm.ckpt", st)
-                print(f"  checkpoint @ step {i}", flush=True)
+                saver.submit(store, ckpt_name, st)
+                say(f"  checkpoint @ step {i}")
     finally:
         saver.wait()
     if dev.type == "cuda":
@@ -340,12 +418,15 @@ def _run(args) -> dict:
         with torch.no_grad():
             for k, p in params.items():
                 p.copy_(best_params[k])
-        if store is not None:
+        if store is not None and writer:
             st = state()
             st["step"] = torch.tensor(best_step, dtype=torch.int32)
-            ckpt.save_pytree(store, "lm.ckpt", st)
-            print(f"  checkpoint restored to best-val step {best_step}",
-                  flush=True)
+            ckpt.save_pytree(store, ckpt_name, st)
+            say(f"  checkpoint restored to best-val step {best_step}")
+    # every rank returns once every checkpoint of the run is written, so
+    # a run started after this one (a --resume) reads the same files
+    if dist.get_world_size() > 1:
+        dist.barrier()
     ran_any = i > start_step
     steps_done = i
     toks_per_step = args.batch * args.seq
@@ -353,26 +434,27 @@ def _run(args) -> dict:
     tokens_per_sec = (toks_per_step * max(0, steps_done - start_step - 1)
                       / max(warm_s, 1e-9)) if ran_any else 0.0
     if ran_any:
-        print(f"done: final loss {float(loss):.4f} "
-              f"({args.attn} attention, one device, "
-              f"grad_accum={args.grad_accum}, remat=on"
-              + (", llama-style" if args.modern else "")
-              + (f", window={args.window}" if args.window else "")
-              + (", bf16+f32-master" if args.bf16 else "") + ")")
+        say(f"done: final loss {float(loss):.4f} "
+            f"({args.attn} attention, dp={args.dp} sp={args.sp}, "
+            f"grad_accum={args.grad_accum}, remat=on"
+            + (", llama-style" if args.modern else "")
+            + (f", window={args.window}" if args.window else "")
+            + (", zero1" if args.zero1 else "")
+            + (", bf16+f32-master" if args.bf16 else "") + ")")
 
     with torch.no_grad():
         if not ran_any:
             sample = None
-            print(f"checkpoint already at step {start_step} >= --steps "
-                  f"{args.steps}; nothing to train", flush=True)
+            say(f"checkpoint already at step {start_step} >= --steps "
+                f"{args.steps}; nothing to train")
         elif data is None:
             # generate: prompt prefill + KV-cached greedy decode
             prompt = np.arange(8, dtype=np.int32)[None, :] % cfg.vocab
             out = tt.greedy_decode(params, torch.as_tensor(prompt), 8,
                                    cfg=cfg, use_prefill=True)[0].cpu()
-            print(f"prompt {prompt[0].tolist()} -> continuation "
-                  f"{out[8:].tolist()} (stride-1 truth: "
-                  f"{[(8 + j) % cfg.vocab for j in range(8)]})")
+            say(f"prompt {prompt[0].tolist()} -> continuation "
+                f"{out[8:].tolist()} (stride-1 truth: "
+                f"{[(8 + j) % cfg.vocab for j in range(8)]})")
             sample = out.tolist()
         else:
             p_len = min(32, max(4, cfg.max_seq // 4))
@@ -382,7 +464,7 @@ def _run(args) -> dict:
                                    cfg=cfg, use_prefill=True)[0].cpu()
             sample = joiner.join(id_to_str[t] if t < len(id_to_str)
                                  else "?" for t in out.tolist())
-            print(f"sample: {sample!r}")
+            say(f"sample: {sample!r}")
 
     return {
         "data": args.data or "synthetic-stride",
@@ -400,10 +482,10 @@ def _run(args) -> dict:
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
         "config": {
-            "dp": 1, "sp": 1, "seq": args.seq,
+            "dp": args.dp, "sp": args.sp, "seq": args.seq,
             "batch": args.batch, "grad_accum": args.grad_accum,
             "attn": args.attn, "modern": args.modern, "tok": tok,
-            "zero1": False, "bf16": args.bf16,
+            "zero1": args.zero1, "bf16": args.bf16,
             "vocab": cfg.vocab, "d_model": cfg.d_model,
             "n_layers": cfg.n_layers, "d_ff": cfg.d_ff,
         },

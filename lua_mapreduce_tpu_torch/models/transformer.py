@@ -1,21 +1,29 @@
-"""Decoder-only transformer LM — single-device serving and training.
+"""Decoder-only transformer LM — serving and training, on one device or
+over a (dp, sp) mesh.
 
-Port of ``lua_mapreduce_tpu/models/transformer.py`` for one device:
+Port of ``lua_mapreduce_tpu/models/transformer.py``:
 :func:`init_transformer`, the oracle :func:`transformer_apply`,
 :func:`prefill`, KV-cached :func:`greedy_decode` (prefill or
 position-scan ingestion, GQA, sliding window with a rolling cache, int8
 KV cache, greedy or sampled tokens; on a card one step captured in a
 CUDA graph and replayed per position), the int8 serving copy
-:func:`quantize_lm`, and the LM trainer: :func:`lm_loss_local` and
-:func:`make_train_step` (ring attention on one shard, ``cfg.remat``,
-gradient accumulation). On a card the attention runs the port's flash
-kernels (forward; dq and dkv in the backward) and decode kernel, and
-the projections of a quantized dict run the q8 kernel; plain dense
-projections ``y @ W``, the unquantized head and the loss's log_softmax
-stay torch, as the JAX package leaves them to XLA.
+:func:`quantize_lm`, switch / top-k mixture-of-experts blocks
+(``parallel/moe.py``), and the LM trainer: :func:`lm_loss_local` and
+:func:`make_train_step` (ring, zigzag or Ulysses attention,
+``cfg.remat``, gradient accumulation, ZeRO-1). With a mesh (the port's
+``parallel.mesh.Mesh`` with axes ``("dp", "sp")``, one rank a process)
+the batch shards over ``dp`` and the sequence over ``sp``; MoE expert
+stacks shard over ``dp`` (:func:`shard_params_moe`);
+:func:`make_sharded_apply` and ``prefill(mesh=)`` are the sharded
+forwards. On a card the attention runs the port's flash kernels
+(forward; dq and dkv in the backward) and decode kernel, and the
+projections of a quantized dict run the q8 kernel; plain dense
+projections ``y @ W``, the expert products (f32 ``bmm``), the
+unquantized head and the loss's log_softmax stay torch, as the JAX
+package leaves them to XLA.
 
-Not in the port yet, and raising: MoE blocks, sequence parallelism
-(``mesh=`` beyond one device, zigzag, Ulysses) and ZeRO-1.
+Not in the port yet: the 3-D (tensor-parallel) and pipeline steps
+(ROADMAP A5).
 
 Params are a flat name→tensor dict with the JAX package's names and
 layouts (carry JAX params across with ``convert.params_from_jax``).
@@ -26,19 +34,24 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, Optional, Union
+import contextlib
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from lua_mapreduce_tpu_torch.device import resolve_device
 from lua_mapreduce_tpu_torch.graphs import CapturedGraph, on_side_stream
 from lua_mapreduce_tpu_torch.ops.attention import flash_attention
 from lua_mapreduce_tpu_torch.ops.decode import decode_attention, quantize_kv
 from lua_mapreduce_tpu_torch.ops.q8 import q8_matmul, quantize_q8
+from lua_mapreduce_tpu_torch.parallel import collectives as C
+from lua_mapreduce_tpu_torch.parallel import moe as _moe
+from lua_mapreduce_tpu_torch.parallel import zero1 as _z1
 from lua_mapreduce_tpu_torch.parallel.ring_attention import (
-    _ring_shard, attention_reference)
+    _ring_shard, _ring_shard_zigzag, _ulysses_shard, _zigzag_check,
+    _zigzag_perm, attention_reference)
 from lua_mapreduce_tpu_torch.train.accum import accum_value_and_grad
 
 Params = Dict[str, torch.Tensor]
@@ -65,7 +78,10 @@ class TransformerConfig:
     ffn: str = "gelu"
     # sliding-window attention: at most the last `window` positions
     window: int = 0
-    # mixture-of-experts (not in the port yet: raises)
+    # mixture-of-experts: > 0 replaces every block's dense FFN with a
+    # switch-routed expert FFN (parallel/moe.py); capacity is required
+    # and is per routing group (a rank's tile; the whole batch on one
+    # device); moe_top_k > 1 is Mixtral-style top-k routing
     moe_experts: int = 0
     moe_capacity: int = 0
     moe_aux_weight: float = 0.01
@@ -149,13 +165,6 @@ def _check_moe(cfg: TransformerConfig, n_ep: Optional[int] = None) -> None:
                          f"by the expert-parallel axis size {n_ep}")
 
 
-def _no_moe(cfg: TransformerConfig) -> None:
-    if cfg.moe_experts:
-        raise NotImplementedError(
-            "MoE blocks are not in the port yet (ROADMAP A5: "
-            "parallel/moe.py); serve a dense config")
-
-
 def init_transformer(seed: Union[int, torch.Generator] = 0,
                      cfg: TransformerConfig = TransformerConfig(),
                      dtype: torch.dtype = torch.float32,
@@ -164,12 +173,13 @@ def init_transformer(seed: Union[int, torch.Generator] = 0,
     """Flat params with the JAX package's names and shapes: tok/pos
     embeddings (0.02·N(0,1)), per layer a fused qkv and an out
     projection, the FFN and two norms, a final norm; the LM head is tied
-    to the token embedding. Values come from a CPU ``torch.Generator``
+    to the token embedding; with ``cfg.moe_experts`` each block's FFN
+    is a router and E stacked experts (``parallel.moe.init_moe``,
+    prefix ``L{i}_moe``). Values come from a CPU ``torch.Generator``
     (``seed``), then move to ``device`` (default ``"cuda"``) and
     ``dtype`` — not the JAX package's numbers for the same seed."""
     _check_moe(cfg)
     _check_arch(cfg)
-    _no_moe(cfg)
     dev = resolve_device(device)
     gen = seed if isinstance(seed, torch.Generator) else \
         torch.Generator().manual_seed(int(seed))
@@ -191,7 +201,10 @@ def init_transformer(seed: Union[int, torch.Generator] = 0,
         p = f"L{i}"
         params[f"{p}_qkv_W"] = normal(d, qkv_cols, scale=d ** -0.5)
         params[f"{p}_out_W"] = normal(d, d, scale=d ** -0.5)
-        if cfg.ffn == "swiglu":
+        if cfg.moe_experts:
+            params.update(_moe.init_moe(gen, d, ff, cfg.moe_experts, dtype,
+                                        dev, prefix=f"{p}_moe"))
+        elif cfg.ffn == "swiglu":
             params[f"{p}_ff1_W"] = normal(d, ff, scale=d ** -0.5)   # gate
             params[f"{p}_ff3_W"] = normal(d, ff, scale=d ** -0.5)   # up
             params[f"{p}_ff2_W"] = normal(ff, d, scale=ff ** -0.5)  # down
@@ -235,7 +248,8 @@ def quantize_lm(params: Params) -> Params:
     (qkv / out / ff*) becomes ``name::q8`` (int8) + ``name::scale`` (f32
     per output channel), and the tied head gets an int8 copy
     (``head::q8``, contiguous (D, vocab)) while tok_emb stays for the
-    embedding gather; biases and norms are untouched."""
+    embedding gather; biases, norms, MoE routers and expert stacks
+    (3-D, batched f32 products) stay full precision."""
     out = {}
     for k, v in params.items():
         if (k.endswith("_W") and v.dim() == 2
@@ -281,9 +295,23 @@ def _rope(x, pos, base: float):
                       x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
-def _ffn(params: Params, p: str, y, cfg: TransformerConfig):
-    """The block's dense FFN. Returns (out, aux loss 0.0)."""
-    _no_moe(cfg)
+def _ffn(params: Params, p: str, y, cfg: TransformerConfig,
+         ep: Optional[Tuple[object, str]] = None):
+    """The block's FFN: dense, or the switch-MoE FFN when
+    ``cfg.moe_experts`` > 0 — experts local when ``ep`` is None, else
+    sharded over the mesh axis of ``ep = (mesh, axis)``; the whole
+    (B, L) tile is one routing group. Returns (out, aux loss)."""
+    if cfg.moe_experts:
+        b, l, d = y.shape
+        kw = dict(capacity=cfg.moe_capacity, prefix=f"{p}_moe",
+                  top_k=cfg.moe_top_k)
+        if ep is None:
+            out, aux = _moe.moe_ffn_reference(params, y.reshape(b * l, d),
+                                              **kw)
+        else:
+            out, aux = _moe.moe_ffn_shard(params, y.reshape(b * l, d),
+                                          mesh=ep[0], ep_axis=ep[1], **kw)
+        return out.reshape(b, l, d), aux
     if cfg.ffn == "swiglu":
         gate = F.silu(_mm(params, f"{p}_ff1_W", y))
         up = _mm(params, f"{p}_ff3_W", y)
@@ -307,11 +335,13 @@ def _split_qkv(qkv, cfg: TransformerConfig):
 
 
 def _block(params: Params, i: int, x, cfg: TransformerConfig, attn_fn,
-           pos, kv_sink: Optional[list] = None):
-    """One pre-norm decoder block; ``attn_fn(q, k, v) -> out``; ``pos``
-    the global positions of the L rows (rope). ``kv_sink`` (a list)
-    captures this block's (k, v) — rotated k under rope — for the decode
-    cache. Returns (x, moe aux 0.0)."""
+           pos, ep: Optional[Tuple[object, str]] = None,
+           kv_sink: Optional[list] = None):
+    """One pre-norm decoder block; ``attn_fn(q, k, v) -> out`` (one
+    device's or a sequence-parallel body); ``pos`` the global positions
+    of the L rows (rope); ``ep`` the MoE FFN's expert-parallel (mesh,
+    axis). ``kv_sink`` (a list) captures this block's (k, v) — rotated
+    k under rope — for the decode cache. Returns (x, moe aux)."""
     p = f"L{i}"
     b, l, d = x.shape
     y = _norm(params, f"{p}_ln1", x, cfg)
@@ -324,7 +354,7 @@ def _block(params: Params, i: int, x, cfg: TransformerConfig, attn_fn,
     a = attn_fn(q, k, v).reshape(b, l, d)
     x = x + _mm(params, f"{p}_out_W", a)
     y = _norm(params, f"{p}_ln2", x, cfg)
-    out, aux = _ffn(params, p, y, cfg)
+    out, aux = _ffn(params, p, y, cfg, ep)
     return x + out, aux
 
 
@@ -337,7 +367,8 @@ def _check_seq(global_len: int, cfg: TransformerConfig) -> None:
 def _forward(params: Params, tokens, pos, cfg: TransformerConfig, attn_fn,
              block=None):
     """Shared body: tokens (B, L), pos (L,) global positions. Returns
-    (logits, moe aux 0.0). With ``cfg.remat`` each block runs under
+    (logits, summed moe aux; 0.0 for dense blocks). With ``cfg.remat``
+    each block runs under
     ``torch.utils.checkpoint`` (the counterpart of ``jax.checkpoint``):
     its activations are dropped after the forward and recomputed in the
     backward, so the block's forward — its flash kernel included — runs
@@ -358,16 +389,10 @@ def _forward(params: Params, tokens, pos, cfg: TransformerConfig, attn_fn,
     return _head(params, x), aux_total
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "sequence-parallel prefill (mesh=) is not in the port yet "
-            "(ROADMAP A5: parallel/ring_attention.py)")
-
-
 def prefill(params: Params, prompt, *,
             cfg: TransformerConfig = TransformerConfig(),
-            total: Optional[int] = None, mesh=None):
+            total: Optional[int] = None, mesh=None, attn: str = "ring",
+            dp_axis: str = "dp", sp_axis: str = "sp"):
     """Parallel prompt ingestion: one causal forward over the (B, P)
     prompt (flash attention) yields every layer's (k, v) — the decode KV
     cache — and the last position's logits.
@@ -376,27 +401,62 @@ def prefill(params: Params, prompt, *,
     (B, total, H_kv, hd) in tok_emb's dtype, zero-padded past P (total
     defaults to P); last_logits is (B, vocab) f32. Logits are computed
     for every prompt position and the last taken, as the JAX package
-    does. Single device only (``mesh`` raises)."""
+    does. MoE configs route the whole (B, P) prompt as one group.
+
+    With ``mesh`` the forward runs sequence-parallel (``attn`` ring,
+    zigzag or Ulysses over ``sp_axis``; the batch over ``dp_axis`` when
+    it divides, else replicated): every rank passes the same prompt,
+    runs its tile, and gets the whole caches and logits. Dense configs
+    only, as in the JAX package."""
     b, p_len = prompt.shape
     if p_len < 1:
         raise ValueError("prompt must contain at least one token")
     _check_arch(cfg)
-    _no_mesh(mesh)
     total = p_len if total is None else total
     if total < p_len:
         raise ValueError(f"total={total} shorter than the prompt {p_len}")
     _check_seq(total, cfg)
     cfg_fwd = dataclasses.replace(cfg, remat=False)  # capture ≠ remat
-    tokens = prompt.to(params["tok_emb"].device).long()
+    tokens = torch.as_tensor(prompt).to(params["tok_emb"].device).long()
     sink: list = []
-    logits, _ = _forward(
-        params, tokens, torch.arange(p_len, device=tokens.device), cfg_fwd,
-        lambda q, k, v: flash_attention(q, k, v, causal=True,
-                                        window=cfg.window),
-        block=functools.partial(_block, kv_sink=sink))
+    if mesh is None:
+        logits, _ = _forward(
+            params, tokens, torch.arange(p_len, device=tokens.device),
+            cfg_fwd,
+            lambda q, k, v: flash_attention(q, k, v, causal=True,
+                                            window=cfg.window),
+            block=functools.partial(_block, kv_sink=sink))
+        kvs = sink
+    else:
+        if cfg.moe_experts:
+            raise ValueError("sequence-parallel prefill supports dense "
+                             "configs; MoE prefills single-device")
+        if cfg.window and attn != "ring":
+            raise ValueError("sequence-parallel sliding-window prefill "
+                             "runs the banded ring (attn='ring')")
+        n_sp = mesh.shape[sp_axis]
+        attn_shard = _attn_shard_fn(attn, n_sp, cfg, mesh=mesh,
+                                    sp_axis=sp_axis)
+        tokens, perm = _maybe_zigzag(attn, n_sp, tokens)
+        # an inference batch smaller than dp replicates the batch axis
+        # and shards only the sequence
+        bdp = dp_axis if b % mesh.shape[dp_axis] == 0 else None
+        tile = _tile(tokens, mesh, bdp, sp_axis)
+        pos = _shard_pos(attn, mesh.axis_index(sp_axis), n_sp,
+                         tile.shape[1], tile.device)
+        logits, _ = _forward(params, tile, pos, cfg_fwd, attn_shard,
+                             block=functools.partial(_block, kv_sink=sink))
+        ks = torch.stack([kk for kk, _ in sink])   # (nl, B, Lloc, Hkv, hd)
+        vs = torch.stack([vv for _, vv in sink])
+        logits = _untile(logits, mesh, bdp, sp_axis, 0)
+        ks, vs = (_untile(x, mesh, bdp, sp_axis, 1) for x in (ks, vs))
+        if perm is not None:                 # back to standard order
+            inv = torch.as_tensor(perm.argsort(), device=tokens.device)
+            logits, ks, vs = logits[:, inv], ks[:, :, inv], vs[:, :, inv]
+        kvs = [(ks[i], vs[i]) for i in range(cfg.n_layers)]
     caches = {}
     dt = params["tok_emb"].dtype
-    for i, (k, v) in enumerate(sink):
+    for i, (k, v) in enumerate(kvs):
         for name, c in ((f"L{i}_k", k), (f"L{i}_v", v)):
             buf = torch.zeros((b, total) + tuple(c.shape[2:]), dtype=dt,
                               device=c.device)
@@ -470,7 +530,8 @@ def greedy_decode(params: Params, prompt, n_new: int, *,
                   cfg: TransformerConfig = TransformerConfig(),
                   temperature: float = 0.0, top_k: Optional[int] = None,
                   key=None, use_prefill: bool = False, mesh=None,
-                  kv_q8: bool = False):
+                  attn: str = "ring", dp_axis: str = "dp",
+                  sp_axis: str = "sp", kv_q8: bool = False):
     """KV-cached decoding: (B, P) prompt → (B, P+n_new) int32.
 
     Per-layer caches are (B, H_kv, S, D) (H_kv < H under GQA), written
@@ -494,8 +555,19 @@ def greedy_decode(params: Params, prompt, n_new: int, *,
     the first step runs eagerly and the step is then captured once in a
     CUDA graph (``graphs.CapturedGraph``) and replayed for the other
     positions, with no host round trip until the result; on the CPU the
-    same step runs eagerly. MoE configs and ``mesh`` raise
-    NotImplementedError: not in the port yet."""
+    same step runs eagerly.
+
+    MoE configs route per step: the group at position t is that step's
+    B tokens, with capacity ``min(moe_capacity, B)`` (a bucket never
+    holds more than B tokens, so the clamp changes no drop, only the
+    dispatch shapes); the routing reads nothing back to the host, so the
+    step still captures. When no bucket overflows, decode equals the
+    full forward's tokens; under overflow the drop order differs from
+    prefill's whole-prompt group, as in the JAX package.
+
+    ``mesh`` (with ``use_prefill``) runs the prefill sequence-parallel
+    (``attn`` over ``dp_axis``/``sp_axis``, see :func:`prefill`); the
+    decode loop then runs on every rank alike."""
     _check_arch(cfg)
     if cfg.moe_experts:
         _check_moe(cfg)
@@ -505,8 +577,6 @@ def greedy_decode(params: Params, prompt, n_new: int, *,
         raise ValueError("sampling (temperature > 0) needs a PRNG key")
     if top_k is not None and top_k < 1:
         raise ValueError(f"top_k must be >= 1, got {top_k}")
-    _no_moe(cfg)
-    _no_mesh(mesh)
     b, p_len = prompt.shape
     if p_len < 1:
         raise ValueError("prompt must contain at least one token "
@@ -515,9 +585,13 @@ def greedy_decode(params: Params, prompt, n_new: int, *,
     total = p_len + n_new
     _check_seq(total, cfg)
     dev = params["tok_emb"].device
-    prompt = prompt.to(dev).long()
+    prompt = torch.as_tensor(prompt).to(dev).long()
     if n_new == 0:
         return prompt.to(torch.int32)
+    # the per-step routing group is B tokens: clamp the dispatch capacity
+    step_cfg = (dataclasses.replace(cfg, moe_capacity=min(cfg.moe_capacity,
+                                                          b))
+                if cfg.moe_experts else cfg)
     h, hd = cfg.n_heads, cfg.d_model // cfg.n_heads
     hkv = kv_heads(cfg)
     g = h // hkv
@@ -568,7 +642,7 @@ def greedy_decode(params: Params, prompt, n_new: int, *,
             a = a.to(x.dtype).reshape(b, 1, cfg.d_model)
             x = x + _mm(params, f"{pfx}_out_W", a)
             y = _norm(params, f"{pfx}_ln2", x, cfg)
-            ff, _ = _ffn(params, pfx, y, cfg)
+            ff, _ = _ffn(params, pfx, y, step_cfg)
             x = x + ff
         x = _norm(params, "lnf", x, cfg)
         nxt = select(_head(params, x)[:, 0], t)
@@ -578,7 +652,9 @@ def greedy_decode(params: Params, prompt, n_new: int, *,
         t.add_(1)
 
     if use_prefill:
-        caches, last_logits = prefill(params, prompt, cfg=cfg, total=total)
+        caches, last_logits = prefill(params, prompt, cfg=cfg, total=total,
+                                      mesh=mesh, attn=attn, dp_axis=dp_axis,
+                                      sp_axis=sp_axis)
         # prefill's public contract is (B, S, H_kv, D); the decode loop
         # holds (B, H_kv, S, D) — one transpose at the boundary
         caches = {n: c.transpose(1, 2).contiguous()
@@ -642,11 +718,14 @@ def transformer_apply(params: Params, tokens, *,
 # ------------------------------------------------------------ training
 
 
-def _attn_shard_fn(attn: str, n_sp: int, cfg: TransformerConfig):
-    """The attention body of the train step, resolved strictly at
-    factory time: ``"ring"`` is the ring body on ``n_sp`` shards (one,
-    in the port); ``"zigzag"`` and ``"ulysses"`` are the
-    sequence-parallel slice and raise."""
+def _attn_shard_fn(attn: str, n_sp: int, cfg: TransformerConfig, *,
+                   mesh=None, sp_axis: str = "sp",
+                   n_heads: Optional[int] = None):
+    """The sequence-parallel attention body over ``n_sp`` shards of
+    ``mesh``'s ``sp_axis`` (``mesh`` may be None for one shard),
+    resolved strictly at factory time: a typo'd name or an infeasible
+    head split fails here, not inside a collective."""
+    n_heads = cfg.n_heads if n_heads is None else n_heads
     if cfg.window and attn != "ring":
         raise ValueError(
             "sliding-window attention (cfg.window > 0) runs "
@@ -654,15 +733,128 @@ def _attn_shard_fn(attn: str, n_sp: int, cfg: TransformerConfig):
             "(attn='ring'); zigzag balances full-causal work a window "
             "already bounds, and ulysses materializes full-sequence "
             "heads per device")
+    kw = dict(n_shards=n_sp, causal=True, mesh=mesh, axis=sp_axis)
     if attn == "ring":
-        return functools.partial(_ring_shard, n_shards=n_sp, causal=True,
-                                 window=cfg.window)
-    if attn in ("zigzag", "ulysses"):
-        raise NotImplementedError(
-            f"attn={attn!r} is a sequence-parallel schedule, not in the "
-            f"port yet (ROADMAP A5); use attn='ring' on one device")
+        return functools.partial(_ring_shard, window=cfg.window, **kw)
+    if attn == "zigzag":
+        return functools.partial(_ring_shard_zigzag, **kw)
+    if attn == "ulysses":
+        if n_heads % n_sp:
+            raise ValueError(
+                f"ulysses needs n_heads divisible by the {sp_axis} axis: "
+                f"{n_heads} heads over {n_sp} devices")
+        if kv_heads(cfg) % n_sp:
+            raise ValueError(
+                f"ulysses needs n_kv_heads divisible by the {sp_axis} "
+                f"axis: {kv_heads(cfg)} kv heads over {n_sp} devices "
+                f"(ring/zigzag have no such constraint)")
+        return functools.partial(_ulysses_shard, **kw)
     raise ValueError(f"unknown attn {attn!r} "
                      f"(want 'ring', 'zigzag' or 'ulysses')")
+
+
+def _shard_pos(attn: str, my: int, n_sp: int, l_loc: int, device):
+    """This shard's global positions: contiguous for ring/ulysses, the
+    two-stripe layout for zigzag (``ring_attention._zigzag_perm``)."""
+    if attn == "zigzag":
+        h = l_loc // 2
+        r = torch.arange(h, device=device)
+        return torch.cat([my * h + r, (2 * n_sp - 1 - my) * h + r])
+    return my * l_loc + torch.arange(l_loc, device=device)
+
+
+def _maybe_zigzag(attn: str, n_sp: int, *seqs, pre_permuted: bool = False):
+    """The zigzag permutation applied to global (B, L) sequence tensors
+    (identity for other schedules). Returns the permuted tensors and the
+    permutation (None when not zigzag), so a forward can un-permute its
+    outputs; ``pre_permuted=True`` validates without permuting."""
+    if attn != "zigzag":
+        return (*seqs, None)
+    _zigzag_check(seqs[0].shape[1], n_sp)
+    perm = _zigzag_perm(seqs[0].shape[1], n_sp)
+    if pre_permuted:
+        return (*seqs, perm)
+    idx = torch.as_tensor(perm, device=seqs[0].device)
+    return (*(s[:, idx] for s in seqs), perm)
+
+
+def _block_of(x, mesh, axis: Optional[str], dim: int):
+    """This rank's block of ``x`` along ``dim`` over ``axis`` (all of it
+    when ``axis`` is None)."""
+    if axis is None:
+        return x
+    n = mesh.shape[axis]
+    if x.shape[dim] % n:
+        raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not "
+                         f"split over {axis}={n}")
+    size = x.shape[dim] // n
+    return x.narrow(dim, mesh.axis_index(axis) * size, size)
+
+
+def _tile(x, mesh, dp_axis: Optional[str], sp_axis: str):
+    """This rank's (batch, seq) tile of a global (B, L, ...) tensor."""
+    return _block_of(_block_of(x, mesh, dp_axis, 0), mesh, sp_axis, 1)
+
+
+def _untile(x, mesh, dp_axis: Optional[str], sp_axis: str, b_dim: int):
+    """Inverse of :func:`_tile` by all_gather, the batch axis at
+    ``b_dim`` and the sequence right after it: every rank gets the
+    whole tensor."""
+    x = C.all_gather(x, mesh, sp_axis, b_dim + 1)
+    return x if dp_axis is None else C.all_gather(x, mesh, dp_axis, b_dim)
+
+
+def _mesh_axes(mesh, dp_axis: str, sp_axis: str) -> Tuple[int, int]:
+    """(n_dp, n_sp) of ``mesh`` (1, 1 for None); any other axis of the
+    mesh must have size 1 (the 3-D tp form is ROADMAP A5)."""
+    if mesh is None:
+        return 1, 1
+    sizes = dict(mesh.shape)
+    for a in (dp_axis, sp_axis):
+        if a not in sizes:
+            raise ValueError(f"the mesh has axes {tuple(sizes)}; the LM "
+                             f"step needs {dp_axis!r} and {sp_axis!r}")
+    other = {a: n for a, n in sizes.items()
+             if a not in (dp_axis, sp_axis) and n != 1}
+    if other:
+        raise NotImplementedError(
+            f"mesh axes {other} beyond (dp, sp): the 3-D tensor-parallel "
+            f"and pipeline steps are not in the port yet (ROADMAP A5)")
+    return sizes[dp_axis], sizes[sp_axis]
+
+
+def make_sharded_apply(cfg: TransformerConfig, mesh, *, attn: str = "ring",
+                       dp_axis: str = "dp", sp_axis: str = "sp"):
+    """The forward over the mesh: ``apply(params, tokens) -> logits``.
+    Every rank passes the same global (B, L) tokens; each runs its
+    (batch over ``dp``, sequence over ``sp``) tile with the attention
+    sequence-parallel, and every rank gets the whole (B, L, vocab)
+    logits. Dense params are the replicated dict; with
+    ``cfg.moe_experts`` the expert stacks shard over ``dp`` and params
+    come from :func:`shard_params_moe`."""
+    _check_arch(cfg)
+    n_dp, n_sp = _mesh_axes(mesh, dp_axis, sp_axis)
+    attn_shard = _attn_shard_fn(attn, n_sp, cfg, mesh=mesh, sp_axis=sp_axis)
+    if cfg.moe_experts:
+        _check_moe(cfg, n_dp)
+    block = functools.partial(
+        _block, ep=(mesh, dp_axis) if cfg.moe_experts else None)
+
+    def apply(params: Params, tokens):
+        tokens = torch.as_tensor(tokens).to(params["tok_emb"].device).long()
+        tokens, perm = _maybe_zigzag(attn, n_sp, tokens)
+        tile = _tile(tokens, mesh, dp_axis, sp_axis)
+        l_loc = tile.shape[1]
+        _check_seq(l_loc * n_sp, cfg)
+        pos = _shard_pos(attn, mesh.axis_index(sp_axis), n_sp, l_loc,
+                         tile.device)
+        out = _untile(_forward(params, tile, pos, cfg, attn_shard,
+                               block=block)[0], mesh, dp_axis, sp_axis, 0)
+        if perm is None:
+            return out
+        return out[:, torch.as_tensor(perm.argsort(), device=out.device)]
+
+    return apply
 
 
 def _mean_nll(logits, targets):
@@ -679,23 +871,35 @@ def lm_loss_local(params: Params, tokens, targets, cfg: TransformerConfig,
     return _mean_nll(logits, targets) + cfg.moe_aux_weight * aux
 
 
-def _single_device(mesh) -> None:
-    """``mesh`` is None or a mesh of one device: anything whose
-    ``shape`` (or the object itself) maps axis names to sizes of 1."""
-    if mesh is None:
-        return
-    sizes = dict(getattr(mesh, "shape", mesh))
-    if any(int(n) != 1 for n in sizes.values()):
-        raise NotImplementedError(
-            f"a {sizes} mesh is data/sequence parallel, not in the port "
-            f"yet (ROADMAP A3/A5); pass mesh=None for one device")
+def param_specs_moe(ep_axis: str = "dp") -> Dict[str, str]:
+    """Name suffix → the mesh axis that shards the param's leading
+    (experts) axis — the JAX ``P(ep_axis)`` specs: the expert FFN
+    stacks; the router and every other param are replicated."""
+    return {s: ep_axis for s in ("_moe_w1", "_moe_b1", "_moe_w2", "_moe_b2")}
+
+
+def _spec_for(name: str, specs: Dict[str, str]) -> Optional[str]:
+    """The axis sharding param ``name`` under ``specs`` (suffix match),
+    None when it is replicated."""
+    return next((a for suffix, a in specs.items() if name.endswith(suffix)),
+                None)
+
+
+def shard_params_moe(params: Params, mesh, *, ep_axis: str = "dp"
+                     ) -> Params:
+    """This rank's params: every expert stack cut to the rank's
+    E/ep experts along its leading axis, the rest as given."""
+    specs = param_specs_moe(ep_axis)
+    return {k: (v if _spec_for(k, specs) is None
+                else _block_of(v, mesh, ep_axis, 0).clone())
+            for k, v in params.items()}
 
 
 def make_train_step(cfg: TransformerConfig, optimizer, *, mesh=None,
                     attn: str = "ring", grad_accum: int = 1,
-                    zero1: bool = False):
-    """The single-device LM train step, ``step(params, tokens, targets)
-    -> loss``.
+                    zigzag_layout: bool = False, zero1: bool = False,
+                    dp_axis: str = "dp", sp_axis: str = "sp"):
+    """The LM train step, ``step(params, tokens, targets) -> loss``.
 
     The JAX package's ``make_train_step(cfg, mesh, optimizer)`` returns
     a pure ``step(params, opt_state, tokens, targets) -> (params,
@@ -703,24 +907,45 @@ def make_train_step(cfg: TransformerConfig, optimizer, *, mesh=None,
     stateful: ``optimizer`` is a ``torch.optim`` optimizer (or
     :class:`~lua_mapreduce_tpu_torch.train.precision.F32Master`) built
     over the tensors of ``params``, and holds what ``opt_state`` holds;
-    the step computes the mean next-token NLL and its gradient (through
+    the step computes the loss and its gradient (through
     ``accum_value_and_grad`` over ``grad_accum`` microbatches when > 1),
     writes each gradient to its parameter's ``.grad``, steps the
     optimizer — the parameters update in place — and returns the loss,
-    a detached 0-d tensor. ``tokens``/``targets`` are (B, L) integer
-    tensors or arrays, moved to the parameters' device.
+    a detached 0-d tensor.
 
-    Attention is ``attn="ring"`` on one shard (``_ring_shard``: the flash
-    op's lse form merged into the ring accumulator, so its backward
-    takes the lse cotangent too). ``mesh`` beyond one device, zigzag,
-    Ulysses, ``zero1`` and MoE configs raise NotImplementedError;
-    ``grad_accum > 1`` with MoE keeps the JAX package's ValueError."""
-    if zero1:
-        raise NotImplementedError(
-            "zero1 shards optimizer state over a data-parallel axis, not "
-            "in the port yet (ROADMAP A5)")
-    _single_device(mesh)
+    ``mesh`` (the port's ``Mesh`` with ``dp_axis`` and ``sp_axis``; one
+    rank a process) makes the step SPMD: every rank calls it with its
+    (B/dp, L/sp) tile of the batch (:func:`shard_batch`), attention runs
+    sequence-parallel over ``sp`` (``attn`` ring, zigzag or Ulysses),
+    and the loss is the global mean. Each rank differentiates its own
+    tile's loss; the collectives' backward carries the other ranks'
+    shares, and a replicated param's gradient is then averaged over
+    (dp, sp). With ``cfg.moe_experts`` the expert stacks shard over
+    ``dp`` (params from :func:`shard_params_moe`): a stack's gradient
+    already holds every dp peer's tokens (the all_to_all's backward) and
+    is averaged over ``sp`` and divided by n_dp.
+
+    ``zigzag_layout=True`` (``attn="zigzag"`` only) declares the tiles
+    already in zigzag order (``shard_batch(..., schedule="zigzag")``);
+    otherwise a zigzag step gathers each tile's sequence over ``sp`` and
+    takes its zigzag tile. ``zero1=True`` shards the optimizer state
+    over ``dp`` (``parallel/zero1.py``): ``optimizer`` is then the
+    ``(chunks, optimizer)`` pair of ``zero1.init_state``, the gradient
+    is averaged over ``sp`` and reduce-scattered over ``dp``, each rank
+    steps its chunks (an F32Master's f32 masters live in them), and the
+    chunks all-gather back into ``params``. Dense configs only."""
+    if zigzag_layout and attn != "zigzag":
+        raise ValueError("zigzag_layout=True requires attn='zigzag'")
+    if zero1 and cfg.moe_experts:
+        raise ValueError("zero1 shards optimizer state over dp, "
+                         "which MoE already spends on experts")
+    if zero1 and mesh is None:
+        raise ValueError("zero1 shards the optimizer state over a mesh's "
+                         "dp axis: pass mesh=")
     _check_arch(cfg)
+    n_dp, n_sp = _mesh_axes(mesh, dp_axis, sp_axis)
+    attn_fn = _attn_shard_fn(attn, n_sp, cfg, mesh=mesh, sp_axis=sp_axis)
+    ep = None
     if cfg.moe_experts:
         if grad_accum > 1:
             raise ValueError(
@@ -728,35 +953,99 @@ def make_train_step(cfg: TransformerConfig, optimizer, *, mesh=None,
                 "change the numbers: MoE capacity and the aux loss are "
                 "defined per device tile, so quarter-size microbatches "
                 "drop/route tokens differently than the whole tile")
-        _check_moe(cfg, 1)
-    _no_moe(cfg)
+        _check_moe(cfg, n_dp)
+        ep = None if mesh is None else (mesh, dp_axis)
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
-    attn_fn = _attn_shard_fn(attn, 1, cfg)
+    block = functools.partial(_block, ep=ep)
+    chunks = None
+    if zero1:
+        chunks, optimizer = optimizer
+    my_sp = 0 if mesh is None else mesh.axis_index(sp_axis)
+    permute_tiles = attn == "zigzag" and not zigzag_layout
+
+    def zigzag_tile(x):
+        """The zigzag tile of a contiguous one: the global sequence of
+        this rank's rows gathered over sp, permuted, this rank's block
+        taken (the JAX step's per-step cross-shard gather)."""
+        full = x if mesh is None else C.all_gather(x, mesh, sp_axis, 1)
+        full, _ = _maybe_zigzag("zigzag", n_sp, full)
+        return full if mesh is None else _block_of(full, mesh, sp_axis, 1)
+
+    specs = param_specs_moe(dp_axis) if cfg.moe_experts else {}
+
+    def reduce_grads(grads: Params) -> Params:
+        out = {}
+        for k, g in grads.items():
+            if _spec_for(k, specs) is not None:
+                out[k] = C.psum(g, mesh, sp_axis) / (n_sp * n_dp)
+            else:
+                out[k] = C.pmean(C.pmean(g, mesh, sp_axis), mesh, dp_axis)
+        return out
 
     def step(params: Params, tokens, targets):
         dev = params["tok_emb"].device
-        tokens = torch.as_tensor(tokens, device=dev).long()
-        targets = torch.as_tensor(targets, device=dev).long()
-        _check_seq(tokens.shape[1], cfg)
-        pos = torch.arange(tokens.shape[1], device=dev)
+        tokens = torch.as_tensor(tokens).to(dev).long()
+        targets = torch.as_tensor(targets).to(dev).long()
+        if permute_tiles:
+            tokens, targets = zigzag_tile(tokens), zigzag_tile(targets)
+        elif attn == "zigzag":
+            _zigzag_check(tokens.shape[1] * n_sp, n_sp)
+        l_loc = tokens.shape[1]
+        _check_seq(l_loc * n_sp, cfg)
+        pos = _shard_pos(attn, my_sp, n_sp, l_loc, dev)
 
         def loss_fn(p, tok, tgt):
-            return lm_loss_local(p, tok, tgt, cfg, attn_fn, pos)
+            return lm_loss_local(p, tok, tgt, cfg, attn_fn, pos, block=block)
 
-        if grad_accum == 1:
-            loss = loss_fn(params, tokens, targets)
-            grads = torch.autograd.grad(loss, list(params.values()),
-                                        allow_unused=True)
-            grads = dict(zip(params, grads))
-            loss = loss.detach()
-        else:
-            loss, grads = accum_value_and_grad(
-                loss_fn, params, (tokens, targets), grad_accum)
+        # under a mesh every rank reruns a rematerialized block whole, so
+        # each posts the block's collectives again, whatever it saved
+        with (set_checkpoint_early_stop(False) if mesh is not None
+              else contextlib.nullcontext()):
+            if grad_accum == 1:
+                loss = loss_fn(params, tokens, targets)
+                grads = torch.autograd.grad(loss, list(params.values()),
+                                            allow_unused=True)
+                grads = dict(zip(params, grads))
+                loss = loss.detach()
+            else:
+                loss, grads = accum_value_and_grad(
+                    loss_fn, params, (tokens, targets), grad_accum)
+        grads = {k: torch.zeros_like(p) if grads[k] is None else grads[k]
+                 for k, p in params.items()}
+        if mesh is not None:
+            loss = C.pmean(C.pmean(loss, mesh, sp_axis), mesh, dp_axis)
+            if zero1:
+                grads = {k: C.pmean(g, mesh, sp_axis)
+                         for k, g in grads.items()}
+                _z1.update_chunks(optimizer, params, grads, chunks, mesh,
+                                  dp_axis)
+                return loss
+            grads = reduce_grads(grads)
         for k, p in params.items():
-            g = grads[k]
-            p.grad = torch.zeros_like(p) if g is None else g
+            p.grad = grads[k]
         optimizer.step()
         return loss
 
     return step
+
+
+def shard_batch(mesh, tokens, targets, dp_axis: str = "dp",
+                sp_axis: str = "sp", schedule: str = "contiguous"):
+    """This rank's (B/dp, L/sp) tile of a global (B, L) batch, as int64
+    tensors on the mesh's device — what a step built with ``mesh``
+    takes. ``schedule="zigzag"`` permutes both into zigzag sequence
+    order first (for steps built with ``zigzag_layout=True``); tokens
+    and targets ride the same permutation, so the next-token pairing is
+    kept row by row."""
+    tokens, targets = (torch.as_tensor(x).long() for x in (tokens, targets))
+    if schedule == "zigzag":
+        n_sp = mesh.shape[sp_axis]
+        _zigzag_check(tokens.shape[1], n_sp)
+        perm = torch.as_tensor(_zigzag_perm(tokens.shape[1], n_sp),
+                               device=tokens.device)
+        tokens, targets = tokens[:, perm], targets[:, perm]
+    elif schedule != "contiguous":
+        raise ValueError(f"unknown schedule {schedule!r}")
+    return tuple(_tile(x, mesh, dp_axis, sp_axis).to(mesh.device)
+                 for x in (tokens, targets))

@@ -17,9 +17,10 @@ every rank of a ``torch.distributed`` world at once:
 ``mesh`` builds the mesh (NCCL on the card, gloo on the CPU) and
 ``spawn`` a world on one box; ``collectives`` holds the transport,
 ``zero1`` the sharded optimizer state, ``tpu_engine`` the executor.
-``ring_attention`` is the single-device attention oracle and the ring
-body on one shard (the multi-shard ring, zigzag and Ulysses are the
-sequence-parallel slice, like the multihost helpers).
+``ring_attention`` holds the sequence-parallel attention (the ring,
+zigzag and Ulysses) and the single-device oracle; ``moe`` the
+expert-parallel mixture-of-experts FFN. The multihost helpers are not
+in the port yet (ROADMAP A5).
 """
 
 from lua_mapreduce_tpu_torch.parallel.mesh import (host_mesh, make_mesh,

@@ -17,12 +17,21 @@ JAX op                      torch call
 ``psum_scatter(tiled)``     ``reduce_scatter_tensor``
 ``all_to_all(tiled=False)`` ``all_to_all_single`` over the leading
                             bucket axis
+``all_to_all(tiled=True)``  ``all_to_all_single`` over the blocks of
+                            ``split_axis``, concatenated on
+                            ``concat_axis``
 ``all_gather(tiled)``       ``all_gather_into_tensor``
 ``ppermute``                ``batch_isend_irecv``
 ==========================  ======================================
 
 Trees are dicts, lists or tuples of tensors (torch's pytrees). Every
-function returns new tensors and leaves its inputs as they were. The
+function returns new tensors and leaves its inputs as they were; these
+forms carry no gradient (their inputs are detached). The differentiable
+forms at the end of the module — :func:`ring_hops` (the ring's
+``ppermute`` hops), :func:`all_to_all`, :func:`mean_over` and the
+shard_map boundaries :func:`shard_replicated` /
+:func:`gather_replicated` — are ``autograd.Function`` s whose backward
+is the adjoint collective. The
 mapping to the reference is the JAX module's: psum is the reducefn with
 the assoc+commut flags, reduce-scatter one reduce job per partition
 (server.lua:300-325), all_to_all the partitionfn shuffle, all_gather
@@ -41,7 +50,7 @@ from torch.utils._pytree import tree_map
 
 
 def _all_reduce(x: torch.Tensor, mesh, axis: str, op) -> torch.Tensor:
-    y = x.clone()
+    y = x.detach().clone()
     dist.all_reduce(y, op=op, group=mesh.group(axis))
     return y
 
@@ -130,7 +139,7 @@ def all_gather(x: torch.Tensor, mesh, axis: str,
     """``lax.all_gather(tiled=True)``: every rank's ``x`` concatenated
     along ``gather_dimension`` in rank order."""
     n = mesh.shape[axis]
-    src = x.movedim(gather_dimension, 0).contiguous()
+    src = x.detach().movedim(gather_dimension, 0).contiguous()
     out = src.new_empty((src.shape[0] * n,) + src.shape[1:])
     _quiet(dist.all_gather_into_tensor, out, src, group=mesh.group(axis))
     return out.movedim(0, gather_dimension)
@@ -161,3 +170,155 @@ def ppermute_ring(x: torch.Tensor, mesh, axis: str, shift: int = 1
     for r in reqs:
         r.wait()
     return recv
+
+
+# ------------------------------------------------ differentiable forms
+#
+# ``torch.distributed`` calls carry no gradient, but the JAX package's
+# sequence- and expert-parallel bodies differentiate through
+# ``ppermute``, ``all_to_all`` and ``pmean`` (shard_map transposes
+# them). These ``autograd.Function`` forms give each collective its
+# adjoint, a collective too, so every rank's backward posts the same
+# sequence of calls as its forward did, in reverse.
+
+
+def all_to_all_tiled(x: torch.Tensor, mesh, axis: str, split_axis: int,
+                     concat_axis: int) -> torch.Tensor:
+    """``lax.all_to_all(tiled=True)``, non-differentiable: ``x`` splits
+    into ``n`` blocks along ``split_axis``, block j goes to rank j, and
+    the blocks received are concatenated along ``concat_axis`` in rank
+    order."""
+    n = mesh.shape[axis]
+    if x.shape[split_axis] % n:
+        raise ValueError(f"dimension {split_axis} of {tuple(x.shape)} does "
+                         f"not split over {axis}={n}")
+    src = torch.stack(x.chunk(n, dim=split_axis)).contiguous()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=mesh.group(axis))
+    return torch.cat(out.unbind(0), dim=concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, split_axis, concat_axis):
+        ctx.args = (mesh, axis, split_axis, concat_axis)
+        return all_to_all_tiled(x, mesh, axis, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, split_axis, concat_axis = ctx.args
+        return (all_to_all_tiled(g, mesh, axis, concat_axis, split_axis),
+                None, None, None, None)
+
+
+def _mean_axes(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    for a in axes:
+        x = pmean(x, mesh, a)
+    return x
+
+
+class _MeanOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.args = (mesh, axes)
+        return _mean_axes(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the mean is symmetric (every rank's output is (1/n)·Σ inputs):
+        # its adjoint is the mean of the cotangents
+        return _mean_axes(g, *ctx.args), None, None
+
+
+class _RingHops(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, n_hops):
+        ctx.args = (mesh, axis)
+        hops = [x.clone()]
+        for _ in range(n_hops):
+            hops.append(ppermute_ring(hops[-1], mesh, axis, 1))
+        return tuple(hops)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        # an unused hop's cotangent arrives as zeros: every rank rotates
+        # back through every hop, whichever blocks its own loss used
+        mesh, axis = ctx.args
+        acc = grads[-1]
+        for g in reversed(grads[:-1]):
+            acc = g + ppermute_ring(acc, mesh, axis, -1)
+        return acc, None, None, None
+
+
+def ring_hops(x: torch.Tensor, mesh, axis: str, n_hops: int):
+    """The blocks a ring holds: ``x`` (hop 0) and ``x`` rotated by
+    1..``n_hops`` ranks, as ONE differentiable collective. Its backward
+    runs on every rank that uses any of the blocks — hop 0, the local
+    one, is used everywhere — and posts all ``n_hops`` reverse
+    rotations there, so a rank whose causal mask skips some hops still
+    matches its neighbours' sends (a node per hop would leave a skipped
+    hop out of that rank's backward)."""
+    return _RingHops.apply(x, mesh, axis, n_hops)
+
+
+def all_to_all(x: torch.Tensor, mesh, axis: str, split_axis: int,
+               concat_axis: int) -> torch.Tensor:
+    """:func:`all_to_all_tiled` with a gradient: the backward is the
+    inverse all_to_all (``split_axis`` and ``concat_axis`` swapped)."""
+    return _AllToAll.apply(x, mesh, axis, split_axis, concat_axis)
+
+
+def mean_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The mean of ``x`` over one mesh axis or several (``lax.pmean``
+    over a tuple of axes) with a gradient: the backward is the same
+    mean of the cotangent."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    return _MeanOver.apply(x, mesh, axes)
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.args = (mesh, axis, dim, x.shape[dim])
+        return all_gather(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim, size = ctx.args
+        i = mesh.axis_index(axis)
+        return g.narrow(dim, i * size, size), None, None, None
+
+
+class _Shard(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.args = (mesh, axis, dim)
+        n = mesh.shape[axis]
+        if x.shape[dim] % n:
+            raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not "
+                             f"split over {axis}={n}")
+        size = x.shape[dim] // n
+        return x.narrow(dim, mesh.axis_index(axis) * size, size).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim = ctx.args
+        return all_gather(g, mesh, axis, dim), None, None, None
+
+
+def shard_replicated(x: torch.Tensor, mesh, axis: str, dim: int
+                     ) -> torch.Tensor:
+    """This rank's block of a tensor every rank holds alike (shard_map's
+    ``in_specs`` split along ``dim`` over ``axis``). The backward
+    gathers the blocks' cotangents: the gradient of the replicated
+    input, whole, on every rank."""
+    return _Shard.apply(x, mesh, axis, dim)
+
+
+def gather_replicated(x: torch.Tensor, mesh, axis: str, dim: int
+                      ) -> torch.Tensor:
+    """Every rank's block concatenated along ``dim`` (shard_map's
+    ``out_specs``). The backward takes this rank's block of the
+    cotangent, which every rank holds alike when each computes the same
+    loss from the gathered tensor."""
+    return _Gather.apply(x, mesh, axis, dim)

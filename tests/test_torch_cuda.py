@@ -1626,3 +1626,134 @@ def test_two_inline_workers_run_hybrid_legs(cuda, tmp_path, monkeypatch):
     assert legs >= 3 and folds >= 1
     assert sum(it.hybrid_fallbacks for it in stats.iterations) == 0
     assert sum(w.jobs_executed for w in workers) == 3 * (8 + 2)
+
+
+# ------------------------------------------------- MoE and the (dp, sp) step
+
+def _moe_lm_cfg(**kw):
+    from lua_mapreduce_tpu_torch.models import transformer as tt
+    base = dict(vocab=256, d_model=128, n_heads=2, n_layers=2, d_ff=256,
+                max_seq=64, moe_experts=4, moe_capacity=128)
+    base.update(kw)
+    return tt.TransformerConfig(**base)
+
+
+def _lm_mesh():
+    from lua_mapreduce_tpu_torch.parallel import make_mesh
+    return make_mesh(dp=1, mp=1, device="cuda", axis_names=("dp", "sp"))
+
+
+def test_moe_train_step_on_the_card_matches_the_cpu(cuda):
+    """Three free-running f32 MoE train steps (4 experts, top-1 and
+    top-2, SGD with momentum) on the card against the CPU: losses within
+    1e-4 relative, parameters normwise within 1e-4; the attention runs
+    flash_fwd, dq and dkv once per layer a step, the expert products
+    stay torch."""
+    from lua_mapreduce_tpu_torch.models import transformer as tt
+    from lua_mapreduce_tpu_torch.train import optim
+    seq = torch.randint(0, 256, (4, 65),
+                        generator=torch.Generator().manual_seed(1))
+    for top_k in (1, 2):
+        cfg = _moe_lm_cfg(moe_top_k=top_k)
+        p0 = tt.init_transformer(0, cfg, device="cpu")
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            p = {n: x.detach().clone().to(dev).requires_grad_(True)
+                 for n, x in p0.items()}
+            step = tt.make_train_step(cfg, optim.sgd(p.values(), 0.1, 0.9))
+            ops.reset_launch_counts()
+            losses = [float(step(p, seq[:, :-1], seq[:, 1:]))
+                      for _ in range(3)]
+            runs[dev] = (losses, p, ops.launch_counts())
+        (lc, pc, _), (lg, pg, counts) = runs["cpu"], runs["cuda"]
+        assert counts == {**dict.fromkeys(ops.KERNELS, 0),
+                          "flash_fwd": 3 * 2, "flash_bwd_dq": 3 * 2,
+                          "flash_bwd_dkv": 3 * 2}
+        for a, b in zip(lg, lc):
+            assert abs(a - b) <= 1e-4 * abs(b)
+        num = sum(float((pg[n].detach().cpu() - pc[n].detach()).norm()) ** 2
+                  for n in pc)
+        den = sum(float(pc[n].detach().norm()) ** 2 for n in pc)
+        assert (num / den) ** 0.5 <= 1e-4
+
+
+@pytest.mark.parametrize("use_prefill", [True, False])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_captured_moe_decode_equals_eager(cuda, monkeypatch, use_prefill,
+                                          quantized):
+    """An MoE greedy decode (bf16; int8 weights and KV) replays its
+    captured step — the routing reads nothing back to the host — and
+    gives the eager loop's tokens and launch counts; f32 tokens equal
+    the CPU's when no bucket overflows."""
+    from lua_mapreduce_tpu_torch import graphs
+    from lua_mapreduce_tpu_torch.models import transformer as tt
+    cfg = _moe_lm_cfg(n_layers=2, max_seq=96, moe_capacity=160)
+    p = tt.init_transformer(0, cfg, dtype=torch.bfloat16, device="cuda")
+    if quantized:
+        p = tt.quantize_lm(p)
+    prompt = torch.randint(0, cfg.vocab, (2, 40),
+                           generator=torch.Generator().manual_seed(1))
+    kw = dict(cfg=cfg, use_prefill=use_prefill, kv_q8=quantized)
+    ops.reset_launch_counts()
+    graphs.reset_captures()
+    got = tt.greedy_decode(p, prompt.cuda(), 20, **kw).cpu()
+    counts = ops.launch_counts()
+    assert graphs.captures()[0] == 1
+    with monkeypatch.context() as m:
+        m.setattr(tt, "CapturedGraph", _EagerGraph)
+        ops.reset_launch_counts()
+        want = tt.greedy_decode(p, prompt.cuda(), 20, **kw).cpu()
+        assert ops.launch_counts() == counts
+    assert torch.equal(got, want)
+    if not quantized:
+        p32 = tt.init_transformer(0, cfg, device="cpu")
+        card = tt.greedy_decode({k: v.cuda() for k, v in p32.items()},
+                                prompt.cuda(), 20, cfg=cfg,
+                                use_prefill=use_prefill).cpu()
+        assert torch.equal(card, tt.greedy_decode(
+            p32, prompt, 20, cfg=cfg, use_prefill=use_prefill))
+
+
+@pytest.mark.parametrize("moe", [False, True], ids=["dense", "moe"])
+def test_nccl_mesh_lm_step_equals_the_no_mesh_step(cuda, moe):
+    """make_train_step over the world-size-1 NCCL (dp, sp) mesh: two
+    ring steps equal the no-mesh steps bit for bit (losses, parameters);
+    zigzag and Ulysses within 2e-4; ZeRO-1 (dense) within 1e-4."""
+    from lua_mapreduce_tpu_torch.models import transformer as tt
+    from lua_mapreduce_tpu_torch.parallel import zero1 as z1
+    from lua_mapreduce_tpu_torch.train import optim
+    mesh = _lm_mesh()
+    cfg = _moe_lm_cfg(**({} if moe else dict(moe_experts=0,
+                                             moe_capacity=0)))
+    p0 = tt.init_transformer(0, cfg, device="cpu")
+    seq = torch.randint(0, 256, (4, 65),
+                        generator=torch.Generator().manual_seed(2))
+    tok, tgt = tt.shard_batch(mesh, seq[:, :-1], seq[:, 1:])
+    runs = {}
+    variants = [("none", None, "ring", False), ("ring", mesh, "ring", False),
+                ("zigzag", mesh, "zigzag", False),
+                ("ulysses", mesh, "ulysses", False)]
+    if not moe:
+        variants.append(("zero1", mesh, "ring", True))
+    for name, m, attn, z in variants:
+        p = {n: x.detach().clone().cuda().requires_grad_(True)
+             for n, x in p0.items()}
+
+        def mk(leaves):
+            return optim.sgd(leaves, 0.1, momentum=0.9)
+        opt = z1.init_state(mk, p, mesh) if z else mk(p.values())
+        step = tt.make_train_step(cfg, opt, mesh=m, attn=attn, zero1=z)
+        runs[name] = ([float(step(p, tok, tgt)) for _ in range(2)], p)
+    base_l, base_p = runs["none"]
+    assert runs["ring"][0] == base_l
+    assert all(torch.equal(runs["ring"][1][n], base_p[n]) for n in base_p)
+    for name in runs:
+        if name in ("none", "ring"):
+            continue
+        tol = 1e-4 if name == "zero1" else 2e-4
+        for a, b in zip(runs[name][0], base_l):
+            assert abs(a - b) <= tol * abs(b), name
+        num = sum(float((runs[name][1][n] - base_p[n]).norm()) ** 2
+                  for n in base_p)
+        den = sum(float(base_p[n].norm()) ** 2 for n in base_p)
+        assert (num / den) ** 0.5 <= tol, name

@@ -255,6 +255,73 @@ def test_train_lm_matches_the_jax_script(monkeypatch):
     assert got["platform"] == "cpu" and got["steps"] == 6
 
 
+def test_train_lm_over_a_mesh_matches_the_jax_script(tmp_path):
+    """``train_lm`` in a gloo world of 4 ranks — --dp 2 --sp 2 with
+    --attn zigzag --zero1, --attn ulysses, and --attn ring --bf16 — from
+    the JAX initial parameters (and the first stopped at step 3 with a
+    checkpoint, then resumed): the zigzag + ZeRO-1 loss curve equals
+    the JAX script's at the same flags (logged rounded to 4 decimals, so
+    within 2e-4), the others the port's one-device curve (the bf16
+    losses, bf16 scalars reduced in another order, rtol 1e-2 as in
+    test_f32_master_adam_train_step_matches_jax);
+    every rank logs the same curve and reports the real dp, sp and
+    zero1; the resumed run logs the never-stopped run's losses."""
+    import torch_parallel_ranks as ranks
+    from examples.lm.train_lm import run as jax_run
+    from lua_mapreduce_tpu_torch.examples.lm import train_lm
+    from lua_mapreduce_tpu_torch.parallel import spawn
+    jc = jt.TransformerConfig(vocab=64, d_model=64, n_heads=4, n_layers=2,
+                              d_ff=128, max_seq=32, remat=True)
+    carried = {k: np.asarray(v) for k, v in
+               jt.init_transformer(jax.random.PRNGKey(0), jc).items()}
+    def flags(steps, *extra):
+        return ["--device", "cpu", "--seq", "32", "--batch", "4", "--steps",
+                str(steps), "--dp", "2", "--sp", "2", *extra]
+    zz = ("--attn", "zigzag", "--zero1")
+    ck = ("--ckpt", f"shared:{tmp_path}", "--ckpt-every", "3")
+    runs = [flags(6, *zz), flags(6, "--attn", "ulysses"),
+            flags(6, "--attn", "ring", "--bf16"), flags(3, *zz, *ck),
+            flags(6, *zz, *ck, "--resume")]
+    out = spawn(ranks.train_lm_cases, 4, {"params": carried, "runs": runs},
+                device="cpu", timeout_s=400)
+    want = jax_run(argparse.Namespace(
+        dp=2, sp=2, seq=32, batch=4, steps=6, grad_accum=2, attn="zigzag",
+        kv_heads=0, modern=False, window=0, zero1=True, bf16=False,
+        ckpt=None, ckpt_every=10, data=None, target_loss=None,
+        out_json=None, resume=False))
+    one = {}
+    for bf16 in (False, True):
+        def init_from_jax(seed, cfg, dtype=torch.float32, device=None):
+            return params_from_jax(carried, device=device)
+        orig = train_lm.tt.init_transformer
+        train_lm.tt.init_transformer = init_from_jax
+        try:
+            one[bf16] = train_lm.run(_port_args(
+                steps=6, dp=1, sp=1, **({"bf16": True} if bf16 else {})))
+        finally:
+            train_lm.tt.init_transformer = orig
+    for rank in out:
+        for summary, ref, tol in ((rank[0], want, dict(rtol=0, atol=2e-4)),
+                                  (rank[1], one[False],
+                                   dict(rtol=0, atol=2e-4)),
+                                  (rank[2], one[True], dict(rtol=1e-2))):
+            assert [s for s, _ in summary["losses"]] == \
+                [s for s, _ in ref["losses"]]
+            np.testing.assert_allclose([x for _, x in summary["losses"]],
+                                       [x for _, x in ref["losses"]], **tol)
+        assert rank[0]["config"]["dp"] == 2 and rank[0]["config"]["sp"] == 2
+        assert rank[0]["config"]["zero1"] and not rank[1]["config"]["zero1"]
+        assert rank[0]["losses"] == out[0][0]["losses"]
+        # ZeRO-1 over dp 2: each dp rank's chunks in lm.dp{i}.ckpt, and
+        # the resumed run logs the never-stopped run's losses
+        assert rank[4]["resumed_at"] == 3
+        straight, resumed = dict(rank[0]["losses"]), dict(rank[4]["losses"])
+        common = {s for s in straight if s > 3} & set(resumed)
+        assert common and all(straight[s] == resumed[s] for s in common)
+    assert sorted(p.name for p in tmp_path.iterdir()
+                  if p.suffix == ".ckpt") == ["lm.dp0.ckpt", "lm.dp1.ckpt"]
+
+
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
 def test_train_lm_resume_is_exact(tmp_path, bf16):
     """--ckpt shared:<dir> --ckpt-every 3, then --resume to step 6,
@@ -315,42 +382,50 @@ def test_async_checkpoint_is_read_by_both_packages(tmp_path):
 
 
 def test_unported_options_raise():
+    """What the port still lacks raises, naming ROADMAP A5: a mesh axis
+    beyond (dp, sp) (the 3-D tensor-parallel and pipeline steps). The
+    JAX package's ValueErrors stay; zigzag and Ulysses now run on one
+    shard (the ring's loss, 1e-6), and train_lm asks for a world of
+    dp·sp ranks."""
+    import types
+
     from lua_mapreduce_tpu_torch.examples.lm import train_lm
-    from lua_mapreduce_tpu_torch.parallel.ring_attention import _ring_shard
     _, tc = _cfgs("tiny")
     _, tp = _params(_cfgs("tiny")[0])
     opt = optim.sgd(tp.values(), 0.1)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tt.make_train_step(tc, opt, mesh={"dp": 2, "sp": 1})
-    tt.make_train_step(tc, opt, mesh={"dp": 1, "sp": 1})      # one device
-    with pytest.raises(NotImplementedError, match="zero1"):
+    mesh3 = types.SimpleNamespace(shape={"dp": 1, "sp": 1, "mp": 2})
+    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+        tt.make_train_step(tc, opt, mesh=mesh3)
+    with pytest.raises(ValueError, match="mesh="):
         tt.make_train_step(tc, opt, zero1=True)
-    for attn in ("zigzag", "ulysses"):
-        with pytest.raises(NotImplementedError, match="sequence-parallel"):
-            tt.make_train_step(tc, opt, attn=attn)
     with pytest.raises(ValueError, match="unknown attn"):
         tt.make_train_step(tc, opt, attn="ringg")
     with pytest.raises(ValueError, match="BANDED"):
         tt.make_train_step(dataclasses.replace(tc, window=4), opt,
                            attn="zigzag")
+    with pytest.raises(ValueError, match="requires attn"):
+        tt.make_train_step(tc, opt, zigzag_layout=True)
     moe = dataclasses.replace(tc, moe_experts=2, moe_capacity=4)
     with pytest.raises(ValueError, match="grad_accum"):
         tt.make_train_step(moe, opt, grad_accum=2)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tt.make_train_step(moe, opt)
-    q = torch.zeros(1, 4, 2, 8)
-    with pytest.raises(NotImplementedError, match="sequence-parallel"):
-        _ring_shard(q, q, q, n_shards=2, causal=True)
+    with pytest.raises(ValueError, match="zero1"):
+        tt.make_train_step(moe, opt, zero1=True)
+    tok, tgt = _batch(2, 8)
+    losses = {}
+    for attn in ("ring", "zigzag", "ulysses"):
+        p = {k: v.detach().clone().requires_grad_(True)
+             for k, v in tp.items()}
+        losses[attn] = float(tt.make_train_step(
+            tc, optim.sgd(p.values(), 0.1), attn=attn)(p, tok, tgt))
+    assert np.allclose(losses["zigzag"], losses["ring"], rtol=1e-6)
+    assert np.allclose(losses["ulysses"], losses["ring"], rtol=1e-6)
     step = tt.make_train_step(tc, opt, grad_accum=3)
     with pytest.raises(ValueError, match="grad_accum=3"):
         step(tp, *_batch(4, 8))
     # --profile is ported (tests/test_torch_harness.py runs it)
-    for kw, match in (({"dp": 2}, "mesh"), ({"sp": 2}, "mesh"),
-                      ({"zero1": True}, "zero1")):
-        with pytest.raises(NotImplementedError, match=match):
+    for kw in ({"dp": 2}, {"sp": 2}, {"dp": 2, "sp": 2}):
+        with pytest.raises(SystemExit, match="needs a world of"):
             train_lm.run(_port_args(steps=1, **kw))
-    with pytest.raises(NotImplementedError, match="sequence-parallel"):
-        train_lm.run(_port_args(steps=1, attn="zigzag"))
 
 
 def test_params_from_jax_gives_trainable_leaves():

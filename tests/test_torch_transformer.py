@@ -155,21 +155,27 @@ def test_flops_per_token_matches_jax():
 
 
 def test_unported_options_raise():
+    """MoE and the sequence-parallel prefill are ported: an MoE config
+    initialises and decodes (tests/test_torch_moe.py holds it to the
+    JAX package) and the sharded prefill refuses MoE as the JAX one
+    does; a mesh axis beyond (dp, sp) — the 3-D and pipeline forms —
+    raises, naming ROADMAP A5. Sampling and remat run."""
+    import types
     _, tc = _cfgs("tiny")
     tp = tt.init_transformer(0, tc, device="cpu")
     toks = torch.from_numpy(_tokens(1, 4))
     moe = tt.TransformerConfig(vocab=64, d_model=32, n_heads=4, n_layers=2,
                                d_ff=64, max_seq=128, moe_experts=2,
                                moe_capacity=4)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tt.init_transformer(0, moe, device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tt.greedy_decode(tp, toks, 2, cfg=moe)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tt.prefill(tp, toks, cfg=tc, mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tt.greedy_decode(tp, toks, 2, cfg=tc, use_prefill=True,
-                         mesh=object())
+    mp = tt.init_transformer(0, moe, device="cpu")
+    assert tuple(mp["L0_moe_w1"].shape) == (2, 32, 64)
+    out = tt.greedy_decode(mp, toks, 2, cfg=moe)
+    assert tuple(out.shape) == (1, 6) and out.dtype == torch.int32
+    with pytest.raises(ValueError, match="dense"):
+        tt.prefill(mp, toks, cfg=moe, mesh=object())
+    mesh3 = types.SimpleNamespace(shape={"dp": 1, "sp": 1, "mp": 2})
+    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+        tt.make_sharded_apply(tc, mesh3)
     # sampling is ported (tests/test_torch_sampling.py): it runs
     out = tt.greedy_decode(tp, toks, 2, cfg=tc, temperature=0.7, key=0)
     assert tuple(out.shape) == (1, 6) and out.dtype == torch.int32

@@ -126,6 +126,22 @@ def test_trainer_zero1_matches_replicated(world, accum):
             np.testing.assert_allclose(zb[k], rb[k], rtol=1e-5, atol=1e-6)
 
 
+def test_f32_masters_live_in_the_chunks(world):
+    """F32Master(adam) under ZeRO-1 (test_precision.py:67's
+    composition): each rank's masters are f32 and ceil(numel / n)
+    elements — the dp-sharded master copy — and three updates of bf16
+    parameters equal the replicated F32Master's bit for bit."""
+    n, _, out = world
+    for o in out:
+        zp, zm = o["master_z1"]
+        rp, rm = o["master_z0"]
+        assert zm == [("torch.float32", -(-21 // n)),
+                      ("torch.float32", -(-10 // n))]
+        assert rm == [("torch.float32", 21), ("torch.float32", 10)]
+        for k in rp:
+            np.testing.assert_array_equal(zp[k], rp[k], err_msg=k)
+
+
 def test_zero1_rejections(world):
     """ZeRO-1 needs a mesh; a batch that does not split over dp ×
     grad_accum raises in every rank, as in the JAX trainer."""

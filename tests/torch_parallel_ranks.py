@@ -208,6 +208,35 @@ def zero1_cases(mesh, d):
                     for k, c in tr._chunks.items()}
             out[f"{key}_buffers"] = {
                 k: _np(v) for k, v in tr.momentum_buffers().items()}
+    # f32 masters under ZeRO-1: F32Master over this rank's bf16 chunks
+    # keeps chunk-sized f32 masters; the same gradients on every rank
+    # (their dp mean exact) give the replicated F32Master's parameters
+    from lua_mapreduce_tpu_torch.train import optim
+    from lua_mapreduce_tpu_torch.train.precision import with_f32_master
+    for z in (False, True):
+        rng = np.random.RandomState(9)
+        params = {k: torch.from_numpy(rng.randn(*shape).astype(
+            np.float32)).bfloat16() for k, shape in (("w", (7, 3)),
+                                                    ("b", (10,)))}
+
+        def mk(leaves):
+            return with_f32_master(leaves, lambda ms: optim.adam(ms, 3e-3))
+        if z:
+            chunks, opt = z1.init_state(mk, params, mesh)
+        else:
+            opt = mk(params.values())
+        for _ in range(3):
+            g = {k: torch.from_numpy(rng.randn(*v.shape).astype(
+                np.float32)).bfloat16() for k, v in params.items()}
+            if z:
+                z1.update_chunks(opt, params, g, chunks, mesh, "dp")
+            else:
+                for k, p in params.items():
+                    p.grad = g[k]
+                opt.step()
+        out[f"master_z{int(z)}"] = (
+            {k: _np(v.float()) for k, v in params.items()},
+            [(str(m.dtype), m.numel()) for m in opt.masters])
     # the rejections: a batch that does not split over dp × grad_accum
     tr = DataParallelTrainer(nll_loss, d["params"],
                              TrainConfig(zero1=True, grad_accum=2), mesh=mesh)
@@ -329,3 +358,278 @@ def compiled_tasks(mesh, root, cases):
             if hasattr(eng._plan, "folds") else None,
             "stats": ex.stats.iterations[-1].as_dict()}
     return out
+
+
+# ------------------------------------------------------- MoE (ep mesh)
+
+def moe_cases(mesh, d):
+    """tests/test_torch_moe.py's expert-parallel cases: experts sharded
+    over the world (the ``ep`` axis), each rank routing its own tile."""
+    from lua_mapreduce_tpu_torch.parallel import moe
+    n, me = mesh.shape["dp"], mesh.axis_index("dp")
+    m = make_mesh(dp=n, mp=1, device="cpu", axis_names=("ep", "unused"))
+    full = {k: torch.from_numpy(v) for k, v in d["params"].items()}
+    mine = {k: (v.chunk(n)[me] if k.startswith(("moe_w", "moe_b")) else v)
+            for k, v in full.items()}
+    out = {}
+    for name, x, kw in (("shard", d["x"], {}),
+                        ("top2", d["x2"], {"top_k": 2}),
+                        ("einsum", d["x"], {"impl": "einsum"})):
+        xt = torch.from_numpy(x).chunk(n)[me]
+        y, aux = moe.moe_ffn_shard(mine, xt, capacity=d["cap"], mesh=m,
+                                   ep_axis="ep", **kw)
+        out[name] = (_np(y), float(aux))
+    # gradients through both all_to_alls of the mean over tiles of
+    # Σ out² + 0.01·aux: each rank differentiates its tile's share (its
+    # backward carries the peers' shares of its experts); the router's
+    # gradient is then the sum over ep, an expert slice's is kept
+    p = {k: v.clone().requires_grad_(True) for k, v in mine.items()}
+    xt = torch.from_numpy(d["x"]).chunk(n)[me].requires_grad_(True)
+    y, aux = moe.moe_ffn_shard(p, xt, capacity=d["cap"], mesh=m,
+                               ep_axis="ep")
+    loss = ((y ** 2).sum() + 0.01 * aux) / n
+    g = torch.autograd.grad(loss, [xt] + list(p.values()))
+    out["grad_x"] = _np(g[0])
+    out["grad_p"] = {k: _np(C.psum(gg, m, "ep") if not
+                             k.startswith(("moe_w", "moe_b")) else gg)
+                     for k, gg in zip(p, g[1:])}
+    # a small regression task trains and keeps several experts busy
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.randn(128, d["x"].shape[1]).astype(np.float32))
+    y_true = torch.sin(2 * x)
+    p = {k: v.clone().requires_grad_(True) for k, v in
+         moe.init_moe(1, x.shape[1], d["ff"], d["e"]).items()}
+    p = {k: (v.detach().chunk(n)[me].clone().requires_grad_(True)
+             if k.startswith(("moe_w", "moe_b")) else v)
+         for k, v in p.items()}
+    opt = torch.optim.Adam(list(p.values()), lr=1e-2, betas=(0.9, 0.999),
+                           eps=1e-8)
+    xt, yt = x.chunk(n)[me], y_true.chunk(n)[me]
+    losses = []
+    for _ in range(60):
+        yo, aux = moe.moe_ffn_shard(p, xt, capacity=32, mesh=m,
+                                    ep_axis="ep")
+        # this rank's share of mean-over-ep(MSE) + 0.01·aux
+        loss = (((yo - yt) ** 2).mean() + 0.01 * aux) / n
+        gs = torch.autograd.grad(loss, list(p.values()))
+        for (k, t), gg in zip(p.items(), gs):
+            t.grad = gg if k.startswith(("moe_w", "moe_b")) \
+                else C.psum(gg, m, "ep")
+        opt.step()
+        losses.append(float(C.psum(loss, m, "ep")))
+    out["train_losses"] = losses
+    out["train_router"] = _np(p["moe_router_W"])
+    return out
+
+
+# -------------------------------------- sequence-parallel LM, (dp, sp)
+
+def _attention_cases(m, d):
+    """ring / zigzag / Ulysses / banded ring over the mesh's sp axis:
+    outputs and the gradients of Σ out·w with respect to q, k and v."""
+    from lua_mapreduce_tpu_torch.parallel import ring_attention as ra
+    q, k, v = (torch.from_numpy(x) for x in d["qkv"])
+    w = torch.from_numpy(d["w"])
+    out = {}
+    fns = {f"{name}_{'causal' if c else 'full'}": (lambda c, f: (
+        lambda a, b, e: f(a, b, e, c)))(c, f)
+           for c in (False, True) for name, f in (
+               ("ring", lambda a, b, e, c: ra.ring_attention(
+                   a, b, e, m, causal=c)),
+               ("zigzag", lambda a, b, e, c: ra.ring_attention(
+                   a, b, e, m, causal=c, schedule="zigzag")),
+               ("ulysses", lambda a, b, e, c: ra.ulysses_attention(
+                   a, b, e, m, causal=c)))}
+    for win in d["windows"]:
+        fns[f"band_w{win}"] = (lambda ww: lambda a, b, e: ra.ring_attention(
+            a, b, e, m, causal=True, window=ww))(win)
+    for name, fn in fns.items():
+        qq, kk, vv = (x.clone().requires_grad_(True) for x in (q, k, v))
+        o = fn(qq, kk, vv)
+        g = torch.autograd.grad((o * w).sum(), (qq, kk, vv))
+        out[name] = (_np(o), tuple(_np(x) for x in g))
+    n = m.shape["sp"]
+    qz, kz, vz = (ra.to_zigzag(x, n) for x in (q, k, v))
+    out["zigzag_layout"] = _np(ra.from_zigzag(ra.ring_attention(
+        qz, kz, vz, m, causal=True, schedule="zigzag", layout="zigzag"), n))
+    out["bf16_ring"] = _np(ra.ring_attention(
+        q.bfloat16(), k.bfloat16(), v.bfloat16(), m, causal=True).float())
+    errs = {}
+    for name, call in (
+            ("indivisible", lambda: ra.ring_attention(q[:, :63], k[:, :63],
+                                                      v[:, :63], m)),
+            ("heads", lambda: ra.ulysses_attention(q[:, :, :3], k[:, :, :3],
+                                                   v[:, :, :3], m)),
+            ("zigzag_len", lambda: ra.ring_attention(
+                q[:, :4 * n + 2], k[:, :4 * n + 2], v[:, :4 * n + 2], m,
+                causal=True, schedule="zigzag")),
+            ("schedule", lambda: ra.ring_attention(q, k, v, m,
+                                                   schedule="stripy")),
+            ("layout", lambda: ra.ring_attention(q, k, v, m, causal=True,
+                                                 layout="zigzag"))):
+        try:
+            call()
+            errs[name] = None
+        except ValueError as e:
+            errs[name] = str(e)
+    out["errors"] = errs
+    return out
+
+
+def _lm_params(np_params, **kw):
+    from lua_mapreduce_tpu_torch.convert import params_from_jax
+    return {k: v.requires_grad_(True) for k, v in
+            params_from_jax(np_params, device="cpu", **kw).items()}
+
+
+def _lm_steps(cfg, m, np_params, tok, tgt, n_steps, lr=0.1, ep=False,
+              schedule="contiguous", **kw):
+    """``n_steps`` of make_train_step over ``m`` from the JAX package's
+    parameters (this rank's expert slices with ``ep``): the losses and
+    the params, expert stacks gathered back whole."""
+    from lua_mapreduce_tpu_torch.convert import params_to_numpy
+    from lua_mapreduce_tpu_torch.models import transformer as tt
+    from lua_mapreduce_tpu_torch.train import optim
+    p = _lm_params(np_params, **({"mesh": m} if ep else {}))
+    step = tt.make_train_step(cfg, optim.sgd(p.values(), lr), mesh=m, **kw)
+    td = tt.shard_batch(m, tok, tgt, schedule=schedule)
+    losses = [float(step(p, *td)) for _ in range(n_steps)]
+    return losses, params_to_numpy(p, **({"mesh": m} if ep else {}))
+
+
+def _lm_cases(m, d):
+    """make_sharded_apply, make_train_step (ring, zigzag, pre-permuted
+    zigzag, Ulysses, grad_accum + remat, window, MoE over dp, ZeRO-1
+    with f32 masters), prefill and greedy decode over the (dp, sp)
+    mesh ``m``."""
+    import dataclasses
+
+    from lua_mapreduce_tpu_torch.models import transformer as tt
+    from lua_mapreduce_tpu_torch.parallel import zero1 as z1
+    from lua_mapreduce_tpu_torch.train import optim
+    from lua_mapreduce_tpu_torch.train.precision import with_f32_master
+    out = {}
+    cfgs = {k: tt.TransformerConfig(**v) for k, v in d["cfgs"].items()}
+    cfg, params = cfgs["tiny"], d["params"]["tiny"]
+    tok, tgt = d["tok"], d["tgt"]
+    # the sharded forward, dense (MHA and GQA) and MoE
+    for name in ("tiny", "gqa", "modern"):
+        p = _lm_params(d["params"][name])
+        for attn in ("ring", "zigzag", "ulysses"):
+            out[f"apply_{name}_{attn}"] = _np(tt.make_sharded_apply(
+                cfgs[name], m, attn=attn)(p, d["apply_tok"]))
+    pm = _lm_params(d["params"]["moe"], mesh=m)
+    out["apply_moe"] = _np(tt.make_sharded_apply(cfgs["moe"], m)(
+        pm, d["apply_tok_moe"]))
+    # the train step under every schedule, 2 steps of SGD(0.1)
+    for attn, kw in (("ring", {}), ("zigzag", {}), ("ulysses", {}),
+                     ("zigzag_pre", {"zigzag_layout": True,
+                                     "schedule": "zigzag"})):
+        out[f"step_{attn}"] = _lm_steps(cfg, m, params, tok, tgt, 2,
+                                        attn=attn.split("_")[0], **kw)
+    # grad_accum with remat against the whole tile; remat alone
+    rcfg = dataclasses.replace(cfg, remat=True)
+    for accum in (1, 2):
+        out[f"accum{accum}"] = _lm_steps(rcfg, m, params, tok, tgt, 1,
+                                         grad_accum=accum)
+    out["remat_plain"] = _lm_steps(cfg, m, params, tok, tgt, 1)
+    # the banded ring in the step: first loss is the windowed oracle's
+    out["window"] = _lm_steps(cfgs["window"], m, d["params"]["window"],
+                              tok, tgt, 1)
+    # MoE, experts over dp
+    out["moe"] = _lm_steps(cfgs["moe"], m, d["params"]["moe"], tok, tgt, 2,
+                           ep=True)
+    # every param moves under Ulysses
+    _, moved = _lm_steps(cfg, m, params, d["tok3"], d["tgt3"], 1,
+                         attn="ulysses")
+    out["moved"] = moved
+    # ZeRO-1: f32 SGD with momentum, and bf16 params with f32 masters
+    # (Adam), against the replicated step
+    for tag, dtype, mk in (
+            ("f32", torch.float32,
+             lambda ps: optim.sgd(ps, 0.1, momentum=0.9)),
+            ("bf16", torch.bfloat16,
+             lambda ps: with_f32_master(ps, lambda ms: optim.adam(ms, 3e-3)))):
+        zc = cfgs["zero1"]
+        for z in (False, True):
+            p = {k: v.detach().to(dtype).requires_grad_(True) for k, v in
+                 _lm_params(d["params"]["zero1"]).items()}
+            opt = z1.init_state(mk, p, m) if z else mk(p.values())
+            step = tt.make_train_step(zc, opt, mesh=m, attn="ring", zero1=z)
+            td = tt.shard_batch(m, d["tok_z"], d["tgt_z"])
+            losses = [float(step(p, *td)) for _ in range(4)]
+            r = {"losses": losses,
+                 "params": {k: _np(v.float()) for k, v in p.items()}}
+            if z and tag == "bf16":
+                masters = opt[1].masters
+                r["masters"] = [(str(mm.dtype), mm.numel()) for mm in masters]
+            out[f"zero1_{tag}_{int(z)}"] = r
+    # prefill over the mesh, and greedy decode through it
+    pd = {k: v.detach() for k, v in _lm_params(params).items()}
+    for attn in ("ring", "zigzag"):
+        c, lg = tt.prefill(pd, d["prompt"], cfg=cfg, total=20, mesh=m,
+                           attn=attn)
+        out[f"prefill_{attn}"] = ({k: _np(v) for k, v in c.items()}, _np(lg))
+    out["decode_mesh"] = _np(tt.greedy_decode(pd, d["prompt"], 4, cfg=cfg,
+                                              use_prefill=True, mesh=m))
+    pw = {k: v.detach() for k, v in _lm_params(d["params"]["window"]).items()}
+    out["decode_window_mesh"] = _np(tt.greedy_decode(
+        pw, d["prompt"], 5, cfg=cfgs["window"], use_prefill=True, mesh=m))
+    errs = {}
+    opt = optim.sgd(list(pd.values()), 0.1)
+    for name, call in (
+            ("attn", lambda: tt.make_train_step(cfg, opt, mesh=m,
+                                                attn="rign")),
+            ("apply_attn", lambda: tt.make_sharded_apply(cfg, m,
+                                                         attn="flash")),
+            ("layout", lambda: tt.make_train_step(cfg, opt, mesh=m,
+                                                  zigzag_layout=True)),
+            ("window", lambda: tt.make_train_step(cfgs["window"], opt,
+                                                  mesh=m, attn="zigzag")),
+            ("heads", lambda: tt.make_sharded_apply(
+                dataclasses.replace(cfg, n_heads=1),
+                m, attn="ulysses")),
+            ("experts", lambda: tt.make_train_step(
+                dataclasses.replace(cfgs["moe"], moe_experts=3), opt,
+                mesh=m)),
+            ("zero1_moe", lambda: tt.make_train_step(cfgs["moe"], opt,
+                                                     mesh=m, zero1=True)),
+            ("accum_moe", lambda: tt.make_train_step(cfgs["moe"], opt,
+                                                     mesh=m, grad_accum=2)),
+            ("moe_prefill", lambda: tt.prefill(
+                pm, d["prompt"], cfg=cfgs["moe"], mesh=m)),
+            ("max_seq", lambda: tt.make_sharded_apply(cfg, m)(
+                pd, np.zeros((2, cfg.max_seq + 8), np.int32)))):
+        try:
+            call()
+            errs[name] = None
+        except ValueError as e:
+            errs[name] = str(e)
+    out["errors"] = errs
+    return out
+
+
+def sharded_lm_cases(mesh, d):
+    """Every case of tests/test_torch_sharded_lm.py on this rank: the
+    attention bodies over an sp mesh of the whole world, and with four
+    ranks the LM over a dp 2 × sp 2 mesh."""
+    n = mesh.shape["dp"]
+    out = {"attn": _attention_cases(
+        make_mesh(dp=1, mp=n, device="cpu", axis_names=("dp", "sp")), d)}
+    if n == 4:
+        out["lm"] = _lm_cases(
+            make_mesh(dp=2, mp=2, device="cpu", axis_names=("dp", "sp")), d)
+    return out
+
+
+def train_lm_cases(mesh, d):
+    """``train_lm.run`` in this world, from the carried JAX
+    parameters, once per argv of ``d["runs"]``: each run's summary."""
+    from lua_mapreduce_tpu_torch.convert import params_from_jax
+    from lua_mapreduce_tpu_torch.examples.lm import train_lm
+
+    def init_from_jax(seed, cfg, dtype=torch.float32, device=None):
+        return params_from_jax(d["params"], device=device)
+    train_lm.tt.init_transformer = init_from_jax
+    return [train_lm.run(train_lm.build_parser().parse_args(argv))
+            for argv in d["runs"]]
