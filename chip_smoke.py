@@ -174,9 +174,24 @@ Phases, each a hard failure on any mismatch:
              against the CPU: MoE step losses and gradients, MoE greedy
              tokens, the mesh step bit-equal to the no-mesh step (ring),
              zigzag and Ulysses within 2e-4, ZeRO-1 within 1e-4.
+23. tp/pp  — the tensor- and pipeline-parallel steps at the lm_train MHA
+             widths (bf16, SGD(1e-3, momentum 0.9)): the 2-D step over
+             phase 22's mesh (the yardstick), ``make_train_step_3d``
+             over a (dp, sp, mp) = (1, 1, 1) NCCL mesh from
+             ``make_multihost_mesh`` (ring attention), and
+             ``make_train_step_pp`` over a (pp,) = (1,) mesh in 4
+             microbatches on batches a ``make_sharded`` layout in a
+             ``shared:`` store yields: ms/step against phase 10's and
+             the 2-D one, tokens/s, peak GiB, a profiled step's device
+             ms by kind, the kernel path and form of every attention
+             call (TMA kernels, the forward's lse form, asserted); then
+             f32 at 2 layers, the 3-D and pp steps on the card against
+             the no-mesh step on the CPU, and on the card the 3-D step
+             against the 2-D mesh step and pp against no mesh within
+             1e-5 (loss) / 2e-4 (parameters).
 
 Launch counts are zeroed just before each run of phases 4, 5, 6, 8, 10 and
-15-22 (phase 21's worker processes start at zero) and
+15-23 (phase 21's worker processes start at zero) and
 read just after, and must equal the counts worked out from the code; a
 kernel of the paths with no launch there fails the run. The
 card's name and power limit, then one JSON line of per-kernel numbers,
@@ -3821,6 +3836,408 @@ def phase_moe_check(torch, ops, mesh, seed=5):
     return out
 
 
+# ------------------------------------------------------------ phase 23
+#
+# the tensor- and pipeline-parallel steps at the lm_train MHA
+# widths (LM: d1024 h16 L8 ff4096 v32768, seq 2048, batch 8, bf16,
+# SGD(1e-3, momentum 0.9)); the pipeline in PP_MICRO microbatches, its
+# batches read from a make_sharded layout of PP_ROWS token rows in
+# PP_SHARDS shards
+PP_MICRO, PP_ROWS, PP_SHARDS = 4, 128, 4
+# the 3-D step at mp = 1 against the 2-D mesh step, the pipeline at
+# pp = 1 against the no-mesh step, f32 on the card: loss (relative) and
+# parameters (elementwise rtol = atol), the JAX tests' limits
+TP_PP_LOSS_RTOL, TP_PP_PARAMS_TOL = 1e-5, 2e-4
+
+
+def pp_counts(n_layers, steps, n_micro, n_pp=1):
+    """Launches of ``steps`` pipeline steps on one stage, from the code:
+    the GPipe grid has n_micro + n_pp − 1 ticks and every tick runs each
+    of the stage's n_layers/n_pp layers, bubbles included — one flash
+    forward (the lse form, under autograd) and one dq and one dkv a
+    layer a tick; the train step's counts with a tick as a
+    microbatch."""
+    return train_counts(n_layers // n_pp, steps, accum=n_micro + n_pp - 1)
+
+
+@contextlib.contextmanager
+def flash_paths(attention):
+    """Record the kernel path of every flash forward and backward call
+    (``flash_kernel_path`` / ``flash_bwd_kernel_path``: "tma" for the
+    TMA + wgmma kernels, "general" for mma.sync) and the forward's form
+    (the lse form or not), by wrapping the module's launchers while the
+    context is open."""
+    import collections
+    paths = {"fwd": collections.Counter(), "bwd": collections.Counter(),
+             "fwd_form": collections.Counter()}
+    fwd = attention.flash_attention_cuda
+    bwd = attention.flash_attention_bwd_cuda
+
+    def rec_fwd(q, k, v, **kw):
+        paths["fwd"][attention.flash_kernel_path(q, k, v)] += 1
+        paths["fwd_form"]["lse" if kw.get("with_lse") else "nolse"] += 1
+        return fwd(q, k, v, **kw)
+
+    def rec_bwd(q, k, v, o, lse, do, *a, **kw):
+        paths["bwd"][attention.flash_bwd_kernel_path(
+            q, k, v, do.to(q.dtype))] += 1
+        return bwd(q, k, v, o, lse, do, *a, **kw)
+
+    attention.flash_attention_cuda = rec_fwd
+    attention.flash_attention_bwd_cuda = rec_bwd
+    try:
+        yield paths
+    finally:
+        attention.flash_attention_cuda = fwd
+        attention.flash_attention_bwd_cuda = bwd
+
+
+def tp_pp_meshes(torch):
+    """The (dp, sp, mp) = (1, 1, 1) and (pp,) = (1,) meshes of the
+    running world-size-1 NCCL world, from ``make_multihost_mesh``."""
+    import torch.distributed as dist
+
+    from lua_mapreduce_tpu_torch.parallel.multihost import make_multihost_mesh
+    m3 = make_multihost_mesh((1, 1, 1), ("dp", "sp", "mp"), device="cuda")
+    mpp = make_multihost_mesh((1,), ("pp",), device="cuda")
+    if "nccl" not in dist.get_backend():
+        raise AssertionError(f"the card's mesh runs {dist.get_backend()}")
+    return m3, mpp
+
+
+def sharded_token_batches(torch, vocab, seed):
+    """The pipeline step's batches: PP_ROWS token rows of LM_SEQ + 1
+    from the seed, written by ``train.sharding.make_sharded`` in
+    PP_SHARDS shards to a ``shared:`` store under a temp directory and
+    read back by ``ShardedDataset.batches(host_id=0, n_hosts=1)`` —
+    (tokens, targets) CPU tensors of LM_BATCH rows."""
+    import tempfile
+
+    import numpy as np
+
+    from lua_mapreduce_tpu_torch.store import get_storage_from
+    from lua_mapreduce_tpu_torch.train.sharding import (ShardedDataset,
+                                                        make_sharded)
+    seq = np.random.RandomState(seed).randint(0, vocab, (PP_ROWS,
+                                                         LM_SEQ + 1))
+    with tempfile.TemporaryDirectory(prefix="lmr-pp-") as root:
+        store = get_storage_from(f"shared:{root}")
+        make_sharded(store, "lm", seq[:, :-1].astype(np.int32),
+                     seq[:, 1:].astype(np.int32), n_shards=PP_SHARDS)
+        ds = ShardedDataset(store, "lm")
+        batches = list(ds.batches(LM_BATCH, rng=np.random.RandomState(seed),
+                                  host_id=0, n_hosts=1))
+    return batches
+
+
+def timed_lm_steps(torch, ops, step, batches, what, want):
+    """A warm-up step on batches[0], counts zeroed, LM_STEPS timed steps
+    on the next batches, counts read (must equal ``want``); then a
+    profiled step with its device ms by kind and the flash paths of
+    every attention call in it. Returns the report and the step's
+    top kernels."""
+    first = float(step(*batches[0]))                       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [step(*batches[1 + i]) for i in range(LM_STEPS)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    if counts != want:
+        raise AssertionError(f"{what} launches {counts}, expected {want}")
+    losses = [first] + [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{what} loss not finite: {losses}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    from lua_mapreduce_tpu_torch.ops import attention
+    with flash_paths(attention) as paths:
+        step(*batches[-1])
+        torch.cuda.synchronize()
+    kernels = [r for r in kernel_profile(torch, lambda: step(*batches[-1]))
+               if not r[0].startswith("Optimizer.")]
+    dev_ms = sum(k[1] for k in kernels)
+    tags = (("flash_fwd", ("wsk::flash_wgmma_kernel", "flash_bf16_kernel")),
+            ("flash_bwd_dq", ("wsk::dq_wgmma_kernel", "bfk::dq_kernel")),
+            ("flash_bwd_dkv", ("wsk::dkv_wgmma_kernel", "bfk::dkv_kernel")))
+    port_ms = {k: sum(r[1] for r in kernels if any(n in r[0] for n in t))
+               for k, t in tags}
+    seen = {k: sum(r[2] for r in kernels if any(n in r[0] for n in t))
+            for k, t in tags}
+    gemm = sum(r[1] for r in kernels if "gemm" in r[0] or "nvjet" in r[0])
+    by_kind = {"port": sum(port_ms.values()), "gemm": gemm,
+               "other": dev_ms - sum(port_ms.values()) - gemm}
+    step_ms = dt * 1e3 / LM_STEPS
+    per_step = {k: v // LM_STEPS for k, v in want.items() if v}
+    # every attention call of the bf16 step takes the TMA + wgmma
+    # kernels, its forward in the lse form (autograd keeps the lse)
+    want_paths = {"fwd": {"tma": per_step["flash_fwd"]},
+                  "bwd": {"tma": per_step["flash_bwd_dq"]},
+                  "fwd_form": {"lse": per_step["flash_fwd"]}}
+    if {k: dict(v) for k, v in paths.items()} != want_paths:
+        raise AssertionError(f"{what}: flash paths {paths}, expected "
+                             f"{want_paths}")
+    return {"steps": LM_STEPS, "step_ms": step_ms,
+            "tokens_per_s": LM_BATCH * LM_SEQ * LM_STEPS / dt,
+            "losses": losses, "launches": counts, "peak_mem_gib": peak,
+            "flash_paths": {k: dict(v) for k, v in paths.items()},
+            "profiled_step_device_ms": dev_ms,
+            "profiled_step_kernel_ms": port_ms,
+            "profiled_step_launches": seen,
+            "profiled_step_ms_by_kind": by_kind,
+            "profiled_step_kernels": sum(r[2] for r in kernels),
+            "profile_complete": seen == per_step,
+            "device_idle_share": 1 - dev_ms / step_ms}, kernels
+
+
+def psum_call_cost(torch, mesh, n=100):
+    """Host and device ms per call of ``collectives.psum`` over the
+    one-rank NCCL mesh's ``dp`` axis (a clone and an all-reduce), beside
+    the clone alone: ``n`` calls enqueued back to back, the host clock
+    around the loop before the synchronise, the whole to the
+    synchronise for the device side. Two sizes: the (8, 2048, 1024)
+    bf16 activation ``reduce_from`` sums in the 3-D step, and a (1024,)
+    f32 vector (a norm's gradient in the mesh step's averaging)."""
+    from lua_mapreduce_tpu_torch.parallel import collectives as C
+    out = {}
+    for tag, x in (("activation", torch.zeros((LM_BATCH, LM_SEQ, 1024),
+                                              dtype=torch.bfloat16,
+                                              device="cuda")),
+                   ("vector", torch.zeros(1024, device="cuda"))):
+        for what, fn in (("psum", lambda: C.psum(x, mesh, "dp")),
+                         ("clone", lambda: x.detach().clone())):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            host = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            out[f"{tag}_{what}"] = {
+                "host_ms_per_call": host * 1e3 / n,
+                "ms_per_call": (time.perf_counter() - t0) * 1e3 / n}
+    log("[tp/pp train] one-rank NCCL psum against a clone, per call "
+        "(host enqueue / to the synchronise): " + "; ".join(
+            f"{k} {v['host_ms_per_call']:.4f} / {v['ms_per_call']:.4f} ms"
+            for k, v in out.items()))
+    return out
+
+
+def phase_tp_pp_train(torch, ops, meshes, mesh2, lm, seed=0):
+    """The lm_train MHA configuration at full width through (a) the 2-D
+    step over phase 22's dp = sp = 1 mesh (the yardstick, in this
+    call), (b) ``make_train_step_3d`` over the (1, 1, 1) NCCL mesh with
+    ring attention, and (c) ``make_train_step_pp`` over the (1,) mesh in
+    PP_MICRO microbatches on batches from a ``make_sharded`` layout:
+    each a warm-up step, LM_STEPS timed steps with their launches, and
+    a profiled step (device ms by kind, the flash kernel path of every
+    attention call). ``lm`` is phase 10's report."""
+    from lua_mapreduce_tpu_torch.models import transformer as tt
+    from lua_mapreduce_tpu_torch.train import optim
+    m3, mpp = meshes
+    cfg = tt.TransformerConfig(**LM)
+    fixed = [tuple(x.cuda() for x in lm_tokens(torch, cfg.vocab, LM_BATCH,
+                                               LM_SEQ, seed))]
+    sharded = sharded_token_batches(torch, cfg.vocab, seed)
+    if len(sharded) < LM_STEPS + 2:
+        raise AssertionError(f"{len(sharded)} sharded batches")
+
+    def sgd(ps):
+        return optim.sgd(ps, 1e-3, momentum=0.9)
+
+    out = {}
+    for tag in ("2d_mesh", "3d", "pp"):
+        p0 = tt.init_transformer(seed, cfg, dtype=torch.bfloat16,
+                                 device="cuda")
+        if tag == "2d_mesh":
+            params = {k: v.requires_grad_(True) for k, v in p0.items()}
+            step = tt.make_train_step(cfg, sgd(params.values()), mesh=mesh2)
+            batches = [tt.shard_batch(mesh2, *fixed[0])] * (LM_STEPS + 2)
+            want = train_counts(cfg.n_layers, LM_STEPS)
+        elif tag == "3d":
+            params = {k: v.requires_grad_(True) for k, v in
+                      tt.shard_params_3d(p0, m3, cfg).items()}
+            step = tt.make_train_step_3d(cfg, m3, sgd(params.values()),
+                                         attn="ring")
+            batches = [tt.shard_batch(m3, *fixed[0])] * (LM_STEPS + 2)
+            want = train_counts(cfg.n_layers, LM_STEPS)
+        else:
+            params = {k: v.requires_grad_(True) for k, v in
+                      tt.shard_params_pp(p0, mpp, cfg).items()}
+            step = tt.make_train_step_pp(cfg, mpp, sgd(params.values()),
+                                         n_micro=PP_MICRO)
+            batches = sharded
+            want = pp_counts(cfg.n_layers, LM_STEPS, PP_MICRO)
+        del p0
+        r, kernels = timed_lm_steps(
+            torch, ops, lambda tok, tgt: step(params, tok, tgt), batches,
+            f"tp/pp {tag}", want)
+        r["config"] = (f"d{cfg.d_model} h{cfg.n_heads} L{cfg.n_layers} "
+                       f"ff{cfg.d_ff} v{cfg.vocab} seq{LM_SEQ} b{LM_BATCH} "
+                       f"bf16, " + {
+                           "2d_mesh": "ring over a dp = sp = 1 NCCL mesh",
+                           "3d": "ring over a (dp, sp, mp) = (1, 1, 1) "
+                                 "NCCL mesh",
+                           "pp": f"GPipe over a (pp,) = (1,) NCCL mesh, "
+                                 f"{PP_MICRO} microbatches of "
+                                 f"{LM_BATCH // PP_MICRO}"}[tag])
+        r["vs_phase10_step"] = r["step_ms"] / lm["mha"]["step_ms"]
+        if tag != "2d_mesh":
+            r["vs_2d_mesh_step"] = r["step_ms"] / out["2d_mesh"]["step_ms"]
+        log(f"[tp/pp train] {tag} {r['config']}: {LM_STEPS} timed steps, "
+            f"{r['step_ms']:.3f} ms/step ({r['vs_phase10_step']:.3f}x "
+            f"phase 10's step"
+            + (f", {r['vs_2d_mesh_step']:.3f}x the 2-D mesh step"
+               if tag != "2d_mesh" else "")
+            + f"), {r['tokens_per_s']:.1f} tokens/s, peak "
+            f"{r['peak_mem_gib']:.2f} GiB; losses {r['losses'][0]:.4f} .. "
+            f"{r['losses'][-1]:.4f}; launches {r['launches']}")
+        k = r["profiled_step_kernel_ms"]
+        bk = r["profiled_step_ms_by_kind"]
+        log(f"[tp/pp train] {tag}: profiled step "
+            f"{r['profiled_step_device_ms']:.3f} ms on the device in "
+            f"{r['profiled_step_kernels']} kernels (flash fwd "
+            f"{k['flash_fwd']:.3f}, dq {k['flash_bwd_dq']:.3f}, dkv "
+            f"{k['flash_bwd_dkv']:.3f}; GEMMs {bk['gemm']:.3f}, other "
+            f"{bk['other']:.3f}); idle "
+            f"{100 * r['device_idle_share']:.1f}% of the timed step; port "
+            f"launches in the trace {r['profiled_step_launches']}"
+            f"{'' if r['profile_complete'] else ' (partial trace)'}; flash "
+            f"paths {r['flash_paths']}")
+        for name, ms, n in kernels[:12]:
+            log(f"[tp/pp train] {tag}   {ms:10.3f} ms {n:6d}x  {name[:90]}")
+        r["top_kernels"] = kernels[:12]
+        out[tag] = r
+        del params, step, batches
+        torch.cuda.empty_cache()
+    out["psum_call_cost"] = psum_call_cost(torch, mesh2)
+    return out
+
+
+def phase_tp_pp_check(torch, ops, meshes, mesh2, seed=5):
+    """f32 at 2 layers of the LM widths (seq 256, batch 2), SGD with
+    momentum at LM_CHECK_LR: three free-running steps of the 3-D step
+    (1, 1, 1) and of the pipeline (pp = 1, 2 microbatches) on the card
+    against the no-mesh step on the CPU — the same function (the CPU
+    tests hold the forms to it on gloo worlds) through the plain
+    versions: each step's loss within LM_CHECK_RTOL, its gradient and
+    update normwise within LM_CHECK_NORM. On the card the 3-D step
+    equals the 2-D mesh step and the pipeline the no-mesh step within
+    TP_PP_LOSS_RTOL / TP_PP_PARAMS_TOL (two steps). Launches equal the
+    code's counts."""
+    from lua_mapreduce_tpu_torch.models import transformer as tt
+    from lua_mapreduce_tpu_torch.train import optim
+    m3, mpp = meshes
+    cfg = tt.TransformerConfig(**{**LM, "n_layers": 2, "max_seq": 256})
+    p0 = tt.init_transformer(seed, cfg, device="cpu")
+    tok, tgt = lm_tokens(torch, cfg.vocab, 2, 256, seed)
+
+    def sgd(ps):
+        return optim.sgd(ps, LM_CHECK_LR, momentum=0.9)
+
+    def build(form, dev):
+        src = {k: v.detach().clone().to(dev) for k, v in p0.items()}
+        if form == "3d":
+            src = tt.shard_params_3d(src, m3, cfg)
+        elif form == "pp":
+            src = tt.shard_params_pp(src, mpp, cfg)
+        p = {k: v.requires_grad_(True) for k, v in src.items()}
+        opt = sgd(p.values())
+        if form == "3d":
+            return p, opt, tt.make_train_step_3d(cfg, m3, opt)
+        if form == "pp":
+            return p, opt, tt.make_train_step_pp(cfg, mpp, opt, n_micro=2)
+        if form == "2d_mesh":
+            return p, opt, tt.make_train_step(cfg, opt, mesh=mesh2)
+        return p, opt, tt.make_train_step(cfg, opt)
+
+    def canonical(form, tree):
+        if form == "3d":
+            return tt.unshard_params_3d(tree, cfg, m3)
+        if form == "pp":
+            return tt.unstack_params_pp(tree, cfg, mpp)
+        return tree
+
+    out = {}
+    cpu_p, cpu_opt, cpu_step = build("none", "cpu")
+    cpu_runs = []
+    for _ in range(3):
+        loss = float(cpu_step(cpu_p, tok, tgt))
+        cpu_runs.append((loss, {k: v.grad.clone() for k, v in cpu_p.items()},
+                         {k: -LM_CHECK_LR * cpu_opt.state[v]["momentum_buffer"]
+                          for k, v in cpu_p.items()}))
+    for form, want_counts in (("3d", train_counts(2, 3)),
+                              ("pp", pp_counts(2, 3, 2))):
+        p, opt, step = build(form, "cuda")
+        losses, gerrs, uerrs = [], [], []
+        counts = dict.fromkeys(ops.KERNELS, 0)
+        td = (tok.cuda(), tgt.cuda())
+        for lc, gc, uc in cpu_runs:
+            ops.reset_launch_counts()
+            lg = float(step(p, *td))
+            for k, v in ops.launch_counts().items():
+                counts[k] += v
+            losses.append((lg, lc))
+            gerrs.append(leafwise_err(canonical(form, {
+                k: v.grad for k, v in p.items()}), gc))
+            uerrs.append(leafwise_err(canonical(form, {
+                k: -LM_CHECK_LR * opt.state[v]["momentum_buffer"]
+                for k, v in p.items()}), uc))
+        rel = max(abs(g - c) / abs(c) for g, c in losses)
+        msg = (f"{form} 2 layers f32 seq 256 b2, 3 free-running steps: "
+               f"(card, CPU) losses {losses}, max relative difference "
+               f"{rel:.3e} (limit {LM_CHECK_RTOL}); gradient normwise "
+               + " ".join(f"{a:.3e} (worst {w:.3e} in {k})"
+                          for a, w, k in gerrs)
+               + "; update normwise "
+               + " ".join(f"{a:.3e} (worst {w:.3e} in {k})"
+                          for a, w, k in uerrs)
+               + f" (limit {LM_CHECK_NORM}); launches {counts}")
+        if counts != want_counts or rel > LM_CHECK_RTOL or any(
+                a > LM_CHECK_NORM or w > LM_CHECK_NORM
+                for a, w, _ in gerrs + uerrs):
+            raise AssertionError(f"tp/pp check {msg} (launches expected "
+                                 f"{want_counts})")
+        log(f"[tp/pp check] {msg}")
+        out[form] = {"losses_card_cpu": losses, "max_rel_diff": rel,
+                     "grad_norm_err": gerrs, "update_norm_err": uerrs,
+                     "launches": counts}
+        del p, opt, step
+    # on the card: the 3-D form against the 2-D mesh step, the pipeline
+    # against the no-mesh step, two steps each
+    runs = {}
+    for form in ("3d", "2d_mesh", "pp", "none"):
+        p, _, step = build(form, "cuda")
+        td = (tok.cuda(), tgt.cuda())
+        if form in ("3d", "2d_mesh"):
+            td = tt.shard_batch(m3 if form == "3d" else mesh2, *td)
+        ls = [float(step(p, *td)) for _ in range(2)]
+        runs[form] = (ls, {k: v.detach().cpu() for k, v in
+                           canonical(form, p).items()})
+        del p, step
+    pairs = {}
+    for form, ref in (("3d", "2d_mesh"), ("pp", "none")):
+        (lf, pf), (lr, pr) = runs[form], runs[ref]
+        dl = max(abs(x - y) / abs(y) for x, y in zip(lf, lr))
+        worst = max(float(((pf[k] - pr[k]).abs() - TP_PP_PARAMS_TOL
+                           * pr[k].abs()).max()) for k in pr)
+        pairs[f"{form}_vs_{ref}"] = {"loss_rel": dl,
+                                     "param_excess_over_atol": worst}
+        if dl > TP_PP_LOSS_RTOL or worst > TP_PP_PARAMS_TOL:
+            raise AssertionError(
+                f"tp/pp check: {form} parts from {ref} on the card: loss "
+                f"{dl:.3e} (limit {TP_PP_LOSS_RTOL}), params max(|d| − "
+                f"rtol·|ref|) {worst:.3e} (limit {TP_PP_PARAMS_TOL})")
+    log("[tp/pp check] on the card, 2 steps: " + "; ".join(
+        f"{n} loss {v['loss_rel']:.3e}, params max(|d| − rtol·|ref|) "
+        f"{v['param_excess_over_atol']:.3e}" for n, v in pairs.items())
+        + f" (limits {TP_PP_LOSS_RTOL}, {TP_PP_PARAMS_TOL})")
+    out["card_pairs"] = pairs
+    torch.cuda.empty_cache()
+    return out
+
+
 def gpu_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3914,6 +4331,9 @@ def main():
     moe_train = phase_moe_train(torch, ops, mesh)
     moe_serve = phase_moe_serve(torch, ops)
     moe_check = phase_moe_check(torch, ops, mesh)
+    meshes = tp_pp_meshes(torch)
+    tp_pp = phase_tp_pp_train(torch, ops, meshes, mesh, lm)
+    tp_pp_check = phase_tp_pp_check(torch, ops, meshes, mesh)
     runs = ([digits_counts, wide_counts]
             + [serving[t]["launches"] for t in serving]
             + [conv[m]["launches"] for m in conv]
@@ -3921,7 +4341,8 @@ def main():
             + [kmeans_counts, als_counts, executor_counts] + dp_counts
             + ingraph_counts + hybrid_counts + pool_counts
             + [moe_train["launches"]]
-            + [moe_serve[t]["launches"] for t in moe_serve])
+            + [moe_serve[t]["launches"] for t in moe_serve]
+            + [tp_pp[t]["launches"] for t in ("2d_mesh", "3d", "pp")])
     launches = {k: sum(c[k] for c in runs) for k in ops.KERNELS}
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
@@ -3957,7 +4378,8 @@ def main():
         "als": als, "dp_train": dp, "executor": executor,
         "ingraph": ingraph, "hybrid_cache": hybrid_cache, "pool": pool,
         "moe_train": moe_train, "moe_serving": moe_serve,
-        "moe_check": moe_check,
+        "moe_check": moe_check, "tp_pp_train": tp_pp,
+        "tp_pp_check": tp_pp_check,
         "kernels": kernels,
         "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)

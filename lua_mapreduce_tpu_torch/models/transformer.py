@@ -1,5 +1,5 @@
 """Decoder-only transformer LM — serving and training, on one device or
-over a (dp, sp) mesh.
+over a (dp, sp), (dp, sp, mp) or (pp,) mesh.
 
 Port of ``lua_mapreduce_tpu/models/transformer.py``:
 :func:`init_transformer`, the oracle :func:`transformer_apply`,
@@ -15,15 +15,15 @@ CUDA graph and replayed per position), the int8 serving copy
 the batch shards over ``dp`` and the sequence over ``sp``; MoE expert
 stacks shard over ``dp`` (:func:`shard_params_moe`);
 :func:`make_sharded_apply` and ``prefill(mesh=)`` are the sharded
-forwards. On a card the attention runs the port's flash kernels
-(forward; dq and dkv in the backward) and decode kernel, and the
-projections of a quantized dict run the q8 kernel; plain dense
-projections ``y @ W``, the expert products (f32 ``bmm``), the
-unquantized head and the loss's log_softmax stay torch, as the JAX
-package leaves them to XLA.
-
-Not in the port yet: the 3-D (tensor-parallel) and pipeline steps
-(ROADMAP A5).
+forwards. :func:`make_train_step_3d` adds Megatron tensor
+parallelism over ``mp`` (params from :func:`shard_params_3d`) and
+:func:`make_train_step_pp` the GPipe pipeline over ``pp`` (params from
+:func:`shard_params_pp`). On a card the attention runs the port's flash
+kernels (forward; dq and dkv in the backward) and decode kernel, and
+the projections of a quantized dict run the q8 kernel; plain dense
+projections ``y @ W``, the tp products, the expert products (f32
+``bmm``), the unquantized head and the loss's log_softmax stay torch,
+as the JAX package leaves them to XLA.
 
 Params are a flat name→tensor dict with the JAX package's names and
 layouts (carry JAX params across with ``convert.params_from_jax``).
@@ -49,6 +49,7 @@ from lua_mapreduce_tpu_torch.ops.q8 import q8_matmul, quantize_q8
 from lua_mapreduce_tpu_torch.parallel import collectives as C
 from lua_mapreduce_tpu_torch.parallel import moe as _moe
 from lua_mapreduce_tpu_torch.parallel import zero1 as _z1
+from lua_mapreduce_tpu_torch.parallel.pipeline import pipeline_apply
 from lua_mapreduce_tpu_torch.parallel.ring_attention import (
     _ring_shard, _ring_shard_zigzag, _ulysses_shard, _zigzag_check,
     _zigzag_perm, attention_reference)
@@ -805,8 +806,10 @@ def _untile(x, mesh, dp_axis: Optional[str], sp_axis: str, b_dim: int):
 
 
 def _mesh_axes(mesh, dp_axis: str, sp_axis: str) -> Tuple[int, int]:
-    """(n_dp, n_sp) of ``mesh`` (1, 1 for None); any other axis of the
-    mesh must have size 1 (the 3-D tp form is ROADMAP A5)."""
+    """(n_dp, n_sp) of ``mesh`` (1, 1 for None). Any other axis of the
+    mesh (an ``mp`` or ``pp`` axis) replicates the computation, as the
+    JAX ``shard_map`` does with an axis no spec names: every rank of it
+    runs the same tile and holds the same result."""
     if mesh is None:
         return 1, 1
     sizes = dict(mesh.shape)
@@ -814,12 +817,6 @@ def _mesh_axes(mesh, dp_axis: str, sp_axis: str) -> Tuple[int, int]:
         if a not in sizes:
             raise ValueError(f"the mesh has axes {tuple(sizes)}; the LM "
                              f"step needs {dp_axis!r} and {sp_axis!r}")
-    other = {a: n for a, n in sizes.items()
-             if a not in (dp_axis, sp_axis) and n != 1}
-    if other:
-        raise NotImplementedError(
-            f"mesh axes {other} beyond (dp, sp): the 3-D tensor-parallel "
-            f"and pipeline steps are not in the port yet (ROADMAP A5)")
     return sizes[dp_axis], sizes[sp_axis]
 
 
@@ -878,9 +875,10 @@ def param_specs_moe(ep_axis: str = "dp") -> Dict[str, str]:
     return {s: ep_axis for s in ("_moe_w1", "_moe_b1", "_moe_w2", "_moe_b2")}
 
 
-def _spec_for(name: str, specs: Dict[str, str]) -> Optional[str]:
-    """The axis sharding param ``name`` under ``specs`` (suffix match),
-    None when it is replicated."""
+def _spec_for(name: str, specs: Dict[str, object]):
+    """The spec of param ``name`` under ``specs`` (suffix match): the
+    sharding axis (MoE) or per-dimension axes (3-D); None when the
+    param is replicated."""
     return next((a for suffix, a in specs.items() if name.endswith(suffix)),
                 None)
 
@@ -961,17 +959,8 @@ def make_train_step(cfg: TransformerConfig, optimizer, *, mesh=None,
     chunks = None
     if zero1:
         chunks, optimizer = optimizer
-    my_sp = 0 if mesh is None else mesh.axis_index(sp_axis)
-    permute_tiles = attn == "zigzag" and not zigzag_layout
-
-    def zigzag_tile(x):
-        """The zigzag tile of a contiguous one: the global sequence of
-        this rank's rows gathered over sp, permuted, this rank's block
-        taken (the JAX step's per-step cross-shard gather)."""
-        full = x if mesh is None else C.all_gather(x, mesh, sp_axis, 1)
-        full, _ = _maybe_zigzag("zigzag", n_sp, full)
-        return full if mesh is None else _block_of(full, mesh, sp_axis, 1)
-
+    tile_grads = _tile_value_and_grad(cfg, mesh, attn, attn_fn, block,
+                                      grad_accum, zigzag_layout, sp_axis)
     specs = param_specs_moe(dp_axis) if cfg.moe_experts else {}
 
     def reduce_grads(grads: Params) -> Params:
@@ -984,6 +973,44 @@ def make_train_step(cfg: TransformerConfig, optimizer, *, mesh=None,
         return out
 
     def step(params: Params, tokens, targets):
+        loss, grads = tile_grads(params, tokens, targets)
+        if mesh is not None:
+            loss = C.pmean(C.pmean(loss, mesh, sp_axis), mesh, dp_axis)
+            if zero1:
+                grads = {k: C.pmean(g, mesh, sp_axis)
+                         for k, g in grads.items()}
+                _z1.update_chunks(optimizer, params, grads, chunks, mesh,
+                                  dp_axis)
+                return loss
+            grads = reduce_grads(grads)
+        _apply(optimizer, params, grads)
+        return loss
+
+    return step
+
+
+def _tile_value_and_grad(cfg: TransformerConfig, mesh, attn: str, attn_fn,
+                         block, grad_accum: int, zigzag_layout: bool,
+                         sp_axis: str):
+    """``fn(params, tokens, targets) -> (loss, grads)`` of this rank's
+    (B/dp, L/sp) tile: the tile's mean loss (detached) and its gradient
+    with respect to every param (zeros where the loss does not reach),
+    through ``accum_value_and_grad`` over ``grad_accum`` microbatches
+    when > 1 — the part every SPMD step form shares. The collectives'
+    backward carries the other ranks' shares; the caller averages."""
+    n_sp = 1 if mesh is None else mesh.shape[sp_axis]
+    my_sp = 0 if mesh is None else mesh.axis_index(sp_axis)
+    permute_tiles = attn == "zigzag" and not zigzag_layout
+
+    def zigzag_tile(x):
+        """The zigzag tile of a contiguous one: the global sequence of
+        this rank's rows gathered over sp, permuted, this rank's block
+        taken (the JAX step's per-step cross-shard gather)."""
+        full = x if mesh is None else C.all_gather(x, mesh, sp_axis, 1)
+        full, _ = _maybe_zigzag("zigzag", n_sp, full)
+        return full if mesh is None else _block_of(full, mesh, sp_axis, 1)
+
+    def value_and_grad(params: Params, tokens, targets):
         dev = params["tok_emb"].device
         tokens = torch.as_tensor(tokens).to(dev).long()
         targets = torch.as_tensor(targets).to(dev).long()
@@ -1011,23 +1038,17 @@ def make_train_step(cfg: TransformerConfig, optimizer, *, mesh=None,
             else:
                 loss, grads = accum_value_and_grad(
                     loss_fn, params, (tokens, targets), grad_accum)
-        grads = {k: torch.zeros_like(p) if grads[k] is None else grads[k]
-                 for k, p in params.items()}
-        if mesh is not None:
-            loss = C.pmean(C.pmean(loss, mesh, sp_axis), mesh, dp_axis)
-            if zero1:
-                grads = {k: C.pmean(g, mesh, sp_axis)
-                         for k, g in grads.items()}
-                _z1.update_chunks(optimizer, params, grads, chunks, mesh,
-                                  dp_axis)
-                return loss
-            grads = reduce_grads(grads)
-        for k, p in params.items():
-            p.grad = grads[k]
-        optimizer.step()
-        return loss
+        return loss, {k: torch.zeros_like(p) if grads[k] is None
+                      else grads[k] for k, p in params.items()}
 
-    return step
+    return value_and_grad
+
+
+def _apply(optimizer, params: Params, grads: Params) -> None:
+    """Write each gradient to its param's ``.grad`` and step."""
+    for k, p in params.items():
+        p.grad = grads[k]
+    optimizer.step()
 
 
 def shard_batch(mesh, tokens, targets, dp_axis: str = "dp",
@@ -1049,3 +1070,335 @@ def shard_batch(mesh, tokens, targets, dp_axis: str = "dp",
         raise ValueError(f"unknown schedule {schedule!r}")
     return tuple(_tile(x, mesh, dp_axis, sp_axis).to(mesh.device)
                  for x in (tokens, targets))
+
+
+# ------------------------------------------ 3-D form: dp × sp × mp (tp)
+#
+# Attention heads and MLP hidden units shard over ``mp``; activations
+# stay replicated across mp at block boundaries through one psum after
+# the attention out-projection and one after the second MLP product
+# (the Megatron pattern), and each mp slice runs the sp ring over ITS
+# heads. The JAX package needs no hand-written collective for the
+# gradient: ``shard_map``'s transpose sums a replicated value's
+# cotangent over mp where it meets an mp-sharded weight. Here that sum
+# is ``collectives.copy_to`` (Megatron's f), placed by hand before the
+# qkv and ff1/ff3 products, and the forward psum is
+# ``collectives.reduce_from`` (g), so every replicated param's gradient
+# is whole and equal on every mp rank and an mp-sharded param's is its
+# slice's. The loss is averaged over (dp, sp) only, and so is every
+# gradient afterwards: summing the replicated ones over mp as well
+# would count the heads' share mp times.
+#
+# tp weights take head-structured layouts, so a spec splits them per
+# head rather than per raw column: qkv (d, 3, H, hd) on H, the
+# out-projection (H, hd, d) on H, the MLP (d, ff) / (ff, d) on ff.
+
+def param_specs_3d(mp_axis: str = "mp") -> Dict[str, tuple]:
+    """Name suffix → the mesh axis per dimension (None: whole) of the
+    tp-sharded params, as the JAX ``PartitionSpec`` s; every other
+    param is replicated."""
+    return {
+        "_qkv_W": (None, None, mp_axis, None),
+        "_out_W": (mp_axis, None, None),
+        "_ff1_W": (None, mp_axis),
+        "_ff1_b": (mp_axis,),
+        "_ff3_W": (None, mp_axis),     # swiglu up (columns, like gate)
+        "_ff2_W": (mp_axis, None),
+    }
+
+
+def _shard_spec(x, mesh, spec: tuple):
+    """This rank's block of ``x`` under ``spec`` (an axis or None per
+    dimension)."""
+    for dim, axis in enumerate(spec):
+        x = _block_of(x, mesh, axis, dim)
+    return x
+
+
+def _gather_spec(x, mesh, spec: tuple):
+    """Inverse of :func:`_shard_spec` by all_gather (every rank calls
+    it and gets the whole tensor)."""
+    for dim, axis in enumerate(spec):
+        if axis is not None:
+            x = C.all_gather(x, mesh, axis, dim)
+    return x
+
+
+def _check_mha(cfg: TransformerConfig) -> None:
+    if kv_heads(cfg) != cfg.n_heads:
+        raise ValueError("the 3-D tp path shards the fused qkv by head "
+                         "and supports MHA only; GQA composes with "
+                         "dp/sp (make_train_step) in the current build")
+
+
+def shard_params_3d(params: Params, mesh, cfg: TransformerConfig, *,
+                    mp_axis: str = "mp") -> Params:
+    """This rank's params for :func:`make_train_step_3d`: the tp weights
+    reshaped to their head-structured layouts and cut to this rank's mp
+    slice (its H/mp heads, its d_ff/mp hidden units); the rest as given
+    (inverse: :func:`unshard_params_3d`). Takes the canonical dict or
+    one already in the head-structured layouts (the JAX package's 3-D
+    dict, as numpy arrays through ``convert.params_from_jax``)."""
+    _check_mha(cfg)
+    d, h = cfg.d_model, cfg.n_heads
+    hd = d // h
+    specs = param_specs_3d(mp_axis)
+    out: Params = {}
+    for name, w in params.items():
+        spec = _spec_for(name, specs)
+        if spec is None:
+            out[name] = w
+            continue
+        if name.endswith("_qkv_W"):
+            w = w.reshape(d, 3, h, hd)
+        elif name.endswith("_out_W"):
+            w = w.reshape(h, hd, d)
+        out[name] = _shard_spec(w.detach(), mesh, spec).clone()
+    return out
+
+
+def _gather_params_3d(params: Params, mesh, *, mp_axis: str = "mp"
+                     ) -> Params:
+    """Every rank's mp slices gathered back: the JAX package's 3-D
+    dict (head-structured tp weights, whole). Every rank calls it."""
+    specs = param_specs_3d(mp_axis)
+    return {k: (v if _spec_for(k, specs) is None
+                else _gather_spec(v.detach(), mesh, _spec_for(k, specs)))
+            for k, v in params.items()}
+
+
+def unshard_params_3d(params: Params, cfg: TransformerConfig, mesh, *,
+                      mp_axis: str = "mp") -> Params:
+    """Back to the canonical 2-D layouts (for checkpoints and the
+    oracle). The JAX function reshapes global arrays; here each rank
+    holds its slice, so this gathers over ``mp`` first and takes the
+    mesh — every rank calls it and gets the whole dict."""
+    d = cfg.d_model
+    out: Params = {}
+    for name, w in _gather_params_3d(params, mesh, mp_axis=mp_axis).items():
+        if name.endswith("_qkv_W"):
+            w = w.reshape(d, 3 * d)
+        elif name.endswith("_out_W"):
+            w = w.reshape(d, d)
+        out[name] = w
+    return out
+
+
+def _block_tp(params: Params, i: int, x, cfg: TransformerConfig, attn_fn,
+              pos, *, mesh, mp_axis: str):
+    """One decoder block on this rank's tp slices; x enters and leaves
+    replicated across mp. The fused qkv product of this slice's heads
+    is one GEMM whose q, k, v are strided views (as the 2-D block's);
+    rope rotates this slice's heads by the same global ``pos``; swiglu
+    shards gate/up columns and down rows like gelu's ff1/ff2."""
+    p = f"L{i}"
+    b, l, d = x.shape
+    y = C.copy_to(_norm(params, f"{p}_ln1", x, cfg), mesh, mp_axis)
+    w_qkv = params[f"{p}_qkv_W"]                 # (d, 3, H/mp, hd)
+    h_loc, hd = w_qkv.shape[2], w_qkv.shape[3]
+    q, k, v = (y @ w_qkv.reshape(d, -1)).reshape(b, l, 3, h_loc,
+                                                 hd).unbind(2)
+    if cfg.rope:
+        q = _rope(q, pos, cfg.rope_base)
+        k = _rope(k, pos, cfg.rope_base)
+    a = attn_fn(q, k, v).reshape(b, l, h_loc * hd)   # this slice's heads
+    w_out = params[f"{p}_out_W"].reshape(h_loc * hd, d)
+    x = x + C.reduce_from(a @ w_out, mesh, mp_axis)  # Megatron sync 1
+    y = C.copy_to(_norm(params, f"{p}_ln2", x, cfg), mesh, mp_axis)
+    if cfg.ffn == "swiglu":
+        h = F.silu(y @ params[f"{p}_ff1_W"]) * (y @ params[f"{p}_ff3_W"])
+        return x + C.reduce_from(h @ params[f"{p}_ff2_W"], mesh,
+                                 mp_axis), 0.0
+    # jax.nn.gelu's default is the tanh approximation
+    h = F.gelu(y @ params[f"{p}_ff1_W"] + params[f"{p}_ff1_b"],
+               approximate="tanh")
+    partial = C.reduce_from(h @ params[f"{p}_ff2_W"], mesh, mp_axis)
+    return x + partial + params[f"{p}_ff2_b"], 0.0
+
+
+def make_train_step_3d(cfg: TransformerConfig, mesh, optimizer, *,
+                       attn: str = "ring", dp_axis: str = "dp",
+                       sp_axis: str = "sp", mp_axis: str = "mp",
+                       grad_accum: int = 1, zigzag_layout: bool = False):
+    """The LM train step over a (dp, sp, mp) mesh,
+    ``step(params, tokens, targets) -> loss``, stateful as
+    :func:`make_train_step`'s: ``params`` are this rank's, from
+    :func:`shard_params_3d`, ``optimizer`` is built over them, and
+    tokens/targets are this rank's (B/dp, L/sp) tile
+    (:func:`shard_batch`; every mp rank of a (dp, sp) cell takes the
+    same tile). Heads and MLP units shard over ``mp`` (the Megatron
+    pair, see above), the sequence over ``sp`` with ``attn`` ring,
+    zigzag or Ulysses over each mp slice's heads, the batch over
+    ``dp``. ``grad_accum`` and ``zigzag_layout`` as in
+    :func:`make_train_step`. The loss is the global mean; every
+    gradient is averaged over (dp, sp). MHA dense configs only."""
+    if zigzag_layout and attn != "zigzag":
+        raise ValueError("zigzag_layout=True requires attn='zigzag'")
+    _check_arch(cfg)
+    _, n_sp = _mesh_axes(mesh, dp_axis, sp_axis)
+    n_mp = mesh.shape[mp_axis]
+    if cfg.n_heads % n_mp:
+        raise ValueError(f"n_heads={cfg.n_heads} not divisible by "
+                         f"{mp_axis}={n_mp}")
+    _check_mha(cfg)
+    if cfg.moe_experts:
+        raise ValueError("MoE blocks are not supported on the 3-D tp "
+                         "path; use make_train_step (experts over dp)")
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    # the ulysses divisibility check sees the PER-TP-SLICE head count
+    attn_fn = _attn_shard_fn(attn, n_sp, cfg, mesh=mesh, sp_axis=sp_axis,
+                             n_heads=cfg.n_heads // n_mp)
+    block = functools.partial(_block_tp, mesh=mesh, mp_axis=mp_axis)
+    tile_grads = _tile_value_and_grad(cfg, mesh, attn, attn_fn, block,
+                                      grad_accum, zigzag_layout, sp_axis)
+
+    def mean_dp_sp(x):
+        return C.pmean(C.pmean(x, mesh, sp_axis), mesh, dp_axis)
+
+    def step(params: Params, tokens, targets):
+        loss, grads = tile_grads(params, tokens, targets)
+        _apply(optimizer, params, {k: mean_dp_sp(g)
+                                   for k, g in grads.items()})
+        return mean_dp_sp(loss)
+
+    return step
+
+
+# --------------------------------- pipeline form: layer groups over pp
+#
+# The decoder blocks are homogeneous, so their weights stack on a
+# leading layer axis and cut over ``pp``: each stage owns n_layers/pp
+# consecutive layers and runs them in turn. The embedding, the tied head
+# and the final norm are replicated: every rank embeds the microbatches
+# alike and scores the (psum-broadcast) last-stage outputs alike, so
+# only the block stack rides the pipeline (parallel/pipeline.py). Dense
+# FFN blocks only — tp and MoE compose with dp/sp, not with this axis.
+
+def _layer_weight_names(params: Params) -> list:
+    """Per-layer weight suffixes, from the ACTUAL keys (the set varies
+    with cfg.ffn / cfg.norm — a fixed list would silently drop swiglu's
+    ff3 or fail on rms's missing biases)."""
+    return sorted(k[len("L0_"):] for k in params if k.startswith("L0_"))
+
+
+def stack_params_pp(params: Params, cfg: TransformerConfig) -> Params:
+    """Per-layer weights → one leading-layer-axis stack per weight name
+    (``layers_<name>``); embeddings and the final norm pass through."""
+    if cfg.moe_experts:
+        raise ValueError("pipeline form supports dense blocks only")
+    out: Params = {k: v for k, v in params.items() if not k.startswith("L")}
+    for name in _layer_weight_names(params):
+        out[f"layers_{name}"] = torch.stack(
+            [params[f"L{i}_{name}"].detach() for i in range(cfg.n_layers)])
+    return out
+
+
+def unstack_params_pp(stacked: Params, cfg: TransformerConfig, mesh=None, *,
+                      pp_axis: str = "pp") -> Params:
+    """Inverse of :func:`stack_params_pp` (canonical per-layer names).
+    With ``mesh`` the stacks are this rank's layers
+    (:func:`shard_params_pp`) and are gathered over ``pp`` first —
+    every rank calls it and gets the whole dict."""
+    out: Params = {k: v for k, v in stacked.items()
+                   if not k.startswith("layers_")}
+    for k, v in stacked.items():
+        if k.startswith("layers_"):
+            w = v.detach() if mesh is None else C.all_gather(v, mesh,
+                                                             pp_axis)
+            for i in range(cfg.n_layers):
+                out[f"L{i}_{k[len('layers_'):]}"] = w[i]
+    return out
+
+
+def shard_params_pp(params: Params, mesh, cfg: TransformerConfig, *,
+                    pp_axis: str = "pp") -> Params:
+    """This rank's params for :func:`make_train_step_pp`: the layer
+    stacks cut to this stage's n_layers/pp layers, the rest as given."""
+    return {k: (_block_of(v, mesh, pp_axis, 0).clone()
+                if k.startswith("layers_") else v)
+            for k, v in stack_params_pp(params, cfg).items()}
+
+
+def _block_stacked(w: Params, x, cfg: TransformerConfig, pos):
+    """One dense decoder block from a single layer's weight dict (no
+    name prefixes) with whole-sequence local attention — the pipeline
+    stage body. Delegates to :func:`_block`, so the pipeline computes
+    the very model of the oracle it is held against."""
+    prefixed = {f"L0_{k}": v for k, v in w.items()}
+    out, _aux = _block(prefixed, 0, x, cfg,
+                       functools.partial(attention_reference, causal=True,
+                                         window=cfg.window), pos)
+    return out
+
+
+def make_train_step_pp(cfg: TransformerConfig, mesh, optimizer, *,
+                       n_micro: int, pp_axis: str = "pp"):
+    """The pipeline-parallel LM train step over a (pp,) mesh,
+    ``step(params, tokens, targets) -> loss``, stateful as
+    :func:`make_train_step`'s: ``params`` are this rank's, from
+    :func:`shard_params_pp`, and every rank passes the whole (B, L)
+    batch (B divisible by ``n_micro``). The (n_micro + pp − 1)-tick
+    GPipe grid runs forward through :func:`parallel.pipeline.
+    pipeline_apply` and autograd runs it backward.
+
+    Every rank computes the same loss from the broadcast outputs, so
+    the head's and the final norm's gradients are whole on each; the
+    embedding reaches the loss only through stage 0's injection, so the
+    microbatches enter through ``collectives.copy_to`` over ``pp`` (its
+    backward sums stage 0's cotangent to every rank); a layer's
+    gradient stays on the rank that owns it. No gradient is summed over
+    ``pp`` afterwards — that would count the head's pp times.
+
+    The stage attends through ``attention_reference``. The JAX
+    package's forces ``backend="xla"`` there, so its pipeline stage
+    runs no Pallas kernel; the port's calls ``flash_attention``, so on
+    a card the stage launches the flash forward (the lse form, under
+    autograd) and the dq / dkv backward kernels. The function is the
+    same. Every tick runs every local layer, bubbles included."""
+    _check_arch(cfg)
+    n_pp = mesh.shape[pp_axis]
+    if cfg.n_layers % n_pp:
+        raise ValueError(f"n_layers={cfg.n_layers} not divisible by "
+                         f"{pp_axis}={n_pp}")
+    if cfg.moe_experts:
+        raise ValueError("pipeline form supports dense blocks only")
+
+    def step(params: Params, tokens, targets):
+        dev = params["tok_emb"].device
+        tokens = torch.as_tensor(tokens).to(dev).long()
+        targets = torch.as_tensor(targets).to(dev).long()
+        _check_seq(tokens.shape[1], cfg)
+        b, l = tokens.shape
+        if b % n_micro:
+            raise ValueError(f"batch {b} not divisible by "
+                             f"n_micro={n_micro}")
+        tok_m = tokens.reshape(n_micro, b // n_micro, l)
+        tgt_m = targets.reshape(n_micro, b // n_micro, l)
+        local = {k[len("layers_"):]: v for k, v in params.items()
+                 if k.startswith("layers_")}
+        n_local = cfg.n_layers // n_pp
+        pos = torch.arange(l, device=dev)
+        x_micro = params["tok_emb"][tok_m]
+        if not cfg.rope:
+            x_micro = x_micro + params["pos_emb"][pos]
+        x_micro = C.copy_to(x_micro, mesh, pp_axis)
+
+        def stage(x):
+            for j in range(n_local):
+                x = _block_stacked({n: w[j] for n, w in local.items()}, x,
+                                   cfg, pos)
+            return x
+
+        outs = pipeline_apply(stage, x_micro, mesh=mesh, pp_axis=pp_axis,
+                              n_stages=n_pp)          # (M, mb, l, d)
+        loss = _mean_nll(_norm(params, "lnf", outs, cfg)
+                         @ params["tok_emb"].T, tgt_m)
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True)
+        _apply(optimizer, params, {
+            k: torch.zeros_like(p) if g is None else g
+            for (k, p), g in zip(params.items(), grads)})
+        return loss.detach()
+
+    return step

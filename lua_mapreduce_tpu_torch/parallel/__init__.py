@@ -19,8 +19,11 @@ every rank of a ``torch.distributed`` world at once:
 ``zero1`` the sharded optimizer state, ``tpu_engine`` the executor.
 ``ring_attention`` holds the sequence-parallel attention (the ring,
 zigzag and Ulysses) and the single-device oracle; ``moe`` the
-expert-parallel mixture-of-experts FFN. The multihost helpers are not
-in the port yet (ROADMAP A5).
+expert-parallel mixture-of-experts FFN; ``pipeline`` the GPipe
+schedule over a ``pp`` axis; ``multihost`` the multi-host world
+(``initialize_multihost``), meshes of any number of axes with the host
+boundary on one (``make_multihost_mesh``) and the host-local batch
+helpers.
 """
 
 from lua_mapreduce_tpu_torch.parallel.mesh import (host_mesh, make_mesh,

@@ -28,10 +28,11 @@ Trees are dicts, lists or tuples of tensors (torch's pytrees). Every
 function returns new tensors and leaves its inputs as they were; these
 forms carry no gradient (their inputs are detached). The differentiable
 forms at the end of the module — :func:`ring_hops` (the ring's
-``ppermute`` hops), :func:`all_to_all`, :func:`mean_over` and the
+``ppermute`` hops), :func:`all_to_all`, :func:`mean_over`, the
 shard_map boundaries :func:`shard_replicated` /
-:func:`gather_replicated` — are ``autograd.Function`` s whose backward
-is the adjoint collective. The
+:func:`gather_replicated`, the Megatron pair :func:`copy_to` /
+:func:`reduce_from` and the pipeline's one-hop :func:`ring_hop` — are
+``autograd.Function`` s whose backward is the adjoint collective. The
 mapping to the reference is the JAX module's: psum is the reducefn with
 the assoc+commut flags, reduce-scatter one reduce job per partition
 (server.lua:300-325), all_to_all the partitionfn shuffle, all_gather
@@ -322,3 +323,68 @@ def gather_replicated(x: torch.Tensor, mesh, axis: str, dim: int
     cotangent, which every rank holds alike when each computes the same
     loss from the gathered tensor."""
     return _Gather.apply(x, mesh, axis, dim)
+
+
+# ----------------------------------------- tensor / pipeline parallel
+#
+# The Megatron pair. A replicated activation that meets an axis-sharded
+# weight enters through ``copy_to`` (Megatron's f: identity forward,
+# psum backward — the transpose ``shard_map`` inserts by itself where a
+# replicated value meets a varying one), and a partial product leaves
+# through ``reduce_from`` (Megatron's g: psum forward, identity
+# backward).
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.args = (mesh, axis)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g, *ctx.args), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return psum(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _RingHop(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.args = (mesh, axis)
+        return ppermute_ring(x, mesh, axis, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ppermute_ring(g, *ctx.args, -1), None, None
+
+
+def copy_to(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``x`` as it is, whose gradient is summed over ``axis``: the
+    entry of a value every rank of the axis holds alike into work that
+    each rank does on its own slice (Megatron's f). Each rank's
+    backward then holds the whole gradient of ``x``."""
+    return _CopyTo.apply(x, mesh, axis)
+
+
+def reduce_from(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The sum of ``x`` over ``axis`` (``lax.psum``) whose backward
+    hands each rank the cotangent as it is (Megatron's g): the exit of
+    per-slice partial products into a value every rank holds alike."""
+    return _ReduceFrom.apply(x, mesh, axis)
+
+
+def ring_hop(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """One differentiable hop round the ring: rank i's ``x`` goes to
+    rank i + 1; the backward rotates the cotangent back by one. A
+    pipeline posts one a tick, so every rank whose graph holds the
+    hop's output posts the reverse hop in its backward."""
+    return _RingHop.apply(x, mesh, axis)

@@ -43,7 +43,7 @@ _MESHES: Dict[tuple, "Mesh"] = {}
 
 
 class Mesh:
-    """A (dp, mp) mesh of ranks.
+    """A mesh of ranks, of any rank count and number of axes.
 
     ``shape`` maps each axis name to its size and ``axis_names`` lists
     them, as on the JAX ``Mesh``; :meth:`group` is an axis's process
@@ -79,6 +79,31 @@ def _start_one_rank_world(backend: str) -> None:
                             world_size=1)
 
 
+def _join_world(dev: torch.device, n_ranks: int, what: str) -> torch.device:
+    """Check the running world against a mesh of ``n_ranks`` on ``dev``
+    — or, with no world running and one rank asked for, start one —
+    and return the device this rank computes on (a card with its
+    index). The world's backend must be the device's: a CUDA mesh never
+    runs gloo."""
+    backend = _BACKEND[dev.type]
+    if not dist.is_initialized():
+        if n_ranks != 1:
+            raise RuntimeError(
+                f"{what} needs a running world of {n_ranks} ranks: start "
+                f"them with lua_mapreduce_tpu_torch.parallel.mesh.spawn on "
+                f"one box, or with torchrun, and build the mesh in each")
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev.index or 0)
+        _start_one_rank_world(backend)
+    running = dist.get_backend()
+    if backend not in running:
+        raise RuntimeError(f"the running world's backend is {running!r}: a "
+                           f"{dev.type} mesh needs {backend}")
+    if dev.type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def make_mesh(dp: Optional[int] = None, mp: int = 1,
               device: Optional[Union[str, torch.device]] = None,
               axis_names: Tuple[str, str] = ("dp", "mp")) -> Mesh:
@@ -91,22 +116,8 @@ def make_mesh(dp: Optional[int] = None, mp: int = 1,
     one; a larger mesh raises, naming the launchers. Meshes are kept per
     world and shape, so asking again returns the same groups.
     """
-    dev = resolve_device(device)
-    backend = _BACKEND[dev.type]
-    if not dist.is_initialized():
-        if (dp or 1) * mp != 1:
-            raise RuntimeError(
-                f"a {dp}x{mp} mesh needs a running world of {(dp or 1) * mp} "
-                f"ranks: start them with lua_mapreduce_tpu_torch.parallel."
-                f"mesh.spawn on one box, or with torchrun, and call "
-                f"make_mesh in each")
-        if dev.type == "cuda":
-            torch.cuda.set_device(dev.index or 0)
-        _start_one_rank_world(backend)
-    running = dist.get_backend()
-    if backend not in running:
-        raise RuntimeError(f"the running world's backend is {running!r}: a "
-                           f"{dev.type} mesh needs {backend}")
+    dev = _join_world(resolve_device(device), (dp or 1) * mp,
+                      f"a {dp}x{mp} mesh")
     world = dist.get_world_size()
     if dp is None:
         if world % mp:
@@ -114,8 +125,6 @@ def make_mesh(dp: Optional[int] = None, mp: int = 1,
         dp = world // mp
     if dp * mp != world:
         raise ValueError(f"mesh {dp}x{mp} != {world} ranks")
-    if dev.type == "cuda":
-        dev = torch.device("cuda", torch.cuda.current_device())
     key = (dev, dp, mp, tuple(axis_names))
     mesh = _MESHES.get(key)
     if mesh is None or mesh.world is not dist.group.WORLD:

@@ -1757,3 +1757,96 @@ def test_nccl_mesh_lm_step_equals_the_no_mesh_step(cuda, moe):
                   for n in base_p)
         den = sum(float(base_p[n].norm()) ** 2 for n in base_p)
         assert (num / den) ** 0.5 <= tol, name
+
+
+def _tp_pp_meshes():
+    """The (1, 1, 1) (dp, sp, mp) and (1,) (pp,) meshes of the
+    world-size-1 NCCL world, from ``make_multihost_mesh``."""
+    from lua_mapreduce_tpu_torch.parallel.multihost import make_multihost_mesh
+    _lm_mesh()                       # the world-size-1 NCCL world
+    return (make_multihost_mesh((1, 1, 1), ("dp", "sp", "mp"),
+                                device="cuda"),
+            make_multihost_mesh((1,), ("pp",), device="cuda"))
+
+
+@pytest.mark.parametrize("form", ["3d", "pp"])
+def test_tp_pp_steps_on_the_card_match_the_cpu(cuda, form):
+    """Three free-running f32 steps of make_train_step_3d over the
+    (1, 1, 1) NCCL mesh, or of make_train_step_pp over (pp,) = (1,) in
+    2 microbatches, at 2 layers (head dim 64), on the card against the
+    no-mesh step on the CPU (the same function): losses within 1e-4
+    relative, parameters normwise within 1e-4; the attention launches
+    flash_fwd, dq and dkv once per layer a step (a tick a layer for the
+    pipeline)."""
+    from lua_mapreduce_tpu_torch.models import transformer as tt
+    from lua_mapreduce_tpu_torch.train import optim
+    m3, mpp = _tp_pp_meshes()
+    cfg = tt.TransformerConfig(vocab=256, d_model=128, n_heads=2,
+                               n_layers=2, d_ff=256, max_seq=64)
+    p0 = tt.init_transformer(0, cfg, device="cpu")
+    seq = torch.randint(0, 256, (4, 65),
+                        generator=torch.Generator().manual_seed(3))
+    tok, tgt = seq[:, :-1], seq[:, 1:]
+    pc = {n: x.detach().clone().requires_grad_(True) for n, x in p0.items()}
+    step = tt.make_train_step(cfg, optim.sgd(pc.values(), 0.1, 0.9))
+    lc = [float(step(pc, tok, tgt)) for _ in range(3)]
+    src = {n: x.detach().clone().cuda() for n, x in p0.items()}
+    if form == "3d":
+        pg = {n: x.requires_grad_(True)
+              for n, x in tt.shard_params_3d(src, m3, cfg).items()}
+        step = tt.make_train_step_3d(cfg, m3, optim.sgd(pg.values(), 0.1,
+                                                        0.9))
+        td, per = tt.shard_batch(m3, tok, tgt), 2
+    else:
+        pg = {n: x.requires_grad_(True)
+              for n, x in tt.shard_params_pp(src, mpp, cfg).items()}
+        step = tt.make_train_step_pp(cfg, mpp, optim.sgd(pg.values(), 0.1,
+                                                         0.9), n_micro=2)
+        td, per = (tok, tgt), 2 * 2
+    ops.reset_launch_counts()
+    lg = [float(step(pg, *td)) for _ in range(3)]
+    assert ops.launch_counts() == {
+        **dict.fromkeys(ops.KERNELS, 0), "flash_fwd": 3 * per,
+        "flash_bwd_dq": 3 * per, "flash_bwd_dkv": 3 * per}
+    for a, b in zip(lg, lc):
+        assert abs(a - b) <= 1e-4 * abs(b)
+    got = (tt.unshard_params_3d(pg, cfg, m3) if form == "3d"
+           else tt.unstack_params_pp(pg, cfg, mpp))
+    num = sum(float((got[n].detach().cpu() - pc[n].detach()).norm()) ** 2
+              for n in pc)
+    den = sum(float(pc[n].detach().norm()) ** 2 for n in pc)
+    assert (num / den) ** 0.5 <= 1e-4
+
+
+def test_3d_step_at_mp_1_equals_the_2d_mesh_step(cuda):
+    """make_train_step_3d over the (1, 1, 1) NCCL mesh against
+    make_train_step over the (1, 1) (dp, sp) mesh, f32, two ring steps:
+    losses within 1e-5 relative, parameters within 2e-4 (the JAX tests'
+    3-D against 2-D limits)."""
+    from lua_mapreduce_tpu_torch.models import transformer as tt
+    from lua_mapreduce_tpu_torch.train import optim
+    m3, _ = _tp_pp_meshes()
+    m2 = _lm_mesh()
+    cfg = tt.TransformerConfig(vocab=256, d_model=128, n_heads=2,
+                               n_layers=2, d_ff=256, max_seq=64)
+    p0 = tt.init_transformer(1, cfg, device="cuda")
+    seq = torch.randint(0, 256, (4, 65),
+                        generator=torch.Generator().manual_seed(4))
+    runs = {}
+    for form, m in (("3d", m3), ("2d", m2)):
+        src = {n: x.detach().clone() for n, x in p0.items()}
+        if form == "3d":
+            src = tt.shard_params_3d(src, m, cfg)
+        p = {n: x.requires_grad_(True) for n, x in src.items()}
+        opt = optim.sgd(p.values(), 0.1, 0.9)
+        step = (tt.make_train_step_3d(cfg, m, opt) if form == "3d"
+                else tt.make_train_step(cfg, opt, mesh=m))
+        td = tt.shard_batch(m, seq[:, :-1], seq[:, 1:])
+        losses = [float(step(p, *td)) for _ in range(2)]
+        runs[form] = (losses, tt.unshard_params_3d(p, cfg, m)
+                      if form == "3d" else p)
+    for a, b in zip(runs["3d"][0], runs["2d"][0]):
+        assert abs(a - b) <= 1e-5 * abs(b)
+    for n, want in runs["2d"][1].items():
+        torch.testing.assert_close(runs["3d"][1][n].detach(), want.detach(),
+                                   rtol=2e-4, atol=2e-4)

@@ -382,20 +382,23 @@ def test_async_checkpoint_is_read_by_both_packages(tmp_path):
 
 
 def test_unported_options_raise():
-    """What the port still lacks raises, naming ROADMAP A5: a mesh axis
-    beyond (dp, sp) (the 3-D tensor-parallel and pipeline steps). The
-    JAX package's ValueErrors stay; zigzag and Ulysses now run on one
-    shard (the ring's loss, 1e-6), and train_lm asks for a world of
-    dp·sp ranks."""
+    """No option of the LM trainer is left unported: a mesh axis beyond
+    (dp, sp) replicates the 2-D step, as the JAX ``make_train_step``
+    does on a (dp, sp, mp) mesh, so the step builds there, and so does
+    the 3-D step (both run on a (2, 2, 2) world in
+    tests/test_torch_tp_pp.py). The JAX package's ValueErrors stay;
+    zigzag and Ulysses run on one shard (the ring's loss, 1e-6), and
+    train_lm asks for a world of dp·sp ranks."""
     import types
 
     from lua_mapreduce_tpu_torch.examples.lm import train_lm
     _, tc = _cfgs("tiny")
     _, tp = _params(_cfgs("tiny")[0])
     opt = optim.sgd(tp.values(), 0.1)
-    mesh3 = types.SimpleNamespace(shape={"dp": 1, "sp": 1, "mp": 2})
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        tt.make_train_step(tc, opt, mesh=mesh3)
+    mesh3 = types.SimpleNamespace(shape={"dp": 1, "sp": 1, "mp": 2},
+                                  axis_index=lambda axis: 0)
+    assert callable(tt.make_train_step(tc, opt, mesh=mesh3))
+    assert callable(tt.make_train_step_3d(tc, mesh3, opt))
     with pytest.raises(ValueError, match="mesh="):
         tt.make_train_step(tc, opt, zero1=True)
     with pytest.raises(ValueError, match="unknown attn"):

@@ -158,8 +158,10 @@ def test_unported_options_raise():
     """MoE and the sequence-parallel prefill are ported: an MoE config
     initialises and decodes (tests/test_torch_moe.py holds it to the
     JAX package) and the sharded prefill refuses MoE as the JAX one
-    does; a mesh axis beyond (dp, sp) — the 3-D and pipeline forms —
-    raises, naming ROADMAP A5. Sampling and remat run."""
+    does; a mesh axis beyond (dp, sp) replicates the sharded forward,
+    as the JAX ``make_sharded_apply`` does on a (dp, sp, mp) mesh, so
+    it builds there (tests/test_torch_tp_pp.py runs it on a (2, 2, 2)
+    world). Sampling and remat run."""
     import types
     _, tc = _cfgs("tiny")
     tp = tt.init_transformer(0, tc, device="cpu")
@@ -173,9 +175,9 @@ def test_unported_options_raise():
     assert tuple(out.shape) == (1, 6) and out.dtype == torch.int32
     with pytest.raises(ValueError, match="dense"):
         tt.prefill(mp, toks, cfg=moe, mesh=object())
-    mesh3 = types.SimpleNamespace(shape={"dp": 1, "sp": 1, "mp": 2})
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        tt.make_sharded_apply(tc, mesh3)
+    mesh3 = types.SimpleNamespace(shape={"dp": 1, "sp": 1, "mp": 2},
+                                  axis_index=lambda axis: 0)
+    assert callable(tt.make_sharded_apply(tc, mesh3))
     # sampling is ported (tests/test_torch_sampling.py): it runs
     out = tt.greedy_decode(tp, toks, 2, cfg=tc, temperature=0.7, key=0)
     assert tuple(out.shape) == (1, 6) and out.dtype == torch.int32

@@ -633,3 +633,220 @@ def train_lm_cases(mesh, d):
     train_lm.tt.init_transformer = init_from_jax
     return [train_lm.run(train_lm.build_parser().parse_args(argv))
             for argv in d["runs"]]
+
+
+# --------------------------------------- tensor / pipeline parallel LM
+
+def _tp_steps(cfg, m, np3, tok, tgt, n_steps, make_opt=None, **kw):
+    """``n_steps`` of make_train_step_3d over ``m`` from the JAX
+    package's 3-D dict (this rank's mp slices): the losses, and the
+    canonical params and the last step's gradients, gathered back
+    whole."""
+    from lua_mapreduce_tpu_torch.convert import params_from_jax
+    from lua_mapreduce_tpu_torch.models import transformer as tt
+    from lua_mapreduce_tpu_torch.train import optim
+    p = {k: v.requires_grad_(True) for k, v in params_from_jax(
+        np3, mesh=m, mp_axis="mp").items()}
+    make_opt = make_opt or (lambda ps: optim.sgd(ps, 0.1))
+    step = tt.make_train_step_3d(cfg, m, make_opt(p.values()), **kw)
+    td = tt.shard_batch(m, tok, tgt, schedule="zigzag" if kw.get(
+        "zigzag_layout") else "contiguous")
+    losses = [float(step(p, *td)) for _ in range(n_steps)]
+    return losses, {k: _np(v) for k, v in
+                    tt.unshard_params_3d(p, cfg, m).items()}, {
+        k: _np(v) for k, v in tt.unshard_params_3d(
+            {k: v.grad for k, v in p.items()}, cfg, m).items()}
+
+
+def _pp_steps(cfg, m, np_pp, tok, tgt, n_steps, n_micro, make_opt=None):
+    """``n_steps`` of make_train_step_pp over ``m`` from the JAX
+    package's pipeline stack (this stage's layers): the losses and the
+    canonical params, gathered back whole."""
+    from lua_mapreduce_tpu_torch.convert import params_from_jax
+    from lua_mapreduce_tpu_torch.models import transformer as tt
+    from lua_mapreduce_tpu_torch.train import optim
+    p = {k: v.requires_grad_(True) for k, v in params_from_jax(
+        np_pp, mesh=m, pp_axis="pp").items()}
+    make_opt = make_opt or (lambda ps: optim.sgd(ps, 0.1))
+    step = tt.make_train_step_pp(cfg, m, make_opt(p.values()),
+                                 n_micro=n_micro)
+    losses = [float(step(p, tok, tgt)) for _ in range(n_steps)]
+    return losses, {k: _np(v) for k, v in
+                    tt.unstack_params_pp(p, cfg, m).items()}
+
+
+def _errors(calls):
+    """Each call's ValueError message (None when it returns)."""
+    errs = {}
+    for name, call in calls:
+        try:
+            call()
+            errs[name] = None
+        except ValueError as e:
+            errs[name] = str(e)
+    return errs
+
+
+def multihost_cases(mesh, d):
+    """The multihost helpers of tests/test_torch_multihost.py in this
+    world of 8 ranks: one host (no LOCAL_WORLD_SIZE), then hosts of 2
+    ranks — the hybrid (dp 4, mp 2) mesh of tests/test_multihost.py's
+    four processes."""
+    import torch.distributed as dist
+
+    from lua_mapreduce_tpu_torch.models.mlp import nll_loss
+    from lua_mapreduce_tpu_torch.parallel import multihost as mh
+    from lua_mapreduce_tpu_torch.train.harness import (DataParallelTrainer,
+                                                       TrainConfig)
+    out = {}
+    os.environ.pop("LOCAL_WORLD_SIZE", None)
+    m = mh.make_multihost_mesh((4, 2), ("dp", "mp"), device="cpu")
+    out["single_shape"] = dict(m.shape)
+    out["single_mesh"] = m.device_mesh.mesh.tolist()
+    out["single_batch"] = mh.process_local_batch(32)
+    out["errors"] = _errors([("count", lambda: mh.make_multihost_mesh(
+        (8, 2), ("dp", "mp"), device="cpu"))])
+    m8 = mh.make_multihost_mesh((8,), ("dp",), device="cpu")
+    tile = mh.global_batch_array(m8, ("dp",), d["x8"])
+    out["tile"] = _np(tile)
+    out["tile_gathered"] = _np(C.all_gather(tile, m8, "dp"))
+    out["tile_sum"] = float(C.psum(tile.sum(), m8, "dp"))
+    tr = DataParallelTrainer(nll_loss, d["mlp"], TrainConfig(batch_size=16),
+                             mesh=mh.make_multihost_mesh(
+                                 (8, 1), ("dp", "mp"), device="cpu"))
+    out["dp_losses"] = _np(tr.run_steps(d["mlp_x"], d["mlp_y"], 3))
+
+    os.environ["LOCAL_WORLD_SIZE"] = "2"
+    try:
+        m = mh.make_multihost_mesh((4, 2), ("dp", "mp"), device="cpu")
+        out["hybrid_mesh"] = m.device_mesh.mesh.tolist()
+        out["hybrid_index"] = (m.axis_index("dp"), m.axis_index("mp"))
+        per, off = mh.process_local_batch(8)
+        out["hybrid_batch"] = (per, off)
+        gx = d["gx"]
+        x = mh.global_batch_array(m, ("dp", "mp"), gx[off:off + per])
+        out["hybrid_tile"] = _np(x)
+        rows = torch.arange(2 * m.axis_index("dp"),
+                            2 * m.axis_index("dp") + 2)[:, None].float()
+
+        def poswsum(a):
+            return float(C.psum(C.psum((a * rows).sum(), m, "mp"), m, "dp"))
+        out["poswsum"] = poswsum(x)
+        # a dp ring: every hop crosses a host
+        out["poswsum_rolled"] = poswsum(C.ppermute_ring(x, m, "dp", 1))
+        # the two-level reduction: mp inside a host, dp across hosts
+        w = torch.from_numpy(d["w"])
+        ws = w.narrow(0, 8 * m.axis_index("mp"), 8)
+        y = C.psum(x @ ws, m, "mp")
+        out["two_level"] = float(C.psum((y * y).sum() / 8.0, m, "dp"))
+        out["hybrid_errors"] = _errors([
+            ("dcn", lambda: mh.make_multihost_mesh((4, 2), ("dp", "mp"),
+                                                   dcn_axis=1, device="cpu")),
+            ("rows", lambda: mh.global_batch_array(m, ("mp", "dp"),
+                                                   gx[off:off + per]))])
+        out["world"] = dist.get_world_size()
+    finally:
+        os.environ.pop("LOCAL_WORLD_SIZE", None)
+    return out
+
+
+def tp_pp_cases(mesh, d):
+    """Every case of tests/test_torch_tp_pp.py for a world of this
+    size: 8 ranks — the 3-D step over (dp, sp, mp) = (2, 2, 2); 4
+    ranks — the pipeline over pp = 4 and the 3-D step over (1, 2, 2);
+    2 ranks — the pipeline over pp = 2."""
+    import dataclasses
+
+    from lua_mapreduce_tpu_torch.models import transformer as tt
+    from lua_mapreduce_tpu_torch.parallel.multihost import make_multihost_mesh
+    from lua_mapreduce_tpu_torch.train import optim
+    n = mesh.shape["dp"]
+    cfgs = {k: tt.TransformerConfig(**v) for k, v in d["cfgs"].items()}
+    P = d["params"]
+    out = {}
+
+    def adam(ps):
+        return optim.adam(ps, 3e-3)
+
+    def sgd(ps):
+        return optim.sgd(ps, 0.1)
+
+    if n == 8:
+        m = make_multihost_mesh((2, 2, 2), ("dp", "sp", "mp"), device="cpu")
+        cfg = cfgs["tiny"]
+        tok, tgt = d["tok"], d["tgt"]
+        out["index"] = tuple(m.axis_index(a) for a in ("dp", "sp", "mp"))
+        for attn in ("ring", "zigzag"):
+            out[f"3d_{attn}"] = _tp_steps(cfg, m, P["tiny7_3d"], tok, tgt, 1,
+                                          attn=attn)
+        out["3d_zigzag_pre"] = _tp_steps(cfg, m, P["tiny7_3d"], tok, tgt, 1,
+                                         attn="zigzag", zigzag_layout=True)
+        for accum in (1, 2):
+            out[f"3d_accum{accum}"] = _tp_steps(
+                cfg, m, P["tiny12_3d"], d["tok_a"], d["tgt_a"], 1,
+                grad_accum=accum)
+        out["3d_modern"] = _tp_steps(cfgs["modern"], m, P["modern10_3d"],
+                                     d["tok_m"], d["tgt_m"], 1)
+        out["3d_learns"] = _tp_steps(cfg, m, P["tiny2_3d"], d["tok_l"],
+                                     d["tgt_l"], 50, make_opt=adam)[0]
+        # the 2-D entry points on the 3-D mesh: mp replicates them
+        p2 = {k: v.requires_grad_(True) for k, v in
+              _lm_params(P["tiny7"]).items()}
+        step2 = tt.make_train_step(cfg, sgd(p2.values()), mesh=m)
+        out["2d_on_3d"] = ([float(step2(p2, *tt.shard_batch(m, tok, tgt)))],
+                           {k: _np(v) for k, v in p2.items()})
+        out["apply_on_3d"] = _np(tt.make_sharded_apply(cfg, m)(
+            {k: v.detach() for k, v in _lm_params(P["tiny7"]).items()}, tok))
+        pq = {k: v.requires_grad_(True) for k, v in
+              _lm_params(P["tiny7"]).items()}
+        gqa = dataclasses.replace(cfgs["modern"], n_kv_heads=2)
+        out["errors"] = _errors([
+            ("heads", lambda: tt.make_train_step_3d(
+                tt.TransformerConfig(vocab=32, d_model=32, n_heads=3,
+                                     n_layers=1, d_ff=32, max_seq=64), m,
+                sgd(pq.values()))),
+            ("moe", lambda: tt.make_train_step_3d(cfgs["moe"], m,
+                                                  sgd(pq.values()))),
+            ("gqa", lambda: tt.make_train_step_3d(gqa, m, sgd(pq.values()))),
+            ("gqa_shard", lambda: tt.shard_params_3d(
+                _lm_params(P["modern10"]), m, gqa)),
+            ("layout", lambda: tt.make_train_step_3d(cfg, m, sgd(pq.values()),
+                                                     zigzag_layout=True)),
+            ("ulysses", lambda: tt.make_train_step_3d(
+                dataclasses.replace(cfg, n_heads=2), m, sgd(pq.values()),
+                attn="ulysses"))])
+    elif n == 4:
+        pcfg = cfgs["pp"]
+        mp = make_multihost_mesh((4,), ("pp",), device="cpu")
+        out["pp4"] = _pp_steps(pcfg, mp, P["pp3_stack"], d["tok_p"],
+                               d["tgt_p"], 1, n_micro=4)
+        out["pp4_learns"] = _pp_steps(pcfg, mp, P["pp4_stack"], d["tok_pl"],
+                                      d["tgt_pl"], 50, n_micro=4,
+                                      make_opt=adam)[0]
+        pq = {k: v.requires_grad_(True) for k, v in
+              _lm_params(P["pp3_stack"]).items()}
+        out["pp_errors"] = _errors([
+            ("layers", lambda: tt.make_train_step_pp(
+                dataclasses.replace(pcfg, n_layers=3), mp, sgd(pq.values()),
+                n_micro=2)),
+            ("moe", lambda: tt.make_train_step_pp(
+                dataclasses.replace(cfgs["moe"], n_layers=4), mp,
+                sgd(pq.values()), n_micro=2)),
+            ("batch", lambda: tt.make_train_step_pp(
+                pcfg, mp, sgd(pq.values()), n_micro=3)(
+                    pq, d["tok_p"], d["tgt_p"]))])
+        m = make_multihost_mesh((1, 2, 2), ("dp", "sp", "mp"), device="cpu")
+        for attn in ("ring", "ulysses"):
+            out[f"3d122_{attn}"] = _tp_steps(
+                cfgs["modern"], m, P["modern10_3d"], d["tok_m"], d["tgt_m"],
+                1, attn=attn)
+    elif n == 2:
+        mp = make_multihost_mesh((2,), ("pp",), device="cpu")
+        for name, seed, tag in (("modern", 11, "tok_pm"),
+                                ("window", 6, "tok_w")):
+            key = f"{name}{seed}_pp"
+            out[f"pp2_{name}"] = _pp_steps(
+                cfgs[f"{name}_pp"], mp, P[key], d[tag],
+                d[tag.replace("tok", "tgt")], 1, n_micro=2,
+                make_opt=lambda ps: optim.sgd(ps, 0.05))
+    return out
