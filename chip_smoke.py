@@ -189,9 +189,34 @@ Phases, each a hard failure on any mismatch:
              the no-mesh step on the CPU, and on the card the 3-D step
              against the 2-D mesh step and pp against no mesh within
              1e-5 (loss) / 2e-4 (parameters).
+24. data plane — the host plane's object store, v2 segments, retry and
+             fault-injection layers, lmr-trace and pipelined shuffle:
+             (a) phase 21's digits task through ``Server(FileJobStore,
+             pipeline=True, premerge_min_runs=2, segment_format="v2")``
+             and two ``execute_worker --trace`` processes on ``object:``
+             spill, every process under one seeded ``LMR_FAULT_PLAN``
+             (transient, torn, error-after-write and coord-RPC faults):
+             ``result.P*``, ``model.ckpt`` and ``model.meta`` byte-equal
+             to phase 21's LocalExecutor run, launches summed over the
+             processes equal to the code's, the faults the plans fired
+             equal to the ``faults_injected`` counted, retries taken,
+             every committed job of every iteration with an unbroken
+             claim → body → commit span chain; ms/iteration beside phase
+             21's; (b) word count at Europarl v7's shape (197 files of
+             Zipf text from the seed, lines cut from 10,000 to
+             WC_LINES; printed) through ``cli.execute_server --pipeline
+             --segment-format v2 --trace --inline-workers 4`` on
+             ``object:`` with the example's 15-way partitioner: counts
+             equal to a naive count, result bytes equal to a barrier v1
+             LocalExecutor run, the pre-merge overlap from the spans
+             and the Chrome trace under ``build/`` (``python -m
+             lua_mapreduce_tpu_torch.trace --export``); (c) one
+             iteration of (a) with ``--trace --profile`` in the workers
+             and the server: the span names are rows of each torch
+             profile beside the B1/B2 kernel rows.
 
 Launch counts are zeroed just before each run of phases 4, 5, 6, 8, 10 and
-15-23 (phase 21's worker processes start at zero) and
+15-24 (phase 21's and 24's worker processes start at zero) and
 read just after, and must equal the counts worked out from the code; a
 kernel of the paths with no launch there fails the run. The
 card's name and power limit, then one JSON line of per-kernel numbers,
@@ -4238,6 +4263,428 @@ def phase_tp_pp_check(torch, ops, meshes, mesh2, seed=5):
     return out
 
 
+# ------------------------------------------------------------ phase 24
+
+# (a) the pool's digits task over the new data plane: pipelined shuffle
+# (pre_merge over 2..8 runs), v2 spills on an ``object:`` bucket, every
+# process under one seeded LMR_FAULT_PLAN of data-plane and coord-RPC
+# faults (max_per_key 2 < the default retry budget of 3: every burst is
+# absorbed, so no job runs twice), traced
+DP_FAULT_PLAN = ("seed=24;transient=0.04;torn=0.08;error_after_write=0.12;"
+                 "rpc_transient=0.03;max_per_key=2")
+# (b) word count at the reference's Europarl v7 shape (BASELINE.md:3-7):
+# 197 files of ≤10,000 lines, ~25 words a line; here a Zipf vocabulary
+# (100,000 words, exponent 1.1) drawn from the seed, the example's
+# 15-way FNV partitioner. Pure-Python map and reduce threads share one
+# GIL: at 600 lines a file the pipelined CLI took 34.6 s and the barrier
+# reference 32.2 s on the H100 machine (0.11 s a line a file for both),
+# so the published 10,000 lines would take ~19 min; the lines are cut
+# to WC_LINES, which keeps this part near 90 s (printed as a cut).
+WC_FILES, WC_LINES_PUBLISHED, WC_LINES = 197, 10_000, 750
+WC_WORDS_PER_LINE, WC_VOCAB, WC_ZIPF = 25, 100_000, 1.1
+WC_DEVICE = "cuda"          # the workers' device (the task asks for it)
+WC_MODULES = ("examples.wordcount.taskfn", "examples.wordcount.mapfn",
+              "examples.wordcount.partitionfn", "examples.wordcount.reducefn")
+
+
+def europarl_corpus(root, n_files, lines, seed=0):
+    """``n_files`` text files of ``lines`` lines of WC_WORDS_PER_LINE
+    words drawn from a Zipf distribution over a seeded vocabulary."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    words = ["".join(rng.choice(letters, n)) + str(i % 7)
+             for i, n in enumerate(rng.integers(2, 12, WC_VOCAB))]
+    cdf = np.cumsum(1.0 / np.arange(1, WC_VOCAB + 1) ** WC_ZIPF)
+    cdf /= cdf[-1]
+    os.makedirs(root, exist_ok=True)
+    paths = []
+    w = WC_WORDS_PER_LINE
+    for f in range(n_files):
+        ids = np.minimum(np.searchsorted(cdf, rng.random(lines * w)),
+                         WC_VOCAB - 1)
+        toks = [words[i] for i in ids]
+        path = os.path.join(root, f"europarl-{f:03d}.txt")
+        with open(path, "w") as fh:
+            fh.write("\n".join(" ".join(toks[i:i + w])
+                               for i in range(0, len(toks), w)) + "\n")
+        paths.append(path)
+    return paths
+
+
+def result_bytes(spec):
+    """A task's ``result.P*`` files by name, read through ``spec``."""
+    import re
+
+    from lua_mapreduce_tpu_torch.store.router import get_storage_from
+    st = get_storage_from(spec)
+    return {n: st.read_range(n, 0, st.size(n)) for n in st.list("result.P*")
+            if re.match(r"^result\.P\d+$", n)}
+
+
+def dataplane_spec(root, **args):
+    from lua_mapreduce_tpu_torch.engine import TaskSpec
+    return TaskSpec(taskfn=DIGITS, mapfn=DIGITS, partitionfn=DIGITS,
+                    reducefn=DIGITS, finalfn=DIGITS,
+                    init_args={**POOL_ARGS, **args,
+                               "model_store": f"shared:{root}/model"},
+                    storage=f"object:{root}/spill")
+
+
+def start_dataplane_workers(coord, reports, extra=(), env=None):
+    return [subprocess.Popen(
+        [sys.executable, "-m", "lua_mapreduce_tpu_torch.cli.execute_worker",
+         coord, "--name", f"dp-w{i}", "--max-iter", "4000",
+         "--max-sleep", str(POOL_MAX_SLEEP_S), "--report", path, "--trace",
+         *(a.format(i=i) for a in extra)],
+        cwd=REPO, env=env or subprocess_env())
+        for i, path in enumerate(reports)]
+
+
+def recording_drops(store, seen):
+    """Record each namespace's WRITTEN job ids (with the iteration the
+    tracer is on) when the Server drops it at a loop rollover."""
+    from lua_mapreduce_tpu_torch.core.constants import Status
+    drop = store.drop_ns
+
+    def drop_ns(ns):
+        it = int((store.get_task() or {}).get("iteration", 0))
+        seen.setdefault(it, []).extend(
+            (ns, d["_id"]) for d in store.jobs(ns)
+            if d["status"] == Status.WRITTEN)
+        return drop(ns)
+    store.drop_ns = drop_ns
+
+
+def profile_names(path):
+    """(host annotation names, kernel names) of a torch profile trace."""
+    events = json.load(open(path))["traceEvents"]
+    user = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    kern = {e["name"] for e in events if e.get("cat") == "kernel"}
+    return user, kern
+
+
+def phase_dataplane(torch, ops, pool):
+    """The host plane's first A6b half on the card: (a) phase 21's digits
+    task through ``Server(FileJobStore, pipeline=True, premerge_min_runs
+    =2, segment_format="v2")`` and two ``execute_worker --trace``
+    processes on ``object:`` spill under one LMR_FAULT_PLAN: result files
+    and the checkpoint byte-equal to phase 21's LocalExecutor run,
+    launches summed over the processes equal to the code's, the faults
+    the plan fired equal to the ``faults_injected`` counted, retries
+    taken, and an unbroken claim → body → commit chain for every
+    committed job of every iteration; (b) word count at Europarl's
+    shape through ``cli.execute_server --pipeline --segment-format v2
+    --trace --inline-workers 4`` on ``object:``: counts equal to a naive
+    count, result bytes equal to a barrier v1 run, the pre-merge overlap
+    from the spans, the Chrome trace exported under ``build/``; (c) one
+    iteration of (a)'s server with ``--trace --profile`` in the workers
+    and the server: the span names are rows of the torch profiles
+    beside the B1/B2 kernel rows."""
+    import shutil
+
+    from lua_mapreduce_tpu_torch.coord.filestore import FileJobStore
+    from lua_mapreduce_tpu_torch.engine import LocalExecutor, Server, TaskSpec
+    from lua_mapreduce_tpu_torch.faults.retry import COUNTERS
+    from lua_mapreduce_tpu_torch.faults.wrappers import active_plan
+    from lua_mapreduce_tpu_torch.store.router import get_storage_from
+    from lua_mapreduce_tpu_torch.trace.collect import TraceCollection
+    from lua_mapreduce_tpu_torch.trace.span import Tracer, install_tracer
+    from lua_mapreduce_tpu_torch.utils.profiling import device_trace
+    base = os.path.join(REPO, "build", "smoke-dataplane")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    zero = dict.fromkeys(ops.KERNELS, 0)
+    rep = {"fault_plan": DP_FAULT_PLAN}
+    want_bytes = task_bytes(os.path.join(REPO, "build", "smoke-pool",
+                                         "local"))
+    runs = []
+
+    # (a) the digits pool over the new data plane
+    root = os.path.join(base, "pool")
+    coord = os.path.join(base, "coord")
+    reports = [os.path.join(base, f"worker{i}.json")
+               for i in range(POOL_WORKERS)]
+    env = dict(subprocess_env(), LMR_FAULT_PLAN=DP_FAULT_PLAN)
+    procs = start_dataplane_workers(coord, reports, env=env)
+    os.environ["LMR_FAULT_PLAN"] = DP_FAULT_PLAN
+    install_tracer(Tracer())
+    committed = {}
+    try:
+        # the snapshot comes first: loading the task (its init) already
+        # touches the model store under the plan
+        c0 = COUNTERS.snapshot()
+        plan = active_plan()
+        raw = FileJobStore(coord)
+        recording_drops(raw, committed)
+        server = Server(raw, poll_interval=POOL_POLL_S, pipeline=True,
+                        premerge_min_runs=2, segment_format="v2"
+                        ).configure(dataplane_spec(root))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        stats = server.loop()
+        torch.cuda.synchronize()
+        server_counts = ops.launch_counts()
+        server_delta = COUNTERS.delta(c0, COUNTERS.snapshot())
+        server_fired = plan.total_fired()
+        codes = stop_workers(procs, 60)
+    except BaseException:
+        stop_workers(procs, 0)
+        raise
+    finally:
+        install_tracer(None)
+        os.environ.pop("LMR_FAULT_PLAN", None)
+    if codes != [0] * POOL_WORKERS:
+        raise AssertionError(f"data-plane worker processes exited {codes}")
+    final_it = len(stats.iterations)
+    from lua_mapreduce_tpu_torch.core.constants import (MAP_NS, PRE_NS,
+                                                        RED_NS, Status)
+    committed.setdefault(final_it, []).extend(
+        (ns, d["_id"]) for ns in (MAP_NS, PRE_NS, RED_NS)
+        for d in raw.jobs(ns) if d["status"] == Status.WRITTEN)
+    got_bytes = {}
+    for sub, spec in (("spill", f"object:{root}/spill"),
+                      ("model", f"shared:{root}/model")):
+        st = get_storage_from(spec)
+        for name in st.list("*"):
+            if name.startswith("result.P") and name.count(".") == 1 or \
+                    name in ("model.ckpt", "model.meta"):
+                got_bytes[f"{sub}/{name}"] = st.read_range(name, 0,
+                                                           st.size(name))
+    if got_bytes != want_bytes:
+        differ = sorted(n for n in set(want_bytes) | set(got_bytes)
+                        if want_bytes.get(n) != got_bytes.get(n))
+        raise AssertionError(f"data-plane digits files differ from phase "
+                             f"21's LocalExecutor: {differ}")
+    wreps = [json.load(open(p)) for p in reports]
+    worker_counts = {k: sum(r["launches"][k] for r in wreps)
+                     for k in ops.KERNELS}
+    want_w = {**zero, "matmul_f32": POOL_ITERS * 4 * 5,
+              "rowwise_softmax": POOL_ITERS * 4}
+    want_s = {**zero, "matmul_f32": POOL_ITERS * 2,
+              "rowwise_softmax": POOL_ITERS}
+    if worker_counts != want_w or server_counts != want_s:
+        raise AssertionError(f"data-plane launches: workers {worker_counts}"
+                             f" (expected {want_w}), server {server_counts} "
+                             f"(expected {want_s})")
+    runs += [worker_counts, server_counts]
+    counters = {k: server_delta.get(k, 0)
+                + sum(r["counters"].get(k, 0) for r in wreps)
+                for k in ("faults_injected", "retries", "retry_exhausted",
+                          "build_verified", "infra_releases")}
+    fired = server_fired + sum(sum(r["faults_fired"].values())
+                               for r in wreps)
+    by_kind = {}
+    for d in [dict(plan.fired)] + [r["faults_fired"] for r in wreps]:
+        for k, v in d.items():
+            by_kind[k] = by_kind.get(k, 0) + v
+    if counters["faults_injected"] != fired or not fired:
+        raise AssertionError(
+            f"faults_injected {counters['faults_injected']} != the plan's "
+            f"fired faults {fired} (server {server_delta.get('faults_injected', 0)}"
+            f"/{server_fired}, workers "
+            f"{[(r['counters'].get('faults_injected', 0), r['faults_fired']) for r in wreps]})")
+    if counters["retries"] <= 0:
+        raise AssertionError("no store retry under the fault plan")
+    col = TraceCollection.from_store(get_storage_from(f"object:{root}/spill"))
+    n_jobs, problems = 0, []
+    for it, jobs in sorted(committed.items()):
+        sub = TraceCollection([s for s in col.spans if s.get("it") == it])
+        problems += [f"it{it} {p}" for p in sub.check_complete(jobs)]
+        n_jobs += len(jobs)
+    if problems or n_jobs < POOL_ITERS * 5:
+        raise AssertionError(f"trace chains: {n_jobs} committed jobs, "
+                             f"broken: {problems[:5]}")
+    its = stats.iterations
+    walls = [1e3 * it.wall_time for it in its]
+    rep["digits"] = {
+        "iterations": len(its), "first_iteration_ms": walls[0],
+        "ms_per_iteration": sum(walls[1:]) / (len(walls) - 1),
+        "phase21_pool_ms_per_iteration": pool["digits"]["ms_per_iteration"],
+        "phase21_local_ms_per_iteration":
+            pool["digits"]["local_ms_per_iteration"],
+        "premerge_jobs": sum(it.premerge.count for it in its),
+        "overlap_fraction": [it.overlap_fraction for it in its],
+        "faults_fired": fired, "faults_by_kind": by_kind,
+        "counters": counters, "trace_spans": len(col.spans),
+        "committed_jobs_with_complete_chains": n_jobs,
+        "files_equal": sorted(want_bytes),
+        "launches_workers": worker_counts, "launches_server": server_counts}
+    d = rep["digits"]
+    log(f"[dataplane] digits 256-128-10, 4x128, {len(its)} iterations, "
+        f"pipelined (pre_merge {d['premerge_jobs']} jobs) v2 on object:, "
+        f"2 traced worker processes under LMR_FAULT_PLAN: "
+        f"{d['ms_per_iteration']:.1f} ms/iteration after the first "
+        f"({d['first_iteration_ms']:.1f} ms); phase 21's pool "
+        f"{d['phase21_pool_ms_per_iteration']:.1f}, its LocalExecutor "
+        f"{d['phase21_local_ms_per_iteration']:.1f} ms/iteration; "
+        f"{len(want_bytes)} files byte-equal to phase 21's LocalExecutor")
+    log(f"[dataplane] faults fired {fired} {by_kind} = faults_injected "
+        f"{counters['faults_injected']}; retries {counters['retries']}, "
+        f"readback-verified builds {counters['build_verified']}, retry "
+        f"budgets exhausted {counters['retry_exhausted']}; {n_jobs} "
+        f"committed jobs, every claim -> body -> commit chain complete "
+        f"({len(col.spans)} spans); launches workers {worker_counts}, "
+        f"server {server_counts}")
+
+    # (b) word count at Europarl's shape through the CLI
+    wc = os.path.join(base, "wordcount")
+    t0 = time.perf_counter()
+    files = europarl_corpus(os.path.join(wc, "corpus"), WC_FILES, WC_LINES)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "lua_mapreduce_tpu_torch.cli.execute_server",
+         "mem", *WC_MODULES, "--combinerfn", "examples.wordcount.reducefn",
+         "--storage", f"object:{wc}/spill", "--init-arg",
+         "files=" + os.pathsep.join(files), "--init-arg",
+         f"device={WC_DEVICE}", "--inline-workers", "4",
+         "--pipeline", "--segment-format", "v2", "--trace",
+         "--engine", "store", "--poll", str(POOL_POLL_S), "--quiet"],
+        cwd=REPO, env=subprocess_env(), capture_output=True, text=True,
+        timeout=600)
+    cli_s = time.perf_counter() - t0
+    if out.returncode:
+        raise AssertionError(f"word count server exited {out.returncode}:"
+                             f"\n{out.stderr[-3000:]}")
+    t0 = time.perf_counter()
+    bar = LocalExecutor(TaskSpec(
+        taskfn=WC_MODULES[0], mapfn=WC_MODULES[1], partitionfn=WC_MODULES[2],
+        reducefn=WC_MODULES[3], combinerfn=WC_MODULES[3],
+        init_args={"files": files, "device": WC_DEVICE},
+        storage=f"object:{wc}/barrier"),
+        map_parallelism=4, engine="store")
+    bar.run()
+    bar_s = time.perf_counter() - t0
+    got_res = result_bytes(f"object:{wc}/spill")
+    if not got_res or got_res != result_bytes(f"object:{wc}/barrier"):
+        raise AssertionError("pipelined v2 word count result files differ "
+                             "from the barrier v1 run's")
+    from lua_mapreduce_tpu_torch.core.serialize import load_record
+    got = {}
+    for data in got_res.values():
+        for line in data.decode("utf-8").splitlines():
+            if line.strip():
+                k, v = load_record(line)
+                got[k] = v[0]
+    t0 = time.perf_counter()
+    naive = naive_wordcount(files)
+    naive_s = time.perf_counter() - t0
+    if got != naive:
+        raise AssertionError("pipelined word count differs from the naive "
+                             "count")
+    chrome = os.path.join(base, "wordcount.chrome.json")
+    tr = subprocess.run(
+        [sys.executable, "-m", "lua_mapreduce_tpu_torch.trace",
+         f"object:{wc}/spill", "--export", chrome, "--format", "json"],
+        cwd=REPO, env=subprocess_env(), capture_output=True, text=True,
+        timeout=300)
+    if tr.returncode:
+        raise AssertionError(f"trace CLI exited {tr.returncode}: "
+                             f"{tr.stderr[-2000:]}")
+    trep = json.loads(tr.stdout)
+    phases = {r["phase"]: r for r in trep["phases"]}
+    n_words = sum(naive.values())
+    rep["wordcount"] = {
+        "files": WC_FILES, "lines_per_file": WC_LINES,
+        "published_lines_per_file": WC_LINES_PUBLISHED,
+        "words": n_words, "distinct_words": len(naive),
+        "partitions": len(got_res), "corpus_s": gen_s, "cli_s": cli_s,
+        "barrier_local_s": bar_s, "naive_s": naive_s,
+        "premerge_overlap_from_spans": trep["premerge_overlap"],
+        "phases": phases, "spans": trep["spans"], "chrome_trace": chrome}
+    w = rep["wordcount"]
+    log(f"[dataplane] word count at Europarl's shape: {WC_FILES} files x "
+        f"{WC_LINES} lines (cut from the published {WC_LINES_PUBLISHED}: "
+        f"pure-Python map/reduce threads under one GIL), {n_words} words, "
+        f"{len(naive)} distinct, {len(got_res)} partitions (15-way FNV)")
+    log(f"[dataplane] execute_server --pipeline --segment-format v2 "
+        f"--trace --inline-workers 4 on object: {cli_s:.2f} s with the "
+        f"process start; barrier v1 LocalExecutor (4 threads) "
+        f"{bar_s:.2f} s; result bytes equal, counts equal the naive count "
+        f"({naive_s:.2f} s); pre-merge overlap from the spans "
+        f"{trep['premerge_overlap']}; phases "
+        + ", ".join(f"{k} {v['jobs']} jobs {v['window_s']:.2f} s window"
+                    for k, v in sorted(phases.items()))
+        + f"; Chrome trace {os.path.relpath(chrome, REPO)}")
+
+    # (c) one iteration with --trace --profile: span names in the torch
+    # profiles beside the B1/B2 kernel rows
+    root1 = os.path.join(base, "profiled")
+    coord1 = os.path.join(base, "coord-profiled")
+    prof = os.path.join(base, "profile")
+    reports1 = [os.path.join(base, f"profiled{i}.json")
+                for i in range(POOL_WORKERS)]
+    procs = start_dataplane_workers(
+        coord1, reports1, extra=("--profile", prof + "/worker{i}"))
+    install_tracer(Tracer(annotate=True))
+    try:
+        server = Server(FileJobStore(coord1), poll_interval=POOL_POLL_S,
+                        pipeline=True, premerge_min_runs=2,
+                        segment_format="v2").configure(
+            dataplane_spec(root1, max_steps=1))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        with device_trace(os.path.join(prof, "server")):
+            stats1 = server.loop()
+        server_counts1 = ops.launch_counts()
+        codes = stop_workers(procs, 120)
+    except BaseException:
+        stop_workers(procs, 0)
+        raise
+    finally:
+        install_tracer(None)
+    if codes != [0] * POOL_WORKERS or len(stats1.iterations) != 1:
+        raise AssertionError(f"profiled run: workers exited {codes}, "
+                             f"{len(stats1.iterations)} iterations")
+    b1 = ("matmul_f32_kernel",)
+    b2 = ("softmax_warp_kernel", "softmax_regs_kernel",
+          "softmax_stream_kernel")
+    rows = {}
+    for who in [f"worker{i}" for i in range(POOL_WORKERS)] + ["server"]:
+        paths = glob_files(os.path.join(prof, who), "*.pt.trace.json")
+        if len(paths) != 1:
+            raise AssertionError(f"{who}: {len(paths)} profile traces")
+        user, kern = profile_names(paths[0])
+        rows[who] = {
+            "spans": sorted(n for n in user
+                            if n.endswith(".body") or n.startswith("phase.")
+                            or n.startswith("coord.")
+                            or n.startswith("store."))[:12],
+            "b1_rows": sum(any(t in k for t in b1) for k in kern),
+            "b2_rows": sum(any(t in k for t in b2) for k in kern)}
+        want_spans = ({"phase.map", "phase.reduce"} if who == "server"
+                      else {"map.body"})
+        ran_maps = who == "server" or json.load(
+            open(reports1[int(who[-1])]))["launches"]["matmul_f32"] > 0
+        if ran_maps and (not want_spans <= user or not rows[who]["b1_rows"]
+                         or not rows[who]["b2_rows"]):
+            raise AssertionError(f"{who}'s profile lacks spans "
+                                 f"{sorted(want_spans - user)} or B1/B2 "
+                                 f"rows: {rows[who]}")
+    wreps1 = [json.load(open(p)) for p in reports1]
+    worker_counts1 = {k: sum(r["launches"][k] for r in wreps1)
+                      for k in ops.KERNELS}
+    if worker_counts1 != {**zero, "matmul_f32": 4 * 5,
+                          "rowwise_softmax": 4} or \
+            server_counts1 != {**zero, "matmul_f32": 2,
+                               "rowwise_softmax": 1}:
+        raise AssertionError(f"profiled run launches: workers "
+                             f"{worker_counts1}, server {server_counts1}")
+    runs += [server_counts1, worker_counts1]
+    rep["profile"] = rows
+    log(f"[dataplane] one iteration with --trace --profile: span names "
+        f"in the torch profiles beside B1/B2 kernel rows: "
+        + "; ".join(f"{w}: {v['spans'][:4]} ... B1 {v['b1_rows']} B2 "
+                    f"{v['b2_rows']} kernel names" for w, v in rows.items()))
+    return runs, rep
+
+
+def glob_files(root, pattern):
+    import glob
+    return sorted(glob.glob(os.path.join(root, pattern)))
+
+
 def gpu_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4334,6 +4781,7 @@ def main():
     meshes = tp_pp_meshes(torch)
     tp_pp = phase_tp_pp_train(torch, ops, meshes, mesh, lm)
     tp_pp_check = phase_tp_pp_check(torch, ops, meshes, mesh)
+    dataplane_counts, dataplane = phase_dataplane(torch, ops, pool)
     runs = ([digits_counts, wide_counts]
             + [serving[t]["launches"] for t in serving]
             + [conv[m]["launches"] for m in conv]
@@ -4342,7 +4790,8 @@ def main():
             + ingraph_counts + hybrid_counts + pool_counts
             + [moe_train["launches"]]
             + [moe_serve[t]["launches"] for t in moe_serve]
-            + [tp_pp[t]["launches"] for t in ("2d_mesh", "3d", "pp")])
+            + [tp_pp[t]["launches"] for t in ("2d_mesh", "3d", "pp")]
+            + dataplane_counts)
     launches = {k: sum(c[k] for c in runs) for k in ops.KERNELS}
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
@@ -4379,7 +4828,7 @@ def main():
         "ingraph": ingraph, "hybrid_cache": hybrid_cache, "pool": pool,
         "moe_train": moe_train, "moe_serving": moe_serve,
         "moe_check": moe_check, "tp_pp_train": tp_pp,
-        "tp_pp_check": tp_pp_check,
+        "tp_pp_check": tp_pp_check, "dataplane": dataplane,
         "kernels": kernels,
         "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)

@@ -1,9 +1,11 @@
 """PyTorch/CUDA port of lua_mapreduce_tpu.
 
 A second package beside the JAX one, written for one NVIDIA H100. It
-carries its own copy of the host plane it needs (core/, store/, engine/:
-the barrier LocalExecutor on ``mem:`` and ``shared:`` storage), and
-ports the digits DP-SGD path, the LM serving path, the conv-family
+carries its own copy of the host plane it needs (core/, store/,
+engine/, faults/, trace/: the LocalExecutor and the Server/Worker pool
+on ``mem:``, ``shared:`` and ``object:`` storage, barrier or pipelined
+shuffle, v1 or v2 spills, under the retry and fault-injection layers
+and lmr-trace), and ports the digits DP-SGD path, the LM serving path, the conv-family
 training path and single-device LM training on top of it:
 
 - ``ops``: hand-written Hopper kernels (CUDA C++, sm_90a) — matmul,

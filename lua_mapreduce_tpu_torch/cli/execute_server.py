@@ -9,23 +9,29 @@ coordination spec, then the user-function module names, then storage.
     python -m lua_mapreduce_tpu_torch.cli.execute_server \\
         COORD_DIR TASKFN MAPFN PARTITIONFN REDUCEFN \\
         [--combinerfn M] [--finalfn M] [--storage SPEC] \\
-        [--result-ns NS] [--init-arg K=V ...] [--inline-workers N]
+        [--result-ns NS] [--init-arg K=V ...] [--inline-workers N] \\
+        [--pipeline [--premerge-min-runs N] [--premerge-max-runs N]] \\
+        [--segment-format v1|v2] [--store-retries N] [--retry-base-ms MS] \\
+        [--trace] [--profile DIR]
 
 COORD_DIR is the shared job-store directory (the connection-string
 analog) that ``execute_worker`` processes poll; "mem" runs an in-process
 pool with ``--inline-workers N``. The task runs on the card unless it
-asks for the CPU (``--init-arg device=cpu``).
+asks for the CPU (``--init-arg device=cpu``). ``--trace`` records spans
+into the task storage (``python -m lua_mapreduce_tpu_torch.trace
+STORAGE`` reads them); ``--profile DIR`` wraps the run in a torch
+profile, and with ``--trace`` the span names appear in it.
 
 The JAX launcher's flags for planes the port does not run yet
-(``--pipeline``, ``--push``, ``--replication``, ``--coding``,
-``--segment-format v2``, ``--speculation-factor``, ``--autotune``,
-``--ha``, ``--trace``, ...) parse, and raise NotImplementedError when
-set (ROADMAP A6b).
+(``--push``, ``--replication``, ``--coding``, ``--speculation-factor``,
+``--autotune``, ``--ha``, ``--idle-poll-ms``, ...) parse, and raise
+NotImplementedError when set (ROADMAP A6b).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import threading
@@ -52,12 +58,6 @@ def parse_init_args(pairs) -> dict:
 # keywords[, other values meaning "off"]) — any value other than the
 # default or those raises in main()
 TRIMMED = (
-    ("--pipeline", dict(action="store_true")),
-    ("--premerge-min-runs", dict(type=int, default=4)),
-    ("--premerge-max-runs", dict(type=int, default=8)),
-    ("--segment-format", dict(choices=("v1", "v2"), default="v1")),
-    ("--store-retries", dict(type=int, default=None)),
-    ("--retry-base-ms", dict(type=float, default=None)),
     ("--replication", dict(type=int, default=None), (1,)),
     ("--coding", dict(type=str, default=None)),
     ("--speculation-factor", dict(type=float, default=None), (0.0,)),
@@ -69,8 +69,6 @@ TRIMMED = (
     ("--autotune-max-workers", dict(type=int, default=None)),
     ("--ha", dict(action="store_true", default=None)),
     ("--lease-ttl-s", dict(type=float, default=None)),
-    ("--trace", dict(action="store_true")),
-    ("--profile", dict(default=None)),
 )
 
 
@@ -96,6 +94,43 @@ def reject_trimmed(p: argparse.ArgumentParser, args, trimmed) -> None:
             "package yet (ROADMAP A6b)")
 
 
+def add_fault_trace_args(p: argparse.ArgumentParser) -> None:
+    """The retry, trace and profile flags both launchers share."""
+    p.add_argument("--store-retries", type=int, default=None,
+                   help="transient store/coord fault retry budget per op "
+                        "(default 3, or LMR_STORE_RETRIES; 0 disables the "
+                        "retry layer)")
+    p.add_argument("--retry-base-ms", type=float, default=None,
+                   help="first backoff draw's lower bound in ms (default "
+                        "25, or LMR_RETRY_BASE_MS)")
+    p.add_argument("--trace", action="store_true",
+                   help="record spans of this process into the task "
+                        "storage as _trace.* files; read them with "
+                        "'python -m lua_mapreduce_tpu_torch.trace "
+                        "STORAGE'. Worker processes take their own "
+                        "--trace (or LMR_TRACE=1)")
+    p.add_argument("--profile", metavar="DIR", default=None,
+                   help="wrap the run in a torch profile written into DIR "
+                        "(utils/profiling.device_trace); with --trace the "
+                        "span names are rows of the profile beside the "
+                        "kernels")
+
+
+def setup_fault_trace(args):
+    """Apply the shared flags; returns the profile context to run in."""
+    from lua_mapreduce_tpu_torch.faults.retry import configure_retry
+    if args.store_retries is not None or args.retry_base_ms is not None:
+        configure_retry(args.store_retries, args.retry_base_ms)
+    if args.trace:
+        from lua_mapreduce_tpu_torch.trace.span import (Tracer,
+                                                        install_tracer)
+        install_tracer(Tracer(annotate=bool(args.profile)))
+    if args.profile:
+        from lua_mapreduce_tpu_torch.utils.profiling import device_trace
+        return device_trace(args.profile)
+    return contextlib.nullcontext()
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="execute_server",
@@ -108,9 +143,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--combinerfn")
     p.add_argument("--finalfn")
     p.add_argument("--storage", default=None,
-                   help="backend[:path] — mem:TAG | shared:DIR (default: "
-                        "mem:cli for an in-process pool, "
-                        "shared:<COORD>/spill for a shared-dir pool)")
+                   help="backend[:path] — mem:TAG | shared:DIR | "
+                        "object:DIR (default: mem:cli for an in-process "
+                        "pool, shared:<COORD>/spill for a shared-dir "
+                        "pool)")
     p.add_argument("--result-ns", default="result")
     p.add_argument("--init-arg", action="append", metavar="K=V")
     p.add_argument("--inline-workers", type=int, default=0,
@@ -123,6 +159,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--strict", action="store_true",
                    help="abort with PhaseFailed when any job goes FAILED "
                         "instead of running finalfn on partial results")
+    p.add_argument("--pipeline", action="store_true",
+                   help="pipelined shuffle: publish eager pre_merge jobs "
+                        "over committed runs while mappers still run")
+    p.add_argument("--premerge-min-runs", type=int, default=4,
+                   help="runs a pre_merge job consolidates at least")
+    p.add_argument("--premerge-max-runs", type=int, default=8,
+                   help="runs a pre_merge job consolidates at most")
+    p.add_argument("--segment-format", choices=("v1", "v2"), default="v1",
+                   help="intermediate spill encoding, written to the task "
+                        "doc: v1 = text lines, v2 = framed binary "
+                        "segments; results stay v1 text")
+    add_fault_trace_args(p)
     p.add_argument("--batch-k", type=int, default=1,
                    help="fleet default claim-lease size, written to the "
                         "task doc: workers claim up to K jobs per "
@@ -146,6 +194,7 @@ def main(argv=None) -> int:
     p = build_parser()
     args = p.parse_args(argv)
     reject_trimmed(p, args, TRIMMED)
+    profile_ctx = setup_fault_trace(args)
 
     from lua_mapreduce_tpu_torch.coord.filestore import FileJobStore
     from lua_mapreduce_tpu_torch.coord.jobstore import MemJobStore
@@ -170,8 +219,12 @@ def main(argv=None) -> int:
     server = Server(store, poll_interval=args.poll,
                     stale_timeout_s=args.stale_timeout or None,
                     verbose=not args.quiet, strict=args.strict,
-                    batch_k=args.batch_k, engine=args.engine
-                    ).configure(spec)
+                    pipeline=args.pipeline,
+                    premerge_min_runs=args.premerge_min_runs,
+                    premerge_max_runs=args.premerge_max_runs,
+                    batch_k=args.batch_k,
+                    segment_format=args.segment_format,
+                    engine=args.engine).configure(spec)
     for _ in range(args.inline_workers):
         w = Worker(store).configure(max_iter=10_000)
         threading.Thread(target=w.execute, daemon=True).start()
@@ -182,7 +235,8 @@ def main(argv=None) -> int:
             if frac >= 1:
                 print(file=sys.stderr)
 
-    stats = server.loop(progress=report)
+    with profile_ctx:
+        stats = server.loop(progress=report)
     last = stats.last
     if not args.quiet and last is not None:
         print(f"cluster_time={last.cluster_time:.2f}s "

@@ -6,7 +6,8 @@ execute_worker.lua:1-11):
     python -m lua_mapreduce_tpu_torch.cli.execute_worker COORD_DIR \\
         [--max-iter N] [--max-sleep S] [--max-tasks N] [--name NAME] \\
         [--max-jobs N] [--batch-k K] [--phases map,reduce] \\
-        [--report FILE] [--verbose]
+        [--segment-format v1|v2] [--store-retries N] [--retry-base-ms MS] \\
+        [--trace] [--profile DIR] [--report FILE] [--verbose]
 
 One elastic worker polling the shared job-store directory an
 ``execute_server`` process coordinates. It runs its task on the card:
@@ -14,8 +15,10 @@ One elastic worker polling the shared job-store directory an
 CPU, and without a card any other task raises. ``--report FILE`` writes
 what this process did as JSON to FILE when the worker leaves: the jobs
 it executed, its control-plane round trips, the kernel launches it made
-(``ops.launch_counts()`` — a pool's launches are the sum over its
-processes) and the wall-clock time its imports were done (``ready``).
+(``ops.launch_counts()``), the fault-plane counters it bumped
+(``faults/retry.COUNTERS``) and the faults its ``LMR_FAULT_PLAN`` fired,
+by kind — a pool's launches and counters are the sums over its
+processes — and the wall-clock time its imports were done (``ready``). ``--trace`` and ``--profile DIR`` are the server's.
 
 The JAX launcher's flags for planes the port does not run yet parse, and
 raise NotImplementedError when set (ROADMAP A6b).
@@ -28,22 +31,19 @@ import json
 import os
 import time
 
-from lua_mapreduce_tpu_torch.cli.execute_server import (add_trimmed,
-                                                        reject_trimmed)
+from lua_mapreduce_tpu_torch.cli.execute_server import (add_fault_trace_args,
+                                                        add_trimmed,
+                                                        reject_trimmed,
+                                                        setup_fault_trace)
 
 TRIMMED = (
-    ("--segment-format", dict(choices=("v1", "v2"), default=None)),
     ("--replication", dict(type=int, default=None), (1,)),
     ("--coding", dict(type=str, default=None)),
     ("--idle-poll-ms", dict(type=float, default=None)),
     ("--push", dict(action="store_true", default=None)),
     ("--push-budget-mb", dict(type=float, default=None)),
-    ("--store-retries", dict(type=int, default=None)),
-    ("--retry-base-ms", dict(type=float, default=None)),
     ("--autotune-fleet", dict(type=int, default=None)),
     ("--autotune-max-workers", dict(type=int, default=8)),
-    ("--trace", dict(action="store_true")),
-    ("--profile", dict(default=None)),
 )
 
 
@@ -70,6 +70,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="exports LMR_ENGINE: the hybrid legs follow the "
                         "task document's negotiated split regardless; "
                         "this is the fallback for a document with none")
+    p.add_argument("--segment-format", choices=("v1", "v2"), default=None,
+                   help="spill encoding this worker writes; default "
+                        "follows the task document")
+    add_fault_trace_args(p)
     p.add_argument("--phases", default="map,reduce",
                    help="comma list of phases this worker claims")
     p.add_argument("--report", metavar="FILE", default=None,
@@ -84,6 +88,7 @@ def main(argv=None) -> int:
     p = build_parser()
     args = p.parse_args(argv)
     reject_trimmed(p, args, TRIMMED)
+    profile_ctx = setup_fault_trace(args)
     phases = tuple(s.strip() for s in args.phases.split(",") if s.strip())
     for ph in phases:
         if ph not in ("map", "reduce"):
@@ -94,16 +99,21 @@ def main(argv=None) -> int:
 
     from lua_mapreduce_tpu_torch.coord.filestore import FileJobStore
     from lua_mapreduce_tpu_torch.engine.worker import Worker
+    from lua_mapreduce_tpu_torch.faults.retry import COUNTERS
+    from lua_mapreduce_tpu_torch.faults.wrappers import active_plan
 
     worker = Worker(FileJobStore(args.coord), name=args.name,
                     verbose=args.verbose).configure(
         max_iter=args.max_iter, max_sleep=args.max_sleep,
-        max_tasks=args.max_tasks, phases=phases, max_jobs=args.max_jobs)
+        max_tasks=args.max_tasks, phases=phases, max_jobs=args.max_jobs,
+        segment_format=args.segment_format)
     if args.batch_k is not None:
         worker.configure(batch_k=args.batch_k)
+    counters0 = COUNTERS.snapshot()
     ready = time.time()
     try:
-        worker.execute()
+        with profile_ctx:
+            worker.execute()
     finally:
         if args.report:
             from lua_mapreduce_tpu_torch import ops
@@ -111,7 +121,11 @@ def main(argv=None) -> int:
                 json.dump({"worker": worker.name, "ready": ready,
                            "jobs": worker.jobs_executed,
                            "rounds": worker.store.round_counts(),
-                           "launches": ops.launch_counts()}, f)
+                           "launches": ops.launch_counts(),
+                           "counters": COUNTERS.delta(
+                               counters0, COUNTERS.snapshot()),
+                           "faults_fired": dict(plan.fired)
+                           if (plan := active_plan()) else {}}, f)
     return 0
 
 

@@ -18,9 +18,8 @@ MAX_TASKFN_VALUE_SIZE = 16 * 1024 # utils.lua:54 — serialized task-value cap
 MAX_IDLE_COUNT = 5                # utils.lua:55 — map-affinity steal threshold
 
 # job-store namespaces (the reference's map_jobs / red_jobs collections).
-# PRE_NS is the JAX package's pipelined-shuffle namespace: the port never
-# inserts into it, but the Server drops it like the others so a store
-# shared with a JAX-package run is left clean.
+# PRE_NS holds the pipelined shuffle's eager pre-merge jobs, published
+# during the map phase (engine/premerge.py).
 MAP_NS = "map_jobs"
 RED_NS = "red_jobs"
 PRE_NS = "pre_jobs"

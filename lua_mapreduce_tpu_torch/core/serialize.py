@@ -59,6 +59,14 @@ def dump_record(key: Any, values: Iterable[Any]) -> str:
                       separators=(",", ":"), ensure_ascii=False)
 
 
+def dump_key(key: Any) -> str:
+    """Serialized JSON of a record KEY alone — byte-identical to the key
+    portion of :func:`dump_record`'s output. Segment footers index frames
+    by their first key in this form (core/segment.py)."""
+    return json.dumps(_plain(key), separators=(",", ":"),
+                      ensure_ascii=False)
+
+
 def load_record(line: str) -> PyTuple[Any, List[Any]]:
     """Inverse of :func:`dump_record`. List-shaped keys come back interned."""
     key, values = json.loads(line)

@@ -35,6 +35,7 @@ from __future__ import annotations
 import collections
 import sys
 import threading
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -47,7 +48,8 @@ from lua_mapreduce_tpu_torch.engine.ingraph import (
     COMPILE_LOCK, EngineDecision, LoweringUnsupported, _Compiled,
     _flatten_out, _gather_coalesced, _group_signature, _rebuild, _run_map,
     _singleton_passthrough, _stack_slots, _sum_fold, _unflatten_out,
-    _value_leaves)
+    _value_leaves, record_hybrid_fallback)
+from lua_mapreduce_tpu_torch.trace.span import active_tracer
 
 
 # --------------------------------------------------------------------------
@@ -363,30 +365,44 @@ class HybridRunner:
             reason = ("no stage qualifies for the hybrid plane: "
                       f"{self.decision.reason}")
             COUNTERS.bump("hybrid_fallbacks")
+            record_hybrid_fallback("task", reason)
             self._log(reason)
 
-    def run_map_leg(self, jobs, store, iteration: int = 0) -> bool:
+    def run_map_leg(self, jobs, store, segment_format: str = "v1",
+                    iteration: int = 0) -> bool:
         """Build/replay the whole iteration's map jobs as one program
         and publish every job through the shared tail. True = spills
         published (the caller skips the interpreted map); False =
-        degraded (for the rest of the task — counted and logged) and the
-        caller runs the interpreted map phase."""
+        degraded (for the rest of the task — counted, logged and traced)
+        and the caller runs the interpreted map phase."""
         from lua_mapreduce_tpu_torch.engine.job import publish_map_groups
         from lua_mapreduce_tpu_torch.faults.retry import COUNTERS
         if self.map_engine is None or not jobs:
             return False
+        tracer = active_tracer()
+        t0 = time.time()
         try:
             per_job = self.map_engine.run_batch(jobs)
             for i, groups in enumerate(per_job):
-                publish_map_groups(self.spec, store, str(i), groups)
+                publish_map_groups(self.spec, store, str(i), groups,
+                                   segment_format=segment_format)
         except Exception as exc:            # noqa: BLE001 — policy point
             reason = f"{type(exc).__name__}: {exc}"
             COUNTERS.bump("hybrid_fallbacks")
+            record_hybrid_fallback("map", reason)
             self._log(f"iteration {iteration}: compiled map leg failed "
                       f"({reason}); map jobs run interpreted")
             self.map_engine = None
             return False
         COUNTERS.bump("hybrid_map_legs")
+        if tracer is not None:
+            # recorded after the leg, with its measured window: no span
+            # is open while the leg captures or replays
+            now = tracer.clock()
+            tracer.add("hybrid.run", now - (time.time() - t0), now,
+                       ns="hybrid", stage="map", job_id=iteration,
+                       jobs=len(jobs), mode=self.map_engine.mode,
+                       traces=self.map_engine.traces)
         return True
 
     def note_reduce_job(self) -> None:

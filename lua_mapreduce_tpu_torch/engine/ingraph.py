@@ -75,6 +75,7 @@ from lua_mapreduce_tpu_torch.core.serialize import (assert_serializable,
                                                     to_plain)
 from lua_mapreduce_tpu_torch.device import resolve_device
 from lua_mapreduce_tpu_torch.engine.contract import TaskSpec
+from lua_mapreduce_tpu_torch.trace.span import active_tracer
 
 ENGINES = ("auto", "ingraph", "hybrid", "store")
 
@@ -260,6 +261,59 @@ def select_engine(spec: TaskSpec, engine: Optional[str] = None
                           verdict=verdict, functions=functions,
                           reason=reason, oracle_s=time.time() - t0,
                           stages=stages)
+
+
+def record_lowering(decision: EngineDecision) -> None:
+    """Emit the ``lowering`` trace span carrying the whole decision —
+    verdict, per-function reasons, chosen engine — and, for the hybrid
+    rung, one ``lowering.<stage>`` span per leg. No-op when tracing is
+    off."""
+    tracer = active_tracer()
+    if tracer is None:
+        return
+    now = tracer.clock()
+    attrs = {"engine": decision.chosen, "requested": decision.requested,
+             "verdict": decision.verdict or "(oracle skipped)",
+             "reason": decision.reason}
+    for fname, d in decision.functions.items():
+        why = f" ({d['reasons'][0]})" if d["reasons"] else ""
+        attrs[f"fn.{fname}"] = d["verdict"] + why
+    tracer.add("lowering", now - decision.oracle_s, now, ns="ingraph",
+               **attrs)
+    if decision.stages is None:
+        return
+    leg_fns = {"map": ("mapfn", "combinerfn"), "reduce": ("reducefn",)}
+    for stage, compiled in decision.stages.items():
+        sattrs = {"stage": stage,
+                  "engine": "hybrid" if compiled else "store",
+                  "compiled": str(bool(compiled)).lower()}
+        for fname in leg_fns[stage]:
+            d = decision.functions.get(fname)
+            if d is not None:
+                why = f" ({d['reasons'][0]})" if d["reasons"] else ""
+                sattrs[f"fn.{fname}"] = d["verdict"] + why
+        tracer.add(f"lowering.{stage}", now, now, ns="hybrid", **sattrs)
+
+
+def record_fallback(reason: str) -> None:
+    """Emit the ``ingraph.fallback`` span marking a runtime degrade to
+    the store plane (oracle accepted, the build raised)."""
+    tracer = active_tracer()
+    if tracer is None:
+        return
+    now = tracer.clock()
+    tracer.add("ingraph.fallback", now, now, ns="ingraph", reason=reason)
+
+
+def record_hybrid_fallback(stage: str, reason: str) -> None:
+    """Emit the ``hybrid.fallback`` span: one compiled leg degraded to
+    the interpreted plane at runtime."""
+    tracer = active_tracer()
+    if tracer is None:
+        return
+    now = tracer.clock()
+    tracer.add("hybrid.fallback", now, now, ns="hybrid", stage=stage,
+               reason=reason)
 
 
 # --------------------------------------------------------------------------
@@ -1174,6 +1228,7 @@ class IngraphRunner:
             if decision.chosen == "ingraph" else None
         self._log = log or (lambda msg: print(f"[ingraph] {msg}",
                                               file=sys.stderr))
+        record_lowering(decision)
         if decision.requested != "store" and decision.chosen == "store":
             self._log(f"store plane selected: {decision.reason}")
 
@@ -1190,8 +1245,18 @@ class IngraphRunner:
         from lua_mapreduce_tpu_torch.faults.retry import COUNTERS
         if self.engine is None:
             return False
+        tracer = active_tracer()
         try:
-            self.engine.run_iteration(result_store)
+            if tracer is not None:
+                # the span opens around the whole iteration (build,
+                # capture and replay), never inside a capture
+                with tracer.span("ingraph.run", ns="ingraph",
+                                 job_id=iteration,
+                                 mode=self.engine.mode or "build",
+                                 traces=self.engine.traces):
+                    self.engine.run_iteration(result_store)
+            else:
+                self.engine.run_iteration(result_store)
         except Exception as exc:            # noqa: BLE001 — policy point
             if self.decision.requested == "ingraph":
                 if isinstance(exc, LoweringError):
@@ -1201,6 +1266,7 @@ class IngraphRunner:
                     f"{exc}") from exc
             COUNTERS.bump("ingraph_fallbacks")
             reason = f"{type(exc).__name__}: {exc}"
+            record_fallback(reason)
             self._log(f"iteration {iteration}: in-graph lowering failed "
                       f"({reason}); falling back to the store plane")
             self.engine = None

@@ -1,8 +1,9 @@
 """Map/reduce job execution — the host-side data path.
 
 Copy of the JAX package's ``engine/job.py`` (reference mapreduce/job.lua)
-on its v1-text, unreplicated, staged path: no push shuffle, no native
-map/merge/reduce kernels. The hybrid plane's compiled map leg and
+on its unreplicated, staged path — v1 text or v2 framed segments, and
+the pipelined shuffle's pre-merge job — with no push shuffle and no
+native map/merge/reduce kernels. The hybrid plane's compiled map leg and
 reduce fold plug in through :func:`publish_map_groups` and
 ``run_reduce_job(reduce_fold=)``. Result bytes are identical to the JAX
 package's on the same inputs.
@@ -17,7 +18,7 @@ from typing import Any, Dict, List
 from lua_mapreduce_tpu_torch.core import tuples
 from lua_mapreduce_tpu_torch.core.constants import MAX_MAP_RESULT
 from lua_mapreduce_tpu_torch.core.merge import merge_iterator
-from lua_mapreduce_tpu_torch.core.segment import writer_for
+from lua_mapreduce_tpu_torch.core.segment import check_format, writer_for
 from lua_mapreduce_tpu_torch.core.serialize import (assert_serializable,
                                                     dump_record, sorted_keys,
                                                     to_plain)
@@ -79,26 +80,33 @@ def map_output_name(result_ns: str, part: int, map_key: Any) -> str:
 
 
 def run_map_job(spec: TaskSpec, store: Store, job_id: str,
-                map_key: Any, map_value: Any) -> JobTimes:
+                map_key: Any, map_value: Any,
+                segment_format: str = "v1") -> JobTimes:
     """Execute one map job and write per-partition sorted run files.
 
     Mirrors job.lua:154-228: run the user mapfn with the grouping emit,
     then publish the grouping through :func:`publish_map_groups`.
+    ``segment_format`` picks the run-file encoding, ``"v1"`` text lines
+    or ``"v2"`` framed segments (core/segment.py); readers sniff per
+    file.
     """
+    check_format(segment_format)
     times = JobTimes(started=time.time())
     cpu0 = time.process_time()
     result: Dict[Any, List[Any]] = {}
     spec.mapfn(map_key, map_value,
                make_map_emit(result, spec.combiner_for_map))
     times.finished = time.time()
-    publish_map_groups(spec, store, job_id, result)
+    publish_map_groups(spec, store, job_id, result,
+                       segment_format=segment_format)
     times.cpu = time.process_time() - cpu0
     times.written = time.time()
     return times
 
 
 def publish_map_groups(spec: TaskSpec, store: Store, job_id: str,
-                       result: Dict[Any, List[Any]]) -> None:
+                       result: Dict[Any, List[Any]],
+                       segment_format: str = "v1") -> None:
     """Publish one map job's grouped emissions — the one publish tail
     every map producer shares: the interpreted path (run_map_job above)
     and the compiled hybrid map leg (engine/hybrid.py) both land here,
@@ -124,13 +132,57 @@ def publish_map_groups(spec: TaskSpec, store: Store, job_id: str,
                     f"partitionfn({key!r}) returned negative {part}")
             w = writers.get(part)
             if w is None:
-                w = writers[part] = writer_for(store)
+                w = writers[part] = writer_for(store,
+                                               segment_format)
             w.add(key, values)
         for part, w in writers.items():
             w.build(map_output_name(spec.result_ns, part, job_id))
     finally:
         for w in writers.values():
             w.close()
+
+
+def run_premerge_job(spec: TaskSpec, store: Store, run_files: List[str],
+                     spill_file: str,
+                     segment_format: str = "v1") -> JobTimes:
+    """Eagerly consolidate committed sorted runs into one spill run —
+    the pipelined-shuffle work unit (engine/premerge.py).
+
+    Pure reorganization: equal-key value lists are concatenated in the
+    given (canonical) file order and never folded — no combiner, no
+    reducefn — so the final reduce sees the same inputs whether or not
+    its runs were pre-merged. Consumed inputs are deleted only after the
+    spill publishes atomically; an existing spill (a duplicate execution
+    after a stale requeue) short-circuits to a sweep of any leftover
+    inputs.
+    """
+    check_format(segment_format)
+    times = JobTimes(started=time.time())
+    cpu0 = time.process_time()
+    if store.exists(spill_file):
+        for name in run_files:
+            store.remove(name)
+        times.cpu = time.process_time() - cpu0
+        times.finished = times.written = time.time()
+        return times
+    missing = [f for f in run_files if not store.exists(f)]
+    if missing:
+        raise RuntimeError(
+            f"pre_merge {spill_file}: {len(missing)} input run(s) missing "
+            f"with no spill published: {missing[:3]}")
+    writer = writer_for(store, segment_format)
+    try:
+        for key, values in merge_iterator(store, run_files):
+            writer.add(key, values)
+        writer.build(spill_file)
+    finally:
+        writer.close()
+    times.finished = time.time()
+    for name in run_files:
+        store.remove(name)
+    times.cpu = time.process_time() - cpu0
+    times.written = time.time()
+    return times
 
 
 def run_reduce_job(spec: TaskSpec, store: Store, result_store: Store,

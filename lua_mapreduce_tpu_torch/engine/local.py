@@ -1,10 +1,17 @@
 """Single-process MapReduce executor.
 
-Copy of the JAX package's ``engine/local.py`` barrier path: taskfn →
-map → shuffle → reduce → finalfn, with the ``"loop"`` iteration protocol,
-in one process with no coordinator. Map and reduce jobs run through
-engine/job.py, so result files are byte-identical to the JAX package's
-LocalExecutor on the same task.
+Copy of the JAX package's ``engine/local.py``: taskfn → map → shuffle →
+reduce → finalfn, with the ``"loop"`` iteration protocol, in one process
+with no coordinator. Map and reduce jobs run through engine/job.py, so
+result files are byte-identical to the JAX package's LocalExecutor on
+the same task.
+
+``pipeline`` runs the pipelined shuffle: map and eager pre-merge share
+the thread pool with no phase barrier (engine/premerge.py), and the
+reduce merges {spills + tail runs}. ``segment_format`` picks the spill
+encoding ("v1" text or "v2" framed segments, core/segment.py); result
+files stay v1 text. With a tracer active (``trace/``) every job body is
+a span, flushed into the task storage at the end of each iteration.
 
 The ``engine`` knob (None = ``LMR_ENGINE``, else ``"auto"``) picks the
 execution engine as the JAX executor does: ``"auto"`` consults the
@@ -13,44 +20,59 @@ task's data plane as one captured program (engine/ingraph.py), or the
 qualifying legs of a partly numeric task compiled (engine/hybrid.py),
 else the store plane; ``"ingraph"`` and ``"hybrid"`` force a rung;
 ``"store"`` opts out. The compiled engines run on ``device`` (default:
-the task's ``init_args["device"]``, else ``"cuda"``).
+the task's ``init_args["device"]``, else ``"cuda"``). As in the JAX
+executor, an in-graph iteration ignores ``pipeline`` and the hybrid
+compiled map leg runs only on the barrier path.
 
-The JAX executor's other planes (pipelined shuffle, push shuffle,
-replication and erasure coding, the autotune controller, v2 segments)
-are later slices. Their options are accepted only at the value that
-means "off"; any other value raises, so a caller never gets a silently
-different run.
+The JAX executor's push shuffle, replication and erasure coding and the
+autotune controller are a later slice (ROADMAP A6b): their options are
+accepted only at the value that means "off", and any other value raises
+NotImplementedError.
 """
 
 from __future__ import annotations
 
 import re
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Iterator, List, Tuple
 
 from lua_mapreduce_tpu_torch.core.constants import MAX_TASKFN_VALUE_SIZE
+from lua_mapreduce_tpu_torch.core.segment import (check_format,
+                                                  purge_footer_cache)
 from lua_mapreduce_tpu_torch.core.serialize import (load_record,
                                                     serialized_size)
 from lua_mapreduce_tpu_torch.engine.contract import TaskSpec
-from lua_mapreduce_tpu_torch.engine.job import (JobTimes, run_map_job,
+from lua_mapreduce_tpu_torch.engine.job import (JobTimes, map_key_str,
+                                                run_map_job,
+                                                run_premerge_job,
                                                 run_reduce_job)
+from lua_mapreduce_tpu_torch.engine.premerge import (PremergeTracker,
+                                                     discover_pipelined,
+                                                     run_name_re)
 from lua_mapreduce_tpu_torch.faults.retry import COUNTERS
+from lua_mapreduce_tpu_torch.faults.wrappers import unwrap
 from lua_mapreduce_tpu_torch.store.router import get_storage_from
-from lua_mapreduce_tpu_torch.utils.stats import IterationStats, TaskStats
+from lua_mapreduce_tpu_torch.trace.span import TRACE_NS, active_tracer
+from lua_mapreduce_tpu_torch.utils.stats import (IterationStats, TaskStats,
+                                                 overlap_fraction)
 
-# JAX-executor options this port does not implement, with the values
-# that select the behaviour it does implement
+# JAX-executor options this port does not run yet (ROADMAP A6b), with
+# the values that mean "off"
 _OFF_VALUES = {
-    "pipeline": (False,),
     "push": (None, False),
     "push_budget_mb": (None,),
     "replication": (None, 1),
     "coding": (None,),
     "autotune": (None, False),
-    "segment_format": ("v1",),
 }
+
+# span namespaces, matching the distributed engine's job queues so one
+# collector (trace/collect.py) reads both executors' timelines alike
+_SPAN_NS = {"map": "map_jobs", "pre_merge": "pre_jobs",
+            "reduce": "red_jobs"}
 
 
 def collect_task_jobs(spec: TaskSpec) -> List[Tuple[Any, Any]]:
@@ -122,25 +144,30 @@ class LocalExecutor:
 
     ``map_parallelism`` > 1 runs map and reduce jobs on a thread pool —
     the in-process analog of N workers. ``max_iterations`` bounds the
-    ``"loop"`` protocol. ``engine`` and ``device`` choose the execution
-    engine and its device (module docstring).
+    ``"loop"`` protocol. ``pipeline``, ``premerge_min_runs`` and
+    ``premerge_max_runs`` drive the pipelined shuffle;
+    ``segment_format`` the spill encoding; ``engine`` and ``device``
+    the execution engine and its device (module docstring).
     """
 
     def __init__(self, spec: TaskSpec, map_parallelism: int = 1,
-                 max_iterations: int = 1000, engine=None, device=None,
+                 max_iterations: int = 1000, pipeline: bool = False,
+                 premerge_min_runs: int = 4, premerge_max_runs: int = 8,
+                 segment_format: str = "v1", engine=None, device=None,
                  **options):
+        from lua_mapreduce_tpu_torch.engine.worker import check_off
         for name, value in options.items():
-            off = _OFF_VALUES.get(name)
-            if off is None:
+            if name not in _OFF_VALUES:
                 raise TypeError(f"LocalExecutor got an unexpected option "
                                 f"{name!r}")
-            if value not in off:
-                raise ValueError(
-                    f"LocalExecutor option {name}={value!r} is not "
-                    f"implemented by the torch port (accepted: {off})")
+            check_off("LocalExecutor", name, value, _OFF_VALUES)
         self.spec = spec
         self.map_parallelism = max(1, map_parallelism)
         self.max_iterations = max_iterations
+        self.pipeline = bool(pipeline)
+        self.premerge_min_runs = premerge_min_runs
+        self.premerge_max_runs = premerge_max_runs
+        self.segment_format = check_format(segment_format)
         self.store = get_storage_from(spec.storage)
         self.result_store = (get_storage_from(spec.result_storage)
                              if spec.result_storage else self.store)
@@ -162,15 +189,43 @@ class LocalExecutor:
         self.stats = TaskStats()
         self.finished_value: Any = None
 
+    def _traced(self, label: str, job_id, fn):
+        """Run one job body under a trace span (the in-process analog of
+        the Worker's body span), or plainly when tracing is off."""
+        tracer = active_tracer()
+        if tracer is None:
+            return fn()
+        tracer.set_actor("local")     # pool threads each declare it
+        with tracer.span(f"{label}.body", ns=_SPAN_NS[label],
+                         job_id=job_id, attempt=0):
+            return fn()
+
+    def _trace_flush(self) -> None:
+        tracer = active_tracer()
+        if tracer is None:
+            return
+        try:
+            tracer.flush(self.store, force=True)
+        except Exception as exc:
+            print(f"[local] trace flush failed ({type(exc).__name__}: "
+                  f"{exc}); spans re-buffered", file=sys.stderr)
+
     def _reduce_one(self, p, files) -> JobTimes:
-        """One reduce job with the hybrid compiled fold plugged in (its
-        None-means-interpret contract keeps the bytes) and its per-job
-        counter hook."""
-        t = run_reduce_job(self.spec, self.store, self.result_store, str(p),
-                           files, result_file_name(self.spec.result_ns, p),
-                           reduce_fold=self._hybrid.reduce_fold())
+        """One reduce job under its span, with the hybrid compiled fold
+        plugged in (its None-means-interpret contract keeps the bytes)
+        and its per-job counter hook."""
+        t = self._traced(
+            "reduce", p, lambda: run_reduce_job(
+                self.spec, self.store, self.result_store, str(p), files,
+                result_file_name(self.spec.result_ns, p),
+                reduce_fold=self._hybrid.reduce_fold()))
         self._hybrid.note_reduce_job()
         return t
+
+    def _map_one(self, i, k, v) -> JobTimes:
+        return self._traced("map", i, lambda: run_map_job(
+            self.spec, self.store, str(i), k, v,
+            segment_format=self.segment_format))
 
     def _run_jobs(self, fns) -> List[JobTimes]:
         if self.map_parallelism == 1 or len(fns) <= 1:
@@ -181,36 +236,56 @@ class LocalExecutor:
     def run_one_iteration(self, iteration: int) -> Any:
         """One map→shuffle→reduce→final cycle; returns finalfn's verdict."""
         spec = self.spec
+        tracer = active_tracer()
+        if tracer is not None:
+            tracer.set_iteration(iteration)
         it_stats = IterationStats(iteration=iteration)
         t0 = time.time()
+        faults0 = COUNTERS.snapshot()
         # fresh result namespace per iteration: partitions that receive
         # no data must not leak last iteration's results
         # (server.lua:331-345)
         delete_results(self.result_store, spec.result_ns)
-        faults0 = COUNTERS.snapshot()
+        # iteration rollover reuses run names with new contents; a
+        # same-size rewrite would slip past the footer cache's key
+        purge_footer_cache(self.store)
 
         # in-graph engine: the whole data plane — map, shuffle, reduce —
         # runs as one program and the result files land directly;
         # taskfn/finalfn stay host-side. A build-time failure under
         # engine=auto degrades to the store plane for the rest of the
-        # task (counted ingraph_fallbacks, logged) and THIS iteration
-        # re-runs through the store path right here.
+        # task (counted ingraph_fallbacks, logged, traced) and THIS
+        # iteration re-runs through the store path right here.
         ran_ingraph = self._ingraph.active and \
             self._ingraph.run_iteration(self.result_store, iteration)
         # zero-leg forced hybrid leaves its once-per-task evidence here,
         # inside the iteration's counter window
         self._hybrid.ensure_evidence()
-        if not ran_ingraph:
+        if ran_ingraph:
+            pass                 # results published by the compiled plane
+        elif self.pipeline:
+            # the compiled map leg is itself a batch barrier, so it
+            # composes with the barrier path only; the pipelined map
+            # stays interpreted (the reduce fold still applies)
+            jobs = collect_task_jobs(spec)
+            (map_times, pre_times, pre_failed,
+             reduce_times) = self._run_pipelined(jobs)
+            it_stats.map.fold(map_times)
+            it_stats.premerge.fold(pre_times, failed=pre_failed)
+            it_stats.overlap_fraction = overlap_fraction(map_times,
+                                                         pre_times)
+            it_stats.reduce.fold(reduce_times)
+        else:
             jobs = collect_task_jobs(spec)
             # hybrid compiled map+combine leg: the whole iteration's map
             # jobs as ONE program, published through the same tail
             # run_map_job uses — a failure degrades right here and the
             # interpreted loop below runs instead
-            if not self._hybrid.run_map_leg(jobs, self.store,
-                                            iteration=iteration):
+            if not self._hybrid.run_map_leg(
+                    jobs, self.store, segment_format=self.segment_format,
+                    iteration=iteration):
                 it_stats.map.fold(self._run_jobs([
-                    (lambda k=k, v=v, i=i: run_map_job(
-                        spec, self.store, str(i), k, v))
+                    (lambda k=k, v=v, i=i: self._map_one(i, k, v))
                     for i, (k, v) in enumerate(jobs)]))
             parts = discover_partitions(self.store, spec.result_ns)
             it_stats.reduce.fold(self._run_jobs([
@@ -225,7 +300,92 @@ class LocalExecutor:
             COUNTERS.delta(faults0, COUNTERS.snapshot()))
         it_stats.wall_time = time.time() - t0
         self.stats.iterations.append(it_stats)
+        self._trace_flush()
         return verdict
+
+    def _run_pipelined(self, jobs) -> Tuple[List[JobTimes], List[JobTimes],
+                                            int, List[JobTimes]]:
+        """Map + eager pre-merge on ONE shared thread pool, no phase
+        barrier between them; reduce tasks join the same pool once every
+        map (and every launched pre-merge) finished.
+
+        Each map completion feeds the tracker under a lock and submits
+        any newly eligible consolidation batches at once, so a pre-merge
+        can run while later mappers are still mid-flight. A failed
+        pre-merge poisons its range and the reduce falls back to the raw
+        runs; map/reduce exceptions propagate as in the barrier path.
+        """
+        spec = self.spec
+        map_keys = [map_key_str(i) for i in range(len(jobs))]
+        tracker = PremergeTracker(spec.result_ns, map_keys,
+                                  min_runs=self.premerge_min_runs,
+                                  max_runs=self.premerge_max_runs)
+        run_re = run_name_re(spec.result_ns)
+        lock = threading.Lock()
+        map_times: List[JobTimes] = []
+        pre_times: List[JobTimes] = []
+        pre_futs: List = []
+        pre_failed = [0]
+        committed = [0]
+        pool = ThreadPoolExecutor(max_workers=self.map_parallelism)
+
+        def premerge_one(sp):
+            try:
+                t = self._traced(
+                    "pre_merge", f"{sp.part}.{sp.seq}",
+                    lambda: run_premerge_job(
+                        spec, self.store, sp.files, sp.name,
+                        segment_format=self.segment_format))
+            except Exception as e:
+                # probe the store BEFORE taking the tracker lock: holding
+                # it across storage IO would convoy every committing map
+                spill_exists = self.store.exists(sp.name)
+                with lock:
+                    pre_failed[0] += 1
+                    tracker.spill_failed(sp.part, sp.seq,
+                                         spill_exists=spill_exists)
+                print(f"[local] pre_merge {sp.name} failed; reduce falls "
+                      f"back to raw runs: {type(e).__name__}: {e}",
+                      file=sys.stderr)
+                return
+            with lock:
+                pre_times.append(t)
+                tracker.spill_done(sp.part, sp.seq)
+
+        def map_one(i, k, v):
+            t = self._map_one(i, k, v)
+            produced = {}
+            for name in self.store.list(
+                    f"{spec.result_ns}.P*.M{map_keys[i]}"):
+                m = run_re.match(name)
+                if m and m.group(2) == map_keys[i]:
+                    produced[int(m.group(1))] = name
+            with lock:
+                map_times.append(t)
+                tracker.note_map_committed(map_keys[i], produced)
+                committed[0] += 1
+                if committed[0] < len(jobs):
+                    # the LAST commit publishes nothing: a post-map
+                    # spill would serialize in front of the reduce
+                    for sp in tracker.take_eligible():
+                        pre_futs.append(pool.submit(premerge_one, sp))
+            return t
+
+        try:
+            map_futs = [pool.submit(map_one, i, k, v)
+                        for i, (k, v) in enumerate(jobs)]
+            for f in map_futs:
+                f.result()
+            for f in list(pre_futs):
+                f.result()
+            parts = discover_pipelined(self.store, spec.result_ns, map_keys)
+            red_futs = [pool.submit(
+                lambda p=p, files=files: self._reduce_one(p, files))
+                for p, files in sorted(parts.items())]
+            reduce_times = [f.result() for f in red_futs]
+        finally:
+            pool.shutdown(wait=True, cancel_futures=True)
+        return map_times, pre_times, pre_failed[0], reduce_times
 
     def clean_namespace(self) -> None:
         """Drop every file under this task's result namespace in both
@@ -239,6 +399,11 @@ class LocalExecutor:
         """Run iterations until finalfn stops looping (server.lua:466-611,
         387-403: "loop" → repeat; True → drop results; else keep)."""
         self.clean_namespace()
+        # purge a previous run's flushed spans, through the raw store
+        # (telemetry housekeeping must not consume FaultPlan occurrences)
+        raw = unwrap(self.store)
+        for name in raw.list(f"{TRACE_NS}.*"):
+            raw.remove(name)
         t0 = time.time()
         iteration = 1
         while iteration <= self.max_iterations:

@@ -16,17 +16,26 @@ data plane runs as one captured program ON THIS SERVER, on the task's
 hybrid rung's per-stage split is negotiated on the task document and
 run by the workers.
 
-Trimmed from the JAX server, to be ported with ROADMAP A6b: the
-pipelined and push shuffles, replication and erasure coding with their
-lost-file recovery, speculation, autotune and ``set_fleet``, the HA
-leader lease, trace flushes and the notify waiter (the barrier polls at
-``poll_interval``). Those options are accepted only at their "off"
-value; anything else raises NotImplementedError. The store is called
-directly: the JAX package's retry layer is not ported either.
+``pipeline`` runs the pipelined shuffle: while map jobs run, the server
+publishes eager ``pre_merge`` jobs over contiguous committed runs
+(engine/premerge.py) and the reduce merges {spills + tail runs}; the
+mode is sticky on resume from the task document. ``segment_format``
+("v1"/"v2") is written to the task document for the workers. Coord RPCs
+go through ``faults/wrappers.wrap_jobstore`` (retry, fault injection,
+trace spans); with a tracer active the server records phase spans and
+flushes the process's spans into the task storage.
+
+Trimmed from the JAX server, to be ported with ROADMAP A6b: the push
+shuffle, replication and erasure coding with their lost-file recovery,
+speculation, autotune and ``set_fleet``, the HA leader lease and the
+notify waiter (the barrier polls at ``poll_interval``). Those options
+are accepted only at their "off" value; anything else raises
+NotImplementedError.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import sys
 import time
@@ -40,23 +49,29 @@ from lua_mapreduce_tpu_torch.core.constants import (DEFAULT_SLEEP, MAP_NS,
 from lua_mapreduce_tpu_torch.coord.jobstore import JobStore, make_job
 from lua_mapreduce_tpu_torch.engine.contract import TaskSpec
 from lua_mapreduce_tpu_torch.engine.job import JobTimes, map_key_str
+from lua_mapreduce_tpu_torch.core.segment import (check_format,
+                                                  purge_footer_cache)
 from lua_mapreduce_tpu_torch.engine.local import (collect_task_jobs,
                                                   delete_results,
                                                   discover_partitions,
                                                   iter_results,
                                                   result_file_name)
+from lua_mapreduce_tpu_torch.engine.premerge import (SPILL_TAG,
+                                                     PremergeTracker,
+                                                     discover_pipelined,
+                                                     parse_spill_name,
+                                                     run_name_re)
 from lua_mapreduce_tpu_torch.engine.worker import check_off
 from lua_mapreduce_tpu_torch.faults.retry import COUNTERS
+from lua_mapreduce_tpu_torch.faults.wrappers import unwrap, wrap_jobstore
 from lua_mapreduce_tpu_torch.store.router import get_storage_from
-from lua_mapreduce_tpu_torch.utils.stats import IterationStats, TaskStats
+from lua_mapreduce_tpu_torch.trace.span import TRACE_NS, active_tracer
+from lua_mapreduce_tpu_torch.utils.stats import (IterationStats, TaskStats,
+                                                 overlap_fraction)
 
 # JAX-server options this port does not implement, with the values that
 # select the behaviour it does implement (ROADMAP A6b)
 _OFF_VALUES = {
-    "pipeline": (False,),
-    "premerge_min_runs": (4,),
-    "premerge_max_runs": (8,),
-    "segment_format": ("v1",),
     "replication": (None, 1),
     "coding": (None,),
     "speculation": (None, 0),
@@ -135,25 +150,35 @@ class Server:
     to the task document for workers with no ``batch_k`` of their own.
     ``engine`` (None = ``LMR_ENGINE``, else "auto") is the
     LocalExecutor's (module docstring); it is written to the task
-    document and sticky on resume.
+    document and sticky on resume. ``pipeline`` and
+    ``premerge_min_runs``/``premerge_max_runs`` drive the pipelined
+    shuffle, ``segment_format`` the fleet's spill encoding.
     """
 
     def __init__(self, store: JobStore, poll_interval: float = DEFAULT_SLEEP,
                  stale_timeout_s: Optional[float] = 600.0,
                  verbose: bool = False, strict: bool = False,
-                 batch_k: int = 1, engine: Optional[str] = None,
+                 pipeline: bool = False, premerge_min_runs: int = 4,
+                 premerge_max_runs: int = 8, batch_k: int = 1,
+                 segment_format: str = "v1", engine: Optional[str] = None,
                  **options):
         for name, value in options.items():
             if name not in _OFF_VALUES:
                 raise TypeError(f"Server got an unexpected option {name!r}")
             check_off("Server", name, value, _OFF_VALUES)
         from lua_mapreduce_tpu_torch.engine.ingraph import resolve_engine
-        self.store = store
+        # coord RPCs ride the retry layer (and an installed FaultPlan's
+        # injection, and trace spans when a tracer is active)
+        self.store = wrap_jobstore(store)
         self.poll_interval = poll_interval
         self.stale_timeout_s = stale_timeout_s
         self.verbose = verbose
         self.strict = strict
+        self.pipeline = bool(pipeline)
+        self.premerge_min_runs = premerge_min_runs
+        self.premerge_max_runs = premerge_max_runs
         self.batch_k = max(1, int(batch_k))
+        self.segment_format = check_format(segment_format)
         self.engine = resolve_engine(engine)
         self._ingraph = None           # IngraphRunner, built in loop()
         self.spec: Optional[TaskSpec] = None
@@ -192,7 +217,7 @@ class Server:
                     f"storage {spec_str!r}: bare 'mem' is private per "
                     "process — use 'mem:TAG' for in-process pools or "
                     "'shared:DIR' for multi-process pools")
-            if isinstance(self.store, FileJobStore):
+            if isinstance(unwrap(self.store), FileJobStore):
                 raise ValueError(
                     f"storage {spec_str!r} is in-process memory, but the "
                     "job store is a FileJobStore (multi-process pool) — "
@@ -218,6 +243,9 @@ class Server:
         skip_map = False
         sticky_stages = None
         iteration = 1
+        tracer = active_tracer()
+        if tracer is not None:
+            tracer.set_actor("server")
 
         task = self.store.get_task()
         if task is not None and "spec" in task:
@@ -238,7 +266,16 @@ class Server:
                 # the hybrid split is sticky with the engine: a resumed
                 # fleet keeps running the crashed run's compiled legs
                 sticky_stages = task.get("hybrid_stages")
-                self.store.update_task({"batch_k": self.batch_k,
+                # the shuffle mode is sticky too: a crashed pipelined
+                # run left spills whose input runs are already deleted,
+                # which a barrier resume's discovery would drop. batch_k
+                # and segment_format are perf knobs (readers sniff per
+                # file): the resuming server's values win
+                self.pipeline = bool(task.get("pipeline", self.pipeline))
+                self.store.update_task({"pipeline": self.pipeline,
+                                        "batch_k": self.batch_k,
+                                        "segment_format":
+                                            self.segment_format,
                                         "engine": self.engine})
                 if status == TaskStatus.REDUCE.value:
                     skip_map = True
@@ -250,15 +287,25 @@ class Server:
                 "status": TaskStatus.WAIT.value,
                 "iteration": iteration,
                 "spec": self.spec.describe(),
+                # workers gate their pre_jobs probe on this marker
+                "pipeline": self.pipeline,
                 # the fleet's default claim-lease size
                 "batch_k": self.batch_k,
+                # the fleet's spill encoding (readers sniff per file)
+                "segment_format": self.segment_format,
                 "engine": self.engine,
                 "started": time.time(),
             })
 
         self._data_store = get_storage_from(self.spec.storage)
         if task is None:
-            # a fresh run must never restore a previous task's state
+            # a fresh run purges a previous run's flushed spans (through
+            # the raw store: telemetry housekeeping must not consume
+            # FaultPlan occurrences) and must never restore a previous
+            # task's loop state
+            raw = unwrap(self._data_store)
+            for name in raw.list(f"{TRACE_NS}.*"):
+                raw.remove(name)
             self._purge_loop_state()
         else:
             self._restore_loop_state(iteration)
@@ -283,6 +330,8 @@ class Server:
                                 if decision.chosen == "hybrid" else None})
 
         while True:
+            if tracer is not None:
+                tracer.set_iteration(iteration)
             it_stats = IterationStats(iteration=iteration)
             it_t0 = time.time()
             rounds0 = self.store.round_counts()
@@ -306,16 +355,30 @@ class Server:
             if not skip_map and not ingraph_done:
                 delete_results(result_store, self.spec.result_ns)
                 n_map = self._prepare_map(store)
-                self._wait_phase(MAP_NS, n_map, "map", progress)
+                with self._phase_span("map", iteration):
+                    if self.pipeline:
+                        self._pipelined_map_phase(store, n_map, progress)
+                    else:
+                        self._wait_phase(MAP_NS, n_map, "map", progress)
+                map_times = self._phase_times(MAP_NS)
                 it_stats.map.fold(
-                    self._phase_times(MAP_NS),
+                    map_times,
                     failed=self.store.counts(MAP_NS)[Status.FAILED])
+                if self.pipeline:
+                    pre_times = self._phase_times(PRE_NS)
+                    it_stats.premerge.fold(
+                        pre_times,
+                        failed=self.store.counts(PRE_NS)[Status.FAILED])
+                    it_stats.overlap_fraction = overlap_fraction(
+                        map_times, pre_times)
             skip_map = False
 
             if not ingraph_done:
                 n_red = self._prepare_reduce(store)
                 if n_red:
-                    self._wait_phase(RED_NS, n_red, "reduce", progress)
+                    with self._phase_span("reduce", iteration):
+                        self._wait_phase(RED_NS, n_red, "reduce",
+                                         progress)
                 it_stats.reduce.fold(
                     self._phase_times(RED_NS),
                     failed=self.store.counts(RED_NS)[Status.FAILED])
@@ -333,6 +396,10 @@ class Server:
             it_stats.wall_time = time.time() - it_t0
             self.stats.iterations.append(it_stats)
             self.store.update_task({"stats": it_stats.as_dict()})
+            # end-of-iteration trace drain: everything the in-process
+            # pool buffered lands in the store before the namespaces
+            # roll over
+            self._trace_flush(force=True)
             self._log(f"iteration {iteration}: cluster_time="
                       f"{it_stats.cluster_time:.2f}s "
                       f"wall={it_stats.wall_time:.2f}s")
@@ -371,7 +438,7 @@ class Server:
         save, _ = self.spec.state_hooks
         if save is None:
             return
-        raw = self._data_store
+        raw = unwrap(self._data_store)
         name = f"{STATE_NS}.{iteration}"
         with raw.builder() as b:
             b.write_bytes(frame_state(save()))
@@ -388,7 +455,7 @@ class Server:
         _, restore = self.spec.state_hooks
         if restore is None:
             return
-        raw = self._data_store
+        raw = unwrap(self._data_store)
         name = f"{STATE_NS}.{iteration}"
         if not raw.exists(name):
             return
@@ -402,8 +469,9 @@ class Server:
         self._log(f"loop state restored from {name}")
 
     def _purge_loop_state(self) -> None:
-        for name in self._data_store.list(f"{STATE_NS}.*"):
-            self._data_store.remove(name)
+        raw = unwrap(self._data_store)
+        for name in raw.list(f"{STATE_NS}.*"):
+            raw.remove(name)
 
     # -- phases -------------------------------------------------------------
 
@@ -419,12 +487,22 @@ class Server:
         if n_existing != len(jobs):
             if n_existing:
                 self.store.drop_ns(MAP_NS)  # taskfn changed shape: restart
-            for name in store.list(f"{self.spec.result_ns}.P*.M*"):
-                store.remove(name)
+            self._clean_runs(store)
             self.store.insert_jobs(
                 MAP_NS, [make_job(k, v) for k, v in jobs])
         self.store.update_task({"status": TaskStatus.MAP.value})
         return len(jobs)
+
+    def _clean_runs(self, store) -> None:
+        """Drop every intermediate run file of this namespace: mapper
+        runs (``ns.P*.M*``) and pipelined spills (``ns.P*.SPILL-*``)."""
+        for pattern in (f"{self.spec.result_ns}.P*.M*",
+                        f"{self.spec.result_ns}.P*.{SPILL_TAG}-*"):
+            for name in store.list(pattern):
+                store.remove(name)
+        # names just swept are reused by this iteration's maps with new
+        # contents, which the footer cache's (name, size) key can miss
+        purge_footer_cache(store)
 
     def _prepare_reduce(self, store) -> int:
         """Discover map-output partitions and insert one reduce job per
@@ -432,14 +510,25 @@ class Server:
         the PRODUCERS of its run files (server.lua:286-289), so a reduce
         that cannot see a run names the worker that wrote it."""
         self.store.drop_ns(RED_NS)
-        parts = discover_partitions(store, self.spec.result_ns)
+        if self.pipeline:
+            # file lists rebuilt from storage: spills in place of the
+            # run ranges they consumed, tail runs raw, in the canonical
+            # merge order — the same on a crash/resume, where the
+            # tracker state is gone
+            map_keys = [map_key_str(d["_id"])
+                        for d in self.store.jobs(MAP_NS)]
+            parts = discover_pipelined(store, self.spec.result_ns,
+                                       map_keys)
+        else:
+            parts = discover_partitions(store, self.spec.result_ns)
         producer_by_id = {map_key_str(jid): w
                           for jid, w in self.store.job_workers(MAP_NS).items()}
         docs = []
         for part, files in sorted(parts.items()):
             mappers = set()
             for f in files:
-                # run-file name is "<ns>.P<part>.M<map_job_id>"
+                # run-file name is "<ns>.P<part>.M<map_job_id>" (spill
+                # files carry no ".M" infix and resolve to no producer)
                 producer = producer_by_id.get(f.rsplit(".M", 1)[-1])
                 if producer is not None:
                     mappers.add(producer)
@@ -454,23 +543,50 @@ class Server:
         self.store.update_task({"status": TaskStatus.REDUCE.value})
         return len(docs)
 
-    def _housekeep(self, ns: str) -> None:
+    def _housekeep(self, *namespaces: str) -> None:
         """One poll's upkeep (server.lua:186-234), throttled to the
-        poll_interval cadence: scavenge BROKEN≥retries → FAILED, requeue
-        stale RUNNING, drain and retain worker errors."""
+        poll_interval cadence: scavenge BROKEN≥retries → FAILED and
+        requeue stale RUNNING in every given namespace, drain and retain
+        worker errors, soft-flush the trace buffer."""
         now = time.time()
         if self._housekeep_at is not None \
                 and now - self._housekeep_at < self.poll_interval:
             return
         self._housekeep_at = now
-        self.store.scavenge(ns, MAX_JOB_RETRIES)
-        if self.stale_timeout_s is not None:
-            self.store.requeue_stale(ns, self.stale_timeout_s)
+        for ns in namespaces:
+            self.store.scavenge(ns, MAX_JOB_RETRIES)
+            if self.stale_timeout_s is not None:
+                self.store.requeue_stale(ns, self.stale_timeout_s)
         for err in self.store.drain_errors():
             # the drain is destructive — always retain for diagnosis
             self.errors.append(err)
             self._log(f"worker error [{err['worker']}]: "
                       f"{err['msg'].splitlines()[-1] if err['msg'] else ''}")
+        # soft flush: nothing happens below the tracer's threshold
+        self._trace_flush()
+
+    # -- tracing hooks -------------------------------------------------------
+
+    def _phase_span(self, phase: str, iteration: int):
+        """A span over a whole phase barrier (the waterfall's top row);
+        a no-op context when tracing is off."""
+        tracer = active_tracer()
+        if tracer is None:
+            return contextlib.nullcontext()
+        return tracer.span(f"phase.{phase}", iteration=iteration)
+
+    def _trace_flush(self, force: bool = False) -> None:
+        """Publish the process tracer's buffered spans through the task
+        storage: the server's own, and an in-process pool's. Best
+        effort: telemetry never aborts an iteration."""
+        tracer = active_tracer()
+        if tracer is None or self._data_store is None:
+            return
+        try:
+            tracer.flush(self._data_store, force=force)
+        except Exception as exc:
+            self._log(f"trace flush failed ({type(exc).__name__}: {exc});"
+                      " spans re-buffered")
 
     def _finish_phase(self, phase: str, counts: Dict[Status, int],
                       total: int) -> None:
@@ -490,6 +606,103 @@ class Server:
               + (f"; last:\n{self.errors[-1]['msg']}"
                  if self.errors else ""),
               file=sys.stderr)
+
+    def _pipelined_map_phase(self, store, n_map: int,
+                             progress: Optional[Callable[[str, float],
+                                                         None]]) -> None:
+        """Overlapped map + eager pre-merge barrier (the pipelined
+        replacement for ``_wait_phase(MAP_NS, ...)``).
+
+        Every poll: housekeeping over both namespaces; feed newly
+        committed map jobs' runs to the :class:`PremergeTracker`;
+        publish its eligible consolidation batches as ``pre_merge`` jobs
+        (workers claim them while mappers still run); settle finished
+        or failed pre-merge jobs — a FAILED one whose spill exists anyway
+        counts as done, otherwise its range is poisoned and the reduce
+        uses the raw runs. Returns once every map job and every
+        published pre-merge job is terminal; nothing is published after
+        the last map commits.
+        """
+        ns = self.spec.result_ns
+        self.store.drop_ns(PRE_NS)
+        tracker = PremergeTracker(
+            ns, [map_key_str(d["_id"]) for d in self.store.jobs(MAP_NS)],
+            min_runs=self.premerge_min_runs, max_runs=self.premerge_max_runs)
+        for name in store.list(f"{ns}.P*.{SPILL_TAG}-*"):
+            parsed = parse_spill_name(ns, name)    # crash/resume leftovers
+            if parsed is not None:
+                tracker.note_existing_spill(*parsed, name=name)
+        run_re = run_name_re(ns)
+        seen_committed: set = set()
+        pre_ids: Dict[int, tuple] = {}    # pre job id -> (part, seq)
+        settled_pre: set = set()
+        while True:
+            self._housekeep(MAP_NS, PRE_NS)
+            # gate the per-job snapshot on the cheap index counts
+            mcounts = self.store.counts(MAP_NS)
+            n_terminal = mcounts[Status.WRITTEN] + mcounts[Status.FAILED]
+            newly = []
+            if n_terminal > len(seen_committed):
+                newly = [d for d in self.store.jobs(MAP_NS)
+                         if d["status"] in (Status.WRITTEN, Status.FAILED)
+                         and d["_id"] not in seen_committed]
+            if newly:
+                # ONE namespace listing shared by every newly committed
+                # job of this poll
+                runs_by_key: Dict[str, Dict[int, str]] = {}
+                for name in store.list(f"{ns}.P*.M*"):
+                    m = run_re.match(name)
+                    if m:
+                        runs_by_key.setdefault(m.group(2), {})[
+                            int(m.group(1))] = name
+                for d in newly:
+                    seen_committed.add(d["_id"])
+                    # FAILED jobs contribute whatever partial runs they
+                    # published, as the barrier path's discovery does
+                    key = map_key_str(d["_id"])
+                    tracker.note_map_committed(key, runs_by_key.get(key, {}))
+            map_done = len(seen_committed) >= n_map
+
+            if not map_done:
+                spills = tracker.take_eligible()
+                if spills:
+                    ids = self.store.insert_jobs(PRE_NS, [
+                        make_job(f"{sp.part}.{sp.seq}",
+                                 {"part": sp.part, "seq": sp.seq,
+                                  "files": sp.files, "spill": sp.name})
+                        for sp in spills])
+                    for jid, sp in zip(ids, spills):
+                        pre_ids[jid] = (sp.part, sp.seq)
+                    self._log(f"published {len(spills)} pre_merge job(s) "
+                              f"({len(seen_committed)}/{n_map} maps done)")
+
+            pcounts = self.store.counts(PRE_NS)
+            pre_terminal = pcounts[Status.WRITTEN] + pcounts[Status.FAILED]
+            pre_docs = (self.store.jobs(PRE_NS)
+                        if pre_terminal > len(settled_pre) else ())
+            for d in pre_docs:
+                jid = d["_id"]
+                if jid in settled_pre or jid not in pre_ids:
+                    continue
+                if d["status"] == Status.WRITTEN:
+                    settled_pre.add(jid)
+                    tracker.spill_done(*pre_ids[jid])
+                elif d["status"] == Status.FAILED:
+                    settled_pre.add(jid)
+                    part, seq = pre_ids[jid]
+                    sp = tracker.spills.get((part, seq))
+                    exists = sp is not None and store.exists(sp.name)
+                    tracker.spill_failed(part, seq, spill_exists=exists)
+                    self._log(f"pre_merge job {jid} FAILED; "
+                              + ("spill present, kept" if exists else
+                                 "range poisoned, reduce uses raw runs"))
+
+            if progress is not None:
+                progress("map", len(seen_committed) / max(n_map, 1))
+            if map_done and len(settled_pre) >= len(pre_ids):
+                self._finish_phase("map", self.store.counts(MAP_NS), n_map)
+                return
+            time.sleep(self.poll_interval)
 
     def _wait_phase(self, ns: str, total: int, phase: str,
                     progress: Optional[Callable[[str, float], None]]) -> None:

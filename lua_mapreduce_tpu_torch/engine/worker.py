@@ -16,14 +16,20 @@ asks for ``device="cpu"``. The hybrid plane's compiled map and reduce
 legs run there when the task document's negotiated stage split names
 them (``engine/hybrid.py``).
 
-Trimmed from the JAX worker, to be ported with ROADMAP A6b: the
-pipelined and push shuffles, speculative duplicate leases, autotune
-following, v2 segments, replication and erasure coding, trace spans and
-the notify waiter. An idle worker polls on a back-off that doubles up
-to ``max_sleep``. Those options are accepted only at their "off" value,
-and a task document that deploys one of them is refused. The store is
-called directly: the JAX package's retry layer (``wrap_jobstore``) is
-not ported either.
+Under a pipelined task the worker also claims the server's eager
+``pre_merge`` jobs (``PRE_NS``) during the map phase; it writes spills
+in the task document's ``segment_format`` unless configured with its
+own. Coord RPCs go through ``faults/wrappers.wrap_jobstore`` (retry,
+fault injection, trace spans); with a tracer active every job body is
+a span and the worker flushes its spans into the task storage after
+each lease and when it leaves.
+
+Trimmed from the JAX worker, to be ported with ROADMAP A6b: the push
+shuffle, speculative duplicate leases, autotune following, replication
+and erasure coding, and the notify waiter. An idle worker polls on a
+back-off that doubles up to ``max_sleep``. Those options are accepted
+only at their "off" value, and a task document that deploys one of
+them is refused.
 """
 
 from __future__ import annotations
@@ -42,17 +48,22 @@ from lua_mapreduce_tpu_torch.core.constants import (DEFAULT_SLEEP,
                                                     MAP_NS, MAX_IDLE_COUNT,
                                                     MAX_JOB_RETRIES,
                                                     MAX_WORKER_RETRIES,
-                                                    RED_NS, Status,
+                                                    PRE_NS, RED_NS, Status,
                                                     TaskStatus)
 from lua_mapreduce_tpu_torch.coord.jobstore import JobStore
 from lua_mapreduce_tpu_torch.device import resolve_device
 from lua_mapreduce_tpu_torch.engine.contract import TaskSpec
 from lua_mapreduce_tpu_torch.engine.job import (JobTimes, publish_map_groups,
-                                                run_map_job, run_reduce_job)
+                                                run_map_job,
+                                                run_premerge_job,
+                                                run_reduce_job)
 from lua_mapreduce_tpu_torch.faults.errors import (classify_job_fault,
                                                    is_transient_job_fault)
+from lua_mapreduce_tpu_torch.faults.plan import set_current_worker
 from lua_mapreduce_tpu_torch.faults.retry import COUNTERS
+from lua_mapreduce_tpu_torch.faults.wrappers import wrap_jobstore
 from lua_mapreduce_tpu_torch.store.router import get_storage_from
+from lua_mapreduce_tpu_torch.trace.span import active_tracer
 
 _log = logging.getLogger(__name__)
 
@@ -62,12 +73,11 @@ _log = logging.getLogger(__name__)
 MAX_INFRA_POLL_FAILURES = 10
 
 _CONFIG_KEYS = ("max_iter", "max_sleep", "max_tasks", "max_jobs", "phases",
-                "heartbeat_s", "batch_k", "batch_lease_s")
+                "heartbeat_s", "batch_k", "batch_lease_s", "segment_format")
 
 # JAX-worker options this port does not implement, with the values that
 # select the behaviour it does implement (ROADMAP A6b)
 _OFF_VALUES = {
-    "segment_format": (None, "v1"),
     "replication": (None, 1),
     "coding": (None,),
     "idle_poll_ms": (None,),
@@ -92,14 +102,12 @@ def check_off(owner: str, name: str, value, off_values: dict) -> None:
 
 def check_task_doc(task: dict) -> None:
     """Refuse a task document that deploys a plane this port does not
-    run (a JAX-package server sharing the store, say): a pipelined or
-    push shuffle, v2 segments, replication, coding, speculation or
-    autotune. Running it as a barrier v1 task would be a silently
-    different run."""
+    run (a JAX-package server sharing the store, say): a push shuffle,
+    replication, coding, speculation or autotune. Running it without
+    that plane would be a silently different run. The pipelined shuffle
+    and both segment formats run here."""
     deployed = {
-        "pipeline": bool(task.get("pipeline")),
         "push": bool(task.get("push")),
-        "segment_format": task.get("segment_format") not in (None, "v1"),
         "replication": int(task.get("replication") or 1) != 1,
         "coding": bool(task.get("coding")),
         "speculation": bool(task.get("speculation")),
@@ -117,7 +125,9 @@ class Worker:
 
     def __init__(self, store: JobStore, name: Optional[str] = None,
                  verbose: bool = False):
-        self.store = store
+        # coord RPCs ride the retry layer (and an installed FaultPlan's
+        # injection, and trace spans when a tracer is active)
+        self.store = wrap_jobstore(store)
         self.name = name or f"worker-{uuid.uuid4().hex[:8]}-{os.getpid()}"
         self.verbose = verbose
         self.max_iter = 20
@@ -137,6 +147,12 @@ class Worker:
         # observed job duration so it holds about batch_lease_s of work.
         self.batch_k = None
         self.batch_lease_s = 5.0
+        # spill encoding: None = follow the task document's
+        # segment_format; an explicit "v1"/"v2" wins (readers sniff per
+        # file, so a mixed fleet is valid)
+        self.segment_format = None
+        self._task_segment_format = None
+        self._last_spec = None          # where trace flushes publish
         self._dur_ewma: Dict[str, float] = {}   # ns -> smoothed real secs
         # hybrid compiled legs: the server negotiates the per-stage split
         # on the task doc; the leg engines are minted lazily per (spec,
@@ -167,6 +183,11 @@ class Worker:
             if k not in _CONFIG_KEYS:
                 raise KeyError(f"unknown worker config key {k!r}; "
                                f"known: {_CONFIG_KEYS}")
+            if k == "segment_format" and v is not None:
+                # fail at configure time, not as a per-job failure storm
+                from lua_mapreduce_tpu_torch.core.segment import \
+                    check_format
+                check_format(v)
             setattr(self, k, v)
         return self
 
@@ -186,7 +207,12 @@ class Worker:
         check_task_doc(task)
 
         spec = self._get_spec(task["spec"])
+        self._last_spec = spec
         iteration = int(task.get("iteration", 1))
+        tracer = active_tracer()
+        if tracer is not None:
+            # job ids restart per iteration: spans carry the iteration
+            tracer.set_iteration(iteration)
         # the per-job infra-release budget is scoped to ONE iteration of
         # ONE task: job ids restart at 0 every iteration
         gen = (task["spec"], iteration)
@@ -195,19 +221,32 @@ class Worker:
             self._infra_released.clear()
         self._task_engine = task.get("engine")
         self._task_hybrid_stages = task.get("hybrid_stages")
+        self._task_segment_format = task.get("segment_format")
 
         if task["status"] == TaskStatus.MAP.value:
+            if "map" in self.phases:
+                preferred = self._affinity if iteration > 1 else None
+                steal = not preferred or self._idle_count >= MAX_IDLE_COUNT
+                jobs = self.store.claim_batch(
+                    MAP_NS, self.name, self._effective_k(MAP_NS, task),
+                    preferred, steal=steal)
+                if jobs:
+                    self._idle_count = 0
+                    self._execute_batch(spec, MAP_NS, jobs)
+                    return "executed"
+            # eager pre-merge rides inside the map phase behind the
+            # reduce-phase filter, as idle-capacity work (map progress
+            # first); the doc marker gates the probe, so barrier tasks
+            # pay no extra claim round trip
+            if "reduce" in self.phases and task.get("pipeline"):
+                jobs = self.store.claim_batch(
+                    PRE_NS, self.name, self._effective_k(PRE_NS, task))
+                if jobs:
+                    self._idle_count = 0
+                    self._execute_batch(spec, PRE_NS, jobs)
+                    return "executed"
             if "map" not in self.phases:
                 return "out-of-phase"
-            preferred = self._affinity if iteration > 1 else None
-            steal = not preferred or self._idle_count >= MAX_IDLE_COUNT
-            jobs = self.store.claim_batch(
-                MAP_NS, self.name, self._effective_k(MAP_NS, task),
-                preferred, steal=steal)
-            if jobs:
-                self._idle_count = 0
-                self._execute_batch(spec, MAP_NS, jobs)
-                return "executed"
             self._idle_count += 1
             return "idle"
 
@@ -269,6 +308,9 @@ class Worker:
         def beat():
             failures = 0
             delay = self.heartbeat_s
+            tracer = active_tracer()
+            if tracer is not None:
+                tracer.set_actor(self.name)    # beat spans name the worker
             while not stop.wait(delay):
                 try:
                     self.store.heartbeat_batch(ns, jids, self.name)
@@ -346,20 +388,38 @@ class Worker:
         engine, _ = self._hybrid_runtime(spec)
         if engine is None or not jobs:
             return
+        t0 = time.time()
         try:
             per_job = engine.run_batch([(j["key"], j["value"])
                                         for j in jobs])
         except Exception as exc:        # noqa: BLE001 — degrade policy
             reason = f"{type(exc).__name__}: {exc}"
             COUNTERS.bump("hybrid_fallbacks")
+            from lua_mapreduce_tpu_torch.engine.ingraph import \
+                record_hybrid_fallback
+            record_hybrid_fallback("map", reason)
             print(f"[{self.name}] compiled map leg failed ({reason}); map "
                   "jobs run interpreted", flush=True)
             self._hybrid_rt = (self._hybrid_rt[0], None, self._hybrid_rt[2])
             return
         self._hybrid_stash = {j["_id"]: g for j, g in zip(jobs, per_job)}
         COUNTERS.bump("hybrid_map_legs")
+        tracer = active_tracer()
+        if tracer is not None:
+            # recorded after the leg with its measured window: no span is
+            # open while the leg captures or replays
+            now = tracer.clock()
+            tracer.add("hybrid.run", now - (time.time() - t0), now,
+                       ns="hybrid", stage="map", job_id=jobs[0]["_id"],
+                       jobs=len(jobs), mode=engine.mode,
+                       traces=engine.traces)
 
     # -- job bodies -----------------------------------------------------------
+
+    def _segment_format(self) -> str:
+        """The spill encoding this worker writes: its own override, else
+        the task document's fleet default, else v1."""
+        return self.segment_format or self._task_segment_format or "v1"
 
     def _map_body(self, spec: TaskSpec, job: dict) -> JobTimes:
         store = get_storage_from(spec.storage)
@@ -368,11 +428,22 @@ class Worker:
             # compiled map leg: mapfn+combiner already ran in the lease's
             # batch program — only the shared publish tail remains
             times = JobTimes(started=time.time())
-            publish_map_groups(spec, store, str(job["_id"]), groups)
+            publish_map_groups(spec, store, str(job["_id"]), groups,
+                               segment_format=self._segment_format())
             times.finished = times.written = time.time()
             return times
         return run_map_job(spec, store, str(job["_id"]), job["key"],
-                           job["value"])
+                           job["value"],
+                           segment_format=self._segment_format())
+
+    def _premerge_body(self, spec: TaskSpec, job: dict) -> JobTimes:
+        """Consolidate committed runs into a spill (pipelined shuffle);
+        run_premerge_job's spill-exists short-circuit covers a
+        lost-then-reclaimed job whose first claimant already published."""
+        v = job["value"]
+        return run_premerge_job(spec, get_storage_from(spec.storage),
+                                v["files"], v["spill"],
+                                segment_format=self._segment_format())
 
     def _reduce_body(self, spec: TaskSpec, job: dict) -> JobTimes:
         store = get_storage_from(spec.storage)
@@ -382,7 +453,9 @@ class Worker:
         # pull-integrity check: every producer's run must be visible
         # BEFORE the merge starts. A missing run fails loudly and names
         # its producer (the sshfs scp-from-mapper failure, fs.lua:148-157)
-        # instead of silently reducing fewer runs.
+        # instead of silently reducing fewer runs. The ``.*`` glob covers
+        # raw runs and pre-merged ``.SPILL-*`` inputs, never the
+        # partition's own result file.
         visible = set(store.list(f"{spec.result_ns}.P{v['part']}.*"))
         missing = [f for f in v["files"] if f not in visible]
         if missing:
@@ -408,7 +481,35 @@ class Worker:
             COUNTERS.bump("hybrid_reduce_legs")
         return times
 
-    _BODIES = {MAP_NS: _map_body, RED_NS: _reduce_body}
+    _BODIES = {MAP_NS: _map_body, PRE_NS: _premerge_body,
+               RED_NS: _reduce_body}
+    _LABELS = {MAP_NS: "map", PRE_NS: "pre_merge", RED_NS: "reduce"}
+
+    # -- tracing hooks --------------------------------------------------------
+
+    def _body_span(self, ns: str, label: str, job: dict):
+        """The job-body span: the claim → body → commit chain's middle
+        link and the parent of every store op inside the body. A no-op
+        context when tracing is off."""
+        tracer = active_tracer()
+        if tracer is None:
+            return contextlib.nullcontext()
+        return tracer.span(f"{label}.body", ns=ns, job_id=job["_id"],
+                           attempt=int(job.get("repetitions") or 0))
+
+    def _trace_flush(self, force: bool = False) -> None:
+        """Publish buffered spans through the task's storage: a soft
+        flush after each lease, a forced one when the worker leaves.
+        Best effort — a failed flush re-buffers and never sinks a job."""
+        tracer = active_tracer()
+        if tracer is None or self._last_spec is None:
+            return
+        try:
+            tracer.flush(get_storage_from(self._last_spec.storage),
+                         force=force)
+        except Exception as exc:
+            _log.warning("[%s] trace flush failed (%s: %s); spans "
+                         "re-buffered", self.name, type(exc).__name__, exc)
 
     def _execute_batch(self, spec: TaskSpec, ns: str,
                        jobs: List[dict]) -> None:
@@ -420,24 +521,26 @@ class Worker:
         budget) or marks it BROKEN, and re-raises. Jobs whose claim was
         lost mid-lease are skipped by the commit's ownership CAS."""
         body = self._BODIES[ns]
-        label = "map" if ns == MAP_NS else "reduce"
+        label = self._LABELS[ns]
         if ns == MAP_NS:
             self._stash_hybrid_map(spec, jobs)
         jids = [j["_id"] for j in jobs]
         done: List[tuple] = []          # (jid, times_dict), commit order
         with self._beating(ns, jids):
             for pos, job in enumerate(jobs):
+                sp = None
                 try:
-                    times = body(self, spec, job)
+                    with self._body_span(ns, label, job) as sp:
+                        times = body(self, spec, job)
                 except Exception as exc:
                     committed = self.store.commit_batch(ns, self.name, done)
                     self._settle_committed(ns, committed)
                     self.store.release_batch(ns, self.name, jids[pos + 1:])
                     if (is_transient_job_fault(exc)
                             and self._release_budget_ok(ns, job["_id"])):
-                        self._release_infra(ns, job["_id"], exc)
+                        self._release_infra(ns, job["_id"], exc, span=sp)
                     else:
-                        self._mark_broken(ns, job["_id"], exc)
+                        self._mark_broken(ns, job["_id"], exc, span=sp)
                     raise
                 self._note_duration(ns, times.real)
                 done.append((job["_id"], _times_dict(times)))
@@ -450,6 +553,7 @@ class Worker:
         lost = len(done) - len(committed)
         if lost:
             self._log(f"{label}: {lost} claim(s) lost mid-lease; yielded")
+        self._trace_flush()
 
     def _settle_committed(self, ns: str, committed: List[int]) -> None:
         """Book committed jobs: execution count + map affinity."""
@@ -460,12 +564,19 @@ class Worker:
                     self._affinity.append(jid)
 
     @staticmethod
-    def _error_info(ns: str, jid: int, exc: Exception) -> dict:
-        """Structured post-mortem fields for an errors-stream entry."""
-        return {"exc_class": type(exc).__name__,
+    def _error_info(ns: str, jid: int, exc: Exception,
+                    span: Optional[dict] = None) -> dict:
+        """Structured post-mortem fields for an errors-stream entry.
+        Under tracing, ``span`` is the job-body span live when the fault
+        fired: its deterministic id links the entry to its timeline."""
+        info = {"exc_class": type(exc).__name__,
                 "exc_msg": str(exc)[:500],
                 "classification": classify_job_fault(exc),
                 "ns": ns, "job_id": jid}
+        if span is not None:
+            info["span_id"] = span["sid"]
+            info["span_worker"] = span["worker"]
+        return info
 
     def _release_budget_ok(self, ns: str, jid: int) -> bool:
         """Liveness backstop for the release path: this worker releases
@@ -477,7 +588,8 @@ class Worker:
         self._infra_released[key] = n
         return n <= MAX_JOB_RETRIES
 
-    def _release_infra(self, ns: str, jid: int, exc: Exception) -> None:
+    def _release_infra(self, ns: str, jid: int, exc: Exception,
+                       span: Optional[dict] = None) -> None:
         """Transient-infra failure path: job → WAITING with no repetition
         charge (CASed on ownership), error → errors stream."""
         self.store.set_job_status(ns, jid, Status.WAITING,
@@ -485,7 +597,8 @@ class Worker:
                                   expect_worker=self.name)
         COUNTERS.bump("infra_releases")
         self.store.insert_error(self.name, self._abbrev_tb(),
-                                info=self._error_info(ns, jid, exc))
+                                info=self._error_info(ns, jid, exc,
+                                                      span=span))
         self._log(f"job {jid}: transient infra fault "
                   f"({type(exc).__name__}) — released to WAITING, "
                   "no repetition charged")
@@ -499,7 +612,8 @@ class Worker:
                      "elided) ..."] + lines[-max_lines:]
         return "\n".join(lines)
 
-    def _mark_broken(self, ns: str, jid: int, exc: Exception) -> None:
+    def _mark_broken(self, ns: str, jid: int, exc: Exception,
+                     span: Optional[dict] = None) -> None:
         """Job → BROKEN (+1 repetition) and error → errors stream
         (reference job.lua:322-342, cnn.lua:62-66). CASed on ownership
         AND on the job still being RUNNING, so a requeued (already
@@ -508,7 +622,8 @@ class Worker:
                                   expect=(Status.RUNNING,),
                                   expect_worker=self.name)
         self.store.insert_error(self.name, self._abbrev_tb(),
-                                info=self._error_info(ns, jid, exc))
+                                info=self._error_info(ns, jid, exc,
+                                                      span=span))
 
     # -- main loop ----------------------------------------------------------
 
@@ -520,7 +635,20 @@ class Worker:
         (worker.lua:133-137). Classified transient store faults back off
         and re-poll instead (up to MAX_INFRA_POLL_FAILURES)."""
         self._jobs_at_start = self.jobs_executed
-        return self._execute_loop()
+        # this thread's worker identity for the fault plane (the `slow`
+        # kind routes by it) and the tracer (span worker fields)
+        set_current_worker(self.name)
+        tracer = active_tracer()
+        if tracer is not None:
+            tracer.set_actor(self.name)
+        try:
+            return self._execute_loop()
+        finally:
+            set_current_worker(None)
+            # residual spans outlive the worker
+            self._trace_flush(force=True)
+            if tracer is not None:
+                tracer.set_actor(None)
 
     def _execute_loop(self) -> int:
         retries = infra_fails = idle_iters = tasks_done = 0

@@ -39,6 +39,8 @@ class _MemBuilder(FileBuilder):
 class MemStore(Store):
     """Dict-of-files store; ``build`` swaps content in atomically."""
 
+    publish_ambiguous = False
+
     def __init__(self):
         self._files: Dict[str, Union[str, bytes]] = {}
         self._lock = threading.Lock()

@@ -21,6 +21,7 @@ from typing import Iterator, List, Union
 from lua_mapreduce_tpu_torch.store.base import FileBuilder, Store
 
 READ_BUFFER = 1 << 20
+FLUSH_BYTES = 1 << 20
 
 
 def _encode(name: str) -> str:
@@ -62,6 +63,9 @@ class _DirBuilder(FileBuilder):
 
 
 class SharedStore(Store):
+    # tempfile + fsync + atomic os.replace: a failed build did not publish
+    publish_ambiguous = False
+
     def __init__(self, path: str):
         self.path = path
         os.makedirs(path, exist_ok=True)

@@ -5,8 +5,8 @@ of an accelerator run is inside the step — kernels, copies, the gaps
 between them — which only the profiler sees. :func:`device_trace`
 wraps a region in a ``torch.profiler`` trace written into a directory
 as a Chrome trace (``chrome://tracing``, Perfetto, TensorBoard's
-profile plugin); ``train_lm --profile`` and ``TrainConfig.profile_dir``
-use it. :func:`annotate` names a host span inside the trace, and
+profile plugin); ``train_lm --profile``, ``TrainConfig.profile_dir`` and
+the MapReduce CLIs' ``--profile`` use it. :func:`annotate` names a host span inside the trace, and
 :func:`maybe_annotate` does so without ever failing the traced work.
 
 On a card, CUDA activity is traced with the host's; kernels replayed
@@ -35,7 +35,8 @@ def device_trace(log_dir: str):
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities,
+                 experimental_config=_all_threads_config()) as prof:
         yield log_dir
         if torch.cuda.is_available():
             torch.cuda.synchronize()
@@ -43,10 +44,28 @@ def device_trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, name + ".pt.trace.json"))
 
 
+def _all_threads_config():
+    """Kineto's option to record every thread's host annotations (an
+    in-process pool runs its job bodies on worker threads), where this
+    torch build has it; None (the calling thread only) where not."""
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+        return _ExperimentalConfig(profile_all_threads=True)
+    except (ImportError, TypeError):
+        return None
+
+
 def annotate(name: str):
     """Named sub-span inside a :func:`device_trace`
     (``torch.profiler.record_function``)."""
     return torch.profiler.record_function(name)
+
+
+def capturing() -> bool:
+    """True while the current CUDA stream is being captured into a
+    graph (no profiler range may open there)."""
+    return torch.cuda.is_available() and \
+        torch.cuda.is_current_stream_capturing()
 
 
 def maybe_annotate(name: str):

@@ -1850,3 +1850,108 @@ def test_3d_step_at_mp_1_equals_the_2d_mesh_step(cuda):
     for n, want in runs["2d"][1].items():
         torch.testing.assert_close(runs["3d"][1][n].detach(), want.detach(),
                                    rtol=2e-4, atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# the data plane: object store, v2 segments, faults, trace, pipelined shuffle
+# ---------------------------------------------------------------------------
+
+def _task_results(store_spec, model_root):
+    import re
+
+    from lua_mapreduce_tpu_torch.store.router import get_storage_from
+    st = get_storage_from(store_spec)
+    out = {n: st.read_range(n, 0, st.size(n)) for n in st.list("result.P*")
+           if re.match(r"^result\.P\d+$", n)}
+    for name in ("model.ckpt", "model.meta"):
+        out[name] = (model_root / name).read_bytes()
+    return out
+
+
+def test_data_plane_digits_pool_equals_local_executor(cuda, tmp_path,
+                                                      monkeypatch):
+    """The digits trainer through a pipelined v2 Server and two worker
+    threads on ``object:`` spill under a seeded fault plan, traced: the
+    result files and the checkpoint equal the barrier v1 LocalExecutor's
+    on the card byte for byte, the launches are the code's, the plan
+    fired, retries absorbed it, and every committed job of the last
+    iteration has a complete span chain."""
+    from lua_mapreduce_tpu_torch.coord.jobstore import MemJobStore
+    from lua_mapreduce_tpu_torch.core.constants import (MAP_NS, PRE_NS,
+                                                        RED_NS, Status)
+    from lua_mapreduce_tpu_torch.engine import LocalExecutor, TaskSpec
+    from lua_mapreduce_tpu_torch.faults import FaultPlan, install_fault_plan
+    from lua_mapreduce_tpu_torch.faults.retry import COUNTERS
+    from lua_mapreduce_tpu_torch.store.router import get_storage_from
+    from lua_mapreduce_tpu_torch.trace import (TraceCollection, Tracer,
+                                               install_tracer)
+    n = 3
+    LocalExecutor(_digits_spec(tmp_path / "local", n),
+                  max_iterations=n + 1).run()
+    want = _task_results(f"shared:{tmp_path}/local/spill",
+                         tmp_path / "local" / "model")
+    spec = TaskSpec(taskfn=_DIGITS, mapfn=_DIGITS, partitionfn=_DIGITS,
+                    reducefn=_DIGITS, finalfn=_DIGITS,
+                    init_args={"sizes": [256, 128, 10], "n_shards": 4,
+                               "bunch": 128, "max_steps": n,
+                               "patience": 10_000, "seed": 0,
+                               "model_store": f"shared:{tmp_path}/dp/model"},
+                    storage=f"object:{tmp_path}/dp/spill")
+    plan = FaultPlan(24, transient=0.04, torn=0.08, error_after_write=0.12,
+                     rpc_transient=0.03, max_per_key=2)
+    c0 = COUNTERS.snapshot()
+    install_fault_plan(plan)
+    install_tracer(Tracer())
+    try:
+        ops.reset_launch_counts()
+        store = MemJobStore()
+        _, workers, stats = _pool(store, spec, 2, pipeline=True,
+                                  premerge_min_runs=2, segment_format="v2")
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    finally:
+        install_tracer(None)
+        install_fault_plan(None)
+    delta = COUNTERS.delta(c0, COUNTERS.snapshot())
+    assert len(stats.iterations) == n
+    assert _task_results(f"object:{tmp_path}/dp/spill",
+                         tmp_path / "dp" / "model") == want
+    assert counts["matmul_f32"] == n * (4 * 5 + 2)
+    assert counts["rowwise_softmax"] == n * (4 + 1)
+    assert delta["faults_injected"] == plan.total_fired() > 0
+    assert delta.get("retries", 0) > 0
+    committed = [(ns, d["_id"]) for ns in (MAP_NS, PRE_NS, RED_NS)
+                 for d in store.jobs(ns) if d["status"] == Status.WRITTEN]
+    col = TraceCollection.from_store(
+        get_storage_from(f"object:{tmp_path}/dp/spill"))
+    assert committed and col.check_complete(committed) == []
+    assert all(w.device == torch.device("cuda") for w in workers)
+
+
+def test_data_plane_profile_holds_span_names_beside_kernels(cuda, tmp_path):
+    """``--trace --profile`` in one process: a LocalExecutor digits
+    iteration under an annotating tracer inside ``device_trace`` leaves
+    the job-body span names as rows of the torch profile beside the
+    B1/B2 kernel rows."""
+    import glob
+    import json
+
+    from lua_mapreduce_tpu_torch.engine import LocalExecutor
+    from lua_mapreduce_tpu_torch.trace import Tracer, install_tracer
+    from lua_mapreduce_tpu_torch.utils.profiling import device_trace
+    prof = tmp_path / "prof"
+    install_tracer(Tracer(annotate=True))
+    try:
+        with device_trace(str(prof)):
+            LocalExecutor(_digits_spec(tmp_path / "run", 1), max_iterations=2,
+                          pipeline=True, premerge_min_runs=2,
+                          segment_format="v2").run()
+    finally:
+        install_tracer(None)
+    (path,) = glob.glob(str(prof / "*.pt.trace.json"))
+    events = json.load(open(path))["traceEvents"]
+    user = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    assert {"map.body", "reduce.body"} <= user
+    assert any("matmul_f32_kernel" in k for k in kernels)
+    assert any("softmax_" in k for k in kernels)

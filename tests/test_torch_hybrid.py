@@ -11,8 +11,9 @@ catch-all turns a missing ``jax.core.Literal`` into "not provable"), so
 the JAX fold never folds; the port's does, and
 ``test_fold_accepts_accumulator_loop_and_restores_bytes`` passes here.
 The Server- and CLI-backed tests of ``tests/test_hybrid.py`` have their
-counterparts at the end of this file; the span-backed ones wait for the
-port's tracer.
+counterparts at the end of this file, the span-backed ones
+(``lowering.<stage>`` / ``hybrid.run`` / ``hybrid.fallback``) after the
+degrade tests.
 """
 
 import pytest
@@ -256,6 +257,48 @@ def _acc_loop(k, vs):
     for i in range(1, len(vs)):
         acc = acc + vs[i]
     return acc
+
+
+def test_lowering_stage_spans_and_engine_report(igmod):  # noqa: F811
+    from lua_mapreduce_tpu_torch.store.router import get_storage_from
+    from lua_mapreduce_tpu_torch.trace.collect import TraceCollection
+    from lua_mapreduce_tpu_torch.trace.span import Tracer, install_tracer
+    mod = igmod("thy_partial_span", HY_PARTIAL)
+    install_tracer(Tracer())
+    try:
+        _local(mod, "auto", "span-h")
+    finally:
+        install_tracer(None)
+    col = TraceCollection.from_store(get_storage_from("mem:thy-span-h"))
+    decs = col.lowering_decisions()
+    chain = [d["span"] for d in decs]
+    assert chain[:3] == ["lowering", "lowering.map", "lowering.reduce"]
+    assert decs[0]["engine"] == "hybrid"
+    assert decs[0]["verdict"] == "store-plane"
+    stage_map = decs[chain.index("lowering.map")]
+    assert stage_map["stage"] == "map"
+    assert stage_map["engine"] == "hybrid"
+    assert stage_map["compiled"] == "true"
+    assert "fn.mapfn" in stage_map
+    assert any(s["name"] == "hybrid.run" for s in col.spans)
+    assert col.engines_by_iteration() == {1: "hybrid"}
+
+
+def test_fallback_span_carries_stage(igmod):  # noqa: F811
+    from lua_mapreduce_tpu_torch.store.router import get_storage_from
+    from lua_mapreduce_tpu_torch.trace.collect import TraceCollection
+    from lua_mapreduce_tpu_torch.trace.span import Tracer, install_tracer
+    mod = igmod("thy_trace_fail_span", HY_TRACE_FAIL)
+    install_tracer(Tracer())
+    try:
+        _local(mod, "hybrid", "span-fb")
+    finally:
+        install_tracer(None)
+    col = TraceCollection.from_store(get_storage_from("mem:thy-span-fb"))
+    fbs = [d for d in col.lowering_decisions()
+           if d["span"] == "hybrid.fallback"]
+    assert fbs and fbs[0]["stage"] == "map"
+    assert col.engines_by_iteration() == {1: "store"}
 
 
 def test_fold_rejects_literal_seeded_sum():

@@ -12,7 +12,9 @@ floats rtol/atol 1e-4 (digits parameters atol 1e-5), the tolerances of
 every iteration (a card captures it once); the build counter ``traces``
 means the same on both. The Server- and CLI-backed tests of
 ``tests/test_ingraph.py`` have their counterparts at the end of this
-file; the span-backed ones wait for the port's tracer.
+file, the span-backed ones (``lowering`` / ``ingraph.run`` /
+``ingraph.fallback`` read back by the port's trace collector) after the
+fallback tests.
 """
 
 import re
@@ -498,6 +500,48 @@ def test_auto_fallback_on_trace_failure_byte_identical(igmod):
     assert ex_a._ingraph.engine is None
     assert _result_bytes(ex_a.result_store) == \
         _result_bytes(ex_s.result_store)
+
+
+def test_lowering_spans_and_engine_report(igmod):
+    from lua_mapreduce_tpu_torch.store.router import get_storage_from
+    from lua_mapreduce_tpu_torch.trace.collect import TraceCollection
+    from lua_mapreduce_tpu_torch.trace.span import Tracer, install_tracer
+    mod = igmod("tig_sum_traced", IG_SUM)
+    install_tracer(Tracer())
+    try:
+        _local(mod, "auto", "span-i",
+               reducefn="examples.wordcount.reducefn")
+    finally:
+        install_tracer(None)
+    col = TraceCollection.from_store(get_storage_from("mem:tig-span-i"))
+    decs = col.lowering_decisions()
+    assert decs and decs[0]["span"] == "lowering"
+    assert decs[0]["engine"] == "ingraph"
+    assert decs[0]["requested"] == "auto"
+    assert decs[0]["verdict"] == "in-graph"
+    assert "fn.mapfn" in decs[0]
+    assert col.engines_by_iteration() == {1: "ingraph"}
+    assert any(s["name"] == "ingraph.run" for s in col.spans)
+
+
+def test_fallback_span_and_engine_report(igmod):
+    from lua_mapreduce_tpu_torch.store.router import get_storage_from
+    from lua_mapreduce_tpu_torch.trace.collect import TraceCollection
+    from lua_mapreduce_tpu_torch.trace.span import Tracer, install_tracer
+    mod = igmod("tig_traced_key_span", IG_TRACED_KEY)
+    install_tracer(Tracer())
+    try:
+        _local(mod, "auto", "span-fb")
+    finally:
+        install_tracer(None)
+    col = TraceCollection.from_store(get_storage_from("mem:tig-span-fb"))
+    decs = col.lowering_decisions()
+    spans = [d["span"] for d in decs]
+    assert spans[0] == "lowering" and "ingraph.fallback" in spans
+    assert decs[spans.index("ingraph.fallback")].get("reason")
+    # the iteration's results came from the store plane, and the engine
+    # map says so
+    assert col.engines_by_iteration() == {1: "store"}
 
 
 def test_hard_mode_raises_instead_of_falling_back(igmod):
