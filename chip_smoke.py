@@ -214,9 +214,32 @@ Phases, each a hard failure on any mismatch:
              iteration of (a) with ``--trace --profile`` in the workers
              and the server: the span names are rows of each torch
              profile beside the B1/B2 kernel rows.
+25. recovery — the lost-file plane and the push shuffle, each part's
+             ``result.P*``, ``model.ckpt`` and ``model.meta`` byte-equal
+             to phase 21's LocalExecutor run and its launches the
+             code's (5 B1 and 1 B2 per map body the workers' ``--report``
+             files count, re-runs included; 2 and 1 per iteration in the
+             server): (a) phase 24's pool, pipelined v2 on ``object:``,
+             ``replication=2``, under phase 24's plan plus one placement
+             tag dark for the first iterations — the blackout fired,
+             faults fired equal ``faults_injected``, reads failed over,
+             no job BROKEN; (b) ``coding="4+2"`` with ``push=True`` on
+             ``shared:`` under a plan that makes block 0 of every stripe
+             unreadable, the workers' push budget below a map's output —
+             reduces decode from the survivors, maps push frames and
+             evict; (c) ``replication=2``: every copy of iteration 2's
+             first reduce job's input runs removed — the workers' error
+             records name them, the server requeues the producing maps,
+             the workers re-run them on the card; (d) the port's extsort
+             (CloudSort-style, ~110 B a record; 16 × 65,536 records, 16
+             range partitions) through ``cli.execute_server --push
+             --coding 4+2 --segment-format v2 --inline-workers 4`` on
+             ``object:``: globally sorted, equal to a plain sort of the
+             regenerated records and to a push-off barrier v1 run's
+             bytes; records/s, push frames and evictions.
 
 Launch counts are zeroed just before each run of phases 4, 5, 6, 8, 10 and
-15-24 (phase 21's and 24's worker processes start at zero) and
+15-25 (the worker processes of phases 21, 24 and 25 start at zero) and
 read just after, and must equal the counts worked out from the code; a
 kernel of the paths with no launch there fails the run. The
 card's name and power limit, then one JSON line of per-kernel numbers,
@@ -4680,6 +4703,447 @@ def phase_dataplane(torch, ops, pool):
     return runs, rep
 
 
+# ------------------------------------------------------------ phase 25
+
+# (a) phase 24's digits pool (pipelined, v2 on ``object:``) with
+# replication 2 under phase 24's fault plan plus one placement tag dark
+# for the first RECOVERY_BLACKOUT_S seconds of each process's run (its
+# plan's clock starts at its first op on a file): the window covers the
+# first iterations' reduces and then ends, so copies on the tag outlive
+# the sweeps across iteration boundaries and come back mid-run, where
+# the server's record of the spills it could not remove keeps them out
+# of later iterations. The dark tag is one that neither the model
+# store's files nor the partition results sit on: the blackout darkens
+# the shuffle plane (primaries and replica copies on that tag), which
+# replication protects, and not the files no copy protects.
+RECOVERY_BLACKOUT_S = 15.0
+# (b) coding 4+2 with the push shuffle, barrier, on ``shared:``: every
+# read of the first data block of every stripe fails (the JAX chaos
+# suite's _kill_block0_plan). A digits map emits five records (the
+# gradient of each parameter and the loss), one per key; a record past
+# the frame size is pushed as a frame at once, so the workers' frames
+# are set above the largest record (LMR_PUSH_FRAME_KB) and their push
+# budget far below it: the records buffer, the pool goes over budget
+# and the oldest partitions evict, the rest publish at the map's end as
+# one group stripe
+CODED_PLAN = ("seed=25;permanent=1;pattern=^0.*^result.*;"
+              "max_per_key=100000;latency_ms=0")
+CODED_PUSH_BUDGET_MB, CODED_FRAME_KB = 0.05, 16384
+# (c) replication 2, barrier, on ``shared:``: when the server publishes
+# iteration LOSS_ITER's reduce jobs, every copy of the first reduce
+# job's input runs is removed (after discovery, before the insert, so
+# the loss races nothing)
+LOSS_ITER = 2
+# (d) the push shuffle at scale: the CloudSort scenario of the port's
+# extsort (examples/extsort/sorttask.py, ~110 B a record) through the
+# CLI with push, coding 4+2 and v2 spills on ``object:``, 16 range
+# partitions. The published scenario is GB-scale, cut here to 16 x
+# 65,536 records (~100 MB); a push budget below a map's ~7 MB of output
+# forces evictions
+SORT_JOBS, SORT_RECORDS, SORT_PARTS = 16, 65536, 16
+SORT_BUDGET_MB = 2.0
+SORTTASK = "lua_mapreduce_tpu_torch.examples.extsort.sorttask"
+
+
+def dark_tag():
+    """The smallest placement tag no model-store file and no partition
+    result of the digits task sits on."""
+    from lua_mapreduce_tpu_torch.engine.placement import NUM_TAGS, tag_of
+    from lua_mapreduce_tpu_torch.examples.digits.mr_train import \
+        NUM_REDUCERS
+    used = {tag_of(n) for n in ["model.ckpt", "model.meta"]
+            + [f"result.P{p}" for p in range(NUM_REDUCERS)]}
+    return min(t for t in range(NUM_TAGS) if t not in used)
+
+
+def recording_jobs(store, seen):
+    """Record every namespace's job docs when the Server drops it at a
+    loop rollover (the last iteration's are read after the run)."""
+    drop = store.drop_ns
+
+    def drop_ns(ns):
+        seen.extend(dict(d, ns=ns) for d in store.jobs(ns))
+        return drop(ns)
+    store.drop_ns = drop_ns
+
+
+def spawn_recovery_workers(base, name, plan=None, worker_args=(),
+                           env_extra=None):
+    """Start one part's two ``execute_worker`` processes (under the
+    fault plan ``plan``, if any, and ``env_extra``) on the part's
+    coordination directory; they poll until the part's server publishes
+    its task."""
+    coord = os.path.join(base, f"{name}-coord")
+    reports = [os.path.join(base, f"{name}-worker{i}.json")
+               for i in range(POOL_WORKERS)]
+    env = dict(subprocess_env(), **(env_extra or {}))
+    if plan is not None:
+        env["LMR_FAULT_PLAN"] = plan
+    procs = start_dataplane_workers(coord, reports, extra=worker_args,
+                                    env=env)
+    return {"name": name, "coord": coord, "reports": reports,
+            "procs": procs, "plan": plan}
+
+
+def run_recovery_pool(torch, ops, base, workers, spec_of, server_kw,
+                      hook=None):
+    """Phase 21's digits task through a ``Server(FileJobStore,
+    **server_kw)`` and the part's two worker processes
+    (:func:`spawn_recovery_workers`), every process under the part's
+    fault plan. ``hook(raw_store, root)`` may instrument the
+    coordination store before the run. Returns what the gates read."""
+    from lua_mapreduce_tpu_torch.coord.filestore import FileJobStore
+    from lua_mapreduce_tpu_torch.core.constants import (MAP_NS, PRE_NS,
+                                                        RED_NS)
+    from lua_mapreduce_tpu_torch.engine import Server
+    from lua_mapreduce_tpu_torch.faults.retry import COUNTERS
+    from lua_mapreduce_tpu_torch.faults.wrappers import active_plan
+    name, plan, procs = workers["name"], workers["plan"], workers["procs"]
+    root = os.path.join(base, name)
+    coord, reports = workers["coord"], workers["reports"]
+    if plan is not None:
+        os.environ["LMR_FAULT_PLAN"] = plan
+    jobs = []
+    try:
+        # the snapshot comes first: the task's init touches the model
+        # store under the plan
+        c0 = COUNTERS.snapshot()
+        splan = active_plan()
+        raw = FileJobStore(coord)
+        recording_jobs(raw, jobs)
+        if hook is not None:
+            hook(raw, root)
+        server = Server(raw, poll_interval=POOL_POLL_S,
+                        **server_kw).configure(spec_of(root))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        stats = server.loop()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        server_counts = ops.launch_counts()
+        server_delta = COUNTERS.delta(c0, COUNTERS.snapshot())
+        server_fired = dict(splan.fired) if splan is not None else {}
+        codes = stop_workers(procs, 60)
+    except BaseException:
+        stop_workers(procs, 0)
+        raise
+    finally:
+        os.environ.pop("LMR_FAULT_PLAN", None)
+    if codes != [0] * POOL_WORKERS:
+        raise AssertionError(f"{name}: worker processes exited {codes}")
+    jobs += [dict(d, ns=ns) for ns in (MAP_NS, PRE_NS, RED_NS)
+             for d in raw.jobs(ns)]
+    wreps = [json.load(open(p)) for p in reports]
+    counters = dict(server_delta)
+    fired = dict(server_fired)
+    for r in wreps:
+        for k, v in r["counters"].items():
+            counters[k] = counters.get(k, 0) + v
+        for k, v in r["faults_fired"].items():
+            fired[k] = fired.get(k, 0) + v
+    return {"root": root, "stats": stats, "wall_s": wall, "server": server,
+            "server_counts": server_counts, "wreps": wreps,
+            "counters": counters, "fired": fired, "jobs": jobs}
+
+
+def hold_recovery_run(ops, name, run, want_bytes, spill_spec):
+    """The gates every part of phase 25 shares: the files byte-equal to
+    phase 21's LocalExecutor, no job BROKEN or FAILED at the end of its
+    iteration, and launches summed over the processes equal to the
+    code's — 5 B1 and 1 B2 per map body the workers ran (re-runs
+    included), 2 and 1 per iteration in the server's finalfn."""
+    from lua_mapreduce_tpu_torch.core.constants import Status
+    from lua_mapreduce_tpu_torch.store.router import get_storage_from
+    got = {}
+    for sub, spec in (("spill", spill_spec(run["root"])),
+                      ("model", f"shared:{run['root']}/model")):
+        st = get_storage_from(spec)
+        for n in st.list("*"):
+            if n.startswith("result.P") and n.count(".") == 1 or \
+                    n in ("model.ckpt", "model.meta"):
+                got[f"{sub}/{n}"] = st.read_range(n, 0, st.size(n))
+    if got != want_bytes:
+        differ = sorted(n for n in set(want_bytes) | set(got)
+                        if want_bytes.get(n) != got.get(n))
+        raise AssertionError(f"{name}: files differ from phase 21's "
+                             f"LocalExecutor: {differ}")
+    bad = [(d["ns"], d["_id"], d["status"]) for d in run["jobs"]
+           if d["status"] in (Status.BROKEN, Status.FAILED)]
+    if bad:
+        raise AssertionError(f"{name}: jobs BROKEN/FAILED: {bad[:5]}")
+    zero = dict.fromkeys(ops.KERNELS, 0)
+    wreps = run["wreps"]
+    bodies = sum(r["bodies"].get("map", 0) for r in wreps)
+    worker_counts = {k: sum(r["launches"][k] for r in wreps)
+                     for k in ops.KERNELS}
+    want_w = {**zero, "matmul_f32": 5 * bodies, "rowwise_softmax": bodies}
+    n_it = len(run["stats"].iterations)
+    want_s = {**zero, "matmul_f32": 2 * n_it, "rowwise_softmax": n_it}
+    if bodies < 4 * POOL_ITERS or worker_counts != want_w \
+            or run["server_counts"] != want_s or n_it != POOL_ITERS:
+        raise AssertionError(
+            f"{name}: {bodies} map bodies, {n_it} iterations; launches "
+            f"workers {worker_counts} (expected {want_w}), server "
+            f"{run['server_counts']} (expected {want_s})")
+    return bodies, worker_counts
+
+
+def phase_recovery(torch, ops):
+    """The lost-file plane and the push shuffle on the card, each part's
+    files byte-equal to phase 21's LocalExecutor and its launches the
+    code's, re-run map bodies included: (a) replication 2 under phase
+    24's fault plan plus a blackout of one placement tag — the blackout
+    fired, faults fired equal faults_injected, reads failed over;
+    (b) coding 4+2 with the push shuffle under a plan that destroys the
+    first data block of every stripe — reduces decode from the
+    survivors, maps push frames and evict; (c) total loss of every copy
+    of one reduce job's inputs — the server requeues the producing maps,
+    the workers re-run them on the card, the reduce then succeeds;
+    (d) the port's extsort at 1 M records through ``execute_server
+    --push --coding 4+2 --segment-format v2 --inline-workers 4`` on
+    ``object:`` — globally sorted, equal to a plain sort of the
+    regenerated records and to a push-off barrier v1 run's bytes."""
+    import shutil
+    base = os.path.join(REPO, "build", "smoke-recovery")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    want_bytes = task_bytes(os.path.join(REPO, "build", "smoke-pool",
+                                         "local"))
+
+    # (a) replication under a blackout
+    tag = dark_tag()
+    plan_a = (f"{DP_FAULT_PLAN};blackout_tag={tag};"
+              f"blackout_s={RECOVERY_BLACKOUT_S:g}")
+    # every part's workers start now: their boot overlaps part (a)
+    spawned = [spawn_recovery_workers(base, "blackout", plan_a,
+                                      ("--trace",)),
+               spawn_recovery_workers(
+                   base, "coded", CODED_PLAN,
+                   ("--push-budget-mb", str(CODED_PUSH_BUDGET_MB)),
+                   {"LMR_PUSH_FRAME_KB": str(CODED_FRAME_KB)}),
+               spawn_recovery_workers(base, "loss")]
+    try:
+        runs, rep = recovery_parts(torch, ops, base, spawned, tag, plan_a,
+                                   want_bytes)
+    finally:
+        for w in spawned:
+            stop_workers(w["procs"], 0)
+    # (d) the push shuffle at scale, host only
+    rep["extsort"] = phase_extsort(base)
+    return runs, rep
+
+
+def recovery_parts(torch, ops, base, spawned, tag, plan_a, want_bytes):
+    """Parts (a)-(c) of :func:`phase_recovery` on the pre-started
+    workers."""
+    from lua_mapreduce_tpu_torch.core.constants import RED_NS
+    from lua_mapreduce_tpu_torch.engine.placement import replica_names
+    from lua_mapreduce_tpu_torch.faults.wrappers import unwrap
+    from lua_mapreduce_tpu_torch.store.router import get_storage_from
+    rep, runs = {}, []
+    run = run_recovery_pool(torch, ops, base, spawned[0], dataplane_spec,
+                            dict(pipeline=True, premerge_min_runs=2,
+                                 segment_format="v2", replication=2))
+    bodies, wc = hold_recovery_run(ops, "(a) blackout", run, want_bytes,
+                                   lambda r: f"object:{r}/spill")
+    c, f = run["counters"], run["fired"]
+    n_fired = sum(f.values())
+    if not f.get("blackout") or c.get("faults_injected", 0) != n_fired \
+            or c.get("failover_reads", 0) <= 0:
+        raise AssertionError(f"(a) blackout: fired {f}, counters "
+                             f"{ {k: c.get(k, 0) for k in ('faults_injected', 'failover_reads', 'retries')} }")
+    runs += [wc, run["server_counts"]]
+    its = run["stats"].iterations
+    rep["blackout"] = {
+        "plan": plan_a, "dark_tag": tag, "map_bodies": bodies,
+        "faults_fired": f, "counters": {k: c.get(k, 0) for k in (
+            "faults_injected", "retries", "failover_reads",
+            "map_reruns_avoided", "replica_repairs", "map_reruns",
+            "infra_releases", "unremoved_spills")},
+        "blackout_s": RECOVERY_BLACKOUT_S, "wall_s": run["wall_s"],
+        "max_repetitions": max(d.get("repetitions") or 0
+                               for d in run["jobs"]),
+        "ms_per_iteration": 1e3 * sum(i.wall_time for i in its[1:])
+        / (len(its) - 1), "launches_workers": wc,
+        "launches_server": run["server_counts"]}
+    a = rep["blackout"]
+    log(f"[recovery] (a) digits pool pipelined v2 on object:, replication "
+        f"2, phase 24's plan + tag {tag} dark for the first "
+        f"{RECOVERY_BLACKOUT_S:g} s of a {run['wall_s']:.1f} s run: files "
+        f"byte-equal to phase 21's LocalExecutor; faults fired {f} = "
+        f"faults_injected {c.get('faults_injected')}; failover reads "
+        f"{c.get('failover_reads')}, map re-runs avoided "
+        f"{c.get('map_reruns_avoided', 0)}, map re-runs "
+        f"{c.get('map_reruns', 0)}, spills the sweeps could not remove "
+        f"{c.get('unremoved_spills', 0)}; {bodies} map bodies, jobs charged at "
+        f"most {a['max_repetitions']} repetitions; "
+        f"{a['ms_per_iteration']:.1f} ms/iteration after the first; "
+        f"launches workers {wc}, server {run['server_counts']}")
+
+    # (b) erasure coding with the push shuffle
+    run = run_recovery_pool(torch, ops, base, spawned[1], digits_pool_spec,
+                            dict(coding="4+2", push=True))
+    bodies, wc = hold_recovery_run(ops, "(b) coded push", run, want_bytes,
+                                   lambda r: f"shared:{r}/spill")
+    c = run["counters"]
+    if c.get("decode_reads", 0) <= 0 or c.get("push_frames", 0) <= 0 \
+            or c.get("push_evictions", 0) <= 0 or c.get("map_reruns", 0):
+        raise AssertionError(f"(b) coded push: counters "
+                             f"{ {k: c.get(k, 0) for k in ('decode_reads', 'push_frames', 'push_evictions', 'map_reruns')} }")
+    runs += [wc, run["server_counts"]]
+    its = run["stats"].iterations
+    rep["coded_push"] = {
+        "plan": CODED_PLAN, "push_budget_mb": CODED_PUSH_BUDGET_MB,
+        "map_bodies": bodies, "faults_fired": run["fired"],
+        "counters": {k: c.get(k, 0) for k in (
+            "decode_reads", "push_frames", "push_evictions", "map_reruns",
+            "map_reruns_avoided", "faults_injected")},
+        "ms_per_iteration": 1e3 * sum(i.wall_time for i in its[1:])
+        / (len(its) - 1), "launches_workers": wc,
+        "launches_server": run["server_counts"]}
+    b = rep["coded_push"]
+    log(f"[recovery] (b) digits pool, coding 4+2 + push (budget "
+        f"{CODED_PUSH_BUDGET_MB} MB), barrier on shared:, block 0 of every"
+        f" stripe unreadable: files byte-equal; decode reads "
+        f"{c['decode_reads']}, push frames {c['push_frames']}, evictions "
+        f"{c['push_evictions']}, map re-runs {c.get('map_reruns', 0)}; "
+        f"{b['ms_per_iteration']:.1f} ms/iteration after the first; "
+        f"launches workers {wc}, server {run['server_counts']}")
+
+    # (c) total loss: every copy of one reduce job's inputs removed
+    lost = {}
+
+    def lose_inputs(raw, root):
+        insert = raw.insert_jobs
+        spill = unwrap(get_storage_from(f"shared:{root}/spill"))
+
+        def insert_jobs(ns, docs):
+            it = int((raw.get_task() or {}).get("iteration", 0))
+            if ns == RED_NS and it == LOSS_ITER and not lost and docs:
+                files = docs[0]["value"]["files"]
+                for name in files:
+                    for copy in replica_names(name, 2):
+                        spill.remove(copy)
+                lost.update(part=docs[0]["value"]["part"],
+                            files=list(files))
+            return insert(ns, docs)
+        raw.insert_jobs = insert_jobs
+
+    run = run_recovery_pool(torch, ops, base, spawned[2], digits_pool_spec,
+                            dict(replication=2), hook=lose_inputs)
+    bodies, wc = hold_recovery_run(ops, "(c) total loss", run, want_bytes,
+                                   lambda r: f"shared:{r}/spill")
+    c = run["counters"]
+    requeues = [e for e in run["server"].errors
+                if e.get("classification") == "spill-lost-requeue"]
+    named = sorted({n for e in run["server"].errors
+                    for n in e.get("lost_files") or ()})
+    reran = bodies - 4 * POOL_ITERS
+    if not lost or c.get("map_reruns", 0) < len(lost["files"]) \
+            or len(requeues) < len(lost["files"]) or reran < len(
+                lost["files"]) or not set(lost["files"]) <= set(named):
+        raise AssertionError(
+            f"(c) total loss of {lost}: map_reruns "
+            f"{c.get('map_reruns', 0)}, requeue entries {len(requeues)}, "
+            f"re-run bodies {reran}, lost_files named {named}")
+    runs += [wc, run["server_counts"]]
+    rep["total_loss"] = {
+        "iteration": LOSS_ITER, "partition": lost["part"],
+        "lost_files": lost["files"], "lost_files_named": named,
+        "map_reruns": c.get("map_reruns", 0), "map_bodies": bodies,
+        "rerun_bodies": reran, "infra_releases": c.get("infra_releases", 0),
+        "launches_workers": wc, "launches_server": run["server_counts"]}
+    log(f"[recovery] (c) digits pool, replication 2, barrier on shared:, "
+        f"iteration {LOSS_ITER}: every copy of partition {lost['part']}'s "
+        f"{len(lost['files'])} input runs removed; the workers' error "
+        f"records named them, the server requeued {c.get('map_reruns')} "
+        f"producing maps ({len(requeues)} spill-lost-requeue entries), "
+        f"{reran} map bodies re-ran on the card; files byte-equal; "
+        f"launches workers {wc} = 5/1 x {bodies} bodies")
+    return runs, rep
+
+
+def phase_extsort(base):
+    """Part (d): the port's extsort through the CLI with push, coding
+    4+2 and v2 spills on ``object:``, held to a plain sort of the
+    regenerated records and to a push-off barrier v1 run's bytes."""
+    import importlib
+
+    from lua_mapreduce_tpu_torch.coord.filestore import FileJobStore
+    from lua_mapreduce_tpu_torch.core.serialize import load_record
+    from lua_mapreduce_tpu_torch.engine import LocalExecutor, TaskSpec
+    root = os.path.join(base, "extsort")
+    args = {"n_jobs": SORT_JOBS, "records_per_job": SORT_RECORDS,
+            "n_partitions": SORT_PARTS, "seed": 0, "device": "cuda"}
+    coord = os.path.join(root, "coord")
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "lua_mapreduce_tpu_torch.cli.execute_server",
+         coord, SORTTASK, SORTTASK, SORTTASK, SORTTASK,
+         "--storage", f"object:{root}/push",
+         *[a for k, v in args.items() for a in ("--init-arg", f"{k}={v}")],
+         "--inline-workers", "4", "--push", "--coding", "4+2",
+         "--segment-format", "v2", "--push-budget-mb", str(SORT_BUDGET_MB),
+         "--engine", "store", "--poll", str(POOL_POLL_S), "--quiet"],
+        cwd=REPO, env=subprocess_env(), capture_output=True, text=True,
+        timeout=600)
+    cli_s = time.perf_counter() - t0
+    if out.returncode:
+        raise AssertionError(f"extsort server exited {out.returncode}:\n"
+                             f"{out.stderr[-3000:]}")
+    it = FileJobStore(coord).get_task()["stats"]
+    t0 = time.perf_counter()
+    LocalExecutor(TaskSpec(taskfn=SORTTASK, mapfn=SORTTASK,
+                           partitionfn=SORTTASK, reducefn=SORTTASK,
+                           init_args=dict(args), storage=f"object:{root}/"
+                           "staged"), map_parallelism=4,
+                  engine="store").run()
+    staged_s = time.perf_counter() - t0
+    push_res = result_bytes(f"object:{root}/push")
+    staged_res = result_bytes(f"object:{root}/staged")
+    if len(push_res) != SORT_PARTS or push_res != staged_res:
+        raise AssertionError(f"extsort: {len(push_res)} push result files, "
+                             f"equal to the staged run's: "
+                             f"{push_res == staged_res}")
+    keys, records = [], []
+    for p in range(SORT_PARTS):
+        for line in push_res[f"result.P{p}"].decode("utf-8").splitlines():
+            k, v = load_record(line)
+            keys.append(k)
+            records.append((k, v[0]))
+    sort = importlib.import_module(SORTTASK)
+    sort.init(args)
+    want = sorted(sort.record(0, j, i) for j in range(SORT_JOBS)
+                  for i in range(SORT_RECORDS))
+    if keys != sorted(keys) or records != want:
+        raise AssertionError(f"extsort output: globally sorted "
+                             f"{keys == sorted(keys)}, equal to the "
+                             f"regenerated records {records == want}")
+    n = SORT_JOBS * SORT_RECORDS
+    mb = sum(len(v) for v in push_res.values()) / 1e6
+    frames, evictions = it.get("push_frames", 0), it.get("push_evictions", 0)
+    if frames <= 0 or evictions <= 0 or it.get("decode_reads", 0):
+        raise AssertionError(f"extsort: push frames {frames}, evictions "
+                             f"{evictions}, decode reads "
+                             f"{it.get('decode_reads')}")
+    res = {"jobs": SORT_JOBS, "records_per_job": SORT_RECORDS,
+           "records": n, "partitions": SORT_PARTS, "result_mb": mb,
+           "push_budget_mb": SORT_BUDGET_MB, "cli_s": cli_s,
+           "records_per_s": n / cli_s, "staged_local_s": staged_s,
+           "push_frames": frames, "push_evictions": evictions}
+    log(f"[recovery] (d) extsort {SORT_JOBS} x {SORT_RECORDS} records "
+        f"({mb:.1f} MB of results; the published scenario is GB-scale), "
+        f"{SORT_PARTS} range partitions, execute_server --push --coding "
+        f"4+2 --segment-format v2 --inline-workers 4 on object: (budget "
+        f"{SORT_BUDGET_MB} MB): {cli_s:.2f} s with the process start, "
+        f"{n / cli_s:.0f} records/s; push frames {frames}, evictions "
+        f"{evictions}; globally sorted, equal to the regenerated records "
+        f"and to a push-off barrier v1 LocalExecutor run's bytes "
+        f"({staged_s:.2f} s)")
+    return res
+
+
 def glob_files(root, pattern):
     import glob
     return sorted(glob.glob(os.path.join(root, pattern)))
@@ -4782,6 +5246,7 @@ def main():
     tp_pp = phase_tp_pp_train(torch, ops, meshes, mesh, lm)
     tp_pp_check = phase_tp_pp_check(torch, ops, meshes, mesh)
     dataplane_counts, dataplane = phase_dataplane(torch, ops, pool)
+    recovery_counts, recovery = phase_recovery(torch, ops)
     runs = ([digits_counts, wide_counts]
             + [serving[t]["launches"] for t in serving]
             + [conv[m]["launches"] for m in conv]
@@ -4791,7 +5256,7 @@ def main():
             + [moe_train["launches"]]
             + [moe_serve[t]["launches"] for t in moe_serve]
             + [tp_pp[t]["launches"] for t in ("2d_mesh", "3d", "pp")]
-            + dataplane_counts)
+            + dataplane_counts + recovery_counts)
     launches = {k: sum(c[k] for c in runs) for k in ops.KERNELS}
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
@@ -4829,6 +5294,7 @@ def main():
         "moe_train": moe_train, "moe_serving": moe_serve,
         "moe_check": moe_check, "tp_pp_train": tp_pp,
         "tp_pp_check": tp_pp_check, "dataplane": dataplane,
+        "recovery": recovery,
         "kernels": kernels,
         "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)

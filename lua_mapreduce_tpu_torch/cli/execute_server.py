@@ -11,8 +11,9 @@ coordination spec, then the user-function module names, then storage.
         [--combinerfn M] [--finalfn M] [--storage SPEC] \\
         [--result-ns NS] [--init-arg K=V ...] [--inline-workers N] \\
         [--pipeline [--premerge-min-runs N] [--premerge-max-runs N]] \\
-        [--segment-format v1|v2] [--store-retries N] [--retry-base-ms MS] \\
-        [--trace] [--profile DIR]
+        [--segment-format v1|v2] [--replication R | --coding K+M] \\
+        [--push [--push-budget-mb MB]] [--store-retries N] \\
+        [--retry-base-ms MS] [--trace] [--profile DIR]
 
 COORD_DIR is the shared job-store directory (the connection-string
 analog) that ``execute_worker`` processes poll; "mem" runs an in-process
@@ -22,10 +23,17 @@ into the task storage (``python -m lua_mapreduce_tpu_torch.trace
 STORAGE`` reads them); ``--profile DIR`` wraps the run in a torch
 profile, and with ``--trace`` the span names appear in it.
 
+``--replication R`` publishes every spill to R placement copies and
+``--coding K+M`` as K+M erasure-coded stripes (reads fail over or decode
+from the survivors, and a file with no readable copy left has its
+producing map re-run); ``--push`` runs the push shuffle, with
+``--push-budget-mb`` bounding the inline workers' buffers. All are
+written to the task document for the fleet.
+
 The JAX launcher's flags for planes the port does not run yet
-(``--push``, ``--replication``, ``--coding``, ``--speculation-factor``,
-``--autotune``, ``--ha``, ``--idle-poll-ms``, ...) parse, and raise
-NotImplementedError when set (ROADMAP A6b).
+(``--speculation-factor``, ``--autotune``, ``--ha``,
+``--idle-poll-ms``, ...) parse, and raise NotImplementedError when set
+(ROADMAP A6b).
 """
 
 from __future__ import annotations
@@ -58,12 +66,8 @@ def parse_init_args(pairs) -> dict:
 # keywords[, other values meaning "off"]) — any value other than the
 # default or those raises in main()
 TRIMMED = (
-    ("--replication", dict(type=int, default=None), (1,)),
-    ("--coding", dict(type=str, default=None)),
     ("--speculation-factor", dict(type=float, default=None), (0.0,)),
     ("--speculation-cap", dict(type=int, default=2)),
-    ("--push", dict(action="store_true", default=None)),
-    ("--push-budget-mb", dict(type=float, default=None)),
     ("--idle-poll-ms", dict(type=float, default=None)),
     ("--autotune", dict(action="store_true", default=None)),
     ("--autotune-max-workers", dict(type=int, default=None)),
@@ -92,6 +96,35 @@ def reject_trimmed(p: argparse.ArgumentParser, args, trimmed) -> None:
         raise NotImplementedError(
             f"{p.prog}: {', '.join(set_flags)} not ported to the torch "
             "package yet (ROADMAP A6b)")
+
+
+def add_redundancy_push_args(p: argparse.ArgumentParser,
+                             whose: str) -> None:
+    """The shuffle-redundancy and push flags both launchers share;
+    ``whose`` says who the value applies to in the help text."""
+    p.add_argument("--replication", type=int, default=None,
+                   help=f"shuffle replication factor r for {whose} "
+                        "(default 1, or LMR_REPLICATION): each spill "
+                        "publishes r copies on distinct placement "
+                        "targets, readers fail over to any survivor, and "
+                        "a file with no copy left has its producing map "
+                        "re-run")
+    p.add_argument("--coding", type=str, default=None, metavar="K+M",
+                   help=f"erasure-coding spec 'k+m' for {whose} (or "
+                        "LMR_CODING): each spill stripes into k data + m "
+                        "Reed-Solomon parity blocks on distinct placement "
+                        "targets, any m losses decode from the survivors;"
+                        " exclusive with --replication")
+    p.add_argument("--push", action="store_true", default=None,
+                   help=f"push shuffle for {whose} (or LMR_PUSH=1): maps "
+                        "push JSEG frames into per-partition reducer "
+                        "inboxes as they fill, gated by per-map "
+                        "manifests; the same result bytes either way")
+    p.add_argument("--push-budget-mb", type=float, default=None,
+                   help="push buffer-pool memory budget in MB (default "
+                        "64, or LMR_PUSH_BUDGET_MB): over-budget "
+                        "partitions evict to a staged tail spill "
+                        "(counted push_evictions)")
 
 
 def add_fault_trace_args(p: argparse.ArgumentParser) -> None:
@@ -170,6 +203,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="intermediate spill encoding, written to the task "
                         "doc: v1 = text lines, v2 = framed binary "
                         "segments; results stay v1 text")
+    add_redundancy_push_args(p, "the fleet, written to the task doc")
     add_fault_trace_args(p)
     p.add_argument("--batch-k", type=int, default=1,
                    help="fleet default claim-lease size, written to the "
@@ -224,9 +258,12 @@ def main(argv=None) -> int:
                     premerge_max_runs=args.premerge_max_runs,
                     batch_k=args.batch_k,
                     segment_format=args.segment_format,
-                    engine=args.engine).configure(spec)
+                    replication=args.replication, coding=args.coding,
+                    push=args.push, engine=args.engine).configure(spec)
     for _ in range(args.inline_workers):
         w = Worker(store).configure(max_iter=10_000)
+        if args.push_budget_mb is not None:
+            w.configure(push_budget_mb=args.push_budget_mb)
         threading.Thread(target=w.execute, daemon=True).start()
 
     def report(phase: str, frac: float) -> None:

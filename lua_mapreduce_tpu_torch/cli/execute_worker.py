@@ -6,8 +6,10 @@ execute_worker.lua:1-11):
     python -m lua_mapreduce_tpu_torch.cli.execute_worker COORD_DIR \\
         [--max-iter N] [--max-sleep S] [--max-tasks N] [--name NAME] \\
         [--max-jobs N] [--batch-k K] [--phases map,reduce] \\
-        [--segment-format v1|v2] [--store-retries N] [--retry-base-ms MS] \\
-        [--trace] [--profile DIR] [--report FILE] [--verbose]
+        [--segment-format v1|v2] [--replication R | --coding K+M] \\
+        [--push] [--push-budget-mb MB] [--store-retries N] \\
+        [--retry-base-ms MS] [--trace] [--profile DIR] [--report FILE] \\
+        [--verbose]
 
 One elastic worker polling the shared job-store directory an
 ``execute_server`` process coordinates. It runs its task on the card:
@@ -18,10 +20,14 @@ it executed, its control-plane round trips, the kernel launches it made
 (``ops.launch_counts()``), the fault-plane counters it bumped
 (``faults/retry.COUNTERS``) and the faults its ``LMR_FAULT_PLAN`` fired,
 by kind — a pool's launches and counters are the sums over its
-processes — and the wall-clock time its imports were done (``ready``). ``--trace`` and ``--profile DIR`` are the server's.
+processes — the job bodies it ran by kind (``bodies``: a body that
+failed and was run again counts each time) and the wall-clock time its
+imports were done (``ready``). ``--replication``/``--coding``/``--push``
+override the task document's values for this worker. ``--trace`` and ``--profile DIR`` are the server's.
 
-The JAX launcher's flags for planes the port does not run yet parse, and
-raise NotImplementedError when set (ROADMAP A6b).
+The JAX launcher's flags for planes the port does not run yet
+(``--idle-poll-ms``, ``--autotune-*``) parse, and raise
+NotImplementedError when set (ROADMAP A6b).
 """
 
 from __future__ import annotations
@@ -31,17 +37,12 @@ import json
 import os
 import time
 
-from lua_mapreduce_tpu_torch.cli.execute_server import (add_fault_trace_args,
-                                                        add_trimmed,
-                                                        reject_trimmed,
-                                                        setup_fault_trace)
+from lua_mapreduce_tpu_torch.cli.execute_server import (
+    add_fault_trace_args, add_redundancy_push_args, add_trimmed,
+    reject_trimmed, setup_fault_trace)
 
 TRIMMED = (
-    ("--replication", dict(type=int, default=None), (1,)),
-    ("--coding", dict(type=str, default=None)),
     ("--idle-poll-ms", dict(type=float, default=None)),
-    ("--push", dict(action="store_true", default=None)),
-    ("--push-budget-mb", dict(type=float, default=None)),
     ("--autotune-fleet", dict(type=int, default=None)),
     ("--autotune-max-workers", dict(type=int, default=8)),
 )
@@ -73,6 +74,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--segment-format", choices=("v1", "v2"), default=None,
                    help="spill encoding this worker writes; default "
                         "follows the task document")
+    add_redundancy_push_args(p, "this worker (default: the task "
+                                "document's)")
     add_fault_trace_args(p)
     p.add_argument("--phases", default="map,reduce",
                    help="comma list of phases this worker claims")
@@ -106,7 +109,9 @@ def main(argv=None) -> int:
                     verbose=args.verbose).configure(
         max_iter=args.max_iter, max_sleep=args.max_sleep,
         max_tasks=args.max_tasks, phases=phases, max_jobs=args.max_jobs,
-        segment_format=args.segment_format)
+        segment_format=args.segment_format, replication=args.replication,
+        coding=args.coding, push=args.push,
+        push_budget_mb=args.push_budget_mb)
     if args.batch_k is not None:
         worker.configure(batch_k=args.batch_k)
     counters0 = COUNTERS.snapshot()
@@ -120,6 +125,7 @@ def main(argv=None) -> int:
             with open(args.report, "w") as f:
                 json.dump({"worker": worker.name, "ready": ready,
                            "jobs": worker.jobs_executed,
+                           "bodies": worker.bodies,
                            "rounds": worker.store.round_counts(),
                            "launches": ops.launch_counts(),
                            "counters": COUNTERS.delta(

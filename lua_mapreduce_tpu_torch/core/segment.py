@@ -131,8 +131,9 @@ def _decode_frame(data: bytes, dec_len: int, codec: int, crc: int,
 class SegmentWriter:
     """Pack records into frames over a builder's raw-bytes surface.
 
-    Same duck-type as :class:`TextWriter` (``add`` / ``build``), so
-    every spill writer switches format by construction alone. Frames
+    Same duck-type as :class:`TextWriter` (``add`` / ``add_line`` /
+    ``build``), so every spill writer switches format by construction
+    alone. Frames
     close at ~``frame_bytes`` of decoded payload; the
     footer indexes every frame; ``build`` publishes atomically through
     the underlying builder.
@@ -159,11 +160,17 @@ class SegmentWriter:
         self._b.write_bytes(MAGIC)
 
     def add(self, key: Any, values: Any) -> None:
+        self.add_line(key, dump_record(key, values))
+
+    def add_line(self, key: Any, line: str) -> None:
+        """Append a pre-serialized record line (no trailing newline) —
+        the push buffer's path (engine/push.py holds lines, not
+        records): ``key`` still feeds the footer's first-key index and
+        the str_keys promise."""
         if type(key) is not str:
             self._str_keys = False
         if self._first_key is None:
             self._first_key = dump_key(key)
-        line = dump_record(key, values)
         self._lines.append(line)
         self._size += len(line) + 1
         if self._size >= self._frame_bytes:
@@ -184,6 +191,12 @@ class SegmentWriter:
                             self._first_key])
         self._off += _FRAME_HDR.size + len(data)
         self._lines, self._size, self._first_key = [], 0, None
+
+    @property
+    def compressed_frames(self) -> int:
+        """How many closed frames shrank under the codec — the push
+        writer's adaptive-codec signal (engine/push.py)."""
+        return sum(1 for _off, enc, dec, _k in self._index if enc < dec)
 
     def build(self, name: str) -> None:
         self._close_frame()
@@ -219,6 +232,10 @@ class TextWriter:
 
     def add(self, key: Any, values: Any) -> None:
         self._b.write(dump_record(key, values) + "\n")
+
+    def add_line(self, key: Any, line: str) -> None:
+        """Pre-serialized-line twin of ``add``."""
+        self._b.write(line + "\n")
 
     def build(self, name: str) -> None:
         self._b.build(name)

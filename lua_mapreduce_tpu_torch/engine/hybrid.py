@@ -369,7 +369,8 @@ class HybridRunner:
             self._log(reason)
 
     def run_map_leg(self, jobs, store, segment_format: str = "v1",
-                    iteration: int = 0) -> bool:
+                    iteration: int = 0, replication=1, push=False,
+                    push_pool=None) -> bool:
         """Build/replay the whole iteration's map jobs as one program
         and publish every job through the shared tail. True = spills
         published (the caller skips the interpreted map); False =
@@ -385,7 +386,9 @@ class HybridRunner:
             per_job = self.map_engine.run_batch(jobs)
             for i, groups in enumerate(per_job):
                 publish_map_groups(self.spec, store, str(i), groups,
-                                   segment_format=segment_format)
+                                   segment_format=segment_format,
+                                   replication=replication, push=push,
+                                   push_pool=push_pool)
         except Exception as exc:            # noqa: BLE001 — policy point
             reason = f"{type(exc).__name__}: {exc}"
             COUNTERS.bump("hybrid_fallbacks")

@@ -1,9 +1,10 @@
 """Map/reduce job execution — the host-side data path.
 
 Copy of the JAX package's ``engine/job.py`` (reference mapreduce/job.lua)
-on its unreplicated, staged path — v1 text or v2 framed segments, and
-the pipelined shuffle's pre-merge job — with no push shuffle and no
-native map/merge/reduce kernels. The hybrid plane's compiled map leg and
+— v1 text or v2 framed segments, the pipelined shuffle's pre-merge
+job, r-way replicated or k+m erasure-coded spills (faults/replicate.py,
+faults/coded.py) and the push shuffle (engine/push.py) — with no native
+map/merge/reduce kernels. The hybrid plane's compiled map leg and
 reduce fold plug in through :func:`publish_map_groups` and
 ``run_reduce_job(reduce_fold=)``. Result bytes are identical to the JAX
 package's on the same inputs.
@@ -18,11 +19,13 @@ from typing import Any, Dict, List
 from lua_mapreduce_tpu_torch.core import tuples
 from lua_mapreduce_tpu_torch.core.constants import MAX_MAP_RESULT
 from lua_mapreduce_tpu_torch.core.merge import merge_iterator
-from lua_mapreduce_tpu_torch.core.segment import check_format, writer_for
+from lua_mapreduce_tpu_torch.core.segment import check_format
 from lua_mapreduce_tpu_torch.core.serialize import (assert_serializable,
                                                     dump_record, sorted_keys,
                                                     to_plain)
 from lua_mapreduce_tpu_torch.engine.contract import TaskSpec
+from lua_mapreduce_tpu_torch.faults.replicate import (reading_view,
+                                                      spill_writer)
 from lua_mapreduce_tpu_torch.store.base import Store
 
 
@@ -81,16 +84,28 @@ def map_output_name(result_ns: str, part: int, map_key: Any) -> str:
 
 def run_map_job(spec: TaskSpec, store: Store, job_id: str,
                 map_key: Any, map_value: Any,
-                segment_format: str = "v1") -> JobTimes:
+                segment_format: str = "v1", replication=1,
+                push: bool = False, push_pool=None,
+                spec_lineage: str = None) -> JobTimes:
     """Execute one map job and write per-partition sorted run files.
 
     Mirrors job.lua:154-228: run the user mapfn with the grouping emit,
     then publish the grouping through :func:`publish_map_groups`.
     ``segment_format`` picks the run-file encoding, ``"v1"`` text lines
     or ``"v2"`` framed segments (core/segment.py); readers sniff per
-    file.
+    file. ``replication`` is the unified redundancy value: an int fans
+    each run file out to r placement copies, a ``"k+m"``/Coding spec
+    publishes erasure-coded stripes instead; 1 is the plain path.
+    ``push`` publishes through the push shuffle (engine/push.py): each
+    partition's records land as frame files in the reducer inbox as
+    frames fill, bounded by ``push_pool``'s memory budget, gated by the
+    manifest published last. ``spec_lineage`` quarantines a speculative
+    clone's pushes under its identity. Output records and their merge
+    order are the same either way.
     """
     check_format(segment_format)
+    # discovery and stale-file removal address every copy
+    store = reading_view(store, replication)
     times = JobTimes(started=time.time())
     cpu0 = time.process_time()
     result: Dict[Any, List[Any]] = {}
@@ -98,7 +113,9 @@ def run_map_job(spec: TaskSpec, store: Store, job_id: str,
                make_map_emit(result, spec.combiner_for_map))
     times.finished = time.time()
     publish_map_groups(spec, store, job_id, result,
-                       segment_format=segment_format)
+                       segment_format=segment_format,
+                       replication=replication, push=push,
+                       push_pool=push_pool, spec_lineage=spec_lineage)
     times.cpu = time.process_time() - cpu0
     times.written = time.time()
     return times
@@ -106,7 +123,9 @@ def run_map_job(spec: TaskSpec, store: Store, job_id: str,
 
 def publish_map_groups(spec: TaskSpec, store: Store, job_id: str,
                        result: Dict[Any, List[Any]],
-                       segment_format: str = "v1") -> None:
+                       segment_format: str = "v1", replication=1,
+                       push: bool = False, push_pool=None,
+                       spec_lineage: str = None) -> None:
     """Publish one map job's grouped emissions — the one publish tail
     every map producer shares: the interpreted path (run_map_job above)
     and the compiled hybrid map leg (engine/hybrid.py) both land here,
@@ -115,11 +134,20 @@ def publish_map_groups(spec: TaskSpec, store: Store, job_id: str,
 
     Sort keys, apply the combiner per key, route keys through
     partitionfn, write one atomic (overwriting) file per non-empty
-    partition (job.lua:154-228).
+    partition (job.lua:154-228). One emit loop for both publish modes,
+    so validation never differs between push-on and push-off runs; only
+    the per-record sink differs: staged writers built at the end, or
+    push frames streamed as buffers fill, the manifest last.
     """
     combiner = spec.combiner_for_map
     writers: Dict[int, Any] = {}
+    pw = None
     try:
+        if push:
+            from lua_mapreduce_tpu_torch.engine.push import PushWriter
+            pw = PushWriter(store, spec.result_ns, map_key_str(job_id),
+                            replication=replication, pool=push_pool,
+                            lineage=spec_lineage)
         for key in sorted_keys(result.keys()):
             values = result[key]
             if combiner is not None and len(values) > 1:
@@ -130,21 +158,32 @@ def publish_map_groups(spec: TaskSpec, store: Store, job_id: str,
             if part < 0:
                 raise ValueError(
                     f"partitionfn({key!r}) returned negative {part}")
+            if pw is not None:
+                pw.add(part, key, values)
+                continue
             w = writers.get(part)
             if w is None:
-                w = writers[part] = writer_for(store,
-                                               segment_format)
+                w = writers[part] = spill_writer(store, segment_format,
+                                                 replication)
             w.add(key, values)
-        for part, w in writers.items():
-            w.build(map_output_name(spec.result_ns, part, job_id))
+        if pw is not None:
+            pw.finish()
+        else:
+            for part, w in writers.items():
+                w.build(map_output_name(spec.result_ns, part, job_id))
     finally:
+        # an unbuilt builder (failed user code) releases its writer
+        # thread, fd and tempfile now, not at GC
+        if pw is not None:
+            pw.close()
         for w in writers.values():
             w.close()
 
 
 def run_premerge_job(spec: TaskSpec, store: Store, run_files: List[str],
                      spill_file: str,
-                     segment_format: str = "v1") -> JobTimes:
+                     segment_format: str = "v1",
+                     replication=1) -> JobTimes:
     """Eagerly consolidate committed sorted runs into one spill run —
     the pipelined-shuffle work unit (engine/premerge.py).
 
@@ -154,9 +193,11 @@ def run_premerge_job(spec: TaskSpec, store: Store, run_files: List[str],
     its runs were pre-merged. Consumed inputs are deleted only after the
     spill publishes atomically; an existing spill (a duplicate execution
     after a stale requeue) short-circuits to a sweep of any leftover
-    inputs.
+    inputs. Under ``replication`` the input reads fail over across
+    copies, the spill publish fans out and the sweep removes every copy.
     """
     check_format(segment_format)
+    store = reading_view(store, replication)
     times = JobTimes(started=time.time())
     cpu0 = time.process_time()
     if store.exists(spill_file):
@@ -170,7 +211,7 @@ def run_premerge_job(spec: TaskSpec, store: Store, run_files: List[str],
         raise RuntimeError(
             f"pre_merge {spill_file}: {len(missing)} input run(s) missing "
             f"with no spill published: {missing[:3]}")
-    writer = writer_for(store, segment_format)
+    writer = spill_writer(store, segment_format, replication)
     try:
         for key, values in merge_iterator(store, run_files):
             writer.add(key, values)
@@ -187,13 +228,16 @@ def run_premerge_job(spec: TaskSpec, store: Store, run_files: List[str],
 
 def run_reduce_job(spec: TaskSpec, store: Store, result_store: Store,
                    part_key: str, run_files: List[str],
-                   result_file: str, reduce_fold=None) -> JobTimes:
+                   result_file: str, replication=1,
+                   reduce_fold=None) -> JobTimes:
     """Execute one reduce job: k-way merge a partition's runs, fold with
     reducefn, publish the partition result (job.lua:230-296).
 
     Flagged (assoc ∧ commut ∧ idempotent) reducers skip reducefn on
     singleton groups (264-275); results land in the *result* store
     (249-251, 287); consumed run files are deleted after success (293).
+    Under ``replication`` every input read fails over across copies and
+    the sweep removes every copy; the result file is never replicated.
 
     ``reduce_fold`` is the hybrid plane's compiled-reduce hook
     (engine/hybrid.py): a callable ``(key, values) -> plain-or-None``
@@ -203,6 +247,7 @@ def run_reduce_job(spec: TaskSpec, store: Store, result_store: Store,
     fold can change speed, never results. The singleton fast path stays
     ahead of it.
     """
+    store = reading_view(store, replication)
     times = JobTimes(started=time.time())
     cpu0 = time.process_time()
     fast = spec.fast_path

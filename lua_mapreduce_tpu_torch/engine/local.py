@@ -24,10 +24,16 @@ the task's ``init_args["device"]``, else ``"cuda"``). As in the JAX
 executor, an in-graph iteration ignores ``pipeline`` and the hybrid
 compiled map leg runs only on the barrier path.
 
-The JAX executor's push shuffle, replication and erasure coding and the
-autotune controller are a later slice (ROADMAP A6b): their options are
-accepted only at the value that means "off", and any other value raises
-NotImplementedError.
+``replication`` (an int r, or with ``coding`` a ``"k+m"`` spec) publishes
+every spill to r placement copies or as k+m erasure-coded stripes, and
+reads fail over or decode from the survivors (faults/replicate.py,
+faults/coded.py); ``push`` runs the push shuffle (engine/push.py) under
+a memory budget of ``push_budget_mb``. Result bytes are the same with
+either on or off.
+
+The JAX executor's autotune controller is a later slice (ROADMAP A6b):
+its option is accepted only at the value that means "off", and any
+other value raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ import sys
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict, Iterator, List, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 from lua_mapreduce_tpu_torch.core.constants import MAX_TASKFN_VALUE_SIZE
 from lua_mapreduce_tpu_torch.core.segment import (check_format,
@@ -49,9 +55,19 @@ from lua_mapreduce_tpu_torch.engine.job import (JobTimes, map_key_str,
                                                 run_map_job,
                                                 run_premerge_job,
                                                 run_reduce_job)
-from lua_mapreduce_tpu_torch.engine.premerge import (PremergeTracker,
+from lua_mapreduce_tpu_torch.engine.premerge import (SPILL_TAG,
+                                                     PremergeTracker,
                                                      discover_pipelined,
                                                      run_name_re)
+from lua_mapreduce_tpu_torch.engine.push import (BufferPool,
+                                                 discover_push,
+                                                 ensure_canonical,
+                                                 manifest_files_by_part,
+                                                 resolve_push,
+                                                 resolve_push_budget,
+                                                 sweep_push_files)
+from lua_mapreduce_tpu_torch.faults.coded import resolve_redundancy
+from lua_mapreduce_tpu_torch.faults.replicate import reading_view
 from lua_mapreduce_tpu_torch.faults.retry import COUNTERS
 from lua_mapreduce_tpu_torch.faults.wrappers import unwrap
 from lua_mapreduce_tpu_torch.store.router import get_storage_from
@@ -62,10 +78,6 @@ from lua_mapreduce_tpu_torch.utils.stats import (IterationStats, TaskStats,
 # JAX-executor options this port does not run yet (ROADMAP A6b), with
 # the values that mean "off"
 _OFF_VALUES = {
-    "push": (None, False),
-    "push_budget_mb": (None,),
-    "replication": (None, 1),
-    "coding": (None,),
     "autotune": (None, False),
 }
 
@@ -146,15 +158,19 @@ class LocalExecutor:
     the in-process analog of N workers. ``max_iterations`` bounds the
     ``"loop"`` protocol. ``pipeline``, ``premerge_min_runs`` and
     ``premerge_max_runs`` drive the pipelined shuffle;
-    ``segment_format`` the spill encoding; ``engine`` and ``device``
-    the execution engine and its device (module docstring).
+    ``segment_format`` the spill encoding; ``replication``/``coding``
+    the shuffle redundancy and ``push``/``push_budget_mb`` the push
+    shuffle; ``engine`` and ``device`` the execution engine and its
+    device (module docstring).
     """
 
     def __init__(self, spec: TaskSpec, map_parallelism: int = 1,
                  max_iterations: int = 1000, pipeline: bool = False,
                  premerge_min_runs: int = 4, premerge_max_runs: int = 8,
-                 segment_format: str = "v1", engine=None, device=None,
-                 **options):
+                 segment_format: str = "v1", replication=None,
+                 coding: Optional[str] = None, push: Optional[bool] = None,
+                 push_budget_mb: Optional[float] = None, engine=None,
+                 device=None, **options):
         from lua_mapreduce_tpu_torch.engine.worker import check_off
         for name, value in options.items():
             if name not in _OFF_VALUES:
@@ -168,9 +184,20 @@ class LocalExecutor:
         self.premerge_min_runs = premerge_min_runs
         self.premerge_max_runs = premerge_max_runs
         self.segment_format = check_format(segment_format)
+        # the unified redundancy value: an int r or a Coding; 1 (the
+        # default) is the unreplicated path
+        self.replication = resolve_redundancy(replication, coding)
+        # push shuffle: one memory-budgeted buffer pool shared by the
+        # executor's map threads (its "worker")
+        self.push = resolve_push(push)
+        self._push_pool = (BufferPool(resolve_push_budget(push_budget_mb))
+                           if self.push else None)
         self.store = get_storage_from(spec.storage)
         self.result_store = (get_storage_from(spec.result_storage)
                              if spec.result_storage else self.store)
+        # discovery and cleanup address LOGICAL files through the
+        # failover view (identity when redundancy is off)
+        self._view = reading_view(self.store, self.replication)
         from lua_mapreduce_tpu_torch.engine.hybrid import HybridRunner
         from lua_mapreduce_tpu_torch.engine.ingraph import (IngraphRunner,
                                                             select_engine)
@@ -218,6 +245,7 @@ class LocalExecutor:
             "reduce", p, lambda: run_reduce_job(
                 self.spec, self.store, self.result_store, str(p), files,
                 result_file_name(self.spec.result_ns, p),
+                replication=self.replication,
                 reduce_fold=self._hybrid.reduce_fold()))
         self._hybrid.note_reduce_job()
         return t
@@ -225,7 +253,9 @@ class LocalExecutor:
     def _map_one(self, i, k, v) -> JobTimes:
         return self._traced("map", i, lambda: run_map_job(
             self.spec, self.store, str(i), k, v,
-            segment_format=self.segment_format))
+            segment_format=self.segment_format,
+            replication=self.replication, push=self.push,
+            push_pool=self._push_pool))
 
     def _run_jobs(self, fns) -> List[JobTimes]:
         if self.map_parallelism == 1 or len(fns) <= 1:
@@ -249,6 +279,10 @@ class LocalExecutor:
         # iteration rollover reuses run names with new contents; a
         # same-size rewrite would slip past the footer cache's key
         purge_footer_cache(self.store)
+        if self.push:
+            # a stale canonical manifest would win this iteration's
+            # publish-if-absent race and name consumed files
+            sweep_push_files(self._view, spec.result_ns)
 
         # in-graph engine: the whole data plane — map, shuffle, reduce —
         # runs as one program and the result files land directly;
@@ -283,11 +317,18 @@ class LocalExecutor:
             # interpreted loop below runs instead
             if not self._hybrid.run_map_leg(
                     jobs, self.store, segment_format=self.segment_format,
-                    iteration=iteration):
+                    iteration=iteration, replication=self.replication,
+                    push=self.push, push_pool=self._push_pool):
                 it_stats.map.fold(self._run_jobs([
                     (lambda k=k, v=v, i=i: self._map_one(i, k, v))
                     for i, (k, v) in enumerate(jobs)]))
-            parts = discover_partitions(self.store, spec.result_ns)
+            if self.push:
+                parts = discover_push(
+                    self._view, spec.result_ns,
+                    [map_key_str(i) for i in range(len(jobs))],
+                    replication=self.replication)
+            else:
+                parts = discover_partitions(self._view, spec.result_ns)
             it_stats.reduce.fold(self._run_jobs([
                 (lambda p=p, files=files: self._reduce_one(p, files))
                 for p, files in sorted(parts.items())]))
@@ -317,9 +358,22 @@ class LocalExecutor:
         """
         spec = self.spec
         map_keys = [map_key_str(i) for i in range(len(jobs))]
+        # every spill here is an earlier iteration's; one whose copy no
+        # sweep could remove (an unreachable placement tag) keeps a name
+        # this iteration neither publishes nor reads
+        pattern = f"{spec.result_ns}.P*.{SPILL_TAG}-*"
+        for name in self._view.list(pattern):
+            try:
+                self._view.remove(name)
+            except Exception:
+                pass
+        unremoved = frozenset(self._view.list(pattern))
+        if unremoved:
+            COUNTERS.bump("unremoved_spills", len(unremoved))
         tracker = PremergeTracker(spec.result_ns, map_keys,
                                   min_runs=self.premerge_min_runs,
-                                  max_runs=self.premerge_max_runs)
+                                  max_runs=self.premerge_max_runs,
+                                  avoid=unremoved)
         run_re = run_name_re(spec.result_ns)
         lock = threading.Lock()
         map_times: List[JobTimes] = []
@@ -335,11 +389,12 @@ class LocalExecutor:
                     "pre_merge", f"{sp.part}.{sp.seq}",
                     lambda: run_premerge_job(
                         spec, self.store, sp.files, sp.name,
-                        segment_format=self.segment_format))
+                        segment_format=self.segment_format,
+                        replication=self.replication))
             except Exception as e:
                 # probe the store BEFORE taking the tracker lock: holding
                 # it across storage IO would convoy every committing map
-                spill_exists = self.store.exists(sp.name)
+                spill_exists = self._view.exists(sp.name)
                 with lock:
                     pre_failed[0] += 1
                     tracker.spill_failed(sp.part, sp.seq,
@@ -355,11 +410,17 @@ class LocalExecutor:
         def map_one(i, k, v):
             t = self._map_one(i, k, v)
             produced = {}
-            for name in self.store.list(
-                    f"{spec.result_ns}.P*.M{map_keys[i]}"):
-                m = run_re.match(name)
-                if m and m.group(2) == map_keys[i]:
-                    produced[int(m.group(1))] = name
+            if self.push:
+                man = ensure_canonical(self.store, spec.result_ns,
+                                       map_keys[i], self.replication)
+                if man is not None:
+                    produced = manifest_files_by_part(man)
+            if not produced:
+                for name in self.store.list(
+                        f"{spec.result_ns}.P*.M{map_keys[i]}"):
+                    m = run_re.match(name)
+                    if m and m.group(2) == map_keys[i]:
+                        produced[int(m.group(1))] = name
             with lock:
                 map_times.append(t)
                 tracker.note_map_committed(map_keys[i], produced)
@@ -378,7 +439,10 @@ class LocalExecutor:
                 f.result()
             for f in list(pre_futs):
                 f.result()
-            parts = discover_pipelined(self.store, spec.result_ns, map_keys)
+            parts = discover_pipelined(self._view, spec.result_ns, map_keys,
+                                       push=self.push,
+                                       replication=self.replication,
+                                       ignore=unremoved)
             red_futs = [pool.submit(
                 lambda p=p, files=files: self._reduce_one(p, files))
                 for p, files in sorted(parts.items())]
@@ -389,9 +453,11 @@ class LocalExecutor:
 
     def clean_namespace(self) -> None:
         """Drop every file under this task's result namespace in both
-        stores (server.lua:331-345, 237-245)."""
-        for store in {id(self.store): self.store,
-                      id(self.result_store): self.result_store}.values():
+        stores (server.lua:331-345, 237-245), through the failover view:
+        logical listing, removal of every copy."""
+        for store in {id(self.store): self._view,
+                      id(self.result_store): reading_view(
+                          self.result_store, self.replication)}.values():
             for name in store.list(f"{self.spec.result_ns}.P*"):
                 store.remove(name)
 

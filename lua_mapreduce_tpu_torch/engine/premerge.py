@@ -88,7 +88,8 @@ class PremergeTracker:
     order) is in one of five states: UNKNOWN (map job not yet committed),
     ABSENT (committed, produced no run here), RUN (run present,
     unassigned), COVERED (inside a spill's range), or POISONED (a spill
-    over it failed — its raw runs reduce directly, never re-spilled).
+    over it failed, or would take a name in ``avoid`` — its raw runs
+    reduce directly, never re-spilled).
     ``take_eligible`` cuts maximal stretches of RUN positions bounded by
     UNKNOWN/COVERED/POISONED — ABSENT is transparent — into chunks of
     ``min_runs``..``max_runs`` runs. Contiguity over *decided* positions
@@ -98,8 +99,14 @@ class PremergeTracker:
     """
 
     def __init__(self, result_ns: str, map_keys: Iterable[str],
-                 min_runs: int = 4, max_runs: int = 8):
+                 min_runs: int = 4, max_runs: int = 8,
+                 avoid: Iterable[str] = ()):
         self.ns = result_ns
+        # spill names an earlier iteration left behind that no sweep
+        # could remove (a copy on an unreachable placement tag): a chunk
+        # that would publish under one of them stays raw instead, so
+        # discovery can ignore every such name this iteration
+        self.avoid = frozenset(avoid)
         self.order: List[str] = sorted(str(k) for k in map_keys)
         self.pos: Dict[str, int] = {k: i for i, k in enumerate(self.order)}
         self.min_runs = max(2, int(min_runs))
@@ -209,9 +216,16 @@ class PremergeTracker:
                 i = 0
                 while len(stretch) - i >= self.min_runs:
                     n = min(self.max_runs, len(stretch) - i)
-                    out.append(self._make_spill(part, stretch[i:i + n],
-                                                runmap))
+                    chunk = stretch[i:i + n]
                     i += n
+                    if spill_name(self.ns, part, chunk[0],
+                                  chunk[-1]) in self.avoid:
+                        # its raw runs reduce directly
+                        for p in chunk:
+                            runmap.pop(p)
+                        self.poisoned.setdefault(part, set()).update(chunk)
+                        continue
+                    out.append(self._make_spill(part, chunk, runmap))
                 stretch = []
         return out
 
@@ -234,7 +248,10 @@ class PremergeTracker:
 
 
 def discover_pipelined(store, result_ns: str,
-                       map_keys: Iterable[str]) -> Dict[int, List[str]]:
+                       map_keys: Iterable[str],
+                       push: bool = False,
+                       replication: int = 1,
+                       ignore: Iterable[str] = ()) -> Dict[int, List[str]]:
     """Partition → ordered reduce input list, rebuilt from storage alone.
 
     The pipelined analog of local.discover_partitions: spills slot in at
@@ -244,8 +261,20 @@ def discover_pipelined(store, result_ns: str,
     already carries their data, so they are dropped (and swept, best
     effort). The returned order is exactly the barrier merge order, so
     reduce output is byte-identical.
+
+    With ``push`` (DESIGN §24) a map's position may carry several files
+    — its manifest-named inbox fragments in seq order plus the eviction
+    tail — resolved through the canonical-manifest gate (classic runs
+    stay the fallback for push-off fleet members); orphan fragments no
+    canonical lineage names are swept here, the one place every map is
+    known terminal.
+
+    Spills named in ``ignore`` are an earlier iteration's copies that
+    the sweeps could not remove (the tracker's ``avoid``): never read,
+    only swept again, best effort.
     """
     order = sorted(str(k) for k in map_keys)
+    ignore = frozenset(ignore)
     run_re = run_name_re(result_ns)
     items: Dict[int, List[Tuple]] = {}
     covered: Dict[int, List[Tuple[int, int]]] = {}
@@ -253,6 +282,12 @@ def discover_pipelined(store, result_ns: str,
     for name in store.list(f"{result_ns}.P*.{SPILL_TAG}-*"):
         parsed = parse_spill_name(result_ns, name)
         if parsed is None:
+            continue
+        if name in ignore:
+            try:
+                store.remove(name)
+            except Exception:
+                pass
             continue
         part, a, b = parsed
         spills.setdefault(part, []).append((a, b, name))
@@ -287,17 +322,35 @@ def discover_pipelined(store, result_ns: str,
         for a, b, name in accepted:
             items.setdefault(part, []).append(((a, 0, 0, name), name))
             covered.setdefault(part, []).append((a, b))
-    for name in store.list(f"{result_ns}.P*.M*"):
-        m = run_re.match(name)
-        if not m:
-            continue
-        part, key = int(m.group(1)), m.group(2)
-        p = bisect.bisect_left(order, key)
-        if any(a <= p <= b for a, b in covered.get(part, ())):
-            try:
-                store.remove(name)   # consumed leftover; sweep
-            except Exception:
-                pass
-            continue
-        items.setdefault(part, []).append(((p, 1, 0, name), name))
+    if push:
+        from lua_mapreduce_tpu_torch.engine.push import (
+            push_file_lists, sweep_unreferenced)
+        lists, referenced = push_file_lists(store, result_ns, order,
+                                            replication)
+        for p, key in enumerate(order):
+            for part, files in lists.get(key, {}).items():
+                if any(a <= p <= b for a, b in covered.get(part, ())):
+                    for f in files:     # consumed leftovers; sweep
+                        try:
+                            store.remove(f)
+                        except Exception:
+                            pass
+                    continue
+                items.setdefault(part, []).extend(
+                    ((p, 1, i, f), f) for i, f in enumerate(files))
+        sweep_unreferenced(store, result_ns, referenced, order)
+    else:
+        for name in store.list(f"{result_ns}.P*.M*"):
+            m = run_re.match(name)
+            if not m:
+                continue
+            part, key = int(m.group(1)), m.group(2)
+            p = bisect.bisect_left(order, key)
+            if any(a <= p <= b for a, b in covered.get(part, ())):
+                try:
+                    store.remove(name)   # consumed leftover; sweep
+                except Exception:
+                    pass
+                continue
+            items.setdefault(part, []).append(((p, 1, 0, name), name))
     return {part: [n for _, n in sorted(lst)] for part, lst in items.items()}

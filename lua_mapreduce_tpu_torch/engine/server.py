@@ -25,8 +25,16 @@ go through ``faults/wrappers.wrap_jobstore`` (retry, fault injection,
 trace spans); with a tracer active the server records phase spans and
 flushes the process's spans into the task storage.
 
-Trimmed from the JAX server, to be ported with ROADMAP A6b: the push
-shuffle, replication and erasure coding with their lost-file recovery,
+``replication`` (an int r, or with ``coding`` a ``"k+m"`` spec) and
+``push`` are written to the task document for the workers and are
+sticky on resume, like ``pipeline``: a crashed redundant or push run
+holds data that only a reader of the same mode can see. Under
+redundancy the server runs the lost-file recovery: worker errors that
+name ``lost_files`` are repaired from a surviving copy, or, when every
+copy is gone, their producing map jobs are requeued during the reduce
+phase (and a lost spill's pre-merge republished once they re-ran).
+
+Trimmed from the JAX server, to be ported with ROADMAP A6b:
 speculation, autotune and ``set_fleet``, the HA leader lease and the
 notify waiter (the barrier polls at ``poll_interval``). Those options
 are accepted only at their "off" value; anything else raises
@@ -61,7 +69,19 @@ from lua_mapreduce_tpu_torch.engine.premerge import (SPILL_TAG,
                                                      discover_pipelined,
                                                      parse_spill_name,
                                                      run_name_re)
+from lua_mapreduce_tpu_torch.engine.push import (INBOX_TAG, discover_push,
+                                                 ensure_canonical,
+                                                 manifest_files_by_part,
+                                                 manifest_name,
+                                                 parse_inbox_name,
+                                                 parse_manifest_name,
+                                                 push_file_lists,
+                                                 resolve_push)
 from lua_mapreduce_tpu_torch.engine.worker import check_off
+from lua_mapreduce_tpu_torch.faults.coded import (doc_fields, doc_redundancy,
+                                                  redundancy_on,
+                                                  resolve_redundancy)
+from lua_mapreduce_tpu_torch.faults.replicate import reading_view, repair
 from lua_mapreduce_tpu_torch.faults.retry import COUNTERS
 from lua_mapreduce_tpu_torch.faults.wrappers import unwrap, wrap_jobstore
 from lua_mapreduce_tpu_torch.store.router import get_storage_from
@@ -72,11 +92,8 @@ from lua_mapreduce_tpu_torch.utils.stats import (IterationStats, TaskStats,
 # JAX-server options this port does not implement, with the values that
 # select the behaviour it does implement (ROADMAP A6b)
 _OFF_VALUES = {
-    "replication": (None, 1),
-    "coding": (None,),
     "speculation": (None, 0),
     "speculation_cap": (2,),
-    "push": (None, False),
     "autotune": (None, False),
     "autotune_config": (None,),
     "ha": (None, False),
@@ -152,7 +169,9 @@ class Server:
     LocalExecutor's (module docstring); it is written to the task
     document and sticky on resume. ``pipeline`` and
     ``premerge_min_runs``/``premerge_max_runs`` drive the pipelined
-    shuffle, ``segment_format`` the fleet's spill encoding.
+    shuffle, ``segment_format`` the fleet's spill encoding,
+    ``replication``/``coding`` the fleet's shuffle redundancy and
+    ``push`` the push shuffle (module docstring).
     """
 
     def __init__(self, store: JobStore, poll_interval: float = DEFAULT_SLEEP,
@@ -160,8 +179,11 @@ class Server:
                  verbose: bool = False, strict: bool = False,
                  pipeline: bool = False, premerge_min_runs: int = 4,
                  premerge_max_runs: int = 8, batch_k: int = 1,
-                 segment_format: str = "v1", engine: Optional[str] = None,
-                 **options):
+                 segment_format: str = "v1",
+                 replication: Optional[int] = None,
+                 coding: Optional[str] = None,
+                 push: Optional[bool] = None,
+                 engine: Optional[str] = None, **options):
         for name, value in options.items():
             if name not in _OFF_VALUES:
                 raise TypeError(f"Server got an unexpected option {name!r}")
@@ -179,7 +201,16 @@ class Server:
         self.premerge_max_runs = premerge_max_runs
         self.batch_k = max(1, int(batch_k))
         self.segment_format = check_format(segment_format)
+        # the fleet's unified shuffle redundancy (an int or a Coding)
+        self.replication = resolve_redundancy(replication, coding)
+        self.push = resolve_push(push)
         self.engine = resolve_engine(engine)
+        self._spill_repairs: Dict[str, tuple] = {}  # lost spill -> range
+        # spill names the last _clean_runs could not remove (a copy on
+        # an unreachable placement tag): older data under a name this
+        # iteration must neither publish nor read
+        self._unremoved_spills: frozenset = frozenset()
+        self._map_ids: Optional[Dict[str, int]] = None
         self._ingraph = None           # IngraphRunner, built in loop()
         self.spec: Optional[TaskSpec] = None
         self.stats = TaskStats()
@@ -272,11 +303,18 @@ class Server:
                 # and segment_format are perf knobs (readers sniff per
                 # file): the resuming server's values win
                 self.pipeline = bool(task.get("pipeline", self.pipeline))
+                # push and redundancy share the rule: a crashed push run's
+                # data sits behind manifests, a crashed redundant run's
+                # possibly only in replica copies or stripe blocks
+                self.push = bool(task.get("push", self.push))
+                self.replication = doc_redundancy(task, self.replication)
                 self.store.update_task({"pipeline": self.pipeline,
+                                        "push": self.push,
                                         "batch_k": self.batch_k,
                                         "segment_format":
                                             self.segment_format,
-                                        "engine": self.engine})
+                                        "engine": self.engine,
+                                        **doc_fields(self.replication)})
                 if status == TaskStatus.REDUCE.value:
                     skip_map = True
         if self.spec is None:
@@ -289,10 +327,15 @@ class Server:
                 "spec": self.spec.describe(),
                 # workers gate their pre_jobs probe on this marker
                 "pipeline": self.pipeline,
+                # and their map-publish mode on this one
+                "push": self.push,
                 # the fleet's default claim-lease size
                 "batch_k": self.batch_k,
                 # the fleet's spill encoding (readers sniff per file)
                 "segment_format": self.segment_format,
+                # the fleet's shuffle redundancy: the int factor and the
+                # "k+m" coding spec ("" when coding is off)
+                **doc_fields(self.replication),
                 "engine": self.engine,
                 "started": time.time(),
             })
@@ -309,9 +352,13 @@ class Server:
             self._purge_loop_state()
         else:
             self._restore_loop_state(iteration)
-        store = self._data_store
+        # the plain store repairs copies one by one (the scavenger);
+        # discovery and cleanup go through the failover view, so a lost
+        # primary with a surviving copy stays discoverable and sweeps
+        # remove every copy. r = 1: the same object.
+        store = reading_view(self._data_store, self.replication)
         result_store = (get_storage_from(self.spec.result_storage)
-                        if self.spec.result_storage else store)
+                        if self.spec.result_storage else self._data_store)
 
         from lua_mapreduce_tpu_torch.engine.ingraph import (IngraphRunner,
                                                             select_engine)
@@ -330,6 +377,8 @@ class Server:
                                 if decision.chosen == "hybrid" else None})
 
         while True:
+            self._spill_repairs.clear()
+            self._map_ids = None
             if tracer is not None:
                 tracer.set_iteration(iteration)
             it_stats = IterationStats(iteration=iteration)
@@ -495,11 +544,23 @@ class Server:
 
     def _clean_runs(self, store) -> None:
         """Drop every intermediate run file of this namespace: mapper
-        runs (``ns.P*.M*``) and pipelined spills (``ns.P*.SPILL-*``)."""
+        runs (``ns.P*.M*``), pipelined spills (``ns.P*.SPILL-*``) and
+        push inbox fragments (``ns.P*.INBOX-*``; the ``.M*`` glob also
+        takes the ``ns.PUSH.M*`` manifests, which must go: a stale
+        canonical manifest would win this iteration's publish)."""
         for pattern in (f"{self.spec.result_ns}.P*.M*",
-                        f"{self.spec.result_ns}.P*.{SPILL_TAG}-*"):
+                        f"{self.spec.result_ns}.P*.{SPILL_TAG}-*",
+                        f"{self.spec.result_ns}.P*.{INBOX_TAG}-*"):
             for name in store.list(pattern):
                 store.remove(name)
+        # the sweep swallows a copy's failure to go, and a listing still
+        # names the file while any copy is left
+        self._unremoved_spills = frozenset(
+            store.list(f"{self.spec.result_ns}.P*.{SPILL_TAG}-*"))
+        if self._unremoved_spills:
+            COUNTERS.bump("unremoved_spills", len(self._unremoved_spills))
+            self._log(f"{len(self._unremoved_spills)} spill(s) could not "
+                      f"be removed; this iteration ignores their names")
         # names just swept are reused by this iteration's maps with new
         # contents, which the footer cache's (name, size) key can miss
         purge_footer_cache(store)
@@ -518,7 +579,16 @@ class Server:
             map_keys = [map_key_str(d["_id"])
                         for d in self.store.jobs(MAP_NS)]
             parts = discover_pipelined(store, self.spec.result_ns,
-                                       map_keys)
+                                       map_keys, push=self.push,
+                                       replication=self.replication,
+                                       ignore=self._unremoved_spills)
+        elif self.push:
+            # barrier + push: inbox fragments slot in at their map's
+            # canonical position through the manifest gate
+            map_keys = [map_key_str(d["_id"])
+                        for d in self.store.jobs(MAP_NS)]
+            parts = discover_push(store, self.spec.result_ns, map_keys,
+                                  replication=self.replication)
         else:
             parts = discover_partitions(store, self.spec.result_ns)
         producer_by_id = {map_key_str(jid): w
@@ -547,7 +617,9 @@ class Server:
         """One poll's upkeep (server.lua:186-234), throttled to the
         poll_interval cadence: scavenge BROKEN≥retries → FAILED and
         requeue stale RUNNING in every given namespace, drain and retain
-        worker errors, soft-flush the trace buffer."""
+        worker errors, soft-flush the trace buffer. Under redundancy,
+        drained errors naming ``lost_files`` feed the repair-or-requeue
+        recovery."""
         now = time.time()
         if self._housekeep_at is not None \
                 and now - self._housekeep_at < self.poll_interval:
@@ -557,11 +629,18 @@ class Server:
             self.store.scavenge(ns, MAX_JOB_RETRIES)
             if self.stale_timeout_s is not None:
                 self.store.requeue_stale(ns, self.stale_timeout_s)
+        lost: List[str] = []
         for err in self.store.drain_errors():
             # the drain is destructive — always retain for diagnosis
             self.errors.append(err)
+            lost.extend(err.get("lost_files") or ())
             self._log(f"worker error [{err['worker']}]: "
                       f"{err['msg'].splitlines()[-1] if err['msg'] else ''}")
+        if redundancy_on(self.replication):
+            if lost:
+                self._recover_lost(sorted(set(lost)))
+            if self._spill_repairs:
+                self._settle_spill_repairs()
         # soft flush: nothing happens below the tracer's threshold
         self._trace_flush()
 
@@ -587,6 +666,157 @@ class Server:
         except Exception as exc:
             self._log(f"trace flush failed ({type(exc).__name__}: {exc});"
                       " spans re-buffered")
+
+    # -- lost-file recovery --------------------------------------------------
+
+    def _recover_lost(self, files: List[str]) -> None:
+        """The scavenger's reconstruct-vs-requeue decision, per lost
+        file: REPAIR from any surviving replica (milliseconds, no job
+        state touched — counted ``replica_repairs``), and only when
+        every copy is gone REQUEUE the producing map job(s) — the
+        last-resort re-run the replication layer exists to avoid."""
+        for name in files:
+            if name in self._spill_repairs:
+                continue            # republish already pending below
+            verdict = repair(self._data_store, name, self.replication)
+            if verdict != "lost":
+                # intact/repaired: full redundancy restored; degraded:
+                # a survivor still serves failover reads and the next
+                # housekeeping pass retries the heal — never a re-run
+                self._log(f"scavenge: {name} {verdict} "
+                          "(a surviving replica serves it)")
+                continue
+            self._requeue_producers(name)
+
+    def _map_id_by_key(self) -> Dict[str, int]:
+        if self._map_ids is None:
+            self._map_ids = {map_key_str(d["_id"]): d["_id"]
+                             for d in self.store.jobs(MAP_NS)}
+        return self._map_ids
+
+    def _requeue_producers(self, name: str) -> None:
+        """Every copy of ``name`` is gone: push its producer(s) back to
+        WAITING (no repetition charge — the loss is not the job's
+        fault) so the pool regenerates the data during the reduce
+        phase (Worker's replication-gated map probe). A lost SPILL
+        additionally needs its pre-merge republished once the covering
+        map jobs land — tracked in ``_spill_repairs``. A lost push
+        FRAGMENT (or manifest) requeues its producer too, after the
+        stale canonical manifest is invalidated so the re-run's fresh
+        lineage can publish — best-effort: a re-run under different
+        memory pressure may fragment differently, and a reduce job
+        holding the old file list then retries through the normal
+        missing-runs ladder (DESIGN §24)."""
+        ns = self.spec.result_ns
+        m = run_name_re(ns).match(name)
+        if m:
+            self._requeue_maps([m.group(2)], name)
+            return
+        inbox = parse_inbox_name(ns, name)
+        man = parse_manifest_name(ns, name) if inbox is None else None
+        if inbox is not None or man is not None:
+            key = inbox[1] if inbox is not None else man[0]
+            # invalidate the lineage whose file is gone (every copy of
+            # the canonical manifest, so publish-if-absent re-opens)
+            view = reading_view(self._data_store, self.replication)
+            try:
+                view.remove(manifest_name(ns, key))
+            except Exception:
+                pass
+            self._requeue_maps([key], name)
+            return
+        parsed = parse_spill_name(ns, name)
+        if parsed is None:
+            return          # not a shuffle file of this task (a result
+                            # file, say): nothing to regenerate here
+        part, a, b = parsed
+        order = sorted(self._map_id_by_key())
+        if self._requeue_maps(order[a:b + 1], name):
+            self._spill_repairs[name] = (part, a, b)
+
+    def _requeue_maps(self, map_keys, why_file: str) -> int:
+        """WRITTEN→WAITING CAS per producer (a key already requeued —
+        or re-running — fails the CAS and is simply not re-charged).
+        Each landed requeue is a counted ``map_rerun`` and an
+        errors-stream entry tagged ``spill-lost-requeue``, so lost-data
+        re-runs are distinguishable from stale-worker requeues."""
+        by_key = self._map_id_by_key()
+        n = 0
+        for key in map_keys:
+            jid = by_key.get(key)
+            if jid is None:
+                continue
+            if not self.store.set_job_status(MAP_NS, jid, Status.WAITING,
+                                             expect=(Status.WRITTEN,)):
+                continue
+            n += 1
+            COUNTERS.bump("map_reruns")
+            self.store.insert_error(
+                "server",
+                f"map job {jid} requeued: shuffle file {why_file!r} lost "
+                "with no surviving replica (last-resort re-run)",
+                info={"classification": "spill-lost-requeue",
+                      "ns": MAP_NS, "job_id": jid, "file": why_file})
+            self._log(f"scavenge: {why_file} unrecoverable — map job "
+                      f"{jid} requeued for re-run")
+        return n
+
+    def _settle_spill_repairs(self) -> None:
+        """Republish the pre-merge for a lost spill once every covering
+        map job re-ran: rebuild the canonical file list from storage
+        (absent positions are transparent, engine/premerge.py) and
+        insert a fresh pre_merge job — workers claim it through the
+        reduce-phase probe and the retrying reduce job then finds its
+        spill again."""
+        view = reading_view(self._data_store, self.replication)
+        ns = self.spec.result_ns
+        by_key = self._map_id_by_key()
+        status = {d["_id"]: d["status"] for d in self.store.jobs(MAP_NS)}
+        order = sorted(by_key)
+        run_re = run_name_re(ns)
+        # settle-ready repairs first, so the push branch resolves ONE
+        # file-list pass for the union of their keys — push_file_lists
+        # opens with a full-namespace listing plus per-key manifest
+        # reads, and paying that per repair per housekeeping pass would
+        # turn many lost spills into O(repairs × namespace) RPCs (the
+        # staged branch's per-partition glob stays per-repair: it is
+        # one single-partition listing)
+        ready: List[tuple] = []
+        for spill, (part, a, b) in list(self._spill_repairs.items()):
+            if view.exists(spill):
+                self._spill_repairs.pop(spill)
+                continue
+            keys = order[a:b + 1]
+            if not all(status.get(by_key[k]) == Status.WRITTEN
+                       for k in keys if k in by_key):
+                continue        # producers still re-running
+            ready.append((spill, part, a, b, keys))
+        push_lists = None
+        if self.push and ready:
+            union = sorted({k for _, _, _, _, keys in ready for k in keys})
+            push_lists, _ = push_file_lists(view, ns, union,
+                                            self.replication)
+        for spill, part, a, b, keys in ready:
+            wanted = set(keys)
+            if push_lists is not None:
+                # push re-runs re-emit manifest-gated inbox files, not
+                # bare runs: the same canonical resolution the tracker
+                # uses, computed once above for every ready repair
+                files = [f for key in sorted(wanted)
+                         for f in push_lists.get(key, {}).get(part, [])]
+            else:
+                files = [n for n in view.list(f"{ns}.P{part}.M*")
+                         if (mm := run_re.match(n)) and mm.group(2) in wanted]
+            if not files:
+                self._spill_repairs.pop(spill)
+                continue        # nothing re-emitted for this partition
+            self.store.insert_jobs(PRE_NS, [make_job(
+                f"repair.{part}.{a}-{b}",
+                {"part": part, "seq": -1, "files": files,
+                 "spill": spill})])
+            self._spill_repairs.pop(spill)
+            self._log(f"scavenge: republished pre_merge for lost spill "
+                      f"{spill} ({len(files)} run(s))")
 
     def _finish_phase(self, phase: str, counts: Dict[Status, int],
                       total: int) -> None:
@@ -627,10 +857,11 @@ class Server:
         self.store.drop_ns(PRE_NS)
         tracker = PremergeTracker(
             ns, [map_key_str(d["_id"]) for d in self.store.jobs(MAP_NS)],
-            min_runs=self.premerge_min_runs, max_runs=self.premerge_max_runs)
+            min_runs=self.premerge_min_runs, max_runs=self.premerge_max_runs,
+            avoid=self._unremoved_spills)
         for name in store.list(f"{ns}.P*.{SPILL_TAG}-*"):
             parsed = parse_spill_name(ns, name)    # crash/resume leftovers
-            if parsed is not None:
+            if parsed is not None and name not in self._unremoved_spills:
                 tracker.note_existing_spill(*parsed, name=name)
         run_re = run_name_re(ns)
         seen_committed: set = set()
@@ -657,9 +888,19 @@ class Server:
                             int(m.group(1))] = name
                 for d in newly:
                     seen_committed.add(d["_id"])
+                    key = map_key_str(d["_id"])
+                    if self.push:
+                        # a committed push map's fragments resolve
+                        # through the manifest gate; classic runs stay
+                        # the fallback for push-off fleet members
+                        man = ensure_canonical(store, ns, key,
+                                               self.replication)
+                        if man is not None:
+                            tracker.note_map_committed(
+                                key, manifest_files_by_part(man))
+                            continue
                     # FAILED jobs contribute whatever partial runs they
                     # published, as the barrier path's discovery does
-                    key = map_key_str(d["_id"])
                     tracker.note_map_committed(key, runs_by_key.get(key, {}))
             map_done = len(seen_committed) >= n_map
 
@@ -707,9 +948,16 @@ class Server:
     def _wait_phase(self, ns: str, total: int, phase: str,
                     progress: Optional[Callable[[str, float], None]]) -> None:
         """Barrier poll (server.lua:186-234): every ``poll_interval`` —
-        housekeeping, progress — until every job is WRITTEN or FAILED."""
+        housekeeping, progress — until every job is WRITTEN or FAILED.
+        Under redundancy the reduce wait keeps the map and pre-merge
+        namespaces in its upkeep: recovery re-runs ride them during the
+        reduce phase, and a killed re-run must fall to the stale
+        requeue like any job."""
+        namespaces = (ns,)
+        if ns == RED_NS and redundancy_on(self.replication):
+            namespaces = (RED_NS, MAP_NS, PRE_NS)
         while True:
-            self._housekeep(ns)
+            self._housekeep(*namespaces)
             counts = self.store.counts(ns)
             done = counts[Status.WRITTEN] + counts[Status.FAILED]
             if progress is not None:

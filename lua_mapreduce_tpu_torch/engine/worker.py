@@ -24,12 +24,20 @@ fault injection, trace spans); with a tracer active every job body is
 a span and the worker flushes its spans into the task storage after
 each lease and when it leaves.
 
-Trimmed from the JAX worker, to be ported with ROADMAP A6b: the push
-shuffle, speculative duplicate leases, autotune following, replication
-and erasure coding, and the notify waiter. An idle worker polls on a
-back-off that doubles up to ``max_sleep``. Those options are accepted
-only at their "off" value, and a task document that deploys one of
-them is refused.
+The shuffle redundancy (``replication``: r placement copies, or with
+``coding`` k+m erasure-coded stripes) and the push shuffle (``push``,
+``push_budget_mb``) follow the task document unless the worker is
+configured with its own. Under redundancy a reduce whose input has no
+readable copy left raises :class:`LostShuffleDataError` naming the
+files: the job is released, the error record carries ``lost_files``,
+and the server repairs the files or requeues their producing maps,
+which this worker claims in the reduce phase before any reduce job.
+
+Trimmed from the JAX worker, to be ported with ROADMAP A6b:
+speculative duplicate leases, autotune following and the notify waiter.
+An idle worker polls on a back-off that doubles up to ``max_sleep``;
+``idle_poll_ms`` is accepted only at its "off" value, and a task
+document that deploys speculation or autotune is refused.
 """
 
 from __future__ import annotations
@@ -57,9 +65,19 @@ from lua_mapreduce_tpu_torch.engine.job import (JobTimes, publish_map_groups,
                                                 run_map_job,
                                                 run_premerge_job,
                                                 run_reduce_job)
-from lua_mapreduce_tpu_torch.faults.errors import (classify_job_fault,
+from lua_mapreduce_tpu_torch.engine.placement import base_name
+from lua_mapreduce_tpu_torch.engine.push import (BufferPool,
+                                                 resolve_push_budget)
+from lua_mapreduce_tpu_torch.faults.errors import (LostShuffleDataError,
+                                                   StoreError,
+                                                   classify_job_fault,
                                                    is_transient_job_fault)
+from lua_mapreduce_tpu_torch.faults.coded import (check_redundancy,
+                                                  doc_redundancy,
+                                                  parse_coding,
+                                                  redundancy_on)
 from lua_mapreduce_tpu_torch.faults.plan import set_current_worker
+from lua_mapreduce_tpu_torch.faults.replicate import reading_view
 from lua_mapreduce_tpu_torch.faults.retry import COUNTERS
 from lua_mapreduce_tpu_torch.faults.wrappers import wrap_jobstore
 from lua_mapreduce_tpu_torch.store.router import get_storage_from
@@ -73,16 +91,13 @@ _log = logging.getLogger(__name__)
 MAX_INFRA_POLL_FAILURES = 10
 
 _CONFIG_KEYS = ("max_iter", "max_sleep", "max_tasks", "max_jobs", "phases",
-                "heartbeat_s", "batch_k", "batch_lease_s", "segment_format")
+                "heartbeat_s", "batch_k", "batch_lease_s", "segment_format",
+                "replication", "coding", "push", "push_budget_mb")
 
 # JAX-worker options this port does not implement, with the values that
 # select the behaviour it does implement (ROADMAP A6b)
 _OFF_VALUES = {
-    "replication": (None, 1),
-    "coding": (None,),
     "idle_poll_ms": (None,),
-    "push": (None, False),
-    "push_budget_mb": (None,),
 }
 
 # EWMA smoothing for the observed per-job duration that sizes batch
@@ -102,14 +117,11 @@ def check_off(owner: str, name: str, value, off_values: dict) -> None:
 
 def check_task_doc(task: dict) -> None:
     """Refuse a task document that deploys a plane this port does not
-    run (a JAX-package server sharing the store, say): a push shuffle,
-    replication, coding, speculation or autotune. Running it without
-    that plane would be a silently different run. The pipelined shuffle
-    and both segment formats run here."""
+    run (a JAX-package server sharing the store, say): speculation or
+    autotune. Running it without that plane would be a silently
+    different run. The pipelined and push shuffles, both segment
+    formats, replication and erasure coding run here."""
     deployed = {
-        "push": bool(task.get("push")),
-        "replication": int(task.get("replication") or 1) != 1,
-        "coding": bool(task.get("coding")),
         "speculation": bool(task.get("speculation")),
         "autotune": bool(task.get("autotune")),
     }
@@ -152,6 +164,15 @@ class Worker:
         # file, so a mixed fleet is valid)
         self.segment_format = None
         self._task_segment_format = None
+        # shuffle redundancy and push: None = follow the task document
+        self.replication = None
+        self.coding = None
+        self.push = None
+        self.push_budget_mb = None
+        self._task_replication = None
+        self._task_coding = None
+        self._task_push = None
+        self._push_pool_obj = None      # lazy per-worker buffer pool
         self._last_spec = None          # where trace flushes publish
         self._dur_ewma: Dict[str, float] = {}   # ns -> smoothed real secs
         # hybrid compiled legs: the server negotiates the per-stage split
@@ -171,6 +192,9 @@ class Worker:
         self._affinity: list = []       # map-job ids this worker ran before
         self._idle_count = 0
         self.jobs_executed = 0
+        # job bodies started, by label ("map", "pre_merge", "reduce"): a
+        # body that failed and ran again counts each time
+        self.bodies: Dict[str, int] = {}
         self._jobs_at_start = 0
 
     def configure(self, **params) -> "Worker":
@@ -188,6 +212,10 @@ class Worker:
                 from lua_mapreduce_tpu_torch.core.segment import \
                     check_format
                 check_format(v)
+            if k == "replication" and v is not None:
+                check_redundancy(v)     # an int factor or a "k+m" spec
+            if k == "coding" and v is not None:
+                parse_coding(v)
             setattr(self, k, v)
         return self
 
@@ -222,8 +250,29 @@ class Worker:
         self._task_engine = task.get("engine")
         self._task_hybrid_stages = task.get("hybrid_stages")
         self._task_segment_format = task.get("segment_format")
+        self._task_replication = task.get("replication")
+        self._task_coding = task.get("coding")
+        self._task_push = task.get("push")
 
         if task["status"] == TaskStatus.MAP.value:
+            # the push shuffle's merge should keep pace with frame
+            # production: with push on, pre-merge jobs are claimed
+            # before maps; staged pipelining keeps them as idle-capacity
+            # work behind the maps
+            pre_first = bool(task.get("push")) and task.get("pipeline")
+
+            def probe_pre():
+                if "reduce" in self.phases and task.get("pipeline"):
+                    jobs = self.store.claim_batch(
+                        PRE_NS, self.name, self._effective_k(PRE_NS, task))
+                    if jobs:
+                        self._idle_count = 0
+                        self._execute_batch(spec, PRE_NS, jobs)
+                        return True
+                return False
+
+            if pre_first and probe_pre():
+                return "executed"
             if "map" in self.phases:
                 preferred = self._affinity if iteration > 1 else None
                 steal = not preferred or self._idle_count >= MAX_IDLE_COUNT
@@ -235,22 +284,37 @@ class Worker:
                     self._execute_batch(spec, MAP_NS, jobs)
                     return "executed"
             # eager pre-merge rides inside the map phase behind the
-            # reduce-phase filter, as idle-capacity work (map progress
-            # first); the doc marker gates the probe, so barrier tasks
-            # pay no extra claim round trip
-            if "reduce" in self.phases and task.get("pipeline"):
-                jobs = self.store.claim_batch(
-                    PRE_NS, self.name, self._effective_k(PRE_NS, task))
-                if jobs:
-                    self._idle_count = 0
-                    self._execute_batch(spec, PRE_NS, jobs)
-                    return "executed"
+            # reduce-phase filter; the doc marker gates the probe, so
+            # barrier tasks pay no extra claim round trip
+            if not pre_first and probe_pre():
+                return "executed"
             if "map" not in self.phases:
                 return "out-of-phase"
             self._idle_count += 1
             return "idle"
 
         if task["status"] == TaskStatus.REDUCE.value:
+            # lost-data recovery: when every copy of a run or spill is
+            # gone, the server requeues the PRODUCING map job (and
+            # republishes the covering pre_merge) during the reduce
+            # phase. The probes are gated on redundancy, so an
+            # unreplicated fleet pays no extra claim round trip, and run
+            # BEFORE the reduce claim: in a fleet of one dual-phase
+            # worker a released lost-data reduce would otherwise be
+            # reclaimed every poll and starve its own requeued producer
+            if redundancy_on(doc_redundancy(task)):
+                if "map" in self.phases:
+                    jobs = self.store.claim_batch(
+                        MAP_NS, self.name, self._effective_k(MAP_NS, task))
+                    if jobs:
+                        self._execute_batch(spec, MAP_NS, jobs)
+                        return "executed"
+                if "reduce" in self.phases and task.get("pipeline"):
+                    jobs = self.store.claim_batch(
+                        PRE_NS, self.name, self._effective_k(PRE_NS, task))
+                    if jobs:
+                        self._execute_batch(spec, PRE_NS, jobs)
+                        return "executed"
             if "reduce" not in self.phases:
                 return "out-of-phase"
             jobs = self.store.claim_batch(
@@ -421,20 +485,55 @@ class Worker:
         the task document's fleet default, else v1."""
         return self.segment_format or self._task_segment_format or "v1"
 
+    def _replication(self):
+        """The unified shuffle redundancy this worker publishes and reads
+        with — an int factor or a Coding: its own coding override, else
+        its own replication override, else the task document's deployed
+        value (coding spec first), else 1 (off)."""
+        if self.coding is not None:
+            return check_redundancy(self.coding)
+        if self.replication is not None:
+            return check_redundancy(self.replication)
+        return doc_redundancy({"replication": self._task_replication,
+                               "coding": self._task_coding})
+
+    def _push_on(self) -> bool:
+        """Whether this worker publishes map output through the push
+        shuffle: its own override, else the task document's marker."""
+        if self.push is not None:
+            return bool(self.push)
+        return bool(self._task_push)
+
+    def _push_pool(self):
+        """This worker's memory-budgeted push buffer pool, minted lazily:
+        the budget bounds what this loop's map bodies may hold in
+        unpublished frames (``push_budget_mb``, else LMR_PUSH_BUDGET_MB,
+        else the default)."""
+        if self._push_pool_obj is None:
+            self._push_pool_obj = BufferPool(
+                resolve_push_budget(self.push_budget_mb))
+        return self._push_pool_obj
+
     def _map_body(self, spec: TaskSpec, job: dict) -> JobTimes:
         store = get_storage_from(spec.storage)
+        push_on = self._push_on()
+        pool = self._push_pool() if push_on else None
         groups = self._hybrid_stash.pop(job["_id"], None)
         if groups is not None:
             # compiled map leg: mapfn+combiner already ran in the lease's
             # batch program — only the shared publish tail remains
             times = JobTimes(started=time.time())
             publish_map_groups(spec, store, str(job["_id"]), groups,
-                               segment_format=self._segment_format())
+                               segment_format=self._segment_format(),
+                               replication=self._replication(),
+                               push=push_on, push_pool=pool)
             times.finished = times.written = time.time()
             return times
         return run_map_job(spec, store, str(job["_id"]), job["key"],
                            job["value"],
-                           segment_format=self._segment_format())
+                           segment_format=self._segment_format(),
+                           replication=self._replication(), push=push_on,
+                           push_pool=pool)
 
     def _premerge_body(self, spec: TaskSpec, job: dict) -> JobTimes:
         """Consolidate committed runs into a spill (pipelined shuffle);
@@ -443,10 +542,15 @@ class Worker:
         v = job["value"]
         return run_premerge_job(spec, get_storage_from(spec.storage),
                                 v["files"], v["spill"],
-                                segment_format=self._segment_format())
+                                segment_format=self._segment_format(),
+                                replication=self._replication())
 
     def _reduce_body(self, spec: TaskSpec, job: dict) -> JobTimes:
-        store = get_storage_from(spec.storage)
+        replication = self._replication()
+        # the failover view: the visibility check below answers for
+        # LOGICAL files (any surviving copy), and the merge's reads fail
+        # over per file. Identity when redundancy is off.
+        store = reading_view(get_storage_from(spec.storage), replication)
         result_store = (get_storage_from(spec.result_storage)
                         if spec.result_storage else store)
         v = job["value"]
@@ -469,6 +573,15 @@ class Worker:
                     store.remove(name)
                 times.finished = times.written = time.time()
                 return times
+            if redundancy_on(replication):
+                # every copy gone: a recoverable loss, not a dead job —
+                # released (no repetition charge), naming the files so
+                # the server repairs them or requeues their producers
+                raise LostShuffleDataError(
+                    f"reduce {v['part']}: {len(missing)} run file(s) "
+                    f"lost with no surviving replica: {missing[:3]} — "
+                    "awaiting scavenger repair or producer re-run",
+                    op="reduce", name=missing[0], files=missing)
             raise RuntimeError(
                 f"reduce {v['part']}: {len(missing)} run file(s) not "
                 f"visible in storage (producers: "
@@ -476,7 +589,8 @@ class Worker:
                 "cross-host pools need a backend every host can reach")
         _, fold = self._hybrid_runtime(spec)
         times = run_reduce_job(spec, store, result_store, str(v["part"]),
-                               v["files"], v["result"], reduce_fold=fold)
+                               v["files"], v["result"],
+                               replication=replication, reduce_fold=fold)
         if fold is not None and fold.take_used():
             COUNTERS.bump("hybrid_reduce_legs")
         return times
@@ -529,6 +643,7 @@ class Worker:
         with self._beating(ns, jids):
             for pos, job in enumerate(jobs):
                 sp = None
+                self.bodies[label] = self.bodies.get(label, 0) + 1
                 try:
                     with self._body_span(ns, label, job) as sp:
                         times = body(self, spec, job)
@@ -567,8 +682,12 @@ class Worker:
     def _error_info(ns: str, jid: int, exc: Exception,
                     span: Optional[dict] = None) -> dict:
         """Structured post-mortem fields for an errors-stream entry.
-        Under tracing, ``span`` is the job-body span live when the fault
-        fired: its deterministic id links the entry to its timeline."""
+        Store faults that name a shuffle file also carry ``lost_files``
+        (sorted logical names): the server's scavenger repairs each from
+        a surviving copy, or requeues its producer when every copy is
+        gone. Under tracing, ``span`` is the job-body span live when the
+        fault fired: its deterministic id links the entry to its
+        timeline."""
         info = {"exc_class": type(exc).__name__,
                 "exc_msg": str(exc)[:500],
                 "classification": classify_job_fault(exc),
@@ -576,6 +695,15 @@ class Worker:
         if span is not None:
             info["span_id"] = span["sid"]
             info["span_worker"] = span["worker"]
+        lost = getattr(exc, "lost_files", None)
+        if lost:
+            info["lost_files"] = sorted({base_name(n) for n in lost})
+        elif (isinstance(exc, StoreError) and exc.name
+              and exc.op in ("lines", "read_range", "size")):
+            # a data-plane read fault names ONE file: the mid-stream
+            # shape (the copy died under a running merge) that the
+            # failover view cannot absorb without duplicating records
+            info["lost_files"] = [base_name(exc.name)]
         return info
 
     def _release_budget_ok(self, ns: str, jid: int) -> bool:

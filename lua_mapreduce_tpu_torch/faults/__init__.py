@@ -1,9 +1,10 @@
 """Fault plane: the store/coord error taxonomy (``errors``), the retry
 policy and process-global counters (``retry``), seeded fault schedules
-(``plan``) and the injection/retry wrappers with their wiring points
-(``wrappers``). Copies of the JAX package's modules of the same names;
-the replicated and erasure-coded shuffles (``replicate``, ``coded``)
-are a later slice (ROADMAP A6b)."""
+(``plan``), the injection/retry wrappers with their wiring points
+(``wrappers``), the replicated shuffle data plane (``replicate``:
+r-way publish, failover reads, repair) and the erasure-coded one
+(``coded``: GF(256) Reed-Solomon k+m stripes, decode from the
+survivors). Copies of the JAX package's modules of the same names."""
 
 from lua_mapreduce_tpu_torch.faults.errors import (ConcurrentInsertError,
                                                    InjectedFault,
@@ -14,7 +15,16 @@ from lua_mapreduce_tpu_torch.faults.errors import (ConcurrentInsertError,
                                                    StoreError,
                                                    TransientStoreError,
                                                    classify_exception)
+from lua_mapreduce_tpu_torch.faults.coded import (CodedStore, Coding,
+                                                  check_redundancy,
+                                                  parse_coding,
+                                                  redundancy_on,
+                                                  repair_stripe,
+                                                  resolve_redundancy)
 from lua_mapreduce_tpu_torch.faults.plan import FaultPlan
+from lua_mapreduce_tpu_torch.faults.replicate import (ReplicatedStore,
+                                                      reading_view, repair,
+                                                      spill_writer)
 from lua_mapreduce_tpu_torch.faults.retry import (COUNTERS, FaultCounters,
                                                   RetryPolicy,
                                                   configure_retry)
@@ -30,6 +40,9 @@ __all__ = [
     "ConcurrentInsertError", "InjectedFault", "InjectedPermanentFault",
     "LostShuffleDataError", "NoTaskError", "PermanentStoreError",
     "StoreError", "TransientStoreError", "classify_exception", "FaultPlan",
+    "CodedStore", "Coding", "check_redundancy", "parse_coding",
+    "redundancy_on", "repair_stripe", "resolve_redundancy",
+    "ReplicatedStore", "reading_view", "repair", "spill_writer",
     "COUNTERS", "FaultCounters", "RetryPolicy", "configure_retry",
     "FaultyJobStore", "FaultyStore", "RetryingJobStore", "RetryingStore",
     "install_fault_plan", "unwrap", "wrap_jobstore", "wrap_store",

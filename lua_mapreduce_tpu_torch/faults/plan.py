@@ -27,10 +27,16 @@ Fault kinds (the failure modes the store/coord planes must survive):
 - ``rpc_transient``      — transient faults on jobstore RPCs (claim /
                            commit / heartbeat / counts ...)
 - ``blackout``           — every data-plane op on ONE placement tag
-                           fails transient for a clock window. It
-                           parses; a plan using it is refused
-                           (NotImplementedError naming ROADMAP A6b)
-                           until engine/placement.py is ported
+                           (engine/placement.py) fails transient for a
+                           clock window: the whole-failure-domain shape
+                           ("all replicas on one backend died") the
+                           replicated shuffle must absorb (DESIGN §20).
+                           Coded-stripe blocks and manifest copies
+                           (faults/coded.py, DESIGN §27) route by the
+                           tag embedded in their physical names — a
+                           dark domain costs each stripe at most the
+                           one block it placed there, exactly the shape
+                           inline decode-from-survivors absorbs
 - ``slow``               — every data-plane op by workers matching
                            ``slow_worker`` sleeps ``slow_ms`` for a
                            clock window: the DEGRADED-MACHINE shape
@@ -81,6 +87,14 @@ RPC_OPS = frozenset({
 
 # build-only kinds never apply to read ops and vice versa
 _BUILD_KINDS = ("torn", "error_after_write")
+
+# ops a BLACKOUT darkens: the per-file data plane. ``build`` is excluded
+# (the injected-build shapes torn/error_after_write model publish
+# failure precisely; a pre-op transient on build is indistinguishable
+# from error_after_write=never — the kind-orthogonality rule below),
+# and ``list`` addresses a pattern, not a file on a tag.
+_BLACKOUT_OPS = frozenset({"lines", "read_range", "size", "exists",
+                           "remove"})
 
 # ops a SLOW worker pays its latency tax on: the whole data plane a job
 # body touches — reads AND publishes AND listings (a sick machine is
@@ -181,9 +195,24 @@ class FaultPlan:
             k = self._occ[key] = self._occ.get(key, 0) + 1
             if not is_rpc and not self._matches(name):
                 return None
-            # blackout (a dark placement tag) needs engine/placement.py,
-            # a later slice: check_supported() refuses such a plan
-            # before it can reach a store
+            # blackout before the per-key cap: a dark failure domain
+            # fails EVERY matched op on its tag for the window — never
+            # rate-drawn, never charged to the cap (the window is the
+            # liveness bound). It shares the pattern gate with every
+            # other kind: the name family being darkened is the plan
+            # author's scope knob.
+            if self.blackout_tag is not None and op in _BLACKOUT_OPS:
+                if self._t0 is None:
+                    self._t0 = self._clock()
+                t = self._clock() - self._t0
+                if (self.blackout_from_s <= t
+                        < self.blackout_from_s + self.blackout_s):
+                    from lua_mapreduce_tpu_torch.engine.placement import \
+                        tag_of
+                    if tag_of(name) == self.blackout_tag:
+                        self.fired["blackout"] = \
+                            self.fired.get("blackout", 0) + 1
+                        return "transient"
             # slow, like blackout, before the per-key cap: a sick
             # machine is slow at EVERY op for its window, never a
             # budgeted few — and never charged to the cap (latency is
@@ -223,17 +252,6 @@ class FaultPlan:
                     self.fired[kind] = self.fired.get(kind, 0) + 1
                     return kind
         return None
-
-    def check_supported(self) -> "FaultPlan":
-        """Refuse a plan this package cannot run: the ``blackout`` kind
-        routes by placement tag (the JAX package's engine/placement.py),
-        which is not ported yet."""
-        if self.blackout_tag is not None:
-            raise NotImplementedError(
-                "FaultPlan blackout_tag: the blackout kind needs placement "
-                "tags (engine/placement.py), not ported to the torch "
-                "package yet (ROADMAP A6b)")
-        return self
 
     def _matches(self, name: str) -> bool:
         """``pattern`` is ``|``-alternated globs — chaos schedules

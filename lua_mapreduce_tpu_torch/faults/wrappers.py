@@ -142,7 +142,7 @@ class FaultyStore(Store):
 
     def __init__(self, inner: Store, plan: FaultPlan):
         self._inner = inner
-        self._plan = plan.check_supported()
+        self._plan = plan
 
     def _gate(self, op: str, name: str) -> None:
         kind = self._plan.decide(op, name)
@@ -399,7 +399,7 @@ class FaultyJobStore(_JobStoreProxy):
 
     def __init__(self, inner, plan: FaultPlan):
         super().__init__(inner)
-        self._plan = plan.check_supported()
+        self._plan = plan
 
 
 class RetryingJobStore(_JobStoreProxy):
@@ -478,8 +478,6 @@ def install_fault_plan(plan: Optional[FaultPlan]) -> None:
     stores built by the router and new engine wrappers pick it up; the
     chaos suite installs per-test and clears in a finally."""
     global _installed_plan, _plan_generation
-    if plan is not None:
-        plan.check_supported()
     with _plan_lock:
         _installed_plan = plan
         _plan_generation += 1
@@ -500,8 +498,7 @@ def active_plan() -> Optional[FaultPlan]:
     with _plan_lock:
         plan = _env_plans.get(spec)
         if plan is None:
-            plan = _env_plans[spec] = \
-                FaultPlan.from_spec(spec).check_supported()
+            plan = _env_plans[spec] = FaultPlan.from_spec(spec)
         return plan
 
 

@@ -115,13 +115,16 @@ def _set_value(kw):
     return {int: ["3"], float: ["2.5"]}.get(kw.get("type"), ["x"])
 
 
-# flags of the JAX launchers this slice ported: the cases keep their ids
-# and now hold that the flag parses and is accepted
+# flags of the JAX launchers the port runs: each parses and is accepted
 _PORTED_SERVER = (
     ("--pipeline", dict(action="store_true")),
     ("--premerge-min-runs", dict(type=int, default=4)),
     ("--premerge-max-runs", dict(type=int, default=8)),
     ("--segment-format", dict(choices=("v1", "v2"), default="v1")),
+    ("--replication", dict(type=int, default=None)),
+    ("--coding", dict(type=str, default=None)),
+    ("--push", dict(action="store_true", default=None)),
+    ("--push-budget-mb", dict(type=float, default=None)),
     ("--store-retries", dict(type=int, default=None)),
     ("--retry-base-ms", dict(type=float, default=None)),
     ("--trace", dict(action="store_true")),
@@ -129,6 +132,10 @@ _PORTED_SERVER = (
 )
 _PORTED_WORKER = (
     ("--segment-format", dict(choices=("v1", "v2"), default=None)),
+    ("--replication", dict(type=int, default=None)),
+    ("--coding", dict(type=str, default=None)),
+    ("--push", dict(action="store_true", default=None)),
+    ("--push-budget-mb", dict(type=float, default=None)),
     ("--store-retries", dict(type=int, default=None)),
     ("--retry-base-ms", dict(type=float, default=None)),
     ("--trace", dict(action="store_true")),
@@ -136,36 +143,43 @@ _PORTED_WORKER = (
 )
 
 
-def _check_flag(module, ported, flag, kw, args):
-    if flag in dict(ported):
-        p = module.build_parser()
-        ns = p.parse_args(args)
-        module.reject_trimmed(p, ns, module.TRIMMED)
-        assert getattr(ns, execute_server._dest(flag)) != \
-            p.get_default(execute_server._dest(flag))
-        return
-    with pytest.raises(NotImplementedError, match=f"{flag}.*A6b"):
-        module.main(args)
+def _check_ported(module, flag, args):
+    p = module.build_parser()
+    ns = p.parse_args(args)
+    module.reject_trimmed(p, ns, module.TRIMMED)
+    assert getattr(ns, execute_server._dest(flag)) != \
+        p.get_default(execute_server._dest(flag))
 
 
 @pytest.mark.parametrize("flag,kw", [(f, kw) for f, kw, *_ in
-                                     execute_server.TRIMMED
-                                     + _PORTED_SERVER],
-                         ids=[f for f, *_ in execute_server.TRIMMED
-                              + _PORTED_SERVER])
+                                     execute_server.TRIMMED],
+                         ids=[f for f, *_ in execute_server.TRIMMED])
 def test_every_trimmed_server_flag_raises(flag, kw):
-    args = ["mem", "a", "b", "c", "d", flag, *_set_value(kw)]
-    _check_flag(execute_server, _PORTED_SERVER, flag, kw, args)
+    with pytest.raises(NotImplementedError, match=f"{flag}.*A6b"):
+        execute_server.main(["mem", "a", "b", "c", "d", flag,
+                             *_set_value(kw)])
+
+
+@pytest.mark.parametrize("flag,kw", _PORTED_SERVER,
+                         ids=[f for f, _ in _PORTED_SERVER])
+def test_every_ported_server_flag_is_accepted(flag, kw):
+    _check_ported(execute_server, flag,
+                  ["mem", "a", "b", "c", "d", flag, *_set_value(kw)])
 
 
 @pytest.mark.parametrize("flag,kw", [(f, kw) for f, kw, *_ in
-                                     execute_worker.TRIMMED
-                                     + _PORTED_WORKER],
-                         ids=[f for f, *_ in execute_worker.TRIMMED
-                              + _PORTED_WORKER])
+                                     execute_worker.TRIMMED],
+                         ids=[f for f, *_ in execute_worker.TRIMMED])
 def test_every_trimmed_worker_flag_raises(flag, kw, tmp_path):
-    _check_flag(execute_worker, _PORTED_WORKER, flag, kw,
-                [str(tmp_path), flag, *_set_value(kw)])
+    with pytest.raises(NotImplementedError, match=f"{flag}.*A6b"):
+        execute_worker.main([str(tmp_path), flag, *_set_value(kw)])
+
+
+@pytest.mark.parametrize("flag,kw", _PORTED_WORKER,
+                         ids=[f for f, _ in _PORTED_WORKER])
+def test_every_ported_worker_flag_is_accepted(flag, kw, tmp_path):
+    _check_ported(execute_worker, flag,
+                  [str(tmp_path), flag, *_set_value(kw)])
 
 
 def test_trimmed_flags_at_their_off_value_pass():

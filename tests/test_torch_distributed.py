@@ -659,18 +659,22 @@ def test_loop_state_frame_round_trips_and_refuses_damage():
 
 @pytest.mark.parametrize("option,value", [
     ("pipeline", True), ("push", True), ("replication", 2),
-    ("coding", "4+1"), ("speculation", 2.0), ("autotune", True),
-    ("ha", True), ("segment_format", "v2"), ("lease_ttl_s", 5.0),
-    ("premerge_min_runs", 2)])
-def test_trimmed_server_options_raise(option, value):
-    if option in ("pipeline", "segment_format", "premerge_min_runs"):
-        # ported options: the cases keep their ids and hold that the
-        # server takes the value
+    ("coding", "4+1"), ("segment_format", "v2"), ("premerge_min_runs", 2)])
+def test_ported_server_options_are_taken(option, value):
+    if option == "coding":
+        # the server's unified redundancy value is the Coding
+        assert str(Server(MemJobStore(), coding=value).replication) == value
+    else:
         assert getattr(Server(MemJobStore(), **{option: value}),
                        option) == value
-    else:
-        with pytest.raises(NotImplementedError, match="A6b"):
-            Server(MemJobStore(), **{option: value})
+
+
+@pytest.mark.parametrize("option,value", [
+    ("speculation", 2.0), ("autotune", True), ("ha", True),
+    ("lease_ttl_s", 5.0)])
+def test_trimmed_server_options_raise(option, value):
+    with pytest.raises(NotImplementedError, match="A6b"):
+        Server(MemJobStore(), **{option: value})
     with pytest.raises(TypeError, match="bogus"):
         Server(MemJobStore(), bogus=1)
 
@@ -684,40 +688,55 @@ def test_server_accepts_trimmed_options_at_their_off_value():
 
 @pytest.mark.parametrize("option,value", [
     ("segment_format", "v2"), ("replication", 2), ("coding", "4+1"),
-    ("idle_poll_ms", 50.0), ("push", True), ("push_budget_mb", 8.0)])
-def test_trimmed_worker_options_raise(option, value):
+    ("push", True), ("push_budget_mb", 8.0)])
+def test_ported_worker_options_are_taken(option, value):
+    """The worker takes the value, and refuses an unknown format or a
+    bad redundancy value at configure time."""
     w = Worker(MemJobStore())
+    assert getattr(w.configure(**{option: value}), option) == value
     if option == "segment_format":
-        # ported: the case keeps its id and holds that the worker takes
-        # the value and refuses an unknown format
-        assert w.configure(**{option: value}).segment_format == value
         with pytest.raises(ValueError, match="v3"):
             w.configure(segment_format="v3")
-    else:
-        with pytest.raises(NotImplementedError, match="A6b"):
-            w.configure(**{option: value})
+    if option in ("replication", "coding"):
+        with pytest.raises(ValueError):
+            w.configure(**{option: "0+2"})
     w.configure(**{option: None})
 
 
-@pytest.mark.parametrize("key,value", [
-    ("pipeline", True), ("push", True), ("segment_format", "v2"),
-    ("replication", 2), ("coding", "4+1"), ("speculation", 1.5),
-    ("autotune", True)])
-def test_worker_refuses_a_task_doc_deploying_a_trimmed_plane(key, value):
-    """A task document from a JAX-package server that deploys a plane
-    the port does not run: the port worker raises instead of running a
-    different task."""
+@pytest.mark.parametrize("option,value", [("idle_poll_ms", 50.0)])
+def test_trimmed_worker_options_raise(option, value):
+    w = Worker(MemJobStore())
+    with pytest.raises(NotImplementedError, match="A6b"):
+        w.configure(**{option: value})
+    w.configure(**{option: None})
+
+
+def _task_doc_store(key, value):
     store = MemJobStore()
     store.put_task({"_id": "unique", "status": TaskStatus.MAP.value,
                     "iteration": 1, key: value,
                     "spec": _spec("mem:tdist-doc").describe()})
-    if key in ("pipeline", "segment_format"):
-        # ported planes: the cases keep their ids and hold that the
-        # worker runs the document (nothing to claim yet: idle)
-        assert Worker(store).poll_once() == "idle"
-        return
+    return store
+
+
+@pytest.mark.parametrize("key,value", [
+    ("pipeline", True), ("push", True), ("segment_format", "v2"),
+    ("replication", 2), ("coding", "4+1")])
+def test_worker_runs_a_task_doc_deploying_a_ported_plane(key, value):
+    """A task document from a JAX-package server that deploys a plane
+    the port runs: the port worker takes it (nothing to claim yet:
+    idle)."""
+    assert Worker(_task_doc_store(key, value)).poll_once() == "idle"
+
+
+@pytest.mark.parametrize("key,value", [
+    ("speculation", 1.5), ("autotune", True)])
+def test_worker_refuses_a_task_doc_deploying_a_trimmed_plane(key, value):
+    """A task document from a JAX-package server that deploys a plane
+    the port does not run: the port worker raises instead of running a
+    different task."""
     with pytest.raises(NotImplementedError, match="A6b"):
-        Worker(store).poll_once()
+        Worker(_task_doc_store(key, value)).poll_once()
 
 
 @pytest.mark.skipif(torch.cuda.is_available(),

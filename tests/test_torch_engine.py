@@ -97,31 +97,31 @@ def test_wordcount_results_byte_identical_to_jax(tmp_path, config, backend):
     assert get_storage_from(port_spec).list("result.P*.M*") == []
 
 
-# options of the JAX executor this slice ported (pipelined shuffle, v2
-# spills): the cases keep their ids and now hold that the option runs,
-# byte-equal to the barrier v1 run; the rest still raise, naming A6b
-_PORTED_OPTIONS = ("pipeline", "segment_format")
-
-
 @pytest.mark.parametrize("option,value", [
     ("pipeline", True), ("push", True), ("replication", 2),
-    ("coding", "4+1"), ("autotune", True),
-    # every engine is implemented now (tests/test_torch_ingraph.py): the
-    # case, under its old id, holds that a value naming none (here the
-    # oracle's verdict string in place of the engine's name) raises
-    pytest.param("engine", "in-graph", id="engine-ingraph"),
-    ("segment_format", "v2"), ("push_budget_mb", 4.0),
-])
-def test_unimplemented_executor_options_raise(option, value):
+    ("coding", "4+1"), ("segment_format", "v2"), ("push_budget_mb", 4.0)])
+def test_ported_executor_options_match_barrier(option, value):
+    """Each option of the JAX executor the port runs publishes the same
+    result bytes as the barrier v1 run."""
     tag = f"torch-opts-{option}"
     spec = TaskSpec(init_args={"files": CORPUS[:3]},
                     storage=f"mem:{tag}", **CONFIGS["combiner"])
-    if option in _PORTED_OPTIONS:
-        LocalExecutor(spec, engine="store").run()
-        want = _result_files(get_storage_from(f"mem:{tag}"))
-        LocalExecutor(spec, engine="store", **{option: value}).run()
-        assert want and _result_files(get_storage_from(f"mem:{tag}")) == want
-        return
+    LocalExecutor(spec, engine="store").run()
+    want = _result_files(get_storage_from(f"mem:{tag}"))
+    LocalExecutor(spec, engine="store", **{option: value}).run()
+    assert want and _result_files(get_storage_from(f"mem:{tag}")) == want
+
+
+@pytest.mark.parametrize("option,value", [
+    ("autotune", True),
+    # every engine is implemented now (tests/test_torch_ingraph.py): a
+    # value naming none (here the oracle's verdict string in place of
+    # the engine's name) raises
+    pytest.param("engine", "in-graph", id="engine-ingraph"),
+])
+def test_unimplemented_executor_options_raise(option, value):
+    spec = TaskSpec(init_args={"files": CORPUS[:3]},
+                    storage=f"mem:torch-opts-{option}", **CONFIGS["combiner"])
     if option == "engine":
         with pytest.raises(ValueError, match=option):
             LocalExecutor(spec, **{option: value})

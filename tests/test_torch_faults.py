@@ -4,8 +4,8 @@ seeded rng, ``FaultPlan`` decisions over a grid of (op, name,
 occurrence), deterministic injection, build readback-verify, the
 worker's release-not-broken discrimination, and the counters folded
 into ``IterationStats``. Counterparts of ``tests/test_faults.py``; its
-replica, blackout and scavenger tests wait on a later slice (ROADMAP
-A6b)."""
+replica, blackout and scavenger tests have theirs in
+``tests/test_torch_replicate.py``."""
 
 import errno
 import random
@@ -123,21 +123,63 @@ def test_rpc_ops_name_only_existing_jobstore_methods():
             getattr(store, op)(*args)
 
 
-def test_blackout_plan_parses_and_is_refused():
+def test_blackout_plan_matches_jax():
+    """The blackout kind is ported: the plan parses as JAX's does, a
+    FaultyStore under it is no longer refused, and on a virtual clock
+    its decisions equal JAX's — the dark tag's data-plane ops fail
+    transient inside the window, uncapped, and nothing else does."""
+    from lua_mapreduce_tpu.engine.placement import tag_of as jax_tag_of
+    from lua_mapreduce_tpu_torch.engine.placement import (replica_name,
+                                                          tag_of)
     spec = "seed=5;blackout_tag=3;blackout_s=0.25;blackout_from_s=0.1"
     plan = FaultPlan.from_spec(spec)
     assert plan.to_spec() == JaxPlan.from_spec(spec).to_spec()
-    with pytest.raises(NotImplementedError, match="A6b"):
-        install_fault_plan(plan)
-    with pytest.raises(NotImplementedError, match="A6b"):
-        FaultyStore(MemStore(), plan)
+    raw = MemStore()
+    with raw.builder() as b:
+        b.write("x\n")
+        b.build("f")
+    assert FaultyStore(raw, plan).exists("f")
+    names = [f"ns.P{p}.M{m:08d}" for p in range(3) for m in range(12)]
+    names += [replica_name(n, 1) for n in names]
+    assert [tag_of(n) for n in names] == [jax_tag_of(n) for n in names]
+    for t, op in ((0.0, "read_range"), (0.1, "lines"), (0.2, "size"),
+                  (0.3, "exists"), (0.34, "remove"), (0.36, "build")):
+        clock = [0.0]
+        port = FaultPlan(7, blackout_tag=3, blackout_s=0.25,
+                         blackout_from_s=0.1, clock=lambda: clock[0],
+                         sleep=lambda s: None)
+        jax = JaxPlan(7, blackout_tag=3, blackout_s=0.25,
+                      blackout_from_s=0.1, clock=lambda: clock[0],
+                      sleep=lambda s: None)
+        for _ in range(3):          # uncapped inside the window
+            got = [port.decide(op, n) for n in names]
+            assert got == [jax.decide(op, n) for n in names]
+            clock[0] = t
+        assert port.fired == jax.fired
+        assert (port.fired.get("blackout", 0) > 0) == \
+            (op != "build" and 0.1 <= t < 0.35)
 
 
-def test_blackout_env_plan_is_refused(monkeypatch):
+def test_blackout_env_plan_darkens_tag(monkeypatch):
+    """An ``LMR_FAULT_PLAN`` blackout reaches every store the router
+    builds: a file on the dark tag is unreadable through it (the retry
+    budget exhausts on the uncapped transient), others read."""
+    from lua_mapreduce_tpu_torch.engine.placement import tag_of
+    names = [f"f{i}" for i in range(40)]
+    dark = next(n for n in names if tag_of(n) == 2)
+    lit = next(n for n in names if tag_of(n) != 2)
     monkeypatch.setenv("LMR_FAULT_PLAN", "seed=1;blackout_tag=2;"
-                                         "blackout_s=1")
-    with pytest.raises(NotImplementedError, match="A6b"):
-        get_storage_from("mem:_tfault_blackout")
+                                         "blackout_s=3600")
+    monkeypatch.setenv("LMR_RETRY_BASE_MS", "1")
+    store = get_storage_from("mem:_tfault_blackout")
+    raw = unwrap(store)
+    for n in (dark, lit):
+        with raw.builder() as b:
+            b.write("x\n")
+            b.build(n)
+    assert store.size(lit) == 2
+    with pytest.raises(TransientStoreError):
+        store.size(dark)
 
 
 # --- retry schedule on a virtual clock --------------------------------------
