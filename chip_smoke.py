@@ -204,7 +204,7 @@ Phases, each a hard failure on any mismatch:
              claim → body → commit span chain; ms/iteration beside phase
              21's; (b) word count at Europarl v7's shape (197 files of
              Zipf text from the seed, lines cut from 10,000 to
-             WC_LINES; printed) through ``cli.execute_server --pipeline
+             WC_LINES = 250; printed) through ``cli.execute_server --pipeline
              --segment-format v2 --trace --inline-workers 4`` on
              ``object:`` with the example's 15-way partitioner: counts
              equal to a naive count, result bytes equal to a barrier v1
@@ -237,12 +237,36 @@ Phases, each a hard failure on any mismatch:
              ``object:``: globally sorted, equal to a plain sort of the
              regenerated records and to a push-off barrier v1 run's
              bytes; records/s, push frames and evictions.
+26. native, speculation — the native C++ host plane and speculative
+             duplicate leases: (a) phase 21's digits task through
+             ``Server(FileJobStore(engine="native"), speculation=3.0)``
+             and two ``execute_worker`` processes on ``shared:`` (the
+             native index carries every claim, the native record merge
+             every reduce); in iteration 2 this process claims one map
+             job and never acts on it — the straggler detector opens a
+             duplicate lease, a worker's clone runs the map body on the
+             card and wins: files byte-equal to phase 21's
+             LocalExecutor, spec_launched ≥ 1, spec_wins ≥ 1, every job
+             at zero repetitions (no stale requeue), launches 5 B1 + 1
+             B2 per map body with the clone counted; (b) word count at
+             Europarl's published shape (197 files × 10,000 lines × 25
+             words from the seed, bigtask's split names) through
+             ``cli.execute_server.main`` with ``--pipeline
+             --inline-workers 4`` on ``shared:`` in a child process whose
+             native entry points are wrapped in counters: every index
+             the native one, every map native, every reduce the fused
+             native sum; counts equal a naive count; words/s beside
+             phase 24(b)'s, the corpus build timed apart; (c) 16 files ×
+             750 lines run natively and in a child with
+             ``LMR_DISABLE_NATIVE=1``: result bytes equal. (b) and (c)
+             launch no kernel (the device idles).
 
 Launch counts are zeroed just before each run of phases 4, 5, 6, 8, 10 and
-15-25 (the worker processes of phases 21, 24 and 25 start at zero) and
+15-26 (the worker processes of phases 21, 24, 25 and 26 start at zero) and
 read just after, and must equal the counts worked out from the code; a
 kernel of the paths with no launch there fails the run. The
-card's name and power limit, then one JSON line of per-kernel numbers,
+card's name and power limit (after a ``[time]`` line of seconds for each
+phase), then one JSON line of per-kernel numbers,
 then ``{"ok": true, "device": {...}}`` end the output; the full report
 is also written to ``chiprun_out/chip_smoke.json``. Exits non-zero
 without printing a result when CUDA is unavailable or the port cannot
@@ -250,6 +274,7 @@ be imported.
 """
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -3343,13 +3368,27 @@ def stop_workers(procs, timeout):
     return [p.returncode for p in procs]
 
 
-def naive_wordcount(paths):
-    counts = {}
+def _count_words(paths):
+    from collections import Counter
+    counts = Counter()
     for path in paths:
         with open(path) as f:
-            for word in f.read().split():
-                counts[word] = counts.get(word, 0) + 1
+            counts.update(f.read().split())
     return counts
+
+
+def naive_wordcount(paths):
+    """Whitespace-split word counts of ``paths``, in one process or, for
+    many files, a :func:`host_pool`."""
+    if len(paths) < 16:
+        return dict(_count_words(paths))
+    from collections import Counter
+    counts = Counter()
+    with host_pool() as pool:
+        for part in pool.map(_count_words, [paths[i::HOST_PROCS]
+                                            for i in range(HOST_PROCS)]):
+            counts.update(part)
+    return dict(counts)
 
 
 def phase_pool(torch, ops, sgd_params):
@@ -4299,40 +4338,72 @@ DP_FAULT_PLAN = ("seed=24;transient=0.04;torn=0.08;error_after_write=0.12;"
 # 197 files of ≤10,000 lines, ~25 words a line; here a Zipf vocabulary
 # (100,000 words, exponent 1.1) drawn from the seed, the example's
 # 15-way FNV partitioner. Pure-Python map and reduce threads share one
-# GIL: at 600 lines a file the pipelined CLI took 34.6 s and the barrier
-# reference 32.2 s on the H100 machine (0.11 s a line a file for both),
-# so the published 10,000 lines would take ~19 min; the lines are cut
-# to WC_LINES, which keeps this part near 90 s (printed as a cut).
-WC_FILES, WC_LINES_PUBLISHED, WC_LINES = 197, 10_000, 750
+# GIL (0.11 s a line a file on the H100 machine), so the published
+# 10,000 lines would take ~19 min here; the lines are cut to WC_LINES
+# (printed as a cut). Phase 26(b) runs the published shape through the
+# native C++ map and merges.
+WC_FILES, WC_LINES_PUBLISHED, WC_LINES = 197, 10_000, 250
 WC_WORDS_PER_LINE, WC_VOCAB, WC_ZIPF = 25, 100_000, 1.1
 WC_DEVICE = "cuda"          # the workers' device (the task asks for it)
 WC_MODULES = ("examples.wordcount.taskfn", "examples.wordcount.mapfn",
               "examples.wordcount.partitionfn", "examples.wordcount.reducefn")
 
 
-def europarl_corpus(root, n_files, lines, seed=0):
-    """``n_files`` text files of ``lines`` lines of WC_WORDS_PER_LINE
-    words drawn from a Zipf distribution over a seeded vocabulary."""
+HOST_PROCS = min(8, os.cpu_count() or 1)
+
+
+def host_pool():
+    """A pool of HOST_PROCS processes for the host-only set-up and
+    checks of phases 24(b) and 26(b)."""
+    import concurrent.futures
+    import multiprocessing
+    return concurrent.futures.ProcessPoolExecutor(
+        HOST_PROCS, mp_context=multiprocessing.get_context("spawn"))
+
+
+@functools.lru_cache(maxsize=2)
+def _vocabulary(seed):
+    """WC_VOCAB words of 2-11 seeded letters and a digit, and the Zipf
+    cdf over them."""
     import numpy as np
     rng = np.random.default_rng(seed)
-    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
-    words = ["".join(rng.choice(letters, n)) + str(i % 7)
-             for i, n in enumerate(rng.integers(2, 12, WC_VOCAB))]
+    lens = rng.integers(2, 12, WC_VOCAB)
+    chars = "".join(rng.choice(list("abcdefghijklmnopqrstuvwxyz"),
+                               int(lens.sum())))
+    ends = np.cumsum(lens)
+    words = [chars[e - n:e] + str(i % 7)
+             for i, (n, e) in enumerate(zip(lens.tolist(), ends.tolist()))]
     cdf = np.cumsum(1.0 / np.arange(1, WC_VOCAB + 1) ** WC_ZIPF)
-    cdf /= cdf[-1]
-    os.makedirs(root, exist_ok=True)
-    paths = []
+    return words, cdf / cdf[-1]
+
+
+def _write_split(args):
+    """One corpus file: its words drawn from the file's own stream
+    ``(seed, f)``, so the files can be written in any order."""
+    import numpy as np
+    root, f, lines, seed, name = args
+    words, cdf = _vocabulary(seed)
     w = WC_WORDS_PER_LINE
-    for f in range(n_files):
-        ids = np.minimum(np.searchsorted(cdf, rng.random(lines * w)),
-                         WC_VOCAB - 1)
-        toks = [words[i] for i in ids]
-        path = os.path.join(root, f"europarl-{f:03d}.txt")
-        with open(path, "w") as fh:
-            fh.write("\n".join(" ".join(toks[i:i + w])
-                               for i in range(0, len(toks), w)) + "\n")
-        paths.append(path)
-    return paths
+    ids = np.minimum(np.searchsorted(
+        cdf, np.random.default_rng([seed, f]).random(lines * w)),
+        WC_VOCAB - 1)
+    toks = [words[i] for i in ids]
+    path = os.path.join(root, name.format(f))
+    with open(path, "w") as fh:
+        fh.write("\n".join(" ".join(toks[i:i + w])
+                           for i in range(0, len(toks), w)) + "\n")
+    return path
+
+
+def europarl_corpus(root, n_files, lines, seed=0,
+                    name="europarl-{:03d}.txt"):
+    """``n_files`` text files of ``lines`` lines of WC_WORDS_PER_LINE
+    words drawn from a Zipf distribution over a seeded vocabulary,
+    named ``name.format(i)``, written by :func:`host_pool`."""
+    os.makedirs(root, exist_ok=True)
+    with host_pool() as pool:
+        return list(pool.map(_write_split, [(root, f, lines, seed, name)
+                                            for f in range(n_files)]))
 
 
 def result_bytes(spec):
@@ -4343,6 +4414,18 @@ def result_bytes(spec):
     st = get_storage_from(spec)
     return {n: st.read_range(n, 0, st.size(n)) for n in st.list("result.P*")
             if re.match(r"^result\.P\d+$", n)}
+
+
+def result_counts(res):
+    """A word count's ``{word: count}`` from its result files' bytes."""
+    from lua_mapreduce_tpu_torch.core.serialize import load_record
+    got = {}
+    for data in res.values():
+        for line in data.decode("utf-8").splitlines():
+            if line.strip():
+                k, v = load_record(line)
+                got[k] = v[0]
+    return got
 
 
 def dataplane_spec(root, **args):
@@ -4583,13 +4666,7 @@ def phase_dataplane(torch, ops, pool):
     if not got_res or got_res != result_bytes(f"object:{wc}/barrier"):
         raise AssertionError("pipelined v2 word count result files differ "
                              "from the barrier v1 run's")
-    from lua_mapreduce_tpu_torch.core.serialize import load_record
-    got = {}
-    for data in got_res.values():
-        for line in data.decode("utf-8").splitlines():
-            if line.strip():
-                k, v = load_record(line)
-                got[k] = v[0]
+    got = result_counts(got_res)
     t0 = time.perf_counter()
     naive = naive_wordcount(files)
     naive_s = time.perf_counter() - t0
@@ -4786,12 +4863,13 @@ def spawn_recovery_workers(base, name, plan=None, worker_args=(),
 
 
 def run_recovery_pool(torch, ops, base, workers, spec_of, server_kw,
-                      hook=None):
+                      hook=None, engine="auto"):
     """Phase 21's digits task through a ``Server(FileJobStore,
     **server_kw)`` and the part's two worker processes
     (:func:`spawn_recovery_workers`), every process under the part's
     fault plan. ``hook(raw_store, root)`` may instrument the
-    coordination store before the run. Returns what the gates read."""
+    coordination store before the run; ``engine`` is the server's
+    job-index engine. Returns what the gates read."""
     from lua_mapreduce_tpu_torch.coord.filestore import FileJobStore
     from lua_mapreduce_tpu_torch.core.constants import (MAP_NS, PRE_NS,
                                                         RED_NS)
@@ -4809,7 +4887,7 @@ def run_recovery_pool(torch, ops, base, workers, spec_of, server_kw,
         # store under the plan
         c0 = COUNTERS.snapshot()
         splan = active_plan()
-        raw = FileJobStore(coord)
+        raw = FileJobStore(coord, engine=engine)
         recording_jobs(raw, jobs)
         if hook is not None:
             hook(raw, root)
@@ -5144,6 +5222,244 @@ def phase_extsort(base):
     return res
 
 
+# ------------------------------------------------------------ phase 26
+#
+# (a) the pool with speculation: a straggler is a job RUNNING longer than
+# SPEC_FACTOR × the fleet's map-duration EWMA; the doomed claim lands in
+# iteration SPEC_ITER. (b) word count at Europarl's published shape on
+# the native map and merges; (c) the native/Python byte parity at a cut.
+SPEC_FACTOR, SPEC_ITER = 3.0, 2
+NATIVE_PARITY_FILES, NATIVE_PARITY_LINES = 16, 750
+BIGTASK = "examples/wordcount_big/bigtask"
+
+
+def native_wordcount_child(argv, report):
+    """Run ``cli.execute_server.main(argv)`` in this process with the
+    native entry points wrapped in counters (the index engine of every
+    index opened, every native map and every fused native sum or
+    pre-merge that served its job), and write the counts to ``report``.
+    Run as a child: ``python -c "import chip_smoke;
+    chip_smoke.native_wordcount_child(...)"``."""
+    from lua_mapreduce_tpu_torch.cli import execute_server
+    from lua_mapreduce_tpu_torch.coord import filestore
+    from lua_mapreduce_tpu_torch.core import native_wcmap
+    from lua_mapreduce_tpu_torch.engine import job
+    counts = {"index": {}, "map": [0, 0], "sum": [0, 0], "premerge": [0, 0]}
+
+    def wrap(mod, name, key):
+        real = getattr(mod, name)
+
+        def counted(*a, **k):
+            ok = real(*a, **k)
+            counts[key][0 if ok else 1] += 1
+            return ok
+        setattr(mod, name, counted)
+    wrap(native_wcmap, "run_native_map", "map")
+    wrap(job, "native_merge_reduce_sum", "sum")
+    wrap(job, "native_premerge", "premerge")
+    real_open = filestore.open_index
+
+    def open_index(path, engine="auto"):
+        ix = real_open(path, engine)
+        kind = type(ix).__name__
+        counts["index"][kind] = counts["index"].get(kind, 0) + 1
+        return ix
+    filestore.open_index = open_index
+    t0 = time.perf_counter()
+    rc = execute_server.main(argv)
+    with open(report, "w") as f:
+        json.dump({"rc": rc, "seconds": time.perf_counter() - t0,
+                   "counts": counts}, f)
+
+
+def run_wordcount_child(root, corpus, n_files, env_extra=None):
+    """bigtask over ``corpus`` through the CLI in a child process
+    (:func:`native_wordcount_child`), pipelined, four inline workers,
+    the task on the card, ``shared:`` spill; returns (report, seconds
+    with the process start, result bytes by name)."""
+    argv = [os.path.join(root, "coord"), BIGTASK, BIGTASK, BIGTASK, BIGTASK,
+            "--storage", f"shared:{root}/spill",
+            "--init-arg", f"corpus_dir={corpus}",
+            "--init-arg", f"n_splits={n_files}",
+            "--init-arg", f"device={WC_DEVICE}",
+            "--inline-workers", "4", "--pipeline", "--engine", "store",
+            "--poll", str(POOL_POLL_S), "--quiet"]
+    report = os.path.join(root, "child.json")
+    code = (f"import chip_smoke; chip_smoke.native_wordcount_child("
+            f"{argv!r}, {report!r})")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(subprocess_env(), **(env_extra or {})),
+                         capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    if out.returncode:
+        raise AssertionError(f"word count child exited {out.returncode}:\n"
+                             f"{out.stderr[-3000:]}")
+    rep = json.load(open(report))
+    if rep["rc"]:
+        raise AssertionError(f"execute_server returned {rep['rc']}")
+    return rep, secs, result_bytes(f"shared:{root}/spill")
+
+
+def phase_native(torch, ops, pool, dataplane):
+    """The native C++ host plane and speculative duplicate leases on the
+    card (module docstring, phase 26)."""
+    import shutil
+
+    from lua_mapreduce_tpu_torch.coord.idx import NativeJobIndex
+    from lua_mapreduce_tpu_torch.core.constants import MAP_NS
+    base = os.path.join(REPO, "build", "smoke-native")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    want_bytes = task_bytes(os.path.join(REPO, "build", "smoke-pool",
+                                         "local"))
+    rep, runs = {}, []
+
+    # (a) speculation over the native index: a doomed claim in iteration
+    # SPEC_ITER, right after the server inserts the map jobs and before
+    # it opens the phase, so no worker can take that job first
+    doomed = {}
+
+    def doom_one(raw, root):
+        insert = raw.insert_jobs
+
+        def insert_jobs(ns, docs):
+            ids = insert(ns, docs)
+            it = int((raw.get_task() or {}).get("iteration", 0))
+            if ns == MAP_NS and it == SPEC_ITER and not doomed:
+                got = raw.claim_batch(MAP_NS, "doomed", 1)
+                doomed.update(job=got[0]["_id"], at=time.time())
+            return ids
+        raw.insert_jobs = insert_jobs
+        if not isinstance(raw._idx(MAP_NS), NativeJobIndex):
+            raise AssertionError("FileJobStore(engine='native') opened "
+                                 f"{type(raw._idx(MAP_NS)).__name__}")
+
+    t_a = time.perf_counter()
+    workers = spawn_recovery_workers(base, "spec")
+    try:
+        run = run_recovery_pool(torch, ops, base, workers, digits_pool_spec,
+                                dict(speculation=SPEC_FACTOR),
+                                hook=doom_one, engine="native")
+    finally:
+        stop_workers(workers["procs"], 0)
+    bodies, wc = hold_recovery_run(ops, "(a) speculation", run, want_bytes,
+                                   lambda r: f"shared:{r}/spill")
+    c = run["counters"]
+    reps = {(d["ns"], d["_id"]): d.get("repetitions") or 0
+            for d in run["jobs"]}
+    if not doomed or c.get("spec_launched", 0) < 1 \
+            or c.get("spec_wins", 0) < 1 or any(reps.values()):
+        raise AssertionError(
+            f"(a) speculation: doomed {doomed}, counters "
+            f"{ {k: c.get(k, 0) for k in ('spec_launched', 'spec_wins', 'spec_cancelled')} }"
+            f", repetitions {[k for k, v in reps.items() if v]}")
+    runs += [wc, run["server_counts"]]
+    its = run["stats"].iterations
+    walls = [1e3 * i.wall_time for i in its]
+    rep["speculation"] = {
+        "factor": SPEC_FACTOR, "doomed_iteration": SPEC_ITER,
+        "doomed_job": doomed["job"], "map_bodies": bodies,
+        "counters": {k: c.get(k, 0) for k in (
+            "spec_launched", "spec_wins", "spec_cancelled",
+            "spec_wasted_s")},
+        "iteration_ms": walls,
+        "ms_per_iteration": sum(walls[1:]) / (len(walls) - 1),
+        "phase21_pool_ms_per_iteration": pool["digits"]["ms_per_iteration"],
+        "seconds": time.perf_counter() - t_a,
+        "launches_workers": wc, "launches_server": run["server_counts"]}
+    a = rep["speculation"]
+    log(f"[native] (a) digits pool on the native index, speculation "
+        f"{SPEC_FACTOR:g}, shared:: map job {doomed['job']} of iteration "
+        f"{SPEC_ITER} claimed and abandoned; detector opened "
+        f"{a['counters']['spec_launched']} duplicate lease(s), clones won "
+        f"{a['counters']['spec_wins']}, cancelled "
+        f"{a['counters']['spec_cancelled']}; every job at 0 repetitions; "
+        f"files byte-equal to phase 21's LocalExecutor; {bodies} map "
+        f"bodies (clones counted): launches workers {wc}, server "
+        f"{run['server_counts']}")
+    log(f"[native] (a) {a['ms_per_iteration']:.1f} ms/iteration after the "
+        f"first (iteration {SPEC_ITER}: {walls[SPEC_ITER - 1]:.1f} ms); "
+        f"phase 21's pool {a['phase21_pool_ms_per_iteration']:.1f} "
+        f"ms/iteration")
+
+    # (b) Europarl's published shape on the native paths
+    wc_root = os.path.join(base, "wordcount")
+    corpus = os.path.join(wc_root, "corpus")
+    t0 = time.perf_counter()
+    files = europarl_corpus(corpus, WC_FILES, WC_LINES_PUBLISHED,
+                            name="split{:03d}.txt")
+    corpus_s = time.perf_counter() - t0
+    child, cli_s, res = run_wordcount_child(wc_root, corpus, WC_FILES)
+    t0 = time.perf_counter()
+    naive = naive_wordcount(files)
+    naive_s = time.perf_counter() - t0
+    got = result_counts(res)
+    n = child["counts"]
+    n_red = 15                          # bigtask's NUM_REDUCERS
+    if got != naive or n["map"] != [WC_FILES, 0] \
+            or n["sum"] != [n_red, 0] or set(n["index"]) != {
+                "NativeJobIndex"}:
+        raise AssertionError(
+            f"(b) word count: counts equal {got == naive}, native map "
+            f"[served, refused] {n['map']}, fused sum {n['sum']}, "
+            f"pre-merge {n['premerge']}, index engines {n['index']}")
+    n_words = sum(naive.values())
+    dp_wc = dataplane["wordcount"]
+    rep["wordcount"] = {
+        "files": WC_FILES, "lines_per_file": WC_LINES_PUBLISHED,
+        "words": n_words, "distinct_words": len(naive),
+        "partitions": len(res), "corpus_s": corpus_s, "cli_s": cli_s,
+        "main_s": child["seconds"], "naive_s": naive_s,
+        "words_per_s": n_words / cli_s,
+        "native": n,
+        "phase24_words_per_s": dp_wc["words"] / dp_wc["cli_s"]}
+    b = rep["wordcount"]
+    log(f"[native] (b) word count at Europarl's published shape: "
+        f"{WC_FILES} files x {WC_LINES_PUBLISHED} lines x "
+        f"{WC_WORDS_PER_LINE} words = {n_words} words ({len(naive)} "
+        f"distinct), corpus built in {corpus_s:.2f} s (apart); "
+        f"execute_server --pipeline --inline-workers 4 on shared:, every "
+        f"index native ({n['index']}), native maps {n['map'][0]}/"
+        f"{WC_FILES}, fused native sums {n['sum'][0]}/{n_red}, native "
+        f"pre-merges {n['premerge'][0]} (refused {n['premerge'][1]}); "
+        f"counts equal the naive count ({naive_s:.2f} s)")
+    log(f"[native] (b) {cli_s:.2f} s through the CLI with the process "
+        f"start ({child['seconds']:.2f} s in main): "
+        f"{b['words_per_s'] / 1e6:.2f} M words/s; phase 24(b)'s Python "
+        f"path {b['phase24_words_per_s'] / 1e3:.1f} K words/s at "
+        f"{WC_LINES} lines a file; no kernel: the device idles")
+
+    # (c) the native bytes equal the Python bytes at a cut
+    par = os.path.join(base, "parity")
+    pcorpus = os.path.join(par, "corpus")
+    europarl_corpus(pcorpus, NATIVE_PARITY_FILES, NATIVE_PARITY_LINES,
+                    seed=1, name="split{:03d}.txt")
+    nat, nat_s, nat_res = run_wordcount_child(
+        os.path.join(par, "native"), pcorpus, NATIVE_PARITY_FILES)
+    py, py_s, py_res = run_wordcount_child(
+        os.path.join(par, "python"), pcorpus, NATIVE_PARITY_FILES,
+        {"LMR_DISABLE_NATIVE": "1"})
+    nn, pn = nat["counts"], py["counts"]
+    if not nat_res or nat_res != py_res \
+            or nn["map"] != [NATIVE_PARITY_FILES, 0] \
+            or pn["map"][0] or pn["sum"][0] or pn["premerge"][0] \
+            or set(pn["index"]) != {"PyJobIndex"}:
+        raise AssertionError(
+            f"(c) parity: bytes equal {nat_res == py_res}, native counts "
+            f"{nn}, python counts {pn}")
+    rep["parity"] = {"files": NATIVE_PARITY_FILES,
+                     "lines_per_file": NATIVE_PARITY_LINES,
+                     "partitions": len(nat_res), "native_s": nat_s,
+                     "python_s": py_s, "native": nn, "python": pn}
+    log(f"[native] (c) {NATIVE_PARITY_FILES} files x "
+        f"{NATIVE_PARITY_LINES} lines: native run ({nat_s:.2f} s) and "
+        f"LMR_DISABLE_NATIVE=1 run ({py_s:.2f} s, Python index, map and "
+        f"merges) give byte-equal result files ({len(nat_res)} "
+        f"partitions)")
+    return runs, rep
+
+
 def glob_files(root, pattern):
     import glob
     return sorted(glob.glob(os.path.join(root, pattern)))
@@ -5178,6 +5494,16 @@ def main():
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+
+    phase_s = {}
+
+    def clock(name, fn, *args):
+        """Run one phase and print its seconds."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        log(f"[time] {name}: {phase_s[name]:.1f} s")
+        return out
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = (phase_kernels(torch, ops, gen) + phase_serving_kernels(torch, gen)
@@ -5219,34 +5545,43 @@ def main():
         log(f"[kernel] {cfg} conv step's products (x per-step counts): "
             f"torch.matmul {tot['library_ms']:.4f} ms "
             f"({tot['ms'] / tot['library_ms']:.2f}x)")
-    grads = phase_grads(torch, ops, gen)
-    digits_counts, val, _ = phase_digits(torch, ops)
-    wide_counts, wide = phase_wide(torch, ops, gen)
-    serving = phase_serving(torch, ops)
-    check = phase_serving_check(torch, ops)
-    conv = phase_conv(torch, ops, gen)
-    conv_check = phase_conv_check(torch, ops)
-    lm = phase_lm_train(torch, ops)
-    lm_check = phase_lm_check(torch, ops)
-    train_lm = phase_train_lm(torch, ops)
-    digits_e2e = phase_digits_e2e(torch)
-    resume = phase_resume(torch)
-    kmeans_counts, kmeans = phase_kmeans(torch, ops)
-    als_counts, als = phase_als(torch, ops)
-    dp_counts, dp = phase_dp_train(torch, ops, gen)
-    executor_counts, executor = phase_executor(torch, ops)
-    ingraph_counts, ingraph, sgd_params = phase_ingraph(torch, ops)
-    hybrid_counts, hybrid_cache = phase_hybrid_cache(torch, ops)
-    pool_counts, pool = phase_pool(torch, ops, sgd_params)
-    mesh = lm_mesh(torch)
-    moe_train = phase_moe_train(torch, ops, mesh)
-    moe_serve = phase_moe_serve(torch, ops)
-    moe_check = phase_moe_check(torch, ops, mesh)
-    meshes = tp_pp_meshes(torch)
-    tp_pp = phase_tp_pp_train(torch, ops, meshes, mesh, lm)
-    tp_pp_check = phase_tp_pp_check(torch, ops, meshes, mesh)
-    dataplane_counts, dataplane = phase_dataplane(torch, ops, pool)
-    recovery_counts, recovery = phase_recovery(torch, ops)
+    grads = clock("phase_grads", phase_grads, torch, ops, gen)
+    digits_counts, val, _ = clock("phase_digits", phase_digits, torch, ops)
+    wide_counts, wide = clock("phase_wide", phase_wide, torch, ops, gen)
+    serving = clock("phase_serving", phase_serving, torch, ops)
+    check = clock("phase_serving_check", phase_serving_check, torch, ops)
+    conv = clock("phase_conv", phase_conv, torch, ops, gen)
+    conv_check = clock("phase_conv_check", phase_conv_check, torch, ops)
+    lm = clock("phase_lm_train", phase_lm_train, torch, ops)
+    lm_check = clock("phase_lm_check", phase_lm_check, torch, ops)
+    train_lm = clock("phase_train_lm", phase_train_lm, torch, ops)
+    digits_e2e = clock("phase_digits_e2e", phase_digits_e2e, torch)
+    resume = clock("phase_resume", phase_resume, torch)
+    kmeans_counts, kmeans = clock("phase_kmeans", phase_kmeans, torch, ops)
+    als_counts, als = clock("phase_als", phase_als, torch, ops)
+    dp_counts, dp = clock("phase_dp_train", phase_dp_train, torch, ops, gen)
+    executor_counts, executor = clock("phase_executor", phase_executor,
+                                      torch, ops)
+    ingraph_counts, ingraph, sgd_params = clock("phase_ingraph", phase_ingraph,
+                                                torch, ops)
+    hybrid_counts, hybrid_cache = clock(
+        "phase_hybrid_cache", phase_hybrid_cache, torch, ops)
+    pool_counts, pool = clock("phase_pool", phase_pool, torch, ops, sgd_params)
+    mesh = clock("lm_mesh", lm_mesh, torch)
+    moe_train = clock("phase_moe_train", phase_moe_train, torch, ops, mesh)
+    moe_serve = clock("phase_moe_serve", phase_moe_serve, torch, ops)
+    moe_check = clock("phase_moe_check", phase_moe_check, torch, ops, mesh)
+    meshes = clock("tp_pp_meshes", tp_pp_meshes, torch)
+    tp_pp = clock("phase_tp_pp_train", phase_tp_pp_train,
+                  torch, ops, meshes, mesh, lm)
+    tp_pp_check = clock("phase_tp_pp_check", phase_tp_pp_check,
+                        torch, ops, meshes, mesh)
+    dataplane_counts, dataplane = clock("phase_dataplane", phase_dataplane,
+                                        torch, ops, pool)
+    recovery_counts, recovery = clock("phase_recovery", phase_recovery,
+                                      torch, ops)
+    native_counts, native = clock("phase_native", phase_native,
+                                  torch, ops, pool, dataplane)
     runs = ([digits_counts, wide_counts]
             + [serving[t]["launches"] for t in serving]
             + [conv[m]["launches"] for m in conv]
@@ -5256,7 +5591,7 @@ def main():
             + [moe_train["launches"]]
             + [moe_serve[t]["launches"] for t in moe_serve]
             + [tp_pp[t]["launches"] for t in ("2d_mesh", "3d", "pp")]
-            + dataplane_counts + recovery_counts)
+            + dataplane_counts + recovery_counts + native_counts)
     launches = {k: sum(c[k] for c in runs) for k in ops.KERNELS}
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
@@ -5294,8 +5629,8 @@ def main():
         "moe_train": moe_train, "moe_serving": moe_serve,
         "moe_check": moe_check, "tp_pp_train": tp_pp,
         "tp_pp_check": tp_pp_check, "dataplane": dataplane,
-        "recovery": recovery,
-        "kernels": kernels,
+        "recovery": recovery, "native": native,
+        "kernels": kernels, "phase_seconds": phase_s,
         "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -12,7 +12,8 @@ coordination spec, then the user-function module names, then storage.
         [--result-ns NS] [--init-arg K=V ...] [--inline-workers N] \\
         [--pipeline [--premerge-min-runs N] [--premerge-max-runs N]] \\
         [--segment-format v1|v2] [--replication R | --coding K+M] \\
-        [--push [--push-budget-mb MB]] [--store-retries N] \\
+        [--push [--push-budget-mb MB]] [--speculation-factor F \\
+        [--speculation-cap N]] [--store-retries N] \\
         [--retry-base-ms MS] [--trace] [--profile DIR]
 
 COORD_DIR is the shared job-store directory (the connection-string
@@ -28,12 +29,14 @@ profile, and with ``--trace`` the span names appear in it.
 from the survivors, and a file with no readable copy left has its
 producing map re-run); ``--push`` runs the push shuffle, with
 ``--push-budget-mb`` bounding the inline workers' buffers. All are
-written to the task document for the fleet.
+written to the task document for the fleet. ``--speculation-factor F``
+gives a straggler (a job RUNNING longer than F × the fleet's duration
+EWMA) a speculative duplicate lease, at most ``--speculation-cap`` live
+clones per namespace; the first commit wins.
 
 The JAX launcher's flags for planes the port does not run yet
-(``--speculation-factor``, ``--autotune``, ``--ha``,
-``--idle-poll-ms``, ...) parse, and raise NotImplementedError when set
-(ROADMAP A6b).
+(``--autotune``, ``--ha``, ``--idle-poll-ms``, ...) parse, and raise
+NotImplementedError when set (ROADMAP A6b).
 """
 
 from __future__ import annotations
@@ -66,8 +69,6 @@ def parse_init_args(pairs) -> dict:
 # keywords[, other values meaning "off"]) — any value other than the
 # default or those raises in main()
 TRIMMED = (
-    ("--speculation-factor", dict(type=float, default=None), (0.0,)),
-    ("--speculation-cap", dict(type=int, default=2)),
     ("--idle-poll-ms", dict(type=float, default=None)),
     ("--autotune", dict(action="store_true", default=None)),
     ("--autotune-max-workers", dict(type=int, default=None)),
@@ -205,6 +206,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "segments; results stay v1 text")
     add_redundancy_push_args(p, "the fleet, written to the task doc")
     add_fault_trace_args(p)
+    p.add_argument("--speculation-factor", type=float, default=None,
+                   help="straggler factor (default 0 = off, or "
+                        "LMR_SPECULATION), written to the task doc: a "
+                        "RUNNING job older than FACTOR x the fleet's "
+                        "per-namespace duration EWMA gets a speculative "
+                        "duplicate lease; idle workers race it and the "
+                        "first commit wins, the loser a zero-repetition "
+                        "no-op")
+    p.add_argument("--speculation-cap", type=int, default=2,
+                   help="max live speculative clones per namespace "
+                        "(bounds wasted duplicate work)")
     p.add_argument("--batch-k", type=int, default=1,
                    help="fleet default claim-lease size, written to the "
                         "task doc: workers claim up to K jobs per "
@@ -259,6 +271,8 @@ def main(argv=None) -> int:
                     batch_k=args.batch_k,
                     segment_format=args.segment_format,
                     replication=args.replication, coding=args.coding,
+                    speculation=args.speculation_factor,
+                    speculation_cap=args.speculation_cap,
                     push=args.push, engine=args.engine).configure(spec)
     for _ in range(args.inline_workers):
         w = Worker(store).configure(max_iter=10_000)

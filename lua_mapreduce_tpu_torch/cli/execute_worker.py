@@ -23,7 +23,11 @@ by kind — a pool's launches and counters are the sums over its
 processes — the job bodies it ran by kind (``bodies``: a body that
 failed and was run again counts each time) and the wall-clock time its
 imports were done (``ready``). ``--replication``/``--coding``/``--push``
-override the task document's values for this worker. ``--trace`` and ``--profile DIR`` are the server's.
+override the task document's values for this worker. ``--trace`` and
+``--profile DIR`` are the server's. Speculation follows the task
+document (the server's ``--speculation-factor``): an idle worker races
+a straggler's clone, and ``bodies`` counts the clone's body too. The
+job index is the native one where it builds.
 
 The JAX launcher's flags for planes the port does not run yet
 (``--idle-poll-ms``, ``--autotune-*``) parse, and raise

@@ -2,7 +2,8 @@
 
 Port of ``lua_mapreduce_tpu/coord/filestore.py``: a directory every
 participant can reach. Mutable claim state lives in the binary job index
-(``idx_py.py``, flock-CAS); immutable payloads, the task singleton, the
+(``idx.py`` — the native C++ engine or ``idx_py.py``, both flock-CAS,
+one format); immutable payloads, the task singleton, the
 errors stream and persistent-table documents are JSON files written
 atomically (a temporary file renamed over the target). The layout is the
 JAX package's, so a port process and a JAX-package process can share
@@ -96,7 +97,8 @@ class FileJobStore(JobStore):
     document ``root/task.json``, the errors stream
     ``root/errors.jsonl``, persistent documents under ``root/pt/``, their
     locks under ``root/locks/``. ``engine`` picks the job-index engine
-    (``coord/idx.py``: "auto" = "python"; "native" raises)."""
+    (``coord/idx.py``: "auto" = native if it builds, else python;
+    "native" raises when the library is unavailable)."""
 
     def __init__(self, root: str, engine: str = "auto"):
         open_index(root, engine)       # raises for an unknown engine
@@ -355,11 +357,12 @@ class FileJobStore(JobStore):
         return self._idx(ns).cas_status(job_id, status, mask, whash)
 
     def _doc(self, ns, jid, state, batches, wnames) -> dict:
-        status, reps, whash, started, t5, _, _ = state
+        status, reps, whash, started, t5, spec_state, spec_whash = state
         doc = self._payload(batches, jid)
         doc.update(_id=jid, status=Status(status), repetitions=reps,
                    worker=wnames.get(jid, whash or None),
-                   started_time=started or None, times=_times_doc(t5))
+                   started_time=started or None, times=_times_doc(t5),
+                   spec_state=spec_state, spec_worker=spec_whash or None)
         return doc
 
     def get_job(self, ns, job_id):
@@ -400,6 +403,32 @@ class FileJobStore(JobStore):
     def heartbeat(self, ns, job_id, worker):
         return self._idx(ns).heartbeat(job_id, worker_hash(worker),
                                        time.time())
+
+    # -- duplicate leases (speculative execution) --------------------------
+
+    def speculate(self, ns, job_id):
+        self._bump("commit")
+        return bool(self._idx(ns).speculate(job_id))
+
+    def claim_spec(self, ns, worker):
+        self._bump("claim")
+        got = self._idx(ns).claim_spec(worker_hash(worker))
+        if got is None:
+            return None
+        jid, reps = got
+        # the clone doc carries the ORIGINAL claimant as ``worker`` (the
+        # claim log's last entry — claim_spec never appends to it, so
+        # producer lookups keep naming the original)
+        doc = self._payload(self._resolve_batches(ns), jid)
+        doc.update(_id=jid, status=Status.RUNNING, repetitions=reps,
+                   worker=self._read_wlog(ns).get(jid), times=None,
+                   spec_state=2, spec_worker=worker, speculative=True)
+        return doc
+
+    def cancel_spec(self, ns, job_id, worker):
+        self._bump("commit")
+        return bool(self._idx(ns).cancel_spec(
+            job_id, worker_hash(worker) if worker is not None else 0))
 
     def drop_ns(self, ns):
         self._batches.pop(ns, None)

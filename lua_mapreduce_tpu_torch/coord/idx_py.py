@@ -7,8 +7,9 @@ operation an atomic compare-and-swap across the processes and hosts
 sharing the directory (closing the reference's claim races,
 task.lua:300-308).
 
-The on-disk format is the JAX package's, byte for byte, so a port
-process and a JAX-package process may share one index file:
+The on-disk format is the JAX package's, byte for byte, and the native
+engine's (``native/jobstore.cpp``, ``idx.py``), so processes of either
+package and either engine may share one index file:
 
     header:  8s magic "JSIX0003" | q record count
     record:  i status | i repetitions | q worker-hash | d started_time
@@ -16,11 +17,13 @@ process and a JAX-package process may share one index file:
              cpu, real; all-zero = not recorded) | q spec-worker-hash
              | i spec_state | i reserved
 
-The port never opens a speculative lease (ROADMAP A6b), but it keeps the
-two speculation fields as the JAX engine does: preserved by every
-transition that keeps a lease, cleared by those that end it, and a
-TAKEN shadow lease's holder counts as an owner — so a file shared with a
-speculating JAX process stays consistent.
+The two speculation fields carry the duplicate lease: ``spec_state`` 0 =
+none, 1 = OPEN (the straggler detector marked this RUNNING job
+cloneable), 2 = TAKEN (``spec_worker`` holds the shadow lease). Every
+transition that keeps a lease preserves them, those that end it clear
+them, and a TAKEN shadow lease's holder counts as an owner, so the
+first-commit-wins arbitration is one CAS under the same flock as every
+other transition.
 """
 
 from __future__ import annotations
@@ -43,7 +46,8 @@ _ZERO_TIMES = (0.0,) * N_TIMES
 _I_SPECW = 10                    # spec-worker hash
 _I_SPECS = 11                    # spec_state
 SPEC_NONE = 0
-SPEC_TAKEN = 2                   # a shadow lease is held (JAX package)
+SPEC_OPEN = 1                    # detector marked: shadow lease claimable
+SPEC_TAKEN = 2                   # a spec-worker holds the shadow lease
 
 # the numbers ARE the wire format shared with the JAX package: a drifted
 # struct string must fail here, before any index file is touched
@@ -56,6 +60,14 @@ if [int(s) for s in Status] != [0, 1, 2, 3, 4, 5]:
 
 _CLAIM_MASK = (1 << Status.WAITING) | (1 << Status.BROKEN)
 _LEASED = (Status.RUNNING, Status.FINISHED)
+
+
+def worker_tag(worker_hash: int, num_tags: int = 8) -> int:
+    """Placement tag of a worker, from its stable name hash: the
+    speculative claim PREFERS shadowing a straggler on another tag (a
+    degraded rack slows all its members). Unsigned arithmetic so Python
+    and C++ (uint64 cast) agree on negative hashes."""
+    return (worker_hash & 0xFFFFFFFFFFFFFFFF) % num_tags
 
 
 class PyJobIndex:
@@ -111,7 +123,8 @@ class PyJobIndex:
     @staticmethod
     def _owner_ok(rec: tuple, expect_worker: int) -> bool:
         """The claimant owns the record; so does a TAKEN shadow lease's
-        holder (set only by a speculating JAX-package process)."""
+        holder: either may land the one commit, which the status CAS
+        arbitrates (first commit wins)."""
         if rec[2] == expect_worker:
             return True
         return (rec[_I_SPECS] == SPEC_TAKEN
@@ -386,6 +399,80 @@ class PyJobIndex:
                               rec[5:5 + N_TIMES], keep_spec=True)
                 n += 1
             return n
+        finally:
+            os.close(fd)
+
+    # -- duplicate leases (speculative execution) --------------------------
+
+    def _spec_rewrite(self, fd, job_id: int, rec: tuple, spec_worker: int,
+                      spec_state: int) -> None:
+        self._write_rec(fd, job_id, rec[0], rec[1], rec[2], rec[3], rec[4],
+                        rec[5:5 + N_TIMES], spec_worker, spec_state)
+
+    def speculate(self, job_id: int) -> bool:
+        """Mark a RUNNING record speculation-OPEN, CASed on (RUNNING, no
+        speculation yet): repeated detector passes are idempotent and a
+        job carries at most one shadow lease."""
+        if not os.path.exists(self.path):
+            return False
+        fd = self._open_locked()
+        try:
+            if not (0 <= job_id < self._read_count(fd)):
+                return False
+            rec = self._read_rec(fd, job_id)
+            if rec[0] != Status.RUNNING or rec[_I_SPECS] != SPEC_NONE:
+                return False
+            self._spec_rewrite(fd, job_id, rec, 0, SPEC_OPEN)
+            return True
+        finally:
+            os.close(fd)
+
+    def claim_spec(self, worker: int) -> Optional[Tuple[int, int]]:
+        """Take ONE speculation-open shadow lease → (job_id, reps), or
+        None. A worker never shadows its own job; records whose claimant
+        sits on another placement tag than the claimer come first, lowest
+        id first within each class (both engines agree on who wins)."""
+        if not os.path.exists(self.path):
+            return None
+        fd = self._open_locked()
+        try:
+            recs = self._read_all(fd)
+            my_tag = worker_tag(worker)
+            candidates = [jid for jid, rec in enumerate(recs)
+                          if rec[0] == Status.RUNNING
+                          and rec[_I_SPECS] == SPEC_OPEN
+                          and rec[2] != worker]
+            ordered = ([j for j in candidates
+                        if worker_tag(recs[j][2]) != my_tag]
+                       + [j for j in candidates
+                          if worker_tag(recs[j][2]) == my_tag])
+            if not ordered:
+                return None
+            jid = ordered[0]
+            self._spec_rewrite(fd, jid, recs[jid], worker, SPEC_TAKEN)
+            return jid, recs[jid][1]
+        finally:
+            os.close(fd)
+
+    def cancel_spec(self, job_id: int, worker: int) -> bool:
+        """Dissolve a shadow lease ``worker`` holds (CASed on TAKEN and the
+        holder); ``worker == 0`` clears any OPEN or TAKEN speculation (the
+        detector's retraction). Status and repetitions are never
+        touched: the original claimant still owns the lease."""
+        if not os.path.exists(self.path):
+            return False
+        fd = self._open_locked()
+        try:
+            if not (0 <= job_id < self._read_count(fd)):
+                return False
+            rec = self._read_rec(fd, job_id)
+            if worker:
+                if rec[_I_SPECS] != SPEC_TAKEN or rec[_I_SPECW] != worker:
+                    return False
+            elif rec[_I_SPECS] == SPEC_NONE:
+                return False
+            self._spec_rewrite(fd, job_id, rec, 0, SPEC_NONE)
+            return True
         finally:
             os.close(fd)
 

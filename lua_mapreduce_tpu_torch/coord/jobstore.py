@@ -8,10 +8,9 @@ checkpoint (task.lua:96-116), an ``errors`` collection (cnn.lua:62-78)
 and ``persistent_table`` documents with optimistic timestamps
 (persistent_table.lua:41-74). This module defines the same capabilities
 as an explicit interface whose claim protocol is an atomic
-compare-and-swap.
-
-Speculative duplicate leases (``speculate``, ``claim_spec``,
-``cancel_spec``) are not ported (ROADMAP A6b): they raise.
+compare-and-swap, plus speculative duplicate leases (``speculate``,
+``claim_spec``, ``cancel_spec``): a straggler's RUNNING job may get ONE
+shadow lease, and the first of the two holders to commit wins.
 """
 
 from __future__ import annotations
@@ -30,12 +29,6 @@ def make_job(key: Any, value: Any) -> dict:
     """Immutable part of a job document (reference utils.lua:87-98
     ``make_job`` schema; mutable claim state lives in the store index)."""
     return {"key": key, "value": value, "creation_time": time.time()}
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"{what}: speculative duplicate leases are not ported to the torch "
-        "package yet (ROADMAP A6b)")
 
 
 class JobStore(abc.ABC):
@@ -205,20 +198,41 @@ class JobStore(abc.ABC):
 
     def heartbeat(self, ns: str, job_id: int, worker: str) -> bool:
         """Refresh the liveness timestamp of a RUNNING|FINISHED job this
-        worker owns. False when the claim is lost, the job is in another
-        state, or the store does not track liveness (this default)."""
+        worker owns — or holds the SHADOW lease of (:meth:`speculate`).
+        False when the claim is lost, the job is in another state, or the
+        store does not track liveness (this default). It doubles as the
+        worker's lease-revocation probe: a False on a lease the worker
+        believed live means the other duplicate committed first."""
         return False
 
-    # -- duplicate leases: not ported (ROADMAP A6b) ------------------------
+    # -- duplicate leases (speculative execution) --------------------------
 
     def speculate(self, ns: str, job_id: int) -> bool:
-        _not_ported("JobStore.speculate")
+        """Mark a RUNNING job speculation-OPEN so one other worker may
+        clone its lease via :meth:`claim_spec` — the straggler
+        detector's op, CASed on (RUNNING, no speculation yet). The
+        original keeps its lease; the one RUNNING|FINISHED → WRITTEN
+        transition arbitrates first-commit-wins, and the loser's commit
+        is a zero-repetition no-op. Stores without speculation keep this
+        default: the detector never launches clones."""
+        return False
 
     def claim_spec(self, ns: str, worker: str) -> Optional[dict]:
-        _not_ported("JobStore.claim_spec")
+        """Take ONE speculation-open shadow lease for ``worker``: the
+        cloned job doc (``speculative=True``, ``worker`` = the ORIGINAL
+        claimant) or None. A worker never shadows its own job;
+        stragglers whose claimant sits on another placement tag (hashed
+        from the worker name) come first, lowest id first within each
+        class, on every store."""
+        return None
 
-    def cancel_spec(self, ns: str, job_id: int, worker) -> bool:
-        _not_ported("JobStore.cancel_spec")
+    def cancel_spec(self, ns: str, job_id: int, worker: Optional[str]
+                    ) -> bool:
+        """Dissolve a shadow lease ``worker`` holds — the loser's and the
+        failed clone's path; the job's status and repetitions are never
+        touched. ``worker=None`` clears any speculation (the detector's
+        retraction)."""
+        return False
 
     @abc.abstractmethod
     def drop_ns(self, ns: str) -> None: ...
@@ -301,7 +315,7 @@ class MemJobStore(JobStore):
                 d = dict(doc)
                 d.update(_id=base + i, status=Status.WAITING, repetitions=0,
                          worker=None, started_time=None, hb_time=None,
-                         times=None)
+                         times=None, spec_state=0, spec_worker=None)
                 queue.append(d)
                 ids.append(base + i)
             return ids
@@ -323,6 +337,8 @@ class MemJobStore(JobStore):
                     d["worker"] = worker
                     d["started_time"] = now
                     d["hb_time"] = None   # fresh claim, fresh silence clock
+                    d["spec_state"] = 0   # no carried shadow lease
+                    d["spec_worker"] = None
                     out.append(dict(d))
 
             for jid in (preferred_ids or ()):
@@ -334,6 +350,23 @@ class MemJobStore(JobStore):
                         break
                     try_claim(d)
             return out
+
+    @staticmethod
+    def _owner_ok(d: dict, worker: str) -> bool:
+        """The claimant owns the job and, while a shadow lease is taken,
+        so does the speculative worker — the status CAS arbitrates
+        first-commit-wins."""
+        return (d["worker"] == worker
+                or (d.get("spec_state") == 2
+                    and d.get("spec_worker") == worker))
+
+    @staticmethod
+    def _clear_spec_on_unlease(d: dict, status: Status) -> None:
+        """Leaving the leased states dissolves any shadow lease: a
+        re-claimed job must never be committable by a stale clone."""
+        if status in (Status.WAITING, Status.BROKEN):
+            d["spec_state"] = 0
+            d["spec_worker"] = None
 
     def commit_batch(self, ns, worker, entries):
         self._bump("commit")
@@ -347,8 +380,10 @@ class MemJobStore(JobStore):
                 # RUNNING|FINISHED, as the file index does: a job a crashed
                 # commit left FINISHED retires instead of waiting for the
                 # stale requeue to re-execute completed work
+                # a speculative loser fails the status check here (the
+                # winner already moved the job to WRITTEN)
                 if (d["status"] not in (Status.RUNNING, Status.FINISHED)
-                        or d["worker"] != worker):
+                        or not self._owner_ok(d, worker)):
                     continue       # claim lost: the new claimant owns it
                 if times is not None:
                     d["times"] = dict(times)
@@ -366,7 +401,7 @@ class MemJobStore(JobStore):
                     continue
                 d = queue[job_id]
                 if d["status"] in (Status.RUNNING, Status.FINISHED) \
-                        and d["worker"] == worker:
+                        and self._owner_ok(d, worker):
                     d["hb_time"] = now
                     n += 1
             return n
@@ -381,11 +416,13 @@ class MemJobStore(JobStore):
             d = queue[job_id]
             if expect is not None and d["status"] not in expect:
                 return False
-            if expect_worker is not None and d["worker"] != expect_worker:
+            if expect_worker is not None \
+                    and not self._owner_ok(d, expect_worker):
                 return False
             if status == Status.BROKEN:
                 d["repetitions"] += 1
             d["status"] = status
+            self._clear_spec_on_unlease(d, status)
             return True
 
     def get_job(self, ns, job_id):
@@ -432,6 +469,9 @@ class MemJobStore(JobStore):
                         d["started_time"] is not None and live < cutoff):
                     d["status"] = Status.BROKEN
                     d["repetitions"] += 1
+                    # both holders went silent (a clone's beats count as
+                    # liveness): the requeue dissolves the shadow lease
+                    self._clear_spec_on_unlease(d, Status.BROKEN)
                     n += 1
             return n
 
@@ -443,9 +483,61 @@ class MemJobStore(JobStore):
                 return False
             d = queue[job_id]
             if d["status"] not in (Status.RUNNING, Status.FINISHED) \
-                    or d["worker"] != worker:
+                    or not self._owner_ok(d, worker):
                 return False
             d["hb_time"] = now
+            return True
+
+    # -- duplicate leases (speculative execution) --------------------------
+
+    def speculate(self, ns, job_id):
+        self._bump("commit")
+        with self._lock:
+            queue = self._jobs.get(ns, [])
+            if not (0 <= job_id < len(queue)):
+                return False
+            d = queue[job_id]
+            if d["status"] != Status.RUNNING or d.get("spec_state"):
+                return False
+            d["spec_state"] = 1
+            d["spec_worker"] = None
+            return True
+
+    def claim_spec(self, ns, worker):
+        from lua_mapreduce_tpu_torch.coord.filestore import worker_hash
+        from lua_mapreduce_tpu_torch.coord.idx_py import worker_tag
+        my_tag = worker_tag(worker_hash(worker))
+        self._bump("claim")
+        with self._lock:
+            candidates = [d for d in self._jobs.get(ns, [])
+                          if d["status"] == Status.RUNNING
+                          and d.get("spec_state") == 1
+                          and d["worker"] != worker]
+            ordered = ([d for d in candidates
+                        if worker_tag(worker_hash(d["worker"])) != my_tag]
+                       + [d for d in candidates
+                          if worker_tag(worker_hash(d["worker"])) == my_tag])
+            if not ordered:
+                return None
+            d = ordered[0]
+            d["spec_state"] = 2
+            d["spec_worker"] = worker
+            return dict(d, speculative=True)
+
+    def cancel_spec(self, ns, job_id, worker):
+        self._bump("commit")
+        with self._lock:
+            queue = self._jobs.get(ns, [])
+            if not (0 <= job_id < len(queue)):
+                return False
+            d = queue[job_id]
+            if worker is not None:
+                if d.get("spec_state") != 2 or d.get("spec_worker") != worker:
+                    return False
+            elif not d.get("spec_state"):
+                return False
+            d["spec_state"] = 0
+            d["spec_worker"] = None
             return True
 
     def drop_ns(self, ns):

@@ -3,11 +3,18 @@
 Copy of the JAX package's ``engine/job.py`` (reference mapreduce/job.lua)
 — v1 text or v2 framed segments, the pipelined shuffle's pre-merge
 job, r-way replicated or k+m erasure-coded spills (faults/replicate.py,
-faults/coded.py) and the push shuffle (engine/push.py) — with no native
-map/merge/reduce kernels. The hybrid plane's compiled map leg and
-reduce fold plug in through :func:`publish_map_groups` and
-``run_reduce_job(reduce_fold=)``. Result bytes are identical to the JAX
-package's on the same inputs.
+faults/coded.py) and the push shuffle (engine/push.py). The hybrid
+plane's compiled map leg and reduce fold plug in through
+:func:`publish_map_groups` and ``run_reduce_job(reduce_fold=)``. Result
+bytes are identical to the JAX package's on the same inputs.
+
+On a store with ``local_path`` (``shared:``, unreplicated) the native
+C++ paths take over where they apply: a mapfn tagged ``native_map``
+runs the word-count map (core/native_wcmap.py), a reducefn tagged
+``native_reduce = "sum"`` (associative and commutative) folds inside
+the merge pass, and the pre-merge and reduce merges run in one C++
+pass (core/native_merge.py). The Python path stays the semantic truth
+and the fallback for anything the native side refuses.
 """
 
 from __future__ import annotations
@@ -19,6 +26,8 @@ from typing import Any, Dict, List
 from lua_mapreduce_tpu_torch.core import tuples
 from lua_mapreduce_tpu_torch.core.constants import MAX_MAP_RESULT
 from lua_mapreduce_tpu_torch.core.merge import merge_iterator
+from lua_mapreduce_tpu_torch.core.native_merge import (
+    native_merge_records, native_merge_reduce_sum, native_premerge)
 from lua_mapreduce_tpu_torch.core.segment import check_format
 from lua_mapreduce_tpu_torch.core.serialize import (assert_serializable,
                                                     dump_record, sorted_keys,
@@ -104,10 +113,22 @@ def run_map_job(spec: TaskSpec, store: Store, job_id: str,
     order are the same either way.
     """
     check_format(segment_format)
-    # discovery and stale-file removal address every copy
+    # discovery and stale-file removal address every copy; under
+    # redundancy the view hides local_path (a native map writing only
+    # the primary would silently under-replicate)
     store = reading_view(store, replication)
     times = JobTimes(started=time.time())
     cpu0 = time.process_time()
+    # declared-intent native map: a mapfn tagged ``native_map`` promises
+    # the C++ pass computes exactly what mapfn + partitionfn would
+    native = getattr(spec.mapfn, "native_map", None)
+    if native is not None and native.get("kind") == "wordcount_file":
+        from lua_mapreduce_tpu_torch.core.native_wcmap import run_native_map
+        if run_native_map(store, native, str(map_value), spec.result_ns,
+                          job_id):
+            times.cpu = time.process_time() - cpu0
+            times.finished = times.written = time.time()
+            return times
     result: Dict[Any, List[Any]] = {}
     spec.mapfn(map_key, map_value,
                make_map_emit(result, spec.combiner_for_map))
@@ -211,13 +232,20 @@ def run_premerge_job(spec: TaskSpec, store: Store, run_files: List[str],
         raise RuntimeError(
             f"pre_merge {spill_file}: {len(missing)} input run(s) missing "
             f"with no spill published: {missing[:3]}")
-    writer = spill_writer(store, segment_format, replication)
-    try:
-        for key, values in merge_iterator(store, run_files):
-            writer.add(key, values)
-        writer.build(spill_file)
-    finally:
-        writer.close()
+    # the native one-pass merge publishes a v1 TEXT spill whatever the
+    # negotiated format (readers sniff per file); under redundancy the
+    # view hides local_path and the Python path's publish fans out
+    if not native_premerge(store, run_files, spill_file):
+        writer = spill_writer(store, segment_format, replication)
+        try:
+            merged = native_merge_records(store, run_files)
+            if merged is None:
+                merged = merge_iterator(store, run_files)
+            for key, values in merged:
+                writer.add(key, values)
+            writer.build(spill_file)
+        finally:
+            writer.close()
     times.finished = time.time()
     for name in run_files:
         store.remove(name)
@@ -252,9 +280,24 @@ def run_reduce_job(spec: TaskSpec, store: Store, result_store: Store,
     cpu0 = time.process_time()
     fast = spec.fast_path
     reducefn = spec.reducefn
+    # fully native reduce: a reducer declared ``native_reduce = "sum"``
+    # and flagged associative + commutative folds inside the C++ merge
+    # pass (idempotency is not needed: every value is summed once)
+    if (spec.associative and spec.commutative
+            and getattr(reducefn, "native_reduce", None) == "sum"
+            and native_merge_reduce_sum(store, run_files, result_store,
+                                        result_file)):
+        times.finished = times.written = time.time()
+        times.cpu = time.process_time() - cpu0
+        for name in run_files:
+            store.remove(name)
+        return times
     builder = result_store.builder()
     try:
-        for key, values in merge_iterator(store, run_files):
+        merged = native_merge_records(store, run_files)
+        if merged is None:
+            merged = merge_iterator(store, run_files)
+        for key, values in merged:
             if fast and len(values) == 1:
                 reduced = values[0]
             else:

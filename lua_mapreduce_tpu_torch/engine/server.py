@@ -34,11 +34,18 @@ name ``lost_files`` are repaired from a surviving copy, or, when every
 copy is gone, their producing map jobs are requeued during the reduce
 phase (and a lost spill's pre-merge republished once they re-ran).
 
-Trimmed from the JAX server, to be ported with ROADMAP A6b:
-speculation, autotune and ``set_fleet``, the HA leader lease and the
-notify waiter (the barrier polls at ``poll_interval``). Those options
-are accepted only at their "off" value; anything else raises
-NotImplementedError.
+``speculation`` (None = ``LMR_SPECULATION``, else 0 = off) is the
+straggler factor, written to the task document: the housekeeping pass
+opens a speculative duplicate lease on a RUNNING job older than
+``factor ×`` the fleet's duration EWMA for its namespace (folded onto the
+task document by the workers), at most ``speculation_cap`` live clones
+per namespace; idle workers race the clone against the original and the
+first commit wins.
+
+Trimmed from the JAX server, to be ported with ROADMAP A6b: autotune
+and ``set_fleet``, the HA leader lease and the notify waiter (the
+barrier polls at ``poll_interval``). Those options are accepted only at
+their "off" value; anything else raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -92,8 +99,6 @@ from lua_mapreduce_tpu_torch.utils.stats import (IterationStats, TaskStats,
 # JAX-server options this port does not implement, with the values that
 # select the behaviour it does implement (ROADMAP A6b)
 _OFF_VALUES = {
-    "speculation": (None, 0),
-    "speculation_cap": (2,),
     "autotune": (None, False),
     "autotune_config": (None,),
     "ha": (None, False),
@@ -136,6 +141,22 @@ def unframe_state(data: bytes) -> Any:
     return json.loads(payload.decode("utf-8"))
 
 
+def resolve_speculation(arg) -> float:
+    """The straggler factor: explicit argument, else the
+    ``LMR_SPECULATION`` env, else 0 (off). A RUNNING job older than
+    ``factor × fleet duration EWMA`` gets a speculative duplicate lease;
+    a factor below 1 would clone jobs younger than a typical job and is
+    refused."""
+    if arg is None:
+        import os
+        arg = os.environ.get("LMR_SPECULATION") or 0
+    f = float(arg)
+    if f and f < 1.0:
+        raise ValueError(f"speculation factor {f} < 1 would clone jobs "
+                         "younger than the typical job duration")
+    return f
+
+
 class PhaseFailed(RuntimeError):
     """A phase completed with FAILED jobs while the server ran in strict
     mode. The reference proceeds to finalfn on partial results
@@ -170,8 +191,9 @@ class Server:
     document and sticky on resume. ``pipeline`` and
     ``premerge_min_runs``/``premerge_max_runs`` drive the pipelined
     shuffle, ``segment_format`` the fleet's spill encoding,
-    ``replication``/``coding`` the fleet's shuffle redundancy and
-    ``push`` the push shuffle (module docstring).
+    ``replication``/``coding`` the fleet's shuffle redundancy,
+    ``push`` the push shuffle and ``speculation``/``speculation_cap``
+    the straggler detector (module docstring).
     """
 
     def __init__(self, store: JobStore, poll_interval: float = DEFAULT_SLEEP,
@@ -182,6 +204,8 @@ class Server:
                  segment_format: str = "v1",
                  replication: Optional[int] = None,
                  coding: Optional[str] = None,
+                 speculation: Optional[float] = None,
+                 speculation_cap: int = 2,
                  push: Optional[bool] = None,
                  engine: Optional[str] = None, **options):
         for name, value in options.items():
@@ -205,6 +229,13 @@ class Server:
         self.replication = resolve_redundancy(replication, coding)
         self.push = resolve_push(push)
         self.engine = resolve_engine(engine)
+        # the straggler factor (0 = off) and the live-clone cap per
+        # namespace; the factor is deployed on the task document, and
+        # workers gate their clone probe on it
+        self.speculation = resolve_speculation(speculation)
+        self.speculation_cap = max(1, int(speculation_cap))
+        self._spec_taken_at: Dict[tuple, float] = {}  # (ns, jid) -> seen
+        self._spec_scan_at: Dict[str, float] = {}     # ns -> last scan
         self._spill_repairs: Dict[str, tuple] = {}  # lost spill -> range
         # spill names the last _clean_runs could not remove (a copy on
         # an unreachable placement tag): older data under a name this
@@ -313,6 +344,7 @@ class Server:
                                         "batch_k": self.batch_k,
                                         "segment_format":
                                             self.segment_format,
+                                        "speculation": self.speculation,
                                         "engine": self.engine,
                                         **doc_fields(self.replication)})
                 if status == TaskStatus.REDUCE.value:
@@ -336,6 +368,9 @@ class Server:
                 # the fleet's shuffle redundancy: the int factor and the
                 # "k+m" coding spec ("" when coding is off)
                 **doc_fields(self.replication),
+                # the straggler factor: nonzero makes idle workers probe
+                # for speculative duplicate leases
+                "speculation": self.speculation,
                 "engine": self.engine,
                 "started": time.time(),
             })
@@ -615,10 +650,11 @@ class Server:
 
     def _housekeep(self, *namespaces: str) -> None:
         """One poll's upkeep (server.lua:186-234), throttled to the
-        poll_interval cadence: scavenge BROKEN≥retries → FAILED and
-        requeue stale RUNNING in every given namespace, drain and retain
-        worker errors, soft-flush the trace buffer. Under redundancy,
-        drained errors naming ``lost_files`` feed the repair-or-requeue
+        poll_interval cadence: scavenge BROKEN≥retries → FAILED, requeue
+        stale RUNNING and (with speculation on) open duplicate leases on
+        stragglers in every given namespace, drain and retain worker
+        errors, soft-flush the trace buffer. Under redundancy, drained
+        errors naming ``lost_files`` feed the repair-or-requeue
         recovery."""
         now = time.time()
         if self._housekeep_at is not None \
@@ -629,6 +665,8 @@ class Server:
             self.store.scavenge(ns, MAX_JOB_RETRIES)
             if self.stale_timeout_s is not None:
                 self.store.requeue_stale(ns, self.stale_timeout_s)
+            if self.speculation:
+                self._speculate_stragglers(ns)
         lost: List[str] = []
         for err in self.store.drain_errors():
             # the drain is destructive — always retain for diagnosis
@@ -666,6 +704,77 @@ class Server:
         except Exception as exc:
             self._log(f"trace flush failed ({type(exc).__name__}: {exc});"
                       " spans re-buffered")
+
+    # -- straggler detection (speculative execution) --------------------------
+
+    def _speculate_stragglers(self, ns: str) -> None:
+        """Open speculative duplicate leases on RUNNING jobs older than
+        ``speculation ×`` the task doc's fleet EWMA for ``ns`` — oldest
+        first, at most ``speculation_cap`` live clones per namespace;
+        ``speculate``'s CAS makes repeated passes idempotent. A cold fleet
+        (no EWMA on the doc yet) speculates nothing, so a phase whose
+        jobs are all legitimately long never misfires.
+
+        A TAKEN shadow lease whose job is still RUNNING ``threshold``
+        after the detector first saw it taken means the clone died (a
+        healthy clone finishes in about one EWMA): it is retracted
+        (``cancel_spec`` with no holder) so the straggler can be cloned
+        again instead of a dead clone pinning the cap. Retracting a slow
+        LIVE clone is benign: its commit fails the ownership CAS.
+
+        Scans are throttled to a quarter of the threshold: ``jobs()``
+        copies payloads, which a per-poll scan would pay every poll."""
+        counts = self.store.counts(ns)
+        if not counts[Status.RUNNING]:
+            return
+        task = self.store.get_task() or {}
+        ewma = task.get(f"dur_ewma:{ns}")
+        if not ewma or ewma <= 0:
+            return
+        factor = float(task.get("speculation") or self.speculation)
+        threshold = factor * ewma
+        now = time.time()
+        last = self._spec_scan_at.get(ns)
+        if last is not None and now - last < threshold / 4:
+            return
+        self._spec_scan_at[ns] = now
+        running = [d for d in self.store.jobs(ns)
+                   if d["status"] == Status.RUNNING]
+        taken = {d["_id"] for d in running if d.get("spec_state") == 2}
+        for key in [k for k in self._spec_taken_at
+                    if k[0] == ns and k[1] not in taken]:
+            self._spec_taken_at.pop(key)      # resolved: forget
+        active = 0
+        for d in running:
+            if not d.get("spec_state"):
+                continue
+            first = (self._spec_taken_at.setdefault((ns, d["_id"]), now)
+                     if d["spec_state"] == 2 else None)
+            if first is not None and now - first > threshold \
+                    and self.store.cancel_spec(ns, d["_id"], None):
+                COUNTERS.bump("spec_cancelled")
+                self._spec_taken_at.pop((ns, d["_id"]), None)
+                self._log(f"straggler: {ns} job {d['_id']} shadow lease "
+                          "abandoned (clone silent past the threshold) — "
+                          "retracted for re-cloning")
+                d["spec_state"] = 0
+                continue
+            active += 1
+        budget = self.speculation_cap - active
+        if budget <= 0:
+            return
+        overdue = sorted(
+            (d for d in running
+             if not d.get("spec_state") and d.get("started_time")
+             and now - d["started_time"] > threshold),
+            key=lambda d: d["started_time"])
+        for d in overdue[:budget]:
+            if self.store.speculate(ns, d["_id"]):
+                COUNTERS.bump("spec_launched")
+                self._log(f"straggler: {ns} job {d['_id']} RUNNING "
+                          f"{now - d['started_time']:.2f}s > {factor:g}x "
+                          f"EWMA {ewma:.3f}s — speculative duplicate "
+                          "lease opened")
 
     # -- lost-file recovery --------------------------------------------------
 

@@ -33,11 +33,18 @@ files: the job is released, the error record carries ``lost_files``,
 and the server repairs the files or requeues their producing maps,
 which this worker claims in the reduce phase before any reduce job.
 
-Trimmed from the JAX worker, to be ported with ROADMAP A6b:
-speculative duplicate leases, autotune following and the notify waiter.
-An idle worker polls on a back-off that doubles up to ``max_sleep``;
-``idle_poll_ms`` is accepted only at its "off" value, and a task
-document that deploys speculation or autotune is refused.
+Speculative duplicate leases follow the task document's
+``speculation`` factor: an idle worker with nothing claimable takes a
+straggler's shadow lease (``claim_spec``) and races the original in
+:meth:`Worker.run_one`; the first commit wins and the loser touches
+nothing. Each worker folds its per-namespace job-duration EWMA into the
+task document (``dur_ewma:<ns>``), which the server's straggler detector
+reads and a fresh worker seeds its lease sizing from.
+
+Trimmed from the JAX worker, to be ported with ROADMAP A6b: autotune
+following and the notify waiter. An idle worker polls on a back-off
+that doubles up to ``max_sleep``; ``idle_poll_ms`` is accepted only at
+its "off" value, and a task document that deploys autotune is refused.
 """
 
 from __future__ import annotations
@@ -61,12 +68,14 @@ from lua_mapreduce_tpu_torch.core.constants import (DEFAULT_SLEEP,
 from lua_mapreduce_tpu_torch.coord.jobstore import JobStore
 from lua_mapreduce_tpu_torch.device import resolve_device
 from lua_mapreduce_tpu_torch.engine.contract import TaskSpec
-from lua_mapreduce_tpu_torch.engine.job import (JobTimes, publish_map_groups,
+from lua_mapreduce_tpu_torch.engine.job import (JobTimes, map_key_str,
+                                                publish_map_groups,
                                                 run_map_job,
                                                 run_premerge_job,
                                                 run_reduce_job)
 from lua_mapreduce_tpu_torch.engine.placement import base_name
-from lua_mapreduce_tpu_torch.engine.push import (BufferPool,
+from lua_mapreduce_tpu_torch.engine.push import (BufferPool, lineage_token,
+                                                 promote,
                                                  resolve_push_budget)
 from lua_mapreduce_tpu_torch.faults.errors import (LostShuffleDataError,
                                                    StoreError,
@@ -104,6 +113,13 @@ _OFF_VALUES = {
 # leases (recent jobs dominate)
 _DUR_ALPHA = 0.3
 
+# blend weight for folding this worker's duration EWMA into the fleet
+# aggregate on the task document: each worker pulls the doc value toward
+# its own observation, so a straggler's slow observations are diluted by
+# every healthy worker's folds — which keeps the detector's threshold
+# honest
+_FLEET_ALPHA = 0.3
+
 
 def check_off(owner: str, name: str, value, off_values: dict) -> None:
     """Accept a trimmed option only at a value meaning "off"; any other
@@ -117,12 +133,11 @@ def check_off(owner: str, name: str, value, off_values: dict) -> None:
 
 def check_task_doc(task: dict) -> None:
     """Refuse a task document that deploys a plane this port does not
-    run (a JAX-package server sharing the store, say): speculation or
-    autotune. Running it without that plane would be a silently
-    different run. The pipelined and push shuffles, both segment
-    formats, replication and erasure coding run here."""
+    run (a JAX-package server sharing the store, say): autotune. Running
+    it without that plane would be a silently different run. The
+    pipelined and push shuffles, both segment formats, replication,
+    erasure coding and speculation run here."""
     deployed = {
-        "speculation": bool(task.get("speculation")),
         "autotune": bool(task.get("autotune")),
     }
     on = [k for k, v in deployed.items() if v]
@@ -175,6 +190,16 @@ class Worker:
         self._push_pool_obj = None      # lazy per-worker buffer pool
         self._last_spec = None          # where trace flushes publish
         self._dur_ewma: Dict[str, float] = {}   # ns -> smoothed real secs
+        # the fleet aggregate on the task doc (ns -> seconds) and the
+        # value this worker last pushed there; namespaces whose EWMA was
+        # seeded from the doc, and how many of this worker's own jobs
+        # have folded in since (a fresh worker's first job carries its
+        # warm-up, which must not inflate the fleet aggregate)
+        self._fleet_ewma: Dict[str, float] = {}
+        self._ewma_pushed: Dict[str, float] = {}
+        self._ewma_seeded: set = set()
+        self._ewma_own_n: Dict[str, int] = {}
+        self._speculation = 0.0         # the task doc's factor (0 = off)
         # hybrid compiled legs: the server negotiates the per-stage split
         # on the task doc; the leg engines are minted lazily per (spec,
         # split), and each leased map batch's compiled groupings are
@@ -253,6 +278,17 @@ class Worker:
         self._task_replication = task.get("replication")
         self._task_coding = task.get("coding")
         self._task_push = task.get("push")
+        self._speculation = float(task.get("speculation") or 0.0)
+        # the fleet duration aggregate: one flat doc key per namespace
+        # ("dur_ewma:<ns>", so concurrent folds of different namespaces
+        # never revert each other); it seeds this worker's own EWMA, so a
+        # fresh worker starts with calibrated lease sizing
+        self._fleet_ewma = {k.split(":", 1)[1]: v for k, v in task.items()
+                            if k.startswith("dur_ewma:")}
+        for ns_key, val in self._fleet_ewma.items():
+            if ns_key not in self._dur_ewma and val and val > 0:
+                self._dur_ewma[ns_key] = float(val)
+                self._ewma_seeded.add(ns_key)
 
         if task["status"] == TaskStatus.MAP.value:
             # the push shuffle's merge should keep pace with frame
@@ -288,6 +324,20 @@ class Worker:
             # barrier tasks pay no extra claim round trip
             if not pre_first and probe_pre():
                 return "executed"
+            # speculative duplicate leases: only a worker with nothing
+            # claimable gets here, so clones never take capacity from
+            # unstarted jobs; a speculation-off doc pays no probe
+            if self._speculation:
+                for spec_ns, phase in ((MAP_NS, "map"), (PRE_NS, "reduce")):
+                    if phase not in self.phases:
+                        continue
+                    if spec_ns == PRE_NS and not task.get("pipeline"):
+                        continue
+                    clone = self.store.claim_spec(spec_ns, self.name)
+                    if clone is not None:
+                        self._idle_count = 0
+                        self.run_one(spec, spec_ns, clone)
+                        return "executed"
             if "map" not in self.phases:
                 return "out-of-phase"
             self._idle_count += 1
@@ -322,6 +372,11 @@ class Worker:
             if jobs:
                 self._execute_batch(spec, RED_NS, jobs)
                 return "executed"
+            if self._speculation:
+                clone = self.store.claim_spec(RED_NS, self.name)
+                if clone is not None:
+                    self.run_one(spec, RED_NS, clone)
+                    return "executed"
             return "idle"
 
         raise RuntimeError(f"unknown task status {task['status']!r}")
@@ -351,19 +406,33 @@ class Worker:
 
     def _note_duration(self, ns: str, real_s: float) -> None:
         prev = self._dur_ewma.get(ns)
-        self._dur_ewma[ns] = (real_s if prev is None
-                              else _DUR_ALPHA * real_s
-                              + (1 - _DUR_ALPHA) * prev)
+        if prev is None:
+            self._dur_ewma[ns] = real_s
+        else:
+            alpha = _DUR_ALPHA
+            # a doc-seeded worker's FIRST own job carries its warm-up:
+            # an overshoot of the seed folds at a quarter weight
+            if (ns in self._ewma_seeded
+                    and self._ewma_own_n.get(ns, 0) == 0
+                    and real_s > prev):
+                alpha = _DUR_ALPHA / 4.0
+            self._dur_ewma[ns] = alpha * real_s + (1 - alpha) * prev
+        self._ewma_own_n[ns] = self._ewma_own_n.get(ns, 0) + 1
 
     # -- job execution ------------------------------------------------------
 
     @contextlib.contextmanager
-    def _beating(self, ns: str, jids: List[int]):
+    def _beating(self, ns: str, jids: List[int],
+                 revoked: Optional[threading.Event] = None):
         """Heartbeat every leased job every ``heartbeat_s`` seconds from
         ONE daemon thread while the job bodies run. Best effort: a failed
         beat logs and retries with backoff (a dead beat thread would let
         the server requeue a LIVE worker's job); the ownership CAS keeps
-        correctness either way."""
+        correctness either way. ``revoked`` is set the moment a beat
+        lands on fewer jobs than the lease holds: a lease member left the
+        leased states under this worker (a speculative duplicate
+        committed it first) — no extra RPC, the signal rides the
+        beats."""
         if not self.heartbeat_s:
             yield
             return
@@ -377,7 +446,9 @@ class Worker:
                 tracer.set_actor(self.name)    # beat spans name the worker
             while not stop.wait(delay):
                 try:
-                    self.store.heartbeat_batch(ns, jids, self.name)
+                    n = self.store.heartbeat_batch(ns, jids, self.name)
+                    if revoked is not None and n < len(jids):
+                        revoked.set()
                     failures = 0
                     delay = self.heartbeat_s
                 except Exception as e:
@@ -518,6 +589,10 @@ class Worker:
         store = get_storage_from(spec.storage)
         push_on = self._push_on()
         pool = self._push_pool() if push_on else None
+        # a clone's pushes are QUARANTINED under its spec identity until
+        # its commit wins (run_one promotes them)
+        lineage = (lineage_token(self.name)
+                   if push_on and job.get("speculative") else None)
         groups = self._hybrid_stash.pop(job["_id"], None)
         if groups is not None:
             # compiled map leg: mapfn+combiner already ran in the lease's
@@ -526,14 +601,15 @@ class Worker:
             publish_map_groups(spec, store, str(job["_id"]), groups,
                                segment_format=self._segment_format(),
                                replication=self._replication(),
-                               push=push_on, push_pool=pool)
+                               push=push_on, push_pool=pool,
+                               spec_lineage=lineage)
             times.finished = times.written = time.time()
             return times
         return run_map_job(spec, store, str(job["_id"]), job["key"],
                            job["value"],
                            segment_format=self._segment_format(),
                            replication=self._replication(), push=push_on,
-                           push_pool=pool)
+                           push_pool=pool, spec_lineage=lineage)
 
     def _premerge_body(self, spec: TaskSpec, job: dict) -> JobTimes:
         """Consolidate committed runs into a spill (pipelined shuffle);
@@ -608,8 +684,10 @@ class Worker:
         tracer = active_tracer()
         if tracer is None:
             return contextlib.nullcontext()
+        attrs = {"speculative": True} if job.get("speculative") else {}
         return tracer.span(f"{label}.body", ns=ns, job_id=job["_id"],
-                           attempt=int(job.get("repetitions") or 0))
+                           attempt=int(job.get("repetitions") or 0),
+                           **attrs)
 
     def _trace_flush(self, force: bool = False) -> None:
         """Publish buffered spans through the task's storage: a soft
@@ -633,15 +711,27 @@ class Worker:
         to WAITING (no repetition bump), then releases the failing job
         (a classified transient store fault, within this worker's
         budget) or marks it BROKEN, and re-raises. Jobs whose claim was
-        lost mid-lease are skipped by the commit's ownership CAS."""
+        lost mid-lease are skipped by the commit's ownership CAS; once a
+        beat comes up short, each remaining job's lease is probed and a
+        revoked one (a duplicate committed it) is not run at all."""
         body = self._BODIES[ns]
         label = self._LABELS[ns]
         if ns == MAP_NS:
             self._stash_hybrid_map(spec, jobs)
         jids = [j["_id"] for j in jobs]
         done: List[tuple] = []          # (jid, times_dict), commit order
-        with self._beating(ns, jids):
+        revoked = threading.Event()
+        skipped: List[int] = []
+        with self._beating(ns, jids, revoked=revoked):
             for pos, job in enumerate(jobs):
+                if pos and revoked.is_set() \
+                        and not self.store.heartbeat(ns, job["_id"],
+                                                     self.name):
+                    # this job's lease is confirmed gone (a speculative
+                    # duplicate committed it): running it would be pure
+                    # waste — the commit CAS would refuse it anyway
+                    skipped.append(job["_id"])
+                    continue
                 sp = None
                 self.bodies[label] = self.bodies.get(label, 0) + 1
                 try:
@@ -665,10 +755,131 @@ class Worker:
                              if len(jobs) > 1 else ""))
         committed = self.store.commit_batch(ns, self.name, done)
         self._settle_committed(ns, committed)
+        if committed:
+            # only WINNING observations calibrate the fleet aggregate: a
+            # straggler whose commits keep losing must not inflate the
+            # EWMA the detector compares it against
+            self._persist_ewma(ns)
         lost = len(done) - len(committed)
         if lost:
+            if self._speculation:
+                # a lost claim under speculation is a lost commit race:
+                # this worker was the straggler and a clone covered it
+                won = set(committed)
+                COUNTERS.bump("spec_wasted_s",
+                              sum(t["real"] for jid, t in done
+                                  if jid not in won and t))
             self._log(f"{label}: {lost} claim(s) lost mid-lease; yielded")
+        if skipped:
+            self._log(f"{label}: {len(skipped)} leased job(s) revoked "
+                      "mid-lease (a duplicate committed first); skipped")
         self._trace_flush()
+
+    # -- speculative execution (duplicate leases) ----------------------------
+
+    def run_one(self, spec: TaskSpec, ns: str, job: dict) -> bool:
+        """Execute ONE speculative clone of a straggler's job and race
+        its commit against the original: first commit wins. A clone that
+        loses, fails or sees its lease revoked never touches the job's
+        status or repetitions — it dissolves its shadow lease
+        (``cancel_spec``) and walks away; the original still owns the
+        claim. Spill publishes are idempotent (atomic overwrites of
+        deterministic bytes), which is what makes duplicate execution
+        safe. Returns True when this clone WON the commit race."""
+        jid = job["_id"]
+        label = self._LABELS[ns]
+        revoked = threading.Event()
+        t0 = time.time()
+        try:
+            with self._beating(ns, [jid], revoked=revoked):
+                # the original may have committed between claim_spec and
+                # here; the beat also refreshes the shared record
+                if not self.store.heartbeat(ns, jid, self.name):
+                    self._spec_lost(ns, jid, 0.0,
+                                    f"{label} clone {jid}: decided before "
+                                    "the body started")
+                    return False
+                self.bodies[label] = self.bodies.get(label, 0) + 1
+                with self._body_span(ns, label, job):
+                    times = self._BODIES[ns](self, spec, job)
+        except Exception as exc:
+            self._spec_lost(ns, jid, time.time() - t0,
+                            f"{label} clone {jid}: body failed "
+                            f"({type(exc).__name__}: {exc}) — the original "
+                            "keeps the lease, nothing charged")
+            return False
+        if revoked.is_set():
+            # the beat saw the lease gone mid-body (the original won, or
+            # the detector retracted this clone): the commit would miss
+            self._spec_lost(ns, jid, time.time() - t0,
+                            f"{label} clone {jid}: revoked mid-body — "
+                            "commit skipped")
+            return False
+        committed = self.store.commit_batch(ns, self.name,
+                                            [(jid, _times_dict(times))])
+        if not committed:
+            self._spec_lost(ns, jid, time.time() - t0,
+                            f"{label} clone {jid}: lost the commit race")
+            return False
+        if ns == MAP_NS and self._push_on():
+            # first-commit-wins decided: this clone's quarantined inbox
+            # lineage becomes the visible one. Best effort — the
+            # server's ensure_canonical promotes a complete spec lineage
+            # behind a WRITTEN job whose promoter died here
+            try:
+                promote(get_storage_from(spec.storage), spec.result_ns,
+                        map_key_str(jid), lineage_token(self.name),
+                        self._replication())
+            except Exception as exc:
+                _log.warning("[%s] push promote failed (%s: %s); the "
+                             "server's backstop covers it", self.name,
+                             type(exc).__name__, exc)
+        COUNTERS.bump("spec_wins")
+        self._note_duration(ns, times.real)
+        self._settle_committed(ns, committed)
+        self._persist_ewma(ns)
+        self._log(f"{label} clone {jid} WON the commit race "
+                  f"({times.real:.3f}s)")
+        self._trace_flush()
+        return True
+
+    def _spec_lost(self, ns: str, jid: int, wasted_s: float,
+                   msg: str) -> None:
+        """A clone that did not win: dissolve the shadow lease and book
+        the wasted seconds — no status op is ever issued."""
+        self.store.cancel_spec(ns, jid, self.name)
+        COUNTERS.bump("spec_cancelled")
+        if wasted_s > 0:
+            COUNTERS.bump("spec_wasted_s", wasted_s)
+        self._log(msg)
+        self._trace_flush()
+
+    def _persist_ewma(self, ns: str) -> None:
+        """Fold this worker's per-namespace duration EWMA into the task
+        document's fleet aggregate, which the server's straggler detector
+        and fresh workers read. Rides the lease-end commit and skips a
+        value within 10% of the last one pushed, so the fault-free cost
+        is one extra ``update_task`` per meaningful shift."""
+        mine = self._dur_ewma.get(ns)
+        if mine is None or mine <= 0:
+            return
+        # a doc-seeded worker waits for two own observations: before
+        # that its estimate is mostly the doc's value plus one possibly
+        # warm-up-inflated sample
+        if ns in self._ewma_seeded and self._ewma_own_n.get(ns, 0) < 2:
+            return
+        last = self._ewma_pushed.get(ns)
+        if last is not None and abs(mine - last) < 0.1 * last:
+            return
+        fleet = self._fleet_ewma.get(ns)
+        merged = (mine if not fleet
+                  else _FLEET_ALPHA * mine + (1 - _FLEET_ALPHA) * fleet)
+        try:
+            self.store.update_task({f"dur_ewma:{ns}": merged})
+        except Exception:
+            return          # no task doc / a store blip: purely advisory
+        self._fleet_ewma[ns] = merged
+        self._ewma_pushed[ns] = mine
 
     def _settle_committed(self, ns: str, committed: List[int]) -> None:
         """Book committed jobs: execution count + map affinity."""

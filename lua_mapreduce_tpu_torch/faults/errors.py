@@ -116,6 +116,14 @@ class InjectedPermanentFault(PermanentStoreError):
     """Deterministic-injection flavor of a permanent fault."""
 
 
+class NativeIndexError(TransientStoreError, OSError):
+    """A job-index engine op reported failure without an errno (the
+    native jsx_* calls return -1 on any IO/lock trouble). Transient —
+    flock contention and IO pressure are the realistic causes, and the
+    retry budget bounds the cost of being wrong. Subclasses OSError so
+    callers catching that keep catching it."""
+
+
 class NoTaskError(PermanentStoreError, RuntimeError):
     """update_task on a store with no task document — a protocol misuse,
     never retryable. Subclasses RuntimeError so pre-taxonomy callers
@@ -125,6 +133,15 @@ class NoTaskError(PermanentStoreError, RuntimeError):
 class ConcurrentInsertError(PermanentStoreError, RuntimeError):
     """Two inserters raced a namespace (a namespace has exactly ONE
     inserter — the server). Deterministic protocol violation."""
+
+
+class NativeEngineError(PermanentStoreError, RuntimeError):
+    """The native index engine is unusable by construction — ABI drift
+    from idx_py, a library without the ABI export, or an explicitly
+    requested native engine that does not build. Retrying cannot
+    rebuild a library, so the retry layer fails fast. (Distinct from
+    :class:`NativeIndexError`, the TRANSIENT per-op failure of a
+    healthy engine.)"""
 
 
 class LostShuffleDataError(TransientStoreError):

@@ -75,14 +75,15 @@ _KINDS = ("transient", "permanent", "latency", "torn", "error_after_write",
 # put_task/delete_task/drop_ns are idempotent on replay (overwrite /
 # tolerate-missing) — the server's inter-phase housekeeping must not
 # abort a whole task over one store blip any more than scavenge may.
-# The JAX package's set also holds the speculation RPCs (speculate,
-# claim_spec, cancel_spec), which the port's JobStore does not run yet
-# (ROADMAP A6b): only methods that exist here are named.
+# speculate/cancel_spec are CASed idempotent (a replayed attempt reports
+# False); claim_spec shares claim_batch's non-replayable exclusion from
+# the retry layer (faults/wrappers.py).
 RPC_OPS = frozenset({
     "get_task", "put_task", "update_task", "delete_task", "drop_ns",
     "claim_batch", "commit_batch", "release_batch", "heartbeat",
     "heartbeat_batch", "set_job_status", "set_job_times", "counts",
     "scavenge", "requeue_stale", "insert_error", "drain_errors",
+    "speculate", "claim_spec", "cancel_spec",
 })
 
 # build-only kinds never apply to read ops and vice versa

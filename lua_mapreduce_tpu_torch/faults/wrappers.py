@@ -379,8 +379,11 @@ class RetryingStore(Store):
 # exists to prevent). An unretried claim failure simply surfaces to the
 # worker's poll loop, which sleeps and re-polls; by then the stale
 # requeue recovers any orphan WITHOUT this worker re-claiming blind.
+# claim_spec shares the exclusion for the same shape (a landed first
+# attempt would strand a TAKEN shadow lease nobody executes; harmless —
+# the original still commits — but it holds a speculation-cap slot).
 _WRAPPED_RPCS = tuple(sorted(RPC_OPS))
-_RETRIED_RPCS = tuple(sorted(RPC_OPS - {"claim_batch"}))
+_RETRIED_RPCS = tuple(sorted(RPC_OPS - {"claim_batch", "claim_spec"}))
 
 
 class _JobStoreProxy:

@@ -13,6 +13,10 @@ whole in memory.
 
 File names may contain ``/``; they are flattened with the same escape
 as the JAX package, so both packages read each other's directories.
+``local_path`` names a file's POSIX path for the native C++ paths
+(core/native_{merge,wcmap}.py). A native reader only ever opens names
+that ``build`` published whole (writer drained, fsynced, then renamed),
+and a native writer publishes with its own rename.
 """
 
 from __future__ import annotations
@@ -200,6 +204,11 @@ class SharedStore(Store):
 
     def size(self, name: str) -> int:
         return os.path.getsize(os.path.join(self.path, _encode(name)))
+
+    def local_path(self, name: str) -> str:
+        """POSIX path of ``name``: native code (the C++ shuffle merge and
+        word-count map) reads and publishes runs directly."""
+        return os.path.join(self.path, _encode(name))
 
     def exists(self, name: str) -> bool:
         return os.path.exists(os.path.join(self.path, _encode(name)))

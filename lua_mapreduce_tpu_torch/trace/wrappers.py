@@ -201,9 +201,30 @@ class TracingJobStore:
         self._tracer.add(f"status.{label}", sp["t0"], sp["t1"], ns=args[0],
                          job_id=args[1], attempt=-1, parent=sp["sid"])
 
+    def _post_claim_spec(self, sp, args, out):
+        if out is not None:
+            self._tracer.add(
+                "claim", sp["t0"], sp["t1"], ns=args[0],
+                job_id=out.get("_id"),
+                attempt=int(out.get("repetitions") or 0),
+                parent=sp["sid"], speculative=True)
+
+    def _post_speculate(self, sp, args, out):
+        if out:
+            self._tracer.add("speculate", sp["t0"], sp["t1"], ns=args[0],
+                             job_id=args[1], attempt=-1, parent=sp["sid"])
+
+    def _post_cancel_spec(self, sp, args, out):
+        if out:
+            self._tracer.add("spec_cancel", sp["t0"], sp["t1"], ns=args[0],
+                             job_id=args[1], attempt=-1, parent=sp["sid"])
+
     _POST = {"claim_batch": _post_claim_batch,
+             "claim_spec": _post_claim_spec,
              "commit_batch": _post_commit_batch,
-             "set_job_status": _post_set_job_status}
+             "set_job_status": _post_set_job_status,
+             "speculate": _post_speculate,
+             "cancel_spec": _post_cancel_spec}
 
 
 def _make_rpc_wrappers():

@@ -7,9 +7,11 @@ bumps, the plan fired. The helpers the other chaos files share
 (``tests/test_torch_chaos_{replication,push,sigkill,coded}.py``) live
 here: the word count as an importable module, its storage specs, the
 result-byte oracle, the seeded plan mix, the LocalExecutor and
-distributed-pool legs (the port has no speculative leases, so the pool
-leg takes no ``speculation``/``straggler``) and the SIGKILLed-pusher
-leg."""
+distributed-pool legs (with ``speculation`` and a ``straggler`` worker)
+and the SIGKILLed-pusher leg. The speculation legs are the JAX file's
+:446-498 and :615: one deterministically slow worker, clones racing its
+leases, output byte-identical to the fault-free twin with zero
+repetition charges."""
 
 import threading
 from typing import Dict
@@ -122,8 +124,8 @@ def _run_local(tmp_path, backend, pipeline, tag, plan=None, replication=1,
 
 
 def _run_distributed(tmp_path, backend, pipeline, tag, plan=None,
-                     n_workers=2, replication=1, batch_k=2, push=False,
-                     coding=None):
+                     n_workers=2, replication=1, speculation=0.0,
+                     straggler=False, batch_k=2, push=False, coding=None):
     _install_module()
     spec = TaskSpec(taskfn=_MOD, mapfn=_MOD, partitionfn=_MOD,
                     reducefn=_MOD, init_args={"device": "cpu"},
@@ -135,14 +137,34 @@ def _run_distributed(tmp_path, backend, pipeline, tag, plan=None,
                         premerge_min_runs=2, batch_k=batch_k,
                         segment_format="v2" if pipeline else "v1",
                         replication=replication, coding=coding,
-                        push=push).configure(spec)
-        workers = [Worker(store).configure(max_iter=800, max_sleep=0.02)
-                   for _ in range(n_workers)]
+                        speculation=speculation, push=push).configure(spec)
+        # ``straggler`` names the LAST worker "straggler-0" (the slow
+        # FaultPlan kind routes by worker name) and gives it a head start
+        # so it deterministically holds at least one lease
+        names = ([f"healthy-{i}" for i in range(n_workers - 1)]
+                 + ["straggler-0"] if straggler else [None] * n_workers)
+        workers = [Worker(store, name=names[i]).configure(max_iter=800,
+                                                          max_sleep=0.02)
+                   for i in range(n_workers)]
         threads = [threading.Thread(target=w.execute, daemon=True)
                    for w in workers]
-        for t in threads:
-            t.start()
-        stats = server.loop()
+        if straggler:
+            final = {}
+            st = threading.Thread(
+                target=lambda: final.setdefault("stats", server.loop()),
+                daemon=True)
+            st.start()
+            threads[-1].start()
+            _wait_for_claim(store)
+            for t in threads[:-1]:
+                t.start()
+            st.join(timeout=120)
+            assert not st.is_alive(), "server wedged under the straggler"
+            stats = final["stats"]
+        else:
+            for t in threads:
+                t.start()
+            stats = server.loop()
         for t in threads:
             t.join(timeout=30)
     finally:
@@ -161,18 +183,36 @@ def _run_distributed(tmp_path, backend, pipeline, tag, plan=None,
            for k, v in iter_results(get_storage_from(spec.storage),
                                     "result")}
     assert got == GOLDEN
+    # speculation legs narrow to final result files: a disowned
+    # straggler finishing after the winner's reduce consumed the runs
+    # leaves identical-bytes run files behind (its commit lands nowhere)
     return _result_bytes(spec.storage,
-                         only_results=replication > 1
+                         only_results=replication > 1 or speculation > 0
                          or push or coding is not None), stats
 
 
-def _sigkill_pusher_leg(tmp_path, modname, coding=None):
+def _wait_for_claim(store, timeout=30.0):
+    """Block until some worker holds a RUNNING lease (the straggler's
+    head start)."""
+    import time
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        if store.counts(MAP_NS)[Status.RUNNING] > 0:
+            return
+        time.sleep(0.005)
+    raise AssertionError("straggler never claimed a lease")
+
+
+def _sigkill_pusher_leg(tmp_path, modname, coding=None, clone=False):
     """SIGKILL a pushing mapper mid-frame (a real subprocess worker,
     slowed by the plan so it is verifiably mid-push when killed); the
     stale requeue hands its job to a healthy worker (exactly one
-    repetition charged, on that job only). The victim's partial inbox
-    (frames with no manifest) stays invisible and is swept; output is
-    byte-identical to the fault-free staged twin.
+    repetition charged, on that job only) — or, with ``clone``, the
+    stale requeue is OFF and speculation is on (the JAX file's form):
+    only a clone's first-commit-wins coverage can finish the job, at
+    zero repetitions. The victim's partial inbox (frames with no
+    manifest) stays invisible and is swept; output is byte-identical to
+    the fault-free staged twin.
 
     With ``coding`` set the same storm runs on the erasure-coded push
     plane (DESIGN §27): the kill lands mid-STRIPE, and the manifest
@@ -236,7 +276,8 @@ def _sigkill_pusher_leg(tmp_path, modname, coding=None):
         victim = spawn("victim-0")
         store = FileJobStore(str(coord))
         server = Server(store, poll_interval=0.05, push=True,
-                        stale_timeout_s=2.0, batch_k=1,
+                        stale_timeout_s=None if clone else 2.0,
+                        speculation=2.0 if clone else 0.0, batch_k=1,
                         coding=coding).configure(spec)
         final = {}
         st = threading.Thread(
@@ -328,9 +369,13 @@ def _sigkill_pusher_leg(tmp_path, modname, coding=None):
     assert got == GOLDEN
     assert _result_bytes(spec.storage, only_results=True) == clean
     # the stale requeue covered the dead victim's job: one repetition
-    # charged there, none anywhere else, nothing FAILED
+    # charged there, none anywhere else, nothing FAILED; a clone covers
+    # it at zero charge (its win is counted in the clone's process: the
+    # server-side proof is the detector's opened lease)
+    if clone:
+        assert stats.iterations[-1].spec_launched >= 1
     for d in store.jobs(MAP_NS):
-        want = 1 if d["_id"] in victim_jobs else 0
+        want = 1 if d["_id"] in victim_jobs and not clone else 0
         assert d["repetitions"] == want, \
             f"map job {d['_id']}: {d['repetitions']} repetitions"
         assert d["status"] == Status.WRITTEN
@@ -414,3 +459,94 @@ def test_chaos_rpc_faults_on_coord_plane(tmp_path):
                                   plan=plan)
     assert chaotic == clean
     assert plan.fired.get("rpc_transient", 0) > 0
+
+
+# --- speculation legs (the JAX file's :446-498, :615) ------------------------
+
+def _slow_plan(seed, slow_ms=120.0):
+    """Every data-plane op by the straggler pays ``slow_ms`` for the
+    whole run: a deterministic straggler."""
+    return FaultPlan(seed, slow_worker="straggler-*", slow_ms=slow_ms,
+                     slow_s=3600.0)
+
+
+def test_speculation_smoke_straggler(tmp_path):
+    """One fast leg: a slow worker, a clone wins, byte-identical output,
+    zero repetition charges (asserted per job in _run_distributed)."""
+    clean, _ = _run_distributed(tmp_path, "mem", False, "spec-smoke-c")
+    plan = _slow_plan(81)
+    chaotic, stats = _run_distributed(
+        tmp_path, "mem", False, "spec-smoke-f", plan=plan, n_workers=3,
+        speculation=3.0, straggler=True, batch_k=1)
+    assert chaotic == clean, "speculation leg output differs"
+    assert plan.fired.get("slow", 0) > 0, "the straggler was never slowed"
+    it = stats.iterations[-1]
+    assert it.spec_launched >= 1, "detector never opened a shadow lease"
+    assert it.spec_wins >= 1, "no clone ever won the commit race"
+
+
+@pytest.mark.parametrize("pipeline", [False, True],
+                         ids=["barrier", "pipelined"])
+@pytest.mark.parametrize("backend", ["mem", "shared", "object"])
+def test_speculation_chaos_matrix(tmp_path, backend, pipeline):
+    """A slow-plan straggler on every backend × both shuffle modes:
+    speculation-on output byte-identical to the fault-free twin, zero
+    repetition bumps, spec_wins ≥ 1."""
+    tag = f"spec-{backend}-{int(pipeline)}"
+    clean, _ = _run_distributed(tmp_path, backend, pipeline, tag + "-c")
+    plan = _slow_plan(83)
+    chaotic, stats = _run_distributed(
+        tmp_path, backend, pipeline, tag + "-f", plan=plan, n_workers=3,
+        speculation=3.0, straggler=True, batch_k=1)
+    assert chaotic == clean, "speculation leg output differs"
+    assert plan.fired.get("slow", 0) > 0
+    it = stats.iterations[-1]
+    assert it.spec_wins >= 1, "no clone ever won the commit race"
+    assert it.map.failed == 0 and it.reduce.failed == 0
+
+
+def test_speculation_off_same_bytes_under_straggler(tmp_path):
+    """The same straggler with speculation OFF gives the same bytes
+    (slower), and the ON run matches both: speculation changes who
+    computes, never what."""
+    clean, _ = _run_distributed(tmp_path, "mem", False, "spec3-c")
+    off, off_stats = _run_distributed(
+        tmp_path, "mem", False, "spec3-off", plan=_slow_plan(89),
+        n_workers=3, straggler=True, batch_k=1, speculation=0.0)
+    on, on_stats = _run_distributed(
+        tmp_path, "mem", False, "spec3-on", plan=_slow_plan(89),
+        n_workers=3, straggler=True, batch_k=1, speculation=3.0)
+    assert off == clean and on == clean
+    assert off_stats.iterations[-1].spec_launched == 0
+    assert on_stats.iterations[-1].spec_wins >= 1
+
+
+def test_push_chaos_spec_straggler_quarantine(tmp_path):
+    """A slow-plan straggler with speculation on a PUSH run: clones race
+    the straggler's maps, first-commit-wins decides each visible inbox
+    lineage, output byte-identical with zero repetition charges, and no
+    quarantined (spec-tagged) fragment is left outside its winning
+    lineage."""
+    from lua_mapreduce_tpu_torch.engine.push import (manifest_name,
+                                                     parse_inbox_name,
+                                                     read_manifest)
+    clean, _ = _run_distributed(tmp_path, "mem", True, "push-spec-c")
+    plan = _slow_plan(227)
+    chaotic, stats = _run_distributed(
+        tmp_path, "mem", True, "push-spec-f", plan=plan, n_workers=3,
+        speculation=3.0, straggler=True, batch_k=1, push=True)
+    assert chaotic == clean, "push speculation leg output differs"
+    assert plan.fired.get("slow", 0) > 0
+    it = stats.iterations[-1]
+    assert it.spec_wins >= 1, "no clone ever won the commit race"
+    assert it.push_frames > 0
+    store = get_storage_from(_storage(tmp_path, "mem", "push-spec-f"))
+    for name in store.list("result.P*.INBOX-*"):
+        parsed = parse_inbox_name("result", name)
+        assert parsed is not None
+        part, key, lineage, _seq, _tail = parsed
+        if lineage is None:
+            continue
+        man = read_manifest(store, manifest_name("result", key))
+        assert man is not None and man.get("lineage") == lineage, \
+            f"quarantined fragment {name} visible outside its lineage"

@@ -1,8 +1,10 @@
 """The push shuffle under chaos, on the port ≡ the JAX package's
-``tests/test_chaos.py:578-614, 648-858`` without the speculation
-straggler leg: seeded faults on a push run, a placement tag dark while
-frames are pushed, and a pushing mapper SIGKILLed mid-frame (and
-mid-stripe under coding)."""
+``tests/test_chaos.py:578-614, 648-858``: seeded faults on a push run, a
+placement tag dark while frames are pushed, and a pushing mapper
+SIGKILLed mid-frame (and mid-stripe under coding), covered by the stale
+requeue and, as in the JAX file, by a speculative clone with the stale
+requeue off. The speculation straggler leg is in
+tests/test_torch_chaos.py."""
 
 from test_torch_chaos import _plan, _run_local, _sigkill_pusher_leg
 from lua_mapreduce_tpu_torch.faults import FaultPlan
@@ -12,10 +14,8 @@ from lua_mapreduce_tpu_torch.faults import FaultPlan
 #
 # The streaming shuffle under the same storms as the staged plane —
 # seeded transient faults, a whole placement tag dark during the push,
-# and a SIGKILLed mapper mid-frame. The port has no speculative leases
-# (ROADMAP A6b), so the killed mapper's job is covered by the stale
-# requeue (one repetition charged) where the JAX suite's clone covers
-# it at zero charge.
+# and a SIGKILLed mapper mid-frame, its job covered by the stale requeue
+# (one repetition charged) or by a clone (zero charged).
 
 def test_push_chaos_smoke_faultplan(tmp_path):
     """Seeded transient/latency/error-after-write faults on a push run:
@@ -56,3 +56,9 @@ def test_push_chaos_blackout_tag(tmp_path):
 
 def test_push_chaos_sigkill_pusher_midframe(tmp_path):
     _sigkill_pusher_leg(tmp_path, "pushkill_wc")
+
+
+def test_push_chaos_sigkill_pusher_midframe_clone_covers(tmp_path):
+    """The JAX file's form: the stale requeue off, speculation on — a
+    clone finishes the killed pusher's job at zero repetitions."""
+    _sigkill_pusher_leg(tmp_path, "pushkill_clone_wc", clone=True)

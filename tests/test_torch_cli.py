@@ -129,6 +129,8 @@ _PORTED_SERVER = (
     ("--retry-base-ms", dict(type=float, default=None)),
     ("--trace", dict(action="store_true")),
     ("--profile", dict(default=None)),
+    ("--speculation-factor", dict(type=float, default=None)),
+    ("--speculation-cap", dict(type=int, default=2)),
 )
 _PORTED_WORKER = (
     ("--segment-format", dict(choices=("v1", "v2"), default=None)),

@@ -208,10 +208,9 @@ def test_file_store_shares_the_jax_package_format(tmp_path):
 
 def test_the_store_is_only_its_persistent_half():
     """The job store's abstract surface is the JAX package's — the
-    persistent half (PR 9) and the claim half (PR 12) — and the one part
-    not ported, speculative duplicate leases, raises instead of being
-    absent or stubbed silently. (The name is kept from when the port
-    had only the persistent half.)"""
+    persistent half (PR 9), the claim half (PR 12) and the speculative
+    duplicate leases (PR 17). (The name is kept from when the port had
+    only the persistent half.)"""
     from lua_mapreduce_tpu.coord.jobstore import JobStore as JaxJobStore
     assert JobStore.__abstractmethods__ == JaxJobStore.__abstractmethods__
     assert {"pt_get", "pt_cas", "pt_delete"} <= JobStore.__abstractmethods__
@@ -219,5 +218,6 @@ def test_the_store_is_only_its_persistent_half():
                  "drain_errors"):
         assert callable(getattr(MemJobStore(), name))
         assert callable(getattr(FileJobStore, name))
-    with pytest.raises(NotImplementedError, match="A6b"):
-        MemJobStore().speculate("map_jobs", 0)
+    # speculative duplicate leases run now: no job, no lease
+    assert MemJobStore().speculate("map_jobs", 0) is False
+    assert MemJobStore().claim_spec("map_jobs", "w") is None

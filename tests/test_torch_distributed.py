@@ -659,7 +659,8 @@ def test_loop_state_frame_round_trips_and_refuses_damage():
 
 @pytest.mark.parametrize("option,value", [
     ("pipeline", True), ("push", True), ("replication", 2),
-    ("coding", "4+1"), ("segment_format", "v2"), ("premerge_min_runs", 2)])
+    ("coding", "4+1"), ("segment_format", "v2"), ("premerge_min_runs", 2),
+    ("speculation", 2.0)])
 def test_ported_server_options_are_taken(option, value):
     if option == "coding":
         # the server's unified redundancy value is the Coding
@@ -670,8 +671,7 @@ def test_ported_server_options_are_taken(option, value):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("speculation", 2.0), ("autotune", True), ("ha", True),
-    ("lease_ttl_s", 5.0)])
+    ("autotune", True), ("ha", True), ("lease_ttl_s", 5.0)])
 def test_trimmed_server_options_raise(option, value):
     with pytest.raises(NotImplementedError, match="A6b"):
         Server(MemJobStore(), **{option: value})
@@ -721,7 +721,7 @@ def _task_doc_store(key, value):
 
 @pytest.mark.parametrize("key,value", [
     ("pipeline", True), ("push", True), ("segment_format", "v2"),
-    ("replication", 2), ("coding", "4+1")])
+    ("replication", 2), ("coding", "4+1"), ("speculation", 1.5)])
 def test_worker_runs_a_task_doc_deploying_a_ported_plane(key, value):
     """A task document from a JAX-package server that deploys a plane
     the port runs: the port worker takes it (nothing to claim yet:
@@ -729,8 +729,7 @@ def test_worker_runs_a_task_doc_deploying_a_ported_plane(key, value):
     assert Worker(_task_doc_store(key, value)).poll_once() == "idle"
 
 
-@pytest.mark.parametrize("key,value", [
-    ("speculation", 1.5), ("autotune", True)])
+@pytest.mark.parametrize("key,value", [("autotune", True)])
 def test_worker_refuses_a_task_doc_deploying_a_trimmed_plane(key, value):
     """A task document from a JAX-package server that deploys a plane
     the port does not run: the port worker raises instead of running a

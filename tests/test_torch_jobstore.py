@@ -4,9 +4,9 @@ ownership CAS, the batch lease (claim, commit, release, heartbeat),
 preferred/steal, the errors stream and task doc, concurrent claims and
 the payload-batch cache — the non-native tests of tests/test_jobstore.py
 on ``MemJobStore`` and the ``FileJobStore`` (``engine="python"``, and
-``"auto"``, which resolves to it) — and the shared on-disk format: jobs
-inserted by one package's ``FileJobStore`` are claimed and committed by
-the other's, and their statuses read back equal."""
+``"auto"``, the native index where it builds) — and the shared on-disk
+format: jobs inserted by one package's ``FileJobStore`` are claimed and
+committed by the other's, and their statuses read back equal."""
 
 import threading
 import time
@@ -450,17 +450,26 @@ def test_mem_store_claim_timestamps_decided_before_lock():
 # the port's own surface: engines, trimmed operations, the shared format
 # ---------------------------------------------------------------------------
 
-def test_index_engines(tmp_path):
-    """"auto" resolves to the Python index (what the JAX package's auto
-    does where its native build is missing); "native" is A6b; the
-    layout constants are the JAX package's JSIX0003."""
+def test_index_engines(tmp_path, monkeypatch):
+    """"auto" resolves to the native index where it builds (g++ here),
+    as the JAX package's auto does, and to the Python index under
+    LMR_DISABLE_NATIVE=1, where "native" raises; the layout constants
+    are the JAX package's JSIX0003."""
     from lua_mapreduce_tpu.coord import idx_py as jax_idx_py
-    assert type(open_index(str(tmp_path / "a.idx"), "auto")) is PyJobIndex
+    from lua_mapreduce_tpu_torch.coord.idx import NativeJobIndex
+    from lua_mapreduce_tpu_torch.faults.errors import NativeEngineError
+    assert type(open_index(str(tmp_path / "a.idx"), "auto")) \
+        is NativeJobIndex
     assert type(open_index(str(tmp_path / "p.idx"), "python")) is PyJobIndex
-    with pytest.raises(NotImplementedError, match="A6b"):
+    assert type(open_index(str(tmp_path / "n.idx"), "native")) \
+        is NativeJobIndex
+    FileJobStore(str(tmp_path / "fs"), engine="native")
+    monkeypatch.setenv("LMR_DISABLE_NATIVE", "1")
+    assert type(open_index(str(tmp_path / "a.idx"), "auto")) is PyJobIndex
+    with pytest.raises(NativeEngineError, match="LMR_DISABLE_NATIVE"):
         open_index(str(tmp_path / "n.idx"), "native")
-    with pytest.raises(NotImplementedError, match="A6b"):
-        FileJobStore(str(tmp_path / "fs"), engine="native")
+    with pytest.raises(NativeEngineError):
+        FileJobStore(str(tmp_path / "fs2"), engine="native")
     with pytest.raises(ValueError):
         open_index(str(tmp_path / "x.idx"), "fast")
     assert (idx_py.MAGIC, idx_py.HEADER_SIZE, idx_py.RECORD_SIZE) == \
@@ -470,14 +479,16 @@ def test_index_engines(tmp_path):
 
 @pytest.mark.parametrize("idx", [0, 1], ids=["mem", "file-py"])
 def test_speculation_is_not_ported(tmp_path, idx):
+    """Duplicate leases are ported now: the calls that raised run the
+    speculation lifecycle (tests/test_torch_speculation.py has the
+    rest)."""
     store = _stores(tmp_path)[idx]
     store.insert_jobs("ns", [make_job(0, "x")])
     store.claim("ns", "w")
-    for call in (lambda: store.speculate("ns", 0),
-                 lambda: store.claim_spec("ns", "w2"),
-                 lambda: store.cancel_spec("ns", 0, "w2")):
-        with pytest.raises(NotImplementedError, match="A6b"):
-            call()
+    assert store.speculate("ns", 0)
+    assert store.claim_spec("ns", "w2")["_id"] == 0
+    assert store.cancel_spec("ns", 0, "w2")
+    assert not store.cancel_spec("ns", 0, "w2")
 
 
 def _statuses(store, ns):

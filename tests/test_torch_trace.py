@@ -6,8 +6,9 @@ the wrapper layers are absent when off, every committed job keeps an
 unbroken claim → body → commit chain under a fault plan, an errors
 entry links to its live span, both executors fold the same counter key
 set as the JAX package, and ``--trace --profile`` puts span names into
-the torch profile. Counterparts of ``tests/test_trace.py``; its
-speculation chains (:317) wait on a later slice (ROADMAP A6b)."""
+the torch profile, and a speculated job shows one commit span beside
+its clone's speculative claim and a loser chain. Counterparts of
+``tests/test_trace.py``."""
 
 import dataclasses
 import glob
@@ -109,7 +110,8 @@ def _run_local(tmp_path, backend, tag, traced, pipeline=True, plan=None,
 
 
 def _run_distributed(tmp_path, backend, tag, traced, plan=None,
-                     n_workers=2, batch_k=2, pipeline=False):
+                     n_workers=2, batch_k=2, pipeline=False,
+                     speculation=0.0, straggler=False):
     spec = _spec(_storage(tmp_path, backend, tag))
     store = MemJobStore()
     install_fault_plan(plan)
@@ -117,14 +119,38 @@ def _run_distributed(tmp_path, backend, tag, traced, plan=None,
     try:
         server = Server(store, poll_interval=0.01, pipeline=pipeline,
                         premerge_min_runs=2, batch_k=batch_k,
+                        speculation=speculation,
                         engine="store").configure(spec)
-        workers = [Worker(store).configure(max_iter=800, max_sleep=0.02)
-                   for _ in range(n_workers)]
+        # ``straggler``: the last worker is "straggler-0" (the slow plan
+        # kind's target) and claims first
+        names = ([f"healthy-{i}" for i in range(n_workers - 1)]
+                 + ["straggler-0"] if straggler else [None] * n_workers)
+        workers = [Worker(store, name=names[i]).configure(max_iter=800,
+                                                          max_sleep=0.02)
+                   for i in range(n_workers)]
         threads = [threading.Thread(target=w.execute, daemon=True)
                    for w in workers]
-        for t in threads:
-            t.start()
-        stats = server.loop()
+        if straggler:
+            import time
+            final = {}
+            st = threading.Thread(
+                target=lambda: final.setdefault("stats", server.loop()),
+                daemon=True)
+            st.start()
+            threads[-1].start()
+            deadline = time.time() + 30
+            while store.counts(MAP_NS)[Status.RUNNING] == 0:
+                assert time.time() < deadline, "no lease was claimed"
+                time.sleep(0.005)
+            for t in threads[:-1]:
+                t.start()
+            st.join(timeout=120)
+            assert not st.is_alive(), "server wedged under the straggler"
+            stats = final["stats"]
+        else:
+            for t in threads:
+                t.start()
+            stats = server.loop()
         for t in threads:
             t.join(timeout=30)
     finally:
@@ -317,6 +343,30 @@ def test_trace_completeness_under_chaos(tmp_path, pipeline):
     for ns in (MAP_NS, PRE_NS, RED_NS):
         for d in store.jobs(ns):
             assert d["repetitions"] == 0
+
+
+def test_trace_speculation_winner_and_loser_chains(tmp_path):
+    """A slow-plan straggler with speculation on: the speculated job has
+    exactly one commit span (first commit wins), the clone's speculative
+    claim span, and a loser chain — a second worker's body with no
+    commit, or a cancelled clone."""
+    plan = FaultPlan(91, slow_worker="straggler-*", slow_ms=120.0,
+                     slow_s=3600.0)
+    spec, store, stats, _ = _run_distributed(
+        tmp_path, "mem", "ttr-spec", traced=True, plan=plan, n_workers=3,
+        speculation=3.0, straggler=True, batch_k=1)
+    it = stats.iterations[-1]
+    assert it.spec_launched >= 1 and it.spec_wins >= 1
+    col = TraceCollection.from_store(get_storage_from(spec.storage))
+    assert col.check_complete(_committed(store)) == []
+    outcomes = col.speculation_outcomes()
+    assert outcomes, "no speculative claim spans recorded"
+    assert all(o["commit_count"] == 1 for o in outcomes), outcomes
+    assert any(o["losers"] or o["cancelled"] for o in outcomes), outcomes
+    assert validate_chrome(col.to_chrome()) == []
+    # the collector's reading of these spans equals the JAX package's
+    jcol = jax_collect.TraceCollection(col.spans)
+    assert jcol.speculation_outcomes() == outcomes
 
 
 def test_error_entry_links_to_live_span(tmp_path):

@@ -1,10 +1,9 @@
-"""The guard on what the port still does not run (ROADMAP A6b.3-6):
-speculation, autotune, the HA leader lease, the idle-poll waiter and
-the native index. Each entry point refuses each such option with
-NotImplementedError naming A6b, accepts it at its "off" value, and a
-task document deploying speculation or autotune is refused; the
-options this slice ported (replication, coding, push) are no longer
-among them."""
+"""The guard on what the port still does not run (ROADMAP A6b.5-6):
+autotune, the HA leader lease and the idle-poll waiter. Each entry
+point refuses each such option with NotImplementedError naming A6b,
+accepts it at its "off" value, and a task document deploying autotune
+is refused. The options ported since (replication, coding, push; the
+native index and speculation) are no longer among them, and run."""
 
 import pytest
 
@@ -27,7 +26,6 @@ def _spec(tag):
 
 
 @pytest.mark.parametrize("option,value,off", [
-    ("speculation", 2.0, 0), ("speculation_cap", 3, 2),
     ("autotune", True, False), ("autotune_config", object(), None),
     ("ha", True, False), ("lease_ttl_s", 5.0, None)])
 def test_server_still_trimmed_options_raise(option, value, off):
@@ -46,8 +44,7 @@ def test_executor_and_worker_still_trimmed_options_raise():
     w.configure(idle_poll_ms=None)
 
 
-@pytest.mark.parametrize("key,value", [("speculation", 1.5),
-                                       ("autotune", True)])
+@pytest.mark.parametrize("key,value", [("autotune", True)])
 def test_task_doc_deploying_a_still_trimmed_plane_is_refused(key, value):
     doc = {"_id": "unique", "status": TaskStatus.MAP.value, key: value}
     with pytest.raises(NotImplementedError, match="A6b"):
@@ -58,14 +55,16 @@ def test_task_doc_deploying_a_still_trimmed_plane_is_refused(key, value):
 
 def test_ported_options_left_the_trimmed_sets():
     from lua_mapreduce_tpu_torch.engine import local, server, worker
-    ported = {"replication", "coding", "push", "push_budget_mb"}
+    ported = {"replication", "coding", "push", "push_budget_mb",
+              "speculation", "speculation_cap"}
     for offs in (local._OFF_VALUES, server._OFF_VALUES,
                  worker._OFF_VALUES):
         assert not ported & set(offs)
     for trimmed in (execute_server.TRIMMED, execute_worker.TRIMMED):
         flags = {f for f, *_ in trimmed}
         assert not flags & {"--replication", "--coding", "--push",
-                            "--push-budget-mb"}
+                            "--push-budget-mb", "--speculation-factor",
+                            "--speculation-cap"}
 
 
 @pytest.mark.parametrize("module", [execute_server, execute_worker],
@@ -80,13 +79,42 @@ def test_every_still_trimmed_flag_raises_naming_a6b(module, tmp_path):
             module.main(head + [flag, *value])
 
 
-def test_native_index_and_duplicate_leases_still_raise(tmp_path):
-    from lua_mapreduce_tpu_torch.coord.idx import open_index
-    with pytest.raises(NotImplementedError, match="A6b"):
-        open_index(str(tmp_path / "idx"), engine="native")
+@pytest.mark.parametrize("option,value", [("speculation", 2.0),
+                                          ("speculation_cap", 3)])
+def test_server_speculation_options_run(option, value):
+    """Replaces the speculation cases of the still-trimmed test: the
+    options are taken now, and a factor below 1 is refused."""
+    assert getattr(Server(MemJobStore(), **{option: value}),
+                   option) == value
+    with pytest.raises(ValueError, match="factor"):
+        Server(MemJobStore(), speculation=0.5)
+
+
+def test_task_doc_deploying_speculation_is_run():
+    """Replaces the speculation case of the refused-doc test: a task
+    document that deploys speculation passes the check and a worker
+    takes its factor (nothing to claim: idle)."""
+    doc = {"_id": "unique", "status": TaskStatus.MAP.value,
+           "speculation": 1.5, "iteration": 1,
+           "spec": _spec("trim-spec").describe()}
+    check_task_doc(doc)
     store = MemJobStore()
-    for op, args in (("speculate", ("map_jobs", 0)),
-                     ("claim_spec", ("map_jobs", "w")),
-                     ("cancel_spec", ("map_jobs", 0, "w"))):
-        with pytest.raises(NotImplementedError, match="A6b"):
-            getattr(store, op)(*args)
+    store.put_task(doc)
+    w = Worker(store)
+    assert w.poll_once() == "idle"
+    assert w._speculation == 1.5
+
+
+def test_native_index_and_duplicate_leases_run(tmp_path):
+    """Replaces the native-index and duplicate-lease raise test: the
+    native engine opens (g++ builds it here) and every duplicate-lease
+    call runs."""
+    from lua_mapreduce_tpu_torch.coord.idx import NativeJobIndex, open_index
+    assert isinstance(open_index(str(tmp_path / "idx"), engine="native"),
+                      NativeJobIndex)
+    store = MemJobStore()
+    store.insert_jobs("map_jobs", [{"key": 0, "value": "x"}])
+    store.claim("map_jobs", "w")
+    assert store.speculate("map_jobs", 0)
+    assert store.claim_spec("map_jobs", "w2")["_id"] == 0
+    assert store.cancel_spec("map_jobs", 0, "w2")
