@@ -202,9 +202,9 @@ Phases, each a hard failure on any mismatch:
              equal to the ``faults_injected`` counted, retries taken,
              every committed job of every iteration with an unbroken
              claim → body → commit span chain; ms/iteration beside phase
-             21's; (b) word count at Europarl v7's shape (197 files of
-             Zipf text from the seed, lines cut from 10,000 to
-             WC_LINES = 250; printed) through ``cli.execute_server --pipeline
+             21's; (b) word count at Europarl v7's shape (Zipf text
+             from the seed; files cut from 197 to WC_FILES_PY = 48 and
+             lines from 10,000 to WC_LINES = 250; printed) through ``cli.execute_server --pipeline
              --segment-format v2 --trace --inline-workers 4`` on
              ``object:`` with the example's 15-way partitioner: counts
              equal to a naive count, result bytes equal to a barrier v1
@@ -260,9 +260,34 @@ Phases, each a hard failure on any mismatch:
              750 lines run natively and in a child with
              ``LMR_DISABLE_NATIVE=1``: result bytes equal. (b) and (c)
              launch no kernel (the device idles).
+27. sched — watch/notify wakeups, the HA leader lease, autotune and
+             fair share, each part byte-equal to phase 21's
+             LocalExecutor run: (a) phase 21's digits task on
+             ``object:`` through two ``execute_worker`` processes, the
+             leader a ``Server(ha=True, lease_ttl_s=HA_TTL_S)`` in a
+             child process and a hot standby ``Server(ha=True)`` a thread
+             of this process; once the standby has stood by and an
+             iteration ≥ 2 has a map job WRITTEN and others not, the
+             leader is SIGKILLed: the standby takes over (epoch 2, holder
+             "" at the end, zero repetitions, launches 5 B1 + 1 B2 per
+             map body) and the seconds from the kill to its
+             ``leader.takeover`` span are printed; (b) the task through
+             ``cli.execute_server.main --autotune --inline-workers 2
+             --autotune-max-workers 4 --batch-k 8 --trace`` in this
+             process: every controller decision with its
+             ``autotune.<knob>`` span, no knob reversed more than once,
+             no job repeated, the fleet sizes seen; (c) one FileJobStore
+             shared by two tenants — the digits task ("train", a stock
+             Server over a ``TenantView``) and a flood of 150 one-record
+             map jobs — served by 3 ``FairWorker`` threads on one
+             ``FairScheduler``: per-tenant dispatch p50/p99 beside a
+             one-tenant FIFO leg's (not gated); (d) phase 21's pool
+             traced with notify on and with ``LMR_SCHED_NOTIFY=0``:
+             byte-equal, ms/iteration and the insert→claim dispatch
+             p50/p99 of each.
 
 Launch counts are zeroed just before each run of phases 4, 5, 6, 8, 10 and
-15-26 (the worker processes of phases 21, 24, 25 and 26 start at zero) and
+15-27 (the worker processes of phases 21, 24-27 start at zero) and
 read just after, and must equal the counts worked out from the code; a
 kernel of the paths with no launch there fails the run. The
 card's name and power limit (after a ``[time]`` line of seconds for each
@@ -4343,6 +4368,10 @@ DP_FAULT_PLAN = ("seed=24;transient=0.04;torn=0.08;error_after_write=0.12;"
 # (printed as a cut). Phase 26(b) runs the published shape through the
 # native C++ map and merges.
 WC_FILES, WC_LINES_PUBLISHED, WC_LINES = 197, 10_000, 250
+# phase 24(b)'s Python path runs fewer files: its map and pre-merge jobs
+# cost the same at any line count, and phase 26(b) carries the published
+# 197 files through the native plane
+WC_FILES_PY = 48
 WC_WORDS_PER_LINE, WC_VOCAB, WC_ZIPF = 25, 100_000, 1.1
 WC_DEVICE = "cuda"          # the workers' device (the task asks for it)
 WC_MODULES = ("examples.wordcount.taskfn", "examples.wordcount.mapfn",
@@ -4636,7 +4665,8 @@ def phase_dataplane(torch, ops, pool):
     # (b) word count at Europarl's shape through the CLI
     wc = os.path.join(base, "wordcount")
     t0 = time.perf_counter()
-    files = europarl_corpus(os.path.join(wc, "corpus"), WC_FILES, WC_LINES)
+    files = europarl_corpus(os.path.join(wc, "corpus"), WC_FILES_PY,
+                            WC_LINES)
     gen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     out = subprocess.run(
@@ -4686,7 +4716,8 @@ def phase_dataplane(torch, ops, pool):
     phases = {r["phase"]: r for r in trep["phases"]}
     n_words = sum(naive.values())
     rep["wordcount"] = {
-        "files": WC_FILES, "lines_per_file": WC_LINES,
+        "files": WC_FILES_PY, "published_files": WC_FILES,
+        "lines_per_file": WC_LINES,
         "published_lines_per_file": WC_LINES_PUBLISHED,
         "words": n_words, "distinct_words": len(naive),
         "partitions": len(got_res), "corpus_s": gen_s, "cli_s": cli_s,
@@ -4694,9 +4725,10 @@ def phase_dataplane(torch, ops, pool):
         "premerge_overlap_from_spans": trep["premerge_overlap"],
         "phases": phases, "spans": trep["spans"], "chrome_trace": chrome}
     w = rep["wordcount"]
-    log(f"[dataplane] word count at Europarl's shape: {WC_FILES} files x "
-        f"{WC_LINES} lines (cut from the published {WC_LINES_PUBLISHED}: "
-        f"pure-Python map/reduce threads under one GIL), {n_words} words, "
+    log(f"[dataplane] word count at Europarl's shape: {WC_FILES_PY} files "
+        f"x {WC_LINES} lines (cut from the published {WC_FILES} x "
+        f"{WC_LINES_PUBLISHED}: pure-Python map/reduce threads under one "
+        f"GIL; phase 26(b) runs the published shape), {n_words} words, "
         f"{len(naive)} distinct, {len(got_res)} partitions (15-way FNV)")
     log(f"[dataplane] execute_server --pipeline --segment-format v2 "
         f"--trace --inline-workers 4 on object: {cli_s:.2f} s with the "
@@ -4932,15 +4964,7 @@ def hold_recovery_run(ops, name, run, want_bytes, spill_spec):
     code's — 5 B1 and 1 B2 per map body the workers ran (re-runs
     included), 2 and 1 per iteration in the server's finalfn."""
     from lua_mapreduce_tpu_torch.core.constants import Status
-    from lua_mapreduce_tpu_torch.store.router import get_storage_from
-    got = {}
-    for sub, spec in (("spill", spill_spec(run["root"])),
-                      ("model", f"shared:{run['root']}/model")):
-        st = get_storage_from(spec)
-        for n in st.list("*"):
-            if n.startswith("result.P") and n.count(".") == 1 or \
-                    n in ("model.ckpt", "model.meta"):
-                got[f"{sub}/{n}"] = st.read_range(n, 0, st.size(n))
+    got = run_files(run["root"], spill_spec)
     if got != want_bytes:
         differ = sorted(n for n in set(want_bytes) | set(got)
                         if want_bytes.get(n) != got.get(n))
@@ -4950,21 +4974,44 @@ def hold_recovery_run(ops, name, run, want_bytes, spill_spec):
            if d["status"] in (Status.BROKEN, Status.FAILED)]
     if bad:
         raise AssertionError(f"{name}: jobs BROKEN/FAILED: {bad[:5]}")
-    zero = dict.fromkeys(ops.KERNELS, 0)
     wreps = run["wreps"]
     bodies = sum(r["bodies"].get("map", 0) for r in wreps)
     worker_counts = {k: sum(r["launches"][k] for r in wreps)
                      for k in ops.KERNELS}
-    want_w = {**zero, "matmul_f32": 5 * bodies, "rowwise_softmax": bodies}
     n_it = len(run["stats"].iterations)
-    want_s = {**zero, "matmul_f32": 2 * n_it, "rowwise_softmax": n_it}
-    if bodies < 4 * POOL_ITERS or worker_counts != want_w \
-            or run["server_counts"] != want_s or n_it != POOL_ITERS:
-        raise AssertionError(
-            f"{name}: {bodies} map bodies, {n_it} iterations; launches "
-            f"workers {worker_counts} (expected {want_w}), server "
-            f"{run['server_counts']} (expected {want_s})")
+    if bodies < 4 * POOL_ITERS or n_it != POOL_ITERS:
+        raise AssertionError(f"{name}: {bodies} map bodies, {n_it} "
+                             f"iterations")
+    hold_launches(ops, name, worker_counts, bodies, 0)
+    hold_launches(ops, name, run["server_counts"], 0, n_it)
     return bodies, worker_counts
+
+
+def run_files(root, spill_spec):
+    """A digits run's output files by name: the ``result.P*`` files read
+    through ``spill_spec(root)``, the model checkpoint and its meta."""
+    from lua_mapreduce_tpu_torch.store.router import get_storage_from
+    got = {}
+    for sub, spec in (("spill", spill_spec(root)),
+                      ("model", f"shared:{root}/model")):
+        st = get_storage_from(spec)
+        for n in st.list("*"):
+            if n.startswith("result.P") and n.count(".") == 1 or \
+                    n in ("model.ckpt", "model.meta"):
+                got[f"{sub}/{n}"] = st.read_range(n, 0, st.size(n))
+    return got
+
+
+def hold_launches(ops, name, got, bodies, iterations):
+    """The digits task's launches: 5 B1 and 1 B2 per map body (re-runs
+    included), 2 and 1 per iteration's finalfn."""
+    want = {**dict.fromkeys(ops.KERNELS, 0),
+            "matmul_f32": 5 * bodies + 2 * iterations,
+            "rowwise_softmax": bodies + iterations}
+    if got != want:
+        raise AssertionError(f"{name}: launches {got}, expected {want} "
+                             f"({bodies} map bodies, {iterations} "
+                             f"iterations' finalfn)")
 
 
 def phase_recovery(torch, ops):
@@ -5460,6 +5507,554 @@ def phase_native(torch, ops, pool, dataplane):
     return runs, rep
 
 
+# ------------------------------------------------------------ phase 27
+#
+# the sched plane on phase 21's digits task. (a)'s leader lease lives
+# HA_TTL_S seconds; (c)'s flood and its FIFO leg are the JAX package's
+# starvation case (tests/test_sched.py:318-382): FLOOD_JOBS one-record
+# map jobs, FIFO_BARRIER_JOBS barrier jobs behind them in the FIFO leg,
+# FAIR_MEMBERS FairWorker threads
+HA_TTL_S = 2.0
+FLOOD_JOBS, FIFO_BARRIER_JOBS, FAIR_MEMBERS = 150, 8, 3
+SCHED_MOD = "benchmarks.sched_task"
+
+
+def ha_leader_child(coord, root, jobs_path, args_json):
+    """Phase 27(a)'s leader: ``Server(ha=True)`` over ``coord`` running
+    the digits task with ``args_json`` on ``object:`` spill, writing each
+    namespace's job docs to ``jobs_path`` as it drops them at a loop
+    rollover. Run as a child (``python -c "import chip_smoke;
+    chip_smoke.ha_leader_child(...)"``); the phase SIGKILLs it."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from lua_mapreduce_tpu_torch.coord.filestore import FileJobStore
+    from lua_mapreduce_tpu_torch.engine import Server
+    raw = FileJobStore(coord)
+    jobs = []
+    drop = raw.drop_ns
+
+    def drop_ns(ns):
+        jobs.extend(dict(d, ns=ns) for d in raw.jobs(ns))
+        with open(jobs_path + ".tmp", "w") as f:
+            json.dump(jobs, f, default=str)
+        os.replace(jobs_path + ".tmp", jobs_path)
+        return drop(ns)
+    raw.drop_ns = drop_ns
+    Server(raw, poll_interval=POOL_POLL_S, ha=True,
+           lease_ttl_s=HA_TTL_S).configure(
+        dataplane_spec(root, **json.loads(args_json))).loop()
+
+
+def hold_no_repetitions(name, jobs):
+    """Every recorded job doc at zero repetitions, none BROKEN/FAILED."""
+    from lua_mapreduce_tpu_torch.core.constants import Status
+    bad = [(d["ns"], d["_id"], d["status"], d.get("repetitions"))
+           for d in jobs if (d.get("repetitions") or 0)
+           or d["status"] in (Status.BROKEN, Status.FAILED)]
+    if bad or not jobs:
+        raise AssertionError(f"{name}: {len(jobs)} job docs; repeated, "
+                             f"BROKEN or FAILED: {bad[:5]}")
+
+
+def p50_p99(xs):
+    import numpy as np
+    return ([float(np.percentile(xs, 50)), float(np.percentile(xs, 99))]
+            if xs else None)
+
+
+def sched_ha(torch, ops, base, want_bytes, workers):
+    """(a): a SIGKILLed HA leader, its hot standby finishing the task."""
+    import signal
+    import threading
+
+    from lua_mapreduce_tpu_torch.coord.filestore import FileJobStore
+    from lua_mapreduce_tpu_torch.core.constants import (MAP_NS, PRE_NS,
+                                                        RED_NS, Status,
+                                                        TaskStatus)
+    from lua_mapreduce_tpu_torch.engine import Server
+    from lua_mapreduce_tpu_torch.faults.retry import COUNTERS
+    from lua_mapreduce_tpu_torch.faults.wrappers import unwrap
+    from lua_mapreduce_tpu_torch.store.router import get_storage_from
+    from lua_mapreduce_tpu_torch.trace.collect import TraceCollection
+    from lua_mapreduce_tpu_torch.trace.span import Tracer, install_tracer
+    coord, root = workers["coord"], os.path.join(base, "ha")
+    jobs_path = os.path.join(base, "ha-leader-jobs.json")
+    code = (f"import chip_smoke; chip_smoke.ha_leader_child({coord!r}, "
+            f"{root!r}, {jobs_path!r}, {json.dumps(POOL_ARGS)!r})")
+    leader = subprocess.Popen([sys.executable, "-c", code], cwd=REPO,
+                              env=subprocess_env())
+    raw = FileJobStore(coord)
+    jobs, res = [], {}
+    killed = None
+    deadline = time.time() + 300
+    try:
+        # the leader holds the lease before the standby starts, which
+        # would otherwise win the election itself
+        while not (raw.pt_get("leader") or {}).get("holder"):
+            if leader.poll() is not None or time.time() > deadline:
+                raise AssertionError(f"(a) leader never acquired the lease "
+                                     f"(exit {leader.poll()})")
+            time.sleep(0.01)
+        recording_jobs(raw, jobs)
+        install_tracer(Tracer())
+        c0 = COUNTERS.snapshot()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        standby = Server(raw, poll_interval=POOL_POLL_S, ha=True,
+                         lease_ttl_s=HA_TTL_S)
+
+        def run():
+            try:
+                res["stats"] = standby.loop()
+            except BaseException as exc:    # surfaced below
+                res["error"] = exc
+        thread = threading.Thread(target=run, daemon=True)
+        thread.start()
+        while killed is None:
+            if leader.poll() is not None or not thread.is_alive() \
+                    or time.time() > deadline:
+                raise AssertionError(f"(a) no kill window: leader exit "
+                                     f"{leader.poll()}, standby {res}")
+            task = raw.get_task() or {}
+            woke = COUNTERS.delta(c0, COUNTERS.snapshot()).get(
+                "standby_wakeups", 0)
+            it = int(task.get("iteration", 0))
+            if woke and it >= 2 and task.get("status") == \
+                    TaskStatus.MAP.value:
+                c = raw.counts(MAP_NS)
+                if 1 <= c[Status.WRITTEN] < sum(c.values()):
+                    os.kill(leader.pid, signal.SIGKILL)
+                    killed = {"t": time.time(), "iteration": it,
+                              "written": c[Status.WRITTEN],
+                              "map_jobs": sum(c.values()),
+                              "standby_wakeups": woke}
+            time.sleep(0.002)
+        leader.wait()
+        thread.join(timeout=600)
+        if thread.is_alive() or "error" in res:
+            raise AssertionError(f"(a) the standby did not finish: {res}")
+        torch.cuda.synchronize()
+        server_counts = ops.launch_counts()
+        delta = COUNTERS.delta(c0, COUNTERS.snapshot())
+        codes = stop_workers(workers["procs"], 60)
+    except BaseException:
+        if leader.poll() is None:
+            leader.kill()
+            leader.wait()
+        stop_workers(workers["procs"], 0)
+        raise
+    finally:
+        install_tracer(None)
+    if codes != [0] * POOL_WORKERS:
+        raise AssertionError(f"(a) worker processes exited {codes}")
+    stats = res["stats"]
+    its = [i.iteration for i in stats.iterations]
+    if its != list(range(killed["iteration"], POOL_ITERS + 1)):
+        raise AssertionError(f"(a) the standby ran iterations {its} after "
+                             f"a kill in iteration {killed['iteration']}")
+    spill = lambda r: f"object:{r}/spill"    # noqa: E731
+    got = run_files(root, spill)
+    if got != want_bytes:
+        raise AssertionError("(a) files differ from phase 21's "
+                             "LocalExecutor: " + str(sorted(
+                                 n for n in set(got) | set(want_bytes)
+                                 if got.get(n) != want_bytes.get(n))))
+    # loop-state checkpoints: the digits task keeps its loop state in
+    # model.ckpt/model.meta (no save_state hook), so neither run has one
+    pool_spill = get_storage_from(
+        f"shared:{os.path.join(REPO, 'build', 'smoke-pool', 'pool')}/spill")
+    st = unwrap(get_storage_from(spill(root)))
+    states = {n: st.read_range(n, 0, st.size(n)) for n in st.list("_state.*")}
+    want_states = {n: pool_spill.read_range(n, 0, pool_spill.size(n))
+                   for n in pool_spill.list("_state.*")}
+    lease = raw.pt_get("leader") or {}
+    if states != want_states or delta.get("leader_takeovers", 0) < 1 \
+            or lease.get("epoch") != 2 or lease.get("holder") != "":
+        raise AssertionError(
+            f"(a) _state files {sorted(states)} vs {sorted(want_states)}, "
+            f"leader_takeovers {delta.get('leader_takeovers', 0)}, lease "
+            f"{lease}")
+    with open(jobs_path) as f:
+        leader_jobs = json.load(f)
+    jobs += [dict(d, ns=ns) for ns in (MAP_NS, PRE_NS, RED_NS)
+             for d in raw.jobs(ns)]
+    hold_no_repetitions("(a)", leader_jobs + jobs)
+    wreps = [json.load(open(p)) for p in workers["reports"]]
+    bodies = sum(r["bodies"].get("map", 0) for r in wreps)
+    worker_counts = {k: sum(r["launches"][k] for r in wreps)
+                     for k in ops.KERNELS}
+    if bodies < 4 * POOL_ITERS:
+        raise AssertionError(f"(a) {bodies} map bodies")
+    hold_launches(ops, "(a) workers", worker_counts, bodies, 0)
+    hold_launches(ops, "(a) standby", server_counts, 0, len(its))
+    col = TraceCollection.from_store(st)
+    takeover = [s for s in col.spans if s["name"] == "leader.takeover"]
+    if not takeover:
+        raise AssertionError("(a) no leader.takeover span")
+    take_s = min(s["t0"] for s in takeover) - killed["t"]
+    rep = {"ttl_s": HA_TTL_S, "killed": {k: v for k, v in killed.items()
+                                         if k != "t"},
+           "kill_to_takeover_s": take_s,
+           "standby_iterations": its, "map_bodies": bodies,
+           "leader_takeovers": delta.get("leader_takeovers", 0),
+           "standby_wakeups": delta.get("standby_wakeups", 0),
+           "lease": lease, "files_equal": sorted(got),
+           "launches_workers": worker_counts,
+           "launches_standby": server_counts}
+    log(f"[sched] (a) digits on object: with 2 execute_worker processes: "
+        f"the HA leader (child process, TTL {HA_TTL_S:g} s) SIGKILLed in "
+        f"iteration {killed['iteration']} with {killed['written']}/"
+        f"{killed['map_jobs']} map jobs WRITTEN, after "
+        f"{killed['standby_wakeups']} standby wakeup(s); the standby's "
+        f"leader.takeover {take_s:.3f} s after the kill; it ran iterations "
+        f"{its[0]}-{its[-1]}; lease epoch {lease['epoch']} holder "
+        f"{lease['holder']!r}; {len(leader_jobs) + len(jobs)} job docs at "
+        f"0 repetitions; files byte-equal to phase 21's LocalExecutor; "
+        f"{bodies} map bodies: launches workers {worker_counts}, standby "
+        f"{server_counts}")
+    return [worker_counts, server_counts], rep
+
+
+def sched_autotune(torch, ops, base, want_bytes):
+    """(b): the task through ``execute_server --autotune`` in-process."""
+    from lua_mapreduce_tpu_torch import engine
+    from lua_mapreduce_tpu_torch.cli import execute_server
+    from lua_mapreduce_tpu_torch.core.constants import (MAP_NS, PRE_NS,
+                                                        RED_NS)
+    from lua_mapreduce_tpu_torch.faults.wrappers import unwrap
+    from lua_mapreduce_tpu_torch.store.router import get_storage_from
+    from lua_mapreduce_tpu_torch.trace.collect import TraceCollection
+    from lua_mapreduce_tpu_torch.trace.span import install_tracer
+    root = os.path.join(base, "autotune")
+    servers, members, jobs, fleet = [], [], [], []
+
+    class RecordingServer(engine.Server):
+        def __init__(self, store, **kw):
+            super().__init__(store, **kw)
+            servers.append(self)
+            recording_jobs(unwrap(self.store), jobs)
+
+        def set_fleet(self, hook, size, max_workers=None):
+            def resize(target):
+                fleet.append(hook(target))
+                return fleet[-1]
+            fleet.append(size)
+            super().set_fleet(resize, size, max_workers)
+
+    class RecordingWorker(engine.Worker):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            members.append(self)
+
+    argv = [os.path.join(root, "coord"), DIGITS, DIGITS, DIGITS, DIGITS,
+            "--finalfn", DIGITS, "--storage", f"shared:{root}/spill",
+            "--init-arg", f"model_store=shared:{root}/model",
+            # --init-arg carries strings: the int args parse back, and
+            # sizes (a list) is left at the task's default
+            *[a for k, v in POOL_ARGS.items() if k != "sizes"
+              for a in ("--init-arg", f"{k}={v}")],
+            "--inline-workers", "2", "--autotune",
+            "--autotune-max-workers", "4", "--batch-k", "8",
+            "--poll", str(POOL_POLL_S), "--trace", "--quiet"]
+    if tuple(POOL_ARGS["sizes"]) != (256, 128, 10):
+        raise AssertionError("(b) passes the digits task's default sizes")
+    real = engine.Server, engine.Worker
+    engine.Server, engine.Worker = RecordingServer, RecordingWorker
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = execute_server.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    finally:
+        engine.Server, engine.Worker = real
+        install_tracer(None)
+    server = servers[0]
+    got = run_files(root, lambda r: f"shared:{r}/spill")
+    if rc or got != want_bytes:
+        raise AssertionError(f"(b) rc {rc}, files differ from phase 21's "
+                             f"LocalExecutor")
+    jobs += [dict(d, ns=ns) for ns in (MAP_NS, PRE_NS, RED_NS)
+             for d in unwrap(server.store).jobs(ns)]
+    hold_no_repetitions("(b)", jobs)
+    decisions = server._controller.decisions if server._controller else []
+    col = TraceCollection.from_store(
+        unwrap(get_storage_from(f"shared:{root}/spill")))
+    spans = col.autotune_decisions()
+    flips = {}
+    for d in decisions:
+        flips.setdefault(d.knob, []).append(d.direction)
+    reversals = {k: sum(a != b for a, b in zip(v, v[1:]))
+                 for k, v in flips.items()}
+    paired = [(e["knob"], e["old"], e["new"]) for e in spans]
+    if paired != [(d.knob, d.old, d.new) for d in decisions] \
+            or any(v > 1 for v in reversals.values()):
+        raise AssertionError(f"(b) decisions {decisions}, spans {spans}, "
+                             f"reversals {reversals}")
+    bodies = sum(w.bodies.get("map", 0) for w in members)
+    n_it = len(server.stats.iterations)
+    if n_it != POOL_ITERS:
+        raise AssertionError(f"(b) {n_it} iterations")
+    hold_launches(ops, "(b)", counts, bodies, n_it)
+    its = server.stats.iterations
+    walls = [1e3 * i.wall_time for i in its]
+    rep = {"argv": argv[1:], "seconds": wall,
+           "decisions": [{"knob": d.knob, "metric": d.metric,
+                          "observed": d.observed, "threshold": d.threshold,
+                          "old": d.old, "new": d.new} for d in decisions],
+           "reversals": reversals, "fleet_sizes": fleet,
+           "members": len(members), "map_bodies": bodies,
+           "ms_per_iteration": sum(walls[1:]) / (len(walls) - 1),
+           "batch_k_doc": (unwrap(server.store).get_task() or {}).get(
+               "batch_k"), "launches": counts}
+    log(f"[sched] (b) execute_server --autotune --inline-workers 2 "
+        f"--autotune-max-workers 4 --batch-k 8: {len(decisions)} "
+        f"decision(s), each with its autotune.<knob> span: "
+        + ("; ".join(f"{d.knob} {d.old:g} -> {d.new:g} ({d.metric} "
+                     f"{d.observed:.4g} vs {d.threshold:.4g})"
+                     for d in decisions) or "none")
+        + f"; reversals {reversals}; fleet sizes seen {fleet}; "
+        f"{len(members)} worker(s) started; {len(jobs)} job docs at 0 "
+        f"repetitions; files byte-equal; {rep['ms_per_iteration']:.1f} "
+        f"ms/iteration after the first, {wall:.2f} s in main; launches "
+        f"{counts}")
+    return [counts], rep
+
+
+def _latencies(docs):
+    return [d["started_time"] - d["creation_time"] for d in docs
+            if d.get("creation_time") and d.get("started_time")]
+
+
+def _put_sched_task(view, storage):
+    from lua_mapreduce_tpu_torch.core.constants import TaskStatus
+    from lua_mapreduce_tpu_torch.engine import TaskSpec
+    desc = TaskSpec(taskfn=SCHED_MOD, mapfn=SCHED_MOD,
+                    partitionfn=SCHED_MOD, reducefn=SCHED_MOD,
+                    init_args={"device": "cpu"}, storage=storage).describe()
+    view.put_task({"_id": "unique", "status": TaskStatus.MAP.value,
+                   "iteration": 1, "spec": desc, "batch_k": 1})
+
+
+def _fair_pool(store, tenants):
+    import threading
+
+    from lua_mapreduce_tpu_torch.sched import FairScheduler, FairWorker
+    sched = FairScheduler(tenants)
+    pool = [FairWorker(store, tenants, scheduler=sched, name=f"fair{i}",
+                       max_iter=100_000, max_sleep=POOL_MAX_SLEEP_S)
+            for i in range(FAIR_MEMBERS)]
+    threads = [threading.Thread(target=fw.execute, daemon=True)
+               for fw in pool]
+    for t in threads:
+        t.start()
+    return pool, threads
+
+
+def _finish_flood(store, views, names, n_jobs, threads):
+    """Wait for ``n_jobs`` WRITTEN map jobs over ``names``' views, flip
+    their tasks to FINISHED and let the pool leave."""
+    from lua_mapreduce_tpu_torch.core.constants import (MAP_NS, Status,
+                                                        TaskStatus)
+    from lua_mapreduce_tpu_torch.sched import notify
+    deadline = time.time() + 300
+    while sum(views[n].counts(MAP_NS)[Status.WRITTEN]
+              for n in names) < n_jobs:
+        if time.time() > deadline:
+            raise AssertionError("(c) the flood never drained")
+        time.sleep(0.01)
+    for n in names:
+        views[n].update_task({"status": TaskStatus.FINISHED.value})
+    notify(store, "jobs")
+    for t in threads:
+        t.join(timeout=60)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("(c) a FairWorker never left")
+
+
+def sched_tenancy(torch, ops, base, want_bytes):
+    """(c): the digits tenant beside a 150-job flood tenant, fair share;
+    then a one-tenant FIFO leg of the flood and 8 barrier jobs."""
+    from lua_mapreduce_tpu_torch.coord.filestore import FileJobStore
+    from lua_mapreduce_tpu_torch.coord.jobstore import make_job
+    from lua_mapreduce_tpu_torch.core.constants import MAP_NS, TaskStatus
+    from lua_mapreduce_tpu_torch.engine import Server
+    from lua_mapreduce_tpu_torch.sched import Tenant, TenantView, tenant_ns
+    root = os.path.join(base, "tenancy")
+    store = FileJobStore(os.path.join(root, "coord"))
+    tenants = [Tenant("train"), Tenant("flood")]
+    views = {t.name: TenantView(store, t) for t in tenants}
+    seen = []
+    recording_jobs(store, seen)
+    _put_sched_task(views["flood"], f"shared:{root}/flood")
+    views["flood"].insert_jobs(MAP_NS, [make_job(f"f{i}", i)
+                                        for i in range(FLOOD_JOBS)])
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    pool, threads = _fair_pool(store, tenants)
+    try:
+        server = Server(views["train"], poll_interval=POOL_POLL_S
+                        ).configure(digits_pool_spec(
+                            os.path.join(root, "train")))
+        stats = server.loop()
+        _finish_flood(store, views, ["flood"], FLOOD_JOBS, threads)
+    except BaseException:
+        for n in ("train", "flood"):
+            views[n].update_task({"status": TaskStatus.FINISHED.value})
+        raise
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    got = run_files(os.path.join(root, "train"), lambda r: f"shared:{r}/spill")
+    if got != want_bytes or views["train"].get_task()["status"] != \
+            TaskStatus.FINISHED.value:
+        raise AssertionError("(c) the train tenant's files differ from "
+                             "phase 21's LocalExecutor, or its task did "
+                             "not finish")
+    bodies = sum(fw._workers["train"].bodies.get("map", 0) for fw in pool)
+    n_it = len(stats.iterations)
+    if n_it != POOL_ITERS:
+        raise AssertionError(f"(c) {n_it} iterations")
+    hold_launches(ops, "(c)", counts, bodies, n_it)
+    docs = seen + [dict(d, ns=ns) for ns in (tenant_ns("train", MAP_NS),
+                                             tenant_ns("flood", MAP_NS))
+                   for d in store.jobs(ns)]
+    train_map = _latencies(d for d in docs
+                           if d["ns"] == tenant_ns("train", MAP_NS))
+    flood = _latencies(d for d in docs
+                       if d["ns"] == tenant_ns("flood", MAP_NS))
+    hold_no_repetitions("(c)", docs)
+
+    # the FIFO leg: one tenant, the flood then 8 barrier jobs behind it
+    fstore = FileJobStore(os.path.join(root, "fifo-coord"))
+    fifo = [Tenant("fifo")]
+    fviews = {"fifo": TenantView(fstore, fifo[0])}
+    _put_sched_task(fviews["fifo"], f"shared:{root}/fifo")
+    fviews["fifo"].insert_jobs(MAP_NS, [make_job(f"f{i}", i)
+                                        for i in range(FLOOD_JOBS)]
+                               + [make_job(f"b{i}", i)
+                                  for i in range(FIFO_BARRIER_JOBS)])
+    t1 = time.perf_counter()
+    _, fthreads = _fair_pool(fstore, fifo)
+    _finish_flood(fstore, fviews, ["fifo"], FLOOD_JOBS + FIFO_BARRIER_JOBS,
+                  fthreads)
+    fifo_s = time.perf_counter() - t1
+    fdocs = fviews["fifo"].jobs(MAP_NS)
+    fifo_barrier = _latencies(d for d in fdocs if d["_id"] >= FLOOD_JOBS)
+    fifo_flood = _latencies(d for d in fdocs if d["_id"] < FLOOD_JOBS)
+    rep = {"flood_jobs": FLOOD_JOBS, "members": FAIR_MEMBERS,
+           "seconds": wall, "map_bodies": bodies,
+           "dispatch_s_p50_p99": {
+               "fair_train_map": p50_p99(train_map),
+               "fair_flood": p50_p99(flood),
+               "fifo_barrier": p50_p99(fifo_barrier),
+               "fifo_flood": p50_p99(fifo_flood)},
+           "fifo_seconds": fifo_s, "launches": counts}
+    d = rep["dispatch_s_p50_p99"]
+    fmt = lambda v: f"{1e3 * v[0]:.1f}/{1e3 * v[1]:.1f} ms"   # noqa: E731
+    log(f"[sched] (c) one FileJobStore, tenants train (digits, a stock "
+        f"Server over a TenantView) and flood ({FLOOD_JOBS} one-record "
+        f"map jobs), {FAIR_MEMBERS} FairWorker threads on one "
+        f"FairScheduler: train's files byte-equal to phase 21's "
+        f"LocalExecutor, every flood job WRITTEN, {wall:.2f} s; dispatch "
+        f"p50/p99 train maps {fmt(d['fair_train_map'])} "
+        f"({len(train_map)} jobs), flood {fmt(d['fair_flood'])}; FIFO leg "
+        f"(one tenant, {FIFO_BARRIER_JOBS} barrier jobs behind the flood, "
+        f"{fifo_s:.2f} s): barrier {fmt(d['fifo_barrier'])}, flood "
+        f"{fmt(d['fifo_flood'])} (not gated); launches {counts}")
+    return [counts], rep
+
+
+def sched_notify(torch, ops, base, want_bytes, workers):
+    """(d): phase 21's pool traced with notify on and off."""
+    from lua_mapreduce_tpu_torch.faults.wrappers import unwrap
+    from lua_mapreduce_tpu_torch.store.router import get_storage_from
+    from lua_mapreduce_tpu_torch.trace.collect import TraceCollection
+    out, runs = {}, []
+    spill = lambda r: f"shared:{r}/spill"    # noqa: E731
+    for label, env in (("on", {}), ("off", {"LMR_SCHED_NOTIFY": "0"})):
+        prev = os.environ.get("LMR_SCHED_NOTIFY")
+        os.environ.update(env)
+        try:
+            run = run_recovery_pool(torch, ops, base, workers[label],
+                                    digits_pool_spec, {})
+        finally:
+            if prev is None:
+                os.environ.pop("LMR_SCHED_NOTIFY", None)
+            else:
+                os.environ["LMR_SCHED_NOTIFY"] = prev
+        bodies, wc = hold_recovery_run(ops, f"(d) notify {label}", run,
+                                       want_bytes, spill)
+        col = TraceCollection.from_store(
+            unwrap(get_storage_from(spill(run["root"]))))
+        disp = col.dispatch_stats() or {}
+        # iteration 1's claims wait for the workers' boot; the rest are
+        # the steady state the wakeups serve
+        steady = p50_p99([1e3 * (sp["t1"] - sp["t0"]) for sp in col.spans
+                          if sp["name"] == "dispatch"
+                          and sp.get("it", 0) >= 2])
+        walls = [1e3 * i.wall_time for i in run["stats"].iterations]
+        out[label] = {
+            "ms_per_iteration": sum(walls[1:]) / (len(walls) - 1),
+            "first_iteration_ms": walls[0], "map_bodies": bodies,
+            "dispatch": {k: disp.get(k) for k in ("count", "p50_ms",
+                                                  "p99_ms")},
+            "dispatch_after_first_p50_p99_ms": steady,
+            "files": run_files(run["root"], spill)}
+        runs += [wc, run["server_counts"]]
+    if out["on"].pop("files") != out["off"].pop("files"):
+        raise AssertionError("(d) notify on and off differ")
+    on, off = out["on"], out["off"]
+    log(f"[sched] (d) phase 21's pool traced, notify on vs "
+        f"LMR_SCHED_NOTIFY=0: files byte-equal (and to phase 21's "
+        f"LocalExecutor); {on['ms_per_iteration']:.1f} vs "
+        f"{off['ms_per_iteration']:.1f} ms/iteration after the first; "
+        f"insert->claim dispatch p50/p99 {on['dispatch']['p50_ms']:.2f}/"
+        f"{on['dispatch']['p99_ms']:.2f} vs {off['dispatch']['p50_ms']:.2f}/"
+        f"{off['dispatch']['p99_ms']:.2f} ms over "
+        f"{on['dispatch']['count']}/{off['dispatch']['count']} claims; "
+        f"after iteration 1 {on['dispatch_after_first_p50_p99_ms'][0]:.2f}/"
+        f"{on['dispatch_after_first_p50_p99_ms'][1]:.2f} vs "
+        f"{off['dispatch_after_first_p50_p99_ms'][0]:.2f}/"
+        f"{off['dispatch_after_first_p50_p99_ms'][1]:.2f} ms")
+    return runs, out
+
+
+def phase_sched(torch, ops):
+    """The sched plane on the card (module docstring, phase 27). Every
+    part's worker processes start together first, so their boots
+    overlap."""
+    import shutil
+    base = os.path.join(REPO, "build", "smoke-sched")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    want_bytes = task_bytes(os.path.join(REPO, "build", "smoke-pool",
+                                         "local"))
+    ha = spawn_recovery_workers(base, "ha")
+    notify = {"on": spawn_recovery_workers(base, "notify-on"),
+              "off": spawn_recovery_workers(
+                  base, "notify-off", env_extra={"LMR_SCHED_NOTIFY": "0"})}
+    rep, runs = {}, []
+    try:
+        for key, fn, args in (
+                ("ha", sched_ha, (ha,)),
+                ("autotune", sched_autotune, ()),
+                ("tenancy", sched_tenancy, ()),
+                ("notify", sched_notify, (notify,))):
+            t0 = time.perf_counter()
+            counts, rep[key] = fn(torch, ops, base, want_bytes, *args)
+            rep[key]["part_s"] = time.perf_counter() - t0
+            runs += counts
+    finally:
+        for w in (ha, notify["on"], notify["off"]):
+            stop_workers(w["procs"], 0)
+    return runs, rep
+
+
 def glob_files(root, pattern):
     import glob
     return sorted(glob.glob(os.path.join(root, pattern)))
@@ -5582,6 +6177,7 @@ def main():
                                       torch, ops)
     native_counts, native = clock("phase_native", phase_native,
                                   torch, ops, pool, dataplane)
+    sched_counts, sched = clock("phase_sched", phase_sched, torch, ops)
     runs = ([digits_counts, wide_counts]
             + [serving[t]["launches"] for t in serving]
             + [conv[m]["launches"] for m in conv]
@@ -5591,7 +6187,8 @@ def main():
             + [moe_train["launches"]]
             + [moe_serve[t]["launches"] for t in moe_serve]
             + [tp_pp[t]["launches"] for t in ("2d_mesh", "3d", "pp")]
-            + dataplane_counts + recovery_counts + native_counts)
+            + dataplane_counts + recovery_counts + native_counts
+            + sched_counts)
     launches = {k: sum(c[k] for c in runs) for k in ops.KERNELS}
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
@@ -5629,7 +6226,7 @@ def main():
         "moe_train": moe_train, "moe_serving": moe_serve,
         "moe_check": moe_check, "tp_pp_train": tp_pp,
         "tp_pp_check": tp_pp_check, "dataplane": dataplane,
-        "recovery": recovery, "native": native,
+        "recovery": recovery, "native": native, "sched": sched,
         "kernels": kernels, "phase_seconds": phase_s,
         "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)

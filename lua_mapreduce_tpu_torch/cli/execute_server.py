@@ -14,7 +14,9 @@ coordination spec, then the user-function module names, then storage.
         [--segment-format v1|v2] [--replication R | --coding K+M] \\
         [--push [--push-budget-mb MB]] [--speculation-factor F \\
         [--speculation-cap N]] [--store-retries N] \\
-        [--retry-base-ms MS] [--trace] [--profile DIR]
+        [--retry-base-ms MS] [--idle-poll-ms MS] \\
+        [--autotune [--autotune-max-workers N]] \\
+        [--ha [--lease-ttl-s S]] [--trace] [--profile DIR]
 
 COORD_DIR is the shared job-store directory (the connection-string
 analog) that ``execute_worker`` processes poll; "mem" runs an in-process
@@ -34,9 +36,15 @@ gives a straggler (a job RUNNING longer than F × the fleet's duration
 EWMA) a speculative duplicate lease, at most ``--speculation-cap`` live
 clones per namespace; the first commit wins.
 
-The JAX launcher's flags for planes the port does not run yet
-(``--autotune``, ``--ha``, ``--idle-poll-ms``, ...) parse, and raise
-NotImplementedError when set (ROADMAP A6b).
+``--idle-poll-ms`` caps the inline workers' idle wait between claim
+scans (their wakeups ride the store's notify channel). ``--autotune``
+runs the feedback controller on the server's housekeeping cadence; with
+``--inline-workers N`` the pool is elastic, grown by the controller up to
+``--autotune-max-workers`` through a ``FleetSupervisor`` and retired
+gracefully (a retiring worker leaves after its current lease commits).
+``--ha`` contends for the epoch-fenced leader lease (TTL
+``--lease-ttl-s``) before orchestrating: a losing server is a hot
+standby that takes over mid-phase when the leader's lease expires.
 """
 
 from __future__ import annotations
@@ -63,40 +71,6 @@ def parse_init_args(pairs) -> dict:
             raise SystemExit(f"--init-arg needs K=V, got {pair!r}")
         out[k] = v
     return out
-
-
-# the JAX launcher's flags for planes not ported yet: (flag, argparse
-# keywords[, other values meaning "off"]) — any value other than the
-# default or those raises in main()
-TRIMMED = (
-    ("--idle-poll-ms", dict(type=float, default=None)),
-    ("--autotune", dict(action="store_true", default=None)),
-    ("--autotune-max-workers", dict(type=int, default=None)),
-    ("--ha", dict(action="store_true", default=None)),
-    ("--lease-ttl-s", dict(type=float, default=None)),
-)
-
-
-def _dest(flag: str) -> str:
-    return flag.lstrip("-").replace("-", "_")
-
-
-def add_trimmed(p: argparse.ArgumentParser, trimmed) -> None:
-    group = p.add_argument_group(
-        "not ported yet (ROADMAP A6b): setting one raises")
-    for flag, kw, *_ in trimmed:
-        group.add_argument(flag, **kw)
-
-
-def reject_trimmed(p: argparse.ArgumentParser, args, trimmed) -> None:
-    """NotImplementedError naming every trimmed flag the caller set."""
-    set_flags = [flag for flag, _, *off in trimmed
-                 if getattr(args, _dest(flag))
-                 not in (p.get_default(_dest(flag)), *(off[0] if off else ()))]
-    if set_flags:
-        raise NotImplementedError(
-            f"{p.prog}: {', '.join(set_flags)} not ported to the torch "
-            "package yet (ROADMAP A6b)")
 
 
 def add_redundancy_push_args(p: argparse.ArgumentParser,
@@ -231,15 +205,37 @@ def build_parser() -> argparse.ArgumentParser:
                         "qualify, else the store plane; 'ingraph' "
                         "forces (lowering failures raise); 'hybrid' "
                         "forces stage-granular legs; 'store' opts out")
+    p.add_argument("--idle-poll-ms", type=float, default=None,
+                   help="the inline workers' idle-poll cap in ms (default "
+                        "LMR_IDLE_POLL_MS, else their max sleep): the "
+                        "longest wait between claim scans when no wakeup "
+                        "arrives")
+    p.add_argument("--autotune", action="store_true", default=None,
+                   help="feedback controller (default off, or "
+                        "LMR_AUTOTUNE=1): the housekeeping tick adapts "
+                        "batch_k, the push budget, the speculation "
+                        "factor, the retry base and (with "
+                        "--inline-workers) the pool size, each change "
+                        "written to the task doc with an autotune.<knob> "
+                        "span")
+    p.add_argument("--autotune-max-workers", type=int, default=None,
+                   help="elastic ceiling for the --inline-workers pool "
+                        "under --autotune (default max(N, 8))")
+    p.add_argument("--ha", action="store_true", default=None,
+                   help="contend for the epoch-fenced leader lease before "
+                        "orchestrating (default off, or LMR_HA=1): a "
+                        "loser stands by on the 'leader' wakeup topic and "
+                        "takes over mid-phase when the lease expires; "
+                        "workers need no flag")
+    p.add_argument("--lease-ttl-s", type=float, default=None,
+                   help="leader lease TTL in seconds (default 10, or "
+                        "LMR_LEASE_TTL_S), renewed every TTL/3")
     p.add_argument("--quiet", action="store_true")
-    add_trimmed(p, TRIMMED)
     return p
 
 
 def main(argv=None) -> int:
-    p = build_parser()
-    args = p.parse_args(argv)
-    reject_trimmed(p, args, TRIMMED)
+    args = build_parser().parse_args(argv)
     profile_ctx = setup_fault_trace(args)
 
     from lua_mapreduce_tpu_torch.coord.filestore import FileJobStore
@@ -273,12 +269,35 @@ def main(argv=None) -> int:
                     replication=args.replication, coding=args.coding,
                     speculation=args.speculation_factor,
                     speculation_cap=args.speculation_cap,
-                    push=args.push, engine=args.engine).configure(spec)
-    for _ in range(args.inline_workers):
+                    push=args.push, engine=args.engine,
+                    autotune=args.autotune, ha=args.ha,
+                    lease_ttl_s=args.lease_ttl_s).configure(spec)
+
+    def spawn_worker(_seq: int):
         w = Worker(store).configure(max_iter=10_000)
+        if args.idle_poll_ms is not None:
+            w.configure(idle_poll_ms=args.idle_poll_ms)
         if args.push_budget_mb is not None:
             w.configure(push_budget_mb=args.push_budget_mb)
         threading.Thread(target=w.execute, daemon=True).start()
+        return w
+
+    if args.inline_workers and server.autotune:
+        # the elastic inline pool: the controller's fleet knob resizes
+        # through a FleetSupervisor; retire sets max_jobs to 0, so the
+        # member leaves after its current poll settles (no lease lost)
+        from lua_mapreduce_tpu_torch.sched.controller import \
+            FleetSupervisor
+        cap = args.autotune_max_workers or max(args.inline_workers, 8)
+        sup = FleetSupervisor(
+            spawn_worker, retire=lambda w: w.configure(max_jobs=0),
+            baseline=args.inline_workers, cap=cap)
+        sup.ensure_baseline()
+        server.set_fleet(sup.resize, size=args.inline_workers,
+                         max_workers=cap)
+    else:
+        for i in range(args.inline_workers):
+            spawn_worker(i)
 
     def report(phase: str, frac: float) -> None:
         if not args.quiet:

@@ -8,8 +8,9 @@ execute_worker.lua:1-11):
         [--max-jobs N] [--batch-k K] [--phases map,reduce] \\
         [--segment-format v1|v2] [--replication R | --coding K+M] \\
         [--push] [--push-budget-mb MB] [--store-retries N] \\
-        [--retry-base-ms MS] [--trace] [--profile DIR] [--report FILE] \\
-        [--verbose]
+        [--retry-base-ms MS] [--idle-poll-ms MS] \\
+        [--autotune-fleet N [--autotune-max-workers M]] [--trace] \\
+        [--profile DIR] [--report FILE] [--verbose]
 
 One elastic worker polling the shared job-store directory an
 ``execute_server`` process coordinates. It runs its task on the card:
@@ -29,9 +30,13 @@ document (the server's ``--speculation-factor``): an idle worker races
 a straggler's clone, and ``bodies`` counts the clone's body too. The
 job index is the native one where it builds.
 
-The JAX launcher's flags for planes the port does not run yet
-(``--idle-poll-ms``, ``--autotune-*``) parse, and raise
-NotImplementedError when set (ROADMAP A6b).
+``--idle-poll-ms`` caps the idle wait between claim scans (wakeups ride
+the store's notify channel; ``LMR_SCHED_NOTIFY=0`` makes every wait a
+plain sleep). ``--autotune-fleet N`` runs an elastic pool of N baseline
+worker threads in this process that follows the task document's
+controller-written ``fleet_target`` (a server's ``--autotune``), up to
+``--autotune-max-workers``; a retiring member leaves after its current
+lease commits. The report then sums the members.
 """
 
 from __future__ import annotations
@@ -42,14 +47,7 @@ import os
 import time
 
 from lua_mapreduce_tpu_torch.cli.execute_server import (
-    add_fault_trace_args, add_redundancy_push_args, add_trimmed,
-    reject_trimmed, setup_fault_trace)
-
-TRIMMED = (
-    ("--idle-poll-ms", dict(type=float, default=None)),
-    ("--autotune-fleet", dict(type=int, default=None)),
-    ("--autotune-max-workers", dict(type=int, default=8)),
-)
+    add_fault_trace_args, add_redundancy_push_args, setup_fault_trace)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -86,15 +84,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--report", metavar="FILE", default=None,
                    help="write this worker's jobs, round trips and kernel "
                         "launches (JSON) to FILE on exit")
+    p.add_argument("--idle-poll-ms", type=float, default=None,
+                   help="idle-poll cap in ms (default LMR_IDLE_POLL_MS, "
+                        "else --max-sleep): the longest wait between "
+                        "claim scans when no wakeup arrives")
+    p.add_argument("--autotune-fleet", type=int, default=None, metavar="N",
+                   help="elastic pool: run N baseline worker threads and "
+                        "follow the task document's controller-written "
+                        "fleet_target, retiring surplus members after "
+                        "their current lease commits")
+    p.add_argument("--autotune-max-workers", type=int, default=8,
+                   help="elastic ceiling for --autotune-fleet (raised to "
+                        "the baseline if smaller)")
     p.add_argument("--verbose", action="store_true")
-    add_trimmed(p, TRIMMED)
     return p
 
 
 def main(argv=None) -> int:
-    p = build_parser()
-    args = p.parse_args(argv)
-    reject_trimmed(p, args, TRIMMED)
+    args = build_parser().parse_args(argv)
     profile_ctx = setup_fault_trace(args)
     phases = tuple(s.strip() for s in args.phases.split(",") if s.strip())
     for ph in phases:
@@ -109,34 +116,80 @@ def main(argv=None) -> int:
     from lua_mapreduce_tpu_torch.faults.retry import COUNTERS
     from lua_mapreduce_tpu_torch.faults.wrappers import active_plan
 
-    worker = Worker(FileJobStore(args.coord), name=args.name,
-                    verbose=args.verbose).configure(
-        max_iter=args.max_iter, max_sleep=args.max_sleep,
-        max_tasks=args.max_tasks, phases=phases, max_jobs=args.max_jobs,
-        segment_format=args.segment_format, replication=args.replication,
-        coding=args.coding, push=args.push,
-        push_budget_mb=args.push_budget_mb)
-    if args.batch_k is not None:
-        worker.configure(batch_k=args.batch_k)
+    store = FileJobStore(args.coord)
+
+    def mint(name):
+        w = Worker(store, name=name, verbose=args.verbose).configure(
+            max_iter=args.max_iter, max_sleep=args.max_sleep,
+            max_tasks=args.max_tasks, phases=phases, max_jobs=args.max_jobs,
+            segment_format=args.segment_format,
+            replication=args.replication, coding=args.coding,
+            push=args.push, push_budget_mb=args.push_budget_mb,
+            idle_poll_ms=args.idle_poll_ms)
+        if args.batch_k is not None:
+            w.configure(batch_k=args.batch_k)
+        return w
+
+    members = []
     counters0 = COUNTERS.snapshot()
     ready = time.time()
     try:
         with profile_ctx:
-            worker.execute()
+            if args.autotune_fleet:
+                run_elastic(store, mint, args, members)
+            else:
+                members.append(mint(args.name))
+                members[0].execute()
     finally:
         if args.report:
             from lua_mapreduce_tpu_torch import ops
+            bodies = {}
+            for w in members:
+                for k, v in w.bodies.items():
+                    bodies[k] = bodies.get(k, 0) + v
+            name = (members[0].name if len(members) == 1
+                    else args.name or "elastic")
             with open(args.report, "w") as f:
-                json.dump({"worker": worker.name, "ready": ready,
-                           "jobs": worker.jobs_executed,
-                           "bodies": worker.bodies,
-                           "rounds": worker.store.round_counts(),
+                json.dump({"worker": name, "ready": ready,
+                           "jobs": sum(w.jobs_executed for w in members),
+                           "bodies": bodies,
+                           "members": len(members),
+                           "rounds": store.round_counts(),
                            "launches": ops.launch_counts(),
                            "counters": COUNTERS.delta(
                                counters0, COUNTERS.snapshot()),
                            "faults_fired": dict(plan.fired)
                            if (plan := active_plan()) else {}}, f)
     return 0
+
+
+def run_elastic(store, mint, args, members) -> None:
+    """The elastic pool: worker threads sharing this process's store,
+    resized toward the task document's ``fleet_target`` (under its
+    ``autotune`` marker) until every member has left on its own idle or
+    task bounds. ``members`` collects every member ever started."""
+    import threading
+
+    from lua_mapreduce_tpu_torch.sched.controller import FleetSupervisor
+    threads = []
+
+    def spawn(seq):
+        w = mint(f"{args.name or 'elastic'}-{seq}")
+        t = threading.Thread(target=w.execute, daemon=True)
+        members.append(w)
+        threads.append(t)
+        t.start()
+        return w
+
+    cap = max(args.autotune_fleet, args.autotune_max_workers)
+    sup = FleetSupervisor(spawn, retire=lambda w: w.configure(max_jobs=0),
+                          baseline=args.autotune_fleet, cap=cap)
+    sup.ensure_baseline()
+    while any(t.is_alive() for t in threads):
+        task = store.get_task() or {}
+        if task.get("autotune") and task.get("fleet_target"):
+            sup.resize(int(task["fleet_target"]))
+        time.sleep(0.2)
 
 
 if __name__ == "__main__":

@@ -95,7 +95,7 @@ def run_map_job(spec: TaskSpec, store: Store, job_id: str,
                 map_key: Any, map_value: Any,
                 segment_format: str = "v1", replication=1,
                 push: bool = False, push_pool=None,
-                spec_lineage: str = None) -> JobTimes:
+                spec_lineage: str = None, fence=None) -> JobTimes:
     """Execute one map job and write per-partition sorted run files.
 
     Mirrors job.lua:154-228: run the user mapfn with the grouping emit,
@@ -110,7 +110,8 @@ def run_map_job(spec: TaskSpec, store: Store, job_id: str,
     frames fill, bounded by ``push_pool``'s memory budget, gated by the
     manifest published last. ``spec_lineage`` quarantines a speculative
     clone's pushes under its identity. Output records and their merge
-    order are the same either way.
+    order are the same either way. ``fence`` is the lease check
+    :func:`publish_map_groups` calls before it publishes.
     """
     check_format(segment_format)
     # discovery and stale-file removal address every copy; under
@@ -136,7 +137,8 @@ def run_map_job(spec: TaskSpec, store: Store, job_id: str,
     publish_map_groups(spec, store, job_id, result,
                        segment_format=segment_format,
                        replication=replication, push=push,
-                       push_pool=push_pool, spec_lineage=spec_lineage)
+                       push_pool=push_pool, spec_lineage=spec_lineage,
+                       fence=fence)
     times.cpu = time.process_time() - cpu0
     times.written = time.time()
     return times
@@ -146,7 +148,7 @@ def publish_map_groups(spec: TaskSpec, store: Store, job_id: str,
                        result: Dict[Any, List[Any]],
                        segment_format: str = "v1", replication=1,
                        push: bool = False, push_pool=None,
-                       spec_lineage: str = None) -> None:
+                       spec_lineage: str = None, fence=None) -> None:
     """Publish one map job's grouped emissions — the one publish tail
     every map producer shares: the interpreted path (run_map_job above)
     and the compiled hybrid map leg (engine/hybrid.py) both land here,
@@ -159,6 +161,12 @@ def publish_map_groups(spec: TaskSpec, store: Store, job_id: str,
     so validation never differs between push-on and push-off runs; only
     the per-record sink differs: staged writers built at the end, or
     push frames streamed as buffers fill, the manifest last.
+
+    ``fence`` (speculation: a duplicate may run this job at once) is
+    called right before the staged writers publish; False means the
+    job's lease is gone, and nothing is published. Run-file names repeat
+    across loop iterations, so a duplicate that lost its race must not
+    publish late over the next iteration's runs.
     """
     combiner = spec.combiner_for_map
     writers: Dict[int, Any] = {}
@@ -189,7 +197,7 @@ def publish_map_groups(spec: TaskSpec, store: Store, job_id: str,
             w.add(key, values)
         if pw is not None:
             pw.finish()
-        else:
+        elif fence is None or fence():
             for part, w in writers.items():
                 w.build(map_output_name(spec.result_ns, part, job_id))
     finally:
@@ -204,7 +212,7 @@ def publish_map_groups(spec: TaskSpec, store: Store, job_id: str,
 def run_premerge_job(spec: TaskSpec, store: Store, run_files: List[str],
                      spill_file: str,
                      segment_format: str = "v1",
-                     replication=1) -> JobTimes:
+                     replication=1, fence=None) -> JobTimes:
     """Eagerly consolidate committed sorted runs into one spill run —
     the pipelined-shuffle work unit (engine/premerge.py).
 
@@ -216,14 +224,17 @@ def run_premerge_job(spec: TaskSpec, store: Store, run_files: List[str],
     after a stale requeue) short-circuits to a sweep of any leftover
     inputs. Under ``replication`` the input reads fail over across
     copies, the spill publish fans out and the sweep removes every copy.
+    ``fence`` (see :func:`run_reduce_job`) is checked before the merge
+    and again before each sweep.
     """
     check_format(segment_format)
     store = reading_view(store, replication)
     times = JobTimes(started=time.time())
     cpu0 = time.process_time()
     if store.exists(spill_file):
-        for name in run_files:
-            store.remove(name)
+        if fence is None or fence():
+            for name in run_files:
+                store.remove(name)
         times.cpu = time.process_time() - cpu0
         times.finished = times.written = time.time()
         return times
@@ -232,6 +243,10 @@ def run_premerge_job(spec: TaskSpec, store: Store, run_files: List[str],
         raise RuntimeError(
             f"pre_merge {spill_file}: {len(missing)} input run(s) missing "
             f"with no spill published: {missing[:3]}")
+    if fence is not None and not fence():
+        times.finished = times.written = time.time()
+        times.cpu = time.process_time() - cpu0
+        return times
     # the native one-pass merge publishes a v1 TEXT spill whatever the
     # negotiated format (readers sniff per file); under redundancy the
     # view hides local_path and the Python path's publish fans out
@@ -247,8 +262,9 @@ def run_premerge_job(spec: TaskSpec, store: Store, run_files: List[str],
         finally:
             writer.close()
     times.finished = time.time()
-    for name in run_files:
-        store.remove(name)
+    if fence is None or fence():
+        for name in run_files:
+            store.remove(name)
     times.cpu = time.process_time() - cpu0
     times.written = time.time()
     return times
@@ -257,7 +273,7 @@ def run_premerge_job(spec: TaskSpec, store: Store, run_files: List[str],
 def run_reduce_job(spec: TaskSpec, store: Store, result_store: Store,
                    part_key: str, run_files: List[str],
                    result_file: str, replication=1,
-                   reduce_fold=None) -> JobTimes:
+                   reduce_fold=None, fence=None) -> JobTimes:
     """Execute one reduce job: k-way merge a partition's runs, fold with
     reducefn, publish the partition result (job.lua:230-296).
 
@@ -274,6 +290,13 @@ def run_reduce_job(spec: TaskSpec, store: Store, result_store: Store,
     the interpreted reducefn, group by group — so a retired or partial
     fold can change speed, never results. The singleton fast path stays
     ahead of it.
+
+    ``fence`` is given where a duplicate of this job may run at once
+    (speculation): a callable that is True while this execution still
+    holds the job's lease. It is called before the result publishes and
+    again before the consumed runs are swept; once it is False neither
+    happens. The runs of the next loop iteration reuse these names, so a
+    duplicate that lost its race and swept late would delete them.
     """
     store = reading_view(store, replication)
     times = JobTimes(started=time.time())
@@ -289,8 +312,9 @@ def run_reduce_job(spec: TaskSpec, store: Store, result_store: Store,
                                         result_file)):
         times.finished = times.written = time.time()
         times.cpu = time.process_time() - cpu0
-        for name in run_files:
-            store.remove(name)
+        if fence is None or fence():
+            for name in run_files:
+                store.remove(name)
         return times
     builder = result_store.builder()
     try:
@@ -309,12 +333,15 @@ def run_reduce_job(spec: TaskSpec, store: Store, result_store: Store,
             assert_serializable(reduced, f"reduce value for key {key!r}")
             builder.write(dump_record(key, [reduced]) + "\n")
         times.finished = time.time()
-        builder.build(result_file)
+        held = fence is None or fence()
+        if held:
+            builder.build(result_file)
     finally:
         builder.close()
     times.cpu = time.process_time() - cpu0
     times.written = time.time()
 
-    for name in run_files:
-        store.remove(name)
+    if held and (fence is None or fence()):
+        for name in run_files:
+            store.remove(name)
     return times

@@ -31,9 +31,10 @@ faults/coded.py); ``push`` runs the push shuffle (engine/push.py) under
 a memory budget of ``push_budget_mb``. Result bytes are the same with
 either on or off.
 
-The JAX executor's autotune controller is a later slice (ROADMAP A6b):
-its option is accepted only at the value that means "off", and any
-other value raises NotImplementedError.
+``autotune`` (None = ``LMR_AUTOTUNE``, else off) runs the feedback
+controller (sched/controller.py) once per iteration on that iteration's
+stats: with no control plane there is no claim-RPC signal, so it owns
+the push budget, the retry back-off base and the thread-pool width.
 """
 
 from __future__ import annotations
@@ -74,12 +75,6 @@ from lua_mapreduce_tpu_torch.store.router import get_storage_from
 from lua_mapreduce_tpu_torch.trace.span import TRACE_NS, active_tracer
 from lua_mapreduce_tpu_torch.utils.stats import (IterationStats, TaskStats,
                                                  overlap_fraction)
-
-# JAX-executor options this port does not run yet (ROADMAP A6b), with
-# the values that mean "off"
-_OFF_VALUES = {
-    "autotune": (None, False),
-}
 
 # span namespaces, matching the distributed engine's job queues so one
 # collector (trace/collect.py) reads both executors' timelines alike
@@ -161,7 +156,7 @@ class LocalExecutor:
     ``segment_format`` the spill encoding; ``replication``/``coding``
     the shuffle redundancy and ``push``/``push_budget_mb`` the push
     shuffle; ``engine`` and ``device`` the execution engine and its
-    device (module docstring).
+    device; ``autotune`` the feedback controller (module docstring).
     """
 
     def __init__(self, spec: TaskSpec, map_parallelism: int = 1,
@@ -170,13 +165,9 @@ class LocalExecutor:
                  segment_format: str = "v1", replication=None,
                  coding: Optional[str] = None, push: Optional[bool] = None,
                  push_budget_mb: Optional[float] = None, engine=None,
-                 device=None, **options):
-        from lua_mapreduce_tpu_torch.engine.worker import check_off
-        for name, value in options.items():
-            if name not in _OFF_VALUES:
-                raise TypeError(f"LocalExecutor got an unexpected option "
-                                f"{name!r}")
-            check_off("LocalExecutor", name, value, _OFF_VALUES)
+                 device=None, autotune: Optional[bool] = None):
+        from lua_mapreduce_tpu_torch.sched.controller import \
+            resolve_autotune
         self.spec = spec
         self.map_parallelism = max(1, map_parallelism)
         self.max_iterations = max_iterations
@@ -213,6 +204,11 @@ class LocalExecutor:
                                       device=device, log=log)
         self._hybrid = HybridRunner(spec, self.engine_decision,
                                     device=device, log=log)
+        # the feedback controller, minted on the first tick; the pool
+        # width never drops below the user's map_parallelism
+        self.autotune = resolve_autotune(autotune)
+        self._controller = None
+        self._pool_floor = self.map_parallelism
         self.stats = TaskStats()
         self.finished_value: Any = None
 
@@ -341,8 +337,66 @@ class LocalExecutor:
             COUNTERS.delta(faults0, COUNTERS.snapshot()))
         it_stats.wall_time = time.time() - t0
         self.stats.iterations.append(it_stats)
+        if self.autotune:
+            try:
+                self._autotune_tick(it_stats)
+            except Exception as exc:
+                print(f"[local] autotune tick failed ({type(exc).__name__}:"
+                      f" {exc}); knobs hold", file=sys.stderr)
         self._trace_flush()
         return verdict
+
+    # -- self-tuning controller ---------------------------------------------
+
+    def _autotune_tick(self, it_stats: IterationStats) -> None:
+        from lua_mapreduce_tpu_torch.sched.controller import (
+            AutotuneConfig, AutotuneController, Observation)
+        if self._controller is None:
+            import os
+
+            from lua_mapreduce_tpu_torch.faults.retry import retry_settings
+            cap = max(self.map_parallelism,
+                      min(AutotuneConfig().fleet_max, os.cpu_count() or 4))
+            self._controller = AutotuneController(
+                push_budget_mb=(self._push_pool.budget / (1024 * 1024)
+                                if self._push_pool is not None else None),
+                retry_base_ms=float(retry_settings()["base_ms"]),
+                fleet=self.map_parallelism, fleet_max=cap)
+        body = (it_stats.map.sum_real_time / it_stats.map.count
+                if it_stats.map.count else None)
+        obs = Observation(
+            t=time.time(), body_ewma_s=body,
+            jobs_done=it_stats.map.count + it_stats.reduce.count,
+            push_frames=it_stats.push_frames,
+            push_evictions=it_stats.push_evictions,
+            spec_launched=it_stats.spec_launched,
+            spec_wins=it_stats.spec_wins,
+            spec_wasted_s=it_stats.spec_wasted_s,
+            store_retries=it_stats.store_retries,
+            # the loop protocol replays the same job census next
+            # iteration: this iteration's map fan-out is the backlog the
+            # pool faces again (the queue-depth analog)
+            waiting=it_stats.map.count, running=0,
+            fleet=self.map_parallelism)
+        for d in self._controller.tick(obs):
+            self._apply_decision(d)
+
+    def _apply_decision(self, d) -> None:
+        print(f"[local] autotune: {d.knob} {d.old} -> {d.new} "
+              f"({d.metric}={d.observed:.4g}, threshold {d.threshold:.4g})",
+              file=sys.stderr)
+        if d.knob == "push_budget_mb" and self._push_pool is not None:
+            self._push_pool.budget = int(float(d.new) * 1024 * 1024)
+        elif d.knob == "retry_base_ms":
+            from lua_mapreduce_tpu_torch.faults.retry import (
+                configure_retry, retry_settings)
+            configure_retry(retries=int(retry_settings()["retries"]),
+                            base_ms=float(d.new))
+        elif d.knob == "fleet":
+            # pools are minted per _run_jobs call, so a width change
+            # takes effect at the next iteration's first job wave; the
+            # floor is the user's configured parallelism
+            self.map_parallelism = max(self._pool_floor, int(d.new))
 
     def _run_pipelined(self, jobs) -> Tuple[List[JobTimes], List[JobTimes],
                                             int, List[JobTimes]]:

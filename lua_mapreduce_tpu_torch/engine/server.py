@@ -42,19 +42,32 @@ task document by the workers), at most ``speculation_cap`` live clones
 per namespace; idle workers race the clone against the original and the
 first commit wins.
 
-Trimmed from the JAX server, to be ported with ROADMAP A6b: autotune
-and ``set_fleet``, the HA leader lease and the notify waiter (the
-barrier polls at ``poll_interval``). Those options are accepted only at
-their "off" value; anything else raises NotImplementedError.
+The barrier polls wait on the store's "done" wakeup channel
+(sched/waiter.py): a worker's commit wakes them within milliseconds, and
+a lost notification times out into the ``poll_interval`` poll. Inserts
+and phase flips bump the "jobs" channel the idle workers wait on. With
+``LMR_SCHED_NOTIFY=0`` every wait is the plain sleep; the output bytes
+are the same either way.
+
+``autotune`` (None = ``LMR_AUTOTUNE``, else off) runs the feedback
+controller (sched/controller.py) on the housekeeping cadence: it
+retunes batch_k, the push budget, the speculation factor, the retry
+base and, with :meth:`Server.set_fleet`, the fleet size through the
+task document, each change an ``autotune.<knob>`` span.
+
+``ha`` (None = ``LMR_HA``, else off) runs the leader-lease election
+(sched/lease.py) in :meth:`Server.loop`: the winner leads with every
+server-side mutation fenced by its epoch; losers stand by on the
+"leader" topic and take over mid-phase through the resume matrix when
+the leader's lease (``lease_ttl_s``; None = ``LMR_LEASE_TTL_S``, else
+10 s) expires.
 """
 
 from __future__ import annotations
 
 import contextlib
-import json
 import sys
 import time
-import zlib
 from typing import Any, Callable, Dict, List, Optional
 
 from lua_mapreduce_tpu_torch.core.constants import (DEFAULT_SLEEP, MAP_NS,
@@ -84,61 +97,29 @@ from lua_mapreduce_tpu_torch.engine.push import (INBOX_TAG, discover_push,
                                                  parse_manifest_name,
                                                  push_file_lists,
                                                  resolve_push)
-from lua_mapreduce_tpu_torch.engine.worker import check_off
 from lua_mapreduce_tpu_torch.faults.coded import (doc_fields, doc_redundancy,
                                                   redundancy_on,
                                                   resolve_redundancy)
 from lua_mapreduce_tpu_torch.faults.replicate import reading_view, repair
 from lua_mapreduce_tpu_torch.faults.retry import COUNTERS
 from lua_mapreduce_tpu_torch.faults.wrappers import unwrap, wrap_jobstore
+from lua_mapreduce_tpu_torch.sched.lease import (STATE_NS, frame_state,
+                                                 unframe_state)
 from lua_mapreduce_tpu_torch.store.router import get_storage_from
 from lua_mapreduce_tpu_torch.trace.span import TRACE_NS, active_tracer
 from lua_mapreduce_tpu_torch.utils.stats import (IterationStats, TaskStats,
                                                  overlap_fraction)
 
-# JAX-server options this port does not implement, with the values that
-# select the behaviour it does implement (ROADMAP A6b)
-_OFF_VALUES = {
-    "autotune": (None, False),
-    "autotune_config": (None,),
-    "ha": (None, False),
-    "lease_ttl_s": (None,),
-}
-
-# loop-state checkpoints: ``_state.<N>`` holds the state that FEEDS
-# iteration N, CRC-framed (the JAX package's sched/lease.py:72-130
-# format, so either package reads the other's checkpoint)
-STATE_NS = "_state"
-_STATE_MAGIC = b"LMRS1"
-
-
-def frame_state(obj: Any) -> bytes:
-    """CRC-framed encoding of a JSON-serializable loop state: magic +
-    8-byte big-endian length + payload + crc32(payload). A torn write
-    reads as corrupt, never as silently wrong state."""
-    from lua_mapreduce_tpu_torch.core.serialize import to_plain
-    payload = json.dumps(to_plain(obj), sort_keys=True,
-                         separators=(",", ":")).encode("utf-8")
-    crc = zlib.crc32(payload) & 0xFFFFFFFF
-    return (_STATE_MAGIC + len(payload).to_bytes(8, "big") + payload
-            + crc.to_bytes(4, "big"))
-
-
-def unframe_state(data: bytes) -> Any:
-    """Decode and CRC-check a :func:`frame_state` frame; ValueError on
-    truncation, a magic mismatch or a checksum failure."""
-    if len(data) < len(_STATE_MAGIC) + 12 \
-            or not data.startswith(_STATE_MAGIC):
-        raise ValueError("loop-state frame: bad magic/truncated header")
-    off = len(_STATE_MAGIC)
-    n = int.from_bytes(data[off:off + 8], "big")
-    payload = data[off + 8:off + 8 + n]
-    if len(payload) != n:
-        raise ValueError("loop-state frame: truncated payload")
-    crc = int.from_bytes(data[off + 8 + n:off + 12 + n], "big")
-    if (zlib.crc32(payload) & 0xFFFFFFFF) != crc:
-        raise ValueError("loop-state frame: CRC mismatch")
-    return json.loads(payload.decode("utf-8"))
+def resolve_ha(arg) -> bool:
+    """The HA knob: explicit argument, else the ``LMR_HA`` env
+    ("1"/"true"/"yes"/"on"), else off. On, :meth:`Server.loop` runs the
+    leader-lease election instead of assuming it is the only
+    coordinator."""
+    if arg is None:
+        import os
+        raw = os.environ.get("LMR_HA", "")
+        return raw.strip().lower() in ("1", "true", "yes", "on")
+    return bool(arg)
 
 
 def resolve_speculation(arg) -> float:
@@ -193,7 +174,9 @@ class Server:
     shuffle, ``segment_format`` the fleet's spill encoding,
     ``replication``/``coding`` the fleet's shuffle redundancy,
     ``push`` the push shuffle and ``speculation``/``speculation_cap``
-    the straggler detector (module docstring).
+    the straggler detector; ``autotune``/``autotune_config`` the
+    feedback controller and ``ha``/``lease_ttl_s`` the leader lease
+    (module docstring).
     """
 
     def __init__(self, store: JobStore, poll_interval: float = DEFAULT_SLEEP,
@@ -207,12 +190,14 @@ class Server:
                  speculation: Optional[float] = None,
                  speculation_cap: int = 2,
                  push: Optional[bool] = None,
-                 engine: Optional[str] = None, **options):
-        for name, value in options.items():
-            if name not in _OFF_VALUES:
-                raise TypeError(f"Server got an unexpected option {name!r}")
-            check_off("Server", name, value, _OFF_VALUES)
+                 engine: Optional[str] = None,
+                 autotune: Optional[bool] = None,
+                 autotune_config=None,
+                 ha: Optional[bool] = None,
+                 lease_ttl_s: Optional[float] = None):
         from lua_mapreduce_tpu_torch.engine.ingraph import resolve_engine
+        from lua_mapreduce_tpu_torch.sched.controller import \
+            resolve_autotune
         # coord RPCs ride the retry layer (and an installed FaultPlan's
         # injection, and trace spans when a tracer is active)
         self.store = wrap_jobstore(store)
@@ -249,6 +234,41 @@ class Server:
         self.errors: List[dict] = []   # every drained worker error, kept
         self._data_store = None
         self._housekeep_at: Optional[float] = None
+        self._waiter_obj = None        # the barrier's "done" cursor
+        # the feedback controller (minted lazily) with its config
+        # override, the elastic hook (set_fleet) and the last window's
+        # counter and round snapshots
+        self.autotune = resolve_autotune(autotune)
+        self._autotune_config = autotune_config
+        self._controller = None
+        self._fleet_hook = None
+        self._fleet_size: Optional[int] = None
+        self._fleet_max: Optional[int] = None
+        self._autotune_counters = None
+        self._autotune_rounds = None
+        # the leader lease (None = single coordinator); _took_over marks
+        # a tenure that resumed a dead leader's run
+        self.ha = resolve_ha(ha)
+        self.lease_ttl_s = lease_ttl_s
+        self._lease = None
+        self._took_over = False
+
+    # -- wakeups -------------------------------------------------------------
+
+    def _waiter(self):
+        """The barrier poll's cursor on the store's "done" channel:
+        workers bump it when commits land; a lost notification times
+        out into the ``poll_interval`` poll."""
+        if self._waiter_obj is None:
+            from lua_mapreduce_tpu_torch.sched.waiter import channel_for
+            self._waiter_obj = channel_for(self.store, "done").waiter()
+        return self._waiter_obj
+
+    def _notify_jobs(self) -> None:
+        """Announce claimable work or a phase flip on the "jobs"
+        channel (the idle fleet's wakeup). Best effort."""
+        from lua_mapreduce_tpu_torch.sched.waiter import notify
+        notify(self.store, "jobs")
 
     # -- configuration ------------------------------------------------------
 
@@ -298,7 +318,93 @@ class Server:
         (the spec is restored from the doc if none was configured);
         WAIT/MAP → resume the iteration in place, keeping WRITTEN jobs.
         The engine and the hybrid stage split are sticky from the doc.
+
+        With ``ha`` on this first runs the leader-lease election: the
+        winner leads through the path above with every mutation
+        epoch-fenced; losers stand by on the "leader" topic and, when
+        the leader's lease expires mid-task, take over by re-entering
+        the resume matrix. A standby that sees another leader finish
+        the task returns its own (empty) stats.
         """
+        if not self.ha:
+            return self._run(progress, strict)
+        return self._ha_loop(progress, strict)
+
+    def _ha_loop(self, progress, strict) -> TaskStats:
+        """The election ladder: acquire → lead (fenced) → abdicate to
+        standby on a takeover by another. The lease is released only on
+        clean completion: an exception leaves it to expire, as a SIGKILL
+        would, so the standby's takeover path is the same for both."""
+        from lua_mapreduce_tpu_torch.faults.errors import StaleLeaderError
+        from lua_mapreduce_tpu_torch.sched.lease import (FencedJobStore,
+                                                         LeaderLease)
+        lease = LeaderLease(self.store, ttl_s=self.lease_ttl_s)
+        self._lease = lease
+        waiter = lease.standby_waiter()
+        tracer = active_tracer()
+        seen_active = False      # a live (non-FINISHED) task was observed
+        while True:
+            # completion check BEFORE the acquire: a leader that finished
+            # and released leaves an acquirable lease, and a standby
+            # grabbing it would restart the finished task from scratch.
+            # A server that never saw the task active (a fresh start on
+            # a finished doc) runs: the ordinary fresh-start path.
+            task = self.store.get_task()
+            status = task.get("status") if task is not None else None
+            if task is not None and status != TaskStatus.FINISHED.value:
+                seen_active = True
+            if seen_active and (task is None
+                                or status == TaskStatus.FINISHED.value):
+                # finished_value stays None: a standby never saw the
+                # verdict; the results are in result storage
+                return self.stats
+            if lease.try_acquire():
+                self._took_over = lease.took_over
+                if lease.took_over:
+                    COUNTERS.bump("leader_takeovers")
+                    self._log(f"lease takeover: epoch {lease.epoch} "
+                              f"as {lease.holder}")
+                if tracer is not None:
+                    kind = ("leader.takeover" if lease.took_over
+                            else "leader.acquire")
+                    with tracer.span(kind, epoch=lease.epoch,
+                                     holder=lease.holder):
+                        pass
+                plain = self.store
+                self.store = FencedJobStore(plain, lease)
+                lease.start_renewal()
+                try:
+                    stats = self._run(progress, strict)
+                except StaleLeaderError:
+                    # fenced mid-run: another coordinator leads. Abdicate
+                    # (never retry, never release: the lease is theirs)
+                    # and stand by — if the new leader dies too, this
+                    # server takes back over
+                    lease.stop_renewal(release=False)
+                    self.store = plain
+                    self._log(f"fenced at epoch {lease.epoch}: "
+                              "re-entering standby")
+                    seen_active = True
+                    continue
+                except BaseException:
+                    # crash path: stop renewing but do NOT release — the
+                    # lease expires on its TTL, as after a SIGKILL
+                    lease.stop_renewal(release=False)
+                    self.store = plain
+                    raise
+                lease.stop_renewal(release=True)   # clean handback
+                self.store = plain
+                self._took_over = False
+                return stats
+            # standby: wait for the lease to move (the "leader" topic; a
+            # lost notification degrades to the ttl/3 probe)
+            COUNTERS.bump("standby_wakeups")
+            waiter.wait(lease.ttl_s / 3.0)
+
+    def _run(self, progress: Optional[Callable[[str, float], None]] = None,
+             strict: Optional[bool] = None) -> TaskStats:
+        """One coordinator tenure: the single-leader task loop (HA wraps
+        it in the election above)."""
         if strict is not None:
             self.strict = strict
         t0 = time.time()
@@ -346,7 +452,9 @@ class Server:
                                             self.segment_format,
                                         "speculation": self.speculation,
                                         "engine": self.engine,
+                                        "autotune": self.autotune,
                                         **doc_fields(self.replication)})
+                self._notify_jobs()
                 if status == TaskStatus.REDUCE.value:
                     skip_map = True
         if self.spec is None:
@@ -372,18 +480,25 @@ class Server:
                 # for speculative duplicate leases
                 "speculation": self.speculation,
                 "engine": self.engine,
+                # workers follow the controller-owned keys
+                # (retry_base_ms, push_budget_mb) only under this marker
+                "autotune": self.autotune,
                 "started": time.time(),
             })
+            self._notify_jobs()      # the task appeared: wake the workers
 
         self._data_store = get_storage_from(self.spec.storage)
         if task is None:
             # a fresh run purges a previous run's flushed spans (through
             # the raw store: telemetry housekeeping must not consume
             # FaultPlan occurrences) and must never restore a previous
-            # task's loop state
+            # task's loop state. An HA takeover is a resume of the dead
+            # leader's run even on an edge where the doc is gone: its
+            # spans stay, half of one timeline
             raw = unwrap(self._data_store)
-            for name in raw.list(f"{TRACE_NS}.*"):
-                raw.remove(name)
+            if not self._took_over:
+                for name in raw.list(f"{TRACE_NS}.*"):
+                    raw.remove(name)
             self._purge_loop_state()
         else:
             self._restore_loop_state(iteration)
@@ -498,10 +613,12 @@ class Server:
                     self.store.drop_ns(ns)
                 self.store.update_task({"iteration": iteration,
                                         "status": TaskStatus.WAIT.value})
+                self._notify_jobs()
                 continue
 
             self.finished_value = verdict
             self.store.update_task({"status": TaskStatus.FINISHED.value})
+            self._notify_jobs()      # waiting workers see FINISHED now
             if verdict is True:
                 delete_results(result_store, self.spec.result_ns)
                 self._purge_loop_state()
@@ -575,6 +692,9 @@ class Server:
             self.store.insert_jobs(
                 MAP_NS, [make_job(k, v) for k, v in jobs])
         self.store.update_task({"status": TaskStatus.MAP.value})
+        # jobs AND the phase flip land before the wakeup, so a woken
+        # worker's next poll finds claimable work
+        self._notify_jobs()
         return len(jobs)
 
     def _clean_runs(self, store) -> None:
@@ -646,6 +766,7 @@ class Server:
         if docs:
             self.store.insert_jobs(RED_NS, docs)
         self.store.update_task({"status": TaskStatus.REDUCE.value})
+        self._notify_jobs()
         return len(docs)
 
     def _housekeep(self, *namespaces: str) -> None:
@@ -664,7 +785,8 @@ class Server:
         for ns in namespaces:
             self.store.scavenge(ns, MAX_JOB_RETRIES)
             if self.stale_timeout_s is not None:
-                self.store.requeue_stale(ns, self.stale_timeout_s)
+                if self.store.requeue_stale(ns, self.stale_timeout_s):
+                    self._notify_jobs()   # requeued = claimable again
             if self.speculation:
                 self._speculate_stragglers(ns)
         lost: List[str] = []
@@ -679,8 +801,125 @@ class Server:
                 self._recover_lost(sorted(set(lost)))
             if self._spill_repairs:
                 self._settle_spill_repairs()
+        # the feedback controller ticks on the same throttled cadence:
+        # each decision is one housekeeping pass behind its evidence
+        if self.autotune:
+            try:
+                self._autotune_tick(namespaces)
+            except Exception as exc:
+                # the controller is advisory: a store blip mid-tick
+                # must not abort an iteration
+                self._log(f"autotune tick failed ({type(exc).__name__}: "
+                          f"{exc}); knobs hold")
         # soft flush: nothing happens below the tracer's threshold
         self._trace_flush()
+
+    # -- self-tuning controller ---------------------------------------------
+
+    def set_fleet(self, hook: Callable[[int], int], size: int,
+                  max_workers: Optional[int] = None) -> None:
+        """Install the elastic hook: ``hook(target) -> new size`` grows
+        or gracefully retires pool members (sched.controller.
+        FleetSupervisor). ``size`` is the current fleet; without a hook
+        the controller still writes ``fleet_target`` on the task doc for
+        the worker CLI's autoscaler."""
+        self._fleet_hook = hook
+        self._fleet_size = int(size)
+        self._fleet_max = max_workers
+        if self._controller is not None:
+            # a hook attached mid-run: re-mint on the next tick so the
+            # fleet knob arms with the true size
+            self._controller = None
+
+    def _build_controller(self):
+        from lua_mapreduce_tpu_torch.engine.push import resolve_push_budget
+        from lua_mapreduce_tpu_torch.faults.retry import retry_settings
+        from lua_mapreduce_tpu_torch.sched.controller import \
+            AutotuneController
+        self._controller = AutotuneController(
+            batch_k=self.batch_k,
+            push_budget_mb=float(resolve_push_budget(None))
+            if self.push else None,
+            speculation=self.speculation or None,
+            retry_base_ms=float(retry_settings()["base_ms"]),
+            fleet=self._fleet_size,
+            fleet_max=self._fleet_max,
+            config=self._autotune_config)
+        self._autotune_counters = COUNTERS.snapshot()
+        self._autotune_rounds = self.store.round_counts()
+        return self._controller
+
+    def _autotune_tick(self, namespaces) -> None:
+        """Gather one window's evidence and apply the controller's
+        decisions through the task document. The observation RPCs are
+        timed and fed to the controller's rolling p99 (the claim
+        overhead proxy: same store, same round trip)."""
+        from lua_mapreduce_tpu_torch.sched.controller import Observation
+        c = self._controller or self._build_controller()
+        waiting = running = 0
+        t0 = time.perf_counter()
+        for ns in namespaces:
+            counts = self.store.counts(ns)
+            waiting += counts[Status.WAITING] + counts[Status.BROKEN]
+            running += counts[Status.RUNNING]
+        if namespaces:
+            c.note_rpc((time.perf_counter() - t0) / len(namespaces))
+        task = self.store.get_task() or {}
+        ewmas = [float(v) for k, v in task.items()
+                 if k.startswith("dur_ewma:") and v and float(v) > 0]
+        snap = COUNTERS.snapshot()
+        delta = COUNTERS.delta(self._autotune_counters, snap)
+        self._autotune_counters = snap
+        rounds = self.store.round_counts()
+        claim_d = rounds["claim"] - self._autotune_rounds["claim"]
+        # commit round trips: the store-visible throughput proxy (one
+        # per retired lease)
+        commit_d = rounds["commit"] - self._autotune_rounds["commit"]
+        self._autotune_rounds = rounds
+        obs = Observation(
+            t=time.time(),
+            body_ewma_s=max(ewmas) if ewmas else None,
+            rpc_p99_s=c.rpc_p99(),
+            jobs_done=commit_d,
+            claim_rounds=claim_d,
+            push_frames=int(delta.get("push_frames", 0)),
+            push_evictions=int(delta.get("push_evictions", 0)),
+            spec_launched=int(delta.get("spec_launched", 0)),
+            spec_wins=int(delta.get("spec_wins", 0)),
+            spec_wasted_s=float(delta.get("spec_wasted_s", 0.0)),
+            store_retries=int(delta.get("store_retries", 0)),
+            waiting=waiting, running=running,
+            fleet=self._fleet_size)
+        for d in c.tick(obs):
+            self._apply_decision(d)
+
+    def _apply_decision(self, d) -> None:
+        """Deploy one knob change as an operator would: the task doc for
+        fleet-followed knobs, ``configure_retry`` for the process-local
+        backoff, the hook for the fleet."""
+        self._log(f"autotune: {d.knob} {d.old} -> {d.new} "
+                  f"({d.metric}={d.observed:.4g}, "
+                  f"threshold {d.threshold:.4g})")
+        if d.knob == "batch_k":
+            self.batch_k = int(d.new)
+            self.store.update_task({"batch_k": self.batch_k})
+        elif d.knob == "push_budget_mb":
+            self.store.update_task({"push_budget_mb": float(d.new)})
+        elif d.knob == "speculation":
+            self.speculation = float(d.new)
+            self.store.update_task({"speculation": self.speculation})
+        elif d.knob == "retry_base_ms":
+            from lua_mapreduce_tpu_torch.faults.retry import (
+                configure_retry, retry_settings)
+            configure_retry(retries=int(retry_settings()["retries"]),
+                            base_ms=float(d.new))
+            self.store.update_task({"retry_base_ms": float(d.new)})
+        elif d.knob == "fleet":
+            target = int(d.new)
+            self.store.update_task({"fleet_target": target})
+            if self._fleet_hook is not None:
+                self._fleet_size = int(self._fleet_hook(target))
+            self._notify_jobs()   # new members must find work promptly
 
     # -- tracing hooks -------------------------------------------------------
 
@@ -770,6 +1009,7 @@ class Server:
             key=lambda d: d["started_time"])
         for d in overdue[:budget]:
             if self.store.speculate(ns, d["_id"]):
+                self._notify_jobs()   # idle workers probe for the clone
                 COUNTERS.bump("spec_launched")
                 self._log(f"straggler: {ns} job {d['_id']} RUNNING "
                           f"{now - d['started_time']:.2f}s > {factor:g}x "
@@ -868,6 +1108,8 @@ class Server:
                       "ns": MAP_NS, "job_id": jid, "file": why_file})
             self._log(f"scavenge: {why_file} unrecoverable — map job "
                       f"{jid} requeued for re-run")
+        if n:
+            self._notify_jobs()
         return n
 
     def _settle_spill_repairs(self) -> None:
@@ -923,6 +1165,7 @@ class Server:
                 f"repair.{part}.{a}-{b}",
                 {"part": part, "seq": -1, "files": files,
                  "spill": spill})])
+            self._notify_jobs()
             self._spill_repairs.pop(spill)
             self._log(f"scavenge: republished pre_merge for lost spill "
                       f"{spill} ({len(files)} run(s))")
@@ -1023,6 +1266,7 @@ class Server:
                         for sp in spills])
                     for jid, sp in zip(ids, spills):
                         pre_ids[jid] = (sp.part, sp.seq)
+                    self._notify_jobs()
                     self._log(f"published {len(spills)} pre_merge job(s) "
                               f"({len(seen_committed)}/{n_map} maps done)")
 
@@ -1052,7 +1296,7 @@ class Server:
             if map_done and len(settled_pre) >= len(pre_ids):
                 self._finish_phase("map", self.store.counts(MAP_NS), n_map)
                 return
-            time.sleep(self.poll_interval)
+            self._waiter().wait(self.poll_interval)
 
     def _wait_phase(self, ns: str, total: int, phase: str,
                     progress: Optional[Callable[[str, float], None]]) -> None:
@@ -1074,7 +1318,7 @@ class Server:
             if done >= total:
                 self._finish_phase(phase, counts, total)
                 return
-            time.sleep(self.poll_interval)
+            self._waiter().wait(self.poll_interval)
 
     # -- stats / cleanup ----------------------------------------------------
 

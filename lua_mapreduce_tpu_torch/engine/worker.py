@@ -41,10 +41,16 @@ nothing. Each worker folds its per-namespace job-duration EWMA into the
 task document (``dur_ewma:<ns>``), which the server's straggler detector
 reads and a fresh worker seeds its lease sizing from.
 
-Trimmed from the JAX worker, to be ported with ROADMAP A6b: autotune
-following and the notify waiter. An idle worker polls on a back-off
-that doubles up to ``max_sleep``; ``idle_poll_ms`` is accepted only at
-its "off" value, and a task document that deploys autotune is refused.
+An idle worker waits on the store's "jobs" wakeup channel
+(sched/waiter.py) between polls: a capped, jittered back-off (1.5x up
+to ``idle_poll_ms``, else ``LMR_IDLE_POLL_MS``, else ``max_sleep``) that
+an insert or a phase flip interrupts within milliseconds; only waits
+that time out drain the idle budget. The worker bumps "jobs" when it
+returns claimable work (a release, a BROKEN mark) and "done" when its
+commits land (the server's barrier wakeup). With ``LMR_SCHED_NOTIFY=0``
+the waits are plain sleeps. Under the task document's ``autotune``
+marker the worker follows the controller-owned ``retry_base_ms`` and
+``push_budget_mb`` keys (sched/controller.py).
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ import contextlib
 import json
 import logging
 import os
+import random
 import threading
 import time
 import traceback
@@ -101,13 +108,25 @@ MAX_INFRA_POLL_FAILURES = 10
 
 _CONFIG_KEYS = ("max_iter", "max_sleep", "max_tasks", "max_jobs", "phases",
                 "heartbeat_s", "batch_k", "batch_lease_s", "segment_format",
-                "replication", "coding", "push", "push_budget_mb")
+                "replication", "coding", "idle_poll_ms", "push",
+                "push_budget_mb")
 
-# JAX-worker options this port does not implement, with the values that
-# select the behaviour it does implement (ROADMAP A6b)
-_OFF_VALUES = {
-    "idle_poll_ms": (None,),
-}
+
+def resolve_idle_poll_s(idle_poll_ms, max_sleep: float) -> float:
+    """The idle-poll cap in seconds: the longest an idle worker waits
+    between claim scans (the lost-notification fallback period).
+    Explicit knob, else ``LMR_IDLE_POLL_MS``, else ``max_sleep``; never
+    above ``max_sleep`` (the idle budget is counted in polls of at most
+    that length)."""
+    if idle_poll_ms is None:
+        env = os.environ.get("LMR_IDLE_POLL_MS")
+        idle_poll_ms = float(env) if env else None
+    if idle_poll_ms is None:
+        return max_sleep
+    if idle_poll_ms <= 0:
+        raise ValueError(f"idle_poll_ms must be > 0, got {idle_poll_ms}")
+    return min(max_sleep, idle_poll_ms / 1000.0)
+
 
 # EWMA smoothing for the observed per-job duration that sizes batch
 # leases (recent jobs dominate)
@@ -119,32 +138,6 @@ _DUR_ALPHA = 0.3
 # every healthy worker's folds — which keeps the detector's threshold
 # honest
 _FLEET_ALPHA = 0.3
-
-
-def check_off(owner: str, name: str, value, off_values: dict) -> None:
-    """Accept a trimmed option only at a value meaning "off"; any other
-    value raises NotImplementedError naming the ROADMAP item that will
-    port it."""
-    if value not in off_values[name]:
-        raise NotImplementedError(
-            f"{owner} option {name}={value!r} is not ported to the torch "
-            f"package yet (ROADMAP A6b; accepted: {off_values[name]})")
-
-
-def check_task_doc(task: dict) -> None:
-    """Refuse a task document that deploys a plane this port does not
-    run (a JAX-package server sharing the store, say): autotune. Running
-    it without that plane would be a silently different run. The
-    pipelined and push shuffles, both segment formats, replication,
-    erasure coding and speculation run here."""
-    deployed = {
-        "autotune": bool(task.get("autotune")),
-    }
-    on = [k for k, v in deployed.items() if v]
-    if on:
-        raise NotImplementedError(
-            f"task document deploys {on}, which the torch package does "
-            "not run yet (ROADMAP A6b)")
 
 
 class Worker:
@@ -188,6 +181,12 @@ class Worker:
         self._task_coding = None
         self._task_push = None
         self._push_pool_obj = None      # lazy per-worker buffer pool
+        # controller-owned knobs, followed only under the task doc's
+        # "autotune" marker: the doc's push budget, and the retry base
+        # last applied (configure_retry is process-global; re-applying
+        # it every poll would churn the retry config)
+        self._task_push_budget = None
+        self._autotune_retry_ms = None
         self._last_spec = None          # where trace flushes publish
         self._dur_ewma: Dict[str, float] = {}   # ns -> smoothed real secs
         # the fleet aggregate on the task doc (ns -> seconds) and the
@@ -221,14 +220,17 @@ class Worker:
         # body that failed and ran again counts each time
         self.bodies: Dict[str, int] = {}
         self._jobs_at_start = 0
+        # idle waits ride the store's "jobs" wakeup waiter; idle_poll_ms
+        # None = LMR_IDLE_POLL_MS, else max_sleep
+        self.idle_poll_ms = None
+        self._waiter_obj = None
+        self._null_waiter = None
+        self._jitter = random.Random(self.name)
 
     def configure(self, **params) -> "Worker":
         """Set the loop knobs; unknown keys are rejected (reference
-        worker.lua:142-148), trimmed ones accepted only when off."""
+        worker.lua:142-148)."""
         for k, v in params.items():
-            if k in _OFF_VALUES:
-                check_off("Worker", k, v, _OFF_VALUES)
-                continue
             if k not in _CONFIG_KEYS:
                 raise KeyError(f"unknown worker config key {k!r}; "
                                f"known: {_CONFIG_KEYS}")
@@ -241,8 +243,51 @@ class Worker:
                 check_redundancy(v)     # an int factor or a "k+m" spec
             if k == "coding" and v is not None:
                 parse_coding(v)
+            if k == "idle_poll_ms" and v is not None and float(v) <= 0:
+                raise ValueError(f"idle_poll_ms must be > 0, got {v}")
             setattr(self, k, v)
         return self
+
+    # -- idle waits ---------------------------------------------------------
+
+    def _waiter(self):
+        """This worker's cursor on the store's "jobs" wakeup channel,
+        minted lazily (the store type picks the backend; a NullWaiter
+        when notify is off or the store is unknown)."""
+        if self._waiter_obj is None:
+            from lua_mapreduce_tpu_torch.sched.waiter import channel_for
+            self._waiter_obj = channel_for(self.store, "jobs").waiter()
+        return self._waiter_obj
+
+    def _idle_wait(self, sleep: float):
+        """One idle back-off step between polls (sched.jittered_wait, the
+        one schedule Worker and FairWorker share). Returns ``(woken,
+        next_sleep)``: a notification means re-poll now; a timeout is
+        the lost-notification fallback."""
+        from lua_mapreduce_tpu_torch.sched.waiter import jittered_wait
+        cap = self._idle_cap()
+        return jittered_wait(self._waiter(), sleep, cap, self._jitter,
+                             floor_s=min(DEFAULT_SLEEP, cap))
+
+    def _backoff_wait(self, delay: float) -> None:
+        """Failure back-off sleep, deliberately not interruptible: the
+        infra and user-code retry delays exist to guarantee recovery
+        time, and a busy notify bus must not burn those budgets in
+        milliseconds."""
+        if self._null_waiter is None:
+            from lua_mapreduce_tpu_torch.sched.waiter import NullWaiter
+            self._null_waiter = NullWaiter()
+        self._null_waiter.wait(delay)
+
+    def _idle_cap(self) -> float:
+        return resolve_idle_poll_s(self.idle_poll_ms, self.max_sleep)
+
+    def _notify(self, topic: str) -> None:
+        """Best-effort producer bump: "jobs" when this worker returned
+        claimable work to the pool (release, broken), "done" when its
+        commits landed (the server's barrier wakeup)."""
+        from lua_mapreduce_tpu_torch.sched.waiter import notify
+        notify(self.store, topic)
 
     # -- one poll ----------------------------------------------------------
 
@@ -257,7 +302,6 @@ class Worker:
         if task.get("status") == TaskStatus.FINISHED.value:
             self._infra_released.clear()
             return "finished"
-        check_task_doc(task)
 
         spec = self._get_spec(task["spec"])
         self._last_spec = spec
@@ -289,6 +333,10 @@ class Worker:
             if ns_key not in self._dur_ewma and val and val > 0:
                 self._dur_ewma[ns_key] = float(val)
                 self._ewma_seeded.add(ns_key)
+        # controller-owned knobs ride the doc only under the server's
+        # autotune marker
+        if task.get("autotune"):
+            self._follow_autotune(task)
 
         if task["status"] == TaskStatus.MAP.value:
             # the push shuffle's merge should keep pace with frame
@@ -578,12 +626,37 @@ class Worker:
     def _push_pool(self):
         """This worker's memory-budgeted push buffer pool, minted lazily:
         the budget bounds what this loop's map bodies may hold in
-        unpublished frames (``push_budget_mb``, else LMR_PUSH_BUDGET_MB,
-        else the default)."""
+        unpublished frames (``push_budget_mb``, else an autotuned task
+        doc's controller-owned budget, else LMR_PUSH_BUDGET_MB, else the
+        default)."""
         if self._push_pool_obj is None:
-            self._push_pool_obj = BufferPool(
-                resolve_push_budget(self.push_budget_mb))
+            budget = (self.push_budget_mb if self.push_budget_mb is not None
+                      else self._task_push_budget)
+            self._push_pool_obj = BufferPool(resolve_push_budget(budget))
         return self._push_pool_obj
+
+    def _follow_autotune(self, task: dict) -> None:
+        """Apply the task doc's controller-owned knobs; entered only under
+        the doc's ``autotune`` marker. batch_k and speculation follow the
+        doc anyway; this covers the two knobs that live in process
+        state: the retry back-off base and the push pool's budget
+        (re-budgeted in place: frames already charged keep their
+        accounting, only the eviction threshold moves)."""
+        v = task.get("retry_base_ms")
+        if v is not None and v != self._autotune_retry_ms:
+            from lua_mapreduce_tpu_torch.faults.retry import (
+                configure_retry, retry_settings)
+            configure_retry(retries=int(retry_settings()["retries"]),
+                            base_ms=float(v))
+            self._autotune_retry_ms = v
+        b = task.get("push_budget_mb")
+        if b is not None:
+            self._task_push_budget = float(b)
+            if self.push_budget_mb is None \
+                    and self._push_pool_obj is not None:
+                new_budget = int(float(b) * 1024 * 1024)
+                if new_budget != self._push_pool_obj.budget:
+                    self._push_pool_obj.budget = new_budget
 
     def _map_body(self, spec: TaskSpec, job: dict) -> JobTimes:
         store = get_storage_from(spec.storage)
@@ -602,14 +675,16 @@ class Worker:
                                segment_format=self._segment_format(),
                                replication=self._replication(),
                                push=push_on, push_pool=pool,
-                               spec_lineage=lineage)
+                               spec_lineage=lineage,
+                               fence=self._lease_fence(MAP_NS, job))
             times.finished = times.written = time.time()
             return times
         return run_map_job(spec, store, str(job["_id"]), job["key"],
                            job["value"],
                            segment_format=self._segment_format(),
                            replication=self._replication(), push=push_on,
-                           push_pool=pool, spec_lineage=lineage)
+                           push_pool=pool, spec_lineage=lineage,
+                           fence=self._lease_fence(MAP_NS, job))
 
     def _premerge_body(self, spec: TaskSpec, job: dict) -> JobTimes:
         """Consolidate committed runs into a spill (pipelined shuffle);
@@ -619,7 +694,8 @@ class Worker:
         return run_premerge_job(spec, get_storage_from(spec.storage),
                                 v["files"], v["spill"],
                                 segment_format=self._segment_format(),
-                                replication=self._replication())
+                                replication=self._replication(),
+                                fence=self._lease_fence(PRE_NS, job))
 
     def _reduce_body(self, spec: TaskSpec, job: dict) -> JobTimes:
         replication = self._replication()
@@ -630,6 +706,7 @@ class Worker:
         result_store = (get_storage_from(spec.result_storage)
                         if spec.result_storage else store)
         v = job["value"]
+        fence = self._lease_fence(RED_NS, job)
         # pull-integrity check: every producer's run must be visible
         # BEFORE the merge starts. A missing run fails loudly and names
         # its producer (the sshfs scp-from-mapper failure, fs.lua:148-157)
@@ -645,8 +722,9 @@ class Worker:
                 # build) and began deleting the consumed runs — finish
                 # the claim and sweep the leftovers
                 times = JobTimes(started=time.time())
-                for name in v["files"]:
-                    store.remove(name)
+                if fence is None or fence():
+                    for name in v["files"]:
+                        store.remove(name)
                 times.finished = times.written = time.time()
                 return times
             if redundancy_on(replication):
@@ -666,7 +744,8 @@ class Worker:
         _, fold = self._hybrid_runtime(spec)
         times = run_reduce_job(spec, store, result_store, str(v["part"]),
                                v["files"], v["result"],
-                               replication=replication, reduce_fold=fold)
+                               replication=replication, reduce_fold=fold,
+                               fence=fence)
         if fold is not None and fold.take_used():
             COUNTERS.bump("hybrid_reduce_legs")
         return times
@@ -740,7 +819,12 @@ class Worker:
                 except Exception as exc:
                     committed = self.store.commit_batch(ns, self.name, done)
                     self._settle_committed(ns, committed)
-                    self.store.release_batch(ns, self.name, jids[pos + 1:])
+                    if committed:
+                        self._notify("done")
+                    if self.store.release_batch(ns, self.name,
+                                                jids[pos + 1:]):
+                        # the released tail is claimable again
+                        self._notify("jobs")
                     if (is_transient_job_fault(exc)
                             and self._release_budget_ok(ns, job["_id"])):
                         self._release_infra(ns, job["_id"], exc, span=sp)
@@ -756,6 +840,7 @@ class Worker:
         committed = self.store.commit_batch(ns, self.name, done)
         self._settle_committed(ns, committed)
         if committed:
+            self._notify("done")     # the server's barrier wakeup
             # only WINNING observations calibrate the fleet aggregate: a
             # straggler whose commits keep losing must not inflate the
             # EWMA the detector compares it against
@@ -834,6 +919,7 @@ class Worker:
                 _log.warning("[%s] push promote failed (%s: %s); the "
                              "server's backstop covers it", self.name,
                              type(exc).__name__, exc)
+        self._notify("done")
         COUNTERS.bump("spec_wins")
         self._note_duration(ns, times.real)
         self._settle_committed(ns, committed)
@@ -842,6 +928,21 @@ class Worker:
                   f"({times.real:.3f}s)")
         self._trace_flush()
         return True
+
+    def _lease_fence(self, ns: str, job: dict):
+        """The job body's lease check under speculation, else None.
+
+        A straggler and its clone run one job at once by design, and the
+        loser may finish after the winner's commit: late enough that the
+        server has opened the next loop iteration, whose runs, spills and
+        results reuse this iteration's names. The body calls the check
+        right before it publishes and right before it sweeps consumed
+        inputs, and does neither once this worker's lease (its claim or
+        its shadow lease) is gone."""
+        if not self._speculation:
+            return None
+        jid = job["_id"]
+        return lambda: self.store.heartbeat(ns, jid, self.name)
 
     def _spec_lost(self, ns: str, jid: int, wasted_s: float,
                    msg: str) -> None:
@@ -931,9 +1032,10 @@ class Worker:
                        span: Optional[dict] = None) -> None:
         """Transient-infra failure path: job → WAITING with no repetition
         charge (CASed on ownership), error → errors stream."""
-        self.store.set_job_status(ns, jid, Status.WAITING,
-                                  expect=(Status.RUNNING,),
-                                  expect_worker=self.name)
+        if self.store.set_job_status(ns, jid, Status.WAITING,
+                                     expect=(Status.RUNNING,),
+                                     expect_worker=self.name):
+            self._notify("jobs")     # claimable again: wake the fleet
         COUNTERS.bump("infra_releases")
         self.store.insert_error(self.name, self._abbrev_tb(),
                                 info=self._error_info(ns, jid, exc,
@@ -957,9 +1059,10 @@ class Worker:
         (reference job.lua:322-342, cnn.lua:62-66). CASed on ownership
         AND on the job still being RUNNING, so a requeued (already
         counted) or scavenged (FAILED is terminal) job is left alone."""
-        self.store.set_job_status(ns, jid, Status.BROKEN,
-                                  expect=(Status.RUNNING,),
-                                  expect_worker=self.name)
+        if self.store.set_job_status(ns, jid, Status.BROKEN,
+                                     expect=(Status.RUNNING,),
+                                     expect_worker=self.name):
+            self._notify("jobs")     # BROKEN is claimable: wake the fleet
         self.store.insert_error(self.name, self._abbrev_tb(),
                                 info=self._error_info(ns, jid, exc,
                                                       span=span))
@@ -991,7 +1094,7 @@ class Worker:
 
     def _execute_loop(self) -> int:
         retries = infra_fails = idle_iters = tasks_done = 0
-        floor = min(DEFAULT_SLEEP, self.max_sleep)
+        floor = min(DEFAULT_SLEEP, self._idle_cap())
         sleep = floor
         saw_work = False
         while idle_iters < self.max_iter and tasks_done < self.max_tasks:
@@ -1014,13 +1117,13 @@ class Worker:
                                  "fault (%dx: %s: %s); retrying in %.2fs",
                                  self.name, infra_fails,
                                  type(exc).__name__, exc, delay)
-                    time.sleep(delay)
+                    self._backoff_wait(delay)
                     continue
                 retries += 1
                 if retries >= MAX_WORKER_RETRIES:
                     self._log(f"giving up after {retries} failures")
                     raise
-                time.sleep(floor)
+                self._backoff_wait(floor)
                 continue
             retries = infra_fails = 0
             if outcome == "executed":
@@ -1031,12 +1134,14 @@ class Worker:
                 tasks_done += 1
                 saw_work = False
             else:
-                # idle back-off (worker.lua:100-102), capped at max_sleep.
-                # A worker waiting out the other phase must not burn its
-                # idle budget and die before its phase opens.
-                time.sleep(sleep)
-                sleep = min(self.max_sleep, 2 * sleep)
-                if outcome != "out-of-phase":
+                # capped jittered back-off the waiter interrupts
+                # (worker.lua:100-102's growth, capped at the idle-poll
+                # cap): a wakeup resets the interval. Only timed-out waits
+                # drain the idle budget — a busy shared bus must not idle
+                # this worker out in milliseconds — and a worker waiting
+                # out the other phase must not burn it at all.
+                woken, sleep = self._idle_wait(sleep)
+                if not woken and outcome != "out-of-phase":
                     idle_iters += 1
         return self.jobs_executed
 

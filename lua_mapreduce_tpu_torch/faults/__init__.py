@@ -12,6 +12,7 @@ from lua_mapreduce_tpu_torch.faults.errors import (ConcurrentInsertError,
                                                    LostShuffleDataError,
                                                    NoTaskError,
                                                    PermanentStoreError,
+                                                   StaleLeaderError,
                                                    StoreError,
                                                    TransientStoreError,
                                                    classify_exception)
@@ -39,7 +40,7 @@ from lua_mapreduce_tpu_torch.faults.wrappers import (FaultyJobStore,
 __all__ = [
     "ConcurrentInsertError", "InjectedFault", "InjectedPermanentFault",
     "LostShuffleDataError", "NoTaskError", "PermanentStoreError",
-    "StoreError", "TransientStoreError", "classify_exception", "FaultPlan",
+    "StaleLeaderError", "StoreError", "TransientStoreError", "classify_exception", "FaultPlan",
     "CodedStore", "Coding", "check_redundancy", "parse_coding",
     "redundancy_on", "repair_stripe", "resolve_redundancy",
     "ReplicatedStore", "reading_view", "repair", "spill_writer",

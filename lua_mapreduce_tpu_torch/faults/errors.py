@@ -144,6 +144,24 @@ class NativeEngineError(PermanentStoreError, RuntimeError):
     healthy engine.)"""
 
 
+class StaleLeaderError(PermanentStoreError, RuntimeError):
+    """A server-side mutation carried a fencing epoch older than the
+    current leader lease (DESIGN §31): the writer is a zombie — a
+    coordinator that lost its lease to a takeover (GC pause, partition,
+    SIGSTOP) and came back believing it still leads. Permanent: the
+    same write with the same stale epoch fails again, so the retry layer
+    fails fast and the holder abdicates. ``epoch``/``current_epoch``/
+    ``holder`` carry the fencing evidence for the errors stream."""
+
+    def __init__(self, msg: str, *, epoch: Optional[int] = None,
+                 current_epoch: Optional[int] = None,
+                 holder: Optional[str] = None, **kw):
+        super().__init__(msg, **kw)
+        self.epoch = epoch
+        self.current_epoch = current_epoch
+        self.holder = holder
+
+
 class LostShuffleDataError(TransientStoreError):
     """Every replica of a shuffle file is unreadable (DESIGN §20).
 

@@ -2,7 +2,7 @@
 cli/remove_results): counterparts of tests/test_cli.py (not its v2
 segment and LM tests), driven in-process and, through the word-count
 example's shell scripts, as processes. Every flag of the JAX launchers
-for a plane the port does not run yet parses and raises."""
+parses and is taken."""
 
 import glob
 import json
@@ -131,6 +131,11 @@ _PORTED_SERVER = (
     ("--profile", dict(default=None)),
     ("--speculation-factor", dict(type=float, default=None)),
     ("--speculation-cap", dict(type=int, default=2)),
+    ("--idle-poll-ms", dict(type=float, default=None)),
+    ("--autotune", dict(action="store_true", default=None)),
+    ("--autotune-max-workers", dict(type=int, default=None)),
+    ("--ha", dict(action="store_true", default=None)),
+    ("--lease-ttl-s", dict(type=float, default=None)),
 )
 _PORTED_WORKER = (
     ("--segment-format", dict(choices=("v1", "v2"), default=None)),
@@ -142,24 +147,20 @@ _PORTED_WORKER = (
     ("--retry-base-ms", dict(type=float, default=None)),
     ("--trace", dict(action="store_true")),
     ("--profile", dict(default=None)),
+    ("--idle-poll-ms", dict(type=float, default=None)),
+    ("--autotune-fleet", dict(type=int, default=None)),
+    ("--autotune-max-workers", dict(type=int, default=8)),
 )
+
+
+def _dest(flag):
+    return flag.lstrip("-").replace("-", "_")
 
 
 def _check_ported(module, flag, args):
     p = module.build_parser()
     ns = p.parse_args(args)
-    module.reject_trimmed(p, ns, module.TRIMMED)
-    assert getattr(ns, execute_server._dest(flag)) != \
-        p.get_default(execute_server._dest(flag))
-
-
-@pytest.mark.parametrize("flag,kw", [(f, kw) for f, kw, *_ in
-                                     execute_server.TRIMMED],
-                         ids=[f for f, *_ in execute_server.TRIMMED])
-def test_every_trimmed_server_flag_raises(flag, kw):
-    with pytest.raises(NotImplementedError, match=f"{flag}.*A6b"):
-        execute_server.main(["mem", "a", "b", "c", "d", flag,
-                             *_set_value(kw)])
+    assert getattr(ns, _dest(flag)) != p.get_default(_dest(flag))
 
 
 @pytest.mark.parametrize("flag,kw", _PORTED_SERVER,
@@ -167,14 +168,6 @@ def test_every_trimmed_server_flag_raises(flag, kw):
 def test_every_ported_server_flag_is_accepted(flag, kw):
     _check_ported(execute_server, flag,
                   ["mem", "a", "b", "c", "d", flag, *_set_value(kw)])
-
-
-@pytest.mark.parametrize("flag,kw", [(f, kw) for f, kw, *_ in
-                                     execute_worker.TRIMMED],
-                         ids=[f for f, *_ in execute_worker.TRIMMED])
-def test_every_trimmed_worker_flag_raises(flag, kw, tmp_path):
-    with pytest.raises(NotImplementedError, match=f"{flag}.*A6b"):
-        execute_worker.main([str(tmp_path), flag, *_set_value(kw)])
 
 
 @pytest.mark.parametrize("flag,kw", _PORTED_WORKER,
@@ -185,10 +178,13 @@ def test_every_ported_worker_flag_is_accepted(flag, kw, tmp_path):
 
 
 def test_trimmed_flags_at_their_off_value_pass():
+    """The formerly trimmed flags left unset parse to None: the Server
+    then resolves each from its env knob, else off."""
     p = execute_server.build_parser()
     args = p.parse_args(["mem", "a", "b", "c", "d", "--replication", "1",
                          "--speculation-factor", "0"])
-    execute_server.reject_trimmed(p, args, execute_server.TRIMMED)
+    assert (args.autotune, args.ha, args.lease_ttl_s, args.idle_poll_ms,
+            args.autotune_max_workers) == (None,) * 5
 
 
 def test_example_scripts_run_a_process_pool(tmp_path):

@@ -645,8 +645,8 @@ def test_resumed_loop_task_restores_its_threaded_state(tmp_path,
 
 def test_loop_state_frame_round_trips_and_refuses_damage():
     from lua_mapreduce_tpu.sched.lease import frame_state as jax_frame
-    from lua_mapreduce_tpu_torch.engine.server import (frame_state,
-                                                       unframe_state)
+    from lua_mapreduce_tpu_torch.sched.lease import (frame_state,
+                                                     unframe_state)
     state = {"acc": 12345, "iter": 3, "xs": [1.5, 2.0]}
     data = frame_state(state)
     assert data == jax_frame(state)
@@ -660,7 +660,8 @@ def test_loop_state_frame_round_trips_and_refuses_damage():
 @pytest.mark.parametrize("option,value", [
     ("pipeline", True), ("push", True), ("replication", 2),
     ("coding", "4+1"), ("segment_format", "v2"), ("premerge_min_runs", 2),
-    ("speculation", 2.0)])
+    ("speculation", 2.0), ("autotune", True), ("ha", True),
+    ("lease_ttl_s", 5.0)])
 def test_ported_server_options_are_taken(option, value):
     if option == "coding":
         # the server's unified redundancy value is the Coding
@@ -670,25 +671,18 @@ def test_ported_server_options_are_taken(option, value):
                        option) == value
 
 
-@pytest.mark.parametrize("option,value", [
-    ("autotune", True), ("ha", True), ("lease_ttl_s", 5.0)])
-def test_trimmed_server_options_raise(option, value):
-    with pytest.raises(NotImplementedError, match="A6b"):
-        Server(MemJobStore(), **{option: value})
-    with pytest.raises(TypeError, match="bogus"):
-        Server(MemJobStore(), bogus=1)
-
-
 def test_server_accepts_trimmed_options_at_their_off_value():
     Server(MemJobStore(), pipeline=False, push=False, replication=1,
            coding=None, speculation=0.0, autotune=False, ha=False,
            segment_format="v1", premerge_min_runs=4, premerge_max_runs=8,
            speculation_cap=2, lease_ttl_s=None, autotune_config=None)
+    with pytest.raises(TypeError, match="bogus"):
+        Server(MemJobStore(), bogus=1)
 
 
 @pytest.mark.parametrize("option,value", [
     ("segment_format", "v2"), ("replication", 2), ("coding", "4+1"),
-    ("push", True), ("push_budget_mb", 8.0)])
+    ("push", True), ("push_budget_mb", 8.0), ("idle_poll_ms", 50.0)])
 def test_ported_worker_options_are_taken(option, value):
     """The worker takes the value, and refuses an unknown format or a
     bad redundancy value at configure time."""
@@ -700,14 +694,9 @@ def test_ported_worker_options_are_taken(option, value):
     if option in ("replication", "coding"):
         with pytest.raises(ValueError):
             w.configure(**{option: "0+2"})
-    w.configure(**{option: None})
-
-
-@pytest.mark.parametrize("option,value", [("idle_poll_ms", 50.0)])
-def test_trimmed_worker_options_raise(option, value):
-    w = Worker(MemJobStore())
-    with pytest.raises(NotImplementedError, match="A6b"):
-        w.configure(**{option: value})
+    if option == "idle_poll_ms":
+        with pytest.raises(ValueError, match="idle_poll_ms"):
+            w.configure(idle_poll_ms=0)
     w.configure(**{option: None})
 
 
@@ -721,21 +710,13 @@ def _task_doc_store(key, value):
 
 @pytest.mark.parametrize("key,value", [
     ("pipeline", True), ("push", True), ("segment_format", "v2"),
-    ("replication", 2), ("coding", "4+1"), ("speculation", 1.5)])
+    ("replication", 2), ("coding", "4+1"), ("speculation", 1.5),
+    ("autotune", True)])
 def test_worker_runs_a_task_doc_deploying_a_ported_plane(key, value):
     """A task document from a JAX-package server that deploys a plane
     the port runs: the port worker takes it (nothing to claim yet:
     idle)."""
     assert Worker(_task_doc_store(key, value)).poll_once() == "idle"
-
-
-@pytest.mark.parametrize("key,value", [("autotune", True)])
-def test_worker_refuses_a_task_doc_deploying_a_trimmed_plane(key, value):
-    """A task document from a JAX-package server that deploys a plane
-    the port does not run: the port worker raises instead of running a
-    different task."""
-    with pytest.raises(NotImplementedError, match="A6b"):
-        Worker(_task_doc_store(key, value)).poll_once()
 
 
 @pytest.mark.skipif(torch.cuda.is_available(),

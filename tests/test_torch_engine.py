@@ -99,7 +99,8 @@ def test_wordcount_results_byte_identical_to_jax(tmp_path, config, backend):
 
 @pytest.mark.parametrize("option,value", [
     ("pipeline", True), ("push", True), ("replication", 2),
-    ("coding", "4+1"), ("segment_format", "v2"), ("push_budget_mb", 4.0)])
+    ("coding", "4+1"), ("segment_format", "v2"), ("push_budget_mb", 4.0),
+    ("autotune", True)])
 def test_ported_executor_options_match_barrier(option, value):
     """Each option of the JAX executor the port runs publishes the same
     result bytes as the barrier v1 run."""
@@ -113,7 +114,6 @@ def test_ported_executor_options_match_barrier(option, value):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("autotune", True),
     # every engine is implemented now (tests/test_torch_ingraph.py): a
     # value naming none (here the oracle's verdict string in place of
     # the engine's name) raises
@@ -122,11 +122,7 @@ def test_ported_executor_options_match_barrier(option, value):
 def test_unimplemented_executor_options_raise(option, value):
     spec = TaskSpec(init_args={"files": CORPUS[:3]},
                     storage=f"mem:torch-opts-{option}", **CONFIGS["combiner"])
-    if option == "engine":
-        with pytest.raises(ValueError, match=option):
-            LocalExecutor(spec, **{option: value})
-        return
-    with pytest.raises(NotImplementedError, match=f"{option}.*A6b"):
+    with pytest.raises(ValueError, match=option):
         LocalExecutor(spec, **{option: value})
 
 

@@ -482,3 +482,46 @@ def test_end_to_end_speculation_with_dead_original(tmp_path):
                                if n.count(".") == 1]
     for n in names:
         assert port.read_range(n, 0, 1 << 20) == jax.read_range(n, 0, 1 << 20)
+
+
+@pytest.mark.parametrize("ns", ["map_jobs", "pre_jobs", "red_jobs"])
+def test_losing_duplicate_publishes_and_sweeps_nothing(tmp_path, ns):
+    """A straggler whose clone committed first may still be inside its
+    body when the server opens the next loop iteration, whose runs,
+    spills and results reuse this iteration's names. Past its lost lease
+    the body publishes nothing and sweeps nothing: every file in the
+    store keeps its name and bytes."""
+    from lua_mapreduce_tpu_torch.core.constants import MAP_NS, PRE_NS, RED_NS
+    from lua_mapreduce_tpu_torch.engine.worker import Worker
+    from lua_mapreduce_tpu_torch.store.router import get_storage_from
+    assert ns in (MAP_NS, PRE_NS, RED_NS)
+    storage = f"shared:{tmp_path}/spill"
+    spec = _spec(storage)
+    data = get_storage_from(storage)
+    rns = spec.result_ns
+    runs = [f"{rns}.P0.M00000000", f"{rns}.P0.M00000001"]
+    for i, name in enumerate(runs):
+        b = data.builder()
+        b.write(f'["w{i}", [1]]\n')
+        b.build(name)
+    value = {MAP_NS: "w0 w1 w2",
+             PRE_NS: {"part": 0, "seq": 0, "files": runs,
+                      "spill": f"{rns}.P0.SPILL-00000-00001"},
+             RED_NS: {"part": 0, "files": runs,
+                      "result": f"{rns}.P0"}}[ns]
+    store = MemJobStore()
+    store.insert_jobs(ns, [make_job("d0", value)])
+    job = store.claim_batch(ns, "straggler", 1)[0]
+    assert store.speculate(ns, job["_id"])
+    assert store.claim_spec(ns, "clone")["_id"] == job["_id"]
+    assert store.commit_batch(ns, "clone", [(job["_id"], TIMES)]) == \
+        [job["_id"]]
+
+    def files():
+        return {n: data.read_range(n, 0, data.size(n))
+                for n in data.list("*")}
+    before = files()
+    w = Worker(store, name="straggler")
+    w._speculation = 3.0                    # the task doc's factor
+    Worker._BODIES[ns](w, spec, job)
+    assert files() == before
