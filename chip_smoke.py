@@ -285,9 +285,24 @@ Phases, each a hard failure on any mismatch:
              traced with notify on and with ``LMR_SCHED_NOTIFY=0``:
              byte-equal, ms/iteration and the insert→claim dispatch
              p50/p99 of each.
+28. lockcheck — the runtime lock-order sanitizer around the port on the
+             card: a child process runs ``utils/lockcheck.py`` by path
+             (the sanitizer in place before the package's first lock
+             exists), which runs phase 21's digits task through
+             ``cli.execute_server.main`` on a ``MemJobStore`` with two
+             inline workers, ``shared:`` spill, ``--pipeline``,
+             ``--speculation-factor 3``, ``--ha`` and notify wakeups,
+             then checks every observed lock site and acquisition order
+             against the port's static model (``analysis.lockset.
+             static_lock_model``): files byte-equal to phase 21's
+             LocalExecutor, no violation, acquisitions > 0, the launch
+             counter's lock (``ops/__init__.py``) taken at least once a
+             launch, launches 5 B1 + 1 B2 per map body (2 + 1 per
+             finalfn), and a negative control: the model with one
+             observed order taken out must report that order.
 
 Launch counts are zeroed just before each run of phases 4, 5, 6, 8, 10 and
-15-27 (the worker processes of phases 21, 24-27 start at zero) and
+15-28 (the worker processes of phases 21, 24-28 start at zero) and
 read just after, and must equal the counts worked out from the code; a
 kernel of the paths with no launch there fails the run. The
 card's name and power limit (after a ``[time]`` line of seconds for each
@@ -6055,6 +6070,146 @@ def phase_sched(torch, ops):
     return runs, rep
 
 
+LOCKCHECK = "lua_mapreduce_tpu_torch/utils/lockcheck.py"
+LAUNCH_LOCK = "ops/__init__.py::_launch_lock"
+
+
+def lockcheck_child(args):
+    """Phase 28's run, called as ``FUNC`` by the sanitizer's launcher
+    (``python LOCKCHECK REPORT chip_smoke:lockcheck_child ROOT DEVICE``)
+    in a child process, the sanitizer installed before any of the port's
+    locks exist: phase 21's digits task through ``cli.execute_server.
+    main`` on a ``MemJobStore`` with two inline workers, ``shared:``
+    spill, the pipelined shuffle, speculation, the HA leader lease and
+    notify wakeups, all at once. Returns the launches, the map bodies,
+    the iterations and the threads started, by target."""
+    import threading
+
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from lua_mapreduce_tpu_torch import engine, ops
+    from lua_mapreduce_tpu_torch.cli import execute_server
+    root, device = args
+    servers, members, started = [], [], {}
+
+    class RecordingServer(engine.Server):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            servers.append(self)
+
+    class RecordingWorker(engine.Worker):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            members.append(self)
+
+    real_start = threading.Thread.start
+
+    def start(thread):
+        name = getattr(thread._target, "__qualname__", None) or str(
+            thread._target)
+        started[name] = started.get(name, 0) + 1
+        return real_start(thread)
+
+    argv = ["mem", DIGITS, DIGITS, DIGITS, DIGITS, "--finalfn", DIGITS,
+            "--storage", f"shared:{root}/spill",
+            "--init-arg", f"model_store=shared:{root}/model",
+            *[a for k, v in POOL_ARGS.items() if k != "sizes"
+              for a in ("--init-arg", f"{k}={v}")],
+            "--init-arg", f"device={device}",
+            "--inline-workers", "2", "--pipeline",
+            "--speculation-factor", "3", "--ha",
+            "--poll", str(POOL_POLL_S), "--quiet"]
+    real = engine.Server, engine.Worker
+    engine.Server, engine.Worker = RecordingServer, RecordingWorker
+    threading.Thread.start = start
+    try:
+        if device == "cuda":
+            torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = execute_server.main(argv)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    finally:
+        threading.Thread.start = real_start
+        engine.Server, engine.Worker = real
+    return {"rc": rc, "launches": counts, "seconds": wall,
+            "bodies": sum(w.bodies.get("map", 0) for w in members),
+            "iterations": len(servers[0].stats.iterations),
+            "threads": started}
+
+
+def phase_lockcheck(torch, ops):
+    """The runtime lock-order sanitizer on the card (module docstring,
+    phase 28)."""
+    import shutil
+    base = os.path.join(REPO, "build", "smoke-lockcheck")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    want_bytes = task_bytes(os.path.join(REPO, "build", "smoke-pool",
+                                         "local"))
+    path = os.path.join(base, "lockcheck.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(REPO, LOCKCHECK), path,
+         "chip_smoke:lockcheck_child", base, "cuda"],
+        cwd=REPO, env=subprocess_env(), timeout=300)
+    seconds = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"the sanitized run exited {proc.returncode}")
+    with open(path) as f:
+        rep = json.load(f)
+    res, seen, model = rep["result"], rep["report"], rep["model"]
+    got = run_files(base, lambda r: f"shared:{r}/spill")
+    if res["rc"] or got != want_bytes:
+        raise AssertionError(f"rc {res['rc']}; files differ from phase "
+                             f"21's LocalExecutor")
+    if res["iterations"] != POOL_ITERS:
+        raise AssertionError(f"{res['iterations']} iterations")
+    hold_launches(ops, "the sanitized run", res["launches"], res["bodies"],
+                  res["iterations"])
+    if rep["violations"] or model["cyclic"] or not seen["acquisitions"]:
+        raise AssertionError(f"violations {rep['violations']}, cyclic "
+                             f"{model['cyclic']}, {seen['acquisitions']} "
+                             f"acquisitions")
+    # every launch takes the counter's lock once: the card's launch path
+    # ran under the sanitizer
+    launch_site = [s for s, lbl in model["labels"].items()
+                   if lbl == LAUNCH_LOCK]
+    taken = sum(seen["site_acquisitions"].get(s, 0) for s in launch_site)
+    n_launches = sum(res["launches"].values())
+    if not launch_site or taken < n_launches:
+        raise AssertionError(f"{LAUNCH_LOCK} at {launch_site} taken "
+                             f"{taken} times for {n_launches} launches")
+    ctl = rep["control"]
+    if not ctl or not any(f"order {ctl['edge'][0]} -> {ctl['edge'][1]} "
+                          in v for v in ctl["violations"]):
+        raise AssertionError(f"negative control: {ctl}")
+    out = {"seconds": seconds, "run_s": rep["run_s"],
+           "model_s": rep["model_s"], "main_s": res["seconds"],
+           "acquisitions": seen["acquisitions"],
+           "sites": seen["sites"], "edges": seen["edges"],
+           "violations": rep["violations"],
+           "site_acquisitions": seen["site_acquisitions"],
+           "max_hold_s": seen["max_hold_s"],
+           "static": {"sites": model["sites"], "edges": model["edges"]},
+           "control": ctl, "threads": res["threads"],
+           "map_bodies": res["bodies"], "launches": res["launches"]}
+    log(f"[lockcheck] acquisitions {seen['acquisitions']}, sites "
+        f"{len(seen['sites'])}, edges {len(seen['edges'])} "
+        f"({'; '.join(' -> '.join(e) for e in seen['edges'])}), "
+        f"violations {len(rep['violations'])}; static model: sites "
+        f"{model['sites']}, edges {model['edges']}; {LAUNCH_LOCK} taken "
+        f"{taken} times for {n_launches} launches; control: without "
+        f"{' -> '.join(ctl['edge'])} verify reports it; threads started "
+        f"{res['threads']}; files byte-equal; {seconds:.1f} s (run "
+        f"{rep['run_s']:.1f} s, model {rep['model_s']:.1f} s)")
+    return [res["launches"]], out
+
+
 def glob_files(root, pattern):
     import glob
     return sorted(glob.glob(os.path.join(root, pattern)))
@@ -6178,6 +6333,8 @@ def main():
     native_counts, native = clock("phase_native", phase_native,
                                   torch, ops, pool, dataplane)
     sched_counts, sched = clock("phase_sched", phase_sched, torch, ops)
+    lockcheck_counts, lockcheck = clock("phase_lockcheck", phase_lockcheck,
+                                        torch, ops)
     runs = ([digits_counts, wide_counts]
             + [serving[t]["launches"] for t in serving]
             + [conv[m]["launches"] for m in conv]
@@ -6188,7 +6345,7 @@ def main():
             + [moe_serve[t]["launches"] for t in moe_serve]
             + [tp_pp[t]["launches"] for t in ("2d_mesh", "3d", "pp")]
             + dataplane_counts + recovery_counts + native_counts
-            + sched_counts)
+            + sched_counts + lockcheck_counts)
     launches = {k: sum(c[k] for c in runs) for k in ops.KERNELS}
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
@@ -6227,6 +6384,7 @@ def main():
         "moe_check": moe_check, "tp_pp_train": tp_pp,
         "tp_pp_check": tp_pp_check, "dataplane": dataplane,
         "recovery": recovery, "native": native, "sched": sched,
+        "lockcheck": lockcheck,
         "kernels": kernels, "phase_seconds": phase_s,
         "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)

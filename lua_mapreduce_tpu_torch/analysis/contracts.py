@@ -70,6 +70,59 @@ _RNG_DRAWS = {"random", "randint", "randrange", "choice", "choices",
               "normal", "randn", "rand", "permutation"}
 
 
+@dataclasses.dataclass(frozen=True)
+class ContractRule:
+    id: str
+    severity: str
+    title: str
+    rationale: str
+
+
+CONTRACT_RULES: Tuple[ContractRule, ...] = (
+    ContractRule(
+        "LMR020", "error", "required plugin function missing",
+        "TaskSpec requires callable taskfn/mapfn/partitionfn/reducefn "
+        "(engine/contract.py, reference server.lua:429-445); a missing "
+        "one fails at configure time on the SERVER — this catches it "
+        "before any fleet is provisioned."),
+    ContractRule(
+        "LMR021", "error", "plugin signature arity mismatch",
+        "The engine calls taskfn(emit), mapfn(key, value, emit), "
+        "partitionfn(key), reducefn(key, values), combinerfn(key, "
+        "values), finalfn(pairs) positionally; a wrong arity raises "
+        "TypeError inside a claimed job body, charging repetitions "
+        "until the job marches to FAILED."),
+    ContractRule(
+        "LMR022", "error", "emit() must pass exactly (key, value)",
+        "The emit callback serializes one (key, value) pair per call; "
+        "any other arity raises inside the job body at runtime — and "
+        "under speculation the clone fails identically, so the job "
+        "burns its whole repetition budget."),
+    ContractRule(
+        "LMR023", "error", "determinism hazard: wall-clock / unseeded RNG",
+        "Speculation's first-commit-wins keeps EITHER of two racing "
+        "executions, chaos legs byte-compare re-runs, and replica "
+        "recovery re-executes producers: user functions must be "
+        "deterministic. time.time()/datetime.now()/unseeded RNG/"
+        "os.urandom/uuid4 make two executions of the same job "
+        "diverge silently."),
+    ContractRule(
+        "LMR024", "error", "determinism hazard: unordered iteration",
+        "Iterating a set (per-process hash salt) or an unsorted "
+        "os.listdir()/glob.glob() emits records in a "
+        "process-dependent order — two executions of the same job "
+        "publish different bytes, breaking replay/speculation "
+        "byte-identity. Sort before iterating."),
+    ContractRule(
+        "LMR025", "error", "partition math must not use builtin hash()",
+        "str hashing is salted PER PROCESS (PYTHONHASHSEED): two "
+        "workers disagree on every key's partition, scattering one "
+        "key's values across reducers. Use a stable hash (zlib.crc32, "
+        "FNV, blake2b) — benchmarks/coord_task.py documents exactly "
+        "this trap."),
+)
+
+
 @dataclasses.dataclass
 class FunctionReport:
     name: str                  # plugin slot: "mapfn", ...
@@ -531,3 +584,9 @@ def stage_report(rep: TaskReport) -> dict:
                         for r in fr.reasons],
         }
     return out
+
+
+def contract_rule_catalog() -> List[Dict[str, str]]:
+    return [{"id": r.id, "severity": r.severity, "title": r.title,
+             "rationale": r.rationale, "paths": ["<task modules>"]}
+            for r in CONTRACT_RULES]

@@ -850,7 +850,9 @@ class _Program:
             self.first = self._unpack(packed)
 
     def _packed_body(self) -> torch.Tensor:
-        leaves = self._body(self._inputs.tensors)
+        # the body's build run and capture hold COMPILE_LOCK on purpose:
+        # fx tracing and the sync-debug mode are process-wide
+        leaves = self._body(self._inputs.tensors)  # lmr: disable=LMR029
         layout: list = []
         dev: list = []
         for leaf in leaves:

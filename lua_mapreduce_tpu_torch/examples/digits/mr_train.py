@@ -102,9 +102,9 @@ def _load_state(store):
 
 
 def _write_meta(store, meta):
-    b = store.builder()
-    b.write(json.dumps(meta))
-    b.build(META_FILE)
+    with store.builder() as b:
+        b.write(json.dumps(meta))
+        b.build(META_FILE)
 
 
 def read_meta(store_spec: str):

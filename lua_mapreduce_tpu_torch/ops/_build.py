@@ -76,7 +76,9 @@ def _nvcc() -> str:
         return found
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     cand = Path(home) / "bin" / "nvcc"
-    if cand.exists():
+    # the first-use build is serialised on purpose: every thread that
+    # needs a kernel waits for it; the probe is a stat of a local file
+    if cand.exists():  # lmr: disable=LMR029
         return str(cand)
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
                        "/usr/local/cuda/bin): the CUDA kernels cannot be "
@@ -102,14 +104,16 @@ def _build_missing() -> Dict[str, Path]:
     targets = {n: _target(n) for n in SOURCES}
     BUILD_REPORT.clear()
     BUILD_REPORT.update({"built": [], "seconds": 0.0, "ptxas": {}})
-    if all(t.exists() for t in targets.values()):
+    # a stat of the local build dir under the serialised first-use build
+    if all(t.exists() for t in targets.values()):  # lmr: disable=LMR029
         return targets
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd = os.open(BUILD_DIR / ".build.lock", os.O_RDWR | os.O_CREAT, 0o666)
     try:
         fcntl.flock(fd, fcntl.LOCK_EX)
         # another process may have built them while this one waited
-        _compile({n: t for n, t in targets.items() if not t.exists()})
+        _compile({n: t for n, t in targets.items()
+                  if not t.exists()})  # lmr: disable=LMR029
     finally:
         os.close(fd)
     return targets
@@ -120,7 +124,9 @@ def _compile(todo: Dict[str, Path]) -> None:
     if not todo:
         return
     nvcc = _nvcc()
-    t0 = time.perf_counter()
+    # the build's timing is host bookkeeping that no graph records (a
+    # capture reaches the build only through a kernel's first use)
+    t0 = time.perf_counter()  # lmr: disable=LMR017
     procs = {}
     for name, target in todo.items():
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
@@ -137,7 +143,8 @@ def _compile(todo: Dict[str, Path]) -> None:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, todo[name])     # atomic publish
-    BUILD_REPORT["seconds"] = time.perf_counter() - t0
+    BUILD_REPORT["seconds"] = \
+        time.perf_counter() - t0  # lmr: disable=LMR017
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
 

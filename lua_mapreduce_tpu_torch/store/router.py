@@ -74,7 +74,14 @@ def get_storage_from(spec: str) -> Store:
             raw = _mem_stores.get(path)
             if raw is None:
                 raw = _mem_stores[path] = MemStore()
-            wrapped = wrap_store(raw)
+        # the wiring reads the retry/fault/trace configuration under
+        # their own locks: build it outside _mem_lock, then publish the
+        # first wrapper made for this token
+        wrapped = wrap_store(raw)
+        with _mem_lock:
+            cached = _mem_wrapped.get(path)
+            if cached is not None and cached[0] == token:
+                return cached[1]
             _mem_wrapped[path] = (token, wrapped)
             return wrapped
     if backend == "shared":
