@@ -300,9 +300,19 @@ Phases, each a hard failure on any mismatch:
              launch, launches 5 B1 + 1 B2 per map body (2 + 1 per
              finalfn), and a negative control: the model with one
              observed order taken out must report that order.
+29. roofline — ``utils/roofline.py`` on the card, under 15 s: the card's
+             name and power limit, its bf16 and HBM peaks from the
+             module's table (which also gives every bound and MFU of
+             this run; an unknown card fails the run at its start); the
+             module's probe (a best-of-3 4096³ bf16 ``torch.matmul``)
+             read at most 1.05 × the table's bf16 peak; B1 bf16 at 8192³
+             (``ops.matmul``) timed by ``roofline.best_time`` and its
+             ``roofline.mfu`` printed, 4 launches; and the MFU lines of
+             phases 5, 8 and 10 (each ``roofline.mfu`` of that phase's
+             own FLOPs and seconds) printed beside it.
 
 Launch counts are zeroed just before each run of phases 4, 5, 6, 8, 10 and
-15-28 (the worker processes of phases 21, 24-28 start at zero) and
+15-29 (the worker processes of phases 21, 24-28 start at zero) and
 read just after, and must equal the counts worked out from the code; a
 kernel of the paths with no launch there fails the run. The
 card's name and power limit (after a ``[time]`` line of seconds for each
@@ -323,10 +333,12 @@ import sys
 import time
 
 
-# H100 SXM data-sheet peaks (dense), for the bound of each kernel call
-PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12       # FP32 FMA outside the tensor cores
-PEAK_BYTES = 3.35e12         # HBM3
+# H100 SXM data-sheet FP32 FMA peak outside the tensor cores (the
+# roofline module keeps no f32 table)
+PEAK_F32_FLOPS = 67e12
+# phase 29: the probe may read at most this share of the table's peak,
+# B1 bf16 is timed at this size, and the phase takes less than this
+PROBE_SLACK, ROOFLINE_N, ROOFLINE_LIMIT_S = 1.05, 8192, 15
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CSRC = "lua_mapreduce_tpu_torch/ops/csrc/"
@@ -513,7 +525,7 @@ def time_ms(fn, torch):
 
 
 def bound(flops, nbytes, peak_flops):
-    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
+    t_ops, t_bytes = flops / peak_flops, nbytes / peaks()[1]
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops > t_bytes else "bytes")
 
@@ -609,7 +621,7 @@ def phase_kernels(torch, ops, gen):
                           dt)
         item = 2 if dtype == torch.bfloat16 else 4
         bms, by = bound(2 * m * n * k, (m * k + k * n + m * n) * item,
-                        PEAK_BF16_FLOPS if dt == "bfloat16"
+                        peaks()[0] if dt == "bfloat16"
                         else PEAK_F32_FLOPS)
         rows.append({
             "kernel": "matmul_f32" if dt == "float32" else "matmul_bf16",
@@ -809,7 +821,7 @@ def phase_serving_kernels(torch, gen):
         rows.append({**serving_row(
             torch, "flash_fwd", f"flash {label} ({b},{l},{h}/{hkv},{d}) {dt}", err,
             run, plain, lib, flops, nbytes,
-            PEAK_BF16_FLOPS if dt == "bfloat16" else PEAK_F32_FLOPS,
+            peaks()[0] if dt == "bfloat16" else PEAK_F32_FLOPS,
             rel, control), "path": path})
         del q, k, v
         torch.cuda.empty_cache()
@@ -877,7 +889,7 @@ def phase_serving_kernels(torch, gen):
         rows.append({**serving_row(
             torch, "decode", f"decode {label} q ({b},{hkv},{g},{d}) cache S={s_len} "
             f"{kind}", err, run, plain, lib, 4 * b * hkv * g * n_live * d,
-            nbytes, PEAK_F32_FLOPS if kind == "float32" else PEAK_BF16_FLOPS,
+            nbytes, PEAK_F32_FLOPS if kind == "float32" else peaks()[0],
             rel, control), "n_split": n_split, "bit_equal": True})
         del q, k, v, kd, vd
         torch.cuda.empty_cache()
@@ -949,7 +961,7 @@ def phase_serving_kernels(torch, gen):
         nbytes = m * k_dim * item + k_dim * n + n * 4 + m * n * item
         rows.append({**serving_row(
             torch, "q8", f"q8 {label} ({m},{k_dim})x({k_dim},{n}) x {dt}", err, run,
-            plain, lib, 2 * m * k_dim * n, nbytes, PEAK_BF16_FLOPS, rel),
+            plain, lib, 2 * m * k_dim * n, nbytes, peaks()[0], rel),
             "splits": int(q8_lib.lmr_q8_splits(m, k_dim, n))})
         del w, qw, x, wd, xb
         torch.cuda.empty_cache()
@@ -1147,6 +1159,7 @@ def phase_wide(torch, ops, gen, steps=5, width=8192, batch=8192):
                                                     init_mlp, nll_loss)
     from lua_mapreduce_tpu_torch.train.harness import (DataParallelTrainer,
                                                        TrainConfig)
+    from lua_mapreduce_tpu_torch.utils import roofline
     sizes = (width,) * 4
     params = init_mlp(0, sizes, torch.bfloat16, "cuda")
     x = torch.randn((batch, width), device="cuda", generator=gen).to(
@@ -1173,13 +1186,15 @@ def phase_wide(torch, ops, gen, steps=5, width=8192, batch=8192):
     equal = hold_captured("wide", torch, losses, e_losses, tr.params,
                           e_params)
     imgs = (steps - 1) * batch / dt
-    tflops = imgs * flops_per_example(sizes) / 1e12
+    model_flops = (steps - 1) * batch * flops_per_example(sizes)
+    tflops = model_flops / dt / 1e12
+    mfu = roofline.mfu(model_flops, dt)
     log(f"[wide] mlp {'x'.join(map(str, sizes))} bf16 batch={batch}: "
         f"losses {losses}, equal to the eager loop's bit for bit")
     log(f"[wide] {steps - 1} timed captured steps in {dt * 1e3:.3f} ms "
         f"({dt * 1e3 / (steps - 1):.3f} ms/step; eager loop {e_ms:.3f} "
         f"ms/step): {imgs:.1f} images/s, {tflops:.3f} model TFLOP/s "
-        f"({100 * tflops * 1e12 / PEAK_BF16_FLOPS:.2f}% of the 989 TFLOP/s "
+        f"(MFU {100 * mfu:.2f}% of the {peaks()[0] / 1e12:g} TFLOP/s "
         f"bf16 dense peak); peak {peak:.2f} GiB (eager {e_peak:.2f}); "
         f"launches {counts}")
     want = {**dict.fromkeys(ops.KERNELS, 0), "matmul_bf16": steps * 8,
@@ -1189,6 +1204,7 @@ def phase_wide(torch, ops, gen, steps=5, width=8192, batch=8192):
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"wide trainer loss not finite: {losses}")
     return counts, {"images_per_s": imgs, "model_tflops": tflops,
+                    "mfu": mfu,
                     "step_ms": dt * 1e3 / (steps - 1),
                     "eager_step_ms": e_ms, "peak_mem_gib": peak,
                     "eager_peak_mem_gib": e_peak, "captures": tr.traces,
@@ -1812,7 +1828,7 @@ def phase_conv_kernels(torch, gen):
             del got, want, again
             bms, by = bound(2 * mm_ * nn_ * kk_,
                             (mm_ * kk_ + kk_ * nn_ + mm_ * nn_) * 2,
-                            PEAK_BF16_FLOPS)
+                            peaks()[0])
             row = {"kernel": "matmul_bf16",
                    "case": f"matmul conv {label} {part} ({mm_},{kk_})x"
                            f"({kk_},{nn_}) bfloat16",
@@ -1877,6 +1893,7 @@ def phase_conv(torch, ops, gen):
     kernel."""
     from lua_mapreduce_tpu_torch.train.harness import (DataParallelTrainer,
                                                        TrainConfig)
+    from lua_mapreduce_tpu_torch.utils import roofline
     out = {}
     for name, batch, steps in CONV_RUNS:
         loss_fn, params, shape, n_cls, per_ex, per_step = conv_model(
@@ -1938,10 +1955,11 @@ def phase_conv(torch, ops, gen):
                    for k, tag in tags}
         step_ms = dt * 1e3 / steps
         imgs = batch * steps / dt
-        tflops = imgs * per_ex / 1e12
+        model_flops = batch * steps * per_ex
+        tflops = model_flops / dt / 1e12
         r = {"batch": batch, "steps": steps, "step_ms": step_ms,
              "images_per_s": imgs, "model_tflops": tflops,
-             "peak_fraction": tflops * 1e12 / PEAK_BF16_FLOPS,
+             "mfu": roofline.mfu(model_flops, dt),
              "losses": losses, "launches": counts, "peak_mem_gib": peak,
              "eager_step_ms": e_ms, "eager_peak_mem_gib": e_peak,
              "equal_to_eager": equal,
@@ -1955,9 +1973,9 @@ def phase_conv(torch, ops, gen):
         log(f"[conv] {name} b{batch} bf16: {steps} timed captured steps, "
             f"{step_ms:.3f} ms/step (the eager loop {e_ms:.3f}), {imgs:.1f} "
             f"images/s, {tflops:.4f} model TFLOP/s "
-            f"({100 * r['peak_fraction']:.4f}% of the 989 TFLOP/s bf16 dense "
-            f"peak); losses {losses}, equal to the eager loop's bit for "
-            f"bit; peak {peak:.2f} GiB (eager {e_peak:.2f}); launches "
+            f"(MFU {100 * r['mfu']:.4f}% of the {peaks()[0] / 1e12:g} "
+            f"TFLOP/s bf16 dense peak); losses {losses}, equal to the "
+            f"eager loop's bit for bit; peak {peak:.2f} GiB (eager {e_peak:.2f}); launches "
             f"{counts}")
         log(f"[conv] {name}: profiled step {dev_ms:.3f} ms on the device "
             f"(matmul kernels {port_ms['matmul_bf16']:.3f}, split-K reduce "
@@ -2207,7 +2225,7 @@ def phase_flash_bwd_kernels(torch, gen):
         pairs = visible_pairs(l, True, window)
         in_bytes = (2 * b * l * h * d + 2 * b * l * hkv * d) * item \
             + 2 * b * l * h * 4
-        peak = PEAK_BF16_FLOPS if dt == "bfloat16" else PEAK_F32_FLOPS
+        peak = peaks()[0] if dt == "bfloat16" else PEAK_F32_FLOPS
         for kernel, parts, fn, n_prod, out_bytes in (
                 ("flash_bwd_dq", (("dq", dq, want[0]),), run_dq, 3,
                  b * l * h * d * item),
@@ -2260,6 +2278,7 @@ def phase_lm_train(torch, ops, seed=0):
     profiled repeat gives a step's device time by kernel."""
     from lua_mapreduce_tpu_torch.models import transformer as tt
     from lua_mapreduce_tpu_torch.train import optim
+    from lua_mapreduce_tpu_torch.utils import roofline
     out = {}
     for tag, extra in (("mha", {}), ("modern", LM_MODERN)):
         cfg = tt.TransformerConfig(**LM, **extra)
@@ -2309,14 +2328,15 @@ def phase_lm_train(torch, ops, seed=0):
         by_kind["other"] = dev_ms - by_kind["port"] - by_kind["cublas"]
         step_ms = dt * 1e3 / LM_STEPS
         tok_s = LM_BATCH * LM_SEQ * LM_STEPS / dt
-        tflops = tok_s * tt.flops_per_token(cfg, LM_SEQ) / 1e12
+        model_flops = (LM_BATCH * LM_SEQ * LM_STEPS
+                       * tt.flops_per_token(cfg, LM_SEQ))
+        tflops = model_flops / dt / 1e12
         r = {"config": f"d{cfg.d_model} h{cfg.n_heads}/{tt.kv_heads(cfg)} "
                        f"L{cfg.n_layers} ff{cfg.d_ff} v{cfg.vocab} "
                        f"seq{LM_SEQ} b{LM_BATCH} bf16"
                        + (" llama-style" if extra else ""),
              "steps": LM_STEPS, "step_ms": step_ms, "tokens_per_s": tok_s,
-             "model_tflops": tflops,
-             "peak_fraction": tflops * 1e12 / PEAK_BF16_FLOPS,
+             "model_tflops": tflops, "mfu": roofline.mfu(model_flops, dt),
              "losses": losses, "launches": counts, "peak_mem_gib": peak,
              "profiled_step_device_ms": dev_ms,
              "profiled_step_kernel_ms": port_ms,
@@ -2327,8 +2347,9 @@ def phase_lm_train(torch, ops, seed=0):
              "top_kernels": kernels[:14]}
         log(f"[lm train] {tag} {r['config']}: {LM_STEPS} timed steps, "
             f"{step_ms:.3f} ms/step, {tok_s:.1f} tokens/s, {tflops:.3f} "
-            f"model TFLOP/s ({100 * r['peak_fraction']:.3f}% of the 989 "
-            f"TFLOP/s bf16 dense peak), peak {peak:.2f} GiB; losses "
+            f"model TFLOP/s (MFU {100 * r['mfu']:.3f}% of the "
+            f"{peaks()[0] / 1e12:g} TFLOP/s bf16 dense peak), peak "
+            f"{peak:.2f} GiB; losses "
             f"{losses[0]:.4f} .. {losses[-1]:.4f}; launches {counts}")
         log(f"[lm train] {tag}: profiled step {dev_ms:.3f} ms on the device "
             f"(flash fwd {port_ms['flash_fwd']:.3f}, dq "
@@ -6210,6 +6231,78 @@ def phase_lockcheck(torch, ops):
     return [res["launches"]], out
 
 
+# ------------------------------------------------------------ phase 29
+
+def table_peaks(torch):
+    """The card's bf16 and HBM peaks from ``utils/roofline.py``; fails
+    unless both come from its table for this card (not an environment
+    override, not the probe)."""
+    from lua_mapreduce_tpu_torch.utils import roofline
+    name = torch.cuda.get_device_name(0)
+    flops, hbm = roofline.peak_flops_per_s(), roofline.peak_hbm_bytes_per_s()
+    if (name not in roofline.PEAK_BF16_FLOPS
+            or flops != roofline.PEAK_BF16_FLOPS[name]
+            or hbm is None or hbm != roofline.PEAK_HBM_BYTES.get(name)):
+        raise AssertionError(f"{name}: peaks {flops} FLOP/s, {hbm} B/s do "
+                             f"not come from the roofline table")
+    return flops, hbm
+
+
+@functools.lru_cache(maxsize=None)
+def peaks():
+    """The card's dense bf16 FLOP/s and HBM B/s, for the bound of each
+    kernel call and every MFU: ``utils/roofline.py``'s table for the
+    card's name (NVIDIA data-sheet values). Read where first needed, so
+    that a phase run on its own (``chip_ab.py``) has them too."""
+    import torch
+    return table_peaks(torch)
+
+
+def phase_roofline(torch, ops, gen, wide, conv, lm):
+    """The roofline module on the card (module docstring, phase 29)."""
+    from lua_mapreduce_tpu_torch.utils import roofline
+    card = gpu_line()
+    flops, hbm = table_peaks(torch)
+    probe = roofline._measured_peak("cuda")
+    if probe > PROBE_SLACK * flops:
+        raise AssertionError(f"the probe's {probe:.4e} FLOP/s passes "
+                             f"{PROBE_SLACK} x the table's {flops:.4e}")
+    n = ROOFLINE_N
+    a = torch.randn((n, n), device="cuda", generator=gen).to(torch.bfloat16)
+    b = torch.randn((n, n), device="cuda", generator=gen).to(torch.bfloat16)
+    ops.reset_launch_counts()
+
+    def run():
+        ops.matmul(a, b)
+        torch.cuda.synchronize()
+
+    run()                           # warm
+    seconds = roofline.best_time(run)
+    counts = ops.launch_counts()
+    want = {**dict.fromkeys(ops.KERNELS, 0), "matmul_bf16": 4}
+    if counts != want:
+        raise AssertionError(f"roofline launches {counts}, expected {want}")
+    b1_mfu = roofline.mfu(2 * n ** 3, seconds)
+    # the MFU lines of phases 5, 8 and 10, each roofline.mfu of that
+    # phase's own FLOPs and seconds
+    lines = ([("wide", wide)] + [(f"conv {m}", r) for m, r in conv.items()]
+             + [(f"lm train {t}", r) for t, r in lm.items()])
+    out = {"card": card, "peak_bf16_flops": flops, "peak_hbm_bytes": hbm,
+           "probe_flops": probe, "probe_share": probe / flops,
+           "b1_bf16_n": n, "b1_bf16_ms": seconds * 1e3,
+           "b1_bf16_mfu": b1_mfu,
+           "mfu": {what: r["mfu"] for what, r in lines}}
+    log(f"[roofline] {card}: table peaks {flops / 1e12:g} TFLOP/s bf16 "
+        f"dense, {hbm / 1e12:g} TB/s HBM; the probe (torch.matmul, 4096^3 "
+        f"bf16, best of 3) {probe / 1e12:.1f} TFLOP/s, "
+        f"{100 * probe / flops:.2f}% of the table's peak")
+    shares = ", ".join(f"{w} {100 * m:.3f}%" for w, m in out["mfu"].items())
+    log(f"[roofline] B1 bf16 {n}^3 (ops.matmul, best of 3 on the host "
+        f"clock): {seconds * 1e3:.4f} ms, MFU {100 * b1_mfu:.2f}%; the MFU "
+        f"lines of phases 5, 8 and 10: {shares}")
+    return [counts], out
+
+
 def glob_files(root, pattern):
     import glob
     return sorted(glob.glob(os.path.join(root, pattern)))
@@ -6234,6 +6327,7 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    peaks()               # an unknown card fails the run here
     t_start = time.perf_counter()
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
@@ -6335,6 +6429,11 @@ def main():
     sched_counts, sched = clock("phase_sched", phase_sched, torch, ops)
     lockcheck_counts, lockcheck = clock("phase_lockcheck", phase_lockcheck,
                                         torch, ops)
+    roofline_counts, roofline_rep = clock("phase_roofline", phase_roofline,
+                                          torch, ops, gen, wide, conv, lm)
+    if phase_s["phase_roofline"] >= ROOFLINE_LIMIT_S:
+        raise AssertionError(f"phase 29 took {phase_s['phase_roofline']:.1f}"
+                             f" s, past its {ROOFLINE_LIMIT_S} s")
     runs = ([digits_counts, wide_counts]
             + [serving[t]["launches"] for t in serving]
             + [conv[m]["launches"] for m in conv]
@@ -6345,7 +6444,7 @@ def main():
             + [moe_serve[t]["launches"] for t in moe_serve]
             + [tp_pp[t]["launches"] for t in ("2d_mesh", "3d", "pp")]
             + dataplane_counts + recovery_counts + native_counts
-            + sched_counts + lockcheck_counts)
+            + sched_counts + lockcheck_counts + roofline_counts)
     launches = {k: sum(c[k] for c in runs) for k in ops.KERNELS}
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
@@ -6384,7 +6483,7 @@ def main():
         "moe_check": moe_check, "tp_pp_train": tp_pp,
         "tp_pp_check": tp_pp_check, "dataplane": dataplane,
         "recovery": recovery, "native": native, "sched": sched,
-        "lockcheck": lockcheck,
+        "lockcheck": lockcheck, "roofline": roofline_rep,
         "kernels": kernels, "phase_seconds": phase_s,
         "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)

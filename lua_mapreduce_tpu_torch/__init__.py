@@ -30,17 +30,104 @@ training path and single-device LM training on top of it:
   (NCCL on the card, gloo on the CPU): the mesh and ``spawn``, the
   collectives, ``TpuExecutor``, ``differentiable_keyed``, ZeRO-1; the
   trainer over a mesh, and ``models.kmeans`` / ``models.als``.
+- ``analysis``: the static analyzer, the task-contract checker and the
+  lease-protocol model checker (``python -m
+  lua_mapreduce_tpu_torch.analysis``); ``utils.roofline``: the card's
+  peaks and MFU.
 
-It imports ``torch`` and numpy, never ``jax`` and nothing of
+The top-level names are the JAX package's (the pool and executor
+eagerly, the rest lazily), and :func:`utest` runs the host-path
+modules' self-tests (reference mapreduce/init.lua:25-38). It imports
+``torch`` and numpy, never ``jax`` and nothing of
 ``lua_mapreduce_tpu``. Entry points run on ``"cuda"`` unless the
 caller passes ``device="cpu"``; with no CUDA device they raise.
 """
 
 from lua_mapreduce_tpu_torch.coord.filestore import FileJobStore
 from lua_mapreduce_tpu_torch.coord.jobstore import MemJobStore
+from lua_mapreduce_tpu_torch.core import tuples
 from lua_mapreduce_tpu_torch.device import resolve_device
 from lua_mapreduce_tpu_torch.engine import (LocalExecutor, PhaseFailed,
                                             Server, TaskSpec, Worker)
 
+_LAZY = {
+    "PersistentTable": ("lua_mapreduce_tpu_torch.coord.persistent_table",
+                        "PersistentTable"),
+    # fault subsystem
+    "StoreError": ("lua_mapreduce_tpu_torch.faults.errors", "StoreError"),
+    "TransientStoreError": ("lua_mapreduce_tpu_torch.faults.errors",
+                            "TransientStoreError"),
+    "PermanentStoreError": ("lua_mapreduce_tpu_torch.faults.errors",
+                            "PermanentStoreError"),
+    "RetryPolicy": ("lua_mapreduce_tpu_torch.faults.retry", "RetryPolicy"),
+    "FaultPlan": ("lua_mapreduce_tpu_torch.faults.plan", "FaultPlan"),
+    # in-graph engine
+    "InGraphEngine": ("lua_mapreduce_tpu_torch.engine.ingraph",
+                      "InGraphEngine"),
+    "LoweringError": ("lua_mapreduce_tpu_torch.engine.ingraph",
+                      "LoweringError"),
+    # lmr-trace
+    "Tracer": ("lua_mapreduce_tpu_torch.trace.span", "Tracer"),
+    "TraceCollection": ("lua_mapreduce_tpu_torch.trace.collect",
+                        "TraceCollection"),
+    # lmr-sched
+    "Tenant": ("lua_mapreduce_tpu_torch.sched.tenancy", "Tenant"),
+    "TenantView": ("lua_mapreduce_tpu_torch.sched.tenancy", "TenantView"),
+    "FairWorker": ("lua_mapreduce_tpu_torch.sched.tenancy", "FairWorker"),
+    "FairScheduler": ("lua_mapreduce_tpu_torch.sched.tenancy",
+                      "FairScheduler"),
+    "AdmissionError": ("lua_mapreduce_tpu_torch.sched.tenancy",
+                       "AdmissionError"),
+    "Waiter": ("lua_mapreduce_tpu_torch.sched.waiter", "Waiter"),
+    # lmr-ha
+    "LeaderLease": ("lua_mapreduce_tpu_torch.sched.lease", "LeaderLease"),
+    "FencedJobStore": ("lua_mapreduce_tpu_torch.sched.lease",
+                       "FencedJobStore"),
+    "StaleLeaderError": ("lua_mapreduce_tpu_torch.faults.errors",
+                         "StaleLeaderError"),
+}
+
+
+def __getattr__(name):
+    """Lazy exports: the fault, trace, sched and in-graph layers load
+    on first use; the contract, local and pool layers above are eager."""
+    try:
+        modname, attr = _LAZY[name]
+    except KeyError:
+        raise AttributeError(name) from None
+    import importlib
+    return getattr(importlib.import_module(modname), attr)
+
+
 __all__ = ["resolve_device", "Server", "Worker", "MemJobStore",
-           "FileJobStore", "TaskSpec", "LocalExecutor", "PhaseFailed"]
+           "FileJobStore", "TaskSpec", "LocalExecutor", "PhaseFailed",
+           *_LAZY, "tuples", "utest"]
+
+
+def utest():
+    """Run every host-path module's self-test (reference
+    mapreduce/test.lua:30-39)."""
+    import importlib
+
+    from lua_mapreduce_tpu_torch import analysis, faults, sched, trace
+    from lua_mapreduce_tpu_torch.coord import jobstore, persistent_table
+    from lua_mapreduce_tpu_torch.core import heap, merge, segment, serialize
+    from lua_mapreduce_tpu_torch.engine import (contract, ingraph,
+                                                placement, premerge, push,
+                                                server, worker)
+    from lua_mapreduce_tpu_torch.store import memfs
+    from lua_mapreduce_tpu_torch.utils import lockcheck, stats
+
+    # the module: the store package's ``router`` is the function of that
+    # name, which has no self-test
+    router = importlib.import_module("lua_mapreduce_tpu_torch.store.router")
+
+    # host-path modules only, the JAX package's list: the ops' self-test
+    # (ops/q8.py) runs the plain version on CPU tensors and is called on
+    # its own; ingraph's is host-only by design (knob resolution and the
+    # static oracle consult)
+    for mod in (tuples, heap, serialize, segment, merge, jobstore, memfs,
+                contract, router, persistent_table, stats, placement,
+                premerge, push, worker, server, ingraph, analysis, faults,
+                trace, sched, lockcheck):
+        mod.utest()

@@ -586,7 +586,96 @@ def stage_report(rep: TaskReport) -> dict:
     return out
 
 
+def report_dict(rep: TaskReport) -> dict:
+    return {
+        "spec": rep.spec,
+        "verdict": rep.verdict,
+        "functions": {
+            name: {"file": fr.rel, "line": fr.lineno,
+                   "verdict": fr.verdict, "reasons": fr.reasons,
+                   "findings": [f.to_json() for f in fr.findings]}
+            for name, fr in rep.functions.items()},
+        "stages": stage_report(rep),
+        "findings": [f.to_json() for f in rep.findings],
+        "count": len(rep.findings),
+    }
+
+
+def format_text(rep: TaskReport) -> str:
+    lines = [f"task {rep.spec}: {rep.verdict}"]
+    for name in FN_NAMES:
+        fr = rep.functions.get(name)
+        if fr is None:
+            continue
+        why = f"  ({fr.reasons[0]})" if fr.reasons else ""
+        lines.append(f"  {name:<12} {fr.rel}:{fr.lineno:<5} "
+                     f"{fr.verdict}{why}")
+    for f in rep.findings:
+        lines.append(f"  {f.path}:{f.line}:{f.col}: {f.rule} {f.message}")
+    return "\n".join(lines)
+
+
 def contract_rule_catalog() -> List[Dict[str, str]]:
     return [{"id": r.id, "severity": r.severity, "title": r.title,
              "rationale": r.rationale, "paths": ["<task modules>"]}
             for r in CONTRACT_RULES]
+
+
+def utest() -> None:
+    """Self-test: contract violations, determinism hazards, and the
+    three-way verdict on in-memory fixtures plus the shipped examples."""
+    import tempfile
+
+    good = (
+        "def taskfn(emit):\n"
+        "    for j in range(4):\n"
+        "        emit(j, j)\n"
+        "def mapfn(key, value, emit):\n"
+        "    emit(key % 2, value * value)\n"
+        "def partitionfn(key):\n"
+        "    return key % 2\n"
+        "def reducefn(key, values):\n"
+        "    return sum(values)\n"
+    )
+    bad = (
+        "import time, random\n"
+        "def taskfn(emit, extra):\n"
+        "    emit(1)\n"
+        "def mapfn(key, value, emit):\n"
+        "    emit(key, value, time.time())\n"
+        "    random.shuffle(value)\n"
+        "def partitionfn(key):\n"
+        "    return hash(key) % 4\n"
+        "def reducefn(key, values):\n"
+        "    for v in set(values):\n"
+        "        pass\n"
+        "    return values[0]\n"
+    )
+    with tempfile.TemporaryDirectory() as d:
+        g = os.path.join(d, "goodtask.py")
+        with open(g, "w") as f:
+            f.write(good)
+        rep = check_task(g)
+        assert rep.verdict == VERDICT_INGRAPH, report_dict(rep)
+        assert all(fr.verdict == VERDICT_INGRAPH
+                   for fr in rep.functions.values())
+        assert rep.findings == []
+
+        b = os.path.join(d, "badtask.py")
+        with open(b, "w") as f:
+            f.write(bad)
+        rep = check_task(b)
+        assert rep.verdict == VERDICT_INVALID
+        rules = {f.rule for f in rep.findings}
+        assert {"LMR021", "LMR022", "LMR023", "LMR024",
+                "LMR025"} <= rules, rules
+
+        # a missing required function is LMR020 + invalid
+        m = os.path.join(d, "half.py")
+        with open(m, "w") as f:
+            f.write("def mapfn(key, value, emit):\n    emit(key, value)\n")
+        rep = check_task(m)
+        assert rep.verdict == VERDICT_INVALID
+        assert sum(1 for f in rep.findings if f.rule == "LMR020") == 3
+
+    assert check_task("no.such.module").verdict == VERDICT_INVALID

@@ -606,3 +606,118 @@ def deep_rule_catalog() -> List[Dict[str, str]]:
              "rationale": d.rationale, "paths": list(d.paths)}
             for d in DEEP_RULES]
 
+
+def utest() -> None:
+    """Self-test: each deep rule re-finds a seeded helper-indirection
+    violation its per-function sibling provably misses, clean twins
+    pass, and the real package analyzes clean."""
+    from lua_mapreduce_tpu_torch.analysis.lint import run_lint
+
+    flock_fix = ("coord/fx.py", (
+        "import json, os, time\n"
+        "class Idx:\n"
+        "    def claim(self):\n"
+        "        fd = self._open_locked()\n"
+        "        try:\n"
+        "            return self._load_doc(fd)\n"
+        "        finally:\n"
+        "            os.close(fd)\n"
+        "    def _load_doc(self, fd):\n"
+        "        doc = json.load(open('sidecar'))\n"
+        "        time.sleep(0.1)\n"
+        "        return doc\n"
+    ))
+    g = CallGraph.from_sources([flock_fix])
+    res = analyze(graph=g, baseline="/nonexistent")
+    rules_hit = sorted({f.rule for f in res.findings})
+    assert "LMR013" in rules_hit, res.findings
+    assert all(f.line in (10, 11) for f in res.findings
+               if f.rule == "LMR013")
+
+    retry_fix = ("store/fx.py", (
+        "class MyStore:\n"
+        "    def read_range(self, name, offset, length):\n"
+        "        return self._fetch(name)\n"
+        "    def _fetch(self, name):\n"
+        "        raise RuntimeError('backend hiccup')\n"
+        "    def build(self, name):\n"
+        "        self._publish(name)\n"
+        "    def _publish(self, name):\n"
+        "        self.js.insert_jobs('ns', [])\n"
+    ))
+    g = CallGraph.from_sources([retry_fix])
+    got = {f.rule for f in analyze(graph=g,
+                                   baseline="/nonexistent").findings}
+    assert {"LMR014", "LMR016"} <= got, got
+
+    replay_fix = ("coord/cx.py", (
+        "import time\n"
+        "class S:\n"
+        "    def stamp(self):\n"
+        "        with self._lock:\n"
+        "            self.t = self._now()\n"
+        "    def _now(self):\n"
+        "        return time.time()\n"
+    ))
+    g = CallGraph.from_sources([replay_fix])
+    got = [f for f in analyze(graph=g, baseline="/nonexistent").findings]
+    assert [f.rule for f in got] == ["LMR015"] and got[0].line == 7, got
+
+    capture_fix = ("models/ox.py", (
+        "import numpy as np\n"
+        "from lua_mapreduce_tpu_torch import graphs\n"
+        "def step(state, x):\n"
+        "    return state + x * _noise(3), state\n"
+        "def run(state, x):\n"
+        "    return graphs.scan(step, state, 8, x)\n"
+        "def _noise(n):\n"
+        "    return np.random.randn(n)\n"
+    ))
+    g = CallGraph.from_sources([capture_fix])
+    got = [f for f in analyze(graph=g, baseline="/nonexistent").findings]
+    assert [f.rule for f in got] == ["LMR017"] and got[0].line == 8, got
+
+    # the acceptance pair: the per-function pass misses ALL of these
+    for rel, src in (flock_fix, retry_fix, replay_fix, capture_fix):
+        import tempfile, os as _os
+        with tempfile.TemporaryDirectory() as d:
+            sub = _os.path.join(d, _os.path.dirname(rel))
+            _os.makedirs(sub, exist_ok=True)
+            p = _os.path.join(d, rel)
+            with open(p, "w") as fh:
+                fh.write(src)
+            per_fn = run_lint([d], baseline="/nonexistent")
+            assert [f for f in per_fn
+                    if f.rule in ("LMR002", "LMR004", "LMR007",
+                                  "LMR008")] == [], (rel, per_fn)
+
+    # clean twins: hoisted clock, classified raise, pure helper
+    g = CallGraph.from_sources([
+        ("coord/clean.py", (
+            "import time\n"
+            "class S:\n"
+            "    def stamp(self):\n"
+            "        now = self._now()\n"
+            "        with self._lock:\n"
+            "            self.t = now\n"
+            "    def _now(self):\n"
+            "        return time.time()\n"
+        )),
+        ("store/clean.py", (
+            "class S:\n"
+            "    def read_range(self, name, offset, length):\n"
+            "        return self._fetch(name)\n"
+            "    def _fetch(self, name):\n"
+            "        raise TransientStoreError('blip')\n"
+        )),
+    ])
+    assert analyze(graph=g, baseline="/nonexistent").findings == []
+
+    # inline suppression holds for deep findings too
+    g = CallGraph.from_sources([(
+        "coord/sup.py",
+        replay_fix[1].replace("cx", "sup").replace(
+            "return time.time()",
+            "return time.time()  # lmr: disable=LMR015"),
+    )])
+    assert analyze(graph=g, baseline="/nonexistent").findings == []

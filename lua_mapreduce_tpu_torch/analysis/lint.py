@@ -20,8 +20,8 @@ Suppression is explicit and auditable:
 Copy of the JAX package's ``analysis/lint.py``, anchored on this
 package: paths are relative to ``lua_mapreduce_tpu_torch/``, the rules
 are this package's ``rules`` and the baseline its own
-``analysis/baseline.json``. The CLI (``python -m ...analysis``) is not
-ported yet: call :func:`run_audit` / :func:`run_lint` directly.
+``analysis/baseline.json``; the CLI is ``python -m
+lua_mapreduce_tpu_torch.analysis``.
 """
 
 from __future__ import annotations
@@ -348,3 +348,43 @@ def rule_catalog() -> List[Dict[str, str]]:
     out.extend(lockset.conc_rule_catalog())
     out.sort(key=lambda r: r["id"])
     return out
+
+
+def utest() -> None:
+    """Self-test: engine plumbing — suppression, baselines, ordering —
+    against an in-memory fixture (rule behavior itself is fixture-tested
+    per rule in tests/test_analysis.py)."""
+    import tempfile
+
+    src = ("import time\n"
+           "try:\n"
+           "    pass\n"
+           "except BaseException:\n"
+           "    pass\n"
+           "try:\n"
+           "    pass\n"
+           "except BaseException:  # lmr: disable=LMR005\n"
+           "    pass\n")
+    with tempfile.TemporaryDirectory() as d:
+        p = os.path.join(d, "fx.py")
+        with open(p, "w") as f:
+            f.write(src)
+        got = run_lint([p], baseline="/nonexistent")
+        assert [f.rule for f in got] == ["LMR005"], got
+        assert got[0].line == 4
+        # file-wide baseline entry silences it; empty reason is rejected
+        bl = os.path.join(d, "b.json")
+        with open(bl, "w") as f:
+            json.dump([{"rule": "LMR005", "path": "fx.py",
+                        "reason": "utest"}], f)
+        assert run_lint([p], baseline=bl) == []
+        with open(bl, "w") as f:
+            json.dump([{"rule": "LMR005", "path": "fx.py"}], f)
+        try:
+            run_lint([p], baseline=bl)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError("reason-less baseline entry must fail")
+    ids = [r.id for r in all_rules()]
+    assert len(ids) == len(set(ids)) and ids == sorted(ids)

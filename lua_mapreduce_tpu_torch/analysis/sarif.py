@@ -8,7 +8,8 @@ subset: one run, one driver, the full rule catalog (so viewers can show
 the rationale for an id), one result per finding.
 
 Copy of the JAX package's ``analysis/sarif.py``: :func:`to_sarif` over
-any findings list (the CLI's ``--format sarif`` is not ported yet).
+any findings list, and ``python -m lua_mapreduce_tpu_torch.analysis
+lint --format sarif`` et al.
 """
 
 from __future__ import annotations
@@ -91,3 +92,19 @@ def validate_sarif(doc: Dict) -> None:
         assert loc["region"]["startLine"] >= 1
         if "ruleIndex" in res:
             assert driver["rules"][res["ruleIndex"]]["id"] == res["ruleId"]
+
+
+def utest() -> None:
+    fs = [Finding("LMR005", "error", "train/x.py", 7, 4, "swallowed"),
+          Finding("LMR013", "error", "coord/y.py", 3, 0, "deep IO"),
+          Finding("LMR022", "error", "task.py", 0, 0, "emit arity")]
+    doc = to_sarif(fs)
+    validate_sarif(doc)
+    assert len(doc["runs"][0]["results"]) == 3
+    # zero-line module findings clamp into SARIF's 1-based regions
+    assert doc["runs"][0]["results"][2]["locations"][0][
+        "physicalLocation"]["region"]["startLine"] == 1
+    # catalog covers per-function, deep, and contract bands
+    ids = {r["id"] for r in doc["runs"][0]["tool"]["driver"]["rules"]}
+    assert {"LMR001", "LMR013", "LMR020"} <= ids
+    json.loads(format_sarif(fs))        # round-trips as JSON

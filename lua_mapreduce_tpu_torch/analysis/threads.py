@@ -408,3 +408,71 @@ def shutdown_report(tg: ThreadGraph) -> List[dict]:
                     "daemon": s.daemon, "module_joins": joins,
                     "target": s.target_src})
     return out
+
+
+def utest() -> None:
+    """Self-test: every spawn-site kind resolves on a fixture, root
+    sets separate thread-only code from main code, and the real
+    package's known daemon loops classify thread-only."""
+    g = CallGraph.from_sources([
+        ("engine/fx.py", (
+            "import threading\n"
+            "from sched.controller import FleetSupervisor\n"
+            "class W:\n"
+            "    def go(self):\n"
+            "        def loop():\n"
+            "            self.tick()\n"
+            "        t = threading.Thread(target=loop, daemon=True)\n"
+            "        t.start()\n"
+            "        for i in range(3):\n"
+            "            threading.Thread(target=self.run_one).start()\n"
+            "        pool.submit(self.reduce_one, 1)\n"
+            "        sup = FleetSupervisor(spawn=self.mint, retire=print,\n"
+            "                              baseline=1, cap=2)\n"
+            "    def tick(self):\n"
+            "        self.shared = 1\n"
+            "    def run_one(self):\n"
+            "        pass\n"
+            "    def reduce_one(self, i):\n"
+            "        pass\n"
+            "    def mint(self, i):\n"
+            "        pass\n"
+            "def main():\n"
+            "    W().go()\n"
+        )),
+        ("sched/controller.py", (
+            "class FleetSupervisor:\n"
+            "    def __init__(self, spawn, retire, baseline, cap):\n"
+            "        pass\n"
+        )),
+    ])
+    tg = build_thread_graph(g)
+    by = {(s.via, s.entry): s for s in tg.spawns}
+    loop_fid = "engine/fx.py::W.go.loop"
+    assert ("thread", loop_fid) in by
+    assert by[("thread", loop_fid)].daemon
+    assert not by[("thread", loop_fid)].multi
+    assert ("thread", "engine/fx.py::W.run_one") in by
+    assert by[("thread", "engine/fx.py::W.run_one")].multi  # in a loop
+    assert ("submit", "engine/fx.py::W.reduce_one") in by
+    assert ("fleet", "engine/fx.py::W.mint") in by
+    # roots: loop + tick are thread-only; go/main are main-rooted;
+    # tick is reachable ONLY from the loop entry
+    assert tg.roots_of(loop_fid) == {loop_fid}
+    assert tg.roots_of("engine/fx.py::W.tick") == {loop_fid}
+    assert MAIN in tg.roots_of("engine/fx.py::W.go")
+    # contested: go (main) vs tick (thread) span two roots; run_one is
+    # multi — contested with itself
+    assert tg.contested(["engine/fx.py::W.go", "engine/fx.py::W.tick"])
+    assert tg.contested(["engine/fx.py::W.run_one"])
+    assert not tg.contested(["engine/fx.py::W.go"])
+
+    real = build_thread_graph()
+    entries = {s.entry for s in real.spawns if s.entry}
+    assert "engine/worker.py::Worker._beating.beat" in entries, entries
+    assert "store/sharedfs.py::_writer_loop" in entries, entries
+    beat = real.roots_of("engine/worker.py::Worker._beating.beat")
+    assert MAIN not in beat, beat      # the daemon loop is thread-only
+    # every Thread spawn in the package is daemon or its module joins
+    for row in shutdown_report(real):
+        assert row["daemon"] or row["module_joins"], row

@@ -577,3 +577,35 @@ class MemJobStore(JobStore):
     def pt_delete(self, name):
         with self._lock:
             self._pt.pop(name, None)
+
+
+def utest() -> None:
+    """Self-test (reference task.lua:365-367 utest role): the claim /
+    status machine on the in-memory store."""
+    s = MemJobStore()
+    ids = s.insert_jobs("map_jobs", [make_job(f"k{i}", i) for i in range(3)])
+    assert ids == [0, 1, 2]
+    doc = s.claim("map_jobs", "w1")
+    assert doc is not None and doc["status"] == Status.RUNNING
+    jid = doc["_id"]
+    assert s.set_job_status("map_jobs", jid, Status.FINISHED,
+                            expect=(Status.RUNNING,), expect_worker="w1")
+    assert not s.set_job_status("map_jobs", jid, Status.WRITTEN,
+                                expect=(Status.FINISHED,),
+                                expect_worker="other")   # ownership CAS
+    assert s.set_job_status("map_jobs", jid, Status.WRITTEN,
+                            expect=(Status.FINISHED,), expect_worker="w1")
+    c = s.counts("map_jobs")
+    assert c[Status.WRITTEN] == 1 and c[Status.WAITING] == 2
+    assert len(s.job_workers("map_jobs")) == 1
+
+    # batch lease: claim the remaining two in one pass, commit in one pass
+    batch = s.claim_batch("map_jobs", "w2", k=5)
+    assert [d["_id"] for d in batch] == [1, 2]
+    assert all(d["status"] == Status.RUNNING for d in batch)
+    t = {"started": 0.0, "finished": 0.0, "written": 0.0, "cpu": 0.0,
+         "real": 0.0}
+    assert s.commit_batch("map_jobs", "w2",
+                          [(1, t), (2, t)]) == [1, 2]
+    assert s.counts("map_jobs")[Status.WRITTEN] == 3
+    assert s.round_counts()["claim"] >= 2

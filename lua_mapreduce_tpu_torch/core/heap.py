@@ -66,3 +66,24 @@ class Heap:
                 data[i], data[smallest] = data[smallest], data[i]
                 i = smallest
         return top
+
+
+def utest() -> None:
+    """Self-test (reference heap.lua:99-118)."""
+    import random
+
+    h = Heap()
+    values = [random.random() for _ in range(1000)]
+    for v in values:
+        h.push(v)
+    assert h.size() == len(values)
+    out = [h.pop() for _ in range(h.size())]
+    assert out == sorted(values)
+    assert h.empty()
+
+    # custom comparator: max-heap
+    h2 = Heap(lt=lambda a, b: a > b)
+    for v in (3, 1, 4, 1, 5):
+        h2.push(v)
+    assert h2.pop() == 5
+    assert h2.top() == 4

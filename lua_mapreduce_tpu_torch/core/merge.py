@@ -122,3 +122,23 @@ def _merge_str_keyed(iters: List[Iterator[Tuple[Any, List[Any]]]]
             if nxt is not None:
                 push(heap, (nxt[0], jdx, nxt[1]))
         yield key, merged
+
+
+def utest() -> None:
+    """Self-test: merge three sorted runs with overlapping keys."""
+    from lua_mapreduce_tpu_torch.core.serialize import dump_record
+
+    class _MemStore:
+        def __init__(self, files):
+            self.files = files
+
+        def lines(self, name):
+            return iter(self.files[name])
+
+    store = _MemStore({
+        "a": [dump_record("apple", [1]), dump_record("cat", [1, 1])],
+        "b": [dump_record("apple", [2]), dump_record("bee", [5])],
+        "c": [dump_record("cat", [3])],
+    })
+    out = list(merge_iterator(store, ["a", "b", "c"]))
+    assert out == [("apple", [1, 2]), ("bee", [5]), ("cat", [1, 1, 3])], out

@@ -260,13 +260,15 @@ def writer_for(store, segment_format: str = "v1", codec: str = "zlib"):
 
 
 # parsed-footer cache: a file opened again through the same store
-# object skips the trailer + footer ranged reads. The parsed footer is cached per (name, size) ON the
-# innermost store object (lifetime tied to the store: no cross-store
-# collisions, no stale id reuse), bounded FIFO. Safe under the engine's
-# deterministic-overwrite contract (duplicate publishes write identical
-# bytes — job.py's stated assumption), and the size key evicts any
-# honest rewrite that changed length.
+# object skips the trailer + footer ranged reads. The parsed footer is
+# cached per (name, size) ON the innermost store object (lifetime tied
+# to the store: no cross-store collisions, no stale id reuse), bounded
+# FIFO. Safe under the engine's deterministic-overwrite contract
+# (duplicate publishes write identical bytes — job.py's stated
+# assumption), and the size key evicts any honest rewrite that changed
+# length.
 _FOOTER_CACHE_CAP = 1024
+FOOTER_READS_SAVED = 0          # regression-test observability
 
 
 def _footer_cache(store) -> Optional[dict]:
@@ -318,7 +320,10 @@ class SegmentReader:
             raise ValueError(f"{name}: not a JSEG0001 segment")
         cache = _footer_cache(store)
         meta = cache.get((name, size)) if cache is not None else None
-        if meta is None:
+        if meta is not None:
+            global FOOTER_READS_SAVED
+            FOOTER_READS_SAVED += 2        # trailer + footer skipped
+        else:
             trailer = self._ranged(size - _TRAILER.size, _TRAILER.size)
             foot_off, foot_len, foot_crc, magic = _TRAILER.unpack(trailer)
             if magic != MAGIC:
@@ -424,6 +429,23 @@ class SegmentReader:
                     yield key, rec[1]
 
 
+    def iter_lines(self, readahead: int = READAHEAD_BYTES) -> Iterator[str]:
+        """The segment's records as v1 text lines (with newline) — the
+        re-framing surface for v2 → v1 conversion and text-shim reads."""
+        for first, count, blob in self._read_batches(readahead):
+            blob_off = self.frames[first][0]
+            for idx in range(first, first + count):
+                payload = self.frame_payload(idx, blob, blob_off)
+                # split on \n ONLY — str.splitlines would also split on
+                # U+2028/U+2029, which JSON strings may carry raw under
+                # ensure_ascii=False; record separators are always \n
+                parts = payload.decode("utf-8").split("\n")
+                for part in parts[:-1]:
+                    yield part + "\n"
+                if parts[-1]:
+                    yield parts[-1]
+
+
 def open_segment(store, name: str) -> Optional[SegmentReader]:
     """SegmentReader for ``name``, or None when it is not a v2 segment —
     v1 text (first byte is ``[``), or a store without the raw-bytes
@@ -460,3 +482,67 @@ def _text_records(store, name: str) -> Iterator[Tuple[Any, List[Any]]]:
         line = line.strip()
         if line:
             yield load_record(line)
+
+
+def utest() -> None:
+    """Self-test: frame packing, codec fallback, batch decode, ranged
+    index, text round-trip, and the sniffing reader."""
+    from lua_mapreduce_tpu_torch.store.memfs import MemStore
+
+    store = MemStore()
+    recs = [(f"k{i:04d}", [i, str(i), [i, i + 1]]) for i in range(500)]
+
+    with writer_for(store, "v2", codec="zlib") as w:
+        for k, v in recs:
+            w.add(k, v)
+        w.build("seg.P0.M1")
+
+    r = open_segment(store, "seg.P0.M1")
+    assert r is not None and r.records == 500
+    assert list(r.iter_records()) == recs
+    assert [k for k, _ in (load_record(l) for l in r.iter_lines())] == \
+        [k for k, _ in recs]
+    assert r.frames[0][3] == '"k0000"'       # first-key index
+
+    # v1 writer + the format-agnostic stream
+    with writer_for(store, "v1") as w1:
+        for k, v in recs[:3]:
+            w1.add(k, v)
+        w1.build("txt.P0.M2")
+    assert open_segment(store, "txt.P0.M2") is None
+    assert list(record_stream(store, "txt.P0.M2")) == recs[:3]
+    assert list(record_stream(store, "seg.P0.M1")) == recs
+
+    # incompressible payload falls back to raw frames, tiny readahead
+    # exercises multi-batch ranged reads
+    import random
+    rng = random.Random(0)
+    noisy = [("k%04d" % i,
+              ["".join(rng.choice("abcdefghijklmnopqrstuvwxyz0123456789")
+                       for _ in range(40))]) for i in range(64)]
+    with SegmentWriter(store.builder(), codec="zlib", frame_bytes=512) as w:
+        for k, v in noisy:
+            w.add(k, v)
+        w.build("noisy")
+    r = open_segment(store, "noisy")
+    assert len(r.frames) > 1
+    assert list(r.iter_records(readahead=600)) == noisy
+
+    # corruption is detected loudly
+    raw = store._files["seg.P0.M1"]
+    flip = len(MAGIC) + _FRAME_HDR.size + 4
+    store._files["bad"] = (raw[:flip] +
+                           bytes([raw[flip] ^ 0xFF]) + raw[flip + 1:])
+    try:
+        list(open_segment(store, "bad").iter_records())
+    except (ValueError, zlib.error):
+        pass
+    else:                      # pragma: no cover
+        raise AssertionError("corrupt frame must not decode silently")
+
+    try:
+        check_format("v3")
+    except ValueError:
+        pass
+    else:                      # pragma: no cover
+        raise AssertionError("unknown format must be rejected")

@@ -215,3 +215,44 @@ def assert_serializable(value: Any, path: str = "value") -> None:
             assert_serializable(v, f"{path}.{k}")
         return
     raise TypeError(f"{path}: unserializable type {type(value).__name__}")
+
+
+def utest() -> None:
+    """Self-test (reference utils.lua:340-406 exercises serialization)."""
+    line = dump_record("word", [1, 2, 3])
+    assert load_record(line) == ("word", [1, 2, 3])
+
+    # float fast path: byte-identical to json.dumps; specials fall back
+    for vals in ([1.5, -0.0, 2.5e-8], [1, "a", 3.25], [float("inf")],
+                 [float("nan")]):
+        assert dump_record("k", vals) == json.dumps(
+            ["k", vals], separators=(",", ":"), ensure_ascii=False)
+    assert dump_key(("a", 1)) == '["a",1]'
+
+    k, vs = load_record(dump_record(tuples.intern((1, "a")), [[2, 3]]))
+    assert k is tuples.intern((1, "a"))
+    assert vs == [[2, 3]]
+
+    assert key_lt(1, "a") and not key_lt("a", 1)
+    assert key_lt("a", "b")
+    assert key_lt((1, 2), (1, 3)) and key_lt((1,), (1, 2))
+    assert sorted_keys(["b", 2, "a", 1]) == [1, 2, "a", "b"]
+
+    # to_plain: IDENTITY (same object) for plain shapes, tolist for
+    # array-likes, container rebuild only when a leaf converted
+    plain = {"a": [1, 2.5, "x"], "b": None}
+    assert to_plain(plain) is plain
+    assert to_plain(tuples.intern((1, 2))) is tuples.intern((1, 2))
+    import numpy as _np
+    assert to_plain(_np.int32(3)) == 3 and type(to_plain(_np.int32(3))) is int
+    assert to_plain(_np.arange(3)) == [0, 1, 2]
+    assert to_plain({"g": _np.float32(1.5)}) == {"g": 1.5}
+    assert to_plain((1, _np.int32(2))) == [1, 2]
+
+    assert serialized_size("xx") == 4  # '"xx"'
+    try:
+        assert_serializable({1: "bad"})  # type: ignore[dict-item]
+    except TypeError:
+        pass
+    else:  # pragma: no cover
+        raise AssertionError("non-str dict key must be rejected")

@@ -53,3 +53,31 @@ def intern(value: Iterable[Any]) -> Tuple:
         t = Tuple(items)
         _table[items] = t
         return t
+
+
+def stats() -> dict:
+    """Live intern-table statistics (reference tuple.lua:332-343)."""
+    with _lock:
+        return {"size": len(_table)}
+
+
+def utest() -> None:
+    """Self-test (reference tuple.lua:309-328)."""
+    a = intern((1, 2, 3))
+    b = intern([1, 2, 3])
+    assert a is b
+    assert a == (1, 2, 3)
+    c = intern((1, (2, 3)))
+    d = intern([1, [2, 3]])
+    assert c is d
+    assert c[1] is intern((2, 3))
+    assert hash(a) == hash(b)
+    assert {a: "x"}[b] == "x"
+    # immutability: tuples reject item assignment by construction
+    try:
+        a[0] = 99  # type: ignore[index]
+    except TypeError:
+        pass
+    else:  # pragma: no cover
+        raise AssertionError("Tuple must be immutable")
+    assert stats()["size"] >= 2

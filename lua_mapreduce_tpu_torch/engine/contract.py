@@ -240,3 +240,32 @@ class TaskSpec:
                 continue
             seen.add(loaded.module)
             loaded.init(self.init_args)
+
+
+def utest() -> None:
+    """Self-test (reference server.lua:629-655 utest role): contract
+    validation and flag resolution."""
+    def reducefn(key, values):
+        return sum(values)
+    reducefn.associative_reducer = True
+    reducefn.commutative_reducer = True
+    spec = TaskSpec(taskfn={"taskfn": lambda emit: emit("k", 1)},
+                    mapfn={"mapfn": lambda k, v, emit: emit(k, v)},
+                    partitionfn={"partitionfn": lambda k: 0},
+                    reducefn={"reducefn": reducefn})
+    assert spec.associative and spec.commutative and not spec.idempotent
+    try:
+        TaskSpec(taskfn=None, mapfn=None, partitionfn=None, reducefn=None)
+    except TypeError:
+        pass
+    else:  # pragma: no cover
+        raise AssertionError("missing required fn must be rejected")
+    try:
+        parse_err = False
+        TaskSpec(taskfn={"taskfn": lambda e: None},
+                 mapfn={"mapfn": lambda k, v, e: None},
+                 partitionfn={"partitionfn": lambda k: 0},
+                 reducefn={"reducefn": reducefn}, storage="mongo:db")
+    except ValueError:
+        parse_err = True
+    assert parse_err, "bogus storage spec must be rejected eagerly"

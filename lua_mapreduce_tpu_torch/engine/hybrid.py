@@ -414,3 +414,16 @@ class HybridRunner:
         if self.fold is not None and self.fold.take_used():
             from lua_mapreduce_tpu_torch.faults.retry import COUNTERS
             COUNTERS.bump("hybrid_reduce_legs")
+
+
+def utest() -> None:
+    """Host-only self-test: plan round-trips and fold gating (the
+    compiled tiers run under the cpu-pinned pytest conftest,
+    tests/test_hybrid.py)."""
+    plan = _MapPlan()
+    out = plan.finish([collections.OrderedDict([("a", [1, 2]), ("b", [3])]),
+                       collections.OrderedDict([("a", [4])])])
+    assert out == (1, 2, 3, 4)
+    jobs = plan.unflatten(out, 2)
+    assert jobs == [{"a": [1, 2], "b": [3]}, {"a": [4]}]
+    assert plan.unflatten(out, 1) == [{"a": [1, 2], "b": [3]}]

@@ -1275,3 +1275,87 @@ class IngraphRunner:
             return False
         COUNTERS.bump("ingraph_iterations")
         return True
+
+
+def utest() -> None:
+    """Self-test (host-only surface: knob resolution, oracle consult,
+    decision logic — the compiled tiers are exercised under the
+    cpu-pinned pytest conftest, tests/test_ingraph.py)."""
+    import os
+    import tempfile
+
+    assert resolve_engine("AUTO") == "auto"
+    assert resolve_engine("ingraph") == "ingraph"
+    old = os.environ.get("LMR_ENGINE")
+    try:
+        os.environ["LMR_ENGINE"] = "store"
+        assert resolve_engine(None) == "store"
+        os.environ.pop("LMR_ENGINE")
+        assert resolve_engine(None) == "auto"
+    finally:
+        if old is not None:
+            os.environ["LMR_ENGINE"] = old
+    try:
+        resolve_engine("gpu")
+    except ValueError:
+        pass
+    else:  # pragma: no cover
+        raise AssertionError("bogus engine must be rejected")
+
+    # oracle consult + decision over a real (temp) in-graph module
+    good = (
+        "def taskfn(emit):\n"
+        "    for j in range(4):\n"
+        "        emit(j, j)\n"
+        "def mapfn(key, value, emit):\n"
+        "    emit(0, value * value)\n"
+        "def partitionfn(key):\n"
+        "    return int(key) % 2\n"
+        "def reducefn(key, values):\n"
+        "    return sum(values)\n"
+    )
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "ig_utest_task.py")
+        with open(path, "w") as f:
+            f.write(good)
+        import importlib.util
+        spec_ = importlib.util.spec_from_file_location("ig_utest_task",
+                                                       path)
+        mod = importlib.util.module_from_spec(spec_)
+        spec_.loader.exec_module(mod)
+        sys.modules["ig_utest_task"] = mod
+        old_path = list(sys.path)
+        sys.path.insert(0, d)
+        try:
+            tspec = TaskSpec(taskfn="ig_utest_task", mapfn="ig_utest_task",
+                             partitionfn="ig_utest_task",
+                             reducefn="ig_utest_task")
+            dec = select_engine(tspec, "auto")
+            assert dec.chosen == "ingraph" and dec.verdict == "in-graph", dec
+            assert select_engine(tspec, "store").chosen == "store"
+            forced = select_engine(tspec, "ingraph")
+            assert forced.chosen == "ingraph" and forced.requested == "ingraph"
+        finally:
+            sys.path[:] = old_path
+            del sys.modules["ig_utest_task"]
+
+    # non-module specs degrade to store under auto, with a reason
+    dec = select_engine(TaskSpec(
+        taskfn={"taskfn": lambda e: e(0, 1)},
+        mapfn={"mapfn": lambda k, v, e: e(k, v)},
+        partitionfn={"partitionfn": lambda k: 0},
+        reducefn={"reducefn": lambda k, vs: sum(vs)}), "auto")
+    assert dec.chosen == "store"
+    assert "not statically checkable" in dec.reason or dec.verdict
+
+    # _value_leaves round-trip + rejection
+    leaves, st = _value_leaves({"a": [1, 2], "b": 3.5})
+    assert len(leaves) == 2
+    rebuilt = _rebuild(st, list(leaves))
+    assert sorted(rebuilt) == ["a", "b"]
+    try:
+        _value_leaves({"a": "text"})
+    except LoweringUnsupported:
+        pass
+    else:  # pragma: no cover
+        raise AssertionError("string job values must be refused")

@@ -163,3 +163,52 @@ def replica_pattern(pattern: str) -> str:
     ``pattern`` — cleanup and replica-aware listings pair this with the
     plain pattern (primary globs never see replica names)."""
     return f"~*~{pattern}"
+
+
+def utest() -> None:
+    """Self-test: determinism, distinct tags, round-trip parsing,
+    glob transparency, and the r=1 degenerate case."""
+    import fnmatch
+
+    name = "result.P3.M00000017"
+    assert replica_names(name, 1) == [name]          # r=1: plain name only
+    names = replica_names(name, 3)
+    assert names[0] == name
+    assert names == replica_names(name, 3)           # deterministic
+    tags = [tag_of(n) for n in names]
+    assert len(set(tags)) == 3                       # distinct targets
+    assert tags[0] == primary_tag(name)
+    for k, n in enumerate(names[1:], start=1):
+        assert parse_replica(n) == (k, tags[k], name)
+        assert base_name(n) == name
+        # glob transparency: discovery/cleanup globs see primaries only
+        assert not fnmatch.fnmatchcase(n, "result.P*")
+        assert fnmatch.fnmatchcase(n, replica_pattern("result.P*.M*"))
+    assert parse_replica(name) is None and base_name(name) == name
+
+    # coded-stripe names (constructed ONLY by faults/coded.py — LMR012)
+    # parse to the same tag-routing and logical-stripping answers
+    from lua_mapreduce_tpu_torch.faults.coded import (Coding, block_names,
+                                                      manifest_copies)
+    blocks = block_names(name, Coding(4, 2))
+    assert len({tag_of(n) for n in blocks}) == 6     # distinct targets
+    for i, n in enumerate(blocks):
+        assert parse_block(n) == (i, tag_of(n), name)
+        assert base_name(n) == name
+        assert not fnmatch.fnmatchcase(n, "result.P*")   # glob-transparent
+    for n in manifest_copies(name, Coding(4, 2)):    # manifest + replicas
+        assert parse_block(n) is None
+        assert base_name(n) == name                  # iterative stripping
+        assert not fnmatch.fnmatchcase(n, "result.P*")
+    assert parse_block(name) is None
+
+    # ~full-range factors still land on distinct tags
+    assert len({tag_of(n) for n in replica_names(name, NUM_TAGS)}) \
+        == NUM_TAGS
+    for bad in (0, NUM_TAGS + 1):
+        try:
+            check_replication(bad)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"replication {bad} must be rejected")

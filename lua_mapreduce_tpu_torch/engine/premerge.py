@@ -354,3 +354,53 @@ def discover_pipelined(store, result_ns: str,
                 continue
             items.setdefault(part, []).append(((p, 1, 0, name), name))
     return {part: [n for _, n in sorted(lst)] for part, lst in items.items()}
+
+
+def utest() -> None:
+    """Self-test: contiguity, transparency of absent runs, chunking,
+    failure poisoning, and the disk-rebuilt reduce order."""
+    ns = "r"
+    keys = [f"{i:06d}" for i in range(10)]
+    tr = PremergeTracker(ns, keys, min_runs=3, max_runs=4)
+
+    def commit(i, parts=(0,)):
+        tr.note_map_committed(keys[i],
+                              {p: f"{ns}.P{p}.M{keys[i]}" for p in parts})
+
+    commit(0), commit(2), commit(3)
+    assert tr.take_eligible() == []          # 1 isolated by UNKNOWN pos 1
+    commit(1, parts=())                      # absent everywhere: transparent
+    (sp,) = tr.take_eligible()               # 0,[absent],2,3 is contiguous
+    assert (sp.a, sp.b, sp.positions) == (0, 3, [0, 2, 3])
+    assert sp.files == [f"r.P0.M{keys[i]}" for i in (0, 2, 3)]
+    tr.spill_done(sp.part, sp.seq)
+    assert tr.pending_count() == 0
+
+    for i in (4, 5, 6, 7, 8, 9):
+        commit(i)
+    spills = tr.take_eligible()              # 6-stretch → chunks of 4 + none
+    assert [len(s.positions) for s in spills] == [4]
+    (s2,) = spills
+    tr.spill_failed(s2.part, s2.seq, spill_exists=False)   # → poisoned
+    assert tr.take_eligible() == []          # poisoned range never retried
+
+    class _FakeStore:
+        def __init__(self, names):
+            self.names = set(names)
+
+        def list(self, pattern):
+            import fnmatch
+            return sorted(n for n in self.names
+                          if fnmatch.fnmatchcase(n, pattern))
+
+        def remove(self, name):
+            self.names.discard(name)
+
+    # disk state: the done spill + poisoned raw runs + a tail run, plus a
+    # leftover run inside the spill range (pre-delete crash) to be swept
+    st = _FakeStore([sp.name] +
+                    [f"r.P0.M{keys[i]}" for i in (2, 4, 5, 6, 7, 8, 9)])
+    got = discover_pipelined(st, ns, keys)
+    assert got == {0: [sp.name] + [f"r.P0.M{keys[i]}"
+                                   for i in (4, 5, 6, 7, 8, 9)]}, got
+    assert f"r.P0.M{keys[2]}" not in st.names   # swept

@@ -688,3 +688,143 @@ def sweep_push_files(view, ns: str) -> None:
                 view.remove(name)
             except Exception:
                 pass
+
+
+def utest() -> None:
+    """Self-test: naming round-trips + glob transparency, budgeted
+    buffering with eviction-to-staged, manifest gating (publish-if-
+    absent, quarantine + promote, backstop), and canonical-order
+    discovery equal to the staged path's."""
+    import fnmatch
+
+    from lua_mapreduce_tpu_torch.core.segment import record_stream
+    from lua_mapreduce_tpu_torch.engine.premerge import run_name_re
+    from lua_mapreduce_tpu_torch.store.memfs import MemStore
+
+    ns = "r"
+    # naming: round-trip, tails, lineages; invisible to classic globs
+    f = frag_name(ns, 3, "00000007", None, 2)
+    assert parse_inbox_name(ns, f) == (3, "00000007", None, 2, False)
+    t = frag_name(ns, 3, "00000007", "ab12cd34", 5, tail=True)
+    assert parse_inbox_name(ns, t) == (3, "00000007", "ab12cd34", 5, True)
+    assert run_name_re(ns).match(f) is None
+    assert not fnmatch.fnmatchcase(f, f"{ns}.P*.M*")
+    assert not fnmatch.fnmatchcase(f, f"{ns}.P*.SPILL-*")
+    m = manifest_name(ns, "00000007")
+    assert parse_manifest_name(ns, m) == ("00000007", None)
+    assert parse_manifest_name(ns, m + ".sab12cd34") == ("00000007",
+                                                         "ab12cd34")
+    assert fnmatch.fnmatchcase(m, f"{ns}.P*.M*")    # _clean_runs sweeps it
+    assert run_name_re(ns).match(m) is None          # ...but no run parse
+
+    # budgeted push: 2 partitions, budget below the working set — the
+    # oldest partition evicts to a staged tail, the other keeps framing
+    store = MemStore()
+    pool = BufferPool(budget_bytes=100)
+    pw = PushWriter(store, ns, "00000001", pool=pool, frame_bytes=64)
+    for i in range(40):
+        pw.add(i % 2, f"k{i:04d}", [i])
+    man = pw.finish()
+    pw.close()
+    assert pool.held == 0, "finish/close must release every charge"
+    by_part = manifest_files_by_part(man)
+    assert set(by_part) == {0, 1}
+    names = [n for files in by_part.values() for n in files]
+    assert all(store.exists(n) for n in names)
+    assert any(n.endswith("T") for n in names), "eviction never fired"
+    assert any(not n.endswith("T") for n in names), "no frame published"
+    # fragment + tail record streams re-assemble the partition in order
+    for part, files in by_part.items():
+        recs = [k for nm in files for k, _ in record_stream(store, nm)]
+        assert recs == sorted(recs) and len(recs) == 20
+
+    # manifest gate: publish-if-absent + quarantine + promote + backstop
+    store2 = MemStore()
+    pw = PushWriter(store2, ns, "00000002", pool=BufferPool(1 << 20))
+    pw.add(0, "a", [1])
+    first = pw.finish()
+    pw.close()
+    # a duplicate execution (different fragmentation) must NOT flip it
+    dup = PushWriter(store2, ns, "00000002", pool=BufferPool(0),
+                     frame_bytes=8)
+    dup.add(0, "a", [1])
+    dup.finish()
+    dup.close()
+    assert read_manifest(store2, manifest_name(ns, "00000002")) == first
+    # a clone quarantines; promote only fills an absent canonical
+    lin = lineage_token("clone-w")
+    cl = PushWriter(store2, ns, "00000002", pool=BufferPool(1 << 20),
+                    lineage=lin)
+    cl.add(0, "a", [1])
+    cl.finish()
+    cl.close()
+    assert not promote(store2, ns, "00000002", lin, 1)   # canonical kept
+    store2.remove(manifest_name(ns, "00000002"))
+    assert promote(store2, ns, "00000002", lin, 1)       # gap: fills it
+    assert read_manifest(store2,
+                         manifest_name(ns, "00000002"))["lineage"] == lin
+    # backstop: canonical gone again -> ensure_canonical re-promotes
+    store2.remove(manifest_name(ns, "00000002"))
+    man2 = ensure_canonical(store2, ns, "00000002", 1)
+    assert man2 is not None and man2["lineage"] == lin
+    assert store2.exists(manifest_name(ns, "00000002"))
+
+    # discovery: canonical interleave by map key; orphans swept
+    store3 = MemStore()
+    for key in ("00000001", "00000003"):
+        w = PushWriter(store3, ns, key, pool=BufferPool(1 << 20))
+        w.add(0, f"k{key}", [1])
+        w.finish()
+        w.close()
+    # a classic (push-off / native-path) fleet member in the middle
+    sw = spill_writer(store3, "v1", 1)
+    sw.add("k00000002", [1])
+    sw.build(f"{ns}.P0.M00000002")
+    sw.close()
+    # an orphan fragment from a crashed attempt: no manifest names it
+    orphan = spill_writer(store3, "v2", 1)
+    orphan.add_line("x", dump_record("x", [0]))
+    orphan.build(frag_name(ns, 0, "00000003", "deadbeef", 0))
+    orphan.close()
+    got = discover_push(store3, ns, ["00000001", "00000002", "00000003"])
+    keys_in_order = [parse_inbox_name(ns, n)[1] if "INBOX" in n
+                     else n.rsplit(".M", 1)[-1] for n in got[0]]
+    assert keys_in_order == ["00000001", "00000002", "00000003"], got
+    assert not store3.exists(frag_name(ns, 0, "00000003", "deadbeef", 0))
+
+    # sweep_push_files: iteration hygiene drops fragments AND manifests
+    sweep_push_files(store3, ns)
+    assert store3.list(f"{ns}.P*.{INBOX_TAG}-*") == []
+    assert store3.list(f"{ns}.{PUSH_NS}.M*") == []
+
+    # coded push (DESIGN §27): full frames stripe individually, the
+    # final partial frames of SEVERAL partitions publish as one group
+    # stripe, the eviction tail stays streaming-replicated — and the
+    # whole lineage reads back byte-identical through the coded view
+    store4 = MemStore()
+    cw = PushWriter(store4, ns, "00000004", replication="4+1",
+                    pool=BufferPool(budget_bytes=400), frame_bytes=128)
+    for i in range(80):
+        cw.add(i % 4, f"c{i:04d}", [i])
+    cman = cw.finish()
+    cw.close()
+    view4 = reading_view(store4, "4+1")
+    cby_part = manifest_files_by_part(cman)
+    assert set(cby_part) == {0, 1, 2, 3}
+    cnames = [n for files in cby_part.values() for n in files]
+    plain4 = store4.list(f"{ns}.P*.{INBOX_TAG}-*")
+    assert plain4 and all(n.endswith("T") for n in plain4), \
+        f"only replicated TAILS may have plain primaries: {plain4}"
+    assert all(view4.exists(n) for n in cnames)
+    gbase = group_base(ns, "00000004", None)
+    assert store4.list(stripe_patterns(gbase)[0]), "no group stripe published"
+    for part, files in cby_part.items():
+        recs = [k for nm in files for k, _ in record_stream(view4, nm)]
+        assert recs == sorted(recs) and len(recs) == 20, (part, recs)
+    # discovery resolves the coded lineage like any other
+    got4 = discover_push(store4, ns, ["00000004"], replication="4+1")
+    assert got4 == {p: fs for p, fs in sorted(cby_part.items())}
+    # iteration hygiene sweeps member stripes AND shared group blocks
+    sweep_push_files(reading_view(store4, "4+1"), ns)
+    leftover4 = store4.list("*") + store4.list(stripe_patterns("*")[0])
+    assert leftover4 == [], f"coded sweep left {leftover4}"

@@ -1347,3 +1347,143 @@ class Server:
         """Engine-selection and fallback messages surface always: a
         silent plane switch is what the engine knob forbids."""
         print(f"[server] ingraph: {msg}", file=sys.stderr, flush=True)
+
+
+def utest() -> None:
+    """Self-test (reference server.lua:629-655 utest role, upgraded to a
+    micro end-to-end): one server + one in-process worker over the
+    in-memory job store run a 3-job task through map → shuffle → reduce
+    → finalfn, and the stats/finished_value surfaces are checked."""
+    import sys
+    import threading
+    import types
+
+    from lua_mapreduce_tpu_torch.coord.jobstore import MemJobStore
+    from lua_mapreduce_tpu_torch.engine.contract import TaskSpec
+    from lua_mapreduce_tpu_torch.engine.worker import Worker
+
+    mod = types.ModuleType("_server_utest_mod")
+
+    def taskfn(emit):
+        for i in range(3):
+            emit(str(i), list(range(i + 1)))
+
+    def mapfn(key, values, emit):
+        for v in values:
+            emit("n", v)
+
+    def reducefn(key, values):
+        return sum(values)
+
+    def finalfn(pairs):
+        mod.result = {k: v for k, (v,) in pairs}   # keep results
+
+    mod.taskfn, mod.mapfn, mod.reducefn = taskfn, mapfn, reducefn
+    mod.partitionfn = lambda key: 0
+    mod.finalfn = finalfn
+    # the tasks name the CPU: a worker's device is the task's (the card by
+    # default), and this self-test runs host-only
+    sys.modules["_server_utest_mod"] = mod
+    try:
+        store = MemJobStore()
+        spec = TaskSpec(taskfn="_server_utest_mod",
+                        mapfn="_server_utest_mod",
+                        partitionfn="_server_utest_mod",
+                        reducefn="_server_utest_mod",
+                        finalfn="_server_utest_mod",
+                        storage="mem:_server_utest",
+                        init_args={"device": "cpu"})
+        server = Server(store, poll_interval=0.01).configure(spec)
+        w = Worker(store).configure(max_iter=400, max_sleep=0.02)
+        t = threading.Thread(target=w.execute, daemon=True)
+        t.start()
+        stats = server.loop()
+        t.join(timeout=30)
+        # sum over shards of 0..i = 0 + (0+1) + (0+1+2) = 4
+        assert mod.result == {"n": 4}, mod.result
+        it = stats.iterations[-1]
+        assert it.map.count == 3 and it.map.failed == 0
+        assert it.reduce.count == 1 and it.reduce.failed == 0
+
+        # pipelined-shuffle leg: same task, eager pre-merge enabled AND
+        # v2 framed segments negotiated through the task doc — result
+        # must be identical (premerge count depends on worker timing,
+        # so only the invariants are asserted)
+        mod.result = None
+        store2 = MemJobStore()
+        spec2 = TaskSpec(taskfn="_server_utest_mod",
+                         mapfn="_server_utest_mod",
+                         partitionfn="_server_utest_mod",
+                         reducefn="_server_utest_mod",
+                         finalfn="_server_utest_mod",
+                         storage="mem:_server_utest_pipe",
+                         init_args={"device": "cpu"})
+        server2 = Server(store2, poll_interval=0.01, pipeline=True,
+                         premerge_min_runs=2,
+                         segment_format="v2").configure(spec2)
+        w2 = Worker(store2).configure(max_iter=400, max_sleep=0.02)
+        t2 = threading.Thread(target=w2.execute, daemon=True)
+        t2.start()
+        stats2 = server2.loop()
+        t2.join(timeout=30)
+        assert mod.result == {"n": 4}, mod.result
+        it2 = stats2.iterations[-1]
+        assert it2.map.count == 3 and it2.reduce.failed == 0
+        assert it2.premerge.failed == 0
+
+        # HA leg (DESIGN §31): the same task under the leader-lease
+        # election — one contender simply wins epoch 1, leads fenced,
+        # and releases on completion; a late second contender observes
+        # the FINISHED task and returns without ever leading
+        mod.result = None
+        store3 = MemJobStore()
+        spec3 = TaskSpec(taskfn="_server_utest_mod",
+                         mapfn="_server_utest_mod",
+                         partitionfn="_server_utest_mod",
+                         reducefn="_server_utest_mod",
+                         finalfn="_server_utest_mod",
+                         storage="mem:_server_utest_ha",
+                         init_args={"device": "cpu"})
+        server3 = Server(store3, poll_interval=0.01, ha=True,
+                         lease_ttl_s=5.0).configure(spec3)
+        w3 = Worker(store3).configure(max_iter=400, max_sleep=0.02)
+        t3 = threading.Thread(target=w3.execute, daemon=True)
+        t3.start()
+        stats3 = server3.loop()
+        t3.join(timeout=30)
+        assert mod.result == {"n": 4}, mod.result
+        assert stats3.iterations[-1].map.count == 3
+        doc = store3.pt_get("leader")
+        assert doc is not None and doc["epoch"] == 1 and not doc["holder"]
+        standby = Server(store3, poll_interval=0.01, ha=True,
+                         lease_ttl_s=5.0)
+        spec3b = TaskSpec(taskfn="_server_utest_mod",
+                          mapfn="_server_utest_mod",
+                          partitionfn="_server_utest_mod",
+                          reducefn="_server_utest_mod",
+                          finalfn="_server_utest_mod",
+                          storage="mem:_server_utest_ha",
+                          init_args={"device": "cpu"})
+        standby.configure(spec3b)
+        # task doc is FINISHED: the next ha loop() leads a FRESH run —
+        # assert instead the fenced guard surface directly: a lease
+        # fenced by a successor epoch rejects mutations permanently
+        from lua_mapreduce_tpu_torch.faults.errors import StaleLeaderError
+        from lua_mapreduce_tpu_torch.sched.lease import (FencedJobStore,
+                                                         LeaderLease)
+        now = [0.0]
+        zl = LeaderLease(store3, holder="z", ttl_s=1.0,
+                         clock=lambda: now[0])
+        assert zl.try_acquire() and zl.epoch == 2
+        now[0] += 5.0
+        nl = LeaderLease(store3, holder="n", ttl_s=1.0,
+                         clock=lambda: now[0])
+        assert nl.try_acquire() and nl.took_over
+        fenced = FencedJobStore(store3, zl)
+        try:
+            fenced.update_task({"status": "MAP"})
+            raise AssertionError("zombie write must be fenced")
+        except StaleLeaderError as e:
+            assert e.current_epoch == 3
+    finally:
+        del sys.modules["_server_utest_mod"]

@@ -1172,3 +1172,22 @@ class Worker:
 def _times_dict(times: JobTimes) -> dict:
     return {"started": times.started, "finished": times.finished,
             "written": times.written, "cpu": times.cpu, "real": times.real}
+
+
+def utest() -> None:
+    """Self-test (reference worker.lua:172-173 — empty there; here the
+    config surface and the idle path are actually exercised): unknown
+    config keys are rejected, and an execute() against a task-less store
+    idles out without claiming anything."""
+    from lua_mapreduce_tpu_torch.coord.jobstore import MemJobStore
+
+    w = Worker(MemJobStore(), name="utest-w")
+    try:
+        w.configure(bogus_key=1)
+    except KeyError:
+        pass
+    else:
+        raise AssertionError("unknown config key must be rejected")
+    w.configure(max_iter=2, max_sleep=0.01)
+    assert w.execute() == 0                 # nothing to claim: idles out
+    assert w.jobs_executed == 0

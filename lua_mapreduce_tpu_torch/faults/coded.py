@@ -873,3 +873,177 @@ def repair_stripe(store: Store, name: str, coding: Coding) -> str:
         COUNTERS.bump("map_reruns_avoided")
         return "repaired"
     return "degraded"
+
+
+def utest() -> None:
+    """Self-test: GF identities, encode/decode under every erasure
+    pattern (numpy and pure-Python paths agreeing), the knob grammar,
+    stripe naming/placement/glob transparency, publish + CodedStore
+    round-trips with loss/corruption, the manifest visibility gate,
+    group stripes, and repair_stripe's verdict ladder."""
+    import fnmatch
+    import itertools
+    global _FORCE_PYTHON
+    from lua_mapreduce_tpu_torch.engine.placement import base_name, tag_of
+    from lua_mapreduce_tpu_torch.store.memfs import MemStore
+
+    # GF(256): inverses, distributivity spot checks, table sanity
+    for a in (1, 2, 7, 93, 255):
+        assert _gf_mul(a, _gf_inv(a)) == 1
+    assert _gf_mul(0, 55) == 0 and _gf_mul(1, 55) == 55
+
+    # RS: every ≤m erasure pattern reconstructs, both codec paths
+    payload = bytes((i * 37 + (i >> 3)) % 256 for i in range(997))
+    for k, m in ((4, 1), (4, 2), (2, 1), (5, 3)):
+        blen = -(-len(payload) // k)
+        data = [payload[i * blen:(i + 1) * blen].ljust(blen, b"\0")
+                for i in range(k)]
+        for force in (False, True):
+            _FORCE_PYTHON = force
+            try:
+                parity = rs_parity(data, m)
+                blocks = data + parity
+                for lost in itertools.combinations(range(k + m), m):
+                    have = {i: b for i, b in enumerate(blocks)
+                            if i not in lost}
+                    got = rs_reconstruct(have, list(lost), k)
+                    assert all(got[i] == blocks[i] for i in lost)
+            finally:
+                _FORCE_PYTHON = False
+
+    # knob grammar: parse/validate/resolve, replication interop
+    assert parse_coding("4+1") == Coding(4, 1) and str(Coding(4, 2)) == "4+2"
+    assert check_redundancy("4+1") == Coding(4, 1)
+    assert check_redundancy(3) == 3 and check_redundancy(None) == 1
+    assert redundancy_on(Coding(4, 1)) and redundancy_on(2)
+    assert not redundancy_on(1) and not redundancy_on(None)
+    assert tail_redundancy(Coding(4, 2)) == 3 and tail_redundancy(3) == 3
+    for bad in ("4", "4-1", "1+1", "4+0", "7+2"):
+        try:
+            check_redundancy(bad) if "+" in bad else parse_coding(bad)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"coding {bad!r} must be rejected")
+    try:
+        resolve_redundancy(replication=2, coding="4+1")
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("both redundancy modes on must be rejected")
+    assert resolve_redundancy(replication="4+1") == Coding(4, 1)
+    assert resolve_redundancy(replication=2) == 2
+
+    # naming: k+m distinct tags, parse round-trip, glob transparency
+    c41 = Coding(4, 1)
+    lname = "result.P3.SPILL-00001-00002"
+    bn = block_names(lname, c41)
+    assert len({tag_of(n) for n in bn}) == c41.blocks
+    assert all(base_name(n) == lname for n in bn)
+    mans = manifest_copies(lname, c41)
+    assert len(mans) == c41.m + 1
+    assert len({tag_of(n) for n in mans}) == c41.m + 1
+    assert all(base_name(n) == lname for n in mans)
+    for phys in bn + mans:
+        assert not fnmatch.fnmatchcase(phys, "result.P*")   # invisible
+    assert any(fnmatch.fnmatchcase(n, stripe_patterns("result.P*")[0])
+               for n in bn + mans[:1])
+    assert fnmatch.fnmatchcase(mans[1], stripe_patterns("result.P*")[1])
+
+    # publish + read round-trip; loss of any m blocks decodes inline
+    raw = MemStore()
+    publish_stripe(raw, [(lname, payload)], c41)
+    view = CodedStore(raw, c41)
+    assert view.exists(lname) and view.size(lname) == len(payload)
+    assert view.read_range(lname, 0, 10 ** 9) == payload
+    assert view.list("result.P*") == [lname]
+    before = COUNTERS.snapshot().get("decode_reads", 0)
+    raw._files.pop(bn[0])                       # lose a data block
+    fresh = CodedStore(raw, c41)
+    assert fresh.read_range(lname, 5, 17) == payload[5:22]
+    assert COUNTERS.snapshot()["decode_reads"] == before + 1
+    assert fresh.read_range(lname, 0, 99) == payload[:99]   # counted once
+    assert COUNTERS.snapshot()["decode_reads"] == before + 1
+
+    # scavenger: repair rebuilds the lost data block; a corrupted
+    # PARITY block (CRC mismatch == lost block) is rebuilt the same way
+    assert repair_stripe(raw, lname, c41) == "repaired"
+    raw._files[bn[4]] = b"garbage-not-parity"
+    assert repair_stripe(raw, lname, c41) == "repaired"
+    assert repair_stripe(raw, lname, c41) == "intact"
+    assert CodedStore(raw, c41).read_range(lname, 0, 10 ** 9) == payload
+
+    # below k survivors: reads raise the classified transient, repair
+    # says lost — the map-rerun last resort
+    for n in bn[:2]:
+        raw._files.pop(n)
+    try:
+        CodedStore(raw, c41).read_range(lname, 0, 8)
+    except LostShuffleDataError as e:
+        assert e.transient and e.lost_files == [lname]
+    else:
+        raise AssertionError("sub-k survivors must raise lost-data")
+    assert repair_stripe(raw, lname, c41) == "lost"
+
+    # manifest gate: blocks without a manifest are INVISIBLE (the
+    # SIGKILL-mid-stripe shape) — and a manifest with every copy gone
+    # while blocks survive is also correctly not resurrectable
+    raw2 = MemStore()
+    half = "ns.P0.INBOX-00000001-00000"
+    for bname2, blob in zip(block_names(half, c41), [b"x" * 8] * 5):
+        with raw2.builder() as b:
+            b.write_bytes(blob)
+            b.build(bname2)
+    gate = CodedStore(raw2, c41)
+    assert not gate.exists(half)
+    assert gate.list("ns.P0.INBOX-*") == []
+    publish_stripe(raw2, [(half, b"whole")], c41)     # re-publish wins
+    assert CodedStore(raw2, c41).read_range(half, 0, 99) == b"whole"
+
+    # group stripe: members share one block set; each member windows
+    # its own slice; removing one member leaves the others readable
+    raw3 = MemStore()
+    members = [(f"gns.P{i}.INBOX-00000007-00000",
+                bytes((i + 1) * j % 256 for j in range(200 + 31 * i)))
+               for i in range(3)]
+    publish_stripe(raw3, members, c41, group_base="gns.CODE.00000007")
+    gview = CodedStore(raw3, c41)
+    for mname, mpay in members:
+        assert gview.read_range(mname, 0, 10 ** 9) == mpay
+        assert gview.size(mname) == len(mpay)
+    gview.remove(members[0][0])
+    gv2 = CodedStore(raw3, c41)
+    assert not gv2.exists(members[0][0])
+    assert gv2.read_range(members[1][0], 0, 10 ** 9) == members[1][1]
+    # shared-member repair is idempotent across members
+    blocks3 = block_names("gns.CODE.00000007", c41)
+    raw3._files.pop(blocks3[1])
+    assert repair_stripe(raw3, members[1][0], c41) == "repaired"
+    assert repair_stripe(raw3, members[2][0], c41) == "intact"
+
+    # passthrough: plain files below the view are untouched
+    with raw3.builder() as b:
+        b.write("plain\n")
+        b.build("gns.P9.plainfile")
+    assert list(gview.lines("gns.P9.plainfile")) == ["plain\n"]
+    assert repair_stripe(raw3, "gns.P9.plainfile", c41) == "intact"
+    assert not hasattr(gview, "local_path")
+
+    # eviction tails ride (m+1)-way replication under coding (they
+    # exist to bound memory — striping would buffer the payload): the
+    # coded view fails over to a tail replica with the primary gone,
+    # lists/serves the logical name, and the repair rung rebuilds it
+    from lua_mapreduce_tpu_torch.faults.replicate import spill_writer
+    tname = "gns.P4.INBOX-00000009-00001T"
+    with spill_writer(raw3, "v1", tail_redundancy(c41)) as tw:
+        tw.add("tk", [7])
+        tw.build(tname)
+    raw3._files.pop(tname)                       # primary destroyed
+    tv = CodedStore(raw3, c41)
+    assert tv.exists(tname)
+    assert tname in tv.list("gns.P4.INBOX-*")
+    assert list(tv.lines(tname)) == ['["tk",[7]]\n']
+    assert repair_stripe(raw3, tname, c41) == "repaired"
+    assert raw3.exists(tname)
+    tv.remove(tname)                             # fans to tail replicas
+    assert raw3.list(replica_pattern("gns.P4.INBOX-*")) == []

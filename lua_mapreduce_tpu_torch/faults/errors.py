@@ -221,6 +221,14 @@ def classify_exception(exc: BaseException) -> Optional[bool]:
     return None
 
 
+def is_transient_fault(exc: BaseException) -> bool:
+    """True when ``exc`` is a *transient infrastructure* fault, judged
+    by the type table — for call sites where the exception is KNOWN to
+    come from a store op (the segment reader's ranged reads). Permanent
+    and unclassified exceptions both answer False."""
+    return classify_exception(exc) is True
+
+
 def is_transient_job_fault(exc: BaseException) -> bool:
     """The worker's release-not-broken predicate for whole JOB BODIES.
 
@@ -245,3 +253,67 @@ def classify_job_fault(exc: BaseException) -> str:
     if isinstance(exc, StoreError):
         return "infra-transient" if exc.transient else "infra-permanent"
     return "user-code"
+
+
+def describe_classification(exc: BaseException) -> str:
+    """Human label by the TYPE TABLE alone: 'infra-transient',
+    'infra-permanent', or 'user-code' (unclassified). For store-op
+    contexts; job-level call sites use :func:`classify_job_fault`."""
+    verdict = classify_exception(exc)
+    if verdict is True:
+        return "infra-transient"
+    if verdict is False:
+        return "infra-permanent"
+    return "user-code"
+
+
+def utest() -> None:
+    """Self-test: the classification table's contract."""
+    assert classify_exception(TimeoutError()) is True
+    assert classify_exception(ConnectionResetError()) is True
+    assert classify_exception(OSError(errno.EIO, "eio")) is True
+    assert classify_exception(OSError("weird no-errno failure")) is True
+    assert classify_exception(FileNotFoundError("x")) is False
+    assert classify_exception(PermissionError("x")) is False
+    assert classify_exception(KeyError("missing")) is False
+    assert classify_exception(ValueError("user data")) is None
+    assert classify_exception(RuntimeError("user logic")) is None
+
+    class _Gcs503(Exception):
+        code = 503
+
+    class ServiceUnavailable(Exception):
+        pass
+
+    assert classify_exception(_Gcs503()) is True
+    assert classify_exception(ServiceUnavailable()) is True
+
+    assert TransientStoreError("t").transient is True
+    assert PermanentStoreError("p").transient is False
+    assert classify_exception(InjectedFault("i")) is True
+    assert is_transient_fault(TransientStoreError("t"))
+    assert not is_transient_fault(PermanentStoreError("p"))
+    assert not is_transient_fault(ValueError("v"))
+    assert describe_classification(TimeoutError()) == "infra-transient"
+    assert describe_classification(KeyError("k")) == "infra-permanent"
+    assert describe_classification(ValueError("v")) == "user-code"
+    # job-level discrimination requires StoreError PROVENANCE: a user
+    # mapfn's raw TimeoutError is user code, not a releasable infra fault
+    assert is_transient_job_fault(TransientStoreError("t"))
+    assert not is_transient_job_fault(TimeoutError("user timeout"))
+    assert not is_transient_job_fault(PermanentStoreError("p"))
+    assert classify_job_fault(TransientStoreError("t")) == "infra-transient"
+    assert classify_job_fault(PermanentStoreError("p")) == "infra-permanent"
+    assert classify_job_fault(TimeoutError("user")) == "user-code"
+    assert classify_job_fault(KeyError("user")) == "user-code"
+    # pre-taxonomy except-clauses keep catching the coord protocol errors
+    assert issubclass(NoTaskError, RuntimeError)
+    assert issubclass(ConcurrentInsertError, RuntimeError)
+    # fencing rejections are permanent (fail fast, never back off) and
+    # carry the epoch evidence the errors stream records (DESIGN §31)
+    assert issubclass(StaleLeaderError, RuntimeError)
+    sl = StaleLeaderError("fenced", epoch=2, current_epoch=3, holder="s1")
+    assert sl.transient is False and classify_exception(sl) is False
+    assert (sl.epoch, sl.current_epoch, sl.holder) == (2, 3, "s1")
+    e = TransientStoreError("m", op="read_range", name="f", attempts=4)
+    assert (e.op, e.name, e.attempts) == ("read_range", "f", 4)

@@ -326,3 +326,116 @@ class FaultPlan:
                 raise ValueError(f"unknown fault-plan key {k!r}")
         seed = int(kw.pop("seed", 0))
         return cls(seed, **kw)  # type: ignore[arg-type]
+
+
+def utest() -> None:
+    """Self-test: determinism, occurrence advance, caps, spec round-trip."""
+    mk = lambda: FaultPlan(7, transient=0.5, latency=0.2, max_per_key=3,
+                           sleep=lambda s: None)
+    a, b = mk(), mk()
+    seq_a = [a.decide("read_range", "f.P0.M1") for _ in range(40)]
+    seq_b = [b.decide("read_range", "f.P0.M1") for _ in range(40)]
+    assert seq_a == seq_b                      # identical schedules
+    assert any(k == "transient" for k in seq_a)
+    assert sum(k is not None for k in seq_a) <= 3   # max_per_key cap
+
+    # independent (op, name) streams don't perturb each other
+    c = mk()
+    for _ in range(5):
+        c.decide("size", "other")
+    assert [c.decide("read_range", "f.P0.M1") for _ in range(40)] == seq_a
+
+    # build-only kinds fire only on build; rpc rate only on RPC ops
+    p = FaultPlan(1, torn=1.0, max_per_key=100)
+    assert all(p.decide("read_range", "x") is None for _ in range(10))
+    assert p.decide("build", "x") == "torn"
+    r = FaultPlan(2, rpc_transient=1.0, max_per_key=100)
+    assert r.decide("claim_batch", "map_jobs") == "rpc_transient"
+    assert r.decide("read_range", "map_jobs") is None
+
+    spec = FaultPlan(9, transient=0.25, error_after_write=0.5,
+                     pattern="*.SPILL-*", max_per_key=1).to_spec()
+    q = FaultPlan.from_spec(spec)
+    assert (q.seed, q.pattern, q.max_per_key) == (9, "*.SPILL-*", 1)
+    assert q.rates["error_after_write"] == 0.5
+    try:
+        FaultPlan.from_spec("seed=1;bogus=2")
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("unknown plan key must be rejected")
+
+    # pattern alternation: one plan addresses several name families
+    alt = FaultPlan(3, permanent=1.0, pattern="ns.P*.M*|ns.P*.SPILL-*",
+                    max_per_key=100)
+    assert alt.decide("lines", "ns.P0.M00000001") == "permanent"
+    assert alt.decide("lines", "ns.P0.SPILL-00000-00003") == "permanent"
+    assert alt.decide("lines", "ns.P0") is None
+
+    # blackout: one placement tag dark for a virtual-clock window —
+    # every data-plane op on that tag fails transient (no per-key cap);
+    # other tags and post-window ops are untouched
+    from lua_mapreduce_tpu_torch.engine.placement import replica_name, tag_of
+    vt = [0.0]
+    bo = FaultPlan(4, blackout_tag=tag_of("ns.P0.M1"), blackout_s=5.0,
+                   clock=lambda: vt[0], sleep=lambda s: None)
+    dark = replica_name("other.P1.M9", 1)        # route a replica onto
+    while tag_of(dark) != bo.blackout_tag:       # the dark tag
+        dark = replica_name(dark[-1] + dark, 1)
+    for _ in range(6):                           # window, uncapped
+        assert bo.decide("read_range", "ns.P0.M1") == "transient"
+    assert bo.decide("size", dark) == "transient"
+    lit = "ns.P0.M2"
+    if tag_of(lit) == bo.blackout_tag:           # find a lit name
+        lit = next(f"ns.P0.M{i}" for i in range(3, 99)
+                   if tag_of(f"ns.P0.M{i}") != bo.blackout_tag)
+    assert bo.decide("read_range", lit) is None  # other tags lit
+    vt[0] = 5.0                                  # window over
+    assert bo.decide("read_range", "ns.P0.M1") is None
+    assert bo.fired["blackout"] == 7
+    # coded-stripe blocks route by their EMBEDDED tag (placement
+    # parse_block): a dark tag darkens exactly the one block each
+    # stripe placed there — the ≤m-loss shape decode absorbs (§27)
+    from lua_mapreduce_tpu_torch.faults.coded import Coding, block_names
+    blocks = block_names("cns.P0.M1", Coding(4, 1))
+    vt3 = [0.0]
+    bo2 = FaultPlan(11, blackout_tag=tag_of(blocks[2]), blackout_s=5.0,
+                    clock=lambda: vt3[0], sleep=lambda s: None)
+    assert sum(tag_of(b) == bo2.blackout_tag for b in blocks) == 1
+    for b2 in blocks:
+        want = "transient" if tag_of(b2) == bo2.blackout_tag else None
+        assert bo2.decide("read_range", b2) == want
+
+    spec2 = FaultPlan(5, blackout_tag=3, blackout_s=0.25,
+                      blackout_from_s=0.1).to_spec()
+    q2 = FaultPlan.from_spec(spec2)
+    assert (q2.blackout_tag, q2.blackout_s, q2.blackout_from_s) == \
+        (3, 0.25, 0.1)
+
+    # slow: only the matching worker pays the tax, only in the window,
+    # only on data-plane ops; deterministic and uncapped; spec round-trip
+    slept = []
+    vt2 = [0.0]
+    sl = FaultPlan(6, slow_worker="straggler-*", slow_ms=100.0, slow_s=4.0,
+                   clock=lambda: vt2[0], sleep=slept.append)
+    assert sl.decide("read_range", "f") is None       # no worker declared
+    set_current_worker("straggler-7")
+    try:
+        assert sl.decide("read_range", "f") == "slow"
+        assert sl.decide("build", "g") == "slow"      # publishes slowed too
+        assert sl.decide("claim_batch", "map_jobs") is None   # RPCs exempt
+        sl.apply_slow()
+        assert slept == [0.1]
+        set_current_worker("healthy-1")
+        assert sl.decide("read_range", "f") is None   # other workers lit
+        set_current_worker("straggler-7")
+        vt2[0] = 4.0                                  # window over
+        assert sl.decide("read_range", "f") is None
+        assert sl.fired["slow"] == 2
+    finally:
+        set_current_worker(None)
+    q3 = FaultPlan.from_spec(
+        FaultPlan(8, slow_worker="w-[0-9]", slow_ms=50, slow_s=2.5,
+                  slow_from_s=0.5).to_spec())
+    assert (q3.slow_worker, q3.slow_ms, q3.slow_s, q3.slow_from_s) == \
+        ("w-[0-9]", 50.0, 2.5, 0.5)

@@ -353,3 +353,87 @@ def repair(store: Store, name: str, replication) -> str:
     # reads keep serving it, and escalating to a map re-run here would
     # pay the exact cost this layer exists to avoid
     return "repaired" if rebuilt else "degraded"
+
+
+def utest() -> None:
+    """Self-test: tee publish fanout, failover reads + counting, the
+    logical exists/list/remove surface, repair, and the r=1 identity."""
+    from lua_mapreduce_tpu_torch.core.segment import writer_for
+    from lua_mapreduce_tpu_torch.store.memfs import MemStore
+
+    raw = MemStore()
+    # r=1 identity: spill_writer IS writer_for's plain writer shape
+    w1 = spill_writer(raw, "v1", 1)
+    assert type(w1) is type(writer_for(raw, "v1"))
+    w1.close()
+
+    # r=3 publish lands 3 byte-identical copies at the placement names
+    with spill_writer(raw, "v1", 3) as w:
+        w.add("k", [1, 2])
+        w.build("ns.P0.M00000001")
+    copies = replica_names("ns.P0.M00000001", 3)
+    blobs = [raw.read_range(n, 0, raw.size(n)) for n in copies]
+    assert len(set(blobs)) == 1 and blobs[0]
+    assert raw.list("ns.P*") == ["ns.P0.M00000001"]   # globs see primary
+
+    # failover: primary destroyed -> reads serve the replica, counted
+    before = COUNTERS.snapshot().get("failover_reads", 0)
+    raw._files.pop("ns.P0.M00000001")
+    view = reading_view(raw, 3)
+    assert view.exists("ns.P0.M00000001")
+    assert list(view.lines("ns.P0.M00000001")) == ['["k",[1,2]]\n']
+    assert view.size("ns.P0.M00000001") == len(blobs[0])
+    assert view.list("ns.P*") == ["ns.P0.M00000001"]  # logical listing
+    assert COUNTERS.snapshot()["failover_reads"] == before + 1  # once/name
+
+    # repair rebuilds the missing primary from a survivor
+    assert repair(raw, "ns.P0.M00000001", 3) == "repaired"
+    assert raw.read_range("ns.P0.M00000001", 0, 99) == blobs[0][:99]
+    assert repair(raw, "ns.P0.M00000001", 3) == "intact"
+
+    # a readable survivor + every rebuild target dark -> "degraded",
+    # NOT "lost": the scavenger must not escalate to a map re-run
+    # while failover reads can still serve the file
+    class _DarkBuilders(MemStore):
+        def builder(self):
+            raise OSError(5, "brownout")        # EIO: transient
+    dark = _DarkBuilders()
+    for k, copy_name in enumerate(replica_names("ns.P1.M00000001", 2)):
+        b = MemStore.builder(dark)              # publish past the dark
+        b.write('["k",[3]]\n')                  # override: both copies
+        b.build(copy_name)                      # land whole
+    dark._files.pop("ns.P1.M00000001")          # primary destroyed
+    assert repair(dark, "ns.P1.M00000001", 2) == "degraded"
+    assert list(reading_view(dark, 2).lines("ns.P1.M00000001")) \
+        == ['["k",[3]]\n']
+
+    # remove fans out to every copy; total loss raises the classified
+    # transient that releases (never breaks) the consuming job
+    view.remove("ns.P0.M00000001")
+    assert all(not raw.exists(n) for n in copies)
+    assert repair(raw, "ns.P0.M00000001", 3) == "lost"
+    try:
+        list(view.lines("ns.P0.M00000001"))
+    except LostShuffleDataError as e:
+        assert e.transient and e.lost_files == ["ns.P0.M00000001"]
+    else:
+        raise AssertionError("total loss must raise LostShuffleDataError")
+
+    assert reading_view(raw, 1) is raw                # identity when off
+    assert not hasattr(reading_view(raw, 2), "local_path")
+
+    # coded dispatch: the unified knob routes "k+m" through the stripe
+    # layer (faults/coded.py, DESIGN §27) at every choke point
+    from lua_mapreduce_tpu_torch.faults.coded import CodedStore, Coding
+    cs = MemStore()
+    with spill_writer(cs, "v1", "4+1") as w:
+        w.add("k", [9])
+        w.build("cns.P0.M00000001")
+    cview = reading_view(cs, Coding(4, 1))
+    assert isinstance(cview, CodedStore)
+    assert list(cview.lines("cns.P0.M00000001")) == ['["k",[9]]\n']
+    assert cs.list("cns.P*") == []            # no plain primary exists
+    assert cview.list("cns.P*") == ["cns.P0.M00000001"]
+    assert repair(cs, "cns.P0.M00000001", "4+1") == "intact"
+    assert reading_view(cview, "4+1") is cview
+    assert not hasattr(cview, "local_path")

@@ -200,3 +200,74 @@ def config_generation() -> int:
 def default_policy() -> RetryPolicy:
     s = retry_settings()
     return RetryPolicy(retries=int(s["retries"]), base_ms=s["base_ms"])
+
+
+def utest() -> None:
+    """Self-test: virtual-clock schedule, classification routing, the
+    readback-verify hook, counters."""
+    sleeps = []
+    counters = FaultCounters()
+    policy = RetryPolicy(retries=3, base_ms=10, cap_ms=50,
+                         sleep=sleeps.append, clock=lambda: 0.0,
+                         rng=random.Random(7), counters=counters)
+
+    # transient burst shorter than the budget: absorbed
+    calls = [0]
+
+    def flaky():
+        calls[0] += 1
+        if calls[0] < 3:
+            raise TimeoutError("blip")
+        return "ok"
+
+    assert policy.call(flaky, op="read_range", name="f") == "ok"
+    assert calls[0] == 3 and len(sleeps) == 2
+    assert all(0.01 <= s <= 0.05 for s in sleeps)
+    assert counters.snapshot()["retries"] == 2
+
+    # exhaustion wraps in TransientStoreError, chains the cause
+    def always():
+        raise ConnectionResetError("down")
+
+    try:
+        policy.call(always, op="lines", name="g")
+    except TransientStoreError as e:
+        assert e.attempts == 4 and e.op == "lines"
+        assert isinstance(e.__cause__, ConnectionResetError)
+    else:
+        raise AssertionError("exhausted burst must raise")
+    assert counters.snapshot()["retry_exhausted"] == 1
+
+    # permanent and unclassified propagate raw, no sleeps
+    n0 = len(sleeps)
+    for exc in (FileNotFoundError("x"), ValueError("user")):
+        def bad(exc=exc):
+            raise exc
+        try:
+            policy.call(bad, op="size", name="h")
+        except type(exc):
+            pass
+        else:
+            raise AssertionError("must propagate raw")
+    assert len(sleeps) == n0
+
+    # before_retry resolving the ambiguity short-circuits the retry
+    def ambiguous():
+        raise TimeoutError("did it land?")
+
+    assert policy.call(ambiguous, op="build", name="s",
+                       before_retry=lambda e: True) is None
+    assert len(sleeps) == n0
+
+    # decorrelated jitter grows from base toward the cap
+    p = RetryPolicy(base_ms=10, cap_ms=80, rng=random.Random(0))
+    d = 0.0
+    for _ in range(50):
+        d = p.backoff_s(d)
+        assert 0.01 <= d <= 0.08
+    assert retry_settings()["retries"] >= 0
+    configure_retry(7, 5.0)
+    try:
+        assert retry_settings() == {"retries": 7, "base_ms": 5.0}
+    finally:
+        configure_retry(None, None)

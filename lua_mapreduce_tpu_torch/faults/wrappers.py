@@ -556,3 +556,82 @@ def wrap_jobstore(store):
     if policy.retries > 0:
         store = RetryingJobStore(store, policy)
     return store
+
+
+def utest() -> None:
+    """Self-test: injection determinism through the store surface,
+    retry absorption, build readback-verify, torn-write rebuild."""
+    import random
+
+    from lua_mapreduce_tpu_torch.store.memfs import MemStore
+
+    # error-after-write: publish lands once, ambiguity verified away
+    plan = FaultPlan(3, error_after_write=1.0, max_per_key=1,
+                     sleep=lambda s: None)
+    policy = RetryPolicy(retries=3, base_ms=1, sleep=lambda s: None,
+                         rng=random.Random(0))
+    raw = MemStore()
+    store = RetryingStore(FaultyStore(raw, plan), policy)
+    with store.builder() as b:
+        b.write("k 1\n")
+        b.write_bytes(b"\x00\x01")
+        b.build("amb")
+    assert raw.size("amb") == 6
+    assert plan.fired.get("error_after_write") == 1
+
+    # torn write: the truncated publish is detected and rebuilt whole
+    plan2 = FaultPlan(4, torn=1.0, max_per_key=1, sleep=lambda s: None)
+    store2 = RetryingStore(FaultyStore(MemStore(), plan2), policy)
+    with store2.builder() as b:
+        for i in range(20):
+            b.write(f"line {i:03d}\n")
+        b.build("torn")
+    assert len(list(store2.lines("torn"))) == 20
+    assert plan2.fired.get("torn") == 1
+
+    # read-side transient bursts absorbed; lines restarts pre-yield only
+    plan3 = FaultPlan(5, transient=0.6, max_per_key=2, sleep=lambda s: None)
+    raw3 = MemStore()
+    with raw3.builder() as b:
+        b.write("a 1\nb 2\n")
+        b.build("r")
+    store3 = RetryingStore(FaultyStore(raw3, plan3), policy)
+    for _ in range(12):
+        assert store3.read_range("r", 0, 3) == b"a 1"
+        assert list(store3.lines("r")) == ["a 1\n", "b 2\n"]
+        assert store3.exists("r") and store3.size("r") == 8
+    assert unwrap(store3) is raw3
+
+    # jobstore RPC injection + retry: commits survive an injected burst;
+    # claim_batch is deliberately NOT retried (non-replayable — a landed
+    # first attempt would orphan its lease), so its injected faults
+    # surface to the caller (the worker's poll loop re-polls)
+    from lua_mapreduce_tpu_torch.coord.jobstore import MemJobStore, make_job
+    js = MemJobStore()
+    js.insert_jobs("map_jobs", [make_job("k", 1)])
+    plan4 = FaultPlan(6, rpc_transient=0.7, max_per_key=4,
+                      sleep=lambda s: None)
+    wrapped = RetryingJobStore(FaultyJobStore(js, plan4), policy)
+    assert "claim_batch" not in RetryingJobStore.__dict__
+    got = []
+    for _ in range(8):          # the poll loop's re-poll, in miniature
+        try:
+            got = wrapped.claim_batch("map_jobs", "w1", 1)
+            break
+        except InjectedFault:
+            continue
+    assert len(got) == 1
+    assert wrapped.commit_batch("map_jobs", "w1",
+                                [(got[0]["_id"], None)]) == [got[0]["_id"]]
+    assert unwrap(wrapped) is js
+
+    # install/active/env plumbing
+    install_fault_plan(plan4)
+    try:
+        assert active_plan() is plan4
+        t0 = wiring_token()
+    finally:
+        install_fault_plan(None)
+    assert active_plan() is None and wiring_token() != t0
+    assert isinstance(wrap_store(MemStore()), RetryingStore)
+    assert wrap_jobstore(wrapped) is wrapped

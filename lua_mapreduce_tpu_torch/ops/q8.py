@@ -92,3 +92,21 @@ def q8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor
     if device_kind(x, q, s) == "cpu":
         return q8_matmul_plain(x, q, s)
     return q8_matmul_cuda(x, q, s)
+
+
+def utest() -> None:
+    """Quantization round-trip + matmul parity at f32 tolerances, on CPU
+    tensors (the plain version; the kernel is held on the card by
+    ``chip_smoke.py``)."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    w = torch.from_numpy(rng.randn(64, 96).astype(np.float32))
+    q, s = quantize_q8(w)
+    err = float((q.float() * s - w).abs().max())
+    assert err <= float(w.abs().max()) / 127.0 + 1e-6
+    x = torch.from_numpy(rng.randn(4, 64).astype(np.float32))
+    got = q8_matmul(x, q, s.reshape(-1))
+    want = x @ (q.float() * s)
+    np.testing.assert_allclose(got.numpy(), want.numpy(),
+                               rtol=1e-5, atol=1e-5)

@@ -31,6 +31,10 @@ from lua_mapreduce_tpu_torch.parallel.mesh import (host_mesh, make_mesh,
 from lua_mapreduce_tpu_torch.parallel.array_task import ArrayTaskSpec
 from lua_mapreduce_tpu_torch.parallel.tpu_engine import (TpuExecutor,
                                                          differentiable_keyed)
+from lua_mapreduce_tpu_torch.parallel.multihost import (global_batch_array,
+                                                        initialize_multihost,
+                                                        make_multihost_mesh)
 
 __all__ = ["make_mesh", "host_mesh", "spawn", "ArrayTaskSpec",
-           "TpuExecutor", "differentiable_keyed"]
+           "TpuExecutor", "differentiable_keyed", "initialize_multihost",
+           "make_multihost_mesh", "global_batch_array"]

@@ -44,3 +44,10 @@ __all__ = [
     "LeaderLease", "FencedJobStore", "FENCED_OPS", "LEASE_NAME", "STATE_NS",
     "default_holder", "frame_state", "resolve_lease_ttl", "unframe_state",
 ]
+
+
+def utest() -> None:
+    from lua_mapreduce_tpu_torch.sched import lease, tenancy, waiter
+    waiter.utest()
+    tenancy.utest()
+    lease.utest()

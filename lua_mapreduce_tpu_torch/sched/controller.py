@@ -520,3 +520,93 @@ def tenant_fleet_cap(tenants, baseline: int, hard_max: int) -> int:
         return hard_max
     quota = sum(int(t.max_pending) for t in tenants)
     return max(baseline, min(hard_max, baseline + quota))
+
+
+def utest() -> None:
+    """Self-test: band/cooldown/flip behavior on a virtual clock."""
+    now = [0.0]
+    cfg = AutotuneConfig(cooldown_s=1.0, flip_reset_s=100.0,
+                         shrink_after=2)
+    c = AutotuneController(batch_k=1, push_budget_mb=8.0, speculation=2.0,
+                           retry_base_ms=25.0, fleet=2, fleet_max=6,
+                           config=cfg, clock=lambda: now[0])
+
+    def obs(**kw):
+        kw.setdefault("t", now[0])
+        return Observation(**kw)
+
+    # claim overhead dominates tiny jobs: batch_k doubles...
+    c.note_rpc(0.05)
+    d = c.tick(obs(body_ewma_s=0.01, rpc_p99_s=0.05, jobs_done=10))
+    assert [x.knob for x in d] == ["batch_k"] and c.value("batch_k") == 2
+    # ...but not again inside the cooldown
+    now[0] += 0.5
+    assert c.tick(obs(body_ewma_s=0.01, rpc_p99_s=0.05)) == []
+    now[0] += 1.0
+    assert c.value("batch_k") == 2
+    d = c.tick(obs(body_ewma_s=0.01, rpc_p99_s=0.05))
+    assert c.value("batch_k") == 4
+    # dead band: nothing moves
+    now[0] += 2.0
+    assert c.tick(obs(body_ewma_s=0.1, rpc_p99_s=0.05)) == []
+    # reversal (long jobs): allowed once...
+    now[0] += 2.0
+    d = c.tick(obs(body_ewma_s=10.0, rpc_p99_s=0.05))
+    assert c.value("batch_k") == 2
+    # ...a second reversal (up again) is flip-locked
+    now[0] += 2.0
+    assert c.tick(obs(body_ewma_s=0.01, rpc_p99_s=0.05)) == []
+    # same direction still fine
+    now[0] += 2.0
+    c.tick(obs(body_ewma_s=10.0, rpc_p99_s=0.05))
+    assert c.value("batch_k") == 1
+
+    # push budget grows on an eviction burst, decays after quiet windows
+    now[0] += 10.0
+    d = c.tick(obs(push_evictions=8, push_frames=8))
+    assert c.value("push_budget_mb") == 12.0
+    now[0] += 2.0
+    c.tick(obs(push_frames=4))
+    now[0] += 2.0
+    c.tick(obs(push_frames=4))
+    assert c.value("push_budget_mb") == 9.0       # one flip, allowed
+    # speculation: heavy waste raises the factor
+    now[0] += 2.0
+    d = c.tick(obs(body_ewma_s=0.1, jobs_done=4, spec_launched=4,
+                   spec_wasted_s=5.0))
+    assert c.value("speculation") == 2.5
+    # retry base doubles under a fault storm
+    now[0] += 2.0
+    d = c.tick(obs(store_retries=50))
+    assert c.value("retry_base_ms") == 50.0
+    # fleet scales up under backlog, retires to baseline when drained
+    now[0] += 2.0
+    d = c.tick(obs(body_ewma_s=5.0, waiting=20, running=2, fleet=2))
+    assert c.value("fleet") == 6                   # capped at fleet_max
+    now[0] += 2.0
+    c.tick(obs(waiting=0, fleet=6))
+    now[0] += 2.0
+    c.tick(obs(waiting=0, fleet=6))
+    assert c.value("fleet") == 2
+
+    # the supervisor: graceful resize with newest-first retirement
+    spawned, retired = [], []
+    sup = FleetSupervisor(lambda i: f"w{i}", retired.append,
+                          baseline=2, cap=4)
+    sup.ensure_baseline()
+    assert sup.size == 2
+    sup.resize(10)
+    assert sup.size == 4 and not retired
+    sup.resize(1)                                  # clamped to baseline
+    assert sup.size == 2 and retired == ["w3", "w2"]
+
+    # tenant quota cap
+    class _T:
+        def __init__(self, mp):
+            self.max_pending = mp
+    assert tenant_fleet_cap([_T(2), _T(3)], baseline=2, hard_max=32) == 7
+    assert tenant_fleet_cap([], baseline=2, hard_max=32) == 32
+    assert tenant_fleet_cap([_T(100)], baseline=2, hard_max=8) == 8
+
+    assert resolve_autotune(True) and not resolve_autotune(False)
+    print("sched/controller utest ok")

@@ -427,3 +427,81 @@ class FencedJobStore:
         self._check("set_job_status")
         return self._inner.set_job_status(ns, job_id, status, expect=expect,
                                           expect_worker=expect_worker)
+
+
+def utest() -> None:
+    """Self-test: election CAS, epoch monotonicity, expiry takeover,
+    renewal fencing, the FencedJobStore guard + errors-stream evidence,
+    clean-release succession, and the CRC state framing."""
+    from lua_mapreduce_tpu_torch.coord.jobstore import MemJobStore
+
+    now = [1000.0]
+    clock = lambda: now[0]   # noqa: E731 — shared virtual clock
+
+    store = MemJobStore()
+    a = LeaderLease(store, holder="A", ttl_s=10.0, clock=clock)
+    b = LeaderLease(store, holder="B", ttl_s=10.0, clock=clock)
+
+    # first election: A wins epoch 1; B loses while A is live
+    assert a.try_acquire() and a.epoch == 1 and not a.took_over
+    assert not b.try_acquire()
+    # renewal extends the deadline through the version CAS
+    now[0] += 5.0
+    assert a.renew() and a.validate()
+
+    # A goes silent past the TTL: B's acquire is a TAKEOVER, epoch 2
+    now[0] += 20.0
+    assert b.try_acquire() and b.epoch == 2 and b.took_over
+    # the zombie's renewal CAS fails → fenced, and stays fenced
+    assert not a.renew() and a.fenced and not a.validate()
+
+    # the fencing guard: B's writes pass, A's raise StaleLeaderError
+    fb = FencedJobStore(store, b)
+    fa = FencedJobStore(store, a)
+    fb.put_task({"_id": "unique", "status": "WAIT", "iteration": 1})
+    try:
+        fa.update_task({"status": "MAP"})
+    except StaleLeaderError as e:
+        assert e.epoch == 1 and e.current_epoch == 2
+        assert e.transient is False
+    else:
+        raise AssertionError("zombie write must be fenced")
+    # the rejection landed on the errors stream with the evidence
+    errs = store.drain_errors()
+    assert any(e.get("classification") == "fenced-write"
+               and e.get("current_epoch") == 2
+               and e.get("epoch") == 1 for e in errs), errs
+    # reads delegate unguarded even for the zombie
+    assert fa.get_task()["status"] == "WAIT"
+
+    # clean release: successor bumps the epoch but it is NOT a takeover
+    b.release()
+    c = LeaderLease(store, holder="C", ttl_s=10.0, clock=clock)
+    assert c.try_acquire() and c.epoch == 3 and not c.took_over
+
+    # validate() past the local deadline re-validates via ONE inline
+    # renewal CAS (the window reopens when nobody took over)
+    now[0] += 15.0
+    assert c.validate() and not c.fenced
+
+    # CRC framing round-trip + corruption detection
+    state = {"centroids": [[1.0, 2.0], [3.0, 4.0]], "iter": 7}
+    buf = frame_state(state)
+    assert unframe_state(buf) == state
+    for bad in (buf[:-1], b"XXXX" + buf[4:],
+                buf[:-2] + bytes([buf[-2] ^ 1, buf[-1]])):
+        try:
+            unframe_state(bad)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError("corrupt frame must not decode")
+
+    # TTL resolution: env fallback + the floor
+    assert resolve_lease_ttl(2.5) == 2.5
+    try:
+        resolve_lease_ttl(0.01)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("sub-floor TTL must be rejected")

@@ -457,3 +457,57 @@ def dispatch_latencies(store, tenant: str, ns: str = "map_jobs"
         if t0 and t1 and t1 >= t0:
             out.append(t1 - t0)
     return out
+
+
+def utest() -> None:
+    """Self-test: stride ordering converges to the weight ratio,
+    admission quotas refuse floods, the tenant view isolates task docs
+    and namespaces on the shared store."""
+    from lua_mapreduce_tpu_torch.coord.jobstore import MemJobStore, make_job
+
+    heavy, light = Tenant("heavy", weight=3.0), Tenant("light", weight=1.0)
+    sched = FairScheduler([heavy, light])
+    takes = []
+    for _ in range(40):
+        t = sched.order()[0]
+        takes.append(t)
+        sched.charge(t)
+    ratio = takes.count("heavy") / max(1, takes.count("light"))
+    assert 2.0 <= ratio <= 4.0, takes     # ~3:1 by stride construction
+
+    store = MemJobStore()
+    a = TenantView(store, Tenant("a", max_pending=3))
+    b = TenantView(store, Tenant("b"))
+    a.put_task({"status": "MAP", "spec": {}})
+    assert b.get_task() is None            # task singletons are per-tenant
+    a.update_task({"iteration": 2})
+    assert a.get_task()["iteration"] == 2
+    assert "timestamp" not in a.get_task()
+
+    a.insert_jobs("map_jobs", [make_job(f"k{i}", i) for i in range(3)])
+    try:
+        a.insert_jobs("map_jobs", [make_job("k3", 3)])
+    except AdmissionError:
+        pass
+    else:
+        raise AssertionError("quota breach must be refused")
+    assert a.admission == {"admitted": 3, "rejected": 1}
+    b.insert_jobs("map_jobs", [make_job("x", 0)])    # b is unbounded
+
+    # namespaces are disjoint on the shared store
+    doc = a.claim("map_jobs", "w1")
+    assert doc is not None and doc["_id"] == 0
+    assert b.counts("map_jobs")[Status.WAITING] == 1
+    assert store.counts(tenant_ns("a", "map_jobs"))[Status.RUNNING] == 1
+    # draining one claimed job makes quota room again
+    t5 = {"started": 0.0, "finished": 0.0, "written": 0.0, "cpu": 0.0,
+          "real": 0.0}
+    assert a.commit_batch("map_jobs", "w1", [(0, t5)]) == [0]
+    a.insert_jobs("map_jobs", [make_job("k3", 3)])
+
+    try:
+        Tenant("bad~name")
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("separator in tenant name must be rejected")

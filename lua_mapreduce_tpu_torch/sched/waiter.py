@@ -422,3 +422,63 @@ def jittered_wait(waiter: Waiter, sleep_s: float, cap_s: float, rng,
         timeout *= rng.uniform(0.6, 1.0)
     woken = waiter.wait(timeout)
     return woken, (floor_s if woken else min(sleep_s * 1.5, cap_s))
+
+
+def utest() -> None:
+    """Self-test: cursor semantics (pending notify consumed, lost
+    notify times out, stale wake absorbed) on the local and dir
+    channels, plus routing and the off switch."""
+    import tempfile
+
+    from lua_mapreduce_tpu_torch.coord.jobstore import MemJobStore
+
+    # local bus: notify between waits is consumed by the NEXT wait
+    ch = LocalChannel()
+    w = ch.waiter()
+    ch.notify()
+    assert w.wait(0.0) is True          # pending: no block needed
+    assert w.wait(0.0) is False         # consumed: nothing new
+    # cross-thread wake
+    got = []
+    t = threading.Thread(target=lambda: got.append(w.wait(5.0)))
+    t.start()
+    time.sleep(0.02)
+    ch.notify()
+    t.join(timeout=5.0)
+    assert got == [True]
+
+    # dir channel: signature cursor over the wake file
+    with tempfile.TemporaryDirectory() as d:
+        dch = DirChannel(os.path.join(d, "t.wake"))
+        dw = dch.waiter()
+        assert dw.wait(0.01) is False   # no notify: timeout fallback
+        dch.notify()
+        assert dw.wait(1.0) is True
+        assert dw.wait(0.01) is False   # stale wake consumed exactly once
+        # a waiter created AFTER existing notifies absorbs them as its
+        # baseline (pre-history is not a wakeup)
+        dch.notify()
+        fresh = dch.waiter()
+        assert fresh.wait(0.01) is False
+
+    # routing + off switch
+    js = MemJobStore()
+    a, b = channel_for(js, "jobs"), channel_for(js, "jobs")
+    assert a is b and isinstance(a, LocalChannel)
+    assert channel_for(js, "done") is not a
+    prev = os.environ.get("LMR_SCHED_NOTIFY")
+    os.environ["LMR_SCHED_NOTIFY"] = "0"
+    try:
+        assert isinstance(channel_for(js, "jobs"), NullChannel)
+        assert not channel_for(js, "jobs").can_notify
+    finally:
+        if prev is None:
+            os.environ.pop("LMR_SCHED_NOTIFY", None)
+        else:
+            os.environ["LMR_SCHED_NOTIFY"] = prev
+    try:
+        channel_for(js, "bogus")
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("unknown topic must be rejected")

@@ -4,6 +4,6 @@ directory or — through ``google.cloud.storage`` — a ``gs://`` bucket).
 Copies of the JAX package's backends of the same names."""
 
 from lua_mapreduce_tpu_torch.store.base import FileBuilder, Store
-from lua_mapreduce_tpu_torch.store.router import get_storage_from
+from lua_mapreduce_tpu_torch.store.router import get_storage_from, router
 
-__all__ = ["Store", "FileBuilder", "get_storage_from"]
+__all__ = ["Store", "FileBuilder", "get_storage_from", "router"]

@@ -196,3 +196,55 @@ def uninstall_fake_gcs(prev: dict) -> None:
             sys.modules.pop(name, None)
         else:
             sys.modules[name] = mod
+
+
+def utest() -> None:
+    """Self-test: schedule arithmetic + the 503/timeout shapes."""
+    from lua_mapreduce_tpu_torch.faults.errors import classify_exception
+
+    s = FaultSchedule({"download": [1, 3]})
+    try:
+        s.check("download")
+    except ServiceUnavailable as e:
+        assert classify_exception(e) is True     # code=503 → transient
+    else:
+        raise AssertionError("1st download must fail")
+    s.check("download")                           # 2nd passes
+    try:
+        s.check("download")
+    except ServiceUnavailable:
+        pass
+    else:
+        raise AssertionError("3rd download must fail")
+    s.check("download")
+    assert s.fired == {"download": 2}
+
+    t = FaultSchedule({"upload": 1}, fault_kind="timeout")
+    try:
+        t.check("upload")
+    except FakeGcsTimeout as e:
+        assert classify_exception(e) is True
+    t.check("upload")
+
+    try:
+        FaultSchedule({"bogus": 1})
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("unknown op must be rejected")
+
+    prev = install_fake_gcs(faults={"download": 1})
+    try:
+        from google.cloud import storage  # type: ignore
+        assert storage.Client is FakeGcsClient
+        bkt = storage.Client().bucket("b")
+        bkt.blob("k").upload_from_string("v")
+        try:
+            bkt.blob("k").download_as_bytes()
+        except ServiceUnavailable:
+            pass
+        else:
+            raise AssertionError("first download must 503")
+        assert bkt.blob("k").download_as_bytes() == b"v"
+    finally:
+        uninstall_fake_gcs(prev)

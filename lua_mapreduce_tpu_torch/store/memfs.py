@@ -78,3 +78,30 @@ class MemStore(Store):
     def remove(self, name: str) -> None:
         with self._lock:
             self._files.pop(name, None)
+
+
+def utest() -> None:
+    """Self-test (reference fs.lua:213-251 utest role): build / lines /
+    list / exists / remove roundtrip with atomic publish semantics."""
+    s = MemStore()
+    with s.builder() as b:
+        b.write("x 1\n")
+        b.write("y 2\n")
+        assert not s.exists("f.P0")      # nothing visible before build
+        b.build("f.P0")
+    assert s.exists("f.P0")
+    assert list(s.lines("f.P0")) == ["x 1\n", "y 2\n"]
+    assert s.list("f.P*") == ["f.P0"]
+    assert s.list("g.*") == []
+    assert s.read_range("f.P0", 2, 3) == b"1\ny"
+    assert s.size("f.P0") == 8
+    s.remove("f.P0")
+    assert not s.exists("f.P0")
+    s.remove("f.P0")                     # remove-if-exists, no raise
+
+    # raw-bytes builds coexist with text files in one namespace
+    with s.builder() as b:
+        b.write_bytes(b"\x00\xffbin")
+        b.build("g.bin")
+    assert s.read_range("g.bin", 0, 5) == b"\x00\xffbin"
+    assert s.size("g.bin") == 5

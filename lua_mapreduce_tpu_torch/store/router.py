@@ -87,3 +87,38 @@ def get_storage_from(spec: str) -> Store:
     if backend == "shared":
         return wrap_store(SharedStore(path))
     return wrap_store(ObjectStore(path))
+
+
+def router(spec: str) -> Store:
+    """Reference-named alias of :func:`get_storage_from` (fs.lua:185-208)."""
+    return get_storage_from(spec)
+
+
+def utest() -> None:
+    """Self-test (reference fs.lua:213-251 / utils.lua:273-285 utest
+    roles): spec parsing, aliasing, and shared-vs-private mem semantics."""
+    import tempfile
+
+    assert parse_storage("gridfs") == ("mem", None)
+    assert parse_storage("sshfs:/tmp/x") == ("object", "/tmp/x")
+    assert parse_storage("shared:/tmp/y") == ("shared", "/tmp/y")
+    for bad in ("mongo:db", "shared"):     # unknown backend; missing path
+        try:
+            parse_storage(bad)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"{bad!r} must be rejected")
+
+    # mem:tag is process-wide shared; bare mem is private per call
+    a, b = get_storage_from("mem:_router_utest"), get_storage_from(
+        "mem:_router_utest")
+    assert a is b
+    assert get_storage_from("mem") is not get_storage_from("mem")
+
+    with tempfile.TemporaryDirectory() as d:
+        s = router(f"shared:{d}")
+        with s.builder() as bld:
+            bld.write("k 1\n")
+            bld.build("r.P0")
+        assert list(s.lines("r.P0")) == ["k 1\n"]

@@ -29,3 +29,10 @@ __all__ = [
     "TRACE_NS", "Tracer", "active_tracer", "install_tracer", "span_id",
     "trace_generation", "TraceCollection", "read_spans", "validate_chrome",
 ]
+
+
+def utest() -> None:
+    """Run the subsystem's module self-tests."""
+    from lua_mapreduce_tpu_torch.trace import collect, span, wrappers
+    for mod in (span, wrappers, collect):
+        mod.utest()

@@ -398,3 +398,131 @@ def validate_chrome(doc: dict) -> List[str]:
                             "metadata")
             break
     return problems
+
+
+def utest() -> None:
+    """Self-test: chain assembly/completeness, histograms, overlap from
+    spans, chrome export + schema validation."""
+    def sp(name, t0, t1, worker="w", ns="map_jobs", job=0, attempt=0,
+           parent=None, it=0, **attrs):
+        d = {"sid": f"{name}-{worker}-{job}-{t0}-{it}", "parent": parent,
+             "name": name, "worker": worker, "ns": ns, "job": job,
+             "attempt": attempt, "it": it, "t0": t0, "t1": t1}
+        if attrs:
+            d["attrs"] = attrs
+        return d
+
+    spans = [
+        sp("coord.claim_batch", 0.0, 0.1, ns=None, job=None),
+        sp("claim", 0.0, 0.1),
+        sp("dispatch", -0.4, 0.1),     # insert→claim (DESIGN §23)
+        sp("map.body", 0.2, 1.0),
+        sp("store.build", 0.8, 0.9, file="result.P0.M0"),
+        sp("commit", 1.1, 1.2),
+        # job 1: speculated — original w loses, clone w2 wins
+        sp("claim", 0.0, 0.1, job=1),
+        sp("map.body", 0.2, 5.0, job=1),
+        sp("claim", 2.0, 2.1, job=1, worker="w2", speculative=True),
+        sp("map.body", 2.2, 3.0, job=1, worker="w2"),
+        sp("commit", 3.0, 3.1, job=1, worker="w2"),
+        sp("spec_cancel", 5.0, 5.1, job=1, ns="map_jobs"),
+        sp("pre_merge.body", 0.5, 0.9, ns="pre_jobs", job=0),
+        # iteration 2 reuses job id 0 (namespaces re-inserted per
+        # iteration): its chain must group separately, and the
+        # completeness check must judge the LATEST iteration
+        sp("claim", 10.0, 10.1, it=2),
+        sp("map.body", 10.2, 11.0, it=2),
+        sp("commit", 11.1, 11.2, it=2),
+    ]
+    col = TraceCollection(spans)
+    assert col.check_complete([("map_jobs", 0), ("map_jobs", 1)]) == []
+    assert col.check_complete([("map_jobs", 7)]) \
+        == ["map_jobs/7: no claim span"]
+    # per-iteration grouping: job 0 has ONE commit per iteration, never
+    # a conflated pair; job_chain defaults to the latest iteration
+    assert len(col.job_chain("map_jobs", 0, iteration=0)["commits"]) == 1
+    assert col.job_chain("map_jobs", 0)["iteration"] == 2
+    assert col.last_iteration == 2
+    outcomes = col.speculation_outcomes()
+    assert len(outcomes) == 1 and outcomes[0]["winner"] == "w2"
+    assert outcomes[0]["losers"] == ["w"]
+    assert outcomes[0]["commit_count"] == 1
+
+    ops = col.op_stats()
+    assert ops["coord.claim_batch"]["count"] == 1
+    assert abs(ops["store.build"]["p50_ms"] - 100.0) < 1e-6
+    # dispatch (insert→claim) reports in the same histogram table
+    assert abs(col.dispatch_stats()["p50_ms"] - 500.0) < 1e-6
+    assert TraceCollection([]).dispatch_stats() is None
+
+    # overlap is computed over the LAST iteration only — iteration 2
+    # ran no pre-merge, so the full collection reports None, while a
+    # single-iteration collection sees the fully-hidden body (0.5-0.9
+    # under a map phase ending at 5.0)
+    assert col.premerge_overlap() is None
+    col0 = TraceCollection([s for s in spans if s.get("it", 0) == 0])
+    assert col0.premerge_overlap() == 1.0
+    rows = {r["phase"]: r for r in col.phase_waterfall()}
+    assert rows["map"]["jobs"] == 4 and rows["pre_merge"]["jobs"] == 1
+    top = col.slowest_jobs(1)
+    assert top[0]["job"] == 1 and top[0]["executions"] == 2
+
+    # engine surfacing (DESIGN §26): the lowering decision chain and
+    # the per-iteration engine map, mid-run fallback included —
+    # iteration 2 starts in-graph, degrades, and finishes on the store
+    # plane, so it must report as "store" with the fallback listed
+    espans = [
+        sp("lowering", -1.0, -0.9, ns="ingraph", job=None,
+           engine="ingraph", requested="auto", verdict="in-graph"),
+        sp("ingraph.run", 0.0, 1.0, ns="ingraph", job=1, it=1),
+        sp("ingraph.fallback", 1.5, 1.5, ns="ingraph", job=None, it=2,
+           reason="boom"),
+        sp("map.body", 2.0, 3.0, it=2),
+    ]
+    ecol = TraceCollection(espans)
+    assert ecol.engines_by_iteration() == {1: "ingraph", 2: "store"}
+    decs = ecol.lowering_decisions()
+    assert decs[0]["span"] == "lowering" and decs[0]["engine"] == "ingraph"
+    assert decs[1]["span"] == "ingraph.fallback" \
+        and decs[1]["reason"] == "boom"
+    assert col.lowering_decisions() == []      # untouched runs: empty
+
+    # hybrid stage granularity (DESIGN §28): per-stage lowering.<stage>
+    # verdicts and hybrid.fallback degrades join the decision chain, and
+    # an iteration whose store phases ran compiled legs reports "hybrid"
+    hspans = [
+        sp("lowering", -1.0, -0.9, ns="hybrid", job=None,
+           engine="hybrid", requested="auto", verdict="store-plane"),
+        sp("lowering.map", -0.9, -0.9, ns="hybrid", job=None,
+           stage="map", engine="hybrid", compiled="true"),
+        sp("lowering.reduce", -0.9, -0.9, ns="hybrid", job=None,
+           stage="reduce", engine="store", compiled="false"),
+        sp("hybrid.run", 0.0, 0.5, ns="hybrid", job=1, it=1, stage="map"),
+        sp("map.body", 0.0, 1.0, it=1),
+        sp("hybrid.fallback", 1.5, 1.5, ns="hybrid", job=None, it=2,
+           stage="map", reason="trace failed"),
+        sp("map.body", 2.0, 3.0, it=2),
+    ]
+    hcol = TraceCollection(hspans)
+    assert hcol.engines_by_iteration() == {1: "hybrid", 2: "store"}
+    hdecs = hcol.lowering_decisions()
+    assert [d["span"] for d in hdecs] == [
+        "lowering", "lowering.map", "lowering.reduce", "hybrid.fallback"]
+    assert hdecs[1]["stage"] == "map" and hdecs[1]["compiled"] == "true"
+    assert hdecs[3]["reason"] == "trace failed"
+
+    doc = col.to_chrome()
+    assert validate_chrome(doc) == []
+    assert any(e["ph"] == "M" for e in doc["traceEvents"])
+    xs = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+    assert min(e["ts"] for e in xs) == 0.0
+    assert validate_chrome({"traceEvents": [{"ph": "Z"}]}) != []
+
+    assert percentile([], 50) == 0.0
+    assert percentile([1.0, 2.0, 3.0, 4.0], 50) == 2.0
+    assert percentile([1.0, 2.0, 3.0, 4.0], 99) == 4.0
+    # exact-rank halves (the banker's-rounding trap): nearest-rank p50
+    # of an even sample is the FIRST of the middle pair
+    assert percentile([1.0, 2.0], 50) == 1.0
+    assert percentile([1, 2, 3, 4, 5, 6], 50) == 3
+    assert percentile([1, 2, 3], 0) == 1 and percentile([1, 2, 3], 100) == 3

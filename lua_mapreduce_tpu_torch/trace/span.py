@@ -320,3 +320,79 @@ def trace_generation() -> tuple:
     with _lock:
         gen = _generation
     return (gen, os.environ.get("LMR_TRACE") or "")
+
+
+def utest() -> None:
+    """Self-test: deterministic ids, context inheritance, error attrs,
+    flush/read round-trip, install plumbing."""
+    from lua_mapreduce_tpu_torch.store.memfs import MemStore
+
+    clock_now = [100.0]
+    tr = Tracer(clock=lambda: clock_now[0])
+    tr.set_actor("w1")
+    with tr.span("map.body", ns="map_jobs", job_id=3, attempt=0) as sp:
+        clock_now[0] = 101.0
+        tr.op("store.build", 100.5, file="result.P0.M3")
+    assert sp["t0"] == 100.0 and sp["t1"] == 101.0
+    assert sp["sid"] == span_id("w1", "map_jobs", 3, 0, "map.body", 0)
+    spans = {s["name"]: s for s in tr.drain()}
+    child = spans["store.build"]
+    assert child["parent"] == sp["sid"]          # causal link
+    assert child["ns"] == "map_jobs" and child["job"] == 3   # inherited
+    assert child["attrs"]["file"] == "result.P0.M3"
+
+    # same coordinates twice -> distinct ids via the occurrence counter
+    with tr.span("map.body", ns="map_jobs", job_id=3, attempt=0) as sp2:
+        pass
+    assert sp2["sid"] == span_id("w1", "map_jobs", 3, 0, "map.body", 1)
+    assert sp2["sid"] != sp["sid"]
+
+    # a raising body still records its span, tagged with the error
+    try:
+        with tr.span("reduce.body", ns="red_jobs", job_id=0, attempt=1):
+            raise ValueError("boom")
+    except ValueError:
+        pass
+    drained = tr.drain()
+    assert drained[-1]["attrs"]["error"] == "ValueError"
+    assert drained[-1]["t1"] == clock_now[0]
+
+    # flush/read round-trip through a real store
+    store = MemStore()
+    tr.op("coord.claim_batch", 99.0, ns="map_jobs")
+    name = tr.flush(store)
+    assert name and name.startswith(TRACE_NS + ".w1.")
+    got = [json.loads(ln) for ln in store.lines(name)]
+    assert got[0]["name"] == "coord.claim_batch"
+    assert tr.flush(store) is None               # buffer empty
+    tr.op("x", 0.0)
+    assert tr.flush(store, force=False) is None  # below threshold
+    assert tr.pending() == 1
+
+    # restart-collision probe: a FRESH tracer under the same actor
+    # (resumed server, respawned worker) must not overwrite the
+    # pre-crash flush file — builds are atomic overwriting publishes
+    tr_restarted = Tracer(clock=lambda: 200.0)
+    tr_restarted.set_actor("w1")
+    tr_restarted.op("coord.get_task", 199.0)
+    name2 = tr_restarted.flush(store)
+    assert name2 != name
+    kept = [json.loads(ln) for ln in store.lines(name)]
+    assert kept[0]["name"] == "coord.claim_batch"   # survived intact
+
+    # iteration stamping: job ids restart per iteration, so spans
+    # carry which iteration they belong to
+    tr.set_iteration(3)
+    tr.op("y", 1.0)
+    assert tr.drain()[-1]["it"] == 3
+
+    # install / active / generation plumbing
+    t0 = trace_generation()
+    install_tracer(tr)
+    try:
+        assert active_tracer() is tr
+        assert trace_generation() != t0
+    finally:
+        install_tracer(None)
+    import os
+    assert (os.environ.get("LMR_TRACE") or active_tracer() is None)

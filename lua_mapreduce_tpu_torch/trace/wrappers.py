@@ -256,3 +256,83 @@ def _make_rpc_wrappers():
 
 
 _make_rpc_wrappers()
+
+
+def utest() -> None:
+    """Self-test: op spans, per-attempt spans under the retry stack,
+    derived per-job lifecycle spans, first-commit-wins span uniqueness."""
+    import random
+
+    from lua_mapreduce_tpu_torch.coord.jobstore import MemJobStore, make_job
+    from lua_mapreduce_tpu_torch.core.constants import Status
+    from lua_mapreduce_tpu_torch.faults.plan import FaultPlan
+    from lua_mapreduce_tpu_torch.faults.retry import RetryPolicy
+    from lua_mapreduce_tpu_torch.faults.wrappers import (FaultyStore,
+                                                         RetryingStore)
+    from lua_mapreduce_tpu_torch.store.memfs import MemStore
+
+    tr = Tracer()
+    tr.set_actor("w-utest")
+
+    # data plane: the retry stack replays through the tracing layer, so
+    # a transient burst shows one span PER ATTEMPT — failed attempts
+    # tagged with the injected error class
+    plan = FaultPlan(3, transient=1.0, max_per_key=2, sleep=lambda s: None)
+    policy = RetryPolicy(retries=3, base_ms=1, sleep=lambda s: None,
+                         rng=random.Random(0))
+    raw = MemStore()
+    with raw.builder() as b:
+        b.write("k 1\n")
+        b.build("f")
+    store = RetryingStore(TracingStore(FaultyStore(raw, plan), tr), policy)
+    assert store.read_range("f", 0, 3) == b"k 1"
+    spans = tr.drain()
+    reads = [s for s in spans if s["name"] == "store.read_range"]
+    assert len(reads) == 3          # 2 injected failures + the success
+    assert [("error" in s.get("attrs", {})) for s in reads] == \
+        [True, True, False]
+
+    # builder span carries the byte count
+    with TracingStore(raw, tr).builder() as b:
+        b.write("abc\n")
+        b.build("g")
+    (bs,) = [s for s in tr.drain() if s["name"] == "store.build"]
+    assert bs["attrs"] == {"file": "g", "bytes": 4}
+
+    # a consumer abandoning a lines() stream early (manifest peeks) is
+    # a normal close: the span records WITHOUT an error tag
+    gen = TracingStore(raw, tr).lines("f")
+    assert next(gen) == "k 1\n"
+    gen.close()
+    (ln,) = [s for s in tr.drain() if s["name"] == "store.lines"]
+    assert "error" not in ln.get("attrs", {})
+
+    # coord plane: claim/commit derive per-job spans from ground truth
+    js = MemJobStore()
+    wrapped = TracingJobStore(js, tr)
+    wrapped.insert_jobs("map_jobs", [make_job("k", 1), make_job("k2", 2)])
+    got = wrapped.claim_batch("map_jobs", "w-utest", 2)
+    assert len(got) == 2
+    t = {"started": 0.0, "finished": 0.0, "written": 0.0, "cpu": 0.0,
+         "real": 0.0}
+    assert wrapped.commit_batch("map_jobs", "w-utest",
+                                [(0, t), (1, t)]) == [0, 1]
+    # a second (loser) commit lands nothing -> NO extra commit spans
+    assert wrapped.commit_batch("map_jobs", "other", [(0, t)]) == []
+    assert wrapped.set_job_status("map_jobs", 0, Status.WRITTEN,
+                                  expect=(Status.RUNNING,)) is False
+    spans = tr.drain()
+    names = [s["name"] for s in spans]
+    assert names.count("claim") == 2
+    assert names.count("commit") == 2
+    # every claimed doc derives a dispatch span (insert→claim) whose
+    # window opens at the job's insert stamp
+    dispatches = [s for s in spans if s["name"] == "dispatch"]
+    assert len(dispatches) == 2
+    assert all(s["t1"] >= s["t0"] for s in dispatches)
+    claims = {s["job"]: s for s in spans if s["name"] == "claim"}
+    assert set(claims) == {0, 1} and claims[0]["ns"] == "map_jobs"
+    rpc = [s for s in spans if s["name"] == "coord.claim_batch"]
+    assert claims[0]["parent"] == rpc[0]["sid"]
+    # passthrough of non-RPC surfaces
+    assert wrapped.round_counts()["claim"] >= 1

@@ -5,7 +5,8 @@ same arrays from the same seed. The reference slices
 misc/digits.png into 16x16 grayscale patterns, 10 classes, 800 train /
 200 validation (examples/APRIL-ANN/init.lua:80-123): ``make_digits``
 generates a dataset with that shape and split from a seed,
-``load_digits_image`` slices a real sheet.
+``load_digits_image`` slices a real sheet and ``write_digits_image``
+renders a deterministic one.
 """
 
 from __future__ import annotations
@@ -125,3 +126,49 @@ def load_digits_image(path: str
     n_tr = (rows * 4 // 5) * 10
     return (patterns[:n_tr], labels[:n_tr],
             patterns[n_tr:], labels[n_tr:])
+
+
+def write_digits_image(path: str, seed: int = 0, tile_rows: int = 100
+                       ) -> None:
+    """Render a deterministic digits sheet honoring the loader's
+    contract (used to generate the checked-in test fixture and to
+    produce a full-size 1600x160 stand-in for the reference's
+    misc/digits.png when none is at hand). Glyphs are per-class
+    prototype blobs + per-instance noise, drawn as INK on paper so the
+    loader's inversion is exercised.
+
+    Glyphs are seven-segment digit renderings with per-instance jitter
+    (±1 px glyph offset, ink-intensity variation, paper noise) — the
+    classes differ by SHAPE, like the reference's scanned sheet, not
+    merely by a per-class noise prototype, so a model scoring high
+    validation accuracy here has learned actual digit geometry."""
+    from PIL import Image
+
+    # segment rectangles in a 16x16 tile: (row0, row1, col0, col1)
+    seg_rc = {
+        "A": (2, 4, 5, 11),       # top bar
+        "B": (3, 8, 11, 13),      # top-right
+        "C": (8, 13, 11, 13),     # bottom-right
+        "D": (12, 14, 5, 11),     # bottom bar
+        "E": (8, 13, 3, 5),       # bottom-left
+        "F": (3, 8, 3, 5),        # top-left
+        "G": (7, 9, 5, 11),       # middle bar
+    }
+    digit_segs = ["ABCDEF", "BC", "ABGED", "ABGCD", "FGBC", "AFGCD",
+                  "AFGECD", "ABC", "ABCDEFG", "ABCDFG"]
+
+    rng = np.random.RandomState(seed)
+    sheet = np.zeros((tile_rows * 16, 160), np.float32)
+    for r in range(tile_rows):
+        for c in range(10):
+            glyph = np.zeros((16, 16), np.float32)
+            for s in digit_segs[c]:
+                r0, r1, c0, c1 = seg_rc[s]
+                glyph[r0:r1, c0:c1] = 0.7 + 0.3 * rng.rand()
+            dy, dx = rng.randint(-1, 2, 2)          # pen-position jitter
+            glyph = np.roll(np.roll(glyph, dy, 0), dx, 1)
+            glyph += 0.08 * rng.randn(16, 16)       # paper/scan noise
+            sheet[r * 16:(r + 1) * 16,
+                  c * 16:(c + 1) * 16] = np.clip(glyph, 0.0, 1.0)
+    paper = np.clip(1.0 - sheet, 0.0, 1.0)          # ink -> dark
+    Image.fromarray((paper * 255).astype(np.uint8), "L").save(path)

@@ -292,6 +292,70 @@ def main(argv: Optional[List[str]] = None) -> int:
     return 0
 
 
+def utest() -> None:
+    """Self-test: package-site locks are wrapped and recorded, stdlib
+    creations are not, edges replay against a model, and verify flags
+    both an unknown site and an unknown order."""
+    assert threading.Lock is _real_lock or not _installed
+    now = [0.0]
+    install(clock=lambda: now[0])
+    try:
+        reset()
+        a = threading.Lock()
+        b = threading.RLock()
+        assert isinstance(a, _LockProxy) and isinstance(b, _LockProxy)
+        assert a.site.startswith("utils/lockcheck.py:"), a.site
+        # Condition's internal RLock is created inside threading.py:
+        # raw, invisible, zero overhead
+        cond = threading.Condition()
+        assert not isinstance(cond._lock, _LockProxy)
+        with a:
+            now[0] += 0.25
+            with b:
+                pass
+        rep = report()
+        assert rep["acquisitions"] == 2
+        assert rep["edges"] == [(a.site, b.site)], rep
+        assert rep["max_hold_s"][a.site] >= 0.25
+        model = {"locks": {a.site: "A", b.site: "B"},
+                 "edges": [["A", "B"]], "cyclic": []}
+        assert verify(model) == [], verify(model)
+        # reversed nesting: an order the model does not contain
+        with b:
+            with a:
+                pass
+        bad = verify(model)
+        assert any("unmodeled acquisition order B -> A" in v
+                   for v in bad), bad
+        # a lock at a site the model never saw
+        reset()
+        c = threading.Lock()
+        with c:
+            pass
+        bad = verify(model)
+        assert any("unmodeled site" in v for v in bad), bad
+        # statically-cyclic labels observed in any order = violation
+        model2 = {"locks": {a.site: "A", b.site: "B"},
+                  "edges": [["A", "B"], ["B", "A"]],
+                  "cyclic": ["A", "B"]}
+        reset()
+        with a:
+            with b:
+                pass
+        bad = verify(model2)
+        assert any("statically-cyclic" in v for v in bad), bad
+        reset()
+    finally:
+        uninstall()
+    assert threading.Lock is _real_lock
+    # the real package model is self-consistent: every modeled site
+    # parses and no label is cyclic (the package ships deadlock-free)
+    from lua_mapreduce_tpu_torch.analysis.lockset import static_lock_model
+    model = static_lock_model()
+    assert model["locks"] and not model["cyclic"]
+    print("lockcheck utest ok")
+
+
 if __name__ == "__main__":
     # run by path: this file is the module the package would import, so
     # later imports of it get this object; the repo root replaces this

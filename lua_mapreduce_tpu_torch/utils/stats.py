@@ -317,3 +317,40 @@ class TaskStats:
             "iterations": [s.as_dict() for s in self.iterations],
             "wall_time": self.wall_time,
         }
+
+
+def utest() -> None:
+    """Self-test (reference server.lua:629-655 utest role: the stats
+    aggregation — per-phase sums + cluster time = max(written) −
+    min(started), server.lua:155-183)."""
+    times = [JobTimes(started=1.0, finished=2.0, written=3.0, cpu=0.5),
+             JobTimes(started=2.0, finished=4.0, written=6.0, cpu=1.5)]
+    ph = PhaseStats().fold(times, failed=1)
+    assert ph.count == 2 and ph.failed == 1
+    assert abs(ph.sum_cpu_time - 2.0) < 1e-9
+    assert abs(ph.sum_real_time - (2.0 + 4.0)) < 1e-9
+    assert abs(ph.cluster_time - (6.0 - 1.0)) < 1e-9
+    red = PhaseStats().fold(
+        [JobTimes(started=6.0, finished=7.0, written=8.0, cpu=1.0)])
+    it = IterationStats(iteration=1, map=ph, reduce=red)
+    assert abs(it.cluster_time - (5.0 + 2.0)) < 1e-9
+    d = TaskStats(iterations=[it]).as_dict()
+    assert d["iterations"][0]["map"]["count"] == 2
+    assert d["iterations"][0]["premerge"]["count"] == 0
+    assert d["iterations"][0]["claim_rounds"] == 0
+    assert d["iterations"][0]["commit_rounds"] == 0
+    # overlap: map ends at 6.0; one pre-merge fully inside (2→4), one
+    # half outside (5→7): hidden = 2 + 1 of real = 2 + 2 → 3/4
+    pre = [JobTimes(started=2.0, finished=3.0, written=4.0, cpu=0.1),
+           JobTimes(started=5.0, finished=6.0, written=7.0, cpu=0.1)]
+    assert abs(overlap_fraction(times, pre) - 0.75) < 1e-9
+    assert overlap_fraction([], pre) == 0.0
+    assert overlap_fraction(times, []) == 0.0
+    # the shared counter fold: composite store_faults, float passthrough,
+    # zeroed absent keys, and every folded field present in as_dict
+    it2 = IterationStats(iteration=2).fold_fault_counters(
+        {"retries": 3, "faults_injected": 1, "retry_exhausted": 2,
+         "spec_wasted_s": 1.5})
+    assert it2.store_retries == 3 and it2.store_faults == 3
+    assert it2.spec_wasted_s == 1.5 and it2.infra_releases == 0
+    assert set(COUNTER_FOLD) <= set(it2.as_dict())

@@ -719,7 +719,13 @@ def whole_tree_parity(root):
 
 def test_whole_port_tree_parity_pins_its_lock_plane():
     model = whole_tree_parity(PORT_PKG)
-    assert len(model["locks"]) == 27 and model["cyclic"] == []
+    # 27 package locks and the three the sanitizer's self-test creates
+    # under install() (utils/lockcheck.py::utest.a, .b, .c)
+    assert len(model["locks"]) == 30 and model["cyclic"] == []
+    assert sorted(s for s in model["locks"].values()
+                  if "::utest." in s) == [
+        "utils/lockcheck.py::utest.a", "utils/lockcheck.py::utest.b",
+        "utils/lockcheck.py::utest.c"]
     assert model["edges"] == [
         ["core/native_build.py::_lock", "store/memfs.py::MemStore._lock"],
         ["engine/hybrid.py::HybridReduceFold._lock",

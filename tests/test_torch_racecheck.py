@@ -635,8 +635,12 @@ def test_fleet_concurrent_resize_converges():
 # --- the router repair LMR029 found ----------------------------------------
 
 def test_mem_lookups_wire_their_store_outside_the_router_lock(monkeypatch):
+    import importlib
+
     from lua_mapreduce_tpu_torch.faults import retry
-    from lua_mapreduce_tpu_torch.store import router
+
+    # the module: the package's ``router`` is the reference-named alias
+    router = importlib.import_module("lua_mapreduce_tpu_torch.store.router")
 
     class OwnedLock:
         """The router's lock, knowing which thread holds it."""
