@@ -4,10 +4,15 @@
     python3 chip_ab.py <root A> <root B>
 
 Runs the end-to-end phases of each checkout's own ``chip_smoke.py``
-(digits, wide, serving, conv, LM training) in four child processes, in
-the order A, B, B, A, so that drift of the card or of its host shows as
-a difference between a checkout's two runs. Each checkout builds its own
-kernels into its own ``build/kernels/``. Prints one line per metric with
+(digits, wide, serving, conv, LM training), then k-means at SIFT1M's
+shape and ALS at MovieLens-1M's through this script's own
+``chip_smoke.py`` (``kmeans_timed``, ``als_timed``: the captured loops
+of phases 15 and 16 without their full-size float64 checks, so that a
+checkout older than them is measured the same way), in four child
+processes, in the order A, B, B, A, so that drift of the card or of its
+host shows as a difference between a checkout's two runs. Each checkout
+builds its own kernels into its own ``build/kernels/``. Prints one line
+per metric with
 the four readings, and writes them all to ``chiprun_out/chip_ab.json``
 under the directory this script lies in. To compare a change with its
 parent, unpack the parent into a directory that ``.gitignore`` lists:
@@ -24,7 +29,7 @@ import subprocess
 import sys
 
 CHILD = r'''
-import json, sys
+import importlib.util, json, sys
 import torch
 import chip_smoke as cs
 from lua_mapreduce_tpu_torch import ops
@@ -55,13 +60,27 @@ for tag, r in cs.phase_lm_train(torch, ops).items():
         m[f"lm {tag} {key}"] = r[key]
     for kernel, ms in r["profiled_step_kernel_ms"].items():
         m[f"lm {tag} {kernel} ms"] = ms
+# the timed parts of phases 15-16 from this script's chip_smoke.py, run on
+# the checkout's own package (the working directory comes first on the path)
+spec = importlib.util.spec_from_file_location("chip_smoke_ab", sys.argv[1])
+ab = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(ab)
+mesh = ab.card_mesh(torch)
+km = ab.kmeans_timed(torch, ops, mesh)[1]
+m["kmeans ms/iteration"] = km["replay_ms_per_iter"]
+m["kmeans kernel ms/iteration"] = km["kernel_ms_per_iter"]
+als = ab.als_timed(torch, ops, mesh)[1]
+m["als ms/round"] = als["replay_ms_per_iter"]
+m["als kernel ms/round"] = als["kernel_ms_per_iter"]
 print("RESULT " + json.dumps(m), flush=True)
 '''
 
 
 def run(root):
     """The metrics of one child run of ``root``'s phases."""
-    proc = subprocess.run([sys.executable, "-c", CHILD], cwd=root,
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "chip_smoke.py")
+    proc = subprocess.run([sys.executable, "-c", CHILD, here], cwd=root,
                           capture_output=True, text=True)
     for line in proc.stdout.splitlines():
         if line.startswith("RESULT "):

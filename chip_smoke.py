@@ -569,45 +569,59 @@ def assert_rejects(name, wrong, want, dtype_name, tol, norm_tol):
 # ------------------------------------------------------------ phase 2
 
 def matmul_cases():
-    """(label, M, K, N, dtype, a transposed?, b transposed?) at the main
-    path's shapes: the digits step's forward products, its backward
-    products (transposed views, as the autograd Function passes them),
-    the validation products, the data-parallel plane's k-means and ALS
-    products (PR 10), and the wide trainer's 8192³ products."""
-    f32 = [("digits fwd x·W0", 128, 256, 128, False, False),
-           ("digits fwd h·W1", 128, 128, 10, False, False),
-           ("digits bwd g·W1ᵀ", 128, 10, 128, False, True),
-           ("digits bwd hᵀ·g", 128, 128, 10, True, False),
-           ("digits bwd xᵀ·g", 256, 128, 128, True, False),
-           ("digits val x·W0", 200, 256, 128, False, False),
-           ("digits val h·W1", 200, 128, 10, False, False)]
+    """(label, M, K, N, dtype, a transposed?, b transposed?, the plan
+    csrc/matmul.cu must take: kernel, A's copy mode, B's copy mode) at
+    the main path's shapes: the digits step's forward products, its
+    backward products (transposed views, as the autograd Function passes
+    them), the validation products, the data-parallel plane's k-means
+    and ALS products, and the wide trainer's 8192³ products."""
+    small = ("f32 64x64", None, None)
+    f32 = [("digits fwd x·W0", 128, 256, 128, False, False, small),
+           ("digits fwd h·W1", 128, 128, 10, False, False, small),
+           ("digits bwd g·W1ᵀ", 128, 10, 128, False, True, small),
+           ("digits bwd hᵀ·g", 128, 128, 10, True, False, small),
+           ("digits bwd xᵀ·g", 256, 128, 128, True, False, small),
+           ("digits val x·W0", 200, 256, 128, False, False, small),
+           ("digits val h·W1", 200, 128, 10, False, False, small)]
     # k-means at SIFT1M's shape: x·cᵀ (c read through its .t() view) and
     # one_hotᵀ·x (K = 10⁶, split-K, one_hot through its .t() view); ALS at
-    # ML-1M's: W·(V⊗V), Wᵀ·(U⊗U) and U·Vᵀ
-    f32 += [("kmeans x·cᵀ", KMEANS_N, KMEANS_DIM, KMEANS_K, False, True),
+    # ML-1M's: W·(V⊗V), Wᵀ·(U⊗U) (Wᵀ's rows 3,706 floats: 8-byte pieces),
+    # the right-hand sides (w·r)·V and (w·r)ᵀ·U, and U·Vᵀ
+    wide = "f32 128x128"
+    f32 += [("kmeans x·cᵀ", KMEANS_N, KMEANS_DIM, KMEANS_K, False, True,
+             (wide, "e4k", "e4k")),
             ("kmeans one_hotᵀ·x", KMEANS_K, KMEANS_N, KMEANS_DIM, True,
-             False),
+             False, (wide, "v16", "v16")),
             ("als W·(V⊗V)", ALS_USERS, ALS_ITEMS, ALS_RANK ** 2, False,
-             False),
+             False, (wide, "e4k", "v16")),
             ("als Wᵀ·(U⊗U)", ALS_ITEMS, ALS_USERS, ALS_RANK ** 2, True,
-             False),
-            ("als U·Vᵀ", ALS_USERS, ALS_RANK, ALS_ITEMS, False, True)]
-    bf16 = [("4096³", 4096, 4096, 4096, False, False),
-            ("wide fwd 8192³", 8192, 8192, 8192, False, False),
-            ("wide bwd g·Wᵀ", 8192, 8192, 8192, False, True),
-            ("wide bwd hᵀ·g", 8192, 8192, 8192, True, False)]
+             False, (wide, "v8", "v16")),
+            ("als (w·r)·V", ALS_USERS, ALS_ITEMS, ALS_RANK, False, False,
+             ("f32 128x64", "e4k", "v16")),
+            ("als (w·r)ᵀ·U", ALS_ITEMS, ALS_USERS, ALS_RANK, True, False,
+             ("f32 128x64", "v8", "v16")),
+            ("als U·Vᵀ", ALS_USERS, ALS_RANK, ALS_ITEMS, False, True,
+             (wide, "e4k", "e4k"))]
+    tma = ("bf16 tma", None, None)
+    bf16 = [("4096³", 4096, 4096, 4096, False, False, tma),
+            ("wide fwd 8192³", 8192, 8192, 8192, False, False, tma),
+            ("wide bwd g·Wᵀ", 8192, 8192, 8192, False, True, tma),
+            ("wide bwd hᵀ·g", 8192, 8192, 8192, True, False, tma)]
     return ([(*c[:4], "float32", *c[4:]) for c in f32] +
             [(*c[:4], "bfloat16", *c[4:]) for c in bf16])
 
 
 def phase_kernels(torch, ops, gen):
-    from lua_mapreduce_tpu_torch.ops.matmul import matmul_cuda, matmul_plain
+    from lua_mapreduce_tpu_torch.ops.matmul import (matmul_cuda,
+                                                    matmul_kernel_plan,
+                                                    matmul_plain)
     from lua_mapreduce_tpu_torch.ops.softmax import (log_softmax_plain,
                                                      rowwise_softmax_cuda,
                                                      softmax_kernel_plan,
                                                      softmax_plain)
     rows = []
-    for label, m, k, n, dt, ta, tb in matmul_cases():
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, m, k, n, dt, ta, tb, want in matmul_cases():
         dtype = getattr(torch, dt)
         scale = k ** -0.25
         a = (torch.randn((k, m) if ta else (m, k), device="cuda",
@@ -615,6 +629,16 @@ def phase_kernels(torch, ops, gen):
         b = (torch.randn((n, k) if tb else (k, n), device="cuda",
                          generator=gen) * scale).to(dtype)
         a, b = (a.t() if ta else a), (b.t() if tb else b)
+        plan = matmul_kernel_plan(a, b)
+        if (plan.kernel, plan.a_copy, plan.b_copy) != want:
+            raise AssertionError(f"matmul {label} took {plan}, expected "
+                                 f"{want}")
+        # the f32 kernels' only split product must fill the card
+        tiles = -(-m // 128) * -(-n // 128)
+        if (label == "kmeans one_hotᵀ·x"
+                and tiles * plan.splits < sms):
+            raise AssertionError(f"matmul {label}: {tiles} tiles x split "
+                                 f"{plan.splits} leave SMs of {sms} idle")
         got = matmul_cuda(a, b, dtype)
         torch.cuda.synchronize()
         err = check_close(f"matmul {label}", got, matmul_plain(a, b, dtype),
@@ -626,7 +650,9 @@ def phase_kernels(torch, ops, gen):
         rows.append({
             "kernel": "matmul_f32" if dt == "float32" else "matmul_bf16",
             "case": f"matmul {label} ({m},{k})x({k},{n}) {dt}",
-            "splits": tensor_splits(a, b),
+            "splits": plan.splits, "path": plan.kernel,
+            "copies": (f"{plan.a_copy}/{plan.b_copy}" if plan.a_copy
+                       else None),
             "max_abs_err": err,
             "ms": time_ms(lambda: matmul_cuda(a, b, dtype), torch),
             "plain_ms": time_ms(lambda: matmul_plain(a, b, dtype), torch),
@@ -2708,16 +2734,8 @@ def phase_kmeans(torch, ops, seed=0):
     err = hold_to_cpu("kmeans 65536x128 k64", torch, card[:1], cpu[:1])
     hold_to_cpu("kmeans 65536x128 k64 history", torch, card[2:], cpu[2:],
                 rtol=1e-3, atol=0.0)
-    t0 = time.perf_counter()
-    x, _, _ = make_blobs(seed=seed, n=KMEANS_N, k=KMEANS_K, dim=KMEANS_DIM)
-    c0 = kmeans.init_centroids(seed, x, KMEANS_K, method="random")
-    xd = torch.from_numpy(x).cuda()
-    setup_s = time.perf_counter() - t0
-    want = {**dict.fromkeys(ops.KERNELS, 0), "matmul_f32": 2 * KMEANS_ITERS}
-    res, r = captured_vs_eager(
-        torch, ops, "kmeans",
-        lambda n: kmeans.kmeans_fit(xd, c0, n_iters=n, mesh=mesh),
-        KMEANS_ITERS, want)
+    res, r, x, xd, c0 = kmeans_timed(torch, ops, mesh, seed)
+    setup_s = r["setup_s"]
     hist = res.history.cpu().tolist()
     if not all(math.isfinite(h) for h in hist) or any(
             b > a * (1 + 1e-6) for a, b in zip(hist, hist[1:])):
@@ -2752,6 +2770,28 @@ def phase_kmeans(torch, ops, seed=0):
     del x, xd
     torch.cuda.empty_cache()
     return r["launches"], r
+
+
+def kmeans_timed(torch, ops, mesh, seed=0):
+    """Phase 15's timed part (``chip_ab.py`` runs it too): blobs of
+    SIFT1M's shape from ``seed`` and KMEANS_ITERS Lloyd iterations
+    captured against the same loop run eagerly (:func:`captured_vs_eager`).
+    Returns the captured fit, its report (with the data's ``setup_s``),
+    the data on the host and on the card, and the start centroids."""
+    from lua_mapreduce_tpu_torch.models import kmeans
+    from lua_mapreduce_tpu_torch.train.data import make_blobs
+    t0 = time.perf_counter()
+    x, _, _ = make_blobs(seed=seed, n=KMEANS_N, k=KMEANS_K, dim=KMEANS_DIM)
+    c0 = kmeans.init_centroids(seed, x, KMEANS_K, method="random")
+    xd = torch.from_numpy(x).cuda()
+    setup_s = time.perf_counter() - t0
+    want = {**dict.fromkeys(ops.KERNELS, 0), "matmul_f32": 2 * KMEANS_ITERS}
+    res, r = captured_vs_eager(
+        torch, ops, "kmeans",
+        lambda n: kmeans.kmeans_fit(xd, c0, n_iters=n, mesh=mesh),
+        KMEANS_ITERS, want)
+    r["setup_s"] = setup_s
+    return res, r, x, xd, c0
 
 
 def _nearest_f64(torch, x64, c64, rows=65536):
@@ -2838,24 +2878,12 @@ def phase_als(torch, ops, seed=0):
     card = als.als_fit(rs, ws, v0s, n_iters=4, reg=ALS_REG, mesh=mesh)
     cpu = als.als_fit(rs, ws, v0s, n_iters=4, reg=ALS_REG, device="cpu")
     err = hold_to_cpu("als 600x300 rank 16", torch, card, cpu)
-    r, w = make_ratings(seed=seed, n_users=ALS_USERS, n_items=ALS_ITEMS,
-                        rank=ALS_RANK, density=ALS_DENSITY, noise=0.1)
-    observed = float(w.mean())
-    v0 = als.init_item_factors(seed, ALS_ITEMS, ALS_RANK)
-    rd, wd = torch.from_numpy(r).cuda(), torch.from_numpy(w).cuda()
-    # per round: the users' two products, the items' two, the RMSE's one;
-    # then the final users' two
-    want = {**dict.fromkeys(ops.KERNELS, 0),
-            "matmul_f32": 5 * ALS_ITERS + 2}
-    res, rep = captured_vs_eager(
-        torch, ops, "als",
-        lambda n: als.als_fit(rd, wd, v0, n_iters=n, reg=ALS_REG,
-                              mesh=mesh), ALS_ITERS, want)
+    res, rep = als_timed(torch, ops, mesh, seed)
+    observed = rep["observed_share"]
     hist = res.history.cpu().tolist()
     if not all(math.isfinite(h) for h in hist) or hist[-1] >= hist[0]:
         raise AssertionError(f"als RMSE not finite and falling: {hist}")
-    rep.update(history=hist, observed_share=observed,
-               cpu_check_max_abs_err=err)
+    rep.update(history=hist, cpu_check_max_abs_err=err)
     log(f"[als] {ALS_USERS}x{ALS_ITEMS}, {100 * observed:.2f}% observed, "
         f"rank {ALS_RANK}, reg {ALS_REG}, {ALS_ITERS} rounds on a dp=1 NCCL "
         f"mesh: a replayed round {rep['replay_ms_per_iter']:.3f} ms on the "
@@ -2871,6 +2899,29 @@ def phase_als(torch, ops, seed=0):
     for kname, ms, cnt in rep["top_kernels"]:
         log(f"[als]   {ms:10.3f} ms {cnt:6d}x  {kname[:90]}")
     return rep["launches"], rep
+
+
+def als_timed(torch, ops, mesh, seed=0):
+    """Phase 16's timed part (``chip_ab.py`` runs it too): ratings of
+    MovieLens-1M's shape from ``seed`` and ALS_ITERS rounds captured
+    against the same loop run eagerly. Returns the captured fit and its
+    report (with the ratings' ``observed_share``)."""
+    from lua_mapreduce_tpu_torch.models import als
+    from lua_mapreduce_tpu_torch.train.data import make_ratings
+    r, w = make_ratings(seed=seed, n_users=ALS_USERS, n_items=ALS_ITEMS,
+                        rank=ALS_RANK, density=ALS_DENSITY, noise=0.1)
+    v0 = als.init_item_factors(seed, ALS_ITEMS, ALS_RANK)
+    rd, wd = torch.from_numpy(r).cuda(), torch.from_numpy(w).cuda()
+    # per round: the users' two products, the items' two, the RMSE's one;
+    # then the final users' two
+    want = {**dict.fromkeys(ops.KERNELS, 0),
+            "matmul_f32": 5 * ALS_ITERS + 2}
+    res, rep = captured_vs_eager(
+        torch, ops, "als",
+        lambda n: als.als_fit(rd, wd, v0, n_iters=n, reg=ALS_REG,
+                              mesh=mesh), ALS_ITERS, want)
+    rep["observed_share"] = float(w.mean())
+    return res, rep
 
 
 def phase_dp_train(torch, ops, gen):
@@ -6366,6 +6417,8 @@ def main():
             extra += f", splits {r['splits']}"
         if r.get("path") is not None:
             extra += f", {r['path']} kernel"
+        if r.get("copies") is not None:
+            extra += f" (A/B copies {r['copies']})"
         if r.get("branch") is not None:
             extra += f", {r['branch']} branch, two calls bit-equal"
         if r.get("n_split") is not None:

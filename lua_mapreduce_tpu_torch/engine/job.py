@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List
+from typing import Any, Dict, Iterable, List
 
 from lua_mapreduce_tpu_torch.core import tuples
 from lua_mapreduce_tpu_torch.core.constants import MAX_MAP_RESULT
@@ -33,6 +33,8 @@ from lua_mapreduce_tpu_torch.core.serialize import (assert_serializable,
                                                     dump_record, sorted_keys,
                                                     to_plain)
 from lua_mapreduce_tpu_torch.engine.contract import TaskSpec
+from lua_mapreduce_tpu_torch.engine.premerge import run_name_re
+from lua_mapreduce_tpu_torch.engine.push import manifest_name
 from lua_mapreduce_tpu_torch.faults.replicate import (reading_view,
                                                       spill_writer)
 from lua_mapreduce_tpu_torch.store.base import Store
@@ -95,7 +97,8 @@ def run_map_job(spec: TaskSpec, store: Store, job_id: str,
                 map_key: Any, map_value: Any,
                 segment_format: str = "v1", replication=1,
                 push: bool = False, push_pool=None,
-                spec_lineage: str = None, fence=None) -> JobTimes:
+                spec_lineage: str = None, fence=None,
+                leftovers: Iterable[str] = ()) -> JobTimes:
     """Execute one map job and write per-partition sorted run files.
 
     Mirrors job.lua:154-228: run the user mapfn with the grouping emit,
@@ -111,7 +114,9 @@ def run_map_job(spec: TaskSpec, store: Store, job_id: str,
     manifest published last. ``spec_lineage`` quarantines a speculative
     clone's pushes under its identity. Output records and their merge
     order are the same either way. ``fence`` is the lease check
-    :func:`publish_map_groups` calls before it publishes.
+    :func:`publish_map_groups` calls before it publishes; ``leftovers``
+    are files of this job's key that the iteration-start sweep could
+    not remove (:func:`publish_over_leftovers`).
     """
     check_format(segment_format)
     # discovery and stale-file removal address every copy; under
@@ -125,6 +130,10 @@ def run_map_job(spec: TaskSpec, store: Store, job_id: str,
     native = getattr(spec.mapfn, "native_map", None)
     if native is not None and native.get("kind") == "wordcount_file":
         from lua_mapreduce_tpu_torch.core.native_wcmap import run_native_map
+        if not push and leftovers and (fence is None or fence()):
+            # the native pass writes the partitions it emits to over these
+            publish_over_leftovers(spec, store, job_id, leftovers,
+                                   segment_format, replication)
         if run_native_map(store, native, str(map_value), spec.result_ns,
                           job_id):
             times.cpu = time.process_time() - cpu0
@@ -138,7 +147,7 @@ def run_map_job(spec: TaskSpec, store: Store, job_id: str,
                        segment_format=segment_format,
                        replication=replication, push=push,
                        push_pool=push_pool, spec_lineage=spec_lineage,
-                       fence=fence)
+                       fence=fence, leftovers=leftovers)
     times.cpu = time.process_time() - cpu0
     times.written = time.time()
     return times
@@ -148,7 +157,8 @@ def publish_map_groups(spec: TaskSpec, store: Store, job_id: str,
                        result: Dict[Any, List[Any]],
                        segment_format: str = "v1", replication=1,
                        push: bool = False, push_pool=None,
-                       spec_lineage: str = None, fence=None) -> None:
+                       spec_lineage: str = None, fence=None,
+                       leftovers: Iterable[str] = ()) -> None:
     """Publish one map job's grouped emissions — the one publish tail
     every map producer shares: the interpreted path (run_map_job above)
     and the compiled hybrid map leg (engine/hybrid.py) both land here,
@@ -166,7 +176,10 @@ def publish_map_groups(spec: TaskSpec, store: Store, job_id: str,
     called right before the staged writers publish; False means the
     job's lease is gone, and nothing is published. Run-file names repeat
     across loop iterations, so a duplicate that lost its race must not
-    publish late over the next iteration's runs.
+    publish late over the next iteration's runs. For the same reason a
+    file of this job's key that the iteration-start sweep could not
+    remove (``leftovers``) is published over, never left beside this
+    job's output (:func:`publish_over_leftovers`).
     """
     combiner = spec.combiner_for_map
     writers: Dict[int, Any] = {}
@@ -196,8 +209,12 @@ def publish_map_groups(spec: TaskSpec, store: Store, job_id: str,
                                                  replication)
             w.add(key, values)
         if pw is not None:
-            pw.finish()
+            pw.finish(publish_over=manifest_name(
+                spec.result_ns, map_key_str(job_id)) in leftovers)
         elif fence is None or fence():
+            publish_over_leftovers(spec, store, job_id, leftovers,
+                                   segment_format, replication,
+                                   skip=writers)
             for part, w in writers.items():
                 w.build(map_output_name(spec.result_ns, part, job_id))
     finally:
@@ -206,6 +223,28 @@ def publish_map_groups(spec: TaskSpec, store: Store, job_id: str,
         if pw is not None:
             pw.close()
         for w in writers.values():
+            w.close()
+
+
+def publish_over_leftovers(spec: TaskSpec, store: Store, job_id: str,
+                           leftovers: Iterable[str], segment_format: str,
+                           replication, skip=()) -> None:
+    """An empty run over each of this job's run files among
+    ``leftovers`` (an earlier iteration's, which the iteration-start
+    sweep could not remove) whose partition is not in ``skip`` (the
+    partitions the job publishes itself): every run under this job's
+    name is then this iteration's, and a partition it emits nothing to
+    reads nothing of the old file."""
+    run_re = run_name_re(spec.result_ns)
+    key = map_key_str(job_id)
+    for name in sorted(leftovers):
+        m = run_re.match(name)
+        if m is None or m.group(2) != key or int(m.group(1)) in skip:
+            continue
+        w = spill_writer(store, segment_format, replication)
+        try:
+            w.build(name)
+        finally:
             w.close()
 
 

@@ -44,7 +44,7 @@ import sys
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Dict, Iterable, Iterator, List, Optional, Tuple
 
 from lua_mapreduce_tpu_torch.core.constants import MAX_TASKFN_VALUE_SIZE
 from lua_mapreduce_tpu_torch.core.segment import (check_format,
@@ -59,7 +59,8 @@ from lua_mapreduce_tpu_torch.engine.job import (JobTimes, map_key_str,
 from lua_mapreduce_tpu_torch.engine.premerge import (SPILL_TAG,
                                                      PremergeTracker,
                                                      discover_pipelined,
-                                                     run_name_re)
+                                                     run_name_re,
+                                                     sweep_leftovers)
 from lua_mapreduce_tpu_torch.engine.push import (BufferPool,
                                                  discover_push,
                                                  ensure_canonical,
@@ -108,14 +109,17 @@ def collect_task_jobs(spec: TaskSpec) -> List[Tuple[Any, Any]]:
 _PART_RE_TMPL = r"^{ns}\.P(\d+)\.M(.+)$"
 
 
-def discover_partitions(store, result_ns: str) -> Dict[int, List[str]]:
+def discover_partitions(store, result_ns: str,
+                        ignore: Iterable[str] = ()) -> Dict[int, List[str]]:
     """Group map-output run files by partition (server.lua:291-312);
-    run files come back in sorted (= map job) order."""
+    run files come back in sorted (= map job) order. Names in ``ignore``
+    (leftovers no sweep could remove and no map published over) are not
+    read."""
     pat = re.compile(_PART_RE_TMPL.format(ns=re.escape(result_ns)))
     parts: Dict[int, List[str]] = {}
     for name in store.list(f"{result_ns}.P*.M*"):
         m = pat.match(name)
-        if m:
+        if m and name not in ignore:
             parts.setdefault(int(m.group(1)), []).append(name)
     return parts
 
@@ -415,13 +419,8 @@ class LocalExecutor:
         # every spill here is an earlier iteration's; one whose copy no
         # sweep could remove (an unreachable placement tag) keeps a name
         # this iteration neither publishes nor reads
-        pattern = f"{spec.result_ns}.P*.{SPILL_TAG}-*"
-        for name in self._view.list(pattern):
-            try:
-                self._view.remove(name)
-            except Exception:
-                pass
-        unremoved = frozenset(self._view.list(pattern))
+        unremoved = sweep_leftovers(self._view,
+                                    [f"{spec.result_ns}.P*.{SPILL_TAG}-*"])
         if unremoved:
             COUNTERS.bump("unremoved_spills", len(unremoved))
         tracker = PremergeTracker(spec.result_ns, map_keys,

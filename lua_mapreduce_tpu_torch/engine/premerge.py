@@ -55,6 +55,25 @@ def run_name_re(result_ns: str) -> "re.Pattern":
     return re.compile(_RUN_RE_TMPL.format(ns=re.escape(result_ns)))
 
 
+def sweep_leftovers(store, patterns: Iterable[str]) -> frozenset:
+    """Remove every file the glob ``patterns`` list, best effort, and
+    return the names still listed after. Under replication a remove
+    swallows a copy's failure to go (its placement tag dark) and a
+    listing names a file while any copy is left; any other failed remove
+    is swallowed here too. What comes back is an earlier iteration's data
+    under names this one may reuse: its callers neither read it nor
+    publish around it blindly (the tracker's ``avoid``, discovery's
+    ``ignore``, a map job's ``leftovers``)."""
+    patterns = list(patterns)
+    for pattern in patterns:
+        for name in store.list(pattern):
+            try:
+                store.remove(name)
+            except Exception:
+                pass
+    return frozenset(n for pattern in patterns for n in store.list(pattern))
+
+
 def spill_name(result_ns: str, part: int, a: int, b: int) -> str:
     return f"{result_ns}.P{part}.{SPILL_TAG}-{a:05d}-{b:05d}"
 
@@ -269,9 +288,11 @@ def discover_pipelined(store, result_ns: str,
     canonical lineage names are swept here, the one place every map is
     known terminal.
 
-    Spills named in ``ignore`` are an earlier iteration's copies that
-    the sweeps could not remove (the tracker's ``avoid``): never read,
-    only swept again, best effort.
+    Spills and raw runs named in ``ignore`` are an earlier iteration's
+    files that the sweeps could not remove and that no map of this
+    iteration published over (the tracker's ``avoid``; a map job
+    publishes over its own key's leftovers): never read, only swept
+    again, best effort.
     """
     order = sorted(str(k) for k in map_keys)
     ignore = frozenset(ignore)
@@ -343,6 +364,12 @@ def discover_pipelined(store, result_ns: str,
         for name in store.list(f"{result_ns}.P*.M*"):
             m = run_re.match(name)
             if not m:
+                continue
+            if name in ignore:
+                try:
+                    store.remove(name)
+                except Exception:
+                    pass
                 continue
             part, key = int(m.group(1)), m.group(2)
             p = bisect.bisect_left(order, key)

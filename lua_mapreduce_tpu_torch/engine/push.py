@@ -394,11 +394,14 @@ class PushWriter:
                                              self._lineage))
         COUNTERS.bump("push_group_stripes")
 
-    def finish(self) -> dict:
+    def finish(self, publish_over: bool = False) -> dict:
         """Publish final partial frames, build eviction tails, then the
         manifest — the lineage becomes *complete* (every named file
         exists) strictly before it can become *visible*. Returns the
-        manifest dict (promote and tests consume it)."""
+        manifest dict (promote and tests consume it). ``publish_over``:
+        the canonical manifest under this map's name is an earlier
+        iteration's that the iteration-start sweep could not remove, so
+        this one is published over it, not beside it."""
         leftovers = [(part, st) for part, st in sorted(self._parts.items())
                      if st.tail_writer is None and st.lines]
         for part, st in sorted(self._parts.items()):
@@ -433,7 +436,8 @@ class PushWriter:
             # list a live consumer already resolved (per-partition
             # spill coverage makes mixed-lineage reads consistent).
             canonical = manifest_name(self._ns, self._map_key)
-            if not reading_view(self._store, self._r).exists(canonical):
+            if publish_over or not reading_view(self._store,
+                                                self._r).exists(canonical):
                 write_manifest(self._store, canonical, man, self._r)
         self._finished = True
         return man

@@ -88,7 +88,8 @@ from lua_mapreduce_tpu_torch.engine.premerge import (SPILL_TAG,
                                                      PremergeTracker,
                                                      discover_pipelined,
                                                      parse_spill_name,
-                                                     run_name_re)
+                                                     run_name_re,
+                                                     sweep_leftovers)
 from lua_mapreduce_tpu_torch.engine.push import (INBOX_TAG, discover_push,
                                                  ensure_canonical,
                                                  manifest_files_by_part,
@@ -222,10 +223,11 @@ class Server:
         self._spec_taken_at: Dict[tuple, float] = {}  # (ns, jid) -> seen
         self._spec_scan_at: Dict[str, float] = {}     # ns -> last scan
         self._spill_repairs: Dict[str, tuple] = {}  # lost spill -> range
-        # spill names the last _clean_runs could not remove (a copy on
-        # an unreachable placement tag): older data under a name this
-        # iteration must neither publish nor read
-        self._unremoved_spills: frozenset = frozenset()
+        # run, spill, inbox and manifest names the last _clean_runs could
+        # not remove (a copy on an unreachable placement tag): older data
+        # under a name this iteration must not read, and may publish
+        # only over
+        self._unremoved: frozenset = frozenset()
         self._map_ids: Optional[Dict[str, int]] = None
         self._ingraph = None           # IngraphRunner, built in loop()
         self.spec: Optional[TaskSpec] = None
@@ -689,8 +691,7 @@ class Server:
             if n_existing:
                 self.store.drop_ns(MAP_NS)  # taskfn changed shape: restart
             self._clean_runs(store)
-            self.store.insert_jobs(
-                MAP_NS, [make_job(k, v) for k, v in jobs])
+            self.store.insert_jobs(MAP_NS, self._map_docs(jobs))
         self.store.update_task({"status": TaskStatus.MAP.value})
         # jobs AND the phase flip land before the wakeup, so a woken
         # worker's next poll finds claimable work
@@ -702,23 +703,68 @@ class Server:
         runs (``ns.P*.M*``), pipelined spills (``ns.P*.SPILL-*``) and
         push inbox fragments (``ns.P*.INBOX-*``; the ``.M*`` glob also
         takes the ``ns.PUSH.M*`` manifests, which must go: a stale
-        canonical manifest would win this iteration's publish)."""
-        for pattern in (f"{self.spec.result_ns}.P*.M*",
-                        f"{self.spec.result_ns}.P*.{SPILL_TAG}-*",
-                        f"{self.spec.result_ns}.P*.{INBOX_TAG}-*"):
-            for name in store.list(pattern):
-                store.remove(name)
-        # the sweep swallows a copy's failure to go, and a listing still
-        # names the file while any copy is left
-        self._unremoved_spills = frozenset(
-            store.list(f"{self.spec.result_ns}.P*.{SPILL_TAG}-*"))
-        if self._unremoved_spills:
-            COUNTERS.bump("unremoved_spills", len(self._unremoved_spills))
-            self._log(f"{len(self._unremoved_spills)} spill(s) could not "
-                      f"be removed; this iteration ignores their names")
+        canonical manifest would win this iteration's publish).
+
+        The sweep swallows a copy's failure to go, and a listing still
+        names the file while any copy is left: every name it leaves is
+        recorded. The tracker publishes no spill under such a name; a map
+        job whose key has one publishes over it (:meth:`_map_docs`); and
+        discovery reads none that no map published over
+        (:meth:`_stale`)."""
+        ns = self.spec.result_ns
+        self._unremoved = sweep_leftovers(store, (
+            f"{ns}.P*.M*", f"{ns}.P*.{SPILL_TAG}-*", f"{ns}.P*.{INBOX_TAG}-*"))
+        spills = sum(parse_spill_name(ns, n) is not None
+                     for n in self._unremoved)
+        if spills:
+            COUNTERS.bump("unremoved_spills", spills)
+        if len(self._unremoved) > spills:
+            COUNTERS.bump("unremoved_runs", len(self._unremoved) - spills)
+        if self._unremoved:
+            self._log(f"{len(self._unremoved)} run file(s) could not be "
+                      f"removed; this iteration reads none of them")
         # names just swept are reused by this iteration's maps with new
         # contents, which the footer cache's (name, size) key can miss
         purge_footer_cache(store)
+
+    def _map_docs(self, jobs) -> List[dict]:
+        """The map job docs of this iteration: a job whose key names
+        files the sweep could not remove — a raw run of it, its canonical
+        push manifest — carries them as ``leftovers``, and its publish
+        writes over each (engine/job.py ``publish_map_groups``)."""
+        ns = self.spec.result_ns
+        run_re = run_name_re(ns)
+        mine: Dict[str, List[str]] = {}
+        for name in sorted(self._unremoved):
+            m = run_re.match(name)
+            parsed = parse_manifest_name(ns, name)
+            key = (m.group(2) if m else
+                   parsed[0] if parsed is not None and parsed[1] is None
+                   else None)
+            if key is not None:
+                mine.setdefault(key, []).append(name)
+        docs = []
+        for i, (k, v) in enumerate(jobs):
+            doc = make_job(k, v)
+            if map_key_str(i) in mine:
+                doc["leftovers"] = mine[map_key_str(i)]
+            docs.append(doc)
+        return docs
+
+    def _stale(self, map_keys) -> frozenset:
+        """The recorded leftovers no map of this iteration published
+        over: spills (the tracker never publishes under their names) and
+        raw runs of keys this iteration has no map for."""
+        ns = self.spec.result_ns
+        run_re = run_name_re(ns)
+        keys = set(map_keys)
+        out = set()
+        for name in self._unremoved:
+            m = run_re.match(name)
+            if parse_spill_name(ns, name) is not None or (
+                    m is not None and m.group(2) not in keys):
+                out.add(name)
+        return frozenset(out)
 
     def _prepare_reduce(self, store) -> int:
         """Discover map-output partitions and insert one reduce job per
@@ -726,26 +772,24 @@ class Server:
         the PRODUCERS of its run files (server.lua:286-289), so a reduce
         that cannot see a run names the worker that wrote it."""
         self.store.drop_ns(RED_NS)
+        map_keys = [map_key_str(d["_id"]) for d in self.store.jobs(MAP_NS)]
         if self.pipeline:
             # file lists rebuilt from storage: spills in place of the
             # run ranges they consumed, tail runs raw, in the canonical
             # merge order — the same on a crash/resume, where the
             # tracker state is gone
-            map_keys = [map_key_str(d["_id"])
-                        for d in self.store.jobs(MAP_NS)]
             parts = discover_pipelined(store, self.spec.result_ns,
                                        map_keys, push=self.push,
                                        replication=self.replication,
-                                       ignore=self._unremoved_spills)
+                                       ignore=self._stale(map_keys))
         elif self.push:
             # barrier + push: inbox fragments slot in at their map's
             # canonical position through the manifest gate
-            map_keys = [map_key_str(d["_id"])
-                        for d in self.store.jobs(MAP_NS)]
             parts = discover_push(store, self.spec.result_ns, map_keys,
                                   replication=self.replication)
         else:
-            parts = discover_partitions(store, self.spec.result_ns)
+            parts = discover_partitions(store, self.spec.result_ns,
+                                        ignore=self._stale(map_keys))
         producer_by_id = {map_key_str(jid): w
                           for jid, w in self.store.job_workers(MAP_NS).items()}
         docs = []
@@ -1210,10 +1254,10 @@ class Server:
         tracker = PremergeTracker(
             ns, [map_key_str(d["_id"]) for d in self.store.jobs(MAP_NS)],
             min_runs=self.premerge_min_runs, max_runs=self.premerge_max_runs,
-            avoid=self._unremoved_spills)
+            avoid=self._unremoved)
         for name in store.list(f"{ns}.P*.{SPILL_TAG}-*"):
             parsed = parse_spill_name(ns, name)    # crash/resume leftovers
-            if parsed is not None and name not in self._unremoved_spills:
+            if parsed is not None and name not in self._unremoved:
                 tracker.note_existing_spill(*parsed, name=name)
         run_re = run_name_re(ns)
         seen_committed: set = set()

@@ -676,7 +676,8 @@ class Worker:
                                replication=self._replication(),
                                push=push_on, push_pool=pool,
                                spec_lineage=lineage,
-                               fence=self._lease_fence(MAP_NS, job))
+                               fence=self._lease_fence(MAP_NS, job),
+                               leftovers=job.get("leftovers") or ())
             times.finished = times.written = time.time()
             return times
         return run_map_job(spec, store, str(job["_id"]), job["key"],
@@ -684,7 +685,8 @@ class Worker:
                            segment_format=self._segment_format(),
                            replication=self._replication(), push=push_on,
                            push_pool=pool, spec_lineage=lineage,
-                           fence=self._lease_fence(MAP_NS, job))
+                           fence=self._lease_fence(MAP_NS, job),
+                           leftovers=job.get("leftovers") or ())
 
     def _premerge_body(self, spec: TaskSpec, job: dict) -> JobTimes:
         """Consolidate committed runs into a spill (pipelined shuffle);

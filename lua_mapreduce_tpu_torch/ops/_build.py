@@ -46,6 +46,8 @@ _SIGNATURES = {
                               _I, _I, _P],
                "lmr_matmul_splits": [_P, _P, _I, _I, _I, _L, _L, _L, _L,
                                      _I],
+               "lmr_matmul_plan": [_P, _P, _I, _I, _I, _L, _L, _L, _L, _I,
+                                   _P],
                "lmr_matmul_tma_available": []},
     "softmax": {"lmr_softmax": [_P, _P, _L, _I, _L] + [_I] * 7
                 + [_L, _P]},

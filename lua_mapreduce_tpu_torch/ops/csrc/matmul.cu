@@ -8,16 +8,18 @@
 // What bounds it on the H100: the large bf16 products (the (8192,)×4 MLP,
 // ResNet's later stages) the tensor-core rate, 989 TFLOP/s dense bf16;
 // the conv weight gradients dB = patchesᵀ·g (outputs of 75×6 to 576×64
-// over K up to 802,816) the bytes of their two operands; the digits f32
-// products (a few MFLOP) latency and launch.
+// over K up to 802,816) the bytes of their two operands; the f32
+// products of k-means and ALS ((10⁶,128)·(128,1024), (1024,10⁶)·(10⁶,128),
+// (6040,3706)·(3706,4096) and its transpose) the FP32 FMA rate, 67
+// TFLOP/s; the digits f32 products (a few MFLOP) latency and launch.
 //
 // What the design does about it:
 //  * Split-K, decided here (lmr_matmul_splits, from M, N, K, the dtype and
 //    the device's SM count): when the output tiles leave SMs idle, K is
-//    cut into equal chunks of whole 64-deep K-tiles, each (tile, chunk)
-//    block writes an f32 partial, and splitk_reduce_kernel sums the
-//    partials in split order and casts once — no atomics, so the result
-//    is bit-identical from run to run. The caller allocates the scratch.
+//    cut into equal chunks of whole K units, each (tile, chunk) block
+//    writes an f32 partial, and splitk_reduce_kernel sums the partials in
+//    split order and casts once — no atomics, so the result is
+//    bit-identical from run to run. The caller allocates the scratch.
 //  * bf16 operands that TMA can read (16-byte aligned base, unit stride
 //    along one axis, the other stride a multiple of 8 elements) take the
 //    pipelined wgmma mainloop of gemm_sm90.cuh, in any of the four
@@ -34,10 +36,48 @@
 //    span of memory: cp.async copies it in 16-byte pieces into a staging
 //    area, and the block spreads it into the tile. Anything else is read
 //    element by element, neighbouring threads on neighbouring addresses.
-//  * f32 inputs use full FP32 FMAs (never TF32) on 64×64 tiles with the
-//    same register prefetch and the same split.
+//  * f32 inputs use full FP32 FMAs, never TF32, in one of three kernels
+//    chosen by the output's shape alone (f32_path):
+//    - an output of at most F32_SMALL_MN elements (the digits step's
+//      products) takes the 64×64 kernel f32k: 256 threads, a 4×4
+//      accumulator each, the next K-tile staged in registers. Its few
+//      blocks are split along K and it is bound by latency, not by FMAs.
+//    - any other output takes f32w, a 128 × 128 tile (128 × 64 when N ≤
+//      64: ALS's (w·r)·V) with an 8×8 accumulator per thread, 256 (128)
+//      threads. Each thread's rows are ty·4..+3 and 64 + ty·4..+3, its
+//      columns tx·4..+3 and BN/2 + tx·4..+3, so every k of the tile
+//      costs it four 16-byte shared loads (two of A, two of B) for 64
+//      FMAs. The loads are conflict-free: lanes of one quarter-warp read
+//      either one address (A: they share ty) or eight consecutive 16-byte
+//      words (B).
+//    - f32w's operands reach shared memory only through cp.async, in a
+//      ring of F32_STAGES K-tiles of F32_BK (tiles t + 1 and t + 2 are in
+//      flight while tile t is computed; one barrier per tile; on the card
+//      neither a fourth stage nor 32-deep tiles helped). Both tiles are
+//      kept with the output's axis contiguous, As[k][m] and Bs[k][n],
+//      row pitch + F32_PAD floats. How a tile gets there is chosen per
+//      operand from its layout (copy_mode): in place in 16-byte pieces
+//      when its M (or N) axis has unit stride and the rows are 16-byte
+//      aligned (one_hotᵀ, x as B, V⊗V); in 8-byte pieces when they are
+//      only 8-byte aligned (ALS's Wᵀ, whose 3,706-float rows are not
+//      16-byte aligned); element by element, transposed on the way in,
+//      when K has the unit stride (x and W as A, cᵀ and Vᵀ as B): each
+//      warp copies 8 consecutive k of 4 rows, so the global reads are 4
+//      full 32-byte sectors and the pitch of 132 puts the 32 writes in
+//      32 banks (4k + m). (A k-pair layout filled in 8-byte pieces, which
+//      halves those copies, measured slower on the card.) Ragged edges
+//      come back as zeros from cp.async's zero fill; nothing is staged
+//      through registers.
+//    - f32w's epilogue writes each thread's runs of 4 columns as one
+//      16-byte store (8 bytes in bf16), a warp covering 256 contiguous
+//      bytes of a row, masked at the ragged edge; split-K partials keep
+//      the output's layout. The split counts the blocks resident per SM
+//      from the kernel's registers and shared memory (the occupancy
+//      query) at F32W_FFMA_RATE, the rate the kernel reaches on the
+//      card, so one_hotᵀ·x's 8 output tiles are split 33 ways to put a
+//      block in each of the 264 resident slots of 132 SMs.
 //  * Nothing is padded: ragged edges are masked in the loads (or come
-//    back as zeros from TMA) and at the store.
+//    back as zeros from TMA and cp.async) and at the store.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -79,12 +119,24 @@ __global__ void splitk_reduce_kernel(const float* __restrict__ Part, void* C,
 }
 
 // ---------------------------------------------------------------- f32 path
-// 64×64 output tile, BK=16, 256 threads, each thread a 4×4 micro-tile;
-// the next K-tile's 4 + 4 elements per thread are loaded into registers
-// before the current tile is computed.
+
+// the f32 kernels' tiles
+#define F32_SMALL_TILE 64
+#define F32_SMALL_MN 32768
+#define F32_BM 128
+#define F32_BN 128
+#define F32_BN_NARROW 64
+#define F32_BK 16
+#define F32_STAGES 3
+#define F32_PAD 4
+
+// The small kernel: 64×64 output tile, BK=16, 256 threads, each thread a
+// 4×4 micro-tile; the next K-tile's 4 + 4 elements per thread are loaded
+// into registers before the current tile is computed.
 
 namespace f32k {
-constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4, NT = 256;
+constexpr int BM = F32_SMALL_TILE, BN = F32_SMALL_TILE, BK = 16, TM = 4,
+              TN = 4, NT = 256;
 constexpr int EA = BM * BK / NT, EB = BK * BN / NT;
 
 __global__ void __launch_bounds__(NT)
@@ -177,6 +229,314 @@ matmul_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
   }
 }
 }  // namespace f32k
+
+// The wide kernels (the source note): BM × BN tiles, an 8×8 accumulator
+// per thread, operands through a cp.async ring, 16-byte stores.
+
+namespace f32w {
+constexpr int BK = F32_BK, STAGES = F32_STAGES, PAD = F32_PAD;
+
+// How an operand's K-tile reaches shared memory (copy_mode): in 16- or
+// 8-byte pieces along its tile axis, element by element along it, or
+// element by element along K.
+enum Copy { V16 = 0, V8 = 1, E4C = 2, E4K = 3 };
+
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         int bytes, int size) {
+  const uint32_t d = sm90::smem_u32(dst);
+  if (size == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
+                 "l"(src), "r"(bytes) : "memory");
+  else if (size == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(d),
+                 "l"(src), "r"(bytes) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d),
+                 "l"(src), "r"(bytes) : "memory");
+}
+
+// One operand's K-tiles into a slot S[k][c] of the ring (pitch LD =
+// COLS + PAD): element (k, c) of the operand is P[k·sk + c·sc], valid for
+// k < K and c < CN, zero elsewhere (a copy of 0 source bytes fills zeros
+// and reads nothing; its address is then P). Each thread's copies j =
+// 0..J-1 of a tile are at (kb + j·DK, cb + j·DC):
+//  * V16 / V8 / E4C: consecutive threads take consecutive 4-, 2- or
+//    1-float pieces of a k row, so a warp writes one run of shared memory
+//    and reads one run of global memory along the tile's axis.
+//  * E4K (K has the unit stride): a warp takes 8 consecutive k (fastest)
+//    of 4 rows, so its reads are 4 full 32-byte sectors; its writes, at
+//    words k·LD + c with LD ≡ 4 (mod 32), fall in banks 4k + c: all 32
+//    once (the transpose on the way in).
+template <int COLS, int NT, int MODE>
+struct Loader {
+  static constexpr int W = MODE == V16 ? 4 : MODE == V8 ? 2 : 1;
+  static constexpr int LD = COLS + PAD;
+  static constexpr int J = BK * COLS / W / NT;
+  static constexpr int KG = BK / 8;          // E4K: 8-deep k groups a tile
+  static constexpr int DK = MODE == E4K ? 0 : NT / (COLS / W);
+  static constexpr int DC = MODE == E4K ? 4 * (NT / 32) / KG : 0;
+  static_assert(BK * COLS % (W * NT) == 0, "a K-tile is whole rounds");
+  static_assert(LD % 32 == 4, "E4K's writes and the fragment reads");
+  static_assert(MODE == E4K ? (NT / 32) % KG == 0
+                            : NT % (COLS / W) == 0, "copies in a line");
+  const float* p;       // element (kb, c0 + cb) of the operand
+  long long sk, sc;
+  int kb, cb, c0;
+
+  __device__ __forceinline__ Loader(const float* P, int c0_, long long sk_,
+                                    long long sc_)
+      : sk(sk_), sc(sc_), c0(c0_) {
+    const int tid = threadIdx.x;
+    if (MODE == E4K) {
+      kb = tid % 8 + 8 * ((tid / 32) % KG);
+      cb = 4 * ((tid / 32) / KG) + (tid / 8) % 4;
+    } else {
+      kb = tid / (COLS / W);
+      cb = (tid % (COLS / W)) * W;
+    }
+    p = P + (long long)kb * sk + (long long)(c0 + cb) * sc;
+  }
+
+  // issue the copies of the tile at k0 into S
+  __device__ __forceinline__ void issue(float* S, const float* P, int k0,
+                                        int K, int CN) const {
+    const float* q = p + (long long)k0 * sk;
+    const int kl = K - k0 - kb, cl = CN - c0 - cb;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      int n = cl - j * DC;          // floats to read
+      n = kl > j * DK ? (n < 0 ? 0 : n > W ? W : n) : 0;
+      const float* src =
+          n > 0 ? q + (long long)(j * DK) * sk + (long long)(j * DC) * sc
+                : P;
+      cp_async(S + (kb + j * DK) * LD + cb + j * DC, src, n * 4, W * 4);
+    }
+  }
+};
+
+// A thread's fragments of k steps k0 and k0 + 1: its 8 rows of A, ty·4 +
+// (0..3) and BM/2 + ty·4 + (0..3), or its 8 columns of B, tx·4 + (0..3)
+// and BN/2 + tx·4 + (0..3); four 16-byte reads. A's lanes of one
+// quarter-warp share ty (one address), B's read 8 consecutive 16-byte
+// words: no read has a bank conflict.
+template <int COLS>
+__device__ __forceinline__ void fragments(const float* S, int k0, int t,
+                                          float* f0, float* f1) {
+  constexpr int LD = COLS + PAD;
+  const float* s0 = S + k0 * LD + t * 4;
+  const float4 x0 = *reinterpret_cast<const float4*>(s0);
+  const float4 x1 = *reinterpret_cast<const float4*>(s0 + COLS / 2);
+  const float4 y0 = *reinterpret_cast<const float4*>(s0 + LD);
+  const float4 y1 = *reinterpret_cast<const float4*>(s0 + LD + COLS / 2);
+  f0[0] = x0.x; f0[1] = x0.y; f0[2] = x0.z; f0[3] = x0.w;
+  f0[4] = x1.x; f0[5] = x1.y; f0[6] = x1.z; f0[7] = x1.w;
+  f1[0] = y0.x; f1[1] = y0.y; f1[2] = y0.z; f1[3] = y0.w;
+  f1[4] = y1.x; f1[5] = y1.y; f1[6] = y1.z; f1[7] = y1.w;
+}
+
+// four consecutive outputs from a 16-byte aligned `off` (8 bytes in bf16)
+__device__ __forceinline__ void put4(void* C, bool out_f32, float* Part,
+                                     long long off, const float (&v)[8],
+                                     int j) {
+  const float4 x = make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+  if (Part != nullptr) {
+    *reinterpret_cast<float4*>(Part + off) = x;
+  } else if (out_f32) {
+    *reinterpret_cast<float4*>(static_cast<float*>(C) + off) = x;
+  } else {
+    __nv_bfloat162 lo = __floats2bfloat162_rn(v[j], v[j + 1]);
+    __nv_bfloat162 hi = __floats2bfloat162_rn(v[j + 2], v[j + 3]);
+    uint2 w;
+    w.x = *reinterpret_cast<uint32_t*>(&lo);
+    w.y = *reinterpret_cast<uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(static_cast<bf16*>(C) + off) = w;
+  }
+}
+
+template <int BM, int BN>
+struct Tile {
+  static constexpr int NT = (BM / 8) * (BN / 8);
+  static constexpr int LDA = BM + PAD, LDB = BN + PAD;
+  static constexpr int SMEM = STAGES * BK * (LDA + LDB) * (int)sizeof(float);
+};
+
+template <int BM, int BN, int AMODE, int BMODE>
+__global__ void __launch_bounds__(Tile<BM, BN>::NT,
+                                  512 / Tile<BM, BN>::NT)
+matmul_f32_wide(const float* __restrict__ A, const float* __restrict__ B,
+                void* C, bool out_f32, float* Part, int M, int N, int K,
+                long long sam, long long sak, long long sbk, long long sbn,
+                int kt_per) {
+  constexpr int NT = Tile<BM, BN>::NT, LDA = Tile<BM, BN>::LDA,
+                LDB = Tile<BM, BN>::LDB, TX = BN / 8;
+  extern __shared__ __align__(16) float wide_smem[];
+  float* As = wide_smem;                       // STAGES slots of BK·LDA
+  float* Bs = wide_smem + STAGES * BK * LDA;   // STAGES slots of BK·LDB
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int kt_all = (K + BK - 1) / BK, kt0 = blockIdx.z * kt_per;
+  const int nkt = kt_per < kt_all - kt0 ? kt_per : kt_all - kt0;
+  const Loader<BM, NT, AMODE> la(A, m0, sak, sam);
+  const Loader<BN, NT, BMODE> lb(B, n0, sbk, sbn);
+
+  // tile t's copies, one commit group per tile (empty past the end, so
+  // the group count tells which tiles have landed)
+  auto issue = [&](int t) {
+    if (t < nkt) {
+      const int s = t % STAGES, k0 = (kt0 + t) * BK;
+      la.issue(As + s * BK * LDA, A, k0, K, M);
+      lb.issue(Bs + s * BK * LDB, B, k0, K, N);
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  for (int t = 0; t < STAGES - 1; ++t) issue(t);
+  for (int t = 0; t < nkt; ++t) {
+    // tile t has landed for every thread, and every thread is done with
+    // tile t - 1, whose slot the next issue refills
+    asm volatile("cp.async.wait_group %0;" ::"n"(STAGES - 2) : "memory");
+    __syncthreads();
+    issue(t + STAGES - 1);
+    const float* as = As + (t % STAGES) * BK * LDA;
+    const float* bs = Bs + (t % STAGES) * BK * LDB;
+#pragma unroll
+    for (int k = 0; k < BK; k += 2) {
+      float a0[8], a1[8], b0[8], b1[8];
+      fragments<BM>(as, k, ty, a0, a1);
+      fragments<BN>(bs, k, tx, b0, b1);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a0[i], b0[j], acc[i][j]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a1[i], b1[j], acc[i][j]);
+    }
+  }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+
+  // C and Part are fresh contiguous (M, N) buffers: a run of 4 outputs
+  // starting at a column multiple of 4 is 16-byte aligned when N is a
+  // multiple of 4. A warp's stores of one run cover 256 contiguous bytes
+  // of each of 2 rows (128 bytes of each of 4 in the 128 × 64 tile).
+  float* part = gridDim.z > 1 ? Part + (long long)blockIdx.z * M * N : nullptr;
+  const bool vec = N % 4 == 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int gm = m0 + ty * 4 + (i & 3) + (i >> 2) * (BM / 2);
+    if (gm >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 8; j += 4) {
+      const int gn = n0 + tx * 4 + (j / 4) * (BN / 2);
+      const long long off = (long long)gm * N + gn;
+      if (vec && gn + 4 <= N) {
+        put4(C, out_f32, part, off, acc[i], j);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (gn + e < N) put(C, out_f32, part, off + e, acc[i][j + e]);
+      }
+    }
+  }
+}
+
+// the copy mode of an operand whose tile axis c (M of A, N of B) has
+// stride sc and whose K axis has stride sk (the source note)
+static int copy_mode(const void* p, long long sc, long long sk) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  if (sc == 1) {
+    if (a % 16 == 0 && sk % 4 == 0) return V16;
+    if (a % 8 == 0 && sk % 2 == 0) return V8;
+    return E4C;
+  }
+  return sk < sc ? E4K : E4C;
+}
+
+// Every instantiation of the kernel for a tile shape, by copy modes: the
+// mode pair is a template argument, so each kernel carries the address
+// arithmetic of its own layouts only.
+template <int BM, int BN>
+struct Kernels {
+  using Fn = void (*)(const float*, const float*, void*, bool, float*, int,
+                      int, int, long long, long long, long long, long long,
+                      int);
+  template <int AM>
+  static Fn row(int bm) {
+    return bm == V16 ? matmul_f32_wide<BM, BN, AM, V16>
+         : bm == V8 ? matmul_f32_wide<BM, BN, AM, V8>
+         : bm == E4C ? matmul_f32_wide<BM, BN, AM, E4C>
+         : matmul_f32_wide<BM, BN, AM, E4K>;
+  }
+  static Fn of(int am, int bm) {
+    return am == V16 ? row<V16>(bm) : am == V8 ? row<V8>(bm)
+         : am == E4C ? row<E4C>(bm) : row<E4K>(bm);
+  }
+};
+
+// each instantiation's shared-memory limit, set once per device
+template <int BM, int BN>
+static int prepare(int dev) {
+  static bool done[64];
+  static std::mutex mu;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(mu);
+  if (!done[dev]) {
+    for (int am = 0; am < 4; ++am)
+      for (int bm = 0; bm < 4; ++bm) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            Kernels<BM, BN>::of(am, bm),
+            cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<BM, BN>::SMEM);
+        if (e != cudaSuccess) return static_cast<int>(e);
+
+      }
+    done[dev] = true;
+  }
+  return 0;
+}
+
+// blocks of the tile shape's kernels resident on one SM of device dev,
+// from their registers and shared memory: the fewest over the
+// instantiations (0: the query failed)
+template <int BM, int BN>
+static int resident(int dev) {
+  if (prepare<BM, BN>(dev) != 0) return 0;
+  int least = 1 << 30;
+  for (int am = 0; am < 4; ++am)
+    for (int bm = 0; bm < 4; ++bm) {
+      int n = 0;
+      if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+              &n, Kernels<BM, BN>::of(am, bm), Tile<BM, BN>::NT,
+              Tile<BM, BN>::SMEM) != cudaSuccess)
+        return 0;
+      if (n < least) least = n;
+    }
+  return least;
+}
+
+template <int BM, int BN>
+static int launch(const float* A, const float* B, void* C, bool out_f32,
+                  float* part, int M, int N, int K, long long sam,
+                  long long sak, long long sbk, long long sbn, int splits,
+                  int kt_per, cudaStream_t s) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int rc = prepare<BM, BN>(dev);
+  if (rc != 0) return rc;
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
+  Kernels<BM, BN>::of(copy_mode(A, sam, sak), copy_mode(B, sbn, sbk))
+      <<<grid, Tile<BM, BN>::NT, Tile<BM, BN>::SMEM, s>>>(
+          A, B, C, out_f32, part, M, N, K, sam, sak, sbk, sbn, kt_per);
+  return 0;
+}
+}  // namespace f32w
 
 // ------------------------------------------------- bf16, general layouts
 // 128 × BN output tile, BK=32, 8 warps; each warp 16·FM × 32 with WMMA
@@ -535,8 +895,16 @@ static int tile_m(int M, int N) {
 
 static long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
 
-// Which kernel a product runs, from its dtype and its operands' layout.
-enum Path { PATH_F32 = 0, PATH_TMA = 1, PATH_GENERAL = 2 };
+// Which kernel a product runs: for f32 from the output's shape alone,
+// for bf16 from the operands' layout. The values are lmr_matmul_plan's
+// kernel codes.
+enum Path { PATH_F32 = 0, PATH_F32_WIDE = 1, PATH_F32_NARROW = 2,
+            PATH_TMA = 3, PATH_GENERAL = 4 };
+
+static int f32_path(int M, int N) {
+  if ((long long)M * N <= F32_SMALL_MN) return PATH_F32;
+  return N <= F32_BN_NARROW ? PATH_F32_NARROW : PATH_F32_WIDE;
+}
 
 struct Layouts {
   bool a_m, b_n;   // TMA path: A M-major (else K-major), B N-major
@@ -545,7 +913,7 @@ struct Layouts {
 static int choose_path(const void* a, const void* b, int M, int N, int K,
                        long long sam, long long sak, long long sbk,
                        long long sbn, int dtype, Layouts* lay) {
-  if (dtype == DT_F32) return PATH_F32;
+  if (dtype == DT_F32) return f32_path(M, N);
   // TMA reads A K-major (sak == 1) or M-major (sam == 1), B N-major
   // (sbn == 1) or K-major (sbk == 1)
   const bool a_k = sm90::tma_ok(a, sak, sam, K, M, 2);
@@ -559,7 +927,8 @@ static int choose_path(const void* a, const void* b, int M, int N, int K,
 }
 
 // K is cut in units of 64 (bf16: one wgmma K-tile, two of the general
-// kernel's) or 16 (f32: one K-tile). A small cost model picks the split:
+// kernel's) or 16 (f32: one K-tile). For every kernel but f32w (below) a
+// small cost model picks the split:
 // per block, the K units it walks, each costing the larger of its math
 // (the tensor cores at 60% of one SM's share of the card's peak for the
 // wgmma kernel, 30% for the WMMA one; FP32 FMA at 50%), its operand
@@ -614,6 +983,45 @@ static int plan_uncached(int M, int N, int K, int dtype, int path, int sms,
   return best_s;
 }
 
+// f32w's FMA rate on the whole card, per second: what the 128 × 128
+// kernel reaches on an H100 SXM at 700 W where nothing but its FMAs
+// bounds it, one_hotᵀ·x (2.6·10¹¹ FLOP in 5.9 ms, chip_smoke.py phase 2)
+constexpr double F32W_FFMA_RATE = 44e12;
+
+// The split of an f32w product whose BM × bn tiles fit per_sm to an SM.
+// A block's K unit (one F32_BK tile) takes its 2·BM·bn·F32_BK FLOP at its
+// share of the SM's rate — the SM's 1/sms of F32W_FFMA_RATE, divided
+// among per_sm blocks — or its operand bytes at its share of 3 TB/s,
+// whichever is longer; a block adds ~3 µs of pipeline fill and
+// epilogue; the blocks run in waves of sms·per_sm; a split adds its f32
+// partials written and read back and the reduce launch. Ties go to
+// fewer splits.
+static int plan_f32_wide(int M, int N, int K, int bn, int per_sm, int sms,
+                         int* chunk) {
+  const long long units = cdiv(K, F32_BK);
+  *chunk = static_cast<int>(units);
+  if (units <= 1) return 1;
+  const double slots = (double)sms * per_sm;
+  const double tiles = (double)cdiv(M, F32_BM) * cdiv(N, bn);
+  double t_unit = 2.0 * F32_BM * bn * F32_BK / (F32W_FFMA_RATE / slots);
+  const double t_bytes = (double)F32_BK * (F32_BM + bn) * 4 / (3e12 / slots);
+  if (t_bytes > t_unit) t_unit = t_bytes;
+  double best = 1e30;
+  int best_s = 1;
+  for (long long s = 1; s <= units && s <= 8 * sms; ++s) {
+    const long long c = cdiv(units, s);
+    if (cdiv(units, c) != s) continue;     // the same split as a smaller s
+    double t = std::ceil(tiles * s / slots) * (c * t_unit + 3e-6);
+    if (s > 1) t += 2.0 * s * (double)M * N * 4 / 3e12 + 3e-6;
+    if (t < 0.97 * best) {
+      best = t;
+      best_s = static_cast<int>(s);
+      *chunk = static_cast<int>(c);
+    }
+  }
+  return best_s;
+}
+
 // plan_uncached, remembered per device, path and shape: a training step
 // asks for the same few dozen products again and again
 static int plan_split(int M, int N, int K, int dtype, int path, int* chunk) {
@@ -623,7 +1031,7 @@ static int plan_split(int M, int N, int K, int dtype, int path, int* chunk) {
   static std::mutex mu;
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
-  const int key = dtype * 4 + path;
+  const int key = dtype * 8 + path;
   const unsigned h = ((unsigned)M * 73856093u) ^ ((unsigned)N * 19349663u) ^
                      ((unsigned)K * 83492791u) ^ ((unsigned)(dev * 8 + key));
   std::lock_guard<std::mutex> lock(mu);
@@ -638,7 +1046,17 @@ static int plan_split(int M, int N, int K, int dtype, int path, int* chunk) {
                              dev) != cudaSuccess)
     return 0;
   if (sms_of[dev] <= 0) return 0;
-  const int splits = plan_uncached(M, N, K, dtype, path, sms_of[dev], chunk);
+  int splits;
+  if (path == PATH_F32_WIDE || path == PATH_F32_NARROW) {
+    const bool wide = path == PATH_F32_WIDE;
+    const int per_sm = wide ? f32w::resident<F32_BM, F32_BN>(dev)
+                            : f32w::resident<F32_BM, F32_BN_NARROW>(dev);
+    if (per_sm <= 0) return 0;
+    splits = plan_f32_wide(M, N, K, wide ? F32_BN : F32_BN_NARROW, per_sm,
+                           sms_of[dev], chunk);
+  } else {
+    splits = plan_uncached(M, N, K, dtype, path, sms_of[dev], chunk);
+  }
   e = Entry{dev, M, N, K, key, splits, *chunk};
   return splits;
 }
@@ -660,6 +1078,26 @@ int lmr_matmul_splits(const void* a, const void* b, int M, int N, int K,
   return plan_split(M, N, K, dtype, path, &chunk);
 }
 
+// What lmr_matmul runs for this product on the current device: plan[0]
+// the kernel (a Path), plan[1] the split (0: the device could not be
+// queried), plan[2] the chunk in K units, plan[3] and plan[4] how A's and
+// B's tiles reach shared memory (f32w's Copy; -1 for the other kernels).
+int lmr_matmul_plan(const void* a, const void* b, int M, int N, int K,
+                    long long sam, long long sak, long long sbk,
+                    long long sbn, int dtype, int* plan) {
+  Layouts lay;
+  const int path = choose_path(a, b, M, N, K, sam, sak, sbk, sbn, dtype,
+                               &lay);
+  int chunk = 0;
+  const bool wide = path == PATH_F32_WIDE || path == PATH_F32_NARROW;
+  plan[0] = path;
+  plan[1] = plan_split(M, N, K, dtype, path, &chunk);
+  plan[2] = chunk;
+  plan[3] = wide ? f32w::copy_mode(a, sam, sak) : -1;
+  plan[4] = wide ? f32w::copy_mode(b, sbn, sbk) : -1;
+  return 0;
+}
+
 // Returns cudaGetLastError() after the launches (0 = launched).
 int lmr_matmul(const void* a, const void* b, void* c, void* part, int M,
                int N, int K, long long sam, long long sak, long long sbk,
@@ -678,11 +1116,23 @@ int lmr_matmul(const void* a, const void* b, void* c, void* part, int M,
     return cudaErrorInvalidValue;
   float* P = static_cast<float*>(part);
   float* kpart = splits > 1 ? P : nullptr;
-  if (in_dtype == DT_F32) {
+  if (path == PATH_F32) {
     dim3 grid(cdiv(N, f32k::BN), cdiv(M, f32k::BM), splits);
     f32k::matmul_f32_kernel<<<grid, f32k::NT, 0, s>>>(
         static_cast<const float*>(a), static_cast<const float*>(b), c,
         out_f32, kpart, M, N, K, sam, sak, sbk, sbn, chunk);
+  } else if (path == PATH_F32_WIDE || path == PATH_F32_NARROW) {
+    const float* A = static_cast<const float*>(a);
+    const float* B = static_cast<const float*>(b);
+    const int rc =
+        path == PATH_F32_WIDE
+            ? f32w::launch<F32_BM, F32_BN>(A, B, c, out_f32, kpart, M, N, K,
+                                           sam, sak, sbk, sbn, splits,
+                                           chunk, s)
+            : f32w::launch<F32_BM, F32_BN_NARROW>(A, B, c, out_f32, kpart,
+                                                  M, N, K, sam, sak, sbk,
+                                                  sbn, splits, chunk, s);
+    if (rc != 0) return rc;
   } else {
     const bf16* A = static_cast<const bf16*>(a);
     const bf16* B = static_cast<const bf16*>(b);

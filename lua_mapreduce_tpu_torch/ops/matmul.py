@@ -2,10 +2,13 @@
 version.
 
 Port of ``lua_mapreduce_tpu/ops/matmul.py``: the Pallas ``_matmul_kernel``
-becomes ``csrc/matmul.cu`` (a split-K scheduler over a pipelined
-TMA + wgmma mainloop shared with q8, ``csrc/gemm_sm90.cuh``, and a
-general kernel for layouts TMA cannot read; its source note says what
-bounds it and what the design does about it), and the custom VJP
+becomes ``csrc/matmul.cu`` (a split-K scheduler over, in bf16, a
+pipelined TMA + wgmma mainloop shared with q8, ``csrc/gemm_sm90.cuh``,
+and a general kernel for layouts TMA cannot read; in f32, full FP32 FMA
+kernels: 128-wide tiles fed by a cp.async ring, or a 64×64 tile for the
+digits step's small products; its source note says what bounds it and
+what the design does about it; :func:`matmul_kernel_plan` says which
+kernel and split a product takes), and the custom VJP
 ``_mm_bwd`` becomes :class:`_MatMul`, whose backward runs dA = g·Bᵀ and
 dB = Aᵀ·g through the same kernel. The transposes are stride views, not
 copies: the kernel reads its operands through (row, col) strides.
@@ -18,15 +21,25 @@ copy of the narrower operand), which is what the JAX op computes too.
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
 from lua_mapreduce_tpu_torch.ops import _build, count_launch, device_kind
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
-_TILE_M = {torch.float32: 64, torch.bfloat16: 128}   # csrc/matmul.cu BM
+# the shortest tile of each dtype's kernels in csrc/matmul.cu (f32:
+# F32_SMALL_TILE and F32_BM; bf16: BM): M rides grid.y in every kernel,
+# so this bounds the rows any of them takes
+_TILE_M = {torch.float32: 64, torch.bfloat16: 128}
 _MAX_GRID_Y = 65535
+# lmr_matmul_plan's codes: the kernel (csrc/matmul.cu's Path) and how a
+# wide f32 kernel copies an operand's tiles (f32w::Copy: 16- or 8-byte
+# pieces in place, elements along the tile's axis, elements along K)
+KERNEL_NAMES = ("f32 64x64", "f32 128x128", "f32 128x64", "bf16 tma",
+                "bf16 general")
+COPY_NAMES = ("v16", "v8", "e4c", "e4k")
 _SPLITS = {}    # lmr_matmul_splits' answers, by device, product and layout
 
 
@@ -36,6 +49,31 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor,
     (f32 accumulation), one cast to ``out_dtype``."""
     out_dtype = out_dtype or torch.promote_types(a.dtype, b.dtype)
     return torch.matmul(a.float(), b.float()).to(out_dtype)
+
+
+class MatmulPlan(NamedTuple):
+    kernel: str              # a KERNEL_NAMES entry
+    splits: int              # K split (1: none)
+    chunk: int               # K units (16 f32, 64 bf16) per split
+    a_copy: Optional[str]    # a COPY_NAMES entry for the wide f32 kernels
+    b_copy: Optional[str]
+
+
+def matmul_kernel_plan(a: torch.Tensor, b: torch.Tensor) -> MatmulPlan:
+    """The kernel, split and copy modes ``csrc/matmul.cu`` takes for
+    ``a @ b`` (CUDA tensors of one dtype) on their device."""
+    lib = _build.library("matmul")
+    plan = (ctypes.c_int * 5)()
+    with torch.cuda.device(a.device):
+        lib.lmr_matmul_plan(a.data_ptr(), b.data_ptr(), a.shape[0],
+                            b.shape[1], a.shape[1], *a.stride(),
+                            *b.stride(), _CODES[a.dtype], plan)
+    if plan[1] < 1:
+        raise RuntimeError("matmul kernel: the device could not be queried "
+                           "for its split policy")
+    return MatmulPlan(KERNEL_NAMES[plan[0]], plan[1], plan[2],
+                      COPY_NAMES[plan[3]] if plan[3] >= 0 else None,
+                      COPY_NAMES[plan[4]] if plan[4] >= 0 else None)
 
 
 def matmul_cuda(a: torch.Tensor, b: torch.Tensor,

@@ -15,7 +15,9 @@ import pytest
 import torch
 
 from lua_mapreduce_tpu_torch import ops
-from lua_mapreduce_tpu_torch.ops.matmul import matmul_cuda, matmul_plain
+from lua_mapreduce_tpu_torch.ops.matmul import (matmul_cuda,
+                                                matmul_kernel_plan,
+                                                matmul_plain)
 from lua_mapreduce_tpu_torch.ops.softmax import (REGS_MAX_N,
                                                  log_softmax_plain,
                                                  rowwise_softmax_cuda,
@@ -243,22 +245,45 @@ def test_cuda_tensors_launch_kernels_and_count(cuda):
 
 
 def test_matmul_split_policy_lives_in_the_kernel_source(cuda):
-    """csrc/matmul.cu decides the K split; the wrapper only sizes the
-    scratch."""
+    """csrc/matmul.cu decides the kernel and the K split; the wrapper only
+    sizes the scratch. The f32 plan picks its kernel by the output's
+    shape, and splits one_hotᵀ·x's 8 output tiles enough to fill every
+    SM."""
+    import ctypes
+
     from lua_mapreduce_tpu_torch.ops import _build
     lib = _build.library("matmul")
     assert lib.lmr_matmul_tma_available() == 1
 
-    def splits(m, k, n, dtype, ta=False):
+    def plan(m, k, n, dtype, ta=False):
         # contiguous B (k, n); A (m, k) contiguous or, with ta, the .t()
-        # view of a contiguous (k, m) (patchesᵀ); 16-byte aligned
+        # view of a contiguous (k, m) (patchesᵀ, one_hotᵀ); 16-byte aligned
         sa = (1, m) if ta else (k, 1)
-        return lib.lmr_matmul_splits(256, 256, m, n, k, *sa, n, 1, dtype)
+        out = (ctypes.c_int * 5)()
+        lib.lmr_matmul_plan(256, 256, m, n, k, *sa, n, 1, dtype, out)
+        assert out[1] == lib.lmr_matmul_splits(256, 256, m, n, k, *sa, n, 1,
+                                               dtype)
+        return list(out)
+
+    def splits(*args, **kw):
+        return plan(*args, **kw)[1]
     for dtype in (0, 1):                            # f32, bf16
         assert splits(75, 802816, 6, dtype, ta=True) > 1
         assert splits(576, 100352, 64, dtype, ta=True) > 1
         assert splits(4096, 4096, 4096, dtype) == 1
         assert splits(8, 8, 8, dtype) == 1
+    # f32 kernels (csrc/matmul.cu's Path): 0 the 64×64 tile, 1 128×128,
+    # 2 128×64; by shape alone
+    assert plan(200, 256, 128, 0)[0] == 0           # digits
+    assert plan(75, 802816, 6, 0, ta=True)[0] == 0
+    assert plan(576, 100352, 64, 0, ta=True)[0] == 2
+    assert plan(4096, 4096, 4096, 0)[0] == 1
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    kind, n_split, chunk, a_copy, b_copy = plan(1024, 1000000, 128, 0,
+                                                ta=True)
+    assert (kind, a_copy, b_copy) == (1, 0, 0)      # 128×128, 16-byte copies
+    assert 8 * n_split >= sms and n_split * chunk * 16 >= 1000000
+    assert plan(6040, 3706, 4096, 0)[1] == 1        # ALS: tiles fill it
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -270,6 +295,121 @@ def test_matmul_split_is_bitwise_repeatable(cuda, dtype, m, k, n):
     first = matmul_cuda(a, b, dtype)
     for _ in range(2):
         assert torch.equal(matmul_cuda(a, b, dtype), first)
+
+
+def _f32_operand(gen, rows, cols, layout, scale):
+    """An f32 (rows, cols) operand: "contiguous"; "pitch2", rows 2 floats
+    longer than they are wide (a pitch ≡ 2 mod 4, 8-byte aligned rows,
+    like ALS's 3,706); "offset", one float past a 16-byte boundary."""
+    if layout == "contiguous":
+        return _randn(gen, rows, cols, scale=scale)
+    if layout == "pitch2":
+        return _randn(gen, rows, cols + 2 + (-cols) % 4,
+                      scale=scale)[:, :cols]
+    return _randn(gen, rows * cols + 1, scale=scale)[1:].view(rows, cols)
+
+
+def _copy_mode(x, tile_axis):
+    """How the wide f32 kernels copy operand ``x`` whose tile axis (M of
+    A: 0, N of B: 1) is ``tile_axis`` (csrc/matmul.cu's copy_mode)."""
+    sc, sk = x.stride(tile_axis), x.stride(1 - tile_axis)
+    if sc == 1:
+        if x.data_ptr() % 16 == 0 and sk % 4 == 0:
+            return "v16"
+        if x.data_ptr() % 8 == 0 and sk % 2 == 0:
+            return "v8"
+        return "e4c"
+    return "e4k" if sk < sc else "e4c"
+
+
+@pytest.mark.parametrize("m,k,n,kernel", [
+    (100, 70, 50, "f32 64x64"),
+    (300, 70, 200, "f32 128x128"), (257, 129, 131, "f32 128x128"),
+    (1000, 333, 64, "f32 128x64"), (1300, 1000, 40, "f32 128x64")])
+@pytest.mark.parametrize("ta,tb", [(False, False), (True, False),
+                                   (False, True), (True, True)])
+@pytest.mark.parametrize("layout", ["contiguous", "pitch2", "offset"])
+def test_matmul_f32_kernels_match_plain(cuda, m, k, n, kernel, ta, tb,
+                                        layout):
+    """Every f32 kernel, ragged in M, N and K, in the four major-ness
+    combinations and through every copy mode of the wide kernels: 16-byte
+    pieces (contiguous, along M or N), 8-byte (pitch2), elements along K
+    (a K-major operand) or along the tile's axis (offset)."""
+    sc = k ** -0.25
+    a = _f32_operand(cuda, *((k, m) if ta else (m, k)), layout, sc)
+    b = _f32_operand(cuda, *((n, k) if tb else (k, n)), layout, sc)
+    a, b = (a.t() if ta else a), (b.t() if tb else b)
+    plan = matmul_kernel_plan(a, b)
+    assert plan.kernel == kernel
+    if kernel != "f32 64x64":
+        assert (plan.a_copy, plan.b_copy) == (_copy_mode(a, 0),
+                                              _copy_mode(b, 1))
+    for out in (torch.float32, torch.bfloat16):
+        got = matmul_cuda(a, b, out)
+        assert got.dtype == out and got.is_contiguous()
+        torch.testing.assert_close(got.float(),
+                                   matmul_plain(a, b, out).float(),
+                                   **(F32 if out == torch.float32 else BF16))
+
+
+def test_matmul_f32_als_pitch_takes_its_copies(cuda):
+    """ALS's W (users, 3,706): rows not 16-byte aligned. W·B reads W
+    along K element by element, Wᵀ·B in 8-byte pieces; both match the
+    plain version."""
+    w = (torch.rand((600, 3706), device="cuda", generator=cuda) < 0.05
+         ).float()
+    vv = _randn(cuda, 3706, 256, scale=0.1)
+    uu = _randn(cuda, 600, 256, scale=0.1)
+    for a, b, copies in ((w, vv, ("e4k", "v16")), (w.t(), uu, ("v8", "v16"))):
+        plan = matmul_kernel_plan(a, b)
+        assert (plan.kernel, plan.a_copy, plan.b_copy) == (
+            "f32 128x128", *copies)
+        torch.testing.assert_close(matmul_cuda(a, b, torch.float32),
+                                   matmul_plain(a, b, torch.float32), **F32)
+
+
+def test_matmul_f32_split_is_bitwise_repeatable_at_one_hot_shape(cuda):
+    """one_hotᵀ·x-like: A M-major over K = 200,003, split along K; the
+    partials are summed in split order, so every call gives the same
+    bits."""
+    a = _randn(cuda, 200003, 1024, scale=200003 ** -0.25).t()
+    b = _randn(cuda, 200003, 128, scale=200003 ** -0.25)
+    plan = matmul_kernel_plan(a, b)
+    assert plan.kernel == "f32 128x128" and plan.splits > 1
+    first = matmul_cuda(a, b, torch.float32)
+    for _ in range(2):
+        assert torch.equal(matmul_cuda(a, b, torch.float32), first)
+    torch.testing.assert_close(first, matmul_plain(a, b, torch.float32),
+                               **F32)
+
+
+@pytest.mark.parametrize("m,k,n,ta,tb", [(1000, 512, 256, False, True),
+                                         (384, 40000, 128, True, False),
+                                         (200, 256, 128, False, False)])
+def test_matmul_f32_captured_replay_equals_eager(cuda, m, k, n, ta, tb):
+    """A captured call (no host sync, scratch from the wrapper's
+    allocation) replays to the eager call's bits, and follows its inputs
+    when they change in place."""
+    sc = k ** -0.25
+    a = _randn(cuda, *((k, m) if ta else (m, k)), scale=sc)
+    b = _randn(cuda, *((n, k) if tb else (k, n)), scale=sc)
+    a, b = (a.t() if ta else a), (b.t() if tb else b)
+    eager = matmul_cuda(a, b, torch.float32)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        matmul_cuda(a, b, torch.float32)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = matmul_cuda(a, b, torch.float32)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    a.mul_(-0.5)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, matmul_cuda(a, b, torch.float32))
 
 
 @pytest.mark.parametrize("m,k,n", [(256, 192, 128), (300, 200, 300),

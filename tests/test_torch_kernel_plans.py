@@ -1,4 +1,5 @@
-"""The branch choices of the softmax and pool kernels, on the CPU.
+"""The branch choices of the softmax and pool kernels, and the f32
+matmul kernels' tiles, on the CPU.
 
 ``ops.softmax.softmax_plan`` and ``ops.pool.pool_plan`` are pure
 functions of the shape, dtype and alignment; the C entry points
@@ -26,6 +27,7 @@ from lua_mapreduce_tpu_torch.ops import _build, alignment
 # the modules (``ops.softmax`` is also the name of the op)
 tsoft = importlib.import_module("lua_mapreduce_tpu_torch.ops.softmax")
 tpool = importlib.import_module("lua_mapreduce_tpu_torch.ops.pool")
+tmm = importlib.import_module("lua_mapreduce_tpu_torch.ops.matmul")
 
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -57,6 +59,102 @@ def test_pool_constants_match_the_source():
     assert plain == {"POOL_MAX_THREADS": tpool.POOL_MAX_THREADS,
                      "POOL_MAX_GRID_YZ": tpool.POOL_MAX_GRID_YZ}
     assert lists == {}
+
+
+def test_matmul_f32_constants_match_the_wrapper():
+    """The wrapper's grid limit follows csrc/matmul.cu's f32 tiles: M
+    rides grid.y in every kernel, so the shortest tile bounds the rows of
+    any f32 product; k-means' 10⁶ rows take 7,813 rows of 128-row tiles.
+    The small tile's reach holds the digits step's products and not
+    k-means' or ALS's."""
+    plain, _ = _defines("matmul")
+    tile_m = min(plain["F32_SMALL_TILE"], plain["F32_BM"])
+    assert tmm._TILE_M[torch.float32] == tile_m
+    assert -(-1_000_000 // plain["F32_BM"]) == 7813 <= tmm._MAX_GRID_Y
+    assert 256 * 128 <= plain["F32_SMALL_MN"] < 1024 * 128
+    assert plain["F32_SMALL_MN"] < 3706 * 64
+    rows = tmm._MAX_GRID_Y * tile_m
+    with pytest.raises(ValueError, match="grid limit"):
+        tmm.matmul_cuda(torch.zeros(1, 1).expand(rows + 1, 1),
+                        torch.zeros(1, 1), torch.float32)
+
+
+def _f32_copies(mode, cols, nt, bk, pad):
+    """csrc/matmul.cu's f32w::Loader: every copy of one operand's K-tile
+    as (thread, j, k, c, floats), for a tile whose axis c is ``cols``
+    wide (M of A, N of B) and ``nt`` threads."""
+    w = {"v16": 4, "v8": 2, "e4c": 1, "e4k": 1}[mode]
+    kg = bk // 8
+    dk = 0 if mode == "e4k" else nt // (cols // w)
+    dc = 4 * (nt // 32) // kg if mode == "e4k" else 0
+    out = []
+    for tid in range(nt):
+        if mode == "e4k":
+            kb = tid % 8 + 8 * ((tid // 32) % kg)
+            cb = 4 * ((tid // 32) // kg) + (tid // 8) % 4
+        else:
+            kb, cb = tid // (cols // w), (tid % (cols // w)) * w
+        for j in range(bk * cols // w // nt):
+            out.append((tid, j, kb + j * dk, cb + j * dc, w))
+    return out
+
+
+def _conflicts(words_by_lane, lanes_per_phase):
+    """Bank conflicts of one warp-wide shared-memory access: the lanes go
+    in phases of ``lanes_per_phase``; two lanes of a phase conflict when
+    they touch different words of one bank (one word is a broadcast)."""
+    bad = 0
+    for p0 in range(0, 32, lanes_per_phase):
+        banks = {}
+        for lane in range(p0, p0 + lanes_per_phase):
+            for word in words_by_lane.get(lane, ()):
+                banks.setdefault(word % 32, set()).add(word)
+        bad += sum(len(ws) - 1 for ws in banks.values())
+    return bad
+
+
+@pytest.mark.parametrize("bm,bn", [("F32_BM", "F32_BN"),
+                                   ("F32_BM", "F32_BN_NARROW")])
+def test_matmul_f32_tile_copies_and_reads_are_conflict_free(bm, bn):
+    """The wide f32 kernels' shared-memory accesses, mirrored from
+    csrc/matmul.cu with its constants: every copy mode fills each K-tile
+    of A (BM wide) and B (BN wide) exactly once, and no copy and no
+    fragment read has a bank conflict (16-byte accesses go in phases of
+    8 lanes, 8-byte in 16, 4-byte in 32)."""
+    plain, _ = _defines("matmul")
+    bm, bn = plain[bm], plain[bn]
+    bk, pad = plain["F32_BK"], plain["F32_PAD"]
+    nt = (bm // 8) * (bn // 8)
+    for cols in (bm, bn):
+        ld = cols + pad
+        for mode in ("v16", "v8", "e4c", "e4k"):
+            copies = _f32_copies(mode, cols, nt, bk, pad)
+            cells = [(k, c + e) for _, _, k, c, w in copies for e in range(w)]
+            assert sorted(cells) == [(k, c) for k in range(bk)
+                                     for c in range(cols)], mode
+            w = copies[0][4]
+            for warp in range(nt // 32):
+                for j in range(bk * cols // w // nt):
+                    words = {t % 32: [k * ld + c + e for e in range(w)]
+                             for t, jj, k, c, _ in copies
+                             if t // 32 == warp and jj == j}
+                    assert _conflicts(words, {4: 8, 2: 16, 1: 32}[w]) == 0, (
+                        mode, cols, warp, j)
+    # fragment reads: thread (tx, ty) reads 16 bytes at k·LD + ty·4 and
+    # + BM/2 of A, at k·LD + tx·4 and + BN/2 of B
+    tx_n = bn // 8
+    for warp in range(nt // 32):
+        for k in range(bk):
+            for half in (0, 1):
+                for cols, of in ((bm, lambda t: t // tx_n),
+                                 (bn, lambda t: t % tx_n)):
+                    ld = cols + pad
+                    words = {}
+                    for lane in range(32):
+                        base = k * ld + of(warp * 32 + lane) * 4 + \
+                            half * cols // 2
+                        words[lane] = [base + e for e in range(4)]
+                    assert _conflicts(words, 8) == 0, (cols, warp, k)
 
 
 def _softmax_plan_ok(p, rows, n, item, align):

@@ -77,6 +77,49 @@ def test_matmul_strided_operands():
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("case", ["kmeans x·cᵀ", "kmeans one_hotᵀ·x",
+                                  "als W·(V⊗V)", "als Wᵀ·(U⊗U)"])
+def test_matmul_kmeans_als_layouts_match_jax(case):
+    """The k-means and ALS products in the layouts the port hands the
+    kernel (models/kmeans.py, models/als.py): c through its .t() view (B
+    K-major), one_hot through its .t() view (A M-major), and W with an
+    odd row stride, as is and through .t(); each equals the JAX op on
+    the same values."""
+    rs = np.random.RandomState(11)
+    x = rs.randn(300, 16).astype(np.float32)
+    if case == "kmeans x·cᵀ":
+        c = rs.randn(24, 16).astype(np.float32)
+        a, b = torch.from_numpy(x), torch.from_numpy(c).t()
+        ja, jb = x, c.T
+        assert b.stride() == (1, 16)
+    elif case == "kmeans one_hotᵀ·x":
+        oh = np.eye(24, dtype=np.float32)[rs.randint(0, 24, 300)]
+        a, b = torch.from_numpy(oh).t(), torch.from_numpy(x)
+        ja, jb = oh.T, x
+        assert a.stride() == (1, 24)
+    else:
+        # W (40, 37) read through a (40, 41) buffer: row stride 41
+        w = torch.from_numpy((rs.rand(40, 41) < 0.3).astype(np.float32))
+        w = w[:, :37]
+        assert w.stride() == (41, 1)
+        if case == "als W·(V⊗V)":
+            vv = rs.randn(37, 25).astype(np.float32)
+            a, b = w, torch.from_numpy(vv)
+            ja, jb = w.numpy(), vv
+        else:
+            uu = rs.randn(40, 25).astype(np.float32)
+            a, b = w.t(), torch.from_numpy(uu)
+            ja, jb = w.numpy().T, uu
+    want = jops.matmul(jnp.asarray(np.ascontiguousarray(ja)),
+                       jnp.asarray(np.ascontiguousarray(jb)),
+                       backend="pallas_interpret", block_m=128, block_n=128,
+                       block_k=128)
+    got = ops.matmul(a, b)
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+
 @pytest.mark.parametrize("m,k,n", [(16, 32, 8), (33, 70, 10)])
 def test_matmul_grads_match_jax(m, k, n):
     a, b = rand(m, k, seed=7), rand(k, n, seed=8)
