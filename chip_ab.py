@@ -20,6 +20,13 @@ parent, unpack the parent into a directory that ``.gitignore`` lists:
     mkdir -p build/parent && git archive HEAD | tar -x -C build/parent
     python3 chip_ab.py build/parent .
 
+``--cells`` takes a comma-separated subset of digits, wide, serving,
+moe_serving, conv, lm, kmeans, als (default: all but moe_serving, which
+is phase 22's MoE serving cell), for a change that touches only some of
+them:
+
+    python3 chip_ab.py --cells serving,moe_serving build/parent .
+
 Exits non-zero when CUDA is unavailable or a child fails.
 """
 
@@ -27,6 +34,10 @@ import json
 import os
 import subprocess
 import sys
+
+CELLS = ("digits", "wide", "serving", "moe_serving", "conv", "lm",
+         "kmeans", "als")
+DEFAULT_CELLS = tuple(c for c in CELLS if c != "moe_serving")
 
 CHILD = r'''
 import importlib.util, json, sys
@@ -38,50 +49,69 @@ from lua_mapreduce_tpu_torch.ops import _build
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 _build.build_all()
+cells = set(sys.argv[2].split(","))
 gen = torch.Generator(device="cuda").manual_seed(0)
 m = {}
-m["digits wall s"] = cs.phase_digits(torch, ops)[2]
-wide = cs.phase_wide(torch, ops, gen)[1]
-for key in ("step_ms", "eager_step_ms"):
-    if key in wide:
-        m[f"wide {key}"] = wide[key]
-for tag, r in cs.phase_serving(torch, ops).items():
-    for key in ("prefill_ms", "decode_step_ms", "step_kernel_ms",
-                "capture_ms", "decode_step_ms_without_capture",
-                "eager_decode_step_ms"):
-        if key in r:
-            m[f"serving {tag} {key}"] = r[key]
-for name, r in cs.phase_conv(torch, ops, gen).items():
-    for key in ("step_ms", "eager_step_ms", "profiled_step_device_ms"):
-        if key in r:
-            m[f"conv {name} {key}"] = r[key]
-for tag, r in cs.phase_lm_train(torch, ops).items():
-    for key in ("step_ms", "profiled_step_device_ms"):
-        m[f"lm {tag} {key}"] = r[key]
-    for kernel, ms in r["profiled_step_kernel_ms"].items():
-        m[f"lm {tag} {kernel} ms"] = ms
-# the timed parts of phases 15-16 from this script's chip_smoke.py, run on
-# the checkout's own package (the working directory comes first on the path)
-spec = importlib.util.spec_from_file_location("chip_smoke_ab", sys.argv[1])
-ab = importlib.util.module_from_spec(spec)
-spec.loader.exec_module(ab)
-mesh = ab.card_mesh(torch)
-km = ab.kmeans_timed(torch, ops, mesh)[1]
-m["kmeans ms/iteration"] = km["replay_ms_per_iter"]
-m["kmeans kernel ms/iteration"] = km["kernel_ms_per_iter"]
-als = ab.als_timed(torch, ops, mesh)[1]
-m["als ms/round"] = als["replay_ms_per_iter"]
-m["als kernel ms/round"] = als["kernel_ms_per_iter"]
+if "digits" in cells:
+    m["digits wall s"] = cs.phase_digits(torch, ops)[2]
+if "wide" in cells:
+    wide = cs.phase_wide(torch, ops, gen)[1]
+    for key in ("step_ms", "eager_step_ms"):
+        if key in wide:
+            m[f"wide {key}"] = wide[key]
+if "serving" in cells:
+    for tag, r in cs.phase_serving(torch, ops).items():
+        for key in ("prefill_ms", "decode_step_ms", "step_kernel_ms",
+                    "step_kernel_launches", "step_q8_gemv_ms",
+                    "capture_ms", "decode_step_ms_without_capture",
+                    "eager_decode_step_ms"):
+            if key in r:
+                m[f"serving {tag} {key}"] = r[key]
+if "moe_serving" in cells:
+    for tag, r in cs.phase_moe_serve(torch, ops).items():
+        for key in ("prefill_ms", "decode_step_ms", "step_kernel_ms",
+                    "step_kernel_launches", "step_q8_gemv_ms"):
+            if key in r:
+                m[f"moe serving {tag} {key}"] = r[key]
+if "conv" in cells:
+    for name, r in cs.phase_conv(torch, ops, gen).items():
+        for key in ("step_ms", "eager_step_ms", "profiled_step_device_ms"):
+            if key in r:
+                m[f"conv {name} {key}"] = r[key]
+if "lm" in cells:
+    for tag, r in cs.phase_lm_train(torch, ops).items():
+        for key in ("step_ms", "profiled_step_device_ms"):
+            m[f"lm {tag} {key}"] = r[key]
+        for kernel, ms in r["profiled_step_kernel_ms"].items():
+            m[f"lm {tag} {kernel} ms"] = ms
+if cells & {"kmeans", "als"}:
+    # the timed parts of phases 15-16 from this script's chip_smoke.py,
+    # run on the checkout's own package (the working directory comes
+    # first on the path)
+    spec = importlib.util.spec_from_file_location("chip_smoke_ab",
+                                                  sys.argv[1])
+    ab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ab)
+    mesh = ab.card_mesh(torch)
+    if "kmeans" in cells:
+        km = ab.kmeans_timed(torch, ops, mesh)[1]
+        m["kmeans ms/iteration"] = km["replay_ms_per_iter"]
+        m["kmeans kernel ms/iteration"] = km["kernel_ms_per_iter"]
+    if "als" in cells:
+        als = ab.als_timed(torch, ops, mesh)[1]
+        m["als ms/round"] = als["replay_ms_per_iter"]
+        m["als kernel ms/round"] = als["kernel_ms_per_iter"]
 print("RESULT " + json.dumps(m), flush=True)
 '''
 
 
-def run(root):
-    """The metrics of one child run of ``root``'s phases."""
+def run(root, cells):
+    """The metrics of one child run of ``root``'s phases of ``cells``."""
     here = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "chip_smoke.py")
-    proc = subprocess.run([sys.executable, "-c", CHILD, here], cwd=root,
-                          capture_output=True, text=True)
+    proc = subprocess.run([sys.executable, "-c", CHILD, here,
+                           ",".join(cells)], cwd=root, capture_output=True,
+                          text=True)
     for line in proc.stdout.splitlines():
         if line.startswith("RESULT "):
             return json.loads(line[len("RESULT "):])
@@ -91,7 +121,11 @@ def run(root):
 
 def main(argv):
     import torch
-    if len(argv) != 3:
+    cells = DEFAULT_CELLS
+    if len(argv) == 5 and argv[1] == "--cells":
+        cells = tuple(argv[2].split(","))
+        argv = argv[:1] + argv[3:]
+    if len(argv) != 3 or not set(cells) <= set(CELLS):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -100,11 +134,12 @@ def main(argv):
     roots = [os.path.abspath(a) for a in argv[1:]]
     order = [("A", roots[0]), ("B", roots[1]), ("B", roots[1]),
              ("A", roots[0])]
-    runs = [(tag, run(root)) for tag, root in order]
+    runs = [(tag, run(root, cells)) for tag, root in order]
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
-    print(f"{gpu}; A = {roots[0]}, B = {roots[1]}; runs A, B, B, A")
+    print(f"{gpu}; A = {roots[0]}, B = {roots[1]}; runs A, B, B, A; "
+          f"cells {','.join(cells)}")
     keys = list(dict.fromkeys(k for _, m in runs for k in m))
     for key in keys:
         vals = "  ".join(f"{tag} {m[key]:10.4f}" if key in m
@@ -114,7 +149,8 @@ def main(argv):
                        "chiprun_out")
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, "chip_ab.json"), "w") as f:
-        json.dump({"gpu": gpu, "roots": roots, "runs": runs}, f, indent=1)
+        json.dump({"gpu": gpu, "roots": roots, "cells": cells,
+                   "runs": runs}, f, indent=1)
     return 0
 
 

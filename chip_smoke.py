@@ -33,7 +33,11 @@ Phases, each a hard failure on any mismatch:
              against its plain version; the
              conv products are held bit-for-bit equal over two calls, and
              each conv configuration's products are summed over one step
-             (kernel against ``torch.matmul``);
+             (kernel against ``torch.matmul``); every q8 decode row (the
+             GEMV, M <= 8) names its plan (strip width, cluster split,
+             CTAs), is held bit-equal over two calls and is also timed
+             cold, its weight and torch.matmul's rotated over 100 MiB of
+             copies so that each call reads them from HBM;
 3. grads   — autograd through the kernels against autograd through the
              plain versions: the digits MLP and LeNet-5, f32 and bf16;
 4. digits  — the six-function MapReduce DP-SGD trainer (256-128-10,
@@ -56,7 +60,9 @@ Phases, each a hard failure on any mismatch:
              (same tokens), and from a profiled repeat the kernel time
              and the kernel launches per decode step (each decode call
              is a split kernel and, with more than one split, a
-             combine); the port kernels the profiled repeat lists must
+             combine; each q8 call one launch, the GEMV's ms and
+             launches a step given apart); the port kernels the profiled
+             repeat lists must
              equal the launches credited per replay (a trace that lost
              records is taken again, at most three times);
 7. serving check — the same widths at 2 layers in f32 (prompt 256, 32
@@ -357,6 +363,9 @@ KERNEL_META = {
     "pool": (CSRC + "pool.cu", "lua_mapreduce_tpu/ops/pool.py:24"),
 }
 TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}   # (rtol, atol)
+# a cold kernel row rotates its weight over copies of at least this many
+# bytes (twice the H100's 50 MB L2), so each call reads it from HBM
+COLD_BYTES = 100 * 2 ** 20
 # the JAX package's op tolerances for the serving kernels
 # (test_attention_op.py, test_decode_op.py, test_q8.py)
 SERVE_TOL = {"flash float32": (2e-5, 2e-5), "flash bfloat16": (2e-2, 2e-2),
@@ -750,9 +759,6 @@ def phase_serving_kernels(torch, gen):
                                                     decode_attention_plain,
                                                     decode_splits,
                                                     merge_splits_cuda)
-    from lua_mapreduce_tpu_torch.ops import _build
-    from lua_mapreduce_tpu_torch.ops.q8 import q8_matmul_cuda, q8_matmul_plain
-    q8_lib = _build.library("q8")
     rows = []
 
     def randn(*shape, dtype=torch.bfloat16, scale=1.0):
@@ -946,13 +952,57 @@ def phase_serving_kernels(torch, gen):
         "bit_equal": True})
     del pm, pl, pacc, got, want
 
-    # ---- q8: every projection and the head under quantize_lm
+    rows += q8_rows(torch, gen)
+    return rows
+
+
+def cold_copies(torch, t, total_bytes=COLD_BYTES):
+    """Copies of ``t`` enough to hold ``total_bytes`` (at least two), so
+    that a call that takes the next copy each time finds its operand
+    evicted from L2 by the others."""
+    n = max(2, -(-total_bytes // (t.numel() * t.element_size())))
+    return [t.clone() for _ in range(n)]
+
+
+def rotating(fn, copies):
+    """A call of ``fn(copy)`` on the next of ``copies`` each time: the
+    calls a CUDA graph captures keep their copies, so its replay reads
+    each from device memory."""
+    turn = [0]
+
+    def call():
+        c = copies[turn[0] % len(copies)]
+        turn[0] += 1
+        return fn(c)
+    return call
+
+
+def q8_rows(torch, gen):
+    """q8 against its plain version at every product quantize_lm makes in
+    serving: the decode projections and head at M = 4 (and the head at
+    M = 1, 2 and 8), prefill at M = 15872, the f32 check run. A decode
+    row names the GEMV's plan (strip width, cluster split, CTAs), is held
+    bit-equal over two calls, and is timed warm and cold: cold rotates
+    the weight (and torch.matmul's bf16 weight) over COLD_BYTES of
+    copies, so each call reads it from device memory, as a decode step
+    that streams every layer's weights does."""
+    from lua_mapreduce_tpu_torch import ops
+    from lua_mapreduce_tpu_torch.ops import _build
+    from lua_mapreduce_tpu_torch.ops.q8 import (GEMV_COLS, GEMV_MAX_M,
+                                                q8_gemv_cuda, q8_gemv_plan,
+                                                q8_matmul_cuda,
+                                                q8_matmul_plain)
+    q8_lib = _build.library("q8")
+    rows = []
     for label, m, k_dim, n, dt in (
             ("decode qkv", 4, 1024, 3072, "bfloat16"),
             ("decode out", 4, 1024, 1024, "bfloat16"),
             ("decode ff1", 4, 1024, 4096, "bfloat16"),
             ("decode ff2", 4, 4096, 1024, "bfloat16"),
             ("decode head", 4, 1024, 32768, "bfloat16"),
+            ("decode head M=1", 1, 1024, 32768, "bfloat16"),
+            ("decode head M=2", 2, 1024, 32768, "bfloat16"),
+            ("decode head M=8", 8, 1024, 32768, "bfloat16"),
             ("prefill qkv", 15872, 1024, 3072, "bfloat16"),
             ("prefill out", 15872, 1024, 1024, "bfloat16"),
             ("prefill ff1", 15872, 1024, 4096, "bfloat16"),
@@ -961,11 +1011,13 @@ def phase_serving_kernels(torch, gen):
             ("check-run prefill qkv (x bf16-valued)", 1024, 1024, 3072,
              "float32")):
         dtype = getattr(torch, dt)
-        w = randn(k_dim, n, dtype=torch.float32, scale=k_dim ** -0.5)
+        w = (torch.randn((k_dim, n), device="cuda", generator=gen)
+             * k_dim ** -0.5)
         qw, sw = ops.quantize_q8(w)
         sw = sw.reshape(-1)
         # bf16 values: the kernel rounds x to bf16, the plain version not
-        x = randn(m, k_dim).to(dtype)
+        x = torch.randn((m, k_dim), device="cuda",
+                        generator=gen).to(torch.bfloat16).to(dtype)
         wd = (qw.float() * sw).to(torch.bfloat16)
         xb = x.to(torch.bfloat16)
 
@@ -982,13 +1034,39 @@ def phase_serving_kernels(torch, gen):
         err = check_close(f"q8 {label}", got, want, dt, SERVE_TOL["q8"],
                           NORM_TOL if dt == "bfloat16" else None)
         rel = norm_err(got, want)
+        extra = {"splits": int(q8_lib.lmr_q8_splits(m, k_dim, n))}
+        if m <= GEMV_MAX_M:
+            # the cluster sums in rank order: two calls give the same bits
+            if not torch.equal(run(), got):
+                raise AssertionError(f"q8 {label}: two calls differ")
+            plan, cluster_sms = q8_gemv_plan(m, k_dim, n)
+            qs, wds = cold_copies(torch, qw), cold_copies(torch, wd)
+            if m == 4:
+                # every plan the kernel takes (a split no larger than K's
+                # steps of 256·16/c rows), warm, beside the one it picks
+                extra["plan_sweep_ms"] = {
+                    f"{c}x{sp}": time_ms(
+                        lambda c=c, sp=sp, x=x, qw=qw, sw=sw:
+                        q8_gemv_cuda(x, qw, sw, c, sp), torch)
+                    for c in GEMV_COLS for sp in (1, 2, 4, 8)
+                    if sp == 1 or sp <= -(-k_dim // (4096 // c))}
+            extra.update(
+                cols=plan.cols, ctas=plan.ctas, bit_equal=True,
+                cluster_sms=list(cluster_sms),
+                cold_ms=time_ms(rotating(
+                    lambda c, x=x, sw=sw: q8_matmul_cuda(x, c, sw), qs),
+                    torch),
+                cold_library_ms=time_ms(rotating(
+                    lambda c, xb=xb: torch.matmul(xb, c), wds), torch),
+                cold_copies=[len(qs), len(wds)])
+            del qs, wds
         del got, want
         item = x.element_size()
         nbytes = m * k_dim * item + k_dim * n + n * 4 + m * n * item
         rows.append({**serving_row(
-            torch, "q8", f"q8 {label} ({m},{k_dim})x({k_dim},{n}) x {dt}", err, run,
-            plain, lib, 2 * m * k_dim * n, nbytes, peaks()[0], rel),
-            "splits": int(q8_lib.lmr_q8_splits(m, k_dim, n))})
+            torch, "q8", f"q8 {label} ({m},{k_dim})x({k_dim},{n}) x {dt}",
+            err, run, plain, lib, 2 * m * k_dim * n, nbytes, peaks()[0],
+            rel), **extra})
         del w, qw, x, wd, xb
         torch.cuda.empty_cache()
     return rows
@@ -1308,7 +1386,7 @@ def whole_profile(torch, fn, launches_of, want, what, attempts=3):
 def port_launches_seen(kernels):
     """Launches of the serving path's port kernels in a ``kernel_profile``
     listing, by ``ops`` count name: the kernel each wrapper call launches
-    (a decode call's combine and a q8 call's split reduce left out)."""
+    (a decode call's combine left out; a q8 call is one launch)."""
     names = {"flash_fwd": ("flash_wgmma_kernel", "flash_bf16_kernel",
                            "flash_f32_kernel"),
              "decode": ("decode_split_kernel",),
@@ -1316,6 +1394,21 @@ def port_launches_seen(kernels):
                     "wgmma_gemm_kernel")}
     return {k: sum(r[2] for r in kernels if any(t in r[0] for t in tags))
             for k, tags in names.items()}
+
+
+def gemv_per_step(kernels, pre_kernels, n_new):
+    """The q8 GEMV's device ms and launches per decode step, from the
+    ``kernel_profile`` rows of a greedy_decode call and of its prefill.
+    Fails if a trace lists a q8 kernel that is neither the GEMV nor a
+    prefill GEMM (a split's second launch)."""
+    for name, _, _ in kernels:
+        if "gv::" in name and "gv::gemv_kernel" not in name:
+            raise AssertionError(f"q8 launched a second kernel: {name}")
+
+    def total(rows, i):
+        return sum(r[i] for r in rows if "gv::gemv_kernel" in r[0])
+    return ((total(kernels, 1) - total(pre_kernels, 1)) / (n_new - 1),
+            (total(kernels, 2) - total(pre_kernels, 2)) / (n_new - 1))
 
 
 def phase_serving(torch, ops, seed=0):
@@ -1400,6 +1493,8 @@ def phase_serving(torch, ops, seed=0):
                    - sum(k[1] for k in pre_kernels)) / (n_new - 1)
         step_launches = (sum(k[2] for k in kernels)
                          - sum(k[2] for k in pre_kernels)) / (n_new - 1)
+        gemv_ms, gemv_launches = gemv_per_step(kernels, pre_kernels,
+                                               n_new)
         replay_ms = (tail * 1e3 - capture_ms) / (n_new - 1)
         eager_ms = (e2e_eager - prefill_s) * 1e3 / (n_new - 1)
         r = {"prefill_ms": prefill_s * 1e3, "e2e_ms": e2e * 1e3,
@@ -1415,6 +1510,8 @@ def phase_serving(torch, ops, seed=0):
              "prefill_tokens_per_s": b * p_len / prefill_s,
              "peak_mem_gib": peak,
              "step_kernel_ms": step_ms, "step_kernel_launches": step_launches,
+             "step_q8_gemv_ms": gemv_ms,
+             "step_q8_gemv_launches": gemv_launches,
              "device_idle_share": 1 - step_ms / replay_ms,
              "eager_device_idle_share": 1 - step_ms / eager_ms,
              "traced_port_launches": seen,
@@ -1434,7 +1531,8 @@ def phase_serving(torch, ops, seed=0):
             f"end to end {r['e2e_ms']:.3f} ms ({r['e2e_tokens_per_s']:.1f} "
             f"tokens/s); launches {counts}")
         log(f"[serving] {tag}: per decode step {step_ms:.4f} ms of kernels "
-            f"over {step_launches:.1f} kernel launches; device idle "
+            f"over {step_launches:.1f} kernel launches (the q8 GEMV "
+            f"{gemv_ms:.4f} ms over {gemv_launches:.1f}); device idle "
             f"{100 * r['device_idle_share']:.1f}% of a captured step, "
             f"{100 * r['eager_device_idle_share']:.1f}% of an eager one")
         for name, ms, n in kernels[:12]:
@@ -3890,6 +3988,10 @@ def phase_moe_serve(torch, ops, seed=0):
                                       total=p_len + n_new))
         step_ms = (sum(k[1] for k in kernels)
                    - sum(k[1] for k in pre_kernels)) / (n_new - 1)
+        step_launches = (sum(k[2] for k in kernels)
+                         - sum(k[2] for k in pre_kernels)) / (n_new - 1)
+        gemv_ms, gemv_launches = gemv_per_step(kernels, pre_kernels,
+                                               n_new)
         pre_names = {k[0]: k for k in pre_kernels}
         step_rows = sorted(((k[0], (k[1] - pre_names.get(k[0], (0, 0, 0))[1])
                              / (n_new - 1),
@@ -3899,15 +4001,19 @@ def phase_moe_serve(torch, ops, seed=0):
         r = {"prefill_ms": prefill_s * 1e3, "e2e_ms": e2e * 1e3,
              "capture_ms": last[1], "decode_step_ms": replay_ms,
              "decode_tokens_per_s": b / replay_ms * 1e3,
-             "step_kernel_ms": step_ms,
+             "step_kernel_ms": step_ms, "step_kernel_launches": step_launches,
+             "step_q8_gemv_ms": gemv_ms,
+             "step_q8_gemv_launches": gemv_launches,
              "device_idle_share": 1 - step_ms / replay_ms,
              "launches": counts, "step_top_kernels": step_rows[:8],
              "first_tokens": toks[0, p_len:p_len + 8].tolist()}
         log(f"[moe serving] {tag}: prefill {r['prefill_ms']:.3f} ms, "
             f"captured decode {replay_ms:.4f} ms/step "
             f"({r['decode_tokens_per_s']:.1f} tokens/s; capture "
-            f"{last[1]:.3f} ms), {step_ms:.4f} ms of kernels a step "
-            f"(idle {100 * r['device_idle_share']:.1f}%); end to end "
+            f"{last[1]:.3f} ms), {step_ms:.4f} ms of kernels a step over "
+            f"{step_launches:.1f} launches (the q8 GEMV {gemv_ms:.4f} ms "
+            f"over {gemv_launches:.1f}; idle "
+            f"{100 * r['device_idle_share']:.1f}%); end to end "
             f"{r['e2e_ms']:.3f} ms; same tokens as the eager loop; launches "
             f"{counts}")
         for name, ms, n in step_rows[:8]:
@@ -6415,6 +6521,16 @@ def main():
                       f"refused)")
         if r.get("splits") is not None:
             extra += f", splits {r['splits']}"
+        if r.get("cold_ms") is not None:
+            extra += (f", {r['cols']}-column strips, {r['ctas']} CTAs "
+                      f"(clusters of 1/2/4/8 on {r['cluster_sms']} SMs), two "
+                      f"calls bit-equal; cold (weights over "
+                      f"{r['cold_copies'][0]} copies) kernel "
+                      f"{r['cold_ms']:.4f} ms, library "
+                      f"{r['cold_library_ms']:.4f} ms")
+        if r.get("plan_sweep_ms"):
+            extra += "; every plan (columns x split) " + ", ".join(
+                f"{k} {v * 1e3:.2f} us" for k, v in r["plan_sweep_ms"].items())
         if r.get("path") is not None:
             extra += f", {r['path']} kernel"
         if r.get("copies") is not None:

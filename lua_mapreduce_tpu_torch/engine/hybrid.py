@@ -370,12 +370,14 @@ class HybridRunner:
 
     def run_map_leg(self, jobs, store, segment_format: str = "v1",
                     iteration: int = 0, replication=1, push=False,
-                    push_pool=None) -> bool:
+                    push_pool=None, leftovers=()) -> bool:
         """Build/replay the whole iteration's map jobs as one program
         and publish every job through the shared tail. True = spills
         published (the caller skips the interpreted map); False =
         degraded (for the rest of the task — counted, logged and traced)
-        and the caller runs the interpreted map phase."""
+        and the caller runs the interpreted map phase. ``leftovers``:
+        files the iteration-start sweep could not remove, which each
+        job's publish writes over where they are its own."""
         from lua_mapreduce_tpu_torch.engine.job import publish_map_groups
         from lua_mapreduce_tpu_torch.faults.retry import COUNTERS
         if self.map_engine is None or not jobs:
@@ -388,7 +390,7 @@ class HybridRunner:
                 publish_map_groups(self.spec, store, str(i), groups,
                                    segment_format=segment_format,
                                    replication=replication, push=push,
-                                   push_pool=push_pool)
+                                   push_pool=push_pool, leftovers=leftovers)
         except Exception as exc:            # noqa: BLE001 — policy point
             reason = f"{type(exc).__name__}: {exc}"
             COUNTERS.bump("hybrid_fallbacks")

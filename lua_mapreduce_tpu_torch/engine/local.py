@@ -185,6 +185,8 @@ class LocalExecutor:
         # push shuffle: one memory-budgeted buffer pool shared by the
         # executor's map threads (its "worker")
         self.push = resolve_push(push)
+        # push files of an earlier iteration the sweep could not remove
+        self._push_leftovers = frozenset()
         self._push_pool = (BufferPool(resolve_push_budget(push_budget_mb))
                            if self.push else None)
         self.store = get_storage_from(spec.storage)
@@ -255,7 +257,7 @@ class LocalExecutor:
             self.spec, self.store, str(i), k, v,
             segment_format=self.segment_format,
             replication=self.replication, push=self.push,
-            push_pool=self._push_pool))
+            push_pool=self._push_pool, leftovers=self._push_leftovers))
 
     def _run_jobs(self, fns) -> List[JobTimes]:
         if self.map_parallelism == 1 or len(fns) <= 1:
@@ -281,8 +283,10 @@ class LocalExecutor:
         purge_footer_cache(self.store)
         if self.push:
             # a stale canonical manifest would win this iteration's
-            # publish-if-absent race and name consumed files
-            sweep_push_files(self._view, spec.result_ns)
+            # publish-if-absent race and name consumed files: one the
+            # sweep could not remove is published over by its map
+            self._push_leftovers = sweep_push_files(self._view,
+                                                    spec.result_ns)
 
         # in-graph engine: the whole data plane — map, shuffle, reduce —
         # runs as one program and the result files land directly;
@@ -318,7 +322,8 @@ class LocalExecutor:
             if not self._hybrid.run_map_leg(
                     jobs, self.store, segment_format=self.segment_format,
                     iteration=iteration, replication=self.replication,
-                    push=self.push, push_pool=self._push_pool):
+                    push=self.push, push_pool=self._push_pool,
+                    leftovers=self._push_leftovers):
                 it_stats.map.fold(self._run_jobs([
                     (lambda k=k, v=v, i=i: self._map_one(i, k, v))
                     for i, (k, v) in enumerate(jobs)]))

@@ -506,16 +506,21 @@ def manifest_files_by_part(man: dict) -> Dict[int, List[str]]:
 
 
 def promote(store, ns: str, map_key: str, lineage: str,
-            replication: int) -> bool:
+            replication: int, publish_over: bool = False) -> bool:
     """Make a quarantined spec lineage canonical — the winning clone's
     post-commit step (Worker.run_one). Publish-if-absent: if ANY
     complete lineage already became canonical (the original finished
     its body before losing the race), keep it — flipping a manifest a
     consumer may already have read trades one valid lineage for
-    another at best and dangles deleted fragments at worst."""
+    another at best and dangles deleted fragments at worst.
+    ``publish_over``: the canonical manifest under this map's name may
+    be an earlier iteration's that the iteration-start sweep could not
+    remove (the job doc's ``leftovers``), so the winner's is published
+    over it, as the original's own publish would (``PushWriter.finish``);
+    an original that published first named the same records."""
     view = reading_view(store, replication)
     canonical = manifest_name(ns, map_key)
-    if view.exists(canonical):
+    if not publish_over and view.exists(canonical):
         return False
     man = read_manifest(view, manifest_name(ns, map_key, lineage))
     if man is None:
@@ -671,12 +676,16 @@ def discover_push(store, ns: str, map_keys: Iterable[str],
     return parts
 
 
-def sweep_push_files(view, ns: str) -> None:
+def sweep_push_files(view, ns: str) -> frozenset:
     """Iteration-start hygiene (the LocalExecutor analog of the
     server's ``_clean_runs``): stale inbox fragments AND manifests from
     a previous iteration must never leak into this one's discovery —
     a stale canonical manifest would win the publish-if-absent race
-    against the fresh lineage and name already-consumed files.
+    against the fresh lineage and name already-consumed files. Returns
+    the names still listed after it (a copy on a dark placement tag
+    outlives its remove): a map whose canonical manifest is among them
+    publishes over it (``leftovers``), and discovery reads only what a
+    canonical manifest names.
 
     Coded group-stripe BLOCKS (shared by several members, so no single
     member's remove may drop them — DESIGN §27) are swept here by their
@@ -684,14 +693,10 @@ def sweep_push_files(view, ns: str) -> None:
     the blocks are unreachable garbage, and this is also where a losing
     clone's orphaned group blocks (invisible since its members were
     swept at discovery) finally go."""
+    from lua_mapreduce_tpu_torch.engine.premerge import sweep_leftovers
     patterns = [f"{ns}.P*.{INBOX_TAG}-*", f"{ns}.{PUSH_NS}.M*"]
     patterns += stripe_patterns(f"{ns}.{CODE_TAG}.*")
-    for pattern in patterns:
-        for name in view.list(pattern):
-            try:
-                view.remove(name)
-            except Exception:
-                pass
+    return sweep_leftovers(view, patterns)
 
 
 def utest() -> None:

@@ -82,7 +82,7 @@ from lua_mapreduce_tpu_torch.engine.job import (JobTimes, map_key_str,
                                                 run_reduce_job)
 from lua_mapreduce_tpu_torch.engine.placement import base_name
 from lua_mapreduce_tpu_torch.engine.push import (BufferPool, lineage_token,
-                                                 promote,
+                                                 manifest_name, promote,
                                                  resolve_push_budget)
 from lua_mapreduce_tpu_torch.faults.errors import (LostShuffleDataError,
                                                    StoreError,
@@ -916,7 +916,10 @@ class Worker:
             try:
                 promote(get_storage_from(spec.storage), spec.result_ns,
                         map_key_str(jid), lineage_token(self.name),
-                        self._replication())
+                        self._replication(),
+                        publish_over=manifest_name(
+                            spec.result_ns, map_key_str(jid))
+                        in (job.get("leftovers") or ()))
             except Exception as exc:
                 _log.warning("[%s] push promote failed (%s: %s); the "
                              "server's backstop covers it", self.name,

@@ -12,13 +12,102 @@ path), so the two agree to a bf16 rounding of x.
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
 from lua_mapreduce_tpu_torch.ops import _build, count_launch, device_kind
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# csrc/q8.cu's GEMV (M <= GEMV_MAX_M) launch constants, as it defines
+# them: threads a CTA, the largest cluster along K, x's rows staged at
+# a time, the k rows a thread has in flight (its ring's stages), the
+# strip widths (widest first), and the byte permute that widens int8 (a
+# sign flip, the exponent of 2^23, a selector) less its bias 2^23 + 128
+GEMV_NT = 256
+GEMV_MAX_M = 8
+GEMV_MAX_CLUSTER = 8
+GEMV_XCH = 1024
+GEMV_CTA_COST = 4
+GEMV_STAGES = 8
+GEMV_COLS = (128, 64, 32)
+GEMV_SIGN_FLIP = 0x80808080
+GEMV_MAGIC = 0x4B000000
+GEMV_PERM = 0x7440
+GEMV_WIDEN_BIAS = 8388736.0
+_CPT = 16                        # int8 columns a thread loads (16 bytes)
+
+
+class GemvPlan(NamedTuple):
+    """One launch of csrc/q8.cu's GEMV: ``strips`` CTAs of ``cols``
+    output columns along grid x, ``split`` CTAs along K (one cluster)
+    along grid y, each taking ``kper`` rows of K (the last fewer)."""
+    cols: int
+    split: int
+    kper: int
+    strips: int
+
+    @property
+    def ctas(self) -> int:
+        return self.strips * self.split
+
+    @property
+    def k_lanes(self) -> int:
+        """The k rows a CTA's threads load in one step (KSB)."""
+        return GEMV_NT * _CPT // self.cols
+
+
+def gemv_mt(m: int) -> int:
+    """The M the kernel is instantiated for: 1, 2, 4 or 8 rows."""
+    return 1 if m == 1 else 2 if m == 2 else 4 if m <= 4 else 8
+
+
+def gemv_smem_bytes(m: int, cols: int) -> int:
+    """Shared memory of a GEMV CTA for ``m`` rows and ``cols``-wide
+    strips: the weight ring (16 bytes a thread a stage), x's chunk (whose
+    bytes the warps' partials reuse) and the CTA's sums its cluster
+    reads."""
+    mt = gemv_mt(m)
+    return (GEMV_STAGES * GEMV_NT * _CPT + 4 * (
+        max(GEMV_XCH * mt, GEMV_NT // 32 * mt * cols) + mt * cols))
+
+
+def gemv_plan(k: int, n: int, cluster_sms: Sequence[int]) -> GemvPlan:
+    """Mirror of csrc/q8.cu::gemv_plan. ``cluster_sms[i]``: the SMs a
+    cluster of 2**i CTAs can use (``q8_gemv_plan`` reads the card's).
+    Minimises the busiest SM's work, ceil(CTAs / cluster_sms) · (k steps
+    a thread + GEMV_CTA_COST · x chunks), over the strip widths and the
+    power-of-two splits up to GEMV_MAX_CLUSTER (and K's steps); ties go
+    to the wider strip, then the smaller split."""
+    best, best_cost = None, None
+    for cols in GEMV_COLS:
+        strips = -(-n // cols)
+        ksb = GEMV_NT * _CPT // cols
+        steps = -(-k // ksb)
+        split, lg = 1, 0
+        while split <= GEMV_MAX_CLUSTER and (split == 1 or split <= steps):
+            kper = -(-k // split)
+            chunks = -(-kper // GEMV_XCH)
+            per_sm = -(-(strips * split) // cluster_sms[lg])
+            cost = per_sm * (-(-kper // ksb) + GEMV_CTA_COST * chunks)
+            if best is None or cost < best_cost:
+                best, best_cost = GemvPlan(cols, split, kper, strips), cost
+            split, lg = split * 2, lg + 1
+    return best
+
+
+def q8_gemv_plan(m: int, k: int, n: int
+                 ) -> Tuple[GemvPlan, Tuple[int, ...]]:
+    """The plan csrc/q8.cu launches for an M <= 8 shape on the current
+    card, and the SMs clusters of 1, 2, 4 and 8 CTAs can use there (the
+    occupancy query's, which the plan reads)."""
+    lib = _build.library("q8")
+    out = (ctypes.c_int * 8)()
+    _build.check(lib, lib.lmr_q8_plan(m, k, n, ctypes.addressof(out)),
+                 f"q8 plan for M={m}, K={k}, N={n}")
+    return GemvPlan(*out[:4]), tuple(out[4:])
 
 
 def quantize_q8(w: torch.Tensor, axis: int = 0
@@ -55,20 +144,37 @@ def q8_matmul_cuda(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor
         return out.zero_()
     lib = _build.library("q8")
     with torch.cuda.device(x.device):
-        # the kernel's K-split policy lives in csrc/q8.cu; it says how
-        # much f32 scratch the split needs
-        splits = lib.lmr_q8_splits(m, k, n)
-        if splits < 1:
+        # the kernel's split policy lives in csrc/q8.cu; an M <= 8 split
+        # is summed inside the launch, so nothing but out is allocated
+        if lib.lmr_q8_splits(m, k, n) < 1:
             raise ValueError(f"q8 kernel does not take M={m}, K={k}, N={n} "
                              f"(M past its grid limit)")
-        part = (torch.empty((splits, m, n), dtype=torch.float32,
-                            device=x.device) if splits > 1 else None)
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.lmr_q8_matmul(x.data_ptr(), q.data_ptr(), s.data_ptr(),
-                               out.data_ptr(),
-                               part.data_ptr() if part is not None else None,
-                               m, k, n, _CODES[x.dtype], stream)
+                               out.data_ptr(), m, k, n, _CODES[x.dtype],
+                               stream)
     _build.check(lib, rc, "q8 kernel launch")
+    count_launch("q8")
+    return out
+
+
+def q8_gemv_cuda(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                 cols: int, split: int) -> torch.Tensor:
+    """The GEMV (M <= 8) at a given strip width and split, on CUDA
+    tensors: the kernel q8_matmul_cuda launches with its own plan, here
+    at any plan it takes, for the tests and for timing the
+    alternatives."""
+    m, k = x.shape
+    n = q.shape[1]
+    x, q = x.contiguous(), q.contiguous()
+    s = s.reshape(-1).float().contiguous()
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    lib = _build.library("q8")
+    with torch.cuda.device(x.device):
+        rc = lib.lmr_q8_gemv(x.data_ptr(), q.data_ptr(), s.data_ptr(),
+                             out.data_ptr(), m, k, n, _CODES[x.dtype], cols,
+                             split, torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, rc, f"q8 GEMV launch at {cols} columns, split {split}")
     count_launch("q8")
     return out
 

@@ -867,6 +867,11 @@ def test_decode_combine_matches_plain(cuda):
     assert torch.equal(merge_splits_cuda(m, l, acc), got)
 
 
+# (K, N) of the serving cells' decode products: qkv, out, ff1, ff2, head
+Q8_DECODE = [(1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024),
+             (1024, 32768)]
+
+
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,k,n", [(1, 256, 128), (4, 1024, 3072),
                                    (4, 4096, 1024), (3, 1100, 200),
@@ -874,7 +879,13 @@ def test_decode_combine_matches_plain(cuda):
                                    (33, 1024, 1024), (256, 512, 384),
                                    # M > 8 at ragged N and K % 8 != 0
                                    (40, 1100, 200), (129, 1024, 272),
-                                   (300, 1030, 520)])
+                                   (300, 1030, 520),
+                                   # the GEMV at ragged N and K, N % 16
+                                   # != 0, and K past one staged chunk
+                                   (5, 1030, 520), (7, 96, 17),
+                                   (2, 20000, 16)]
+                         + [(m, k, n) for m in range(1, 9)
+                            for k, n in Q8_DECODE])
 def test_q8_kernel_matches_plain(cuda, xdtype, m, k, n):
     w = _randn(cuda, k, n)
     q, s = ops.quantize_q8(w)
@@ -889,18 +900,146 @@ def test_q8_kernel_matches_plain(cuda, xdtype, m, k, n):
 
 
 def test_q8_split_policy_lives_in_the_kernel_source(cuda):
-    """csrc/q8.cu decides the K split; the wrapper only sizes scratch
-    and refuses what the kernel refuses."""
+    """csrc/q8.cu decides the K split (a cluster, summed inside the one
+    launch); the wrapper asks for no scratch and refuses what the kernel
+    refuses. Its plan equals ops/q8.py's mirror at this card's SMs."""
     from lua_mapreduce_tpu_torch.ops import _build
+    from lua_mapreduce_tpu_torch.ops.q8 import gemv_plan, q8_gemv_plan
     lib = _build.library("q8")
     assert lib.lmr_q8_splits(4, 4096, 1024) > 1       # narrow N: split K
-    assert lib.lmr_q8_splits(4, 256, 128) == 1        # K too short to split
+    assert lib.lmr_q8_splits(4, 32, 128) == 1         # K too short to split
+    assert lib.lmr_q8_splits(4, 1024, 32768) == 1     # N alone fills it
     assert lib.lmr_q8_splits(9, 4096, 1024) == 1      # tensor-core path
     assert lib.lmr_q8_splits(65535 * 128 + 1, 8, 8) == 0
     q, s = ops.quantize_q8(_randn(cuda, 1, 1))
     with pytest.raises(ValueError, match="grid limit"):
         q8_matmul_cuda(torch.zeros((65535 * 128 + 1, 1), device="cuda"), q,
                        s.reshape(-1))
+    for k, n in Q8_DECODE + [(256, 128), (1100, 200), (300, 501), (96, 17),
+                             (20000, 16), (32, 128)]:
+        for m in (1, 4, 8):
+            plan, cluster_sms = q8_gemv_plan(m, k, n)
+            assert plan == gemv_plan(k, n, cluster_sms), (m, k, n)
+            assert lib.lmr_q8_splits(m, k, n) == plan.split
+    # M <= 8 split 8 ways: the output is the only allocation
+    q, s = ops.quantize_q8(_randn(cuda, 4096, 1024))
+    x = _randn(cuda, 4, 4096, dtype=torch.bfloat16)
+    assert lib.lmr_q8_splits(4, 4096, 1024) == 8
+    q8_matmul_cuda(x, q, s.reshape(-1))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    q8_matmul_cuda(x, q, s.reshape(-1))
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == \
+        before + 1
+
+
+def _q8_inputs(gen, m, k, n, xdtype=torch.bfloat16):
+    q, s = ops.quantize_q8(_randn(gen, k, n))
+    return _randn(gen, m, k).to(xdtype), q, s.reshape(-1)
+
+
+@pytest.mark.parametrize("m,k,n,split", [(4, 1024, 32768, 1),
+                                         (4, 1024, 1024, 8),
+                                         (8, 4096, 1024, 8),
+                                         (1, 1024, 3072, 4),
+                                         (2, 1024, 4096, 2)])
+def test_q8_gemv_is_one_launch_and_bit_equal_over_calls(cuda, m, k, n,
+                                                        split):
+    """A GEMV call, split or not, is one kernel in the trace (no
+    reduce), and two calls give the same bits."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from lua_mapreduce_tpu_torch.ops import _build
+    x, q, s = _q8_inputs(cuda, m, k, n)
+    assert _build.library("q8").lmr_q8_splits(m, k, n) == split
+    got = q8_matmul_cuda(x, q, s)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        again = q8_matmul_cuda(x, q, s)
+        torch.cuda.synchronize()
+    kernels = [e.key for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    assert len(kernels) == 1 and "gv::gemv_kernel" in kernels[0], kernels
+    assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(4, 1024, 1024), (1, 256, 128),
+                                   (3, 1100, 200), (8, 300, 501),
+                                   (2, 20000, 16), (4, 256, 32768),
+                                   (6, 4096, 1024)])
+def test_q8_gemv_equals_its_model_bit_for_bit(cuda, xdtype, m, k, n):
+    """The kernel's sums in the order csrc/q8.cu says
+    (tests/torch_q8_gemv_model.py, numpy on the host) give the card's
+    bits: the strips, the cluster's ranks, the K-lanes' halving
+    exchanges and the widening."""
+    from lua_mapreduce_tpu_torch.ops.q8 import q8_gemv_plan
+    from torch_q8_gemv_model import gemv
+    x, q, s = _q8_inputs(cuda, m, k, n, xdtype)
+    got = q8_matmul_cuda(x, q, s).cpu()
+    want = gemv(x.cpu(), q.cpu(), s.cpu(), q8_gemv_plan(m, k, n)[1])
+    assert got.dtype == want.dtype
+    assert torch.equal(got, want), float((got.float() - want.float())
+                                         .abs().max())
+
+
+@pytest.mark.parametrize("cols", [128, 64, 32])
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+@pytest.mark.parametrize("m,k,n", [(4, 1024, 1024), (3, 1100, 200)])
+def test_q8_gemv_at_every_plan(cuda, m, k, n, cols, split):
+    """The GEMV at every strip width and cluster split it takes, whether
+    its plan would pick it or not: the model's bits, and two calls give
+    the same bits."""
+    from lua_mapreduce_tpu_torch.ops.q8 import q8_gemv_cuda
+    from torch_q8_gemv_model import gemv
+    x, q, s = _q8_inputs(cuda, m, k, n)
+    got = q8_gemv_cuda(x, q, s, cols, split)
+    assert torch.equal(q8_gemv_cuda(x, q, s, cols, split), got)
+    want = gemv(x.cpu(), q.cpu(), s.cpu(), (1, 1, 1, 1), plan=(cols, split))
+    assert torch.equal(got.cpu(), want)
+    torch.testing.assert_close(got.float(), q8_matmul_plain(x, q, s).float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_q8_gemv_refuses_a_plan_it_cannot_run(cuda):
+    from lua_mapreduce_tpu_torch.ops.q8 import q8_gemv_cuda
+    x, q, s = _q8_inputs(cuda, 4, 64, 128)
+    for cols, split in ((48, 1), (128, 3), (128, 16), (32, 2)):
+        with pytest.raises(RuntimeError, match="q8 GEMV launch"):
+            q8_gemv_cuda(x, q, s, cols, split)
+
+
+def _cuobjdump():
+    import os
+    import shutil
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    return os.path.join(home, "bin", "cuobjdump")
+
+
+def test_q8_gemv_widens_int8_without_i2f(cuda):
+    """The SASS of every GEMV instantiation (2 x dtypes × M of 1, 2, 4,
+    8 × 3 strip widths) has byte permutes and no I2F: int8 is widened on
+    the full-rate pipes."""
+    import re
+    import subprocess
+    from lua_mapreduce_tpu_torch.ops import _build
+    _build.library("q8")
+    sass = subprocess.run([_cuobjdump(), "-sass", str(_build._target("q8"))],
+                          capture_output=True, text=True, check=True).stdout
+    funcs = {}
+    for chunk in sass.split("Function : ")[1:]:
+        name = chunk.split(None, 1)[0]
+        if "gemv_kernel" in name:
+            funcs[name] = chunk
+    assert len(funcs) == 24, sorted(funcs)
+    for name, body in funcs.items():
+        assert not re.search(r"\bI2F", body), name
+        assert re.search(r"\bPRMT\b", body), name
 
 
 def test_serving_kernels_launch_and_count(cuda):

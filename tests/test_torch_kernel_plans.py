@@ -338,3 +338,171 @@ def test_pool_across_channel_widths_matches_jax(c, mode):
             np.testing.assert_array_equal(got, want)
         else:
             np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+# ---- the q8 GEMV (M <= 8): its plan, its widening, its order of sums
+
+tq8 = importlib.import_module("lua_mapreduce_tpu_torch.ops.q8")
+# the SMs an H100 SXM (132 SMs) gives clusters of 1, 2, 4 and 8 GEMV CTAs,
+# as the card's occupancy query reports them (csrc/q8.cu::cluster_sms;
+# chip_smoke.py prints them): a cluster lands within one GPC
+H100_CLUSTER_SMS = (132, 132, 124, 120)
+# (K, N) of the serving and MoE serving cells' decode products: qkv,
+# out, ff1, ff2 (the dense FFN; MoE keeps its experts in full precision)
+# and the head, with the (strip width, split) the plan gives each: the
+# fastest of phase 2's sweep of every plan on the card
+DECODE_PLANS = {(1024, 3072): (128, 4), (1024, 1024): (128, 8),
+                (1024, 4096): (64, 2), (4096, 1024): (128, 8),
+                (1024, 32768): (128, 1)}
+# test_torch_cuda.py's M <= 8 cases of test_q8_kernel_matches_plain
+CARD_GEMV_SHAPES = [(1, 256, 128), (4, 1024, 3072), (4, 4096, 1024),
+                    (3, 1100, 200), (8, 300, 501), (5, 1030, 520),
+                    (7, 96, 17), (2, 20000, 16)]
+
+
+def test_q8_gemv_constants_match_the_source():
+    plain, lists = _defines("q8")
+    assert plain == {"GEMV_NT": tq8.GEMV_NT, "GEMV_MAX_M": tq8.GEMV_MAX_M,
+                     "GEMV_MAX_CLUSTER": tq8.GEMV_MAX_CLUSTER,
+                     "GEMV_XCH": tq8.GEMV_XCH,
+                     "GEMV_CTA_COST": tq8.GEMV_CTA_COST,
+                     "GEMV_STAGES": tq8.GEMV_STAGES}
+    assert lists == {"GEMV_COLS": tq8.GEMV_COLS}
+    text = (_build.CSRC / _build.SOURCES["q8"]).read_text()
+    hexes = {k: int(v, 16) for k, v in re.findall(
+        r"^#define (GEMV_\w+) (0x[0-9A-Fa-f]+)u$", text, re.M)}
+    assert hexes == {"GEMV_SIGN_FLIP": tq8.GEMV_SIGN_FLIP,
+                     "GEMV_MAGIC": tq8.GEMV_MAGIC,
+                     "GEMV_PERM": tq8.GEMV_PERM}
+    bias = re.findall(r"WIDEN_BIAS = (\d+)\.f;", text)
+    assert [float(b) for b in bias] == [tq8.GEMV_WIDEN_BIAS] == [2.0 ** 23
+                                                                 + 128]
+    # the widest strip is what a warp's 8 column groups load in one row
+    assert tq8.GEMV_COLS[0] == 8 * 16 and tq8.GEMV_COLS[-1] == 2 * 16
+
+
+def _assert_legal_gemv_plan(m, k, n, cluster_sms):
+    p = tq8.gemv_plan(k, n, cluster_sms)
+    assert p.cols in tq8.GEMV_COLS, p
+    # one cluster spans the split axis: a power of two up to 8, no more
+    # than K's steps
+    assert 1 <= p.split <= tq8.GEMV_MAX_CLUSTER, p
+    assert p.split & (p.split - 1) == 0, p
+    assert p.split == 1 or p.split <= -(-k // p.k_lanes), p
+    # every column once: the strips, and in each its 16-column groups
+    ncols = sorted(bx * p.cols + g * 16 + c for bx in range(p.strips)
+                   for g in range(p.cols // 16) for c in range(16)
+                   if bx * p.cols + g * 16 + c < n)
+    assert ncols == list(range(n)), p
+    # every k row once: the ranks' K-slices, x's chunks in each, each
+    # chunk's rows over the CTA's K-lanes
+    ksb = p.k_lanes
+    rows_seen = []
+    for rank in range(p.split):
+        kbeg, kend = rank * p.kper, min(k, (rank + 1) * p.kper)
+        assert kend > kbeg, p                     # no rank is idle
+        for c0 in range(kbeg, kend, tq8.GEMV_XCH):
+            c1 = min(kend, c0 + tq8.GEMV_XCH)
+            rows = -(-(c1 - c0) // ksb)
+            assert rows * ksb <= tq8.GEMV_XCH          # x's chunk fits
+            for ks in range(ksb):
+                rows_seen += [c0 + ks + r * ksb for r in range(rows)
+                              if c0 + ks + r * ksb < c1]
+    assert sorted(rows_seen) == list(range(k)), p
+    # the output columns the cluster's ranks own: each once
+    cw = p.cols // p.split
+    assert cw >= 4 and sorted(r * cw + c for r in range(p.split)
+                              for c in range(cw)) == list(range(p.cols))
+    # shared memory under the 227 KB a CTA may take; at M <= 4 two CTAs
+    # fit in an SM's 228 KB (the kernel's launch bounds ask for two)
+    smem = tq8.gemv_smem_bytes(m, p.cols)
+    assert smem <= 227 * 1024
+    assert m > 4 or 2 * smem <= 228 * 1024
+    return p
+
+
+@pytest.mark.parametrize("k,n", sorted(DECODE_PLANS))
+def test_q8_gemv_decode_shapes_take_their_plans(k, n):
+    """At the H100's cluster SMs every decode product of the serving and
+    MoE serving cells, at every M of the GEMV, gets a legal plan, the one
+    phase 2 timed fastest, and no SM holds two of its CTAs but the
+    head's (256 strips over 132 SMs); only the head is not split."""
+    for m in range(1, tq8.GEMV_MAX_M + 1):
+        p = _assert_legal_gemv_plan(m, k, n, H100_CLUSTER_SMS)
+        assert (p.cols, p.split) == DECODE_PLANS[(k, n)], p
+        per_sm = -(-p.ctas // H100_CLUSTER_SMS[p.split.bit_length() - 1])
+        assert per_sm == (2 if n == 32768 else 1), p
+        assert (p.split == 1) == (n == 32768), p
+
+
+@pytest.mark.parametrize("m,k,n", CARD_GEMV_SHAPES)
+def test_q8_gemv_card_test_shapes_get_legal_plans(m, k, n):
+    _assert_legal_gemv_plan(m, k, n, H100_CLUSTER_SMS)
+
+
+def test_q8_gemv_plans_are_legal_across_shapes():
+    rng = np.random.RandomState(3)
+    tables = [H100_CLUSTER_SMS, (1, 1, 1, 1), (8, 8, 8, 8),
+              (114, 112, 112, 104)]
+    for _ in range(300):
+        k, n = int(rng.randint(1, 5000)), int(rng.randint(1, 3000))
+        table = tables[int(rng.randint(len(tables)))]
+        _assert_legal_gemv_plan(int(rng.randint(1, 9)), k, n, table)
+
+
+def test_q8_gemv_plan_keeps_one_cta_an_sm_where_it_can():
+    """A grid that puts two CTAs on some SM is taken only where every
+    grid of that shape does (N alone past the cluster SMs) or it halves
+    the work of the busiest SM's CTA."""
+    for k, n in [(1024, 1024), (1024, 4096), (4096, 1024), (2048, 2048),
+                 (512, 8192), (1024, 16384), (8192, 512)]:
+        p = tq8.gemv_plan(k, n, H100_CLUSTER_SMS)
+        lg = p.split.bit_length() - 1
+        if p.ctas > H100_CLUSTER_SMS[lg]:
+            fits = [tq8.GemvPlan(c, 2 ** i, -(-k // 2 ** i), -(-n // c))
+                    for c in tq8.GEMV_COLS for i in range(4)
+                    if -(-n // c) * 2 ** i <= H100_CLUSTER_SMS[i]]
+            assert not fits or min(
+                -(-f.kper // f.k_lanes) for f in fits) >= \
+                2 * -(-p.kper // p.k_lanes), (k, n, p)
+
+
+def test_q8_gemv_widening_is_exact_for_every_byte():
+    """The byte permute into 2^23 with the sign bit flipped, less
+    2^23 + 128, gives float(q) for all 256 bytes, at each byte position
+    of a word."""
+    from torch_q8_gemv_model import widen
+    b = np.arange(256, dtype=np.uint32)
+    want = b.astype(np.uint8).view(np.int8).astype(np.float32)
+    for pos in range(4):
+        got = widen(b << np.uint32(8 * pos))[:, pos]
+        np.testing.assert_array_equal(got, want)
+    assert widen(np.array([0x807F0181], np.uint32)).tolist() == \
+        [[-127.0, 1.0, 127.0, -128.0]]
+
+
+@pytest.mark.parametrize("m,k,n", CARD_GEMV_SHAPES + [(4, 1024, 1024)])
+def test_q8_gemv_model_matches_plain_and_jax(m, k, n):
+    """The kernel's sums in its order (tests/torch_q8_gemv_model.py, the
+    card's bits) against the plain version and the JAX op in interpret
+    mode, on x already rounded to bf16, at test_q8.py's tolerance."""
+    from torch_q8_gemv_model import gemv
+    rng = np.random.RandomState(m * 7 + n)
+    w = rng.randn(k, n).astype(np.float32)
+    x = np.array(jnp.asarray(rng.randn(m, k), jnp.bfloat16)
+                 .astype(jnp.float32))
+    q, s = ops.quantize_q8(torch.from_numpy(w))
+    got = gemv(torch.from_numpy(x), q, s.reshape(-1), H100_CLUSTER_SMS)
+    plain = tq8.q8_matmul_plain(torch.from_numpy(x), q, s)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=2e-2,
+                               atol=2e-2)
+    jq, js = jops.quantize_q8(jnp.asarray(w))
+    want = np.asarray(jops.q8_matmul(jnp.asarray(x), jq, js,
+                                     backend="pallas_interpret"))
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-2, atol=2e-2)
+    # bf16 x: the model casts as the kernel's store does
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    gb = gemv(xb, q, s.reshape(-1), H100_CLUSTER_SMS)
+    assert gb.dtype == torch.bfloat16
+    np.testing.assert_allclose(gb.float().numpy(), plain.numpy(),
+                               rtol=2e-2, atol=2e-2)
