@@ -1795,8 +1795,9 @@ def conv_products(config):
     ("lenet" or "resnet"), as (M, K, N, times per step, A's strides, B's
     strides): every conv's forward patches·W, dA = g·Wᵀ (all but the
     first conv) and dB = patchesᵀ·g, with the strides of the views the
-    autograd Function passes (patches, g and W are contiguous)."""
-    from lua_mapreduce_tpu_torch.ops.conv import _norm_padding
+    autograd Function passes (g and W are contiguous; the patch matrix's
+    rows lie at ``ops.conv.patch_pitch``)."""
+    from lua_mapreduce_tpu_torch.ops.conv import _norm_padding, patch_pitch
     out = []
     for label, mult, n, h, w, c_in, c_out, k, s, padding, with_da in \
             conv_cases():
@@ -1805,29 +1806,23 @@ def conv_products(config):
         ph, pw = _norm_padding(padding, k, k, h, w, s, s)
         m = n * ((h + sum(ph) - k) // s + 1) * ((w + sum(pw) - k) // s + 1)
         kk = k * k * c_in
-        out.append((m, kk, c_out, mult, (kk, 1), (c_out, 1)))
+        pitch = patch_pitch(kk)
+        out.append((m, kk, c_out, mult, (pitch, 1), (c_out, 1)))
         if with_da:
             out.append((m, c_out, kk, mult, (c_out, 1), (1, c_out)))
-        out.append((kk, m, c_out, mult, (1, kk), (c_out, 1)))
+        out.append((kk, m, c_out, mult, (1, pitch), (c_out, 1)))
     return out
 
 
-def matmul_splits(m, k, n, dtype_name, a_strides, b_strides,
-                  a_ptr=256, b_ptr=256):
-    """The K split csrc/matmul.cu picks for an (m, k)·(k, n) product of
-    operands with these (row, col) strides (16-byte aligned unless the
-    pointers say otherwise)."""
+def matmul_slab(m, k, n, dtype_name, a_strides, b_strides, a_ptr=256,
+                b_ptr=256):
+    """The f32 partials of that product's slab split (0: unsplit, or
+    its cluster sums the split in the kernel): a slab split also
+    launches the split-K reduce."""
     from lua_mapreduce_tpu_torch.ops import _build
-    return int(_build.library("matmul").lmr_matmul_splits(
+    return int(_build.library("matmul").lmr_matmul_slab(
         a_ptr, b_ptr, m, n, k, *a_strides, *b_strides,
         0 if dtype_name == "float32" else 1))
-
-
-def tensor_splits(a, b):
-    """matmul_splits for the operands themselves."""
-    return matmul_splits(a.shape[0], a.shape[1], b.shape[1],
-                         str(a.dtype).replace("torch.", ""), a.stride(),
-                         b.stride(), a.data_ptr(), b.data_ptr())
 
 
 def phase_conv_kernels(torch, gen):
@@ -1837,8 +1832,11 @@ def phase_conv_kernels(torch, gen):
     yardstick only: the port never calls it)."""
     import torch.nn.functional as F
     from lua_mapreduce_tpu_torch import ops
-    from lua_mapreduce_tpu_torch.ops.conv import _norm_padding, _pad_hw
-    from lua_mapreduce_tpu_torch.ops.matmul import matmul_cuda, matmul_plain
+    from lua_mapreduce_tpu_torch.ops.conv import (_norm_padding, _pad_hw,
+                                                  patch_pitch)
+    from lua_mapreduce_tpu_torch.ops.matmul import (matmul_cuda,
+                                                    matmul_kernel_plan,
+                                                    matmul_plain)
     from lua_mapreduce_tpu_torch.ops.pool import (_pool_plain, pool_cuda,
                                                   pool_kernel_plan)
     rows = []
@@ -1911,8 +1909,9 @@ def phase_conv_kernels(torch, gen):
         wo = (w + sum(pw) - k) // s + 1
         m, kk = n * ho * wo, k * k * c_in
         scale = kk ** -0.25
-        a = (torch.randn((m, kk), device="cuda", generator=gen)
-             * scale).to(bf16)
+        # the patch matrix at its row pitch, as ops.conv writes it
+        a = (torch.randn((m, patch_pitch(kk)), device="cuda", generator=gen)
+             * scale).to(bf16)[:, :kk]
         wt = (torch.randn((kk, c_out), device="cuda", generator=gen)
               * scale).to(bf16)
         g = (torch.randn((m, c_out), device="cuda", generator=gen)
@@ -1949,7 +1948,10 @@ def phase_conv_kernels(torch, gen):
             if not torch.equal(got, again):
                 raise AssertionError(f"matmul {label} {part}: two calls "
                                      f"differ")
+            sweep = (conv_plan_sweep(torch, f"{label} {part}", pa, pb, want)
+                     if (mm_, kk_, nn_) in SWEEP_PRODUCTS else None)
             del got, want, again
+            plan = matmul_kernel_plan(pa, pb)
             bms, by = bound(2 * mm_ * nn_ * kk_,
                             (mm_ * kk_ + kk_ * nn_ + mm_ * nn_) * 2,
                             peaks()[0])
@@ -1957,7 +1959,9 @@ def phase_conv_kernels(torch, gen):
                    "case": f"matmul conv {label} {part} ({mm_},{kk_})x"
                            f"({kk_},{nn_}) bfloat16",
                    "conv_config": label.split()[0], "per_step": mult,
-                   "splits": tensor_splits(pa, pb),
+                   "splits": plan.splits,
+                   "plan": {k_: v for k_, v in plan._asdict().items()
+                            if v is not None},
                    "max_abs_err": err, "norm_err": rel,
                    "ms": time_ms(lambda: matmul_cuda(pa, pb, bf16), torch),
                    "plain_ms": time_ms(lambda: matmul_plain(pa, pb, bf16),
@@ -1967,10 +1971,54 @@ def phase_conv_kernels(torch, gen):
                    "bound_ms": bms, "bound_by": by}
             if part == "fwd":
                 row["cudnn_conv_ms"] = conv_ms
+            if sweep:
+                row["plan_sweep_ms"] = sweep
             rows.append(row)
         del a, wt, g, prods
         torch.cuda.empty_cache()
     return rows
+
+
+# the two conv products whose plans phase 2 times against the others,
+# as (M, K, N): ResNet's first-stage weight gradient (K of 100,352: a
+# split of a 64-wide tile) and its last stage's 3×3 forward (1,568 × 512
+# outputs over K of 4,608: too few tiles for the SMs)
+SWEEP_PRODUCTS = ((576, 100352, 64), (1568, 4608, 512))
+
+
+def conv_plan_sweep(torch, label, a, b, want):
+    """A product at the wgmma kernel's plans (tile widths, unsplit with
+    either epilogue, splits as a cluster or a slab), each held to the
+    plain version ``want``: device ms by plan."""
+    from lua_mapreduce_tpu_torch.ops.matmul import (WG_MAX_CLUSTER,
+                                                    matmul_forced,
+                                                    matmul_kernel_plan)
+    m, k = a.shape
+    n = b.shape[1]
+    plan = matmul_kernel_plan(a, b)
+    units = -(-k // 64)
+    times = {}
+    for bn in (64, 128, 256):
+        if (n <= 64 and bn > 64) or (n <= 128 and bn > 128):
+            continue
+        for s in sorted({1, 2, 3, 4, 5, 6, 8, 16, plan.splits}):
+            chunk = -(-units // s)
+            if s > units or -(-units // chunk) != s:
+                continue
+            kinds = ([(1, "regs")] + ([(1, "tma")] if bn <= 128 else [])
+                     if s == 1 else
+                     [(1, "regs")] + ([(s, "regs")] if s <= WG_MAX_CLUSTER
+                                      else []))
+            for cl, epi in kinds:
+                tag = (f"128x{bn}/s{s}/"
+                       f"{'cluster' if cl > 1 else 'slab' if s > 1 else epi}")
+                got = matmul_forced(a, b, torch.bfloat16, bn, s, cl, epi)
+                check_close(f"sweep {label} {tag}", got, want, "bfloat16",
+                            norm_tol=NORM_TOL)
+                times[tag] = time_ms(
+                    lambda: matmul_forced(a, b, torch.bfloat16, bn, s, cl,
+                                          epi), torch)
+    return times
 
 
 def lenet_grads(torch, gen, batch=256):
@@ -2063,10 +2111,11 @@ def phase_conv(torch, ops, gen):
                                      "softmax_regs_kernel",
                                      "softmax_stream_kernel")))
         # the trace is whole if it lists every launch the step makes
+        # (a slab split's; a cluster split sums in the kernel)
         want_seen = {**per_step, "matmul_splitk_reduce": sum(
             mult for m_, k_, n_, mult, sa, sb in conv_products(
                 name.split("_")[0].rstrip("0123456789"))
-            if matmul_splits(m_, k_, n_, "bfloat16", sa, sb) > 1)}
+            if matmul_slab(m_, k_, n_, "bfloat16", sa, sb) > 0)}
         kernels, tries = whole_profile(
             torch, lambda: tr.run_steps(x, y, 1),
             lambda ks: {k: sum(r[2] for r in ks
@@ -6529,7 +6578,7 @@ def main():
                       f"{r['cold_ms']:.4f} ms, library "
                       f"{r['cold_library_ms']:.4f} ms")
         if r.get("plan_sweep_ms"):
-            extra += "; every plan (columns x split) " + ", ".join(
+            extra += "; every plan " + ", ".join(
                 f"{k} {v * 1e3:.2f} us" for k, v in r["plan_sweep_ms"].items())
         if r.get("path") is not None:
             extra += f", {r['path']} kernel"
@@ -6539,6 +6588,13 @@ def main():
             extra += f", {r['branch']} branch, two calls bit-equal"
         if r.get("n_split") is not None:
             extra += (f", n_split {r['n_split']}, two calls bit-equal")
+        if r.get("plan") is not None and r["kernel"] == "matmul_bf16":
+            p_ = r["plan"]
+            how = {"none": f"epilogue {p_.get('epilogue')}",
+                   "cluster": f"summed in a cluster of {p_.get('cluster')}",
+                   "slab": "summed through a slab"}[p_.get("reduce")]
+            extra += (f"; plan {p_['kernel']} {p_.get('tile')} split "
+                      f"{p_['splits']} ({how}), two calls bit-equal")
         if r.get("cudnn_conv_ms") is not None:
             extra += f"; the whole conv through cuDNN {r['cudnn_conv_ms']:.4f} ms"
         if r.get("library_note"):

@@ -902,13 +902,33 @@ class Worker:
                             f"{label} clone {jid}: revoked mid-body — "
                             "commit skipped")
             return False
+        push_map = ns == MAP_NS and self._push_on()
+        over = push_map and manifest_name(
+            spec.result_ns, map_key_str(jid)) in (job.get("leftovers") or ())
+        if over:
+            # the canonical manifest is an earlier iteration's leftover:
+            # the commit makes the job WRITTEN and discovery may read the
+            # canonical manifest at once, so this lineage is published
+            # over the leftover first. Should the commit then lose, the
+            # canonical lineage is this complete one, as when an original
+            # publishes over a clone's promote.
+            try:
+                promote(get_storage_from(spec.storage), spec.result_ns,
+                        map_key_str(jid), lineage_token(self.name),
+                        self._replication(), publish_over=True)
+            except Exception as exc:
+                self._spec_lost(ns, jid, time.time() - t0,
+                                f"{label} clone {jid}: promote over the "
+                                f"leftover failed ({type(exc).__name__}: "
+                                f"{exc}) — commit skipped")
+                return False
         committed = self.store.commit_batch(ns, self.name,
                                             [(jid, _times_dict(times))])
         if not committed:
             self._spec_lost(ns, jid, time.time() - t0,
                             f"{label} clone {jid}: lost the commit race")
             return False
-        if ns == MAP_NS and self._push_on():
+        if push_map and not over:
             # first-commit-wins decided: this clone's quarantined inbox
             # lineage becomes the visible one. Best effort — the
             # server's ensure_canonical promotes a complete spec lineage
@@ -916,10 +936,7 @@ class Worker:
             try:
                 promote(get_storage_from(spec.storage), spec.result_ns,
                         map_key_str(jid), lineage_token(self.name),
-                        self._replication(),
-                        publish_over=manifest_name(
-                            spec.result_ns, map_key_str(jid))
-                        in (job.get("leftovers") or ()))
+                        self._replication())
             except Exception as exc:
                 _log.warning("[%s] push promote failed (%s: %s); the "
                              "server's backstop covers it", self.name,

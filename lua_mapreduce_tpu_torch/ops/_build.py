@@ -34,8 +34,11 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = {"matmul": "matmul.cu", "softmax": "softmax.cu",
            "flash": "flash.cu", "flash_bwd": "flash_bwd.cu",
            "decode": "decode.cu", "q8": "q8.cu", "pool": "pool.cu"}
+# --split-compile=0: a source's device code is optimised on every core
+# (matmul.cu's ~50 kernel instantiations are the longest build)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile=0"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,8 +49,15 @@ _SIGNATURES = {
                               _I, _I, _P],
                "lmr_matmul_splits": [_P, _P, _I, _I, _I, _L, _L, _L, _L,
                                      _I],
+               "lmr_matmul_slab": [_P, _P, _I, _I, _I, _L, _L, _L, _L,
+                                   _I],
                "lmr_matmul_plan": [_P, _P, _I, _I, _I, _L, _L, _L, _L, _I,
                                    _P],
+               "lmr_matmul_plan_ex": [_P, _P, _I, _I, _I, _L, _L, _L, _L,
+                                      _I, _P],
+               "lmr_matmul_cluster_sms": [_P],
+               "lmr_matmul_forced": [_P, _P, _P, _P, _I, _I, _I, _L, _L,
+                                     _L, _L] + [_I] * 5 + [_P],
                "lmr_matmul_tma_available": []},
     "softmax": {"lmr_softmax": [_P, _P, _L, _I, _L] + [_I] * 7
                 + [_L, _P]},

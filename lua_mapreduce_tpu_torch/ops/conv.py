@@ -11,7 +11,11 @@ version. conv2d has no kernel of its own, in either package.
 
 Layouts are the JAX package's: activations NHWC, weights HWIO, so
 parameters cross from JAX unchanged and the patch order (kh, kw, c)
-matches ``w.reshape(kh*kw*cin, cout)``.
+matches ``w.reshape(kh*kw*cin, cout)``. The patch matrix's rows lie at a
+pitch of a multiple of 8 elements (:func:`patch_pitch`: the ResNet
+stem's 147 columns at 152, LeNet's 75 and 150 at 80 and 152): its values
+and shape are those of the (N·Ho·Wo, KH·KW·C) matrix, but TMA can read
+it (16-byte rows), so its products take the matmul kernel's wgmma path.
 
 ``conv2d_plain`` (``F.conv2d`` on NCHW views) plays the role of the JAX
 op's ``backend="xla"`` ``lax.conv_general_dilated``: an independent
@@ -85,19 +89,32 @@ def _sum_windows(g: torch.Tensor, shape, sh: int, sw: int) -> torch.Tensor:
                   stride=(sh, sw)).permute(0, 2, 3, 1)
 
 
+def patch_pitch(cols: int) -> int:
+    """The row pitch of a patch matrix of ``cols`` columns: the next
+    multiple of 8 elements (16 bytes in bf16)."""
+    return -(-cols // 8) * 8
+
+
 class _Im2col(torch.autograd.Function):
     """The patch tensor and its gradient, each in one copy: the forward
     reads x through a strided (N, Ho, Wo, KH, KW, C) view of its windows
-    and copies it once; the backward sums each window's gradient back
-    into place with ``F.fold`` (col2im, one gather per input element),
-    where KH·KW slices, a concatenation and their autograd would take
-    some 4·KH·KW launches each way (196 at the ResNet stem)."""
+    and copies it once, into rows at :func:`patch_pitch` (the pad columns
+    are never read: the result is a view of the first KH·KW·C); the
+    backward sums each window's gradient back into place with ``F.fold``
+    (col2im, one gather per input element), where KH·KW slices, a
+    concatenation and their autograd would take some 4·KH·KW launches
+    each way (196 at the ResNet stem)."""
 
     @staticmethod
     def forward(ctx, x, kh, kw, sh, sw, ho, wo):
         ctx.geom = (x.shape, kh, kw, sh, sw, ho, wo)
-        return _windows(x, kh, kw, sh, sw, ho, wo).reshape(
-            x.shape[0], ho, wo, kh * kw * x.shape[-1])
+        n, c = x.shape[0], x.shape[-1]
+        cols = kh * kw * c
+        out = torch.empty((n, ho, wo, patch_pitch(cols)), dtype=x.dtype,
+                          device=x.device)[..., :cols]
+        out.view(n, ho, wo, kh, kw, c).copy_(
+            _windows(x, kh, kw, sh, sw, ho, wo))
+        return out
 
     @staticmethod
     def backward(ctx, g):

@@ -14,28 +14,42 @@
 // TFLOP/s; the digits f32 products (a few MFLOP) latency and launch.
 //
 // What the design does about it:
-//  * Split-K, decided here (lmr_matmul_splits, from M, N, K, the dtype and
-//    the device's SM count): when the output tiles leave SMs idle, K is
-//    cut into equal chunks of whole K units, each (tile, chunk) block
-//    writes an f32 partial, and splitk_reduce_kernel sums the partials in
-//    split order and casts once — no atomics, so the result is
-//    bit-identical from run to run. The caller allocates the scratch.
+//  * The plan, decided here (plan_of; lmr_matmul_plan_ex says it): the
+//    kernel from the dtype and the layout, then the split and, for bf16,
+//    the tile, the epilogue and how a split is summed, from M, N, K and
+//    the device's occupancy (bf16_plan, a cost model whose rates are
+//    what the kernels reach on the H100). When the output tiles leave
+//    SMs idle, K is cut into equal chunks of whole K units. A split of
+//    the wgmma kernel into 2-8 chunks (the portable cluster size) may
+//    run as one thread block cluster a tile, summed through distributed
+//    shared memory in rank order (gemm_sm90.cuh), where the plan finds
+//    that faster; any other split writes f32 partials to a slab that
+//    splitk_reduce_kernel sums in split order and casts once
+//    (the caller allocates the slab: lmr_matmul_slab). No atomics, so
+//    every result is bit-identical from run to run.
 //  * bf16 operands that TMA can read (16-byte aligned base, unit stride
 //    along one axis, the other stride a multiple of 8 elements) take the
 //    pipelined wgmma mainloop of gemm_sm90.cuh, in any of the four
 //    major-ness combinations: x·W, g·Wᵀ (B K-major), hᵀ·g (A M-major).
-//  * Other bf16 layouts take matmul_bf16_kernel: a 128 × BN tile (BN 32,
-//    64 or 128 by N, so the conv paths' narrow products do not compute a
-//    128-wide tile of zeros) with WMMA 16×16×16 fragments; the next
-//    K-tile's loads are in flight while the current one is computed. A
-//    tile is read in 16-byte vectors along whichever axis is contiguous
-//    when that axis is a multiple of 8. The conv operands' contiguous
-//    axes are not (patches rows of 75, 147 or 150; g rows of 6 or 16),
-//    but each is a contiguous matrix, so the slab a tile needs — K rows
-//    k0..k0+32 of patchesᵀ or g, or all K of 128 patches rows — is one
-//    span of memory: cp.async copies it in 16-byte pieces into a staging
-//    area, and the block spreads it into the tile. Anything else is read
-//    element by element, neighbouring threads on neighbouring addresses.
+//    Its tile is 128 × 64 for N <= 64 (ResNet's first stage, the stem's
+//    and LeNet c2's products: no 128-wide tile of zeros), 128 × 128 for
+//    N <= 128, else 128 × 128 or 128 × 256 by the cost model; a 64- or
+//    128-wide unsplit tile stores C through TMA, overlapped with the
+//    next tile's math (the dA products' 1-8 K-tiles a tile would
+//    otherwise wait on their stores). ops/conv.py gives the patch matrix
+//    a 16-byte row pitch (the stem's 147 columns at 152, LeNet c2's 150
+//    at 152), so that its products take this kernel too.
+//  * Other bf16 layouts (LeNet c1's W and g, rows of 6; unaligned views)
+//    take matmul_bf16_kernel (the general kernel): the same tensor cores
+//    through wgmma from shared memory, its tiles written there by the
+//    block in the swizzled layout wgmma reads. Each conv operand is a
+//    contiguous matrix or a row-pitched one, so the slab a tile needs —
+//    64 rows of g, 64 columns of patchesᵀ, or all K of 128 patches rows
+//    — is one span of memory: cp.async copies it in 16-byte pieces into
+//    a staging ring, and the block spreads it into the tile, a 16-byte
+//    unit at a time where the pitch is a multiple of 8. Other layouts
+//    are read in 16-byte vectors along a contiguous axis whose extent
+//    and pitch are multiples of 8, else element by element.
 //  * f32 inputs use full FP32 FMAs, never TF32, in one of three kernels
 //    chosen by the output's shape alone (f32_path):
 //    - an output of at most F32_SMALL_MN elements (the digits step's
@@ -81,7 +95,6 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <cmath>
@@ -91,6 +104,8 @@
 
 using bf16 = __nv_bfloat16;
 using sm90::aligned16;
+using sm90::EPI_REGS;
+using sm90::EPI_TMA;
 
 enum { DT_F32 = 0, DT_BF16 = 1 };
 
@@ -539,235 +554,228 @@ static int launch(const float* A, const float* B, void* C, bool out_f32,
 }  // namespace f32w
 
 // ------------------------------------------------- bf16, general layouts
-// 128 × BN output tile, BK=32, 8 warps; each warp 16·FM × 32 with WMMA
-// 16×16×16 bf16 fragments and f32 accumulators, two shared-memory tile
-// buffers. Loads run ahead of the math: flat slabs RSTAGES - 1 tiles
-// ahead through a cp.async ring of staging buffers, strided tiles one
-// tile ahead through registers (2 × 16 bytes of A, up to 2 of B per
-// thread). A slab is then spread into the tile by threads walking the
-// tile's rows, so the scattered shared-memory writes do not collide in
-// one bank.
+// The layouts TMA cannot read (the source note): a 128 × BN output tile
+// (BN 64 for N <= 64, else 128) of two warpgroups, each 64 rows, on
+// wgmma m64nBNk16 from shared memory, K-tiles of 64. Each K-tile of A
+// and B is written into shared memory in the 128-byte-swizzled layout
+// wgmma reads (the one TMA would write), in 16-byte units of 8 elements
+// along whichever axis the operand is contiguous in: A K-major or
+// M-major, B N-major or K-major, so a unit is one 16-byte read of a
+// staged slab or of device memory wherever the pitch allows it. A tile
+// comes from one of:
+//  * a flat slab (FLAT_C / FLAT_R): the operand is contiguous along one
+//    axis with a row pitch of at least its extent (the conv operands:
+//    patches rows of 75, 80 or 152, g rows of 6 or 16), so the rows a
+//    tile needs are one span of memory. cp.async copies the span in
+//    16-byte pieces (its start is 16-byte aligned: tiles start at
+//    multiples of 64 rows) into a staging ring of RSTAGES slots, tiles
+//    RSTAGES - 1 ahead; a span along K that holds every K-tile of the
+//    block (A's rows, B's columns) is loaded once. The block then
+//    spreads it into the swizzled tile: one 16-byte load a unit where the
+//    pitch is a multiple of 8, else element by element.
+//  * registers (VEC_C / VEC_R: 16-byte vectors along a contiguous axis
+//    whose extent and pitch are multiples of 8; SCALAR: elements), one
+//    tile ahead.
+// Two tile buffers: tile t is spread into buffer t % 2 while the wgmma
+// group of tile t - 1 runs on the other; a warpgroup waits for the group
+// of tile t - 2 before the block overwrites its buffer. Two barriers a
+// K-tile of 64 (the first kernel's WMMA steps took two a 32-deep step).
 
 namespace bf16k {
-using namespace nvcuda;
-constexpr int BM = 128, BK = 32, NT = 256, LDA = BK + 8;
+constexpr int BM = 128, BK = 64, NT = 256;
 // flat slabs, in elements: one that spans all of K is loaded once (up to
-// 20480: all K of 128 patches rows up to K = 160, past the ResNet stem's
-// 147); one per K-tile (up to 8192: BK rows of patchesᵀ or g up to 256
-// wide) goes through a ring of RSTAGES buffers
-constexpr int RAW_ONCE = 20480, RAW_TILE = 8192, RSTAGES = 4;
+// GEN_RAW_ONCE: all K of 128 patches rows at a pitch up to 160); one per
+// K-tile (up to GEN_RAW_TILE: 64 rows of g, or 64 columns of patchesᵀ, at
+// a pitch up to 128) goes through a ring of GEN_RSTAGES slots
+#define GEN_RAW_ONCE 20480
+#define GEN_RAW_TILE 8192
+#define GEN_RSTAGES 4
+constexpr int RAW_ONCE = GEN_RAW_ONCE, RAW_TILE = GEN_RAW_TILE,
+              RSTAGES = GEN_RSTAGES;
 
 // how a tile reaches shared memory
 enum Mode { VEC_C = 0, VEC_R = 1, SCALAR = 2, FLAT_C = 3, FLAT_R = 4 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
-                   sm90::smem_u32(dst)), "l"(src) : "memory");
+// 16 bytes into shared memory, of which the first `bytes` are read (the
+// rest zero-filled)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   sm90::smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
 }
 
-// One operand tile: ROWS × COLS of a strided matrix (element (r, c) at
-// P[r*sr + c*sc], valid for r < R, c < C) into S[r*LD + c].
-//  * VEC_C / VEC_R / SCALAR: each thread stages NV 16-byte registers.
-//  * FLAT_C / FLAT_R: the matrix is contiguous along c (sr == C) / r
-//    (sc == R) and the tile's slab — its rows (FLAT_C) or columns
-//    (FLAT_R) over the whole contiguous axis — is one span of memory,
-//    copied by cp.async into Raw and spread into S by convert().
-template <int ROWS, int COLS, int LD>
-struct Tile {
-  static constexpr int NV = (ROWS * COLS / 8 + NT - 1) / NT;
-  uint4 v[NV];
-
-  __device__ __forceinline__ static void span(int r0, int c0, int R, int C,
-                                              int mode, long long& lo,
-                                              long long& hi) {
-    if (mode == FLAT_C) {                   // rows r0.. of an (R, C) matrix
-      const int r1 = r0 + ROWS < R ? r0 + ROWS : R;
-      lo = (long long)r0 * C;
-      hi = (long long)r1 * C;
-    } else {                                // cols c0.. of a col-major one
-      const int c1 = c0 + COLS < C ? c0 + COLS : C;
-      lo = (long long)c0 * R;
-      hi = (long long)c1 * R;
-    }
-  }
-
-  // issue the loads of the tile at (r0, c0)
-  __device__ __forceinline__ void load(const bf16* __restrict__ P, bf16* Raw,
-                                       int r0, int c0, int R, int C,
-                                       long long sr, long long sc, int mode) {
-    const int tid = threadIdx.x;
-    if (mode >= FLAT_C) {
-      long long lo, hi;
-      span(r0, c0, R, C, mode, lo, hi);
-      const int n = static_cast<int>(hi - lo);
-      for (int q = tid; q * 8 < n; q += NT) {
-        if (q * 8 + 8 <= n) {
-          cp_async16(Raw + q * 8, P + lo + q * 8);
-        } else {                            // the span's ragged end
-          for (int k = q * 8; k < n; ++k) Raw[k] = P[lo + k];
-        }
-      }
-      return;
-    }
-#pragma unroll
-    for (int j = 0; j < NV; ++j) {
-      const int q = tid + j * NT;           // this thread's j-th vector
-      uint4 x = make_uint4(0, 0, 0, 0);
-      if (q < ROWS * COLS / 8) {
-        if (mode == VEC_C) {
-          const int gr = r0 + q / (COLS / 8), gc = c0 + (q % (COLS / 8)) * 8;
-          if (gr < R && gc < C)
-            x = *reinterpret_cast<const uint4*>(P + gr * sr + gc);
-        } else if (mode == VEC_R) {
-          const int gr = r0 + (q % (ROWS / 8)) * 8, gc = c0 + q / (ROWS / 8);
-          if (gr < R && gc < C)
-            x = *reinterpret_cast<const uint4*>(P + gr + gc * sc);
-        } else {
-          bf16* e = reinterpret_cast<bf16*>(&x);
-          const bool c_fast = sc <= sr;
-#pragma unroll
-          for (int k = 0; k < 8; ++k) {
-            const int i = (j * 8 + k) * NT + tid;
-            if (i >= ROWS * COLS) break;
-            const int gr = r0 + (c_fast ? i / COLS : i % ROWS);
-            const int gc = c0 + (c_fast ? i % COLS : i / ROWS);
-            if (gr < R && gc < C) e[k] = P[gr * sr + gc * sc];
-          }
-        }
-      }
-      v[j] = x;
-    }
-  }
-
-  // write the loaded tile into S (every position: zeros outside the
-  // matrix). A flat slab must have landed in Raw and be visible to the
-  // block. Its rows past the matrix hold zeros that stay: they are
-  // written only with zero_tail (each buffer's first fill, or always
-  // when the rows run along K and move from tile to tile).
-  __device__ __forceinline__ void store(bf16* S, const bf16* Raw, int r0,
-                                        int c0, int R, int C, long long sr,
-                                        long long sc, int mode,
-                                        int slab_r0, int slab_c0,
-                                        bool zero_tail) const {
-    const int tid = threadIdx.x;
-    if (mode >= FLAT_C) {
-      // walk the tile row by row (c fastest): the writes to S are
-      // consecutive; the slab starts at row slab_r0 (FLAT_C) or column
-      // slab_c0 (FLAT_R)
-      const bf16 zero = __float2bfloat16(0.f);
-      const int valid = R - r0 < ROWS ? (R - r0 > 0 ? R - r0 : 0) : ROWS;
-      const int n = (zero_tail ? ROWS : valid) * COLS;
-#pragma unroll 4
-      for (int d = tid; d < n; d += NT) {
-        const int r = d / COLS, c = d % COLS;
-        const int gr = r0 + r, gc = c0 + c;
-        bf16 x = zero;
-        if (gr < R && gc < C)
-          x = mode == FLAT_C ? Raw[(gr - slab_r0) * C + gc]
-                             : Raw[(gc - slab_c0) * R + gr];
-        S[r * LD + c] = x;
-      }
-      return;
-    }
-#pragma unroll
-    for (int j = 0; j < NV; ++j) {
-      const int q = tid + j * NT;
-      if (q >= ROWS * COLS / 8) break;
-      const bf16* e = reinterpret_cast<const bf16*>(&v[j]);
-      if (mode == VEC_C) {
-        const int r = q / (COLS / 8), c = (q % (COLS / 8)) * 8;
-        *reinterpret_cast<uint4*>(S + r * LD + c) = v[j];
-      } else if (mode == VEC_R) {
-        const int r = (q % (ROWS / 8)) * 8, c = q / (ROWS / 8);
-#pragma unroll
-        for (int k = 0; k < 8; ++k) S[(r + k) * LD + c] = e[k];
-      } else {
-        const bool c_fast = sc <= sr;
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const int i = (j * 8 + k) * NT + tid;
-          if (i >= ROWS * COLS) break;
-          const int r = c_fast ? i / COLS : i % ROWS;
-          const int c = c_fast ? i % COLS : i / ROWS;
-          S[r * LD + c] = e[k];
-        }
-      }
-    }
-  }
+// An (R, C) operand, element (r, c) at P[r·sr + c·sc]. A is (M, K), B
+// (K, N). cm: its units run along C (A K-major, B N-major), else along R.
+struct Opnd {
+  const bf16* P;
+  int R, C, mode;
+  long long sr, sc;
+  bool cm;
 };
 
-// the mode for a tile of an operand: FLAT when the matrix is contiguous
-// (every slab then starts 16-byte aligned) and the slab fits its staging
-// (k_is_c: the operand's C axis is K, so a FLAT_C slab spans all of K and
-// is loaded once; else a FLAT_R one is); else 16-byte vectors along a
-// contiguous axis of a multiple of 8; else scalars
+// Unit q of a ROWS × COLS tile at (r0, c0): its place (y, u) in the
+// tile (u: the unit along the contiguous axis) and its first element.
 template <int ROWS, int COLS>
+__device__ __forceinline__ void unit_at(bool cm, int q, int r0, int c0,
+                                        int& y, int& u, int& r, int& c) {
+  if (cm) {
+    u = q % (COLS / 8);
+    y = q / (COLS / 8);
+    r = r0 + y;
+    c = c0 + 8 * u;
+  } else {
+    u = q % (ROWS / 8);
+    y = q / (ROWS / 8);
+    c = c0 + y;
+    r = r0 + 8 * u;
+  }
+}
+
+// Byte offset of unit (y, u) in the swizzled tile: rows of 128 bytes
+// along y, in chunks of 64 elements along the contiguous axis (the
+// layout of TMA's 128-byte-swizzled boxes of 64 × rows)
+template <int ROWS, int COLS>
+__device__ __forceinline__ uint32_t unit_off(bool cm, int y, int u) {
+  const int ylen = cm ? ROWS : COLS;
+  return (u >> 3) * (ylen * 128) + y * 128 + (((u & 7) ^ (y & 7)) << 4);
+}
+
+// a unit from device memory (the register modes), zeros outside
+__device__ __forceinline__ uint4 load_unit(const Opnd& o, int r, int c) {
+  uint4 x = make_uint4(0, 0, 0, 0);
+  if (o.mode == VEC_C) {
+    if (r < o.R && c < o.C)
+      x = *reinterpret_cast<const uint4*>(o.P + r * o.sr + c);
+  } else if (o.mode == VEC_R) {
+    if (r < o.R && c < o.C)
+      x = *reinterpret_cast<const uint4*>(o.P + r + c * o.sc);
+  } else {
+    bf16* e = reinterpret_cast<bf16*>(&x);
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (r < o.R && c + k < o.C) e[k] = o.P[r * o.sr + (c + k) * o.sc];
+  }
+  return x;
+}
+
+// a unit from a staged slab whose first row (FLAT_C) or column (FLAT_R)
+// is slab0, zeros outside
+__device__ __forceinline__ uint4 raw_unit(const bf16* Raw, const Opnd& o,
+                                          int r, int c, int slab0) {
+  uint4 x = make_uint4(0, 0, 0, 0);
+  bf16* e = reinterpret_cast<bf16*>(&x);
+  if (o.mode == FLAT_C) {
+    if (r >= o.R) return x;
+    const bf16* s = Raw + (long long)(r - slab0) * o.sr + c;
+    if (c + 8 <= o.C && (o.sr & 7) == 0)
+      return *reinterpret_cast<const uint4*>(s);
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (c + k < o.C) e[k] = s[k];
+  } else {
+    if (c >= o.C) return x;
+    const bf16* s = Raw + (long long)(c - slab0) * o.sc + r;
+    if (r + 8 <= o.R && (o.sc & 7) == 0)
+      return *reinterpret_cast<const uint4*>(s);
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (r + k < o.R) e[k] = s[k];
+  }
+  return x;
+}
+
+// issue the copies of a slab: n elements from P + lo into Raw, in
+// 16-byte pieces by cp.async; the span's ragged end reads only its own
+// elements (no thread waits on a load here)
+__device__ __forceinline__ void issue_slab(bf16* Raw, const bf16* P,
+                                           long long lo, long long n) {
+  for (long long q = threadIdx.x; q * 8 < n; q += NT) {
+    const long long left = n - q * 8;
+    cp_async16(Raw + q * 8, P + lo + q * 8,
+               left >= 8 ? 16 : static_cast<int>(left) * 2);
+  }
+}
+
+// the mode of an operand whose slab, were it flat, would span `extent`
+// rows or columns of the tile (the source note's order: flat, vectors,
+// scalars); k_is_c: its C axis is K (A), so a FLAT_C slab spans all of K
+// and is loaded once, else a FLAT_R one is
 static int pick_mode(const void* p, int R, int C, long long sr, long long sc,
-                     bool k_is_c) {
+                     int rows, int cols, bool k_is_c) {
   const bool al = aligned16(p);
-  if (al && sc == 1 && sr == C &&
-      (long long)ROWS * C <= (k_is_c ? RAW_ONCE : RAW_TILE))
+  if (al && sc == 1 && sr >= C &&
+      (long long)rows * sr <= (k_is_c ? RAW_ONCE : RAW_TILE))
     return FLAT_C;
-  if (al && sr == 1 && sc == R &&
-      (long long)COLS * R <= (k_is_c ? RAW_TILE : RAW_ONCE))
+  if (al && sr == 1 && sc >= R &&
+      (long long)cols * sc <= (k_is_c ? RAW_TILE : RAW_ONCE))
     return FLAT_R;
   if (al && sc == 1 && C % 8 == 0 && sr % 8 == 0) return VEC_C;
   if (al && sr == 1 && R % 8 == 0 && sc % 8 == 0) return VEC_R;
   return SCALAR;
 }
 
-// the fixed part of the dynamic shared memory; the flat staging follows
-template <int TBM, int BN>
-struct Smem {
-  static constexpr int LDB = BN + 8;
-  bf16 As[2][TBM * LDA];
-  bf16 Bs[2][BK * LDB];
-  float Cs[NT / 32][16 * 16];
-};
-
 // staging elements of one flat slab (a multiple of 8), 0 if not flat
-template <int ROWS, int COLS>
-static int slab_elems(int mode, int R, int C) {
-  const long long n = mode == FLAT_C ? (long long)ROWS * C
-                    : mode == FLAT_R ? (long long)COLS * R : 0;
+static int slab_elems(int mode, int rows, int cols, long long sr,
+                      long long sc) {
+  const long long n = mode == FLAT_C ? rows * sr
+                    : mode == FLAT_R ? cols * sc : 0;
   return static_cast<int>((n + 7) / 8 * 8);
 }
 
-// TBM × BN tiles: 128 × 32/64/128 by N, or 256 × 32 for a narrow product
-// with 128 < M ≤ 256 (LeNet c2's dB, 150 × 16), which a 128-row tile
-// would cut into a full block and a block of 22 rows
-template <int TBM, int BN>
-__global__ void __launch_bounds__(NT, TBM * BN <= 128 * 64 ? 2 : 1)
+template <int BN>
+struct Smem {
+  static constexpr int A_BYTES = BM * BK * 2, B_BYTES = BN * BK * 2;
+  // two tile buffers after up to 1 KB of alignment (swizzle atoms)
+  static constexpr int TILES = 1024 + 2 * (A_BYTES + B_BYTES);
+};
+
+// d += A · B for one K-tile at (sa, sb): A K-major (TA 0) or M-major,
+// B N-major (TB 1) or K-major
+template <int BN, int TA, int TB>
+__device__ __forceinline__ void mma_tile(float (&d)[BN / 2], uint32_t sa,
+                                         uint32_t sb) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const uint64_t da = TA ? sm90::desc_sw128(sa + kk * 2048, 8192, 1024)
+                           : sm90::desc_sw128(sa + kk * 32, 16, 1024);
+    const uint64_t db = TB ? sm90::desc_sw128(sb + kk * 2048, 8192, 1024)
+                           : sm90::desc_sw128(sb + kk * 32, 16, 1024);
+    if constexpr (BN == 128)
+      sm90::wgmma_128<TA, TB>(d, da, db);
+    else
+      sm90::wgmma_64<TA, TB>(d, da, db);
+  }
+}
+
+// two blocks an SM for the 64-wide tile (LeNet c1's products: one block
+// stages while the other multiplies); the 128-wide one keeps its
+// registers
+template <int BN>
+__global__ void __launch_bounds__(NT, BN == 64 ? 2 : 1)
 matmul_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
                    void* C, bool out_f32, float* Part, int M, int N, int K,
                    long long sam, long long sak, long long sbk,
                    long long sbn, int a_mode, int b_mode, int kt_per,
                    int raw_a, int raw_b) {
-  constexpr int LDB = Smem<TBM, BN>::LDB;
-  constexpr int WARPS_N = BN / 32, WARPS_M = 8 / WARPS_N;
-  constexpr int WM = TBM / WARPS_M, FM = WM / 16, FN = 2;
-  extern __shared__ __align__(128) uint8_t general_smem[];
-  Smem<TBM, BN>& sm = *reinterpret_cast<Smem<TBM, BN>*>(general_smem);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const int m0 = blockIdx.y * TBM, n0 = blockIdx.x * BN;
-  const int kt_all = (K + BK - 1) / BK, kt0 = blockIdx.z * kt_per;
-  const int nkt = kt_per < kt_all - kt0 ? kt_per : kt_all - kt0;
-  // a flat slab along K (A's FLAT_C, B's FLAT_R) spans every K-tile of
-  // the block: it is loaded once
+  using SM = Smem<BN>;
+  constexpr int UA = BM * BK / 8 / NT, UB = BN * BK / 8 / NT;
+  extern __shared__ __align__(16) uint8_t general_smem[];
+  const uint32_t raw0 = sm90::smem_u32(general_smem);
+  const uint32_t tiles = (raw0 + 1023) & ~1023u;
+  uint8_t* gtiles = general_smem + (tiles - raw0);
   const bool a_once = a_mode == FLAT_C, b_once = b_mode == FLAT_R;
   const bool a_flat = a_mode >= FLAT_C, b_flat = b_mode >= FLAT_C;
-  bf16* RawA =
-      reinterpret_cast<bf16*>(general_smem + sizeof(Smem<TBM, BN>));
-  bf16* RawB = RawA + (a_once ? 1 : RSTAGES) * raw_a;
-  Tile<TBM, BK, LDA> ta;
-  Tile<BK, BN, LDB> tb;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+  bf16* RawA = reinterpret_cast<bf16*>(general_smem + SM::TILES);
+  bf16* RawB = RawA + (a_flat ? (a_once ? 1 : RSTAGES) * raw_a : 0);
+  const Opnd oa = {A, M, K, a_mode, sam, sak,
+                   a_mode == VEC_C || a_mode == SCALAR || a_mode == FLAT_C};
+  const Opnd ob = {B, K, N, b_mode, sbk, sbn,
+                   b_mode == VEC_C || b_mode == SCALAR || b_mode == FLAT_C};
+  const int wg = threadIdx.x / 128, t4 = threadIdx.x % 128;
+  const int w4 = t4 / 32, lane = t4 % 32;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int kt_all = (K + BK - 1) / BK, kt0 = blockIdx.z * kt_per;
+  const int nkt = kt_per < kt_all - kt0 ? kt_per : kt_all - kt0;
 
   // the staging slot of tile t's slab
   auto raw_a_of = [&](int t) { return RawA + (a_once ? 0 : t % RSTAGES) * raw_a; };
@@ -777,121 +785,209 @@ matmul_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
   auto issue = [&](int t) {
     if (t < nkt) {
       const int k0 = (kt0 + t) * BK;
-      if (a_flat && (!a_once || t == 0))
-        ta.load(A, raw_a_of(t), m0, a_once ? 0 : k0, M, K, sam, sak, a_mode);
-      if (b_flat && (!b_once || t == 0))
-        tb.load(B, raw_b_of(t), b_once ? 0 : k0, n0, K, N, sbk, sbn, b_mode);
+      if (a_flat && (!a_once || t == 0)) {
+        if (a_once) {                      // rows m0.. of A, all of K
+          const int r1 = m0 + BM < M ? m0 + BM : M;
+          issue_slab(raw_a_of(t), A, (long long)m0 * sam,
+                     r1 > m0 ? (long long)(r1 - 1 - m0) * sam + K : 0);
+        } else {                           // columns k0.. of A, all of M
+          const int c1 = k0 + BK < K ? k0 + BK : K;
+          issue_slab(raw_a_of(t), A, (long long)k0 * sak,
+                     (long long)(c1 - 1 - k0) * sak + M);
+        }
+      }
+      if (b_flat && (!b_once || t == 0)) {
+        if (b_once) {                      // columns n0.. of B, all of K
+          const int c1 = n0 + BN < N ? n0 + BN : N;
+          issue_slab(raw_b_of(t), B, (long long)n0 * sbn,
+                     c1 > n0 ? (long long)(c1 - 1 - n0) * sbn + K : 0);
+        } else {                           // rows k0.. of B, all of N
+          const int r1 = k0 + BK < K ? k0 + BK : K;
+          issue_slab(raw_b_of(t), B, (long long)k0 * sbk,
+                     (long long)(r1 - 1 - k0) * sbk + N);
+        }
+      }
     }
     asm volatile("cp.async.commit_group;" ::: "memory");
   };
-  // register loads of tile t's strided operands
+  // register loads of tile t's units (the register modes)
+  uint4 va[UA], vb[UB];
   auto load = [&](int t) {
     const int k0 = (kt0 + t) * BK;
-    if (!a_flat) ta.load(A, nullptr, m0, k0, M, K, sam, sak, a_mode);
-    if (!b_flat) tb.load(B, nullptr, k0, n0, K, N, sbk, sbn, b_mode);
+    int y, u, r, c;
+    if (!a_flat) {
+#pragma unroll
+      for (int i = 0; i < UA; ++i) {
+        unit_at<BM, BK>(oa.cm, threadIdx.x + i * NT, m0, k0, y, u, r, c);
+        va[i] = load_unit(oa, r, c);
+      }
+    }
+    if (!b_flat) {
+#pragma unroll
+      for (int i = 0; i < UB; ++i) {
+        unit_at<BK, BN>(ob.cm, threadIdx.x + i * NT, k0, n0, y, u, r, c);
+        vb[i] = load_unit(ob, r, c);
+      }
+    }
   };
-  // tile t into buffer buf; its slabs have landed (wait_group, then the
-  // barrier makes every thread's copies visible)
-  auto store = [&](int t, int buf) {
+  // tile t into buffer buf, a 16-byte unit at a time
+  auto spread = [&](int t, int buf) {
     const int k0 = (kt0 + t) * BK;
+    uint8_t* ta = gtiles + buf * (SM::A_BYTES + SM::B_BYTES);
+    uint8_t* tb = ta + SM::A_BYTES;
+    int y, u, r, c;
+#pragma unroll
+    for (int i = 0; i < UA; ++i) {
+      unit_at<BM, BK>(oa.cm, threadIdx.x + i * NT, m0, k0, y, u, r, c);
+      const uint4 x = a_flat ? raw_unit(raw_a_of(t), oa, r, c,
+                                        a_once ? m0 : k0)
+                             : va[i];
+      *reinterpret_cast<uint4*>(ta + unit_off<BM, BK>(oa.cm, y, u)) = x;
+    }
+#pragma unroll
+    for (int i = 0; i < UB; ++i) {
+      unit_at<BK, BN>(ob.cm, threadIdx.x + i * NT, k0, n0, y, u, r, c);
+      const uint4 x = b_flat ? raw_unit(raw_b_of(t), ob, r, c,
+                                        b_once ? n0 : k0)
+                             : vb[i];
+      *reinterpret_cast<uint4*>(tb + unit_off<BK, BN>(ob.cm, y, u)) = x;
+    }
+  };
+
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  for (int t = 0; t < RSTAGES - 1; ++t) issue(t);
+  if (nkt > 0) load(0);
+  for (int t = 0; t < nkt; ++t) {
+    const int buf = t & 1;
+    // this warpgroup's group of tile t - 2 (buffer buf) has retired;
+    // tile t's slabs have landed for this thread, then for every thread
+    sm90::wgmma_wait<1>();
     asm volatile("cp.async.wait_group %0;" ::"n"(RSTAGES - 2) : "memory");
     __syncthreads();
-    ta.store(sm.As[buf], raw_a_of(t), m0, k0, M, K, sam, sak, a_mode, m0,
-             a_once ? 0 : k0, t < 2);
-    tb.store(sm.Bs[buf], raw_b_of(t), k0, n0, K, N, sbk, sbn, b_mode,
-             b_once ? 0 : k0, n0, true);
-  };
-
-  for (int t = 0; t < RSTAGES - 1; ++t) issue(t);
-  if (nkt > 0) {
-    load(0);
-    store(0, 0);
-  }
-  __syncthreads();
-  for (int it = 0; it < nkt; ++it) {
-    const int cur = it & 1;
-    // slot (it + RSTAGES - 1) % RSTAGES held tile it - 1, spread into
-    // the tiles before the last barrier
-    issue(it + RSTAGES - 1);
-    if (it + 1 < nkt) load(it + 1);        // in flight during the math
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[FN];
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(fa[i], sm.As[cur] + (wm * WM + i * 16) * LDA +
-                                          kk, LDA);
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(fb[j], sm.Bs[cur] + kk * LDB + wn * 32 +
-                                          j * 16, LDB);
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    if (it + 1 < nkt) store(it + 1, cur ^ 1);
+    // the slot of tile t - 1, spread before the barrier
+    issue(t + RSTAGES - 1);
+    spread(t, buf);
+    // generic-proxy writes, read next by wgmma (the async proxy)
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
     __syncthreads();
-  }
-  // epilogue: each fragment goes through a per-warp f32 scratch tile so
-  // the store can mask the ragged edge and cast once
-  float* part = gridDim.z > 1 ? Part + (long long)blockIdx.z * M * N : nullptr;
-  float* cs = sm.Cs[warp];
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) {
-      wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int r0 = m0 + wm * WM + i * 16, c0 = n0 + wn * 32 + j * 16;
-      for (int e = lane; e < 256; e += 32) {
-        const int gr = r0 + e / 16, gc = c0 + e % 16;
-        if (gr < M && gc < N)
-          put(C, out_f32, part, (long long)gr * N + gc, cs[e]);
-      }
-      __syncwarp();
+    if (t + 1 < nkt) load(t + 1);          // in flight during the math
+    const uint32_t sa = tiles + buf * (SM::A_BYTES + SM::B_BYTES) + wg * 8192;
+    const uint32_t sb = tiles + buf * (SM::A_BYTES + SM::B_BYTES) +
+                        SM::A_BYTES;
+    sm90::wgmma_fence();
+    if (oa.cm) {
+      if (ob.cm) mma_tile<BN, 0, 1>(acc, sa, sb);
+      else mma_tile<BN, 0, 0>(acc, sa, sb);
+    } else {
+      if (ob.cm) mma_tile<BN, 1, 1>(acc, sa, sb);
+      else mma_tile<BN, 1, 0>(acc, sa, sb);
     }
+    sm90::wgmma_commit();
+  }
+  sm90::wgmma_wait<0>();
+  sm90::fence_acc(acc);
+  asm volatile("cp.async.wait_all;" ::: "memory");
+
+  // accumulator fragment: register 4j + 2h + {0,1} of warp w4, lane l
+  // holds row 16·w4 + l/4 + 8h of the warpgroup's 64, columns 8j +
+  // 2(l%4) + {0,1}
+  float* part = gridDim.z > 1 ? Part + (long long)blockIdx.z * M * N : nullptr;
+  const int rbase = m0 + wg * 64 + w4 * 16 + lane / 4;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = n0 + j * 8 + (lane % 4) * 2;
+    if (col >= N) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = rbase + 8 * h;
+      if (row >= M) continue;
+      const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      const long long off = (long long)row * N + col;
+      if (part != nullptr)
+        sm90::store_pair(part + off, v0, v1, col, N);
+      else if (out_f32)
+        sm90::store_pair(static_cast<float*>(C) + off, v0, v1, col, N);
+      else
+        sm90::store_pair(static_cast<bf16*>(C) + off, v0, v1, col, N);
+    }
+  }
 }
 
-template <int TBM, int BN>
+// the dynamic shared memory of a launch with these modes
+template <int BN>
+static int smem_bytes(int a_mode, int b_mode, int raw_a, int raw_b) {
+  return Smem<BN>::TILES +
+         ((a_mode == FLAT_C ? 1 : a_mode == FLAT_R ? RSTAGES : 0) * raw_a +
+          (b_mode == FLAT_R ? 1 : b_mode == FLAT_C ? RSTAGES : 0) * raw_b) *
+             (int)sizeof(bf16);
+}
+
+// The modes, staging and shared memory of a product on the general
+// kernel of tile width BN
+struct Staging {
+  int a_mode, b_mode, raw_a, raw_b, bytes;
+};
+template <int BN>
+static Staging staging(const void* A, const void* B, int M, int N, int K,
+                       long long sam, long long sak, long long sbk,
+                       long long sbn) {
+  Staging s;
+  s.a_mode = pick_mode(A, M, K, sam, sak, BM, BK, true);
+  s.b_mode = pick_mode(B, K, N, sbk, sbn, BK, BN, false);
+  s.raw_a = slab_elems(s.a_mode, BM, BK, sam, sak);
+  s.raw_b = slab_elems(s.b_mode, BK, BN, sbk, sbn);
+  s.bytes = smem_bytes<BN>(s.a_mode, s.b_mode, s.raw_a, s.raw_b);
+  return s;
+}
+
+// the most shared memory a launch takes (two operands staged through a
+// ring each): set once per instantiation
+template <int BN>
+static int prepare() {
+  constexpr int ring = RSTAGES * RAW_TILE > RAW_ONCE ? RSTAGES * RAW_TILE
+                                                      : RAW_ONCE;
+  constexpr int most = Smem<BN>::TILES + 2 * ring * (int)sizeof(bf16);
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        matmul_bf16_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        most);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr = true;
+  }
+  return 0;
+}
+
+// blocks of this launch resident on one SM (0: the query failed)
+template <int BN>
+static int resident(const Staging& s) {
+  if (prepare<BN>() != 0) return 0;
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, matmul_bf16_kernel<BN>, NT, s.bytes) != cudaSuccess)
+    return 0;
+  return n;
+}
+
+template <int BN>
 static int launch(const bf16* A, const bf16* B, void* C, bool out_f32,
                   float* part, int M, int N, int K, long long sam,
                   long long sak, long long sbk, long long sbn, int splits,
                   int kt_per, cudaStream_t s) {
-  constexpr int most = (int)sizeof(Smem<TBM, BN>) +
-                       2 * RSTAGES * RAW_TILE * (int)sizeof(bf16);
-  static bool attr = false;   // once per instantiation
-  if (!attr) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        matmul_bf16_kernel<TBM, BN>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, most);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    attr = true;
-  }
-  const int a_mode = pick_mode<TBM, BK>(A, M, K, sam, sak, true);
-  const int b_mode = pick_mode<BK, BN>(B, K, N, sbk, sbn, false);
-  const int raw_a = slab_elems<TBM, BK>(a_mode, M, K);
-  const int raw_b = slab_elems<BK, BN>(b_mode, K, N);
-  const int bytes = (int)sizeof(Smem<TBM, BN>) +
-                    ((a_mode == FLAT_C ? 1 : RSTAGES) * raw_a +
-                     (b_mode == FLAT_R ? 1 : RSTAGES) * raw_b) *
-                        (int)sizeof(bf16);
-  dim3 grid((N + BN - 1) / BN, (M + TBM - 1) / TBM, splits);
-  matmul_bf16_kernel<TBM, BN><<<grid, NT, bytes, s>>>(
-      A, B, C, out_f32, part, M, N, K, sam, sak, sbk, sbn, a_mode, b_mode,
-      kt_per, raw_a, raw_b);
+  const int rc = prepare<BN>();
+  if (rc != 0) return rc;
+  const Staging st = staging<BN>(A, B, M, N, K, sam, sak, sbk, sbn);
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
+  matmul_bf16_kernel<BN><<<grid, NT, st.bytes, s>>>(
+      A, B, C, out_f32, part, M, N, K, sam, sak, sbk, sbn, st.a_mode,
+      st.b_mode, kt_per, st.raw_a, st.raw_b);
   return 0;
-}
-
-// the general kernel's tile height for an M × N output
-static int tile_m(int M, int N) {
-  return M > BM && M <= 256 && N <= 32 ? 256 : BM;
 }
 }  // namespace bf16k
 
-// ------------------------------------------------------------ the split
+// ------------------------------------------------------------ the plan
 
 static long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
 
@@ -926,53 +1022,38 @@ static int choose_path(const void* a, const void* b, int M, int N, int K,
              ? PATH_TMA : PATH_GENERAL;
 }
 
-// K is cut in units of 64 (bf16: one wgmma K-tile, two of the general
-// kernel's) or 16 (f32: one K-tile). For every kernel but f32w (below) a
-// small cost model picks the split:
-// per block, the K units it walks, each costing the larger of its math
-// (the tensor cores at 60% of one SM's share of the card's peak for the
-// wgmma kernel, 30% for the WMMA one; FP32 FMA at 50%), its operand
-// bytes at one SM's share of 3 TB/s and, for the general kernel, a
-// floor of 4 µs for its two 32-deep steps (each waits on staging,
-// spreading and two barriers, whatever the tile's width); plus ~2 µs of
-// set-up; times the waves of blocks (two resident per SM for the
-// general kernel below BN 128, else one); plus, with a split, the f32
-// partials written and read back and the reduce launch. Ties go to
-// fewer splits. Returns the split count (1: none) and the chunk in units.
-static int plan_uncached(int M, int N, int K, int dtype, int path, int sms,
-                         int* chunk) {
-  const int unit = dtype == DT_F32 ? 16 : 64;
-  const long long units = cdiv(K, unit);
+// What a product runs: its split (1: none) and chunk (K units of 64 for
+// bf16, 16 for f32, a split), and for bf16 the tile width, the cluster
+// (1: none; else the split, summed in the kernel) and the epilogue of an
+// unsplit tile. A split without a cluster writes f32 partials to a slab
+// that splitk_reduce_kernel sums.
+struct Plan {
+  int splits, chunk, bn, cluster, epi;
+};
+
+// f32k's split (the digits step's small products): per block, the K
+// units it walks, each costing the larger of its FP32 FMAs at 50% of
+// one SM's share of 67 TFLOP/s and its operand bytes at one SM's share
+// of 3 TB/s; plus ~2 µs of set-up; times the waves of blocks; plus, with
+// a split, the f32 partials written and read back and the reduce launch.
+// Ties go to fewer splits.
+static int plan_f32_small(int M, int N, int K, int sms, int* chunk) {
+  const long long units = cdiv(K, 16);
   *chunk = static_cast<int>(units);
   if (units <= 1) return 1;
-  int bm = sm90::BM, bn = N > 128 ? 256 : 128, per_sm = 1;
-  double rate = 989e12 * 0.6, floor_s = 0;
-  if (path == PATH_F32) {
-    bm = f32k::BM;
-    bn = f32k::BN;
-    rate = 67e12 * 0.5;
-  } else if (path == PATH_GENERAL) {
-    bn = N <= 32 ? 32 : N <= 64 ? 64 : 128;
-    bm = bf16k::tile_m(M, N);
-    per_sm = bm * bn <= 128 * 64 ? 2 : 1;
-    rate = 989e12 * 0.3;
-    floor_s = 4e-6;
-  }
-  const double tiles = (double)cdiv(M, bm) * cdiv(N, bn);
-  const double bw = 3e12 / sms, esize = dtype == DT_F32 ? 4 : 2;
-  const double flops = 2.0 * bm * bn * unit;
-  const double bytes = (double)unit * ((M < bm ? M : bm) + (N < bn ? N : bn))
-                       * esize;
-  double t_unit = flops / (rate / sms);
+  const double tiles = (double)cdiv(M, f32k::BM) * cdiv(N, f32k::BN);
+  const double bw = 3e12 / sms;
+  const double flops = 2.0 * f32k::BM * f32k::BN * 16;
+  const double bytes = 16.0 * ((M < f32k::BM ? M : f32k::BM) +
+                               (N < f32k::BN ? N : f32k::BN)) * 4;
+  double t_unit = flops / (67e12 * 0.5 / sms);
   if (bytes / bw > t_unit) t_unit = bytes / bw;
-  if (floor_s > t_unit) t_unit = floor_s;
   double best = 1e30;
   int best_s = 1;
   for (long long s = 1; s <= units && s <= 8 * sms; ++s) {
     const long long c = cdiv(units, s);
     if (cdiv(units, c) != s) continue;     // the same split as a smaller s
-    double t = std::ceil(tiles * s / ((double)sms * per_sm)) *
-               (c * t_unit + 2e-6);
+    double t = std::ceil(tiles * s / (double)sms) * (c * t_unit + 2e-6);
     if (s > 1) t += 2.0 * s * (double)M * N * 4 / 3e12 + 3e-6;
     if (t < 0.97 * best) {
       best = t;
@@ -1022,43 +1103,252 @@ static int plan_f32_wide(int M, int N, int K, int bn, int per_sm, int sms,
   return best_s;
 }
 
-// plan_uncached, remembered per device, path and shape: a training step
-// asks for the same few dozen products again and again
-static int plan_split(int M, int N, int K, int dtype, int path, int* chunk) {
-  struct Entry { int dev, M, N, K, key, splits, chunk; };
+// The bf16 plan's cost model: what the kernels reach on an H100 SXM at
+// 700 W, fitted to a sweep of the wgmma kernel's legal plans at every
+// conv trainer product it takes (PERF.md §6), in the units named.
+#define BF16_PEAK_GFLOPS 989000
+#define WG_RATE_PCT 60        // wgmma kernel, 128- and 256-wide tiles
+#define WG64_RATE_PCT 40      // wgmma kernel, 64-wide tiles
+#define GEN_RATE_PCT 40       // the general kernel
+#define HBM_GBS 3000          // device memory, read or written by TMA
+#define REGS_STORE_GBS 500    // C stored from registers in 4-byte pairs
+#define ITEM_NS 2000          // a work item's fill and epilogue
+#define CTA_NS 2000           // a general kernel block's launch and fill
+#define CLUSTER_NS 4000       // a cluster's two barriers and exchange
+#define GEN_STEP_NS 500       // general: a K-tile's spread, two barriers
+#define SLAB_NS 5000          // the split-K reduce: its launch and pass
+#define WG_MAX_CLUSTER 8
+static_assert(WG_MAX_CLUSTER == sm90::MAX_CLUSTER, "the kernel's cluster");
+
+// The plan of a bf16 product (the source note), for the wgmma kernel
+// (path PATH_TMA) or the general kernel. The wgmma kernel's candidates:
+// tiles 128 × bn, bn 64 (N <= 64), 64 or 128 (N <= 128), else 64, 128
+// or 256; each split s of K's units of 64 (s <= 8·sms, one s per
+// chunk), as a cluster (s up to WG_MAX_CLUSTER whose clusters fit:
+// cl_sms[s - 1] > 0, the SMs the occupancy query lets clusters of s
+// use) or a slab. A candidate's time is the longer of
+//  * its math: waves of work items over the SMs (over cl_sms for a
+//    cluster), an item's K-tiles each taking 2·128·bn·64 FLOP at
+//    WG_RATE_PCT (WG64_RATE_PCT for bn 64) of one SM's share of the
+//    peak, plus ITEM_NS (and CLUSTER_NS for a cluster), and
+//  * its bytes: A and B once, C once (at REGS_STORE_GBS where it is
+//    stored from registers: an unsplit tile that TMA cannot store, bn
+//    256 or N % 8 != 0), a slab's partials written and read back, all
+//    at HBM_GBS;
+// plus SLAB_NS for a slab. An unsplit 64- or 128-wide tile whose bf16
+// rows are 16-byte multiples stores C through TMA. The general kernel
+// (bn 64 for N <= 64, else 128; gen_per_sm of its blocks resident an SM,
+// from the occupancy query at this product's staging) takes slab splits
+// only; its K-tile costs its math at GEN_RATE_PCT, shared by the blocks
+// of an SM, or GEN_STEP_NS, whichever is longer, and a block CTA_NS.
+// The least time wins, a candidate taking it only below 0.97 of the best
+// so far: ties go to the wider tile (the 8192³ products keep their 128 ×
+// 256 tile), the fewer splits, a cluster before a slab.
+static Plan bf16_plan(int M, int N, int K, int path, int sms,
+                      const int* cl_sms, int gen_per_sm) {
+  const long long units = cdiv(K, 64);
+  const double peak = BF16_PEAK_GFLOPS * 1e9, bw = HBM_GBS * 1e9;
+  const double regs_bw = REGS_STORE_GBS * 1e9;
+  const double ab = ((double)M * K + (double)K * N) * 2 / bw;
+  const double c_bytes = (double)M * N * 2;
+  Plan best = {1, static_cast<int>(units), N <= 64 ? 64 : 128, 1, EPI_REGS};
+  double best_t = 1e30;
+  auto consider = [&](double t, long long s, long long c, int bn, int cl,
+                      int epi) {
+    if (t < 0.97 * best_t) {
+      best_t = t;
+      best = {static_cast<int>(s), static_cast<int>(c), bn, cl, epi};
+    }
+  };
+  if (path != PATH_TMA) {
+    const int bn = N <= 64 ? 64 : 128;
+    const double per = gen_per_sm > 0 ? gen_per_sm : 1;
+    const double tiles = (double)cdiv(M, 128) * cdiv(N, bn);
+    double t_unit = 2.0 * 128 * bn * 64 * per /
+                    (peak * GEN_RATE_PCT / 100 / sms);
+    if (GEN_STEP_NS * 1e-9 > t_unit) t_unit = GEN_STEP_NS * 1e-9;
+    for (long long s = 1; s <= units && s <= 8 * sms; ++s) {
+      const long long c = cdiv(units, s);
+      if (cdiv(units, c) != s) continue;
+      const double math = std::ceil(tiles * s / (sms * per)) *
+                          (c * t_unit + CTA_NS * 1e-9);
+      double mem = ab + c_bytes / regs_bw;
+      if (s > 1) mem += 2.0 * s * (double)M * N * 4 / bw;
+      double t = math > mem ? math : mem;
+      if (s > 1) t += SLAB_NS * 1e-9;
+      consider(t, s, c, bn, 1, EPI_REGS);
+    }
+    return best;
+  }
+  const int bns[3] = {256, 128, 64};
+  for (int i = N <= 64 ? 2 : N <= 128 ? 1 : 0; i < 3; ++i) {
+    const int bn = bns[i];
+    const double tiles = (double)cdiv(M, 128) * cdiv(N, bn);
+    const double t_mma = 2.0 * 128 * bn * 64 /
+        (peak * (bn == 64 ? WG64_RATE_PCT : WG_RATE_PCT) / 100 / sms);
+    const bool c_tma = bn <= 128 && N % 8 == 0;
+    for (long long s = 1; s <= units && s <= 8 * sms; ++s) {
+      const long long c = cdiv(units, s);
+      if (cdiv(units, c) != s) continue;
+      const double work = c * t_mma + ITEM_NS * 1e-9;
+      if (s == 1) {
+        const double math = std::ceil(tiles / sms) * work;
+        const double mem = ab + c_bytes / (c_tma ? bw : regs_bw);
+        consider(math > mem ? math : mem, 1, c, bn, 1,
+                 c_tma ? EPI_TMA : EPI_REGS);
+        continue;
+      }
+      if (s <= WG_MAX_CLUSTER && cl_sms[s - 1] > 0) {
+        const double math = std::ceil(tiles * s / cl_sms[s - 1]) *
+                            (work + CLUSTER_NS * 1e-9);
+        const double mem = ab + c_bytes / bw;
+        consider(math > mem ? math : mem, s, c, bn, static_cast<int>(s),
+                 EPI_REGS);
+      }
+      const double math = std::ceil(tiles * s / sms) * work;
+      const double mem = ab + c_bytes / bw +
+                         2.0 * s * (double)M * N * 4 / bw;
+      consider((math > mem ? math : mem) + SLAB_NS * 1e-9, s, c, bn, 1,
+               EPI_REGS);
+    }
+  }
+  return best;
+}
+
+// The SMs clusters of 1-8 wgmma CTAs can use on the current device
+// (out[size - 1], the occupancy query), asked once a device: the 64-,
+// 128- and 256-wide tiles all hold one CTA an SM in the same shared
+// memory.
+static bool wgmma_cluster_sms(int* out) {
+  static int table[64][WG_MAX_CLUSTER];
+  static std::mutex mu;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64)
+    return false;
+  std::lock_guard<std::mutex> lock(mu);
+  if (table[dev][0] <= 0 &&
+      !sm90::wgmma_cluster_sms<128, false, true>(table[dev]))
+    return false;
+  for (int i = 0; i < WG_MAX_CLUSTER; ++i) out[i] = table[dev][i];
+  return true;
+}
+
+// blocks of the general kernel resident an SM for this product's staging
+static int general_resident(const void* a, const void* b, int M, int N,
+                            int K, long long sam, long long sak,
+                            long long sbk, long long sbn) {
+  if (N <= 64) {
+    const bf16k::Staging s =
+        bf16k::staging<64>(a, b, M, N, K, sam, sak, sbk, sbn);
+    return bf16k::resident<64>(s);
+  }
+  const bf16k::Staging s =
+      bf16k::staging<128>(a, b, M, N, K, sam, sak, sbk, sbn);
+  return bf16k::resident<128>(s);
+}
+
+// The plan of a product, remembered per device, path, shape and (for the
+// general kernel) residency: a training step asks for the same few dozen
+// products again and again. splits 0: the device could not be queried.
+static Plan plan_of(const void* a, const void* b, int M, int N, int K,
+                    long long sam, long long sak, long long sbk,
+                    long long sbn, int dtype, int path) {
+  struct Entry { int dev, M, N, K, key, per; Plan p; };
   static Entry cache[256];
   static int sms_of[64];
   static std::mutex mu;
+  Plan none = {0, 0, 0, 1, EPI_REGS};
   int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64)
+    return none;
+  const int per = path == PATH_GENERAL
+                      ? general_resident(a, b, M, N, K, sam, sak, sbk, sbn)
+                      : 0;
+  if (path == PATH_GENERAL && per <= 0) return none;
+  int cl[WG_MAX_CLUSTER] = {0};
+  if (path == PATH_TMA && !wgmma_cluster_sms(cl)) return none;
   const int key = dtype * 8 + path;
   const unsigned h = ((unsigned)M * 73856093u) ^ ((unsigned)N * 19349663u) ^
-                     ((unsigned)K * 83492791u) ^ ((unsigned)(dev * 8 + key));
+                     ((unsigned)K * 83492791u) ^ ((unsigned)(dev * 8 + key)) ^
+                     ((unsigned)per * 2654435761u);
   std::lock_guard<std::mutex> lock(mu);
   Entry& e = cache[h % 256];
-  if (e.splits > 0 && e.dev == dev && e.M == M && e.N == N && e.K == K &&
-      e.key == key) {
-    *chunk = e.chunk;
-    return e.splits;
-  }
+  if (e.p.splits > 0 && e.dev == dev && e.M == M && e.N == N && e.K == K &&
+      e.key == key && e.per == per)
+    return e.p;
   if (sms_of[dev] <= 0 &&
       cudaDeviceGetAttribute(&sms_of[dev], cudaDevAttrMultiProcessorCount,
                              dev) != cudaSuccess)
-    return 0;
-  if (sms_of[dev] <= 0) return 0;
-  int splits;
-  if (path == PATH_F32_WIDE || path == PATH_F32_NARROW) {
+    return none;
+  const int sms = sms_of[dev];
+  if (sms <= 0) return none;
+  Plan p = {1, 0, 0, 1, EPI_REGS};
+  if (path == PATH_F32) {
+    p.splits = plan_f32_small(M, N, K, sms, &p.chunk);
+  } else if (path == PATH_F32_WIDE || path == PATH_F32_NARROW) {
     const bool wide = path == PATH_F32_WIDE;
     const int per_sm = wide ? f32w::resident<F32_BM, F32_BN>(dev)
                             : f32w::resident<F32_BM, F32_BN_NARROW>(dev);
-    if (per_sm <= 0) return 0;
-    splits = plan_f32_wide(M, N, K, wide ? F32_BN : F32_BN_NARROW, per_sm,
-                           sms_of[dev], chunk);
+    if (per_sm <= 0) return none;
+    p.splits = plan_f32_wide(M, N, K, wide ? F32_BN : F32_BN_NARROW, per_sm,
+                             sms, &p.chunk);
   } else {
-    splits = plan_uncached(M, N, K, dtype, path, sms_of[dev], chunk);
+    p = bf16_plan(M, N, K, path, sms, cl, per);
   }
-  e = Entry{dev, M, N, K, key, splits, *chunk};
-  return splits;
+  e = Entry{dev, M, N, K, key, per, p};
+  return p;
+}
+
+// The wgmma kernel on A (bf16; M-major with lay.a_m, else K-major) and
+// B (N-major with lay.b_n, else K-major) at plan p. C's TMA store falls
+// back to register stores where TMA cannot write C (an f32 C with N % 4
+// != 0). kpart: the slab of a split without a cluster.
+static int launch_tma(const void* a, const void* b, void* c, bool out_f32,
+                      float* kpart, int M, int N, int K, long long sam,
+                      long long sak, long long sbk, long long sbn,
+                      const Layouts& lay, const Plan& p, cudaStream_t s) {
+  const bool a_m = lay.a_m, b_n = lay.b_n;
+  const int bn = p.bn;
+  CUtensorMap ta, tb, tc;
+  if (!(a_m ? sm90::make_map(&ta, a, true, M, K, sak, 64, 64)
+            : sm90::make_map(&ta, a, true, K, M, sam, 64, 128)) ||
+      !(b_n ? sm90::make_map(&tb, b, true, N, K, sbk, 64, 64)
+            : sm90::make_map(&tb, b, true, K, N, sbn, 64, bn)))
+    return cudaErrorInvalidValue;
+  int epi = p.epi;
+  if (epi == sm90::EPI_TMA &&
+      !(sm90::tma_store_ok(c, N, out_f32) &&
+        sm90::make_map_c(&tc, c, out_f32, M, N)))
+    epi = sm90::EPI_REGS;
+  if (epi != sm90::EPI_TMA) tc = ta;    // read by no instantiation here
+  int rc = cudaErrorInvalidValue;
+#define LMR_WGMMA(BN, AM, BNM, CL)                                          \
+  rc = sm90::launch_wgmma<BN, AM, BNM, false, CL>(                          \
+      ta, tb, tc, c, out_f32, kpart, nullptr, M, N, K, p.splits, p.chunk, s, \
+      epi, p.cluster)
+#define LMR_WGMMA_BN(BN, CL)                                                \
+  if (a_m) { if (b_n) LMR_WGMMA(BN, true, true, CL); else LMR_WGMMA(BN, true, false, CL); } \
+  else     { if (b_n) LMR_WGMMA(BN, false, true, CL); else LMR_WGMMA(BN, false, false, CL); }
+  // a 256-wide cluster split takes its own instantiation: the unsplit
+  // 256-wide kernel (the 8192³ products) keeps its code
+  if (bn == 256 && p.cluster > 1) { LMR_WGMMA_BN(256, true) }
+  else if (bn == 256) { LMR_WGMMA_BN(256, false) }
+  else if (bn == 128) { LMR_WGMMA_BN(128, false) }
+  else if (bn == 64) { LMR_WGMMA_BN(64, false) }
+#undef LMR_WGMMA_BN
+#undef LMR_WGMMA
+  return rc;
+}
+
+// the split-K reduce of a slab split
+static bool slab_split(const Plan& p) { return p.splits > 1 && p.cluster == 1; }
+
+static int reduce_slab(const Plan& p, float* P, void* c, bool out_f32,
+                       int M, int N, cudaStream_t s) {
+  const long long mn = (long long)M * N;
+  splitk_reduce_kernel<<<(unsigned)cdiv(mn, 256), 256, 0, s>>>(
+      P, c, out_f32, p.splits, mn);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" {
@@ -1066,16 +1356,29 @@ extern "C" {
 // How many ways lmr_matmul splits K for this product on the current
 // device (1: no split; 0: the device could not be queried). It takes the
 // operands' layout too: that picks the kernel, and the kernels split
-// differently. Above 1 the caller passes f32 scratch of splits·M·N as
-// `part`.
+// differently.
 int lmr_matmul_splits(const void* a, const void* b, int M, int N, int K,
                       long long sam, long long sak, long long sbk,
                       long long sbn, int dtype) {
   Layouts lay;
   const int path = choose_path(a, b, M, N, K, sam, sak, sbk, sbn, dtype,
                                &lay);
-  int chunk = 0;
-  return plan_split(M, N, K, dtype, path, &chunk);
+  return plan_of(a, b, M, N, K, sam, sak, sbk, sbn, dtype, path).splits;
+}
+
+// The f32 partials of a slab split (0: none, the product is unsplit or
+// its cluster sums its split in the kernel; -1: the device could not be
+// queried): above 0 the caller passes f32 scratch of that many · M·N as
+// lmr_matmul's `part`.
+int lmr_matmul_slab(const void* a, const void* b, int M, int N, int K,
+                    long long sam, long long sak, long long sbk,
+                    long long sbn, int dtype) {
+  Layouts lay;
+  const int path = choose_path(a, b, M, N, K, sam, sak, sbk, sbn, dtype,
+                               &lay);
+  const Plan p = plan_of(a, b, M, N, K, sam, sak, sbk, sbn, dtype, path);
+  if (p.splits < 1) return -1;
+  return slab_split(p) ? p.splits : 0;
 }
 
 // What lmr_matmul runs for this product on the current device: plan[0]
@@ -1088,14 +1391,51 @@ int lmr_matmul_plan(const void* a, const void* b, int M, int N, int K,
   Layouts lay;
   const int path = choose_path(a, b, M, N, K, sam, sak, sbk, sbn, dtype,
                                &lay);
-  int chunk = 0;
+  const Plan p = plan_of(a, b, M, N, K, sam, sak, sbk, sbn, dtype, path);
   const bool wide = path == PATH_F32_WIDE || path == PATH_F32_NARROW;
   plan[0] = path;
-  plan[1] = plan_split(M, N, K, dtype, path, &chunk);
-  plan[2] = chunk;
+  plan[1] = p.splits;
+  plan[2] = p.chunk;
   plan[3] = wide ? f32w::copy_mode(a, sam, sak) : -1;
   plan[4] = wide ? f32w::copy_mode(b, sbn, sbk) : -1;
   return 0;
+}
+
+// lmr_matmul_plan's five, then for bf16: plan[5] the tile width, plan[6]
+// the cluster (1: none), plan[7] the epilogue of an unsplit tile (Epi),
+// plan[8] and plan[9] the general kernel's modes of A and B (bf16k::Mode;
+// -1 on the wgmma kernel), plan[10] the general kernel's blocks an SM
+// that the plan read (0 elsewhere); -1 in 5-9 for f32.
+int lmr_matmul_plan_ex(const void* a, const void* b, int M, int N, int K,
+                       long long sam, long long sak, long long sbk,
+                       long long sbn, int dtype, int* plan) {
+  lmr_matmul_plan(a, b, M, N, K, sam, sak, sbk, sbn, dtype, plan);
+  for (int i = 5; i < 10; ++i) plan[i] = -1;
+  plan[10] = 0;
+  if (dtype != DT_BF16) return 0;
+  Layouts lay;
+  const int path = choose_path(a, b, M, N, K, sam, sak, sbk, sbn, dtype,
+                               &lay);
+  const Plan p = plan_of(a, b, M, N, K, sam, sak, sbk, sbn, dtype, path);
+  plan[5] = p.bn;
+  plan[6] = p.cluster;
+  plan[7] = p.epi;
+  if (path == PATH_GENERAL) {
+    const bf16k::Staging s =
+        N <= 64 ? bf16k::staging<64>(a, b, M, N, K, sam, sak, sbk, sbn)
+                : bf16k::staging<128>(a, b, M, N, K, sam, sak, sbk, sbn);
+    plan[8] = s.a_mode;
+    plan[9] = s.b_mode;
+    plan[10] = general_resident(a, b, M, N, K, sam, sak, sbk, sbn);
+  }
+  return 0;
+}
+
+// The SMs clusters of 1-8 wgmma CTAs can use on the current device,
+// which the bf16 plan reads, into out[size - 1]; 0 where a size does not
+// fit. Returns 0, or an error.
+int lmr_matmul_cluster_sms(int* out) {
+  return wgmma_cluster_sms(out) ? 0 : cudaErrorInvalidDevice;
 }
 
 // Returns cudaGetLastError() after the launches (0 = launched).
@@ -1110,12 +1450,12 @@ int lmr_matmul(const void* a, const void* b, void* c, void* part, int M,
   Layouts lay;
   const int path = choose_path(a, b, M, N, K, sam, sak, sbk, sbn, in_dtype,
                                &lay);
-  int chunk = 0;
-  const int splits = plan_split(M, N, K, in_dtype, path, &chunk);
-  if (splits < 1 || (splits > 1 && part == nullptr))
+  const Plan p = plan_of(a, b, M, N, K, sam, sak, sbk, sbn, in_dtype, path);
+  const int splits = p.splits, chunk = p.chunk;
+  if (splits < 1 || (slab_split(p) && part == nullptr))
     return cudaErrorInvalidValue;
   float* P = static_cast<float*>(part);
-  float* kpart = splits > 1 ? P : nullptr;
+  float* kpart = slab_split(p) ? P : nullptr;
   if (path == PATH_F32) {
     dim3 grid(cdiv(N, f32k::BN), cdiv(M, f32k::BM), splits);
     f32k::matmul_f32_kernel<<<grid, f32k::NT, 0, s>>>(
@@ -1133,50 +1473,63 @@ int lmr_matmul(const void* a, const void* b, void* c, void* part, int M,
                                                   M, N, K, sam, sak, sbk,
                                                   sbn, splits, chunk, s);
     if (rc != 0) return rc;
+  } else if (path == PATH_TMA) {
+    const int rc = launch_tma(a, b, c, out_f32, kpart, M, N, K, sam, sak,
+                              sbk, sbn, lay, p, s);
+    if (rc != 0) return rc;
   } else {
     const bf16* A = static_cast<const bf16*>(a);
     const bf16* B = static_cast<const bf16*>(b);
-    const bool a_m = lay.a_m, b_n = lay.b_n;
-    const int bn = N > 128 ? 256 : 128;
-    int rc = 0;
-    if (path == PATH_TMA) {
-      CUtensorMap ta, tb;
-      if (!(a_m ? sm90::make_map(&ta, a, true, M, K, sak, 64, 64)
-                : sm90::make_map(&ta, a, true, K, M, sam, 64, 128)) ||
-          !(b_n ? sm90::make_map(&tb, b, true, N, K, sbk, 64, 64)
-                : sm90::make_map(&tb, b, true, K, N, sbn, 64, bn)))
-        return cudaErrorInvalidValue;
-#define LMR_WGMMA(BN, AM, BNM)                                              \
-  rc = sm90::launch_wgmma<BN, AM, BNM, false>(ta, tb, ta, c, out_f32,       \
-                                              kpart, nullptr, M, N, K,      \
-                                              splits, chunk, s)
-      if (bn == 256) {
-        if (a_m) { if (b_n) LMR_WGMMA(256, true, true); else LMR_WGMMA(256, true, false); }
-        else     { if (b_n) LMR_WGMMA(256, false, true); else LMR_WGMMA(256, false, false); }
-      } else {
-        if (a_m) { if (b_n) LMR_WGMMA(128, true, true); else LMR_WGMMA(128, true, false); }
-        else     { if (b_n) LMR_WGMMA(128, false, true); else LMR_WGMMA(128, false, false); }
-      }
-#undef LMR_WGMMA
-      if (rc != 0) return rc;
-    } else {
-      const int kt_per = chunk * (64 / bf16k::BK);
-#define LMR_GENERAL(TBM, BN)                                                 \
-  rc = bf16k::launch<TBM, BN>(A, B, c, out_f32, kpart, M, N, K, sam, sak,    \
-                              sbk, sbn, splits, kt_per, s)
-      if (bf16k::tile_m(M, N) == 256) LMR_GENERAL(256, 32);
-      else if (N <= 32) LMR_GENERAL(128, 32);
-      else if (N <= 64) LMR_GENERAL(128, 64);
-      else LMR_GENERAL(128, 128);
-#undef LMR_GENERAL
-      if (rc != 0) return rc;
-    }
+    const int rc =
+        p.bn == 64
+            ? bf16k::launch<64>(A, B, c, out_f32, kpart, M, N, K, sam, sak,
+                                sbk, sbn, splits, chunk, s)
+            : bf16k::launch<128>(A, B, c, out_f32, kpart, M, N, K, sam, sak,
+                                 sbk, sbn, splits, chunk, s);
+    if (rc != 0) return rc;
   }
-  if (splits > 1) {
-    const long long mn = (long long)M * N;
-    splitk_reduce_kernel<<<(unsigned)cdiv(mn, 256), 256, 0, s>>>(
-        P, c, out_f32, splits, mn);
+  if (slab_split(p)) return reduce_slab(p, P, c, out_f32, M, N, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The wgmma kernel at a given plan (bf16 operands TMA can read): tile
+// width bn (64, 128 or 256), split, cluster (1, or the split: up to
+// WG_MAX_CLUSTER CTAs that fit) and epilogue, for the
+// tests and for timing a plan the cost model does not pick. `part`:
+// f32 scratch of splits·M·N for a split without a cluster. Refuses what
+// the kernel cannot run.
+int lmr_matmul_forced(const void* a, const void* b, void* c, void* part,
+                      int M, int N, int K, long long sam, long long sak,
+                      long long sbk, long long sbn, int out_dtype, int bn,
+                      int splits, int cluster, int epi, void* stream) {
+  Layouts lay;
+  if (choose_path(a, b, M, N, K, sam, sak, sbk, sbn, DT_BF16, &lay) !=
+          PATH_TMA ||
+      (bn != 64 && bn != 128 && bn != 256) || splits < 1 ||
+      (out_dtype != DT_F32 && out_dtype != DT_BF16) ||
+      (epi != sm90::EPI_REGS && epi != sm90::EPI_TMA) ||
+      (epi == sm90::EPI_TMA && (bn > 128 || splits > 1)))
+    return cudaErrorInvalidValue;
+  const long long units = cdiv(K, 64);
+  const long long chunk = cdiv(units, splits);
+  if (splits > units || cdiv(units, chunk) != splits)
+    return cudaErrorInvalidValue;
+  if (cluster != 1) {
+    int cl[WG_MAX_CLUSTER];
+    if (!wgmma_cluster_sms(cl)) return cudaErrorInvalidDevice;
+    if (cluster != splits || cluster < 2 || cluster > WG_MAX_CLUSTER ||
+        cl[cluster - 1] <= 0)
+      return cudaErrorInvalidValue;
   }
+  const Plan p = {splits, static_cast<int>(chunk), bn, cluster, epi};
+  if (slab_split(p) && part == nullptr) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool out_f32 = out_dtype == DT_F32;
+  float* P = static_cast<float*>(part);
+  const int rc = launch_tma(a, b, c, out_f32, slab_split(p) ? P : nullptr,
+                            M, N, K, sam, sak, sbk, sbn, lay, p, s);
+  if (rc != 0) return rc;
+  if (slab_split(p)) return reduce_slab(p, P, c, out_f32, M, N, s);
   return static_cast<int>(cudaGetLastError());
 }
 

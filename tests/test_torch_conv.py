@@ -253,6 +253,45 @@ def test_pool_rejects_bad_input():
         ops.avgpool2d(torch.zeros(1, 2, 2, 1), 3)
 
 
+# (n, h, w, c, k, stride) of the conv paths' im2col: LeNet c1 and c2
+# (75 and 150 columns), the ResNet stem (147), a 3×3 stage conv (576) and
+# the 1×1 stride-2 projection (64)
+IM2COL_GEOMS = [(2, 32, 32, 3, 5, 1), (2, 14, 14, 6, 5, 1),
+                (1, 38, 38, 3, 7, 2), (1, 9, 9, 64, 3, 1),
+                (1, 8, 8, 64, 1, 2)]
+
+
+@pytest.mark.parametrize("n,h,w,c,k,stride", IM2COL_GEOMS)
+def test_patch_matrix_rows_lie_at_a_16_byte_pitch(n, h, w, c, k, stride):
+    """The patch matrix holds the JAX package's values in its shape, its
+    rows at ``patch_pitch`` (a multiple of 8 elements, so TMA reads
+    them), and reshapes to the (N·Ho·Wo, KH·KW·C) matmul operand without
+    a copy; its gradient is the JAX im2col's."""
+    from lua_mapreduce_tpu.ops.conv import _im2col as jax_im2col
+    from lua_mapreduce_tpu_torch.ops.conv import _im2col, patch_pitch
+    x = rand(n, h, w, c, seed=11)
+    want, ho, wo = jax_im2col(jnp.asarray(x), k, k, stride, stride)
+    xt = _t(x).requires_grad_(True)
+    got, gho, gwo = _im2col(xt, k, k, stride, stride)
+    cols = k * k * c
+    assert (gho, gwo) == (ho, wo) and tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(got.detach().numpy(), np.asarray(want))
+    if k == 1 and stride == 1:
+        return
+    assert patch_pitch(cols) % 8 == 0 and 0 <= patch_pitch(cols) - cols < 8
+    assert got.stride() == (ho * wo * patch_pitch(cols),
+                            wo * patch_pitch(cols), patch_pitch(cols), 1)
+    flat = got.reshape(n * ho * wo, cols)
+    assert flat.stride() == (patch_pitch(cols), 1)
+    assert flat.data_ptr() == got.data_ptr()
+    g = rand(*want.shape, seed=12)
+    (dx,) = torch.autograd.grad(got, xt, _t(g))
+    _, vjp = jax.vjp(lambda v: jax_im2col(v, k, k, stride, stride)[0],
+                     jnp.asarray(x))
+    np.testing.assert_allclose(dx.numpy(), np.asarray(vjp(jnp.asarray(g))[0]),
+                               rtol=1e-5, atol=1e-5)
+
+
 # ------------------------------------------------------------- dispatch
 
 def test_cpu_conv_and_pool_take_the_plain_versions():

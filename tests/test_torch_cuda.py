@@ -297,6 +297,163 @@ def test_matmul_split_is_bitwise_repeatable(cuda, dtype, m, k, n):
         assert torch.equal(matmul_cuda(a, b, dtype), first)
 
 
+def _conv_operands(gen, m, k, n, sa, sb):
+    """bf16 operands of a conv product with its strides: A (m, k) row-
+    major at a row pitch of sa[0] (the patch matrix, g) or the .t() view
+    of a (k, pitch) one (patchesᵀ); B (k, n) contiguous or the .t() view
+    of a contiguous (n, k) (Wᵀ)."""
+    if sa[1] == 1:
+        a = _randn(gen, m, sa[0], dtype=torch.bfloat16,
+                   scale=k ** -0.25)[:, :k]
+    else:
+        a = _randn(gen, k, sa[1], dtype=torch.bfloat16,
+                   scale=k ** -0.25)[:, :m].t()
+    b = (_randn(gen, k, n, dtype=torch.bfloat16, scale=k ** -0.25)
+         if sb[1] == 1 else
+         _randn(gen, n, k, dtype=torch.bfloat16, scale=k ** -0.25).t())
+    assert a.stride() == tuple(sa) and b.stride() == tuple(sb)
+    return a, b
+
+
+def _conv_product_cases():
+    from torch_conv_products import conv_products
+    return [pytest.param(*p[1:], id=p[0].replace(" ", "-"))
+            for p in conv_products()]
+
+
+@pytest.mark.parametrize("m,k,n,sa,sb", _conv_product_cases())
+def test_matmul_conv_products_at_their_plans(cuda, m, k, n, sa, sb):
+    """Every product of the LeNet-5 b1024 and ResNet-18 b32 steps, at
+    the plan csrc/matmul.cu takes for it — the plan its Python mirror
+    gives at this card's occupancy — against the plain version (bf16
+    tolerance and normwise 1e-2), two calls bit-equal."""
+    import importlib
+    tmm = importlib.import_module("lua_mapreduce_tpu_torch.ops.matmul")
+    a, b = _conv_operands(cuda, m, k, n, sa, sb)
+    plan = matmul_kernel_plan(a, b)
+    path = tmm.KERNEL_NAMES.index(plan.kernel)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    want = tmm.bf16_plan(m, n, k, path, sms, tmm.matmul_cluster_sms(),
+                         plan.resident)
+    reduce = ("none" if want.splits == 1 else
+              "cluster" if want.cluster > 1 else "slab")
+    assert (plan.tile, plan.splits, plan.chunk, plan.cluster,
+            plan.reduce) == (f"128x{want.bn}", want.splits, want.chunk,
+                             want.cluster, reduce)
+    got = matmul_cuda(a, b, torch.bfloat16)
+    ref = matmul_plain(a, b, torch.bfloat16).float()
+    torch.testing.assert_close(got.float(), ref, **BF16)
+    assert float((got.float() - ref).norm() / ref.norm()) < 1e-2
+    assert torch.equal(matmul_cuda(a, b, torch.bfloat16), got)
+
+
+# (M, K, N, A transposed, tile width, split): cluster splits of 2-8 at
+# the three tile widths, a short last chunk, and an A read M-major
+CLUSTER_CASES = [(576, 6400, 64, False, 64, 2), (576, 10240, 64, True, 64, 8),
+                 (147, 4000, 64, True, 64, 8), (256, 1568, 512, True, 128, 4),
+                 (1000, 700, 96, False, 128, 4), (300, 2000, 40, False, 64, 7),
+                 (1568, 4608, 512, False, 256, 4)]
+
+
+@pytest.mark.parametrize("m,k,n,ta,bn,splits", CLUSTER_CASES)
+def test_matmul_cluster_split_is_its_model_bit_for_bit(cuda, m, k, n, ta,
+                                                      bn, splits):
+    """A cluster split's result, in f32 and bf16, equals the rank-order
+    sum (tests/torch_matmul_split_model.py) of the kernel's own unsplit
+    products over each K chunk, bit for bit, and so does the slab split
+    of the same chunks; every call gives the same bits."""
+    from torch_matmul_split_model import chunks, rank_order_sum, to_dtype
+    from lua_mapreduce_tpu_torch.ops.matmul import matmul_forced
+    # rows at a pitch of a multiple of 8 (as ops.conv's patch matrix):
+    # TMA reads A either way
+    a = (_randn(cuda, k, -(-m // 8) * 8, dtype=torch.bfloat16,
+                scale=k ** -0.25)[:, :m].t() if ta else
+         _randn(cuda, m, -(-k // 8) * 8, dtype=torch.bfloat16,
+                scale=k ** -0.25)[:, :k])
+    b = _randn(cuda, k, n, dtype=torch.bfloat16, scale=k ** -0.25)
+    parts = [matmul_forced(a[:, k0:k1], b[k0:k1], torch.float32, bn, 1)
+             .cpu().numpy() for k0, k1 in chunks(k, splits)]
+    model = rank_order_sum(parts)
+    for out in (torch.float32, torch.bfloat16):
+        want = to_dtype(model, out)
+        got = matmul_forced(a, b, out, bn, splits, splits)
+        assert torch.equal(got.cpu(), want)
+        assert torch.equal(matmul_forced(a, b, out, bn, splits, splits), got)
+        assert torch.equal(matmul_forced(a, b, out, bn, splits, 1).cpu(),
+                           want)
+    torch.testing.assert_close(to_dtype(model, torch.float32).cuda(),
+                               matmul_plain(a, b, torch.float32),
+                               rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("m,n", [(1000, 72), (130, 136), (77, 200),
+                                 (4097, 8), (129, 36), (64, 64)])
+@pytest.mark.parametrize("bn", [64, 128])
+def test_matmul_tma_store_epilogue_at_ragged_edges(cuda, m, n, bn):
+    """The TMA-store epilogue at ragged M and N edges writes what the
+    register stores write, bit for bit, in f32 and bf16 (a bf16 C whose
+    rows TMA cannot write, N = 36, falls back to register stores), and
+    nothing past the edges: the output is the plain version's."""
+    from lua_mapreduce_tpu_torch.ops.matmul import matmul_forced
+    k = 200
+    a = _randn(cuda, m, k, dtype=torch.bfloat16, scale=k ** -0.25)
+    # B N-major where its rows are 16-byte multiples, else K-major (the
+    # .t() of a contiguous (N, K)): TMA reads it either way
+    b = (_randn(cuda, k, n, dtype=torch.bfloat16, scale=k ** -0.25)
+         if n % 8 == 0 else
+         _randn(cuda, n, k, dtype=torch.bfloat16, scale=k ** -0.25).t())
+    for out in (torch.float32, torch.bfloat16):
+        tma = matmul_forced(a, b, out, bn, 1, 1, "tma")
+        regs = matmul_forced(a, b, out, bn, 1, 1, "regs")
+        assert torch.equal(tma, regs)
+        tol = BF16 if out == torch.bfloat16 else dict(rtol=1e-3, atol=1e-3)
+        torch.testing.assert_close(tma.float(),
+                                   matmul_plain(a, b, out).float(), **tol)
+
+
+def test_matmul_forced_plan_refuses_what_the_kernel_cannot_run(cuda):
+    from lua_mapreduce_tpu_torch.ops.matmul import matmul_forced
+    a = _randn(cuda, 256, 1024, dtype=torch.bfloat16)
+    b = _randn(cuda, 1024, 128, dtype=torch.bfloat16)
+    # a tile width the kernel lacks, a TMA store on a 256-wide or split
+    # tile, a cluster past 8 or unequal to the split, a split past K's
+    # 16 K-tiles, a split no chunk of whole K-tiles makes (16 / 7)
+    for bn, splits, cluster, epi in [(96, 1, 1, "regs"), (256, 1, 1, "tma"),
+                                     (128, 2, 1, "tma"), (128, 16, 16, "regs"),
+                                     (128, 17, 1, "regs"), (128, 4, 2, "regs"),
+                                     (128, 7, 1, "regs")]:
+        with pytest.raises(RuntimeError):
+            matmul_forced(a, b, torch.bfloat16, bn, splits, cluster, epi)
+    with pytest.raises(RuntimeError):       # unaligned: not the TMA path
+        matmul_forced(a[:, 1:], b[1:], torch.bfloat16, 128, 1)
+
+
+@pytest.mark.parametrize("m,k,n,ta", [(576, 100352, 64, True),
+                                      (1568, 256, 512, False),
+                                      (100352, 64, 576, False),
+                                      (75, 802816, 6, True)])
+def test_matmul_bf16_captured_replay_equals_eager(cuda, m, k, n, ta):
+    """A slab split, a cluster split, a TMA-store tile and the general
+    kernel's slab split, each captured in a CUDA graph: the replay equals
+    the eager call bit for bit."""
+    a = _randn(cuda, *((k, m) if ta else (m, k)), dtype=torch.bfloat16,
+               scale=k ** -0.25)
+    a = a.t() if ta else a
+    b = _randn(cuda, k, n, dtype=torch.bfloat16, scale=k ** -0.25)
+    eager = matmul_cuda(a, b, torch.bfloat16)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        matmul_cuda(a, b, torch.bfloat16)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = matmul_cuda(a, b, torch.bfloat16)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
 def _f32_operand(gen, rows, cols, layout, scale):
     """An f32 (rows, cols) operand: "contiguous"; "pitch2", rows 2 floats
     longer than they are wide (a pitch ≡ 2 mod 4, 8-byte aligned rows,

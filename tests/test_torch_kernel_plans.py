@@ -1,5 +1,5 @@
-"""The branch choices of the softmax and pool kernels, and the f32
-matmul kernels' tiles, on the CPU.
+"""The branch choices of the softmax and pool kernels, the f32 matmul
+kernels' tiles, and the bf16 matmul plan, on the CPU.
 
 ``ops.softmax.softmax_plan`` and ``ops.pool.pool_plan`` are pure
 functions of the shape, dtype and alignment; the C entry points
@@ -506,3 +506,235 @@ def test_q8_gemv_model_matches_plain_and_jax(m, k, n):
     assert gb.dtype == torch.bfloat16
     np.testing.assert_allclose(gb.float().numpy(), plain.numpy(),
                                rtol=2e-2, atol=2e-2)
+
+
+# ---------------------------------------------- B1's bf16 plan (matmul.cu)
+
+# csrc/matmul.cu's bf16_plan mirror (ops.matmul.bf16_plan): the SMs
+# clusters of 1-8 wgmma CTAs can use on the H100 SXM, by size
+# (lmr_matmul_cluster_sms on the card)
+H100_SMS = 132
+H100_WGMMA_CLUSTER_SMS = (132, 132, 117, 120, 110, 102, 105, 120)
+BF16_PLAN_CONSTANTS = ("BF16_PEAK_GFLOPS", "WG_RATE_PCT", "WG64_RATE_PCT",
+                       "GEN_RATE_PCT",
+                       "HBM_GBS", "REGS_STORE_GBS", "ITEM_NS", "CTA_NS",
+                       "CLUSTER_NS", "GEN_STEP_NS", "SLAB_NS",
+                       "WG_MAX_CLUSTER")
+
+
+def _commented_defines(name):
+    """``#define NAME value`` lines of a source, a trailing comment
+    allowed."""
+    text = (_build.CSRC / _build.SOURCES[name]).read_text()
+    return {k: int(v) for k, v in re.findall(
+        r"^#define (\w+) (\d+)\s*(?://.*)?$", text, re.M)}
+
+
+def test_matmul_bf16_plan_constants_match_the_source():
+    found = _commented_defines("matmul")
+    assert {k: found[k] for k in BF16_PLAN_CONSTANTS} == \
+        {k: getattr(tmm, k) for k in BF16_PLAN_CONSTANTS}
+    # the general kernel's staging: all K of 128 patches rows at the
+    # stem's pitch is one slab, and 64 rows of a 128-wide g one ring slot
+    assert 128 * 152 <= found["GEN_RAW_ONCE"]
+    assert 64 * 128 <= found["GEN_RAW_TILE"] and found["GEN_RSTAGES"] >= 2
+    # a cluster split's ranks: at least 16 of a tile's 128 rows each,
+    # in clusters of the portable size
+    assert 128 // tmm.WG_MAX_CLUSTER >= 16 and tmm.WG_MAX_CLUSTER == 8
+
+
+def _assert_legal_bf16_plan(m, n, k, path, cluster_sms, per_sm=2):
+    p = tmm.bf16_plan(m, n, k, path, H100_SMS, cluster_sms, per_sm)
+    units = -(-k // 64)
+    # the tile: 64 wide for N <= 64; on the wgmma kernel 64 or 128 for
+    # N <= 128, else 64, 128 or 256 (the general kernel: 64, else 128)
+    if n <= 64:
+        assert p.bn == 64, p
+    elif path == tmm.PATH_TMA:
+        assert p.bn in ((64, 128) if n <= 128 else (64, 128, 256)), p
+    else:
+        assert p.bn == 128, p
+    # every rank takes K: whole K-tiles of 64, the last rank the rest
+    assert 1 <= p.splits <= units, p
+    assert p.chunk == -(-units // p.splits), p
+    assert -(-units // p.chunk) == p.splits, p
+    assert (p.splits - 1) * p.chunk < units <= p.splits * p.chunk, p
+    if units == 1:
+        assert p.splits == 1, p
+    # a cluster sums the split: up to the allowed size, one that fits
+    # on the card, on the wgmma kernel; its ranks own the tile's 128
+    # rows, each row once (rank r·cluster // 128), none empty
+    if p.cluster > 1:
+        assert path == tmm.PATH_TMA and p.cluster == p.splits, p
+        assert p.cluster <= tmm.WG_MAX_CLUSTER, p
+        assert cluster_sms[p.cluster - 1] > 0, p
+        owners = [r * p.cluster // 128 for r in range(128)]
+        assert sorted(set(owners)) == list(range(p.cluster)), p
+        most = -(-128 // p.cluster)
+        assert max(owners.count(o) for o in set(owners)) <= most, p
+    else:
+        assert p.cluster == 1, p
+    # the TMA store: an unsplit 64- or 128-wide tile whose bf16 rows are
+    # 16-byte multiples; the general kernel stores from registers
+    if p.epi == tmm.EPI_NAMES.index("tma"):
+        assert path == tmm.PATH_TMA and p.splits == 1, p
+        assert p.bn <= 128 and n % 8 == 0, p
+    return p
+
+
+def test_matmul_bf16_plans_are_legal_across_shapes():
+    rng = np.random.RandomState(5)
+    tables = [H100_WGMMA_CLUSTER_SMS, (132,) + (0,) * 7,
+              (132, 132, 120, 120) + (0,) * 4, (8,) * 4 + (0,) * 4]
+    for _ in range(300):
+        m, n = int(rng.randint(1, 20000)), int(rng.randint(1, 3000))
+        k = int(rng.choice([rng.randint(1, 600), rng.randint(1, 400000)]))
+        path = (tmm.PATH_TMA, tmm.PATH_GENERAL)[int(rng.randint(2))]
+        table = tables[int(rng.randint(len(tables)))]
+        _assert_legal_bf16_plan(m, n, k, path, table,
+                                int(rng.randint(1, 4)))
+
+
+def test_matmul_bf16_plan_without_clusters_takes_the_slab():
+    """A card whose clusters do not fit (the query's 0s) gets slab
+    splits only; a product whose K is one tile is never split."""
+    for m, n, k in [(576, 64, 100352), (1568, 512, 4608), (128, 256, 6272)]:
+        p = tmm.bf16_plan(m, n, k, tmm.PATH_TMA, H100_SMS,
+                          (132,) + (0,) * 7)
+        assert p.cluster == 1, p
+    for m, n in [(100352, 576), (1, 1), (25088, 128)]:
+        assert tmm.bf16_plan(m, n, 64, tmm.PATH_TMA, H100_SMS,
+                             H100_WGMMA_CLUSTER_SMS).splits == 1
+
+
+def test_matmul_bf16_plan_keeps_the_wide_products_as_they_were():
+    """The (8192,)×4 MLP's products (x·W, g·Wᵀ, hᵀ·g at 8192³) and the
+    4096³ row keep the 128 × 256 tile, unsplit, stored from registers:
+    the path designed for them, whose kernel code is unchanged."""
+    for size in (4096, 8192):
+        p = tmm.bf16_plan(size, size, size, tmm.PATH_TMA, H100_SMS,
+                          H100_WGMMA_CLUSTER_SMS)
+        assert (p.bn, p.splits, p.cluster, tmm.EPI_NAMES[p.epi]) == \
+            (256, 1, 1, "regs"), p
+
+
+def _bf16_path(m, k, n, sa, sb):
+    """csrc/matmul.cu's choose_path for 16-byte aligned bf16 operands."""
+    def tma(inner_stride, outer_stride, inner):
+        return inner_stride == 1 and outer_stride >= inner and \
+            outer_stride * 2 % 16 == 0
+    a_ok = tma(sa[1], sa[0], k) or tma(sa[0], sa[1], m)
+    b_ok = tma(sb[1], sb[0], n) or tma(sb[0], sb[1], k)
+    return tmm.PATH_TMA if a_ok and b_ok else tmm.PATH_GENERAL
+
+
+# the plan every conv product of the two trainers takes on the H100 (its
+# SMs and cluster table above; the general kernel at two blocks an SM):
+# (tile width, split, reduction, epilogue of an unsplit tile). LeNet c1's
+# W and g (rows of 6) take the general kernel; LeNet c2's dA writes rows
+# of 150 (300 bytes), which TMA cannot store.
+CONV_PLANS = {
+    "lenet c1 fwd": (64, 1, "none", "regs"),
+    "lenet c1 dB": (64, 206, "slab", None),
+    "lenet c2 fwd": (64, 1, "none", "tma"),
+    "lenet c2 dA": (256, 1, "none", "regs"),
+    "lenet c2 dB": (64, 58, "slab", None),
+    "resnet stem fwd": (64, 1, "none", "tma"),
+    "resnet stem dB": (64, 40, "slab", None),
+    "resnet s0b0 conv1 fwd": (64, 1, "none", "tma"),
+    "resnet s0b0 conv1 dA": (128, 1, "none", "tma"),
+    "resnet s0b0 conv1 dB": (64, 13, "slab", None),
+    "resnet s1b0 conv1 fwd": (128, 1, "none", "tma"),
+    "resnet s1b0 conv1 dA": (128, 1, "none", "tma"),
+    "resnet s1b0 conv1 dB": (64, 12, "slab", None),
+    "resnet s1b0 conv2 fwd": (128, 1, "none", "tma"),
+    "resnet s1b0 conv2 dA": (128, 1, "none", "tma"),
+    "resnet s1b0 conv2 dB": (128, 8, "cluster", None),
+    "resnet s1b0 proj fwd": (128, 1, "none", "tma"),
+    "resnet s1b0 proj dA": (64, 1, "none", "tma"),
+    "resnet s1b0 proj dB": (64, 56, "slab", None),
+    "resnet s2b0 conv1 fwd": (128, 1, "none", "tma"),
+    "resnet s2b0 conv1 dA": (128, 1, "none", "tma"),
+    "resnet s2b0 conv1 dB": (128, 5, "cluster", None),
+    "resnet s2b0 conv2 fwd": (128, 1, "none", "tma"),
+    "resnet s2b0 conv2 dA": (128, 1, "none", "tma"),
+    "resnet s2b0 conv2 dB": (128, 3, "cluster", None),
+    "resnet s2b0 proj fwd": (128, 1, "none", "tma"),
+    "resnet s2b0 proj dA": (64, 1, "none", "tma"),
+    "resnet s2b0 proj dB": (128, 25, "slab", None),
+    "resnet s3b0 conv1 fwd": (256, 4, "cluster", None),
+    "resnet s3b0 conv1 dA": (128, 1, "none", "tma"),
+    "resnet s3b0 conv1 dB": (128, 1, "none", "tma"),
+    "resnet s3b0 conv2 fwd": (256, 4, "cluster", None),
+    "resnet s3b0 conv2 dA": (128, 1, "none", "tma"),
+    "resnet s3b0 conv2 dB": (256, 1, "none", "regs"),
+    "resnet s3b0 proj fwd": (64, 1, "none", "tma"),
+    "resnet s3b0 proj dA": (64, 1, "none", "tma"),
+    "resnet s3b0 proj dB": (128, 7, "cluster", None),
+}
+
+
+def test_matmul_conv_products_take_their_plans():
+    """Every product of the LeNet-5 and ResNet-18 trainer steps gets a
+    legal plan at the H100's occupancy; the stem's and LeNet c2's patch
+    matrices (rows at a 16-byte pitch) take the wgmma kernel, LeNet c1's
+    the general one; a 64-wide output takes the 64-wide tile; every
+    unsplit tile whose C rows TMA can write stores through TMA; every
+    split of up to 8 whose cluster fits is summed in its cluster; and
+    each takes the plan CONV_PLANS pins."""
+    from torch_conv_products import conv_products
+    products = conv_products()
+    assert len(products) == 37
+    for label, m, k, n, sa, sb in products:
+        path = _bf16_path(m, k, n, sa, sb)
+        assert (path == tmm.PATH_GENERAL) == label.startswith("lenet c1"), \
+            label
+        p = _assert_legal_bf16_plan(m, n, k, path, H100_WGMMA_CLUSTER_SMS)
+        if n <= 64:
+            assert p.bn == 64, (label, p)
+        if path == tmm.PATH_TMA and p.splits == 1 and p.bn <= 128 \
+                and n % 8 == 0:
+            assert tmm.EPI_NAMES[p.epi] == "tma", (label, p)
+        reduce = ("none" if p.splits == 1 else
+                  "cluster" if p.cluster > 1 else "slab")
+        if 1 < p.splits <= tmm.WG_MAX_CLUSTER and path == tmm.PATH_TMA:
+            assert reduce == "cluster", (label, p)
+        epi = tmm.EPI_NAMES[p.epi] if p.splits == 1 else None
+        assert (p.bn, p.splits, reduce, epi) == CONV_PLANS[label], (label, p)
+    assert sorted(CONV_PLANS) == sorted(p[0] for p in products)
+
+
+@pytest.mark.parametrize("m,k,n,splits", [(75, 802816 // 64, 6, 8),
+                                          (147, 4000, 64, 16),
+                                          (576, 6400, 64, 25),
+                                          (128, 1000, 256, 2),
+                                          (64, 130, 40, 3)])
+def test_matmul_split_model_matches_plain_and_jax(m, k, n, splits):
+    """The split-K sum in the kernel's order (tests/
+    torch_matmul_split_model.py: f32 partials of whole 64-deep K-tile
+    chunks, added in rank order, one cast) against the plain version and
+    the JAX op in interpret mode on bf16-rounded operands, at the bf16
+    tolerance of tests/test_torch_cuda.py; and the chunks cover K once."""
+    from torch_matmul_split_model import chunks, split_product
+    rng = np.random.RandomState(m + k + n)
+    a = np.array(jnp.asarray(rng.randn(m, k) * k ** -0.25, jnp.bfloat16)
+                 .astype(jnp.float32))
+    b = np.array(jnp.asarray(rng.randn(k, n) * k ** -0.25, jnp.bfloat16)
+                 .astype(jnp.float32))
+    spans = chunks(k, splits)
+    assert spans[0][0] == 0 and spans[-1][1] == k and all(
+        s1 == t0 for (_, s1), (t0, _) in zip(spans, spans[1:]))
+    assert all(s0 % 64 == 0 and s1 > s0 for s0, s1 in spans)
+    got = split_product(a, b, splits, torch.bfloat16)
+    plain = tmm.matmul_plain(torch.from_numpy(a).to(torch.bfloat16),
+                             torch.from_numpy(b).to(torch.bfloat16))
+    np.testing.assert_allclose(got.float().numpy(), plain.float().numpy(),
+                               rtol=2e-2, atol=2e-2)
+    want = np.asarray(jops.matmul(jnp.asarray(a, jnp.bfloat16),
+                                  jnp.asarray(b, jnp.bfloat16),
+                                  backend="pallas_interpret")
+                      .astype(jnp.float32))
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2e-2,
+                               atol=2e-2)
+    f32 = split_product(a, b, splits)
+    np.testing.assert_allclose(f32.numpy(), a @ b, rtol=1e-4, atol=1e-4)

@@ -77,6 +77,51 @@ def test_winning_clone_publishes_over_a_leftover_manifest(leftover):
     assert got["lineage"] == lineage_token("clone")
 
 
+def test_discovery_right_after_a_winning_clones_commit_skips_the_leftover():
+    """The gap between a winning clone's commit and the rest of its
+    run_one: the commit makes the map WRITTEN, and the server's
+    discovery (``push_file_lists``, as barrier and pipelined discovery
+    resolve a committed map) may run at once. A job whose key has a
+    leftover canonical manifest must then resolve to the clone's
+    lineage, never to the leftover's fragment."""
+    from lua_mapreduce_tpu_torch.core.constants import MAP_NS
+    from lua_mapreduce_tpu_torch.coord.jobstore import make_job
+    from lua_mapreduce_tpu_torch.engine.local import collect_task_jobs
+    from lua_mapreduce_tpu_torch.engine.push import (lineage_token,
+                                                     push_file_lists)
+    from lua_mapreduce_tpu_torch.store.router import get_storage_from
+    port = _pkg("port")
+    storage = "mem:tstale-promote-gap"
+    spec = _spec(port, storage)
+    key = _map_keys()[0]
+    (_, frag, man_name), _ = _plant(storage)
+    store = port.MemJobStore()
+    docs = [make_job(k, v) for k, v in collect_task_jobs(spec)]
+    docs[0]["leftovers"] = [man_name]
+    store.insert_jobs(MAP_NS, docs)
+    jid = store.claim_batch(MAP_NS, "orig", 1)[0]["_id"]
+    assert store.speculate(MAP_NS, jid)
+    seen = []
+    commit = store.commit_batch
+
+    def commit_then_discover(ns, worker, entries):
+        done = commit(ns, worker, entries)
+        if done and ns == MAP_NS:
+            lists, _ = push_file_lists(get_storage_from(storage), "result",
+                                       [key], 2)
+            seen.append([f for fs in lists.get(key, {}).values()
+                         for f in fs])
+        return done
+    store.commit_batch = commit_then_discover
+    w = port.Worker(store, name="clone").configure(
+        push=True, replication=2, segment_format="v2")
+    clone = store.claim_spec(MAP_NS, w.name)
+    assert w.run_one(spec, MAP_NS, clone) is True
+    assert len(seen) == 1 and seen[0], seen
+    assert frag not in seen[0]
+    assert all(lineage_token("clone") in f for f in seen[0]), seen[0]
+
+
 def test_local_executor_publishes_over_a_manifest_its_sweep_left():
     """The LocalExecutor with push on at replication 2: the stale
     manifest and fragment outlive its iteration-start push sweep (their
