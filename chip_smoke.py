@@ -980,18 +980,25 @@ def rotating(fn, copies):
 def q8_rows(torch, gen):
     """q8 against its plain version at every product quantize_lm makes in
     serving: the decode projections and head at M = 4 (and the head at
-    M = 1, 2 and 8), prefill at M = 15872, the f32 check run. A decode
-    row names the GEMV's plan (strip width, cluster split, CTAs), is held
-    bit-equal over two calls, and is timed warm and cold: cold rotates
-    the weight (and torch.matmul's bf16 weight) over COLD_BYTES of
-    copies, so each call reads it from device memory, as a decode step
-    that streams every layer's weights does."""
+    M = 1, 2 and 8), prefill at M = 15872, the f32 check run. Every row
+    is held bit-equal over two calls. A decode row names the GEMV's plan
+    (strip width, cluster split, CTAs) and is timed warm and cold: cold
+    rotates the weight (and torch.matmul's bf16 weight) over COLD_BYTES
+    of copies, so each call reads it from device memory, as a decode
+    step that streams every layer's weights does. A prefill row names
+    its route and plan (token width, stages, CTAs), times the general
+    kernel that layouts TMA cannot read take (``general_ms``) and, in
+    bf16, B1 bf16 on the dequantized weight (``decomp_ms``)."""
     from lua_mapreduce_tpu_torch import ops
     from lua_mapreduce_tpu_torch.ops import _build
+    from lua_mapreduce_tpu_torch.ops.matmul import matmul_cuda, matmul_forced
     from lua_mapreduce_tpu_torch.ops.q8 import (GEMV_COLS, GEMV_MAX_M,
+                                                prefill_plan,
                                                 q8_gemv_cuda, q8_gemv_plan,
                                                 q8_matmul_cuda,
-                                                q8_matmul_plain)
+                                                q8_matmul_plain,
+                                                q8_prefill_forced,
+                                                q8_prefill_plan)
     q8_lib = _build.library("q8")
     rows = []
     for label, m, k_dim, n, dt in (
@@ -1034,11 +1041,47 @@ def q8_rows(torch, gen):
         err = check_close(f"q8 {label}", got, want, dt, SERVE_TOL["q8"],
                           NORM_TOL if dt == "bfloat16" else None)
         rel = norm_err(got, want)
-        extra = {"splits": int(q8_lib.lmr_q8_splits(m, k_dim, n))}
+        extra = {"splits": int(q8_lib.lmr_q8_splits(m, k_dim, n)),
+                 "bit_equal": True}
+        # a fixed sum order: two calls give the same bits
+        if not torch.equal(run(), got):
+            raise AssertionError(f"q8 {label}: two calls differ")
+        if m > GEMV_MAX_M:
+            # the main path's route: the prefill kernel, at the plan
+            # ops/q8.py mirrors
+            route, plan, sms = q8_prefill_plan(x, qw, dtype)
+            mirror = prefill_plan(m, n, dt == "float32", sms)
+            if route != "rs" or plan != mirror:
+                raise AssertionError(f"q8 {label}: route {route}, plan "
+                                     f"{plan}, the mirror's {mirror}")
+            extra.update(route=route, tokens=plan.tokens,
+                         stages=plan.stages, ctas=plan.ctas)
+            # the general kernel, which layouts TMA cannot read take:
+            # held to the plain version and bit-equal over two calls
+            def general(x=x, qw=qw, sw=sw):
+                return q8_prefill_forced(x, qw, sw, "general")
+            got_alt = general()
+            check_close(f"q8 {label} by the general kernel", got_alt, want,
+                        dt, SERVE_TOL["q8"],
+                        NORM_TOL if dt == "bfloat16" else None)
+            if not torch.equal(general(), got_alt):
+                raise AssertionError(f"q8 {label} by the general kernel: "
+                                     f"two calls differ")
+            del got_alt
+            extra["general_ms"] = time_ms(general, torch)
+        if m > GEMV_MAX_M and dt == "bfloat16":
+            # B1 bf16 on the dequantized weight under its own plan and
+            # forced to a 128 × 128 tile unsplit, and torch.matmul (TF32
+            # off): what the M > 8 product costs without int8 weights
+            extra["decomp_ms"] = {
+                "b1_own_plan": time_ms(
+                    lambda xb=xb, wd=wd: matmul_cuda(xb, wd, torch.bfloat16),
+                    torch),
+                "b1_128x128": time_ms(
+                    lambda xb=xb, wd=wd: matmul_forced(
+                        xb, wd, torch.bfloat16, 128, 1, 1, "tma"), torch),
+                "torch_matmul": time_ms(lib, torch)}
         if m <= GEMV_MAX_M:
-            # the cluster sums in rank order: two calls give the same bits
-            if not torch.equal(run(), got):
-                raise AssertionError(f"q8 {label}: two calls differ")
             plan, cluster_sms = q8_gemv_plan(m, k_dim, n)
             qs, wds = cold_copies(torch, qw), cold_copies(torch, wd)
             if m == 4:
@@ -1051,7 +1094,7 @@ def q8_rows(torch, gen):
                     for c in GEMV_COLS for sp in (1, 2, 4, 8)
                     if sp == 1 or sp <= -(-k_dim // (4096 // c))}
             extra.update(
-                cols=plan.cols, ctas=plan.ctas, bit_equal=True,
+                cols=plan.cols, ctas=plan.ctas,
                 cluster_sms=list(cluster_sms),
                 cold_ms=time_ms(rotating(
                     lambda c, x=x, sw=sw: q8_matmul_cuda(x, c, sw), qs),
@@ -1390,8 +1433,8 @@ def port_launches_seen(kernels):
     names = {"flash_fwd": ("flash_wgmma_kernel", "flash_bf16_kernel",
                            "flash_f32_kernel"),
              "decode": ("decode_split_kernel",),
-             "q8": ("gv::gemv_kernel", "mk::mma_kernel",
-                    "wgmma_gemm_kernel")}
+             "q8": ("gv::gemv_kernel", "pf::prefill_kernel",
+                    "mk::mma_kernel")}
     return {k: sum(r[2] for r in kernels if any(t in r[0] for t in tags))
             for k, tags in names.items()}
 
@@ -6577,9 +6620,18 @@ def main():
                       f"{r['cold_copies'][0]} copies) kernel "
                       f"{r['cold_ms']:.4f} ms, library "
                       f"{r['cold_library_ms']:.4f} ms")
+        if r.get("route") is not None:
+            extra += (f", route {r['route']} {r['tokens']} tokens x 128 "
+                      f"channels, {r['stages']} stages, {r['ctas']} CTAs, "
+                      f"two calls bit-equal")
         if r.get("plan_sweep_ms"):
             extra += "; every plan " + ", ".join(
                 f"{k} {v * 1e3:.2f} us" for k, v in r["plan_sweep_ms"].items())
+        if r.get("general_ms") is not None:
+            extra += f"; general kernel {r['general_ms']:.4f} ms"
+        if r.get("decomp_ms"):
+            extra += "; decomposition " + ", ".join(
+                f"{k} {v:.4f} ms" for k, v in r["decomp_ms"].items())
         if r.get("path") is not None:
             extra += f", {r['path']} kernel"
         if r.get("copies") is not None:

@@ -71,8 +71,10 @@ _SIGNATURES = {
     "decode": {"lmr_decode": [_P] * 10 + [_I] * 6 + [_L] * 3 + [_I, _P],
                "lmr_decode_splits": [_I] * 5,
                "lmr_decode_combine": [_P] * 4 + [_I] * 4 + [_P]},
-    "q8": {"lmr_q8_matmul": [_P] * 4 + [_I] * 4 + [_P],
+    "q8": {"lmr_q8_matmul": [_P] * 4 + [_I] * 5 + [_P],
            "lmr_q8_splits": [_I] * 3,
+           "lmr_q8_prefill_plan": [_P] * 2 + [_I] * 4 + [_P],
+           "lmr_q8_prefill_forced": [_P] * 4 + [_I] * 5 + [_P],
            "lmr_q8_plan": [_I] * 3 + [_P],
            "lmr_q8_gemv": [_P] * 4 + [_I] * 6 + [_P]},
     "pool": {"lmr_pool": [_P, _P] + [_I] * 18 + [_P]},

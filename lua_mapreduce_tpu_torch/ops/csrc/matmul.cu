@@ -1310,10 +1310,10 @@ static int launch_tma(const void* a, const void* b, void* c, bool out_f32,
   const bool a_m = lay.a_m, b_n = lay.b_n;
   const int bn = p.bn;
   CUtensorMap ta, tb, tc;
-  if (!(a_m ? sm90::make_map(&ta, a, true, M, K, sak, 64, 64)
-            : sm90::make_map(&ta, a, true, K, M, sam, 64, 128)) ||
-      !(b_n ? sm90::make_map(&tb, b, true, N, K, sbk, 64, 64)
-            : sm90::make_map(&tb, b, true, K, N, sbn, 64, bn)))
+  if (!(a_m ? sm90::make_map(&ta, a, M, K, sak, 64, 64)
+            : sm90::make_map(&ta, a, K, M, sam, 64, 128)) ||
+      !(b_n ? sm90::make_map(&tb, b, N, K, sbk, 64, 64)
+            : sm90::make_map(&tb, b, K, N, sbn, 64, bn)))
     return cudaErrorInvalidValue;
   int epi = p.epi;
   if (epi == sm90::EPI_TMA &&
@@ -1323,9 +1323,9 @@ static int launch_tma(const void* a, const void* b, void* c, bool out_f32,
   if (epi != sm90::EPI_TMA) tc = ta;    // read by no instantiation here
   int rc = cudaErrorInvalidValue;
 #define LMR_WGMMA(BN, AM, BNM, CL)                                          \
-  rc = sm90::launch_wgmma<BN, AM, BNM, false, CL>(                          \
-      ta, tb, tc, c, out_f32, kpart, nullptr, M, N, K, p.splits, p.chunk, s, \
-      epi, p.cluster)
+  rc = sm90::launch_wgmma<BN, AM, BNM, CL>(                                 \
+      ta, tb, tc, c, out_f32, kpart, M, N, K, p.splits, p.chunk, s, epi,    \
+      p.cluster)
 #define LMR_WGMMA_BN(BN, CL)                                                \
   if (a_m) { if (b_n) LMR_WGMMA(BN, true, true, CL); else LMR_WGMMA(BN, true, false, CL); } \
   else     { if (b_n) LMR_WGMMA(BN, false, true, CL); else LMR_WGMMA(BN, false, false, CL); }

@@ -3,7 +3,7 @@ version.
 
 Port of ``lua_mapreduce_tpu/ops/matmul.py``: the Pallas ``_matmul_kernel``
 becomes ``csrc/matmul.cu`` (a planner over, in bf16, a pipelined TMA +
-wgmma mainloop shared with q8, ``csrc/gemm_sm90.cuh``, with 64-, 128- or
+wgmma mainloop, ``csrc/gemm_sm90.cuh``, with 64-, 128- or
 256-wide tiles, a TMA-store epilogue and split-K summed inside a thread
 block cluster, and a general wgmma kernel for layouts TMA cannot read;
 in f32, full FP32 FMA kernels: 128-wide tiles fed by a cp.async ring, or

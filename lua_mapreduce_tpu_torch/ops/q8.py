@@ -2,18 +2,21 @@
 
 Port of ``lua_mapreduce_tpu/ops/q8.py``: the Pallas ``_q8_kernel``
 becomes ``csrc/q8.cu`` (its source note says what bounds it and what
-the design does about it). Quantization is symmetric per output
-channel, q = round(w / s), s = max|w_col| / 127, so the scale factors
-out of the contraction and is applied once to the f32 accumulator. The
-kernel casts x to bf16 before the product (as the TPU kernel does); the
-plain version dequantizes and multiplies in f32 (the JAX op's XLA
-path), so the two agree to a bf16 rounding of x.
+the design does about it): a GEMV for M <= GEMV_MAX_M (:func:`gemv_plan`
+mirrors its plan) and, past it, a wgmma kernel with the int8 weight as
+the A operand widened in registers (:func:`prefill_plan` mirrors its
+plan, :func:`q8_prefill_plan` reports the card's). Quantization is
+symmetric per output channel, q = round(w / s), s = max|w_col| / 127,
+so the scale factors out of the contraction and is applied once to the
+f32 accumulator. The kernel casts x to bf16 before the product (as the
+TPU kernel does); the plain version dequantizes and multiplies in f32
+(the JAX op's XLA path), so the two agree to a bf16 rounding of x.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -38,6 +41,23 @@ GEMV_MAGIC = 0x4B000000
 GEMV_PERM = 0x7440
 GEMV_WIDEN_BIAS = 8388736.0
 _CPT = 16                        # int8 columns a thread loads (16 bytes)
+
+# csrc/q8.cu's prefill (M > GEMV_MAX_M) constants, as it defines them:
+# output channels a tile, its tokens (PF_F32_TOKENS for an f32 output),
+# threads a block, the shared memory a block's ring and C tile may hold,
+# the most stages, the byte selectors of its widening (bytes 0, 2 and
+# 1, 3 of a word under bf16 128's exponent byte), the routes
+# lmr_q8_prefill_plan reports and lmr_q8_prefill_forced takes
+PF_CHANNELS = 128
+PF_TOKENS = 208
+PF_F32_TOKENS = 128
+PF_THREADS = 384
+PF_SMEM_BUDGET = 232192
+PF_MAX_STAGES = 8
+PF_PERM_LO = 0x4240
+PF_PERM_HI = 0x4341
+PF_KIND_RS, PF_KIND_GENERAL = 0, 1
+PF_ROUTES = {"rs": PF_KIND_RS, "general": PF_KIND_GENERAL}
 
 
 class GemvPlan(NamedTuple):
@@ -98,6 +118,92 @@ def gemv_plan(k: int, n: int, cluster_sms: Sequence[int]) -> GemvPlan:
     return best
 
 
+class PrefillPlan(NamedTuple):
+    """One launch of csrc/q8.cu's prefill kernel: tiles of PF_CHANNELS
+    channels × ``tokens`` tokens, a ring of ``stages``, ``ctas``
+    persistent blocks."""
+    tokens: int
+    stages: int
+    tiles: int
+    ctas: int
+
+
+def prefill_stages(tokens: int, out_f32: bool) -> int:
+    """Stages of the prefill kernel's ring (csrc/q8.cu's pf::Layout): as
+    many {x tile, int8 tile} stages as fit in PF_SMEM_BUDGET beside the
+    staged C tile and 1 KB of alignment, at most PF_MAX_STAGES."""
+    stage = tokens * 64 * 2 + 64 * PF_CHANNELS
+    c_tile = tokens * PF_CHANNELS * (4 if out_f32 else 2)
+    return min((PF_SMEM_BUDGET - 1024 - c_tile) // stage, PF_MAX_STAGES)
+
+
+def prefill_smem_bytes(tokens: int, out_f32: bool) -> int:
+    """The prefill kernel's dynamic shared memory (pf::Layout::DYN)."""
+    return (prefill_stages(tokens, out_f32) * (tokens * 64 * 2 + 64 *
+                                               PF_CHANNELS)
+            + tokens * PF_CHANNELS * (4 if out_f32 else 2) + 1024)
+
+
+def prefill_tokens(out_f32: bool) -> int:
+    """The prefill kernel's token width for this output dtype."""
+    return PF_F32_TOKENS if out_f32 else PF_TOKENS
+
+
+def prefill_plan(m: int, n: int, out_f32: bool, sms: int) -> PrefillPlan:
+    """Mirror of csrc/q8.cu::prefill_plan: the token width of the output
+    dtype, its ring's stages, the tiles of PF_CHANNELS channels × that
+    width, and a persistent grid of at most one block an SM."""
+    b = prefill_tokens(out_f32)
+    tiles = -(-m // b) * -(-n // PF_CHANNELS)
+    return PrefillPlan(b, prefill_stages(b, out_f32), tiles, min(tiles, sms))
+
+
+def q8_prefill_plan(x: torch.Tensor, q: torch.Tensor,
+                    out_dtype: Optional[torch.dtype] = None
+                    ) -> Tuple[str, PrefillPlan, int]:
+    """The route (a PF_ROUTES key), the plan and the SM count csrc/q8.cu
+    takes for an M > GEMV_MAX_M product of these CUDA operands (x as the
+    kernel reads it: bf16, the wrapper rounding an f32 x first) on their
+    card. The general kernel's plan is all zeros."""
+    m, k = x.shape
+    n = q.shape[1]
+    out_dtype = out_dtype or x.dtype
+    xk = x.contiguous().to(torch.bfloat16)
+    lib = _build.library("q8")
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(x.device):
+        rc = lib.lmr_q8_prefill_plan(xk.data_ptr(), q.contiguous().data_ptr(),
+                                     m, k, n, _CODES[out_dtype],
+                                     ctypes.addressof(out))
+    _build.check(lib, rc, f"q8 prefill plan for M={m}, K={k}, N={n}")
+    route = {v: r for r, v in PF_ROUTES.items()}[out[0]]
+    return route, PrefillPlan(*out[1:5]), out[5]
+
+
+def q8_prefill_forced(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                      route: str) -> torch.Tensor:
+    """An M > GEMV_MAX_M product by a given route on CUDA tensors: "rs"
+    (the prefill kernel at its plan) or "general" (the general kernel,
+    which the main path takes only for layouts TMA cannot read) — for
+    the tests and for timing the general kernel. x is rounded to bf16
+    first, as the main path does. Raises on a route that cannot take the
+    operands."""
+    m, k = x.shape
+    n = q.shape[1]
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    xk = x.contiguous().to(torch.bfloat16)
+    q, s = q.contiguous(), s.reshape(-1).float().contiguous()
+    lib = _build.library("q8")
+    with torch.cuda.device(x.device):
+        rc = lib.lmr_q8_prefill_forced(
+            xk.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), m, k,
+            n, _CODES[x.dtype], PF_ROUTES[route],
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, rc, f"q8 prefill launch by {route}")
+    count_launch("q8")
+    return out
+
+
 def q8_gemv_plan(m: int, k: int, n: int
                  ) -> Tuple[GemvPlan, Tuple[int, ...]]:
     """The plan csrc/q8.cu launches for an M <= 8 shape on the current
@@ -142,6 +248,9 @@ def q8_matmul_cuda(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if out.numel() == 0 or k == 0:
         return out.zero_()
+    # past the GEMV the kernels read a bf16 x: an f32 x is rounded first,
+    # as the TPU kernel casts x before the dot (the GEMV rounds it itself)
+    xk = x if m <= GEMV_MAX_M else x.to(torch.bfloat16)
     lib = _build.library("q8")
     with torch.cuda.device(x.device):
         # the kernel's split policy lives in csrc/q8.cu; an M <= 8 split
@@ -150,9 +259,9 @@ def q8_matmul_cuda(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor
             raise ValueError(f"q8 kernel does not take M={m}, K={k}, N={n} "
                              f"(M past its grid limit)")
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.lmr_q8_matmul(x.data_ptr(), q.data_ptr(), s.data_ptr(),
-                               out.data_ptr(), m, k, n, _CODES[x.dtype],
-                               stream)
+        rc = lib.lmr_q8_matmul(xk.data_ptr(), q.data_ptr(), s.data_ptr(),
+                               out.data_ptr(), m, k, n, _CODES[xk.dtype],
+                               _CODES[out.dtype], stream)
     _build.check(lib, rc, "q8 kernel launch")
     count_launch("q8")
     return out

@@ -1160,6 +1160,143 @@ def test_q8_gemv_at_every_plan(cuda, m, k, n, cols, split):
                                rtol=2e-2, atol=2e-2)
 
 
+# the prefill kernel (M > 8) at ragged M, N and K around its token
+# widths (208, 128 for an f32 output) and its 128-channel tile, and at a
+# serving shape
+Q8_PREFILL = [(9, 64, 16), (300, 200, 272), (257, 1000, 144),
+              (129, 8, 400), (209, 136, 48), (417, 192, 256),
+              (4000, 1024, 1024)]
+
+
+@pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", Q8_PREFILL)
+def test_q8_prefill_matches_plain_and_its_model(cuda, xdtype, m, k, n):
+    """The prefill kernel within test_q8.py's tolerance of the plain
+    version, bit-equal over two calls and to the main path, and the
+    model's bits (tests/torch_q8_prefill_model.py) on integer-valued
+    inputs."""
+    from lua_mapreduce_tpu_torch.ops.q8 import (q8_prefill_forced,
+                                                q8_prefill_plan)
+    from torch_q8_prefill_model import prefill
+    x, q, s = _q8_inputs(cuda, m, k, n, xdtype)
+    x = x.to(torch.bfloat16).to(xdtype)
+    want = q8_matmul_plain(x, q, s)
+    assert q8_prefill_plan(x, q)[0] == "rs"
+    got = q8_prefill_forced(x, q, s, "rs")
+    assert got.dtype == xdtype and got.shape == (m, n)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    assert torch.equal(q8_prefill_forced(x, q, s, "rs"), got)
+    assert torch.equal(q8_matmul_cuda(x, q, s), got)
+    if m * k * n > 1 << 27:
+        return                       # the numpy model's time: small shapes
+    # integer-valued x and power-of-two scales: sums f32 holds exactly
+    xi = torch.randint(-4, 5, (m, k), device="cuda", generator=cuda
+                       ).to(xdtype)
+    si = 2.0 ** torch.randint(-12, -6, (n,), device="cuda",
+                              generator=cuda).float()
+    got = q8_prefill_forced(xi, q, si, "rs").cpu()
+    assert torch.equal(got, prefill(xi.cpu(), q.cpu(), si.cpu()))
+
+
+def test_q8_prefill_plan_equals_its_mirror(cuda):
+    """csrc/q8.cu's prefill plan on this card equals ops/q8.py's mirror
+    at the card's SMs, for every serving product and the check run's f32
+    qkv; layouts TMA cannot read take the general kernel."""
+    from lua_mapreduce_tpu_torch.ops.q8 import prefill_plan, q8_prefill_plan
+    for m, k, n in [(15872, 1024, 3072), (15872, 1024, 1024),
+                    (15872, 1024, 4096), (15872, 4096, 1024),
+                    (15872, 1024, 32768), (1024, 1024, 3072)] + Q8_PREFILL:
+        for xdtype in (torch.bfloat16, torch.float32):
+            x = torch.empty((m, k), device="cuda", dtype=xdtype)
+            q = torch.empty((k, n), device="cuda", dtype=torch.int8)
+            route, plan, sms = q8_prefill_plan(x, q)
+            assert route == "rs"
+            assert plan == prefill_plan(m, n, xdtype == torch.float32,
+                                        sms), (m, k, n, xdtype)
+    for k, n in ((1030, 512), (1024, 200)):          # K % 8, N % 16
+        x = torch.empty((64, k), device="cuda", dtype=torch.bfloat16)
+        q = torch.empty((k, n), device="cuda", dtype=torch.int8)
+        assert q8_prefill_plan(x, q)[0] == "general"
+
+
+@pytest.mark.parametrize("m,k,n,kernel", [
+    (15872, 1024, 3072, "pf::prefill_kernel"),
+    (300, 1024, 272, "pf::prefill_kernel"),
+    (300, 1030, 520, "mk::mma_kernel")])
+@pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.float32])
+def test_q8_prefill_is_one_launch(cuda, m, k, n, kernel, xdtype):
+    """An M > 8 call is one kernel in the trace: the prefill kernel, or
+    the general kernel for a layout TMA cannot read (an f32 x's rounding
+    to bf16 is a torch copy before it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    x, q, s = _q8_inputs(cuda, m, k, n, xdtype)
+    q8_matmul_cuda(x, q, s)
+    torch.cuda.synchronize()
+    # a window of several calls: the profiler can drop a window's first
+    # kernels, and now and then a whole window (a trace with no device
+    # events at all is read again, at most three times)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                q8_matmul_cuda(x, q, s)
+            torch.cuda.synchronize()
+        kernels = [e.key for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0
+                   and "elementwise" not in e.key]
+        if kernels:
+            break
+    assert len(kernels) == 1 and kernel in kernels[0], kernels
+
+
+def test_q8_prefill_refuses_a_route_it_cannot_run(cuda):
+    from lua_mapreduce_tpu_torch.ops.q8 import q8_prefill_forced
+    x, q, s = _q8_inputs(cuda, 64, 256, 128)
+    # K % 8 != 0 (TMA cannot read x), M within the GEMV's
+    for xx, route in ((x[:, 1:], "rs"), (x[:8], "rs"), (x[:8], "general")):
+        with pytest.raises(RuntimeError, match="q8 prefill launch"):
+            q8_prefill_forced(xx, q[:xx.shape[1]], s, route)
+    with pytest.raises(KeyError):                    # no such route
+        q8_prefill_forced(x, q, s, "w8")
+    x2, q2, s2 = _q8_inputs(cuda, 64, 256, 200)      # N % 16 != 0
+    with pytest.raises(RuntimeError, match="q8 prefill launch"):
+        q8_prefill_forced(x2, q2, s2, "rs")
+    torch.testing.assert_close(
+        q8_prefill_forced(x2, q2, s2, "general").float(),
+        q8_matmul_plain(x2, q2, s2).float(), rtol=2e-2, atol=2e-2)
+
+
+def test_q8_prefill_sass_keeps_in_flight_wgmma_registers(cuda):
+    """The built prefill kernels' SASS, checked by
+    tests/torch_sass_wgmma.py: no instruction writes the A fragment
+    registers of an HGMMA still in flight (the fragments are rebuilt in
+    registers while the tensor cores read the last K-tile's), or reads
+    or writes its accumulators, before the WARPGROUP.DEPBAR that retires
+    it, on any path through the kernel's loops."""
+    import os
+    import shutil
+    import subprocess
+    from lua_mapreduce_tpu_torch.ops import _build
+    from torch_sass_wgmma import functions, hazards
+    _build.library("q8")
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build._target("q8"))],
+                          capture_output=True, text=True, check=True).stdout
+    kernels = {name: insts for name, insts in functions(sass).items()
+               if "prefill_kernel" in name}
+    assert len(kernels) == 2, sorted(kernels)
+    for name, insts in kernels.items():
+        # a K-tile's four k16 steps from registers, twice (two buffers)
+        rs = [i for i in insts if i.op.startswith("HGMMA")
+              and i.operands[1].startswith("R")]
+        assert len(rs) == 8, (name, len(rs))
+        assert hazards(insts) == [], name
+
+
 def test_q8_gemv_refuses_a_plan_it_cannot_run(cuda):
     from lua_mapreduce_tpu_torch.ops.q8 import q8_gemv_cuda
     x, q, s = _q8_inputs(cuda, 4, 64, 128)

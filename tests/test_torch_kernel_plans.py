@@ -362,11 +362,16 @@ CARD_GEMV_SHAPES = [(1, 256, 128), (4, 1024, 3072), (4, 4096, 1024),
 
 def test_q8_gemv_constants_match_the_source():
     plain, lists = _defines("q8")
-    assert plain == {"GEMV_NT": tq8.GEMV_NT, "GEMV_MAX_M": tq8.GEMV_MAX_M,
-                     "GEMV_MAX_CLUSTER": tq8.GEMV_MAX_CLUSTER,
-                     "GEMV_XCH": tq8.GEMV_XCH,
-                     "GEMV_CTA_COST": tq8.GEMV_CTA_COST,
-                     "GEMV_STAGES": tq8.GEMV_STAGES}
+    gemv = {k: v for k, v in plain.items() if k.startswith("GEMV_")}
+    assert gemv == {"GEMV_NT": tq8.GEMV_NT, "GEMV_MAX_M": tq8.GEMV_MAX_M,
+                    "GEMV_MAX_CLUSTER": tq8.GEMV_MAX_CLUSTER,
+                    "GEMV_XCH": tq8.GEMV_XCH,
+                    "GEMV_CTA_COST": tq8.GEMV_CTA_COST,
+                    "GEMV_STAGES": tq8.GEMV_STAGES}
+    # every other plain define is the prefill's, which
+    # test_q8_prefill_constants_match_the_source holds to its own set
+    assert set(plain) - set(gemv) == {k for k in plain
+                                      if k.startswith("PF_")}
     assert lists == {"GEMV_COLS": tq8.GEMV_COLS}
     text = (_build.CSRC / _build.SOURCES["q8"]).read_text()
     hexes = {k: int(v, 16) for k, v in re.findall(
@@ -506,6 +511,197 @@ def test_q8_gemv_model_matches_plain_and_jax(m, k, n):
     assert gb.dtype == torch.bfloat16
     np.testing.assert_allclose(gb.float().numpy(), plain.numpy(),
                                rtol=2e-2, atol=2e-2)
+
+
+# ---- the q8 prefill (M > 8): its plan, its fragments, its transposed
+# store (tests/torch_q8_prefill_model.py)
+
+# (M, K, N) of every M > 8 product quantize_lm makes in the serving cells
+# (dense: qkv, out, ff1, ff2, head; MoE serving: qkv, out and the head),
+# batch 4 × prompt 3968, and the f32 check run's qkv
+PREFILL_PRODUCTS = [(15872, k, n) for k, n in DECODE_PLANS] + [
+    (1024, 1024, 3072)]
+# the shared memory a block may hold on the H100 (227 KB) and the
+# prefill kernel's static barriers (full and empty, 8 bytes a stage)
+H100_BLOCK_SMEM = 232448
+
+
+def test_q8_prefill_constants_match_the_source():
+    plain, lists = _defines("q8")
+    pf = {k: v for k, v in plain.items() if k.startswith("PF_")}
+    assert pf == {"PF_CHANNELS": tq8.PF_CHANNELS,
+                  "PF_TOKENS": tq8.PF_TOKENS,
+                  "PF_F32_TOKENS": tq8.PF_F32_TOKENS,
+                  "PF_THREADS": tq8.PF_THREADS,
+                  "PF_SMEM_BUDGET": tq8.PF_SMEM_BUDGET,
+                  "PF_MAX_STAGES": tq8.PF_MAX_STAGES,
+                  "PF_KIND_RS": tq8.PF_KIND_RS,
+                  "PF_KIND_GENERAL": tq8.PF_KIND_GENERAL}
+    assert not any(k.startswith("PF_") for k in lists)
+    text = (_build.CSRC / _build.SOURCES["q8"]).read_text()
+    hexes = {k: int(v, 16) for k, v in re.findall(
+        r"^#define (PF_\w+) (0x[0-9A-Fa-f]+)$", text, re.M)}
+    assert hexes == {"PF_PERM_LO": tq8.PF_PERM_LO,
+                     "PF_PERM_HI": tq8.PF_PERM_HI}
+    # a consumer warpgroup's 64 channels are four warps of 16 (a pair-
+    # ldmatrix row: 8 pairs); two consumer warpgroups and a producer
+    # warpgroup
+    assert tq8.PF_CHANNELS == 2 * 64 and tq8.PF_THREADS == 3 * 128
+    # a token width is one wgmma N (a multiple of 8 up to 256) and one
+    # TMA box of rows (at most 256); the kernel instantiates wgmma_rs_k
+    # at both widths
+    for b in (tq8.PF_TOKENS, tq8.PF_F32_TOKENS):
+        assert b % 16 == 0 and b <= 256
+        assert f"wgmma_rs_k<{b}>(float (&d)[{b // 2}]" in text
+
+
+def _prefill_plan_ok(plan, m, k, n, out_f32, sms):
+    """csrc/q8.cu's checks of a prefill plan, from its source: the token
+    width it is instantiated for (PF_TOKENS; PF_F32_TOKENS for an f32
+    output), a ring of at least two stages beside the C tile within the
+    block's shared memory, and the tiles and grid of that width."""
+    plain, _ = _defines("q8")
+    if plan.tokens != plain["PF_F32_TOKENS" if out_f32 else "PF_TOKENS"]:
+        return False
+    stage = plan.tokens * 64 * 2 + 64 * plain["PF_CHANNELS"]
+    c_tile = plan.tokens * plain["PF_CHANNELS"] * (4 if out_f32 else 2)
+    dyn = plan.stages * stage + c_tile + 1024
+    tiles = -(-m // plan.tokens) * -(-n // plain["PF_CHANNELS"])
+    return (2 <= plan.stages <= plain["PF_MAX_STAGES"]
+            and dyn <= plain["PF_SMEM_BUDGET"]
+            and dyn + 2 * 8 * plan.stages <= H100_BLOCK_SMEM
+            and dyn == tq8.prefill_smem_bytes(plan.tokens, out_f32)
+            and plan.tiles == tiles and plan.ctas == min(tiles, sms))
+
+
+@pytest.mark.parametrize("m,k,n", PREFILL_PRODUCTS)
+@pytest.mark.parametrize("out_f32", [False, True])
+def test_q8_prefill_plans_of_the_serving_products_are_legal(m, k, n,
+                                                            out_f32):
+    p = tq8.prefill_plan(m, n, out_f32, H100_SMS)
+    assert _prefill_plan_ok(p, m, k, n, out_f32, H100_SMS), p
+
+
+def test_q8_prefill_plans_are_legal_across_shapes():
+    rng = np.random.RandomState(5)
+    for _ in range(300):
+        m = int(rng.randint(9, 40000))
+        k, n = 8 * int(rng.randint(1, 1200)), 16 * int(rng.randint(1, 3000))
+        sms = int(rng.choice([1, 66, 114, 132]))
+        for out_f32 in (False, True):
+            p = tq8.prefill_plan(m, n, out_f32, sms)
+            assert _prefill_plan_ok(p, m, k, n, out_f32, sms), (m, k, n, p)
+
+
+def test_q8_prefill_plan_takes_one_width_an_output_dtype():
+    """Every serving and MoE product takes the 208-token tile in bf16
+    (the widest whose registers fit, and the fastest there on the H100:
+    PERF.md) and the f32 check run's product the 128-token one, with the
+    stages that fit beside its C tile; a grid of one block an SM once the
+    tiles fill the card."""
+    for m, k, n in PREFILL_PRODUCTS:
+        p = tq8.prefill_plan(m, n, False, H100_SMS)
+        assert (p.tokens, p.stages) == (208, 5), (m, k, n, p)
+        assert p.ctas == min(p.tiles, H100_SMS)
+        if m == 15872:
+            assert p.ctas == H100_SMS
+    p = tq8.prefill_plan(1024, 3072, True, H100_SMS)
+    assert p == (tq8.PF_F32_TOKENS, 6, 8 * 24, H100_SMS)
+
+
+def test_q8_prefill_pair_ldmatrix_hands_each_lane_two_channels():
+    """A lane (g, t)'s word of the transposed pair-ldmatrix holds
+    w[2t][2g], w[2t][2g+1], w[2t+1][2g], w[2t+1][2g+1] of its matrix
+    (k rows, channel columns), and widen_pair makes channel 2g's bf16
+    pair {k 2t, 2t + 1} (lo) and channel 2g + 1's (hi), exactly."""
+    from torch_q8_prefill_model import (G8, LANE, T4, bf16_bits_to_f32,
+                                        ldmatrix_x4_trans, swizzle,
+                                        widen_pair)
+    rng = np.random.RandomState(1)
+    w = rng.randint(-128, 128, size=(64, 128)).astype(np.int8)
+    smem = swizzle(w.view(np.uint8))
+    for chunk in (0, 5, 7):
+        for half in (0, 1):
+            k = 32 * half + LANE
+            r = ldmatrix_x4_trans(smem, k * 128 + ((chunk ^ (LANE & 7)) << 4))
+            for j in range(4):
+                k0 = 32 * half + 8 * j + 2 * T4
+                c0 = 16 * chunk + 2 * G8
+                want = (w[k0, c0].view(np.uint8).astype(np.uint32)
+                        | w[k0, c0 + 1].view(np.uint8).astype(np.uint32) << 8
+                        | w[k0 + 1, c0].view(np.uint8).astype(np.uint32) << 16
+                        | w[k0 + 1, c0 + 1].view(np.uint8).astype(np.uint32)
+                        << 24)
+                np.testing.assert_array_equal(r[:, j], want)
+                lo, hi = widen_pair(r[:, j])
+                for reg, c in ((lo, c0), (hi, c0 + 1)):
+                    np.testing.assert_array_equal(
+                        bf16_bits_to_f32(reg & np.uint32(0xFFFF)), w[k0, c])
+                    np.testing.assert_array_equal(
+                        bf16_bits_to_f32(reg >> np.uint32(16)), w[k0 + 1, c])
+
+
+def test_q8_prefill_widening_is_exact_for_every_byte():
+    from torch_q8_prefill_model import bf16_bits_to_f32, widen_pair
+    b = np.arange(256, dtype=np.uint32)
+    want = b.astype(np.uint8).view(np.int8).astype(np.float32)
+    for pos, (half, shift) in enumerate(((0, 0), (1, 0), (0, 16), (1, 16))):
+        lo, hi = widen_pair(b << np.uint32(8 * pos))
+        got = bf16_bits_to_f32(((hi if half else lo) >> np.uint32(shift))
+                               & np.uint32(0xFFFF))
+        np.testing.assert_array_equal(got, want)
+
+
+# ragged M, N and K around both token widths (208, 128) and the
+# 128-channel tile
+PREFILL_RAGGED = [(9, 64, 16), (300, 200, 272), (257, 1000, 144),
+                  (129, 8, 400), (400, 72, 128), (207, 136, 48),
+                  (209, 64, 656), (417, 192, 256), (127, 520, 32),
+                  (130, 24, 144)]
+
+
+@pytest.mark.parametrize("m,k,n", PREFILL_RAGGED)
+@pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.float32])
+def test_q8_prefill_fragment_mapping_matches_plain(m, k, n, xdtype):
+    """The model's TMA boxes, pair-ldmatrix, widening, channel
+    permutation, transposed swizzled store and clipped TMA store give
+    the plain product exactly, on integer-valued x and power-of-two
+    scales (sums f32 holds exactly), at each output dtype's token
+    width."""
+    from torch_q8_prefill_model import prefill
+    rng = np.random.RandomState(m + k + n)
+    x = torch.from_numpy(rng.randint(-4, 5, size=(m, k)).astype(np.float32))
+    q = torch.from_numpy(rng.randint(-127, 128, size=(k, n)).astype(np.int8))
+    s = torch.from_numpy((2.0 ** rng.randint(-12, -6, size=n))
+                         .astype(np.float32))
+    got = prefill(x.to(xdtype), q, s)
+    want = (x.double() @ (q.double() * s.double())).to(xdtype)
+    assert got.dtype == xdtype
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m,k,n", [(300, 200, 272), (40, 1024, 128)])
+def test_q8_prefill_model_matches_plain_and_jax(m, k, n):
+    """The prefill model on random weights against the plain version and
+    the JAX op in interpret mode, on x already rounded to bf16, at
+    test_q8.py's tolerance, in bf16 and f32."""
+    from torch_q8_prefill_model import prefill
+    rng = np.random.RandomState(m * 3 + n)
+    w = rng.randn(k, n).astype(np.float32)
+    x = np.array(jnp.asarray(rng.randn(m, k), jnp.bfloat16)
+                 .astype(jnp.float32))
+    q, s = ops.quantize_q8(torch.from_numpy(w))
+    plain = tq8.q8_matmul_plain(torch.from_numpy(x), q, s)
+    jq, js = jops.quantize_q8(jnp.asarray(w))
+    want = np.asarray(jops.q8_matmul(jnp.asarray(x), jq, js,
+                                     backend="pallas_interpret"))
+    for xdtype in (torch.float32, torch.bfloat16):
+        got = prefill(torch.from_numpy(x).to(xdtype), q, s.reshape(-1))
+        assert got.dtype == xdtype
+        np.testing.assert_allclose(got.float().numpy(), plain.numpy(),
+                                   rtol=2e-2, atol=2e-2)
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=2e-2,
+                                   atol=2e-2)
 
 
 # ---------------------------------------------- B1's bf16 plan (matmul.cu)
