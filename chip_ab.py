@@ -21,9 +21,10 @@ parent, unpack the parent into a directory that ``.gitignore`` lists:
     python3 chip_ab.py build/parent .
 
 ``--cells`` takes a comma-separated subset of digits, wide, serving,
-moe_serving, conv, lm, kmeans, als (default: all but moe_serving, which
-is phase 22's MoE serving cell), for a change that touches only some of
-them:
+moe_serving, conv, lm, kmeans, als, q8 (default: all but moe_serving,
+which is phase 22's MoE serving cell, and q8, phase 2's q8 rows: each
+row's kernel time beside ``torch.matmul``'s), for a change that touches
+only some of them:
 
     python3 chip_ab.py --cells serving,moe_serving build/parent .
 
@@ -36,8 +37,8 @@ import subprocess
 import sys
 
 CELLS = ("digits", "wide", "serving", "moe_serving", "conv", "lm",
-         "kmeans", "als")
-DEFAULT_CELLS = tuple(c for c in CELLS if c != "moe_serving")
+         "kmeans", "als", "q8")
+DEFAULT_CELLS = tuple(c for c in CELLS if c not in ("moe_serving", "q8"))
 
 CHILD = r'''
 import importlib.util, json, sys
@@ -78,6 +79,11 @@ if "conv" in cells:
         for key in ("step_ms", "eager_step_ms", "profiled_step_device_ms"):
             if key in r:
                 m[f"conv {name} {key}"] = r[key]
+if "q8" in cells:
+    for r in cs.q8_rows(torch, gen):
+        m[f"{r['case']} ms"] = r["ms"]
+        if r["library_ms"] is not None:
+            m[f"{r['case']} library ms"] = r["library_ms"]
 if "lm" in cells:
     for tag, r in cs.phase_lm_train(torch, ops).items():
         for key in ("step_ms", "profiled_step_device_ms"):

@@ -741,25 +741,21 @@ def serving_row(torch, kernel, case, err, fn, plain, lib, flops, nbytes,
             "bound_ms": bms, "bound_by": by}
 
 
-def phase_serving_kernels(torch, gen):
-    """flash / decode / q8 against their plain versions at the serving
-    path's shapes (batch 4, prompt 3968, 16 heads of 64, cache 4096;
-    q8 at every projection and the head, decode M = 4 and prefill
-    M = 15872), plus the f32 shapes of the reduced-depth check. bf16 and
-    int8 rows are also held normwise (NORM_TOL), and every attention
-    row shows that its check refuses a wrong output."""
+def flash_rows(torch, gen):
+    """flash forward rows of phase 2: each held to the plain version at
+    SERVE_TOL (bf16 also normwise) with its refused 5%-off control,
+    the path it took, SDPA as its yardstick where SDPA computes the same
+    function. The serving row also times the kernel's decomposition
+    (``decomp_ms``: the kernel, its products alone, its softmax alone,
+    its loads alone, ``flash_forced``)."""
     import torch.nn.functional as F
-    from lua_mapreduce_tpu_torch import ops
-    from lua_mapreduce_tpu_torch.ops.attention import (flash_attention_cuda,
-                                                       flash_attention_plain,
-                                                       flash_kernel_path)
-    from lua_mapreduce_tpu_torch.ops.decode import (_KINDS, _KIND_BF16_INT8,
-                                                    _merge_splits_plain,
-                                                    decode_attention_cuda,
-                                                    decode_attention_plain,
-                                                    decode_splits,
-                                                    merge_splits_cuda)
+    from lua_mapreduce_tpu_torch.ops.attention import (
+        FLASH_MODES, flash_attention_cuda,
+        flash_attention_plain, flash_forced, flash_kernel_path,
+        flash_kernel_plan, flash_plan)
     rows = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
 
     def randn(*shape, dtype=torch.bfloat16, scale=1.0):
         return (torch.randn(shape, device="cuda", generator=gen)
@@ -826,6 +822,34 @@ def phase_serving_kernels(torch, gen):
         control = assert_rejects(f"flash {label} (scale 5% off)",
                                  wrong[0] if lse else wrong, out_want, dt,
                                  tol, ntol)
+        extra = {}
+        if path == "tma":
+            # the persistent schedule the kernel took, against its mirror;
+            # two calls bit-equal
+            plan = flash_kernel_plan(b, l, h, hkv, d, True, window)
+            if plan != flash_plan(b, l, h, hkv, d, True, window, 0, sms, l2):
+                raise AssertionError(f"flash {label}: the kernel's plan "
+                                     f"differs from flash_plan's")
+            extra.update(grid=plan.grid, chunk=plan.chunk,
+                         items=len(plan.order) * b * h, bit_equal=True)
+            again = run()
+            if not torch.equal(again[0] if lse else again, out_got):
+                raise AssertionError(f"flash {label}: two calls differ")
+            del again
+        if label == "prefill causal":
+            # the kernel, its products alone (P = S), its softmax alone
+            # (no product issued) and its loads alone: times only
+            extra["decomp_ms"] = {
+                mode: time_ms(lambda q=q, k=k, v=v, mode=mode: flash_forced(
+                    q, k, v, causal=True, mode=mode), torch)
+                for mode in FLASH_MODES}
+        if lse and hkv != h:
+            # SDPA's GQA form returns no logsumexp: the nearest call, noted
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            extra["library_note"] = "SDPA GQA without the lse {:.4f} ms".format(
+                time_ms(lambda qt=qt, kt=kt, vt=vt: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True), torch))
+            del qt, kt, vt
         del got, want, out_got, out_want, wrong
         lib = None
         if want_path == "general":
@@ -854,9 +878,35 @@ def phase_serving_kernels(torch, gen):
             torch, "flash_fwd", f"flash {label} ({b},{l},{h}/{hkv},{d}) {dt}", err,
             run, plain, lib, flops, nbytes,
             peaks()[0] if dt == "bfloat16" else PEAK_F32_FLOPS,
-            rel, control), "path": path})
+            rel, control), "path": path, **extra})
         del q, k, v
         torch.cuda.empty_cache()
+
+    return rows
+
+
+def phase_serving_kernels(torch, gen):
+    """flash / decode / q8 against their plain versions at the serving
+    path's shapes (batch 4, prompt 3968, 16 heads of 64, cache 4096;
+    q8 at every projection and the head, decode M = 4 and prefill
+    M = 15872), plus the f32 shapes of the reduced-depth check. bf16 and
+    int8 rows are also held normwise (NORM_TOL), and every attention
+    row shows that its check refuses a wrong output."""
+    import torch.nn.functional as F
+    from lua_mapreduce_tpu_torch import ops
+    from lua_mapreduce_tpu_torch.ops.decode import (_KINDS, _KIND_BF16_INT8,
+                                                    _merge_splits_plain,
+                                                    decode_attention_cuda,
+                                                    decode_attention_plain,
+                                                    decode_splits,
+                                                    merge_splits_cuda)
+    rows = []
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, device="cuda", generator=gen)
+                * scale).to(dtype)
+
+    rows += flash_rows(torch, gen)
 
     # ---- decode: one position vs the (B, H_kv, S, D) cache, per layer
     for label, b, hkv, g, d, s_len, t, kind, roll in (
@@ -6587,6 +6637,19 @@ def main():
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+    # the TMA flash kernel: no spill, no serialised wgmma, in any of its
+    # instantiations, from the ptxas report kept beside the library (read
+    # whether or not this run built it)
+    flash_fns = {f: r for f, r in _build.ptxas_functions(
+        _build.ptxas_log("flash")).items() if "flash_wgmma_kernel" in f}
+    bad = {f: r for f, r in flash_fns.items() if r[1] or r[2]}
+    if not flash_fns or bad:
+        raise AssertionError(f"flash_wgmma_kernel spills or serialises its "
+                             f"wgmmas, or ptxas reported none: "
+                             f"{bad or flash_fns}")
+    log(f"[build] flash_wgmma_kernel: {len(flash_fns)} instantiations, "
+        f"registers {sorted({r[0] for r in flash_fns.values()})}, no "
+        f"spill, no serialised wgmma")
 
     phase_s = {}
 
@@ -6634,6 +6697,10 @@ def main():
                 f"{k} {v:.4f} ms" for k, v in r["decomp_ms"].items())
         if r.get("path") is not None:
             extra += f", {r['path']} kernel"
+        if r.get("grid") is not None:
+            extra += (f", persistent grid {r['grid']} over {r['items']} "
+                      f"items (batch·heads in chunks of {r['chunk']}), two "
+                      f"calls bit-equal")
         if r.get("copies") is not None:
             extra += f" (A/B copies {r['copies']})"
         if r.get("branch") is not None:

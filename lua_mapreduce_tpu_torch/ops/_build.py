@@ -12,6 +12,11 @@ an ``flock`` on ``BUILD_DIR/.build.lock``: processes that start cold
 together (a server and its worker processes) run ``nvcc`` once between
 them — the others wait, then find the libraries built.
 
+Each library keeps its build's ``nvcc -Xptxas -v`` output beside it
+(``<library>.ptxas.txt``), so that what ptxas said of a kernel can be
+read on every run, not only on the one that built it
+(:func:`ptxas_log`, :func:`ptxas_functions`).
+
 Nothing here runs at import: the CPU tests import every module, and the
 CPU machine has no ``nvcc``.
 """
@@ -22,12 +27,13 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -61,9 +67,12 @@ _SIGNATURES = {
                "lmr_matmul_tma_available": []},
     "softmax": {"lmr_softmax": [_P, _P, _L, _I, _L] + [_I] * 7
                 + [_L, _P]},
-    "flash": {"lmr_flash_fwd": [_P] * 5 + [_I] * 5 + [_L] * 9 + [_I] * 5
+    "flash": {"lmr_flash_fwd": [_P] * 6 + [_I] * 5 + [_L] * 9 + [_I] * 5
               + [_P],
-              "lmr_flash_path": [_P] * 3 + [_I] * 5 + [_L] * 9 + [_I]},
+              "lmr_flash_path": [_P] * 3 + [_I] * 5 + [_L] * 9 + [_I],
+              "lmr_flash_fwd_forced": [_P] * 5 + [_I] * 5 + [_L] * 9
+              + [_I] * 4 + [_P],
+              "lmr_flash_plan": [_I] * 8 + [_P, _I]},
     "flash_bwd": {**{fn: [_P] * 8 + [_I] * 5 + [_L] * 12 + [_I] * 4 + [_P]
                      for fn in ("lmr_flash_bwd_dq", "lmr_flash_bwd_dkv")},
                   "lmr_flash_bwd_path": [_P] * 4 + [_I] * 5 + [_L] * 12
@@ -158,7 +167,11 @@ def _compile(todo: Dict[str, Path]) -> None:
             failed.append(f"{SOURCES[name]} (exit {proc.returncode}):\n{out}")
             tmp.unlink(missing_ok=True)
         else:
-            os.replace(tmp, todo[name])     # atomic publish
+            log = todo[name].with_suffix(".ptxas.txt")
+            log_tmp = log.with_suffix(f".{os.getpid()}.tmp")
+            log_tmp.write_text(out)
+            os.replace(log_tmp, log)
+            os.replace(tmp, todo[name])     # atomic publish, log first
     BUILD_REPORT["seconds"] = \
         time.perf_counter() - t0  # lmr: disable=LMR017
     if failed:
@@ -195,6 +208,43 @@ def library(name: str) -> ctypes.CDLL:
         build_all()
         lib = _libs[name]
     return lib
+
+
+def ptxas_log(name: str) -> str:
+    """The ``nvcc -Xptxas -v`` output of the build of library ``name``'s
+    current source, kept beside the library; raises if there is none (a
+    library built before the logs were kept)."""
+    log = _target(name).with_suffix(".ptxas.txt")
+    if not log.exists():
+        raise RuntimeError(f"no ptxas report beside {_target(name).name}: "
+                           f"remove the library to rebuild it")
+    return log.read_text()
+
+
+def ptxas_functions(out: str) -> Dict[str, Tuple[int, int, bool]]:
+    """``nvcc -Xptxas -v`` output → {function: (registers, spill bytes
+    stored and loaded, serialised wgmma: a ptxas C75xx notice, C7512 for
+    registers or C7514 for accumulators read in flight, named it)}."""
+    funcs: Dict[str, list] = {}
+    cur = None
+    for line in out.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = m.group(1)
+            funcs.setdefault(cur, [0, 0, False])
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur:
+            funcs[cur][1] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            funcs[cur][0] = int(m.group(1))
+        m = re.search(r"wgmma.mma_async instructions are serialized.*"
+                      r"function '(\S+)'", line)
+        if m:
+            funcs.setdefault(m.group(1), [0, 0, False])[2] = True
+    return {k: tuple(v) for k, v in funcs.items()}
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -22,7 +22,8 @@ tensors the kernels.
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -140,6 +141,121 @@ def _unit_stride(*xs):
 
 _PATHS = {0: "general", 1: "tma", 2: "f32"}
 
+# csrc/flash.cu's TMA kernel: q tiles of FLASH_BQ rows; the host orders at
+# most FLASH_ORDER_MAX of them (wsk::ORDER_MAX)
+FLASH_BQ, FLASH_ORDER_MAX = 128, 1024
+
+
+class FlashPlan(NamedTuple):
+    """The TMA kernel's schedule: ``grid`` persistent blocks (one an SM,
+    at most one an item) take the nq·(B·H) (batch·head, q tile) items one
+    at a time from a counter, in walk order: the batch·heads in chunks of
+    ``chunk`` (whose K and V fit in half the L2), within a chunk by rank
+    with the chunk's batch·heads fastest; ``order[r]`` is the q tile of
+    rank r and ``live[q]`` the kv tiles of ``kv_tile`` keys q tile q
+    sees."""
+    grid: int
+    chunk: int
+    order: Tuple[int, ...]
+    live: Tuple[int, ...]
+    kv_tile: int
+
+
+def flash_kv_tile(d: int) -> int:
+    """The TMA kernel's kv tile (``wsk::kv_tile``): 128 keys at head dim
+    64, 64 at 128."""
+    return 128 if d == 64 else 64
+
+
+def flash_live_tiles(row0: int, rows: int, bk: int, seq_len: int,
+                     causal: bool, window: int) -> int:
+    """How many kv tiles of ``bk`` keys the q rows [row0, row0 + rows)
+    (offset rows) see: csrc/flash.cu's ``live_range`` bounds, the JAX
+    op's ``_tile_live`` algebra."""
+    hi = -(-seq_len // bk) - 1
+    lo = 0
+    if causal:
+        hi = min((row0 + rows - 1) // bk, hi)
+    if window:
+        first = row0 - window + 1
+        lo = first // bk if first > 0 else 0
+    return hi - lo + 1 if hi >= lo else 0
+
+
+def flash_plan(b: int, l: int, h: int, hkv: int, d: int, causal: bool,
+               window: int, q_offset: int, sms: int,
+               l2_bytes: int) -> FlashPlan:
+    """Mirror of csrc/flash.cu::wsk::make_walk on a card of ``sms`` SMs
+    and ``l2_bytes`` of L2: batch·heads in chunks whose K and V (a q
+    head's share of its kv head's, bf16) fit in half the L2; the q tiles
+    heaviest first by live kv tiles, a later tile first among equals
+    (descending tiles past FLASH_ORDER_MAX of them); a grid of
+    min(items, sms) blocks."""
+    bk = flash_kv_tile(d)
+    nq = -(-l // FLASH_BQ)
+    live = tuple(flash_live_tiles(q * FLASH_BQ + q_offset, FLASH_BQ, bk, l,
+                                  causal, window) for q in range(nq))
+    if nq <= FLASH_ORDER_MAX:
+        order = tuple(sorted(range(nq), key=lambda q: (-live[q], -q)))
+    else:
+        order = tuple(range(nq - 1, -1, -1))
+    kv = l * d * 4 // (h // hkv)
+    chunk = min(max(l2_bytes // 2 // kv, 1), b * h)
+    return FlashPlan(min(nq * b * h, sms), chunk, order, live, bk)
+
+
+def flash_items(plan: FlashPlan, bh: int) -> List[Tuple[int, int]]:
+    """The (batch·head, q tile) items in the order the blocks take them
+    (``wsk::walk_decode`` of item 0, 1, ...)."""
+    nq, out = len(plan.order), []
+    per = plan.chunk * nq
+    for it in range(nq * bh):
+        ch, rem = divmod(it, per)
+        cw = min(plan.chunk, bh - ch * plan.chunk)
+        out.append((ch * plan.chunk + rem % cw, plan.order[rem // cw]))
+    return out
+
+
+def flash_kernel_plan(b: int, l: int, h: int, hkv: int, d: int,
+                      causal: bool, window: int = 0,
+                      q_offset: int = 0) -> FlashPlan:
+    """The schedule csrc/flash.cu's TMA kernel takes for these shapes on
+    the current card (``lmr_flash_plan``), for holding against
+    :func:`flash_plan`."""
+    nq = -(-l // FLASH_BQ)
+    out = (ctypes.c_int * (3 + nq))()
+    lib = _build.library("flash")
+    _build.check(lib, lib.lmr_flash_plan(b, l, h, hkv, d, int(causal),
+                                         window, q_offset,
+                                         ctypes.addressof(out), nq),
+                 f"flash plan for B={b}, L={l}, H={h}/{hkv}, D={d}")
+    bk = flash_kv_tile(d)
+    live = tuple(flash_live_tiles(q * FLASH_BQ + q_offset, FLASH_BQ, bk, l,
+                                  causal, window) for q in range(nq))
+    return FlashPlan(out[0], out[1], tuple(out[3:3 + nq]), live, bk)
+
+
+# the TMA kernel's item counters, one int32 a (device, stream)
+_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _item_counter(device) -> torch.Tensor:
+    """The int32 that the TMA kernel's walk counts its items in, holding
+    0 (each launch leaves it at 0 again): one a (device, stream), made
+    once and zeroed on that stream, so that launches on one stream share
+    it in order and launches on two streams never do. Under a CUDA graph
+    capture a fresh zeroed int in the graph's memory, so that no graph
+    shares an int with launches outside it."""
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros((1,), device=device, dtype=torch.int32)
+    stream = torch.cuda.current_stream(device)
+    key = (stream.device_index, stream.cuda_stream)
+    counter = _COUNTERS.get(key)
+    if counter is None:
+        counter = _COUNTERS[key] = torch.zeros((1,), device=device,
+                                               dtype=torch.int32)
+    return counter
+
 
 def flash_kernel_path(q, k, v) -> str:
     """Which kernel of ``csrc/flash.cu`` :func:`flash_attention_cuda`
@@ -177,12 +293,41 @@ def flash_attention_cuda(q, k, v, *, causal: bool, window: int = 0,
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.lmr_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if with_lse else None, b, l, h, hkv, d,
+            lse.data_ptr() if with_lse else None,
+            _item_counter(q.device).data_ptr(), b, l, h, hkv, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(causal),
             window, q_offset, _CODES[q.dtype], int(with_lse), stream)
     _build.check(lib, rc, "flash kernel launch")
     count_launch("flash_fwd")
     return (out, lse) if with_lse else out
+
+
+# the decomposition modes of lmr_flash_fwd_forced
+FLASH_MODES = {"kernel": 0, "products": 1, "softmax": 2, "loads": 3}
+
+
+def flash_forced(q, k, v, *, causal: bool, window: int = 0,
+                 q_offset: int = 0, mode: str = "kernel"):
+    """The TMA + wgmma kernel at head dim 64 without the lse, on bf16
+    CUDA operands TMA can describe, in decomposition mode ``mode`` (a
+    FLASH_MODES key: the kernel, its products alone with P = S, its
+    softmax alone with no product issued, or its loads alone; all but
+    the first compute no attention and are for timing): phase 2's
+    decomposition. Raises on operands the kernel does not take."""
+    b, l, h, d = q.shape
+    _check_kernel_operands(q, k, v, "flash kernel")
+    out = torch.empty((b, l, h, d), device=q.device, dtype=q.dtype)
+    lib = _build.library("flash")
+    with torch.cuda.device(q.device):
+        rc = lib.lmr_flash_fwd_forced(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _item_counter(q.device).data_ptr(), b, l, h, k.shape[2], d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(causal),
+            window, q_offset, FLASH_MODES[mode],
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, rc, f"flash kernel launch ({mode})")
+    count_launch("flash_fwd")
+    return out
 
 
 def _check_bwd_operands(q, k, v, do, what: str) -> None:

@@ -6,41 +6,54 @@
 // ::_flash_kernel (one kernel here, the lse output a template flag), both
 // driven by _flash_pallas.
 //
-// What bounds it on the H100: at the serving prefill shape (B=4,
-// L=3968, H=16, d=64, causal, bf16) the tensor-core rate — about
-// 4·B·H·d·L(L+1)/2 = 129 GFLOP against 2·4·B·L·H·d = 65 MB of q/k/v/out
-// — far above the ~295 operations per byte where bf16 products stop
-// being limited by the 3.35 TB/s of device memory.
+// What bounds it on the H100, at d = 64: two pipes about equally. At
+// the serving prefill shape (B=4, L=3968, H=16, d=64, causal, bf16) the
+// tensor cores need 4·B·H·d·L(L+1)/2 = 129 GFLOP, 0.130 ms at 989
+// TFLOP/s (the 65 MB of q/k/v/out are far below the ~295 operations a
+// byte where bf16 products stop being limited by device memory); the
+// softmax needs one exponential a score, B·H·L(L+1)/2 = 5.0·10^8, and
+// the SFU (MUFU) does 16 a clock an SM: 0.130 ms at 1.83 GHz. Beside
+// each exponential the softmax issues a scale-and-subtract FMA, a max, a
+// sum and half a bf16 pack, so with two consumer warps a sub-partition
+// its instruction issue, not the MUFU rate, is what it waits on.
 //
 // Three kernels; which one runs is a predicate on the operands' layout
 // alone (lmr_flash_path):
 //  * bf16 operands TMA can describe (16-byte aligned bases, every stride
 //    of a dimension longer than one a multiple of 8 elements — the
 //    contiguous tensors and the model's fused-qkv views) take the
-//    warp-specialised kernel (wsk): a 128-row q tile per block, three
-//    warpgroups. One producer thread loads Q once and streams K and V
-//    tiles of 128 keys through a ring of shared-memory stages with TMA
-//    (full/empty mbarriers, as gemm_sm90.cuh's mainloop), the tensor maps
-//    describing the public (B, L, H, D) layout as it lies: 4-D {D, H, L,
-//    B}, boxes of {64, 1, 128, 1} with the 128-byte swizzle (D = 128 is
-//    two boxes), the kv head picked by its coordinate (GQA), rows past L
-//    zero-filled. Two consumer warpgroups own 64 q rows each: S = Q·Kᵀ
-//    is one wgmma m64n128k16 chain from shared memory (K stored (keys, D)
-//    is K-major); the online softmax stays in f32 registers with exp2
-//    and scale·log2(e) folded into one FMA; P is rounded to bf16 in
-//    registers after its row sums were taken in f32 (the TPU kernel's
-//    rounding point) and is wgmma's A operand from registers, V (keys,
-//    D) an N-major B operand through the descriptor. The column test
-//    runs only on tiles that cross the causal diagonal, the window edge
-//    or L (TMA's zero rows past L would otherwise score 0). The two
-//    consumers take turns at the tensor cores (two named barriers): one
-//    issues P·V of its tile and S of its next tile while the other runs
-//    its softmax, the exp2 work (at d = 64 the SFU's exp2 rate is about
-//    the tensor cores' rate for the same tile) hidden behind the other's
-//    products. Under causal masking the heaviest q tiles start first
-//    (the tile index is reversed, batch·head is the fast grid axis), so
-//    no heavy tile is left for the tail. setmaxnreg hands the producer's
-//    registers to the consumers.
+//    warp-specialised kernel (wsk), persistent: one block an SM, three
+//    warpgroups, taking (batch·head, q tile of 128 rows) items one at a
+//    time from a counter, heaviest first by live kv tiles within chunks
+//    of batch·heads whose K and V fit in half the L2 (wsk::Walk). One
+//    producer thread takes the items, loads each item's Q into one of
+//    two buffers (the next item's while the consumers finish this one)
+//    and streams K and V tiles (128 keys at d = 64, 64 at d = 128)
+//    through a ring of shared-memory stages with TMA (full/empty
+//    mbarriers; a stage is freed by each consumer warp's own arrival),
+//    the tensor maps describing the public (B, L, H, D) layout as it
+//    lies: 4-D {D, H, L, B}, boxes of 64 d with the 128-byte swizzle,
+//    the kv head picked by its coordinate (GQA), rows past L zero-filled.
+//    Two consumer warpgroups own 64 q rows each. For the tensor cores:
+//    S = Q·Kᵀ is a wgmma chain from shared memory (K stored (keys, D)
+//    is K-major), P·V takes P from registers as the A operand and V
+//    (keys, D) as an N-major B operand; each warpgroup issues S of tile
+//    i + 1 and P·V of tile i together and runs the softmax of tile i + 1
+//    once its S retires, while its own P·V is still in flight, so that
+//    the exponentials of one tile overlap the products of the one before
+//    (the last P·V of an item leaves the loop so that every pass issues
+//    both, which ptxas needs to keep the products in flight). For the
+//    SFU: 2^x is the bare ex2.approx.ftz (exp2f adds an FSETP and two
+//    FMULs a call), scale·log2(e) folded into the one FMA, the row max
+//    and sum kept in four partials a row, O's rescale skipped when no
+//    row's max moved, descriptors stepped by adding offsets. P is
+//    rounded to bf16 in registers after its row sums were taken in f32
+//    (the TPU kernel's rounding point). The column test runs only on
+//    tiles that cross the causal diagonal, the window edge or L (TMA's
+//    zero rows past L would otherwise score 0). O leaves through swizzled
+//    shared memory and a TMA store, each item's while the next one runs.
+//    Phase 2 of chip_smoke.py times the kernel beside its products alone,
+//    its softmax alone and its loads alone (lmr_flash_fwd_forced's modes).
 //  * Other bf16 layouts take the general kernel (bfk): 4 warps, a 64-row
 //    q tile, mma.sync m16n8k16 bf16 products with f32 accumulators and
 //    the same rounding points, K/V tiles read with 16-byte loads where
@@ -58,6 +71,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "sm90_common.cuh"
 
 using bf16 = __nv_bfloat16;
@@ -74,7 +89,8 @@ struct Geom {
 
 // The kv tile range [lo, hi] a q tile starting at (offset) row row0 with
 // `rows` rows can see — _tile_live's algebra as loop bounds.
-__device__ __forceinline__ void live_range(const Geom& g, int row0, int rows,
+__host__ __device__ __forceinline__ void live_range(const Geom& g, int row0,
+                                                    int rows,
                                            int bk, int& lo, int& hi) {
   const int n_kv = (g.L + bk - 1) / bk;
   lo = 0;
@@ -296,62 +312,120 @@ flash_bf16_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
 // ------------------------------------------- bf16, TMA + wgmma (Hopper)
 
 namespace wsk {
-constexpr int BQ = 128, BK = 128, NT = 384;
-constexpr int BOX = 128 * 128;     // one {64 d, 128 rows} box: 16 KB
+constexpr int BQ = 128, NT = 384;
+constexpr int QBOX = BQ * 128;      // one {64 d, 128 rows} q box: 16 KB
+constexpr int ORDER_MAX = 1024;     // q tiles the host orders for the walk
 constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
 
-// Shared memory: the q tile, then STAGES stages of {K tile, V tile},
-// each tile D / 64 boxes; 1 KB of slack to align the swizzle atoms, all
-// within the 227 KB a block may have (less 256 bytes for the barriers).
-// A stage is held from its S until its P·V retires, one tile later, so
-// D = 128 takes a third stage to keep a load in flight.
+// The kv tile: 128 keys at d = 64 (S in 64 registers a thread), 64 at
+// d = 128, where O takes 64 registers and S, P and O must all be live
+// while the next tile's softmax overlaps this tile's P·V.
 template <int D>
+__host__ __device__ constexpr int kv_tile() { return D == 64 ? 128 : 64; }
+
+// The launch's walk over its nq · bh items, taken one at a time by the
+// blocks from a counter in device memory (a block's producer takes the
+// next item when it has a q buffer free), so that no block idles while
+// another has items queued. The batch·heads go in chunks of `chunk`
+// whose K and V fit in half the L2 (the blocks running at once then read
+// each kv tile from device memory about once); within a chunk the q tile
+// of rank r is qt[r], the host's order (heaviest first by live kv tiles,
+// a later tile first among equals) when nq <= ORDER_MAX, else
+// nq - 1 - r, and the chunk's batch·heads are the fast axis.
+struct Walk {
+  int nq, bh, chunk, sorted;
+  uint16_t qt[ORDER_MAX];
+};
+
+// item it of the walk → its batch·head and q tile
+__device__ __forceinline__ void walk_decode(const Walk& w, int it, int& bh,
+                                            int& qt) {
+  const int per = w.chunk * w.nq, ch = it / per, rem = it - ch * per;
+  const int rest = w.bh - ch * w.chunk;
+  const int cw = rest < w.chunk ? rest : w.chunk;
+  const int rank = rem / cw;
+  bh = ch * w.chunk + rem % cw;
+  qt = w.sorted ? w.qt[rank] : w.nq - 1 - rank;
+}
+
+// Shared memory: two q buffers (the producer loads the next item's q
+// tile while the consumers finish this one), O's staging for the TMA
+// store, then STAGES stages of {K tile, V tile}, each tile D / 64 boxes
+// of 128-byte rows; 1 KB of slack to align the swizzle atoms, all within
+// the 227 KB a block may have (less 512 bytes for the barriers). A stage
+// is held from its S until its P·V retires, which is after the next
+// tile's S was issued: three stages keep a load in flight.
+template <int D, bool LSE>
 struct Layout {
+  static constexpr int BK = kv_tile<D>();
+  static constexpr int KBOX = BK * 128;
+  static constexpr int QBUF = 2;
   static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int O_BYTES = BQ * D * (LSE ? 4 : 2);
   static constexpr int KV_BYTES = BK * D * 2;
   static constexpr int STAGE = 2 * KV_BYTES;
-  static constexpr int FIT = (232448 - 1024 - 256 - Q_BYTES) / STAGE;
+  static constexpr int FIT =
+      (232448 - 1024 - 512 - QBUF * Q_BYTES - O_BYTES) / STAGE;
   static constexpr int STAGES = FIT > 4 ? 4 : FIT;
-  static constexpr int DYN = Q_BYTES + STAGES * STAGE + 1024;
+  static constexpr int DYN = QBUF * Q_BYTES + O_BYTES + STAGES * STAGE + 1024;
+  static_assert(STAGES >= 3, "a load in flight needs three stages");
 };
 
 // Does the warpgroup's 64-row slab [row0, row0 + 64) (offset rows) need
 // the column test on the kv tile at k0: does the tile cross L, the
 // causal diagonal or the window's edge?
+template <int BK>
 __device__ __forceinline__ bool edge_tile(const Geom& g, int row0, int k0) {
   return k0 + BK > g.L || (g.causal && k0 + BK - 1 > row0) ||
          (g.window && row0 + 63 - k0 >= g.window);
 }
 
-template <int D, bool LSE>
+// 2^x on the MUFU pipe, without exp2f's range fix-up (an FSETP and two
+// FMULs a call): subnormal results flush to 0, as below −126
+__device__ __forceinline__ float exp2_mufu(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// MODE 0 is the kernel; 1 (products alone: P is S copied), 2 (the
+// softmax alone: no product issued) and 3 (the loads alone: neither) are
+// for phase 2's decomposition, times only. `next` counts the items taken
+// (it starts at 0; the block that takes the last count sets it back to
+// 0, so that the next launch on the stream finds it so).
+template <int D, bool LSE, int MODE>
 __global__ void __launch_bounds__(NT, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
-                   const __grid_constant__ CUtensorMap tv, void* __restrict__ O,
-                   float* __restrict__ LSEo, Geom g) {
-  using Lay = Layout<D>;
-  constexpr int S = Lay::STAGES, DC = D / 64, NO = D / 2;
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap to,
+                   float* __restrict__ LSEo, Geom g,
+                   const __grid_constant__ Walk w, int* __restrict__ next) {
+  using Lay = Layout<D, LSE>;
+  constexpr int S = Lay::STAGES, QB = Lay::QBUF, BK = Lay::BK;
+  constexpr int DC = D / 64, NO = D / 2, NS = BK / 2, KK = BK / 16;
+  constexpr int ES = LSE ? 4 : 2;              // bytes of an O element
   extern __shared__ uint8_t smem_raw[];
-  // qbar: the q tile has landed; full: a stage's K and V have landed;
-  // empty: both consumers are done with a stage
-  __shared__ __align__(8) uint64_t qbar, full[S], empty[S];
+  // qfull / qempty: a q buffer has landed / all 8 consumer warps are
+  // done with it; full / empty: the same for a kv stage
+  __shared__ __align__(8) uint64_t qfull[QB], qempty[QB], full[S], empty[S];
+  // the item each q buffer holds, written by the producer before the
+  // arrival on qfull that the consumers wait for
+  __shared__ volatile int item[QB];
   const uint32_t base = (sm90::smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t sq = base, skv = base + Lay::Q_BYTES;
-  const int bh = blockIdx.x, b = bh / g.H, h = bh % g.H;
-  const int hk = h / (g.H / g.Hkv);
-  // causal: the heaviest q tiles (largest index) start first
-  const int qt = g.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
-  const int q0 = qt * BQ;
-  int lo, hi;
-  live_range(g, q0 + g.q_offset, BQ, BK, lo, hi);
-  const int n = hi >= lo ? hi - lo + 1 : 0;   // kv tiles hi, hi-1, ..., lo
+  const uint32_t sq = base, so = sq + QB * Lay::Q_BYTES;
+  const uint32_t skv = so + Lay::O_BYTES;
+  const int items = w.nq * w.bh;
   const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
 
   if (threadIdx.x == 0) {
-    sm90::mbar_init(sm90::smem_u32(&qbar), 1);
+    for (int q = 0; q < QB; ++q) {
+      sm90::mbar_init(sm90::smem_u32(&qfull[q]), 1);
+      sm90::mbar_init(sm90::smem_u32(&qempty[q]), 8);
+    }
     for (int s = 0; s < S; ++s) {
       sm90::mbar_init(sm90::smem_u32(&full[s]), 1);
-      sm90::mbar_init(sm90::smem_u32(&empty[s]), 2);
+      sm90::mbar_init(sm90::smem_u32(&empty[s]), 8);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -365,21 +439,43 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        reinterpret_cast<uint64_t>(&tk)) : "memory");
       asm volatile("prefetch.tensormap [%0];" ::"l"(
                        reinterpret_cast<uint64_t>(&tv)) : "memory");
-      const uint32_t qb = sm90::smem_u32(&qbar);
-      sm90::mbar_expect_tx(qb, Lay::Q_BYTES);
+      int kt = 0;                                // kv tiles loaded so far
+      for (int r = 0;; ++r) {
+        const int qb = r % QB;
+        sm90::mbar_wait(sm90::smem_u32(&qempty[qb]), ((r / QB) & 1) ^ 1);
+        const int it = atomicAdd(next, 1);
+        item[qb] = it;
+        const uint32_t qbar = sm90::smem_u32(&qfull[qb]);
+        if (it >= items) {                       // no more: tell the consumers
+          // each block counts once past the items: the last count is
+          // items + grid − 1, after which no block reads the counter
+          if (it == items + (int)gridDim.x - 1) atomicExch(next, 0);
+          sm90::mbar_arrive(qbar);
+          break;
+        }
+        int bh, qt;
+        walk_decode(w, it, bh, qt);
+        const int b = bh / g.H, h = bh % g.H, hk = h / (g.H / g.Hkv);
+        const int q0 = qt * BQ;
+        int lo, hi;
+        live_range(g, q0 + g.q_offset, BQ, BK, lo, hi);
+        const int n = hi >= lo ? hi - lo + 1 : 0;   // kv tiles hi, ..., lo
+        sm90::mbar_expect_tx(qbar, Lay::Q_BYTES);
 #pragma unroll
-      for (int c = 0; c < DC; ++c)
-        sm90::tma_load_4d(sq + c * BOX, &tq, qb, 64 * c, h, q0, b);
-      for (int i = 0; i < n; ++i) {
-        const int s = i % S, k0 = (hi - i) * BK;
-        sm90::mbar_wait(sm90::smem_u32(&empty[s]), ((i / S) & 1) ^ 1);
-        const uint32_t fb = sm90::smem_u32(&full[s]);
-        sm90::mbar_expect_tx(fb, Lay::STAGE);
-        const uint32_t sk = skv + s * Lay::STAGE, sv = sk + Lay::KV_BYTES;
+        for (int c = 0; c < DC; ++c)
+          sm90::tma_load_4d(sq + qb * Lay::Q_BYTES + c * QBOX, &tq, qbar,
+                            64 * c, h, q0, b);
+        for (int i = 0; i < n; ++i, ++kt) {
+          const int s = kt % S, k0 = (hi - i) * BK;
+          sm90::mbar_wait(sm90::smem_u32(&empty[s]), ((kt / S) & 1) ^ 1);
+          const uint32_t fb = sm90::smem_u32(&full[s]);
+          sm90::mbar_expect_tx(fb, Lay::STAGE);
+          const uint32_t sk = skv + s * Lay::STAGE, sv = sk + Lay::KV_BYTES;
 #pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          sm90::tma_load_4d(sk + c * BOX, &tk, fb, 64 * c, hk, k0, b);
-          sm90::tma_load_4d(sv + c * BOX, &tv, fb, 64 * c, hk, k0, b);
+          for (int c = 0; c < DC; ++c) {
+            sm90::tma_load_4d(sk + c * Lay::KBOX, &tk, fb, 64 * c, hk, k0, b);
+            sm90::tma_load_4d(sv + c * Lay::KBOX, &tv, fb, 64 * c, hk, k0, b);
+          }
         }
       }
     }
@@ -392,152 +488,288 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const float c = g.scale * LOG2E;            // scores to the log2 domain
   // accumulator fragment: register 4j + 2r + {0,1} of warp w4, lane l
   // holds row 16·w4 + l/4 + 8r, columns 8j + 2(l%4) + {0,1}
-  const int slab = q0 + g.q_offset + wg * 64;   // first offset row
-  const int row_a = slab + w4 * 16 + lane / 4, row_b = row_a + 8;
   float o[NO];
+  float sc[NS];                 // the scores of the tile in hand
+  uint32_t pa[KK][4];           // P of the tile before it, P·V's A operand
+  constexpr bool PRODUCTS = MODE == 0 || MODE == 1;
+  constexpr bool SOFTMAX = MODE == 0 || MODE == 2;
+  if (!PRODUCTS) {
 #pragma unroll
-  for (int i = 0; i < NO; ++i) o[i] = 0.f;
-  float m2[2] = {NEG_BIG, NEG_BIG};   // running max, log2 domain
-  float l[2] = {0.f, 0.f};            // this thread's share of the sums
-  float sc[64];                       // the scores of the current tile
-  uint32_t pa[BK / 16][4];            // its P, the A operand of P·V
+    for (int j = 0; j < NS; ++j) sc[j] = 0.f;
+  }
+  // the descriptors of stage 0's K tile (K-major) and V tile (N-major)
+  const uint64_t dk0 = sm90::desc_sw128(skv, 16, 1024);
+  const uint64_t dv0 = sm90::desc_sw128(skv + Lay::KV_BYTES, Lay::KBOX, 1024);
 
-  // S = Q·Kᵀ of the tile in stage s into sc (issued, not waited for)
-  auto issue_s = [&](int s) {
-#pragma unroll
-    for (int j = 0; j < 64; ++j) sc[j] = 0.f;
+  // An item in hand: its q buffer, coordinates, live kv tiles hi, ...,
+  // hi − n + 1, this warpgroup's first offset row, its q descriptor and
+  // its rows' running max (log2 domain) and sums.
+  struct Item {
+    int qb, b, h, q0, hi, n, slab;
+    uint64_t dq;
+    float m2[2], l[2];
+  };
+  // the r-th item this block takes, once the producer has handed it
+  // over; false when the walk is done
+  auto fetch = [&](int r, Item& x) {
+    x.qb = r % QB;
+    sm90::mbar_wait(sm90::smem_u32(&qfull[x.qb]), (r / QB) & 1);
+    const int it = item[x.qb];
+    if (it >= items) return false;
+    int bh, qt, lo;
+    walk_decode(w, it, bh, qt);
+    x.b = bh / g.H;
+    x.h = bh % g.H;
+    x.q0 = qt * BQ;
+    live_range(g, x.q0 + g.q_offset, BQ, BK, lo, x.hi);
+    x.n = x.hi >= lo ? x.hi - lo + 1 : 0;
+    x.slab = x.q0 + g.q_offset + wg * 64;
+    // Shared-memory descriptors are built once, then stepped by adding a
+    // byte offset / 16 to their start-address field (every address is
+    // under 256 KB, so the 14-bit field never carries).
+    x.dq = sm90::desc_sw128(sq + x.qb * Lay::Q_BYTES + wg * 8192, 16, 1024);
+    x.m2[0] = x.m2[1] = NEG_BIG;
+    x.l[0] = x.l[1] = 0.f;
+    return true;
+  };
+  // S = Q·Kᵀ of item x's tile in stage s into sc (issued, not waited for)
+  auto issue_s = [&](const Item& x, int s) {
+    if (!PRODUCTS) return;
     sm90::wgmma_fence();
-    const uint32_t sk = skv + s * Lay::STAGE;
+    const uint64_t dk = dk0 + (uint32_t)(s * (Lay::STAGE / 16));
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       // K-major, 16 d = 32 bytes along a swizzled row; the next 64 d in
-      // the next box; SBO: the next 8 rows (1 KB)
-      const uint32_t off = (kk / 4) * BOX + (kk % 4) * 32;
-      sm90::wgmma_128<0, 0>(sc, sm90::desc_sw128(sq + wg * 8192 + off, 16, 1024),
-                            sm90::desc_sw128(sk + off, 16, 1024));
+      // the next box; SBO: the next 8 rows (1 KB); the first k step
+      // overwrites sc
+      const uint32_t off = (kk % 4) * 32;
+      const uint64_t da = x.dq + ((kk / 4) * QBOX + off) / 16;
+      const uint64_t db = dk + ((kk / 4) * Lay::KBOX + off) / 16;
+      if constexpr (BK == 128) sm90::wgmma_128<0, 0>(sc, da, db, kk > 0);
+      else sm90::wgmma_64<0, 0>(sc, da, db, kk > 0);
     }
     sm90::wgmma_commit();
   };
-
-  // the softmax of tile i in place in sc (P, unrounded), this thread's
-  // row sums added to l, the rescale of the running rows in alpha
-  auto softmax = [&](int i, float (&alpha)[2]) {
-    const int k0 = (hi - i) * BK;
-    if (edge_tile(g, slab, k0)) {
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = k0 + j * 8 + 2 * (lane % 4) + (e & 1);
-          if (!visible(g, e < 2 ? row_a : row_b, col)) sc[4 * j + e] = -INFINITY;
-        }
-    }
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < 64; ++j) mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], sc[j]);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float mn = fmaxf(m2[r], mx[r] * c);
-      alpha[r] = exp2f(m2[r] - mn);
-      m2[r] = mn;
-    }
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < 64; ++j) {
-      const int r = (j >> 1) & 1;
-      const float p = exp2f(fmaf(sc[j], c, -m2[r]));
-      sc[j] = p;
-      rs[r] += p;
-    }
-    l[0] = l[0] * alpha[0] + rs[0];
-    l[1] = l[1] * alpha[1] + rs[1];
-  };
-  // O rescaled, and P rounded to bf16 into pa (the score fragment of 16
-  // keys is the A fragment of the next product, registers 8kk..8kk+7)
-  auto rescale_and_pack = [&](const float (&alpha)[2]) {
-#pragma unroll
-    for (int j = 0; j < NO; ++j) o[j] *= alpha[(j >> 1) & 1];
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        pa[kk][q] = sm90::pack_bf16(sc[8 * kk + 2 * q], sc[8 * kk + 2 * q + 1]);
-  };
-  // O += P·V of tile i (issued, not waited for)
-  auto issue_pv = [&](int i) {
+  // O += P·V of the tile in stage s (issued, not waited for)
+  auto issue_pv = [&](int s) {
+    if (!PRODUCTS) return;
     sm90::wgmma_fence();
-    const uint32_t sv = skv + (i % S) * Lay::STAGE + Lay::KV_BYTES;
+    const uint64_t dv = dv0 + (uint32_t)(s * (Lay::STAGE / 16));
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
+    for (int kk = 0; kk < KK; ++kk) {
       // N-major V: 16 keys = two 8-row swizzle atoms (2 KB); LBO: the
       // next 64 d (the next box); SBO: the next 8 keys (1 KB)
-      const uint64_t db = sm90::desc_sw128(sv + kk * 2048, BOX, 1024);
+      const uint64_t db = dv + kk * (2048 / 16);
       if constexpr (D == 64) sm90::wgmma_rs_64(o, pa[kk], db);
       else sm90::wgmma_rs_128(o, pa[kk], db);
     }
     sm90::wgmma_commit();
   };
-  // The two warpgroups take turns at the tensor cores (named barriers 1
-  // and 2, both warpgroups' 256 threads): one issues its products while
-  // the other runs its softmax. Warpgroup 0 goes first.
-  auto my_turn = [&] { sm90::named_sync(1 + wg, 256); };
-  auto their_turn = [&] {
-    asm volatile("bar.arrive %0, 256;" ::"r"(2 - wg) : "memory");
-  };
-  if (wg == 1) asm volatile("bar.arrive 1, 256;" ::: "memory");
-
-  sm90::mbar_wait(sm90::smem_u32(&qbar), 0);
-  if (n > 0) {
-    sm90::mbar_wait(sm90::smem_u32(&full[0]), 0);
-    my_turn();
-    issue_s(0);
-    their_turn();
-    sm90::wgmma_wait<0>();
-    sm90::fence_acc(sc);
-  }
-  // Tile i: its softmax, then in one turn P·V of tile i and S of tile
-  // i + 1, both waited for; the stage of tile i is then free.
-  for (int i = 0; i < n; ++i) {
-    float alpha[2];
-    softmax(i, alpha);
-    rescale_and_pack(alpha);
-    const bool more = i + 1 < n;
-    if (more)
-      sm90::mbar_wait(sm90::smem_u32(&full[(i + 1) % S]), ((i + 1) / S) & 1);
-    my_turn();
-    issue_pv(i);
-    if (more) issue_s((i + 1) % S);
-    their_turn();
-    sm90::wgmma_wait<0>();
-    sm90::fence_acc(o);
-    sm90::fence_acc(sc);
-    if (t == 0) sm90::mbar_arrive(sm90::smem_u32(&empty[i % S]));
-  }
-
+  // the softmax of item x's tile i in place in sc (P, unrounded, f32),
+  // this thread's row sums added to x.l, the rescale of the running rows
+  // in alpha; touches neither o nor pa (a P·V may be in flight)
+  auto softmax = [&](Item& x, int i, float (&alpha)[2]) {
+    if (!SOFTMAX) return;
+    const int k0 = (x.hi - i) * BK;
+    if (edge_tile<BK>(g, x.slab, k0)) {
+      const int row_a = x.slab + w4 * 16 + lane / 4;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    const int row = q0 + wg * 64 + w4 * 16 + lane / 4 + 8 * r;
-    if (row >= g.L) continue;
-    const float lf = fmaxf(l[r], 1e-30f), inv = 1.f / lf;
-    const long long base_o = ((long long)(b * g.L + row) * g.H + h) * D;
+      for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const float x0 = o[4 * j + 2 * r] * inv, x1 = o[4 * j + 2 * r + 1] * inv;
-      const int d = j * 8 + 2 * (lane % 4);
-      if (LSE)
-        *reinterpret_cast<float2*>(static_cast<float*>(O) + base_o + d) =
-            make_float2(x0, x1);
-      else
-        *reinterpret_cast<uint32_t*>(static_cast<bf16*>(O) + base_o + d) =
-            sm90::pack_bf16(x0, x1);
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + j * 8 + 2 * (lane % 4) + (e & 1);
+          if (!visible(g, row_a + (e < 2 ? 0 : 8), col)) sc[4 * j + e] = -INFINITY;
+        }
     }
-    if (LSE && lane % 4 == 0)
-      LSEo[(long long)(b * g.L + row) * g.H + h] = (m2[r] + log2f(lf)) * LN2;
+    // the row max and row sum each in four independent partials a row
+    // (register 4jj + 2q + e holds row q: partial jj % 4), so that no
+    // chain of dependent instructions is longer than NS / 8
+    float mx[2][4];
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) mx[q][u] = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+      mx[(j >> 1) & 1][(j >> 2) & 3] = fmaxf(mx[(j >> 1) & 1][(j >> 2) & 3], sc[j]);
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      float m = fmaxf(fmaxf(mx[q][0], mx[q][1]), fmaxf(mx[q][2], mx[q][3]));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      const float mn = fmaxf(x.m2[q], m * c);
+      alpha[q] = exp2_mufu(x.m2[q] - mn);
+      x.m2[q] = mn;
+    }
+    float rs[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      const int q = (j >> 1) & 1;
+      const float p = exp2_mufu(fmaf(sc[j], c, -x.m2[q]));
+      sc[j] = p;
+      rs[q][(j >> 2) & 3] += p;
+    }
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+      x.l[q] = x.l[q] * alpha[q] + ((rs[q][0] + rs[q][1]) + (rs[q][2] + rs[q][3]));
+  };
+  // P rounded to bf16 into pa (the score fragment of 16 keys is the A
+  // fragment of the next product, registers 8kk..8kk+7)
+  auto pack = [&] {
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        pa[kk][q] = sm90::pack_bf16(sc[8 * kk + 2 * q], sc[8 * kk + 2 * q + 1]);
+  };
+  // O / l of item x out, and its lse
+  auto epilogue = [&](Item& x) {
+    float lf[2];
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      x.l[q] += __shfl_xor_sync(0xffffffffu, x.l[q], 1);
+      x.l[q] += __shfl_xor_sync(0xffffffffu, x.l[q], 2);
+      lf[q] = fmaxf(x.l[q], 1e-30f);
+    }
+    // 1 / l by MUFU.RCP alone (l in [1e-30, L]: no subnormal, and no
+    // call to the IEEE division's slow path)
+    float inv[2];
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+      asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(inv[q]) : "f"(lf[q]));
+    // this warpgroup's 64 rows as boxes of {128 bytes of D, 64 rows},
+    // 128-byte swizzled (8 KB each), then one TMA store a box; rows
+    // past L are not written
+    const uint32_t ob = so + wg * (64 * D * ES);
+    if (t == 0) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+    sm90::named_sync(3 + wg, 128);
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int row = w4 * 16 + lane / 4 + 8 * q;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const float x0 = o[4 * j + 2 * q] * inv[q], x1 = o[4 * j + 2 * q + 1] * inv[q];
+        const int byte = (8 * j + 2 * (lane % 4)) * ES;
+        const uint32_t at = ob + (byte / 128) * 8192 + row * 128 +
+                            ((((byte % 128) / 16) ^ (row % 8)) * 16) + byte % 16;
+        if (LSE)
+          asm volatile("st.shared.v2.f32 [%0], {%1, %2};" ::"r"(at), "f"(x0),
+                       "f"(x1) : "memory");
+        else
+          asm volatile("st.shared.b32 [%0], %1;" ::"r"(at),
+                       "r"(sm90::pack_bf16(x0, x1)) : "memory");
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    sm90::named_sync(3 + wg, 128);
+    if (t == 0) {
+#pragma unroll
+      for (int z = 0; z < D * ES / 128; ++z)
+        sm90::tma_store_4d(&to, ob + z * 8192, z * (128 / ES), x.h,
+                           x.q0 + wg * 64, x.b);
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    }
+    if (LSE && lane % 4 == 0) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int row = x.q0 + wg * 64 + w4 * 16 + lane / 4 + 8 * q;
+        if (row < g.L)
+          LSEo[(long long)(x.b * g.L + row) * g.H + x.h] =
+              (x.m2[q] + log2f(lf[q])) * LN2;
+      }
+    }
+  };
+
+  int kt = 0;                                  // kv tiles consumed so far
+  for (int r = 0;; ++r) {
+    Item cur;
+    if (!fetch(r, cur)) break;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) o[j] = 0.f;
+    if (cur.n > 0) {
+      sm90::mbar_wait(sm90::smem_u32(&full[kt % S]), (kt / S) & 1);
+      issue_s(cur, kt % S);
+      sm90::wgmma_wait<0>();
+      sm90::fence_acc(sc);
+      float alpha[2];
+      softmax(cur, 0, alpha);
+      pack();
+    }
+    // Tile i < n − 1: S of tile i + 1 and P·V of tile i issued
+    // together; the softmax of tile i + 1 runs once its S retires, while P·V
+    // of tile i is still in flight; then O is rescaled and P of tile
+    // i + 1 packed. Every pass issues both (the last P·V comes after the
+    // loop), so that ptxas can see which group each wait retires and
+    // keeps the products in flight.
+    for (int i = 0; i + 1 < cur.n; ++i) {
+      const int s = (kt + i) % S, s1 = (kt + i + 1) % S;
+      sm90::mbar_wait(sm90::smem_u32(&full[s1]), ((kt + i + 1) / S) & 1);
+      issue_s(cur, s1);
+      issue_pv(s);
+      float alpha[2] = {1.f, 1.f};
+      sm90::wgmma_wait<1>();
+      sm90::fence_acc(sc);
+      softmax(cur, i + 1, alpha);
+      sm90::wgmma_wait<0>();
+      sm90::fence_acc(o);
+      sm90::fence_frag(pa);
+      // each warp frees the stage once its own products have retired
+      if (lane == 0) sm90::mbar_arrive(sm90::smem_u32(&empty[s]));
+      // O rescaled unless no row of the warp has a new max (alpha 1: the
+      // product would change nothing)
+      if (SOFTMAX &&
+          __any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+        for (int j = 0; j < NO; ++j) o[j] *= alpha[(j >> 1) & 1];
+      }
+      pack();
+    }
+    if (cur.n > 0) {
+      const int s = (kt + cur.n - 1) % S;
+      issue_pv(s);
+      sm90::wgmma_wait<0>();
+      sm90::fence_acc(o);
+      if (lane == 0) sm90::mbar_arrive(sm90::smem_u32(&empty[s]));
+    }
+    kt += cur.n;
+    if (lane == 0) sm90::mbar_arrive(sm90::smem_u32(&qempty[cur.qb]));
+    epilogue(cur);
   }
+  if (t == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// The walk: batch·heads in chunks whose K and V fit in half the L2; the
+// q tile order heaviest first by live kv tiles (live_range, _tile_live's
+// algebra), a later tile first among equals, descending tiles when there
+// are more than ORDER_MAX. The grid: one block an SM, at most one a
+// (batch·head, q tile) item.
+template <int D>
+static int make_walk(Walk& w, const Geom& g, int BH) {
+  constexpr int BK = kv_tile<D>();
+  w.nq = (g.L + BQ - 1) / BQ;
+  w.bh = BH;
+  // a q head's share of its kv head's K and V (bf16)
+  const long long kv = (long long)g.L * D * 4 / (g.H / g.Hkv);
+  const long long half_l2 = sm90::l2_bytes() / 2;
+  const long long fit = kv > 0 ? half_l2 / kv : BH;
+  w.chunk = static_cast<int>(fit < 1 ? 1 : fit > BH ? BH : fit);
+  w.sorted = w.nq <= ORDER_MAX;
+  if (w.sorted) {
+    int live[ORDER_MAX];
+    for (int q = 0; q < w.nq; ++q) {
+      int lo, hi;
+      live_range(g, q * BQ + g.q_offset, BQ, BK, lo, hi);
+      live[q] = hi >= lo ? hi - lo + 1 : 0;
+      w.qt[q] = static_cast<uint16_t>(q);
+    }
+    std::sort(w.qt, w.qt + w.nq, [&](uint16_t a, uint16_t b) {
+      return live[a] != live[b] ? live[a] > live[b] : a > b;
+    });
+  }
+  const int sms = sm90::sm_count();
+  if (sms <= 0) return 0;
+  const long long items = (long long)w.nq * BH;
+  return static_cast<int>(items < sms ? items : sms);
 }
 }  // namespace wsk
 
@@ -658,12 +890,29 @@ static int flash_path(const void* q, const void* k, const void* v, int B,
   return PATH_GENERAL;
 }
 
-template <int D, bool LSE>
-static int launch_tma_lse(const CUtensorMap& tq, const CUtensorMap& tk,
-                          const CUtensorMap& tv, void* o, float* lse,
-                          const Geom& g, int BH, cudaStream_t s) {
-  using Lay = wsk::Layout<D>;
-  auto kern = wsk::flash_wgmma_kernel<D, LSE>;
+// One launch of the TMA kernel: the persistent grid of make_walk, its
+// walk a kernel argument, `next` an int of device memory that holds 0
+// (the kernel leaves it so). An operand that passed tma_layout but whose
+// map does not encode is a launch error, never a switch to the general
+// kernel.
+template <int D, bool LSE, int MODE>
+static int launch_wsk(const void* q, const void* k, const void* v, void* o,
+                      float* lse, int* next, const Geom& g, int B,
+                      cudaStream_t s) {
+  using Lay = wsk::Layout<D, LSE>;
+  CUtensorMap tq, tk, tv, to;
+  const int L = g.L, H = g.H, Hkv = g.Hkv;
+  if (!make_map4(&tq, q, B, L, H, D, g.sqb, g.sql, g.sqh, wsk::BQ) ||
+      !make_map4(&tk, k, B, L, Hkv, D, g.skb, g.skl, g.skh, Lay::BK) ||
+      !make_map4(&tv, v, B, L, Hkv, D, g.svb, g.svl, g.svh, Lay::BK) ||
+      !aligned16(o) ||
+      !sm90::make_map4_of(&to, o, LSE, B, L, H, D, (long long)L * H * D,
+                          (long long)H * D, D, 64))
+    return cudaErrorInvalidValue;
+  wsk::Walk w;
+  const int grid = wsk::make_walk<D>(w, g, B * H);
+  if (grid <= 0 || next == nullptr) return cudaErrorInvalidValue;
+  auto kern = wsk::flash_wgmma_kernel<D, LSE, MODE>;
   static bool attr = false;   // once per instantiation
   if (!attr) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -671,24 +920,8 @@ static int launch_tma_lse(const CUtensorMap& tq, const CUtensorMap& tk,
     if (e != cudaSuccess) return static_cast<int>(e);
     attr = true;
   }
-  dim3 grid(BH, (g.L + wsk::BQ - 1) / wsk::BQ);
-  kern<<<grid, wsk::NT, Lay::DYN, s>>>(tq, tk, tv, o, lse, g);
+  kern<<<grid, wsk::NT, Lay::DYN, s>>>(tq, tk, tv, to, lse, g, w, next);
   return cudaSuccess;
-}
-
-// An operand that passed tma_layout but whose map does not encode is a
-// launch error, never a switch to the general kernel.
-template <int D>
-static int launch_tma(const void* q, const void* k, const void* v, void* o,
-                      float* lse, const Geom& g, int B, int BH, bool with_lse,
-                      cudaStream_t s) {
-  CUtensorMap tq, tk, tv;
-  if (!make_map4(&tq, q, B, g.L, g.H, D, g.sqb, g.sql, g.sqh, wsk::BQ) ||
-      !make_map4(&tk, k, B, g.L, g.Hkv, D, g.skb, g.skl, g.skh, wsk::BK) ||
-      !make_map4(&tv, v, B, g.L, g.Hkv, D, g.svb, g.svl, g.svh, wsk::BK))
-    return cudaErrorInvalidValue;
-  return with_lse ? launch_tma_lse<D, true>(tq, tk, tv, o, lse, g, BH, s)
-                  : launch_tma_lse<D, false>(tq, tk, tv, o, lse, g, BH, s);
 }
 
 template <int D>
@@ -748,10 +981,12 @@ int lmr_flash_path(const void* q, const void* k, const void* v, int B,
 
 // q (B, L, H, D), k/v (B, L, Hkv, D): element strides for batch, seq and
 // head, head dim contiguous. o: contiguous (B, L, H, D), f32 when
-// with_lse else the input dtype; lse: contiguous (B, L, H) f32 or null.
-// Returns cudaGetLastError() after the launch (0 = launched).
+// with_lse else the input dtype; lse: contiguous (B, L, H) f32 or null;
+// next: one int of device memory that holds 0, which the TMA kernel's
+// walk counts its items in and leaves at 0 (so one int serves every
+// launch on a stream; the other kernels ignore it). Returns cudaGetLastError() after the launch (0 = launched).
 int lmr_flash_fwd(const void* q, const void* k, const void* v, void* o,
-                  void* lse, int B, int L, int H, int Hkv, int D,
+                  void* lse, void* next, int B, int L, int H, int Hkv, int D,
                   long long sqb, long long sql, long long sqh, long long skb,
                   long long skl, long long skh, long long svb, long long svl,
                   long long svh, int causal, int window, int q_offset,
@@ -764,13 +999,18 @@ int lmr_flash_fwd(const void* q, const void* k, const void* v, void* o,
          causal, window, q_offset, (float)(1.0 / sqrt((double)D))};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* LSE = static_cast<float*>(lse);
+  int* nx = static_cast<int*>(next);
   const int BH = B * H;
   const bool wl = with_lse != 0;
   int rc = cudaSuccess;
   switch (flash_path(q, k, v, B, L, H, Hkv, D, g, dtype)) {
     case PATH_TMA:
-      rc = D == 64 ? launch_tma<64>(q, k, v, o, LSE, g, B, BH, wl, s)
-                   : launch_tma<128>(q, k, v, o, LSE, g, B, BH, wl, s);
+      if (D == 64)
+        rc = wl ? launch_wsk<64, true, 0>(q, k, v, o, LSE, nx, g, B, s)
+                : launch_wsk<64, false, 0>(q, k, v, o, LSE, nx, g, B, s);
+      else
+        rc = wl ? launch_wsk<128, true, 0>(q, k, v, o, LSE, nx, g, B, s)
+                : launch_wsk<128, false, 0>(q, k, v, o, LSE, nx, g, B, s);
       break;
     case PATH_GENERAL:
       if (D == 64) launch_bf16<64>(q, k, v, o, LSE, g, BH, wl, s);
@@ -782,6 +1022,60 @@ int lmr_flash_fwd(const void* q, const void* k, const void* v, void* o,
   }
   if (rc != cudaSuccess) return rc;
   return static_cast<int>(cudaGetLastError());
+}
+
+// The TMA kernel at D = 64, no lse, in decomposition mode `mode` (0 the
+// kernel, 1 products alone, 2 the softmax alone, 3 the loads alone):
+// phase 2's times. Operands as lmr_flash_fwd's; a layout TMA cannot
+// describe is refused.
+int lmr_flash_fwd_forced(const void* q, const void* k, const void* v,
+                         void* o, void* next, int B, int L, int H, int Hkv,
+                         int D,
+                         long long sqb, long long sql, long long sqh,
+                         long long skb, long long skl, long long skh,
+                         long long svb, long long svl, long long svh,
+                         int causal, int window, int q_offset, int mode,
+                         void* stream) {
+  if (B <= 0 || L <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 ||
+      (long long)B * H > 65535 || D != 64 || mode < 0 || mode > 3)
+    return cudaErrorInvalidValue;
+  Geom g{L, H, Hkv, sqb, sql, sqh, skb, skl, skh, svb, svl, svh,
+         causal, window, q_offset, (float)(1.0 / sqrt((double)D))};
+  if (flash_path(q, k, v, B, L, H, Hkv, D, g, DT_BF16) != PATH_TMA)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* nx = static_cast<int*>(next);
+  int rc;
+  switch (mode) {
+    case 0: rc = launch_wsk<64, false, 0>(q, k, v, o, nullptr, nx, g, B, s); break;
+    case 1: rc = launch_wsk<64, false, 1>(q, k, v, o, nullptr, nx, g, B, s); break;
+    case 2: rc = launch_wsk<64, false, 2>(q, k, v, o, nullptr, nx, g, B, s); break;
+    default: rc = launch_wsk<64, false, 3>(q, k, v, o, nullptr, nx, g, B, s);
+  }
+  if (rc != cudaSuccess) return rc;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The TMA kernel's schedule for these shapes on the current card (the
+// grid, make_walk's walk), mirrored by ops/attention.py::flash_plan:
+// out[0] the grid, out[1] the batch·heads of a chunk, out[2] whether the
+// order was sorted, out[3 + r] the q tile of rank r for r < min(nq, cap).
+int lmr_flash_plan(int B, int L, int H, int Hkv, int D, int causal,
+                   int window, int q_offset, int* out, int cap) {
+  if (B <= 0 || L <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 ||
+      (D != 64 && D != 128) || out == nullptr)
+    return cudaErrorInvalidValue;
+  Geom g{L, H, Hkv, 0, 0, 0, 0, 0, 0, 0, 0, 0, causal, window, q_offset, 0.f};
+  wsk::Walk w;
+  const int grid = D == 64 ? wsk::make_walk<64>(w, g, B * H)
+                           : wsk::make_walk<128>(w, g, B * H);
+  if (grid <= 0) return cudaErrorInvalidValue;
+  out[0] = grid;
+  out[1] = w.chunk;
+  out[2] = w.sorted;
+  for (int r = 0; r < w.nq && r < cap; ++r)
+    out[3 + r] = w.sorted ? w.qt[r] : w.nq - 1 - r;
+  return cudaSuccess;
 }
 
 const char* lmr_error_string(int code) {

@@ -83,6 +83,17 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
       "r"(c1) : "memory");
 }
 
+// one box of a 4-D tensor from shared memory to global memory
+// (coordinates innermost first; out-of-range elements are not written)
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4, %5}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src),
+      "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
@@ -123,10 +134,10 @@ __device__ __forceinline__ void fence_frag(uint32_t (&a)[N][4]) {
 }
 
 // d (64 × 128, f32) += A (64 × 16) · B (16 × 128); TA / TB: the operand
-// is M- / N-major in shared memory (else K-major)
+// is M- / N-major in shared memory (else K-major); scale_d 0: d = A · B
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma_128(float (&d)[64], uint64_t da,
-                                          uint64_t db) {
+                                          uint64_t db, uint32_t scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -149,14 +160,14 @@ __device__ __forceinline__ void wgmma_128(float (&d)[64], uint64_t da,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
 // d (64 × 64, f32) += A (64 × 16) · B (16 × 64), both from shared memory;
-// TA / TB as wgmma_128's
+// TA / TB and scale_d as wgmma_128's
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma_64(float (&d)[32], uint64_t da,
-                                         uint64_t db) {
+                                         uint64_t db, uint32_t scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -171,7 +182,7 @@ __device__ __forceinline__ void wgmma_64(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
 // d (64 × 64, f32) += A (64 × 16, bf16 registers) · B (16 × 64); B is N-major
@@ -268,28 +279,51 @@ static bool tma_layout(const void* p, int B, int L, int H, long long sb,
   return aligned16(p) && ok(B, sb) && ok(L, sl) && ok(H, sh);
 }
 
-// The 4-D tensor map {D, H, L, B} of a (B, L, H, D) bf16 operand, boxes
-// of {64, 1, rows, 1} with the 128-byte swizzle; rows past L read as
-// zero. A dimension of extent one gets the stride of a packed layout
-// (TMA wants a multiple of 16 bytes even where it never steps).
-static bool make_map4(CUtensorMap* map, const void* ptr, int B, int L,
-                      int H, int D, long long sb, long long sl,
-                      long long sh, int rows) {
+// The 4-D tensor map {D, H, L, B} of a (B, L, H, D) operand of bf16 (or
+// f32: `f32`), boxes of {128 bytes of D, 1, rows, 1} with the 128-byte
+// swizzle; rows past L read as zero and are not written. A dimension of
+// extent one gets the stride of a packed layout (TMA wants a multiple of
+// 16 bytes even where it never steps).
+static bool make_map4_of(CUtensorMap* map, const void* ptr, bool f32, int B,
+                         int L, int H, int D, long long sb, long long sl,
+                         long long sh, int rows) {
   EncodeTiledFn fn = encode_fn();
   if (fn == nullptr) return false;
   if (H == 1) sh = D;
   if (L == 1) sl = sh * H;
   if (B == 1) sb = sl * L;
+  const int es = f32 ? 4 : 2;
   cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)L,
                         (cuuint64_t)B};
-  cuuint64_t strides[3] = {(cuuint64_t)(sh * 2), (cuuint64_t)(sl * 2),
-                           (cuuint64_t)(sb * 2)};
-  cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  cuuint64_t strides[3] = {(cuuint64_t)(sh * es), (cuuint64_t)(sl * es),
+                           (cuuint64_t)(sb * es)};
+  cuuint32_t box[4] = {(cuuint32_t)(128 / es), 1, (cuuint32_t)rows, 1};
   cuuint32_t estr[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  return fn(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            4, const_cast<void*>(ptr), dims, strides, box, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the bf16 map of an attention operand: boxes of {64, 1, rows, 1}
+static bool make_map4(CUtensorMap* map, const void* ptr, int B, int L,
+                      int H, int D, long long sb, long long sl,
+                      long long sh, int rows) {
+  return make_map4_of(map, ptr, false, B, L, H, D, sb, sl, sh, rows);
+}
+
+// the current device's L2 size in bytes, remembered per device
+static long long l2_bytes() {
+  static int l2[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (l2[dev] <= 0 &&
+      cudaDeviceGetAttribute(&l2[dev], cudaDevAttrL2CacheSize, dev) !=
+          cudaSuccess)
+    return 0;
+  return l2[dev];
 }
 
 // the current device's SM count, remembered per device

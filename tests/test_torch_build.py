@@ -134,3 +134,52 @@ def test_warm_build_takes_no_lock(tmp_path, monkeypatch):
     assert _build.BUILD_REPORT["built"] == []
     assert set(targets) == set(_build.SOURCES)
     assert not (tmp_path / ".build.lock").exists()
+
+
+PTXAS = """ptxas info    : Compiling entry function '_Z4goodv' for 'sm_90a'
+ptxas info    : Function properties for _Z4goodv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Compiling entry function '_Z6spillsv' for 'sm_90a'
+ptxas info    : Function properties for _Z6spillsv
+    136 bytes stack frame, 128 bytes spill stores, 120 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas /tmp/x.ptx, line 9; warning : Potential Performance Loss: \
+wgmma.mma_async instructions are serialized due to insufficient register \
+resources for the wgmma pipeline in the function '_Z6serialv'
+ptxas info    : Function properties for _Z6serialv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 90 registers, used 1 barriers
+"""
+
+
+def test_ptxas_functions_reads_registers_spills_and_serialisation():
+    assert _build.ptxas_functions(PTXAS) == {
+        "_Z4goodv": (168, 0, False), "_Z6spillsv": (168, 248, False),
+        "_Z6serialv": (90, 0, True)}
+
+
+def test_each_library_keeps_its_ptxas_report(tmp_path, monkeypatch):
+    """The build writes nvcc's output beside the library it made, so a
+    later run that loads the library reads what ptxas said of it; a
+    library without one is refused."""
+    import sys
+    fake = tmp_path / "nvcc"
+    fake.write_text(f"""#!{sys.executable}
+import sys
+sys.stdout.write({PTXAS!r})
+open(sys.argv[sys.argv.index("-o") + 1], "w").write("not a library")
+""")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    (tmp_path / "kernels").mkdir()
+    target = _build._target("flash")
+    _build._compile({"flash": target})
+    assert target.exists()
+    assert _build.ptxas_log("flash") == PTXAS
+    assert sorted(p.name for p in (tmp_path / "kernels").iterdir()) == \
+        sorted([target.name, target.with_suffix(".ptxas.txt").name])
+    target.with_suffix(".ptxas.txt").unlink()
+    with pytest.raises(RuntimeError, match="no ptxas report"):
+        _build.ptxas_log("flash")

@@ -744,6 +744,155 @@ def test_flash_path_follows_the_layout(cuda):
     assert flash_kernel_path(x32, x32, x32) == "f32"
 
 
+# (B, L, H, H_kv, D, causal, window, q_offset): L not a multiple of the
+# 128-row tiles and below one tile, windows with and without an offset,
+# GQA 4:1 and 8:1, a q_offset that leaves rows with no visible key, head
+# dim 128 (64-key tiles), items fewer than SMs and items over several
+# rounds of the persistent walk
+WSK_CASES = [(1, 50, 2, 2, 64, True, 0, 0), (2, 300, 8, 2, 64, True, 0, 0),
+             (1, 1000, 8, 1, 64, True, 0, 0), (2, 700, 4, 4, 64, True, 200, 150),
+             (1, 300, 4, 4, 64, True, 64, 400), (3, 520, 4, 4, 64, False, 0, 0),
+             (1, 260, 2, 2, 128, True, 0, 0), (1, 520, 4, 2, 128, True, 96, 40),
+             (2, 130, 4, 1, 128, True, 0, 0), (40, 640, 8, 8, 64, True, 0, 0)]
+
+
+@pytest.mark.parametrize("b,l,h,hkv,d,causal,window,q_offset", WSK_CASES)
+def test_flash_persistent_kernel_matches_plain(cuda, b, l, h, hkv, d, causal,
+                                               window, q_offset):
+    """The TMA kernel's persistent walk against the plain version, both
+    forms, on the shapes where its edges are (rows with no visible key
+    write 0 and an lse below -1e29); two calls bit-equal."""
+    q = _randn(cuda, b, l, h, d, dtype=torch.bfloat16, scale=2.0)
+    k = _randn(cuda, b, l, hkv, d, dtype=torch.bfloat16)
+    v = _randn(cuda, b, l, hkv, d, dtype=torch.bfloat16)
+    assert flash_kernel_path(q, k, v) == "tma"
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    got = flash_attention_cuda(q, k, v, **kw)
+    want = flash_attention_plain(q, k, v, causal, d ** -0.5, window=window,
+                                 q_offset=q_offset)
+    torch.testing.assert_close(got.float(), want.float(), **BF16)
+    assert torch.equal(flash_attention_cuda(q, k, v, **kw), got)
+    go, gl = flash_attention_cuda(q, k, v, with_lse=True, **kw)
+    wo, wl = flash_attention_plain(q, k, v, causal, d ** -0.5, with_lse=True,
+                                   window=window, q_offset=q_offset)
+    torch.testing.assert_close(go, wo, **BF16)
+    # a row with no visible key: out 0 and an lse below -1e29 (the plain
+    # version's is the -1e30 mask fill plus log L, the kernel's the same
+    # fill through its log2 domain)
+    dead = wl < -1e29
+    torch.testing.assert_close(gl[~dead], wl[~dead], rtol=1e-5, atol=1e-4)
+    assert bool((go[dead.unsqueeze(-1).expand_as(go)] == 0).all())
+    assert bool((gl[dead] < -1e29).all())
+    go2, gl2 = flash_attention_cuda(q, k, v, with_lse=True, **kw)
+    assert torch.equal(go2, go) and torch.equal(gl2, gl)
+
+
+@pytest.mark.parametrize("b,l,h,hkv,d,causal,window,q_offset", WSK_CASES)
+def test_flash_plan_matches_the_kernel(cuda, b, l, h, hkv, d, causal, window,
+                                       q_offset):
+    """csrc/flash.cu's make_walk against its mirror, ops/attention.py's
+    flash_plan, at the card's SM count."""
+    from lua_mapreduce_tpu_torch.ops.attention import (flash_kernel_plan,
+                                                       flash_plan)
+    props = torch.cuda.get_device_properties(0)
+    assert flash_kernel_plan(b, l, h, hkv, d, causal, window, q_offset) == \
+        flash_plan(b, l, h, hkv, d, causal, window, q_offset,
+                   props.multi_processor_count, props.L2_cache_size)
+
+
+def test_flash_decomposition_modes_run_and_odd_entries_are_refused(cuda):
+    """flash_forced's kernel mode against the plain version and bit-equal
+    over two calls; its other decomposition modes launch; a head dim the
+    entry does not take is refused."""
+    from lua_mapreduce_tpu_torch.ops.attention import FLASH_MODES, flash_forced
+    q = _randn(cuda, 2, 700, 4, 64, dtype=torch.bfloat16, scale=2.0)
+    k, v = (_randn(cuda, 2, 700, 2, 64, dtype=torch.bfloat16)
+            for _ in range(2))
+    want = flash_attention_plain(q, k, v, True, 0.125)
+    got = flash_forced(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), **BF16)
+    assert torch.equal(flash_forced(q, k, v, causal=True), got)
+    assert torch.equal(flash_attention_cuda(q, k, v, causal=True), got)
+    for mode in FLASH_MODES:
+        flash_forced(q, k, v, causal=True, mode=mode)
+    torch.cuda.synchronize()
+    q128 = _randn(cuda, 1, 64, 2, 128, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="flash kernel launch"):
+        flash_forced(q128, q128, q128, causal=True)
+
+
+def test_flash_item_counter_is_left_at_zero(cuda):
+    """The TMA kernel's item counter: one int a stream, back at 0 after
+    every launch (the next launch on the stream starts from it), another
+    on another stream; a CUDA graph's launch takes its own, and the
+    graph's replays equal the eager call."""
+    from lua_mapreduce_tpu_torch.ops.attention import _item_counter
+    q = _randn(cuda, 2, 700, 4, 64, dtype=torch.bfloat16, scale=2.0)
+    k, v = (_randn(cuda, 2, 700, 4, 64, dtype=torch.bfloat16)
+            for _ in range(2))
+    want = flash_attention_cuda(q, k, v, causal=True)
+    counter = _item_counter(q.device)
+    assert counter.item() == 0
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        other = _item_counter(q.device)
+        assert other.data_ptr() != counter.data_ptr()
+        on_side = flash_attention_cuda(q, k, v, causal=True)
+        assert other.item() == 0
+    torch.cuda.current_stream().wait_stream(side)
+    assert torch.equal(on_side, want)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = flash_attention_cuda(q, k, v, causal=True)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, want)
+    assert counter.item() == 0
+    assert torch.equal(flash_attention_cuda(q, k, v, causal=True), want)
+
+
+def test_flash_ptxas_reports_no_spill_or_serialised_wgmma(cuda):
+    """ptxas's report of the built flash library, kept beside it: every
+    TMA kernel instantiation (head dim 64 and 128, both forms, three
+    decomposition modes) without a spill and without serialised wgmmas
+    (C7512, C7514), on every run, whether or not it built the library."""
+    from lua_mapreduce_tpu_torch.ops import _build
+    _build.library("flash")
+    fns = {f: r for f, r in _build.ptxas_functions(
+        _build.ptxas_log("flash")).items() if "flash_wgmma_kernel" in f}
+    assert len(fns) == 7, sorted(fns)
+    for name, (regs, spill, serial) in fns.items():
+        assert regs > 0 and spill == 0 and not serial, (name, regs, spill,
+                                                        serial)
+
+
+def test_flash_sass_keeps_in_flight_wgmma_registers(cuda):
+    """The built TMA flash kernels' SASS, checked by
+    tests/torch_sass_wgmma.py: no instruction writes P's registers while
+    P·V reads them, or touches S or O while their products are in
+    flight (the next tile's softmax runs beside this tile's P·V), on any
+    path through the kernel's loops; every instantiation, the
+    decomposition's included."""
+    import subprocess
+    from lua_mapreduce_tpu_torch.ops import _build
+    from torch_sass_wgmma import functions, hazards
+    _build.library("flash")
+    sass = subprocess.run([_cuobjdump(), "-sass", str(_build._target("flash"))],
+                          capture_output=True, text=True, check=True).stdout
+    kernels = {name: insts for name, insts in functions(sass).items()
+               if "flash_wgmma_kernel" in name}
+    # d 64 and 128 × both forms, three decomposition modes
+    assert len(kernels) == 7, sorted(kernels)
+    for name, insts in kernels.items():
+        assert hazards(insts) == [], name
+        # the softmax-alone and loads-alone modes issue no product
+        if "Li2EE" not in name and "Li3EE" not in name:
+            assert any(i.op.startswith("HGMMA") and
+                       i.operands[1].startswith("R") for i in insts), name
+
+
 def test_flash_gradient_raises_on_the_card(cuda):
     """The backward on the card launches the dq and dkv kernels once
     each (and the forward its lse form once) and matches the plain

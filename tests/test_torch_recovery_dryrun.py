@@ -6,9 +6,10 @@ phase 24's seeded fault plan, with replication 1 and 2, and phase
 25(a)'s: replication 2 with one placement tag dark for the first
 seconds of the run. Each iteration's result files, and at the end the
 checkpoint, are byte-equal to a barrier v1 LocalExecutor run's. On a mismatch the message names
-the first differing iteration and the directory under ``tmp_path``
-that keeps the run's files and spans (``python -m
-lua_mapreduce_tpu_torch.trace object:DIR/spill`` reads them)."""
+the first differing iteration, the directory under ``tmp_path`` that
+keeps the run's files and spans (``python -m
+lua_mapreduce_tpu_torch.trace object:DIR/spill`` reads them) and the one
+that keeps each iteration's result files of both runs."""
 
 import json
 import os
@@ -60,6 +61,19 @@ def _snapshots(monkeypatch, module, into):
             n for n in result_store.list(f"{ns}.P*") if _RESULT.match(n)]))
         return real(result_store, ns)
     monkeypatch.setattr(module, "iter_results", iter_results)
+
+
+def _keep_iterations(into, want_its, got_its):
+    """Write each iteration's result files of the LocalExecutor (``want``)
+    and of the pool (``got``) under ``into``/{want,got}/iter<N>/, for a
+    failing run to be read after the test; returns ``into``."""
+    for side, its in (("want", want_its), ("got", got_its)):
+        for i, files in enumerate(its, 1):
+            d = into / side / f"iter{i}"
+            d.mkdir(parents=True, exist_ok=True)
+            for name, data in files.items():
+                (d / name).write_bytes(data)
+    return into
 
 
 def _checkpoint(root):
@@ -118,11 +132,15 @@ def _pool_equals_barrier_local(tmp_path, monkeypatch, replication, plan):
     assert len(stats.iterations) == ITERS == len(want_its)
     differ = [i + 1 for i, (a, b) in enumerate(zip(want_its, got_its))
               if a != b]
+    kept = None
+    if differ or _checkpoint(root) != want_ckpt:
+        kept = _keep_iterations(tmp_path / "iterations", want_its, got_its)
     assert not differ and _checkpoint(root) == want_ckpt, (
         f"replication {replication}: result files first differ in "
         f"iteration {differ[0] if differ else None} of {differ} (checkpoint"
         f" equal: {_checkpoint(root) == want_ckpt}); the run's files and "
-        f"spans are kept under {root}")
+        f"spans are kept under {root}, each iteration's result files of "
+        f"both runs under {kept}")
     unremoved = COUNTERS.delta(c0, COUNTERS.snapshot()).get(
         "unremoved_spills", 0)
     return [json.load(open(r)) for r in reports], unremoved

@@ -8,7 +8,7 @@ runs it on the built kernels."""
 
 import pytest
 
-from torch_sass_wgmma import functions, hazards
+from torch_sass_wgmma import functions, hazards, loop_mix
 
 # a double-buffered mainloop: group A (R156, R128, R132, R136) in flight
 # while group B's fragments (R140-R155) are rebuilt, and back, with the
@@ -117,3 +117,82 @@ def test_control_flow_it_cannot_follow_is_refused():
     assert found and "does not follow" in found[0]
     found = check(edited(28, "@P0 BRA 0x7770"))
     assert found and "does not find" in found[0]
+
+
+# the flash forward's overlapped tile (csrc/flash.cu): S of the next tile
+# (shared-memory operands, accumulators R24-R87) and P·V of this one (P
+# from registers R88-R95, O in R120-R151) issued as two groups; the wait
+# that keeps one retires S, the softmax rewrites S in place while P·V is
+# in flight; the last wait retires P·V, then O is rescaled and the next
+# P packed into P's registers
+FLASH = [
+    "WARPGROUP.ARRIVE",
+    "HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT",
+    "HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8], R24, gsb0",
+    "WARPGROUP.ARRIVE",
+    "HGMMA.64x64x16.F32.BF16 R120, R88, gdesc[UR12], R120",
+    "HGMMA.64x64x16.F32.BF16 R120, R92, gdesc[UR16], R120, gsb0",
+    "WARPGROUP.DEPBAR.LE gsb0, 0x1",
+    "FMNMX R4, R24, R25, !PT",
+    "FFMA R24, R24, R3, -R5",
+    "MUFU.EX2 R24, R24",
+    "FADD R6, R24, R6",
+    "WARPGROUP.DEPBAR.LE gsb0, 0x0",
+    "FMUL R120, R120, R7",
+    "F2FP.BF16.F32.PACK_AB R88, R25, R24",
+    "EXIT",
+]
+
+
+def test_the_overlapped_flash_tile_passes():
+    assert check(FLASH) == []
+
+
+@pytest.mark.parametrize("at,line,reg,what", [
+    # the next P packed into P's registers while P·V still reads them
+    (10, "F2FP.BF16.F32.PACK_AB R90, R25, R24", 90,
+     "writes R{}, an in-flight wgmma's A fragment"),
+    # O rescaled while P·V still accumulates into it
+    (10, "FMUL R121, R121, R7", 121,
+     "writes R{}, an in-flight wgmma's accumulator"),
+    # the softmax run before the wait that retires S
+    (6, "FFMA R30, R30, R3, -R5", 30,
+     "writes R{}, an in-flight wgmma's accumulator"),
+])
+def test_a_write_to_an_in_flight_flash_product_is_flagged(at, line, reg,
+                                                         what):
+    lines = FLASH[:at] + [line] + FLASH[at:]
+    found = check(lines)
+    assert found and what.format(reg) in found[0], found
+
+
+# a tile loop inside an outer loop: the column test (two instructions a
+# branch skips) left out of the count, four exponentials a pass
+MIX = [
+    "MOV R2, RZ",
+    "HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], R24, gsb0",
+    "WARPGROUP.DEPBAR.LE gsb0, 0x0",
+    "@P1 BRA 0x60",
+    "ISETP.GE.AND P2, PT, R7, R8, PT",
+    "FSEL R24, R24, -INF, P2",
+    "FFMA R24, R24, R3, -R5",
+    "MUFU.EX2 R24, R24",
+    "MUFU.EX2 R25, R25",
+    "MUFU.EX2 R26, R26",
+    "MUFU.EX2 R27, R27",
+    "F2FP.BF16.F32.PACK_AB R88, R25, R24",
+    "IADD3 R9, R9, 0x1, RZ",
+    "ISETP.NE.AND P0, PT, R9, R10, PT",
+    "@P0 BRA 0x10",
+    "@P3 BRA 0x0",
+    "EXIT",
+]
+
+
+def test_loop_mix_counts_the_tile_loop_by_pipe():
+    insts = functions(sass(MIX))["kernel"]
+    assert loop_mix(insts, 4) == {"mufu": 1.0, "fp32": 0.25,
+                                  "integer": 0.5, "conversion": 0.25,
+                                  "move": 0.0, "tensor": 0.25,
+                                  "other": 0.75}
+    assert loop_mix(insts, 5) is None

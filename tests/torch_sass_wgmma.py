@@ -18,11 +18,25 @@ it, and ``WARPGROUP.DEPBAR.LE gsb0, N`` keeps the last N. At a join the
 states are aligned at their newest group and united group by group, so
 a register counts as in flight if it is on any path. Every other
 instruction is held to the rule above; ``hazards`` lists the breaches.
+
+``loop_mix`` counts a kernel's tile loop by the pipe each instruction
+issues to. Run as a script it prints that count for the functions of a
+built library:
+
+    python3 tests/torch_sass_wgmma.py LIBRARY.so NAME_PART SCORES
+
+(each function whose mangled name holds NAME_PART, divided by SCORES,
+the scores a thread holds a tile: 64 for the TMA flash kernel at head
+dim 64, ``flash_wgmma_kernelILi64E``).
 """
 
 from __future__ import annotations
 
+import os
 import re
+import shutil
+import subprocess
+import sys
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 _LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
@@ -247,3 +261,63 @@ def hazards(insts: List[Inst]) -> List[str]:
                 states[j] = new
                 work.append(j)
     return list(found)
+
+
+# SASS opcodes by the pipe they issue to (the rest count as "other")
+PIPES = {"mufu": ("MUFU",),
+         "fp32": ("FFMA", "FADD", "FMUL", "FMNMX", "FSEL", "FSETP", "FSET",
+                  "FSWZADD", "FCHK"),
+         "integer": ("IMAD", "IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL",
+                     "SHR", "ISETP", "LEA", "SEL", "PRMT", "IMNMX", "IABS",
+                     "POPC", "FLO", "BMSK", "SGXT", "VIADD", "VIMNMX"),
+         "conversion": ("F2FP", "F2F", "I2F", "F2I", "FRND", "I2FP", "F2IP"),
+         "move": ("MOV", "CS2R", "S2R", "R2UR", "S2UR", "UMOV"),
+         "tensor": ("HGMMA",)}
+
+
+def loop_mix(insts: List[Inst], scores: int) -> Optional[Dict[str, float]]:
+    """A function's tile loop by pipe (PIPES), each count divided by
+    ``scores``: the loop is the shortest backward branch whose body
+    holds at least ``scores`` MUFU ops, less the largest region a branch
+    in it skips forward (an edge tile's column test). None when no loop
+    holds that many."""
+    def branch(inst):
+        return _target(inst) if inst.op.startswith("BRA") else None
+    loops = []
+    for inst in insts:
+        t = branch(inst)
+        if t is not None and t <= inst.addr:
+            body = [x for x in insts if t <= x.addr <= inst.addr]
+            if sum(x.op.startswith("MUFU") for x in body) >= scores:
+                loops.append(body)
+    if not loops:
+        return None
+    body = min(loops, key=len)
+    skips = [(x.addr, branch(x)) for x in body if branch(x) is not None
+             and x.addr < branch(x) <= body[-1].addr]
+    lo, hi = max(skips, key=lambda r: r[1] - r[0], default=(0, 0))
+    counts = dict.fromkeys([*PIPES, "other"], 0)
+    for x in body:
+        if not lo < x.addr < hi:
+            base = x.op.split(".")[0]
+            counts[next((p for p, ops in PIPES.items() if base in ops),
+                        "other")] += 1
+    return {p: n / scores for p, n in counts.items()}
+
+
+def main(argv: List[str]) -> int:
+    library, part, scores = argv[1], argv[2], int(argv[3])
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", library], check=True,
+                          capture_output=True, text=True).stdout
+    for name, insts in functions(sass).items():
+        if part in name:
+            mix = loop_mix(insts, scores)
+            print(name, "no loop" if mix is None else " ".join(
+                f"{p} {v:.2f}" for p, v in mix.items()))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))
