@@ -21,10 +21,13 @@ parent, unpack the parent into a directory that ``.gitignore`` lists:
     python3 chip_ab.py build/parent .
 
 ``--cells`` takes a comma-separated subset of digits, wide, serving,
-moe_serving, conv, lm, kmeans, als, q8 (default: all but moe_serving,
-which is phase 22's MoE serving cell, and q8, phase 2's q8 rows: each
-row's kernel time beside ``torch.matmul``'s), for a change that touches
-only some of them:
+moe_serving, conv, lm, kmeans, als, q8, bwd (default: all but
+moe_serving, which is phase 22's MoE serving cell, q8, phase 2's q8
+rows: each row's kernel time beside ``torch.matmul``'s, and bwd, the
+whole flash backward from (o, lse, do) at phase 2's bf16 shapes through
+the checkout's own ``flash_attention_bwd_cuda``: this script's
+``chip_smoke.py::bwd_timed``), for a change that touches only some of
+them:
 
     python3 chip_ab.py --cells serving,moe_serving build/parent .
 
@@ -37,8 +40,9 @@ import subprocess
 import sys
 
 CELLS = ("digits", "wide", "serving", "moe_serving", "conv", "lm",
-         "kmeans", "als", "q8")
-DEFAULT_CELLS = tuple(c for c in CELLS if c not in ("moe_serving", "q8"))
+         "kmeans", "als", "q8", "bwd")
+DEFAULT_CELLS = tuple(c for c in CELLS
+                      if c not in ("moe_serving", "q8", "bwd"))
 
 CHILD = r'''
 import importlib.util, json, sys
@@ -90,14 +94,17 @@ if "lm" in cells:
             m[f"lm {tag} {key}"] = r[key]
         for kernel, ms in r["profiled_step_kernel_ms"].items():
             m[f"lm {tag} {kernel} ms"] = ms
-if cells & {"kmeans", "als"}:
-    # the timed parts of phases 15-16 from this script's chip_smoke.py,
-    # run on the checkout's own package (the working directory comes
-    # first on the path)
+if cells & {"kmeans", "als", "bwd"}:
+    # the timed parts of phases 15-16, and the whole flash backward,
+    # from this script's chip_smoke.py, run on the checkout's own package
+    # (the working directory comes first on the path)
     spec = importlib.util.spec_from_file_location("chip_smoke_ab",
                                                   sys.argv[1])
     ab = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(ab)
+if "bwd" in cells:
+    m.update(ab.bwd_timed(torch, gen))
+if cells & {"kmeans", "als"}:
     mesh = ab.card_mesh(torch)
     if "kmeans" in cells:
         km = ab.kmeans_timed(torch, ops, mesh)[1]

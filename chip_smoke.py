@@ -334,6 +334,7 @@ import functools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -354,6 +355,10 @@ KERNEL_META = {
     "rowwise_softmax": (CSRC + "softmax.cu",
                         "lua_mapreduce_tpu/ops/softmax.py:24"),
     "flash_fwd": (CSRC + "flash.cu", "lua_mapreduce_tpu/ops/attention.py:188"),
+    "flash_bwd_prep": (CSRC + "flash_bwd.cu",
+                       "lua_mapreduce_tpu/ops/attention.py:527"),
+    "flash_bwd": (CSRC + "flash_bwd.cu",
+                  "lua_mapreduce_tpu/ops/attention.py:419 and :452"),
     "flash_bwd_dq": (CSRC + "flash_bwd.cu",
                      "lua_mapreduce_tpu/ops/attention.py:419"),
     "flash_bwd_dkv": (CSRC + "flash_bwd.cu",
@@ -363,6 +368,17 @@ KERNEL_META = {
     "pool": (CSRC + "pool.cu", "lua_mapreduce_tpu/ops/pool.py:24"),
 }
 TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}   # (rtol, atol)
+# the flash backward's wgmma kernels in ptxas's report (mangled names):
+# the one-pass kernel's modes, the two-kernel form's dq and dkv (head dim
+# 128). One of them may spill and serialise, by no more than it does now:
+# the head dim 128 dkv kernel, whose dk and dv alone take 128 of the 168
+# registers a thread (PERF.md §6), at most BWD_BOUND_SPILL bytes, its
+# wgmmas serialised only for want of registers (ptxas C7512)
+BWD_WGMMA = re.compile(
+    r"bwd_wgmma_kernel|dq_wgmma_kernel|dkv_wgmma_kernel")
+BWD_REGISTER_BOUND = "dkv_wgmma_kernelILi128E"
+BWD_BOUND_SPILL = 548
+BWD_BOUND_SERIAL = "due to insufficient register resources"
 # a cold kernel row rotates its weight over copies of at least this many
 # bytes (twice the H100's 50 MB L2), so each call reads it from HBM
 COLD_BYTES = 100 * 2 ** 20
@@ -2371,15 +2387,52 @@ def sdpa_flash_bwd(torch, q, k, v, do):
     return run, tuple(g.transpose(1, 2) for g in run())
 
 
+def sdpa_flash_bwd_gqa(torch, q, k, v, do):
+    """(callable, its (dq, dk, dv) in the (B, L, H, D) layout) of SDPA's
+    flash backward on K and V repeated to q's heads, dk and dv summed
+    over each kv head's group inside the call — a yardstick only."""
+    b, l, h, d = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    run, _ = sdpa_flash_bwd(torch, q, k.repeat_interleave(g, dim=2),
+                            v.repeat_interleave(g, dim=2), do)
+
+    def summed():
+        dq, dk, dv = run()[:3]
+        return (dq, dk.view(b, hkv, g, l, d).sum(2),
+                dv.view(b, hkv, g, l, d).sum(2))
+    return summed, tuple(x.transpose(1, 2) for x in summed())
+
+
+def sdpa_masked_bwd(torch, q, k, v, do, window):
+    """A callable of ``aten._scaled_dot_product_efficient_attention_
+    backward`` (the SDPA backward that takes a mask, here the causal
+    window as an additive bias) from its own saved out and logsumexp —
+    a yardstick only."""
+    b, l, h, d = q.shape
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous().to(q.dtype)
+                       for x in (q, k, v, do))
+    i = torch.arange(l, device=q.device)
+    seen = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
+    bias = torch.zeros((l, l), device=q.device, dtype=q.dtype).masked_fill(
+        ~seen, float("-inf")).expand(b, h, l, l)
+    out, lse, seed, offset = torch.ops.aten._scaled_dot_product_efficient_attention(
+        qt, kt, vt, bias, True)[:4]
+    op = torch.ops.aten._scaled_dot_product_efficient_attention_backward
+    return lambda: op(dot, qt, kt, vt, bias, out, lse, seed, offset, 0.0,
+                      [True, True, True, False])
+
+
 def flash_bwd_cases():
     """(label, B, L, H, H_kv, D, dtype, window, g_lse, kernel path) of
     the backward rows: the LM training shape and its modern GQA 4:1 form
-    (random lse cotangent, as the ring's merge passes one),
+    (random lse cotangent, as the ring's merge passes one), a window
+    (these three, bf16 at head dim 64, take the one-pass kernel),
     bench_flash_grad_error's shape with its 0.1·sum(lse) loss (g_lse =
-    0.1), a window, the LM shape through misaligned views (the general
-    kernels), and f32 rows (the check run's shape and a ragged L) held at
-    1e-4. The bf16 rows of the main paths must take the TMA + wgmma
-    kernels."""
+    0.1; head dim 128: the two TMA kernels), the LM shape through
+    misaligned views (the general kernels), and f32 rows (the check
+    run's shape and a ragged L) held at 1e-4. The bf16 rows of the main
+    paths must take the TMA + wgmma kernels."""
     return [("LM training causal", 8, 2048, 16, 16, 64, "bfloat16", 0,
              "random", "tma"),
             ("LM training GQA 4:1 causal", 8, 2048, 16, 4, 64, "bfloat16",
@@ -2396,20 +2449,97 @@ def flash_bwd_cases():
              "random", "f32")]
 
 
+def flash_bwd_library(torch, label, q, k, v, do, o, lse, dob, want_path,
+                      dt, window, gl, kw):
+    """SDPA's yardstick for a backward row — (callable or None, note):
+    its flash backward (MHA, and GQA with K/V repeated and the group sum
+    in the call), its masked backward under a window; none for the f32
+    and misaligned rows. The lse row's yardstick takes no lse cotangent,
+    so it is held to the kernels at g_lse = 0."""
+    from lua_mapreduce_tpu_torch.ops.attention import flash_attention_bwd_cuda
+    h, hkv = q.shape[2], k.shape[2]
+    if want_path == "general":
+        return None, "n/a: SDPA's yardstick is the aligned row's"
+    if dt != "bfloat16":
+        return None, "n/a: SDPA's flash backward takes fp16/bf16 only"
+    if window:
+        try:
+            return (sdpa_masked_bwd(torch, q, k, v, do, window),
+                    "the efficient SDPA backward, the window as a mask")
+        except RuntimeError as e:           # a yardstick only
+            return None, f"n/a: the masked SDPA backward raised: {e}"
+    if hkv != h:
+        lib, lib_grads = sdpa_flash_bwd_gqa(torch, q, k, v, do)
+        note = ("SDPA's flash backward on K/V repeated to the q heads, dk "
+                "and dv summed over each group in the call; takes no lse "
+                "cotangent")
+    else:
+        lib, lib_grads = sdpa_flash_bwd(torch, q, k, v, do)
+        note = "takes no lse cotangent"
+    if gl == "0.1":
+        # its own out and lse, no lse cotangent: the same function as the
+        # kernels' only where g_lse is 0 — held loosely
+        note = ("takes no lse cotangent; held against the kernels at "
+                "g_lse = 0")
+        ref = flash_attention_bwd_cuda(q, k, v, o, lse, dob, True, **kw)
+        lib_rel = max(norm_err(a, r) for a, r in zip(lib_grads, ref))
+        if lib_rel > 5e-2:
+            raise AssertionError(f"flash bwd {label}: SDPA's backward "
+                                 f"parts from the kernels' by {lib_rel:.3e}")
+        note += f" (normwise {lib_rel:.3e})"
+    return lib, note
+
+
+def flash_bwd_prep_row(torch, o, lse, do, g_lse):
+    """The one-pass backward's rows pre-pass (``flash_bwd_rows_cuda``) at
+    a backward row's shape, held to ``flash_bwd_rows_plain`` at 1e-5 (a
+    64-term f32 sum in another order); bound by the bytes of o (f32), do,
+    lse and g_lse read and the rows written."""
+    from lua_mapreduce_tpu_torch.ops.attention import (flash_bwd_rows_cuda,
+                                                       flash_bwd_rows_plain)
+    b, l, h, d = o.shape
+
+    def run():
+        return flash_bwd_rows_cuda(o, lse, do, g_lse)
+
+    def plain():
+        return flash_bwd_rows_plain(o, lse, do, g_lse)
+    got, want = run(), plain()
+    err = check_close("flash_bwd_prep", got, want, "float32", (1e-5, 1e-5))
+    nbytes = (b * l * h * d * (4 + do.element_size()) + 2 * b * l * h * 4
+              + got.numel() * 4)
+    return serving_row(
+        torch, "flash_bwd_prep", f"flash_bwd_prep ({b},{l},{h},{d}) f32 o, "
+        f"{str(do.dtype).split('.')[-1]} do", err, run, plain, None,
+        2 * b * l * h * d, nbytes, PEAK_F32_FLOPS, norm_err(got, want))
+
+
 def phase_flash_bwd_kernels(torch, gen):
-    """The dq and dkv kernels against the plain backward
+    """The backward kernels against the plain backward
     (``flash_attention_bwd_plain``) on the same inputs: o and lse from
     the lse-mode forward kernel, a random do, an lse cotangent. f32 at
     1e-4; bf16 at the serving flash tolerance and normwise ≤ 1e-2, and
     the plain backward with the softmax scale 5% off must fail the same
-    check. Bound by operations: dq 3 products (s, dp, dq), dkv 4 (s, dp,
-    dv, dk), 2 FLOP per multiply-add over the visible pairs of every q
-    head. The library column is SDPA's flash backward for the pair. Each
-    row names the kernels it took (``flash_bwd_kernel_path``)."""
+    check. A one-pass row (bf16, head dim 64) times the whole
+    backward from (o, lse, do) to (dq, dk, dv): the rows' pre-pass (which
+    also zeroes the q tiles no key tile sees) and the kernel; its bound
+    counts five products (s, dp, dv, dk, dq), 2 FLOP per multiply-add
+    over the visible pairs of every q head; its schedule is held to
+    ``flash_bwd_plan`` and two calls must agree bit for bit. The LM row
+    also times the one-pass kernel's decomposition (``flash_bwd_
+    forced``). Other rows time the dq and dkv kernels apart (seven
+    products: dq s, dp, dq; dkv s, dp, dv, dk), and on the TMA path the
+    whole backward beside them (the torch Δ pass and the two kernels).
+    The library column is SDPA's backward. Each row names the kernels
+    it took."""
     from lua_mapreduce_tpu_torch.ops.attention import (
+        FLASH_BWD_MODES, flash_attention_bwd_cuda,
         flash_attention_bwd_plain, flash_attention_cuda, flash_bwd_dkv_cuda,
-        flash_bwd_dq_cuda, flash_bwd_kernel_path)
+        flash_bwd_dq_cuda, flash_bwd_forced, flash_bwd_kernel_path,
+        flash_bwd_kernel_plan, flash_bwd_plan)
     rows = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
     for label, b, l, h, hkv, d, dt, window, gl, want_path in \
             flash_bwd_cases():
         dtype = getattr(torch, dt)
@@ -2438,7 +2568,13 @@ def phase_flash_bwd_kernels(torch, gen):
         if path != want_path:
             raise AssertionError(f"flash bwd {label}: took the {path} "
                                  f"kernels, expected {want_path}")
+        one_pass = path == "tma" and d == 64
         kw = dict(causal=True, window=window)
+
+        def run_all(q=q, k=k, v=v, o=o, lse=lse, do=do, g_lse=g_lse,
+                    window=window):
+            return flash_attention_bwd_cuda(q, k, v, o, lse, do, True,
+                                            window=window, g_lse=g_lse)
 
         def run_dq(q=q, k=k, v=v, dob=dob, lse=lse, delta=delta, kw=kw):
             return flash_bwd_dq_cuda(q, k, v, dob, lse, delta, **kw)
@@ -2451,84 +2587,163 @@ def phase_flash_bwd_kernels(torch, gen):
             return flash_attention_bwd_plain(q, k, v, o, lse, do, True,
                                              window=window, g_lse=g_lse,
                                              scale=scale)
-        dq, (dk, dv) = run_dq(), run_dkv()
+        if one_pass:
+            got = run_all()
+        else:
+            got = (run_dq(), *run_dkv())
         want = plain()
         torch.cuda.synchronize()
         tol = SERVE_TOL[f"flash {dt}"] if dt == "bfloat16" else (1e-4, 1e-4)
         ntol = NORM_TOL if dt == "bfloat16" else None
         wrong = plain(scale=d ** -0.5 * WRONG_SCALE)
-        lib, lib_note = None, None
-        if want_path == "general":
-            lib_note = "n/a: SDPA's yardstick is the aligned row's"
-        elif dt != "bfloat16":
-            lib_note = "n/a: SDPA's flash backward takes fp16/bf16 only"
-        elif window:
-            lib_note = "n/a: SDPA's flash backward has no sliding window"
-        elif hkv != h:
-            lib_note = ("n/a: SDPA's flash backward takes equal q and kv "
-                        "heads")
-        else:
-            lib, lib_grads = sdpa_flash_bwd(torch, q, k, v, do)
-            if gl == "0.1":
-                # its own out and lse, no lse cotangent: the same function
-                # as the kernels' only where g_lse is 0 — held loosely
-                lib_note = ("takes no lse cotangent; held against the "
-                            "kernels at g_lse = 0")
-                z = ((do * o).sum(-1)).contiguous()
-                ref = (flash_bwd_dq_cuda(q, k, v, dob, lse, z, **kw),
-                       *flash_bwd_dkv_cuda(q, k, v, dob, lse, z, **kw))
-                lib_rel = max(norm_err(a, r) for a, r in zip(lib_grads, ref))
-                if lib_rel > 5e-2:
-                    raise AssertionError(f"flash bwd {label}: SDPA's "
-                                         f"backward parts from the "
-                                         f"kernels' by {lib_rel:.3e}")
-                lib_note += f" (normwise {lib_rel:.3e})"
-                del ref
-            else:
-                lib_note = "takes no lse cotangent"
-            del lib_grads
+        lib, lib_note = flash_bwd_library(
+            torch, label, q, k, v, do, o, lse, do, want_path, dt, window, gl,
+            dict(window=window, g_lse=None))
         item = q.element_size()
         pairs = visible_pairs(l, True, window)
         in_bytes = (2 * b * l * h * d + 2 * b * l * hkv * d) * item \
             + 2 * b * l * h * 4
         peak = peaks()[0] if dt == "bfloat16" else PEAK_F32_FLOPS
-        for kernel, parts, fn, n_prod, out_bytes in (
-                ("flash_bwd_dq", (("dq", dq, want[0]),), run_dq, 3,
-                 b * l * h * d * item),
-                ("flash_bwd_dkv", (("dk", dk, want[1]), ("dv", dv, want[2])),
-                 run_dkv, 4, 2 * b * l * hkv * d * item)):
+        names = ("dq", "dk", "dv")
+
+        def held(kernel, parts):
+            """(max abs err, normwise err, the control's normwise err)
+            of ``parts``, each held to the plain version."""
             err, rel, control = 0.0, 0.0, 0.0
-            for name, got, w in parts:
-                err = max(err, check_close(f"{kernel} {label} {name}", got,
+            for name, g_, w in parts:
+                err = max(err, check_close(f"{kernel} {label} {name}", g_,
                                            w, dt, tol, ntol))
-                rel = max(rel, norm_err(got, w))
-                bad = wrong[("dq", "dk", "dv").index(name)]
+                rel = max(rel, norm_err(g_, w))
                 control = max(control, assert_rejects(
-                    f"{kernel} {label} {name} (scale 5% off)", bad, w, dt,
-                    tol, ntol))
+                    f"{kernel} {label} {name} (scale 5% off)",
+                    wrong[names.index(name)], w, dt, tol, ntol))
+            return err, rel, control
+        if one_pass:
+            err, rel, control = held("flash_bwd", zip(names, got, want))
+            # the whole backward's bytes: q, k, v, do (f32 here), o (f32),
+            # lse and g_lse read; dq, dk, dv written
+            nbytes = ((b * l * h * d * (item + 8) + 2 * b * l * hkv * d * item
+                       + 2 * b * l * h * 4)
+                      + (b * l * h * d + 2 * b * l * hkv * d) * item)
             row = serving_row(
-                torch, kernel, f"{kernel} {label} ({b},{l},{h}/{hkv},{d}) "
-                f"{dt}", err, fn, plain, lib, 2 * n_prod * b * h * pairs * d,
-                in_bytes + out_bytes, peak, rel, control)
+                torch, "flash_bwd", f"flash_bwd {label} ({b},{l},{h}/{hkv},"
+                f"{d}) {dt}", err, run_all, plain, lib,
+                2 * 5 * b * h * pairs * d, nbytes, peak, rel, control)
+            plan = flash_bwd_kernel_plan(b, l, h, hkv)
+            if plan != flash_bwd_plan(b, l, h, hkv, sms, l2):
+                raise AssertionError(f"flash bwd {label}: the kernel's plan "
+                                     f"{plan} differs from flash_bwd_plan's")
+            again = run_all()
+            if not all(torch.equal(x, y) for x, y in zip(again, got)):
+                raise AssertionError(f"flash bwd {label}: two calls differ")
+            del again
+            row.update(grid=plan.grid, chunk=plan.chunk,
+                       items=plan.nk * b * hkv, bit_equal=True)
+            if label == "LM training causal":
+                row["decomp_ms"] = {
+                    mode: time_ms(lambda mode=mode: flash_bwd_forced(
+                        q, k, v, o, lse, do, mode=mode, **kw), torch)
+                    for mode in FLASH_BWD_MODES}
             row["library_note"] = lib_note
-            row["path"] = path
+            row["path"] = "one-pass"
             rows.append(row)
-        del q, k, v, do, o, lse, delta, dob, dq, dk, dv, want, wrong, lib
+            if label == "LM training causal":
+                rows.append(flash_bwd_prep_row(torch, o, lse, dob, g_lse))
+        else:
+            dq, dk, dv = got
+            for kernel, parts, fn, n_prod, out_bytes in (
+                    ("flash_bwd_dq", (("dq", dq, want[0]),), run_dq, 3,
+                     b * l * h * d * item),
+                    ("flash_bwd_dkv", (("dk", dk, want[1]),
+                                       ("dv", dv, want[2])),
+                     run_dkv, 4, 2 * b * l * hkv * d * item)):
+                err, rel, control = held(kernel, parts)
+                row = serving_row(
+                    torch, kernel, f"{kernel} {label} ({b},{l},{h}/{hkv},"
+                    f"{d}) {dt}", err, fn, plain, lib,
+                    2 * n_prod * b * h * pairs * d, in_bytes + out_bytes,
+                    peak, rel, control)
+                row["library_note"] = lib_note
+                row["path"] = path
+                rows.append(row)
+            if path == "tma":
+                # the whole backward, beside SDPA's
+                rows[-2]["whole_ms"] = time_ms(run_all, torch)
+        del q, k, v, do, o, lse, delta, dob, got, want, wrong, lib
         torch.cuda.empty_cache()
     return rows
 
 
-def train_counts(n_layers, steps, remat=False, accum=1):
+# chip_ab.py's bwd cell: (label, B, L, H, H_kv, D, window) of phase 2's
+# bf16 backward rows that take the TMA kernels
+BWD_AB = (("LM MHA", 8, 2048, 16, 16, 64, 0),
+          ("LM GQA 4:1", 8, 2048, 16, 4, 64, 0),
+          ("window 512", 8, 2048, 16, 16, 64, 512),
+          ("d 128", 2, 2048, 8, 8, 128, 0))
+
+
+def bwd_timed(torch, gen):
+    """{"bwd <label> ms": device ms} of the whole flash backward from
+    (o, lse, do) to (dq, dk, dv) — ``flash_attention_bwd_cuda`` of the
+    package on the path, causal, with an lse cotangent — at BWD_AB's
+    shapes: chip_ab.py's bwd cell, the same call in any checkout."""
+    from lua_mapreduce_tpu_torch.ops.attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+    out = {}
+    for label, b, l, h, hkv, d, window in BWD_AB:
+        def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+            return (torch.randn(shape, device="cuda", generator=gen)
+                    * scale).to(dtype)
+        q = randn(b, l, h, d, scale=Q_SCALE)
+        k, v = randn(b, l, hkv, d), randn(b, l, hkv, d)
+        do = randn(b, l, h, d, dtype=torch.float32)
+        g_lse = randn(b, l, h, dtype=torch.float32)
+        o, lse = flash_attention_cuda(q, k, v, causal=True, window=window,
+                                      with_lse=True)
+        out[f"bwd {label} ms"] = time_ms(
+            lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do, True,
+                                             window=window, g_lse=g_lse),
+            torch)
+        del q, k, v, do, g_lse, o, lse
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_counts(n_layers, steps, remat=False, accum=1, one_pass=True):
     """Launches of ``steps`` LM train steps, from the code: per
     microbatch one lse-mode flash forward per layer (twice under remat,
-    which reruns each block's forward in the backward) and one dq and
-    one dkv launch per layer in the backward; nothing else of the port
-    (projections, the head and the loss's log_softmax are torch)."""
+    which reruns each block's forward in the backward) and, per layer in
+    the backward, one launch of the one-pass kernel and one of its rows'
+    pre-pass (``one_pass``: bf16 at head dim 64) or one dq and one dkv
+    launch (the f32 check runs);
+    nothing else of the port (projections, the head and the loss's
+    log_softmax are torch)."""
     from lua_mapreduce_tpu_torch.ops import KERNELS
     per = steps * accum * n_layers
+    bwd = ({"flash_bwd_prep": per, "flash_bwd": per} if one_pass else
+           {"flash_bwd_dq": per, "flash_bwd_dkv": per})
     return {**dict.fromkeys(KERNELS, 0),
-            "flash_fwd": per * (2 if remat else 1),
-            "flash_bwd_dq": per, "flash_bwd_dkv": per}
+            "flash_fwd": per * (2 if remat else 1), **bwd}
+
+
+# each attention kernel's names in a profile: its TMA + wgmma form(s) and
+# its general form
+FLASH_TAGS = (("flash_fwd", ("wsk::flash_wgmma_kernel", "flash_bf16_kernel")),
+              ("flash_bwd_prep", ("opk::prep_kernel",)),
+              ("flash_bwd", ("opk::bwd_wgmma_kernel",)),
+              ("flash_bwd_dq", ("wsk::dq_wgmma_kernel", "bfk::dq_kernel")),
+              ("flash_bwd_dkv", ("wsk::dkv_wgmma_kernel",
+                                 "bfk::dkv_kernel")))
+
+
+def flash_profile(kernels):
+    """(device ms, launches) of each attention kernel in a profile's
+    (name, ms, count) rows, the launches of kernels that ran only."""
+    ms = {k: sum(r[1] for r in kernels if any(n in r[0] for n in t))
+          for k, t in FLASH_TAGS}
+    seen = {k: sum(r[2] for r in kernels if any(n in r[0] for n in t))
+            for k, t in FLASH_TAGS}
+    return ms, {k: n for k, n in seen.items() if n}
 
 
 def lm_tokens(torch, vocab, batch, seq, seed):
@@ -2572,19 +2787,16 @@ def phase_lm_train(torch, ops, seed=0):
         if not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"lm train {tag} loss not finite: {losses}")
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        kernels = kernel_profile(torch, lambda: step(params, tok, tgt))
-        dev_ms = sum(kk[1] for kk in kernels)
-        # each kernel's TMA + wgmma form, or its general form
-        tags = (("flash_fwd", ("wsk::flash_wgmma_kernel", "flash_bf16_kernel")),
-                ("flash_bwd_dq", ("wsk::dq_wgmma_kernel", "bfk::dq_kernel")),
-                ("flash_bwd_dkv", ("wsk::dkv_wgmma_kernel",
-                                   "bfk::dkv_kernel")))
-        port_ms = {kk: sum(r[1] for r in kernels if any(n in r[0] for n in t))
-                   for kk, t in tags}
-        seen = {kk: sum(r[2] for r in kernels if any(n in r[0] for n in t))
-                for kk, t in tags}
+        # the profiled step's trace lists the port launches the code says
+        # (the one-pass backward and its rows pre-pass a layer), retaken
+        # at most three times where the trace lost records
         per_step = {kk: v for kk, v in train_counts(cfg.n_layers, 1).items()
                     if v}
+        kernels, traces = whole_profile(
+            torch, lambda: step(params, tok, tgt),
+            lambda rows: flash_profile(rows)[1], per_step, f"lm train {tag}")
+        dev_ms = sum(kk[1] for kk in kernels)
+        port_ms, seen = flash_profile(kernels)
         # the step's device time by kind: the port's kernels, cuBLAS
         # products (the projections and the head), everything else
         # (norms, activations, residual adds, the loss, the optimizer)
@@ -2608,7 +2820,7 @@ def phase_lm_train(torch, ops, seed=0):
              "profiled_step_kernel_ms": port_ms,
              "profiled_step_launches": seen,
              "profiled_step_ms_by_kind": by_kind,
-             "profile_complete": seen == per_step,
+             "profile_complete": seen == per_step, "traces": traces,
              "device_idle_share": 1 - dev_ms / step_ms,
              "top_kernels": kernels[:14]}
         log(f"[lm train] {tag} {r['config']}: {LM_STEPS} timed steps, "
@@ -2618,9 +2830,9 @@ def phase_lm_train(torch, ops, seed=0):
             f"{peak:.2f} GiB; losses "
             f"{losses[0]:.4f} .. {losses[-1]:.4f}; launches {counts}")
         log(f"[lm train] {tag}: profiled step {dev_ms:.3f} ms on the device "
-            f"(flash fwd {port_ms['flash_fwd']:.3f}, dq "
-            f"{port_ms['flash_bwd_dq']:.3f}, dkv "
-            f"{port_ms['flash_bwd_dkv']:.3f}; cuBLAS "
+            f"(flash fwd {port_ms['flash_fwd']:.3f}, bwd "
+            f"{sum(v for kk, v in port_ms.items() if kk != 'flash_fwd'):.3f}"
+            f"; cuBLAS "
             f"{by_kind['cublas']:.3f}, other {by_kind['other']:.3f}); idle "
             f"{100 * r['device_idle_share']:.1f}% of the timed step; port "
             f"launches in the trace {seen}"
@@ -2674,7 +2886,7 @@ def phase_lm_check(torch, ops, seed=5):
             uerrs.append(leafwise_err(*(
                 {k: -LM_CHECK_LR * sides[d][2].state[v]["momentum_buffer"]
                  for k, v in sides[d][0].items()} for d in ("cuda", "cpu"))))
-        if counts != train_counts(2, 3):
+        if counts != train_counts(2, 3, one_pass=False):
             raise AssertionError(f"lm check {tag} launches {counts}")
         rel = max(abs(g - c) / abs(c) for g, c in losses)
         fmt = " ".join(f"{a:.3e} (worst {w:.3e} in {k})" for a, w, k in gerrs)
@@ -2703,7 +2915,7 @@ def phase_lm_check(torch, ops, seed=5):
             steps[name] = (loss, {k: v.grad.cpu() for k, v in p.items()},
                            ops.launch_counts())
         (l1, g1, _), (l2, g2, c2) = steps["plain"], steps["remat+accum2"]
-        want = train_counts(2, 1, remat=True, accum=2)
+        want = train_counts(2, 1, remat=True, accum=2, one_pass=False)
         if c2 != want:
             raise AssertionError(f"lm check {tag} remat+accum launches "
                                  f"{c2}, expected {want}")
@@ -2717,6 +2929,7 @@ def phase_lm_check(torch, ops, seed=5):
             f"step on the card (loss {l2:.6f} vs {l1:.6f}, gradient "
             f"normwise {a:.3e}, worst {w:.3e} in {k}); launches {c2}")
         out[tag] = {"losses_card_cpu": losses, "max_rel_diff": rel,
+                    "launches": counts,
                     "grad_norm_err": gerrs, "update_norm_err": uerrs,
                     "remat_accum": {"loss": l2, "plain_loss": l1,
                                     "grad_norm_err": [a, w, k],
@@ -4009,13 +4222,7 @@ def phase_moe_train(torch, ops, mesh, seed=0):
                                                              tgt))
                if not r[0].startswith("Optimizer.")]
     dev_ms = sum(k[1] for k in kernels)
-    tags = (("flash_fwd", ("wsk::flash_wgmma_kernel", "flash_bf16_kernel")),
-            ("flash_bwd_dq", ("wsk::dq_wgmma_kernel", "bfk::dq_kernel")),
-            ("flash_bwd_dkv", ("wsk::dkv_wgmma_kernel", "bfk::dkv_kernel")))
-    port_ms = {k: sum(r[1] for r in kernels if any(n in r[0] for n in t))
-               for k, t in tags}
-    seen = {k: sum(r[2] for r in kernels if any(n in r[0] for n in t))
-            for k, t in tags}
+    port_ms, seen = flash_profile(kernels)
     gemm = [r for r in kernels if "gemm" in r[0] or "nvjet" in r[0]]
     by_kind = {"port": sum(port_ms.values()),
                "gemm": sum(r[1] for r in gemm)}
@@ -4046,8 +4253,8 @@ def phase_moe_train(torch, ops, mesh, seed=0):
         f"TFLOP/s), peak {peak:.2f} GiB; losses {losses[0]:.4f} .. "
         f"{losses[-1]:.4f}; launches {counts}")
     log(f"[moe train] profiled step {dev_ms:.3f} ms on the device (flash "
-        f"fwd {port_ms['flash_fwd']:.3f}, dq {port_ms['flash_bwd_dq']:.3f}, "
-        f"dkv {port_ms['flash_bwd_dkv']:.3f}; GEMMs {by_kind['gemm']:.3f}, "
+        f"fwd {port_ms['flash_fwd']:.3f}, bwd {port_ms['flash_bwd']:.3f}; "
+        f"GEMMs {by_kind['gemm']:.3f}, "
         f"other {by_kind['other']:.3f}); idle "
         f"{100 * r['device_idle_share']:.1f}% of the timed step; port "
         f"launches in the trace {seen}")
@@ -4210,7 +4417,8 @@ def phase_moe_check(torch, ops, mesh, seed=5):
            f"(limit {LM_CHECK_RTOL}); gradient normwise "
            + " ".join(f"{a:.3e} (worst {w:.3e} in {k})" for a, w, k in gerrs)
            + f" (limit {LM_CHECK_NORM}); launches {counts}")
-    if counts != train_counts(2, 3) or rel > LM_CHECK_RTOL or any(
+    if counts != train_counts(2, 3, one_pass=False) or \
+            rel > LM_CHECK_RTOL or any(
             a > LM_CHECK_NORM or w > LM_CHECK_NORM for a, w, _ in gerrs):
         raise AssertionError(f"moe check {msg}")
     log(f"[moe check] {msg}")
@@ -4297,14 +4505,15 @@ PP_MICRO, PP_ROWS, PP_SHARDS = 4, 128, 4
 TP_PP_LOSS_RTOL, TP_PP_PARAMS_TOL = 1e-5, 2e-4
 
 
-def pp_counts(n_layers, steps, n_micro, n_pp=1):
+def pp_counts(n_layers, steps, n_micro, n_pp=1, one_pass=True):
     """Launches of ``steps`` pipeline steps on one stage, from the code:
     the GPipe grid has n_micro + n_pp − 1 ticks and every tick runs each
     of the stage's n_layers/n_pp layers, bubbles included — one flash
-    forward (the lse form, under autograd) and one dq and one dkv a
+    forward (the lse form, under autograd) and the backward's launches a
     layer a tick; the train step's counts with a tick as a
     microbatch."""
-    return train_counts(n_layers // n_pp, steps, accum=n_micro + n_pp - 1)
+    return train_counts(n_layers // n_pp, steps, accum=n_micro + n_pp - 1,
+                        one_pass=one_pass)
 
 
 @contextlib.contextmanager
@@ -4405,13 +4614,7 @@ def timed_lm_steps(torch, ops, step, batches, what, want):
     kernels = [r for r in kernel_profile(torch, lambda: step(*batches[-1]))
                if not r[0].startswith("Optimizer.")]
     dev_ms = sum(k[1] for k in kernels)
-    tags = (("flash_fwd", ("wsk::flash_wgmma_kernel", "flash_bf16_kernel")),
-            ("flash_bwd_dq", ("wsk::dq_wgmma_kernel", "bfk::dq_kernel")),
-            ("flash_bwd_dkv", ("wsk::dkv_wgmma_kernel", "bfk::dkv_kernel")))
-    port_ms = {k: sum(r[1] for r in kernels if any(n in r[0] for n in t))
-               for k, t in tags}
-    seen = {k: sum(r[2] for r in kernels if any(n in r[0] for n in t))
-            for k, t in tags}
+    port_ms, seen = flash_profile(kernels)
     gemm = sum(r[1] for r in kernels if "gemm" in r[0] or "nvjet" in r[0])
     by_kind = {"port": sum(port_ms.values()), "gemm": gemm,
                "other": dev_ms - sum(port_ms.values()) - gemm}
@@ -4420,7 +4623,7 @@ def timed_lm_steps(torch, ops, step, batches, what, want):
     # every attention call of the bf16 step takes the TMA + wgmma
     # kernels, its forward in the lse form (autograd keeps the lse)
     want_paths = {"fwd": {"tma": per_step["flash_fwd"]},
-                  "bwd": {"tma": per_step["flash_bwd_dq"]},
+                  "bwd": {"tma": per_step["flash_bwd"]},
                   "fwd_form": {"lse": per_step["flash_fwd"]}}
     if {k: dict(v) for k, v in paths.items()} != want_paths:
         raise AssertionError(f"{what}: flash paths {paths}, expected "
@@ -4545,8 +4748,8 @@ def phase_tp_pp_train(torch, ops, meshes, mesh2, lm, seed=0):
         log(f"[tp/pp train] {tag}: profiled step "
             f"{r['profiled_step_device_ms']:.3f} ms on the device in "
             f"{r['profiled_step_kernels']} kernels (flash fwd "
-            f"{k['flash_fwd']:.3f}, dq {k['flash_bwd_dq']:.3f}, dkv "
-            f"{k['flash_bwd_dkv']:.3f}; GEMMs {bk['gemm']:.3f}, other "
+            f"{k['flash_fwd']:.3f}, bwd {k['flash_bwd']:.3f}; GEMMs "
+            f"{bk['gemm']:.3f}, other "
             f"{bk['other']:.3f}); idle "
             f"{100 * r['device_idle_share']:.1f}% of the timed step; port "
             f"launches in the trace {r['profiled_step_launches']}"
@@ -4614,8 +4817,8 @@ def phase_tp_pp_check(torch, ops, meshes, mesh2, seed=5):
         cpu_runs.append((loss, {k: v.grad.clone() for k, v in cpu_p.items()},
                          {k: -LM_CHECK_LR * cpu_opt.state[v]["momentum_buffer"]
                           for k, v in cpu_p.items()}))
-    for form, want_counts in (("3d", train_counts(2, 3)),
-                              ("pp", pp_counts(2, 3, 2))):
+    for form, want_counts in (("3d", train_counts(2, 3, one_pass=False)),
+                              ("pp", pp_counts(2, 3, 2, one_pass=False))):
         p, opt, step = build(form, "cuda")
         losses, gerrs, uerrs = [], [], []
         counts = dict.fromkeys(ops.KERNELS, 0)
@@ -6650,6 +6853,35 @@ def main():
     log(f"[build] flash_wgmma_kernel: {len(flash_fns)} instantiations, "
         f"registers {sorted({r[0] for r in flash_fns.values()})}, no "
         f"spill, no serialised wgmma")
+    # the same of the backward's wgmma kernels: the one-pass kernel and
+    # the two-kernel form's, the head dim 128 dkv kernel held to what it
+    # spills and serialises now
+    from lua_mapreduce_tpu_torch.ops.attention import FLASH_BWD_MODES
+    bwd_log = _build.ptxas_log("flash_bwd")
+    bwd_fns = {f: r for f, r in _build.ptxas_functions(bwd_log).items()
+               if BWD_WGMMA.search(f)}
+    serial = _build.ptxas_serialisations(bwd_log)
+    bound_fns = {f: (*r, sorted(serial.get(f, ())))
+                 for f, r in bwd_fns.items() if BWD_REGISTER_BOUND in f}
+    bad = {f: r for f, r in bwd_fns.items()
+           if (r[1] or r[2]) and f not in bound_fns}
+    bad.update({f: r for f, r in bound_fns.items()
+                if r[1] > BWD_BOUND_SPILL or r[2] != bool(r[3])
+                or any(BWD_BOUND_SERIAL not in x for x in r[3])})
+    count = len(FLASH_BWD_MODES) + 2
+    if len(bwd_fns) != count or len(bound_fns) != 1 or bad:
+        raise AssertionError(f"the backward's wgmma kernels spill or "
+                             f"serialise their wgmmas (the head dim 128 "
+                             f"dkv kernel: past {BWD_BOUND_SPILL} bytes or "
+                             f"for want of anything but registers), or "
+                             f"ptxas reported other than {count}: "
+                             f"{bad or sorted(bwd_fns)}")
+    log(f"[build] the backward's wgmma kernels: {len(bwd_fns)} "
+        f"instantiations, registers "
+        f"{sorted({r[0] for r in bwd_fns.values()})}, no spill, no "
+        f"serialised wgmma but the head dim 128 dkv kernel's "
+        f"(registers, spill bytes, serialised, why): "
+        f"{list(bound_fns.values())}")
 
     phase_s = {}
 
@@ -6695,6 +6927,9 @@ def main():
         if r.get("decomp_ms"):
             extra += "; decomposition " + ", ".join(
                 f"{k} {v:.4f} ms" for k, v in r["decomp_ms"].items())
+        if r.get("whole_ms") is not None:
+            extra += (f"; the whole backward (torch Δ, dq, dkv) "
+                      f"{r['whole_ms']:.4f} ms")
         if r.get("path") is not None:
             extra += f", {r['path']} kernel"
         if r.get("grid") is not None:
@@ -6782,6 +7017,7 @@ def main():
             + [serving[t]["launches"] for t in serving]
             + [conv[m]["launches"] for m in conv]
             + [lm[t]["launches"] for t in lm]
+            + [lm_check[t]["launches"] for t in lm_check]
             + [kmeans_counts, als_counts, executor_counts] + dp_counts
             + ingraph_counts + hybrid_counts + pool_counts
             + [moe_train["launches"]]

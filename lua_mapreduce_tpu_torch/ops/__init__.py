@@ -27,7 +27,8 @@ from typing import Dict, Iterator
 import torch
 
 KERNELS = ("matmul_f32", "matmul_bf16", "rowwise_softmax", "flash_fwd",
-           "flash_bwd_dq", "flash_bwd_dkv", "decode", "q8", "pool")
+           "flash_bwd_prep", "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv",
+           "decode", "q8", "pool")
 
 _launches: Dict[str, int] = {k: 0 for k in KERNELS}
 _launch_lock = threading.Lock()

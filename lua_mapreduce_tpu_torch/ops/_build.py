@@ -76,7 +76,11 @@ _SIGNATURES = {
     "flash_bwd": {**{fn: [_P] * 8 + [_I] * 5 + [_L] * 12 + [_I] * 4 + [_P]
                      for fn in ("lmr_flash_bwd_dq", "lmr_flash_bwd_dkv")},
                   "lmr_flash_bwd_path": [_P] * 4 + [_I] * 5 + [_L] * 12
-                  + [_I]},
+                  + [_I],
+                  "lmr_flash_bwd": [_P] * 10 + [_I] * 5 + [_L] * 12
+                  + [_I] * 4 + [_P],
+                  "lmr_flash_bwd_plan": [_I] * 4 + [_P],
+                  "lmr_flash_bwd_prep": [_P] * 6 + [_I] * 8 + [_P]},
     "decode": {"lmr_decode": [_P] * 10 + [_I] * 6 + [_L] * 3 + [_I, _P],
                "lmr_decode_splits": [_I] * 5,
                "lmr_decode_combine": [_P] * 4 + [_I] * 4 + [_P]},
@@ -245,6 +249,20 @@ def ptxas_functions(out: str) -> Dict[str, Tuple[int, int, bool]]:
         if m:
             funcs.setdefault(m.group(1), [0, 0, False])[2] = True
     return {k: tuple(v) for k, v in funcs.items()}
+
+
+def ptxas_serialisations(out: str) -> Dict[str, set]:
+    """``nvcc -Xptxas -v`` output → {function: the reasons ptxas gave for
+    serialising its wgmmas}: the text after "serialized" in each notice
+    naming it (C7512's is "due to insufficient register resources";
+    C7514's and the others' name the instructions or the control flow
+    at fault)."""
+    found: Dict[str, set] = {}
+    for m in re.finditer(r"wgmma.mma_async instructions are serialized "
+                         r"(.*?) (?:in|for) (?:the )?function '(\S+)'",
+                         out):
+        found.setdefault(m.group(2), set()).add(m.group(1))
+    return found
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -6,9 +6,11 @@ Port of ``lua_mapreduce_tpu/ops/attention.py``: the Pallas
 with an lse flag (a TMA + wgmma kernel for the layouts TMA can read, a
 general kernel for the rest: :func:`flash_kernel_path`), and the
 FlashAttention-2 backward ``_flash_bwd_dq_kernel`` /
-``_flash_bwd_dkv_kernel`` become two CUDA kernels
-(``csrc/flash_bwd.cu``: TMA + wgmma kernels for the layouts TMA can
-read, general kernels for the rest: :func:`flash_bwd_kernel_path`);
+``_flash_bwd_dkv_kernel`` become ``csrc/flash_bwd.cu``: at head dim 64,
+for the layouts TMA can read, one kernel that forms all three
+gradients in one pass (dq summed into an f32 workspace in a fixed
+order, :func:`flash_bwd_plan`); at head dim 128 and for the other
+layouts, a dq kernel and a dkv kernel (:func:`flash_bwd_kernel_path`);
 each source's note says what bounds it and what the design does about
 it. Layout is the JAX op's public one, (B, L, H, D), read through
 strides by the kernels.
@@ -235,26 +237,29 @@ def flash_kernel_plan(b: int, l: int, h: int, hkv: int, d: int,
     return FlashPlan(out[0], out[1], tuple(out[3:3 + nq]), live, bk)
 
 
-# the TMA kernel's item counters, one int32 a (device, stream)
+# the TMA kernels' counters, one int32 buffer a (device, stream)
 _COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
-def _item_counter(device) -> torch.Tensor:
-    """The int32 that the TMA kernel's walk counts its items in, holding
-    0 (each launch leaves it at 0 again): one a (device, stream), made
-    once and zeroed on that stream, so that launches on one stream share
-    it in order and launches on two streams never do. Under a CUDA graph
-    capture a fresh zeroed int in the graph's memory, so that no graph
-    shares an int with launches outside it."""
+def _item_counter(device, n: int = 1) -> torch.Tensor:
+    """``n`` int32 holding 0 that a TMA kernel's walk counts in (each
+    launch leaves them at 0 again): the forward's item counter, the
+    one-pass backward's item counter and its tiles' partial counts. One
+    buffer a (device, stream), made and zeroed on that stream and grown
+    when a launch needs more, so that launches on one stream share it in
+    order and launches on two streams never do. Under a CUDA graph
+    capture fresh zeroed ints in the graph's memory, so that no graph
+    shares them with launches outside it."""
     if torch.cuda.is_current_stream_capturing():
-        return torch.zeros((1,), device=device, dtype=torch.int32)
+        return torch.zeros((n,), device=device, dtype=torch.int32)
     stream = torch.cuda.current_stream(device)
     key = (stream.device_index, stream.cuda_stream)
-    counter = _COUNTERS.get(key)
-    if counter is None:
-        counter = _COUNTERS[key] = torch.zeros((1,), device=device,
-                                               dtype=torch.int32)
-    return counter
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[key] = torch.zeros(
+            (max(n, 2 * buf.numel()) if buf is not None else n,),
+            device=device, dtype=torch.int32)
+    return buf[:n]
 
 
 def flash_kernel_path(q, k, v) -> str:
@@ -339,12 +344,13 @@ def _check_bwd_operands(q, k, v, do, what: str) -> None:
 
 
 def flash_bwd_kernel_path(q, k, v, do) -> str:
-    """Which kernels of ``csrc/flash_bwd.cu`` the dq and dkv launches
-    run for these CUDA operands (``lmr_flash_bwd_path``, a predicate on
-    their layout, as :func:`flash_kernel_path` is the forward's):
-    ``"tma"`` (the TMA + wgmma kernels: bf16 q/k/v/do, 16-byte aligned
-    bases, strides multiples of 8 elements), ``"general"`` (the mma.sync
-    kernels: other bf16 layouts) or ``"f32"``."""
+    """Which kernels of ``csrc/flash_bwd.cu`` the backward runs for these
+    CUDA operands (``lmr_flash_bwd_path``, a predicate on their layout,
+    as :func:`flash_kernel_path` is the forward's): ``"tma"`` (the TMA +
+    wgmma kernels: bf16 q/k/v/do, 16-byte aligned bases, strides
+    multiples of 8 elements; the one-pass kernel at head dim 64, the dq
+    and dkv kernels at 128), ``"general"`` (the mma.sync kernels: other
+    bf16 layouts) or ``"f32"``."""
     _check_bwd_operands(q, k, v, do, "flash backward kernel")
     q, k, v, do = _unit_stride(q, k, v, do)
     b, l, h, d = q.shape
@@ -353,6 +359,232 @@ def flash_bwd_kernel_path(q, k, v, do) -> str:
         k.shape[2], d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *do.stride()[:3], _CODES[q.dtype])
     return _PATHS[path]
+
+
+# csrc/flash_bwd.cu's one-pass kernel (opk): items of FLASH_BWD_BK keys
+# (a batch·kv head's key tile), steps of FLASH_BWD_BQ q rows, head dim
+# FLASH_BWD_D; its dq workspace tile is FLASH_BWD_BQ × FLASH_BWD_D f32
+FLASH_BWD_BK, FLASH_BWD_BQ, FLASH_BWD_D = 128, 64, 64
+_LOG2E = 1.4426950408889634
+
+
+class FlashBwdPlan(NamedTuple):
+    """The one-pass kernel's schedule: ``grid`` persistent blocks (one
+    an SM, at most one an item) take the nk·(B·H_kv) (batch·kv head, key
+    tile) items one at a time from a counter, in walk order: the batch·kv
+    heads in chunks of ``chunk`` (whose q, do, K and V fit in half the
+    L2), within a chunk the key tiles last first, the chunk's batch·kv
+    heads fastest."""
+    grid: int
+    chunk: int
+    nk: int
+
+
+def flash_bwd_plan(b: int, l: int, h: int, hkv: int, sms: int,
+                   l2_bytes: int) -> FlashBwdPlan:
+    """Mirror of csrc/flash_bwd.cu::opk::make_walk on a card of ``sms``
+    SMs and ``l2_bytes`` of L2."""
+    nk = -(-l // FLASH_BWD_BK)
+    nbytes = (2 * (h // hkv) + 2) * l * FLASH_BWD_D * 2
+    chunk = min(max(l2_bytes // 2 // nbytes, 1), b * hkv)
+    return FlashBwdPlan(min(nk * b * hkv, sms), chunk, nk)
+
+
+def flash_bwd_items(plan: FlashBwdPlan, bhk: int) -> List[Tuple[int, int]]:
+    """The (batch·kv head, key tile) items in the order the blocks take
+    them (``opk::walk_decode`` of item 0, 1, ...)."""
+    per, out = plan.chunk * plan.nk, []
+    for it in range(plan.nk * bhk):
+        ch, rem = divmod(it, per)
+        cw = min(plan.chunk, bhk - ch * plan.chunk)
+        out.append((ch * plan.chunk + rem % cw, plan.nk - 1 - rem // cw))
+    return out
+
+
+def flash_bwd_q_tiles(kt: int, l: int, causal: bool, window: int,
+                      q_offset: int) -> Tuple[int, int]:
+    """The q tiles [lo, hi] of FLASH_BWD_BQ rows that key tile ``kt``
+    (FLASH_BWD_BK keys) sees: csrc/flash_bwd.cu's ``q_range``, the JAX
+    op's ``_q_clamp`` bounds (empty when hi < lo)."""
+    lo, hi = 0, -(-l // FLASH_BWD_BQ) - 1
+    k0 = kt * FLASH_BWD_BK
+    if causal:
+        lo = max((k0 - q_offset) // FLASH_BWD_BQ, 0)
+    if window:
+        hi = min((k0 + FLASH_BWD_BK - 2 + window - q_offset)
+                 // FLASH_BWD_BQ, hi)
+    return lo, hi
+
+
+def flash_bwd_key_tiles(qt: int, l: int, causal: bool, window: int,
+                        q_offset: int) -> Tuple[int, int]:
+    """The key tiles [lo, hi] that q tile ``qt`` sees: csrc/flash_bwd.cu's
+    ``kv_range``, the JAX op's ``_kv_clamp`` bounds. Its dq partials are
+    summed from hi down to lo."""
+    lo, hi = 0, -(-l // FLASH_BWD_BK) - 1
+    row0 = qt * FLASH_BWD_BQ + q_offset
+    if causal:
+        hi = min((row0 + FLASH_BWD_BQ - 1) // FLASH_BWD_BK, hi)
+    if window:
+        first = row0 - window + 1
+        lo = first // FLASH_BWD_BK if first > 0 else 0
+    return lo, hi
+
+
+def flash_bwd_steps(plan: FlashBwdPlan, b: int, l: int, h: int, hkv: int,
+                    causal: bool, window: int, q_offset: int
+                    ) -> List[Tuple[Tuple[int, int], List[Tuple[int, int,
+                                                                int]]]]:
+    """Each item of the walk with its steps, in the kernel's order (q
+    tiles ascending, the group's q heads fastest): (q tile index
+    (b·H + h)·nq + qt, the partials added before this one, the count it
+    leaves: 0 after the last)."""
+    nq, group = -(-l // FLASH_BWD_BQ), h // hkv
+    out = []
+    for bhk, kt in flash_bwd_items(plan, b * hkv):
+        bb, hk = divmod(bhk, hkv)
+        lo, hi = flash_bwd_q_tiles(kt, l, causal, window, q_offset)
+        steps = []
+        for qt in range(lo, hi + 1):
+            klo, klast = flash_bwd_key_tiles(qt, l, causal, window, q_offset)
+            for g in range(group):
+                steps.append(((bb * h + hk * group + g) * nq + qt,
+                              klast - kt, 0 if kt == klo else klast - kt + 1))
+        out.append(((bhk, kt), steps))
+    return out
+
+
+def flash_bwd_kernel_plan(b: int, l: int, h: int, hkv: int) -> FlashBwdPlan:
+    """The schedule csrc/flash_bwd.cu's one-pass kernel takes for these
+    shapes on the current card (``lmr_flash_bwd_plan``), for holding
+    against :func:`flash_bwd_plan`."""
+    out = (ctypes.c_int * 3)()
+    lib = _build.library("flash_bwd")
+    _build.check(lib, lib.lmr_flash_bwd_plan(b, l, h, hkv,
+                                             ctypes.addressof(out)),
+                 f"flash backward plan for B={b}, L={l}, H={h}/{hkv}")
+    return FlashBwdPlan(out[0], out[1], out[2])
+
+
+# the one-pass kernel's decomposition modes (lmr_flash_bwd's mode)
+FLASH_BWD_MODES = {"kernel": 0, "products": 1, "elementwise": 2,
+                   "loads": 3}
+
+
+def flash_bwd_rows_plain(o, lse, do, g_lse=None):
+    """The one-pass kernel's rows in torch: (B, H, nq·64, 2) f32 holding
+    {lse·log2(e), Δ·scale} for each (b, h, l), Δ = rowsum(do∘o) − g_lse in
+    f32 from ``do`` as given, zero past L — the plain version of
+    ``lmr_flash_bwd_prep``."""
+    b, l, h, d = o.shape
+    nq = -(-l // FLASH_BWD_BQ)
+    rows = torch.zeros((b, h, nq * FLASH_BWD_BQ, 2), device=o.device,
+                       dtype=torch.float32)
+    rows[:, :, :l, 0] = lse.float().permute(0, 2, 1) * _LOG2E
+    delta = (do.float() * o.float()).sum(-1)
+    if g_lse is not None:
+        delta = delta - g_lse.float()
+    rows[:, :, :l, 1] = delta.permute(0, 2, 1) * d ** -0.5
+    return rows
+
+
+def flash_bwd_q_tile_written(qt: int, l: int, causal: bool, window: int,
+                            q_offset: int) -> bool:
+    """Does a step of the one-pass kernel write q tile ``qt``'s dq?
+    csrc/flash_bwd.cu's ``dq_written``: its last contributor (key tile
+    ``lo`` of :func:`flash_bwd_key_tiles`) does where that key tile's q
+    tiles include it; the others get the pre-pass's zeros."""
+    klo, khi = flash_bwd_key_tiles(qt, l, causal, window, q_offset)
+    if klo > khi:
+        return False
+    lo, hi = flash_bwd_q_tiles(klo, l, causal, window, q_offset)
+    return lo <= qt <= hi
+
+
+def flash_bwd_rows_cuda(o, lse, do, g_lse=None, dq=None, *,
+                        causal: bool = True, window: int = 0,
+                        q_offset: int = 0):
+    """The one-pass kernel's rows through ``lmr_flash_bwd_prep`` (one
+    pass over o and do; as :func:`flash_bwd_rows_plain`): o, lse and
+    g_lse are read as contiguous f32, do as contiguous f32 or bf16. With
+    ``dq`` (the one-pass launch's contiguous bf16 dq) the same pass
+    zeroes the q tiles that launch will not write under this mask
+    (:func:`flash_bwd_q_tile_written`)."""
+    b, l, h, d = o.shape
+    if d != FLASH_BWD_D:
+        raise ValueError(f"flash_bwd_prep takes head dim {FLASH_BWD_D}, "
+                         f"got {d}")
+    nq = -(-l // FLASH_BWD_BQ)
+    rows = torch.empty((b, h, nq * FLASH_BWD_BQ, 2), device=o.device,
+                       dtype=torch.float32)
+    if nq * FLASH_BWD_BQ > l:
+        rows[:, :, l:].zero_()
+    if do.dtype not in (torch.float32, torch.bfloat16):
+        do = do.float()
+    o, lse, do = (x.contiguous() for x in (o.float(), lse.float(), do))
+    gl = None if g_lse is None else g_lse.float().contiguous()
+    if dq is not None and (dq.dtype != torch.bfloat16 or dq.shape != o.shape
+                           or not dq.is_contiguous()):
+        raise TypeError("flash_bwd_prep: dq must be a contiguous bf16 "
+                        f"{tuple(o.shape)} tensor")
+    lib = _build.library("flash_bwd")
+    with torch.cuda.device(o.device):
+        rc = lib.lmr_flash_bwd_prep(
+            o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            None if gl is None else gl.data_ptr(), rows.data_ptr(),
+            None if dq is None else dq.data_ptr(), b, l, h,
+            nq * FLASH_BWD_BQ, int(causal), window, q_offset,
+            _CODES[do.dtype], torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, rc, "flash_bwd_prep kernel launch")
+    count_launch("flash_bwd_prep")
+    return rows
+
+
+def _one_pass(q, k, v, o, lse, do, dob, causal, window, q_offset, g_lse,
+              mode: int):
+    """The backward through the one-pass kernel: the rows' lse·log2(e)
+    and Δ·scale (:func:`flash_bwd_rows_cuda`, Δ = rowsum(do∘o) − g_lse
+    in f32 from ``do`` as given; the same pass zeroes the q tiles of dq
+    no key tile sees), then one launch on ``dob`` (do in q's dtype),
+    which writes dq, dk and dv through an f32 workspace of its own."""
+    b, l, h, d = q.shape
+    dq = torch.empty(q.shape, device=q.device, dtype=q.dtype)
+    rows = flash_bwd_rows_cuda(o, lse, do, g_lse, dq, causal=causal,
+                               window=window, q_offset=q_offset)
+    q, k, v, dob = _unit_stride(q, k, v, dob)
+    tiles = b * h * -(-l // FLASH_BWD_BQ)
+    ws = torch.empty((tiles * FLASH_BWD_BQ * d,), device=q.device,
+                     dtype=torch.float32)
+    dk = torch.empty(k.shape, device=k.device, dtype=k.dtype)
+    dv = torch.empty(v.shape, device=v.device, dtype=v.dtype)
+    ctr = _item_counter(q.device, 1 + tiles)
+    lib = _build.library("flash_bwd")
+    with torch.cuda.device(q.device):
+        rc = lib.lmr_flash_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dob.data_ptr(),
+            rows.data_ptr(), ws.data_ptr(), dq.data_ptr(), ctr.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, l, h, k.shape[2], d,
+            *q.stride()[:3],
+            *k.stride()[:3], *v.stride()[:3], *dob.stride()[:3], int(causal),
+            window, q_offset, mode, torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, rc, "flash_bwd kernel launch")
+    count_launch("flash_bwd")
+    return dq, dk, dv
+
+
+def flash_bwd_forced(q, k, v, o, lse, do, *, causal: bool, window: int = 0,
+                     q_offset: int = 0, mode: str = "kernel"):
+    """The whole one-pass backward (bf16 CUDA operands TMA can describe,
+    head dim 64) with its kernel in decomposition mode ``mode`` (a
+    FLASH_BWD_MODES key: the kernel, its products alone with Pᵀ = Sᵀ and
+    dSᵀ = dPᵀ, its elementwise part alone with no product issued, or its
+    loads and dq sums alone; all but the first compute no gradient and
+    are for timing): phase 2's decomposition. Raises on operands the
+    kernel does not take."""
+    dob = do.to(q.dtype)
+    _check_bwd_operands(q, k, v, dob, "flash_bwd kernel")
+    return _one_pass(q, k, v, o, lse, do, dob, causal, window, q_offset,
+                     None, FLASH_BWD_MODES[mode])
 
 
 def _bwd_launch(entry: str, kernel: str, q, k, v, do, lse, delta, outs,
@@ -388,7 +620,9 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, *, causal: bool,
                       window: int = 0, q_offset: int = 0):
     """dq through the dq kernel: ``do`` in q's dtype, ``lse`` and Δ
     (with the lse cotangent already folded in) contiguous (B, L, H) f32.
-    Returns a contiguous (B, L, H, D) dq in q's dtype."""
+    Returns a contiguous (B, L, H, D) dq in q's dtype. bf16 operands at
+    head dim 64 that TMA can describe are refused: they take the one-pass
+    kernel (:func:`flash_attention_bwd_cuda`)."""
     dq = torch.empty(q.shape, device=q.device, dtype=q.dtype)
     _bwd_launch("lmr_flash_bwd_dq", "flash_bwd_dq", q, k, v, do, lse, delta,
                 (dq,), causal, window, q_offset)
@@ -410,19 +644,25 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool,
 def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool,
                              window: int = 0, q_offset: int = 0,
                              g_lse=None):
-    """The backward on the card: Δ = rowsum(do∘o) − g_lse in f32 from
-    the f32 out (one elementwise pass in torch, O(L·d), as the JAX
-    package leaves it to XLA), ``do`` cast to q's dtype, then the dq and
-    the dkv kernels. Returns (dq, dk, dv)."""
+    """The backward on the card, ``do`` cast once to q's dtype: for bf16
+    at head dim 64 in a layout TMA can describe the rows' pre-pass and
+    the one-pass kernel; else Δ = rowsum(do∘o) − g_lse in f32 from the
+    f32 out (elementwise passes in torch, O(L·d), as the JAX package
+    leaves it to XLA) and the dq and the dkv kernels. Returns (dq, dk,
+    dv)."""
+    dob = do.to(q.dtype)
+    if q.shape[-1] == FLASH_BWD_D and \
+            flash_bwd_kernel_path(q, k, v, dob) == "tma":
+        return _one_pass(q, k, v, o, lse, do, dob, causal, window,
+                         q_offset, g_lse, 0)
     delta = (do.float() * o.float()).sum(-1)
     if g_lse is not None:
         delta = delta - g_lse.float()
     delta = delta.contiguous()
     lse = lse.float().contiguous()
-    do = do.to(q.dtype)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
-    dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw)
-    dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)
+    dq = flash_bwd_dq_cuda(q, k, v, dob, lse, delta, **kw)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, dob, lse, delta, **kw)
     return dq, dk, dv
 
 
@@ -433,8 +673,8 @@ class _FlashForward(torch.autograd.Function):
     out and the lse as residuals (JAX ``_flash_fwd`` / ``_flash_lse_fwd``);
     without it, one launch of the form asked for. The backward takes a
     cotangent for out and, with ``with_lse``, for lse — either may be
-    None — and runs the dq/dkv kernels (CUDA) or the plain backward
-    (CPU)."""
+    None — and runs the backward kernels (CUDA: :func:`flash_attention_
+    bwd_cuda`) or the plain backward (CPU)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset, with_lse,

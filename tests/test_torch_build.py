@@ -159,6 +159,31 @@ def test_ptxas_functions_reads_registers_spills_and_serialisation():
         "_Z6serialv": (90, 0, True)}
 
 
+def test_ptxas_serialisations_reads_each_reason():
+    """Each serialised-wgmma notice's reason, by the function it names:
+    C7512's (registers) and another (C7514's, accumulators read in
+    flight) kept apart, so a gate can allow the one and not the
+    other."""
+    c7514 = ("ptxas info    : (C7514) Potential Performance Loss: "
+             "wgmma.mma_async instructions are serialized due to non wgmma "
+             "instructions reading accumulator registers of a wgmma between "
+             "start and end of the pipeline stage in the function "
+             "'_Z6serialv'\n")
+    assert _build.ptxas_serialisations(PTXAS) == {"_Z6serialv": {
+        "due to insufficient register resources for the wgmma pipeline"}}
+    c7512 = ("ptxas info    : (C7512) Potential Performance Loss: "
+             "wgmma.mma_async instructions are serialized due to "
+             "insufficient register resources for the function "
+             "'_Z6spillsv'\n")
+    assert _build.ptxas_serialisations(c7512) == {
+        "_Z6spillsv": {"due to insufficient register resources"}}
+    got = _build.ptxas_serialisations(PTXAS + c7514)
+    assert len(got["_Z6serialv"]) == 2
+    assert any("reading accumulator registers" in x
+               for x in got["_Z6serialv"])
+    assert _build.ptxas_serialisations("") == {}
+
+
 def test_each_library_keeps_its_ptxas_report(tmp_path, monkeypatch):
     """The build writes nvcc's output beside the library it made, so a
     later run that loads the library reads what ptxas said of it; a

@@ -625,7 +625,8 @@ def test_mlp_on_the_card_matches_the_cpu(cuda):
 from lua_mapreduce_tpu_torch.ops.attention import (  # noqa: E402
     flash_attention_bwd_cuda, flash_attention_bwd_plain, flash_attention_cuda,
     flash_attention_plain, flash_bwd_dkv_cuda, flash_bwd_dq_cuda,
-    flash_bwd_kernel_path, flash_kernel_path)
+    flash_bwd_kernel_path, flash_bwd_kernel_plan, flash_bwd_plan,
+    flash_kernel_path)
 from lua_mapreduce_tpu_torch.ops.decode import (  # noqa: E402
     _merge_splits_plain, decode_attention_cuda, decode_attention_plain,
     decode_splits, merge_splits_cuda)
@@ -854,18 +855,39 @@ def test_flash_item_counter_is_left_at_zero(cuda):
 
 
 def test_flash_ptxas_reports_no_spill_or_serialised_wgmma(cuda):
-    """ptxas's report of the built flash library, kept beside it: every
-    TMA kernel instantiation (head dim 64 and 128, both forms, three
-    decomposition modes) without a spill and without serialised wgmmas
-    (C7512, C7514), on every run, whether or not it built the library."""
+    """ptxas's report of the built flash libraries, kept beside them:
+    every TMA kernel instantiation of the forward (head dim 64 and 128,
+    both forms, three decomposition modes) and of the backward (the
+    one-pass kernel's four modes, the two-kernel form's dq and dkv at
+    head dim 128) without a spill and without serialised wgmmas (C7512,
+    C7514), on every run, whether or not it built the library — but the
+    head dim 128 dkv kernel, whose dk and dv take 128 of its 168
+    registers a thread: it may spill at most the 548 bytes it spills
+    now, and serialise its wgmmas only for want of registers (C7512), as
+    it does now."""
+    import re
+
     from lua_mapreduce_tpu_torch.ops import _build
-    _build.library("flash")
-    fns = {f: r for f, r in _build.ptxas_functions(
-        _build.ptxas_log("flash")).items() if "flash_wgmma_kernel" in f}
-    assert len(fns) == 7, sorted(fns)
-    for name, (regs, spill, serial) in fns.items():
-        assert regs > 0 and spill == 0 and not serial, (name, regs, spill,
-                                                        serial)
+    from lua_mapreduce_tpu_torch.ops.attention import FLASH_BWD_MODES
+    for lib, pattern, count in (
+            ("flash", r"flash_wgmma_kernel", 7),
+            ("flash_bwd", r"bwd_wgmma_kernel|dq_wgmma_kernel|dkv_wgmma_kernel",
+             len(FLASH_BWD_MODES) + 2)):
+        _build.library(lib)
+        log = _build.ptxas_log(lib)
+        fns = {f: r for f, r in _build.ptxas_functions(log).items()
+               if re.search(pattern, f)}
+        why = _build.ptxas_serialisations(log)
+        assert len(fns) == count, sorted(fns)
+        for name, (regs, spill, serial) in fns.items():
+            if "dkv_wgmma_kernelILi128E" in name:
+                assert regs > 0 and spill <= 548, (name, regs, spill)
+                assert serial == bool(why.get(name)), (name, why)
+                assert all("due to insufficient register resources" in x
+                           for x in why.get(name, ())), (name, why)
+                continue
+            assert regs > 0 and spill == 0 and not serial, (
+                name, regs, spill, serial)
 
 
 def test_flash_sass_keeps_in_flight_wgmma_registers(cuda):
@@ -891,6 +913,230 @@ def test_flash_sass_keeps_in_flight_wgmma_registers(cuda):
         if "Li2EE" not in name and "Li3EE" not in name:
             assert any(i.op.startswith("HGMMA") and
                        i.operands[1].startswith("R") for i in insts), name
+
+
+def test_flash_bwd_sass_keeps_in_flight_wgmma_registers(cuda):
+    """The built backward's wgmma kernels' SASS, checked by
+    tests/torch_sass_wgmma.py: in the one-pass kernel no instruction
+    writes Pᵀ's or dSᵀ's registers while dV's or dK's product reads them,
+    or touches an accumulator (dV, dK, dQ, or Sᵀ and dPᵀ before the waits
+    that retire them) while its product is in flight, on any path
+    through the kernel's loops; every instantiation of it (the
+    decomposition's included) and of the two-kernel form (head dim
+    128)."""
+    import re
+    import subprocess
+    from lua_mapreduce_tpu_torch.ops import _build
+    from torch_sass_wgmma import functions, hazards
+    _build.library("flash_bwd")
+    sass = subprocess.run(
+        [_cuobjdump(), "-sass", str(_build._target("flash_bwd"))],
+        capture_output=True, text=True, check=True).stdout
+    kernels = {name: insts for name, insts in functions(sass).items()
+               if re.search(r"bwd_wgmma_kernel|dq_wgmma_kernel|"
+                            r"dkv_wgmma_kernel", name)}
+    from lua_mapreduce_tpu_torch.ops.attention import FLASH_BWD_MODES
+    assert len(kernels) == len(FLASH_BWD_MODES) + 2, sorted(kernels)
+    for name, insts in kernels.items():
+        assert hazards(insts) == [], name
+    one_pass = [n for n in kernels if "bwd_wgmma_kernel" in n]
+    assert len(one_pass) == len(FLASH_BWD_MODES)
+    for name in one_pass:
+        # the elementwise-alone and loads-alone modes issue no product
+        if "kernelILi2E" not in name and "kernelILi3E" not in name:
+            assert any(i.op.startswith("HGMMA") and
+                       i.operands[1].startswith("R")
+                       for i in kernels[name]), name
+
+
+# (causal, window, q_offset, q heads, kv heads, B, L) of the one-pass
+# kernel: L not a multiple of 128 and below it, windows and q_offset
+# (the ring's hops; key tiles wholly behind the window), GQA 4:1 and
+# 8:1, rows that see no key at all (L 200, offset 150, window 60: rows
+# from 109 on), fewer items than SMs (1 · 2 · 1 and 2 · 1 · 2 items)
+ONE_PASS_CASES = [(True, 0, 0, 4, 4, 2, 300), (True, 0, 0, 2, 2, 1, 100),
+                  (True, 0, 0, 2, 2, 1, 40), (False, 0, 0, 4, 4, 2, 200),
+                  (True, 37, 0, 8, 2, 2, 300), (True, 70, 130, 4, 4, 2, 257),
+                  (True, 96, 700, 2, 2, 1, 900), (True, 0, 0, 8, 2, 2, 515),
+                  (True, 0, 0, 8, 1, 2, 260), (True, 60, 150, 4, 2, 2, 200),
+                  (True, 0, 0, 1, 1, 2, 128)]
+
+
+@pytest.mark.parametrize("case", ONE_PASS_CASES)
+def test_flash_bwd_one_pass_matches_plain(cuda, case):
+    """The one-pass kernel (bf16, head dim 64, one launch) against the
+    plain backward, with an lse cotangent: dq, dk and dv at the bf16
+    tolerance and normwise within 1e-2; rows that see no key get dq 0
+    (the rows' pre-pass writes them: dq is not zeroed first); the
+    counters it ran on are back at 0."""
+    from lua_mapreduce_tpu_torch.ops.attention import _COUNTERS
+    causal, window, q_offset, h, hkv, b, l = case
+    q = _randn(cuda, b, l, h, 64, dtype=torch.bfloat16, scale=2.0)
+    k = _randn(cuda, b, l, hkv, 64, dtype=torch.bfloat16)
+    v = _randn(cuda, b, l, hkv, 64, dtype=torch.bfloat16)
+    do = _randn(cuda, b, l, h, 64)
+    g_lse = _randn(cuda, b, l, h)
+    kw = dict(window=window, q_offset=q_offset)
+    o, lse = flash_attention_cuda(q, k, v, causal=causal, with_lse=True,
+                                  **kw)
+    ops.reset_launch_counts()
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal,
+                                   g_lse=g_lse, **kw)
+    assert ops.launch_counts() == {**dict.fromkeys(ops.KERNELS, 0),
+                                   "flash_bwd_prep": 1, "flash_bwd": 1}
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
+                                     g_lse=g_lse, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape, name
+        torch.testing.assert_close(g.float(), w.float(), **BF16, msg=name)
+        rel = (g.float() - w.float()).norm() / w.float().norm().clamp_min(
+            1e-30)
+        assert float(rel) <= 1e-2, name
+    if window and q_offset:
+        rows = torch.arange(l, device="cuda")
+        dead = rows + q_offset - (l - 1) >= window
+        assert torch.equal(got[0][:, dead], torch.zeros_like(got[0][:, dead]))
+    torch.cuda.synchronize()
+    stream = torch.cuda.current_stream()
+    ctr = _COUNTERS[(stream.device_index, stream.cuda_stream)]
+    assert int(ctr.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("do_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l,g_lse", [(300, True), (128, False), (40, True)])
+def test_flash_bwd_prep_matches_plain(cuda, do_dtype, l, g_lse):
+    """The one-pass kernel's rows pre-pass (one pass over o and do)
+    against its plain version: {lse·log2(e), (rowsum(do∘o) − g_lse) ·
+    scale} a row, zero past L, at 1e-5 (the 64-term sum in another
+    order)."""
+    from lua_mapreduce_tpu_torch.ops.attention import (flash_bwd_rows_cuda,
+                                                       flash_bwd_rows_plain)
+    o = _randn(cuda, 2, l, 4, 64)
+    do = _randn(cuda, 2, l, 4, 64, dtype=do_dtype)
+    lse = _randn(cuda, 2, l, 4)
+    gl = _randn(cuda, 2, l, 4) if g_lse else None
+    ops.reset_launch_counts()
+    got = flash_bwd_rows_cuda(o, lse, do, gl)
+    assert ops.launch_counts()["flash_bwd_prep"] == 1
+    torch.testing.assert_close(got, flash_bwd_rows_plain(o, lse, do, gl),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("causal,window,q_offset,l", [
+    (True, 60, 150, 200), (True, 96, 700, 900), (True, 0, 0, 300),
+    (False, 0, 0, 130), (True, 20, 300, 260)])
+def test_flash_bwd_prep_zeroes_the_q_tiles_no_step_writes(cuda, causal,
+                                                          window, q_offset,
+                                                          l):
+    """Given the one-pass launch's dq, the rows' pre-pass writes zeros
+    into the q tiles no step of the kernel writes (its CPU mirror
+    ``flash_bwd_q_tile_written``) and leaves every other element as it
+    was; the rows are the same as without dq."""
+    from lua_mapreduce_tpu_torch.ops.attention import (
+        FLASH_BWD_BQ, flash_bwd_q_tile_written, flash_bwd_rows_cuda)
+    o = _randn(cuda, 2, l, 4, 64)
+    do = _randn(cuda, 2, l, 4, 64)
+    lse = _randn(cuda, 2, l, 4)
+    dq = torch.full((2, l, 4, 64), 7.0, device="cuda", dtype=torch.bfloat16)
+    rows = flash_bwd_rows_cuda(o, lse, do, None, dq, causal=causal,
+                               window=window, q_offset=q_offset)
+    assert torch.equal(rows, flash_bwd_rows_cuda(o, lse, do))
+    written = torch.tensor(
+        [flash_bwd_q_tile_written(i // FLASH_BWD_BQ, l, causal, window,
+                                  q_offset) for i in range(l)],
+        device="cuda")
+    assert bool((dq[:, written] == 7).all())
+    assert bool((dq[:, ~written] == 0).all())
+    if window and q_offset:
+        assert not bool(written.all())
+
+
+def test_flash_bwd_one_pass_head_dim_128_keeps_the_two_kernels(cuda):
+    """At head dim 128 the TMA path stays the dq and dkv kernels (the
+    one-pass kernel is head dim 64 only), and matches the plain
+    backward."""
+    q, k, v = (_randn(cuda, 2, 300, 4, 128, dtype=torch.bfloat16)
+               for _ in range(3))
+    do = _randn(cuda, 2, 300, 4, 128)
+    o, lse = flash_attention_cuda(q, k, v, causal=True, with_lse=True)
+    ops.reset_launch_counts()
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, True)
+    assert ops.launch_counts() == {**dict.fromkeys(ops.KERNELS, 0),
+                                   "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, True)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), **BF16)
+
+
+def test_flash_bwd_two_kernel_entries_refuse_the_one_pass_operands(cuda):
+    """bf16 operands at head dim 64 that TMA can describe run the
+    one-pass kernel or raise: the dq and dkv entry points refuse them."""
+    q, k, v, do = (_randn(cuda, 1, 70, 2, 64, dtype=torch.bfloat16)
+                   for _ in range(4))
+    lse = torch.zeros((1, 70, 2), device="cuda")
+    with pytest.raises(RuntimeError, match="launch"):
+        flash_bwd_dq_cuda(q, k, v, do, lse, lse, causal=True)
+    with pytest.raises(RuntimeError, match="launch"):
+        flash_bwd_dkv_cuda(q, k, v, do, lse, lse, causal=True)
+
+
+@pytest.mark.parametrize("b,l,h,hkv", [(8, 2048, 16, 16), (8, 2048, 16, 4),
+                                       (1, 100, 2, 2), (2, 300, 8, 1)])
+def test_flash_bwd_plan_matches_the_kernel(cuda, b, l, h, hkv):
+    """The one-pass kernel's schedule (``lmr_flash_bwd_plan``) is its CPU
+    mirror's on this card."""
+    props = torch.cuda.get_device_properties(0)
+    assert flash_bwd_kernel_plan(b, l, h, hkv) == flash_bwd_plan(
+        b, l, h, hkv, props.multi_processor_count, props.L2_cache_size)
+
+
+def _one_pass_inputs(cuda, b=2, l=700, h=8, hkv=2):
+    q = _randn(cuda, b, l, h, 64, dtype=torch.bfloat16, scale=2.0)
+    k, v = (_randn(cuda, b, l, hkv, 64, dtype=torch.bfloat16)
+            for _ in range(2))
+    do = _randn(cuda, b, l, h, 64)
+    o, lse = flash_attention_cuda(q, k, v, causal=True, with_lse=True)
+    return q, k, v, o, lse, do
+
+
+def test_flash_bwd_one_pass_bit_equal_beside_a_concurrent_kernel(cuda):
+    """dq's partials are summed in one fixed order, not in the order the
+    blocks happen to run: a call beside a long product on another stream
+    (which holds SMs, so the backward's blocks start and run at other
+    times) gives the bits of a call alone."""
+    q, k, v, o, lse, do = _one_pass_inputs(cuda, b=4, l=2048, h=16, hkv=4)
+    alone = flash_attention_bwd_cuda(q, k, v, o, lse, do, True)
+    a = _randn(cuda, 8192, 8192, dtype=torch.bfloat16)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    for _ in range(3):
+        with torch.cuda.stream(side):
+            busy = [a @ a for _ in range(4)]
+        beside = flash_attention_bwd_cuda(q, k, v, o, lse, do, True)
+        torch.cuda.synchronize()
+        for x, y in zip(alone, beside):
+            assert torch.equal(x, y)
+        del busy
+
+
+def test_flash_bwd_one_pass_captured_equals_eager(cuda):
+    """A CUDA graph capture of the backward (its workspace and counters
+    in the graph's memory) replays to the eager call's bits."""
+    q, k, v, o, lse, do = _one_pass_inputs(cuda)
+    eager = flash_attention_bwd_cuda(q, k, v, o, lse, do, True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        flash_attention_bwd_cuda(q, k, v, o, lse, do, True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = flash_attention_bwd_cuda(q, k, v, o, lse, do, True)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for x, y in zip(captured, eager):
+            assert torch.equal(x, y)
 
 
 def test_flash_gradient_raises_on_the_card(cuda):
@@ -929,10 +1175,10 @@ BWD_CASES = [(False, 0, 0, 4, 4, 96), (True, 0, 0, 4, 4, 200),
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("case", BWD_CASES)
 def test_flash_bwd_kernels_match_plain(cuda, dtype, d, case):
-    """dq from the dq kernel and (dk, dv) from the dkv kernel against
-    the plain backward on the same inputs, with an lse cotangent: f32
-    at 1e-4, bf16 at 2e-2 and normwise within 1e-2. bf16 takes the TMA
-    + wgmma kernels."""
+    """The backward's kernels against the plain backward on the same
+    inputs, with an lse cotangent: f32 at 1e-4, bf16 at 2e-2 and
+    normwise within 1e-2. bf16 takes the TMA + wgmma kernels: the
+    one-pass kernel at head dim 64, the dq and dkv kernels at 128."""
     causal, window, q_offset, h, hkv, l = case
     q = _randn(cuda, 2, l, h, d, dtype=dtype, scale=0.5)
     k = _randn(cuda, 2, l, hkv, d, dtype=dtype, scale=0.5)
@@ -1025,22 +1271,21 @@ def test_flash_bwd_path_follows_the_layout(cuda):
 
 @pytest.mark.parametrize("group", [1, 2, 4, 8])
 def test_flash_bwd_two_calls_bit_equal(cuda, group):
-    """No atomics: two calls of each backward kernel give the same bits,
-    GQA's sum over the group included."""
-    h, l, d = 8, 300, 64
-    q = _randn(cuda, 2, l, h, d, dtype=torch.bfloat16, scale=2.0)
-    k, v = (_randn(cuda, 2, l, h // group, d, dtype=torch.bfloat16)
-            for _ in range(2))
-    do = _randn(cuda, 2, l, h, d, dtype=torch.bfloat16)
-    o, lse = flash_attention_cuda(q, k, v, causal=True, with_lse=True)
-    delta = (do.float() * o).sum(-1).contiguous()
-    assert flash_bwd_kernel_path(q, k, v, do) == "tma"
-    dq = [flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal=True)
-          for _ in range(2)]
-    dkv = [flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=True)
-           for _ in range(2)]
-    assert torch.equal(dq[0], dq[1])
-    assert all(torch.equal(a, b) for a, b in zip(*dkv))
+    """No unordered sums: two calls of the backward give the same bits,
+    GQA's sum over the group and dq's partials (summed in a fixed order)
+    included — the one-pass kernel at head dim 64, the dq and dkv
+    kernels at 128."""
+    h, l = 8, 300
+    for d in (64, 128):
+        q = _randn(cuda, 2, l, h, d, dtype=torch.bfloat16, scale=2.0)
+        k, v = (_randn(cuda, 2, l, h // group, d, dtype=torch.bfloat16)
+                for _ in range(2))
+        do = _randn(cuda, 2, l, h, d, dtype=torch.bfloat16)
+        o, lse = flash_attention_cuda(q, k, v, causal=True, with_lse=True)
+        assert flash_bwd_kernel_path(q, k, v, do) == "tma"
+        first, second = (flash_attention_bwd_cuda(q, k, v, o, lse, do, True)
+                         for _ in range(2))
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_lm_train_step_on_the_card_matches_the_cpu(cuda):

@@ -9,7 +9,14 @@ checkpoint, are byte-equal to a barrier v1 LocalExecutor run's. On a mismatch th
 the first differing iteration, the directory under ``tmp_path`` that
 keeps the run's files and spans (``python -m
 lua_mapreduce_tpu_torch.trace object:DIR/spill`` reads them) and the one
-that keeps each iteration's result files of both runs."""
+that keeps each iteration's result files of both runs.
+
+Both runs take their mapfn from ``tests/digits_dump_task.py``, which
+keeps each map body's checkpoint, meta and emitted bytes under the
+test's tmp directory. On a mismatch the message also names the pool's
+map bodies whose bytes differ from the LocalExecutor's body of the same
+step and key, and those whose bytes a fresh process, recomputing them
+from the checkpoint and meta they read, does not reproduce."""
 
 import json
 import os
@@ -28,7 +35,9 @@ from lua_mapreduce_tpu_torch.store.router import get_storage_from
 from lua_mapreduce_tpu_torch.trace import Tracer, install_tracer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TESTS = os.path.join(REPO, "tests")
 DIGITS = "lua_mapreduce_tpu_torch.examples.digits.mr_train"
+DUMP = "digits_dump_task"
 ITERS = 6
 # chip_smoke.py's DP_FAULT_PLAN: data-plane and coord-RPC faults,
 # max_per_key 2 < the retry budget of 3
@@ -37,15 +46,48 @@ PLAN = ("seed=24;transient=0.04;torn=0.08;error_after_write=0.12;"
 _RESULT = re.compile(r"^result\.P\d+$")
 
 
+def _init_args(root):
+    return {"sizes": [256, 128, 10], "n_shards": 4, "bunch": 128,
+            "max_steps": ITERS, "patience": 10_000, "seed": 0,
+            "device": "cpu", "model_store": f"shared:{root}/model"}
+
+
 def _spec(root, spill):
-    return TaskSpec(taskfn=DIGITS, mapfn=DIGITS, partitionfn=DIGITS,
+    """The digits task, its map bodies kept under ``root``/maps."""
+    os.makedirs(f"{root}/maps", exist_ok=True)
+    return TaskSpec(taskfn=DIGITS, mapfn=DUMP, partitionfn=DIGITS,
                     reducefn=DIGITS, finalfn=DIGITS,
-                    init_args={"sizes": [256, 128, 10], "n_shards": 4,
-                               "bunch": 128, "max_steps": ITERS,
-                               "patience": 10_000, "seed": 0,
-                               "device": "cpu",
-                               "model_store": f"shared:{root}/model"},
+                    init_args={**_init_args(root),
+                               "dump_dir": f"{root}/maps"},
                     storage=f"{spill}:{root}/spill")
+
+
+def _map_bodies(root):
+    """The kept map bodies under ``root``/maps: {(step, key): [stem]}."""
+    bodies = {}
+    for name in sorted(os.listdir(f"{root}/maps")):
+        if name.endswith(".out"):
+            step, key = name.split("-")[:2]
+            bodies.setdefault((step, key), []).append(
+                os.path.join(f"{root}/maps", name[:-4]))
+    return bodies
+
+
+def _map_diffs(local_root, pool_root, scratch):
+    """The pool's kept map bodies whose emitted bytes differ from the
+    LocalExecutor's of the same step and key, and those a fresh process
+    does not reproduce from the checkpoint and meta they read."""
+    local, pool = _map_bodies(local_root), _map_bodies(pool_root)
+    want = {k: open(v[0] + ".out", "rb").read() for k, v in local.items()}
+    stems = [s for v in pool.values() for s in v]
+    unlike = [s for (k, v) in pool.items() for s in v
+              if open(s + ".out", "rb").read() != want.get(k)]
+    fresh = subprocess.run(
+        [sys.executable, os.path.join(TESTS, f"{DUMP}.py"),
+         json.dumps(_init_args(pool_root)), str(scratch), *stems],
+        cwd=REPO, capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=REPO + os.pathsep + TESTS))
+    return unlike, fresh.stdout.split() or fresh.stderr[-2000:]
 
 
 def _files(store, names):
@@ -104,8 +146,8 @@ def _pool_equals_barrier_local(tmp_path, monkeypatch, replication, plan):
 
     root, coord = tmp_path / "pool", str(tmp_path / "coord")
     env = dict(os.environ, LMR_FAULT_PLAN=plan,
-               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
-                                                             ""))
+               PYTHONPATH=REPO + os.pathsep + TESTS + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
     reports = [str(tmp_path / f"w{i}.json") for i in range(2)]
     procs = [subprocess.Popen(
         [sys.executable, "-m", "lua_mapreduce_tpu_torch.cli.execute_worker",
@@ -132,15 +174,19 @@ def _pool_equals_barrier_local(tmp_path, monkeypatch, replication, plan):
     assert len(stats.iterations) == ITERS == len(want_its)
     differ = [i + 1 for i, (a, b) in enumerate(zip(want_its, got_its))
               if a != b]
-    kept = None
+    kept, unlike, unrepeated = None, None, None
     if differ or _checkpoint(root) != want_ckpt:
         kept = _keep_iterations(tmp_path / "iterations", want_its, got_its)
+        unlike, unrepeated = _map_diffs(tmp_path / "local", root,
+                                        tmp_path / "fresh")
     assert not differ and _checkpoint(root) == want_ckpt, (
         f"replication {replication}: result files first differ in "
         f"iteration {differ[0] if differ else None} of {differ} (checkpoint"
         f" equal: {_checkpoint(root) == want_ckpt}); the run's files and "
         f"spans are kept under {root}, each iteration's result files of "
-        f"both runs under {kept}")
+        f"both runs under {kept}; the pool's map bodies unlike the "
+        f"LocalExecutor's: {unlike}; those a fresh process does not "
+        f"reproduce from their own inputs: {unrepeated}")
     unremoved = COUNTERS.delta(c0, COUNTERS.snapshot()).get(
         "unremoved_spills", 0)
     return [json.load(open(r)) for r in reports], unremoved

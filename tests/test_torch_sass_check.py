@@ -166,6 +166,69 @@ def test_a_write_to_an_in_flight_flash_product_is_flagged(at, line, reg,
     assert found and what.format(reg) in found[0], found
 
 
+# the one-pass flash backward's step (csrc/flash_bwd.cu, opk): Sᵀ
+# (R24-R55) and dPᵀ (R56-R87) issued as two groups; the wait that keeps
+# one retires Sᵀ, Pᵀ is packed into R88-R91 and dV += Pᵀ·dO (dV in
+# R120-R151) issued; the next wait that keeps one retires dPᵀ while dV
+# is in flight, dSᵀ is formed in dPᵀ's registers, packed into R92-R95 and
+# stored for dQ, dK += dSᵀ·Q (dK in R152-R183) issued; after the
+# warpgroups' barrier dQ (64 × 32 in R184-R199) is issued from shared
+# memory, and the last wait retires dV, dK and dQ before dQ is staged
+ONE_PASS = [
+    "WARPGROUP.ARRIVE",
+    "HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT",
+    "HGMMA.64x64x16.F32.BF16 R24, gdesc[UR8], R24, gsb0",
+    "WARPGROUP.ARRIVE",
+    "HGMMA.64x64x16.F32.BF16 R56, gdesc[UR12], RZ, !UPT",
+    "HGMMA.64x64x16.F32.BF16 R56, gdesc[UR16], R56, gsb0",
+    "WARPGROUP.DEPBAR.LE gsb0, 0x1",
+    "FFMA R24, R24, R3, -R5",
+    "MUFU.EX2 R24, R24",
+    "F2FP.BF16.F32.PACK_AB R88, R25, R24",
+    "WARPGROUP.ARRIVE",
+    "HGMMA.64x64x16.F32.BF16 R120, R88, gdesc[UR20], R120, gsb0",
+    "WARPGROUP.DEPBAR.LE gsb0, 0x1",
+    "FFMA R6, R56, R7, -R8",
+    "FMUL R56, R24, R6",
+    "F2FP.BF16.F32.PACK_AB R92, R57, R56",
+    "STS [R9], R92",
+    "WARPGROUP.ARRIVE",
+    "HGMMA.64x64x16.F32.BF16 R152, R92, gdesc[UR24], R152, gsb0",
+    "BAR.SYNC.DEFER_BLOCKING 0x1, 0x100",
+    "WARPGROUP.ARRIVE",
+    "HGMMA.64x32x16.F32.BF16 R184, gdesc[UR28], RZ, !UPT",
+    "HGMMA.64x32x16.F32.BF16 R184, gdesc[UR32], R184, gsb0",
+    "WARPGROUP.DEPBAR.LE gsb0, 0x0",
+    "STS.128 [R10], R184",
+    "EXIT",
+]
+
+
+def test_the_one_pass_backward_step_passes():
+    assert check(ONE_PASS) == []
+
+
+@pytest.mark.parametrize("at,line,reg,what", [
+    # dSᵀ packed into Pᵀ's registers while dV += Pᵀ·dO still reads them
+    (13, "F2FP.BF16.F32.PACK_AB R89, R57, R56", 89,
+     "writes R{}, an in-flight wgmma's A fragment"),
+    # dSᵀ's registers rewritten while dK += dSᵀ·Q still reads them
+    (19, "MOV R93, RZ", 93,
+     "writes R{}, an in-flight wgmma's A fragment"),
+    # dSᵀ formed before the wait that retires dPᵀ
+    (12, "FMUL R57, R25, R6", 57,
+     "writes R{}, an in-flight wgmma's accumulator"),
+    # dQ staged before the last wait
+    (23, "STS.128 [R10], R184", 184,
+     "reads R{}, an in-flight wgmma's accumulator"),
+])
+def test_a_write_to_an_in_flight_one_pass_product_is_flagged(at, line, reg,
+                                                            what):
+    lines = ONE_PASS[:at] + [line] + ONE_PASS[at:]
+    found = check(lines)
+    assert found and what.format(reg) in found[0], found
+
+
 # a tile loop inside an outer loop: the column test (two instructions a
 # branch skips) left out of the count, four exponentials a pass
 MIX = [
